@@ -1,0 +1,126 @@
+"""Build the CUDA sources in ``eamg_tpu_torch/csrc`` and bind them.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process into
+``build/eamg_tpu_torch/<digest>/lib<name>.so`` at the repository root
+(listed in ``.gitignore``), where ``<digest>`` hashes the sources and the
+flags, so an edited kernel is rebuilt and an unchanged one is reused. The
+libraries have a plain C interface and are loaded with ``ctypes``; nothing
+here includes PyTorch's headers, so a build takes seconds. Nothing is
+built when a module is imported: the first launch, or :func:`build_all`,
+builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "eamg_tpu_torch"
+SOURCES = ("attention", "ffn", "decode_attention", "topk")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+# dtype codes, mirrored by csrc/common.cuh
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: the kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_ROOT / _digest() / f"lib{name}.so"
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every missing library, one ``nvcc`` per source, all started
+    together. Returns {name: seconds} for what was built."""
+    out_dir = BUILD_ROOT / _digest()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        target = out_dir / f"lib{name}.so"
+        if target.exists():
+            continue
+        tmp = out_dir / f".lib{name}.{os.getpid()}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    times, errors = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, target)
+        times[name] = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return times
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            path = lib_path(name)
+            if not path.exists():
+                build_all([name])
+            _libs[name] = ctypes.CDLL(str(path))
+        return _libs[name]
+
+
+def bind(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
+    f = getattr(library(name), fn)
+    f.argtypes = argtypes
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a launch CUDA refused (the kernel never ran)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float

@@ -1,0 +1,94 @@
+"""Prefill attention: kernel K1 (``csrc/attention.cu``) and its plain
+version.
+
+Replaces ``eamg_tpu/ops/attention.py::flash_attention``. The kernel is
+GQA-native (k/v carry ``Hkv`` heads, shared by groups of ``H // Hkv`` query
+heads) and takes per-row valid key counts ``[B]``, so a later ragged
+prefill can give each row its own length.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from . import _build
+
+launches = 0
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid_len: torch.Tensor | None = None,
+                    causal: bool = False) -> torch.Tensor:
+    """The JAX model's XLA attention (models/gpt.py::attention): grouped
+    scores in the input dtype, masked keys filled with ``finfo(dt).min``,
+    softmax in f32 cast back, grouped values.
+
+    q [B, H, T, Dh], k/v [B, Hkv, T, Dh]; valid_len None or [B] int."""
+    B, H, T, Dh = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, T, Dh)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k) * (1.0 / math.sqrt(Dh))
+    if causal or valid_len is not None:
+        cols = torch.arange(Tk, device=q.device)
+        mask = torch.ones((B, T, Tk), dtype=torch.bool, device=q.device)
+        if valid_len is not None:
+            mask = mask & (cols[None, None, :]
+                           < valid_len.to(q.device)[:, None, None])
+        if causal:
+            mask = mask & (cols[None, None, :]
+                           <= torch.arange(T, device=q.device)[None, :, None])
+        s = torch.where(mask[:, None, None], s,
+                        torch.finfo(s.dtype).min)
+    probs = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqm,bkmd->bkgqd", probs, v)
+    return out.reshape(B, H, T, Dh)
+
+
+@functools.cache
+def _launch():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("attention", "eamg_attention_fwd",
+                       [P, P, P, P, P, I, I, I, I, I, I, F, I, P])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid_len: torch.Tensor | None = None,
+                    causal: bool = False) -> torch.Tensor:
+    """softmax(q k^T / sqrt(Dh) + mask) v: q [B, H, T, Dh], k/v
+    [B, Hkv, T, Dh], valid_len [B] int32 keys per row (None = all T).
+    CPU tensors take :func:`attention_plain`; CUDA tensors launch K1."""
+    global launches
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, valid_len, causal)
+    B, H, T, Dh = q.shape
+    Hkv = k.shape[1]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dtype not in _build.DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
+                         f"{v.dtype}; want one of float32, bfloat16")
+    if k.shape != (B, Hkv, T, Dh) or v.shape != k.shape or H % Hkv \
+            or Dh not in (16, 32, 64, 128) or (H // Hkv) * 32 > 1024:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: inputs must be contiguous")
+    if valid_len is None:
+        valid_len = torch.full((B,), T, dtype=torch.int32, device=q.device)
+    if valid_len.shape != (B,) or valid_len.dtype != torch.int32 \
+            or valid_len.device != q.device:
+        raise ValueError("flash_attention: valid_len must be [B] int32 on "
+                         "the inputs' device")
+    valid_len = valid_len.contiguous()
+    o = torch.empty_like(q)
+    err = _launch()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    valid_len.data_ptr(), B, H, Hkv, T, Dh, int(causal),
+                    1.0 / math.sqrt(Dh), _build.DTYPE_CODE[q.dtype],
+                    _build.stream_ptr(q))
+    _build.check(err, "flash_attention")
+    launches += 1
+    return o

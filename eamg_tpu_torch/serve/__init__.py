@@ -1,0 +1,7 @@
+"""Serving: the request pipeline and the HTTP server."""
+
+from .pipeline import Pipeline, pipeline_from_checkpoint
+from .server import make_server, serve_forever_in_thread
+
+__all__ = ["Pipeline", "make_server", "pipeline_from_checkpoint",
+           "serve_forever_in_thread"]

@@ -1,0 +1,242 @@
+"""HTTP service: the ``POST /generate`` contract on the stdlib server.
+
+Port of ``eamg_tpu/serve/server.py`` for the solo path: ``POST /generate``
+with form field ``prompt`` (multipart or urlencoded), ``format=wav|midi``
+(form field or query), and the sampling fields ``seed``, ``temperature``,
+``top_k``, ``top_p``, ``min_p``; ``GET /healthz``, ``GET /stats`` and the
+static page at ``GET /`` (the JAX package's ``serve/static/index.html``,
+read by path). Malformed input gets a 4xx, never a 500. A request that
+asks for an option the port does not have yet (sections, stream, lookup,
+medusa, beams, penalties, n-gram bans, grammar) gets a 400 naming it;
+``/profile`` is a 404 until the port has its own trace capture.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+from ..utils.logging import JsonLogger, LatencyStats
+from .pipeline import NotInPort, Pipeline
+
+_STATIC_PAGE = (Path(__file__).resolve().parents[2] / "eamg_tpu" / "serve"
+                / "static" / "index.html")
+
+_CORS = {
+    "Access-Control-Allow-Origin": "*",
+    "Access-Control-Allow-Methods": "*",
+    "Access-Control-Allow-Headers": "*",
+}
+
+MAX_BODY_BYTES = 2 << 20
+MAX_PROMPT_CHARS = 20_000
+
+# request options the JAX server serves and the port does not yet: flags
+# (on as "1"/"true"/"yes", like the JAX server reads them) and numbers
+# with their neutral value
+_NOT_YET_FLAGS = ("sections", "stream", "lookup", "medusa", "grammar")
+_NOT_YET_NUMBERS = {"beams": 0.0, "no_repeat_ngram": 0.0,
+                    "repetition_penalty": 1.0, "frequency_penalty": 0.0,
+                    "presence_penalty": 0.0}
+
+
+def _parse_multipart(body: bytes, content_type: str) -> dict[str, str]:
+    """Minimal multipart/form-data parser (text fields only)."""
+    fields: dict[str, str] = {}
+    boundary = None
+    for part in content_type.split(";"):
+        part = part.strip()
+        if part.startswith("boundary="):
+            boundary = part[len("boundary="):].strip('"')
+    if not boundary:
+        return fields
+    for chunk in body.split(b"--" + boundary.encode()):
+        chunk = chunk.strip(b"\r\n")
+        if not chunk or chunk == b"--" or b"\r\n\r\n" not in chunk:
+            continue
+        header_blob, value = chunk.split(b"\r\n\r\n", 1)
+        name = None
+        for line in header_blob.split(b"\r\n"):
+            if line.lower().startswith(b"content-disposition"):
+                for item in line.split(b";"):
+                    item = item.strip()
+                    if item.startswith(b'name="'):
+                        name = item[6:-1].decode("utf-8", "replace")
+        if name is not None:
+            fields[name] = value.decode("utf-8", "replace")
+    return fields
+
+
+def _num(fields, key, default, conv):
+    raw = fields.get(key)
+    if raw is None or raw == "":
+        return default
+    try:
+        return conv(raw)
+    except (TypeError, ValueError):
+        raise ValueError(f"form field {key!r} must be a number, "
+                         f"got {raw[:40]!r}") from None
+
+
+def _unsupported(fields: dict, qs: dict) -> str | None:
+    """The first requested option the port does not serve yet."""
+    def value(name):
+        return qs.get(name, [fields.get(name, "")])[0].strip().lower()
+
+    for name in _NOT_YET_FLAGS:
+        if value(name) in ("1", "true", "yes"):
+            return name
+    for name, neutral in _NOT_YET_NUMBERS.items():
+        raw = value(name)
+        try:
+            if raw and float(raw) != neutral:
+                return name
+        except ValueError:
+            return name
+    return None
+
+
+class EAMGHandler(BaseHTTPRequestHandler):
+    pipeline: Pipeline = None  # injected by make_server
+    quiet: bool = True
+    stats: LatencyStats = None
+    logger: JsonLogger = None
+
+    def log_message(self, fmt, *args):  # noqa: N802
+        if not self.quiet:
+            super().log_message(fmt, *args)
+
+    def _send(self, code: int, body: bytes, content_type: str,
+              extra: dict | None = None):
+        self.send_response(code)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in {**_CORS, **(extra or {})}.items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _json(self, code: int, obj):
+        self._send(code, json.dumps(obj).encode(), "application/json")
+
+    def do_OPTIONS(self):  # noqa: N802
+        self._send(204, b"", "text/plain")
+
+    def do_GET(self):  # noqa: N802
+        path = urllib.parse.urlparse(self.path).path
+        if path in ("/", "/index.html") and _STATIC_PAGE.is_file():
+            self._send(200, _STATIC_PAGE.read_bytes(),
+                       "text/html; charset=utf-8")
+        elif path == "/healthz":
+            self._json(200, {"status": "ok"})
+        elif path == "/stats":
+            self._json(200, self.stats.summary())
+        elif path == "/profile":
+            self._json(404, {"error": "/profile is not yet in the PyTorch "
+                                      "port"})
+        else:
+            self._json(404, {"error": "not found"})
+
+    def do_POST(self):  # noqa: N802
+        parsed = urllib.parse.urlparse(self.path)
+        if parsed.path != "/generate":
+            self._json(404, {"error": "not found"})
+            return
+        try:
+            self._generate(parsed)
+        except Exception as exc:  # pragma: no cover - defensive
+            self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
+
+    def _generate(self, parsed):
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+        except ValueError:
+            self._json(400, {"error": "bad Content-Length"})
+            return
+        if length > MAX_BODY_BYTES:
+            remaining = min(length, 16 << 20)
+            while remaining > 0:
+                chunk = self.rfile.read(min(remaining, 1 << 16))
+                if not chunk:
+                    break
+                remaining -= len(chunk)
+            self._json(413, {"error": "request body too large"})
+            return
+        body = self.rfile.read(max(length, 0))
+        ctype = self.headers.get("Content-Type", "")
+        try:
+            if ctype.startswith("multipart/form-data"):
+                fields = _parse_multipart(body, ctype)
+            else:
+                fields = {k: v[0] for k, v in
+                          urllib.parse.parse_qs(body.decode()).items()}
+        except Exception:
+            self._json(400, {"error": "malformed request body"})
+            return
+        prompt = fields.get("prompt", "")
+        if not prompt:
+            self._json(422, {"error": "form field 'prompt' required"})
+            return
+        if len(prompt) > MAX_PROMPT_CHARS:
+            self._json(422, {"error": f"prompt too long (max "
+                                      f"{MAX_PROMPT_CHARS} chars)"})
+            return
+        qs = urllib.parse.parse_qs(parsed.query)
+        missing = _unsupported(fields, qs)
+        if missing is not None:
+            self._json(400, {"error": str(NotInPort(missing))})
+            return
+        fmt = qs.get("format", [fields.get("format", "wav")])[0]
+        if fmt not in ("wav", "midi"):
+            self._json(422, {"error": "format must be wav or midi"})
+            return
+        try:
+            sampling = dict(
+                temperature=_num(fields, "temperature", 1.0, float),
+                top_k=_num(fields, "top_k", 50, int),
+                top_p=_num(fields, "top_p", 1.0, float),
+                min_p=_num(fields, "min_p", 0.0, float),
+                seed=_num(fields, "seed", None, int))
+            if not sampling["temperature"] > 0.0:
+                raise ValueError("temperature must be > 0")
+        except ValueError as exc:
+            self._json(422, {"error": str(exc)})
+            return
+        t_start = time.perf_counter()
+        result = self.pipeline.generate(prompt, render_audio=fmt == "wav",
+                                        **sampling)
+        self.stats.observe(time.perf_counter() - t_start,
+                           tokens=len(result.tokens))
+        timings = {k: round(v, 1) for k, v in result.timings_ms.items()}
+        self.logger.log("generate", emotion=result.label,
+                        n_tokens=len(result.tokens), timings_ms=timings)
+        extra = {"X-EAMG-Timings": json.dumps(timings),
+                 "X-EAMG-Emotion": result.label,
+                 "X-EAMG-Tokens": str(len(result.tokens))}
+        if fmt == "midi":
+            extra["Content-Disposition"] = \
+                'attachment; filename="generated.mid"'
+            self._send(200, result.midi_bytes, "audio/midi", extra)
+        else:
+            extra["Content-Disposition"] = \
+                'attachment; filename="generated.wav"'
+            self._send(200, result.wav_bytes, "audio/wav", extra)
+
+
+def make_server(pipeline: Pipeline, host: str = "127.0.0.1",
+                port: int = 8000, quiet: bool = True) -> ThreadingHTTPServer:
+    handler = type("BoundHandler", (EAMGHandler,),
+                   {"pipeline": pipeline, "quiet": quiet,
+                    "stats": LatencyStats(),
+                    "logger": JsonLogger(component="serve")})
+    return ThreadingHTTPServer((host, port), handler)
+
+
+def serve_forever_in_thread(server: ThreadingHTTPServer) -> threading.Thread:
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    return t

@@ -1,0 +1,129 @@
+"""JAX's threefry PRNG, bit for bit, in plain integer PyTorch ops.
+
+Sampled token streams and the additive synth's drum noise can only match
+the JAX package if the random bits match. This module reproduces
+``jax.random`` as jax 0.9.0 runs it with ``jax_threefry_partitionable=True``
+(its default): ``PRNGKey``, ``split``, ``bits``, ``uniform``, ``gumbel`` and
+``categorical``.
+
+A key is a pair of Python ints (two uint32 words). The key schedule is
+cheap scalar work and stays on the host; only the bit arrays are torch
+tensors, made on the device that asks for them. ``_threefry2x32`` is
+written with plain operators so the same code serves Python ints and
+int64 tensors (each word kept masked to 32 bits).
+
+Partitionable mode, as in ``jax/_src/prng.py``:
+- ``split(key, n)[i] = threefry(key, (hi(i), lo(i)))``, both output words;
+- ``bits(key, shape)[i] = x0 ^ x1`` of ``threefry(key, (hi(i), lo(i)))``
+  over the row-major flat index ``i``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_M = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+F32_TINY = 1.1754943508222875e-38   # np.finfo(np.float32).tiny
+
+
+def _rotl(x, r: int):
+    return ((x << r) & _M) | (x >> (32 - r))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds (jax ``_threefry2x32_lowering``). Keys and
+    counts may be Python ints or int64 tensors holding uint32 values."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M
+    x1 = (x1 + ks[1]) & _M
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & _M
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M
+    return x0, x1
+
+
+def PRNGKey(seed: int) -> tuple[int, int]:  # noqa: N802  (jax's name)
+    """``jax.random.PRNGKey`` with 64-bit types off: the seed's low 32
+    bits, high word 0."""
+    return (0, int(seed) & _M)
+
+
+def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
+    """``jax.random.split`` (partitionable): key ``i`` is the threefry of
+    counter ``i``."""
+    return [_threefry2x32(key[0], key[1], i >> 32, i & _M)
+            for i in range(num)]
+
+
+def bits(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of uint32
+    values. ``key`` may also be a list of S keys: the result is then
+    ``[S, *shape]``, row s drawn with key s."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    count = torch.arange(n, dtype=torch.int64, device=device)
+    if isinstance(key, list):
+        kt = torch.tensor(key, dtype=torch.int64, device=device)
+        k0, k1 = kt[:, 0:1], kt[:, 1:2]
+        out_shape = (len(key), *shape)
+    else:
+        k0, k1 = key
+        out_shape = shape
+    x0, x1 = _threefry2x32(k0, k1, count >> 32, count & _M)
+    return (x0 ^ x1).reshape(out_shape)
+
+
+def bits_rows(key, n_cols: int, rows: torch.Tensor) -> torch.Tensor:
+    """Rows ``rows`` of ``bits(key, (N, n_cols))`` without drawing the
+    others: in partitionable mode element (r, c) is counter
+    ``r * n_cols + c``, independent of every other element."""
+    cols = torch.arange(n_cols, dtype=torch.int64, device=rows.device)
+    count = rows.to(torch.int64)[:, None] * n_cols + cols[None, :]
+    x0, x1 = _threefry2x32(key[0], key[1], count >> 32, count & _M)
+    return x0 ^ x1
+
+
+def _bits_to_unit_f32(b: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> float32 in [0, 1): a random mantissa under exponent
+    0, minus one (jax ``_uniform``)."""
+    fb = (b >> 9) | 0x3F800000
+    return fb.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_from_bits(b: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """[0, 1) floats scaled to [minval, maxval). XLA fuses the scale and
+    shift into one multiply-add with a single rounding; the product of two
+    f32 values and the sum are exact in f64 here (the unit floats are
+    multiples of 2^-23), so f64 then one rounding to f32 gives its bits."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=b.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=b.device)
+    scaled = (_bits_to_unit_f32(b).double() * (hi - lo).double()
+              + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    return uniform_from_bits(bits(key, shape, device), minval, maxval)
+
+
+def gumbel(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.gumbel`` in its default "low" mode, float32.
+    ``key`` may be a list of keys (see :func:`bits`)."""
+    u = uniform_from_bits(bits(key, shape, device), F32_TINY, 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for float32
+    logits: the Gumbel-max trick, first index on ties."""
+    g = gumbel(key, logits.shape, logits.device)
+    return torch.argmax(g + logits, dim=-1)
