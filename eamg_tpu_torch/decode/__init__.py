@@ -1,4 +1,5 @@
-"""Solo KV-cache decoding: sampling, the decode loop and ``Generator``."""
+"""KV-cache decoding: sampling, the solo decode loop and ``Generator``, and
+the ragged batched decode (``decode/ragged.py``)."""
 
 from .api import Generator
 

@@ -7,6 +7,13 @@ additive mask (``mask_value`` on filtered tokens). The draw is
 the Gumbel noise from the threefry port (``utils/prng.py``), so a seeded
 stream matches the JAX package token for token.
 
+``sample_rows`` is the row-batched form the ragged decode and the
+continuous engine use (``decode/ragged.py::_sample_per_row`` and
+``serve/continuous.py::_sample_rows`` in the JAX package, which vmap
+``sample_token`` over the rows): one temperature per row and, in per-row
+mode, one top-p and one min-p per row, with all rows' thresholds found by
+one launch each.
+
 Penalties, n-gram bans and grammar constraints are not in the port yet.
 """
 
@@ -72,4 +79,38 @@ def sample_token(key, logits: torch.Tensor, temperature: float, top_k: int,
                            min_p)
     if gumbel is None:
         gumbel = prng.gumbel(key, logits.shape, logits.device)
+    return torch.argmax(gumbel + logits, dim=-1)
+
+
+def sample_rows(logits: torch.Tensor, temps: torch.Tensor, top_k: int,
+                mask_value: float = -1e10, greedy: bool = False,
+                top_p: float = 1.0, min_p: float = 0.0,
+                top_ps: torch.Tensor | None = None,
+                min_ps: torch.Tensor | None = None,
+                gumbel: torch.Tensor | None = None) -> torch.Tensor:
+    """[B, V] f32 logits, temps [B] -> [B] int64 token ids, row b drawn
+    with its own noise ``gumbel[b]`` ([B, V], from the rows' keys).
+
+    ``top_p``/``min_p`` are batch-wide floats. ``top_ps``/``min_ps`` ([B])
+    switch to per-row filtering instead: a row at 1.0 / 0.0 keeps its
+    logits bit for bit (the filtered values are selected per row), so an
+    unfiltered request samples what it would sample alone."""
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temps[:, None]
+    logits = apply_top_k(logits, top_k, mask_value)
+    if top_ps is None:
+        logits = apply_top_p(logits, top_p, mask_value)
+        logits = apply_min_p(logits, min_p, mask_value)
+    else:
+        pp = top_ps[:, None]
+        thresh = top_p_threshold(logits, pp)
+        masked = logits + torch.where(logits >= thresh, 0.0, mask_value)
+        logits = torch.where(pp < 1.0, masked, logits)
+        mp = (min_ps if min_ps is not None
+              else torch.zeros_like(top_ps))[:, None]
+        thresh = (logits.max(dim=-1, keepdim=True).values
+                  + torch.log(torch.clamp(mp, 1e-38, 1.0)))
+        masked = logits + torch.where(logits >= thresh, 0.0, mask_value)
+        logits = torch.where(mp > 0.0, masked, logits)
     return torch.argmax(gumbel + logits, dim=-1)

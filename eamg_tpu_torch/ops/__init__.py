@@ -1,6 +1,7 @@
 """The hand-written Hopper kernels and their plain PyTorch versions.
 
-Each module holds one kernel's wrapper, its plain version and an integer
-``launches`` counter. A wrapper given CPU tensors runs the plain version;
-given CUDA tensors it launches the kernel or raises.
+Each module holds kernel wrappers and their plain versions. A wrapper
+given CPU tensors runs the plain version; given CUDA tensors it launches
+the kernel or raises, and counts the launch under its own name in
+``_build.launch_counts()``.
 """

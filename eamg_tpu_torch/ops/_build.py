@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "eamg_tpu_torch"
-SOURCES = ("attention", "ffn", "decode_attention", "topk")
+SOURCES = ("attention", "ffn", "decode_attention", "topk", "decode_fold",
+           "stream_reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -34,6 +35,29 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+# launches per kernel wrapper, by the wrapper's name; under a lock, so the
+# counts stay exact when the engine's worker and the HTTP threads launch at
+# the same time
+_count_lock = threading.Lock()
+_launch_counts: dict[str, int] = {}
+
+
+def count_launch(name: str) -> None:
+    """One more launch of wrapper ``name``: called where a wrapper has
+    launched its kernel, and nowhere else."""
+    with _count_lock:
+        _launch_counts[name] = _launch_counts.get(name, 0) + 1
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        _launch_counts.clear()
+
+
+def launch_counts() -> dict[str, int]:
+    with _count_lock:
+        return dict(_launch_counts)
 
 
 def _nvcc() -> str:

@@ -16,8 +16,6 @@ import torch
 
 from . import _build
 
-launches = 0
-
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_len: torch.Tensor | None = None,
@@ -60,7 +58,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(Dh) + mask) v: q [B, H, T, Dh], k/v
     [B, Hkv, T, Dh], valid_len [B] int32 keys per row (None = all T).
     CPU tensors take :func:`attention_plain`; CUDA tensors launch K1."""
-    global launches
     if q.device.type == "cpu":
         return attention_plain(q, k, v, valid_len, causal)
     B, H, T, Dh = q.shape
@@ -90,5 +87,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     1.0 / math.sqrt(Dh), _build.DTYPE_CODE[q.dtype],
                     _build.stream_ptr(q))
     _build.check(err, "flash_attention")
-    launches += 1
+    _build.count_launch("flash_attention")
     return o

@@ -15,8 +15,6 @@ import torch
 
 from . import _build
 
-launches = 0
-
 SPLIT = 64   # keys per split: CH in csrc/decode_attention.cu
 
 
@@ -53,7 +51,6 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     """Attention of q [B, H, 1, Dh] over cache positions 0..t[b] of
     k/v [B, Hkv, M, Dh]; t [B] int32. CPU tensors take
     :func:`decode_attention_plain`; CUDA tensors launch K3."""
-    global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, t)
     if q.device.type != "cuda":
@@ -85,5 +82,5 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                     B, H, Hkv, M, Dh, 1.0 / math.sqrt(Dh),
                     _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
     _build.check(err, "flash_decode")
-    launches += 1
+    _build.count_launch("flash_decode")
     return o

@@ -1,0 +1,179 @@
+"""Fold decode attention over a position-major fused KV cache, and the
+stream-reduce probe: the kernels of ``csrc/decode_fold.cu`` and
+``csrc/stream_reduce.cu`` with their plain versions.
+
+Replaces ``eamg_tpu/ops/decode_fold.py::flash_decode_fold_sp``,
+``::flash_decode_fold3_sp`` and ``::stream_reduce``.
+
+The cache keeps K and V fused and position-major, ``kv [B, M, 2 * KVD]``
+with K at ``[..., :KVD]``: the tail of the fused QKV projection, so a
+decode step writes one contiguous ``[B, 2 * KVD]`` slice per layer and
+never splits heads. q is ``[B, 1, D]`` and the result ``[B, 1, D]``, both
+in concat-heads order, and ``t`` (a scalar or ``[B]``) is each row's
+newest valid position, so the same function serves a uniform batch, the
+ragged decode and the continuous-batching engine. q may be a view of the
+fused QKV projection (rows ``D`` contiguous elements, any row stride).
+
+The two decode entry points compute one function with two thread layouts
+(see the CUDA source); :data:`fold_decode` names the one the ragged
+decode and the engine call.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from . import _build
+
+SPLIT = 64   # keys per split: CH in csrc/decode_fold.cu
+RS = 16      # lines per block: RS in csrc/stream_reduce.cu
+
+
+def _row_positions(t, B: int, device) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=torch.int32, device=device).expand(B)
+
+
+def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
+                              n_head: int) -> torch.Tensor:
+    """The JAX package's XLA reference on the position-major layout
+    (``xla_decode_attention_pm``): grouped scores in the cache dtype, keys
+    past ``t`` filled with ``finfo(dt).min``, softmax in f32 cast back,
+    grouped values.
+
+    q [B, 1, D], kv [B, M, 2 * KVD], t scalar or [B] -> [B, 1, D]."""
+    B, _, D = q.shape
+    M = kv.shape[1]
+    KVD = kv.shape[2] // 2
+    Dh = D // n_head
+    kv_heads = KVD // Dh
+    g = n_head // kv_heads
+    k = kv[..., :KVD].reshape(B, M, kv_heads, Dh)
+    v = kv[..., KVD:].reshape(B, M, kv_heads, Dh)
+    qg = q.reshape(B, kv_heads, g, Dh)
+    s = torch.einsum("bkgd,bmkd->bkgm", qg, k) / math.sqrt(Dh)
+    tb = _row_positions(t, B, q.device)
+    mask = (torch.arange(M, device=q.device)[None, None, None, :]
+            <= tb[:, None, None, None])
+    s = torch.where(mask, s, torch.finfo(s.dtype).min)
+    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    o = torch.einsum("bkgm,bmkd->bkgd", p, v)
+    return o.reshape(B, 1, D)
+
+
+@functools.cache
+def _launch_fold():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("decode_fold", "eamg_fold_decode",
+                       [P, P, P, P, P, I, I, I, I, I, I, F, I, I, P])
+
+
+def _fold(name: str, variant: int, q: torch.Tensor, kv: torch.Tensor, t,
+          n_head: int) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return decode_attention_pm_plain(q, kv, t, n_head)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dim() != 3 or kv.dim() != 3 or q.shape[1] != 1 \
+            or kv.shape[0] != q.shape[0] or kv.shape[2] % 2 \
+            or q.shape[2] % n_head:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} kv "
+                         f"{tuple(kv.shape)} n_head {n_head}")
+    B, _, D = q.shape
+    M, KVD = kv.shape[1], kv.shape[2] // 2
+    Dh = D // n_head
+    if KVD % Dh or n_head % (KVD // Dh) or Dh not in (32, 64, 128) \
+            or n_head // (KVD // Dh) not in (1, 2, 4, 8):
+        raise ValueError(f"{name}: D {D}, KVD {KVD}, n_head {n_head}: want "
+                         "Dh in (32, 64, 128) and 1, 2, 4 or 8 query heads "
+                         "per KV head")
+    if q.dtype not in _build.DTYPE_CODE or kv.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{kv.dtype}; want one of "
+                         "float32, bfloat16")
+    if kv.device != q.device or q.stride(2) != 1 or not kv.is_contiguous():
+        raise ValueError(f"{name}: kv must be contiguous, q's rows too, on "
+                         "one device")
+    tb = _row_positions(t, B, q.device).contiguous()
+    n_split = -(-M // SPLIT)
+    part = torch.empty(B * n_head * n_split * (Dh + 2), dtype=torch.float32,
+                       device=q.device)
+    o = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
+    err = _launch_fold()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
+                         o.data_ptr(), part.data_ptr(), B, n_head, KVD // Dh,
+                         M, Dh, q.stride(0), 1.0 / math.sqrt(Dh), variant,
+                         _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+    _build.check(err, name)
+    _build.count_launch(name)
+    return o
+
+
+def flash_decode_fold_sp(q: torch.Tensor, kv: torch.Tensor, t,
+                         n_head: int) -> torch.Tensor:
+    """Attention of q [B, 1, D] over positions 0..t[b] of the fused cache
+    kv [B, M, 2 * KVD] -> [B, 1, D]; t a scalar or [B] int. CPU tensors
+    take :func:`decode_attention_pm_plain`; CUDA tensors launch the kernel
+    with a split's keys across the threads of a block."""
+    return _fold("flash_decode_fold_sp", 0, q, kv, t, n_head)
+
+
+def flash_decode_fold3_sp(q: torch.Tensor, kv: torch.Tensor, t,
+                          n_head: int) -> torch.Tensor:
+    """The same function as :func:`flash_decode_fold_sp`; CUDA tensors
+    launch the kernel whose warps walk the keys with their lanes along
+    Dh."""
+    return _fold("flash_decode_fold3_sp", 1, q, kv, t, n_head)
+
+
+# The decode attention of the ragged decode and the engine: the faster of
+# the two on an H100 at the engine's shapes (PERF.md has both times). Every
+# route of the coalesced path goes through this one entry point, which is
+# what makes a row's stream the same on each of them.
+fold_decode = flash_decode_fold_sp
+
+
+def stream_reduce_plain(kv: torch.Tensor, rows: int = 4) -> torch.Tensor:
+    """What the JAX package's ``stream_reduce`` returns for kv [B, M, W]:
+    the f32 sum, cast back, over the lines of the LAST group of ``rows``
+    batch rows, as [1, W]. Every grid step of the Pallas kernel writes the
+    same output block, so the last one wins: the function is a read-rate
+    probe and not a reduction of the whole array."""
+    B, M, W = kv.shape
+    groups = B // rows
+    last = kv[(groups - 1) * rows:groups * rows].reshape(rows * M, W)
+    return last.sum(dim=0, keepdim=True, dtype=torch.float32).to(kv.dtype)
+
+
+@functools.cache
+def _launch_stream():
+    P, I = _build.P, _build.I
+    return _build.bind("stream_reduce", "eamg_stream_reduce",
+                       [P, P, P, I, I, I, I, P])
+
+
+def stream_reduce(kv: torch.Tensor, rows: int = 4) -> torch.Tensor:
+    """kv [B, M, W] -> [1, W]: reads all ``B // rows`` groups of ``rows``
+    batch rows and returns the last group's sum over its lines (see
+    :func:`stream_reduce_plain`). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if kv.device.type == "cpu":
+        return stream_reduce_plain(kv, rows)
+    if kv.device.type != "cuda":
+        raise ValueError(f"stream_reduce: unsupported device {kv.device}")
+    if kv.dim() != 3 or rows <= 0 or kv.shape[0] < rows:
+        raise ValueError(f"stream_reduce: kv {tuple(kv.shape)}, rows {rows}")
+    if kv.dtype not in _build.DTYPE_CODE or not kv.is_contiguous():
+        raise ValueError("stream_reduce: kv must be contiguous float32 or "
+                         "bfloat16")
+    B, M, W = kv.shape
+    groups, lines = B // rows, rows * M
+    part = torch.empty(groups * -(-lines // RS) * W, dtype=torch.float32,
+                       device=kv.device)
+    o = torch.empty((1, W), dtype=kv.dtype, device=kv.device)
+    err = _launch_stream()(kv.data_ptr(), o.data_ptr(), part.data_ptr(),
+                           groups, lines, W, _build.DTYPE_CODE[kv.dtype],
+                           _build.stream_ptr(kv))
+    _build.check(err, "stream_reduce")
+    _build.count_launch("stream_reduce")
+    return o

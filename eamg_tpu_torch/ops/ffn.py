@@ -14,8 +14,6 @@ import torch.nn.functional as F
 
 from . import _build
 
-launches = 0
-
 _ACT = {"relu": 0, "gelu": 1}
 
 
@@ -45,7 +43,6 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               activation: str = "relu") -> torch.Tensor:
     """x [..., D], w1 [FF, D], b1 [FF], w2 [D, FF], b2 [D] -> [..., D].
     CPU tensors take :func:`ffn_plain`; CUDA tensors launch K2."""
-    global launches
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2, activation)
     if x.device.type != "cuda":
@@ -80,5 +77,5 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     ws.data_ptr(), rows, D, FF, _ACT[activation],
                     _build.DTYPE_CODE[x.dtype], _build.stream_ptr(x))
     _build.check(err, "fused_ffn")
-    launches += 1
+    _build.count_launch("fused_ffn")
     return out

@@ -21,8 +21,6 @@ import torch
 
 from . import _build
 
-launches = 0
-
 _SIGN = 0x80000000
 _REST = 0x7FFFFFFF
 _M = 0xFFFFFFFF
@@ -87,7 +85,6 @@ def kth_value(logits: torch.Tensor, k: int) -> torch.Tensor:
     """[B, V] -> [B, 1] exact k-th largest value per row, 0 < k <= V.
     CPU tensors take :func:`kth_value_plain`; CUDA tensors launch K4 (on
     the logits as f32, the result cast back, like the Pallas wrapper)."""
-    global launches
     if logits.device.type == "cpu":
         return kth_value_plain(logits, k)
     if logits.device.type != "cuda":
@@ -104,5 +101,5 @@ def kth_value(logits: torch.Tensor, k: int) -> torch.Tensor:
     err = _launch()(x.data_ptr(), out.data_ptr(), B, V, int(k),
                     _build.stream_ptr(x))
     _build.check(err, "kth_value")
-    launches += 1
+    _build.count_launch("kth_value")
     return out.to(logits.dtype)

@@ -1,0 +1,205 @@
+"""Request coalescing by window: concurrent /generate calls share one
+ragged decode.
+
+Port of ``eamg_tpu/serve/batcher.py``. Requests that arrive within a small
+window are grouped by their sampling params, padded into a ragged batch
+(``decode/ragged.py``) and decoded together; each row carries its own
+PRNG key, so a coalesced request returns the stream it would have produced
+alone. Batch sizes bucket to {1, 2, 4, 8, ...} with dummy rows. Penalties,
+n-gram bans and grammar constraints are not in the port yet: ``accepts``
+turns them away and the pipeline decodes them on the solo path.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..decode.api import Generator, _bucket
+from ..decode.ragged import generate_kv_ragged
+from ..utils import prng
+from ..utils.device import bind_thread_to
+from ..utils.errors import NotInPort
+from .continuous import _NEUTRAL_PEN, EngineOverloaded, wait_for_worker
+
+
+@dataclass
+class _Pending:
+    prompt_ids: list
+    temperature: float
+    top_k: int
+    top_p: float
+    min_p: float
+    greedy: bool
+    seed: int
+    max_len: int
+    event: threading.Event = field(default_factory=threading.Event)
+    result: list | None = None
+    error: Exception | None = None
+
+
+class RequestBatcher:
+    def __init__(self, generator: Generator, max_batch: int = 8,
+                 window_ms: float = 10.0, max_len: int | None = None,
+                 max_queue: int = 256, grammar=None):
+        if grammar is not None:
+            raise NotInPort("a grammar in the batcher")
+        self.gen = generator
+        # where the parameters really are (with its index), for the worker
+        self.device = generator.params["tok_emb"].device
+        self.max_batch = max_batch
+        self.window = window_ms / 1000.0
+        self.max_len = min(max_len or generator.cfg.seq_len,
+                           generator.max_supported_len())
+        self.max_queue = max_queue       # 0 = unbounded
+        self._q: queue.Queue = queue.Queue()
+        self.stats = {"calls": 0, "requests": 0, "max_group": 0,
+                      "rejected": 0}
+        self._stop = False
+        self._busy = False   # worker holds a dequeued group (drain())
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    # ------------------------------------------------------------- client
+
+    def overloaded(self) -> bool:
+        return bool(self.max_queue) and self._q.qsize() >= self.max_queue
+
+    def accepts(self, penalties: tuple | None = None,
+                no_repeat_ngram: int | None = None, grammar: bool = False,
+                medusa: bool = False, **_) -> bool:
+        """The window batcher groups by param combination, so it takes any
+        temperature, top-k, top-p and min-p; what the port's ragged decode
+        lacks (penalties, n-gram bans, grammar, medusa) is turned away, and
+        callers fall back to a solo decode."""
+        return ((penalties is None
+                 or tuple(float(v) for v in penalties) == _NEUTRAL_PEN)
+                and not no_repeat_ngram and not grammar and not medusa)
+
+    def submit(self, prompt_ids: list[int], temperature: float = 1.0,
+               top_k: int = 50, greedy: bool = False,
+               seed: int | None = None, timeout: float = 600.0,
+               max_len: int | None = None, top_p: float = 1.0,
+               min_p: float = 0.0, penalties: tuple | None = None,
+               no_repeat_ngram: int = 0, grammar: bool = False) -> list:
+        if not self.accepts(penalties=penalties,
+                            no_repeat_ngram=no_repeat_ngram,
+                            grammar=grammar):
+            raise NotInPort("penalties, n-gram bans and grammar in the "
+                            "batcher")
+        ml = int(min(max_len or self.max_len, self.max_len))
+        if len(prompt_ids) >= ml:
+            # zero generation steps: prompt returned unchanged (reference
+            # semantics), as generate_ids and ContinuousBatcher.submit do
+            return list(prompt_ids)
+        req = _Pending(prompt_ids, float(temperature), int(top_k),
+                       float(top_p), float(min_p), bool(greedy),
+                       int(seed) if seed is not None
+                       else int(time.time_ns() % 2**31), ml)
+        if self.overloaded():
+            self.stats["rejected"] += 1
+            raise EngineOverloaded(
+                f"batcher admission queue full "
+                f"({self.max_queue} requests waiting)")
+        self._q.put(req)
+        if not wait_for_worker(req.event, self._thread, timeout):
+            raise TimeoutError("generation timed out")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Wait for queued and in-flight groups to finish (graceful
+        shutdown; the same three-consecutive-idle-polls rule as
+        ContinuousBatcher.drain)."""
+        deadline = time.monotonic() + timeout
+        idle = 0
+        while time.monotonic() < deadline:
+            if self._q.qsize() == 0 and not self._busy:
+                idle += 1
+                if idle >= 3:
+                    return True
+            else:
+                idle = 0
+            time.sleep(0.05)
+        return self._q.qsize() == 0 and not self._busy
+
+    def close(self, timeout: float = 30.0):
+        self._stop = True
+        self._q.put(None)
+        self._thread.join(timeout)
+
+    # ------------------------------------------------------------- worker
+
+    def _worker(self):
+        bind_thread_to(self.device)
+        while not self._stop:
+            first = self._q.get()
+            self._busy = True     # before any check: drain() must see it
+            if first is None:
+                break
+            group = [first]
+            deadline = time.monotonic() + self.window
+            while len(group) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:          # close() sentinel mid-window
+                    self._stop = True
+                    break
+                group.append(nxt)
+            # split by sampling params (one ragged call per combination);
+            # max_len buckets to powers of two as in the JAX package
+            by_params: dict = {}
+            for r in group:
+                ml = min(1 << (r.max_len - 1).bit_length(), self.max_len)
+                by_params.setdefault(
+                    (r.temperature, r.top_k, r.top_p, r.min_p, r.greedy, ml),
+                    []).append(r)
+            for params, reqs in by_params.items():
+                try:
+                    self._run(reqs, *params)
+                except Exception as exc:  # noqa: BLE001 - worker survives
+                    for r in reqs:
+                        r.error = exc
+                        r.event.set()
+            self._busy = False
+
+    def _run(self, reqs, temperature, top_k, top_p, min_p, greedy, max_len):
+        n = len(reqs)
+        bs = 1
+        while bs < n:
+            bs *= 2
+        width = min(_bucket(max(len(r.prompt_ids) for r in reqs)), max_len)
+        prompt = np.full((bs, width), self.gen.pad_id, np.int64)
+        lens = np.ones((bs,), np.int32)  # dummy rows: 1-token prompts
+        seeds = [0] * bs
+        for i, r in enumerate(reqs):
+            # leave at least one generation slot: a prompt that fills the
+            # request's whole budget would otherwise produce nothing
+            p = r.prompt_ids[:min(width, max(1, r.max_len - 1))]
+            prompt[i, :len(p)] = p
+            lens[i] = len(p)
+            seeds[i] = r.seed
+        buf, pos = generate_kv_ragged(
+            self.gen.params, torch.from_numpy(prompt).to(self.device), lens,
+            prng.key_rows(seeds), self.gen.cfg, max_len,
+            temperature=temperature, top_k=top_k, eos_id=self.gen.eos_id,
+            pad_id=self.gen.pad_id, greedy=greedy, top_p=top_p, min_p=min_p)
+        buf = buf.cpu().numpy()
+        pos = pos.cpu().numpy()
+        self.stats["calls"] += 1
+        self.stats["requests"] += n
+        self.stats["max_group"] = max(self.stats["max_group"], n)
+        for i, r in enumerate(reqs):
+            r.result = buf[i, :min(int(pos[i]), r.max_len)].tolist()
+            r.event.set()

@@ -1,0 +1,591 @@
+"""Continuous batching: requests join and leave a RUNNING ragged decode.
+
+Port of ``eamg_tpu/serve/continuous.py``. The engine owns a persistent
+device-resident decode state, a fixed pool of row slots over one shared
+ragged KV cache (position-major and fused, ``decode/ragged.py``), and
+advances it ``chunk`` steps at a time. Between chunks the host admits
+queued requests into free slots (a per-row prefill writes the new row's
+K/V into the shared cache) and harvests finished rows, so a request that
+arrives mid-decode starts within about one chunk instead of one full
+generation.
+
+Correctness contract (tested): every row's token stream is the one the
+same request gives alone through ``generate_kv_ragged``, whatever the
+other rows do: per-row keys advance once per step, independent of batch
+composition, admission timing and chunk boundaries, and the kernels under
+the step give a row the same bits in any batch (``ops/decode_fold.py``).
+``run_detached`` runs a lone request through the same functions on a
+private state of the same shape.
+
+No step waits for the device. The worker issues chunk k+1 before it reads
+chunk k's flags (depth-1 lookahead, so harvest lags completion by at most
+one chunk), and each harvest is one packed fetch (``_pack_snapshot``:
+buffer, positions and done flags in one tensor), copied without blocking
+into pinned host memory and awaited through an event.
+
+Not in the port yet: medusa rows (``medusa_chunk``), grammar, n-gram bans,
+penalties and ``submit_stream``; ``accepts`` turns such requests away, and
+the pipeline then decodes them on the solo path.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..decode.api import Generator, _bucket
+from ..decode.ragged import (draw_noise, init_ragged_cache, prefill_ragged,
+                             ragged_steps)
+from ..decode.sampling import sample_rows
+from ..utils import prng
+from ..utils.device import bind_thread_to
+from ..utils.errors import NotInPort
+
+_NEUTRAL_PEN = (1.0, 0.0, 0.0)   # (repetition, frequency, presence) = off
+
+
+class EngineOverloaded(RuntimeError):
+    """Raised at submit time when the engine's admission queue is full. The
+    HTTP layer maps it to 503 + Retry-After, so clients back off while the
+    rows in flight keep their latency."""
+
+
+def wait_for_worker(event: threading.Event, worker: threading.Thread,
+                    timeout: float) -> bool:
+    """``event.wait(timeout)``, but a worker thread that has died raises
+    at once instead of leaving its clients to time out."""
+    deadline = time.monotonic() + timeout
+    while not event.wait(min(1.0, max(deadline - time.monotonic(), 0.0))):
+        if not worker.is_alive():
+            raise RuntimeError("the batching worker thread is not running")
+        if time.monotonic() >= deadline:
+            return False
+    return True
+
+
+def init_state(cfg, slots: int, max_len: int, device=None) -> dict:
+    """The engine's state; free slots start done with no budget. All of it
+    lives on ``device`` but ``rngs``, the per-slot running keys ([slots, 2]
+    uint32), which the host advances (``utils/prng.py``)."""
+    def full(value, dtype):
+        return torch.full((slots,), value, dtype=dtype, device=device)
+
+    return {
+        "cache": init_ragged_cache(cfg, slots, max_len, device=device),
+        "buf": torch.zeros((slots, max_len), dtype=torch.int32,
+                           device=device),
+        "pos": full(0, torch.int32),
+        "last": full(0, torch.int64),
+        "done": full(True, torch.bool),
+        "rngs": np.zeros((slots, 2), np.uint32),
+        "row_max": full(0, torch.int32),
+        "temps": full(1.0, torch.float32),
+        "top_ps": full(1.0, torch.float32),
+        "min_ps": full(0.0, torch.float32),
+    }
+
+
+@torch.no_grad()
+def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
+              temp: float, cfg, top_k=50, greedy=False, mask_value=-1e10,
+              eos_id=-1, pad_id=0, top_p=1.0, row_top_p=1.0,
+              per_row_sampling=False, row_min_p=0.0) -> dict:
+    """Prefill ONE request into slot ``slot`` of the running state, in
+    place. prompt: [1, P] on the device (P a power-of-two bucket), ``key``
+    a ``prng.PRNGKey``; ``plen``, ``slot`` and ``rmax`` are host ints.
+    Reproduces ``generate_kv_ragged``'s start exactly: one key split, the
+    first token sampled from the prefill logits and written at position
+    plen. All P cache slots are written, pads included; decode overwrites
+    them from plen on."""
+    dev = prompt.device
+    P = prompt.shape[1]
+    max_len = state["buf"].shape[1]
+    cache = state["cache"]
+    # the row's prefill writes straight into the shared cache
+    row_cache = {"kv": [kv[slot:slot + 1] for kv in cache["kv"]]}
+    logits0, _ = prefill_ragged(
+        params, prompt, torch.tensor([plen], dtype=torch.int32, device=dev),
+        cfg, row_cache)
+    cache["lengths"][slot] = plen
+
+    rng_next, sub = prng.split(key)
+    temps = torch.full((1,), float(temp), dtype=torch.float32, device=dev)
+    first = sample_rows(
+        logits0[:, plen - 1], temps, top_k, mask_value, greedy, top_p, 0.0,
+        torch.full_like(temps, float(row_top_p)) if per_row_sampling
+        else None,
+        torch.full_like(temps, float(row_min_p)) if per_row_sampling
+        else None,
+        None if greedy else draw_noise(np.asarray([sub], np.uint32),
+                                       cfg.vocab_size, dev))[0]
+
+    # buffer row: the prompt, then (when a slot remains) the first token;
+    # a row with plen == rmax starts done and keeps its last prompt token
+    active0 = plen < rmax
+    row = torch.full((max_len,), pad_id, dtype=torch.int32, device=dev)
+    row[:plen] = prompt[0, :plen]
+    if active0:
+        row[plen] = first
+    state["buf"][slot] = row
+    state["pos"][slot] = plen + 1 if active0 else plen
+    state["last"][slot] = first
+    state["done"][slot] = (first == eos_id) if active0 else True
+    state["rngs"][slot] = rng_next
+    state["row_max"][slot] = rmax
+    state["temps"][slot] = float(temp)
+    state["top_ps"][slot] = float(row_top_p)
+    state["min_ps"][slot] = float(row_min_p)
+    return state
+
+
+@torch.no_grad()
+def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
+                 mask_value=-1e10, eos_id=-1, pad_id=0, top_p=1.0,
+                 per_row_sampling=False) -> dict:
+    """Advance every live row ``chunk`` steps, in place (done and free rows
+    are inert). Every slot's key is split once per step, live or not, so a
+    row's key at step n of its life depends on its seed and n alone; the
+    noise of the whole chunk is drawn in one batch. Nothing is read back
+    from the device."""
+    noise = None
+    state["rngs"], subs = prng.split_rows_chain(state["rngs"], chunk)
+    if not greedy:
+        noise = draw_noise(subs, cfg.vocab_size, state["buf"].device)
+    return ragged_steps(params, state, cfg, noise, steps=chunk, top_k=top_k,
+                        greedy=greedy, mask_value=mask_value, eos_id=eos_id,
+                        pad_id=pad_id, top_p=top_p, per_row=per_row_sampling)
+
+
+def _pack_snapshot(state) -> torch.Tensor:
+    """Everything the harvest reads in ONE tensor, [slots, max_len + 2]:
+    the token buffer, then pos, then done. One fetch per chunk."""
+    return torch.cat([state["buf"], state["pos"][:, None],
+                      state["done"][:, None].to(torch.int32)], dim=1)
+
+
+def _start_fetch(snapshot: torch.Tensor):
+    """Begin copying a snapshot to the host without blocking: pinned memory
+    and an event on the issuing stream. Returns what :func:`_finish_fetch`
+    waits on."""
+    if snapshot.device.type != "cuda":
+        return snapshot, None
+    host = torch.empty(snapshot.shape, dtype=snapshot.dtype, pin_memory=True)
+    host.copy_(snapshot, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _finish_fetch(fetch) -> np.ndarray:
+    host, event = fetch
+    if event is not None:
+        event.synchronize()
+    return host.numpy()
+
+
+@dataclass
+class _Pending:
+    prompt_ids: list
+    temperature: float
+    seed: int
+    max_len: int
+    submitted: float
+    top_p: float = 1.0
+    min_p: float = 0.0
+    admit_seq: int = -1          # chunks dispatched when the row joined
+    started: float | None = None
+    finished: float | None = None
+    event: threading.Event = field(default_factory=threading.Event)
+    result: list | None = None
+    error: Exception | None = None
+    # set by the client thread (submit timed out); the worker frees the
+    # slot at the next chunk boundary
+    cancelled: bool = False
+
+
+class ContinuousBatcher:
+    """Persistent decode engine with slot admission.
+
+    top_k/top_p/greedy are engine-wide; temperature and seed are
+    per-request, and with ``per_row_sampling`` so are top_p and min_p (rows
+    at 1.0 / 0.0 are exact no-ops, so unfiltered requests still match their
+    solo runs). Requests longer than the engine's max_len budget return the
+    prompt unchanged."""
+
+    def __init__(self, generator: Generator, slots: int = 8,
+                 chunk: int = 64, max_len: int | None = None,
+                 top_k: int = 50, greedy: bool = False,
+                 mask_value: float = -1e10, max_queue: int = 256,
+                 top_p: float = 1.0, per_row_sampling: bool = False,
+                 no_repeat_ngram: int = 0, grammar=None,
+                 medusa_heads: dict | None = None):
+        for name, on in (("an engine-wide n-gram ban", no_repeat_ngram),
+                         ("a grammar in the engine", grammar is not None),
+                         ("medusa rows in the engine",
+                          medusa_heads is not None)):
+            if on:
+                raise NotInPort(name)
+        assert generator.cfg.causal and not generator.cfg.pos_broadcast_bug,\
+            "continuous batching requires the corrected causal config"
+        self.gen = generator
+        # where the parameters really are (with its index), for the worker
+        self.device = generator.params["tok_emb"].device
+        self.slots = slots
+        self.chunk = chunk
+        self.top_k, self.greedy, self.mask_value = top_k, greedy, mask_value
+        self.top_p = float(top_p)
+        self.per_row_sampling = bool(per_row_sampling)
+        self.max_len = min(max_len or generator.cfg.seq_len,
+                           generator.max_supported_len())
+        # admission control: requests queued beyond the live slots; 0 =
+        # unbounded
+        self.max_queue = max_queue
+        self.state = self._init_state()
+        self._detached_state = None
+        self._q: queue.Queue = queue.Queue()
+        self._cancels: queue.Queue = queue.Queue()
+        self._live: dict[int, _Pending] = {}
+        self._free = list(range(slots))
+        self._busy = False   # worker between dequeue and _live insertion
+        # bounded: a long-running server must not grow per-request state
+        self.stats = {"chunks": 0, "admitted": 0, "served": 0,
+                      "cancelled": 0, "rejected": 0,
+                      "join_delay_ms": deque(maxlen=4096)}
+        self._stop = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _init_state(self) -> dict:
+        return init_state(self.gen.cfg, self.slots, self.max_len,
+                          device=self.device)
+
+    def _sampling(self) -> dict:
+        return dict(top_k=self.top_k, greedy=self.greedy,
+                    mask_value=self.mask_value, eos_id=self.gen.eos_id,
+                    pad_id=self.gen.pad_id, top_p=self.top_p,
+                    per_row_sampling=self.per_row_sampling)
+
+    # ------------------------------------------------------------- client
+
+    def accepts(self, top_k: int | None = None,
+                greedy: bool | None = None,
+                top_p: float | None = None,
+                min_p: float | None = None,
+                penalties: tuple | None = None,
+                no_repeat_ngram: int | None = None,
+                grammar: bool = False, medusa: bool = False) -> bool:
+        """Whether a request's sampling params match the engine (top_k and
+        greedy are engine-wide; top_p/min_p are engine-wide unless the
+        engine runs per-row sampling). Penalties, n-gram bans, grammar and
+        medusa requests are never accepted: the engine of the port does not
+        carry them. Callers fall back to a solo decode on a mismatch."""
+        return ((top_k is None or top_k == self.top_k)
+                and (greedy is None or greedy == self.greedy)
+                and (self.per_row_sampling or top_p is None
+                     or float(top_p) == self.top_p)
+                and (self.per_row_sampling or min_p is None
+                     or float(min_p) == 0.0)
+                and (penalties is None
+                     or tuple(float(v) for v in penalties) == _NEUTRAL_PEN)
+                and not no_repeat_ngram and not grammar and not medusa)
+
+    def idle(self) -> bool:
+        """True when the engine has no live or queued work. A lone request
+        that joins an empty engine pays one harvest wait per chunk alone,
+        so the pipeline decodes it detached (:meth:`run_detached`) and
+        routes requests here only when there is concurrency; the streams
+        are the same either way."""
+        return not self._live and self._q.empty() and not self._busy
+
+    def _validate_params(self, top_k, greedy, top_p, min_p, penalties,
+                         no_repeat_ngram=0, grammar=False, medusa=False):
+        for name, on in (("grammar in the engine", grammar),
+                         ("medusa rows in the engine", medusa),
+                         ("no_repeat_ngram in the engine", no_repeat_ngram)):
+            if on:
+                raise NotInPort(name)
+        pen = (tuple(float(v) for v in penalties)
+               if penalties is not None else _NEUTRAL_PEN)
+        if pen != _NEUTRAL_PEN:
+            raise NotInPort("penalties in the engine")
+        if top_k is not None and top_k != self.top_k:
+            raise ValueError(
+                f"engine built for top_k={self.top_k}, got {top_k}")
+        if greedy is not None and greedy != self.greedy:
+            raise ValueError(
+                f"engine built for greedy={self.greedy}, got {greedy}")
+        if top_p is not None and not self.per_row_sampling \
+                and float(top_p) != self.top_p:
+            raise ValueError(
+                f"engine built for top_p={self.top_p}, got {top_p}")
+        if min_p and not self.per_row_sampling:
+            raise ValueError(
+                "engine needs per_row_sampling mode for min_p requests")
+
+    def submit(self, prompt_ids: list[int], temperature: float = 1.0,
+               seed: int | None = None, max_len: int | None = None,
+               timeout: float = 600.0, top_k: int | None = None,
+               greedy: bool | None = None,
+               top_p: float | None = None,
+               min_p: float | None = None,
+               penalties: tuple | None = None,
+               no_repeat_ngram: int = 0, grammar: bool = False,
+               medusa: bool = False) -> list:
+        self._validate_params(top_k, greedy, top_p, min_p, penalties,
+                              no_repeat_ngram, grammar, medusa)
+        ml = int(min(max_len or self.max_len, self.max_len))
+        if len(prompt_ids) >= ml:
+            return list(prompt_ids)  # zero generation steps (reference)
+        req = _Pending(list(prompt_ids), float(temperature),
+                       int(seed) if seed is not None
+                       else int(time.time_ns() % 2**31), ml,
+                       submitted=time.monotonic(),
+                       top_p=float(top_p) if top_p is not None else 1.0,
+                       min_p=float(min_p) if min_p is not None else 0.0)
+        self._enqueue(req)
+        if not wait_for_worker(req.event, self._thread, timeout):
+            self._request_cancel(req)  # free the slot; nobody is waiting
+            raise TimeoutError("generation timed out")
+        if req.error is not None:
+            raise req.error
+        return req.result
+
+    def submit_stream(self, *args, **kwargs):
+        raise NotInPort("streamed engine rows (submit_stream)")
+
+    def overloaded(self) -> bool:
+        """Cheap admission pre-check."""
+        return bool(self.max_queue) and self._q.qsize() >= self.max_queue
+
+    def _enqueue(self, req: _Pending):
+        """Admission control: bound the number of not-yet-admitted
+        requests. qsize() is approximate under concurrency, but the only
+        consumer is the single worker thread, so it never undercounts
+        waiting requests: the bound cannot be exceeded by more than the
+        handful of racing producers."""
+        if self.overloaded():
+            self.stats["rejected"] += 1
+            raise EngineOverloaded(
+                f"engine admission queue full "
+                f"({self.max_queue} requests waiting)")
+        self._q.put(req)
+
+    def _request_cancel(self, req: _Pending):
+        """Mark ``req`` cancelled (client thread). The worker frees its
+        slot at the next chunk boundary; if the request is still queued,
+        admission skips it. No device work is needed: a zombie row decodes
+        inertly in its slot until ``admit_row`` overwrites every per-slot
+        field on re-admission."""
+        req.cancelled = True
+        self._cancels.put(req)
+
+    def drain(self, timeout: float = 30.0) -> bool:
+        """Graceful shutdown, phase 1: wait for queued and in-flight rows to
+        finish (the HTTP layer has already stopped accepting). Returns True
+        when the engine went idle within ``timeout``. Requires three
+        consecutive idle polls: _busy covers the dequeue->admit window, and
+        the confirmation polls close the gap between the worker's q.get()
+        returning and _busy going up."""
+        deadline = time.monotonic() + timeout
+        idle = 0
+        while time.monotonic() < deadline:
+            if self._q.qsize() == 0 and not self._live and not self._busy:
+                idle += 1
+                if idle >= 3:
+                    return True
+            else:
+                idle = 0
+            time.sleep(0.05)
+        return (self._q.qsize() == 0 and not self._live
+                and not self._busy)
+
+    def _prompt_row(self, prompt_ids) -> torch.Tensor:
+        p = len(prompt_ids)
+        width = min(_bucket(p), self.max_len)
+        prompt = np.full((1, width), self.gen.pad_id, np.int64)
+        prompt[0, :p] = prompt_ids
+        return torch.from_numpy(prompt).to(self.device)
+
+    @torch.no_grad()
+    def run_detached(self, prompt_ids: list[int],
+                     temperature: float = 1.0, seed: int | None = None,
+                     max_len: int | None = None, top_p: float = 1.0,
+                     min_p: float = 0.0) -> list:
+        """One request through the engine's own functions on a private
+        state of the engine's shape (all ``slots`` rows, so every matrix
+        product and kernel launch has the shape it has in the engine, and
+        the row's stream is the engine row's), with every chunk issued back
+        to back and ONE final packed fetch instead of a harvest per chunk.
+
+        Used by the pipeline's idle-engine route. NOT thread-safe (the
+        caller holds the pipeline's single-permit solo gate); does not
+        touch the worker's live state."""
+        # same admission contract as submit(): per-row sampling values on
+        # a non-per-row engine must REJECT, not silently no-op
+        self._validate_params(None, None, top_p, min_p, None)
+        ml = int(min(max_len or self.max_len, self.max_len))
+        p = len(prompt_ids)
+        if p >= ml:
+            return list(prompt_ids)   # zero generation steps (reference)
+        if self._detached_state is None:
+            # admission into slot 0 replaces the slot's entire state, so
+            # the private state is reusable; rows 1+ stay free and inert
+            self._detached_state = self._init_state()
+        opts = self._sampling()
+        state = admit_row(
+            self.gen.params, self._detached_state,
+            self._prompt_row(prompt_ids), p, 0,
+            prng.PRNGKey(int(seed) if seed is not None
+                         else int(time.time_ns() % 2**31)),
+            ml, float(temperature), self.gen.cfg, row_top_p=float(top_p),
+            row_min_p=float(min_p), **opts)
+        # upper bound of chunks; a done row is inert in later chunks, so
+        # over-dispatching is exact. For LONG budgets (>= 6 chunks) one
+        # midpoint done-check bounds the dead full-batch device time for
+        # early-EOS songs at roughly half the budget; short budgets skip
+        # it.
+        n_chunks = max(-(-(ml - p - 1) // self.chunk), 0)
+        for ci in range(n_chunks):
+            state = ragged_chunk(self.gen.params, state, self.gen.cfg,
+                                 chunk=self.chunk, **opts)
+            if n_chunks >= 6 and ci == n_chunks // 2 - 1:
+                if bool(_finish_fetch(_start_fetch(
+                        _pack_snapshot(state)))[0, -1]):
+                    break
+        snap = _finish_fetch(_start_fetch(_pack_snapshot(state)))
+        pos = int(snap[0, -2])
+        return snap[0, :min(pos, ml)].tolist()
+
+    def close(self, timeout: float = 30.0):
+        self._stop = True
+        self._q.put(None)
+        self._thread.join(timeout)
+
+    # ------------------------------------------------------------- engine
+
+    def _admit(self, req: _Pending, slot: int):
+        self.state = admit_row(
+            self.gen.params, self.state, self._prompt_row(req.prompt_ids),
+            len(req.prompt_ids), slot, prng.PRNGKey(req.seed), req.max_len,
+            req.temperature, self.gen.cfg, row_top_p=req.top_p,
+            row_min_p=req.min_p, **self._sampling())
+        req.started = time.monotonic()
+        req.admit_seq = self.stats["chunks"]
+        self._live[slot] = req
+        self.stats["admitted"] += 1
+        self.stats["join_delay_ms"].append(
+            (req.started - req.submitted) * 1000)
+
+    def _harvest(self, fetch, seq):
+        """Wait for a packed snapshot and fulfil finished rows. A done
+        row's buffer is immutable afterwards, so reading it from any later
+        snapshot is safe: the host frees the slot only here. A slot whose
+        occupant was admitted at or after this snapshot's dispatch
+        (admit_seq >= seq) is skipped: the snapshot's done flag still
+        describes the slot's previous life (free slots read done=True)."""
+        arr = _finish_fetch(fetch)
+        buf, pos, done = arr[:, :-2], arr[:, -2], arr[:, -1].astype(bool)
+        for slot, req in list(self._live.items()):
+            if req.admit_seq >= seq or not done[slot]:
+                continue
+            del self._live[slot]
+            req.result = buf[slot, :min(int(pos[slot]),
+                                        req.max_len)].tolist()
+            req.finished = time.monotonic()
+            req.event.set()
+            self._free.append(slot)
+            self.stats["served"] += 1
+
+    def _drain_cancels(self):
+        """Free the slots of cancelled live rows (worker thread only).
+        Popping from ``_live`` is sufficient: harvest acts only on live
+        slots, and the next admission into the slot replaces the zombie
+        row's entire state."""
+        while True:
+            try:
+                req = self._cancels.get(block=False)
+            except queue.Empty:
+                return
+            for slot, r in list(self._live.items()):
+                if r is req:
+                    del self._live[slot]
+                    self._free.append(slot)
+                    self.stats["cancelled"] += 1
+
+    def _fail_all(self, exc: Exception):
+        """Deliver ``exc`` to every live and queued request, reset the
+        engine to empty, and keep serving: one poisoned request or a
+        transient error must not wedge the server."""
+        for req in self._live.values():
+            req.error = exc
+            req.event.set()
+        self._live.clear()
+        self._free = list(range(self.slots))
+        while True:
+            try:
+                req = self._q.get(block=False)
+            except queue.Empty:
+                break
+            if req is None:
+                self._q.put(None)  # preserve the shutdown signal
+                break
+            req.error = exc
+            req.event.set()
+        self.state = self._init_state()
+
+    def _worker(self):
+        bind_thread_to(self.device)
+        pending_fetch = None
+        while not self._stop:
+            try:
+                self._drain_cancels()
+                # admit as many queued requests as there are free slots
+                try:
+                    while self._free:
+                        block = not self._live and pending_fetch is None
+                        req = self._q.get(block=block, timeout=None)
+                        # _busy covers the dequeued-but-not-yet-in-_live
+                        # window so drain() can't report idle while a
+                        # request is mid-admission
+                        self._busy = True
+                        if req is None:
+                            return
+                        if req.cancelled:
+                            self.stats["cancelled"] += 1
+                            # not busy while blocked in the next get()
+                            self._busy = False
+                            continue
+                        self._admit(req, self._free.pop())
+                except queue.Empty:
+                    pass
+                finally:
+                    self._busy = False
+                if not self._live and pending_fetch is None:
+                    continue
+
+                if self._live:
+                    self.state = ragged_chunk(
+                        self.gen.params, self.state, self.gen.cfg,
+                        chunk=self.chunk, **self._sampling())
+                    self.stats["chunks"] += 1
+                    # depth-1 lookahead: the PREVIOUS chunk's flags are
+                    # read while this one computes
+                    prev, pending_fetch = (
+                        pending_fetch,
+                        (_start_fetch(_pack_snapshot(self.state)),
+                         self.stats["chunks"]))
+                    if prev is not None:
+                        self._harvest(*prev)
+                else:
+                    # nothing live: drain the outstanding fetch
+                    prev, pending_fetch = pending_fetch, None
+                    self._harvest(*prev)
+            except Exception as exc:  # noqa: BLE001 - worker must survive
+                pending_fetch = None
+                self._fail_all(exc)

@@ -1,18 +1,29 @@
 """End-to-end request pipeline: text -> emotion -> prompt -> MIDI -> WAV.
 
-Port of ``eamg_tpu/serve/pipeline.py`` for the Scheme-A solo path:
-classify, EATS-map, assemble control tokens, cached decode
-(``Generator.sample_kvcache``), detokenize, render. Per-phase wall-clock
-timings are returned as in the JAX package.
+Port of ``eamg_tpu/serve/pipeline.py`` for the Scheme-A path: classify,
+EATS-map, assemble control tokens, decode, detokenize, render. Per-phase
+wall-clock timings are returned as in the JAX package.
 
-Device work is serialized by one lock per pipeline: the threaded HTTP
-server calls ``generate`` from several threads, and the JAX version
-leaned on jit's thread safety for that.
+The decode takes one of three routes, as in the JAX package. With
+``coalesce="continuous"`` requests go through the persistent engine
+(``serve/continuous.py``), where they join and leave a running ragged
+decode; a lone request on an idle engine is decoded detached
+(``ContinuousBatcher.run_detached``: the engine's own functions on a
+private state, so its bytes are those of an engine row) under a
+single-permit gate, and concurrent followers join the engine. With
+``coalesce="window"`` requests that arrive within 10 ms share one ragged
+decode (``serve/batcher.py``). Without either, or for a request the
+batcher does not accept, the solo cached decode
+(``Generator.sample_kvcache``) runs.
+
+The threaded HTTP server calls ``generate`` from several threads. One lock
+per pipeline serialises the solo decode and the synth; it is not held
+while a request waits in the engine or the batcher, or requests would
+never coalesce.
 
 Not in the port yet (requests asking for them raise ``NotInPort``): B3
-checkpoints, request coalescing, multi-section and streamed generation,
-beams, the speculative modes (lookup, medusa), penalties, n-gram bans and
-grammar constraints.
+checkpoints, multi-section and streamed generation, beams, the speculative
+modes (lookup, medusa), penalties, n-gram bans and grammar constraints.
 """
 
 from __future__ import annotations
@@ -31,19 +42,12 @@ from ..emotion import EmotionClassifier, get_music_params
 from ..tokenizer import Vocab, assemble_prompt, detect_scheme, tokens_to_song
 from ..utils.checkpoint import load_checkpoint
 from ..utils.device import resolve_device
+from ..utils.errors import NotInPort
 
 # the JAX package's shipped demo checkpoints, read as data
 DEMO_CKPT_A = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "eamg_tpu", "serve",
     "demo_ckpt_a")
-
-
-class NotInPort(ValueError):
-    """A request option the JAX package serves but the port does not yet."""
-
-    def __init__(self, option: str):
-        super().__init__(f"{option} is not yet in the PyTorch port")
-        self.option = option
 
 
 @dataclass
@@ -59,11 +63,14 @@ class GenerationResult:
 
 
 class Pipeline:
-    """Scheme-A serving: text control tokens, solo cached decode."""
+    """Scheme-A serving: text control tokens; solo, window-coalesced or
+    continuous-engine decode."""
 
     def __init__(self, generator: Generator,
                  classifier: EmotionClassifier | None = None,
-                 full_gm: bool = False, render_audio: bool = True):
+                 full_gm: bool = False, render_audio: bool = True,
+                 coalesce=False, coalesce_opts: dict | None = None,
+                 fast_routing: bool = False):
         self.generator = generator
         self.device = generator.device
         self.classifier = classifier or EmotionClassifier(device=self.device)
@@ -71,23 +78,120 @@ class Pipeline:
         self.render_audio = render_audio
         self.scheme = "a"
         self._lock = threading.Lock()
+        # coalesce=True/"window" batches requests arriving within a window
+        # into one ragged decode; "continuous" runs the persistent engine.
+        # Both require the corrected causal config.
+        self.batcher = None
+        # at most ONE in-flight request may bypass an IDLE continuous
+        # engine for the detached decode; the single-permit gate keeps a
+        # burst from queueing up on that serial path: followers join the
+        # engine, which is what it is for
+        self._solo_gate = threading.Semaphore(1)
+        # fast_routing=True decodes bypassed rows through the batch-1
+        # ragged decode instead: fewer rows per step, but matrix products
+        # of another shape than the engine's, so on the card a near tie
+        # may fall the other way and same-seed bytes may then depend on
+        # the load a request ran under. Default False: run_detached.
+        self.fast_routing = bool(fast_routing)
+        # True once the engine's path has run in this process (by an engine
+        # submit or by the detached bypass, which runs the same functions)
+        self._engine_warm = False
+        if coalesce == "continuous":
+            from .continuous import ContinuousBatcher
+
+            self.batcher = ContinuousBatcher(generator,
+                                             **(coalesce_opts or {}))
+        elif coalesce:
+            from .batcher import RequestBatcher
+
+            self.batcher = RequestBatcher(generator, **(coalesce_opts or {}))
 
     def warmup(self) -> None:
-        """Build the kernels and run one request before serving."""
+        """Build the kernels and run one request before serving; with a
+        continuous engine that the request did not reach, one engine row
+        too."""
         self.generate("warm up the kernels", seed=0,
                       render_audio=self.render_audio)
+        from .continuous import ContinuousBatcher
+
+        if isinstance(self.batcher, ContinuousBatcher) \
+                and not self._engine_warm:
+            start = [t for t in ("[START_SEQUENCE]",)
+                     if t in self.generator.vocab]
+            ids = self.generator.vocab.encode(start) if start else [1]
+            self.batcher.submit(ids, temperature=1.0, seed=0,
+                                top_p=self.batcher.top_p)
+            self._engine_warm = True
+
+    def _solo_ragged(self, prompt_ids: list, temperature: float, seed: int,
+                     top_p: float, min_p: float) -> list:
+        """Bypassed-row decode; the caller holds the single-permit gate.
+        Default: ``ContinuousBatcher.run_detached``. fast_routing: the
+        batch-1 ragged decode (see ``__init__``)."""
+        b = self.batcher
+        if not self.fast_routing:
+            out = b.run_detached(prompt_ids, temperature=temperature,
+                                 seed=seed, top_p=top_p, min_p=min_p)
+            self._engine_warm = True
+            return out
+        import numpy as np
+
+        from ..decode.api import _bucket
+        from ..decode.ragged import generate_kv_ragged
+        from ..utils import prng
+
+        gen = self.generator
+        if len(prompt_ids) >= b.max_len:
+            return list(prompt_ids)       # zero steps (engine contract)
+        width = min(_bucket(len(prompt_ids)), b.max_len)
+        prompt = np.zeros((1, width), np.int64)
+        prompt[0, :len(prompt_ids)] = prompt_ids
+        buf, pos = generate_kv_ragged(
+            gen.params, torch.from_numpy(prompt).to(self.device),
+            [len(prompt_ids)], prng.key_rows([int(seed)]), gen.cfg,
+            b.max_len, temperature=float(temperature), top_k=b.top_k,
+            eos_id=gen.eos_id, pad_id=gen.pad_id, greedy=b.greedy,
+            mask_value=b.mask_value, top_p=float(top_p), min_p=float(min_p))
+        return buf[0, :int(pos[0])].tolist()
 
     def _decode(self, mapping: dict, temperature: float, top_k: int,
                 run_seed: int, top_p: float, min_p: float):
-        gen_prompt = assemble_prompt(self.generator.vocab, mapping,
+        gen = self.generator
+        gen_prompt = assemble_prompt(gen.vocab, mapping,
                                      full_gm=self.full_gm)
         # a data-dependent vocabulary may lack a control token: drop it
         # and report it (the reference crashed with a KeyError)
-        known = [t for t in gen_prompt if t in self.generator.vocab]
-        dropped = [t for t in gen_prompt if t not in self.generator.vocab]
-        tokens = self.generator.sample_kvcache(
-            known, temperature=temperature, top_k=top_k, seed=run_seed,
-            top_p=top_p, min_p=min_p)
+        known = [t for t in gen_prompt if t in gen.vocab]
+        dropped = [t for t in gen_prompt if t not in gen.vocab]
+        use_batcher = self.batcher is not None and self.batcher.accepts(
+            top_k=top_k, top_p=top_p, min_p=min_p)
+        # a lone request on an IDLE continuous engine would pay one harvest
+        # wait per chunk alone: decode it detached; the gate sends
+        # concurrent followers to the engine
+        solo_bypass = (use_batcher
+                       and getattr(self.batcher, "idle", lambda: False)()
+                       and self._solo_gate.acquire(blocking=False))
+        try:
+            if solo_bypass:
+                tokens = gen.trim_at_eos(self._solo_ragged(
+                    gen.vocab.encode(known), temperature, run_seed, top_p,
+                    min_p))
+            elif use_batcher:
+                # a continuous engine has top_k/greedy (and, outside
+                # per-row mode, top_p/min_p) engine-wide; a mismatching
+                # request falls through to the solo decode below
+                tokens = gen.trim_at_eos(self.batcher.submit(
+                    gen.vocab.encode(known), temperature=temperature,
+                    top_k=top_k, seed=run_seed, top_p=top_p, min_p=min_p))
+                self._engine_warm = True
+            else:
+                with self._lock:
+                    tokens = gen.sample_kvcache(
+                        known, temperature=temperature, top_k=top_k,
+                        seed=run_seed, top_p=top_p, min_p=min_p)
+        finally:
+            if solo_bypass:
+                self._solo_gate.release()
         return known, tokens, tokens_to_song(tokens), dropped
 
     def generate(self, prompt_text: str, temperature: float = 1.0,
@@ -96,37 +200,37 @@ class Pipeline:
                  top_p: float = 1.0, min_p: float = 0.0) -> GenerationResult:
         render = self.render_audio if render_audio is None else render_audio
         timings = {}
-        with self._lock:
-            t0 = time.perf_counter()
-            label = self.classifier.predict(prompt_text)
-            timings["classify"] = (time.perf_counter() - t0) * 1000
+        t0 = time.perf_counter()
+        label = self.classifier.predict(prompt_text)
+        timings["classify"] = (time.perf_counter() - t0) * 1000
 
-            t0 = time.perf_counter()
-            mapping = get_music_params(label, seed=seed)
-            timings["map_and_prompt"] = (time.perf_counter() - t0) * 1000
+        t0 = time.perf_counter()
+        mapping = get_music_params(label, seed=seed)
+        timings["map_and_prompt"] = (time.perf_counter() - t0) * 1000
 
-            t0 = time.perf_counter()
-            run_seed = seed if seed is not None else \
-                int(time.time_ns() % 2**31)
-            gen_prompt, tokens, song, dropped = self._decode(
-                mapping, temperature, top_k, run_seed, top_p, min_p)
-            timings["decode"] = (time.perf_counter() - t0) * 1000
+        t0 = time.perf_counter()
+        run_seed = seed if seed is not None else \
+            int(time.time_ns() % 2**31)
+        gen_prompt, tokens, song, dropped = self._decode(
+            mapping, temperature, top_k, run_seed, top_p, min_p)
+        timings["decode"] = (time.perf_counter() - t0) * 1000
 
-            t0 = time.perf_counter()
-            midi_io = io.BytesIO()
-            song.write(midi_io)
-            timings["detokenize_midi"] = (time.perf_counter() - t0) * 1000
+        t0 = time.perf_counter()
+        midi_io = io.BytesIO()
+        song.write(midi_io)
+        timings["detokenize_midi"] = (time.perf_counter() - t0) * 1000
 
-            wav_bytes = None
-            if render:
-                t0 = time.perf_counter()
-                wav_io = io.BytesIO()
+        wav_bytes = None
+        if render:
+            t0 = time.perf_counter()
+            wav_io = io.BytesIO()
+            with self._lock:
                 render_to_wav_auto(song, wav_io, seed=seed or 0,
                                    device=self.device)
-                wav_bytes = wav_io.getvalue()
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                timings["render_wav"] = (time.perf_counter() - t0) * 1000
+            wav_bytes = wav_io.getvalue()
+            timings["render_wav"] = (time.perf_counter() - t0) * 1000
 
         return GenerationResult(label=label, mapping=mapping,
                                 prompt_tokens=gen_prompt, tokens=tokens,
@@ -137,11 +241,19 @@ class Pipeline:
 
 def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
                              classifier: EmotionClassifier | None = None,
-                             device=None) -> Pipeline:
+                             device=None, coalesce=False,
+                             coalesce_opts: dict | None = None,
+                             fast_routing: bool = False) -> Pipeline:
     """A serving pipeline from a checkpoint directory of the JAX package's
     pickle format; Scheme-A vocabularies only so far. ``device`` None
-    means CUDA (raises without a card)."""
+    means CUDA (raises without a card). ``coalesce``: False, "window" (or
+    True) or "continuous"; ``coalesce_opts`` go to the batcher."""
     device = resolve_device(device)
+    if coalesce == "continuous":
+        # production default of the JAX package: 128-step chunks (half the
+        # harvests per song of the engine class's own default of 64, for a
+        # longer worst-case join wait of about one chunk)
+        coalesce_opts = {"chunk": 128, **(coalesce_opts or {})}
     ckpt = load_checkpoint(path)
     vocab = Vocab(ckpt["vocab"])
     scheme = detect_scheme(vocab)
@@ -151,4 +263,5 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
         print("[serve] medusa heads found; medusa decoding is not yet in "
               "the PyTorch port, plain decode only")
     gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device)
-    return Pipeline(gen, classifier, full_gm=full_gm)
+    return Pipeline(gen, classifier, full_gm=full_gm, coalesce=coalesce,
+                    coalesce_opts=coalesce_opts, fast_routing=fast_routing)

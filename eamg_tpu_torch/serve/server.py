@@ -1,11 +1,13 @@
 """HTTP service: the ``POST /generate`` contract on the stdlib server.
 
-Port of ``eamg_tpu/serve/server.py`` for the solo path: ``POST /generate``
-with form field ``prompt`` (multipart or urlencoded), ``format=wav|midi``
-(form field or query), and the sampling fields ``seed``, ``temperature``,
-``top_k``, ``top_p``, ``min_p``; ``GET /healthz``, ``GET /stats`` and the
-static page at ``GET /`` (the JAX package's ``serve/static/index.html``,
-read by path). Malformed input gets a 4xx, never a 500. A request that
+Port of ``eamg_tpu/serve/server.py``: ``POST /generate`` with form field
+``prompt`` (multipart or urlencoded), ``format=wav|midi`` (form field or
+query), and the sampling fields ``seed``, ``temperature``, ``top_k``,
+``top_p``, ``min_p``; ``GET /healthz``, ``GET /stats`` (with the engine's
+counters under ``engine`` when requests are coalesced) and the static page
+at ``GET /`` (the JAX package's ``serve/static/index.html``, read by
+path). Malformed input gets a 4xx, never a 500. A full admission queue
+(``EngineOverloaded``) gets a 503 with ``Retry-After``. A request that
 asks for an option the port does not have yet (sections, stream, lookup,
 medusa, beams, penalties, n-gram bans, grammar) gets a 400 naming it;
 ``/profile`` is a 404 until the port has its own trace capture.
@@ -20,8 +22,10 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
+from ..utils.errors import NotInPort
 from ..utils.logging import JsonLogger, LatencyStats
-from .pipeline import NotInPort, Pipeline
+from .continuous import EngineOverloaded
+from .pipeline import Pipeline
 
 _STATIC_PAGE = (Path(__file__).resolve().parents[2] / "eamg_tpu" / "serve"
                 / "static" / "index.html")
@@ -100,11 +104,65 @@ def _unsupported(fields: dict, qs: dict) -> str | None:
     return None
 
 
+class _InflightCounter:
+    """Count of /generate requests between accept and response written.
+    Graceful shutdown waits on this and not on the engine alone: after a
+    row's tokens arrive, the handler thread still renders the WAV and
+    writes the response."""
+
+    def __init__(self):
+        self._n = 0
+        self._cond = threading.Condition()
+
+    def __enter__(self):
+        with self._cond:
+            self._n += 1
+
+    def __exit__(self, *exc):
+        with self._cond:
+            self._n -= 1
+            self._cond.notify_all()
+
+    def wait_zero(self, timeout: float) -> bool:
+        with self._cond:
+            return self._cond.wait_for(lambda: self._n == 0, timeout)
+
+
+def _engine_stats(batcher) -> dict:
+    """The batcher's counters for /stats: its numbers, the join-delay
+    percentiles, and the live load an operator tunes --slots and
+    --max-queue by."""
+    eng = {k: v for k, v in batcher.stats.items()
+           if isinstance(v, (int, float))}
+    jd = batcher.stats.get("join_delay_ms")
+    # the worker appends to this deque while we copy it; a copy that
+    # races raises RuntimeError, so retry the copy rather than lock the
+    # worker's append
+    for _ in range(8):
+        try:
+            jd = list(jd) if jd is not None else []
+            break
+        except RuntimeError:
+            continue
+    else:
+        jd = []
+    if jd:
+        js = sorted(jd)
+        eng["p50_join_ms"] = round(js[len(js) // 2], 1)
+        eng["p95_join_ms"] = round(js[min(len(js) - 1,
+                                          int(len(js) * 0.95))], 1)
+    eng["queue_depth"] = batcher._q.qsize()
+    if hasattr(batcher, "_free"):
+        eng["free_slots"] = len(batcher._free)
+    return eng
+
+
 class EAMGHandler(BaseHTTPRequestHandler):
     pipeline: Pipeline = None  # injected by make_server
     quiet: bool = True
     stats: LatencyStats = None
     logger: JsonLogger = None
+    inflight: _InflightCounter = None
 
     def log_message(self, fmt, *args):  # noqa: N802
         if not self.quiet:
@@ -134,7 +192,11 @@ class EAMGHandler(BaseHTTPRequestHandler):
         elif path == "/healthz":
             self._json(200, {"status": "ok"})
         elif path == "/stats":
-            self._json(200, self.stats.summary())
+            out = self.stats.summary()
+            batcher = getattr(self.pipeline, "batcher", None)
+            if batcher is not None:
+                out["engine"] = _engine_stats(batcher)
+            self._json(200, out)
         elif path == "/profile":
             self._json(404, {"error": "/profile is not yet in the PyTorch "
                                       "port"})
@@ -147,7 +209,13 @@ class EAMGHandler(BaseHTTPRequestHandler):
             self._json(404, {"error": "not found"})
             return
         try:
-            self._generate(parsed)
+            with self.inflight:
+                self._generate(parsed)
+        except EngineOverloaded as exc:
+            # load shedding: the admission queue is full; tell the client
+            # to back off instead of queueing without bound
+            self._send(503, json.dumps({"error": str(exc)}).encode(),
+                       "application/json", {"Retry-After": "1"})
         except Exception as exc:  # pragma: no cover - defensive
             self._json(500, {"error": f"{type(exc).__name__}: {exc}"})
 
@@ -232,7 +300,8 @@ def make_server(pipeline: Pipeline, host: str = "127.0.0.1",
     handler = type("BoundHandler", (EAMGHandler,),
                    {"pipeline": pipeline, "quiet": quiet,
                     "stats": LatencyStats(),
-                    "logger": JsonLogger(component="serve")})
+                    "logger": JsonLogger(component="serve"),
+                    "inflight": _InflightCounter()})
     return ThreadingHTTPServer((host, port), handler)
 
 
@@ -240,3 +309,17 @@ def serve_forever_in_thread(server: ThreadingHTTPServer) -> threading.Thread:
     t = threading.Thread(target=server.serve_forever, daemon=True)
     t.start()
     return t
+
+
+def shutdown_gracefully(server: ThreadingHTTPServer, pipeline: Pipeline,
+                        timeout: float = 60.0) -> None:
+    """After the accept loop has stopped: let queued and in-flight engine
+    rows finish, let their handlers write their responses, then stop the
+    batcher's worker and close the socket."""
+    batcher = getattr(pipeline, "batcher", None)
+    if batcher is not None:
+        batcher.drain(timeout=timeout)
+    server.RequestHandlerClass.inflight.wait_zero(timeout=timeout)
+    if batcher is not None:
+        batcher.close()
+    server.server_close()

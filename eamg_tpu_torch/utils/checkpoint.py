@@ -66,3 +66,33 @@ def load_checkpoint(path: str) -> dict:
     # the unpickler turned bf16 leaves into their uint16 bit patterns
     return {"params": params_from_jax(raw), "vocab": vocab,
             "cfg": GPTConfig(**meta["cfg"]), "step": meta.get("step", 0)}
+
+
+def ragged_cache_from_jax(cache: dict) -> dict:
+    """A JAX ragged cache as numpy (``k``, ``v``: per layer
+    [B, Hkv, M, Dh]; ``lengths`` [B]) -> the port's position-major fused
+    layout ``{"kv": [per layer [B, M, 2 * KVD]], "lengths": [B] int32}``
+    of CPU tensors: heads merged in head order, K then V."""
+    def fuse(k, v):
+        k, v = _leaf_to_torch(k), _leaf_to_torch(v)
+        B, Hkv, M, Dh = k.shape
+        return torch.cat([k.permute(0, 2, 1, 3).reshape(B, M, Hkv * Dh),
+                          v.permute(0, 2, 1, 3).reshape(B, M, Hkv * Dh)],
+                         dim=-1).contiguous()
+
+    return {"kv": [fuse(k, v) for k, v in zip(cache["k"], cache["v"])],
+            "lengths": torch.from_numpy(
+                np.asarray(cache["lengths"]).astype(np.int32))}
+
+
+def ragged_cache_to_jax(cache: dict, kv_heads: int) -> dict:
+    """The way back: the port's fused ragged cache -> numpy ``k``/``v``
+    per layer [B, Hkv, M, Dh] (bf16 as float32) and ``lengths``."""
+    ks, vs = [], []
+    for kv in cache["kv"]:
+        B, M, W = kv.shape
+        halves = kv.float().cpu().reshape(B, M, 2, kv_heads,
+                                          W // (2 * kv_heads))
+        ks.append(halves[:, :, 0].permute(0, 2, 1, 3).numpy())
+        vs.append(halves[:, :, 1].permute(0, 2, 1, 3).numpy())
+    return {"k": ks, "v": vs, "lengths": cache["lengths"].cpu().numpy()}

@@ -16,3 +16,11 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def bind_thread_to(device: torch.device) -> None:
+    """Make ``device`` the calling thread's current CUDA device (a new
+    thread starts on device 0, whatever its creator had set). A device
+    without an index means the current one, and needs nothing."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device.index)

@@ -9,8 +9,16 @@ the JAX package if the random bits match. This module reproduces
 A key is a pair of Python ints (two uint32 words). The key schedule is
 cheap scalar work and stays on the host; only the bit arrays are torch
 tensors, made on the device that asks for them. ``_threefry2x32`` is
-written with plain operators so the same code serves Python ints and
-int64 tensors (each word kept masked to 32 bits).
+written with plain operators so the same code serves Python ints, int64
+numpy arrays and int64 tensors (each word kept masked to 32 bits).
+
+Batches of keys, one per row of a ragged batch or per slot of the
+continuous engine, are ``[N, 2]`` uint32 numpy arrays on the host
+(:func:`key_rows`, :func:`split_rows`, :func:`split_rows_chain`: what
+``jax.vmap(jax.random.split)`` gives). A row's key chain depends on its
+seed and its step count alone, so it is advanced on the host, vectorised
+over the rows, and only the sampling keys of a whole chunk of steps go to
+the device, where :func:`bits` draws all their noise in one batch.
 
 Partitionable mode, as in ``jax/_src/prng.py``:
 - ``split(key, n)[i] = threefry(key, (hi(i), lo(i)))``, both output words;
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _M = 0xFFFFFFFF
@@ -61,15 +70,48 @@ def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
             for i in range(num)]
 
 
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in``: the threefry of the 32-bit ``data`` (high
+    count word 0) under ``key``."""
+    return _threefry2x32(key[0], key[1], 0, int(data) & _M)
+
+
+def key_rows(seeds) -> np.ndarray:
+    """``jax.vmap(jax.random.PRNGKey)(seeds)`` as [N, 2] uint32."""
+    out = np.zeros((len(seeds), 2), np.uint32)
+    out[:, 1] = np.asarray([int(s) & _M for s in seeds], np.uint32)
+    return out
+
+
+def split_rows(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``jax.vmap(jax.random.split)(keys)`` for [N, 2] uint32 keys ->
+    (keys[:, 0], keys[:, 1]), each [N, 2] uint32: every row's key split in
+    two at once."""
+    k = np.asarray(keys).astype(np.int64)
+    count = np.broadcast_to(np.asarray([0, 1], np.int64), (len(k), 2))
+    x0, x1 = _threefry2x32(k[:, 0:1], k[:, 1:2], np.zeros_like(count), count)
+    both = np.stack([x0, x1], axis=-1).astype(np.uint32)   # [N, which, word]
+    return both[:, 0], both[:, 1]
+
+
+def split_rows_chain(keys: np.ndarray, steps: int):
+    """``steps`` successive :func:`split_rows`: -> (the running keys after
+    the last step [N, 2], the sampling keys of every step [steps, N, 2])."""
+    subs = np.empty((steps, len(keys), 2), np.uint32)
+    for i in range(steps):
+        keys, subs[i] = split_rows(keys)
+    return keys, subs
+
+
 def bits(key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of uint32
-    values. ``key`` may also be a list of S keys: the result is then
-    ``[S, *shape]``, row s drawn with key s."""
+    values. ``key`` may also be S keys, as a list of pairs or an [S, 2]
+    array: the result is then ``[S, *shape]``, row s drawn with key s."""
     shape = tuple(shape)
     n = math.prod(shape)
     count = torch.arange(n, dtype=torch.int64, device=device)
-    if isinstance(key, list):
-        kt = torch.tensor(key, dtype=torch.int64, device=device)
+    if isinstance(key, (list, np.ndarray)):
+        kt = torch.as_tensor(np.asarray(key).astype(np.int64)).to(device)
         k0, k1 = kt[:, 0:1], kt[:, 1:2]
         out_shape = (len(key), *shape)
     else:

@@ -59,3 +59,24 @@ def run_worker(task: str, inputs: dict, tmp_dir: Path,
         f"{proc.stderr[-6000:]}")
     with np.load(dst, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
+
+
+def perturbed_params(cfg, rng, key: int = 7):
+    """JAX ``init_params`` as a numpy tree, with the position table and the
+    LayerNorm parameters perturbed (the JAX init leaves them at zero and at
+    identity), so that positions and LN parameters matter."""
+    import jax
+
+    from eamg_tpu.models.gpt import init_params
+
+    params = jax.tree.map(np.asarray,
+                          init_params(jax.random.PRNGKey(key), cfg))
+    params["pos"] = (0.5 * rng.standard_normal(params["pos"].shape)
+                     ).astype(np.float32)
+    for lp in params["layers"]:
+        for ln in ("ln1", "ln2"):
+            lp[ln]["g"] = (1 + 0.1 * rng.standard_normal(
+                lp[ln]["g"].shape)).astype(np.float32)
+            lp[ln]["b"] = (0.1 * rng.standard_normal(
+                lp[ln]["b"].shape)).astype(np.float32)
+    return params

@@ -8,9 +8,9 @@ in one subprocess (tests/torch_port_worker.py). The CUDA kernels
 themselves are held against these plain versions on the card by
 chip_smoke.py.
 
-Tolerances: attention, FFN and decode attention 1e-5 (f32, sums in other
-orders); the top-k and top-p thresholds are exact searches over integer
-keys, so bit-equal.
+Tolerances: attention, FFN, decode attention, fold decode attention and
+the stream reduce 1e-5 (f32, sums in other orders); the top-k and top-p
+thresholds are exact searches over integer keys, so bit-equal.
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ import jax.numpy as jnp
 from eamg_tpu.ops.attention import flash_attention, xla_attention
 from eamg_tpu.ops.decode_attention import (flash_decode_sp,
                                            xla_decode_attention)
+from eamg_tpu.ops.decode_fold import (flash_decode_fold3_sp,
+                                      flash_decode_fold_sp, stream_reduce,
+                                      xla_decode_attention_pm)
 from eamg_tpu.ops.ffn import fused_ffn
 from eamg_tpu.ops.topk import (kth_value_bitsearch, kth_value_pallas,
                                top_p_threshold_bitsearch)
@@ -47,6 +50,16 @@ DEC_TS = (0, 5, 17, 63)            # M 64 = 4 blocks of 16
 DEC_RAGGED_M, DEC_RAGGED_T = 50, 41
 TOPK_KS = (1, 50, 300)             # V = 300
 TOPP_PS = (0.1, 0.5, 0.9)
+# fold decode: B 3, D 64, 4 heads; name: KV heads
+FOLD_HEADS = {"mha": 4, "gqa": 2}
+FOLD_M = 64                        # 4 key blocks of 16
+# newest valid position: a scalar for all rows, or one per row
+FOLD_TS = {"t0": 0, "t17": 17, "tlast": FOLD_M - 1,
+           "rows": np.asarray([0, 17, FOLD_M - 1], np.int32)}
+FOLD_RAGGED_M = 50                 # no multiple of a key block
+FOLD_ENTRIES = {"flash_decode_fold_sp": flash_decode_fold_sp,
+                "flash_decode_fold3_sp": flash_decode_fold3_sp}
+STREAM_ROWS = (2, 4)               # kv [4, 16, 32]
 
 
 def _rng():
@@ -124,6 +137,34 @@ def _inputs():
                            f"topp/{name}"))
         ref[("topp", name, "xla")] = np.asarray(top_p_threshold_bitsearch(
             jnp.asarray(finite), p))
+    B, D, H = 3, 64, 4
+    for hname, kvh in FOLD_HEADS.items():
+        KVD = kvh * (D // H)
+        for M, ts in ((FOLD_M, FOLD_TS),
+                      (FOLD_RAGGED_M, {"rows": np.asarray([0, 41, 49],
+                                                          np.int32)})):
+            q = rng.standard_normal((B, 1, D), np.float32)
+            kv = rng.standard_normal((B, M, 2 * KVD), np.float32)
+            for tname, t in ts.items():
+                name = f"{hname}_M{M}_{tname}"
+                inp.update(flatten({"q": q, "kv": kv, "t": np.asarray(t),
+                                    "n_head": np.asarray(H)},
+                                   f"fold/{name}"))
+                tj = jnp.asarray(t)
+                ref[("fold", name, "xla")] = np.asarray(
+                    xla_decode_attention_pm(jnp.asarray(q), jnp.asarray(kv),
+                                            tj, H))
+                if M % 16 == 0:
+                    for entry, fn in FOLD_ENTRIES.items():
+                        ref[("fold", name, entry)] = np.asarray(fn(
+                            jnp.asarray(q), jnp.asarray(kv), tj, H,
+                            block_k=16, interpret=True))
+    kv = rng.standard_normal((4, 16, 32), np.float32)
+    for rows in STREAM_ROWS:
+        inp.update(flatten({"kv": kv, "rows": np.asarray(rows)},
+                           f"stream/rows{rows}"))
+        ref[("stream", rows)] = np.asarray(stream_reduce(
+            jnp.asarray(kv), rows=rows, interpret=True))
     return inp, ref
 
 
@@ -187,3 +228,39 @@ def test_top_p_threshold_bit_equal(results, p):
     a = got[f"topp/p{p}"]
     b = ref[("topp", f"p{p}", "xla")]
     np.testing.assert_array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+@pytest.mark.parametrize("entry", list(FOLD_ENTRIES))
+@pytest.mark.parametrize("heads", list(FOLD_HEADS))
+@pytest.mark.parametrize("tname", list(FOLD_TS))
+@pytest.mark.parametrize("against", ["pallas", "xla"])
+def test_fold_decode_plain_matches_jax(results, entry, heads, tname, against):
+    """Each fold entry point against the Pallas kernel it replaces
+    (interpret mode) and against xla_decode_attention_pm; scalar and
+    per-row t, including 0 and M - 1."""
+    got, ref = results
+    name = f"{heads}_M{FOLD_M}_{tname}"
+    want = ref[("fold", name, entry if against == "pallas" else "xla")]
+    assert got[f"fold/{name}/{entry}"].shape == want.shape == (3, 1, 64)
+    np.testing.assert_allclose(got[f"fold/{name}/{entry}"], want, rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("entry", list(FOLD_ENTRIES))
+@pytest.mark.parametrize("heads", list(FOLD_HEADS))
+def test_fold_decode_plain_takes_ragged_cache(results, entry, heads):
+    """M = 50 is no multiple of a key block (the flagship's cache is 511):
+    the JAX wrappers assert on it, the port takes it."""
+    got, ref = results
+    name = f"{heads}_M{FOLD_RAGGED_M}_rows"
+    np.testing.assert_allclose(got[f"fold/{name}/{entry}"],
+                               ref[("fold", name, "xla")], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("rows", STREAM_ROWS)
+def test_stream_reduce_plain_matches_pallas(results, rows):
+    """The last group's sum, as the Pallas kernel returns it."""
+    got, ref = results
+    assert got[f"stream/rows{rows}"].shape == (1, 32)
+    np.testing.assert_allclose(got[f"stream/rows{rows}"],
+                               ref[("stream", rows)], rtol=TOL, atol=TOL)

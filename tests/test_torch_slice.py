@@ -24,7 +24,14 @@ Checked, with the tolerance and its reason:
 - the additive synth: the waveform of a song with drums to 1e-5;
 - the pipeline on the JAX demo_pipeline geometry: same-seed MIDI bytes
   equal;
-- the HTTP contract of the port's server.
+- the HTTP contract of the port's server;
+- ``cli serve --coalesce`` (a subprocess of the worker, on the CPU) on a
+  checkpoint of the causal demo_pipeline geometry: concurrent same-seed
+  requests return the MIDI bytes of the JAX pipeline built with
+  ``coalesce="continuous"``, a request the engine does not accept (another
+  top_k) is decoded solo with the JAX pipeline's bytes, ``/stats`` shows
+  the engine, SIGTERM drains and exits 0; a full admission queue answers
+  503 with ``Retry-After``.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from eamg_tpu.midi.smf import Instrument, MidiSong, Note
 from eamg_tpu.models.gpt import (GPTConfig, decode_step, forward,
                                  init_kv_cache, init_params, prefill)
 from eamg_tpu.serve.pipeline import demo_pipeline
-from eamg_tpu.utils.checkpoint import load_checkpoint
+from eamg_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
 
 from port_harness import cfg_json, flatten, run_worker
 
@@ -81,6 +88,14 @@ SONG = [  # (program, is_drum, [(velocity, pitch, start, end)])
 ]
 REQUESTS = [("I finally got the job, I am so happy!", 5),
             ("my dog died and I cannot stop crying", 9)]
+# coalesced serving: (text, seed, extra form fields); the first three run
+# concurrently with one seed, the last asks for a top_k the engine lacks
+CO_ENGINE = {"slots": 4, "chunk": 8}
+CO_REQUESTS = [("I finally got the job, I am so happy!", 5, {}),
+               ("I finally got the job, I am so happy!", 5, {}),
+               ("I finally got the job, I am so happy!", 5, {}),
+               ("my dog died and I cannot stop crying", 9, {}),
+               ("my dog died and I cannot stop crying", 9, {"top_k": 7})]
 HTTP = {  # name: (status, what the body starts with or the error says)
     "wav": (200, b"RIFF"), "midi": (200, b"MThd"),
     "stream": (400, "stream"), "beams": (400, "beams"),
@@ -221,6 +236,22 @@ def _pipeline_case(inp, ref):
         ref[f"pipe/{i}/label"] = np.asarray(r.label)
 
 
+def _coalesce_case(inp, ref, ckpt_dir):
+    pipe = demo_pipeline(corrected=True, coalesce="continuous",
+                         coalesce_opts=CO_ENGINE)
+    try:
+        gen = pipe.generator
+        save_checkpoint(str(ckpt_dir), gen.params, gen.vocab.tok2id, gen.cfg)
+        inp["co/ckpt"] = np.asarray(str(ckpt_dir))
+        inp["co/engine"] = np.asarray(json.dumps(CO_ENGINE))
+        inp["co/requests"] = np.asarray(json.dumps(CO_REQUESTS))
+        for i, (text, seed, extra) in enumerate(CO_REQUESTS):
+            r = pipe.generate(text, seed=seed, render_audio=False, **extra)
+            ref[f"co/{i}/midi"] = np.frombuffer(r.midi_bytes, np.uint8)
+    finally:
+        pipe.batcher.close()
+
+
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
     rng = np.random.default_rng(2024)
@@ -236,7 +267,9 @@ def results(tmp_path_factory):
     _classifier_case(inp, ref)
     _synth_case(inp, ref)
     _pipeline_case(inp, ref)
-    got = run_worker("slice", inp, tmp_path_factory.mktemp("slice"))
+    _coalesce_case(inp, ref, tmp_path_factory.mktemp("co_ckpt"))
+    got = run_worker("slice", inp, tmp_path_factory.mktemp("slice"),
+                     timeout=900)
     return got, ref
 
 
@@ -337,3 +370,43 @@ def test_server_contract(results, name):
         assert got[f"http/{name}/head"].tobytes().startswith(expect)
     else:
         assert expect in str(got[f"http/{name}/error"])
+
+
+@pytest.mark.parametrize("i", range(len(CO_REQUESTS)))
+def test_coalesced_server_midi_bytes_equal_jax(results, i):
+    """Requests 0-3 run concurrently through `cli serve --coalesce`;
+    request 4's top_k is not the engine's, so it is decoded solo."""
+    got, ref = results
+    assert int(got[f"co/{i}/status"]) == 200
+    assert got[f"co/{i}/midi"].tobytes() == ref[f"co/{i}/midi"].tobytes()
+
+
+def test_coalesced_server_used_the_engine_and_drained(results):
+    got, _ = results
+    eng = json.loads(str(got["co/stats"]))["engine"]
+    # the first lone request may take the detached bypass; the concurrent
+    # followers join the engine
+    assert eng["served"] >= 2 and eng["chunks"] > 0
+    assert eng["served"] == eng["admitted"]
+    assert "p50_join_ms" in eng and eng["free_slots"] == CO_ENGINE["slots"]
+    assert int(got["co/exit_code"]) == 0
+    assert "drain" in str(got["co/tail"])
+
+
+def test_full_queue_answers_503_with_retry_after(results):
+    got, _ = results
+    statuses = got["overload/statuses"].tolist()
+    assert set(statuses) <= {200, 503}
+    assert 200 in statuses and 503 in statuses
+    assert str(got["overload/retry_after"]) == "1"
+    assert "queue full" in str(got["overload/error"])
+    assert int(got["overload/rejected"]) == statuses.count(503)
+
+
+@pytest.mark.parametrize("flag", ["--engine-medusa", "--engine-grammar",
+                                  "--engine-ngram"])
+def test_cli_names_engine_modes_outside_the_port(results, flag):
+    got, _ = results
+    assert int(got[f"cli/{flag}/code"]) == 2
+    assert flag in str(got[f"cli/{flag}/stderr"])
+    assert "not yet in the PyTorch port" in str(got[f"cli/{flag}/stderr"])

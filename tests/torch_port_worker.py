@@ -63,7 +63,8 @@ def _cfg(npz, key):
 # ------------------------------------------------------------------ kernels
 
 def task_kernels(inp, out):
-    from eamg_tpu_torch.ops import attention, decode_attention, ffn, topk
+    from eamg_tpu_torch.ops import (attention, decode_attention, decode_fold,
+                                    ffn, topk)
 
     for name in sorted({k.split("/")[1] for k in inp.files
                         if k.startswith("attn/")}):
@@ -93,6 +94,19 @@ def task_kernels(inp, out):
         a = unflatten(inp, f"topp/{name}")
         out[f"topp/{name}"] = topk.top_p_threshold(_t(a["logits"]),
                                                    float(a["p"])).numpy()
+    for name in sorted({k.split("/")[1] for k in inp.files
+                        if k.startswith("fold/")}):
+        a = unflatten(inp, f"fold/{name}")
+        t = a["t"]
+        t = int(t) if t.ndim == 0 else _t(t)
+        for entry in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
+            out[f"fold/{name}/{entry}"] = getattr(decode_fold, entry)(
+                _t(a["q"]), _t(a["kv"]), t, int(a["n_head"])).numpy()
+    for name in sorted({k.split("/")[1] for k in inp.files
+                        if k.startswith("stream/")}):
+        a = unflatten(inp, f"stream/{name}")
+        out[f"stream/{name}"] = decode_fold.stream_reduce(
+            _t(a["kv"]), int(a["rows"])).numpy()
 
 
 # -------------------------------------------------------------------- slice
@@ -287,6 +301,131 @@ def _server_checks(out, pipe):
         thread.join(timeout=30)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _post_form(port, fields, query="", timeout=300):
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate{query}",
+        data=urllib.parse.urlencode(fields).encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _cli_coalesce_checks(inp, out):
+    """`python -m eamg_tpu_torch.cli serve --coalesce` as its own process."""
+    import os
+    import signal
+    import subprocess
+    import time
+    import urllib.request
+
+    ckpt = str(inp["co/ckpt"])
+    eng = json.loads(str(inp["co/engine"]))
+    reqs = json.loads(str(inp["co/requests"]))
+    for flag, value in (("--engine-medusa", None), ("--engine-grammar", None),
+                        ("--engine-ngram", "3")):
+        r = subprocess.run(
+            [sys.executable, "-m", "eamg_tpu_torch.cli", "serve", "--device",
+             "cpu", "--coalesce", flag] + ([value] if value else []),
+            capture_output=True, text=True, timeout=120)
+        out[f"cli/{flag}/code"] = np.asarray(r.returncode)
+        out[f"cli/{flag}/stderr"] = np.asarray(r.stderr[-500:])
+    port = _free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "eamg_tpu_torch.cli", "serve", "--device",
+         "cpu", "--checkpoint", ckpt, "--host", "127.0.0.1", "--port",
+         str(port), "--coalesce", "--slots", str(eng["slots"]), "--chunk",
+         str(eng["chunk"])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    try:
+        deadline = time.monotonic() + WAIT
+        while True:
+            assert proc.poll() is None, proc.stdout.read()[-3000:]
+            assert time.monotonic() < deadline, "the server did not start"
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=5):
+                    break
+            except OSError:
+                time.sleep(0.2)
+        replies = {}
+
+        def hit(i):
+            text, seed, extra = reqs[i]
+            replies[i] = _post_form(port, {"prompt": text, "seed": seed,
+                                           **extra}, "?format=midi")
+
+        concurrent = [i for i, r in enumerate(reqs) if not r[2]]
+        _threads(hit, [(i,) for i in concurrent])
+        for i in range(len(reqs)):
+            if i not in concurrent:
+                hit(i)
+        for i, (status, body, _) in replies.items():
+            out[f"co/{i}/status"] = np.asarray(status)
+            out[f"co/{i}/midi"] = np.frombuffer(body, np.uint8)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=30) as r:
+            out["co/stats"] = np.asarray(r.read().decode())
+        proc.send_signal(signal.SIGTERM)
+        tail, _ = proc.communicate(timeout=WAIT)
+        out["co/exit_code"] = np.asarray(proc.returncode)
+        out["co/tail"] = np.asarray(tail[-400:])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _overload_checks(inp, out):
+    """A one-slot engine with one place in its queue, under eight requests
+    at once: some are served, the others get 503 + Retry-After."""
+    from eamg_tpu_torch.emotion import EmotionClassifier
+    from eamg_tpu_torch.serve import (make_server, pipeline_from_checkpoint,
+                                      serve_forever_in_thread,
+                                      shutdown_gracefully)
+
+    pipe = pipeline_from_checkpoint(
+        str(inp["co/ckpt"]), device=CPU, coalesce="continuous",
+        classifier=EmotionClassifier(backend="lexicon", device=CPU),
+        coalesce_opts={"slots": 1, "chunk": 8, "max_queue": 1})
+    port = _free_port()
+    server = make_server(pipe, "127.0.0.1", port)
+    thread = serve_forever_in_thread(server)
+    replies = {}
+
+    def hit(i):
+        replies[i] = _post_form(port, {"prompt": "so happy", "seed": i},
+                                "?format=midi")
+
+    try:
+        _threads(hit, [(i,) for i in range(8)])
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    out["overload/statuses"] = np.asarray([replies[i][0] for i in range(8)])
+    shed = [r for r in replies.values() if r[0] == 503]
+    if shed:
+        out["overload/retry_after"] = np.asarray(shed[0][2].get(
+            "Retry-After", ""))
+        out["overload/error"] = np.asarray(json.loads(shed[0][1])["error"])
+    out["overload/rejected"] = np.asarray(pipe.batcher.stats["rejected"])
+
+
 def task_slice(inp, out):
     for tag in json.loads(str(inp["model_tags"])):
         _model_checks(inp, out, tag)
@@ -297,9 +436,379 @@ def task_slice(inp, out):
     pipe = _pipeline(inp)
     _pipeline_checks(inp, out, pipe)
     _server_checks(out, pipe)
+    _cli_coalesce_checks(inp, out)
+    _overload_checks(inp, out)
 
 
-TASKS = {"kernels": task_kernels, "slice": task_slice}
+# ------------------------------------------------------------------- ragged
+
+def flatten_out(tree, prefix):
+    flat = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        else:
+            flat[path] = np.asarray(node)
+
+    walk(tree, prefix)
+    return flat
+
+
+def _np_cache(cache):
+    return {"kv": [kv.numpy().copy() for kv in cache["kv"]],
+            "lengths": cache["lengths"].numpy().copy()}
+
+
+def _ragged_model_checks(inp, out, tag, params, cfg):
+    from eamg_tpu_torch.decode import ragged
+    from eamg_tpu_torch.utils.checkpoint import (ragged_cache_from_jax,
+                                                 ragged_cache_to_jax)
+
+    ids = _t(inp[f"{tag}/ids"]).long()
+    lens = _t(inp[f"{tag}/lens"])
+    cache = ragged.init_ragged_cache(cfg, ids.shape[0],
+                                     int(inp[f"{tag}/max_len"]))
+    logits, cache = ragged.prefill_ragged(params, ids, lens, cfg, cache)
+    out[f"{tag}/prefill"] = logits.numpy()
+    out.update(flatten_out(_np_cache(cache), f"{tag}/cache0"))
+    last = ids[torch.arange(ids.shape[0]), (lens - 1).long()]
+    steps = []
+    for row in inp[f"{tag}/forced"]:
+        lg, cache = ragged.decode_step_ragged(params, last, cache, cfg)
+        steps.append(lg.numpy())
+        last = _t(row).long()
+    out[f"{tag}/decode"] = np.stack(steps)
+    out.update(flatten_out(_np_cache(cache), f"{tag}/cache1"))
+    for when in ("cache0", "cache1"):
+        jc = ragged_cache_from_jax(unflatten(inp, f"{tag}/jax_{when}"))
+        out.update(flatten_out(_np_cache(jc), f"{tag}/jax_{when}"))
+    back = ragged_cache_to_jax(cache, cfg.kv_heads)
+    out.update(flatten_out({"k": back["k"], "v": back["v"]},
+                           f"{tag}/back1"))
+
+
+def _ragged_prng_checks(inp, out):
+    from eamg_tpu_torch.decode.ragged import draw_noise
+    from eamg_tpu_torch.decode.sampling import sample_rows
+    from eamg_tpu_torch.utils import prng
+
+    keys = prng.key_rows([int(s) for s in inp["prng/seeds"]])
+    out["prng/key_rows"] = keys
+    out["prng/split_next"], out["prng/split_sub"] = prng.split_rows(keys)
+    out["prng/chain_keys"], out["prng/chain_subs"] = prng.split_rows_chain(
+        keys, 5)
+    out["prng/fold_in"] = np.asarray(
+        [prng.fold_in(prng.PRNGKey(9), i) for i in range(6)], np.uint32)
+    V = inp["prng/logits"].shape[1]
+    out["prng/bits"] = prng.bits(keys, (V,)).numpy().astype(np.uint32)
+    logits, temps = _t(inp["prng/logits"]), _t(inp["prng/temps"])
+    noise = draw_noise(keys, V, CPU)
+    out["prng/sample_rows"] = sample_rows(logits, temps, 40,
+                                          gumbel=noise).numpy()
+    out["prng/sample_rows_top_p"] = sample_rows(
+        logits, temps, 40, top_p=0.85, gumbel=noise).numpy()
+    out["prng/sample_rows_per_row"] = sample_rows(
+        logits, temps, 40, top_ps=_t(inp["prng/top_ps"]),
+        min_ps=_t(inp["prng/min_ps"]), gumbel=noise).numpy()
+
+
+def task_ragged(inp, out):
+    from eamg_tpu_torch.decode.ragged import generate_kv_ragged
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    models = {}
+    for tag in json.loads(str(inp["tags"])):
+        cfg = _cfg(inp, f"{tag}/cfg")
+        params = params_from_jax(unflatten(inp, f"{tag}/p"))
+        models[tag] = (params, cfg)
+        _ragged_model_checks(inp, out, tag, params, cfg)
+    for name in json.loads(str(inp["gen_cases"])):
+        spec = json.loads(str(inp[f"gen/{name}/spec"]))
+        params, cfg = models[spec.pop("cfg")]
+        keys = inp[f"gen/{name}/keys"]
+        rngs = prng.PRNGKey(int(keys)) if keys.ndim == 0 \
+            else prng.key_rows([int(s) for s in keys])
+        prompt = _t(inp[f"gen/{name}/prompt"]).long()
+        buf, n = generate_kv_ragged(
+            params, prompt, inp[f"gen/{name}/lens"], rngs, cfg,
+            spec.pop("max_len"), eos_id=spec.pop("eos"), **spec)
+        out[f"gen/{name}/buf"] = buf.numpy()
+        out[f"gen/{name}/lengths"] = n.numpy()
+        out[f"gen/{name}/prompt_echo"] = prompt.numpy()
+    _ragged_prng_checks(inp, out)
+
+
+# ------------------------------------------------------------------- engine
+
+WAIT = 300.0   # every wait below gives up after this many seconds
+
+
+def _wait_until(cond, what):
+    import time
+
+    deadline = time.monotonic() + WAIT
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.01)
+
+
+def _threads(fn, args_list):
+    import threading
+
+    ts = [threading.Thread(target=fn, args=a, daemon=True)
+          for a in args_list]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=WAIT)
+        assert not t.is_alive(), "a request thread timed out"
+
+
+def _engine_state_sequence(inp, out, gen, spec):
+    from eamg_tpu_torch.serve.continuous import (admit_row, init_state,
+                                                 ragged_chunk)
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import ragged_cache_from_jax
+
+    state = init_state(gen.cfg, spec["slots"], spec["max_len"], device=CPU)
+    common = dict(top_k=spec["top_k"], greedy=False, mask_value=-1e10,
+                  eos_id=gen.eos_id, pad_id=gen.pad_id, top_p=1.0)
+    for i, call in enumerate(spec["sequence"]):
+        if call[0] == "admit":
+            ids, seed, temp = spec["requests"][call[1]]
+            prompt = torch.zeros((1, 16), dtype=torch.int64)
+            prompt[0, :len(ids)] = torch.tensor(ids)
+            state = admit_row(gen.params, state, prompt, len(ids), call[2],
+                              prng.PRNGKey(seed), call[3], temp, gen.cfg,
+                              **common)
+        else:
+            state = ragged_chunk(gen.params, state, gen.cfg,
+                                 chunk=spec["chunk"], **common)
+        for key in ("buf", "pos", "last", "done", "row_max"):
+            out[f"seq/{i}/{key}"] = state[key].numpy().copy()
+        out[f"seq/{i}/rngs"] = state["rngs"].copy()
+        out[f"seq/{i}/lengths"] = state["cache"]["lengths"].numpy().copy()
+        out.update(flatten_out(_np_cache(state["cache"]), f"seq/{i}/cache"))
+        jc = ragged_cache_from_jax(unflatten(inp, f"seq/{i}/jax_cache"))
+        out.update(flatten_out(_np_cache(jc), f"seq/{i}/jax_cache"))
+
+
+def _submit_all(eng, requests, rows, prefix, out):
+    import time
+
+    def hit(i, req, extra):
+        ids, seed, temp = req
+        time.sleep(0.05 * i)                      # staggered admission
+        rows[i] = eng.submit(ids, temperature=temp, seed=seed, timeout=WAIT,
+                             **extra)
+
+    _threads(hit, [(i, req, extra)
+                   for i, (req, extra) in enumerate(requests)])
+    for i, row in rows.items():
+        out[f"{prefix}/{i}"] = np.asarray(row)
+
+
+def task_engine(inp, out):
+    import threading
+
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.decode.ragged import generate_kv_ragged
+    from eamg_tpu_torch.serve import continuous
+    from eamg_tpu_torch.serve.batcher import RequestBatcher
+    from eamg_tpu_torch.serve.continuous import (ContinuousBatcher,
+                                                 EngineOverloaded)
+    from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    spec = json.loads(str(inp["spec"]))
+    eos = int(inp["eos"])
+    gen = Generator(params_from_jax(unflatten(inp, "p")), _cfg(inp, "cfg"),
+                    Vocab(json.loads(str(inp["vocab"]))),
+                    eos_token=f"t{eos}", pad_token="t0", device=CPU)
+    reqs = spec["requests"]
+    geometry = dict(slots=spec["slots"], chunk=spec["chunk"],
+                    max_len=spec["max_len"], top_k=spec["top_k"])
+    _engine_state_sequence(inp, out, gen, spec)
+
+    def solo(i, top_p=1.0, min_p=0.0):
+        ids, seed, temp = reqs[i]
+        prompt = torch.zeros((1, 16), dtype=torch.int64)
+        prompt[0, :len(ids)] = torch.tensor(ids)
+        buf, n = generate_kv_ragged(
+            gen.params, prompt, [len(ids)], prng.key_rows([seed]), gen.cfg,
+            spec["max_len"], temperature=temp, top_k=spec["top_k"],
+            eos_id=eos, pad_id=gen.pad_id, top_p=top_p, min_p=min_p)
+        return buf[0, :int(n[0])].numpy()
+
+    for i in range(len(reqs)):
+        out[f"solo/{i}"] = solo(i)
+
+    # engine rows, then the same requests detached on the same engine
+    eng = ContinuousBatcher(gen, **geometry)
+    try:
+        _submit_all(eng, [(r, {}) for r in reqs], {}, "engine", out)
+        stats = dict(eng.stats)
+        stats["join_delay_ms"] = list(stats["join_delay_ms"])
+        out["engine_stats"] = np.asarray(json.dumps(stats))
+        calls = {"n": 0}
+        real_chunk = continuous.ragged_chunk
+
+        def counting_chunk(*a, **k):
+            calls["n"] += 1
+            return real_chunk(*a, **k)
+
+        continuous.ragged_chunk = counting_chunk
+        try:
+            for i, (ids, seed, temp) in enumerate(reqs):
+                calls["n"] = 0
+                out[f"detached/{i}"] = np.asarray(eng.run_detached(
+                    ids, temperature=temp, seed=seed))
+                if i == spec["early"]:
+                    out["detached_chunks_early"] = np.asarray(calls["n"])
+            # the same budget with a stream that does not end early
+            calls["n"] = 0
+            eng.run_detached(reqs[spec["early"]][0], seed=reqs[2][1])
+            out["detached_chunks_full"] = np.asarray(calls["n"])
+        finally:
+            continuous.ragged_chunk = real_chunk
+    finally:
+        eng.close()
+
+    # per-row sampling mode
+    eng = ContinuousBatcher(gen, per_row_sampling=True, **geometry)
+    try:
+        rr = spec["row_requests"]
+        _submit_all(eng, [(reqs[i], {"top_p": tp, "min_p": mp})
+                          for i, tp, mp in rr], {}, "row_engine", out)
+        for j, (i, tp, mp) in enumerate(rr):
+            ids, seed, temp = reqs[i]
+            out[f"row_detached/{j}"] = np.asarray(eng.run_detached(
+                ids, temperature=temp, seed=seed, top_p=tp, min_p=mp))
+    finally:
+        eng.close()
+
+    # a full queue sheds load: one slot, one place in the queue. The
+    # worker is held inside its first chunk, so the queue cannot drain
+    # while the third request arrives.
+    eng = ContinuousBatcher(gen, slots=1, chunk=spec["chunk"],
+                            max_len=spec["max_len"], top_k=spec["top_k"],
+                            max_queue=1)
+    real_chunk = continuous.ragged_chunk
+    gate = threading.Event()
+
+    def held_chunk(*a, **k):
+        assert gate.wait(WAIT), "the gate was never opened"
+        return real_chunk(*a, **k)
+
+    try:
+        done = {}
+
+        def hit(name, i):
+            ids, seed, temp = reqs[i]
+            done[name] = eng.submit(ids, temperature=temp, seed=seed,
+                                    timeout=WAIT)
+
+        continuous.ragged_chunk = held_chunk
+        a = threading.Thread(target=hit, args=("a", 2), daemon=True)
+        a.start()
+        _wait_until(lambda: eng.stats["admitted"] == 1, "the first admission")
+        b = threading.Thread(target=hit, args=("b", 3), daemon=True)
+        b.start()
+        _wait_until(lambda: eng._q.qsize() == 1,
+                    "the second request to queue")
+        try:
+            eng.submit(reqs[0][0], seed=1, timeout=WAIT)
+            out["overload/raised"] = np.asarray("none")
+        except EngineOverloaded:
+            out["overload/raised"] = np.asarray("EngineOverloaded")
+        continuous.ragged_chunk = real_chunk
+        gate.set()
+        a.join(timeout=WAIT)
+        b.join(timeout=WAIT)
+        out["overload/rejected"] = np.asarray(eng.stats["rejected"])
+        out["overload/others_served"] = np.asarray(
+            done["a"] == out["engine/2"].tolist()
+            and done["b"] == out["engine/3"].tolist())
+
+        # a request nobody waits for any more is cancelled, its slot freed
+        try:
+            eng.submit(reqs[2][0], seed=5, timeout=0.0)
+            out["cancel/raised"] = np.asarray("none")
+        except TimeoutError:
+            out["cancel/raised"] = np.asarray("TimeoutError")
+        _wait_until(lambda: eng.stats["cancelled"] == 1 and eng.idle(),
+                    "the cancelled row's slot")
+        out["cancel/cancelled"] = np.asarray(eng.stats["cancelled"])
+        out["cancel/free_slots"] = np.asarray(len(eng._free))
+        ids, seed, temp = reqs[1]
+        out["cancel/next"] = np.asarray(eng.submit(
+            ids, temperature=temp, seed=seed, timeout=WAIT))
+    finally:
+        continuous.ragged_chunk = real_chunk
+        gate.set()
+        eng.close()
+
+    # an error inside a chunk reaches the client and the engine serves on
+    eng = ContinuousBatcher(gen, **geometry)
+    real_chunk = continuous.ragged_chunk
+
+    def broken_chunk(*a, **k):
+        continuous.ragged_chunk = real_chunk
+        raise RuntimeError("injected chunk failure")
+
+    try:
+        continuous.ragged_chunk = broken_chunk
+        try:
+            eng.submit(reqs[0][0], seed=1, timeout=WAIT)
+            out["fail/error"] = np.asarray("none")
+        except RuntimeError as e:
+            out["fail/error"] = np.asarray(str(e))
+        _wait_until(eng.idle, "the engine to settle")
+        out["fail/free_slots"] = np.asarray(len(eng._free))
+        ids, seed, temp = reqs[3]
+        out["fail/next"] = np.asarray(eng.submit(
+            ids, temperature=temp, seed=seed, timeout=WAIT))
+    finally:
+        continuous.ragged_chunk = real_chunk
+        eng.close()
+
+    # the window batcher: a wide window, so the requests share decodes
+    bat = RequestBatcher(gen, max_batch=3, window_ms=1000.0,
+                         max_len=spec["max_len"])
+    try:
+        rows = {}
+
+        def hit_w(i):
+            ids, seed, temp = reqs[i]
+            rows[i] = bat.submit(ids, temperature=1.0, top_k=spec["top_k"],
+                                 seed=seed, timeout=WAIT)
+
+        # the window batcher groups by temperature; the JAX rows to match
+        # were drawn at each request's own temperature, so send those with
+        # temperature 1.0 together and the others on their own
+        same = [i for i, r in enumerate(reqs) if r[2] == 1.0]
+        _threads(hit_w, [(i,) for i in same])
+        for i, (ids, seed, temp) in enumerate(reqs):
+            if i not in same:
+                rows[i] = bat.submit(ids, temperature=temp,
+                                     top_k=spec["top_k"], seed=seed,
+                                     timeout=WAIT)
+        for i, row in rows.items():
+            out[f"window/{i}"] = np.asarray(row)
+        out["window_stats"] = np.asarray(json.dumps(bat.stats))
+    finally:
+        bat.close()
+
+
+TASKS = {"kernels": task_kernels, "slice": task_slice,
+         "ragged": task_ragged, "engine": task_engine}
 
 
 def main():
