@@ -9,7 +9,8 @@ Phases:
     source, all in parallel);
  3. kernels: hold each kernel against its plain PyTorch version on the
     card, in f32 and bf16, at the shapes the main paths give it (the solo
-    path's and the engine's: 8 rows, ragged lengths), and time the kernel,
+    path's, the engine's: 8 rows, ragged lengths, and the batched decode's:
+    B 8, MHA, 128 prefill rows, 8324 logits), and time the kernel,
     the plain version and one PyTorch library call computing the same
     function (a yardstick only: the port never calls it), each as replays
     of a CUDA graph so that the host's issue rate stays out; then the
@@ -31,7 +32,17 @@ Phases:
     launches these two, so their "launches" are 0 and these launches are
     reported as "probe_launches"); then one more burst under
     torch.profiler; last, four requests at once through `serve --coalesce
-    window`, with launch counts of their own.
+    window`, with launch counts of their own;
+ 7. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
+    on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
+    seed) at full width and depth, batch 8, 511 positions, once per
+    attn_impl with the launch counts zeroed before each: the kernel the
+    attn_impl names must have launched once per layer and step and no
+    other attention kernel at all; teacher-forced f32 logits of each
+    attn_impl on the card against the plain versions on the host; one
+    generation of the default attn_impl under torch.profiler; then
+    `cli generate --wav` on demo_ckpt_a twice with one seed (MThd,
+    RIFF....WAVE, equal bytes).
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -58,39 +69,53 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
 REPLACES = {
     "flash_attention": "eamg_tpu/ops/attention.py:114",
     "fused_ffn": "eamg_tpu/ops/ffn.py:61",
-    "flash_decode": "eamg_tpu/ops/decode_attention.py:259",
+    "flash_decode_sp": "eamg_tpu/ops/decode_attention.py:259",
     "kth_value": "eamg_tpu/ops/topk.py:149",
+    "flash_decode": "eamg_tpu/ops/decode_attention.py:88",
+    "flash_decode_vmem": "eamg_tpu/ops/decode_attention.py:153",
+    "flash_decode_fold": "eamg_tpu/ops/decode_fold.py:116",
     "flash_decode_fold_sp": "eamg_tpu/ops/decode_fold.py:239",
+    "flash_decode_fold2": "eamg_tpu/ops/decode_fold.py:335",
+    "flash_decode_fold3": "eamg_tpu/ops/decode_fold.py:420",
     "flash_decode_fold3_sp": "eamg_tpu/ops/decode_fold.py:540",
     "stream_reduce": "eamg_tpu/ops/decode_fold.py:565",
 }
 SOURCES = {
     "flash_attention": "eamg_tpu_torch/csrc/attention.cu",
     "fused_ffn": "eamg_tpu_torch/csrc/ffn.cu",
-    "flash_decode": "eamg_tpu_torch/csrc/decode_attention.cu",
+    "flash_decode_sp": "eamg_tpu_torch/csrc/decode_attention.cu",
     "kth_value": "eamg_tpu_torch/csrc/topk.cu",
+    "flash_decode": "eamg_tpu_torch/csrc/decode_attention.cu",
+    "flash_decode_vmem": "eamg_tpu_torch/csrc/decode_attention.cu",
+    "flash_decode_fold": "eamg_tpu_torch/csrc/decode_fold.cu",
     "flash_decode_fold_sp": "eamg_tpu_torch/csrc/decode_fold.cu",
+    "flash_decode_fold2": "eamg_tpu_torch/csrc/decode_fold.cu",
+    "flash_decode_fold3": "eamg_tpu_torch/csrc/decode_fold.cu",
     "flash_decode_fold3_sp": "eamg_tpu_torch/csrc/decode_fold.cu",
     "stream_reduce": "eamg_tpu_torch/csrc/stream_reduce.cu",
 }
 # The dtype each kernel sees on the main paths (bf16 model, f32 head and
 # sampling): the kernels line reports each kernel's record at this dtype.
-MAIN_DTYPE = {"flash_attention": "bfloat16", "fused_ffn": "bfloat16",
-              "flash_decode": "bfloat16", "kth_value": "float32",
-              "flash_decode_fold_sp": "bfloat16",
-              "flash_decode_fold3_sp": "bfloat16",
-              "stream_reduce": "bfloat16"}
-# The path whose launch count is a kernel's "launches": the newest main
-# path that runs it. K3 runs on the solo path only; the second fold variant
-# and the stream-reduce probe run on no served path, so theirs are 0.
+MAIN_DTYPE = {name: "float32" if name == "kth_value" else "bfloat16"
+              for name in REPLACES}
+# The attention kernels that only the batched offline decode launches, and
+# the shape their records on the kernels line are taken at.
+BATCH_KERNELS = ("flash_decode", "flash_decode_vmem", "flash_decode_fold",
+                 "flash_decode_fold2", "flash_decode_fold3")
+# The path whose launch count is a kernel's "launches". K3 is counted on
+# the solo path (the batch path runs it too); the five kernels above and
+# the second split fold variant run on the batch path only, each in the
+# generation that names it; the stream-reduce probe runs on no path, so
+# its count is 0.
 MAIN_PHASE = {"flash_attention": "coalesce", "fused_ffn": "coalesce",
-              "kth_value": "coalesce", "flash_decode": "solo",
+              "kth_value": "coalesce", "flash_decode_sp": "solo",
               "flash_decode_fold_sp": "coalesce",
-              "flash_decode_fold3_sp": "coalesce",
-              "stream_reduce": "coalesce"}
+              "flash_decode_fold3_sp": "batch",
+              "stream_reduce": "coalesce",
+              **{name: "batch" for name in BATCH_KERNELS}}
 # what each served path must have launched; "fold_decode" stands for the
 # fold kernel that the ragged decode and the engine call
-PATH_KERNELS = {"solo": ("flash_attention", "fused_ffn", "flash_decode",
+PATH_KERNELS = {"solo": ("flash_attention", "fused_ffn", "flash_decode_sp",
                          "kth_value"),
                 "coalesce": ("flash_attention", "fused_ffn", "kth_value",
                              "fold_decode"),
@@ -100,6 +125,12 @@ ENGINE_SLOTS = 8
 # newest valid position per engine row in the kernel checks: a free slot,
 # a fresh prompt, both sides of a split boundary, mid-song, the last slot
 FOLD_T = (0, 15, 63, 64, 300, 510, 200, 127)
+# the batched offline decode: batch, heads (MHA), and the scalar positions
+# at which the two scalar-t kernels are checked (both sides of a 256-key
+# block boundary among them); kernels are timed at BENCH_TIMED_T
+BENCH_B, BENCH_H = 8, 8
+BENCH_T = (0, 100, 255, 256, 300, 510)
+BENCH_TIMED_T = 300
 # max |kernel - plain| allowed. f32: both sides accumulate in f32, in other
 # orders. bf16: the plain attention rounds scores and probabilities to
 # bf16 (the JAX model's XLA path), the kernels keep them in f32, so they
@@ -111,8 +142,8 @@ TOL = {("flash_attention", "float32"): 1e-4,
        ("fused_ffn", "bfloat16"): 3e-2,
        ("fused_ffn_rows16", "float32"): 1e-4,
        ("fused_ffn_rows16", "bfloat16"): 3e-2,
-       ("flash_decode", "float32"): 1e-4,
-       ("flash_decode", "bfloat16"): 1e-2,
+       ("flash_decode_sp", "float32"): 1e-4,
+       ("flash_decode_sp", "bfloat16"): 1e-2,
        ("fused_ffn_rows8", "float32"): 1e-4,
        ("fused_ffn_rows8", "bfloat16"): 3e-2,
        ("kth_value", "float32"): 0.0,
@@ -125,6 +156,33 @@ TOL = {("flash_attention", "float32"): 1e-4,
        ("flash_decode_fold_sp", "bfloat16"): 1e-2,
        ("flash_decode_fold3_sp", "float32"): 1e-4,
        ("flash_decode_fold3_sp", "bfloat16"): 1e-2,
+       # the one-launch kernels of the batched decode, at 8 x 8 heads and
+       # six positions: f32 as the others. bf16: the two scalar-t kernels
+       # against the head-major plain version (scores rounded to bf16
+       # there, f32 here) and the three fold kernels against the plain
+       # version that rounds the probabilities where they do (but its
+       # scores to bf16 too): one bf16 step of an output of size 2..4,
+       # 2^-6 = 1.6e-2; outputs of that size occur at the small t among the
+       # 3072 checked values a position
+       **{(name + tag, "float32"): 1e-4 for name in BATCH_KERNELS
+          for tag in ("", "_gqa")},
+       **{(name + tag, "bfloat16"): 1.6e-2 for name in BATCH_KERNELS
+          for tag in ("", "_gqa")},
+       # the kernels the batched decode shares with the served paths, at
+       # the shapes that path gives them (B 8, MHA; 128 prefill rows; the
+       # Scheme-B2 vocabulary): each as at its served shape
+       ("flash_attention_batch", "float32"): 1e-4,
+       ("flash_attention_batch", "bfloat16"): 3e-2,
+       ("fused_ffn_rows128", "float32"): 1e-4,
+       ("fused_ffn_rows128", "bfloat16"): 3e-2,
+       ("kth_value_batch", "float32"): 0.0,
+       ("kth_value_batch", "bfloat16"): 0.0,
+       ("flash_decode_sp_batch", "float32"): 1e-4,
+       ("flash_decode_sp_batch", "bfloat16"): 1e-2,
+       ("flash_decode_fold_sp_batch", "float32"): 1e-4,
+       ("flash_decode_fold_sp_batch", "bfloat16"): 1e-2,
+       ("flash_decode_fold3_sp_batch", "float32"): 1e-4,
+       ("flash_decode_fold3_sp_batch", "bfloat16"): 1e-2,
        # sums of 4 * 511 values of size ~1 in another order; the bf16
        # output (|sum| up to ~150) is rounded to 2^-8 relative
        ("stream_reduce", "float32"): 1e-3,
@@ -134,7 +192,15 @@ TOL = {("flash_attention", "float32"): 1e-4,
 # kernels compute in f32 and round only the output (2^-9 relative), so a
 # dropped or mis-rescaled key block shows even where outputs are small.
 REL_TOL_F32 = 1e-2
-TF_TOL = 5e-3   # teacher-forced f32 logits, card vs host (|logit| ~ 10)
+TF_TOL = 5e-3   # teacher-forced f32 logits of demo_ckpt_a, card vs host
+# the same for the large2 model of the batched decode: random weights give
+# max |logit| under 3, and a sound run reads deltas of a few 1e-6 (f32 sums
+# in other orders over 6 layers), so the limit sits well under what a wrong
+# attention would move
+BATCH_TF_TOL = 1e-4
+# flash_decode_fold2 across rows 2, 4, 8 in f32 (the JAX package's own test
+# holds its kernel to this; the port's is built to be bit-equal)
+ROWS_TOL = 1e-6
 
 
 def log(*a):
@@ -271,6 +337,20 @@ def kernel_checks(torch, ckpt_params) -> dict:
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by)
 
+    def hold(name, dt, got, want, extra=""):
+        """A kernel at a further shape of a path against its plain version:
+        checked like the others; its record stays the main shape's."""
+        tol = TOL[(name, dt)]
+        err = (got.float() - want.float()).abs().max().item()
+        if tol == 0.0 and not torch.equal(got.float().view(torch.int32),
+                                          want.float().view(torch.int32)):
+            err = float("inf")
+        ok = torch.isfinite(got.float()).all().item() and err <= tol
+        log(f"[check] {name:16s} {dt:9s} max|err| {err:.3e} (tol {tol:.0e}) "
+            f"{extra}{'' if ok else '  FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {dt}: max|err| {err} > {tol}")
+
     def sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
@@ -311,11 +391,29 @@ def kernel_checks(torch, ckpt_params) -> dict:
                time_ms(torch, lambda: sdpa(q, k, v, True)),
                nbytes(q, k, v, q, vl), 4 * pairs * Dh)
 
-        # K2: the flagship's layer-0 FFN, rows 1 (decode) and 16 (prefill)
+        # K1 in the batched decode's prefill: B 8, MHA (one query head per
+        # KV head), the 3-token prompt in its 16-slot bucket
+        qa = randn(BENCH_B, BENCH_H, T, Dh, dt=dt)
+        ka = randn(BENCH_B, BENCH_H, T, Dh, dt=dt)
+        va = randn(BENCH_B, BENCH_H, T, Dh, dt=dt)
+        vl3 = torch.full((BENCH_B,), 3, dtype=torch.int32, device=dev)
+        got = attention.flash_attention(qa, ka, va, vl3, causal=True)
+        torch.cuda.synchronize()
+        hold("flash_attention_batch", dt_name, got, attention.attention_plain(
+            qa, ka, va, vl3, causal=True),
+            extra=f"q {tuple(qa.shape)} MHA, valid_len 3, causal")
+        if dt is torch.bfloat16:
+            rel_f32("flash_attention", got, attention.attention_plain(
+                qa.float(), ka.float(), va.float(), vl3, causal=True),
+                where=" at the batch shape")
+
+        # K2: the flagship's layer-0 FFN (the large2 model's has the same
+        # D 512, FF 2048 and relu): rows 1 (solo decode), 8 (engine and
+        # batched decode), 16 (solo prefill), 128 (batched prefill, 8 x 16)
         mlp = {n: w.to(dt).to(dev) for n, w in
                ckpt_params["layers"][0]["mlp"].items()}
         D, FF = mlp["w2"].shape
-        for rows in (1, ENGINE_SLOTS, 16):
+        for rows in (1, ENGINE_SLOTS, 16, BENCH_B * 16):
             x = randn(rows, D, dt=dt)
             args = (x, mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"])
             got = ffn.fused_ffn(*args, activation="relu")
@@ -327,6 +425,12 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 return F.linear(torch.relu(F.linear(a[0], a[1], a[2])),
                                 a[3], a[4])
 
+            if rows == BENCH_B * 16:
+                if (D, FF) != (512, 2048):
+                    raise AssertionError(f"FFN {D} x {FF} is not large2's")
+                hold("fused_ffn_rows128", dt_name, got, want,
+                     extra=f"rows {rows}, D {D}, FF {FF}")
+                continue
             res = (err, time_ms(torch, lambda: ffn.fused_ffn(
                        *args, activation="relu"), cold=True),
                    time_ms(torch, lambda: ffn.ffn_plain(
@@ -344,21 +448,21 @@ def kernel_checks(torch, ckpt_params) -> dict:
         worst = 0.0
         for t in (0, 15, 300, 510):
             tt = torch.full((1,), t, dtype=torch.int32, device=dev)
-            got = decode_attention.flash_decode(q1, kc, vc, tt)
+            got = decode_attention.flash_decode_sp(q1, kc, vc, tt)
             want = decode_attention.decode_attention_plain(q1, kc, vc, tt)
             torch.cuda.synchronize()
             worst = max(worst, (got.float() - want.float()).abs().max()
                         .item())
             if dt is torch.bfloat16:
-                rel_f32("flash_decode", got,
+                rel_f32("flash_decode_sp", got,
                         decode_attention.decode_attention_plain(
                             q1.float(), kc.float(), vc.float(), tt),
                         where=f" at t {t}")
         t = 300   # timed mid-song
         tt = torch.full((1,), t, dtype=torch.int32, device=dev)
         kv_live = 2 * (t + 1) * Hkv * Dh * kc.element_size()
-        record("flash_decode", dt_name, worst,
-               time_ms(torch, lambda: decode_attention.flash_decode(
+        record("flash_decode_sp", dt_name, worst,
+               time_ms(torch, lambda: decode_attention.flash_decode_sp(
                    q1, kc, vc, tt), cold=True),
                time_ms(torch, lambda: decode_attention
                        .decode_attention_plain(q1, kc, vc, tt), cold=True),
@@ -391,6 +495,15 @@ def kernel_checks(torch, ckpt_params) -> dict:
                        logits, 50).values[..., -1:]),
                    nbytes(logits) + 4 * nb, 2 * 32 * V * nb,
                    extra=f"B {nb}, k 50, bit-equal")
+
+        # K4 in the batched decode: 8 rows over the Scheme-B2 vocabulary
+        logits = randn(BENCH_B, 8324, dt=dt, scale=3.0)
+        logits[3, 100:110] = logits[3, 5]          # ties
+        got = topk.kth_value(logits, 50)
+        torch.cuda.synchronize()
+        hold("kth_value_batch", dt_name, got,
+             topk.kth_value_plain(logits, 50),
+             extra=f"logits {tuple(logits.shape)}, k 50, bit-equal")
 
         # the fold kernels: one engine step, 8 rows over the flagship's
         # fused position-major cache, ragged lengths
@@ -469,6 +582,170 @@ def kernel_checks(torch, ckpt_params) -> dict:
                extra=f"kv {tuple(kvs.shape)}, rows {rows}: reads "
                      f"{nbytes(kvs) / k_ms / 1e6:.1f} GB/s (the plain and "
                      "library versions read the last group only)")
+
+        # the batched offline decode's two scalar-t kernels: B 8, MHA H 8,
+        # over a head-major cache of 511 slots
+        Bb, Hb = BENCH_B, BENCH_H
+        kb = randn(Bb, Hb, M, Dh, dt=dt)
+        vb = randn(Bb, Hb, M, Dh, dt=dt)
+        qb = randn(Bb, Hb, 1, Dh, dt=dt)
+        scalar_t = {"flash_decode": decode_attention.flash_decode,
+                    "flash_decode_vmem": decode_attention.flash_decode_vmem}
+        worst = dict.fromkeys(scalar_t, 0.0)
+        for t in BENCH_T:
+            tt = torch.full((Bb,), t, dtype=torch.int32, device=dev)
+            want = decode_attention.decode_attention_plain(qb, kb, vb, tt)
+            want32 = decode_attention.decode_attention_plain(
+                qb.float(), kb.float(), vb.float(), tt)
+            # K3 is the batched decode's default: the same shape
+            got = decode_attention.flash_decode_sp(qb, kb, vb, tt)
+            torch.cuda.synchronize()
+            hold("flash_decode_sp_batch", dt_name, got, want,
+                 extra=f"q {tuple(qb.shape)} MHA, M {M}, t {t}")
+            if dt is torch.bfloat16:
+                rel_f32("flash_decode_sp", got, want32,
+                        where=f" at the batch shape, t {t}")
+            for name, fn in scalar_t.items():
+                got = fn(qb, kb, vb, t)
+                torch.cuda.synchronize()
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{name}: not finite at t {t}")
+                worst[name] = max(worst[name], (got.float() - want.float())
+                                  .abs().max().item())
+                if dt is torch.bfloat16:
+                    rel_f32(name, got, want32, where=f" at t {t}")
+        t = BENCH_TIMED_T
+        tt = torch.full((Bb,), t, dtype=torch.int32, device=dev)
+        ms = time_cold_ms(torch, {
+            **{name: (lambda fn=fn: fn(qb, kb, vb, t))
+               for name, fn in scalar_t.items()},
+            "flash_decode_sp": lambda: decode_attention.flash_decode_sp(
+                qb, kb, vb, tt),
+            "plain": lambda: decode_attention.decode_attention_plain(
+                qb, kb, vb, tt),
+            "library": lambda: sdpa(qb, kb[:, :, :t + 1], vb[:, :, :t + 1],
+                                    False)})
+        # flash_decode reads whole 256-key blocks up to t, the other all M
+        bk = decode_attention.BLOCK_K
+        keys_read = {"flash_decode": min(M, bk * (t // bk + 1)),
+                     "flash_decode_vmem": M}
+        for name in scalar_t:
+            record(name, dt_name, worst[name], ms[name], ms["plain"],
+                   ms["library"],
+                   nbytes(qb, qb) + 2 * keys_read[name] * Bb * Hb * Dh
+                   * kb.element_size(), 4 * Bb * Hb * (t + 1) * Dh,
+                   extra=f"B {Bb}, H {Hb}, M {M}, err over t in {BENCH_T}, "
+                         f"timed at t {t}: reads {keys_read[name]} keys; "
+                         f"K3 at this shape {ms['flash_decode_sp']:.4f} ms")
+
+        # the three one-launch fold kernels: at the batched decode's shape
+        # (B 8, MHA, KVD 512; a uniform t and the ragged lengths), and at
+        # the engine's GQA-2 shape above (kvc, with its free slot)
+        whole = {"flash_decode_fold": ("after", decode_fold.flash_decode_fold),
+                 "flash_decode_fold2": ("after",
+                                        decode_fold.flash_decode_fold2),
+                 "flash_decode_fold3": ("before",
+                                        decode_fold.flash_decode_fold3)}
+        kvb = randn(Bb, M, 2 * Hb * Dh, dt=dt)
+        qfb = randn(Bb, 1, Hb * Dh, dt=dt)
+        t_uni = torch.full((Bb,), BENCH_TIMED_T, dtype=torch.int32,
+                           device=dev)
+        for tag, q_, kv_, ts in (("", qfb, kvb, (t_uni, tf)),
+                                 ("_gqa", qf, kvc, (tf,))):
+            worst = dict.fromkeys(whole, 0.0)
+            for t_ in ts:
+                want32 = decode_fold.decode_attention_pm_plain(
+                    q_.float(), kv_.float(), t_, H)
+                if not tag:
+                    # the two split kernels, which the batched decode can
+                    # select too, at its MHA shape
+                    want = decode_fold.decode_attention_pm_plain(q_, kv_, t_,
+                                                                 H)
+                    for name in ("flash_decode_fold_sp",
+                                 "flash_decode_fold3_sp"):
+                        got = getattr(decode_fold, name)(q_, kv_, t_, H)
+                        torch.cuda.synchronize()
+                        hold(name + "_batch", dt_name, got, want,
+                             extra=f"q {tuple(q_.shape)}, kv "
+                                   f"{tuple(kv_.shape)} MHA, t {t_.tolist()}")
+                        if dt is torch.bfloat16:
+                            rel_f32(name, got, want32, where=" at the batch "
+                                    f"shape, t {t_.tolist()}")
+                for name, (norm, fn) in whole.items():
+                    got = fn(q_, kv_, t_, H)
+                    want = decode_fold.decode_attention_pm_plain(
+                        q_, kv_, t_, H, normalize=norm)
+                    torch.cuda.synchronize()
+                    if not torch.isfinite(got.float()).all():
+                        raise AssertionError(f"{name}{tag}: not finite")
+                    worst[name] = max(worst[name], (
+                        got.float() - want.float()).abs().max().item())
+                    if dt is torch.bfloat16:
+                        rel_f32(name, got, want32,
+                                where=f"{tag} at t {t_.tolist()}")
+                    qkv = torch.cat([q_, randn(Bb, 1, 64, dt=dt)], dim=-1)
+                    if not torch.equal(fn(qkv[..., :H * Dh], kv_, t_, H),
+                                       got):
+                        raise AssertionError(f"{name}{tag}: strided q "
+                                             "differs")
+            # fold2 must not depend on rows
+            by_rows = {r: decode_fold.flash_decode_fold2(q_, kv_, ts[-1], H,
+                                                         rows=r)
+                       for r in (1, 2, 4, 8)}
+            spread = max((by_rows[r].float() - by_rows[4].float()).abs()
+                         .max().item() for r in by_rows)
+            bit_equal = all(torch.equal(by_rows[r], by_rows[4])
+                            for r in by_rows)
+            log(f"[check] flash_decode_fold2{tag} {dt_name} rows 1, 2, 4, 8:"
+                f" max spread {spread:.3e} (tol {ROWS_TOL:.0e}), bit-equal "
+                f"{bit_equal}")
+            if not spread <= ROWS_TOL:
+                raise AssertionError(f"flash_decode_fold2{tag}: depends on "
+                                     f"rows by {spread}")
+            t_ = ts[0]
+            keep_ = (torch.arange(M, device=dev)[None, :]
+                     <= t_[:, None])[:, None, None, :]
+            hkv = kv_.shape[2] // (2 * Dh)
+            kh_ = kv_[..., :hkv * Dh].reshape(Bb, M, hkv, Dh).transpose(
+                1, 2).contiguous()
+            vh_ = kv_[..., hkv * Dh:].reshape(Bb, M, hkv, Dh).transpose(
+                1, 2).contiguous()
+            qh_ = q_.reshape(Bb, H, 1, Dh)
+            ms = time_cold_ms(torch, {
+                **{name: (lambda fn=fn: fn(q_, kv_, t_, H))
+                   for name, (_, fn) in whole.items()},
+                "flash_decode_fold_sp": lambda: decode_fold
+                .flash_decode_fold_sp(q_, kv_, t_, H),
+                "flash_decode_fold3_sp": lambda: decode_fold
+                .flash_decode_fold3_sp(q_, kv_, t_, H),
+                "after": lambda: decode_fold.decode_attention_pm_plain(
+                    q_, kv_, t_, H, normalize="after"),
+                "before": lambda: decode_fold.decode_attention_pm_plain(
+                    q_, kv_, t_, H),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qh_, kh_, vh_, attn_mask=keep_, enable_gqa=True)})
+            for name, (norm, _) in whole.items():
+                record(name + tag, dt_name, worst[name], ms[name], ms[norm],
+                       ms["library"], nbytes(q_, q_, t_, kv_),
+                       4 * Bb * H * M * Dh,
+                       extra=f"q {tuple(q_.shape)}, kv {tuple(kv_.shape)}, "
+                             f"err over t in {[x.tolist() for x in ts]}, "
+                             f"timed at t {t_.tolist()}; the split kernels "
+                             f"here: fold_sp "
+                             f"{ms['flash_decode_fold_sp']:.4f} ms, fold3_sp "
+                             f"{ms['flash_decode_fold3_sp']:.4f} ms")
+
+    # a cache too long for a block's shared memory is refused by the
+    # launcher, by name, and nothing is computed
+    big = torch.zeros(1, 1, 60000, 64, dtype=torch.float32, device=dev)
+    try:
+        decode_attention.flash_decode_vmem(big[:, :, :1], big, big, 5)
+    except RuntimeError as exc:
+        if "shared memory" not in str(exc):
+            raise
+        log(f"[check] refusal: {exc}")
+    else:
+        raise AssertionError("flash_decode_vmem took M 60000")
     return results
 
 
@@ -703,7 +980,9 @@ def _trace(torch, tag: str, work) -> dict:
                                "decode_partial", "decode_combine",
                                "kth_value_kernel", "fold_partial",
                                "fold_combine", "stream_partial",
-                               "stream_final"),
+                               "stream_final", "decode_blocks",
+                               "decode_whole", "fold_whole", "fold2_rows",
+                               "fold3_whole"),
               "gemm": ("gemm", "xmma", "cutlass", "cublas", "nvjet")}
     by_group = {g: 0.0 for g in (*groups, "other")}
     for key, ms, _ in rows:
@@ -929,7 +1208,146 @@ def serve_window(torch) -> dict:
     return counts
 
 
-PHASES = ("build", "kernels", "teacher", "solo", "coalesce")
+def batch_teacher_forced(torch, cfg32, params32) -> None:
+    """Phase 7, second part: f32 logits of the large2 model over the
+    prompt + 32 forced tokens, two rows, every attn_impl on the card
+    against the same attn_impl on the host (its plain version)."""
+    from eamg_tpu_torch.decode.api import _to_device
+    from eamg_tpu_torch.models import gpt
+
+    g = torch.Generator().manual_seed(2)
+    forced = torch.randint(0, cfg32.vocab_size, (32, 2), generator=g)
+    ids = torch.zeros((2, 16), dtype=torch.int64)
+    ids[:, :3] = torch.tensor([1, 2, 3])
+
+    def run(device, impl):
+        params = _to_device(params32, device)
+        cache = gpt.init_kv_cache(cfg32, 2, cfg32.n_pos, device=device,
+                                  layout=gpt.cache_layout(impl, cfg32))
+        logits0, cache = gpt.prefill(params, ids.to(device), cfg32, cache,
+                                     prompt_len=3)
+        outs = [logits0[:, 2]]
+        last = ids[:, 2:3].to(device)
+        for row in forced:
+            lg, cache = gpt.decode_step(params, last, cache, cfg32, impl)
+            outs.append(lg)
+            last = row[:, None].to(device)
+        return torch.stack(outs).float().cpu()
+
+    for impl in gpt.ATTN_IMPLS:
+        a, b = run("cuda", impl), run("cpu", impl)
+        delta = (a - b).abs().max().item()
+        log(f"[batch teacher-forced] large2 f32, attn_impl {impl}: "
+            f"max|logits(card) - logits(host)| {delta:.3e} (tol "
+            f"{BATCH_TF_TOL:.0e}, max|logit| {b.abs().max().item():.2f})")
+        if not delta <= BATCH_TF_TOL:
+            raise AssertionError(f"batch teacher-forced {impl}: {delta} > "
+                                 f"{BATCH_TF_TOL}")
+
+
+def batch_decode(torch) -> dict:
+    """Phase 7: the bench's generation on large2, batch 8, to position
+    511, once per attn_impl. -> launches per kernel wrapper, summed over
+    the generations (an attention kernel launches in one of them only)."""
+    import dataclasses as dc
+
+    from eamg_tpu_torch import bench
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.ops import _build
+
+    cfg = bench.large2_config()
+    params = bench.make_params(cfg, 0, "cuda")
+    prompt = bench.bench_prompt("cuda")
+    max_len = cfg.n_pos
+    steps = max_len - len(bench.PROMPT) - 1
+    wrappers = gpt.IMPL_KERNEL
+    log(f"[batch] large2: d{cfg.d_model} h{cfg.n_head} kv{cfg.kv_heads} "
+        f"L{cfg.n_layer} ff{cfg.ff} V{cfg.vocab_size} {cfg.dtype}, batch "
+        f"{prompt.shape[0]}, max_len {max_len}, {steps} decode steps")
+    bench.run_once(params, cfg, prompt, 0, 32, "sp")      # warm the library
+    torch.cuda.synchronize()
+    total: dict = {}
+    for impl in gpt.ATTN_IMPLS:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        buf, pos = bench.run_once(params, cfg, prompt, 1, max_len, impl)
+        secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        n_tok = (max_len - len(bench.PROMPT)) * prompt.shape[0]
+        log(f"[batch] attn_impl {impl}: {n_tok} tokens in {secs:.2f} s, "
+            f"{n_tok / secs:.1f} tokens/s, {secs / steps * 1e3:.3f} ms per "
+            f"step; launches {counts}")
+        if pos != max_len or tuple(buf.shape) != (prompt.shape[0], max_len) \
+                or int(buf.min()) < 0 or int(buf.max()) >= cfg.vocab_size \
+                or not torch.equal(buf[:, :3], prompt[:, :3].cpu()):
+            raise AssertionError(f"batch {impl}: bad tokens")
+        if len({tuple(r) for r in buf.tolist()}) < 2:
+            raise AssertionError(f"batch {impl}: all rows drew one stream")
+        want = {"flash_attention": cfg.n_layer,
+                "fused_ffn": cfg.n_layer * (steps + 1),
+                "kth_value": steps + 1,
+                **{w: 0 for w in wrappers.values()},
+                wrappers[impl]: cfg.n_layer * steps}
+        got = {name: counts.get(name, 0) for name in want}
+        if got != want:
+            raise AssertionError(f"batch {impl}: launches {got}, want "
+                                 f"{want}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    # one more generation of the default attn_impl under torch.profiler
+    _trace(torch, "batch", lambda: (max_len - len(bench.PROMPT))
+           * bench.run_once(params, cfg, prompt, 2, max_len,
+                            "sp")[0].shape[0])
+    cfg32 = dc.replace(cfg, dtype="float32")
+    params32 = gpt.init_params(torch.Generator().manual_seed(0), cfg32)
+    params32["pos"] = 0.1 * torch.randn(params32["pos"].shape,
+                                        generator=torch.Generator()
+                                        .manual_seed(1))
+    batch_teacher_forced(torch, cfg32, params32)
+    return total
+
+
+def cli_generate(torch) -> dict:
+    """Phase 7, last part: `cli generate --wav` on demo_ckpt_a, bf16, twice
+    with one seed. -> launches per kernel over the two runs."""
+    import tempfile
+
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    files = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(2):
+            mid = os.path.join(tmp, f"g{i}.mid")
+            wav = os.path.join(tmp, f"g{i}.wav")
+            t0 = time.perf_counter()
+            code = cli.main(["generate", "--seed", "5", "--bpm", "120",
+                             "--key", "C major", "--out", mid, "--wav", wav])
+            torch.cuda.synchronize()
+            if code != 0:
+                raise AssertionError(f"cli generate exited {code}")
+            with open(mid, "rb") as f:
+                m = f.read()
+            with open(wav, "rb") as f:
+                w = f.read()
+            log(f"[cli generate] run {i}: {len(m)} MIDI bytes, {len(w)} WAV "
+                f"bytes in {time.perf_counter() - t0:.2f} s")
+            if m[:4] != b"MThd":
+                raise AssertionError("cli generate: MIDI does not start MThd")
+            if w[:4] != b"RIFF" or w[8:12] != b"WAVE":
+                raise AssertionError("cli generate: WAV is not RIFF....WAVE")
+            files.append((m, w))
+    counts = _build.launch_counts()
+    if files[0] != files[1]:
+        raise AssertionError("cli generate: same-seed bytes differ")
+    log(f"[cli generate] same-seed MIDI and WAV bytes identical; launches "
+        f"over the two runs: {counts}")
+    _require_launched("solo", counts)
+    return counts
+
+
+PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "batch")
 
 
 def main(argv=None) -> int:
@@ -981,6 +1399,9 @@ def main(argv=None) -> int:
     if "coalesce" in phases:
         counts["coalesce"], probes, _ = serve_coalesced(torch)
         counts["window"] = serve_window(torch)
+    if "batch" in phases:
+        counts["batch"] = batch_decode(torch)
+        counts["generate"] = cli_generate(torch)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
         log("chip_smoke: a partial run; no kernels line and no last line")

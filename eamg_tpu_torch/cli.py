@@ -1,14 +1,23 @@
-"""Command line of the port: ``python -m eamg_tpu_torch.cli serve``.
+"""Command line of the port: ``python -m eamg_tpu_torch.cli serve`` and
+``python -m eamg_tpu_torch.cli generate``.
 
-Serves ``POST /generate`` on a Scheme-A checkpoint of the JAX package's
-format (default: the shipped flagship ``eamg_tpu/serve/demo_ckpt_a``) on
-the CUDA device, or on the host with ``--device cpu``. ``--coalesce``
+``generate`` writes one MIDI file (and with ``--wav`` a WAV file) from
+fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
+``--interactive``, from a typed description, on a Scheme-A checkpoint
+(default: the shipped flagship), through ``Generator.sample_kvcache``. Its
+``--beams``, ``--grammar``, ``--draft``, ``--lookup`` and ``--medusa`` are
+not in the port yet and exit 2 naming the flag.
+
+``serve`` serves ``POST /generate`` on a Scheme-A checkpoint of the JAX
+package's format (default: the shipped flagship
+``eamg_tpu/serve/demo_ckpt_a``) on the CUDA device, or on the host with ``--device cpu``. ``--coalesce``
 routes requests through the continuous-batching engine (or, with
 ``--coalesce window``, the 10 ms window batcher), with the JAX server's
 engine options ``--slots``, ``--chunk``, ``--max-queue``,
 ``--fast-routing`` and ``--engine-top-p``. The JAX CLI's other
 subcommands, and the engine modes for medusa, n-gram bans and grammar, are
-not in the port yet.
+not in the port yet. Both subcommands run on the CUDA device unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,6 +29,18 @@ import threading
 
 # engine modes of the JAX server that the port's engine does not carry yet
 _ENGINE_NOT_YET = ("engine_medusa", "engine_ngram", "engine_grammar")
+# decode modes of the JAX CLI's generate that the port does not carry yet
+_GENERATE_NOT_YET = ("beams", "grammar", "draft", "lookup", "medusa")
+
+
+def _refuse(args, names) -> bool:
+    """Name the first of ``names`` that is set and not in the port."""
+    for name in names:
+        if getattr(args, name):
+            print(f"--{name.replace('_', '-')} is not yet in the PyTorch "
+                  "port", file=sys.stderr)
+            return True
+    return False
 
 
 def coalesce_opts_from_args(args) -> dict:
@@ -57,11 +78,8 @@ def pipeline_from_args(args):
 def _serve(args) -> int:
     from .serve import make_server, shutdown_gracefully
 
-    for name in _ENGINE_NOT_YET:
-        if getattr(args, name):
-            print(f"--{name.replace('_', '-')} is not yet in the PyTorch "
-                  "port", file=sys.stderr)
-            return 2
+    if _refuse(args, _ENGINE_NOT_YET):
+        return 2
     pipeline = pipeline_from_args(args)
     print(f"warming up on {pipeline.device} (building the kernels)...",
           flush=True)
@@ -85,9 +103,119 @@ def _serve(args) -> int:
     return 0
 
 
+def _generate(args) -> int:
+    """Offline generation of one MIDI (and WAV) file, as the JAX CLI's
+    ``generate`` does it for Scheme-A checkpoints."""
+    if _refuse(args, _GENERATE_NOT_YET):
+        return 2
+    from .audio import render_to_wav
+    from .decode import Generator
+    from .serve.pipeline import DEMO_CKPT_A
+    from .tokenizer import (Vocab, assemble_prompt, closest_bpm_token,
+                            detect_scheme, normalize_key_signature,
+                            tokens_to_song)
+    from .utils.checkpoint import load_checkpoint
+    from .utils.device import resolve_device
+    from .utils.errors import NotInPort
+
+    device = resolve_device(args.device)
+    ckpt = load_checkpoint(args.checkpoint or DEMO_CKPT_A)
+    vocab = Vocab(ckpt["vocab"])
+    scheme = detect_scheme(vocab)
+    if scheme != "a":
+        raise NotInPort(f"generating from Scheme-{scheme.upper()} "
+                        "checkpoints")
+    gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device)
+    if args.interactive:
+        # free text -> emotion -> mapping -> music
+        from .emotion import EmotionClassifier, get_music_params
+
+        text = input("Enter a description or feeling: ")
+        label = EmotionClassifier(device=device).predict(text)
+        mapping = get_music_params(label, seed=args.seed)
+        print("Music Mapping:", mapping)
+        prompt = assemble_prompt(gen.vocab, mapping, full_gm=args.full_gm)
+    else:
+        prompt = ["[START_SEQUENCE]", closest_bpm_token(gen.vocab, args.bpm),
+                  normalize_key_signature(args.key)]
+        prompt += [f"[INSTRUMENT] {i}" for i in args.instruments]
+    # a data-dependent vocabulary may lack a control token: drop it and say
+    # so, as the serving pipeline does
+    dropped = [t for t in prompt if t not in gen.vocab]
+    if dropped:
+        print("note: dropped prompt tokens not in this checkpoint's "
+              f"vocabulary: {dropped}")
+        prompt = [t for t in prompt if t in gen.vocab]
+    penalties = (args.repetition_penalty, args.frequency_penalty,
+                 args.presence_penalty)
+    tokens = gen.sample_kvcache(
+        prompt, max_len=args.max_len, temperature=args.temperature,
+        top_k=args.top_k, seed=args.seed, top_p=args.top_p, min_p=args.min_p,
+        penalties=None if penalties == (1.0, 0.0, 0.0) else penalties,
+        no_repeat_ngram=args.no_repeat_ngram)
+    print("Generated token snippet:", tokens[:20], "...")
+    song = tokens_to_song(tokens)
+    song.write(args.out)
+    print("MIDI saved ->", args.out)
+    if args.wav:
+        render_to_wav(song, args.wav, seed=args.seed, device=device)
+        print("WAV saved ->", args.wav)
+    return 0
+
+
+def _add_generate(sub) -> None:
+    g = sub.add_parser("generate", help="generate MIDI (batch/interactive)")
+    g.add_argument("--checkpoint", default=None,
+                   help="checkpoint dir (default: eamg_tpu/serve/"
+                        "demo_ckpt_a)")
+    g.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "versions of the kernels)")
+    g.add_argument("--interactive", action="store_true",
+                   help="ask for a description, classify its emotion and "
+                        "take the controls from it")
+    g.add_argument("--bpm", type=float, default=180)
+    g.add_argument("--key", default="A minor")
+    g.add_argument("--instruments", nargs="*",
+                   default=["Violin", "Acoustic Grand Piano"])
+    g.add_argument("--max-len", type=int, default=None)
+    g.add_argument("--temperature", type=float, default=1.0)
+    g.add_argument("--top-k", type=int, default=50)
+    g.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling mass (1.0 = off; after top-k)")
+    g.add_argument("--min-p", type=float, default=0.0,
+                   help="drop tokens below min_p x the top token's "
+                        "probability (0 = off)")
+    g.add_argument("--repetition-penalty", type=float, default=1.0,
+                   help="CTRL/HF repetition penalty over tokens already "
+                        "seen (1.0 = off; > 1 discourages repeats)")
+    g.add_argument("--frequency-penalty", type=float, default=0.0,
+                   help="subtract count x this from seen tokens' logits "
+                        "(0 = off)")
+    g.add_argument("--presence-penalty", type=float, default=0.0,
+                   help="subtract this from every seen token's logit "
+                        "(0 = off)")
+    g.add_argument("--no-repeat-ngram", type=int, default=0,
+                   help="ban tokens completing an n-gram already in the "
+                        "stream (0 = off)")
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--out", default="generated.mid")
+    g.add_argument("--wav", default=None)
+    g.add_argument("--full-gm", action="store_true")
+    g.add_argument("--beams", type=int, default=0, help="not yet in the port")
+    g.add_argument("--grammar", action="store_true",
+                   help="not yet in the port")
+    g.add_argument("--draft", default=None, help="not yet in the port")
+    g.add_argument("--lookup", action="store_true",
+                   help="not yet in the port")
+    g.add_argument("--medusa", default=None, help="not yet in the port")
+    g.set_defaults(fn=_generate)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="eamg_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
+    _add_generate(sub)
     s = sub.add_parser("serve", help="serve POST /generate")
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8000)
@@ -133,11 +261,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="not yet in the port")
     s.add_argument("--engine-grammar", action="store_true",
                    help="not yet in the port")
+    s.set_defaults(fn=_serve)
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> int:
-    return _serve(parse_args(argv))
+    args = parse_args(argv)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,54 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Max or sum over all threads of the block, the same value in every thread.
+// The warps' results are combined by every thread in warp order, so the
+// result does not depend on timing. Called by the whole block in uniform
+// control flow, with a block size that is a multiple of 32; `scratch` holds
+// one float per warp (at most 32).
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_max(v);
+  __syncthreads();  // scratch is free of an earlier call's readers
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float r = scratch[0];
+  for (int w = 1; w < nw; ++w) r = fmaxf(r, scratch[w]);
+  return r;
+}
+
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float r = scratch[0];
+  for (int w = 1; w < nw; ++w) r += scratch[w];
+  return r;
+}
+
+// x rounded to T and back: where a TPU kernel casts an f32 value to the
+// cache dtype before a matrix product
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// a block may use up to 227 KB of shared memory on sm_90, above 48 KB only
+// after the opt-in below
+constexpr size_t EAMG_MAX_SMEM = 232448;
+
+template <typename K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes > EAMG_MAX_SMEM) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 __device__ __forceinline__ int warp_sum_int(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

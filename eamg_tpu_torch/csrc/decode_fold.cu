@@ -41,6 +41,37 @@
 // key position alone, never on B, on the row's slot or on another row's t,
 // so a row's output has the same bits alone and inside any batch.
 // Statistics and accumulators are f32; only the output is rounded.
+//
+// Three more kernels, one launch each, read the WHOLE cache whatever t is
+// (the uniform batched decode selects them by name):
+//   flash_decode_fold  replaces ::flash_decode_fold  (_fold_kernel),
+//   flash_decode_fold2 replaces ::flash_decode_fold2 (_fold2_kernel),
+//   flash_decode_fold3 replaces ::flash_decode_fold3 (_fold3_kernel).
+// What bounds them: 2 * M * KVD elements per row, always (8.4 MB at batch 8,
+// M 511, KVD 512 in bf16), against 4 * H * M * Dh flops: bound by bytes.
+// Design: a group of threads takes one batch row with all its heads. Warps
+// walk the (key, KV head) pairs with their lanes along Dh, so a key's row is
+// read as coalesced segments, and leave the scores of all H heads and M keys
+// in shared memory (4 * H * M bytes). The softmax runs over them in place,
+// and p.v reads the values straight from device memory, consecutive threads
+// on consecutive features, a fixed share of the keys per thread, the shares
+// summed in a fixed order. What keeps the three apart is what keeps the TPU
+// kernels apart:
+//   fold:  scores lie [M][H] (keys major). A head's max and sum are taken by
+//     the threads whose index is that head modulo H, each over a stripe of
+//     keys, and merged in stripe order. p is rounded to the cache dtype
+//     UNNORMALISED; the sum divides after p.v. One block of 1024 threads per
+//     row: B blocks on 132 SMs.
+//   fold2: fold's arithmetic with `rows` batch rows per block, grid
+//     B / rows. Every row has its own 128 threads and its own slice of shared
+//     memory whatever `rows` is, and no sum crosses rows, so the result is
+//     bit-equal for every `rows` (the TPU kernel masks cross-row terms off a
+//     joint matrix product and is only close). At rows 4, batch 8, two
+//     blocks run: the card is nearly empty. That is this kernel.
+//   fold3: scores lie [H][M] (heads major). A warp takes a head with its
+//     lanes along the keys, as the TPU's lane-major softmax, and p is divided
+//     by the sum BEFORE it is rounded to the cache dtype and multiplied with
+//     the values: in bf16 it rounds at another place than fold.
 #include "common.cuh"
 
 namespace {
@@ -316,6 +347,211 @@ int launch(const Args& a, int Dh, int variant) {
   }
 }
 
+// ------------------------- one launch over the whole cache: fold, fold2, fold3
+
+constexpr int NT_ROW = 1024;  // threads on a batch row: fold, fold3
+constexpr int TPR = 128;      // threads on each batch row: fold2
+
+// shared floats a batch row needs when n threads work on it
+__host__ __device__ inline size_t row_floats(int H, int M, int Dh, int n) {
+  const int D = H * Dh;
+  return (size_t)D + (size_t)H * M + (size_t)(n > D ? n : D) + 2 * H;
+}
+
+// One batch row: q row qp [H * DH], cache row kvp [M, 2 * KVD], output op
+// [H * DH], newest valid position tb (already clamped to M - 1), by the n
+// threads tid = 0..n-1 of one group, on the group's shared slice sm. Every
+// group of a block runs this in step: the barriers are the block's, and all
+// loops that hold one are bounded by M and H alone.
+template <typename T, int DH, bool HEADS_MAJOR>
+__device__ __forceinline__ void fold_row(const T* __restrict__ qp,
+                                         const T* __restrict__ kvp,
+                                         T* __restrict__ op, int tb, int H,
+                                         int Hkv, int M, float scale,
+                                         float* sm, int tid, int n) {
+  constexpr int EPL = DH / 32;  // elements of Dh per lane
+  const int g = H / Hkv, KVD = Hkv * DH, D = H * DH;
+  float* qs = sm;                        // [D]
+  float* sc = qs + D;                    // [M][H] or [H][M]
+  float* red = sc + (size_t)H * M;       // [max(n, D)]
+  float* stat = red + (n > D ? n : D);   // max [H], sum [H]
+  const int warp = tid / 32, lane = tid % 32, nw = n / 32;
+
+  for (int e = tid; e < D; e += n) qs[e] = to_f32(qp[e]);
+  __syncthreads();
+
+  // scores of every key, valid or not: a warp per (key, KV head)
+#pragma unroll 2
+  for (int it = warp; it < M * Hkv; it += nw) {
+    const int j = it / Hkv, hk = it % Hkv;
+    const T* kr = kvp + (size_t)j * 2 * KVD + hk * DH + lane;
+    float kf[EPL];
+#pragma unroll
+    for (int i = 0; i < EPL; ++i) kf[i] = to_f32(kr[32 * i]);
+    for (int gi = 0; gi < g; ++gi) {
+      const int h = hk * g + gi;
+      float a = 0.f;
+#pragma unroll
+      for (int i = 0; i < EPL; ++i) a += qs[h * DH + lane + 32 * i] * kf[i];
+      a = warp_sum(a);
+      if (lane == 0)
+        sc[HEADS_MAJOR ? (size_t)h * M + j : (size_t)j * H + h] =
+            j <= tb ? a * scale : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  if (HEADS_MAJOR) {
+    // a warp per head, lanes along the keys; p normalised, then rounded
+    for (int h = warp; h < H; h += nw) {
+      float* row = sc + (size_t)h * M;
+      float mx = -INFINITY;
+      for (int j = lane; j < M; j += 32) mx = fmaxf(mx, row[j]);
+      mx = warp_max(mx);
+      float sum = 0.f;
+      for (int j = lane; j < M; j += 32) {
+        const float p = j <= tb ? expf(row[j] - mx) : 0.f;
+        row[j] = p;
+        sum += p;
+      }
+      const float l = fmaxf(warp_sum(sum), 1e-30f);
+      for (int j = lane; j < M; j += 32) row[j] = round_to<T>(row[j] / l);
+    }
+    __syncthreads();
+  } else {
+    // thread tid serves head tid % H over the keys tid / H, + n / H, ...
+    const int h = tid % H, stripe = tid / H, ns = n / H;
+    float mx = -INFINITY;
+    for (int j = stripe; j < M; j += ns) mx = fmaxf(mx, sc[(size_t)j * H + h]);
+    red[tid] = mx;
+    __syncthreads();
+    if (tid < H) {
+      float r = red[tid];
+      for (int s = 1; s < ns; ++s) r = fmaxf(r, red[s * H + tid]);
+      stat[tid] = r;
+    }
+    __syncthreads();
+    mx = stat[h];
+    float sum = 0.f;
+    for (int j = stripe; j < M; j += ns) {
+      const float p = j <= tb ? expf(sc[(size_t)j * H + h] - mx) : 0.f;
+      sc[(size_t)j * H + h] = round_to<T>(p);   // unnormalised
+      sum += p;
+    }
+    red[tid] = sum;
+    __syncthreads();
+    if (tid < H) {
+      float r = 0.f;
+      for (int s = 0; s < ns; ++s) r += red[s * H + tid];
+      stat[H + tid] = r;
+    }
+    __syncthreads();
+  }
+
+  // p.v: G shares of the keys for each of the D outputs
+  const int G = n > D ? n / D : 1;
+  for (int e = tid; e < G * D; e += n) {
+    const int grp = e / D, c = e % D, h = c / DH;
+    const T* vp = kvp + KVD + (h / g) * DH + c % DH;
+    float a = 0.f;
+#pragma unroll 8
+    for (int j = grp; j < M; j += G)
+      a += sc[HEADS_MAJOR ? (size_t)h * M + j : (size_t)j * H + h] *
+           to_f32(vp[(size_t)j * 2 * KVD]);
+    red[e] = a;
+  }
+  __syncthreads();
+  for (int c = tid; c < D; c += n) {
+    float a = 0.f;
+    for (int gi = 0; gi < G; ++gi) a += red[gi * D + c];
+    if (!HEADS_MAJOR) a /= fmaxf(stat[H + c / DH], 1e-30f);
+    op[c] = from_f32<T>(a);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT_ROW)
+fold_whole_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                  const int* __restrict__ t, T* __restrict__ o, int H,
+                  int Hkv, int M, int q_stride, float scale) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x;
+  fold_row<T, DH, false>(q + (size_t)b * q_stride,
+                         kv + (size_t)b * M * 2 * Hkv * DH,
+                         o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M,
+                         scale, sm, threadIdx.x, NT_ROW);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(1024)
+fold2_rows_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                  const int* __restrict__ t, T* __restrict__ o, int H,
+                  int Hkv, int M, int q_stride, float scale, int rows) {
+  extern __shared__ float sm[];
+  const int r = threadIdx.x / TPR;
+  const int b = blockIdx.x * rows + r;
+  fold_row<T, DH, false>(q + (size_t)b * q_stride,
+                         kv + (size_t)b * M * 2 * Hkv * DH,
+                         o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M,
+                         scale, sm + r * row_floats(H, M, DH, TPR),
+                         threadIdx.x % TPR, TPR);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT_ROW)
+fold3_whole_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                   const int* __restrict__ t, T* __restrict__ o, int H,
+                   int Hkv, int M, int q_stride, float scale) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x;
+  fold_row<T, DH, true>(q + (size_t)b * q_stride,
+                        kv + (size_t)b * M * 2 * Hkv * DH,
+                        o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M,
+                        scale, sm, threadIdx.x, NT_ROW);
+}
+
+template <typename T, int DH>
+int launch_whole_dh(const Args& a, int mode, int rows) {
+  const T* q = (const T*)a.q;
+  const T* kv = (const T*)a.kv;
+  T* o = (T*)a.o;
+  if (mode == 1) {
+    if (rows <= 0 || a.B % rows != 0 || rows * TPR > 1024 || TPR % a.H != 0)
+      return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        sizeof(float) * rows * row_floats(a.H, a.M, DH, TPR);
+    const cudaError_t e = allow_smem(fold2_rows_kernel<T, DH>, smem);
+    if (e != cudaSuccess) return (int)e;
+    fold2_rows_kernel<T, DH><<<a.B / rows, rows * TPR, smem, a.stream>>>(
+        q, kv, a.t, o, a.H, a.Hkv, a.M, a.q_stride, a.scale, rows);
+    return (int)cudaGetLastError();
+  }
+  if (NT_ROW % a.H != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * row_floats(a.H, a.M, DH, NT_ROW);
+  if (mode == 0) {
+    const cudaError_t e = allow_smem(fold_whole_kernel<T, DH>, smem);
+    if (e != cudaSuccess) return (int)e;
+    fold_whole_kernel<T, DH><<<a.B, NT_ROW, smem, a.stream>>>(
+        q, kv, a.t, o, a.H, a.Hkv, a.M, a.q_stride, a.scale);
+  } else {
+    const cudaError_t e = allow_smem(fold3_whole_kernel<T, DH>, smem);
+    if (e != cudaSuccess) return (int)e;
+    fold3_whole_kernel<T, DH><<<a.B, NT_ROW, smem, a.stream>>>(
+        q, kv, a.t, o, a.H, a.Hkv, a.M, a.q_stride, a.scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_whole(const Args& a, int Dh, int mode, int rows) {
+  switch (Dh) {
+    case 32: return launch_whole_dh<T, 32>(a, mode, rows);
+    case 64: return launch_whole_dh<T, 64>(a, mode, rows);
+    case 128: return launch_whole_dh<T, 128>(a, mode, rows);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q_stride: elements between the rows of q (a row's D elements are
@@ -332,5 +568,25 @@ extern "C" int eamg_fold_decode(const void* q, const void* kv, const int* t,
                   (cudaStream_t)stream};
   if (dtype == EAMG_F32) return launch<float>(a, Dh, variant);
   if (dtype == EAMG_BF16) return launch<__nv_bfloat16>(a, Dh, variant);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The one-launch kernels over the whole cache. mode 0: flash_decode_fold,
+// 1: flash_decode_fold2 with `rows` batch rows per block (B % rows == 0,
+// rows <= 8), 2: flash_decode_fold3. q_stride as above; no scratch. Returns
+// cudaErrorInvalidValue when a block's shared memory (4 * H * M bytes of
+// scores and a little more, per batch row of the block) would exceed what
+// the card allows.
+extern "C" int eamg_fold_decode_whole(const void* q, const void* kv,
+                                      const int* t, void* o, int B, int H,
+                                      int Hkv, int M, int Dh, int q_stride,
+                                      float scale, int mode, int rows,
+                                      int dtype, void* stream) {
+  if (H % Hkv != 0 || M <= 0 || B <= 0 || mode < 0 || mode > 2)
+    return (int)cudaErrorInvalidValue;
+  const Args a = {q, kv, t, o, nullptr, B, H, Hkv, M, q_stride, scale,
+                  (cudaStream_t)stream};
+  if (dtype == EAMG_F32) return launch_whole<float>(a, Dh, mode, rows);
+  if (dtype == EAMG_BF16) return launch_whole<__nv_bfloat16>(a, Dh, mode, rows);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 """Generation API: token strings in, token strings out.
 
-Port of ``eamg_tpu/decode/api.py::Generator`` for the cached solo path:
-prompt buckets, ``max_supported_len``, over-length prompts returned
-unchanged, ``generate_ids``, ``sample_kvcache`` and ``trim_at_eos``. The
-uncached path, beams and the speculative modes are not in the port yet.
+Port of ``eamg_tpu/decode/api.py::Generator``: prompt buckets,
+``max_supported_len``, over-length prompts returned unchanged,
+``generate_ids`` (cached or uncached, any batch, with penalties and n-gram
+bans), ``sample_kvcache``, ``sample`` and ``trim_at_eos``. Grammar
+constraints, beams and the speculative modes are not in the port yet.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from ..models.gpt import GPTConfig
 from ..tokenizer.vocab import Vocab
 from ..utils import prng
 from ..utils.device import resolve_device
-from .loop import generate_kv
+from ..utils.errors import NotInPort
+from .loop import generate_full, generate_kv
 
 END_TOKEN = "[END_SEQUENCE]"
 
@@ -49,11 +51,14 @@ class Generator:
         self.eos_id = vocab.get(eos_token, -1)
         self.pad_id = vocab.get(pad_token, 0)
 
-    def max_supported_len(self) -> int:
+    def max_supported_len(self, use_cache: bool = True) -> int:
         """Longest prompt + generation the positional table supports: the
         cached path reads positions up to max_len - 1, so min(seq_len,
-        n_pos) (511 on trainer geometries); the pos-broadcast quirk always
-        reads row 0."""
+        n_pos) (511 on trainer geometries); the uncached path re-encodes
+        only the first max_len - 1 tokens, so it takes one more; the
+        pos-broadcast quirk always reads row 0 during the cached decode."""
+        if not use_cache:
+            return self.cfg.n_pos + 1
         if self.cfg.pos_broadcast_bug:
             return self.cfg.seq_len
         return min(self.cfg.seq_len, self.cfg.n_pos)
@@ -61,13 +66,21 @@ class Generator:
     def generate_ids(self, prompt_ids: list[int], max_len: int | None = None,
                      temperature: float = 1.0, top_k: int = 50,
                      seed: int = 0, greedy: bool = False, batch: int = 1,
+                     use_cache: bool = True,
                      refeed_last_prompt: bool = True,
                      mask_value: float = -1e10, top_p: float = 1.0,
-                     min_p: float = 0.0,
+                     min_p: float = 0.0, penalties: tuple | None = None,
+                     no_repeat_ngram: int = 0, grammar=None,
                      presplit_keys: bool = False) -> np.ndarray:
-        """Returns [batch, n_tokens] int32 id rows (prompt included)."""
+        """Returns [batch, n_tokens] int32 id rows (prompt included): the
+        rows of one batch share the prompt and the key and differ by their
+        noise. ``use_cache=False`` runs the uncached loop. ``penalties``:
+        (repetition, frequency, presence) or None; ``no_repeat_ngram``: the
+        banned n-gram size."""
+        if grammar is not None:
+            raise NotInPort("grammar")
         max_len = max_len or self.cfg.seq_len
-        max_len = min(max_len, self.max_supported_len())
+        max_len = min(max_len, self.max_supported_len(use_cache))
         p = len(prompt_ids)
         if p >= max_len:
             # reference semantics: zero generation steps, prompt unchanged
@@ -76,27 +89,44 @@ class Generator:
         bucket = min(_bucket(p), max_len)
         prompt = np.full((batch, bucket), self.pad_id, np.int64)
         prompt[:, :p] = prompt_ids
-        buf, pos = generate_kv(
-            self.params, torch.from_numpy(prompt).to(self.device), p,
-            prng.PRNGKey(seed), self.cfg, max_len, temperature=temperature,
-            top_k=top_k, eos_id=self.eos_id, pad_id=self.pad_id,
-            greedy=greedy, refeed_last_prompt=refeed_last_prompt,
-            mask_value=mask_value, presplit_keys=presplit_keys,
-            top_p=top_p, min_p=min_p)
+        common = dict(temperature=temperature, top_k=top_k,
+                      eos_id=self.eos_id, pad_id=self.pad_id, greedy=greedy,
+                      mask_value=mask_value, top_p=top_p, min_p=min_p,
+                      penalties=penalties, no_repeat_ngram=no_repeat_ngram)
+        args = (self.params, torch.from_numpy(prompt).to(self.device), p,
+                prng.PRNGKey(seed), self.cfg, max_len)
+        if use_cache:
+            buf, pos = generate_kv(*args, **common,
+                                   refeed_last_prompt=refeed_last_prompt,
+                                   presplit_keys=presplit_keys)
+        else:
+            buf, pos = generate_full(*args, **common)
         return buf[:, :pos].cpu().numpy().astype(np.int32)
 
     def sample_kvcache(self, prompt: list[str], max_len: int | None = None,
                        temperature: float = 1.0, top_k: int = 50,
                        seed: int = 0, greedy: bool = False,
-                       top_p: float = 1.0, min_p: float = 0.0) -> list[str]:
+                       top_p: float = 1.0, min_p: float = 0.0,
+                       penalties: tuple | None = None,
+                       no_repeat_ngram: int = 0, grammar=None,
+                       use_cache: bool = True) -> list[str]:
         """Prompt token strings -> generated token strings, trimmed at the
         first [END_SEQUENCE] (inclusive), batch 1."""
         ids = self.vocab.encode(prompt)
         row = self.generate_ids(ids, max_len=max_len,
                                 temperature=temperature, top_k=top_k,
-                                seed=seed, greedy=greedy, top_p=top_p,
-                                min_p=min_p)[0]
+                                seed=seed, greedy=greedy,
+                                use_cache=use_cache, top_p=top_p,
+                                min_p=min_p, penalties=penalties,
+                                no_repeat_ngram=no_repeat_ngram,
+                                grammar=grammar)[0]
         return self.trim_at_eos(row)
+
+    def sample(self, prompt: list[str], **kwargs) -> list[str]:
+        """The uncached path (the reference's ``sample()``):
+        :meth:`sample_kvcache`'s arguments and result through
+        ``generate_full``."""
+        return self.sample_kvcache(prompt, use_cache=False, **kwargs)
 
     def trim_at_eos(self, row) -> list[str]:
         """ids -> token strings, truncated at the first EOS (inclusive)."""

@@ -28,9 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.gpt import (GPTConfig, _attn_input, _embed, _finish_block,
-                          _head, _heads, _linear, _unheads)
-from ..ops.attention import flash_attention
+from ..models.gpt import (GPTConfig, _embed, _head, decode_layers_fused,
+                          prefill_fused)
 from ..ops.decode_fold import fold_decode
 from ..utils import prng
 from ..utils.errors import NotInPort
@@ -55,22 +54,9 @@ def prefill_ragged(params: dict, ids: torch.Tensor,
     cache). K/V of all T slots, pads included, go to the cache; keys at or
     past a row's length are masked."""
     assert cfg.causal and not cfg.pos_broadcast_bug
-    T = ids.shape[1]
-    D, KVD = cfg.d_model, cfg.kv_dim
-    x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     valid = prompt_lens.to(device=ids.device, dtype=torch.int32)
-    for li, p in enumerate(params["layers"]):
-        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
-                      p["attn"]["in_b"])
-        cache["kv"][li][:, :T] = qkv[..., D:]
-        out = flash_attention(_heads(qkv[..., :D], cfg.n_head),
-                              _heads(qkv[..., D:D + KVD], cfg.kv_heads),
-                              _heads(qkv[..., D + KVD:], cfg.kv_heads),
-                              valid_len=valid, causal=True)
-        attn_out = _linear(_unheads(out), p["attn"]["out_w"],
-                           p["attn"]["out_b"])
-        x = _finish_block(p, x, attn_out, cfg)
-    return _head(params, x), {"kv": cache["kv"], "lengths": valid.clone()}
+    logits = prefill_fused(params, ids, valid, cfg, cache["kv"])
+    return logits, {"kv": cache["kv"], "lengths": valid.clone()}
 
 
 @torch.no_grad()
@@ -87,15 +73,8 @@ def decode_step_ragged(params: dict, last: torch.Tensor, cache: dict,
     pos_rows = params["pos"][t.clamp(max=params["pos"].shape[0] - 1).long()]
     x = _embed(params, last[:, None], pos_rows[:, None], cfg.torch_dtype)
     rows = torch.arange(B, device=last.device)
-    D = cfg.d_model
-    for li, p in enumerate(params["layers"]):
-        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
-                      p["attn"]["in_b"])                     # [B, 1, D+2KVD]
-        kv = cache["kv"][li]
-        kv[rows, slot] = qkv[:, 0, D:]
-        attn_out = _linear(fold_decode(qkv[..., :D], kv, t, cfg.n_head),
-                           p["attn"]["out_w"], p["attn"]["out_b"])
-        x = _finish_block(p, x, attn_out, cfg)
+    x = decode_layers_fused(params, x, cache["kv"], (rows, slot), t, cfg,
+                            fold_decode)
     return _head(params, x)[:, 0], {"kv": cache["kv"], "lengths": t + 1}
 
 

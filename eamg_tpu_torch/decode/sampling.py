@@ -1,8 +1,12 @@
-"""Sampling: temperature, top-k, top-p, min-p, then a categorical draw.
+"""Sampling: penalties, temperature, top-k, top-p, min-p, then a
+categorical draw.
 
-Port of ``eamg_tpu/decode/sampling.py::sample_token`` for its filters, in
-the same order (temperature, top-k, top-p, min-p) and with the same
-additive mask (``mask_value`` on filtered tokens). The draw is
+Port of ``eamg_tpu/decode/sampling.py``: ``sample_token`` with its
+transforms in the same order (penalties on the raw logits, then
+temperature, top-k, top-p, min-p) and with the same additive mask
+(``mask_value`` on filtered tokens), and the anti-repetition controls the
+decode loops keep state for: ``token_counts``, ``apply_penalties``,
+``no_repeat_ngram_ban`` and ``apply_no_repeat_ngram``. The draw is
 ``jax.random.categorical``'s Gumbel-max: ``argmax(gumbel + logits)``, with
 the Gumbel noise from the threefry port (``utils/prng.py``), so a seeded
 stream matches the JAX package token for token.
@@ -14,7 +18,7 @@ continuous engine use (``decode/ragged.py::_sample_per_row`` and
 mode, one top-p and one min-p per row, with all rows' thresholds found by
 one launch each.
 
-Penalties, n-gram bans and grammar constraints are not in the port yet.
+Grammar constraints are not in the port yet.
 """
 
 from __future__ import annotations
@@ -66,13 +70,98 @@ def filter_logits(logits: torch.Tensor, temperature: float, top_k: int,
     return apply_min_p(logits, min_p, mask_value)
 
 
+def token_counts(ids: torch.Tensor, valid: torch.Tensor,
+                 vocab_size: int) -> torch.Tensor:
+    """[B, T] token ids + [B, T] validity mask -> [B, V] f32 occurrence
+    counts (duplicate ids accumulate). Seeds the penalty state from the
+    prompt, so the penalties see the prompt's tokens too."""
+    counts = torch.zeros((ids.shape[0], vocab_size), dtype=torch.float32,
+                         device=ids.device)
+    return counts.scatter_add_(1, ids.long(), valid.to(torch.float32))
+
+
+def no_repeat_ngram_ban(buf: torch.Tensor, pos, n: int,
+                        vocab_size: int) -> torch.Tensor:
+    """[B, L] token history + its length ``pos`` (an int or [B]) -> [B, V]
+    bool mask of the tokens that would complete an ``n``-gram already in
+    ``buf[:, :pos]`` (HF ``no_repeat_ngram_size``): for every start j with
+    j + n - 1 <= pos - 1, if ``buf[:, j:j+n-1]`` equals the last n - 1
+    tokens of the history, ``buf[:, j+n-1]`` is banned. n = 1 bans every
+    token seen."""
+    B, L = buf.shape
+    dev = buf.device
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=dev).expand(B)
+    starts = torch.arange(L, device=dev)[None, :]
+    # an earlier n-gram must end inside the history
+    match = (starts <= pos[:, None] - n) & (pos[:, None] >= n)
+    if n > 1:
+        tail_idx = (pos[:, None] - (n - 1)
+                    + torch.arange(n - 1, device=dev)[None, :]).clamp(0, L - 1)
+        tail = torch.gather(buf, 1, tail_idx)                  # [B, n-1]
+        for i in range(n - 1):
+            # rows that the roll wraps around fail the bound above
+            match &= torch.roll(buf, -i, dims=1) == tail[:, i:i + 1]
+    banned_tok = torch.roll(buf, -(n - 1), dims=1) if n > 1 else buf
+    hits = torch.zeros((B, vocab_size), dtype=torch.float32, device=dev)
+    hits.scatter_add_(1, banned_tok.long(), match.to(torch.float32))
+    return hits > 0.0
+
+
+def apply_no_repeat_ngram(logits: torch.Tensor, buf: torch.Tensor, pos,
+                          n: int, mask_value: float = -1e10) -> torch.Tensor:
+    """Additive n-gram ban on the raw logits (before temperature and the
+    filters; it moves the greedy argmax too). n = 0 is off."""
+    if not n:
+        return logits
+    ban = no_repeat_ngram_ban(buf, pos, n, logits.shape[-1])
+    return logits + torch.where(ban, mask_value, 0.0)
+
+
+def penalties_on(repetition_penalty, frequency_penalty,
+                 presence_penalty) -> bool:
+    def neutral(v, n):
+        return v is None or float(v) == n
+    return not (neutral(repetition_penalty, 1.0)
+                and neutral(frequency_penalty, 0.0)
+                and neutral(presence_penalty, 0.0))
+
+
+def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
+                    repetition_penalty=1.0, frequency_penalty=0.0,
+                    presence_penalty=0.0) -> torch.Tensor:
+    """Anti-repetition transforms of the raw logits over the occurrence
+    ``counts`` ([B, V] f32, prompt + generated so far). Repetition penalty
+    (CTRL / HF): a seen token's logit becomes ``logit / p`` if positive,
+    else ``logit * p``, with p clamped to >= 1e-6. Frequency and presence
+    penalties (OpenAI): ``logit -= freq * count + pres * (count > 0)``. The
+    neutral values (1, 0, 0) change nothing, bit for bit."""
+    if not penalties_on(repetition_penalty, frequency_penalty,
+                        presence_penalty):
+        return logits
+    rp = max(1.0 if repetition_penalty is None else float(repetition_penalty),
+             1e-6)
+    fp = 0.0 if frequency_penalty is None else float(frequency_penalty)
+    pp = 0.0 if presence_penalty is None else float(presence_penalty)
+    present = counts > 0.0
+    penalized = torch.where(logits < 0.0, logits * rp, logits / rp)
+    out = torch.where(present, penalized, logits)
+    return out - fp * counts - pp * present.to(torch.float32)
+
+
 def sample_token(key, logits: torch.Tensor, temperature: float, top_k: int,
                  mask_value: float = -1e10, greedy: bool = False,
                  top_p: float = 1.0, min_p: float = 0.0,
-                 gumbel: torch.Tensor | None = None) -> torch.Tensor:
-    """[B, V] f32 logits -> [B] int64 token ids. ``gumbel`` ([B, V]) may
-    carry noise drawn ahead for ``key`` (the decode loop draws many steps
-    at once); otherwise it is drawn here."""
+                 gumbel: torch.Tensor | None = None,
+                 counts: torch.Tensor | None = None,
+                 repetition_penalty=1.0, frequency_penalty=0.0,
+                 presence_penalty=0.0) -> torch.Tensor:
+    """[B, V] f32 logits -> [B] int64 token ids. With ``counts`` the three
+    penalties apply to the raw logits first, in greedy mode too. ``gumbel``
+    ([B, V]) may carry noise drawn ahead for ``key`` (the decode loop draws
+    many steps at once); otherwise it is drawn here."""
+    if counts is not None:
+        logits = apply_penalties(logits, counts, repetition_penalty,
+                                 frequency_penalty, presence_penalty)
     if greedy:
         return torch.argmax(logits, dim=-1)
     logits = filter_logits(logits, temperature, top_k, mask_value, top_p,

@@ -1,4 +1,5 @@
-"""The GPT decoder, in PyTorch: ``forward``, ``prefill``, ``decode_step``.
+"""The GPT decoder, in PyTorch: ``init_params``, ``forward``,
+``forward_masked``, ``prefill``, ``decode_step``.
 
 Port of ``eamg_tpu/models/gpt.py`` with the same parameter tree (torch
 layout, fused ``in_proj``) and the same quirk flags: post-/pre-LN,
@@ -14,6 +15,15 @@ the hand-written kernels, on CPU tensors they run the plain versions,
 which follow the JAX model's XLA path (masks filled with ``finfo.min``).
 The checkpoint's ``kernels`` field is carried but selects nothing.
 
+The KV cache has two layouts. ``"head"`` is the JAX model's: per layer
+``k`` and ``v`` ``[B, Hkv, M, Dh]``. ``"fused"`` is position-major,
+``kv [B, M, 2 * KVD]`` per layer: a cache row is the tail of the fused
+QKV projection, so a decode step writes one contiguous slice per layer
+(``ops/decode_fold.py``); the ragged decode keeps its cache the same way
+and shares the layer code below. ``decode_step(..., attn_impl=...)`` names
+the decode attention kernel, each under the name of the JAX function it
+replaces (:data:`ATTN_IMPLS`); every one computes the same function.
+
 Not yet ported: ``decode_block``, ``decode_tree``, MoE layers, int8
 weights, ``attn_block`` and packed ``seg`` rows.
 """
@@ -21,13 +31,53 @@ weights, ``attn_block`` and packed ``seg`` rows.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..ops.attention import flash_attention
-from ..ops.decode_attention import flash_decode
+from ..ops.decode_attention import (flash_decode, flash_decode_sp,
+                                    flash_decode_vmem)
+from ..ops.decode_fold import (flash_decode_fold, flash_decode_fold2,
+                               flash_decode_fold3, flash_decode_fold3_sp,
+                               flash_decode_fold_sp)
 from ..ops.ffn import fused_ffn
+
+# decode_step's attention kernels by cache layout: name -> wrapper.
+# "dma" and "vmem" are the JAX package's flash_decode (manual copies of
+# 256-key blocks) and flash_decode_vmem (the whole cache in fast memory):
+# MHA and a uniform batch only.
+HEAD_IMPLS = {"sp": flash_decode_sp, "dma": flash_decode,
+              "vmem": flash_decode_vmem}
+def _fold2(q, kv, t, n_head):
+    """flash_decode_fold2 with as many of its 4 rows per block as divide
+    the batch (its result does not depend on them)."""
+    return flash_decode_fold2(q, kv, t, n_head, rows=math.gcd(q.shape[0], 4))
+
+
+FOLD_IMPLS = {"fold": flash_decode_fold, "fold2": _fold2,
+              "fold3": flash_decode_fold3, "fold_sp": flash_decode_fold_sp,
+              "fold3_sp": flash_decode_fold3_sp}
+ATTN_IMPLS = (*HEAD_IMPLS, *FOLD_IMPLS)
+# attn_impl -> the kernel wrapper it launches (the name of its launch count)
+IMPL_KERNEL = {"sp": "flash_decode_sp", "dma": "flash_decode",
+               "vmem": "flash_decode_vmem",
+               **{impl: "flash_decode_" + impl for impl in FOLD_IMPLS}}
+
+
+def cache_layout(attn_impl: str, cfg: GPTConfig) -> str:
+    """The cache layout ``attn_impl`` reads; raises on an unknown name and
+    on ``"dma"`` / ``"vmem"`` for a GQA model."""
+    if attn_impl in HEAD_IMPLS:
+        if attn_impl != "sp" and cfg.kv_heads != cfg.n_head:
+            raise ValueError(f"attn_impl {attn_impl!r} takes MHA caches "
+                             f"only; the model has {cfg.kv_heads} KV heads "
+                             f"for {cfg.n_head} query heads")
+        return "head"
+    if attn_impl in FOLD_IMPLS:
+        return "fused"
+    raise ValueError(f"attn_impl {attn_impl!r}: one of {ATTN_IMPLS}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +154,50 @@ def _check_supported(cfg: GPTConfig) -> None:
         raise NotImplementedError("MoE layers are not in the port yet")
     if cfg.attn_block is not None:
         raise NotImplementedError("attn_block is not in the port yet")
+
+
+# ------------------------------------------------------------------- init
+
+def init_params(generator: torch.Generator, cfg: GPTConfig) -> dict:
+    """Random parameters in the tree and with the distributions of the JAX
+    package's ``init_params`` (torch's default initialisers: embedding
+    N(0, 1), zero positions, Xavier-uniform ``in_proj``, Kaiming-uniform
+    linears with fan-in bias bounds), f32, on the generator's device. The
+    values are this generator's, not JAX's for the same seed."""
+    _check_supported(cfg)
+    dev = generator.device
+    D, FF, V = cfg.d_model, cfg.ff, cfg.vocab_size
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=generator, device=dev) * 2 - 1) \
+            * bound
+
+    def kaiming(fan_out, fan_in):
+        return (uniform((fan_out, fan_in), math.sqrt(1.0 / fan_in)),
+                uniform((fan_out,), 1.0 / math.sqrt(fan_in)))
+
+    in_rows = D + 2 * cfg.kv_dim
+    layers = []
+    for _ in range(cfg.n_layer):
+        in_w = uniform((in_rows, D), math.sqrt(6.0 / (3 * D + D)))
+        out_w, out_b = kaiming(D, D)
+        w1, _ = kaiming(FF, D)
+        b1 = uniform((FF,), 1.0 / math.sqrt(D))
+        w2, _ = kaiming(D, FF)
+        b2 = uniform((D,), 1.0 / math.sqrt(FF))
+        layers.append({
+            "attn": {"in_w": in_w, "in_b": torch.zeros(in_rows, device=dev),
+                     "out_w": out_w, "out_b": out_b},
+            "ln1": {"g": torch.ones(D, device=dev),
+                    "b": torch.zeros(D, device=dev)},
+            "ln2": {"g": torch.ones(D, device=dev),
+                    "b": torch.zeros(D, device=dev)},
+            "mlp": {"w1": w1, "b1": b1, "w2": w2, "b2": b2},
+        })
+    head_w, head_b = kaiming(V, D)
+    return {"tok_emb": torch.randn((V, D), generator=generator, device=dev),
+            "pos": torch.zeros((cfg.n_pos, D), device=dev),
+            "layers": layers, "head": {"w": head_w, "b": head_b}}
 
 
 # ---------------------------------------------------------------- compute
@@ -208,15 +302,44 @@ def forward(params: dict, ids: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
     return _head(params, x)
 
 
+@torch.no_grad()
+def forward_masked(params: dict, ids: torch.Tensor, cfg: GPTConfig,
+                   valid_len: int) -> torch.Tensor:
+    """:func:`forward` with only the first ``valid_len`` positions present:
+    keys past them are masked for every query, as if ``ids[:, :valid_len]``
+    had been given. The uncached loop calls it at one shape for every
+    prefix length. With ``batch_first_bug`` it is plain :func:`forward`, as
+    in the JAX package."""
+    _check_supported(cfg)
+    if cfg.batch_first_bug:
+        return forward(params, ids, cfg)
+    B, T = ids.shape
+    x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
+    valid = torch.full((B,), int(valid_len), dtype=torch.int32,
+                       device=ids.device)
+    for p in params["layers"]:
+        x, _, _ = block(p, x, cfg, causal=cfg.causal, valid_len=valid)
+    return _head(params, x)
+
+
 # ------------------------------------------------------------ KV decoding
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
-                  device=None) -> dict:
-    """Per-layer [B, Hkv, max_len, Dh] key and value caches; ``length`` is
-    a host int (the decode loop runs on the host)."""
+                  device=None, layout: str = "head") -> dict:
+    """``layout="head"``: per-layer [B, Hkv, max_len, Dh] key and value
+    caches ``k``, ``v``. ``layout="fused"``: per-layer position-major
+    ``kv`` [B, max_len, 2 * KVD]. ``length`` is a host int (the decode loop
+    runs on the host)."""
     max_len = max_len or cfg.seq_len
-    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
     dt = cfg.torch_dtype
+    if layout == "fused":
+        shape = (batch, max_len, 2 * cfg.kv_dim)
+        return {"kv": [torch.zeros(shape, dtype=dt, device=device)
+                       for _ in range(cfg.n_layer)],
+                "length": 0}
+    if layout != "head":
+        raise ValueError(f"layout {layout!r}: 'head' or 'fused'")
+    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
     return {"k": [torch.zeros(shape, dtype=dt, device=device)
                   for _ in range(cfg.n_layer)],
             "v": [torch.zeros(shape, dtype=dt, device=device)
@@ -230,12 +353,17 @@ def prefill(params: dict, ids: torch.Tensor, cfg: GPTConfig, cache: dict,
     """Warm-up pass over the [B, P] prompt bucket -> ([B, P, V] logits,
     cache). Keys past ``prompt_len`` are masked, but K/V of all P slots,
     pads included, are written to the cache (as the JAX model does); decode
-    then overwrites slot t. Updates the cache in place."""
+    then overwrites slot t. Updates the cache in place, in the layout it
+    was made with."""
     _check_supported(cfg)
     B, T = ids.shape
     plen = prompt_len if prompt_len is not None else T
-    x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     valid = torch.full((B,), plen, dtype=torch.int32, device=ids.device)
+    if "kv" in cache:
+        logits = prefill_fused(params, ids, valid, cfg, cache["kv"])
+        cache["length"] = int(plen)
+        return logits, cache
+    x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     for li, p in enumerate(params["layers"]):
         x, k, v = block(p, x, cfg, causal=cfg.causal, valid_len=valid)
         cache["k"][li][:, :, :T] = k
@@ -244,19 +372,79 @@ def prefill(params: dict, ids: torch.Tensor, cfg: GPTConfig, cache: dict,
     return _head(params, x), cache
 
 
+def prefill_fused(params: dict, ids: torch.Tensor, valid: torch.Tensor,
+                  cfg: GPTConfig, kv: list) -> torch.Tensor:
+    """Prefill over the fused position-major cache ``kv`` (per layer
+    [B, M, 2 * KVD], written in place): the rows of the [B, T] prompt
+    bucket are the tail of the fused QKV projection and go straight into
+    it, pads included; keys at or past ``valid[b]`` are masked. The uniform
+    and the ragged decode share it. -> [B, T, V] f32 logits."""
+    T = ids.shape[1]
+    D, KVD = cfg.d_model, cfg.kv_dim
+    x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
+    for li, p in enumerate(params["layers"]):
+        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
+                      p["attn"]["in_b"])
+        kv[li][:, :T] = qkv[..., D:]
+        out = flash_attention(_heads(qkv[..., :D], cfg.n_head),
+                              _heads(qkv[..., D:D + KVD], cfg.kv_heads),
+                              _heads(qkv[..., D + KVD:], cfg.kv_heads),
+                              valid_len=valid, causal=cfg.causal)
+        attn_out = _linear(_unheads(out), p["attn"]["out_w"],
+                           p["attn"]["out_b"])
+        x = _finish_block(p, x, attn_out, cfg)
+    return _head(params, x)
+
+
+def decode_layers_fused(params: dict, x: torch.Tensor, kv: list, slot,
+                        t_rows: torch.Tensor, cfg: GPTConfig,
+                        fold) -> torch.Tensor:
+    """The layers of one decode step over the fused cache: each layer
+    writes the tail of its QKV projection to ``kv[li][slot]`` (``slot``: a
+    position for all rows, or an index pair (rows, positions)) and attends
+    through ``fold(q, kv, t_rows, n_head)`` with q the projection's head,
+    uncopied. x [B, 1, D] -> [B, 1, D]."""
+    D = cfg.d_model
+    for li, p in enumerate(params["layers"]):
+        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
+                      p["attn"]["in_b"])                     # [B, 1, D+2KVD]
+        if isinstance(slot, tuple):
+            kv[li][slot] = qkv[:, 0, D:]
+        else:
+            kv[li][:, slot] = qkv[:, 0, D:]
+        attn_out = _linear(fold(qkv[..., :D], kv[li], t_rows, cfg.n_head),
+                           p["attn"]["out_w"], p["attn"]["out_b"])
+        x = _finish_block(p, x, attn_out, cfg)
+    return x
+
+
 @torch.no_grad()
 def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
-                cfg: GPTConfig):
+                cfg: GPTConfig, attn_impl: str = "sp"):
     """One cached step: [B, 1] ids + cache -> ([B, V] f32 logits, cache).
     The new token's K/V go to slot t = cache["length"] and its query
-    attends to slots 0..t. Updates the cache in place."""
+    attends to slots 0..t through the kernel ``attn_impl`` names
+    (:data:`ATTN_IMPLS`; the cache must have that kernel's layout).
+    Updates the cache in place."""
+    layout = cache_layout(attn_impl, cfg)
+    if ("kv" in cache) != (layout == "fused"):
+        raise ValueError(f"attn_impl {attn_impl!r} reads a {layout!r} cache; "
+                         "make it with init_kv_cache(..., layout=...)")
     B = last_ids.shape[0]
     dt = cfg.torch_dtype
     t = cache["length"]
     pos_idx = 0 if cfg.pos_broadcast_bug else t
     x = _embed(params, last_ids, params["pos"][pos_idx:pos_idx + 1], dt)
     D, KVD = cfg.d_model, cfg.kv_dim
+    # one [B] tensor of positions per step, not per layer
     t_rows = torch.full((B,), t, dtype=torch.int32, device=last_ids.device)
+    if layout == "fused":
+        x = decode_layers_fused(params, x, cache["kv"], t, t_rows, cfg,
+                                FOLD_IMPLS[attn_impl])
+        cache["length"] = t + 1
+        return _head(params, x)[:, 0], cache
+    attend = HEAD_IMPLS[attn_impl]
+    t_arg = t_rows if attn_impl == "sp" else t
     for li, p in enumerate(params["layers"]):
         attn_in = _attn_input(p, x, cfg)
         qkv = _linear(attn_in, p["attn"]["in_w"], p["attn"]["in_b"])
@@ -265,8 +453,7 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
             B, cfg.kv_heads, cfg.head_dim)
         cache["v"][li][:, :, t] = qkv[:, 0, D + KVD:].reshape(
             B, cfg.kv_heads, cfg.head_dim)
-        attn_out = _unheads(flash_decode(q, cache["k"][li], cache["v"][li],
-                                         t_rows))
+        attn_out = _unheads(attend(q, cache["k"][li], cache["v"][li], t_arg))
         attn_out = _linear(attn_out, p["attn"]["out_w"], p["attn"]["out_b"])
         x = _finish_block(p, x, attn_out, cfg)
     cache["length"] = t + 1

@@ -134,8 +134,19 @@ def bind(name: str, fn: str, argtypes: list) -> ctypes._CFuncPtr:
     return f
 
 
-def check(err: int, what: str) -> None:
-    """Raise on a launch CUDA refused (the kernel never ran)."""
+INVALID_VALUE = 1   # cudaErrorInvalidValue
+
+
+def check(err: int, what: str, smem: str | None = None) -> None:
+    """Raise on a launch CUDA refused (the kernel never ran). ``smem``
+    names the sizes that a block's shared memory grows with, for the
+    launchers that return ``cudaErrorInvalidValue`` when a block would need
+    more than the card allows (``EAMG_MAX_SMEM`` in csrc/common.cuh, the
+    one place that computes it)."""
+    if err == INVALID_VALUE and smem is not None:
+        raise RuntimeError(f"{what}: the launcher refused {smem}: a block "
+                           "would need more shared memory than the card "
+                           "allows (227 KB); nothing was computed")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")

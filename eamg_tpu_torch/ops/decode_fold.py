@@ -2,8 +2,11 @@
 stream-reduce probe: the kernels of ``csrc/decode_fold.cu`` and
 ``csrc/stream_reduce.cu`` with their plain versions.
 
-Replaces ``eamg_tpu/ops/decode_fold.py::flash_decode_fold_sp``,
-``::flash_decode_fold3_sp`` and ``::stream_reduce``.
+Replaces every function of ``eamg_tpu/ops/decode_fold.py`` that reaches a
+Pallas kernel, each under its JAX name: ``flash_decode_fold_sp`` and
+``flash_decode_fold3_sp`` (two launches, reads scale with ``t``),
+``flash_decode_fold``, ``flash_decode_fold2`` and ``flash_decode_fold3``
+(one launch, the whole cache), and ``stream_reduce``.
 
 The cache keeps K and V fused and position-major, ``kv [B, M, 2 * KVD]``
 with K at ``[..., :KVD]``: the tail of the fused QKV projection, so a
@@ -14,9 +17,13 @@ newest valid position, so the same function serves a uniform batch, the
 ragged decode and the continuous-batching engine. q may be a view of the
 fused QKV projection (rows ``D`` contiguous elements, any row stride).
 
-The two decode entry points compute one function with two thread layouts
-(see the CUDA source); :data:`fold_decode` names the one the ragged
-decode and the engine call.
+All five decode entry points compute one function; they differ in their
+thread layouts and launches (see the CUDA source) and, in bf16, in where
+the probabilities are rounded: ``flash_decode_fold`` and
+``flash_decode_fold2`` round them unnormalised and divide by their sum
+after the product with the values, as their TPU kernels do;
+``flash_decode_fold3`` divides first. :data:`fold_decode` names the one
+the ragged decode and the engine call.
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ import torch
 
 from . import _build
 
-SPLIT = 64   # keys per split: CH in csrc/decode_fold.cu
-RS = 16      # lines per block: RS in csrc/stream_reduce.cu
+SPLIT = 64     # keys per split: CH in csrc/decode_fold.cu
+NT_ROW = 1024  # threads on a batch row, fold and fold3: the same file
+TPR = 128      # threads on each batch row, fold2: the same file
+RS = 16        # lines per block: RS in csrc/stream_reduce.cu
 
 
 def _row_positions(t, B: int, device) -> torch.Tensor:
@@ -37,13 +46,22 @@ def _row_positions(t, B: int, device) -> torch.Tensor:
 
 
 def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
-                              n_head: int) -> torch.Tensor:
+                              n_head: int,
+                              normalize: str = "before") -> torch.Tensor:
     """The JAX package's XLA reference on the position-major layout
     (``xla_decode_attention_pm``): grouped scores in the cache dtype, keys
     past ``t`` filled with ``finfo(dt).min``, softmax in f32 cast back,
-    grouped values.
+    grouped values. That is ``normalize="before"``: the probabilities are
+    divided by their sum before they are rounded to the cache dtype.
+
+    ``normalize="after"`` is the order of ``flash_decode_fold`` and
+    ``flash_decode_fold2``: ``exp(s - max)`` is rounded to the cache dtype
+    unnormalised, multiplied with the values into an f32 sum, and that is
+    divided by the f32 sum of the unrounded probabilities and rounded once.
 
     q [B, 1, D], kv [B, M, 2 * KVD], t scalar or [B] -> [B, 1, D]."""
+    if normalize not in ("before", "after"):
+        raise ValueError(f"normalize {normalize!r}: 'before' or 'after'")
     B, _, D = q.shape
     M = kv.shape[1]
     KVD = kv.shape[2] // 2
@@ -58,9 +76,15 @@ def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
     mask = (torch.arange(M, device=q.device)[None, None, None, :]
             <= tb[:, None, None, None])
     s = torch.where(mask, s, torch.finfo(s.dtype).min)
-    p = torch.softmax(s.float(), dim=-1).to(q.dtype)
-    o = torch.einsum("bkgm,bmkd->bkgd", p, v)
-    return o.reshape(B, 1, D)
+    if normalize == "before":
+        p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+        o = torch.einsum("bkgm,bmkd->bkgd", p, v)
+        return o.reshape(B, 1, D)
+    s = s.float()
+    p = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    o = torch.einsum("bkgm,bmkd->bkgd", p.to(q.dtype).float(), v.float())
+    o = o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return o.to(q.dtype).reshape(B, 1, D)
 
 
 @functools.cache
@@ -70,10 +94,9 @@ def _launch_fold():
                        [P, P, P, P, P, I, I, I, I, I, I, F, I, I, P])
 
 
-def _fold(name: str, variant: int, q: torch.Tensor, kv: torch.Tensor, t,
-          n_head: int) -> torch.Tensor:
-    if q.device.type == "cpu":
-        return decode_attention_pm_plain(q, kv, t, n_head)
+def _check_fold(name: str, q: torch.Tensor, kv: torch.Tensor,
+                n_head: int) -> None:
+    """What every fold kernel asks of CUDA inputs."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 3 or kv.dim() != 3 or q.shape[1] != 1 \
@@ -81,8 +104,7 @@ def _fold(name: str, variant: int, q: torch.Tensor, kv: torch.Tensor, t,
             or q.shape[2] % n_head:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} kv "
                          f"{tuple(kv.shape)} n_head {n_head}")
-    B, _, D = q.shape
-    M, KVD = kv.shape[1], kv.shape[2] // 2
+    D, KVD = q.shape[2], kv.shape[2] // 2
     Dh = D // n_head
     if KVD % Dh or n_head % (KVD // Dh) or Dh not in (32, 64, 128) \
             or n_head // (KVD // Dh) not in (1, 2, 4, 8):
@@ -95,6 +117,16 @@ def _fold(name: str, variant: int, q: torch.Tensor, kv: torch.Tensor, t,
     if kv.device != q.device or q.stride(2) != 1 or not kv.is_contiguous():
         raise ValueError(f"{name}: kv must be contiguous, q's rows too, on "
                          "one device")
+
+
+def _fold(name: str, variant: int, q: torch.Tensor, kv: torch.Tensor, t,
+          n_head: int) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return decode_attention_pm_plain(q, kv, t, n_head)
+    _check_fold(name, q, kv, n_head)
+    B, _, D = q.shape
+    M, KVD = kv.shape[1], kv.shape[2] // 2
+    Dh = D // n_head
     tb = _row_positions(t, B, q.device).contiguous()
     n_split = -(-M // SPLIT)
     part = torch.empty(B * n_head * n_split * (Dh + 2), dtype=torch.float32,
@@ -124,6 +156,69 @@ def flash_decode_fold3_sp(q: torch.Tensor, kv: torch.Tensor, t,
     launch the kernel whose warps walk the keys with their lanes along
     Dh."""
     return _fold("flash_decode_fold3_sp", 1, q, kv, t, n_head)
+
+
+@functools.cache
+def _launch_whole():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("decode_fold", "eamg_fold_decode_whole",
+                       [P, P, P, P, I, I, I, I, I, I, F, I, I, I, P])
+
+
+def _fold_whole(name: str, mode: int, rows: int, normalize: str,
+                q: torch.Tensor, kv: torch.Tensor, t,
+                n_head: int) -> torch.Tensor:
+    if q.dim() == 3 and mode == 1 and (rows <= 0 or q.shape[0] % rows):
+        raise ValueError(f"{name}: batch {q.shape[0]} is no multiple of "
+                         f"rows {rows}")
+    if q.device.type == "cpu":
+        return decode_attention_pm_plain(q, kv, t, n_head, normalize)
+    _check_fold(name, q, kv, n_head)
+    B, _, D = q.shape
+    M, KVD = kv.shape[1], kv.shape[2] // 2
+    Dh = D // n_head
+    threads = TPR if mode == 1 else NT_ROW
+    if threads % n_head or (mode == 1 and rows * TPR > 1024):
+        raise ValueError(f"{name}: n_head {n_head} must divide {threads}"
+                         + (f", and rows {rows} be at most {1024 // TPR}"
+                            if mode == 1 else ""))
+    tb = _row_positions(t, B, q.device).contiguous()
+    o = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
+    err = _launch_whole()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
+                          o.data_ptr(), B, n_head, KVD // Dh, M, Dh,
+                          q.stride(0), 1.0 / math.sqrt(Dh), mode, rows,
+                          _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+    _build.check(err, name, smem=f"n_head {n_head}, M {M}, rows {rows}")
+    _build.count_launch(name)
+    return o
+
+
+def flash_decode_fold(q: torch.Tensor, kv: torch.Tensor, t,
+                      n_head: int) -> torch.Tensor:
+    """Attention of q [B, 1, D] over positions 0..t[b] of the fused cache
+    kv [B, M, 2 * KVD] -> [B, 1, D]; t a scalar or [B] int. CPU tensors
+    take :func:`decode_attention_pm_plain` with ``normalize="after"``; CUDA
+    tensors launch the one-launch kernel, a block per batch row, which
+    reads the whole cache and rounds the probabilities unnormalised."""
+    return _fold_whole("flash_decode_fold", 0, 1, "after", q, kv, t, n_head)
+
+
+def flash_decode_fold2(q: torch.Tensor, kv: torch.Tensor, t, n_head: int,
+                       rows: int = 4) -> torch.Tensor:
+    """:func:`flash_decode_fold` with ``rows`` batch rows per block
+    (``B % rows == 0``, at most 8). The result does not depend on
+    ``rows``, to the bit."""
+    return _fold_whole("flash_decode_fold2", 1, rows, "after", q, kv, t,
+                       n_head)
+
+
+def flash_decode_fold3(q: torch.Tensor, kv: torch.Tensor, t,
+                       n_head: int) -> torch.Tensor:
+    """The same function with the softmax reduced along the lanes of a
+    warp and the probabilities divided by their sum before they are
+    rounded (CPU: :func:`decode_attention_pm_plain`, ``"before"``)."""
+    return _fold_whole("flash_decode_fold3", 2, 1, "before", q, kv, t,
+                       n_head)
 
 
 # The decode attention of the ragged decode and the engine: the faster of

@@ -14,7 +14,8 @@ single-permit gate, and concurrent followers join the engine. With
 ``coalesce="window"`` requests that arrive within 10 ms share one ragged
 decode (``serve/batcher.py``). Without either, or for a request the
 batcher does not accept, the solo cached decode
-(``Generator.sample_kvcache``) runs.
+(``Generator.sample_kvcache``) runs; penalties and n-gram bans are such
+requests, the batchers' ``accepts`` turns them away.
 
 The threaded HTTP server calls ``generate`` from several threads. One lock
 per pipeline serialises the solo decode and the synth; it is not held
@@ -23,7 +24,7 @@ never coalesce.
 
 Not in the port yet (requests asking for them raise ``NotInPort``): B3
 checkpoints, multi-section and streamed generation, beams, the speculative
-modes (lookup, medusa), penalties, n-gram bans and grammar constraints.
+modes (lookup, medusa) and grammar constraints.
 """
 
 from __future__ import annotations
@@ -155,7 +156,8 @@ class Pipeline:
         return buf[0, :int(pos[0])].tolist()
 
     def _decode(self, mapping: dict, temperature: float, top_k: int,
-                run_seed: int, top_p: float, min_p: float):
+                run_seed: int, top_p: float, min_p: float,
+                penalties: tuple | None = None, no_repeat_ngram: int = 0):
         gen = self.generator
         gen_prompt = assemble_prompt(gen.vocab, mapping,
                                      full_gm=self.full_gm)
@@ -164,7 +166,8 @@ class Pipeline:
         known = [t for t in gen_prompt if t in gen.vocab]
         dropped = [t for t in gen_prompt if t not in gen.vocab]
         use_batcher = self.batcher is not None and self.batcher.accepts(
-            top_k=top_k, top_p=top_p, min_p=min_p)
+            top_k=top_k, top_p=top_p, min_p=min_p, penalties=penalties,
+            no_repeat_ngram=no_repeat_ngram)
         # a lone request on an IDLE continuous engine would pay one harvest
         # wait per chunk alone: decode it detached; the gate sends
         # concurrent followers to the engine
@@ -188,7 +191,9 @@ class Pipeline:
                 with self._lock:
                     tokens = gen.sample_kvcache(
                         known, temperature=temperature, top_k=top_k,
-                        seed=run_seed, top_p=top_p, min_p=min_p)
+                        seed=run_seed, top_p=top_p, min_p=min_p,
+                        penalties=penalties,
+                        no_repeat_ngram=no_repeat_ngram)
         finally:
             if solo_bypass:
                 self._solo_gate.release()
@@ -197,7 +202,9 @@ class Pipeline:
     def generate(self, prompt_text: str, temperature: float = 1.0,
                  top_k: int = 50, seed: int | None = None,
                  render_audio: bool | None = None,
-                 top_p: float = 1.0, min_p: float = 0.0) -> GenerationResult:
+                 top_p: float = 1.0, min_p: float = 0.0,
+                 penalties: tuple | None = None,
+                 no_repeat_ngram: int = 0) -> GenerationResult:
         render = self.render_audio if render_audio is None else render_audio
         timings = {}
         t0 = time.perf_counter()
@@ -212,7 +219,8 @@ class Pipeline:
         run_seed = seed if seed is not None else \
             int(time.time_ns() % 2**31)
         gen_prompt, tokens, song, dropped = self._decode(
-            mapping, temperature, top_k, run_seed, top_p, min_p)
+            mapping, temperature, top_k, run_seed, top_p, min_p, penalties,
+            no_repeat_ngram)
         timings["decode"] = (time.perf_counter() - t0) * 1000
 
         t0 = time.perf_counter()

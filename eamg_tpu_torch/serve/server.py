@@ -3,13 +3,15 @@
 Port of ``eamg_tpu/serve/server.py``: ``POST /generate`` with form field
 ``prompt`` (multipart or urlencoded), ``format=wav|midi`` (form field or
 query), and the sampling fields ``seed``, ``temperature``, ``top_k``,
-``top_p``, ``min_p``; ``GET /healthz``, ``GET /stats`` (with the engine's
+``top_p``, ``min_p``, ``repetition_penalty``, ``frequency_penalty``,
+``presence_penalty`` and ``no_repeat_ngram`` (the last four decode solo);
+``GET /healthz``, ``GET /stats`` (with the engine's
 counters under ``engine`` when requests are coalesced) and the static page
 at ``GET /`` (the JAX package's ``serve/static/index.html``, read by
 path). Malformed input gets a 4xx, never a 500. A full admission queue
 (``EngineOverloaded``) gets a 503 with ``Retry-After``. A request that
 asks for an option the port does not have yet (sections, stream, lookup,
-medusa, beams, penalties, n-gram bans, grammar) gets a 400 naming it;
+medusa, beams, grammar) gets a 400 naming it;
 ``/profile`` is a 404 until the port has its own trace capture.
 """
 
@@ -43,9 +45,7 @@ MAX_PROMPT_CHARS = 20_000
 # (on as "1"/"true"/"yes", like the JAX server reads them) and numbers
 # with their neutral value
 _NOT_YET_FLAGS = ("sections", "stream", "lookup", "medusa", "grammar")
-_NOT_YET_NUMBERS = {"beams": 0.0, "no_repeat_ngram": 0.0,
-                    "repetition_penalty": 1.0, "frequency_penalty": 0.0,
-                    "presence_penalty": 0.0}
+_NOT_YET_NUMBERS = {"beams": 0.0}
 
 
 def _parse_multipart(body: bytes, content_type: str) -> dict[str, str]:
@@ -84,6 +84,24 @@ def _num(fields, key, default, conv):
     except (TypeError, ValueError):
         raise ValueError(f"form field {key!r} must be a number, "
                          f"got {raw[:40]!r}") from None
+
+
+def _parse_penalties(fields):
+    """repetition_penalty / frequency_penalty / presence_penalty form
+    fields -> (rep, freq, pres), or None when all are absent or neutral."""
+    pen = (_num(fields, "repetition_penalty", 1.0, float),
+           _num(fields, "frequency_penalty", 0.0, float),
+           _num(fields, "presence_penalty", 0.0, float))
+    return None if pen == (1.0, 0.0, 0.0) else pen
+
+
+def _parse_ngram(fields) -> int:
+    """no_repeat_ngram form field -> an int in [0, 8], as the JAX server
+    bounds it (larger sizes ban next to nothing)."""
+    n = _num(fields, "no_repeat_ngram", 0, int)
+    if n < 0 or n > 8:
+        raise ValueError("no_repeat_ngram must be in [0, 8]")
+    return n
 
 
 def _unsupported(fields: dict, qs: dict) -> str | None:
@@ -268,6 +286,8 @@ class EAMGHandler(BaseHTTPRequestHandler):
                 top_k=_num(fields, "top_k", 50, int),
                 top_p=_num(fields, "top_p", 1.0, float),
                 min_p=_num(fields, "min_p", 0.0, float),
+                penalties=_parse_penalties(fields),
+                no_repeat_ngram=_parse_ngram(fields),
                 seed=_num(fields, "seed", None, int))
             if not sampling["temperature"] > 0.0:
                 raise ValueError("temperature must be > 0")

@@ -68,11 +68,9 @@ def load_checkpoint(path: str) -> dict:
             "cfg": GPTConfig(**meta["cfg"]), "step": meta.get("step", 0)}
 
 
-def ragged_cache_from_jax(cache: dict) -> dict:
-    """A JAX ragged cache as numpy (``k``, ``v``: per layer
-    [B, Hkv, M, Dh]; ``lengths`` [B]) -> the port's position-major fused
-    layout ``{"kv": [per layer [B, M, 2 * KVD]], "lengths": [B] int32}``
-    of CPU tensors: heads merged in head order, K then V."""
+def _fused_layers(cache: dict) -> list:
+    """``k``, ``v`` per layer [B, Hkv, M, Dh] as numpy -> per layer
+    [B, M, 2 * KVD] CPU tensors: heads merged in head order, K then V."""
     def fuse(k, v):
         k, v = _leaf_to_torch(k), _leaf_to_torch(v)
         B, Hkv, M, Dh = k.shape
@@ -80,9 +78,24 @@ def ragged_cache_from_jax(cache: dict) -> dict:
                           v.permute(0, 2, 1, 3).reshape(B, M, Hkv * Dh)],
                          dim=-1).contiguous()
 
-    return {"kv": [fuse(k, v) for k, v in zip(cache["k"], cache["v"])],
+    return [fuse(k, v) for k, v in zip(cache["k"], cache["v"])]
+
+
+def ragged_cache_from_jax(cache: dict) -> dict:
+    """A JAX ragged cache as numpy (``k``, ``v``: per layer
+    [B, Hkv, M, Dh]; ``lengths`` [B]) -> the port's position-major fused
+    layout ``{"kv": [per layer [B, M, 2 * KVD]], "lengths": [B] int32}``
+    of CPU tensors."""
+    return {"kv": _fused_layers(cache),
             "lengths": torch.from_numpy(
                 np.asarray(cache["lengths"]).astype(np.int32))}
+
+
+def fused_cache_from_jax(cache: dict) -> dict:
+    """A JAX uniform cache as numpy (``k``, ``v`` as above; ``length`` a
+    scalar) -> the port's ``layout="fused"`` cache ``{"kv": [...],
+    "length": int}``."""
+    return {"kv": _fused_layers(cache), "length": int(cache["length"])}
 
 
 def ragged_cache_to_jax(cache: dict, kv_heads: int) -> dict:

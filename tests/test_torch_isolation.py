@@ -5,7 +5,8 @@ the card by default.
   out of this process) loads neither ``jax`` nor any ``eamg_tpu`` module;
 - no source of the port, nor chip_smoke.py, imports ``jax`` or
   ``eamg_tpu``;
-- the entry points raise on a host without CUDA when no device is given,
+- the entry points (the library's, ``cli generate`` and the bench module
+  among them) raise on a host without CUDA when no device is given,
   instead of carrying on on the CPU.
 """
 
@@ -37,6 +38,7 @@ leaked = sorted(m for m in sys.modules
 import torch
 raised = {}
 if not torch.cuda.is_available():
+    from eamg_tpu_torch import bench, cli
     from eamg_tpu_torch.decode import Generator
     from eamg_tpu_torch.emotion import EmotionClassifier
     from eamg_tpu_torch.models.gpt import GPTConfig
@@ -47,6 +49,8 @@ if not torch.cuda.is_available():
         "Generator": lambda: Generator({}, cfg, Vocab({"a": 0})),
         "pipeline_from_checkpoint": lambda: pipeline_from_checkpoint(),
         "EmotionClassifier": lambda: EmotionClassifier(),
+        "cli generate": lambda: cli.main(["generate"]),
+        "bench": lambda: bench.main([]),
     }
     for name, fn in calls.items():
         try:
@@ -72,6 +76,8 @@ def probe():
 
 def test_every_port_module_imports_without_jax(probe):
     assert len(probe["modules"]) >= 30, probe["modules"]
+    for new in ("eamg_tpu_torch.bench", "eamg_tpu_torch.tokenizer.scheme_b"):
+        assert new in probe["modules"]
     assert probe["leaked"] == []
 
 
@@ -95,7 +101,8 @@ def test_source_imports_no_jax_and_no_jax_package(path):
 
 
 @pytest.mark.parametrize("entry", ["Generator", "pipeline_from_checkpoint",
-                                   "EmotionClassifier"])
+                                   "EmotionClassifier", "cli generate",
+                                   "bench"])
 def test_entry_points_want_cuda_by_default(probe, entry):
     """On this CUDA-less host, no device argument means an error."""
     assert not probe["cuda"], "this check is for hosts without CUDA"

@@ -10,7 +10,12 @@ chip_smoke.py.
 
 Tolerances: attention, FFN, decode attention, fold decode attention and
 the stream reduce 1e-5 (f32, sums in other orders); the top-k and top-p
-thresholds are exact searches over integer keys, so bit-equal.
+thresholds are exact searches over integer keys, so bit-equal. The five
+one-launch decode kernels are also held in bf16 against the JAX XLA path
+(XLA:CPU has no bf16 x bf16 -> f32 product, so the Pallas kernels do not
+run in bf16 here), to one bf16 step of an output of size 2..4 (2^-6):
+both sides round the scores to bf16, the fold and fold2 plain version
+rounds the probabilities unnormalised and XLA's normalised.
 """
 
 from __future__ import annotations
@@ -24,9 +29,12 @@ import jax
 import jax.numpy as jnp
 
 from eamg_tpu.ops.attention import flash_attention, xla_attention
-from eamg_tpu.ops.decode_attention import (flash_decode_sp,
+from eamg_tpu.ops.decode_attention import (flash_decode, flash_decode_sp,
+                                           flash_decode_vmem,
                                            xla_decode_attention)
-from eamg_tpu.ops.decode_fold import (flash_decode_fold3_sp,
+from eamg_tpu.ops.decode_fold import (flash_decode_fold, flash_decode_fold2,
+                                      flash_decode_fold3,
+                                      flash_decode_fold3_sp,
                                       flash_decode_fold_sp, stream_reduce,
                                       xla_decode_attention_pm)
 from eamg_tpu.ops.ffn import fused_ffn
@@ -36,6 +44,7 @@ from eamg_tpu.ops.topk import (kth_value_bitsearch, kth_value_pallas,
 from port_harness import flatten, run_worker
 
 TOL = 1e-5
+BF16_TOL = 2.0 ** -6
 
 # name: (B, H, Hkv, T, Dh, causal, valid_len)
 ATTN_CASES = {
@@ -60,6 +69,21 @@ FOLD_RAGGED_M = 50                 # no multiple of a key block
 FOLD_ENTRIES = {"flash_decode_fold_sp": flash_decode_fold_sp,
                 "flash_decode_fold3_sp": flash_decode_fold3_sp}
 STREAM_ROWS = (2, 4)               # kv [4, 16, 32]
+# the two scalar-t kernels: MHA B 2, H 4, Dh 16; M 64 = 4 blocks of 16 for
+# flash_decode, and M 50, which only flash_decode_vmem takes in JAX
+SCALAR_T = {"flash_decode": lambda q, k, v, t: flash_decode(
+                q, k, v, t, block_k=16, interpret=True),
+            "flash_decode_vmem": lambda q, k, v, t: flash_decode_vmem(
+                q, k, v, t, interpret=True)}
+DEC1_BF16_TS = (5, 63)
+# the three one-launch fold kernels: B 4, D 64, 4 heads; per-row and
+# scalar t; M 64 and M 50 (they read the whole cache: any M in JAX too)
+WHOLE = {"flash_decode_fold": flash_decode_fold,
+         "flash_decode_fold2": flash_decode_fold2,
+         "flash_decode_fold3": flash_decode_fold3}
+WHOLE_MS = (64, 50)
+WHOLE_TS = {"t0": 0, "t17": 17, "rows": np.asarray([0, 17, 49, 40], np.int32)}
+WHOLE_ROWS = (2, 4)
 
 
 def _rng():
@@ -159,6 +183,54 @@ def _inputs():
                         ref[("fold", name, entry)] = np.asarray(fn(
                             jnp.asarray(q), jnp.asarray(kv), tj, H,
                             block_k=16, interpret=True))
+    B, H, Dh = 2, 4, 16
+    for M, ts in ((64, DEC_TS), (DEC_RAGGED_M, (DEC_RAGGED_T,))):
+        kc = rng.standard_normal((B, H, M, Dh), np.float32)
+        vc = rng.standard_normal((B, H, M, Dh), np.float32)
+        q = rng.standard_normal((B, H, 1, Dh), np.float32)
+        for t in ts:
+            for bf in (False, True) if M == 64 and t in DEC1_BF16_TS \
+                    else (False,):
+                dt = jnp.bfloat16 if bf else jnp.float32
+                qj, kj, vj = (jnp.asarray(a, dt) for a in (q, kc, vc))
+                name = f"M{M}_t{t}" + ("_bf16" if bf else "")
+                inp.update(flatten({"q": qj, "k": kj, "v": vj,
+                                    "t": np.asarray(t),
+                                    "bf16": np.asarray(bf)}, f"dec1/{name}"))
+                ref[("dec1", name, "xla")] = np.asarray(xla_decode_attention(
+                    qj, kj, vj, t).astype(jnp.float32))
+                for entry, fn in SCALAR_T.items():
+                    if not bf and (M % 16 == 0
+                                   or entry == "flash_decode_vmem"):
+                        ref[("dec1", name, entry)] = np.asarray(
+                            fn(qj, kj, vj, t).astype(jnp.float32))
+    inp.update(flatten({"q": q, "k": kc, "v": vc,
+                        "fq": rng.standard_normal((4, 1, 64), np.float32),
+                        "fkv": rng.standard_normal((4, 8, 128), np.float32)},
+                       "refuse"))
+    B, D, H = 4, 64, 4
+    for hname, kvh in FOLD_HEADS.items():
+        KVD = kvh * (D // H)
+        for M in WHOLE_MS:
+            q = rng.standard_normal((B, 1, D), np.float32)
+            kv = rng.standard_normal((B, M, 2 * KVD), np.float32)
+            for tname, t in WHOLE_TS.items():
+                for bf in (False, True) if tname == "rows" else (False,):
+                    dt = jnp.bfloat16 if bf else jnp.float32
+                    qj, kvj = jnp.asarray(q, dt), jnp.asarray(kv, dt)
+                    name = f"{hname}_M{M}_{tname}" + ("_bf16" if bf else "")
+                    inp.update(flatten(
+                        {"q": qj, "kv": kvj, "t": np.asarray(t),
+                         "n_head": np.asarray(H), "bf16": np.asarray(bf),
+                         "rows": np.asarray(WHOLE_ROWS)}, f"whole/{name}"))
+                    tj = jnp.asarray(t)
+                    ref[("whole", name, "xla")] = np.asarray(
+                        xla_decode_attention_pm(qj, kvj, tj, H)
+                        .astype(jnp.float32))
+                    for entry, fn in () if bf else WHOLE.items():
+                        ref[("whole", name, entry)] = np.asarray(
+                            fn(qj, kvj, tj, H, interpret=True)
+                            .astype(jnp.float32))
     kv = rng.standard_normal((4, 16, 32), np.float32)
     for rows in STREAM_ROWS:
         inp.update(flatten({"kv": kv, "rows": np.asarray(rows)},
@@ -264,3 +336,101 @@ def test_stream_reduce_plain_matches_pallas(results, rows):
     assert got[f"stream/rows{rows}"].shape == (1, 32)
     np.testing.assert_allclose(got[f"stream/rows{rows}"],
                                ref[("stream", rows)], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("entry", list(SCALAR_T))
+@pytest.mark.parametrize("t", DEC_TS)
+@pytest.mark.parametrize("against", ["pallas", "xla"])
+def test_scalar_t_decode_plain_matches_jax(results, entry, t, against):
+    """flash_decode and flash_decode_vmem (MHA caches, one scalar t) against
+    the Pallas kernel of the same name (interpret mode) and against
+    xla_decode_attention."""
+    got, ref = results
+    name = f"M64_t{t}"
+    want = ref[("dec1", name, entry if against == "pallas" else "xla")]
+    assert got[f"dec1/{name}/{entry}"].shape == want.shape == (2, 4, 1, 16)
+    np.testing.assert_allclose(got[f"dec1/{name}/{entry}"], want, rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("entry", list(SCALAR_T))
+def test_scalar_t_decode_plain_takes_ragged_cache(results, entry):
+    """M = 50 is no multiple of a key block: JAX's flash_decode asserts on
+    it (flash_decode_vmem takes it), the port takes it in both."""
+    got, ref = results
+    name = f"M{DEC_RAGGED_M}_t{DEC_RAGGED_T}"
+    for against in ("xla", "flash_decode_vmem"):
+        np.testing.assert_allclose(got[f"dec1/{name}/{entry}"],
+                                   ref[("dec1", name, against)], rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("entry", list(SCALAR_T))
+@pytest.mark.parametrize("t", DEC1_BF16_TS)
+def test_scalar_t_decode_plain_bf16_matches_xla(results, entry, t):
+    got, ref = results
+    name = f"M64_t{t}_bf16"
+    np.testing.assert_allclose(got[f"dec1/{name}/{entry}"],
+                               ref[("dec1", name, "xla")], rtol=0,
+                               atol=BF16_TOL)
+
+
+def _whole_got(got, name, entry):
+    key = f"whole/{name}/{entry}"
+    return got[key + f"/rows{WHOLE_ROWS[-1]}" if entry.endswith("fold2")
+               else key]
+
+
+@pytest.mark.parametrize("entry", list(WHOLE))
+@pytest.mark.parametrize("heads", list(FOLD_HEADS))
+@pytest.mark.parametrize("M", WHOLE_MS)
+@pytest.mark.parametrize("tname", list(WHOLE_TS))
+@pytest.mark.parametrize("against", ["pallas", "xla"])
+def test_fold_whole_plain_matches_jax(results, entry, heads, M, tname,
+                                      against):
+    """flash_decode_fold, _fold2 (rows 4) and _fold3 against the Pallas
+    kernel of the same name (interpret mode) and against
+    xla_decode_attention_pm; MHA and GQA-2, scalar and per-row t, M 64 and
+    M 50 (no block multiple)."""
+    got, ref = results
+    name = f"{heads}_M{M}_{tname}"
+    want = ref[("whole", name, entry if against == "pallas" else "xla")]
+    assert _whole_got(got, name, entry).shape == want.shape == (4, 1, 64)
+    np.testing.assert_allclose(_whole_got(got, name, entry), want, rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("heads", list(FOLD_HEADS))
+@pytest.mark.parametrize("M", WHOLE_MS)
+def test_fold2_plain_does_not_depend_on_rows(results, heads, M):
+    got, _ = results
+    for bf in ("", "_bf16"):
+        base = f"whole/{heads}_M{M}_rows{bf}/flash_decode_fold2"
+        np.testing.assert_array_equal(got[f"{base}/rows{WHOLE_ROWS[0]}"],
+                                      got[f"{base}/rows{WHOLE_ROWS[1]}"])
+
+
+@pytest.mark.parametrize("entry", list(WHOLE))
+@pytest.mark.parametrize("heads", list(FOLD_HEADS))
+@pytest.mark.parametrize("M", WHOLE_MS)
+def test_fold_whole_plain_bf16_matches_xla(results, entry, heads, M):
+    """In bf16 fold and fold2 round the probabilities unnormalised and
+    fold3 normalised, as their Pallas kernels do; fold3's plain version is
+    XLA's arithmetic."""
+    got, ref = results
+    name = f"{heads}_M{M}_rows_bf16"
+    want = ref[("whole", name, "xla")]
+    np.testing.assert_allclose(_whole_got(got, name, entry), want, rtol=0,
+                               atol=0.0 if entry.endswith("fold3")
+                               else BF16_TOL)
+
+
+@pytest.mark.parametrize("case, says", [
+    ("gqa", "MHA caches only"), ("gqa_vmem", "MHA caches only"),
+    ("t_rows", "one scalar"), ("rows", "no multiple of rows")])
+def test_one_launch_wrappers_refuse_what_jax_cannot_take(results, case, says):
+    """As the JAX functions: flash_decode and flash_decode_vmem take MHA
+    caches and one scalar t only, flash_decode_fold2 needs B % rows == 0."""
+    got, _ = results
+    assert str(got[f"refuse/{case}"]).startswith("ValueError")
+    assert says in str(got[f"refuse/{case}"])

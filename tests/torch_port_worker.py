@@ -50,8 +50,25 @@ def unflatten(npz, prefix: str):
     return fix(root)
 
 
-def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
+def _t(a, bf16: bool = False):
+    """numpy -> tensor; with ``bf16`` a uint16 array is read as the bit
+    patterns of bfloat16 values."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(torch.bfloat16) if bf16 and t.dtype == torch.uint16 else t
+
+
+def _np(t):
+    """tensor -> numpy, bf16 as float32 (exact)."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _raised(fn) -> np.ndarray:
+    """The class and message of what fn() raises, or "none"."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - the test reads the name
+        return np.asarray(f"{type(e).__name__}: {e}")
+    return np.asarray("none")
 
 
 def _cfg(npz, key):
@@ -82,8 +99,44 @@ def task_kernels(inp, out):
     for name in sorted({k.split("/")[1] for k in inp.files
                         if k.startswith("dec/")}):
         a = unflatten(inp, f"dec/{name}")
-        out[f"dec/{name}"] = decode_attention.flash_decode(
+        out[f"dec/{name}"] = decode_attention.flash_decode_sp(
             _t(a["q"]), _t(a["k"]), _t(a["v"]), _t(a["t"])).numpy()
+    # the two scalar-t kernels' wrappers (MHA caches, t by value)
+    for name in sorted({k.split("/")[1] for k in inp.files
+                        if k.startswith("dec1/")}):
+        a = unflatten(inp, f"dec1/{name}")
+        bf = bool(a["bf16"])
+        for entry in ("flash_decode", "flash_decode_vmem"):
+            out[f"dec1/{name}/{entry}"] = _np(getattr(
+                decode_attention, entry)(_t(a["q"], bf), _t(a["k"], bf),
+                                         _t(a["v"], bf), int(a["t"])))
+    # the three one-launch fold kernels' wrappers
+    for name in sorted({k.split("/")[1] for k in inp.files
+                        if k.startswith("whole/")}):
+        a = unflatten(inp, f"whole/{name}")
+        bf = bool(a["bf16"])
+        t = a["t"]
+        t = int(t) if t.ndim == 0 else _t(t)
+        args = (_t(a["q"], bf), _t(a["kv"], bf), t, int(a["n_head"]))
+        out[f"whole/{name}/flash_decode_fold"] = _np(
+            decode_fold.flash_decode_fold(*args))
+        out[f"whole/{name}/flash_decode_fold3"] = _np(
+            decode_fold.flash_decode_fold3(*args))
+        for rows in a["rows"]:
+            out[f"whole/{name}/flash_decode_fold2/rows{int(rows)}"] = _np(
+                decode_fold.flash_decode_fold2(*args, rows=int(rows)))
+    if "refuse/q" in inp.files:
+        a = unflatten(inp, "refuse")
+        q, k, v = _t(a["q"]), _t(a["k"]), _t(a["v"])
+        out["refuse/gqa"] = _raised(lambda: decode_attention.flash_decode(
+            q, k[:, :2], v[:, :2], 3))
+        out["refuse/gqa_vmem"] = _raised(
+            lambda: decode_attention.flash_decode_vmem(q, k[:, :2], v[:, :2],
+                                                       3))
+        out["refuse/t_rows"] = _raised(lambda: decode_attention.flash_decode(
+            q, k, v, torch.tensor([3, 4], dtype=torch.int32)))
+        out["refuse/rows"] = _raised(lambda: decode_fold.flash_decode_fold2(
+            _t(a["fq"]), _t(a["fkv"]), 3, 4, rows=3))
     for name in sorted({k.split("/")[1] for k in inp.files
                         if k.startswith("topk/")}):
         a = unflatten(inp, f"topk/{name}")
@@ -281,6 +334,11 @@ def _server_checks(out, pipe):
             "beams": ("POST", "/generate", {"prompt": "x", "beams": "4"}),
             "penalty": ("POST", "/generate",
                         {"prompt": "x", "repetition_penalty": "1.3"}),
+            "ngram": ("POST", "/generate?format=midi",
+                      {"prompt": "x", "no_repeat_ngram": "2",
+                       "presence_penalty": "0.2"}),
+            "bad_ngram": ("POST", "/generate",
+                          {"prompt": "x", "no_repeat_ngram": "9"}),
             "bad_seed": ("POST", "/generate", {"prompt": "x",
                                                "seed": "abc"}),
             "no_prompt": ("POST", "/generate", {"seed": "1"}),
@@ -438,6 +496,207 @@ def task_slice(inp, out):
     _server_checks(out, pipe)
     _cli_coalesce_checks(inp, out)
     _overload_checks(inp, out)
+
+
+# -------------------------------------------------------------------- batch
+
+def _gen_kwargs(spec: dict) -> dict:
+    spec = dict(spec)
+    spec.pop("seed", None)
+    if "penalties" in spec:
+        spec["penalties"] = tuple(spec["penalties"])
+    return spec
+
+
+def _batch_model_checks(inp, out, tag):
+    """One model of tests/test_torch_batch.py: the fused prefill, a
+    teacher-forced decode and every generation case, per attn_impl."""
+    from eamg_tpu_torch.decode.loop import generate_full, generate_kv
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import (fused_cache_from_jax,
+                                                 params_from_jax)
+
+    cfg = _cfg(inp, f"{tag}/cfg")
+    params = params_from_jax(unflatten(inp, f"{tag}/p"))
+    impls = json.loads(str(inp[f"{tag}/impls"]))
+    prompt = _t(inp[f"{tag}/prompt"]).long()
+    plen, max_len = int(inp[f"{tag}/plen"]), int(inp[f"{tag}/max_len"])
+    forced = inp[f"{tag}/forced"]
+    for impl in impls:
+        cache = gpt.init_kv_cache(cfg, prompt.shape[0], max_len,
+                                  layout=gpt.cache_layout(impl, cfg))
+        logits, cache = gpt.prefill(params, prompt, cfg, cache,
+                                    prompt_len=plen)
+        out[f"{tag}/{impl}/prefill"] = logits.numpy()
+        if "kv" in cache:
+            out.update(flatten_out([kv.numpy().copy()
+                                    for kv in cache["kv"]],
+                                   f"{tag}/{impl}/cache0"))
+        steps, last = [], prompt[:, plen - 1:plen]
+        for row in forced:
+            lg, cache = gpt.decode_step(params, last, cache, cfg, impl)
+            steps.append(lg.numpy())
+            last = _t(row).long()[:, None]
+        out[f"{tag}/{impl}/decode"] = np.stack(steps)
+        assert cache["length"] == plen + len(forced)
+    jc = fused_cache_from_jax(unflatten(inp, f"{tag}/jax_cache0"))
+    out.update(flatten_out([kv.numpy() for kv in jc["kv"]],
+                           f"{tag}/jax_cache0"))
+    out[f"{tag}/jax_cache0_length"] = np.asarray(jc["length"])
+    eos = int(inp["eos"])
+    for name, spec in json.loads(str(inp[f"{tag}/cases"])).items():
+        for impl in impls:
+            buf, n = generate_kv(params, prompt, plen,
+                                 prng.PRNGKey(spec.get("seed", 0)), cfg,
+                                 max_len, eos_id=eos, attn_impl=impl,
+                                 **_gen_kwargs(spec))
+            out[f"{tag}/{name}/{impl}"] = buf[:, :n].numpy()
+    for name, spec in json.loads(str(inp[f"{tag}/full_cases"])).items():
+        buf, n = generate_full(params, prompt, plen,
+                               prng.PRNGKey(spec.get("seed", 0)), cfg,
+                               int(inp[f"{tag}/full_max_len"]), eos_id=eos,
+                               **_gen_kwargs(spec))
+        out[f"{tag}/full/{name}"] = buf[:, :n].numpy()
+    if cfg.kv_heads != cfg.n_head:
+        for impl in ("dma", "vmem"):
+            out[f"{tag}/refuse/{impl}"] = _raised(lambda: generate_kv(
+                params, prompt, plen, prng.PRNGKey(0), cfg, max_len,
+                attn_impl=impl))
+    out[f"{tag}/refuse/unknown"] = _raised(lambda: generate_kv(
+        params, prompt, plen, prng.PRNGKey(0), cfg, max_len,
+        attn_impl="paged"))
+    return params, cfg
+
+
+def _sampling_checks(inp, out):
+    from eamg_tpu_torch.decode import sampling
+    from eamg_tpu_torch.utils import prng
+
+    logits = _t(inp["smp/logits"])
+    ids, valid = _t(inp["smp/ids"]).long(), _t(inp["smp/valid"])
+    V = logits.shape[1]
+    counts = sampling.token_counts(ids, valid, V)
+    out["smp/counts"] = counts.numpy()
+    buf = _t(inp["smp/buf"]).long()
+    for n in (1, 2, 3):
+        for pname, pos in (("scalar", int(inp["smp/pos"])),
+                           ("rows", _t(inp["smp/pos_rows"]))):
+            out[f"smp/ban{n}/{pname}"] = sampling.no_repeat_ngram_ban(
+                buf, pos, n, V).numpy()
+    out["smp/ngram_logits"] = sampling.apply_no_repeat_ngram(
+        logits, buf, int(inp["smp/pos"]), 2).numpy()
+    for name, pen in json.loads(str(inp["smp/penalties"])).items():
+        out[f"smp/pen/{name}"] = sampling.apply_penalties(
+            logits, counts, *pen).numpy()
+        key = prng.PRNGKey(int(inp["smp/seed"]))
+        for greedy in (False, True):
+            out[f"smp/tok/{name}/{int(greedy)}"] = sampling.sample_token(
+                key, logits, 0.8, 10, greedy=greedy, top_p=0.9, min_p=0.01,
+                counts=counts, repetition_penalty=pen[0],
+                frequency_penalty=pen[1], presence_penalty=pen[2]).numpy()
+
+
+def _generator_checks(inp, out, params, cfg):
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.tokenizer import SchemeB2, Vocab, detect_scheme
+
+    vocab = Vocab({f"t{i}": i for i in range(cfg.vocab_size)})
+    gen = Generator(params, cfg, vocab, eos_token=f"t{int(inp['eos'])}",
+                    pad_token="t0", device=CPU)
+    out["gen/max_supported"] = np.asarray(
+        [gen.max_supported_len(), gen.max_supported_len(use_cache=False)])
+    ids = [int(i) for i in inp["gen/prompt_ids"]]
+    for name, kw in json.loads(str(inp["gen/calls"])).items():
+        if "penalties" in kw:
+            kw["penalties"] = tuple(kw["penalties"])
+        out[f"gen/{name}"] = gen.generate_ids(ids, **kw)
+    toks = [f"t{i}" for i in ids]
+    out["gen/sample"] = np.asarray(gen.vocab.encode(
+        gen.sample(toks, max_len=20, seed=2, top_k=15)))
+    out["gen/sample_kvcache"] = np.asarray(gen.vocab.encode(
+        gen.sample_kvcache(toks, max_len=20, seed=2, top_k=15,
+                           penalties=(1.2, 0.0, 0.1), no_repeat_ngram=2)))
+    out["gen/grammar"] = _raised(lambda: gen.generate_ids(ids, grammar=1))
+    b2 = SchemeB2()
+    out["tok/b2_vocab"] = np.asarray(len(b2.vocab))
+    out["tok/schemes"] = np.asarray([detect_scheme(b2.vocab.tok2id),
+                                     detect_scheme(vocab.tok2id)])
+    p0 = gpt.init_params(torch.Generator().manual_seed(3), cfg)
+    out["init/shapes"] = np.asarray(sorted(
+        f"{k}:{tuple(v.shape)}:{str(v.dtype).replace('torch.', '')}"
+        for k, v in flatten_out(p0, "").items()))
+    p1 = gpt.init_params(torch.Generator().manual_seed(3), cfg)
+    out["init/same_seed"] = np.asarray(all(
+        np.array_equal(a, b) for a, b in zip(flatten_out(p0, "").values(),
+                                             flatten_out(p1, "").values())))
+    out["init/stats"] = np.asarray(
+        [float(p0["tok_emb"].std()), float(p0["pos"].abs().max()),
+         float(p0["layers"][0]["attn"]["in_w"].abs().max()),
+         float(p0["head"]["w"].abs().max())])
+
+
+def _cli_generate_checks(inp, out, tmp_dir):
+    """`cli generate` in this process, and its refusals as subprocesses."""
+    import os
+    import subprocess
+
+    from eamg_tpu_torch import cli
+
+    ckpt = str(inp["cli/ckpt"])
+    for name, extra in json.loads(str(inp["cli/runs"])).items():
+        mid = os.path.join(tmp_dir, f"{name}.mid")
+        wav = os.path.join(tmp_dir, f"{name}.wav")
+        code = cli.main(["generate", "--device", "cpu", "--checkpoint", ckpt,
+                         "--out", mid, "--wav", wav, *extra])
+        out[f"cli/{name}/code"] = np.asarray(code)
+        with open(mid, "rb") as f:
+            out[f"cli/{name}/midi"] = np.frombuffer(f.read(), np.uint8)
+        with open(wav, "rb") as f:
+            out[f"cli/{name}/wav_head"] = np.frombuffer(f.read(12), np.uint8)
+    for flag, value in (("--beams", "4"), ("--grammar", None),
+                        ("--draft", "x"), ("--lookup", None),
+                        ("--medusa", "x")):
+        r = subprocess.run(
+            [sys.executable, "-m", "eamg_tpu_torch.cli", "generate",
+             "--device", "cpu", "--checkpoint", ckpt, flag]
+            + ([value] if value else []),
+            capture_output=True, text=True, timeout=120)
+        out[f"cli/{flag}/code"] = np.asarray(r.returncode)
+        out[f"cli/{flag}/stderr"] = np.asarray(r.stderr[-500:])
+
+
+def _bench_checks(out):
+    """The bench module's loop at a cut depth, length and batch, in this
+    process; and the module itself, which wants a card."""
+    import subprocess
+
+    from eamg_tpu_torch import bench
+
+    cfg = bench.large2_config(n_layer=1)
+    params = bench.make_params(cfg, 0, "cpu")
+    prompt = bench.bench_prompt("cpu", batch=4)
+    out["bench/lines"] = np.asarray(json.dumps(
+        [bench.bench_impl(params, cfg, prompt, 20, impl, runs=1)
+         for impl in ("sp", "fold2")]))
+    r = subprocess.run([sys.executable, "-m", "eamg_tpu_torch.bench"],
+                       capture_output=True, text=True, timeout=120)
+    out["bench/no_card_code"] = np.asarray(r.returncode)
+    out["bench/no_card_stderr"] = np.asarray(r.stderr[-500:])
+
+
+def task_batch(inp, out):
+    import tempfile
+
+    models = {}
+    for tag in json.loads(str(inp["tags"])):
+        models[tag] = _batch_model_checks(inp, out, tag)
+    _sampling_checks(inp, out)
+    _generator_checks(inp, out, *models["mha"])
+    with tempfile.TemporaryDirectory() as tmp:
+        _cli_generate_checks(inp, out, tmp)
+    _bench_checks(out)
 
 
 # ------------------------------------------------------------------- ragged
@@ -808,7 +1067,7 @@ def task_engine(inp, out):
 
 
 TASKS = {"kernels": task_kernels, "slice": task_slice,
-         "ragged": task_ragged, "engine": task_engine}
+         "ragged": task_ragged, "engine": task_engine, "batch": task_batch}
 
 
 def main():
