@@ -13,8 +13,14 @@ Phases:
     B 8, MHA, 128 prefill rows, 8324 logits), and time the kernel,
     the plain version and one PyTorch library call computing the same
     function (a yardstick only: the port never calls it), each as replays
-    of a CUDA graph so that the host's issue rate stays out; then the
-    bit-identity of a row alone and inside a batch of 8, for the fold
+    of a CUDA graph so that the host's issue rate stays out; the one-launch
+    fold kernels at t 300 and at the whole cache (t 510) against the
+    library call on the slice 0..t and the masked one on the whole cache,
+    the cluster kernels of flash_decode_fold2 and _fold3 with the cluster
+    size the card picks for the shape and with the other one (the
+    resident clusters of each logged), fold2 bit-equal across rows 1, 2,
+    4, 8; then
+    the bit-identity of a row alone and inside a batch of 8, for the fold
     kernels, the FFN kernel and the library's matrix product;
  4. teacher: teacher-forced f32 logits of the flagship demo_ckpt_a on the
     card (kernels) against the same run on the host (plain versions), for
@@ -38,7 +44,8 @@ Phases:
     seed) at full width and depth, batch 8, 511 positions, once per
     attn_impl with the launch counts zeroed before each: the kernel the
     attn_impl names must have launched once per layer and step and no
-    other attention kernel at all; teacher-forced f32 logits of each
+    other attention kernel at all; fold2's rate at least 0.8 of sp's
+    (best of three generations each); teacher-forced f32 logits of each
     attn_impl on the card against the plain versions on the host; one
     generation of the default attn_impl under torch.profiler; then
     `cli generate --wav` on demo_ckpt_a twice with one seed (MThd,
@@ -53,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import socket
@@ -131,6 +139,15 @@ FOLD_T = (0, 15, 63, 64, 300, 510, 200, 127)
 BENCH_B, BENCH_H = 8, 8
 BENCH_T = (0, 100, 255, 256, 300, 510)
 BENCH_TIMED_T = 300
+# the one-launch fold kernels are timed at the whole cache as well
+BENCH_LAST_T = 510
+# the cluster kernels of rows 9 and 10: a row's bits must not depend on
+# `rows` or on the batch, and they are held to what the kernels they
+# replaced read (one bf16 step at |o| < 2 and 5e-3 of max|want| of the f32
+# plain version in bf16, 2e-6 in f32)
+CLUSTER_KERNELS = ("flash_decode_fold2", "flash_decode_fold3")
+CLUSTER_TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -7}
+CLUSTER_REL_TOL = 5e-3
 # max |kernel - plain| allowed. f32: both sides accumulate in f32, in other
 # orders. bf16: the plain attention rounds scores and probabilities to
 # bf16 (the JAX model's XLA path), the kernels keep them in f32, so they
@@ -168,6 +185,8 @@ TOL = {("flash_attention", "float32"): 1e-4,
           for tag in ("", "_gqa")},
        **{(name + tag, "bfloat16"): 1.6e-2 for name in BATCH_KERNELS
           for tag in ("", "_gqa")},
+       **{(name + tag, dt): tol for name in CLUSTER_KERNELS
+          for tag in ("", "_gqa") for dt, tol in CLUSTER_TOL.items()},
        # the kernels the batched decode shares with the served paths, at
        # the shapes that path gives them (B 8, MHA; 128 prefill rows; the
        # Scheme-B2 vocabulary): each as at its served shape
@@ -198,9 +217,9 @@ TF_TOL = 5e-3   # teacher-forced f32 logits of demo_ckpt_a, card vs host
 # in other orders over 6 layers), so the limit sits well under what a wrong
 # attention would move
 BATCH_TF_TOL = 1e-4
-# flash_decode_fold2 across rows 2, 4, 8 in f32 (the JAX package's own test
-# holds its kernel to this; the port's is built to be bit-equal)
-ROWS_TOL = 1e-6
+# the batched decode with attn_impl "fold2" against "sp" in one run, best
+# rates: fold2's kernel must not set the pace of a step
+FOLD2_RATE_MIN = 0.8
 
 
 def log(*a):
@@ -323,19 +342,21 @@ def kernel_checks(torch, ckpt_params) -> dict:
 
     results = {}
 
-    def record(name, dt, err, k_ms, p_ms, lib_ms, n_b, flops, extra=""):
+    def record(name, dt, err, k_ms, p_ms, lib_ms, n_b, flops, extra="",
+               more=None):
         tol = TOL[(name, dt)]
         b_ms, b_by = bound_ms(n_b, flops, dt)
         ok = err <= tol
         log(f"[check] {name:16s} {dt:9s} max|err| {err:.3e} (tol {tol:.0e})"
             f" kernel {k_ms:.4f} ms plain {p_ms:.4f} ms library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
-            f"{b_ms:.5f} ms ({b_by}) {extra}{'' if ok else '  FAIL'}")
+            f"{b_ms:.5f} ms ({b_by}, {b_ms / k_ms:.1%} of the kernel's "
+            f"time) {extra}{'' if ok else '  FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {dt}: max|err| {err} > {tol}")
         results.setdefault(name, {})[dt] = dict(
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-            bound_ms=b_ms, bound_by=b_by)
+            bound_ms=b_ms, bound_by=b_by, **(more or {}))
 
     def hold(name, dt, got, want, extra=""):
         """A kernel at a further shape of a path against its plain version:
@@ -355,17 +376,17 @@ def kernel_checks(torch, ckpt_params) -> dict:
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
-    def rel_f32(name, got, want32, where=""):
+    def rel_f32(name, got, want32, where="", tol=REL_TOL_F32):
         """bf16 kernel output against the plain version in f32 on the
-        upcast inputs: max|err| / max|want|, held to REL_TOL_F32."""
+        upcast inputs: max|err| / max|want|, held to ``tol``."""
         rel = ((got.float() - want32).abs().max()
                / want32.abs().max().clamp_min(1e-30)).item()
         log(f"[check] {name:16s} bfloat16  vs f32 plain{where}: max|err| / "
-            f"max|want| {rel:.3e} (tol {REL_TOL_F32:.0e}, max|want| "
+            f"max|want| {rel:.3e} (tol {tol:.0e}, max|want| "
             f"{want32.abs().max().item():.3e})")
-        if not rel <= REL_TOL_F32:
+        if not rel <= tol:
             raise AssertionError(f"{name} bf16 vs f32 plain{where}: {rel} > "
-                                 f"{REL_TOL_F32}")
+                                 f"{tol}")
 
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
@@ -625,22 +646,25 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 qb, kb, vb, tt),
             "library": lambda: sdpa(qb, kb[:, :, :t + 1], vb[:, :, :t + 1],
                                     False)})
-        # flash_decode reads whole 256-key blocks up to t, the other all M
-        bk = decode_attention.BLOCK_K
-        keys_read = {"flash_decode": min(M, bk * (t // bk + 1)),
-                     "flash_decode_vmem": M}
+        # bound: the keys the function needs, the prefix 0..t, with q and o
         for name in scalar_t:
             record(name, dt_name, worst[name], ms[name], ms["plain"],
                    ms["library"],
-                   nbytes(qb, qb) + 2 * keys_read[name] * Bb * Hb * Dh
+                   nbytes(qb, qb) + 2 * (t + 1) * Bb * Hb * Dh
                    * kb.element_size(), 4 * Bb * Hb * (t + 1) * Dh,
                    extra=f"B {Bb}, H {Hb}, M {M}, err over t in {BENCH_T}, "
-                         f"timed at t {t}: reads {keys_read[name]} keys; "
-                         f"K3 at this shape {ms['flash_decode_sp']:.4f} ms")
+                         f"timed at t {t}; K3 at this shape "
+                         f"{ms['flash_decode_sp']:.4f} ms")
 
         # the three one-launch fold kernels: at the batched decode's shape
-        # (B 8, MHA, KVD 512; a uniform t and the ragged lengths), and at
-        # the engine's GQA-2 shape above (kvc, with its free slot)
+        # (B 8, MHA, KVD 512; a uniform t, the whole cache and the ragged
+        # lengths), and at the engine's GQA-2 shape above (kvc, with its
+        # free slot); timed at t 300 and 510 (bench) and at the ragged
+        # lengths (GQA-2). The cluster kernels run with the cluster size
+        # the card picks for the shape (decode_fold.cluster_size) and are
+        # checked and timed with the other size as well, which other shapes
+        # take. At a uniform t the library call reads the slice 0..t; the
+        # masked call over the whole cache is timed beside it
         whole = {"flash_decode_fold": ("after", decode_fold.flash_decode_fold),
                  "flash_decode_fold2": ("after",
                                         decode_fold.flash_decode_fold2),
@@ -650,8 +674,62 @@ def kernel_checks(torch, ckpt_params) -> dict:
         qfb = randn(Bb, 1, Hb * Dh, dt=dt)
         t_uni = torch.full((Bb,), BENCH_TIMED_T, dtype=torch.int32,
                            device=dev)
-        for tag, q_, kv_, ts in (("", qfb, kvb, (t_uni, tf)),
+        t_last = torch.full((Bb,), BENCH_LAST_T, dtype=torch.int32,
+                            device=dev)
+
+        def prefix(q_, kv_, t_):
+            """Bytes and flops of the keys 0..t[b] of every row, q and o."""
+            keys = int((t_.clamp(max=M - 1) + 1).sum().item())
+            return (nbytes(q_, q_, t_) + keys * kv_.shape[2]
+                    * kv_.element_size(), 4 * H * keys * Dh)
+
+        def cluster_sizes(tag, hkv, m):
+            """{kernel: (C the card picks, resident clusters of 8 and 16)}"""
+            out = {}
+            for name in CLUSTER_KERNELS:
+                occ = decode_fold.cluster_occupancy(H, hkv, m, Dh,
+                                                    whole[name][0], dt)
+                out[name] = (decode_fold.cluster_size(occ[1]), occ)
+                log(f"[cluster] {name}{tag} {dt_name} H {H} Hkv {hkv} M {m}: "
+                    f"resident clusters of 8 / 16 blocks {occ[0]} / "
+                    f"{occ[1]}: C {out[name][0]}")
+            return out
+
+        # a long cache, all of it valid, where a block's shared memory grows
+        # past what two blocks of an SM can hold: both cluster sizes
+        # checked and timed
+        ML = 4096
+        long_sizes = cluster_sizes("_long", Hb, ML)
+        # from a generator of its own, so that the inputs of the checks
+        # after it stay those of earlier runs
+        kvl = (torch.randn(Bb, ML, 2 * Hb * Dh,
+                           generator=torch.Generator().manual_seed(4096))
+               .to(dt).to(dev))
+        tl = torch.full((Bb,), ML - 1, dtype=torch.int32, device=dev)
+        fns = {}
+        for name in CLUSTER_KERNELS:
+            norm = whole[name][0]
+            want = decode_fold.decode_attention_pm_plain(qfb, kvl, tl, H,
+                                                         normalize=norm)
+            for C in (8, 16):
+                got = decode_fold._fold_cluster(name, norm, qfb, kvl, tl, H,
+                                                C=C)
+                torch.cuda.synchronize()
+                hold(name, dt_name, got, want,
+                     extra=f"with C {C} at M {ML}, t {ML - 1}")
+                fns[(name, C)] = lambda name=name, norm=norm, C=C: decode_fold\
+                    ._fold_cluster(name, norm, qfb, kvl, tl, H, C=C)
+        ms = time_cold_ms(torch, fns)
+        for name in CLUSTER_KERNELS:
+            log(f"[cluster] {name}_long {dt_name} M {ML}, t {ML - 1}: C 8 "
+                f"{ms[(name, 8)]:.4f} ms, C 16 {ms[(name, 16)]:.4f} ms; the "
+                f"card picks C {long_sizes[name][0]}")
+        del kvl
+        for tag, q_, kv_, ts in (("", qfb, kvb, (t_uni, t_last, tf)),
                                  ("_gqa", qf, kvc, (tf,))):
+            hkv = kv_.shape[2] // (2 * Dh)
+            picked = cluster_sizes(tag, hkv, M)
+            other = {name: 24 - c for name, (c, _) in picked.items()}
             worst = dict.fromkeys(whole, 0.0)
             for t_ in ts:
                 want32 = decode_fold.decode_attention_pm_plain(
@@ -678,62 +756,123 @@ def kernel_checks(torch, ckpt_params) -> dict:
                     torch.cuda.synchronize()
                     if not torch.isfinite(got.float()).all():
                         raise AssertionError(f"{name}{tag}: not finite")
+                    if tag and got[0].abs().max().item() != 0.0:
+                        raise AssertionError(f"{name}{tag}: a free slot (t 0 "
+                                             "over zeros) must give zeros")
                     worst[name] = max(worst[name], (
                         got.float() - want.float()).abs().max().item())
                     if dt is torch.bfloat16:
                         rel_f32(name, got, want32,
-                                where=f"{tag} at t {t_.tolist()}")
+                                where=f"{tag} at t {t_.tolist()}",
+                                tol=CLUSTER_REL_TOL
+                                if name in CLUSTER_KERNELS else REL_TOL_F32)
                     qkv = torch.cat([q_, randn(Bb, 1, 64, dt=dt)], dim=-1)
                     if not torch.equal(fn(qkv[..., :H * Dh], kv_, t_, H),
                                        got):
                         raise AssertionError(f"{name}{tag}: strided q "
                                              "differs")
-            # fold2 must not depend on rows
-            by_rows = {r: decode_fold.flash_decode_fold2(q_, kv_, ts[-1], H,
-                                                         rows=r)
-                       for r in (1, 2, 4, 8)}
-            spread = max((by_rows[r].float() - by_rows[4].float()).abs()
-                         .max().item() for r in by_rows)
-            bit_equal = all(torch.equal(by_rows[r], by_rows[4])
-                            for r in by_rows)
-            log(f"[check] flash_decode_fold2{tag} {dt_name} rows 1, 2, 4, 8:"
-                f" max spread {spread:.3e} (tol {ROWS_TOL:.0e}), bit-equal "
-                f"{bit_equal}")
-            if not spread <= ROWS_TOL:
-                raise AssertionError(f"flash_decode_fold2{tag}: depends on "
-                                     f"rows by {spread}")
-            t_ = ts[0]
-            keep_ = (torch.arange(M, device=dev)[None, :]
-                     <= t_[:, None])[:, None, None, :]
-            hkv = kv_.shape[2] // (2 * Dh)
-            kh_ = kv_[..., :hkv * Dh].reshape(Bb, M, hkv, Dh).transpose(
-                1, 2).contiguous()
-            vh_ = kv_[..., hkv * Dh:].reshape(Bb, M, hkv, Dh).transpose(
-                1, 2).contiguous()
-            qh_ = q_.reshape(Bb, H, 1, Dh)
-            ms = time_cold_ms(torch, {
-                **{name: (lambda fn=fn: fn(q_, kv_, t_, H))
-                   for name, (_, fn) in whole.items()},
-                "flash_decode_fold_sp": lambda: decode_fold
-                .flash_decode_fold_sp(q_, kv_, t_, H),
-                "flash_decode_fold3_sp": lambda: decode_fold
-                .flash_decode_fold3_sp(q_, kv_, t_, H),
-                "after": lambda: decode_fold.decode_attention_pm_plain(
-                    q_, kv_, t_, H, normalize="after"),
-                "before": lambda: decode_fold.decode_attention_pm_plain(
-                    q_, kv_, t_, H),
-                "library": lambda: F.scaled_dot_product_attention(
-                    qh_, kh_, vh_, attn_mask=keep_, enable_gqa=True)})
+                    if name in CLUSTER_KERNELS:
+                        alt = decode_fold._fold_cluster(
+                            name, norm, q_, kv_, t_, H, C=other[name])
+                        torch.cuda.synchronize()
+                        where = (f" with C {other[name]}{tag} at t "
+                                 f"{t_.tolist()}")
+                        hold(name + tag, dt_name, alt, want, extra=where)
+                        if dt is torch.bfloat16:
+                            rel_f32(name, alt, want32, where=where,
+                                    tol=CLUSTER_REL_TOL)
+                # fold2 must not depend on rows, to the bit
+                by_rows = {r: decode_fold.flash_decode_fold2(q_, kv_, t_, H,
+                                                             rows=r)
+                           for r in (1, 2, 4, 8)}
+                bit_equal = all(torch.equal(by_rows[r], by_rows[4])
+                                for r in by_rows)
+                log(f"[check] flash_decode_fold2{tag} {dt_name} rows 1, 2, "
+                    f"4, 8 at t {t_.tolist()}: bit-equal {bit_equal}")
+                if not bit_equal:
+                    raise AssertionError(f"flash_decode_fold2{tag}: depends "
+                                         "on rows")
+            timed = ((BENCH_TIMED_T, t_uni), (BENCH_LAST_T, t_last)) \
+                if not tag else (("rows", tf),)
+            fns = {}
+            for label, t_ in timed:
+                keep_ = (torch.arange(M, device=dev)[None, :]
+                         <= t_[:, None])[:, None, None, :]
+                kh_ = kv_[..., :hkv * Dh].reshape(Bb, M, hkv, Dh).transpose(
+                    1, 2).contiguous()
+                vh_ = kv_[..., hkv * Dh:].reshape(Bb, M, hkv, Dh).transpose(
+                    1, 2).contiguous()
+                qh_ = q_.reshape(Bb, H, 1, Dh)
+                fns.update({
+                    **{(name, label): (lambda fn=fn, t_=t_: fn(q_, kv_, t_, H))
+                       for name, (_, fn) in whole.items()},
+                    **{(name + "_other_C", label):
+                       (lambda name=name, norm=norm, t_=t_: decode_fold
+                        ._fold_cluster(name, norm, q_, kv_, t_, H,
+                                       C=other[name]))
+                       for name, (norm, _) in whole.items()
+                       if name in CLUSTER_KERNELS},
+                    ("flash_decode_fold_sp", label): lambda t_=t_: decode_fold
+                    .flash_decode_fold_sp(q_, kv_, t_, H),
+                    ("flash_decode_fold3_sp", label): lambda t_=t_: decode_fold
+                    .flash_decode_fold3_sp(q_, kv_, t_, H),
+                    ("after", label): lambda t_=t_: decode_fold
+                    .decode_attention_pm_plain(q_, kv_, t_, H,
+                                               normalize="after"),
+                    ("before", label): lambda t_=t_: decode_fold
+                    .decode_attention_pm_plain(q_, kv_, t_, H),
+                    ("masked", label): lambda k=kh_, v=vh_, m=keep_: F
+                    .scaled_dot_product_attention(qh_, k, v, attn_mask=m,
+                                                  enable_gqa=True)})
+                if label != "rows":
+                    fns[("sliced", label)] = \
+                        lambda k=kh_, v=vh_, n=label + 1: sdpa(
+                            qh_, k[:, :, :n], v[:, :, :n], False)
+            ms = time_cold_ms(torch, fns)
+            # the library yardstick: the sliced call where there is one
+            lib = "masked" if tag else "sliced"
+            main, t_ = timed[0]
             for name, (norm, _) in whole.items():
-                record(name + tag, dt_name, worst[name], ms[name], ms[norm],
-                       ms["library"], nbytes(q_, q_, t_, kv_),
-                       4 * Bb * H * M * Dh,
+                more = {"library_masked_ms": ms[("masked", main)]}
+                also = f"; library masked {more['library_masked_ms']:.4f} ms"
+                if not tag:
+                    b510 = bound_ms(*prefix(q_, kv_, t_last), dt_name)[0]
+                    more.update({
+                        "ms_t510": ms[(name, BENCH_LAST_T)],
+                        "bound_ms_t510": b510,
+                        "plain_ms_t510": ms[(norm, BENCH_LAST_T)],
+                        "library_ms_t510": ms[(lib, BENCH_LAST_T)],
+                        "library_masked_ms_t510": ms[("masked",
+                                                      BENCH_LAST_T)]})
+                    also += (f"; at t {BENCH_LAST_T}: {more['ms_t510']:.4f} "
+                             f"ms (bound {b510:.5f}, plain "
+                             f"{more['plain_ms_t510']:.4f}, library "
+                             f"{more['library_ms_t510']:.4f}, masked "
+                             f"{more['library_masked_ms_t510']:.4f})")
+                if name in CLUSTER_KERNELS:
+                    c, occ = picked[name]
+                    more.update({"C": c, "resident_clusters_8_16": occ,
+                                 "other_C": other[name],
+                                 "other_C_ms": ms[(name + "_other_C", main)]})
+                    also += (f"; C {c} (resident clusters of 8 / 16: "
+                             f"{occ[0]} / {occ[1]}), with C {other[name]}: "
+                             f"{more['other_C_ms']:.4f} ms")
+                    if not tag:
+                        more["other_C_ms_t510"] = ms[
+                            (name + "_other_C", BENCH_LAST_T)]
+                        also += f" (t {BENCH_LAST_T}: " \
+                                f"{more['other_C_ms_t510']:.4f})"
+                record(name + tag, dt_name, worst[name], ms[(name, main)],
+                       ms[(norm, main)], ms[(lib, main)],
+                       *prefix(q_, kv_, t_),
                        extra=f"q {tuple(q_.shape)}, kv {tuple(kv_.shape)}, "
                              f"err over t in {[x.tolist() for x in ts]}, "
                              f"timed at t {t_.tolist()}; the split kernels "
                              f"here: fold_sp "
-                             f"{ms['flash_decode_fold_sp']:.4f} ms, fold3_sp "
-                             f"{ms['flash_decode_fold3_sp']:.4f} ms")
+                             f"{ms[('flash_decode_fold_sp', main)]:.4f} ms, "
+                             f"fold3_sp "
+                             f"{ms[('flash_decode_fold3_sp', main)]:.4f} ms"
+                             + also, more=more)
 
     # a cache too long for a block's shared memory is refused by the
     # launcher, by name, and nothing is computed
@@ -766,8 +905,11 @@ def bit_identity(torch, ckpt_params) -> dict:
     q = torch.randn(B, 1, D, generator=g).to(dt).to(dev)
     t = torch.tensor(FOLD_T, dtype=torch.int32, device=dev)
     out = {}
-    for name in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
+    folds = ("flash_decode_fold_sp", "flash_decode_fold3_sp", *CLUSTER_KERNELS)
+    for name in folds:
         fn = getattr(decode_fold, name)
+        if name == "flash_decode_fold2":   # one row alone: rows 1
+            fn = functools.partial(fn, rows=1)
         full = fn(q, kv, t, H)
         same = all(torch.equal(fn(q[b:b + 1], kv[b:b + 1], t[b:b + 1], H)[0],
                                full[b]) for b in range(B))
@@ -788,8 +930,7 @@ def bit_identity(torch, ckpt_params) -> dict:
     torch.cuda.synchronize()
     log(f"[bit-identity] bf16, a row alone against the row inside a batch "
         f"of {B}: {out}")
-    for name in ("flash_decode_fold_sp", "flash_decode_fold3_sp",
-                 "fused_ffn"):
+    for name in (*folds, "fused_ffn"):
         if not out[name]:
             raise AssertionError(f"{name}: a row's bits depend on the batch")
     return out
@@ -981,8 +1122,8 @@ def _trace(torch, tag: str, work) -> dict:
                                "kth_value_kernel", "fold_partial",
                                "fold_combine", "stream_partial",
                                "stream_final", "decode_blocks",
-                               "decode_whole", "fold_whole", "fold2_rows",
-                               "fold3_whole"),
+                               "decode_whole", "fold_whole",
+                               "fold_cluster"),
               "gemm": ("gemm", "xmma", "cutlass", "cublas", "nvjet")}
     by_group = {g: 0.0 for g in (*groups, "other")}
     for key, ms, _ in rows:
@@ -1267,13 +1408,15 @@ def batch_decode(torch) -> dict:
     bench.run_once(params, cfg, prompt, 0, 32, "sp")      # warm the library
     torch.cuda.synchronize()
     total: dict = {}
+    n_tok = (max_len - len(bench.PROMPT)) * prompt.shape[0]
+    rates = {}
     for impl in gpt.ATTN_IMPLS:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         buf, pos = bench.run_once(params, cfg, prompt, 1, max_len, impl)
         secs = time.perf_counter() - t0
         counts = _build.launch_counts()
-        n_tok = (max_len - len(bench.PROMPT)) * prompt.shape[0]
+        rates[impl] = [n_tok / secs]
         log(f"[batch] attn_impl {impl}: {n_tok} tokens in {secs:.2f} s, "
             f"{n_tok / secs:.1f} tokens/s, {secs / steps * 1e3:.3f} ms per "
             f"step; launches {counts}")
@@ -1294,6 +1437,19 @@ def batch_decode(torch) -> dict:
                                  f"{want}")
         for name, n in counts.items():
             total[name] = total.get(name, 0) + n
+    # fold2 steps at the host's pace, as sp does: the best of three
+    # generations each, the two more taken in turns (sp, fold2, fold2, sp)
+    for impl in ("sp", "fold2", "fold2", "sp"):
+        t0 = time.perf_counter()
+        bench.run_once(params, cfg, prompt, 1, max_len, impl)
+        rates[impl].append(n_tok / (time.perf_counter() - t0))
+    ratio = max(rates["fold2"]) / max(rates["sp"])
+    log(f"[batch] tokens/s, three generations each: sp "
+        f"{[round(r, 1) for r in rates['sp']]}, fold2 "
+        f"{[round(r, 1) for r in rates['fold2']]}: fold2 / sp {ratio:.3f} "
+        f"(at least {FOLD2_RATE_MIN})")
+    if not ratio >= FOLD2_RATE_MIN:
+        raise AssertionError(f"batch fold2: {ratio:.3f} of sp's rate")
     # one more generation of the default attn_impl under torch.profiler
     _trace(torch, "batch", lambda: (max_len - len(bench.PROMPT))
            * bench.run_once(params, cfg, prompt, 2, max_len,

@@ -42,36 +42,59 @@
 // so a row's output has the same bits alone and inside any batch.
 // Statistics and accumulators are f32; only the output is rounded.
 //
-// Three more kernels, one launch each, read the WHOLE cache whatever t is
-// (the uniform batched decode selects them by name):
-//   flash_decode_fold  replaces ::flash_decode_fold  (_fold_kernel),
-//   flash_decode_fold2 replaces ::flash_decode_fold2 (_fold2_kernel),
-//   flash_decode_fold3 replaces ::flash_decode_fold3 (_fold3_kernel).
-// What bounds them: 2 * M * KVD elements per row, always (8.4 MB at batch 8,
-// M 511, KVD 512 in bf16), against 4 * H * M * Dh flops: bound by bytes.
-// Design: a group of threads takes one batch row with all its heads. Warps
-// walk the (key, KV head) pairs with their lanes along Dh, so a key's row is
-// read as coalesced segments, and leave the scores of all H heads and M keys
-// in shared memory (4 * H * M bytes). The softmax runs over them in place,
-// and p.v reads the values straight from device memory, consecutive threads
-// on consecutive features, a fixed share of the keys per thread, the shares
-// summed in a fixed order. What keeps the three apart is what keeps the TPU
-// kernels apart:
-//   fold:  scores lie [M][H] (keys major). A head's max and sum are taken by
-//     the threads whose index is that head modulo H, each over a stripe of
-//     keys, and merged in stripe order. p is rounded to the cache dtype
-//     UNNORMALISED; the sum divides after p.v. One block of 1024 threads per
-//     row: B blocks on 132 SMs.
-//   fold2: fold's arithmetic with `rows` batch rows per block, grid
-//     B / rows. Every row has its own 128 threads and its own slice of shared
-//     memory whatever `rows` is, and no sum crosses rows, so the result is
-//     bit-equal for every `rows` (the TPU kernel masks cross-row terms off a
-//     joint matrix product and is only close). At rows 4, batch 8, two
-//     blocks run: the card is nearly empty. That is this kernel.
-//   fold3: scores lie [H][M] (heads major). A warp takes a head with its
-//     lanes along the keys, as the TPU's lane-major softmax, and p is divided
-//     by the sum BEFORE it is rounded to the cache dtype and multiplied with
-//     the values: in bf16 it rounds at another place than fold.
+// Three more kernels, one launch each, for the uniform batched decode,
+// which selects them by name. What bounds them: the bytes of the prefix
+// 0..t of each row, 2 * (t + 1) * KVD elements (4.9 MB at batch 8, t 300,
+// KVD 512 in bf16), against 4 * H * (t + 1) * Dh flops, about one flop a
+// byte at MHA: bound by bytes, far below where tensor cores would matter.
+//   flash_decode_fold replaces ::flash_decode_fold (_fold_kernel): one block
+//     of 1024 threads per batch row reads the WHOLE cache. Warps walk the
+//     (key, KV head) pairs with their lanes along Dh and leave the scores of
+//     all H heads and M keys in shared memory, [M][H] (keys major); a head's
+//     max and sum are taken by the threads whose index is that head modulo
+//     H, each over a stripe of keys, merged in stripe order. p is rounded to
+//     the cache dtype UNNORMALISED, the f32 sum divides after p.v, which
+//     reads the values straight from device memory. B blocks on 132 SMs.
+//   flash_decode_fold2 replaces ::flash_decode_fold2 (_fold2_kernel) and
+//   flash_decode_fold3 replaces ::flash_decode_fold3 (_fold3_kernel): one
+//     cluster kernel (fold_cluster_kernel). fold2 rounds p as fold does;
+//     fold3 divides p by the sum BEFORE it rounds p to the cache dtype, as
+//     its TPU kernel does, so in bf16 the two round at other places.
+// The cluster design puts many SMs and many bytes in flight on each row:
+//   - a cluster of C blocks per batch row (B * C blocks: 128 at batch 8 and
+//     C 16, where a block per row gave 8 on 132 SMs). C is 16 (a
+//     non-portable size) wherever the card can place a cluster of 16
+//     blocks of the shape, else 8: the wrapper asks
+//     eamg_fold_cluster_occupancy (ops/decode_fold.py::cluster_size).
+//     Block rank r takes the keys [lo[r], hi[r]) that the wrapper passes in
+//     (ops/decode_fold.py::whole_plan), which depend on M and C alone. It
+//     skips its keys past t[b], which add exactly 0, so the bytes read
+//     scale with t; a block with no key left still joins every cluster
+//     barrier, with max -inf, sum 0 and partials 0;
+//   - the block's keys are one contiguous slab of the position-major row, K
+//     and V together. It is staged in shared memory in chunks by 16-byte
+//     cp.async copies of every thread, all in flight at once where the slab
+//     fits (then p.v reads V from there too), else in a ring of slots with V
+//     read again from device memory;
+//   - a score: the lanes of a (key, KV head) row load 16 bytes each (8 lanes
+//     at Dh 64 in bf16, so a warp scores 4 rows a load) and sum in a shuffle
+//     tree within the row's lanes, for all g query heads of the KV head;
+//   - the softmax across the cluster: each block's per-head max is read by
+//     every block through distributed shared memory in rank order, so all
+//     hold the same global max; fold3 exchanges the sums the same way before
+//     it rounds p; each block accumulates its f32 partial [H, Dh] with lanes
+//     along Dh, and block r sums the C partials of its share D / C of the
+//     outputs in rank order (fold2 divides by the C sums in rank order) and
+//     rounds once.
+// Every order depends on the rank and the key position alone, never on B,
+// on `rows` or on another row, so flash_decode_fold2 is bit-equal for every
+// `rows` and a row gets the same bits alone and inside a batch.
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <mutex>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -347,32 +370,32 @@ int launch(const Args& a, int Dh, int variant) {
   }
 }
 
-// ------------------------- one launch over the whole cache: fold, fold2, fold3
+// ------------------------------- flash_decode_fold: a block per batch row
 
-constexpr int NT_ROW = 1024;  // threads on a batch row: fold, fold3
-constexpr int TPR = 128;      // threads on each batch row: fold2
+constexpr int NT_ROW = 1024;  // threads on a batch row
 
-// shared floats a batch row needs when n threads work on it
-__host__ __device__ inline size_t row_floats(int H, int M, int Dh, int n) {
+// shared floats of a batch row
+__host__ __device__ inline size_t row_floats(int H, int M, int Dh) {
   const int D = H * Dh;
-  return (size_t)D + (size_t)H * M + (size_t)(n > D ? n : D) + 2 * H;
+  return (size_t)D + (size_t)H * M + (size_t)(NT_ROW > D ? NT_ROW : D) +
+         2 * H;
 }
 
 // One batch row: q row qp [H * DH], cache row kvp [M, 2 * KVD], output op
-// [H * DH], newest valid position tb (already clamped to M - 1), by the n
-// threads tid = 0..n-1 of one group, on the group's shared slice sm. Every
-// group of a block runs this in step: the barriers are the block's, and all
-// loops that hold one are bounded by M and H alone.
-template <typename T, int DH, bool HEADS_MAJOR>
+// [H * DH], newest valid position tb (already clamped to M - 1), by the
+// NT_ROW threads of the block, on its shared memory sm.
+template <typename T, int DH>
 __device__ __forceinline__ void fold_row(const T* __restrict__ qp,
                                          const T* __restrict__ kvp,
                                          T* __restrict__ op, int tb, int H,
                                          int Hkv, int M, float scale,
-                                         float* sm, int tid, int n) {
+                                         float* sm) {
   constexpr int EPL = DH / 32;  // elements of Dh per lane
+  constexpr int n = NT_ROW;
+  const int tid = threadIdx.x;
   const int g = H / Hkv, KVD = Hkv * DH, D = H * DH;
   float* qs = sm;                        // [D]
-  float* sc = qs + D;                    // [M][H] or [H][M]
+  float* sc = qs + D;                    // [M][H]
   float* red = sc + (size_t)H * M;       // [max(n, D)]
   float* stat = red + (n > D ? n : D);   // max [H], sum [H]
   const int warp = tid / 32, lane = tid % 32, nw = n / 32;
@@ -394,78 +417,55 @@ __device__ __forceinline__ void fold_row(const T* __restrict__ qp,
 #pragma unroll
       for (int i = 0; i < EPL; ++i) a += qs[h * DH + lane + 32 * i] * kf[i];
       a = warp_sum(a);
-      if (lane == 0)
-        sc[HEADS_MAJOR ? (size_t)h * M + j : (size_t)j * H + h] =
-            j <= tb ? a * scale : -INFINITY;
+      if (lane == 0) sc[(size_t)j * H + h] = j <= tb ? a * scale : -INFINITY;
     }
   }
   __syncthreads();
 
-  if (HEADS_MAJOR) {
-    // a warp per head, lanes along the keys; p normalised, then rounded
-    for (int h = warp; h < H; h += nw) {
-      float* row = sc + (size_t)h * M;
-      float mx = -INFINITY;
-      for (int j = lane; j < M; j += 32) mx = fmaxf(mx, row[j]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int j = lane; j < M; j += 32) {
-        const float p = j <= tb ? expf(row[j] - mx) : 0.f;
-        row[j] = p;
-        sum += p;
-      }
-      const float l = fmaxf(warp_sum(sum), 1e-30f);
-      for (int j = lane; j < M; j += 32) row[j] = round_to<T>(row[j] / l);
-    }
-    __syncthreads();
-  } else {
-    // thread tid serves head tid % H over the keys tid / H, + n / H, ...
-    const int h = tid % H, stripe = tid / H, ns = n / H;
-    float mx = -INFINITY;
-    for (int j = stripe; j < M; j += ns) mx = fmaxf(mx, sc[(size_t)j * H + h]);
-    red[tid] = mx;
-    __syncthreads();
-    if (tid < H) {
-      float r = red[tid];
-      for (int s = 1; s < ns; ++s) r = fmaxf(r, red[s * H + tid]);
-      stat[tid] = r;
-    }
-    __syncthreads();
-    mx = stat[h];
-    float sum = 0.f;
-    for (int j = stripe; j < M; j += ns) {
-      const float p = j <= tb ? expf(sc[(size_t)j * H + h] - mx) : 0.f;
-      sc[(size_t)j * H + h] = round_to<T>(p);   // unnormalised
-      sum += p;
-    }
-    red[tid] = sum;
-    __syncthreads();
-    if (tid < H) {
-      float r = 0.f;
-      for (int s = 0; s < ns; ++s) r += red[s * H + tid];
-      stat[H + tid] = r;
-    }
-    __syncthreads();
+  // thread tid serves head tid % H over the keys tid / H, + n / H, ...
+  const int h = tid % H, stripe = tid / H, ns = n / H;
+  float mx = -INFINITY;
+  for (int j = stripe; j < M; j += ns) mx = fmaxf(mx, sc[(size_t)j * H + h]);
+  red[tid] = mx;
+  __syncthreads();
+  if (tid < H) {
+    float r = red[tid];
+    for (int s = 1; s < ns; ++s) r = fmaxf(r, red[s * H + tid]);
+    stat[tid] = r;
   }
+  __syncthreads();
+  mx = stat[h];
+  float sum = 0.f;
+  for (int j = stripe; j < M; j += ns) {
+    const float p = j <= tb ? expf(sc[(size_t)j * H + h] - mx) : 0.f;
+    sc[(size_t)j * H + h] = round_to<T>(p);   // unnormalised
+    sum += p;
+  }
+  red[tid] = sum;
+  __syncthreads();
+  if (tid < H) {
+    float r = 0.f;
+    for (int s = 0; s < ns; ++s) r += red[s * H + tid];
+    stat[H + tid] = r;
+  }
+  __syncthreads();
 
   // p.v: G shares of the keys for each of the D outputs
   const int G = n > D ? n / D : 1;
   for (int e = tid; e < G * D; e += n) {
-    const int grp = e / D, c = e % D, h = c / DH;
-    const T* vp = kvp + KVD + (h / g) * DH + c % DH;
+    const int grp = e / D, c = e % D, hh = c / DH;
+    const T* vp = kvp + KVD + (hh / g) * DH + c % DH;
     float a = 0.f;
 #pragma unroll 8
     for (int j = grp; j < M; j += G)
-      a += sc[HEADS_MAJOR ? (size_t)h * M + j : (size_t)j * H + h] *
-           to_f32(vp[(size_t)j * 2 * KVD]);
+      a += sc[(size_t)j * H + hh] * to_f32(vp[(size_t)j * 2 * KVD]);
     red[e] = a;
   }
   __syncthreads();
   for (int c = tid; c < D; c += n) {
     float a = 0.f;
     for (int gi = 0; gi < G; ++gi) a += red[gi * D + c];
-    if (!HEADS_MAJOR) a /= fmaxf(stat[H + c / DH], 1e-30f);
-    op[c] = from_f32<T>(a);
+    op[c] = from_f32<T>(a / fmaxf(stat[H + c / DH], 1e-30f));
   }
 }
 
@@ -476,80 +476,446 @@ fold_whole_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                   int Hkv, int M, int q_stride, float scale) {
   extern __shared__ float sm[];
   const int b = blockIdx.x;
-  fold_row<T, DH, false>(q + (size_t)b * q_stride,
-                         kv + (size_t)b * M * 2 * Hkv * DH,
-                         o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M,
-                         scale, sm, threadIdx.x, NT_ROW);
+  fold_row<T, DH>(q + (size_t)b * q_stride, kv + (size_t)b * M * 2 * Hkv * DH,
+                  o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M, scale,
+                  sm);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(1024)
-fold2_rows_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                  const int* __restrict__ t, T* __restrict__ o, int H,
-                  int Hkv, int M, int q_stride, float scale, int rows) {
-  extern __shared__ float sm[];
-  const int r = threadIdx.x / TPR;
-  const int b = blockIdx.x * rows + r;
-  fold_row<T, DH, false>(q + (size_t)b * q_stride,
-                         kv + (size_t)b * M * 2 * Hkv * DH,
-                         o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M,
-                         scale, sm + r * row_floats(H, M, DH, TPR),
-                         threadIdx.x % TPR, TPR);
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT_ROW)
-fold3_whole_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                   const int* __restrict__ t, T* __restrict__ o, int H,
-                   int Hkv, int M, int q_stride, float scale) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x;
-  fold_row<T, DH, true>(q + (size_t)b * q_stride,
-                        kv + (size_t)b * M * 2 * Hkv * DH,
-                        o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M,
-                        scale, sm, threadIdx.x, NT_ROW);
-}
-
-template <typename T, int DH>
-int launch_whole_dh(const Args& a, int mode, int rows) {
-  const T* q = (const T*)a.q;
-  const T* kv = (const T*)a.kv;
-  T* o = (T*)a.o;
-  if (mode == 1) {
-    if (rows <= 0 || a.B % rows != 0 || rows * TPR > 1024 || TPR % a.H != 0)
-      return (int)cudaErrorInvalidValue;
-    const size_t smem =
-        sizeof(float) * rows * row_floats(a.H, a.M, DH, TPR);
-    const cudaError_t e = allow_smem(fold2_rows_kernel<T, DH>, smem);
-    if (e != cudaSuccess) return (int)e;
-    fold2_rows_kernel<T, DH><<<a.B / rows, rows * TPR, smem, a.stream>>>(
-        q, kv, a.t, o, a.H, a.Hkv, a.M, a.q_stride, a.scale, rows);
-    return (int)cudaGetLastError();
-  }
+int launch_whole_dh(const Args& a) {
   if (NT_ROW % a.H != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * row_floats(a.H, a.M, DH, NT_ROW);
-  if (mode == 0) {
-    const cudaError_t e = allow_smem(fold_whole_kernel<T, DH>, smem);
-    if (e != cudaSuccess) return (int)e;
-    fold_whole_kernel<T, DH><<<a.B, NT_ROW, smem, a.stream>>>(
-        q, kv, a.t, o, a.H, a.Hkv, a.M, a.q_stride, a.scale);
-  } else {
-    const cudaError_t e = allow_smem(fold3_whole_kernel<T, DH>, smem);
-    if (e != cudaSuccess) return (int)e;
-    fold3_whole_kernel<T, DH><<<a.B, NT_ROW, smem, a.stream>>>(
-        q, kv, a.t, o, a.H, a.Hkv, a.M, a.q_stride, a.scale);
-  }
+  const size_t smem = sizeof(float) * row_floats(a.H, a.M, DH);
+  const cudaError_t e = allow_smem(fold_whole_kernel<T, DH>, smem);
+  if (e != cudaSuccess) return (int)e;
+  fold_whole_kernel<T, DH><<<a.B, NT_ROW, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.kv, a.t, (T*)a.o, a.H, a.Hkv, a.M,
+      a.q_stride, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_whole(const Args& a, int Dh, int mode, int rows) {
+int launch_whole(const Args& a, int Dh) {
   switch (Dh) {
-    case 32: return launch_whole_dh<T, 32>(a, mode, rows);
-    case 64: return launch_whole_dh<T, 64>(a, mode, rows);
-    case 128: return launch_whole_dh<T, 128>(a, mode, rows);
+    case 32: return launch_whole_dh<T, 32>(a);
+    case 64: return launch_whole_dh<T, 64>(a);
+    case 128: return launch_whole_dh<T, 128>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// ------------- flash_decode_fold2 and _fold3: a cluster of blocks per row
+
+constexpr int NT_CL = 256;             // threads of a cluster's block
+constexpr int NW_CL = NT_CL / 32;
+// blocks in a batch row's cluster, at most: 16 is the most a cluster may
+// hold on sm_90 (non-portable). Reads of the C blocks' shared memory are
+// unrolled to this count, so a thread issues all of them at once.
+constexpr int CL_MAX = 16;
+constexpr size_t CHUNK_BYTES = 16384;  // a staged chunk of keys, at most
+// the staging slots of a block, at most: at the batched decode's shape the
+// rest of its shared memory is small enough that two blocks fit on an SM.
+// A shape whose block needs more fits one; the cluster size follows what
+// the card reports (eamg_fold_cluster_occupancy).
+constexpr size_t SLOT_BUDGET = 96 * 1024;
+
+// The key range [lo[r], hi[r]) of block rank r (ops/decode_fold.py::
+// whole_plan), passed by value.
+struct KeyRanges {
+  int lo[CL_MAX], hi[CL_MAX];
+};
+
+// Byte offsets into a cluster block's shared memory; the launcher and the
+// kernel compute them from the same arguments.
+struct ClusterSmem {
+  size_t slots, qs, sc, red, part, stat, total;
+  __host__ __device__ ClusterSmem(int D, int H, int R, int KG,
+                                  size_t slot_bytes, int nslot) {
+    size_t off = 0;
+    slots = off;
+    off += (size_t)nslot * slot_bytes;  // [nslot][NK keys][2 * KVD] of T
+    qs = off;
+    off += sizeof(float) * D;           // q row, f32
+    sc = off;
+    off += sizeof(float) * H * R;       // [H][R] scores, then p
+    red = off;
+    off += sizeof(float) * KG * D;      // p.v of each key group
+    part = off;
+    off += sizeof(float) * D;           // the block's f32 partial [H, Dh]
+    stat = off;
+    off += sizeof(float) * 4 * H;       // block max, block sum, global
+    total = off;                        // max, global sum [H] each
+  }
+};
+
+// 16 bytes of T at p (16-byte aligned, shared or device memory) as floats
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// staging by every thread: 16-byte asynchronous copies, one group per chunk
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// wait until at most n of this thread's groups are in flight (7 if more)
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// The max and the sum over the C blocks of a cluster of the float at p in
+// each block's shared memory, in rank order. All CL_MAX reads are issued,
+// unconditionally, before any is used: read k goes to rank k % C (C a power
+// of two), and only the first C enter the sum (a repeat leaves the max as
+// it is).
+__device__ __forceinline__ float cluster_max(
+    cooperative_groups::cluster_group& cluster, float* p, int C) {
+  float v[CL_MAX];
+#pragma unroll
+  for (int k = 0; k < CL_MAX; ++k)
+    v[k] = *cluster.map_shared_rank(p, k & (C - 1));
+  float m = v[0];
+#pragma unroll
+  for (int k = 1; k < CL_MAX; ++k) m = fmaxf(m, v[k]);
+  return m;
+}
+__device__ __forceinline__ float cluster_sum(
+    cooperative_groups::cluster_group& cluster, float* p, int C) {
+  float v[CL_MAX];
+#pragma unroll
+  for (int k = 0; k < CL_MAX; ++k)
+    v[k] = *cluster.map_shared_rank(p, k & (C - 1));
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < CL_MAX; ++k) s += k < C ? v[k] : 0.f;   // + 0: the same
+  return s;
+}
+
+// Grid (C, B), clusters of (C, 1, 1): block rank r of batch row b takes the
+// keys [kr.lo[r], kr.hi[r]), R of them at most; NK keys a staged chunk,
+// nslot chunk slots. BEFORE: fold3's rounding (p / sum rounded), else
+// fold2's.
+template <typename T, int DH, bool BEFORE>
+__global__ void __launch_bounds__(NT_CL)
+fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+                    const int* __restrict__ t, T* __restrict__ o, int H,
+                    int Hkv, int M, int q_stride, float scale,
+                    const KeyRanges kr, int R, int NK, int nslot) {
+  namespace cg = cooperative_groups;
+  constexpr int VE = 16 / sizeof(T);  // elements in 16 bytes
+  constexpr int LPR = DH / VE;        // lanes on a (key, KV head) row
+  constexpr int RPW = 32 / LPR;       // such rows a warp loads at once
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank(), b = blockIdx.y;
+  const int C = (int)cluster.num_blocks();
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = H / Hkv, KVD = Hkv * DH, D = H * DH, RW = 2 * KVD;
+  const int KG = max(1, NT_CL / (D / VE));  // key groups of p.v
+  const ClusterSmem L(D, H, R, KG, (size_t)NK * RW * sizeof(T), nslot);
+  T* slot = reinterpret_cast<T*>(smem + L.slots);
+  float* qs = reinterpret_cast<float*>(smem + L.qs);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* part = reinterpret_cast<float*>(smem + L.part);
+  float* bm = reinterpret_cast<float*>(smem + L.stat);  // block max [H]
+  float* bs = bm + H;                                   // block sum [H]
+  float* gm = bs + H;                                   // global max [H]
+  float* gs = gm + H;                                   // global sum [H]
+
+  // this block's valid keys: [s0, s0 + n), n = 0 past t[b]
+  const int tb = min(t[b], M - 1);
+  // kr.lo[r] and kr.hi[r], read at constant indices: indexed by r itself,
+  // the kernel took about 1 us longer on an H100
+  int s0 = 0, s1 = 0;
+#pragma unroll
+  for (int k = 0; k < CL_MAX; ++k) {
+    if (k == r) {
+      s0 = kr.lo[k];
+      s1 = kr.hi[k];
+    }
+  }
+  const int n = max(0, min(s1, tb + 1) - s0);
+  const int nch = (n + NK - 1) / NK;
+  const bool resident = nch <= nslot;   // the whole slab stays in place
+  const T* src = kv + ((size_t)b * M + s0) * RW;
+
+  const T* qp = q + (size_t)b * q_stride;
+  for (int e = tid; e < D; e += NT_CL) qs[e] = to_f32(qp[e]);
+  __syncthreads();
+
+  // chunk c: keys [c * NK, min(n, (c + 1) * NK)) into slot c % nslot
+  auto issue = [&](int c) {
+    const uint32_t bytes =
+        (uint32_t)(min(NK, n - c * NK) * RW * (int)sizeof(T));
+    char* dst = reinterpret_cast<char*>(slot + (size_t)(c % nslot) * NK * RW);
+    const char* from = reinterpret_cast<const char*>(src + (size_t)c * NK * RW);
+    for (uint32_t p = tid; p < bytes / 16; p += NT_CL)
+      cp_async16(dst + 16 * p, from + 16 * p);
+    cp_async_commit();
+  };
+  int issued = 0;
+  for (; issued < min(nch, nslot); ++issued) issue(issued);
+
+  // scores: the RPW rows of a warp load lie on lanes [LPR * i, LPR * (i+1))
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait_pending(issued - c - 1);
+    __syncthreads();
+    const T* ks = slot + (size_t)(c % nslot) * NK * RW;
+    const int pairs = min(NK, n - c * NK) * Hkv;
+    const int sub = lane % LPR;
+    for (int base = warp * RPW; base < pairs; base += NW_CL * RPW) {
+      const int it = base + lane / LPR;
+      const bool ok = it < pairs;
+      const int jj = ok ? it / Hkv : 0, hk = ok ? it % Hkv : 0;
+      float kf[VE];
+      load16(ks + (size_t)jj * RW + hk * DH + sub * VE, kf);
+      for (int gi = 0; gi < g; ++gi) {
+        const int h = hk * g + gi;
+        const float* qh = qs + h * DH + sub * VE;
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < VE; ++e) a += qh[e] * kf[e];
+#pragma unroll
+        for (int w = LPR / 2; w > 0; w >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, w);
+        if (ok && sub == 0) sc[(size_t)h * R + c * NK + jj] = a * scale;
+      }
+    }
+    __syncthreads();   // slot c % nslot is free again
+    if (issued < nch) issue(issued++);
+  }
+
+  // the global max of each head, the same in every block of the cluster
+  for (int h = warp; h < H; h += NW_CL) {
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sc[(size_t)h * R + j]);
+    mx = warp_max(mx);
+    if (lane == 0) bm[h] = mx;
+  }
+  cluster.sync();
+  for (int h = tid; h < H; h += NT_CL)
+    gm[h] = cluster_max(cluster, bm + h, C);
+  __syncthreads();
+
+  // p = exp(s - max): rounded now (fold2), or after the global sum (fold3)
+  for (int h = warp; h < H; h += NW_CL) {
+    const float mx = gm[h];
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float p = expf(sc[(size_t)h * R + j] - mx);
+      sc[(size_t)h * R + j] = BEFORE ? p : round_to<T>(p);
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) bs[h] = sum;
+  }
+  if (BEFORE) {
+    cluster.sync();
+    for (int h = tid; h < H; h += NT_CL)
+      gs[h] = fmaxf(cluster_sum(cluster, bs + h, C), 1e-30f);
+    __syncthreads();
+    for (int e = tid; e < H * n; e += NT_CL) {
+      const int h = e / n, j = e % n;
+      sc[(size_t)h * R + j] = round_to<T>(sc[(size_t)h * R + j] / gs[h]);
+    }
+  }
+  __syncthreads();
+
+  // the block's partial [H, Dh]: KG groups of keys, VE outputs a thread,
+  // V from the resident slab or again from device memory
+  const int NV = D / VE;
+  const T* vbase = (resident ? slot : src) + KVD;
+  for (int e = tid; e < KG * NV; e += NT_CL) {
+    const int grp = e / NV, c0 = (e % NV) * VE, h = c0 / DH;
+    const T* vp = vbase + (h / g) * DH + c0 % DH;
+    const float* ph = sc + (size_t)h * R;
+    float acc[VE];
+#pragma unroll
+    for (int i = 0; i < VE; ++i) acc[i] = 0.f;
+    for (int j = grp; j < n; j += KG) {
+      float vf[VE];
+      load16(vp + (size_t)j * RW, vf);
+      const float p = ph[j];
+#pragma unroll
+      for (int i = 0; i < VE; ++i) acc[i] += p * vf[i];
+    }
+#pragma unroll
+    for (int i = 0; i < VE; ++i) red[(size_t)grp * D + c0 + i] = acc[i];
+  }
+  __syncthreads();
+  for (int c = tid; c < D; c += NT_CL) {
+    float a = 0.f;
+    for (int k = 0; k < KG; ++k) a += red[(size_t)k * D + c];
+    part[c] = a;
+  }
+  cluster.sync();
+
+  // block r: its share of the outputs, the C partials summed in rank order
+  const int per = (D + C - 1) / C;
+  const int c_end = min(D, (r + 1) * per);
+  for (int c = r * per + tid; c < c_end; c += NT_CL) {
+    float a = cluster_sum(cluster, part + c, C);
+    if (!BEFORE) a /= fmaxf(cluster_sum(cluster, bs + c / DH, C), 1e-30f);
+    o[(size_t)b * D + c] = from_f32<T>(a);
+  }
+  cluster.sync();   // no block leaves while another reads its memory
+}
+
+// How a cluster block of the kernel stages R keys: NK keys a chunk, nslot
+// slots, and its shared memory in bytes.
+struct ClusterShape {
+  int NK, nslot;
+  size_t smem;
+};
+
+template <typename T, int DH>
+ClusterShape cluster_shape(int H, int Hkv, int R) {
+  constexpr int VE = 16 / sizeof(T);
+  const int D = H * DH;
+  const size_t row_bytes = (size_t)2 * Hkv * DH * sizeof(T);
+  const int NK = std::max(1, std::min(R, (int)(CHUNK_BYTES / row_bytes)));
+  const int nch = (R + NK - 1) / NK;
+  const int nslot = std::min(
+      nch, std::max(2, (int)(SLOT_BUDGET / ((size_t)NK * row_bytes))));
+  const int KG = std::max(1, NT_CL / (D / VE));
+  return {NK, nslot,
+          ClusterSmem(D, H, R, KG, (size_t)NK * row_bytes, nslot).total};
+}
+
+// Lets the kernel take `bytes` of shared memory and clusters of 16 blocks,
+// once per device and per larger size: a steady launch makes no CUDA call
+// but the launch itself. Host threads may launch at once.
+template <typename T, int DH, bool BEFORE>
+cudaError_t prepare_cluster(size_t bytes) {
+  constexpr int MAX_DEV = 64;
+  static std::mutex mu;
+  static size_t allowed[MAX_DEV] = {};   // 0: nothing set on the device yet
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEV) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (allowed[dev] >= bytes) return cudaSuccess;
+  auto kern = fold_cluster_kernel<T, DH, BEFORE>;
+  if (allowed[dev] == 0) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  e = allow_smem(kern, bytes);
+  if (e != cudaSuccess) return e;
+  allowed[dev] = bytes;
+  return cudaSuccess;
+}
+
+// B rows of C blocks, clusters of C; attr is where the cluster size lives
+cudaLaunchConfig_t cluster_config(int C, int B, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, B, 1);
+  cfg.blockDim = dim3(NT_CL, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, int DH, bool BEFORE>
+int launch_cluster_k(const Args& a, const KeyRanges& kr, int C, int R) {
+  const ClusterShape s = cluster_shape<T, DH>(a.H, a.Hkv, R);
+  cudaError_t e = prepare_cluster<T, DH, BEFORE>(s.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(C, a.B, s.smem, a.stream,
+                                                &attr);
+  e = cudaLaunchKernelEx(&cfg, fold_cluster_kernel<T, DH, BEFORE>,
+                         (const T*)a.q, (const T*)a.kv, a.t, (T*)a.o, a.H,
+                         a.Hkv, a.M, a.q_stride, a.scale, kr, R, s.NK,
+                         s.nslot);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of C blocks, R keys a block, the card keeps resident at
+// once (0 where a block's shared memory would exceed what it allows).
+template <typename T, int DH, bool BEFORE>
+int occupancy_k(int H, int Hkv, int C, int R, int* active) {
+  const ClusterShape s = cluster_shape<T, DH>(H, Hkv, R);
+  *active = 0;
+  if (s.smem > EAMG_MAX_SMEM) return 0;
+  cudaError_t e = prepare_cluster<T, DH, BEFORE>(s.smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(C, 1, s.smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      active, fold_cluster_kernel<T, DH, BEFORE>, &cfg);
+}
+
+template <bool B>
+using Bool = std::integral_constant<bool, B>;
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(T{}, Int<DH>{}, Bool<BEFORE>{}) for the runtime dtype, Dh and rounding
+template <typename F>
+int by_instance(int dtype, int Dh, bool before, F&& f) {
+  auto with_t = [&](auto t) {
+    auto with_dh = [&](auto dh) {
+      return before ? f(t, dh, Bool<true>{}) : f(t, dh, Bool<false>{});
+    };
+    switch (Dh) {
+      case 32: return with_dh(Int<32>{});
+      case 64: return with_dh(Int<64>{});
+      case 128: return with_dh(Int<128>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == EAMG_F32) return with_t(float{});
+  if (dtype == EAMG_BF16) return with_t(__nv_bfloat16{});
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -571,22 +937,71 @@ extern "C" int eamg_fold_decode(const void* q, const void* kv, const int* t,
   return (int)cudaErrorInvalidValue;
 }
 
-// The one-launch kernels over the whole cache. mode 0: flash_decode_fold,
-// 1: flash_decode_fold2 with `rows` batch rows per block (B % rows == 0,
-// rows <= 8), 2: flash_decode_fold3. q_stride as above; no scratch. Returns
-// cudaErrorInvalidValue when a block's shared memory (4 * H * M bytes of
-// scores and a little more, per batch row of the block) would exceed what
-// the card allows.
+// flash_decode_fold: a block of 1024 threads per batch row over the whole
+// cache. q_stride as above; no scratch. Returns cudaErrorInvalidValue when
+// the block's shared memory (4 * H * M bytes of scores and a little more)
+// would exceed what the card allows.
 extern "C" int eamg_fold_decode_whole(const void* q, const void* kv,
                                       const int* t, void* o, int B, int H,
                                       int Hkv, int M, int Dh, int q_stride,
-                                      float scale, int mode, int rows,
-                                      int dtype, void* stream) {
-  if (H % Hkv != 0 || M <= 0 || B <= 0 || mode < 0 || mode > 2)
-    return (int)cudaErrorInvalidValue;
+                                      float scale, int dtype, void* stream) {
+  if (H % Hkv != 0 || M <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   const Args a = {q, kv, t, o, nullptr, B, H, Hkv, M, q_stride, scale,
                   (cudaStream_t)stream};
-  if (dtype == EAMG_F32) return launch_whole<float>(a, Dh, mode, rows);
-  if (dtype == EAMG_BF16) return launch_whole<__nv_bfloat16>(a, Dh, mode, rows);
+  if (dtype == EAMG_F32) return launch_whole<float>(a, Dh);
+  if (dtype == EAMG_BF16) return launch_whole<__nv_bfloat16>(a, Dh);
   return (int)cudaErrorInvalidValue;
+}
+
+// flash_decode_fold2 (before 0) and flash_decode_fold3 (before 1): a
+// cluster of C blocks per batch row (C 1, 2, 4, 8 or 16); block rank r
+// takes the keys [ranges[2r], ranges[2r + 1]) (the wrapper's whole_plan:
+// together, in rank order, 0..M-1), staged by every thread's 16-byte
+// copies. q_stride as above; kv 16-byte aligned. Returns
+// cudaErrorInvalidValue for ranges that do not cover 0..M-1 in rank order,
+// or when a block's shared memory (the staging slots, 4 * H * R bytes of
+// scores and a little more) would exceed what the card allows; a cluster
+// the card cannot place comes back as CUDA's own error.
+extern "C" int eamg_fold_decode_cluster(const void* q, const void* kv,
+                                        const int* t, void* o, int B, int H,
+                                        int Hkv, int M, int Dh, int q_stride,
+                                        float scale, int before, int C,
+                                        const int* ranges, int dtype,
+                                        void* stream) {
+  if (H % Hkv != 0 || M <= 0 || B <= 0 || C < 1 || C > CL_MAX ||
+      (C & (C - 1)))
+    return (int)cudaErrorInvalidValue;
+  KeyRanges kr;
+  int R = 0;
+  for (int r = 0; r < C; ++r) {
+    kr.lo[r] = ranges[2 * r];
+    kr.hi[r] = ranges[2 * r + 1];
+    if (kr.lo[r] != (r ? kr.hi[r - 1] : 0) || kr.hi[r] < kr.lo[r])
+      return (int)cudaErrorInvalidValue;
+    R = std::max(R, kr.hi[r] - kr.lo[r]);
+  }
+  if (kr.hi[C - 1] != M) return (int)cudaErrorInvalidValue;
+  for (int r = C; r < CL_MAX; ++r) kr.lo[r] = kr.hi[r] = M;
+  const Args a = {q, kv, t, o, nullptr, B, H, Hkv, M, q_stride, scale,
+                  (cudaStream_t)stream};
+  return by_instance(dtype, Dh, before != 0, [&](auto t_, auto dh, auto bf) {
+    return launch_cluster_k<decltype(t_), decltype(dh)::value,
+                            decltype(bf)::value>(a, kr, C, R);
+  });
+}
+
+// How many clusters of flash_decode_fold2 (before 0) or _fold3 (before 1)
+// the card keeps resident at once, at the shape (H, Hkv, Dh, dtype) and R
+// keys a block, with C blocks a cluster: into *active (0 where a block
+// would need more shared memory than the card allows).
+extern "C" int eamg_fold_cluster_occupancy(int H, int Hkv, int Dh, int R,
+                                           int before, int C, int dtype,
+                                           int* active) {
+  if (Hkv <= 0 || H % Hkv != 0 || R < 1 || C < 1 || C > CL_MAX ||
+      (C & (C - 1)))
+    return (int)cudaErrorInvalidValue;
+  return by_instance(dtype, Dh, before != 0, [&](auto t_, auto dh, auto bf) {
+    return occupancy_k<decltype(t_), decltype(dh)::value,
+                       decltype(bf)::value>(H, Hkv, C, R, active);
+  });
 }

@@ -22,12 +22,16 @@ thread layouts and launches (see the CUDA source) and, in bf16, in where
 the probabilities are rounded: ``flash_decode_fold`` and
 ``flash_decode_fold2`` round them unnormalised and divide by their sum
 after the product with the values, as their TPU kernels do;
-``flash_decode_fold3`` divides first. :data:`fold_decode` names the one
-the ragged decode and the engine call.
+``flash_decode_fold3`` divides first. ``flash_decode_fold2`` and
+``flash_decode_fold3`` launch one cluster of blocks per batch row, as
+many as :func:`cluster_size` picks for the card, each block on the fixed
+key range that :func:`whole_plan` gives it.
+:data:`fold_decode` names the one the ragged decode and the engine call.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -36,8 +40,7 @@ import torch
 from . import _build
 
 SPLIT = 64     # keys per split: CH in csrc/decode_fold.cu
-NT_ROW = 1024  # threads on a batch row, fold and fold3: the same file
-TPR = 128      # threads on each batch row, fold2: the same file
+NT_ROW = 1024  # threads on a batch row, fold: NT_ROW in the same file
 RS = 16        # lines per block: RS in csrc/stream_reduce.cu
 
 
@@ -162,33 +165,96 @@ def flash_decode_fold3_sp(q: torch.Tensor, kv: torch.Tensor, t,
 def _launch_whole():
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("decode_fold", "eamg_fold_decode_whole",
-                       [P, P, P, P, I, I, I, I, I, I, F, I, I, I, P])
+                       [P, P, P, P, I, I, I, I, I, I, F, I, P])
 
 
-def _fold_whole(name: str, mode: int, rows: int, normalize: str,
-                q: torch.Tensor, kv: torch.Tensor, t,
-                n_head: int) -> torch.Tensor:
-    if q.dim() == 3 and mode == 1 and (rows <= 0 or q.shape[0] % rows):
-        raise ValueError(f"{name}: batch {q.shape[0]} is no multiple of "
-                         f"rows {rows}")
+@functools.cache
+def _launch_cluster():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("decode_fold", "eamg_fold_decode_cluster",
+                       [P, P, P, P, I, I, I, I, I, I, F, I, I, P, I, P])
+
+
+@functools.cache
+def _launch_occupancy():
+    P, I = _build.P, _build.I
+    return _build.bind("decode_fold", "eamg_fold_cluster_occupancy",
+                       [I, I, I, I, I, I, I, P])
+
+
+def whole_plan(M: int, C: int) -> list[tuple[int, int]]:
+    """The key ranges of the cluster kernels behind
+    :func:`flash_decode_fold2` and :func:`flash_decode_fold3` over a cache
+    of M positions, C blocks a batch row -> [(start, stop)] * C: block rank
+    r takes the positions [start, stop), ceil(M / C) of them (fewer at the
+    end, none past M). The wrapper hands them to the kernel as they are.
+    They depend on M and C alone, so every order of the kernels' sums is
+    fixed by the key position and the rank, whatever the batch, ``rows``
+    or another row's length."""
+    R = -(-M // C)
+    return [(min(r * R, M), min((r + 1) * R, M)) for r in range(C)]
+
+
+@functools.cache
+def _ranges_arg(M: int, C: int) -> ctypes.Array:
+    """:func:`whole_plan` as the kernel's ``ranges``: start, stop per rank."""
+    flat = [x for rng in whole_plan(M, C) for x in rng]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def cluster_size(active16: int) -> int:
+    """Blocks in a batch row's cluster, from how many clusters of 16 blocks
+    the card keeps resident at once at the shape: 16 (a non-portable size)
+    wherever it can place one, else the portable 8. A cluster must fit in
+    one GPC, so where a block's shared memory leaves room for one block an
+    SM, a cluster of 16 needs 16 free SMs of one GPC, which a card with
+    smaller GPCs does not have. On an H100 SXM clusters of 16 were faster
+    at every shape timed, even where fewer than a batch's rows fit at once
+    (PERF.md)."""
+    return 16 if active16 > 0 else 8
+
+
+@functools.cache
+def cluster_occupancy(n_head: int, kv_heads: int, M: int, Dh: int,
+                      normalize: str, dtype: torch.dtype) -> tuple[int, int]:
+    """(clusters of 8, clusters of 16 blocks) of the cluster kernel with
+    ``normalize``'s rounding that the current card keeps resident at once,
+    at that shape, over the key ranges of :func:`whole_plan`."""
+    out = []
+    for C in (8, 16):
+        active = (ctypes.c_int * 1)()
+        err = _launch_occupancy()(n_head, kv_heads, Dh, -(-M // C),
+                                  int(normalize == "before"), C,
+                                  _build.DTYPE_CODE[dtype], active)
+        _build.check(err, f"cluster occupancy, C {C}")
+        out.append(active[0])
+    return out[0], out[1]
+
+
+def _fold_cluster(name: str, normalize: str, q: torch.Tensor,
+                  kv: torch.Tensor, t, n_head: int,
+                  C: int | None = None) -> torch.Tensor:
+    """The cluster kernel with ``normalize``'s rounding, C blocks a batch
+    row (None: :func:`cluster_size` of the card at this shape)."""
     if q.device.type == "cpu":
         return decode_attention_pm_plain(q, kv, t, n_head, normalize)
     _check_fold(name, q, kv, n_head)
+    if kv.data_ptr() % 16:
+        raise ValueError(f"{name}: kv must start on a 16-byte boundary")
     B, _, D = q.shape
     M, KVD = kv.shape[1], kv.shape[2] // 2
     Dh = D // n_head
-    threads = TPR if mode == 1 else NT_ROW
-    if threads % n_head or (mode == 1 and rows * TPR > 1024):
-        raise ValueError(f"{name}: n_head {n_head} must divide {threads}"
-                         + (f", and rows {rows} be at most {1024 // TPR}"
-                            if mode == 1 else ""))
+    if C is None:
+        C = cluster_size(cluster_occupancy(n_head, KVD // Dh, M, Dh,
+                                           normalize, q.dtype)[1])
     tb = _row_positions(t, B, q.device).contiguous()
     o = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
-    err = _launch_whole()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
-                          o.data_ptr(), B, n_head, KVD // Dh, M, Dh,
-                          q.stride(0), 1.0 / math.sqrt(Dh), mode, rows,
-                          _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
-    _build.check(err, name, smem=f"n_head {n_head}, M {M}, rows {rows}")
+    err = _launch_cluster()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
+                            o.data_ptr(), B, n_head, KVD // Dh, M, Dh,
+                            q.stride(0), 1.0 / math.sqrt(Dh),
+                            int(normalize == "before"), C, _ranges_arg(M, C),
+                            _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+    _build.check(err, name, smem=f"n_head {n_head}, M {M}")
     _build.count_launch(name)
     return o
 
@@ -200,25 +266,46 @@ def flash_decode_fold(q: torch.Tensor, kv: torch.Tensor, t,
     take :func:`decode_attention_pm_plain` with ``normalize="after"``; CUDA
     tensors launch the one-launch kernel, a block per batch row, which
     reads the whole cache and rounds the probabilities unnormalised."""
-    return _fold_whole("flash_decode_fold", 0, 1, "after", q, kv, t, n_head)
+    name = "flash_decode_fold"
+    if q.device.type == "cpu":
+        return decode_attention_pm_plain(q, kv, t, n_head, "after")
+    _check_fold(name, q, kv, n_head)
+    B, _, D = q.shape
+    M, KVD = kv.shape[1], kv.shape[2] // 2
+    Dh = D // n_head
+    if NT_ROW % n_head:
+        raise ValueError(f"{name}: n_head {n_head} must divide {NT_ROW}")
+    tb = _row_positions(t, B, q.device).contiguous()
+    o = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
+    err = _launch_whole()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
+                          o.data_ptr(), B, n_head, KVD // Dh, M, Dh,
+                          q.stride(0), 1.0 / math.sqrt(Dh),
+                          _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+    _build.check(err, name, smem=f"n_head {n_head}, M {M}")
+    _build.count_launch(name)
+    return o
 
 
 def flash_decode_fold2(q: torch.Tensor, kv: torch.Tensor, t, n_head: int,
                        rows: int = 4) -> torch.Tensor:
-    """:func:`flash_decode_fold` with ``rows`` batch rows per block
-    (``B % rows == 0``, at most 8). The result does not depend on
-    ``rows``, to the bit."""
-    return _fold_whole("flash_decode_fold2", 1, rows, "after", q, kv, t,
-                       n_head)
+    """The function of :func:`flash_decode_fold`, with its rounding; CUDA
+    tensors launch a cluster of blocks per batch row, which reads the
+    prefix 0..t[b] only. ``rows`` (``B % rows == 0``) is the TPU kernel's
+    batch rows per program: it is checked as JAX checks it and shapes
+    nothing here, so the result does not depend on it, to the bit."""
+    if q.dim() == 3 and (rows <= 0 or q.shape[0] % rows):
+        raise ValueError(f"flash_decode_fold2: batch {q.shape[0]} is no "
+                         f"multiple of rows {rows}")
+    return _fold_cluster("flash_decode_fold2", "after", q, kv, t, n_head)
 
 
 def flash_decode_fold3(q: torch.Tensor, kv: torch.Tensor, t,
                        n_head: int) -> torch.Tensor:
-    """The same function with the softmax reduced along the lanes of a
-    warp and the probabilities divided by their sum before they are
-    rounded (CPU: :func:`decode_attention_pm_plain`, ``"before"``)."""
-    return _fold_whole("flash_decode_fold3", 2, 1, "before", q, kv, t,
-                       n_head)
+    """The same function with the probabilities divided by their sum
+    before they are rounded (CPU: :func:`decode_attention_pm_plain`,
+    ``"before"``); CUDA tensors launch the cluster kernel of
+    :func:`flash_decode_fold2` with that rounding."""
+    return _fold_cluster("flash_decode_fold3", "before", q, kv, t, n_head)
 
 
 # The decode attention of the ragged decode and the engine: the faster of

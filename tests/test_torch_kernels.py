@@ -84,6 +84,13 @@ WHOLE = {"flash_decode_fold": flash_decode_fold,
 WHOLE_MS = (64, 50)
 WHOLE_TS = {"t0": 0, "t17": 17, "rows": np.asarray([0, 17, 49, 40], np.int32)}
 WHOLE_ROWS = (2, 4)
+# cache lengths at which the cluster kernels' key ranges are checked, for
+# clusters of each size the kernels take
+PLAN_MS = (1, 50, 64, 511, 512, 4096)
+PLAN_CS = (8, 16)
+# resident clusters of 16 blocks the card may report -> the cluster size
+# picked: 16 wherever the card can place one
+RESIDENT_16 = {0: 8, 1: 16, 7: 16, 14: 16}
 
 
 def _rng():
@@ -231,6 +238,8 @@ def _inputs():
                         ref[("whole", name, entry)] = np.asarray(
                             fn(qj, kvj, tj, H, interpret=True)
                             .astype(jnp.float32))
+    inp["plan/M"] = np.asarray(PLAN_MS)
+    inp["plan/resident"] = np.asarray(list(RESIDENT_16))
     kv = rng.standard_normal((4, 16, 32), np.float32)
     for rows in STREAM_ROWS:
         inp.update(flatten({"kv": kv, "rows": np.asarray(rows)},
@@ -434,3 +443,45 @@ def test_one_launch_wrappers_refuse_what_jax_cannot_take(results, case, says):
     got, _ = results
     assert str(got[f"refuse/{case}"]).startswith("ValueError")
     assert says in str(got[f"refuse/{case}"])
+
+
+@pytest.mark.parametrize("M", PLAN_MS)
+def test_whole_plan_covers_every_key_once_in_rank_order(results, M):
+    """The cluster kernels of flash_decode_fold2 and _fold3: block rank r of
+    a row's cluster of C takes ranges[r]; together, in rank order, they are
+    the positions 0..M-1, each once, and no range is longer than ceil(M /
+    C). The kernel gets them as they are: start, stop per rank."""
+    got, _ = results
+    for C in PLAN_CS:
+        ranges = got[f"plan/{M}/{C}/ranges"]
+        assert ranges.shape == (C, 2)
+        assert (ranges[:, 0] <= ranges[:, 1]).all()
+        keys = np.concatenate([np.arange(a, b) for a, b in ranges])
+        np.testing.assert_array_equal(keys, np.arange(M))
+        assert (ranges[:, 1] - ranges[:, 0]).max() == -(-M // C)
+        np.testing.assert_array_equal(got[f"plan/{M}/{C}/arg"],
+                                      ranges.reshape(-1))
+
+
+@pytest.mark.parametrize("M", PLAN_MS)
+def test_whole_plan_depends_on_m_alone(results, M):
+    """whole_plan takes M and the cluster size and nothing else (not B,
+    rows, a slot or a t), and its ranges are the closed form of M: rank r
+    starts at r * ceil(M / C), cut at M."""
+    got, _ = results
+    assert list(got["plan/params"]) == ["M", "C"]
+    for C in PLAN_CS:
+        R = -(-M // C)
+        want = [(min(r * R, M), min((r + 1) * R, M)) for r in range(C)]
+        np.testing.assert_array_equal(got[f"plan/{M}/{C}/ranges"],
+                                      np.asarray(want))
+
+
+@pytest.mark.parametrize("active16", list(RESIDENT_16))
+def test_cluster_size_takes_16_where_the_card_places_one(results,
+                                                        active16):
+    """Clusters of 16 where the card can keep one resident at the shape,
+    else the portable 8."""
+    got, _ = results
+    i = list(RESIDENT_16).index(active16)
+    assert int(got["plan/sizes"][i]) == RESIDENT_16[active16]

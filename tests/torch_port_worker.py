@@ -155,6 +155,23 @@ def task_kernels(inp, out):
         for entry in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
             out[f"fold/{name}/{entry}"] = getattr(decode_fold, entry)(
                 _t(a["q"]), _t(a["kv"]), t, int(a["n_head"])).numpy()
+    # the key ranges of the cluster kernels (fold2, fold3) for C 8 and 16
+    # ([C, 2], and as the kernel's argument), the names of whole_plan's
+    # parameters, and the cluster size picked from resident clusters
+    if "plan/M" in inp.files:
+        import inspect
+
+        for M in inp["plan/M"]:
+            for C in (8, 16):
+                key = f"plan/{int(M)}/{C}"
+                out[f"{key}/ranges"] = np.asarray(
+                    decode_fold.whole_plan(int(M), C), np.int64)
+                out[f"{key}/arg"] = np.asarray(
+                    list(decode_fold._ranges_arg(int(M), C)), np.int64)
+        out["plan/params"] = np.asarray(
+            list(inspect.signature(decode_fold.whole_plan).parameters))
+        out["plan/sizes"] = np.asarray(
+            [decode_fold.cluster_size(int(n)) for n in inp["plan/resident"]])
     for name in sorted({k.split("/")[1] for k in inp.files
                         if k.startswith("stream/")}):
         a = unflatten(inp, f"stream/{name}")
