@@ -13,15 +13,20 @@ Phases:
     B 8, MHA, 128 prefill rows, 8324 logits), and time the kernel,
     the plain version and one PyTorch library call computing the same
     function (a yardstick only: the port never calls it), each as replays
-    of a CUDA graph so that the host's issue rate stays out; the one-launch
-    fold kernels at t 300 and at the whole cache (t 510) against the
-    library call on the slice 0..t and the masked one on the whole cache,
-    the cluster kernels of flash_decode_fold2 and _fold3 with the cluster
-    size the card picks for the shape and with the other one (the
-    resident clusters of each logged), fold2 bit-equal across rows 1, 2,
-    4, 8; then
-    the bit-identity of a row alone and inside a batch of 8, for the fold
-    kernels, the FFN kernel and the library's matrix product;
+    of a CUDA graph so that the host's issue rate stays out; the FFN
+    kernel at rows 1, 8, 16 and 128, cold, and at one gelu shape; the
+    one-launch fold kernels at t 300 and at the whole cache (t 510)
+    against the library call on the slice 0..t and the masked one on the
+    whole cache, the cluster kernel of flash_decode_fold, _fold2 and
+    _fold3 with the cluster size the card picks for the shape and with the
+    other one (the resident clusters of each logged), fold2 bit-equal
+    across rows 1, 2, 4, 8 and fold bit-equal to fold2, the bf16 error of
+    the cluster kernels beside the plain bf16 version's own; then the
+    bit-identity of a row alone and inside a batch of 8, for the fold
+    kernels, the FFN kernel and the library's matrix product; then the
+    phases of the cluster fold kernel and of the FFN kernel, from builds
+    of their sources that stamp the time at each phase boundary, beside
+    empty launches of the fold kernel's grid;
  4. teacher: teacher-forced f32 logits of the flagship demo_ckpt_a on the
     card (kernels) against the same run on the host (plain versions), for
     the solo decode and for the ragged decode;
@@ -44,9 +49,9 @@ Phases:
     seed) at full width and depth, batch 8, 511 positions, once per
     attn_impl with the launch counts zeroed before each: the kernel the
     attn_impl names must have launched once per layer and step and no
-    other attention kernel at all; fold2's rate at least 0.8 of sp's
-    (best of three generations each); teacher-forced f32 logits of each
-    attn_impl on the card against the plain versions on the host; one
+    other attention kernel at all; fold's and fold2's rates at least 0.8
+    of sp's (best of three generations each); teacher-forced f32 logits of
+    each attn_impl on the card against the plain versions on the host; one
     generation of the default attn_impl under torch.profiler; then
     `cli generate --wav` on demo_ckpt_a twice with one seed (MThd,
     RIFF....WAVE, equal bytes).
@@ -63,6 +68,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -141,11 +147,12 @@ BENCH_T = (0, 100, 255, 256, 300, 510)
 BENCH_TIMED_T = 300
 # the one-launch fold kernels are timed at the whole cache as well
 BENCH_LAST_T = 510
-# the cluster kernels of rows 9 and 10: a row's bits must not depend on
+# the cluster kernel of rows 7, 9 and 10: a row's bits must not depend on
 # `rows` or on the batch, and they are held to what the kernels they
 # replaced read (one bf16 step at |o| < 2 and 5e-3 of max|want| of the f32
 # plain version in bf16, 2e-6 in f32)
-CLUSTER_KERNELS = ("flash_decode_fold2", "flash_decode_fold3")
+CLUSTER_KERNELS = ("flash_decode_fold", "flash_decode_fold2",
+                   "flash_decode_fold3")
 CLUSTER_TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -7}
 CLUSTER_REL_TOL = 5e-3
 # max |kernel - plain| allowed. f32: both sides accumulate in f32, in other
@@ -163,6 +170,16 @@ TOL = {("flash_attention", "float32"): 1e-4,
        ("flash_decode_sp", "bfloat16"): 1e-2,
        ("fused_ffn_rows8", "float32"): 1e-4,
        ("fused_ffn_rows8", "bfloat16"): 3e-2,
+       # K2 at a shape no path gives it: exact gelu, f32 biases, D 1536 in
+       # three panels, FF 192: 12 blocks, each with 128 rows of W2 too many
+       # to stage
+       ("fused_ffn_gelu", "float32"): 1e-4,
+       ("fused_ffn_gelu", "bfloat16"): 3e-2,
+       # and a wide FF 32832 on D 64: more slices than the card keeps
+       # blocks (a block takes several), h rows too long to stage, most
+       # blocks with no row of W2
+       ("fused_ffn_wide", "float32"): 1e-4,
+       ("fused_ffn_wide", "bfloat16"): 3e-2,
        ("kth_value", "float32"): 0.0,
        ("kth_value", "bfloat16"): 0.0,
        ("kth_value_b8", "float32"): 0.0,
@@ -217,9 +234,10 @@ TF_TOL = 5e-3   # teacher-forced f32 logits of demo_ckpt_a, card vs host
 # in other orders over 6 layers), so the limit sits well under what a wrong
 # attention would move
 BATCH_TF_TOL = 1e-4
-# the batched decode with attn_impl "fold2" against "sp" in one run, best
-# rates: fold2's kernel must not set the pace of a step
-FOLD2_RATE_MIN = 0.8
+# the batched decode with attn_impl "fold" and "fold2" against "sp" in one
+# run, best rates: their kernel must not set the pace of a step
+FOLD_RATE_MIN = 0.8
+FOLD_RATED = ("fold", "fold2")
 
 
 def log(*a):
@@ -341,6 +359,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
         return (torch.randn(*shape, generator=g) * scale).to(dt).to(dev)
 
     results = {}
+    margins = {}   # cluster kernel: [(its rel. error, the plain bf16's)]
 
     def record(name, dt, err, k_ms, p_ms, lib_ms, n_b, flops, extra="",
                more=None):
@@ -376,15 +395,26 @@ def kernel_checks(torch, ckpt_params) -> dict:
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
 
-    def rel_f32(name, got, want32, where="", tol=REL_TOL_F32):
+    def rel_err(got, want32):
+        return ((got.float() - want32).abs().max()
+                / want32.abs().max().clamp_min(1e-30)).item()
+
+    def rel_f32(name, got, want32, where="", tol=REL_TOL_F32, plain=None,
+                enforce=True):
         """bf16 kernel output against the plain version in f32 on the
-        upcast inputs: max|err| / max|want|, held to ``tol``."""
-        rel = ((got.float() - want32).abs().max()
-               / want32.abs().max().clamp_min(1e-30)).item()
+        upcast inputs: max|err| / max|want|, held to ``tol`` (with
+        ``enforce``). ``plain``: the plain version's bf16 output on the same
+        inputs, whose own error is logged beside the kernel's."""
+        rel = rel_err(got, want32)
+        own = ""
+        if plain is not None:
+            p_rel = rel_err(plain, want32)
+            margins.setdefault(name, []).append((rel, p_rel))
+            own = f", the plain bf16 version's own {p_rel:.3e}"
         log(f"[check] {name:16s} bfloat16  vs f32 plain{where}: max|err| / "
             f"max|want| {rel:.3e} (tol {tol:.0e}, max|want| "
-            f"{want32.abs().max().item():.3e})")
-        if not rel <= tol:
+            f"{want32.abs().max().item():.3e}{own})")
+        if enforce and not rel <= tol:
             raise AssertionError(f"{name} bf16 vs f32 plain{where}: {rel} > "
                                  f"{tol}")
 
@@ -430,10 +460,13 @@ def kernel_checks(torch, ckpt_params) -> dict:
 
         # K2: the flagship's layer-0 FFN (the large2 model's has the same
         # D 512, FF 2048 and relu): rows 1 (solo decode), 8 (engine and
-        # batched decode), 16 (solo prefill), 128 (batched prefill, 8 x 16)
+        # batched decode), 16 (solo prefill), 128 (batched prefill, 8 x 16),
+        # each timed cold with its plain version and the library call
         mlp = {n: w.to(dt).to(dev) for n, w in
                ckpt_params["layers"][0]["mlp"].items()}
         D, FF = mlp["w2"].shape
+        if (D, FF) != (512, 2048):
+            raise AssertionError(f"FFN {D} x {FF} is not large2's")
         for rows in (1, ENGINE_SLOTS, 16, BENCH_B * 16):
             x = randn(rows, D, dt=dt)
             args = (x, mlp["w1"], mlp["b1"], mlp["w2"], mlp["b2"])
@@ -446,20 +479,44 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 return F.linear(torch.relu(F.linear(a[0], a[1], a[2])),
                                 a[3], a[4])
 
-            if rows == BENCH_B * 16:
-                if (D, FF) != (512, 2048):
-                    raise AssertionError(f"FFN {D} x {FF} is not large2's")
-                hold("fused_ffn_rows128", dt_name, got, want,
-                     extra=f"rows {rows}, D {D}, FF {FF}")
-                continue
-            res = (err, time_ms(torch, lambda: ffn.fused_ffn(
-                       *args, activation="relu"), cold=True),
-                   time_ms(torch, lambda: ffn.ffn_plain(
-                       *args, activation="relu"), cold=True),
-                   time_ms(torch, lib, cold=True),
-                   nbytes(*args, x), 4 * rows * D * FF)
+            ms = time_cold_ms(torch, {
+                "kernel": lambda a=args: ffn.fused_ffn(*a, activation="relu"),
+                "plain": lambda a=args: ffn.ffn_plain(*a, activation="relu"),
+                "library": lib})
             record("fused_ffn" if rows == 1 else f"fused_ffn_rows{rows}",
-                   dt_name, *res, extra=f"rows {rows}")
+                   dt_name, err, ms["kernel"], ms["plain"], ms["library"],
+                   nbytes(*args, x), 4 * rows * D * FF,
+                   extra=f"rows {rows}, D {D}, FF {FF}, cold")
+        # a shape no path gives K2, from a generator of its own (the draws
+        # of the checks after it stay those of earlier runs)
+        gg = torch.Generator().manual_seed(1536)
+        Dg, FFg, rg = 1536, 192, 5
+
+        def gdraw(*shape, scale=1.0, dtype=dt):
+            return (torch.randn(*shape, generator=gg) * scale).to(dtype).to(
+                dev)
+
+        gargs = (gdraw(rg, Dg), gdraw(FFg, Dg, scale=Dg ** -0.5),
+                 gdraw(FFg, scale=0.1, dtype=torch.float32),
+                 gdraw(Dg, FFg, scale=FFg ** -0.5),
+                 gdraw(Dg, scale=0.1, dtype=torch.float32))
+        got = ffn.fused_ffn(*gargs, activation="gelu")
+        torch.cuda.synchronize()
+        plan = ffn.ffn_plan(Dg, FFg)
+        hold("fused_ffn_gelu", dt_name, got,
+             ffn.ffn_plain(*gargs, activation="gelu"),
+             extra=f"rows {rg}, D {Dg} ({Dg // plan.panel} panels), FF "
+                   f"{FFg} ({len(plan.slices)} blocks), exact gelu, biases "
+                   "in f32")
+        Dw, FFw = 64, 32832
+        wargs = (gdraw(3, Dw), gdraw(FFw, Dw, scale=Dw ** -0.5),
+                 gdraw(FFw, scale=0.1), gdraw(Dw, FFw, scale=FFw ** -0.5),
+                 gdraw(Dw, scale=0.1))
+        got = ffn.fused_ffn(*wargs, activation="relu")
+        torch.cuda.synchronize()
+        hold("fused_ffn_wide", dt_name, got,
+             ffn.ffn_plain(*wargs, activation="relu"),
+             extra=f"rows 3, D {Dw}, FF {FFw}")
 
         # K3: one decode step over the flagship's 511-slot cache
         M = 511
@@ -665,11 +722,8 @@ def kernel_checks(torch, ckpt_params) -> dict:
         # checked and timed with the other size as well, which other shapes
         # take. At a uniform t the library call reads the slice 0..t; the
         # masked call over the whole cache is timed beside it
-        whole = {"flash_decode_fold": ("after", decode_fold.flash_decode_fold),
-                 "flash_decode_fold2": ("after",
-                                        decode_fold.flash_decode_fold2),
-                 "flash_decode_fold3": ("before",
-                                        decode_fold.flash_decode_fold3)}
+        whole = {name: (decode_fold.ROUNDING[name], getattr(decode_fold, name))
+                 for name in CLUSTER_KERNELS}
         kvb = randn(Bb, M, 2 * Hb * Dh, dt=dt)
         qfb = randn(Bb, 1, Hb * Dh, dt=dt)
         t_uni = torch.full((Bb,), BENCH_TIMED_T, dtype=torch.int32,
@@ -706,19 +760,25 @@ def kernel_checks(torch, ckpt_params) -> dict:
                            generator=torch.Generator().manual_seed(4096))
                .to(dt).to(dev))
         tl = torch.full((Bb,), ML - 1, dtype=torch.int32, device=dev)
+        want32_long = decode_fold.decode_attention_pm_plain(
+            qfb.float(), kvl.float(), tl, H) if dt is torch.bfloat16 else None
         fns = {}
         for name in CLUSTER_KERNELS:
             norm = whole[name][0]
             want = decode_fold.decode_attention_pm_plain(qfb, kvl, tl, H,
                                                          normalize=norm)
             for C in (8, 16):
-                got = decode_fold._fold_cluster(name, norm, qfb, kvl, tl, H,
-                                                C=C)
+                got = decode_fold._fold_cluster(name, qfb, kvl, tl, H, C=C)
                 torch.cuda.synchronize()
                 hold(name, dt_name, got, want,
                      extra=f"with C {C} at M {ML}, t {ML - 1}")
-                fns[(name, C)] = lambda name=name, norm=norm, C=C: decode_fold\
-                    ._fold_cluster(name, norm, qfb, kvl, tl, H, C=C)
+                if dt is torch.bfloat16:   # logged, not held: see PERF.md
+                    rel_f32(name + "_long", got, want32_long,
+                            tol=CLUSTER_REL_TOL,
+                            where=f" with C {C} at M {ML}", plain=want,
+                            enforce=False)
+                fns[(name, C)] = lambda name=name, C=C: decode_fold\
+                    ._fold_cluster(name, qfb, kvl, tl, H, C=C)
         ms = time_cold_ms(torch, fns)
         for name in CLUSTER_KERNELS:
             log(f"[cluster] {name}_long {dt_name} M {ML}, t {ML - 1}: C 8 "
@@ -764,34 +824,38 @@ def kernel_checks(torch, ckpt_params) -> dict:
                     if dt is torch.bfloat16:
                         rel_f32(name, got, want32,
                                 where=f"{tag} at t {t_.tolist()}",
-                                tol=CLUSTER_REL_TOL
-                                if name in CLUSTER_KERNELS else REL_TOL_F32)
+                                tol=CLUSTER_REL_TOL, plain=want)
                     qkv = torch.cat([q_, randn(Bb, 1, 64, dt=dt)], dim=-1)
                     if not torch.equal(fn(qkv[..., :H * Dh], kv_, t_, H),
                                        got):
                         raise AssertionError(f"{name}{tag}: strided q "
                                              "differs")
-                    if name in CLUSTER_KERNELS:
-                        alt = decode_fold._fold_cluster(
-                            name, norm, q_, kv_, t_, H, C=other[name])
-                        torch.cuda.synchronize()
-                        where = (f" with C {other[name]}{tag} at t "
-                                 f"{t_.tolist()}")
-                        hold(name + tag, dt_name, alt, want, extra=where)
-                        if dt is torch.bfloat16:
-                            rel_f32(name, alt, want32, where=where,
-                                    tol=CLUSTER_REL_TOL)
+                    alt = decode_fold._fold_cluster(name, q_, kv_, t_, H,
+                                                    C=other[name])
+                    torch.cuda.synchronize()
+                    where = f" with C {other[name]}{tag} at t {t_.tolist()}"
+                    hold(name + tag, dt_name, alt, want, extra=where)
+                    if dt is torch.bfloat16:
+                        rel_f32(name, alt, want32, where=where,
+                                tol=CLUSTER_REL_TOL)
                 # fold2 must not depend on rows, to the bit
                 by_rows = {r: decode_fold.flash_decode_fold2(q_, kv_, t_, H,
                                                              rows=r)
                            for r in (1, 2, 4, 8)}
                 bit_equal = all(torch.equal(by_rows[r], by_rows[4])
                                 for r in by_rows)
+                # row 7 is fold2's function and kernel: the same bits
+                fold_equal = torch.equal(
+                    decode_fold.flash_decode_fold(q_, kv_, t_, H), by_rows[4])
                 log(f"[check] flash_decode_fold2{tag} {dt_name} rows 1, 2, "
-                    f"4, 8 at t {t_.tolist()}: bit-equal {bit_equal}")
+                    f"4, 8 at t {t_.tolist()}: bit-equal {bit_equal}; "
+                    f"flash_decode_fold bit-equal to it {fold_equal}")
                 if not bit_equal:
                     raise AssertionError(f"flash_decode_fold2{tag}: depends "
                                          "on rows")
+                if not fold_equal:
+                    raise AssertionError(f"flash_decode_fold{tag}: differs "
+                                         "from flash_decode_fold2")
             timed = ((BENCH_TIMED_T, t_uni), (BENCH_LAST_T, t_last)) \
                 if not tag else (("rows", tf),)
             fns = {}
@@ -807,11 +871,9 @@ def kernel_checks(torch, ckpt_params) -> dict:
                     **{(name, label): (lambda fn=fn, t_=t_: fn(q_, kv_, t_, H))
                        for name, (_, fn) in whole.items()},
                     **{(name + "_other_C", label):
-                       (lambda name=name, norm=norm, t_=t_: decode_fold
-                        ._fold_cluster(name, norm, q_, kv_, t_, H,
-                                       C=other[name]))
-                       for name, (norm, _) in whole.items()
-                       if name in CLUSTER_KERNELS},
+                       (lambda name=name, t_=t_: decode_fold._fold_cluster(
+                           name, q_, kv_, t_, H, C=other[name]))
+                       for name in whole},
                     ("flash_decode_fold_sp", label): lambda t_=t_: decode_fold
                     .flash_decode_fold_sp(q_, kv_, t_, H),
                     ("flash_decode_fold3_sp", label): lambda t_=t_: decode_fold
@@ -849,19 +911,18 @@ def kernel_checks(torch, ckpt_params) -> dict:
                              f"{more['plain_ms_t510']:.4f}, library "
                              f"{more['library_ms_t510']:.4f}, masked "
                              f"{more['library_masked_ms_t510']:.4f})")
-                if name in CLUSTER_KERNELS:
-                    c, occ = picked[name]
-                    more.update({"C": c, "resident_clusters_8_16": occ,
-                                 "other_C": other[name],
-                                 "other_C_ms": ms[(name + "_other_C", main)]})
-                    also += (f"; C {c} (resident clusters of 8 / 16: "
-                             f"{occ[0]} / {occ[1]}), with C {other[name]}: "
-                             f"{more['other_C_ms']:.4f} ms")
-                    if not tag:
-                        more["other_C_ms_t510"] = ms[
-                            (name + "_other_C", BENCH_LAST_T)]
-                        also += f" (t {BENCH_LAST_T}: " \
-                                f"{more['other_C_ms_t510']:.4f})"
+                c, occ = picked[name]
+                more.update({"C": c, "resident_clusters_8_16": occ,
+                             "other_C": other[name],
+                             "other_C_ms": ms[(name + "_other_C", main)]})
+                also += (f"; C {c} (resident clusters of 8 / 16: "
+                         f"{occ[0]} / {occ[1]}), with C {other[name]}: "
+                         f"{more['other_C_ms']:.4f} ms")
+                if not tag:
+                    more["other_C_ms_t510"] = ms[
+                        (name + "_other_C", BENCH_LAST_T)]
+                    also += f" (t {BENCH_LAST_T}: " \
+                            f"{more['other_C_ms_t510']:.4f})"
                 record(name + tag, dt_name, worst[name], ms[(name, main)],
                        ms[(norm, main)], ms[(lib, main)],
                        *prefix(q_, kv_, t_),
@@ -873,6 +934,13 @@ def kernel_checks(torch, ckpt_params) -> dict:
                              f"fold3_sp "
                              f"{ms[('flash_decode_fold3_sp', main)]:.4f} ms"
                              + also, more=more)
+
+    # the cluster kernels' largest bf16 error against the f32 plain version
+    # beside the plain bf16 version's own on the same draws
+    log(json.dumps({"bf16_margins": {
+        name: {"kernel_max": max(k for k, _ in v),
+               "plain_bf16_max": max(p for _, p in v), "draws": len(v)}
+        for name, v in margins.items()}}))
 
     # a cache too long for a block's shared memory is refused by the
     # launcher, by name, and nothing is computed
@@ -933,6 +1001,215 @@ def bit_identity(torch, ckpt_params) -> dict:
     for name in (*folds, "fused_ffn"):
         if not out[name]:
             raise AssertionError(f"{name}: a row's bits depend on the batch")
+    return out
+
+
+# the phase boundaries that the timed builds stamp (csrc/decode_fold.cu
+# and csrc/ffn.cu under EAMG_PHASE_TIMING)
+FOLD_STAMPS = ("entry", "t+slab+q", "chunk0", "scores", "max", "p",
+               "pv_pushed", "out_barrier", "store")
+FFN_STAMPS = ("entry", "issued", "w1x", "h_stored", "grid_barrier",
+              "h_staged", "stored")
+
+
+def _bind_timed(name: str, entry: str, argtypes: list):
+    """A timed build's library with its stamp setter and ``entry`` bound."""
+    import ctypes
+
+    from eamg_tpu_torch.ops import _build
+
+    lib = _build.library(name)
+    for fn, args in (("eamg_set_stamps", [ctypes.c_void_p]),
+                     (entry, argtypes)):
+        getattr(lib, fn).argtypes = args
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _stamped_runs(torch, lib, fn, n_blocks: int, names, khz) -> dict:
+    """fn() (a launch of ``lib``'s stamped kernel) replayed cold 30 times
+    with the stamps on -> :func:`_phase_table` of them."""
+    from eamg_tpu_torch.ops import _build
+
+    n = len(names)
+    buf = torch.zeros(n_blocks * n * 2, dtype=torch.int64, device="cuda")
+    flush = torch.empty(96 << 18, dtype=torch.float32, device="cuda")
+    replay = _graphed(torch, fn)
+    _build.check(lib.eamg_set_stamps(buf.data_ptr()), "set stamps")
+    runs = []
+    try:
+        for _ in range(30):
+            buf.zero_()
+            flush.zero_()
+            _hold_device(torch, 1000.0)
+            replay()
+            torch.cuda.synchronize()
+            runs.append(buf.view(n_blocks, n, 2).cpu())
+    finally:
+        lib.eamg_set_stamps(None)
+    return _phase_table(runs, names, khz)
+
+
+def _phase_table(runs, names, khz) -> dict:
+    """Stamps of cold replays [blocks, boundaries, (globaltimer, clock64)]
+    -> per phase the median over replays of the median and the largest
+    block time (clock64, ns at the card's clock rate), the timeline (ns of
+    globaltimer from the first block's entry to the last block past each
+    boundary), the span and the entry skew. A boundary a block did not pass
+    (a fold block with no key, the chunk loop) takes the stamp before it."""
+    med = lambda xs: sorted(xs)[len(xs) // 2]   # noqa: E731
+    per = {k: ([], []) for k in names[1:]}
+    tl = {k: [] for k in names}
+    span, skew = [], []
+    for st in runs:
+        st = st.clone()
+        for i in range(1, len(names)):
+            miss = st[:, i, 0] == 0
+            st[miss, i] = st[miss, i - 1]
+        gt, ck = st[..., 0].double(), st[..., 1].double()
+        t0 = gt[:, 0].min()
+        for i, k in enumerate(names):
+            tl[k].append((gt[:, i].max() - t0).item())
+            if i:
+                d = (ck[:, i] - ck[:, i - 1]) * 1e6 / khz
+                per[k][0].append(d.median().item())
+                per[k][1].append(d.max().item())
+        span.append((gt[:, -1].max() - t0).item())
+        skew.append((gt[:, 0].max() - t0).item())
+    return {"block_ns": {k: (med(a), med(b)) for k, (a, b) in per.items()},
+            "timeline_ns": {k: med(v) for k, v in tl.items()},
+            "span_ns": med(span), "entry_skew_ns": med(skew),
+            "replays": len(runs)}
+
+
+def _log_phases(tag: str, r: dict, khz) -> None:
+    log(f"[phases] {tag}: span entry->exit {r['span_ns']:.0f} ns, entry "
+        f"skew {r['entry_skew_ns']:.0f} ns; per block, median / max ns "
+        f"(clock64 at {khz / 1000:.0f} MHz): " + ", ".join(
+            f"{k} {v[0]:.0f}/{v[1]:.0f}" for k, v in r["block_ns"].items()))
+    log(f"[phases] {tag}: timeline, ns from the first entry to the last "
+        "block past each boundary (globaltimer): " + ", ".join(
+            f"{k} {v:.0f}" for k, v in r["timeline_ns"].items()))
+
+
+def kernel_phases(torch, ckpt_params) -> dict:
+    """Phase 3, last part: where the time of the cluster fold kernel (rows
+    7, 9, 10) and of K2 goes. The timed builds of their sources stamp
+    %globaltimer and clock64 at each phase boundary in thread 0 of every
+    block (:func:`_phase_table` reads them, over cold replays). In one cold
+    loop beside them: the wrappers' kernels, the stamped kernels, and the
+    floor of this way of timing, an empty kernel and empty cluster launches
+    of the fold kernel's grid (clusters of 16 and of 8, with 0 and 3
+    cluster barriers). The fold kernel at the bench shape (bf16, B 8, MHA
+    H 8, M 511, Dh 64, t 300) with the cluster size the card picks; K2 on
+    the flagship's layer-0 FFN at rows 1 and 8, bf16."""
+    import ctypes
+    import math
+
+    from eamg_tpu_torch.ops import _build, decode_fold, ffn
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fold_lib = _bind_timed("decode_fold_timed", "eamg_fold_decode_cluster",
+                           [P, P, P, P, I, I, I, I, I, I, _build.F, I, I, I,
+                            P])
+    for fn, args in (("eamg_fold_cluster_smem",
+                      [I, I, I, I, I, ctypes.POINTER(L)]),
+                     ("eamg_empty_launch", [I, I, L, I, P])):
+        getattr(fold_lib, fn).argtypes = args
+        getattr(fold_lib, fn).restype = ctypes.c_int
+    ffn_lib = _bind_timed("ffn_timed", "eamg_fused_ffn",
+                          [P] * 7 + [I] * 7 + [P])
+    dev, dt = "cuda", torch.bfloat16
+    B, H, M, Dh, t = BENCH_B, BENCH_H, 511, 64, BENCH_TIMED_T
+    g = torch.Generator().manual_seed(511)
+    kv = torch.randn(B, M, 2 * H * Dh, generator=g).to(dt).to(dev)
+    q = torch.randn(B, 1, H * Dh, generator=g).to(dt).to(dev)
+    tt = torch.full((B,), t, dtype=torch.int32, device=dev)
+    khz = torch.cuda.get_device_properties(0).clock_rate
+
+    def stream():   # at call time: a graph captures on a stream of its own
+        return torch.cuda.current_stream().cuda_stream
+
+    out = {"fold_shape": f"bf16 B {B} H {H} M {M} Dh {Dh} t {t}",
+           "clock_mhz": khz / 1000}
+    fns, stamped = {}, {}
+    for name in ("flash_decode_fold2", "flash_decode_fold3"):
+        norm = decode_fold.ROUNDING[name]
+        C = decode_fold.cluster_size(decode_fold.cluster_occupancy(
+            H, H, M, Dh, norm, dt)[1])
+        o = torch.empty_like(q)
+
+        def run(norm=norm, C=C, o=o):
+            _build.check(fold_lib.eamg_fold_decode_cluster(
+                q.data_ptr(), kv.data_ptr(), tt.data_ptr(), o.data_ptr(), B,
+                H, H, M, Dh, q.stride(0), 1.0 / math.sqrt(Dh),
+                int(norm == "before"), C, 1, stream()),
+                "stamped fold kernel")
+
+        run()
+        torch.cuda.synchronize()
+        if not torch.equal(o, getattr(decode_fold, name)(q, kv, tt, H)):
+            raise AssertionError(f"{name}: the stamped build differs")
+        fns[name] = lambda name=name: getattr(decode_fold, name)(q, kv, tt, H)
+        fns[name + "_stamped"] = run
+        stamped[name] = (fold_lib, run, B * C, FOLD_STAMPS)
+        out[name] = {"C": C}
+    smem = L(0)
+    _build.check(fold_lib.eamg_fold_cluster_smem(
+        H, H, Dh, -(-M // out["flash_decode_fold2"]["C"]), 1,
+        ctypes.byref(smem)), "smem")
+    out["fold_smem_bytes"] = smem.value
+
+    def empty(C, rows, barriers):
+        def run():
+            _build.check(fold_lib.eamg_empty_launch(C, rows, smem.value,
+                                                    barriers, stream()),
+                         "empty launch")
+        return run
+
+    fns["empty_kernel"] = empty(0, 1, 0)
+    for C in (16, 8):
+        for nb in (0, 3):
+            fns[f"empty_cluster{C}_b{nb}"] = empty(C, B * 16 // C, nb)
+    mlp = {n: w.to(dt).to(dev) for n, w in
+           ckpt_params["layers"][0]["mlp"].items()}
+    D, FF = mlp["w2"].shape
+    plan = ffn.ffn_plan(D, FF)
+    for rows in (1, ENGINE_SLOTS):
+        x = torch.randn(rows, D, generator=g).to(dt).to(dev)
+        o = torch.empty_like(x)
+        hbuf = torch.empty(plan.scratch_per_row * rows, dtype=dt, device=dev)
+
+        def run(x=x, o=o, hbuf=hbuf, rows=rows):
+            _build.check(ffn_lib.eamg_fused_ffn(
+                x.data_ptr(), mlp["w1"].data_ptr(), mlp["b1"].data_ptr(),
+                mlp["w2"].data_ptr(), mlp["b2"].data_ptr(), o.data_ptr(),
+                hbuf.data_ptr(), rows, D, FF, plan.panel, 0, 0, 1,
+                stream()), "stamped K2")
+
+        run()
+        torch.cuda.synchronize()
+        name = f"fused_ffn_rows{rows}"
+        if not torch.equal(o, ffn.fused_ffn(x, mlp["w1"], mlp["b1"],
+                                            mlp["w2"], mlp["b2"])):
+            raise AssertionError(f"{name}: the stamped build differs")
+        fns[name] = lambda x=x: ffn.fused_ffn(x, mlp["w1"], mlp["b1"],
+                                              mlp["w2"], mlp["b2"])
+        fns[name + "_stamped"] = run
+        stamped[name] = (ffn_lib, run, len(plan.slices), FFN_STAMPS)
+        out[name] = {"blocks": len(plan.slices)}
+    out["event_ms"] = time_cold_ms(torch, fns)
+    for name, (lib, run, n_blocks, names) in stamped.items():
+        out[name].update(_stamped_runs(torch, lib, run, n_blocks, names, khz))
+        _log_phases(f"{name} {out[name]}: event ms "
+                    f"{out['event_ms'][name]:.4f} (stamped "
+                    f"{out['event_ms'][name + '_stamped']:.4f})", out[name],
+                    khz)
+    log("[phases] floors, cold event ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out["event_ms"].items()
+        if k.startswith("empty")) + f" (cluster blocks of {smem.value} "
+        "bytes of shared memory, the fold kernel's)")
+    log(json.dumps({"kernel_phases": out}))
     return out
 
 
@@ -1095,6 +1372,21 @@ def serve_solo(torch):
     return counts, pipe
 
 
+def _port_kernel_names() -> tuple:
+    """The name of every __global__ kernel in the port's CUDA sources, so
+    that the profiler's "port kernels" group follows the sources and no
+    kernel of the port falls into "other"."""
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(\w+)\s*\(")
+    csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "eamg_tpu_torch", "csrc")
+    names = {n for f in sorted(os.listdir(csrc)) if f.endswith(".cu")
+             for n in pat.findall(open(os.path.join(csrc, f)).read())}
+    if not names:
+        raise AssertionError(f"no __global__ kernel found under {csrc}")
+    return tuple(sorted(names))
+
+
 def _trace(torch, tag: str, work) -> dict:
     """Run work() under torch.profiler. Device busy time is the sum of
     kernel times (one stream, so they do not overlap); the idle share is
@@ -1117,13 +1409,7 @@ def _trace(torch, tag: str, work) -> dict:
             rows.append((e.key, us / 1000, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    groups = {"port kernels": ("attn_fwd", "ffn_partial", "ffn_reduce",
-                               "decode_partial", "decode_combine",
-                               "kth_value_kernel", "fold_partial",
-                               "fold_combine", "stream_partial",
-                               "stream_final", "decode_blocks",
-                               "decode_whole", "fold_whole",
-                               "fold_cluster"),
+    groups = {"port kernels": _port_kernel_names(),
               "gemm": ("gemm", "xmma", "cutlass", "cublas", "nvjet")}
     by_group = {g: 0.0 for g in (*groups, "other")}
     for key, ms, _ in rows:
@@ -1437,19 +1723,23 @@ def batch_decode(torch) -> dict:
                                  f"{want}")
         for name, n in counts.items():
             total[name] = total.get(name, 0) + n
-    # fold2 steps at the host's pace, as sp does: the best of three
-    # generations each, the two more taken in turns (sp, fold2, fold2, sp)
-    for impl in ("sp", "fold2", "fold2", "sp"):
+    # fold and fold2 step at the host's pace, as sp does: the best of three
+    # generations each, the two more taken in turns (sp, fold2, fold, fold,
+    # fold2, sp)
+    turn = ("sp", *reversed(FOLD_RATED))
+    for impl in (*turn, *reversed(turn)):
         t0 = time.perf_counter()
         bench.run_once(params, cfg, prompt, 1, max_len, impl)
         rates[impl].append(n_tok / (time.perf_counter() - t0))
-    ratio = max(rates["fold2"]) / max(rates["sp"])
-    log(f"[batch] tokens/s, three generations each: sp "
-        f"{[round(r, 1) for r in rates['sp']]}, fold2 "
-        f"{[round(r, 1) for r in rates['fold2']]}: fold2 / sp {ratio:.3f} "
-        f"(at least {FOLD2_RATE_MIN})")
-    if not ratio >= FOLD2_RATE_MIN:
-        raise AssertionError(f"batch fold2: {ratio:.3f} of sp's rate")
+    ratios = {impl: max(rates[impl]) / max(rates["sp"]) for impl in FOLD_RATED}
+    log("[batch] tokens/s, three generations each: " + ", ".join(
+        f"{impl} {[round(r, 1) for r in rates[impl]]}"
+        for impl in ("sp", *FOLD_RATED)) + "; against sp: " + ", ".join(
+        f"{impl} {r:.3f}" for impl, r in ratios.items())
+        + f" (at least {FOLD_RATE_MIN})")
+    for impl, r in ratios.items():
+        if not r >= FOLD_RATE_MIN:
+            raise AssertionError(f"batch {impl}: {r:.3f} of sp's rate")
     # one more generation of the default attn_impl under torch.profiler
     _trace(torch, "batch", lambda: (max_len - len(bench.PROMPT))
            * bench.run_once(params, cfg, prompt, 2, max_len,
@@ -1546,6 +1836,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         checks = kernel_checks(torch, ckpt["params"])
         bit_identity(torch, ckpt["params"])
+        kernel_phases(torch, ckpt["params"])
     if "teacher" in phases:
         teacher_forced(torch, ckpt)
     if "solo" in phases:

@@ -80,6 +80,26 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// 16 bytes of T at p (16-byte aligned, shared or device memory) as floats
+__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x;
+  f[1] = v.y;
+  f[2] = v.z;
+  f[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(h[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
 // a block may use up to 227 KB of shared memory on sm_90, above 48 KB only
 // after the opt-in below
 constexpr size_t EAMG_MAX_SMEM = 232448;
@@ -91,6 +111,55 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// staging by every thread: 16-byte asynchronous copies (16-byte aligned
+// source and destination), committed in groups and waited on by count
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Phase stamps, in builds with -DEAMG_PHASE_TIMING only (ops/_build.py
+// VARIANTS, loaded by chip_smoke.py alone): thread 0 of a block writes
+// %globaltimer and clock64 at boundary i of n into the buffer that the
+// library's eamg_set_stamps names, at block index y * gridDim.x + x.
+#ifdef EAMG_PHASE_TIMING
+namespace {
+__device__ unsigned long long* g_stamps = nullptr;
+}
+__device__ __forceinline__ void phase_stamp(int i, int n) {
+  if (threadIdx.x == 0 && g_stamps != nullptr) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    unsigned long long* at =
+        g_stamps +
+        2 * (((size_t)blockIdx.y * gridDim.x + blockIdx.x) * n + i);
+    at[0] = ns;
+    at[1] = (unsigned long long)clock64();
+  }
+}
+#define PHASE_STAMP(i, n) phase_stamp(i, n)
+// stamps: 2 * n u64 per block of the library's stamped kernel (null: off)
+extern "C" int eamg_set_stamps(void* stamps) {
+  return (int)cudaMemcpyToSymbol(g_stamps, &stamps, sizeof(stamps));
+}
+#else
+#define PHASE_STAMP(i, n) ((void)0)
+#endif
 
 __device__ __forceinline__ int warp_sum_int(int v) {
 #pragma unroll

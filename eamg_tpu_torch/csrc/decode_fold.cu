@@ -42,35 +42,33 @@
 // so a row's output has the same bits alone and inside any batch.
 // Statistics and accumulators are f32; only the output is rounded.
 //
-// Three more kernels, one launch each, for the uniform batched decode,
-// which selects them by name. What bounds them: the bytes of the prefix
-// 0..t of each row, 2 * (t + 1) * KVD elements (4.9 MB at batch 8, t 300,
-// KVD 512 in bf16), against 4 * H * (t + 1) * Dh flops, about one flop a
-// byte at MHA: bound by bytes, far below where tensor cores would matter.
-//   flash_decode_fold replaces ::flash_decode_fold (_fold_kernel): one block
-//     of 1024 threads per batch row reads the WHOLE cache. Warps walk the
-//     (key, KV head) pairs with their lanes along Dh and leave the scores of
-//     all H heads and M keys in shared memory, [M][H] (keys major); a head's
-//     max and sum are taken by the threads whose index is that head modulo
-//     H, each over a stripe of keys, merged in stripe order. p is rounded to
-//     the cache dtype UNNORMALISED, the f32 sum divides after p.v, which
-//     reads the values straight from device memory. B blocks on 132 SMs.
-//   flash_decode_fold2 replaces ::flash_decode_fold2 (_fold2_kernel) and
-//   flash_decode_fold3 replaces ::flash_decode_fold3 (_fold3_kernel): one
-//     cluster kernel (fold_cluster_kernel). fold2 rounds p as fold does;
-//     fold3 divides p by the sum BEFORE it rounds p to the cache dtype, as
-//     its TPU kernel does, so in bf16 the two round at other places.
+// One more kernel, one launch, for the uniform batched decode, which
+// selects it by name. What bounds it: the bytes of the prefix 0..t of each
+// row, 2 * (t + 1) * KVD elements (4.9 MB at batch 8, t 300, KVD 512 in
+// bf16), against 4 * H * (t + 1) * Dh flops, about one flop a byte at MHA:
+// bound by bytes, far below where tensor cores would matter. It is
+// fold_cluster_kernel, and it replaces three TPU kernels:
+//   ::flash_decode_fold (_fold_kernel) and ::flash_decode_fold2
+//     (_fold2_kernel), which compute one function with one rounding and
+//     differ only in the batch rows of a program: p is rounded to the cache
+//     dtype UNNORMALISED and the f32 sum divides after p.v;
+//   ::flash_decode_fold3 (_fold3_kernel), which divides p by the sum BEFORE
+//     it rounds p, so in bf16 it rounds at another place.
 // The cluster design puts many SMs and many bytes in flight on each row:
 //   - a cluster of C blocks per batch row (B * C blocks: 128 at batch 8 and
 //     C 16, where a block per row gave 8 on 132 SMs). C is 16 (a
 //     non-portable size) wherever the card can place a cluster of 16
 //     blocks of the shape, else 8: the wrapper asks
 //     eamg_fold_cluster_occupancy (ops/decode_fold.py::cluster_size).
-//     Block rank r takes the keys [lo[r], hi[r]) that the wrapper passes in
-//     (ops/decode_fold.py::whole_plan), which depend on M and C alone. It
-//     skips its keys past t[b], which add exactly 0, so the bytes read
-//     scale with t; a block with no key left still joins every cluster
-//     barrier, with max -inf, sum 0 and partials 0;
+//     The row's valid keys 0..t[b] are cut into C ranges in rank order,
+//     ceil((t[b] + 1) / C) keys each (fewer at the end): every block of the
+//     row stages an equal share of the prefix, so the bytes read scale with
+//     t and spread over the whole cluster (at t 300 and M 511 a block with
+//     ranges fixed by M left 6 of 16 blocks idle and gave the others 64 KB
+//     each: the staging time follows a block's bytes, PERF.md). The ranges
+//     depend on the row's own t alone; a block with no key still joins
+//     every cluster barrier, with max -inf, sum 0 and partials 0 (fold2's
+//     two barriers, fold3's three);
 //   - the block's keys are one contiguous slab of the position-major row, K
 //     and V together. It is staged in shared memory in chunks by 16-byte
 //     cp.async copies of every thread, all in flight at once where the slab
@@ -79,16 +77,32 @@
 //   - a score: the lanes of a (key, KV head) row load 16 bytes each (8 lanes
 //     at Dh 64 in bf16, so a warp scores 4 rows a load) and sum in a shuffle
 //     tree within the row's lanes, for all g query heads of the KV head;
-//   - the softmax across the cluster: each block's per-head max is read by
-//     every block through distributed shared memory in rank order, so all
-//     hold the same global max; fold3 exchanges the sums the same way before
-//     it rounds p; each block accumulates its f32 partial [H, Dh] with lanes
-//     along Dh, and block r sums the C partials of its share D / C of the
-//     outputs in rank order (fold2 divides by the C sums in rank order) and
-//     rounds once.
-// Every order depends on the rank and the key position alone, never on B,
-// on `rows` or on another row, so flash_decode_fold2 is bit-equal for every
-// `rows` and a row gets the same bits alone and inside a batch.
+//   - the softmax across the cluster, through distributed shared memory
+//     by stores only (a remote store is fire and forget, a remote load a
+//     round trip): each block pushes its per-head max into row `rank` of
+//     every block's table, and after a cluster barrier each reads the C rows
+//     in rank order, so all hold the same global max; the sums go the same
+//     way (fold3 with a barrier of their own, before it rounds p); each
+//     block accumulates its f32 partial [H, Dh] with lanes along Dh and
+//     pushes each output into the inbox of the block that owns it, block r
+//     owning a share ceil(D / C) of the outputs; after the cluster's last
+//     barrier block r sums its inbox in rank order (fold2 divides by the C
+//     sums in rank order) and rounds once. No block reads or writes
+//     another's memory after that barrier, so none waits for the others to
+//     leave. q is loaded beside t, and the slab copies are issued as
+//     soon as t is read.
+// Every order depends on the rank, the key position and the row's own t
+// alone, never on B, on `rows` or on another row, so flash_decode_fold2 is
+// bit-equal for every `rows` and a row gets the same bits alone and inside
+// a batch.
+//
+// Built a second time with -DEAMG_PHASE_TIMING (ops/_build.py, library
+// decode_fold_timed) for chip_smoke.py's kernel phase alone, which no path
+// of the port loads: thread 0 of every block of fold_cluster_kernel then
+// records %globaltimer and clock64 at each phase boundary (common.cuh,
+// PHASE_STAMP), and two empty kernels (one block; B clusters of C blocks
+// with a given number of cluster barriers) give the floor of that way of
+// timing.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -370,147 +384,15 @@ int launch(const Args& a, int Dh, int variant) {
   }
 }
 
-// ------------------------------- flash_decode_fold: a block per batch row
-
-constexpr int NT_ROW = 1024;  // threads on a batch row
-
-// shared floats of a batch row
-__host__ __device__ inline size_t row_floats(int H, int M, int Dh) {
-  const int D = H * Dh;
-  return (size_t)D + (size_t)H * M + (size_t)(NT_ROW > D ? NT_ROW : D) +
-         2 * H;
-}
-
-// One batch row: q row qp [H * DH], cache row kvp [M, 2 * KVD], output op
-// [H * DH], newest valid position tb (already clamped to M - 1), by the
-// NT_ROW threads of the block, on its shared memory sm.
-template <typename T, int DH>
-__device__ __forceinline__ void fold_row(const T* __restrict__ qp,
-                                         const T* __restrict__ kvp,
-                                         T* __restrict__ op, int tb, int H,
-                                         int Hkv, int M, float scale,
-                                         float* sm) {
-  constexpr int EPL = DH / 32;  // elements of Dh per lane
-  constexpr int n = NT_ROW;
-  const int tid = threadIdx.x;
-  const int g = H / Hkv, KVD = Hkv * DH, D = H * DH;
-  float* qs = sm;                        // [D]
-  float* sc = qs + D;                    // [M][H]
-  float* red = sc + (size_t)H * M;       // [max(n, D)]
-  float* stat = red + (n > D ? n : D);   // max [H], sum [H]
-  const int warp = tid / 32, lane = tid % 32, nw = n / 32;
-
-  for (int e = tid; e < D; e += n) qs[e] = to_f32(qp[e]);
-  __syncthreads();
-
-  // scores of every key, valid or not: a warp per (key, KV head)
-#pragma unroll 2
-  for (int it = warp; it < M * Hkv; it += nw) {
-    const int j = it / Hkv, hk = it % Hkv;
-    const T* kr = kvp + (size_t)j * 2 * KVD + hk * DH + lane;
-    float kf[EPL];
-#pragma unroll
-    for (int i = 0; i < EPL; ++i) kf[i] = to_f32(kr[32 * i]);
-    for (int gi = 0; gi < g; ++gi) {
-      const int h = hk * g + gi;
-      float a = 0.f;
-#pragma unroll
-      for (int i = 0; i < EPL; ++i) a += qs[h * DH + lane + 32 * i] * kf[i];
-      a = warp_sum(a);
-      if (lane == 0) sc[(size_t)j * H + h] = j <= tb ? a * scale : -INFINITY;
-    }
-  }
-  __syncthreads();
-
-  // thread tid serves head tid % H over the keys tid / H, + n / H, ...
-  const int h = tid % H, stripe = tid / H, ns = n / H;
-  float mx = -INFINITY;
-  for (int j = stripe; j < M; j += ns) mx = fmaxf(mx, sc[(size_t)j * H + h]);
-  red[tid] = mx;
-  __syncthreads();
-  if (tid < H) {
-    float r = red[tid];
-    for (int s = 1; s < ns; ++s) r = fmaxf(r, red[s * H + tid]);
-    stat[tid] = r;
-  }
-  __syncthreads();
-  mx = stat[h];
-  float sum = 0.f;
-  for (int j = stripe; j < M; j += ns) {
-    const float p = j <= tb ? expf(sc[(size_t)j * H + h] - mx) : 0.f;
-    sc[(size_t)j * H + h] = round_to<T>(p);   // unnormalised
-    sum += p;
-  }
-  red[tid] = sum;
-  __syncthreads();
-  if (tid < H) {
-    float r = 0.f;
-    for (int s = 0; s < ns; ++s) r += red[s * H + tid];
-    stat[H + tid] = r;
-  }
-  __syncthreads();
-
-  // p.v: G shares of the keys for each of the D outputs
-  const int G = n > D ? n / D : 1;
-  for (int e = tid; e < G * D; e += n) {
-    const int grp = e / D, c = e % D, hh = c / DH;
-    const T* vp = kvp + KVD + (hh / g) * DH + c % DH;
-    float a = 0.f;
-#pragma unroll 8
-    for (int j = grp; j < M; j += G)
-      a += sc[(size_t)j * H + hh] * to_f32(vp[(size_t)j * 2 * KVD]);
-    red[e] = a;
-  }
-  __syncthreads();
-  for (int c = tid; c < D; c += n) {
-    float a = 0.f;
-    for (int gi = 0; gi < G; ++gi) a += red[gi * D + c];
-    op[c] = from_f32<T>(a / fmaxf(stat[H + c / DH], 1e-30f));
-  }
-}
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT_ROW)
-fold_whole_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                  const int* __restrict__ t, T* __restrict__ o, int H,
-                  int Hkv, int M, int q_stride, float scale) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x;
-  fold_row<T, DH>(q + (size_t)b * q_stride, kv + (size_t)b * M * 2 * Hkv * DH,
-                  o + (size_t)b * H * DH, min(t[b], M - 1), H, Hkv, M, scale,
-                  sm);
-}
-
-template <typename T, int DH>
-int launch_whole_dh(const Args& a) {
-  if (NT_ROW % a.H != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * row_floats(a.H, a.M, DH);
-  const cudaError_t e = allow_smem(fold_whole_kernel<T, DH>, smem);
-  if (e != cudaSuccess) return (int)e;
-  fold_whole_kernel<T, DH><<<a.B, NT_ROW, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.kv, a.t, (T*)a.o, a.H, a.Hkv, a.M,
-      a.q_stride, a.scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_whole(const Args& a, int Dh) {
-  switch (Dh) {
-    case 32: return launch_whole_dh<T, 32>(a);
-    case 64: return launch_whole_dh<T, 64>(a);
-    case 128: return launch_whole_dh<T, 128>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// ------------- flash_decode_fold2 and _fold3: a cluster of blocks per row
+// -- flash_decode_fold, _fold2 and _fold3: a cluster of blocks per row
 
 constexpr int NT_CL = 256;             // threads of a cluster's block
 constexpr int NW_CL = NT_CL / 32;
 // blocks in a batch row's cluster, at most: 16 is the most a cluster may
-// hold on sm_90 (non-portable). Reads of the C blocks' shared memory are
-// unrolled to this count, so a thread issues all of them at once.
+// hold on sm_90 (non-portable); the tables every block pushes into have a
+// row for each
 constexpr int CL_MAX = 16;
+constexpr int QPF = 4;                 // elements of q a thread prefetches
 constexpr size_t CHUNK_BYTES = 16384;  // a staged chunk of keys, at most
 // the staging slots of a block, at most: at the batched decode's shape the
 // rest of its shared memory is small enough that two blocks fit on an SM.
@@ -518,16 +400,19 @@ constexpr size_t CHUNK_BYTES = 16384;  // a staged chunk of keys, at most
 // the card reports (eamg_fold_cluster_occupancy).
 constexpr size_t SLOT_BUDGET = 96 * 1024;
 
-// The key range [lo[r], hi[r]) of block rank r (ops/decode_fold.py::
-// whole_plan), passed by value.
-struct KeyRanges {
-  int lo[CL_MAX], hi[CL_MAX];
-};
+// the phase boundaries of fold_cluster_kernel that a timed build stamps:
+// entry, t read and the slab issued and q loaded, first chunk staged,
+// scores (every chunk staged and scored), max exchanged, p (fold3: sums
+// exchanged), p.v partials pushed, output barrier, outputs stored
+constexpr int N_STAMP = 9;
+#define FOLD_STAMP(i) PHASE_STAMP(i, N_STAMP)
 
 // Byte offsets into a cluster block's shared memory; the launcher and the
-// kernel compute them from the same arguments.
+// kernel compute them from the same arguments. xm, xs and inbox are written
+// by the other blocks of the cluster (each pushes its values into row
+// `rank` of every block, or of the block that owns them).
 struct ClusterSmem {
-  size_t slots, qs, sc, red, part, stat, total;
+  size_t slots, qs, sc, red, xm, xs, gm, gs, inbox, total;
   __host__ __device__ ClusterSmem(int D, int H, int R, int KG,
                                   size_t slot_bytes, int nslot) {
     size_t off = 0;
@@ -539,52 +424,30 @@ struct ClusterSmem {
     off += sizeof(float) * H * R;       // [H][R] scores, then p
     red = off;
     off += sizeof(float) * KG * D;      // p.v of each key group
-    part = off;
-    off += sizeof(float) * D;           // the block's f32 partial [H, Dh]
-    stat = off;
-    off += sizeof(float) * 4 * H;       // block max, block sum, global
-    total = off;                        // max, global sum [H] each
+    xm = off;
+    off += sizeof(float) * CL_MAX * H;  // every block's max [C][H]
+    xs = off;
+    off += sizeof(float) * CL_MAX * H;  // every block's sum [C][H]
+    gm = off;
+    off += sizeof(float) * H;           // global max [H]
+    gs = off;
+    off += sizeof(float) * H;           // global sum [H] (fold3)
+    inbox = off;                        // every block's partial of this
+    off += sizeof(float) * (D + CL_MAX);  // block's share [C][ceil(D / C)]
+    total = off;
   }
 };
 
-// 16 bytes of T at p (16-byte aligned, shared or device memory) as floats
-__device__ __forceinline__ void load16(const float* p, float (&f)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  f[0] = v.x;
-  f[1] = v.y;
-  f[2] = v.z;
-  f[3] = v.w;
+// Split cluster barrier, called by every thread of the cluster in uniform
+// control flow: arriving at entry and waiting before the first write into
+// another block's shared memory makes sure that block runs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p,
-                                       float (&f)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// staging by every thread: 16-byte asynchronous copies, one group per chunk
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 // wait until at most n of this thread's groups are in flight (7 if more)
 __device__ __forceinline__ void cp_async_wait_pending(int n) {
   switch (n) {
@@ -599,36 +462,9 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
   }
 }
 
-// The max and the sum over the C blocks of a cluster of the float at p in
-// each block's shared memory, in rank order. All CL_MAX reads are issued,
-// unconditionally, before any is used: read k goes to rank k % C (C a power
-// of two), and only the first C enter the sum (a repeat leaves the max as
-// it is).
-__device__ __forceinline__ float cluster_max(
-    cooperative_groups::cluster_group& cluster, float* p, int C) {
-  float v[CL_MAX];
-#pragma unroll
-  for (int k = 0; k < CL_MAX; ++k)
-    v[k] = *cluster.map_shared_rank(p, k & (C - 1));
-  float m = v[0];
-#pragma unroll
-  for (int k = 1; k < CL_MAX; ++k) m = fmaxf(m, v[k]);
-  return m;
-}
-__device__ __forceinline__ float cluster_sum(
-    cooperative_groups::cluster_group& cluster, float* p, int C) {
-  float v[CL_MAX];
-#pragma unroll
-  for (int k = 0; k < CL_MAX; ++k)
-    v[k] = *cluster.map_shared_rank(p, k & (C - 1));
-  float s = 0.f;
-#pragma unroll
-  for (int k = 0; k < CL_MAX; ++k) s += k < C ? v[k] : 0.f;   // + 0: the same
-  return s;
-}
-
 // Grid (C, B), clusters of (C, 1, 1): block rank r of batch row b takes the
-// keys [kr.lo[r], kr.hi[r]), R of them at most; NK keys a staged chunk,
+// keys [r * Rt, (r + 1) * Rt) of the row's t[b] + 1 valid ones, Rt =
+// ceil((t[b] + 1) / C), cut at t[b] + 1, R = ceil(M / C) of them at most; NK keys a staged chunk,
 // nslot chunk slots. BEFORE: fold3's rounding (p / sum rounded), else
 // fold2's.
 template <typename T, int DH, bool BEFORE>
@@ -636,7 +472,7 @@ __global__ void __launch_bounds__(NT_CL)
 fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                     const int* __restrict__ t, T* __restrict__ o, int H,
                     int Hkv, int M, int q_stride, float scale,
-                    const KeyRanges kr, int R, int NK, int nslot) {
+                    int R, int NK, int nslot) {
   namespace cg = cooperative_groups;
   constexpr int VE = 16 / sizeof(T);  // elements in 16 bytes
   constexpr int LPR = DH / VE;        // lanes on a (key, KV head) row
@@ -653,32 +489,32 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   float* qs = reinterpret_cast<float*>(smem + L.qs);
   float* sc = reinterpret_cast<float*>(smem + L.sc);
   float* red = reinterpret_cast<float*>(smem + L.red);
-  float* part = reinterpret_cast<float*>(smem + L.part);
-  float* bm = reinterpret_cast<float*>(smem + L.stat);  // block max [H]
-  float* bs = bm + H;                                   // block sum [H]
-  float* gm = bs + H;                                   // global max [H]
-  float* gs = gm + H;                                   // global sum [H]
+  float* xm = reinterpret_cast<float*>(smem + L.xm);
+  float* xs = reinterpret_cast<float*>(smem + L.xs);
+  float* gm = reinterpret_cast<float*>(smem + L.gm);
+  float* gs = reinterpret_cast<float*>(smem + L.gs);
+  float* inbox = reinterpret_cast<float*>(smem + L.inbox);
 
+  FOLD_STAMP(0);
+  // another block's memory may be written only once it runs: arrive now,
+  // wait before the first push
+  cluster_arrive();
+  // q's loads in flight beside t's (the first QPF * NT_CL elements)
+  const T* qp = q + (size_t)b * q_stride;
+  float qv[QPF];
+#pragma unroll
+  for (int i = 0; i < QPF; ++i) {
+    const int e = tid + i * NT_CL;
+    qv[i] = e < D ? to_f32(qp[e]) : 0.f;
+  }
   // this block's valid keys: [s0, s0 + n), n = 0 past t[b]
   const int tb = min(t[b], M - 1);
-  // kr.lo[r] and kr.hi[r], read at constant indices: indexed by r itself,
-  // the kernel took about 1 us longer on an H100
-  int s0 = 0, s1 = 0;
-#pragma unroll
-  for (int k = 0; k < CL_MAX; ++k) {
-    if (k == r) {
-      s0 = kr.lo[k];
-      s1 = kr.hi[k];
-    }
-  }
-  const int n = max(0, min(s1, tb + 1) - s0);
+  const int nv = tb + 1, Rt = (nv + C - 1) / C;
+  const int s0 = min(r * Rt, nv);
+  const int n = min(s0 + Rt, nv) - s0;
   const int nch = (n + NK - 1) / NK;
   const bool resident = nch <= nslot;   // the whole slab stays in place
   const T* src = kv + ((size_t)b * M + s0) * RW;
-
-  const T* qp = q + (size_t)b * q_stride;
-  for (int e = tid; e < D; e += NT_CL) qs[e] = to_f32(qp[e]);
-  __syncthreads();
 
   // chunk c: keys [c * NK, min(n, (c + 1) * NK)) into slot c % nslot
   auto issue = [&](int c) {
@@ -692,11 +528,18 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
   };
   int issued = 0;
   for (; issued < min(nch, nslot); ++issued) issue(issued);
+  // q, read after the first wait's barrier
+#pragma unroll
+  for (int i = 0; i < QPF; ++i)
+    if (tid + i * NT_CL < D) qs[tid + i * NT_CL] = qv[i];
+  for (int e = tid + QPF * NT_CL; e < D; e += NT_CL) qs[e] = to_f32(qp[e]);
+  FOLD_STAMP(1);
 
   // scores: the RPW rows of a warp load lie on lanes [LPR * i, LPR * (i+1))
   for (int c = 0; c < nch; ++c) {
     cp_async_wait_pending(issued - c - 1);
     __syncthreads();
+    if (c == 0) FOLD_STAMP(2);
     const T* ks = slot + (size_t)(c % nslot) * NK * RW;
     const int pairs = min(NK, n - c * NK) * Hkv;
     const int sub = lane % LPR;
@@ -721,20 +564,29 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     __syncthreads();   // slot c % nslot is free again
     if (issued < nch) issue(issued++);
   }
+  FOLD_STAMP(3);
 
-  // the global max of each head, the same in every block of the cluster
+  // the global max of each head, the same in every block of the cluster:
+  // each block pushes its max into row r of every block's xm, then reads
+  // the C rows in rank order
+  cluster_wait();
   for (int h = warp; h < H; h += NW_CL) {
     float mx = -INFINITY;
     for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sc[(size_t)h * R + j]);
     mx = warp_max(mx);
-    if (lane == 0) bm[h] = mx;
+    if (lane < C) *cluster.map_shared_rank(xm + r * H + h, lane) = mx;
   }
   cluster.sync();
-  for (int h = tid; h < H; h += NT_CL)
-    gm[h] = cluster_max(cluster, bm + h, C);
+  for (int h = tid; h < H; h += NT_CL) {
+    float m = xm[h];
+    for (int k = 1; k < C; ++k) m = fmaxf(m, xm[k * H + h]);
+    gm[h] = m;
+  }
   __syncthreads();
+  FOLD_STAMP(4);
 
-  // p = exp(s - max): rounded now (fold2), or after the global sum (fold3)
+  // p = exp(s - max): rounded now (fold2), or after the global sum (fold3);
+  // each block's sums pushed into row r of every block's xs
   for (int h = warp; h < H; h += NW_CL) {
     const float mx = gm[h];
     float sum = 0.f;
@@ -744,12 +596,15 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
       sum += p;
     }
     sum = warp_sum(sum);
-    if (lane == 0) bs[h] = sum;
+    if (lane < C) *cluster.map_shared_rank(xs + r * H + h, lane) = sum;
   }
   if (BEFORE) {
     cluster.sync();
-    for (int h = tid; h < H; h += NT_CL)
-      gs[h] = fmaxf(cluster_sum(cluster, bs + h, C), 1e-30f);
+    for (int h = tid; h < H; h += NT_CL) {
+      float a = 0.f;
+      for (int k = 0; k < C; ++k) a += xs[k * H + h];
+      gs[h] = fmaxf(a, 1e-30f);
+    }
     __syncthreads();
     for (int e = tid; e < H * n; e += NT_CL) {
       const int h = e / n, j = e % n;
@@ -757,6 +612,7 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     }
   }
   __syncthreads();
+  FOLD_STAMP(5);
 
   // the block's partial [H, Dh]: KG groups of keys, VE outputs a thread,
   // V from the resident slab or again from device memory
@@ -780,22 +636,34 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     for (int i = 0; i < VE; ++i) red[(size_t)grp * D + c0 + i] = acc[i];
   }
   __syncthreads();
+  // output c belongs to block c / per: pushed into row r of its inbox
+  const int per = (D + C - 1) / C;
   for (int c = tid; c < D; c += NT_CL) {
     float a = 0.f;
     for (int k = 0; k < KG; ++k) a += red[(size_t)k * D + c];
-    part[c] = a;
+    const int owner = c / per;
+    *cluster.map_shared_rank(inbox + r * per + c - owner * per, owner) = a;
   }
+  FOLD_STAMP(6);
+  // every push is in place; no block touches another's memory after this,
+  // so none waits for the others to leave
   cluster.sync();
+  FOLD_STAMP(7);
 
   // block r: its share of the outputs, the C partials summed in rank order
-  const int per = (D + C - 1) / C;
+  // (fold2 divides by the C sums in rank order)
   const int c_end = min(D, (r + 1) * per);
   for (int c = r * per + tid; c < c_end; c += NT_CL) {
-    float a = cluster_sum(cluster, part + c, C);
-    if (!BEFORE) a /= fmaxf(cluster_sum(cluster, bs + c / DH, C), 1e-30f);
+    float a = 0.f;
+    for (int k = 0; k < C; ++k) a += inbox[k * per + c - r * per];
+    if (!BEFORE) {
+      float sum = 0.f;
+      for (int k = 0; k < C; ++k) sum += xs[k * H + c / DH];
+      a /= fmaxf(sum, 1e-30f);
+    }
     o[(size_t)b * D + c] = from_f32<T>(a);
   }
-  cluster.sync();   // no block leaves while another reads its memory
+  FOLD_STAMP(8);
 }
 
 // How a cluster block of the kernel stages R keys: NK keys a chunk, nslot
@@ -864,7 +732,7 @@ cudaLaunchConfig_t cluster_config(int C, int B, size_t smem,
 }
 
 template <typename T, int DH, bool BEFORE>
-int launch_cluster_k(const Args& a, const KeyRanges& kr, int C, int R) {
+int launch_cluster_k(const Args& a, int C, int R) {
   const ClusterShape s = cluster_shape<T, DH>(a.H, a.Hkv, R);
   cudaError_t e = prepare_cluster<T, DH, BEFORE>(s.smem);
   if (e != cudaSuccess) return (int)e;
@@ -873,7 +741,7 @@ int launch_cluster_k(const Args& a, const KeyRanges& kr, int C, int R) {
                                                 &attr);
   e = cudaLaunchKernelEx(&cfg, fold_cluster_kernel<T, DH, BEFORE>,
                          (const T*)a.q, (const T*)a.kv, a.t, (T*)a.o, a.H,
-                         a.Hkv, a.M, a.q_stride, a.scale, kr, R, s.NK,
+                         a.Hkv, a.M, a.q_stride, a.scale, R, s.NK,
                          s.nslot);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -937,56 +805,27 @@ extern "C" int eamg_fold_decode(const void* q, const void* kv, const int* t,
   return (int)cudaErrorInvalidValue;
 }
 
-// flash_decode_fold: a block of 1024 threads per batch row over the whole
-// cache. q_stride as above; no scratch. Returns cudaErrorInvalidValue when
-// the block's shared memory (4 * H * M bytes of scores and a little more)
-// would exceed what the card allows.
-extern "C" int eamg_fold_decode_whole(const void* q, const void* kv,
-                                      const int* t, void* o, int B, int H,
-                                      int Hkv, int M, int Dh, int q_stride,
-                                      float scale, int dtype, void* stream) {
-  if (H % Hkv != 0 || M <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
-  const Args a = {q, kv, t, o, nullptr, B, H, Hkv, M, q_stride, scale,
-                  (cudaStream_t)stream};
-  if (dtype == EAMG_F32) return launch_whole<float>(a, Dh);
-  if (dtype == EAMG_BF16) return launch_whole<__nv_bfloat16>(a, Dh);
-  return (int)cudaErrorInvalidValue;
-}
-
-// flash_decode_fold2 (before 0) and flash_decode_fold3 (before 1): a
-// cluster of C blocks per batch row (C 1, 2, 4, 8 or 16); block rank r
-// takes the keys [ranges[2r], ranges[2r + 1]) (the wrapper's whole_plan:
-// together, in rank order, 0..M-1), staged by every thread's 16-byte
-// copies. q_stride as above; kv 16-byte aligned. Returns
-// cudaErrorInvalidValue for ranges that do not cover 0..M-1 in rank order,
-// or when a block's shared memory (the staging slots, 4 * H * R bytes of
-// scores and a little more) would exceed what the card allows; a cluster
-// the card cannot place comes back as CUDA's own error.
+// flash_decode_fold and _fold2 (before 0) and flash_decode_fold3 (before
+// 1): a cluster of C blocks per batch row (C 1, 2, 4, 8 or 16); block rank
+// r of row b takes the keys [r * Rt, (r + 1) * Rt) of the row's valid
+// t[b] + 1, Rt = ceil((t[b] + 1) / C), cut at t[b] + 1, staged by every thread's 16-byte copies. q_stride as above; kv 16-byte
+// aligned. Returns cudaErrorInvalidValue when a block's shared memory (the
+// staging slots, 4 * H * ceil(M / C) bytes of scores and a little more)
+// would exceed what the card allows; a cluster the card cannot place comes
+// back as CUDA's own error.
 extern "C" int eamg_fold_decode_cluster(const void* q, const void* kv,
                                         const int* t, void* o, int B, int H,
                                         int Hkv, int M, int Dh, int q_stride,
                                         float scale, int before, int C,
-                                        const int* ranges, int dtype,
-                                        void* stream) {
+                                        int dtype, void* stream) {
   if (H % Hkv != 0 || M <= 0 || B <= 0 || C < 1 || C > CL_MAX ||
       (C & (C - 1)))
     return (int)cudaErrorInvalidValue;
-  KeyRanges kr;
-  int R = 0;
-  for (int r = 0; r < C; ++r) {
-    kr.lo[r] = ranges[2 * r];
-    kr.hi[r] = ranges[2 * r + 1];
-    if (kr.lo[r] != (r ? kr.hi[r - 1] : 0) || kr.hi[r] < kr.lo[r])
-      return (int)cudaErrorInvalidValue;
-    R = std::max(R, kr.hi[r] - kr.lo[r]);
-  }
-  if (kr.hi[C - 1] != M) return (int)cudaErrorInvalidValue;
-  for (int r = C; r < CL_MAX; ++r) kr.lo[r] = kr.hi[r] = M;
   const Args a = {q, kv, t, o, nullptr, B, H, Hkv, M, q_stride, scale,
                   (cudaStream_t)stream};
   return by_instance(dtype, Dh, before != 0, [&](auto t_, auto dh, auto bf) {
     return launch_cluster_k<decltype(t_), decltype(dh)::value,
-                            decltype(bf)::value>(a, kr, C, R);
+                            decltype(bf)::value>(a, C, (M + C - 1) / C);
   });
 }
 
@@ -1005,3 +844,61 @@ extern "C" int eamg_fold_cluster_occupancy(int H, int Hkv, int Dh, int R,
                        decltype(bf)::value>(H, Hkv, C, R, active);
   });
 }
+
+#ifdef EAMG_PHASE_TIMING
+namespace {
+
+__global__ void empty_kernel() {}
+
+__global__ void empty_cluster_kernel(int barriers) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  for (int i = 0; i < barriers; ++i) cluster.sync();
+}
+
+}  // namespace
+
+// The shared memory of a cluster block of fold_cluster_kernel at the shape,
+// R keys a block, into *bytes (as the launcher computes it).
+extern "C" int eamg_fold_cluster_smem(int H, int Hkv, int Dh, int R,
+                                      int dtype, long long* bytes) {
+  if (Hkv <= 0 || H % Hkv != 0 || R < 1) return (int)cudaErrorInvalidValue;
+  return by_instance(dtype, Dh, false, [&](auto t_, auto dh, auto) {
+    *bytes = (long long)cluster_shape<decltype(t_), decltype(dh)::value>(
+                 H, Hkv, R).smem;
+    return 0;
+  });
+}
+
+// C 0: one empty block of 32 threads. Else B clusters of C empty blocks of
+// 256 threads and `smem` bytes of shared memory, each block passing
+// `barriers` cluster barriers.
+extern "C" int eamg_empty_launch(int C, int B, long long smem, int barriers,
+                                 void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C == 0) {
+    empty_kernel<<<1, 32, 0, s>>>();
+    return (int)cudaGetLastError();
+  }
+  if (C < 1 || C > CL_MAX || B < 1) return (int)cudaErrorInvalidValue;
+  static std::mutex mu;
+  static long long allowed = -1;   // the first device this process uses
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (allowed < smem) {
+      cudaError_t e = cudaFuncSetAttribute(
+          empty_cluster_kernel,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e == cudaSuccess) e = allow_smem(empty_cluster_kernel, smem);
+      if (e != cudaSuccess) return (int)e;
+      allowed = smem;
+    }
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(C, B, (size_t)smem, s, &attr);
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, empty_cluster_kernel, barriers);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+#endif

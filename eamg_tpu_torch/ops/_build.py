@@ -7,7 +7,8 @@ flags, so an edited kernel is rebuilt and an unchanged one is reused. The
 libraries have a plain C interface and are loaded with ``ctypes``; nothing
 here includes PyTorch's headers, so a build takes seconds. Nothing is
 built when a module is imported: the first launch, or :func:`build_all`,
-builds.
+builds. :data:`VARIANTS` builds a source once more under extra flags, into
+a library of its own name.
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "eamg_tpu_torch"
 SOURCES = ("attention", "ffn", "decode_attention", "topk", "decode_fold",
            "stream_reduce")
+# library name -> (source, extra nvcc flags): the cluster fold kernel and
+# K2 with their phase stamps, and the empty launches that time their floor,
+# loaded by chip_smoke.py alone
+VARIANTS = {"decode_fold_timed": ("decode_fold", ("-DEAMG_PHASE_TIMING",)),
+            "ffn_timed": ("ffn", ("-DEAMG_PHASE_TIMING",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -73,6 +79,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(VARIANTS.items())).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
@@ -84,8 +91,8 @@ def lib_path(name: str) -> Path:
     return BUILD_ROOT / _digest() / f"lib{name}.so"
 
 
-def build_all(names=SOURCES) -> dict:
-    """Compile every missing library, one ``nvcc`` per source, all started
+def build_all(names=(*SOURCES, *VARIANTS)) -> dict:
+    """Compile every missing library, one ``nvcc`` per library, all started
     together. Returns {name: seconds} for what was built."""
     out_dir = BUILD_ROOT / _digest()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -96,7 +103,9 @@ def build_all(names=SOURCES) -> dict:
         if target.exists():
             continue
         tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags = VARIANTS.get(name, (name, ()))
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
+               str(CSRC / f"{src}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
@@ -104,7 +113,7 @@ def build_all(names=SOURCES) -> dict:
     for name, (proc, tmp, target) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu:\n{log}")
+            errors.append(f"nvcc failed for lib{name}:\n{log}")
             continue
         os.replace(tmp, target)
         times[name] = time.perf_counter() - t0
@@ -114,7 +123,8 @@ def build_all(names=SOURCES) -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library ``name`` (``csrc/<name>.cu``, or a build of
+    :data:`VARIANTS`), built on first use."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

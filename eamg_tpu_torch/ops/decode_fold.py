@@ -22,10 +22,12 @@ thread layouts and launches (see the CUDA source) and, in bf16, in where
 the probabilities are rounded: ``flash_decode_fold`` and
 ``flash_decode_fold2`` round them unnormalised and divide by their sum
 after the product with the values, as their TPU kernels do;
-``flash_decode_fold3`` divides first. ``flash_decode_fold2`` and
-``flash_decode_fold3`` launch one cluster of blocks per batch row, as
-many as :func:`cluster_size` picks for the card, each block on the fixed
-key range that :func:`whole_plan` gives it.
+``flash_decode_fold3`` divides first. Those three launch one cluster
+kernel, one cluster of C blocks per batch row (C as :func:`cluster_size`
+picks for the card), block rank r on the keys [r * R, (r + 1) * R) of the
+row's t[b] + 1 valid ones, R = ceil((t[b] + 1) / C), with the rounding
+that :data:`ROUNDING` names (so ``flash_decode_fold`` and
+``flash_decode_fold2`` launch the same kernel, under their own names).
 :data:`fold_decode` names the one the ragged decode and the engine call.
 """
 
@@ -40,7 +42,6 @@ import torch
 from . import _build
 
 SPLIT = 64     # keys per split: CH in csrc/decode_fold.cu
-NT_ROW = 1024  # threads on a batch row, fold: NT_ROW in the same file
 RS = 16        # lines per block: RS in csrc/stream_reduce.cu
 
 
@@ -162,17 +163,10 @@ def flash_decode_fold3_sp(q: torch.Tensor, kv: torch.Tensor, t,
 
 
 @functools.cache
-def _launch_whole():
-    P, I, F = _build.P, _build.I, _build.F
-    return _build.bind("decode_fold", "eamg_fold_decode_whole",
-                       [P, P, P, P, I, I, I, I, I, I, F, I, P])
-
-
-@functools.cache
 def _launch_cluster():
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("decode_fold", "eamg_fold_decode_cluster",
-                       [P, P, P, P, I, I, I, I, I, I, F, I, I, P, I, P])
+                       [P, P, P, P, I, I, I, I, I, I, F, I, I, I, P])
 
 
 @functools.cache
@@ -180,26 +174,6 @@ def _launch_occupancy():
     P, I = _build.P, _build.I
     return _build.bind("decode_fold", "eamg_fold_cluster_occupancy",
                        [I, I, I, I, I, I, I, P])
-
-
-def whole_plan(M: int, C: int) -> list[tuple[int, int]]:
-    """The key ranges of the cluster kernels behind
-    :func:`flash_decode_fold2` and :func:`flash_decode_fold3` over a cache
-    of M positions, C blocks a batch row -> [(start, stop)] * C: block rank
-    r takes the positions [start, stop), ceil(M / C) of them (fewer at the
-    end, none past M). The wrapper hands them to the kernel as they are.
-    They depend on M and C alone, so every order of the kernels' sums is
-    fixed by the key position and the rank, whatever the batch, ``rows``
-    or another row's length."""
-    R = -(-M // C)
-    return [(min(r * R, M), min((r + 1) * R, M)) for r in range(C)]
-
-
-@functools.cache
-def _ranges_arg(M: int, C: int) -> ctypes.Array:
-    """:func:`whole_plan` as the kernel's ``ranges``: start, stop per rank."""
-    flat = [x for rng in whole_plan(M, C) for x in rng]
-    return (ctypes.c_int * len(flat))(*flat)
 
 
 def cluster_size(active16: int) -> int:
@@ -219,7 +193,8 @@ def cluster_occupancy(n_head: int, kv_heads: int, M: int, Dh: int,
                       normalize: str, dtype: torch.dtype) -> tuple[int, int]:
     """(clusters of 8, clusters of 16 blocks) of the cluster kernel with
     ``normalize``'s rounding that the current card keeps resident at once,
-    at that shape, over the key ranges of :func:`whole_plan`."""
+    at that shape, its blocks sized for ceil(M / C) keys, the most a block
+    takes of a row."""
     out = []
     for C in (8, 16):
         active = (ctypes.c_int * 1)()
@@ -231,11 +206,19 @@ def cluster_occupancy(n_head: int, kv_heads: int, M: int, Dh: int,
     return out[0], out[1]
 
 
-def _fold_cluster(name: str, normalize: str, q: torch.Tensor,
-                  kv: torch.Tensor, t, n_head: int,
-                  C: int | None = None) -> torch.Tensor:
-    """The cluster kernel with ``normalize``'s rounding, C blocks a batch
+# Where each wrapper of the cluster kernel rounds the probabilities
+# (:func:`decode_attention_pm_plain`'s ``normalize``): flash_decode_fold and
+# flash_decode_fold2 are one function with one rounding, as their TPU
+# kernels are.
+ROUNDING = {"flash_decode_fold": "after", "flash_decode_fold2": "after",
+            "flash_decode_fold3": "before"}
+
+
+def _fold_cluster(name: str, q: torch.Tensor, kv: torch.Tensor, t,
+                  n_head: int, C: int | None = None) -> torch.Tensor:
+    """The cluster kernel as wrapper ``name`` launches it, C blocks a batch
     row (None: :func:`cluster_size` of the card at this shape)."""
+    normalize = ROUNDING[name]
     if q.device.type == "cpu":
         return decode_attention_pm_plain(q, kv, t, n_head, normalize)
     _check_fold(name, q, kv, n_head)
@@ -252,7 +235,7 @@ def _fold_cluster(name: str, normalize: str, q: torch.Tensor,
     err = _launch_cluster()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
                             o.data_ptr(), B, n_head, KVD // Dh, M, Dh,
                             q.stride(0), 1.0 / math.sqrt(Dh),
-                            int(normalize == "before"), C, _ranges_arg(M, C),
+                            int(normalize == "before"), C,
                             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
     _build.check(err, name, smem=f"n_head {n_head}, M {M}")
     _build.count_launch(name)
@@ -262,41 +245,24 @@ def _fold_cluster(name: str, normalize: str, q: torch.Tensor,
 def flash_decode_fold(q: torch.Tensor, kv: torch.Tensor, t,
                       n_head: int) -> torch.Tensor:
     """Attention of q [B, 1, D] over positions 0..t[b] of the fused cache
-    kv [B, M, 2 * KVD] -> [B, 1, D]; t a scalar or [B] int. CPU tensors
-    take :func:`decode_attention_pm_plain` with ``normalize="after"``; CUDA
-    tensors launch the one-launch kernel, a block per batch row, which
-    reads the whole cache and rounds the probabilities unnormalised."""
-    name = "flash_decode_fold"
-    if q.device.type == "cpu":
-        return decode_attention_pm_plain(q, kv, t, n_head, "after")
-    _check_fold(name, q, kv, n_head)
-    B, _, D = q.shape
-    M, KVD = kv.shape[1], kv.shape[2] // 2
-    Dh = D // n_head
-    if NT_ROW % n_head:
-        raise ValueError(f"{name}: n_head {n_head} must divide {NT_ROW}")
-    tb = _row_positions(t, B, q.device).contiguous()
-    o = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
-    err = _launch_whole()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
-                          o.data_ptr(), B, n_head, KVD // Dh, M, Dh,
-                          q.stride(0), 1.0 / math.sqrt(Dh),
-                          _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
-    _build.check(err, name, smem=f"n_head {n_head}, M {M}")
-    _build.count_launch(name)
-    return o
+    kv [B, M, 2 * KVD] -> [B, 1, D]; t a scalar or [B] int, the
+    probabilities rounded unnormalised. CPU tensors take
+    :func:`decode_attention_pm_plain` with ``normalize="after"``; CUDA
+    tensors launch the cluster kernel, a cluster of blocks per batch row,
+    which reads the prefix 0..t[b] only."""
+    return _fold_cluster("flash_decode_fold", q, kv, t, n_head)
 
 
 def flash_decode_fold2(q: torch.Tensor, kv: torch.Tensor, t, n_head: int,
                        rows: int = 4) -> torch.Tensor:
-    """The function of :func:`flash_decode_fold`, with its rounding; CUDA
-    tensors launch a cluster of blocks per batch row, which reads the
-    prefix 0..t[b] only. ``rows`` (``B % rows == 0``) is the TPU kernel's
+    """The function of :func:`flash_decode_fold`, with its rounding, and
+    the same kernel. ``rows`` (``B % rows == 0``) is the TPU kernel's
     batch rows per program: it is checked as JAX checks it and shapes
     nothing here, so the result does not depend on it, to the bit."""
     if q.dim() == 3 and (rows <= 0 or q.shape[0] % rows):
         raise ValueError(f"flash_decode_fold2: batch {q.shape[0]} is no "
                          f"multiple of rows {rows}")
-    return _fold_cluster("flash_decode_fold2", "after", q, kv, t, n_head)
+    return _fold_cluster("flash_decode_fold2", q, kv, t, n_head)
 
 
 def flash_decode_fold3(q: torch.Tensor, kv: torch.Tensor, t,
@@ -305,7 +271,7 @@ def flash_decode_fold3(q: torch.Tensor, kv: torch.Tensor, t,
     before they are rounded (CPU: :func:`decode_attention_pm_plain`,
     ``"before"``); CUDA tensors launch the cluster kernel of
     :func:`flash_decode_fold2` with that rounding."""
-    return _fold_cluster("flash_decode_fold3", "before", q, kv, t, n_head)
+    return _fold_cluster("flash_decode_fold3", q, kv, t, n_head)
 
 
 # The decode attention of the ragged decode and the engine: the faster of

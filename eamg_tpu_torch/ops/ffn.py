@@ -7,6 +7,7 @@ Replaces ``eamg_tpu/ops/ffn.py::fused_ffn``:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -15,6 +16,8 @@ import torch.nn.functional as F
 from . import _build
 
 _ACT = {"relu": 0, "gelu": 1}
+FS = 16          # FF columns of a slice: FS in csrc/ffn.cu
+PANEL_MAX = 512  # elements of D staged at once, at most: PANEL_MAX there
 
 
 def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -31,50 +34,97 @@ def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out.to(dt)
 
 
+@dataclasses.dataclass(frozen=True)
+class FFNPlan:
+    """How K2 cuts an FFN of width D and FF: the FF columns of phase 1's
+    ``slices`` ([start, stop), in order; a block takes slices b, b + G,
+    ...), D staged in panels of ``panel`` elements, and
+    ``scratch_per_row`` elements (x's dtype) of scratch for each row: its
+    h, read back by every block in phase 2."""
+    slices: tuple
+    panel: int
+    scratch_per_row: int
+
+
+@functools.cache
+def ffn_plan(D: int, FF: int) -> FFNPlan:
+    """The plan of K2 for D and FF (multiples of 64). It takes no rows: the
+    slices, the panels and every order of the kernel's sums follow from D
+    and FF alone, so a row gets the same bits alone and inside a batch."""
+    if D <= 0 or FF <= 0 or D % 64 or FF % 64:
+        raise ValueError(f"fused_ffn: D {D}, FF {FF}: both must be positive "
+                         "multiples of 64")
+    slices = tuple((f, f + FS) for f in range(0, FF, FS))
+    panel = max(p for p in range(64, min(D, PANEL_MAX) + 1, 64) if D % p == 0)
+    return FFNPlan(slices, panel, FF)
+
+
+def check_args(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+               w2: torch.Tensor, b2: torch.Tensor,
+               activation: str) -> FFNPlan:
+    """What K2 takes, checked on any device -> its plan: x [..., D] of
+    float32 or bfloat16 (weights of another dtype are cast to x's, biases
+    of another dtype to float32, by the wrapper); D and FF multiples of 64;
+    relu or gelu. Raises ValueError on the rest."""
+    if x.dtype not in _build.DTYPE_CODE:
+        raise ValueError(f"fused_ffn: dtype {x.dtype}; want float32 or "
+                         "bfloat16")
+    if activation not in _ACT:
+        raise ValueError(f"fused_ffn: activation {activation!r}; want relu "
+                         "or gelu")
+    D, FF = x.shape[-1], w1.shape[0]
+    if w1.shape != (FF, D) or w2.shape != (D, FF) or b1.shape != (FF,) \
+            or b2.shape != (D,):
+        raise ValueError(f"fused_ffn: shapes x {tuple(x.shape)} w1 "
+                         f"{tuple(w1.shape)} b1 {tuple(b1.shape)} w2 "
+                         f"{tuple(w2.shape)} b2 {tuple(b2.shape)}")
+    return ffn_plan(D, FF)
+
+
 @functools.cache
 def _launch():
     P, I = _build.P, _build.I
     return _build.bind("ffn", "eamg_fused_ffn",
-                       [P, P, P, P, P, P, P, I, I, I, I, I, P])
+                       [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor,
               activation: str = "relu") -> torch.Tensor:
     """x [..., D], w1 [FF, D], b1 [FF], w2 [D, FF], b2 [D] -> [..., D].
-    CPU tensors take :func:`ffn_plain`; CUDA tensors launch K2."""
+    CPU tensors take :func:`ffn_plain`; CUDA tensors launch K2, one
+    cooperative launch (:func:`check_args` says what it takes)."""
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2, activation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn: unsupported device {x.device}")
-    if x.dtype not in _build.DTYPE_CODE:
-        raise ValueError(f"fused_ffn: dtype {x.dtype}; want float32 or "
-                         "bfloat16")
-    if activation not in _ACT:
-        raise ValueError(f"fused_ffn: activation {activation!r}")
+    plan = check_args(x, w1, b1, w2, b2, activation)
     D = x.shape[-1]
-    FF = w1.shape[0]
-    if w1.shape != (FF, D) or w2.shape != (D, FF) or b1.shape != (FF,) \
-            or b2.shape != (D,) or D % 64 or FF % 64:
-        raise ValueError(f"fused_ffn: shapes x {tuple(x.shape)} w1 "
-                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}; D and FF "
-                         "must be multiples of 64")
     rows = x.numel() // D
     if rows == 0:
         return torch.empty_like(x)
-    # weights in the input dtype, biases in f32 (as the Pallas kernel adds
-    # them to its f32 accumulator); no copy when already so
-    xc = x.contiguous()
-    w1c = w1.to(x.dtype).contiguous()
-    w2c = w2.to(x.dtype).contiguous()
-    b1c = b1.float().contiguous()
-    b2c = b2.float().contiguous()
+    xc = _aligned(x)
+    w1c = _aligned(w1.to(x.dtype))
+    w2c = _aligned(w2.to(x.dtype))
+    # the kernel reads both biases in x's dtype or both in f32
+    b1c, b2c = b1, b2
+    if b1.dtype != x.dtype or b2.dtype != x.dtype:
+        b1c, b2c = b1.float(), b2.float()
+    b1c, b2c = _aligned(b1c), _aligned(b2c)
     out = torch.empty_like(xc)
-    ws = torch.empty((FF // 64, rows, D), dtype=torch.float32,
-                     device=x.device)
+    hbuf = torch.empty(plan.scratch_per_row * rows, dtype=x.dtype,
+                       device=x.device)
     err = _launch()(xc.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
                     w2c.data_ptr(), b2c.data_ptr(), out.data_ptr(),
-                    ws.data_ptr(), rows, D, FF, _ACT[activation],
+                    hbuf.data_ptr(), rows, D, w1.shape[0], plan.panel,
+                    _ACT[activation],
+                    int(b1c.dtype == torch.float32 and x.dtype
+                        != torch.float32),
                     _build.DTYPE_CODE[x.dtype], _build.stream_ptr(x))
     _build.check(err, "fused_ffn")
     _build.count_launch("fused_ffn")

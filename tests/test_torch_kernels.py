@@ -20,6 +20,7 @@ rounds the probabilities unnormalised and XLA's normalised.
 
 from __future__ import annotations
 
+import json
 import math
 
 import numpy as np
@@ -84,13 +85,46 @@ WHOLE = {"flash_decode_fold": flash_decode_fold,
 WHOLE_MS = (64, 50)
 WHOLE_TS = {"t0": 0, "t17": 17, "rows": np.asarray([0, 17, 49, 40], np.int32)}
 WHOLE_ROWS = (2, 4)
-# cache lengths at which the cluster kernels' key ranges are checked, for
-# clusters of each size the kernels take
-PLAN_MS = (1, 50, 64, 511, 512, 4096)
-PLAN_CS = (8, 16)
+# shapes at which the wrappers of the cluster kernel are held to their
+# launch arguments: (B, n_head, kv_heads, M, Dh, dtype, resident clusters
+# of 16 the card reports): the batch bench's, GQA, MQA, a scalar-row batch,
+# a cache of one position, and a card that places no cluster of 16
+CLUSTER_LAUNCH_SHAPES = (
+    (8, 8, 8, 511, 64, "bfloat16", 7), (4, 4, 2, 64, 32, "float32", 1),
+    (4, 8, 1, 100, 128, "bfloat16", 3), (4, 16, 8, 4096, 64, "float32", 2),
+    (4, 2, 2, 1, 64, "bfloat16", 1), (8, 8, 8, 511, 64, "bfloat16", 0))
 # resident clusters of 16 blocks the card may report -> the cluster size
 # picked: 16 wherever the card can place one
 RESIDENT_16 = {0: 8, 1: 16, 7: 16, 14: 16}
+# K2's plan (ops/ffn.py::ffn_plan): (D, FF), multiples of 64 as today's
+# kernel takes them: the flagship's, one panel of the smallest, FF with a
+# slice count no multiple of 8, D past one panel, a wide D
+FFN_PLAN_SHAPES = ((512, 2048), (64, 64), (192, 192), (1536, 192),
+                   (4096, 64), (128, 320), (768, 3072))
+# what K2's argument check refuses: case -> (x shape, FF, x dtype, bias
+# dtype, activation, a phrase of the error)
+FFN_REFUSE = {
+    "d96": ((3, 96), 64, "float32", "float32", "relu", "multiples of 64"),
+    "ff100": ((3, 64), 100, "float32", "float32", "relu", "multiples of 64"),
+    "d0": ((3, 0), 64, "float32", "float32", "relu", "multiples of 64"),
+    "float16": ((3, 64), 64, "float16", "float16", "relu", "want float32"),
+    "silu": ((3, 64), 64, "float32", "float32", "silu", "relu or gelu"),
+    "w1_shape": ((3, 64), 64, "float32", "float32", "relu", "shapes"),
+    "b2_shape": ((3, 64), 64, "float32", "float32", "relu", "shapes"),
+}
+# ... and takes: every D and FF multiple of 64, f32 or bf16, biases of any
+# float dtype (the checkpoint's bf16 ones in an f32 run), relu or gelu, any
+# leading shape
+FFN_TAKE = {
+    "flagship": ((1, 512), 2048, "bfloat16", "bfloat16", "relu"),
+    "bf16_bias_in_f32": ((4, 512), 2048, "float32", "bfloat16", "relu"),
+    "f16_bias_in_bf16": ((3, 64), 64, "bfloat16", "float16", "relu"),
+    "batch": ((8, 16, 512), 2048, "bfloat16", "bfloat16", "relu"),
+    "f32_bias_in_bf16": ((5, 1536), 192, "bfloat16", "float32", "gelu"),
+    "f32": ((2, 64), 64, "float32", "float32", "gelu"),
+    "wide": ((4, 4096), 128, "float32", "float32", "relu"),
+    "b3": ((3, 192), 768, "bfloat16", "bfloat16", "relu"),
+}
 
 
 def _rng():
@@ -238,7 +272,12 @@ def _inputs():
                         ref[("whole", name, entry)] = np.asarray(
                             fn(qj, kvj, tj, H, interpret=True)
                             .astype(jnp.float32))
-    inp["plan/M"] = np.asarray(PLAN_MS)
+    inp["clusterlaunch/shapes"] = np.asarray(json.dumps(
+        CLUSTER_LAUNCH_SHAPES))
+    inp["ffnplan/shapes"] = np.asarray(FFN_PLAN_SHAPES)
+    inp["ffncheck/cases"] = np.asarray(json.dumps(
+        {**{f"refuse/{k}": v[:5] for k, v in FFN_REFUSE.items()},
+         **{f"take/{k}": v for k, v in FFN_TAKE.items()}}))
     inp["plan/resident"] = np.asarray(list(RESIDENT_16))
     kv = rng.standard_normal((4, 16, 32), np.float32)
     for rows in STREAM_ROWS:
@@ -445,38 +484,6 @@ def test_one_launch_wrappers_refuse_what_jax_cannot_take(results, case, says):
     assert says in str(got[f"refuse/{case}"])
 
 
-@pytest.mark.parametrize("M", PLAN_MS)
-def test_whole_plan_covers_every_key_once_in_rank_order(results, M):
-    """The cluster kernels of flash_decode_fold2 and _fold3: block rank r of
-    a row's cluster of C takes ranges[r]; together, in rank order, they are
-    the positions 0..M-1, each once, and no range is longer than ceil(M /
-    C). The kernel gets them as they are: start, stop per rank."""
-    got, _ = results
-    for C in PLAN_CS:
-        ranges = got[f"plan/{M}/{C}/ranges"]
-        assert ranges.shape == (C, 2)
-        assert (ranges[:, 0] <= ranges[:, 1]).all()
-        keys = np.concatenate([np.arange(a, b) for a, b in ranges])
-        np.testing.assert_array_equal(keys, np.arange(M))
-        assert (ranges[:, 1] - ranges[:, 0]).max() == -(-M // C)
-        np.testing.assert_array_equal(got[f"plan/{M}/{C}/arg"],
-                                      ranges.reshape(-1))
-
-
-@pytest.mark.parametrize("M", PLAN_MS)
-def test_whole_plan_depends_on_m_alone(results, M):
-    """whole_plan takes M and the cluster size and nothing else (not B,
-    rows, a slot or a t), and its ranges are the closed form of M: rank r
-    starts at r * ceil(M / C), cut at M."""
-    got, _ = results
-    assert list(got["plan/params"]) == ["M", "C"]
-    for C in PLAN_CS:
-        R = -(-M // C)
-        want = [(min(r * R, M), min((r + 1) * R, M)) for r in range(C)]
-        np.testing.assert_array_equal(got[f"plan/{M}/{C}/ranges"],
-                                      np.asarray(want))
-
-
 @pytest.mark.parametrize("active16", list(RESIDENT_16))
 def test_cluster_size_takes_16_where_the_card_places_one(results,
                                                         active16):
@@ -485,3 +492,80 @@ def test_cluster_size_takes_16_where_the_card_places_one(results,
     got, _ = results
     i = list(RESIDENT_16).index(active16)
     assert int(got["plan/sizes"][i]) == RESIDENT_16[active16]
+
+
+@pytest.mark.parametrize("shape", FFN_PLAN_SHAPES)
+def test_ffn_plan_puts_every_ff_column_in_one_slice_in_order(results,
+                                                             shape):
+    """K2's phase 1: slice i holds the FF columns [16 i, 16 i + 16), so the
+    slices together, in order, are 0..FF-1, each column once; D is staged
+    in panels of a multiple of 64 that divides it, at most 512; the
+    scratch holds a row's h, FF elements."""
+    got, _ = results
+    D, FF = shape
+    key = f"ffnplan/{D}_{FF}"
+    slices = got[f"{key}/slices"]
+    cols = np.concatenate([np.arange(a, b) for a, b in slices])
+    np.testing.assert_array_equal(cols, np.arange(FF))
+    assert ((slices[:, 1] - slices[:, 0]) == 16).all()
+    panel = int(got[f"{key}/panel"])
+    assert panel % 64 == 0 and D % panel == 0 and panel <= 512
+    assert panel == max(p for p in range(64, 513, 64) if D % p == 0)
+    assert int(got[f"{key}/scratch"]) == FF
+
+
+def test_ffn_plan_takes_no_rows(results):
+    """ffn_plan takes D and FF and nothing else: the slices, the panels and
+    every order of the kernel's sums cannot depend on the rows, so a row
+    gets the same bits alone and inside a batch."""
+    got, _ = results
+    assert list(got["ffnplan/params"]) == ["D", "FF"]
+
+
+@pytest.mark.parametrize("case", list(FFN_REFUSE))
+def test_fused_ffn_check_refuses_what_the_kernel_does_not_take(results,
+                                                              case):
+    got, _ = results
+    said = str(got[f"ffncheck/refuse/{case}"])
+    assert said.startswith("ValueError"), said
+    assert FFN_REFUSE[case][5] in said, said
+
+
+@pytest.mark.parametrize("case", list(FFN_TAKE))
+def test_fused_ffn_check_takes_what_todays_kernel_takes(results, case):
+    got, _ = results
+    assert str(got[f"ffncheck/take/{case}"]) == "none"
+
+
+@pytest.mark.parametrize("shape", CLUSTER_LAUNCH_SHAPES)
+def test_fold_and_fold2_launch_one_cluster_kernel_alike(results, shape):
+    """flash_decode_fold and flash_decode_fold2 are one function with one
+    rounding: on CUDA inputs both hand the cluster kernel the same
+    arguments, down to the cluster size and the rounding flag, and
+    flash_decode_fold3 differs from them in that flag alone."""
+    got, _ = results
+    i = CLUSTER_LAUNCH_SHAPES.index(shape)
+    calls = {name: json.loads(str(got[f"clusterlaunch/{i}/{name}"]))
+             for name in ("flash_decode_fold", "flash_decode_fold2",
+                          "flash_decode_fold3")}
+    for name, c in calls.items():
+        assert len(c) == 1, (name, c)
+        assert c[0][:2] == ["decode_fold", "eamg_fold_decode_cluster"], name
+    fold, fold2, fold3 = (c[0][2] for c in calls.values())
+    assert fold == fold2
+    B, H, Hkv, M, Dh, _, active16 = shape
+    assert fold[4:10] == [B, H, Hkv, M, Dh, H * Dh]
+    assert fold[10] == pytest.approx(1 / math.sqrt(Dh), rel=1e-12)
+    assert fold[12] == (16 if active16 else 8)
+    assert fold[11] == 0 and fold3[11] == 1
+    assert fold3[:11] + fold3[12:] == fold[:11] + fold[12:]
+
+
+def test_cluster_kernel_wrappers_count_under_their_own_names(results):
+    """Each wrapper of the cluster kernel counts its launches under its own
+    name, so a path that calls flash_decode_fold shows it did."""
+    got, _ = results
+    n = len(CLUSTER_LAUNCH_SHAPES)
+    assert json.loads(str(got["clusterlaunch/counts"])) == {
+        "flash_decode_fold": n, "flash_decode_fold2": n,
+        "flash_decode_fold3": n}

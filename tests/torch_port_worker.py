@@ -79,6 +79,63 @@ def _cfg(npz, key):
 
 # ------------------------------------------------------------------ kernels
 
+def _cluster_launches(decode_fold, shapes) -> dict:
+    """What flash_decode_fold, _fold2 and _fold3 hand the library on CUDA
+    inputs, recorded in place of a launch: for each shape (B, n_head,
+    kv_heads, M, Dh, dtype, C resident clusters of 16) a JSON list of the
+    library, the symbol and the arguments, and the launch counts after
+    all. Meta tensors stand for the card's (no data, pointers 0); the
+    library, the stream and the device check are stood in for, so the
+    wrappers' own code runs as it does on the card."""
+    from unittest import mock
+
+    from eamg_tpu_torch.ops import _build
+
+    calls = []
+
+    def bind(lib, fn, argtypes):
+        def call(*args):
+            if fn == "eamg_fold_cluster_occupancy":
+                args[-1][0] = active16
+            else:
+                calls.append([lib, fn, list(args)])
+            return 0
+        return call
+
+    def fresh():
+        for f in (decode_fold._launch_cluster, decode_fold._launch_occupancy,
+                  decode_fold.cluster_occupancy):
+            f.cache_clear()
+
+    got = {}
+    fresh()
+    _build.reset_launch_counts()
+    try:
+        with mock.patch.object(_build, "bind", bind), \
+                mock.patch.object(_build, "stream_ptr", lambda t: 0), \
+                mock.patch.object(decode_fold, "_check_fold",
+                                  lambda *a: None):
+            for i, (B, H, Hkv, M, Dh, dt, active16) in enumerate(shapes):
+                fresh()
+                dt = getattr(torch, dt)
+                q = torch.empty((B, 1, H * Dh), dtype=dt, device="meta")
+                kv = torch.empty((B, M, 2 * Hkv * Dh), dtype=dt,
+                                 device="meta")
+                t = torch.arange(B, dtype=torch.int32) * 7 % M
+                for name in ("flash_decode_fold", "flash_decode_fold2",
+                             "flash_decode_fold3"):
+                    calls.clear()
+                    getattr(decode_fold, name)(q, kv, t, H)
+                    got[f"clusterlaunch/{i}/{name}"] = np.asarray(
+                        json.dumps(calls))
+        got["clusterlaunch/counts"] = np.asarray(
+            json.dumps(_build.launch_counts()))
+    finally:
+        fresh()
+        _build.reset_launch_counts()
+    return got
+
+
 def task_kernels(inp, out):
     from eamg_tpu_torch.ops import (attention, decode_attention, decode_fold,
                                     ffn, topk)
@@ -155,23 +212,40 @@ def task_kernels(inp, out):
         for entry in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
             out[f"fold/{name}/{entry}"] = getattr(decode_fold, entry)(
                 _t(a["q"]), _t(a["kv"]), t, int(a["n_head"])).numpy()
-    # the key ranges of the cluster kernels (fold2, fold3) for C 8 and 16
-    # ([C, 2], and as the kernel's argument), the names of whole_plan's
-    # parameters, and the cluster size picked from resident clusters
-    if "plan/M" in inp.files:
-        import inspect
-
-        for M in inp["plan/M"]:
-            for C in (8, 16):
-                key = f"plan/{int(M)}/{C}"
-                out[f"{key}/ranges"] = np.asarray(
-                    decode_fold.whole_plan(int(M), C), np.int64)
-                out[f"{key}/arg"] = np.asarray(
-                    list(decode_fold._ranges_arg(int(M), C)), np.int64)
-        out["plan/params"] = np.asarray(
-            list(inspect.signature(decode_fold.whole_plan).parameters))
+    # the cluster size picked from resident clusters, and the arguments
+    # each wrapper of the cluster kernel hands the library
+    if "plan/resident" in inp.files:
         out["plan/sizes"] = np.asarray(
             [decode_fold.cluster_size(int(n)) for n in inp["plan/resident"]])
+    if "clusterlaunch/shapes" in inp.files:
+        out.update(_cluster_launches(
+            decode_fold, json.loads(str(inp["clusterlaunch/shapes"]))))
+    # K2's plan for each (D, FF), the names of ffn_plan's parameters, and
+    # what its argument check says of each case
+    if "ffnplan/shapes" in inp.files:
+        import inspect
+
+        for D, FF in inp["ffnplan/shapes"]:
+            plan = ffn.ffn_plan(int(D), int(FF))
+            key = f"ffnplan/{int(D)}_{int(FF)}"
+            out[f"{key}/slices"] = np.asarray(plan.slices, np.int64)
+            out[f"{key}/panel"] = np.asarray(plan.panel)
+            out[f"{key}/scratch"] = np.asarray(plan.scratch_per_row)
+        out["ffnplan/params"] = np.asarray(
+            list(inspect.signature(ffn.ffn_plan).parameters))
+    if "ffncheck/cases" in inp.files:
+        for case, spec in json.loads(str(inp["ffncheck/cases"])).items():
+            shape, FF, dt, bdt, act = spec[:5]
+            dt, bdt = getattr(torch, dt), getattr(torch, bdt)
+            D = shape[-1]
+            x = torch.zeros(shape, dtype=dt)
+            w1 = torch.zeros((FF, D + (case.endswith("w1_shape"))),
+                             dtype=dt)
+            w2 = torch.zeros((D, FF), dtype=dt)
+            b1 = torch.zeros((FF,), dtype=bdt)
+            b2 = torch.zeros((D + case.endswith("b2_shape"),), dtype=bdt)
+            out[f"ffncheck/{case}"] = _raised(
+                lambda: ffn.check_args(x, w1, b1, w2, b2, act))
     for name in sorted({k.split("/")[1] for k in inp.files
                         if k.startswith("stream/")}):
         a = unflatten(inp, f"stream/{name}")
