@@ -12,6 +12,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+
 // dtype codes, mirrored by eamg_tpu_torch/ops/_build.py
 enum { EAMG_F32 = 0, EAMG_BF16 = 1 };
 
@@ -42,35 +45,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Max or sum over all threads of the block, the same value in every thread.
-// The warps' results are combined by every thread in warp order, so the
-// result does not depend on timing. Called by the whole block in uniform
-// control flow, with a block size that is a multiple of 32; `scratch` holds
-// one float per warp (at most 32).
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_max(v);
-  __syncthreads();  // scratch is free of an earlier call's readers
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < nw; ++w) r = fmaxf(r, scratch[w]);
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < nw; ++w) r += scratch[w];
-  return r;
 }
 
 // x rounded to T and back: where a TPU kernel casts an f32 value to the
@@ -111,6 +85,74 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
+
+// What a cluster kernel has been let take on each device: clusters of 16
+// blocks (a non-portable size) and `bytes` of shared memory, set once per
+// device and per larger size, so a steady launch makes no CUDA call but the
+// launch itself. Host threads may launch at once.
+struct ClusterAllowance {
+  std::mutex mu;
+  size_t bytes[64] = {};   // per device; 0: nothing set on it yet
+};
+
+template <typename K>
+inline cudaError_t allow_cluster(K kernel, size_t bytes, ClusterAllowance& a) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(a.mu);
+  if (a.bytes[dev] >= bytes) return cudaSuccess;
+  if (a.bytes[dev] == 0) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  e = allow_smem(kernel, bytes);
+  if (e != cudaSuccess) return e;
+  a.bytes[dev] = bytes;
+  return cudaSuccess;
+}
+
+// Grid (C, rows) of blocks of `threads`, clusters of (C, 1, 1); attr is
+// where the cluster size lives
+inline cudaLaunchConfig_t cluster_config(int C, int rows, int threads,
+                                         size_t smem, cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, rows, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Split cluster barrier, called by every thread of the cluster in uniform
+// control flow: arriving at entry and waiting before the first write into
+// another block's shared memory makes sure that block runs. The release
+// arrival also publishes what the block wrote before it; the relaxed one
+// does not wait for anything in flight (a release waits for bulk copies).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// compile-time values for dispatching a runtime dtype, Dh or flag
+template <bool B>
+using Bool = std::integral_constant<bool, B>;
+template <int N>
+using Int = std::integral_constant<int, N>;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

@@ -1,6 +1,7 @@
-// Single-query cached attention over a head-major cache: three kernels.
+// Single-query cached attention over a head-major cache: K3 (two kernels)
+// and the scalar-t cluster kernel.
 //
-// All three compute, for q [B, H, 1, Dh] and caches [B, Hkv, M, Dh],
+// All compute, for q [B, H, 1, Dh] and caches [B, Hkv, M, Dh],
 //   o[b, h] = softmax(q[b, h] k[b, h / g, 0..t]^T / sqrt(Dh)) v[b, h / g, 0..t]
 // and take any M (the flagship's is 511; the JAX kernels assert
 // M % block_k == 0). All are bound by bytes: 4 * H * (t + 1) * Dh flops
@@ -20,32 +21,78 @@
 // order with the usual max-rescaling, so results are deterministic (no
 // atomics).
 //
-// flash_decode replaces eamg_tpu/ops/decode_attention.py::flash_decode
-// (_decode_kernel): MHA only, one scalar t for the whole batch, one program
-// per (row, head) that copies 256-key blocks from device memory by hand up
-// to cdiv(t + 1, 256) and runs an online softmax over them.
-// What bounds it: the bytes of min(M, 256 * cdiv(t + 1, 256)) keys and
-// values per (row, head). Design: one block per (row, head), ONE launch, no
-// split and no combine. The loop over key blocks is bounded by t; a block's
-// keys and values are staged in shared memory in the cache dtype with
-// coalesced loads (key rows padded to an odd word stride), one thread per
-// key takes its score, the block reduces max and sum, the probabilities are
-// rounded to the cache dtype before p.v as the TPU kernel rounds them, and
-// the running (max, sum, accumulator) are rescaled per block. The ragged
-// last block is masked, so M need not be a block multiple. With B * H
-// blocks (64 at batch 8) half the card stays empty and each block's loop is
-// a chain of dependent loads: cp.async double-buffering is the later design.
+// flash_decode and flash_decode_vmem: one kernel, decode_cluster_kernel,
+// with a template flag, BLOCKED, for where the probabilities are rounded.
+// Both take MHA caches and one scalar t by value, and compute the same
+// function with statistics in f32. The flag replaces:
+//   - BLOCKED (flash_decode): eamg_tpu/ops/decode_attention.py::
+//     flash_decode (_decode_kernel), an online softmax over 256-key blocks
+//     copied by hand up to cdiv(t + 1, 256): for a key of block kb,
+//     p = exp(s - m_cur) with m_cur the running max after block kb (the max
+//     over keys 0..min(t, 256 (kb + 1) - 1)), p rounded to the cache dtype
+//     before p.v, the sum l from the unrounded p;
+//   - !BLOCKED (flash_decode_vmem): ::flash_decode_vmem
+//     (_decode_vmem_kernel), one pass over the whole cache with the global
+//     max. It reads all M keys and masks past t; this kernel reads keys
+//     0..t only. A masked key's p is exactly 0 there, so the function is
+//     the same for any finite cache contents; one exception: a non-finite
+//     value past t gives NaN in JAX's kernel (0 * inf) and not here.
+// What bounds it: the bytes of keys and values 0..t, q and o, 2 (t + 1) Dh
+// elements per (row, head) (4.9 MB at the batched decode's B 8, H 8, t 300
+// in bf16, 1.5 us at 3.35 TB/s), against 4 (t + 1) Dh flops: bound by
+// bytes. At that size the time goes to the launch, to the first bytes'
+// latency and to the steps after they land, so the design puts every
+// byte in flight at entry on several SMs per (row, head) and keeps the
+// steps after few:
+//   - a thread-block cluster of C blocks of 256 threads per (row, head):
+//     B * H * C blocks (C 2 up to M 1024, 4 up to M 4096, then 16,
+//     ops/decode_attention.py::scalar_t_cluster_size);
+//     the valid keys 0..min(t, M - 1) spread evenly over the C blocks (spans
+//     differ by at most one key), known at entry since t is a launch
+//     argument;
+//   - staging by TMA: in the head-major layout a block's keys are one
+//     contiguous run of span * Dh elements, and its values another. One
+//     thread issues a 1D bulk copy of each run (cp.async.bulk, completing
+//     on an mbarrier) at entry, q riding with the first. Every Dh
+//     taken (16, 32, 64, 128) times 2 or 4 bytes is a multiple of 16, so
+//     run sizes and offsets meet the copy's 16-byte rule (the launcher
+//     checks that q, k and v start on 16-byte boundaries). A span longer
+//     than a 16 KB slot goes through a ring of two slots, each with its own
+//     mbarrier, keys first, then values: any M is taken;
+//   - scores in f32, the lanes of a key's row loading 16 bytes each; the
+//     blocks exchange their maxima once through distributed shared memory:
+//     each block stores one max per 256-key block (BLOCKED; -inf where its
+//     keys miss it), or one max (!BLOCKED), into its row of every block's
+//     table and arrives on every block's maxima mbarrier; the running max
+//     over the key blocks is the rounding reference m_ref;
+//   - p.v, with each key's weight taken where it is used: p = exp(s -
+//     m_ref) rounded to T, times exp(m_ref - m_fin), the TPU loop's chain
+//     of rescalings by alpha (the same function, the f32 sums associated
+//     differently); l from the unrounded p in the same loop;
+//   - the combine: each block pushes its partial acc [Dh] and l into the
+//     leader's inbox and arrives on the leader's inbox mbarrier; the leader
+//     sums the C partials in rank order (deterministic, no atomics) and
+//     stores o once, the others leave. A row's result depends on its own
+//     (row, head), t and positions alone, so its bits are the same at any
+//     B. The cluster barrier at entry is relaxed: a release there waited
+//     for the copies in flight (the mbarriers' init has a fence of its own).
+// Measured (PERF.md; chip_smoke.py, chip_sweep.py): at B 8, H 8, M 511,
+// Dh 64, bf16, cold, t 300, ~12 us against ~11 us of one library call: the
+// launch (~5.5 us), the first bytes (~2 us after the issue) and the steps
+// after them, two of them exchanges between the blocks, take most of it.
+// Clusters of 16 took ~1.5x as long as 2 there (their blocks started up to
+// ~9 us apart). Chunks of 8 KB in a ring of eight slots, all issued at
+// entry, and 2 KB pieces issued by 32 lanes landed no sooner than one copy
+// a run.
 //
-// flash_decode_vmem replaces ::flash_decode_vmem (_decode_vmem_kernel): the
-// same function as a one-pass softmax that reads the WHOLE cache whatever t
-// is and masks past t.
-// What bounds it: 2 * M * Dh elements per (row, head), always. Design: one
-// block per (row, head), one launch. Warps walk the keys with their lanes
-// along Dh (a key's row is one coalesced segment), the scores of all M keys
-// stay in shared memory (4 * M bytes), max, exp and sum run over them once,
-// the probabilities are rounded to the cache dtype, and p.v reads the
-// values straight from device memory with Dh consecutive threads on one
-// key's row.
+// Built a second time with -DEAMG_PHASE_TIMING (ops/_build.py, library
+// decode_attention_timed) for chip_smoke.py's kernel phase alone: thread 0
+// of every block records %globaltimer and clock64 at each phase boundary
+// (common.cuh, PHASE_STAMP); an empty cluster launch of the same grid
+// (decode_fold_timed's eamg_empty_launch, blocks of 256 threads too) gives
+// the floor.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 namespace {
@@ -187,170 +234,391 @@ int launch(const void* q, const void* k, const void* v, const int* t, void* o,
   }
 }
 
-// ------------------------------------- flash_decode: blocks of keys up to t
+// -------- flash_decode and flash_decode_vmem: one kernel, a cluster a row
 
-constexpr int BK = 256;   // keys per block of the loop; one thread per key
+constexpr int NT_CL = 256;          // threads of a cluster's block
+constexpr int NW_CL = NT_CL / 32;
+constexpr int CL_MAX = 16;          // blocks in a cluster, at most (sm_90)
+constexpr int BK_TPU = 256;         // keys of a block of flash_decode's loop
+// bytes of a staging slot, at most: at the batched decode's M 511 (C 2)
+// two 16 KB chunks of keys landed sooner than one of 32 KB (PERF.md)
+constexpr size_t SLOT_MAX = 16384;
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(BK)
-decode_blocks_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int M, int t,
-                     float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int KS = DH + 4 / (int)sizeof(T);  // odd stride in 32-bit words
-  constexpr int G = BK / DH;                   // key groups of p.v
-  T* ks = reinterpret_cast<T*>(smem_raw);      // [BK][KS]
-  T* vs = ks + BK * KS;                        // [BK][DH]
-  float* qs = reinterpret_cast<float*>(vs + BK * DH);  // [DH]
-  float* prob = qs + DH;                       // [BK] rounded
-  float* red = prob + BK;                      // [G][DH] = [BK]
-  float* scratch = red + BK;                   // [32]
-  const int bh = blockIdx.x, tid = threadIdx.x;
-  const int tb = min(t, M - 1);
-  const int n_blocks = tb < 0 ? 0 : tb / BK + 1;   // cdiv(t + 1, BK)
-  const T* kp = k + (size_t)bh * M * DH;
-  const T* vp = v + (size_t)bh * M * DH;
-  if (tid < DH) qs[tid] = to_f32(q[(size_t)bh * DH + tid]);
-  const int d = tid % DH, grp = tid / DH;
-  float acc = 0.f, m_run = -1e30f, l_run = 0.f;
-  for (int kb = 0; kb < n_blocks; ++kb) {
-    const int j0 = kb * BK;
-    const int n = min(BK, M - j0);   // the ragged last block holds fewer
-    __syncthreads();                 // the last block's readers are done
-    for (int e = tid; e < n * DH; e += BK) {
-      ks[(e / DH) * KS + e % DH] = kp[(size_t)j0 * DH + e];
-      vs[e] = vp[(size_t)j0 * DH + e];
+// the phase boundaries a timed build stamps (common.cuh): entry, barriers
+// set, copies issued, the cluster joined, first chunk landed, scores,
+// maxima exchanged, p.v, partials pushed, output stored
+constexpr int N_STAMP = 10;
+#define DEC_STAMP(i) PHASE_STAMP(i, N_STAMP)
+
+// Byte offsets into a block's shared memory; the launcher and the kernel
+// compute them from the same arguments. xm and inbox are written by the
+// other blocks of the cluster.
+struct ClusterSmem {
+  int R, NK, NB;
+  size_t bar, slot, qs, sc, xm, pm, red, scratch, inbox, total;
+  __host__ __device__ ClusterSmem(int M, int DH, int C, int es, bool blocked)
+      : R((M + C - 1) / C),
+        NK(R < (int)(SLOT_MAX / (DH * es)) ? R : (int)(SLOT_MAX / (DH * es))),
+        NB(blocked ? (M + BK_TPU - 1) / BK_TPU : 1) {
+    size_t off = 0;
+    bar = off;           // four mbarriers: one a slot, the leader's inbox,
+    off += 128;          // the maxima
+    slot = off;          // [2][NK][DH] of T: the ring of two chunks
+    off += 2 * (size_t)NK * DH * es;
+    qs = off;            // q, as it lies in device memory
+    off += (size_t)DH * es;
+    sc = off;            // [R] scores, then the weights of p.v
+    off += sizeof(float) * R;
+    xm = off;            // [CL_MAX][NB] every block's maxima, by key block
+    off += sizeof(float) * CL_MAX * NB;
+    pm = off;            // [NB] the reference maxima
+    off += sizeof(float) * NB;
+    red = off;           // [NT_CL / (DH / VE)][DH] p.v of each key group
+    off += sizeof(float) * NT_CL * (16 / es);
+    scratch = off;       // [NT_CL] each thread's share of the sum l
+    off += sizeof(float) * NT_CL;
+    inbox = off;         // [CL_MAX][DH + 1] every block's partial and sum
+    off += sizeof(float) * CL_MAX * (DH + 1);
+    total = off;
+  }
+};
+
+// mbarriers and the 1D bulk copy (TMA) that completes on them
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// the barriers' init, and a slot's reads by the threads, ordered before the
+// bulk copies that follow (the async proxy)
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// bytes (a multiple of 16) from src to dst, both 16-byte aligned
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// the same for a barrier that other blocks of the cluster arrive on: what
+// they wrote before arriving is visible after
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], "
+      "%1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// one arrival on the barrier at `bar` in block `rank`'s shared memory,
+// releasing what this block wrote before (at cluster scope)
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, int rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// Grid (C, B * H), clusters of (C, 1, 1). Block rank r of row bh takes the
+// keys [s0, s0 + n) of the nv = min(t, M - 1) + 1 valid ones, spread evenly
+// (ops/decode_attention.py::key_spans): n = nv / C, one more for the first
+// nv % C ranks. BLOCKED: flash_decode's rounding reference (the running
+// max of its 256-key loop), else flash_decode_vmem's (the global max).
+template <typename T, int DH, bool BLOCKED>
+__global__ void __launch_bounds__(NT_CL)
+decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int M,
+                      int t, float scale) {
+  namespace cg = cooperative_groups;
+  constexpr int VE = 16 / sizeof(T);  // elements in 16 bytes
+  constexpr int LPR = DH / VE;        // lanes on a key's row
+  constexpr int RPW = 32 / LPR;       // key rows a warp scores at once
+  constexpr int KG = NT_CL / LPR;     // key groups of p.v
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank(), C = (int)cluster.num_blocks();
+  const int bh = blockIdx.y, tid = threadIdx.x, warp = tid / 32;
+  const int lane = tid % 32, sub = tid % LPR, grp = tid / LPR;
+  const ClusterSmem L(M, DH, C, (int)sizeof(T), BLOCKED);
+  // barriers: 0 and 1 the slots', 2 the leader's inbox, 3 the maxima's
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);
+  T* slot = reinterpret_cast<T*>(smem + L.slot);
+  T* qs = reinterpret_cast<T*>(smem + L.qs);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* xm = reinterpret_cast<float*>(smem + L.xm);
+  float* pm = reinterpret_cast<float*>(smem + L.pm);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* scratch = reinterpret_cast<float*>(smem + L.scratch);
+  float* inbox = reinterpret_cast<float*>(smem + L.inbox);
+
+  DEC_STAMP(0);
+  // this block's keys, known at entry: t is a launch argument
+  const int nv = max(0, min(t, M - 1) + 1);
+  const int n = nv / C + (r < nv % C), s0 = r * (nv / C) + min(r, nv % C);
+  const int nch = (n + L.NK - 1) / L.NK, nload = 2 * nch;
+  const int nbv = BLOCKED ? (nv + BK_TPU - 1) / BK_TPU : (nv > 0);
+  const T* kp = k + ((size_t)bh * M + s0) * DH;
+  const T* vp = v + ((size_t)bh * M + s0) * DH;
+  // load i: the keys of chunk i (i < nch), else the values of chunk
+  // i - nch; one contiguous run of the head-major row, into slot i % 2, on
+  // barrier i % 2, by one bulk copy (cut into 2 KB copies issued by the 32
+  // lanes at once, it landed no sooner). q rides with the first.
+  auto issue = [&](int i) {
+    const int c = i < nch ? i : i - nch;
+    const uint32_t bytes =
+        (uint32_t)(min(L.NK, n - c * L.NK) * DH * (int)sizeof(T));
+    const uint32_t qb = i == 0 ? DH * sizeof(T) : 0;
+    mbar_expect_tx(bar + i % 2, bytes + qb);
+    if (qb) bulk_copy(qs, q + (size_t)bh * DH, qb, bar);
+    bulk_copy(slot + (size_t)(i % 2) * L.NK * DH,
+              (i < nch ? kp : vp) + (size_t)c * L.NK * DH, bytes,
+              bar + i % 2);
+  };
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    mbar_init(bar + 2, C);   // the leader's inbox: one arrival a block
+    mbar_init(bar + 3, C);   // the maxima: one arrival a block
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    fence_async();
+  }
+  __syncthreads();   // the barriers are set for every thread
+  DEC_STAMP(1);
+  if (tid == 0)
+    for (int i = 0; i < min(2, nload); ++i) issue(i);
+  DEC_STAMP(2);
+  cluster_arrive_relaxed();
+  DEC_STAMP(3);
+
+  // scores, f32: the LPR lanes of a key's row load 16 bytes each and sum
+  // in a shuffle tree
+  float qv[VE];
+  for (int c = 0; c < nch; ++c) {
+    mbar_wait(bar + c % 2, (c / 2) & 1);
+    if (c == 0) {
+      DEC_STAMP(4);
+      load16(qs + sub * VE, qv);
     }
-    __syncthreads();
-    const bool valid = tid < n && j0 + tid <= tb;
-    float s = -INFINITY;
-    if (valid) {
+    const T* ks = slot + (size_t)(c % 2) * L.NK * DH;
+    const int keys = min(L.NK, n - c * L.NK);
+    for (int j0 = warp * RPW; j0 < keys; j0 += NW_CL * RPW) {
+      const int j = j0 + lane / LPR;
       float a = 0.f;
-#pragma unroll 16
-      for (int e = 0; e < DH; ++e) a += qs[e] * to_f32(ks[tid * KS + e]);
-      s = a * scale;
-    }
-    const float m_new = fmaxf(m_run, block_max(s, scratch));
-    const float p = valid ? expf(s - m_new) : 0.f;
-    const float alpha = expf(m_run - m_new);
-    l_run = l_run * alpha + block_sum(p, scratch);
-    prob[tid] = round_to<T>(p);
-    __syncthreads();
-    float a = 0.f;
-    for (int j = grp; j < n; j += G) a += prob[j] * to_f32(vs[j * DH + d]);
-    red[tid] = a;
-    __syncthreads();
-    if (tid < DH) {
-      float sum = 0.f;
-      for (int gi = 0; gi < G; ++gi) sum += red[gi * DH + tid];
-      acc = acc * alpha + sum;
-    }
-    m_run = m_new;
-  }
-  if (tid < DH)
-    o[(size_t)bh * DH + tid] = from_f32<T>(acc / fmaxf(l_run, 1e-30f));
-}
-
-template <typename T, int DH>
-size_t blocks_smem() {
-  return sizeof(T) * (size_t)BK * (2 * DH + 4 / sizeof(T)) +
-         sizeof(float) * (DH + 2 * BK + 32);
-}
-
-template <typename T, int DH>
-int launch_blocks(const void* q, const void* k, const void* v, void* o,
-                  int BH, int M, int t, float scale, cudaStream_t stream) {
-  const size_t smem = blocks_smem<T, DH>();
-  const cudaError_t e = allow_smem(decode_blocks_kernel<T, DH>, smem);
-  if (e != cudaSuccess) return (int)e;
-  decode_blocks_kernel<T, DH><<<BH, BK, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, M, t, scale);
-  return (int)cudaGetLastError();
-}
-
-// --------------------------------- flash_decode_vmem: the whole cache, once
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-decode_whole_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int M, int t,
-                    float scale) {
-  extern __shared__ float sm[];
-  constexpr int G = NT / DH;      // key groups of p.v
-  float* qs = sm;                 // [DH]
-  float* sc = qs + DH;            // [M] scores, then rounded probabilities
-  float* red = sc + M;            // [G][DH] = [NT]
-  float* scratch = red + NT;      // [32]
-  const int bh = blockIdx.x, tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int tb = min(t, M - 1);
-  const T* kp = k + (size_t)bh * M * DH;
-  const T* vp = v + (size_t)bh * M * DH;
-  if (tid < DH) qs[tid] = to_f32(q[(size_t)bh * DH + tid]);
-  __syncthreads();
-  // every key of the cache, valid or not: a warp per key, lanes along Dh
-#pragma unroll 4
-  for (int j = warp; j < M; j += NT / 32) {
-    float a = 0.f;
+      if (j < keys) {
+        float kf[VE];
+        load16(ks + (size_t)j * DH + sub * VE, kf);
 #pragma unroll
-    for (int e = lane; e < DH; e += 32)
-      a += qs[e] * to_f32(kp[(size_t)j * DH + e]);
-    a = warp_sum(a);
-    if (lane == 0) sc[j] = j <= tb ? a * scale : -INFINITY;
+        for (int e = 0; e < VE; ++e) a += qv[e] * kf[e];
+      }
+#pragma unroll
+      for (int w = LPR / 2; w > 0; w >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, w);
+      if (j < keys && sub == 0) sc[c * L.NK + j] = a * scale;
+    }
+    __syncthreads();   // slot c % 2 is read
+    if (tid == 0 && c + 2 < nload) {
+      fence_async();
+      issue(c + 2);
+    }
+  }
+  DEC_STAMP(5);
+
+  // the maxima, by remote stores: this block's max over its keys in each
+  // 256-key block (BLOCKED; else over all its keys), -inf for a block its
+  // keys miss, into row r of every block's table, then one arrival on
+  // every block's maxima barrier
+  cluster_wait();
+  for (int kb = warp; kb < nbv; kb += NW_CL) {
+    const int lo = BLOCKED ? max(s0, kb * BK_TPU) - s0 : 0;
+    const int hi = BLOCKED ? min(s0 + n, (kb + 1) * BK_TPU) - s0 : n;
+    float mx = -INFINITY;
+    for (int j = lo + lane; j < hi; j += 32) mx = fmaxf(mx, sc[j]);
+    mx = warp_max(mx);
+    if (lane < C) *cluster.map_shared_rank(xm + r * L.NB + kb, lane) = mx;
+  }
+  __syncthreads();   // every push of the block is issued
+  if (tid < C) mbar_arrive_remote(bar + 3, tid);
+  mbar_wait_cluster(bar + 3, 0);
+  // pm[kb]: the reference max of key block kb, the same in every block;
+  // max is exact, so no order matters. BLOCKED: the running max over key
+  // blocks 0..kb, which is the TPU loop's m_cur for block kb
+  for (int kb = tid; kb < nbv; kb += NT_CL) {
+    float m = xm[kb];
+    for (int c = 1; c < C; ++c) m = fmaxf(m, xm[c * L.NB + kb]);
+    pm[kb] = m;
   }
   __syncthreads();
-  float mx = -INFINITY;
-  for (int j = tid; j < M; j += NT) mx = fmaxf(mx, sc[j]);
-  mx = block_max(mx, scratch);
-  float sum = 0.f;
-  for (int j = tid; j < M; j += NT) {
-    const float p = j <= tb ? expf(sc[j] - mx) : 0.f;
-    sc[j] = round_to<T>(p);
-    sum += p;
-  }
-  const float l = block_sum(sum, scratch);   // its barriers publish sc too
-  const int d = tid % DH, grp = tid / DH;
-  float a = 0.f;
-#pragma unroll 8
-  for (int j = grp; j < M; j += G) a += sc[j] * to_f32(vp[(size_t)j * DH + d]);
-  red[tid] = a;
+  if (BLOCKED && tid == 0)
+    for (int kb = 1; kb < nbv; ++kb) pm[kb] = fmaxf(pm[kb], pm[kb - 1]);
   __syncthreads();
+  const float m_fin = nbv > 0 ? pm[nbv - 1] : 0.f;
+  DEC_STAMP(6);
+
+  // p.v: KG groups of keys, VE outputs a thread, the values from the ring.
+  // The LPR lanes of a group each take a key's weight: p = exp(s - m_ref)
+  // rounded to T, times exp(m_ref - m_fin). The TPU loop rescales acc and
+  // l by that factor over its blocks (its chain of alphas); here each
+  // key's weight and share of l carry it, the same function with the f32
+  // sums associated differently. l sums the unrounded p.
+  float acc[VE];
+#pragma unroll
+  for (int e = 0; e < VE; ++e) acc[e] = 0.f;
+  float lpart = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    const int i = nch + c;
+    mbar_wait(bar + i % 2, (i / 2) & 1);
+    const T* vs = slot + (size_t)(i % 2) * L.NK * DH;
+    const int keys = min(L.NK, n - c * L.NK);
+    for (int j = grp; j < keys; j += KG) {
+      const int jj = c * L.NK + j;
+      const float mr = BLOCKED ? pm[(s0 + jj) / BK_TPU] : m_fin;
+      const float p = expf(sc[jj] - mr);
+      const float f = BLOCKED ? expf(mr - m_fin) : 1.f;
+      const float w = BLOCKED ? round_to<T>(p) * f : round_to<T>(p);
+      lpart += BLOCKED ? p * f : p;
+      float vf[VE];
+      load16(vs + (size_t)j * DH + sub * VE, vf);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) acc[e] += w * vf[e];
+    }
+    __syncthreads();   // slot i % 2 is read
+    if (tid == 0 && i + 2 < nload) {
+      fence_async();
+      issue(i + 2);
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < VE; ++e) red[grp * DH + sub * VE + e] = acc[e];
+  scratch[tid] = sub == 0 ? lpart : 0.f;   // a group's l, once
+  __syncthreads();
+  DEC_STAMP(7);
+
+  // the block's partial, the key groups in order, and its sum l (warp 0:
+  // the groups' shares in a fixed order) pushed into row r of the leader's
+  // inbox; then one arrival on the leader's barrier. No block touches
+  // another's memory after that, so the others leave at once
   if (tid < DH) {
-    float s = 0.f;
-    for (int gi = 0; gi < G; ++gi) s += red[gi * DH + tid];
-    o[(size_t)bh * DH + tid] = from_f32<T>(s / fmaxf(l, 1e-30f));
+    float a = 0.f;
+    for (int gi = 0; gi < KG; ++gi) a += red[gi * DH + tid];
+    *cluster.map_shared_rank(inbox + r * (DH + 1) + tid, 0) = a;
   }
+  if (warp == 0) {
+    float ls = 0.f;
+    for (int i = lane; i < NT_CL; i += 32) ls += scratch[i];
+    ls = warp_sum(ls);
+    if (lane == 0) *cluster.map_shared_rank(inbox + r * (DH + 1) + DH, 0) = ls;
+  }
+  __syncthreads();   // every push of the block is issued
+  if (tid == 0) mbar_arrive_remote(bar + 2, 0);
+  DEC_STAMP(8);
+  if (r != 0) return;
+  // the leader: the C partials and sums in rank order, one rounding
+  mbar_wait_cluster(bar + 2, 0);
+  if (tid < DH) {
+    float a = 0.f, ls = 0.f;
+    for (int c = 0; c < C; ++c) {
+      a += inbox[c * (DH + 1) + tid];
+      ls += inbox[c * (DH + 1) + DH];
+    }
+    o[(size_t)bh * DH + tid] = from_f32<T>(a / fmaxf(ls, 1e-30f));
+  }
+  DEC_STAMP(9);
 }
 
-template <typename T, int DH>
-int launch_whole(const void* q, const void* k, const void* v, void* o, int BH,
-                 int M, int t, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)DH + M + NT + 32);
-  const cudaError_t e = allow_smem(decode_whole_kernel<T, DH>, smem);
+// Lets the kernel take `bytes` of shared memory and clusters of 16 blocks
+template <typename T, int DH, bool BLOCKED>
+cudaError_t prepare_cluster(size_t bytes) {
+  static ClusterAllowance allowed;
+  return allow_cluster(decode_cluster_kernel<T, DH, BLOCKED>, bytes, allowed);
+}
+
+template <typename T, int DH, bool BLOCKED>
+int launch_cluster(const void* q, const void* k, const void* v, void* o,
+                   int BH, int M, int t, float scale, int C,
+                   cudaStream_t stream) {
+  const ClusterSmem L(M, DH, C, (int)sizeof(T), BLOCKED);
+  if (L.total > EAMG_MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t e = prepare_cluster<T, DH, BLOCKED>(L.total);
   if (e != cudaSuccess) return (int)e;
-  decode_whole_kernel<T, DH><<<BH, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, M, t, scale);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(C, BH, NT_CL, L.total, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, decode_cluster_kernel<T, DH, BLOCKED>,
+                         (const T*)q, (const T*)k, (const T*)v, (T*)o, M, t,
+                         scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_scalar_t(int variant, const void* q, const void* k, const void* v,
-                    void* o, int BH, int M, int Dh, int t, float scale,
-                    cudaStream_t stream) {
-#define EAMG_DH(DH)                                                       \
-  case DH:                                                                \
-    return variant == 0                                                   \
-               ? launch_blocks<T, DH>(q, k, v, o, BH, M, t, scale, stream) \
-               : launch_whole<T, DH>(q, k, v, o, BH, M, t, scale, stream);
-  switch (Dh) {
-    EAMG_DH(16)
-    EAMG_DH(32)
-    EAMG_DH(64)
-    EAMG_DH(128)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef EAMG_DH
+// How many clusters of C blocks the card keeps resident at once at the
+// shape (0 where a block's shared memory would exceed what it allows).
+template <typename T, int DH, bool BLOCKED>
+int occupancy_k(int M, int C, int* active) {
+  const ClusterSmem L(M, DH, C, (int)sizeof(T), BLOCKED);
+  *active = 0;
+  if (L.total > EAMG_MAX_SMEM) return 0;
+  cudaError_t e = prepare_cluster<T, DH, BLOCKED>(L.total);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(C, 1, NT_CL, L.total, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      active, decode_cluster_kernel<T, DH, BLOCKED>, &cfg);
 }
+
+// f(T{}, Int<DH>{}, Bool<BLOCKED>{}) for the runtime dtype, Dh and flag
+template <typename F>
+int by_instance(int dtype, int Dh, bool blocked, F&& f) {
+  auto with_t = [&](auto t) {
+    auto with_dh = [&](auto dh) {
+      return blocked ? f(t, dh, Bool<true>{}) : f(t, dh, Bool<false>{});
+    };
+    switch (Dh) {
+      case 16: return with_dh(Int<16>{});
+      case 32: return with_dh(Int<32>{});
+      case 64: return with_dh(Int<64>{});
+      case 128: return with_dh(Int<128>{});
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == EAMG_F32) return with_t(float{});
+  if (dtype == EAMG_BF16) return with_t(__nv_bfloat16{});
+  return (int)cudaErrorInvalidValue;
+}
+
+bool valid_cluster(int C) { return C >= 1 && C <= CL_MAX && !(C & (C - 1)); }
 
 }  // namespace
 
@@ -371,21 +639,55 @@ extern "C" int eamg_flash_decode_sp(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// flash_decode (variant 0) and flash_decode_vmem (variant 1): MHA caches
-// [B * H, M, Dh], one scalar t by value. Returns cudaErrorInvalidValue when
-// a block's shared memory would exceed what the card allows.
+// flash_decode (blocked 1) and flash_decode_vmem (blocked 0): MHA caches
+// [B * H, M, Dh], one scalar t by value, a cluster of C blocks (1, 2, 4, 8
+// or 16) per (row, head). q, k and v start on 16-byte boundaries: every
+// key's row is Dh * 2 or 4 bytes, a multiple of 16 at the Dh taken (16, 32,
+// 64, 128), so each block's run of keys, and of values, is one bulk copy's
+// worth of 16-byte units. Returns cudaErrorInvalidValue for what it does
+// not take, and where a block's shared memory would exceed what the card
+// allows (4 * ceil(M / C) bytes of scores, 64 * ceil(M / 256) of maxima and
+// 32 KB of slots at most); a cluster the card cannot place comes back as
+// CUDA's own error.
 extern "C" int eamg_flash_decode_scalar_t(const void* q, const void* k,
                                           const void* v, void* o, int BH,
                                           int M, int Dh, int t, float scale,
-                                          int variant, int dtype,
+                                          int blocked, int C, int dtype,
                                           void* stream) {
-  if (BH <= 0 || M <= 0 || (variant != 0 && variant != 1))
+  if (BH <= 0 || M <= 0 || (blocked != 0 && blocked != 1) ||
+      !valid_cluster(C) || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == EAMG_F32)
-    return launch_scalar_t<float>(variant, q, k, v, o, BH, M, Dh, t, scale, s);
-  if (dtype == EAMG_BF16)
-    return launch_scalar_t<__nv_bfloat16>(variant, q, k, v, o, BH, M, Dh, t,
-                                          scale, s);
-  return (int)cudaErrorInvalidValue;
+  return by_instance(dtype, Dh, blocked != 0, [&](auto t_, auto dh, auto bl) {
+    return launch_cluster<decltype(t_), decltype(dh)::value,
+                          decltype(bl)::value>(q, k, v, o, BH, M, t, scale, C,
+                                               (cudaStream_t)stream);
+  });
 }
+
+// How many clusters of C blocks of the kernel (blocked as above) the card
+// keeps resident at once at (M, Dh, dtype): into *active (0 where a block
+// would need more shared memory than the card allows).
+extern "C" int eamg_decode_cluster_occupancy(int M, int Dh, int blocked,
+                                             int C, int dtype, int* active) {
+  if (M <= 0 || (blocked != 0 && blocked != 1) || !valid_cluster(C))
+    return (int)cudaErrorInvalidValue;
+  return by_instance(dtype, Dh, blocked != 0, [&](auto t_, auto dh, auto bl) {
+    return occupancy_k<decltype(t_), decltype(dh)::value,
+                       decltype(bl)::value>(M, C, active);
+  });
+}
+
+#ifdef EAMG_PHASE_TIMING
+// The shared memory of a block of the kernel at the shape, into *bytes (as
+// the launcher computes it).
+extern "C" int eamg_decode_cluster_smem(int M, int Dh, int blocked, int C,
+                                        int dtype, long long* bytes) {
+  if (M <= 0 || !valid_cluster(C)) return (int)cudaErrorInvalidValue;
+  return by_instance(dtype, Dh, blocked != 0, [&](auto t_, auto dh, auto bl) {
+    *bytes = (long long)ClusterSmem(M, decltype(dh)::value, C,
+                                    (int)sizeof(t_), decltype(bl)::value)
+                 .total;
+    return 0;
+  });
+}
+#endif

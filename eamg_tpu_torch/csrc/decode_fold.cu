@@ -106,8 +106,6 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
-#include <mutex>
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -438,16 +436,6 @@ struct ClusterSmem {
   }
 };
 
-// Split cluster barrier, called by every thread of the cluster in uniform
-// control flow: arriving at entry and waiting before the first write into
-// another block's shared memory makes sure that block runs.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // wait until at most n of this thread's groups are in flight (7 if more)
 __device__ __forceinline__ void cp_async_wait_pending(int n) {
   switch (n) {
@@ -687,48 +675,11 @@ ClusterShape cluster_shape(int H, int Hkv, int R) {
           ClusterSmem(D, H, R, KG, (size_t)NK * row_bytes, nslot).total};
 }
 
-// Lets the kernel take `bytes` of shared memory and clusters of 16 blocks,
-// once per device and per larger size: a steady launch makes no CUDA call
-// but the launch itself. Host threads may launch at once.
+// Lets the kernel take `bytes` of shared memory and clusters of 16 blocks
 template <typename T, int DH, bool BEFORE>
 cudaError_t prepare_cluster(size_t bytes) {
-  constexpr int MAX_DEV = 64;
-  static std::mutex mu;
-  static size_t allowed[MAX_DEV] = {};   // 0: nothing set on the device yet
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= MAX_DEV) return cudaErrorInvalidDevice;
-  std::lock_guard<std::mutex> lock(mu);
-  if (allowed[dev] >= bytes) return cudaSuccess;
-  auto kern = fold_cluster_kernel<T, DH, BEFORE>;
-  if (allowed[dev] == 0) {
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-  }
-  e = allow_smem(kern, bytes);
-  if (e != cudaSuccess) return e;
-  allowed[dev] = bytes;
-  return cudaSuccess;
-}
-
-// B rows of C blocks, clusters of C; attr is where the cluster size lives
-cudaLaunchConfig_t cluster_config(int C, int B, size_t smem,
-                                  cudaStream_t stream,
-                                  cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, B, 1);
-  cfg.blockDim = dim3(NT_CL, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = C;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
+  static ClusterAllowance allowed;
+  return allow_cluster(fold_cluster_kernel<T, DH, BEFORE>, bytes, allowed);
 }
 
 template <typename T, int DH, bool BEFORE>
@@ -737,8 +688,8 @@ int launch_cluster_k(const Args& a, int C, int R) {
   cudaError_t e = prepare_cluster<T, DH, BEFORE>(s.smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(C, a.B, s.smem, a.stream,
-                                                &attr);
+  const cudaLaunchConfig_t cfg = cluster_config(C, a.B, NT_CL, s.smem,
+                                                a.stream, &attr);
   e = cudaLaunchKernelEx(&cfg, fold_cluster_kernel<T, DH, BEFORE>,
                          (const T*)a.q, (const T*)a.kv, a.t, (T*)a.o, a.H,
                          a.Hkv, a.M, a.q_stride, a.scale, R, s.NK,
@@ -757,15 +708,11 @@ int occupancy_k(int H, int Hkv, int C, int R, int* active) {
   cudaError_t e = prepare_cluster<T, DH, BEFORE>(s.smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(C, 1, s.smem, nullptr, &attr);
+  const cudaLaunchConfig_t cfg =
+      cluster_config(C, 1, NT_CL, s.smem, nullptr, &attr);
   return (int)cudaOccupancyMaxActiveClusters(
       active, fold_cluster_kernel<T, DH, BEFORE>, &cfg);
 }
-
-template <bool B>
-using Bool = std::integral_constant<bool, B>;
-template <int N>
-using Int = std::integral_constant<int, N>;
 
 // f(T{}, Int<DH>{}, Bool<BEFORE>{}) for the runtime dtype, Dh and rounding
 template <typename F>
@@ -880,24 +827,15 @@ extern "C" int eamg_empty_launch(int C, int B, long long smem, int barriers,
     empty_kernel<<<1, 32, 0, s>>>();
     return (int)cudaGetLastError();
   }
-  if (C < 1 || C > CL_MAX || B < 1) return (int)cudaErrorInvalidValue;
-  static std::mutex mu;
-  static long long allowed = -1;   // the first device this process uses
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (allowed < smem) {
-      cudaError_t e = cudaFuncSetAttribute(
-          empty_cluster_kernel,
-          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (e == cudaSuccess) e = allow_smem(empty_cluster_kernel, smem);
-      if (e != cudaSuccess) return (int)e;
-      allowed = smem;
-    }
-  }
+  if (C < 1 || C > CL_MAX || B < 1 || smem < 1)
+    return (int)cudaErrorInvalidValue;
+  static ClusterAllowance allowed;
+  cudaError_t e = allow_cluster(empty_cluster_kernel, (size_t)smem, allowed);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(C, B, (size_t)smem, s, &attr);
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, empty_cluster_kernel, barriers);
+  cudaLaunchConfig_t cfg =
+      cluster_config(C, B, NT_CL, (size_t)smem, s, &attr);
+  e = cudaLaunchKernelEx(&cfg, empty_cluster_kernel, barriers);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

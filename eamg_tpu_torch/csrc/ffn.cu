@@ -5,11 +5,17 @@
 // every decode step.
 //
 // Layouts are torch's: x [rows, D], w1 [FF, D], w2 [D, FF], all of the
-// input dtype T; b1 [FF] and b2 [D] of T or f32, added in f32 as the
-// Pallas kernel adds them to its f32 accumulator. The arithmetic follows
-// the Pallas kernel: f32 accumulation, + b1, activation (relu or exact
-// gelu), h rounded to T, second product with f32 accumulation, + b2, one
-// rounding.
+// input dtype T; b1 [FF] and b2 [D] of T or f32. Products accumulate in
+// f32; where the sums are rounded follows a launch flag, the two orders of
+// ops/ffn.py::ffn_plain:
+//   - the Pallas kernel's (xla 0): + b1 in f32, activation (relu or exact
+//     gelu), h rounded to T, second product, + b2 in f32, one rounding;
+//   - the JAX model's kernels="xla" (xla 1), which every shipped demo
+//     serves (_linear -> act -> _linear): x W1^T rounded to T, + b1 rounded
+//     to T (the sum rounded again), the activation, h rounded; then
+//     h W2^T rounded, + b2 rounded to T, rounded again.
+// In f32 the two are one function. The flag adds two roundings to each
+// phase's last step and changes nothing else.
 //
 // What bounds it: at the decode's rows (1 to 16) the two weight matrices
 // are the whole traffic, 2 * D * FF elements (4 MB in bf16 at D 512, FF
@@ -76,6 +82,20 @@ template <int ACT>
 __device__ __forceinline__ float activation(float h) {
   if (ACT == 1) return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
   return fmaxf(h, 0.f);
+}
+
+// h of phase 1 from the f32 sum s and the bias b, in the order the flag
+// names (xla: the sum and the biased sum rounded to T first)
+template <typename T, int ACT>
+__device__ __forceinline__ T finish_h(float s, float b, int xla) {
+  const float v = xla ? round_to<T>(round_to<T>(s) + round_to<T>(b)) : s + b;
+  return from_f32<T>(activation<ACT>(v));
+}
+
+// an output of phase 2 from the f32 sum a and the bias b, likewise
+template <typename T>
+__device__ __forceinline__ T finish_out(float a, float b, int xla) {
+  return from_f32<T>(xla ? round_to<T>(a) + round_to<T>(b) : a + b);
 }
 
 // Phase 2 of a block: the rows of W2 it computes (ceil(D / G)), the h rows
@@ -197,7 +217,7 @@ ffn_grid_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                 const void* __restrict__ b1, const T* __restrict__ w2,
                 const void* __restrict__ b2, T* __restrict__ out,
                 T* __restrict__ hbuf, int rows, int D, int FF, int P,
-                int bias_f32) {
+                int bias_f32, int xla) {
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int VE = 16 / sizeof(T);  // elements in 16 bytes
   extern __shared__ __align__(128) unsigned char smem[];
@@ -311,7 +331,7 @@ ffn_grid_kernel(const T* __restrict__ x, const T* __restrict__ w1,
           float s = red[f * NR + r];
           for (int w = 1; w < NW; ++w) s += red[w * FS * NR + f * NR + r];
           const float b = bias<T>(b1s, f, bias_f32);
-          hout[(size_t)r * FF + f] = from_f32<T>(activation<ACT>(s + b));
+          hout[(size_t)r * FF + f] = finish_h<T, ACT>(s, b, xla);
         }
       } else {
 #pragma unroll
@@ -325,7 +345,7 @@ ffn_grid_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
           for (int r = 0; r < NR; ++r)
             if (r < nr)
-              hout[(size_t)r * FF + fcol] = activation<ACT>(accf[r] + b);
+              hout[(size_t)r * FF + fcol] = finish_h<T, ACT>(accf[r], b, xla);
         }
       }
       __syncthreads();   // red and b1 are read: the next tile may stage
@@ -367,7 +387,7 @@ ffn_grid_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
       if (lane == 0)
-        out[(size_t)(r0 + r) * D + d0 + dl] = from_f32<T>(a + b2s[dl]);
+        out[(size_t)(r0 + r) * D + d0 + dl] = finish_out<T>(a, b2s[dl], xla);
     }
     __syncthreads();   // the h rows are read
   }
@@ -424,14 +444,14 @@ cudaError_t plan_launch(int D, int FF, int P, Launch* out) {
 template <typename T, int ACT>
 int launch(const void* x, const void* w1, const void* b1, const void* w2,
            const void* b2, void* out, void* hbuf, int rows, int D, int FF,
-           int P, int bias_f32, cudaStream_t stream) {
+           int P, int bias_f32, int xla, cudaStream_t stream) {
   Launch l;
   cudaError_t e = plan_launch<T, ACT>(D, FF, P, &l);
   if (e != cudaSuccess) return (int)e;
   const T *xt = (const T*)x, *w1t = (const T*)w1, *w2t = (const T*)w2;
   T *ot = (T*)out, *ht = (T*)hbuf;
   void* args[] = {&xt, &w1t, &b1, &w2t, &b2, &ot, &ht,
-                  &rows, &D, &FF, &P, &bias_f32};
+                  &rows, &D, &FF, &P, &bias_f32, &xla};
   e = cudaLaunchCooperativeKernel((const void*)ffn_grid_kernel<T, ACT>,
                                   dim3(l.G), dim3(NT), args, l.smem, stream);
   if (e != cudaSuccess) return (int)e;
@@ -441,13 +461,13 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
 template <typename T>
 int launch_act(int act, const void* x, const void* w1, const void* b1,
                const void* w2, const void* b2, void* out, void* hbuf,
-               int rows, int D, int FF, int P, int bias_f32,
+               int rows, int D, int FF, int P, int bias_f32, int xla,
                cudaStream_t stream) {
   if (act == 1)
     return launch<T, 1>(x, w1, b1, w2, b2, out, hbuf, rows, D, FF, P,
-                        bias_f32, stream);
+                        bias_f32, xla, stream);
   return launch<T, 0>(x, w1, b1, w2, b2, out, hbuf, rows, D, FF, P,
-                      bias_f32, stream);
+                      bias_f32, xla, stream);
 }
 
 }  // namespace
@@ -455,23 +475,25 @@ int launch_act(int act, const void* x, const void* w1, const void* b1,
 // x, w1, w2 (and out) of dtype, 16-byte aligned; b1, b2 of dtype, or f32
 // with bias_f32, b1 16-byte aligned. P from ops/ffn.py::ffn_plan: a
 // multiple of 64 that divides D, at most 512. hbuf: scratch of rows * FF
-// elements of dtype, the launch's own. act 0 relu, 1 exact gelu. cudaErrorInvalidValue where no block of the shape
-// fits on an SM.
+// elements of dtype, the launch's own. act 0 relu, 1 exact gelu. xla 0:
+// the Pallas kernel's rounding, 1: the JAX model's kernels="xla" rounding
+// (see above). cudaErrorInvalidValue where no block of the shape fits on an
+// SM.
 extern "C" int eamg_fused_ffn(const void* x, const void* w1, const void* b1,
                               const void* w2, const void* b2, void* out,
                               void* hbuf, int rows, int D, int FF, int P,
-                              int act, int bias_f32,
+                              int act, int xla, int bias_f32,
                               int dtype, void* stream) {
   if (D <= 0 || D % 64 || FF <= 0 || FF % 64 || rows <= 0 || P <= 0 ||
       P % 64 || P > PANEL_MAX || D % P || (act != 0 && act != 1) ||
-      (bias_f32 != 0 && bias_f32 != 1))
+      (xla != 0 && xla != 1) || (bias_f32 != 0 && bias_f32 != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (dtype == EAMG_F32)
     return launch_act<float>(act, x, w1, b1, w2, b2, out, hbuf, rows, D, FF,
-                             P, bias_f32, s);
+                             P, bias_f32, xla, s);
   if (dtype == EAMG_BF16)
     return launch_act<__nv_bfloat16>(act, x, w1, b1, w2, b2, out, hbuf, rows,
-                                     D, FF, P, bias_f32, s);
+                                     D, FF, P, bias_f32, xla, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,10 @@ kernel). Attention, the FFN and cached decode attention go through the
 wrappers in ``eamg_tpu_torch/ops``: on CUDA tensors they always launch
 the hand-written kernels, on CPU tensors they run the plain versions,
 which follow the JAX model's XLA path (masks filled with ``finfo.min``).
-The checkpoint's ``kernels`` field is carried but selects nothing.
+The checkpoint's ``kernels`` field names where the FFN rounds, as in the
+JAX model: ``"xla"`` (every shipped demo) rounds as ``_linear`` -> act ->
+``_linear`` does, ``"pallas"`` as the fused kernel does
+(``ops/ffn.py::ffn_plain``); K2 runs either way.
 
 The KV cache has two layouts. ``"head"`` is the JAX model's: per layer
 ``k`` and ``v`` ``[B, Hkv, M, Dh]``. ``"fused"`` is position-major,
@@ -246,7 +249,7 @@ def attention(p_attn: dict, x, cfg: GPTConfig, causal: bool = False,
 
 def _mlp(p, x, cfg: GPTConfig):
     return fused_ffn(x, p["w1"], p["b1"], p["w2"], p["b2"],
-                     activation=cfg.activation)
+                     activation=cfg.activation, order=cfg.kernels)
 
 
 def _attn_input(p: dict, x, cfg: GPTConfig):

@@ -28,11 +28,13 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "eamg_tpu_torch"
 SOURCES = ("attention", "ffn", "decode_attention", "topk", "decode_fold",
            "stream_reduce")
-# library name -> (source, extra nvcc flags): the cluster fold kernel and
-# K2 with their phase stamps, and the empty launches that time their floor,
-# loaded by chip_smoke.py alone
+# library name -> (source, extra nvcc flags): the cluster fold kernel, K2
+# and the scalar-t cluster kernel with their phase stamps, and the empty
+# launches that time their floor, loaded by chip_smoke.py alone
 VARIANTS = {"decode_fold_timed": ("decode_fold", ("-DEAMG_PHASE_TIMING",)),
-            "ffn_timed": ("ffn", ("-DEAMG_PHASE_TIMING",))}
+            "ffn_timed": ("ffn", ("-DEAMG_PHASE_TIMING",)),
+            "decode_attention_timed": ("decode_attention",
+                                       ("-DEAMG_PHASE_TIMING",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

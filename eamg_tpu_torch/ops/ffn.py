@@ -2,13 +2,16 @@
 
 Replaces ``eamg_tpu/ops/ffn.py::fused_ffn``:
 ``act(x @ w1^T + b1) @ w2^T + b2`` with torch-layout weights, the
-``[rows, FF]`` intermediate kept out of device memory.
+``[rows, FF]`` intermediate kept out of device memory. Both the kernel and
+the plain version round in the Pallas kernel's order or in the JAX
+model's ``kernels="xla"`` order (:func:`ffn_plain`), as the caller names.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -16,18 +19,49 @@ import torch.nn.functional as F
 from . import _build
 
 _ACT = {"relu": 0, "gelu": 1}
+# where the FFN rounds (ffn_plain): the launch flag of K2
+ORDER = {"pallas": 0, "xla": 1}
 FS = 16          # FF columns of a slice: FS in csrc/ffn.cu
 PANEL_MAX = 512  # elements of D staged at once, at most: PANEL_MAX there
 
 
+def _gelu_as_xla(h: torch.Tensor) -> torch.Tensor:
+    """Exact gelu of h as XLA computes ``jax.nn.gelu(h, approximate=False)``
+    in h's dtype: ``0.5 h * erfc(-h * c)`` with the constant c = sqrt(1/2)
+    rounded to that dtype, erfc in f32 rounded to it, the product rounded
+    (in f32: the gelu of f32)."""
+    dt = h.dtype
+    c = torch.tensor(math.sqrt(0.5), dtype=dt).item()
+    e = torch.special.erfc(-h.float() * c).to(dt).float()
+    return ((0.5 * h.float()) * e).to(dt)
+
+
 def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor,
-              activation: str = "relu") -> torch.Tensor:
-    """The Pallas kernel's arithmetic: weights cast to the input dtype,
-    products accumulated in f32, + b1 in f32, activation (exact gelu), h
-    cast to the input dtype, second product in f32, + b2, cast. In f32 this
-    is the JAX model's XLA FFN (models/gpt.py::_mlp)."""
+              w2: torch.Tensor, b2: torch.Tensor, activation: str = "relu",
+              order: str = "pallas") -> torch.Tensor:
+    """The FFN with weights cast to the input dtype and products
+    accumulated in f32, rounded where ``order`` says:
+
+    - ``"pallas"``, the Pallas kernel's: + b1 in f32, activation (exact
+      gelu), h rounded to the input dtype, second product, + b2 in f32,
+      one rounding of the output;
+    - ``"xla"``, the JAX model's ``_linear`` -> act -> ``_linear``
+      (``kernels="xla"``, which every shipped demo serves): each product
+      rounded to the input dtype, + its bias rounded to that dtype (the sum
+      rounded again), the activation on that value as JAX computes it in
+      that dtype (:func:`_gelu_as_xla`), rounded.
+
+    In f32 the two are one function."""
+    if order not in ORDER:
+        raise ValueError(f"fused_ffn: order {order!r}; want one of "
+                         f"{tuple(ORDER)}")
     dt = x.dtype
+    if order == "xla":
+        h = (x.float() @ w1.to(dt).float().T).to(dt)
+        h = (h.float() + b1.to(dt).float()).to(dt)
+        h = _gelu_as_xla(h) if activation == "gelu" else torch.relu(h)
+        out = (h.float() @ w2.to(dt).float().T).to(dt)
+        return (out.float() + b2.to(dt).float()).to(dt)
     h = x.float() @ w1.to(dt).float().T + b1.float()
     h = F.gelu(h) if activation == "gelu" else torch.relu(h)
     out = h.to(dt).float() @ w2.to(dt).float().T + b2.float()
@@ -85,7 +119,7 @@ def check_args(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def _launch():
     P, I = _build.P, _build.I
     return _build.bind("ffn", "eamg_fused_ffn",
-                       [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P])
+                       [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -94,16 +128,20 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-              w2: torch.Tensor, b2: torch.Tensor,
-              activation: str = "relu") -> torch.Tensor:
-    """x [..., D], w1 [FF, D], b1 [FF], w2 [D, FF], b2 [D] -> [..., D].
-    CPU tensors take :func:`ffn_plain`; CUDA tensors launch K2, one
-    cooperative launch (:func:`check_args` says what it takes)."""
+              w2: torch.Tensor, b2: torch.Tensor, activation: str = "relu",
+              order: str = "pallas") -> torch.Tensor:
+    """x [..., D], w1 [FF, D], b1 [FF], w2 [D, FF], b2 [D] -> [..., D],
+    rounded where ``order`` says (:func:`ffn_plain`). CPU tensors take
+    :func:`ffn_plain`; CUDA tensors launch K2, one cooperative launch
+    (:func:`check_args` says what it takes)."""
     if x.device.type == "cpu":
-        return ffn_plain(x, w1, b1, w2, b2, activation)
+        return ffn_plain(x, w1, b1, w2, b2, activation, order)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ffn: unsupported device {x.device}")
     plan = check_args(x, w1, b1, w2, b2, activation)
+    if order not in ORDER:
+        raise ValueError(f"fused_ffn: order {order!r}; want one of "
+                         f"{tuple(ORDER)}")
     D = x.shape[-1]
     rows = x.numel() // D
     if rows == 0:
@@ -122,7 +160,7 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     err = _launch()(xc.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
                     w2c.data_ptr(), b2c.data_ptr(), out.data_ptr(),
                     hbuf.data_ptr(), rows, D, w1.shape[0], plan.panel,
-                    _ACT[activation],
+                    _ACT[activation], ORDER[order],
                     int(b1c.dtype == torch.float32 and x.dtype
                         != torch.float32),
                     _build.DTYPE_CODE[x.dtype], _build.stream_ptr(x))

@@ -3,8 +3,8 @@ the card by default.
 
 - importing every module of eamg_tpu_torch (in a subprocess: torch stays
   out of this process) loads neither ``jax`` nor any ``eamg_tpu`` module;
-- no source of the port, nor chip_smoke.py, imports ``jax`` or
-  ``eamg_tpu``;
+- no source of the port, nor chip_smoke.py or chip_sweep.py, imports
+  ``jax`` or ``eamg_tpu``;
 - the entry points (the library's, ``cli generate`` and the bench module
   among them) raise on a host without CUDA when no device is given,
   instead of carrying on on the CPU.
@@ -91,7 +91,8 @@ def _imports(path: Path) -> list[str]:
     return names
 
 
-@pytest.mark.parametrize("path", PORT_SOURCES + [REPO / "chip_smoke.py"],
+@pytest.mark.parametrize("path", PORT_SOURCES + [REPO / "chip_smoke.py",
+                                                 REPO / "chip_sweep.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_and_no_jax_package(path):
     bad = [n for n in _imports(path)

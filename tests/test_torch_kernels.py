@@ -93,6 +93,25 @@ CLUSTER_LAUNCH_SHAPES = (
     (8, 8, 8, 511, 64, "bfloat16", 7), (4, 4, 2, 64, 32, "float32", 1),
     (4, 8, 1, 100, 128, "bfloat16", 3), (4, 16, 8, 4096, 64, "float32", 2),
     (4, 2, 2, 1, 64, "bfloat16", 1), (8, 8, 8, 511, 64, "bfloat16", 0))
+# the scalar-t cluster kernel of flash_decode and flash_decode_vmem: (t, M,
+# C) whose key spans are checked: t 0, fewer keys than blocks, a 256-key
+# boundary inside a span, the bench shape at t 300 and 510, t past the
+# cache, a one-position cache, a long cache
+SPAN_CASES = ((0, 511, 4), (2, 511, 4), (300, 511, 4), (510, 511, 4),
+              (300, 511, 16), (255, 511, 8), (256, 511, 2), (700, 511, 4),
+              (0, 1, 16), (41, 50, 1), (59999, 60000, 16), (30000, 60000, 8))
+# (M, resident clusters of 16) -> the cluster size picked
+SCALAR_T_SIZES = {(1, 0): 2, (511, 0): 2, (511, 9): 2, (1024, 3): 2,
+                  (1025, 3): 4, (4096, 3): 4, (4097, 3): 16, (60000, 1): 16,
+                  (60000, 0): 8}
+# shapes at which both wrappers are held to their launch arguments: (B, H,
+# M, Dh, dtype, t, resident clusters of 16): the bench shape, a long cache
+# (with and without a cluster of 16), f32 at Dh 16 and 128
+SCALAR_T_LAUNCH_SHAPES = (
+    (8, 8, 511, 64, "bfloat16", 300, 5), (1, 8, 60000, 64, "bfloat16", 59999,
+                                          2),
+    (1, 8, 60000, 64, "bfloat16", 7, 0), (2, 4, 50, 16, "float32", 41, 1),
+    (2, 2, 1000, 128, "float32", 999, 1))
 # resident clusters of 16 blocks the card may report -> the cluster size
 # picked: 16 wherever the card can place one
 RESIDENT_16 = {0: 8, 1: 16, 7: 16, 14: 16}
@@ -279,6 +298,10 @@ def _inputs():
         {**{f"refuse/{k}": v[:5] for k, v in FFN_REFUSE.items()},
          **{f"take/{k}": v for k, v in FFN_TAKE.items()}}))
     inp["plan/resident"] = np.asarray(list(RESIDENT_16))
+    inp["spans/cases"] = np.asarray(json.dumps(SPAN_CASES))
+    inp["scalartsize/cases"] = np.asarray(list(SCALAR_T_SIZES))
+    inp["scalartlaunch/shapes"] = np.asarray(json.dumps(
+        SCALAR_T_LAUNCH_SHAPES))
     kv = rng.standard_normal((4, 16, 32), np.float32)
     for rows in STREAM_ROWS:
         inp.update(flatten({"kv": kv, "rows": np.asarray(rows)},
@@ -569,3 +592,64 @@ def test_cluster_kernel_wrappers_count_under_their_own_names(results):
     assert json.loads(str(got["clusterlaunch/counts"])) == {
         "flash_decode_fold": n, "flash_decode_fold2": n,
         "flash_decode_fold3": n}
+
+
+@pytest.mark.parametrize("case", SPAN_CASES)
+def test_scalar_t_key_spans_cover_0_to_t_in_order(results, case):
+    """Block rank r of a (row, head)'s cluster takes the keys [start, stop)
+    that key_spans gives: disjoint and in rank order, together exactly the
+    valid keys 0..min(t, M - 1), none past t, their sizes within one key of
+    each other; span_blocks names exactly the 256-key blocks of each span's
+    keys, the blocks whose maxima it pushes."""
+    got, _ = results
+    t, M, C = case
+    spans = got[f"spans/{SPAN_CASES.index(case)}"]
+    assert spans.shape == (C, 2)
+    keys = np.concatenate([np.arange(a, b) for a, b in spans])
+    np.testing.assert_array_equal(keys, np.arange(min(t, M - 1) + 1))
+    sizes = spans[:, 1] - spans[:, 0]
+    assert (sizes >= 0).all() and sizes.max() - sizes.min() <= 1
+    assert (spans[1:, 0] == spans[:-1, 1]).all()
+    blocks = json.loads(str(got[f"spans/{SPAN_CASES.index(case)}/blocks"]))
+    for (a, b), bl in zip(spans, blocks):
+        assert bl == sorted({j // 256 for j in range(a, b)})
+
+
+@pytest.mark.parametrize("case", list(SCALAR_T_SIZES))
+def test_scalar_t_cluster_size_follows_m_alone(results, case):
+    """Clusters of 2 up to M 1024, 4 up to M 4096; past it 16 where the
+    card places one, else 8. B is no argument, so a row gets the same bits
+    at any B."""
+    got, _ = results
+    i = list(SCALAR_T_SIZES).index(case)
+    assert int(got["scalartsize/got"][i]) == SCALAR_T_SIZES[case]
+
+
+@pytest.mark.parametrize("shape", SCALAR_T_LAUNCH_SHAPES)
+def test_scalar_t_wrappers_launch_one_cluster_kernel(results, shape):
+    """flash_decode and flash_decode_vmem hand the one cluster kernel the
+    same arguments, down to t and the cluster size, and differ in the
+    rounding flag alone (1: the running max of 256-key blocks)."""
+    got, _ = results
+    i = SCALAR_T_LAUNCH_SHAPES.index(shape)
+    calls = {name: json.loads(str(got[f"scalartlaunch/{i}/{name}"]))
+             for name in ("flash_decode", "flash_decode_vmem")}
+    for name, c in calls.items():
+        assert len(c) == 1, (name, c)
+        assert c[0][:2] == ["decode_attention",
+                            "eamg_flash_decode_scalar_t"], name
+    blocked, whole = (c[0][2] for c in calls.values())
+    B, H, M, Dh, _, t, active16 = shape
+    assert blocked[4:8] == [B * H, M, Dh, t]
+    assert blocked[8] == pytest.approx(1 / math.sqrt(Dh), rel=1e-12)
+    assert blocked[10] == (2 if M <= 1024 else 4 if M <= 4096
+                           else 16 if active16 else 8)
+    assert blocked[9] == 1 and whole[9] == 0
+    assert whole[:9] + whole[10:] == blocked[:9] + blocked[10:]
+
+
+def test_scalar_t_wrappers_count_under_their_own_names(results):
+    got, _ = results
+    n = len(SCALAR_T_LAUNCH_SHAPES)
+    assert json.loads(str(got["scalartlaunch/counts"])) == {
+        "flash_decode": n, "flash_decode_vmem": n}

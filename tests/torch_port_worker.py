@@ -136,6 +136,59 @@ def _cluster_launches(decode_fold, shapes) -> dict:
     return got
 
 
+def _scalar_t_launches(decode_attention, shapes) -> dict:
+    """What flash_decode and flash_decode_vmem hand the library on CUDA
+    inputs, recorded in place of a launch, as :func:`_cluster_launches`
+    records the fold wrappers': for each shape (B, H, M, Dh, dtype, t,
+    resident clusters of 16) a JSON list of the library, the symbol and
+    the arguments, and the launch counts after all."""
+    from unittest import mock
+
+    from eamg_tpu_torch.ops import _build
+
+    calls = []
+
+    def bind(lib, fn, argtypes):
+        def call(*args):
+            if fn == "eamg_decode_cluster_occupancy":
+                args[-1][0] = active16
+            else:
+                calls.append([lib, fn, list(args)])
+            return 0
+        return call
+
+    def fresh():
+        for f in (decode_attention._launch_scalar_t,
+                  decode_attention._launch_occupancy,
+                  decode_attention.cluster_occupancy):
+            f.cache_clear()
+
+    got = {}
+    fresh()
+    _build.reset_launch_counts()
+    try:
+        with mock.patch.object(_build, "bind", bind), \
+                mock.patch.object(_build, "stream_ptr", lambda t: 0), \
+                mock.patch.object(decode_attention, "_check_card",
+                                  lambda *a: None):
+            for i, (B, H, M, Dh, dt, t, active16) in enumerate(shapes):
+                fresh()
+                dt = getattr(torch, dt)
+                q = torch.empty((B, H, 1, Dh), dtype=dt, device="meta")
+                kv = torch.empty((B, H, M, Dh), dtype=dt, device="meta")
+                for name in ("flash_decode", "flash_decode_vmem"):
+                    calls.clear()
+                    getattr(decode_attention, name)(q, kv, kv, t)
+                    got[f"scalartlaunch/{i}/{name}"] = np.asarray(
+                        json.dumps(calls))
+        got["scalartlaunch/counts"] = np.asarray(
+            json.dumps(_build.launch_counts()))
+    finally:
+        fresh()
+        _build.reset_launch_counts()
+    return got
+
+
 def task_kernels(inp, out):
     from eamg_tpu_torch.ops import (attention, decode_attention, decode_fold,
                                     ffn, topk)
@@ -220,6 +273,21 @@ def task_kernels(inp, out):
     if "clusterlaunch/shapes" in inp.files:
         out.update(_cluster_launches(
             decode_fold, json.loads(str(inp["clusterlaunch/shapes"]))))
+    # the scalar-t cluster kernel: each block's keys and the 256-key blocks
+    # they touch, the cluster size picked, and its wrappers' arguments
+    if "spans/cases" in inp.files:
+        for i, (t, M, C) in enumerate(json.loads(str(inp["spans/cases"]))):
+            spans = decode_attention.key_spans(t, M, C)
+            out[f"spans/{i}"] = np.asarray(spans, np.int64).reshape(-1, 2)
+            out[f"spans/{i}/blocks"] = np.asarray(json.dumps(
+                [list(decode_attention.span_blocks(a, b)) for a, b in spans]))
+    if "scalartsize/cases" in inp.files:
+        out["scalartsize/got"] = np.asarray([
+            decode_attention.scalar_t_cluster_size(int(M), lambda n=n: int(n))
+            for M, n in inp["scalartsize/cases"]])
+    if "scalartlaunch/shapes" in inp.files:
+        out.update(_scalar_t_launches(
+            decode_attention, json.loads(str(inp["scalartlaunch/shapes"]))))
     # K2's plan for each (D, FF), the names of ffn_plan's parameters, and
     # what its argument check says of each case
     if "ffnplan/shapes" in inp.files:
@@ -1157,8 +1225,45 @@ def task_engine(inp, out):
         bat.close()
 
 
+# --------------------------------------------------------------------- bf16
+
+def task_bf16(inp, out):
+    """_mlp in bf16 and f32 under each ``kernels`` setting, and the
+    flagship's bf16 teacher-forced logits (tests/test_torch_bf16.py)."""
+    import dataclasses
+
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    for act in inp["acts"]:
+        for dt, bf in (("bf16", True), ("f32", False)):
+            a = unflatten(inp, f"mlp/{act}/{dt}")
+            p = {k: _t(a[k], bf) for k in ("w1", "b1", "w2", "b2")}
+            for kernels in ("xla", "pallas"):
+                cfg = _cfg(inp, f"mlp/{act}/cfg/{kernels}")
+                if not bf:
+                    cfg = dataclasses.replace(cfg, dtype="float32")
+                out[f"mlp/{act}/{dt}/{kernels}"] = _np(
+                    gpt._mlp(p, _t(a["x"], bf), cfg))
+    ck = load_checkpoint(DEMO_CKPT_A)
+    cfg = ck["cfg"]
+    ids = _t(inp["tf/ids"]).long()
+    cache = gpt.init_kv_cache(cfg, 1, ids.shape[1] + len(inp["tf/forced"]))
+    logits, cache = gpt.prefill(ck["params"], ids, cfg, cache,
+                                prompt_len=ids.shape[1])
+    steps = [logits[0]]
+    last = ids[:, -1:]
+    for tok in inp["tf/forced"]:
+        lg, cache = gpt.decode_step(ck["params"], last, cache, cfg)
+        steps.append(lg)
+        last = torch.full_like(last, int(tok))
+    out["tf"] = torch.cat(steps).float().numpy()
+
+
 TASKS = {"kernels": task_kernels, "slice": task_slice,
-         "ragged": task_ragged, "engine": task_engine, "batch": task_batch}
+         "ragged": task_ragged, "engine": task_engine, "batch": task_batch,
+         "bf16": task_bf16}
 
 
 def main():
