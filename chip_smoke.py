@@ -13,7 +13,14 @@ Phases:
     B 8, MHA, 128 prefill rows, 8324 logits), and time the kernel,
     the plain version and one PyTorch library call computing the same
     function (a yardstick only: the port never calls it), each as replays
-    of a CUDA graph so that the host's issue rate stays out; the FFN
+    of a CUDA graph so that the host's issue rate stays out; K1 at the
+    solo prefill warm and cold, at the batch's and at K1_SHAPES (T 64 and
+    511 with valid_len < T, Dh 48); K3 at every K3_T over the flagship's
+    cache, with its plan (by head at the solo shape) and over spans with
+    every cluster size, at a t a row at B 8 and at K3_SHAPES (M 50, 16384,
+    Dh 48, g 2 and 8), timed cold (and warm) beside SDPA; their bf16 error
+    against the f32 plain version no larger than the plain bf16 version's
+    own; the FFN
     kernel at rows 1, 8, 16 and 128, cold, in the served kernels="xla"
     rounding order and in the Pallas one, and at one gelu shape; the
     scalar-t cluster kernel of flash_decode and flash_decode_vmem at every
@@ -26,12 +33,12 @@ Phases:
     other one (the resident clusters of each logged), fold2 bit-equal
     across rows 1, 2, 4, 8 and fold bit-equal to fold2, the bf16 error of
     the cluster kernels beside the plain bf16 version's own; then the
-    bit-identity of a row alone and inside a batch of 8, for the fold
-    kernels, the scalar-t kernel, the FFN kernel in both orders and the
-    library's matrix product; then the phases of the cluster fold kernel,
-    of the FFN kernel and of the scalar-t kernel, from builds of their
-    sources that stamp the time at each phase boundary, beside empty
-    launches of the cluster kernels' grids;
+    bit-identity of a row alone and inside a batch of 8, for K1, K3, the
+    fold kernels, the scalar-t kernel, the FFN kernel in both orders and
+    the library's matrix product; then the phases of the cluster fold
+    kernel, of the FFN kernel, of the scalar-t kernel, of K3 and of K1,
+    from builds of their sources that stamp the time at each phase
+    boundary, beside empty launches of their grids;
  4. teacher: teacher-forced f32 logits of the flagship demo_ckpt_a on the
     card (kernels) against the same run on the host (plain versions), for
     the solo decode and for the ragged decode; then its bf16 logits as
@@ -39,7 +46,9 @@ Phases:
  5. solo: serve POST /generate on demo_ckpt_a in bf16 over HTTP, one
     request at a time: two WAV requests with one seed (their bytes must be
     equal) and one MIDI request, with the launch counts taken over exactly
-    this phase; then one more request under torch.profiler;
+    this phase; then one more request under torch.profiler, in whose
+    trace K3 shows one kernel launch a call and a layer and decode step,
+    and no kernel of its old split design;
  6. coalesce: the same server started as `serve --coalesce --slots 8`: one
     lone request (decoded detached, on the engine's own shape), then a
     burst of ten concurrent requests on eight slots, one of them the lone
@@ -156,6 +165,28 @@ BENCH_T = (0, 100, 255, 256, 300, 510)
 BENCH_TIMED_T = 300
 # the one-launch fold kernels are timed at the whole cache as well
 BENCH_LAST_T = 510
+# K1 beyond its served shapes: (B, H, Hkv, T, Dh, valid_len per row,
+# causal): the longer prompt buckets with valid_len < T (T 64; T 511, the
+# bucket capped at max_len, two 128-key tiles and a ragged third), the
+# batch with per-row lengths, Dh 48 (demo_ckpt_b3's head) causal and not
+K1_SHAPES = ((1, 8, 2, 64, 64, (50,), True),
+             (2, 8, 2, 511, 64, (300, 511), True),
+             (1, 8, 8, 511, 64, (200,), False),
+             (2, 4, 4, 64, 48, (64, 41), True),
+             (1, 8, 2, 16, 48, (11,), False))
+# K3: the newest positions of a decode step over the flagship's 511-slot
+# cache (both sides of a 128-key block and the last slot), and per row at B
+# 8 (a free slot, a fresh prompt, both sides of a key block, mid-song, the
+# last slot)
+K3_T = (0, 15, 127, 128, 300, 510)
+K3_ROWS_T = (0, 15, 127, 128, 300, 510, 200, 64)
+# K3 beyond: (B, H, Hkv, M, Dh, t per row): a ragged cache, a long one,
+# Dh 48, and g 2 and 8
+K3_SHAPES = ((2, 8, 2, 50, 64, (0, 49)),
+             (1, 8, 2, 16384, 64, (16383,)),
+             (2, 4, 4, 511, 48, (300, 17)),
+             (2, 8, 4, 200, 32, (199, 127)),
+             (1, 8, 1, 511, 128, (510,)))
 # the cluster kernel of rows 7, 9 and 10: a row's bits must not depend on
 # `rows` or on the batch, and they are held to what the kernels they
 # replaced read (one bf16 step at |o| < 2 and 5e-3 of max|want| of the f32
@@ -218,6 +249,12 @@ TOL = {("flash_attention", "float32"): 1e-4,
        # Scheme-B2 vocabulary): each as at its served shape
        ("flash_attention_batch", "float32"): 1e-4,
        ("flash_attention_batch", "bfloat16"): 3e-2,
+       # K1 and K3 at the further shapes of K1_SHAPES and K3_SHAPES: as at
+       # their served shapes
+       ("flash_attention_shapes", "float32"): 1e-4,
+       ("flash_attention_shapes", "bfloat16"): 3e-2,
+       ("flash_decode_sp_shapes", "float32"): 1e-4,
+       ("flash_decode_sp_shapes", "bfloat16"): 1e-2,
        ("fused_ffn_rows128", "float32"): 1e-4,
        ("fused_ffn_rows128", "bfloat16"): 3e-2,
        ("kth_value_batch", "float32"): 0.0,
@@ -363,10 +400,12 @@ def nbytes(*ts) -> int:
 
 def kernel_checks(torch, ckpt_params) -> dict:
     """Phase 3. Returns {kernel: {dtype: record}}."""
+    import ctypes
+
     import torch.nn.functional as F
 
-    from eamg_tpu_torch.ops import (attention, decode_attention, decode_fold,
-                                    ffn, topk)
+    from eamg_tpu_torch.ops import (_build, attention, decode_attention,
+                                    decode_fold, ffn, topk)
 
     dev = "cuda"
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -436,7 +475,8 @@ def kernel_checks(torch, ckpt_params) -> dict:
 
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
-        # K1: prefill of one prompt bucket, B1 H8 Hkv2 Dh64 T16, causal
+        # K1: prefill of one prompt bucket, B1 H8 Hkv2 Dh64 T16, causal;
+        # timed warm (the record) and cold, beside SDPA, in one loop each
         B, H, Hkv, T, Dh = 1, 8, 2, 16, 64
         q = randn(B, H, T, Dh, dt=dt)
         k = randn(B, Hkv, T, Dh, dt=dt)
@@ -448,15 +488,27 @@ def kernel_checks(torch, ckpt_params) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         if dt is torch.bfloat16:
             rel_f32("flash_attention", got, attention.attention_plain(
-                q.float(), k.float(), v.float(), vl, causal=True))
+                q.float(), k.float(), v.float(), vl, causal=True),
+                plain=want)
         pairs = B * H * T * (T + 1) // 2
-        record("flash_attention", dt_name, err,
-               time_ms(torch, lambda: attention.flash_attention(
-                   q, k, v, vl, causal=True)),
-               time_ms(torch, lambda: attention.attention_plain(
-                   q, k, v, vl, causal=True)),
-               time_ms(torch, lambda: sdpa(q, k, v, True)),
-               nbytes(q, k, v, q, vl), 4 * pairs * Dh)
+        k1_fns = {"kernel": lambda: attention.flash_attention(
+                      q, k, v, vl, causal=True),
+                  "plain": lambda: attention.attention_plain(
+                      q, k, v, vl, causal=True),
+                  "library": lambda: sdpa(q, k, v, True)}
+        warm = {name: time_ms(torch, fn) for name, fn in k1_fns.items()}
+        cold = time_cold_ms(torch, k1_fns)
+        record("flash_attention", dt_name, err, warm["kernel"],
+               warm["plain"], warm["library"], nbytes(q, k, v, q, vl),
+               4 * pairs * Dh,
+               extra=f"B {B} H {H} Hkv {Hkv} T {T} Dh {Dh} causal, warm; "
+                     f"cold: kernel {cold['kernel']:.4f} ms, plain "
+                     f"{cold['plain']:.4f}, library {cold['library']:.4f}; "
+                     f"{attention.WARPS} warps a block",
+               more={"warm": True, "ms_cold": cold["kernel"],
+                     "plain_ms_cold": cold["plain"],
+                     "library_ms_cold": cold["library"],
+                     "warps": attention.WARPS})
 
         # K1 in the batched decode's prefill: B 8, MHA (one query head per
         # KV head), the 3-token prompt in its 16-slot bucket
@@ -465,14 +517,33 @@ def kernel_checks(torch, ckpt_params) -> dict:
         va = randn(BENCH_B, BENCH_H, T, Dh, dt=dt)
         vl3 = torch.full((BENCH_B,), 3, dtype=torch.int32, device=dev)
         got = attention.flash_attention(qa, ka, va, vl3, causal=True)
+        want = attention.attention_plain(qa, ka, va, vl3, causal=True)
         torch.cuda.synchronize()
-        hold("flash_attention_batch", dt_name, got, attention.attention_plain(
-            qa, ka, va, vl3, causal=True),
-            extra=f"q {tuple(qa.shape)} MHA, valid_len 3, causal")
+        hold("flash_attention_batch", dt_name, got, want,
+             extra=f"q {tuple(qa.shape)} MHA, valid_len 3, causal")
         if dt is torch.bfloat16:
             rel_f32("flash_attention", got, attention.attention_plain(
                 qa.float(), ka.float(), va.float(), vl3, causal=True),
-                where=" at the batch shape")
+                where=" at the batch shape", plain=want)
+        # K1 at the longer prompt buckets (T 64 and the capped 511, with
+        # valid_len < T, per-row lengths at B 2), at Dh 48 (demo_ckpt_b3's
+        # head), causal and not, from a generator of their own
+        ga = torch.Generator().manual_seed(64)
+        for (Ba, Ha, Hkva, Ta, Dha, vls, causal) in K1_SHAPES:
+            qx, kx, vx = (torch.randn(Ba, hh, Ta, Dha, generator=ga).to(dt)
+                          .to(dev) for hh in (Ha, Hkva, Hkva))
+            vlx = torch.tensor(vls, dtype=torch.int32, device=dev)
+            got = attention.flash_attention(qx, kx, vx, vlx, causal=causal)
+            want = attention.attention_plain(qx, kx, vx, vlx, causal=causal)
+            torch.cuda.synchronize()
+            where = (f"B {Ba} H {Ha} Hkv {Hkva} T {Ta} Dh {Dha} valid_len "
+                     f"{vls} causal {causal}")
+            hold("flash_attention_shapes", dt_name, got, want, extra=where)
+            if dt is torch.bfloat16:
+                rel_f32("flash_attention", got, attention.attention_plain(
+                    qx.float(), kx.float(), vx.float(), vlx, causal=causal),
+                    where=" at " + where, plain=want)
+            del qx, kx, vx
 
         # K2: the flagship's layer-0 FFN (the large2 model's has the same
         # D 512, FF 2048 and relu): rows 1 (solo decode), 8 (engine and
@@ -550,13 +621,20 @@ def kernel_checks(torch, ckpt_params) -> dict:
                  ffn.ffn_plain(*wargs, activation="relu", order=order),
                  extra=f"rows 3, D {Dw}, FF {FFw}, the {order} order")
 
-        # K3: one decode step over the flagship's 511-slot cache
+        # K3: one decode step over the flagship's 511-slot cache, at every
+        # K3_T; at the positions of an engine batch of 8 (one t a row);
+        # at the further shapes of K3_SHAPES and with every cluster size;
+        # timed cold at t 300 beside the plain version and SDPA on keys
+        # 0..t, in one loop
         M = 511
         kc = randn(1, Hkv, M, Dh, dt=dt)
         vc = randn(1, Hkv, M, Dh, dt=dt)
         q1 = randn(1, H, 1, Dh, dt=dt)
         worst = 0.0
-        for t in (0, 15, 300, 510):
+        by_head, C_sp = decode_attention.sp_plan(M, Dh, H // Hkv,
+                                                 kc.element_size(), lambda: 0)
+        split = [c for c in (1, 2, 4, 8, 16) if by_head or c != C_sp]
+        for t in K3_T:
             tt = torch.full((1,), t, dtype=torch.int32, device=dev)
             got = decode_attention.flash_decode_sp(q1, kc, vc, tt)
             want = decode_attention.decode_attention_plain(q1, kc, vc, tt)
@@ -567,21 +645,89 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 rel_f32("flash_decode_sp", got,
                         decode_attention.decode_attention_plain(
                             q1.float(), kc.float(), vc.float(), tt),
-                        where=f" at t {t}")
+                        where=f" at t {t}", plain=want)
+            for c in split:
+                hold("flash_decode_sp_shapes", dt_name,
+                     decode_attention._flash_decode_sp(q1, kc, vc, tt, C=c),
+                     want, extra=f"over spans of the keys, C {c}, at t {t}")
+        gk = torch.Generator().manual_seed(8)
+        kr8, vr8 = (torch.randn(BENCH_B, Hkv, M, Dh, generator=gk).to(dt)
+                    .to(dev) for _ in range(2))
+        qr8 = torch.randn(BENCH_B, H, 1, Dh, generator=gk).to(dt).to(dev)
+        tr8 = torch.tensor(K3_ROWS_T, dtype=torch.int32, device=dev)
+        got = decode_attention.flash_decode_sp(qr8, kr8, vr8, tr8)
+        want = decode_attention.decode_attention_plain(qr8, kr8, vr8, tr8)
+        torch.cuda.synchronize()
+        hold("flash_decode_sp_shapes", dt_name, got, want,
+             extra=f"B {BENCH_B} H {H} Hkv {Hkv} M {M}, t {K3_ROWS_T}")
+        if dt is torch.bfloat16:
+            rel_f32("flash_decode_sp", got,
+                    decode_attention.decode_attention_plain(
+                        qr8.float(), kr8.float(), vr8.float(), tr8),
+                    where=f" at B {BENCH_B}, t {K3_ROWS_T}", plain=want)
+        del kr8, vr8
+        for (Bs, Hs, Hkvs, Ms, Dhs, ts) in K3_SHAPES:
+            qs_, ks_, vs_ = (torch.randn(Bs, hh, m, Dhs, generator=gk).to(dt)
+                             .to(dev) for hh, m in ((Hs, 1), (Hkvs, Ms),
+                                                    (Hkvs, Ms)))
+            tt = torch.tensor(ts, dtype=torch.int32, device=dev)
+            got = decode_attention.flash_decode_sp(qs_, ks_, vs_, tt)
+            want = decode_attention.decode_attention_plain(qs_, ks_, vs_, tt)
+            torch.cuda.synchronize()
+            where = f"B {Bs} H {Hs} Hkv {Hkvs} M {Ms} Dh {Dhs} t {ts}"
+            hold("flash_decode_sp_shapes", dt_name, got, want, extra=where)
+            if dt is torch.bfloat16:
+                rel_f32("flash_decode_sp", got,
+                        decode_attention.decode_attention_plain(
+                            qs_.float(), ks_.float(), vs_.float(), tt),
+                        where=" at " + where, plain=want)
+            del qs_, ks_, vs_
         t = 300   # timed mid-song
         tt = torch.full((1,), t, dtype=torch.int32, device=dev)
         kv_live = 2 * (t + 1) * Hkv * Dh * kc.element_size()
-        record("flash_decode_sp", dt_name, worst,
-               time_ms(torch, lambda: decode_attention.flash_decode_sp(
-                   q1, kc, vc, tt), cold=True),
-               time_ms(torch, lambda: decode_attention
-                       .decode_attention_plain(q1, kc, vc, tt), cold=True),
-               time_ms(torch, lambda: sdpa(q1, kc[:, :, :t + 1],
-                                           vc[:, :, :t + 1], False),
-                       cold=True),
-               nbytes(q1, q1, tt) + kv_live, 4 * H * (t + 1) * Dh,
-               extra=f"M {M}, err over t in (0, 15, 300, 510), timed at "
-                     f"t {t}")
+        ms = time_cold_ms(torch, {
+            "kernel": lambda: decode_attention.flash_decode_sp(q1, kc, vc,
+                                                               tt),
+            "plain": lambda: decode_attention.decode_attention_plain(
+                q1, kc, vc, tt),
+            "library": lambda: sdpa(q1, kc[:, :, :t + 1], vc[:, :, :t + 1],
+                                    False),
+            **{c: (lambda c=c: decode_attention._flash_decode_sp(
+                q1, kc, vc, tt, C=c)) for c in split}})
+        others = {c: ms[c] for c in split}
+        warm = {name: time_ms(torch, fn) for name, fn in (
+            ("kernel", lambda: decode_attention.flash_decode_sp(q1, kc, vc,
+                                                                tt)),
+            ("library", lambda: sdpa(q1, kc[:, :, :t + 1],
+                                     vc[:, :, :t + 1], False)))}
+        record("flash_decode_sp", dt_name, worst, ms["kernel"], ms["plain"],
+               ms["library"], nbytes(q1, q1, tt) + kv_live,
+               4 * H * (t + 1) * Dh,
+               extra=f"B 1 H {H} Hkv {Hkv} M {M}, "
+                     f"{'by head' if by_head else 'over spans'}, C {C_sp}, "
+                     f"err over t in {K3_T}, timed cold at t {t}; over "
+                     "spans: " + ", ".join(
+                         f"C {c} {v_:.4f}" for c, v_ in others.items())
+                     + f"; warm: kernel {warm['kernel']:.4f} ms, library "
+                       f"{warm['library']:.4f}",
+               more={"C": C_sp, "by_head": by_head, "split_C_ms": others,
+                     "ms_warm": warm["kernel"],
+                     "library_ms_warm": warm["library"]})
+
+        # the shared memory of K3's kernel by head, as the wrapper computes
+        # it to pick the plan, against the kernel's own layout
+        heads_lib = _build.library("decode_attention")
+        heads_lib.eamg_decode_heads_smem.argtypes = [
+            _build.I, _build.I, _build.I, ctypes.POINTER(ctypes.c_longlong)]
+        for Mx, Dhx in ((511, 64), (50, 48), (1000, 128), (16384, 16)):
+            n = ctypes.c_longlong(0)
+            _build.check(heads_lib.eamg_decode_heads_smem(
+                Mx, Dhx, _build.DTYPE_CODE[dt], ctypes.byref(n)),
+                "heads smem")
+            mine = decode_attention.heads_smem(Mx, Dhx, kc.element_size())
+            if n.value != mine:
+                raise AssertionError(f"heads_smem({Mx}, {Dhx}) {mine}, the "
+                                     f"kernel's {n.value}")
 
         # K4: the top-50 threshold over the flagship vocab, one row (solo)
         # and one per engine slot
@@ -696,7 +842,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
         # the batched offline decode's two scalar-t kernels, one cluster
         # kernel with a rounding flag: B 8, MHA H 8, over a head-major cache
         # of 511 slots, at every BENCH_T; with the cluster size the wrapper
-        # picks (decode_attention.scalar_t_cluster_size) and with the other
+        # picks (decode_attention.cluster_size) and with the other
         # sizes; their bf16 error against the f32 plain version beside the
         # plain bf16 version's own
         Bb, Hb = BENCH_B, BENCH_H
@@ -705,7 +851,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
         qb = randn(Bb, Hb, 1, Dh, dt=dt)
         scalar_t = {name: getattr(decode_attention, name)
                     for name in SCALAR_T_KERNELS}
-        C_st = decode_attention.scalar_t_cluster_size(M, lambda: 0)
+        C_st = decode_attention.cluster_size(M, 1, lambda: 0)
         other_st = [c for c in (1, 2, 4, 8, 16) if c != C_st]
         worst = dict.fromkeys(scalar_t, 0.0)
         for t in BENCH_T:
@@ -720,7 +866,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
                  extra=f"q {tuple(qb.shape)} MHA, M {M}, t {t}")
             if dt is torch.bfloat16:
                 rel_f32("flash_decode_sp", got, want32,
-                        where=f" at the batch shape, t {t}")
+                        where=f" at the batch shape, t {t}", plain=want)
             for name, fn in scalar_t.items():
                 got = fn(qb, kb, vb, t)
                 torch.cuda.synchronize()
@@ -1025,12 +1171,20 @@ def kernel_checks(torch, ckpt_params) -> dict:
                              f"{ms[('flash_decode_fold3_sp', main)]:.4f} ms"
                              + also, more=more)
 
-    # the cluster kernels' largest bf16 error against the f32 plain version
-    # beside the plain bf16 version's own on the same draws
-    log(json.dumps({"bf16_margins": {
-        name: {"kernel_max": max(k for k, _ in v),
-               "plain_bf16_max": max(p for _, p in v), "draws": len(v)}
-        for name, v in margins.items()}}))
+    # the kernels' largest bf16 error against the f32 plain version beside
+    # the plain bf16 version's own on the same draws; K1's and K3's may not
+    # exceed it
+    summary = {name: {"kernel_max": max(k for k, _ in v),
+                      "plain_bf16_max": max(p for _, p in v), "draws": len(v)}
+               for name, v in margins.items()}
+    log(json.dumps({"bf16_margins": summary}))
+    for name in ("flash_attention", "flash_decode_sp"):
+        m = summary[name]
+        if not m["kernel_max"] <= m["plain_bf16_max"]:
+            raise AssertionError(f"{name} bf16: {m['kernel_max']} of "
+                                 "max|want| against the f32 plain version, "
+                                 "more than the plain bf16 version's "
+                                 f"{m['plain_bf16_max']}")
 
     return results
 
@@ -1042,7 +1196,8 @@ def bit_identity(torch, ckpt_params) -> dict:
     not: the engine and its detached route therefore share one shape)."""
     import torch.nn.functional as F
 
-    from eamg_tpu_torch.ops import decode_attention, decode_fold, ffn
+    from eamg_tpu_torch.ops import attention, decode_attention, decode_fold, \
+        ffn
 
     dev, dt = "cuda", torch.bfloat16
     g = torch.Generator(device="cpu").manual_seed(5)
@@ -1073,6 +1228,26 @@ def bit_identity(torch, ckpt_params) -> dict:
         out[name] = all(torch.equal(fn(
             qh[b:b + 1], kh[b:b + 1], vh[b:b + 1], BENCH_TIMED_T)[0], full[b])
             for b in range(BENCH_B))
+    # K1 at the flagship's prefill (GQA-2, T 16, causal) with a valid
+    # length a row, and K3 over its cache with a t a row, from a generator
+    # of their own
+    gk = torch.Generator(device="cpu").manual_seed(16)
+    qa, ka, va = (torch.randn(B, h, 16, Dh, generator=gk).to(dt).to(dev)
+                  for h in (H, Hkv, Hkv))
+    vl = torch.tensor((16, 3, 9, 16, 1, 12, 16, 7), dtype=torch.int32,
+                      device=dev)
+    full = attention.flash_attention(qa, ka, va, vl, causal=True)
+    out["flash_attention"] = all(torch.equal(attention.flash_attention(
+        qa[b:b + 1], ka[b:b + 1], va[b:b + 1], vl[b:b + 1], causal=True)[0],
+        full[b]) for b in range(B))
+    qd = torch.randn(B, H, 1, Dh, generator=gk).to(dt).to(dev)
+    kd, vd = (torch.randn(B, Hkv, M, Dh, generator=gk).to(dt).to(dev)
+              for _ in range(2))
+    td = torch.tensor(K3_ROWS_T, dtype=torch.int32, device=dev)
+    full = decode_attention.flash_decode_sp(qd, kd, vd, td)
+    out["flash_decode_sp"] = all(torch.equal(decode_attention.flash_decode_sp(
+        qd[b:b + 1], kd[b:b + 1], vd[b:b + 1], td[b:b + 1])[0], full[b])
+        for b in range(B))
     mlp = {n: w.to(dt).to(dev) for n, w in
            ckpt_params["layers"][0]["mlp"].items()}
     x = torch.randn(B, 1, D, generator=g).to(dt).to(dev)
@@ -1090,7 +1265,8 @@ def bit_identity(torch, ckpt_params) -> dict:
     torch.cuda.synchronize()
     log(f"[bit-identity] bf16, a row alone against the row inside a batch "
         f"of {B}: {out}")
-    for name in (*folds, *scalar_t, "fused_ffn_xla", "fused_ffn_pallas"):
+    for name in (*folds, *scalar_t, "flash_attention", "flash_decode_sp",
+                 "fused_ffn_xla", "fused_ffn_pallas"):
         if not out[name]:
             raise AssertionError(f"{name}: a row's bits depend on the batch")
     return out
@@ -1102,10 +1278,14 @@ FOLD_STAMPS = ("entry", "t+slab+q", "chunk0", "scores", "max", "p",
                "pv_pushed", "out_barrier", "store")
 FFN_STAMPS = ("entry", "issued", "w1x", "h_stored", "grid_barrier",
               "h_staged", "stored")
-# csrc/decode_attention.cu (the scalar-t cluster kernel)
-SCALAR_T_STAMPS = ("entry", "barriers", "copies_issued", "joined",
-                   "landed", "scores", "max_exchange", "pv", "pushed",
-                   "stored")
+# csrc/decode_attention.cu (the cluster kernel of K3 and rows 5, 6)
+DECODE_STAMPS = ("entry", "barriers", "t_read", "copies_issued", "landed",
+                 "scores", "max_exchange", "pv", "pushed", "stored")
+# the same file, K3's kernel by head
+HEADS_STAMPS = ("entry", "barriers", "t_read", "joined", "copies_issued",
+                "landed", "scores", "maxima", "pv", "stored")
+# csrc/attention.cu (K1 in bf16)
+ATTN_STAMPS = ("entry", "issued", "landed", "keys", "stored")
 
 
 def _bind_timed(name: str, entry: str, argtypes: list):
@@ -1190,7 +1370,8 @@ def _log_phases(tag: str, r: dict, khz) -> None:
 
 def kernel_phases(torch, ckpt_params) -> dict:
     """Phase 3, last part: where the time of the cluster fold kernel (rows
-    7, 9, 10), of K2 and of the scalar-t cluster kernel (rows 5, 6) goes. The timed builds of their sources stamp
+    7, 9, 10), of K2, of the scalar-t cluster kernel (rows 5, 6), of K3
+    and of K1 goes. The timed builds of their sources stamp
     %globaltimer and clock64 at each phase boundary in thread 0 of every
     block (:func:`_phase_table` reads them, over cold replays). In one cold
     loop beside them: the wrappers' kernels, the stamped kernels, and the
@@ -1199,8 +1380,10 @@ def kernel_phases(torch, ckpt_params) -> dict:
     cluster barriers). The fold kernel at the bench shape (bf16, B 8, MHA
     H 8, M 511, Dh 64, t 300) with the cluster size the card picks; K2 on
     the flagship's layer-0 FFN at rows 1 and 8, bf16, in the served order;
-    the scalar-t kernel at the same shape, head-major, beside empty
-    launches of its own grid."""
+    the scalar-t kernel at the same shape, head-major; K3 at the solo
+    decode (B 1, H 8, Hkv 2, M 511, t 300 read on the card) and K1 at the
+    solo prefill (B 1, H 8, Hkv 2, T 16), each beside empty launches of
+    its own grid."""
     import ctypes
     import math
 
@@ -1298,32 +1481,43 @@ def kernel_phases(torch, ckpt_params) -> dict:
         fns[name + "_stamped"] = run
         stamped[name] = (ffn_lib, run, len(plan.slices), FFN_STAMPS)
         out[name] = {"blocks": len(plan.slices)}
-    # the scalar-t cluster kernel (rows 5 and 6) at the bench shape, t 300,
-    # head-major, with the cluster size the wrapper picks, and empty
+    # the cluster kernel of rows 5 and 6 at the bench shape, t 300,
+    # head-major, with the cluster size the wrapper picks, and of K3 at the
+    # solo shape (B 1, H 8, Hkv 2, t 300 on the device), each beside empty
     # launches of its grid (blocks of 256 threads and its shared memory, 0
-    # and 2 cluster barriers) at that size
-    from eamg_tpu_torch.ops import decode_attention
+    # and 2 cluster barriers)
+    from eamg_tpu_torch.ops import attention, decode_attention
 
     st_lib = _bind_timed("decode_attention_timed",
                          "eamg_flash_decode_scalar_t",
                          [P, P, P, P, I, I, I, I, _build.F, I, I, I, P])
-    st_lib.eamg_decode_cluster_smem.argtypes = [I, I, I, I, I,
-                                                ctypes.POINTER(L)]
-    st_lib.eamg_decode_cluster_smem.restype = ctypes.c_int
+    for fn, args in (("eamg_decode_cluster_smem",
+                      [I, I, I, I, I, I, ctypes.POINTER(L)]),
+                     ("eamg_decode_heads_smem",
+                      [I, I, I, ctypes.POINTER(L)]),
+                     ("eamg_flash_decode_sp",
+                      [P, P, P, P, P, I, I, I, I, I, _build.F, I, I, I,
+                       P])):
+        getattr(st_lib, fn).argtypes = args
+        getattr(st_lib, fn).restype = ctypes.c_int
+
+    def cluster_smem(g_, bk, C):
+        n = L(0)
+        _build.check(st_lib.eamg_decode_cluster_smem(M, Dh, g_, bk, C, 1,
+                                                     ctypes.byref(n)), "smem")
+        return n.value
+
     qh = torch.randn(B, H, 1, Dh, generator=g).to(dt).to(dev)
     kh = torch.randn(B, H, M, Dh, generator=g).to(dt).to(dev)
     vh = torch.randn(B, H, M, Dh, generator=g).to(dt).to(dev)
-    C_st = decode_attention.scalar_t_cluster_size(M, lambda: 0)
-    st_smem = L(0)
-    _build.check(st_lib.eamg_decode_cluster_smem(M, Dh, 1, C_st, 1,
-                                                 ctypes.byref(st_smem)),
-                 "smem")
+    C_st = decode_attention.cluster_size(M, 1, lambda: 0)
+    st_smem = cluster_smem(1, decode_attention.BLOCK_K["flash_decode"], C_st)
     out["scalar_t_shape"] = f"bf16 B {B} H {H} M {M} Dh {Dh} t {t} " \
                             "(head-major)"
     out["scalar_t_C"] = C_st
-    out["scalar_t_smem_bytes"] = st_smem.value
+    out["scalar_t_smem_bytes"] = st_smem
     for name in SCALAR_T_KERNELS:
-        blocked = int(decode_attention.BLOCKED[name])
+        blocked = int(decode_attention.BLOCK_K[name] > 0)
         o = torch.empty_like(qh)
 
         def run(blocked=blocked, o=o):
@@ -1340,12 +1534,92 @@ def kernel_phases(torch, ckpt_params) -> dict:
         fns[name] = lambda name=name: getattr(decode_attention, name)(
             qh, kh, vh, t)
         fns[name + "_stamped"] = run
-        stamped[name] = (st_lib, run, B * H * C_st, SCALAR_T_STAMPS)
+        stamped[name] = (st_lib, run, B * H * C_st, DECODE_STAMPS)
         out[name] = {"C": C_st}
     for nb in (0, 2):
         fns[f"empty_cluster{C_st}_scalar_t_b{nb}"] = (
             lambda nb=nb: _build.check(fold_lib.eamg_empty_launch(
-                C_st, B * H, st_smem.value, nb, stream()), "empty launch"))
+                C_st, B * H, st_smem, nb, stream()), "empty launch"))
+    # K3 at the solo shape
+    Hs, Hkvs = 8, 2
+    qs = torch.randn(1, Hs, 1, Dh, generator=g).to(dt).to(dev)
+    ks, vs = (torch.randn(1, Hkvs, M, Dh, generator=g).to(dt).to(dev)
+              for _ in range(2))
+    ts = torch.full((1,), t, dtype=torch.int32, device=dev)
+    by_head, C_sp = decode_attention.sp_plan(M, Dh, Hs // Hkvs, 2,
+                                             lambda: 0)
+    if by_head:
+        n_sp = L(0)
+        _build.check(st_lib.eamg_decode_heads_smem(M, Dh, 1,
+                                                   ctypes.byref(n_sp)),
+                     "smem")
+        sp_smem = n_sp.value
+    else:
+        sp_smem = cluster_smem(Hs // Hkvs, decode_attention.BLOCK_K[
+            "flash_decode_sp"], C_sp)
+    o_sp = torch.empty_like(qs)
+
+    def run_sp():
+        _build.check(st_lib.eamg_flash_decode_sp(
+            qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), ts.data_ptr(),
+            o_sp.data_ptr(), 1, Hs, Hkvs, M, Dh, 1.0 / math.sqrt(Dh),
+            int(by_head), C_sp, 1, stream()), "stamped K3")
+
+    run_sp()
+    torch.cuda.synchronize()
+    if not torch.equal(o_sp, decode_attention.flash_decode_sp(qs, ks, vs,
+                                                              ts)):
+        raise AssertionError("flash_decode_sp: the stamped build differs")
+    fns["flash_decode_sp"] = lambda: decode_attention.flash_decode_sp(
+        qs, ks, vs, ts)
+    fns["flash_decode_sp_stamped"] = run_sp
+    stamped["flash_decode_sp"] = (st_lib, run_sp, Hkvs * C_sp,
+                                  HEADS_STAMPS if by_head else DECODE_STAMPS)
+    out["flash_decode_sp"] = {"C": C_sp, "by_head": by_head,
+                              "smem_bytes": sp_smem,
+                              "shape": f"bf16 B 1 H {Hs} Hkv {Hkvs} M {M} "
+                                       f"Dh {Dh} t {t} (t [B] on the card)"}
+    for nb in (0, 2):
+        fns[f"empty_cluster{C_sp}_sp_b{nb}"] = (
+            lambda nb=nb: _build.check(fold_lib.eamg_empty_launch(
+                C_sp, Hkvs, sp_smem, nb, stream()), "empty launch"))
+    # K1 at the solo prefill (bf16, B 1, H 8, Hkv 2, T 16, Dh 64, causal),
+    # beside an empty launch of its grid
+    at_lib = _bind_timed("attention_timed", "eamg_attention_fwd",
+                         [P, P, P, P, P, I, I, I, I, I, I, _build.F, I, I,
+                          P])
+    at_lib.eamg_attention_empty.argtypes = [I, I, I, I, I, I, P]
+    at_lib.eamg_attention_empty.restype = ctypes.c_int
+    Ta = 16
+    qa = torch.randn(1, Hs, Ta, Dh, generator=g).to(dt).to(dev)
+    ka, va = (torch.randn(1, Hkvs, Ta, Dh, generator=g).to(dt).to(dev)
+              for _ in range(2))
+    vla = torch.full((1,), Ta, dtype=torch.int32, device=dev)
+    Wa = attention.WARPS
+    o_a = torch.empty_like(qa)
+
+    def run_attn():
+        _build.check(at_lib.eamg_attention_fwd(
+            qa.data_ptr(), ka.data_ptr(), va.data_ptr(), o_a.data_ptr(),
+            vla.data_ptr(), 1, Hs, Hkvs, Ta, Dh, 1, 1.0 / math.sqrt(Dh), Wa,
+            1, stream()), "stamped K1")
+
+    run_attn()
+    torch.cuda.synchronize()
+    if not torch.equal(o_a, attention.flash_attention(qa, ka, va, vla,
+                                                      causal=True)):
+        raise AssertionError("flash_attention: the stamped build differs")
+    n_attn = -(-(Hs // Hkvs) * Ta // (16 * Wa)) * Hkvs
+    fns["flash_attention"] = lambda: attention.flash_attention(
+        qa, ka, va, vla, causal=True)
+    fns["flash_attention_stamped"] = run_attn
+    fns["empty_attention_grid"] = lambda: _build.check(
+        at_lib.eamg_attention_empty(1, Hs, Hkvs, Ta, Dh, Wa, stream()),
+        "empty launch")
+    stamped["flash_attention"] = (at_lib, run_attn, n_attn, ATTN_STAMPS)
+    out["flash_attention"] = {"warps": Wa, "blocks": n_attn,
+                              "shape": f"bf16 B 1 H {Hs} Hkv {Hkvs} T {Ta} "
+                                       f"Dh {Dh} causal"}
     out["event_ms"] = time_cold_ms(torch, fns)
     for name, (lib, run, n_blocks, names) in stamped.items():
         out[name].update(_stamped_runs(torch, lib, run, n_blocks, names, khz))
@@ -1357,8 +1631,8 @@ def kernel_phases(torch, ckpt_params) -> dict:
         f"{k} {v:.4f}" for k, v in out["event_ms"].items()
         if k.startswith("empty")) + f" (cluster blocks of {smem.value} "
         "bytes of shared memory, the fold kernel's; the scalar_t ones of "
-        f"{st_smem.value} bytes, the scalar-t kernel's; 256 threads a "
-        "block)")
+        f"{st_smem} bytes, rows 5 and 6's; the sp ones of {sp_smem} bytes, "
+        "K3's; 256 threads a block; the attention grid K1's)")
     log(json.dumps({"kernel_phases": out}))
     return out
 
@@ -1602,7 +1876,8 @@ def _trace(torch, tag: str, work) -> dict:
            "launches_per_token": launches / max(n_tokens, 1),
            "device_ms_by_group": by_group,
            "top": [{"kernel": k[:90], "ms": ms, "count": c}
-                   for k, ms, c in rows[:12]]}
+                   for k, ms, c in rows[:12]],
+           "count_by_kernel": {k[:90]: c for k, _, c in rows}}
     if not busy > 0:
         raise AssertionError("the trace shows no device time")
     log(json.dumps({"profile": out}))
@@ -1610,12 +1885,34 @@ def _trace(torch, tag: str, work) -> dict:
 
 
 def profile_solo(torch, pipe) -> dict:
-    """Phase 5, second part: one warm WAV request under torch.profiler."""
+    """Phase 5, second part: one warm WAV request under torch.profiler. K3
+    must show as one kernel launch a wrapper call (its cluster kernel; no
+    kernel of the old split design), one call a layer and decode step."""
+    from eamg_tpu_torch.ops import _build
+
     text = "I finally got the job, I am so happy!"
     pipe.generate(text, seed=7)
     torch.cuda.synchronize()
-    return _trace(torch, "solo",
-                  lambda: len(pipe.generate(text, seed=7).tokens))
+    _build.reset_launch_counts()
+    out = _trace(torch, "solo",
+                 lambda: len(pipe.generate(text, seed=7).tokens))
+    calls = _build.launch_counts().get("flash_decode_sp", 0)
+    # K3's kernels (by head at the served shape, else over spans); the
+    # solo path runs no other kernel of csrc/decode_attention.cu
+    kernels = sum(c for k, c in out["count_by_kernel"].items()
+                  if "decode_heads_kernel" in k
+                  or "decode_cluster_kernel" in k)
+    stale = [k for k in out["count_by_kernel"]
+             if "decode_combine" in k or "decode_partial" in k]
+    n_layer = pipe.generator.cfg.n_layer
+    log(f"[solo] traced request: flash_decode_sp {calls} calls, its kernel "
+        f"{kernels} launches ({kernels / n_layer:.1f} a layer), "
+        f"{calls / max(out['n_tokens'], 1):.2f} calls a token; kernels of "
+        f"the split design: {stale or 'none'}")
+    if stale or calls == 0 or kernels != calls or calls % n_layer:
+        raise AssertionError(f"solo trace: K3 {calls} calls, {kernels} "
+                             f"cluster launches, stale kernels {stale}")
+    return out
 
 
 BURST_TEXTS = ("I finally got the job, I am so happy!",

@@ -1,4 +1,5 @@
-// Shared helpers for the port's kernels: dtype conversion and warp sums.
+// Shared helpers for the port's kernels: dtype conversion, warp sums,
+// staging, cluster launches and the bf16 tensor-core product.
 //
 // Every kernel file exposes a plain C entry point (built with nvcc into its
 // own shared library and bound with ctypes). Entry points take raw device
@@ -173,6 +174,49 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// staging with a zero fill: the 16 bytes at src where `valid`, else zeros
+// (nothing is read then; src must still be a device address)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// two bf16 at p (4-byte aligned) as one register of an mma operand
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a b on tensor cores: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col), f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed: lane i names
+// the row address of row i % 8 of matrix i / 8; r[m] is this lane's pair
+// of matrix m (the B operand of mma_bf16 from a row-major [k][n] tile)
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// two floats as the bf16 pair of one mma register, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // Phase stamps, in builds with -DEAMG_PHASE_TIMING only (ops/_build.py

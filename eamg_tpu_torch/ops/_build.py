@@ -28,13 +28,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "eamg_tpu_torch"
 SOURCES = ("attention", "ffn", "decode_attention", "topk", "decode_fold",
            "stream_reduce")
-# library name -> (source, extra nvcc flags): the cluster fold kernel, K2
-# and the scalar-t cluster kernel with their phase stamps, and the empty
-# launches that time their floor, loaded by chip_smoke.py alone
+# library name -> (source, extra nvcc flags): the cluster fold kernel, K2,
+# the decode cluster kernel (K3, rows 5 and 6) and K1 with their phase
+# stamps, and the empty launches that time their floor, loaded by
+# chip_smoke.py alone
 VARIANTS = {"decode_fold_timed": ("decode_fold", ("-DEAMG_PHASE_TIMING",)),
             "ffn_timed": ("ffn", ("-DEAMG_PHASE_TIMING",)),
             "decode_attention_timed": ("decode_attention",
-                                       ("-DEAMG_PHASE_TIMING",))}
+                                       ("-DEAMG_PHASE_TIMING",)),
+            "attention_timed": ("attention", ("-DEAMG_PHASE_TIMING",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -162,6 +164,14 @@ def check(err: int, what: str, smem: str | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def require_cuda(what: str, t: torch.Tensor) -> None:
+    """Raise unless ``t`` lies on a CUDA device: a wrapper launches its
+    kernel on CUDA tensors only (on CPU tensors it takes its plain
+    version)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

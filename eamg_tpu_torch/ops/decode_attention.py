@@ -1,15 +1,19 @@
-"""Single-query cached attention over a head-major cache: the kernels of
-``csrc/decode_attention.cu`` and their plain version.
+"""Single-query cached attention over a head-major cache: the kernel of
+``csrc/decode_attention.cu`` and its plain version.
 
 Replaces ``eamg_tpu/ops/decode_attention.py::flash_decode_sp`` (K3),
 ``::flash_decode`` and ``::flash_decode_vmem``, each under the name of the
-JAX function it replaces. K3 is GQA-native and takes the newest valid
-position per row ``t [B]``. The other two take what their JAX namesakes
-take: MHA caches and one scalar ``t`` for the whole batch, by value. They
-compute one function and differ only in where their TPU kernels round the
-probabilities (:data:`BLOCKED`), so both launch one cluster kernel, a
-thread-block cluster per (row, head) over the keys 0..t, with that
-rounding as a flag. All take any cache length M (the flagship's is 511).
+JAX function it replaces. Each call is one launch of a thread-block
+cluster per (row, KV head) over the keys 0..t, with the length of the key
+blocks whose running max the probabilities are rounded against as an
+argument (:data:`BLOCK_K`), as each TPU kernel rounds them. K3 is
+GQA-native and takes the newest valid position per row ``t [B]``, which
+its kernel reads from device memory; where a block holds every key and
+value of a KV head it goes by head (a block per query head of the group,
+each key and value copied once to all of them), else over spans of the
+keys as the other two do. Those take what their JAX namesakes take: MHA
+caches and one scalar ``t`` for the whole batch, by value. All take any
+cache length M (the flagship's is 511).
 """
 
 from __future__ import annotations
@@ -23,16 +27,23 @@ import torch
 
 from . import _build
 
-SPLIT = 64     # keys per split: CH in csrc/decode_attention.cu
-BLOCK_K = 256  # keys per block of flash_decode's TPU loop: BK_TPU there
-# Where each scalar-t wrapper's kernel takes the max that p = exp(s - max)
-# is rounded against, as its TPU kernel does: flash_decode the running max
-# of its loop over 256-key blocks (for a key of block kb, the max over keys
-# 0..min(t, 256 (kb + 1) - 1)), flash_decode_vmem the global max.
-BLOCKED = {"flash_decode": True, "flash_decode_vmem": False}
-# cluster sizes by cache length: (longest M, blocks a (row, head)); past
-# the last, 16 where the card places a cluster of 16, else 8
+DH_TAKEN = (16, 32, 48, 64, 128)
+# query heads a KV head that K3's kernel takes
+G_TAKEN = (1, 2, 4, 8)
+# Keys a block of each TPU loop, whose running max p = exp(s - max) is
+# rounded against (for a key of block kb, the max over keys 0..min(t,
+# bk (kb + 1) - 1)); 0: the global max (flash_decode_vmem's one pass).
+# K3: block_k = min(128, M) (over M < 128 keys one block either way).
+BLOCK_K = {"flash_decode_sp": 128, "flash_decode": 256,
+           "flash_decode_vmem": 0}
+# cluster sizes over spans by cache length: (longest M, blocks a (row,
+# head)); past the last, 16 where the card places a cluster of 16, else 8.
+# MHA (rows 5, 6 and K3 at g 1), and K3 with a group of g > 1 query heads
+# a KV head
 CLUSTER_BY_M = ((1024, 2), (4096, 4))
+SP_GQA_CLUSTER_BY_M = ((1024, 8),)
+# shared memory a block may take on sm_90: EAMG_MAX_SMEM in csrc/common.cuh
+SMEM_MAX = 232448
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -60,65 +71,123 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 def _launch():
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("decode_attention", "eamg_flash_decode_sp",
-                       [P, P, P, P, P, P, I, I, I, I, I, F, I, P])
+                       [P, P, P, P, P, I, I, I, I, I, F, I, I, I, P])
+
+
+def heads_smem(M: int, Dh: int, itemsize: int) -> int:
+    """Bytes of shared memory a block of K3's kernel by head takes: every
+    key and value of a KV head, q, the scores, the 128-key blocks' maxima
+    and factors, each warp's p.v and l (``HeadsSmem`` in
+    csrc/decode_attention.cu, which chip_smoke.py holds this to)."""
+    return (128 + 2 * M * Dh * itemsize + Dh * itemsize + 4 * M
+            + 8 * -(-M // 128) + 4 * 8 * Dh + 4 * 8)
+
+
+def sp_plan(M: int, Dh: int, g: int, itemsize: int,
+            active16) -> tuple[bool, int]:
+    """(by head, blocks a cluster) of K3's launch, from M, Dh, g and the
+    dtype's size alone, never from B or t (so a row gets the same bits at
+    any B): by head, a cluster of g blocks, one a query head, where g > 1
+    and a block holds every key and value of the KV head; else a cluster
+    of :func:`cluster_size` blocks over spans of the keys."""
+    if g > 1 and heads_smem(M, Dh, itemsize) <= SMEM_MAX:
+        return True, g
+    return False, cluster_size(M, g, active16)
+
+
+def cluster_size(M: int, g: int, active16) -> int:
+    """Blocks in the cluster of one (row, KV head) of the kernel over spans
+    of the keys (K3 where it does not go by head, and the scalar-t
+    wrappers at g 1), from the cache length M and the group g alone, never
+    from B or t (so a row gets the same bits at any B): MHA 2 up to M 1024,
+    4 up to M 4096; a group of g > 1 heads (a block scores g heads a key) 8
+    up to M 1024; past these 16 where the card can place a cluster of 16
+    (``active16`` resident at the shape, a callable asked only then), else
+    8. The fastest on an H100 SXM (chip_sweep.py, PERF.md): MHA at B 8, H
+    8 (M 511, 2048, 4096) and one row (M 16384, 60000), where at M 511
+    clusters of 16 took ~1.5x as long as 2, their blocks starting up to ~9
+    us apart; GQA-2 at one row (M 511, 2048, 16384)."""
+    for longest, C in (CLUSTER_BY_M if g == 1 else SP_GQA_CLUSTER_BY_M):
+        if M <= longest:
+            return C
+    return 16 if active16() > 0 else 8
+
+
+def check_sp_args(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, t: torch.Tensor) -> None:
+    """Raise on what K3 does not take: q [B, H, 1, Dh], caches
+    [B, Hkv, M, Dh] with H / Hkv in :data:`G_TAKEN`, laid out as
+    :func:`_check_layout` says, and t [B] int32 on their device."""
+    B, H, one, Dh = q.shape
+    Hkv, M = k_cache.shape[1], k_cache.shape[2]
+    if one != 1 or k_cache.shape != (B, Hkv, M, Dh) \
+            or v_cache.shape != k_cache.shape or H % Hkv \
+            or H // Hkv not in G_TAKEN:
+        raise ValueError(f"flash_decode_sp: shapes q {tuple(q.shape)} cache "
+                         f"{tuple(k_cache.shape)}; H / Hkv in {G_TAKEN}")
+    _check_layout("flash_decode_sp", q, k_cache, v_cache)
+    if t.shape != (B,) or t.dtype != torch.int32 or t.device != q.device:
+        raise ValueError("flash_decode_sp: t must be [B] int32 on the inputs' "
+                         "device")
 
 
 def flash_decode_sp(q: torch.Tensor, k_cache: torch.Tensor,
                     v_cache: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Attention of q [B, H, 1, Dh] over cache positions 0..t[b] of
-    k/v [B, Hkv, M, Dh]; t [B] int32. CPU tensors take
-    :func:`decode_attention_plain`; CUDA tensors launch K3."""
+    k/v [B, Hkv, M, Dh]; t [B] int32, H / Hkv in :data:`G_TAKEN`. CPU
+    tensors take :func:`decode_attention_plain`; CUDA tensors launch K3's
+    kernel once, as :func:`sp_plan` says, with t passed as a device
+    pointer (the host never reads it)."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, t)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_sp: unsupported device {q.device}")
-    B, H, one, Dh = q.shape
+    return _flash_decode_sp(q, k_cache, v_cache, t)
+
+
+def _flash_decode_sp(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, t: torch.Tensor,
+                     C: int | None = None) -> torch.Tensor:
+    """K3 on CUDA tensors as :func:`sp_plan` says, or over spans of the
+    keys with C blocks a (row, KV head) (chip_smoke.py and chip_sweep.py
+    check and time the other sizes)."""
+    _build.require_cuda("flash_decode_sp", q)
+    check_sp_args(q, k_cache, v_cache, t)
+    B, H, _, Dh = q.shape
     Hkv, M = k_cache.shape[1], k_cache.shape[2]
-    if q.dtype not in _build.DTYPE_CODE or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
-        raise ValueError(f"flash_decode_sp: dtypes {q.dtype}/{k_cache.dtype}/"
-                         f"{v_cache.dtype}; want one of float32, bfloat16")
-    if one != 1 or k_cache.shape != (B, Hkv, M, Dh) \
-            or v_cache.shape != k_cache.shape or H % Hkv \
-            or Dh not in (16, 32, 64, 128):
-        raise ValueError(f"flash_decode_sp: shapes q {tuple(q.shape)} cache "
-                         f"{tuple(k_cache.shape)}")
-    if not (q.is_contiguous() and k_cache.is_contiguous()
-            and v_cache.is_contiguous()):
-        raise ValueError("flash_decode_sp: inputs must be contiguous")
-    if t.shape != (B,) or t.dtype != torch.int32 or t.device != q.device:
-        raise ValueError("flash_decode_sp: t must be [B] int32 on the inputs' "
-                         "device")
-    n_split = -(-M // SPLIT)
-    part = torch.empty(B * H * n_split * (Dh + 2), dtype=torch.float32,
-                       device=q.device)
+    g = H // Hkv
+    by_head = False
+    if C is None:
+        by_head, C = sp_plan(M, Dh, g, q.element_size(), lambda: (
+            cluster_occupancy(M, Dh, g, BLOCK_K["flash_decode_sp"],
+                              q.dtype)[1]))
     o = torch.empty_like(q)
     t = t.contiguous()
     err = _launch()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    t.data_ptr(), o.data_ptr(), part.data_ptr(),
-                    B, H, Hkv, M, Dh, 1.0 / math.sqrt(Dh),
+                    t.data_ptr(), o.data_ptr(), B, H, Hkv, M, Dh,
+                    1.0 / math.sqrt(Dh), int(by_head), C,
                     _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
-    _build.check(err, "flash_decode_sp")
+    _build.check(err, "flash_decode_sp", smem=f"Dh {Dh}, M {M}, g {g}")
     _build.count_launch("flash_decode_sp")
     return o
 
 
 def key_spans(t: int, M: int, C: int) -> list[tuple[int, int]]:
     """The keys [start, stop) that block rank r of a cluster of C blocks
-    takes of one (row, head), as the cluster kernel computes them: the
-    valid keys 0..min(t, M - 1) spread evenly in rank order, the first
-    (t + 1) % C ranks one key more."""
+    takes of one (row, KV head), as the cluster kernel computes them from
+    that row's t: the valid keys 0..min(t, M - 1) spread evenly in rank
+    order, the first (t + 1) % C ranks one key more."""
     nv = max(0, min(t, M - 1) + 1)
     base, rem = divmod(nv, C)
     starts = [r * base + min(r, rem) for r in range(C + 1)]
     return list(zip(starts[:-1], starts[1:]))
 
 
-def span_blocks(start: int, stop: int) -> range:
-    """The 256-key blocks of flash_decode's TPU loop that the keys
-    [start, stop) touch: the blocks whose maxima a cluster block pushes."""
-    return range(start // BLOCK_K, (stop - 1) // BLOCK_K + 1) \
-        if stop > start else range(0)
+def span_blocks(start: int, stop: int, bk: int) -> range:
+    """The key blocks of bk keys (the TPU loop's) that the keys
+    [start, stop) touch: the blocks whose maxima a cluster block takes
+    into every block's table (bk 0: the one block of the global max)."""
+    if stop <= start:
+        return range(0)
+    return range(start // bk, (stop - 1) // bk + 1) if bk else range(1)
 
 
 @functools.cache
@@ -132,56 +201,38 @@ def _launch_scalar_t():
 def _launch_occupancy():
     P, I = _build.P, _build.I
     return _build.bind("decode_attention", "eamg_decode_cluster_occupancy",
-                       [I, I, I, I, I, P])
+                       [I, I, I, I, I, I, P])
 
 
 @functools.cache
-def cluster_occupancy(M: int, Dh: int, blocked: bool,
+def cluster_occupancy(M: int, Dh: int, g: int, bk: int,
                       dtype: torch.dtype) -> tuple[int, int]:
-    """(clusters of 8, clusters of 16 blocks) of the scalar-t cluster kernel
-    with ``blocked``'s rounding that the current card keeps resident at
-    once at (M, Dh, dtype)."""
+    """(clusters of 8, clusters of 16 blocks) of the cluster kernel with g
+    query heads a KV head and key blocks of bk (:data:`BLOCK_K`) that the
+    current card keeps resident at once at (M, Dh, dtype)."""
     out = []
     for C in (8, 16):
         active = (ctypes.c_int * 1)()
-        err = _launch_occupancy()(M, Dh, int(blocked), C,
+        err = _launch_occupancy()(M, Dh, g, bk, C,
                                   _build.DTYPE_CODE[dtype], active)
         _build.check(err, f"decode cluster occupancy, C {C}")
         out.append(active[0])
     return out[0], out[1]
 
 
-def scalar_t_cluster_size(M: int, active16) -> int:
-    """Blocks in the cluster of one (row, head) of the scalar-t kernel, from
-    the cache length M alone (so a row gets the same bits at any B): 2 up to
-    M 1024, 4 up to M 4096, past it 16 where the card can place a cluster
-    of 16 (``active16`` resident at the shape, a callable asked only then),
-    else 8. The fastest on an H100 SXM at B 8, H 8 (M 511, 2048, 4096) and
-    at one row (M 16384, 60000); at M 511 clusters of 16 took ~1.5x as
-    long as 2, their blocks starting up to ~9 us apart (chip_sweep.py,
-    PERF.md)."""
-    for longest, C in CLUSTER_BY_M:
-        if M <= longest:
-            return C
-    return 16 if active16() > 0 else 8
-
-
-def _check_card(name: str, q: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor) -> None:
-    """What the cluster kernel takes beyond the shapes: CUDA tensors of one
+def _check_layout(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor) -> None:
+    """What the cluster kernel takes beyond the shapes: tensors of one
     dtype (f32 or bf16) on one device, contiguous, each starting on a
-    16-byte boundary (the kernel stages them by bulk copy), Dh 16, 32, 64
-    or 128."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
+    16-byte boundary (the kernel stages them by bulk copy), Dh in
+    :data:`DH_TAKEN`."""
     if q.dtype not in _build.DTYPE_CODE or k_cache.dtype != q.dtype \
             or v_cache.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k_cache.dtype}/"
                          f"{v_cache.dtype}; want one of float32, bfloat16")
     Dh, M = q.shape[3], k_cache.shape[2]
-    if Dh not in (16, 32, 64, 128) or M <= 0:
-        raise ValueError(f"{name}: Dh {Dh}, M {M}; want Dh in (16, 32, 64, "
-                         "128)")
+    if Dh not in DH_TAKEN or M <= 0:
+        raise ValueError(f"{name}: Dh {Dh}, M {M}; want Dh in {DH_TAKEN}")
     if k_cache.device != q.device or v_cache.device != q.device \
             or not (q.is_contiguous() and k_cache.is_contiguous()
                     and v_cache.is_contiguous()):
@@ -191,11 +242,18 @@ def _check_card(name: str, q: torch.Tensor, k_cache: torch.Tensor,
                          "boundaries (the kernel stages them by bulk copy)")
 
 
+def _check_card(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor) -> None:
+    """CUDA tensors laid out as :func:`_check_layout` says."""
+    _build.require_cuda(name, q)
+    _check_layout(name, q, k_cache, v_cache)
+
+
 def _scalar_t(name: str, q: torch.Tensor, k_cache: torch.Tensor,
               v_cache: torch.Tensor, t, C: int | None = None
               ) -> torch.Tensor:
     """The cluster kernel as wrapper ``name`` launches it, C blocks a
-    (row, head) (None: :func:`scalar_t_cluster_size` at this shape)."""
+    (row, head) (None: :func:`cluster_size` at this shape)."""
     if q.dim() != 4 or q.shape[2] != 1 or k_cache.dim() != 4 \
             or v_cache.shape != k_cache.shape \
             or k_cache.shape[0] != q.shape[0] \
@@ -219,14 +277,14 @@ def _scalar_t(name: str, q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_plain(
             q, k_cache, v_cache, torch.full((B,), t, dtype=torch.int32))
     _check_card(name, q, k_cache, v_cache)
-    blocked = BLOCKED[name]
+    bk = BLOCK_K[name]
     if C is None:
-        C = scalar_t_cluster_size(
-            M, lambda: cluster_occupancy(M, Dh, blocked, q.dtype)[1])
+        C = cluster_size(
+            M, 1, lambda: cluster_occupancy(M, Dh, 1, bk, q.dtype)[1])
     o = torch.empty_like(q)
     err = _launch_scalar_t()(q.data_ptr(), k_cache.data_ptr(),
                              v_cache.data_ptr(), o.data_ptr(), B * H, M, Dh,
-                             t, 1.0 / math.sqrt(Dh), int(blocked), C,
+                             t, 1.0 / math.sqrt(Dh), int(bk > 0), C,
                              _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
     _build.check(err, name, smem=f"Dh {Dh}, M {M}")
     _build.count_launch(name)

@@ -52,11 +52,15 @@ ATTN_CASES = {
     "mha_causal": (2, 4, 4, 24, 16, True, None),
     "gqa_causal_valid": (2, 4, 2, 24, 16, True, 17),
     "gqa_bidir_valid": (1, 8, 2, 20, 32, False, 13),
+    # demo_ckpt_b3's head: 3 k-steps of 16
+    "gqa_causal_dh48": (2, 4, 2, 24, 48, True, 19),
+    "mha_bidir_dh48": (1, 2, 2, 16, 48, False, None),
 }
 # name: (rows shape, D, FF, activation)
 FFN_CASES = {"relu": ((2, 5), 64, 256, "relu"),
              "gelu": ((7,), 64, 128, "gelu")}
 DEC_TS = (0, 5, 17, 63)            # M 64 = 4 blocks of 16
+DEC48_TS = (0, 17, 63)             # the same cache at Dh 48
 DEC_RAGGED_M, DEC_RAGGED_T = 50, 41
 TOPK_KS = (1, 50, 300)             # V = 300
 TOPP_PS = (0.1, 0.5, 0.9)
@@ -115,6 +119,42 @@ SCALAR_T_LAUNCH_SHAPES = (
 # resident clusters of 16 blocks the card may report -> the cluster size
 # picked: 16 wherever the card can place one
 RESIDENT_16 = {0: 8, 1: 16, 7: 16, 14: 16}
+# K3: t [B] of each case, M and C: each row's spans from its own t (a free
+# slot, fewer keys than blocks, both sides of a 128-key block, the last
+# slot, t past the cache)
+ROW_SPAN_CASES = (((0, 15, 127, 128, 300, 510, 200, 64), 511, 4),
+                  ((3, 700, 0), 511, 8), ((16383, 5), 16384, 16),
+                  ((49, 0), 50, 2))
+# (M, g, resident clusters of 16) -> K3's cluster size: from M and g alone
+SP_SIZES = {(511, 4, 0): 8, (511, 1, 0): 2, (1024, 2, 9): 8,
+            (1025, 4, 3): 16, (1025, 4, 0): 8, (4096, 8, 3): 16,
+            (2048, 1, 0): 4, (16384, 1, 2): 16, (16384, 4, 0): 8}
+# K1 ("attn": L = T) and K3 ("sp": L = M) on CUDA inputs through the
+# mocked binder: (kind, B, H, Hkv, L, Dh, dtype, resident clusters of 16)
+CARD_CASES = (("sp", 1, 8, 2, 511, 64, "bfloat16", 0),
+              ("sp", 8, 8, 8, 511, 64, "bfloat16", 0),
+              ("sp", 2, 8, 1, 16384, 128, "float32", 3),
+              ("sp", 2, 4, 4, 511, 48, "bfloat16", 0),
+              ("attn", 1, 8, 2, 16, 64, "bfloat16", 0),
+              ("attn", 8, 8, 8, 16, 64, "float32", 0),
+              ("attn", 2, 4, 2, 511, 48, "bfloat16", 0),
+              # refused: Dh 40, 96 and 256, and g 3 for K3
+              ("sp", 1, 8, 2, 511, 40, "bfloat16", 0),
+              ("sp", 1, 8, 2, 511, 256, "float32", 0),
+              ("sp", 1, 6, 2, 511, 64, "bfloat16", 0),
+              ("attn", 1, 8, 2, 16, 96, "bfloat16", 0),
+              ("attn", 1, 8, 2, 16, 40, "float32", 0))
+# K3's plan at the first four cases: (by head, blocks a cluster)
+SP_PLANS = {0: (1, 4), 1: (0, 2), 2: (0, 16), 3: (0, 2)}
+# (M, Dh, g, dtype size, resident clusters of 16) -> K3's plan: by head
+# (a cluster of g blocks) where g > 1 and a block holds every key and
+# value of the KV head, else over spans (cluster_size)
+SP_PLAN_CASES = {(511, 64, 4, 2, 0): (1, 4), (511, 64, 4, 4, 0): (0, 8),
+                 (511, 128, 8, 2, 0): (0, 8), (200, 32, 2, 2, 0): (1, 2),
+                 (16384, 64, 4, 2, 1): (0, 16), (511, 64, 1, 2, 0): (0, 2),
+                 (50, 48, 4, 4, 0): (1, 4), (800, 64, 8, 2, 0): (1, 8)}
+CARD_TAKES = CARD_CASES[:7]
+CARD_REFUSES = CARD_CASES[7:]
 # K2's plan (ops/ffn.py::ffn_plan): (D, FF), multiples of 64 as today's
 # kernel takes them: the flagship's, one panel of the smallest, FF with a
 # slice count no multiple of 8, D past one panel, a wide D
@@ -201,6 +241,21 @@ def _inputs():
                     jnp.asarray(q), kr, vr, t, block_k=16))
             ref[("dec", name, "xla")] = np.asarray(xla_decode_attention(
                 jnp.asarray(q), kr, vr, t))
+    # K3 at Dh 48, GQA-2, M 64: its own generator, so the draws after it
+    # stay those of earlier versions
+    r48 = np.random.default_rng(48)
+    kc = r48.standard_normal((B, Hkv, 64, 48), np.float32)
+    vc = r48.standard_normal((B, Hkv, 64, 48), np.float32)
+    q = r48.standard_normal((B, H, 1, 48), np.float32)
+    kr, vr = _repeat(kc, H // Hkv), _repeat(vc, H // Hkv)
+    for t in DEC48_TS:
+        name = f"M64_t{t}_dh48"
+        inp.update(flatten({"q": q, "k": kc, "v": vc,
+                            "t": np.full((B,), t, np.int32)}, f"dec/{name}"))
+        ref[("dec", name, "pallas")] = np.asarray(flash_decode_sp(
+            jnp.asarray(q), kr, vr, t, block_k=16))
+        ref[("dec", name, "xla")] = np.asarray(xla_decode_attention(
+            jnp.asarray(q), kr, vr, t))
     V = 300
     logits = (rng.standard_normal((3, V)) * 3).astype(np.float32)
     logits[:, 10:20] = logits[:, 3:4]              # ties
@@ -302,6 +357,10 @@ def _inputs():
     inp["scalartsize/cases"] = np.asarray(list(SCALAR_T_SIZES))
     inp["scalartlaunch/shapes"] = np.asarray(json.dumps(
         SCALAR_T_LAUNCH_SHAPES))
+    inp["rowspans/cases"] = np.asarray(json.dumps(ROW_SPAN_CASES))
+    inp["spsize/cases"] = np.asarray(list(SP_SIZES))
+    inp["cardlaunch/cases"] = np.asarray(json.dumps(CARD_CASES))
+    inp["spplan/cases"] = np.asarray(list(SP_PLAN_CASES))
     kv = rng.standard_normal((4, 16, 32), np.float32)
     for rows in STREAM_ROWS:
         inp.update(flatten({"kv": kv, "rows": np.asarray(rows)},
@@ -353,6 +412,19 @@ def test_decode_attention_plain_takes_ragged_cache(results):
     name = f"M{DEC_RAGGED_M}_t{DEC_RAGGED_T}"
     np.testing.assert_allclose(got[f"dec/{name}"], ref[("dec", name, "xla")],
                                rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("t", DEC48_TS)
+@pytest.mark.parametrize("against", ["pallas", "xla"])
+def test_decode_attention_plain_dh48_matches_jax(results, t, against):
+    """K3's function at demo_ckpt_b3's Dh 48 (GQA-2, M 64) against JAX's
+    flash_decode_sp (interpret mode) and XLA."""
+    got, ref = results
+    name = f"M64_t{t}_dh48"
+    assert got[f"dec/{name}"].shape == (2, 4, 1, 48)
+    np.testing.assert_allclose(got[f"dec/{name}"],
+                               ref[("dec", name, against)], rtol=TOL,
+                               atol=TOL)
 
 
 @pytest.mark.parametrize("k", TOPK_KS)
@@ -653,3 +725,95 @@ def test_scalar_t_wrappers_count_under_their_own_names(results):
     n = len(SCALAR_T_LAUNCH_SHAPES)
     assert json.loads(str(got["scalartlaunch/counts"])) == {
         "flash_decode": n, "flash_decode_vmem": n}
+
+
+@pytest.mark.parametrize("case", ROW_SPAN_CASES)
+def test_sp_key_spans_cover_0_to_t_of_each_row(results, case):
+    """K3's kernel reads t[b] on the card and spreads that row's keys over
+    its cluster: for each row, key_spans(t[b]) gives the C blocks disjoint
+    runs in rank order, together exactly 0..min(t[b], M - 1), within one
+    key of each other; span_blocks names the 128-key blocks of each run."""
+    got, _ = results
+    ts, M, C = case
+    i = ROW_SPAN_CASES.index(case)
+    for b, t in enumerate(ts):
+        spans = got[f"rowspans/{i}/{b}"]
+        assert spans.shape == (C, 2)
+        keys = np.concatenate([np.arange(a, z) for a, z in spans])
+        np.testing.assert_array_equal(keys, np.arange(min(t, M - 1) + 1))
+        sizes = spans[:, 1] - spans[:, 0]
+        assert sizes.max() - sizes.min() <= 1
+        blocks = json.loads(str(got[f"rowspans/{i}/{b}/blocks"]))
+        for (a, z), bl in zip(spans, blocks):
+            assert bl == sorted({j // 128 for j in range(a, z)})
+
+
+@pytest.mark.parametrize("case", list(SP_SIZES))
+def test_sp_cluster_size_follows_m_and_g_alone(results, case):
+    """K3's cluster size over spans: MHA as rows 5 and 6 (2 up to M 1024,
+    4 up to 4096); a group of g > 1 heads 8 up to M 1024; past these 16
+    where the card places one, else 8. Neither B nor t is an argument, so a
+    row gets the same bits at any B."""
+    got, _ = results
+    i = list(SP_SIZES).index(case)
+    assert int(got["spsize/got"][i]) == SP_SIZES[case]
+
+
+@pytest.mark.parametrize("case", CARD_TAKES)
+def test_card_wrappers_launch_once_with_their_arguments(results, case):
+    """On CUDA inputs K3 makes exactly one launch a call (no second launch
+    merges partials), with t [B] passed as a device pointer (the inputs are
+    meta tensors: no value reaches the host) and the plan of sp_plan; K1
+    one launch with 4 warps a block (attention.WARPS). Both take Dh 48."""
+    got, _ = results
+    i = CARD_CASES.index(case)
+    assert str(got[f"cardlaunch/{i}/raised"]) == "none"
+    calls = json.loads(str(got[f"cardlaunch/{i}"]))
+    ptrs = json.loads(str(got[f"cardlaunch/{i}/ptrs"]))
+    kind, B, H, Hkv, L, Dh, dt, active16 = case
+    assert len(calls) == 1, calls
+    lib, fn, args = calls[0]
+    assert args[:3] == [ptrs["q"], ptrs["k"], ptrs["v"]]
+    if kind == "sp":
+        assert [lib, fn] == ["decode_attention", "eamg_flash_decode_sp"]
+        assert args[3] == ptrs["lens"]
+        assert args[5:10] == [B, H, Hkv, L, Dh]
+        assert args[10] == pytest.approx(1 / math.sqrt(Dh), rel=1e-12)
+        assert tuple(args[11:13]) == SP_PLANS[i]
+        assert args[13] == (0 if dt == "float32" else 1)
+    else:
+        assert [lib, fn] == ["attention", "eamg_attention_fwd"]
+        assert args[4] == ptrs["lens"]
+        assert args[5:11] == [B, H, Hkv, L, Dh, 1]
+        assert args[11] == pytest.approx(1 / math.sqrt(Dh), rel=1e-12)
+        assert args[12] == 4
+        assert args[13] == (0 if dt == "float32" else 1)
+
+
+@pytest.mark.parametrize("case", CARD_REFUSES)
+def test_card_wrappers_refuse_what_their_kernels_do_not_take(results, case):
+    """Dh outside (16, 32, 48, 64, 128), and for K3 a group size outside
+    (1, 2, 4, 8): a ValueError before any launch."""
+    got, _ = results
+    i = CARD_CASES.index(case)
+    said = str(got[f"cardlaunch/{i}/raised"])
+    assert said.startswith("ValueError"), said
+    assert json.loads(str(got[f"cardlaunch/{i}"])) == []
+
+
+def test_card_wrappers_count_one_launch_a_call(results):
+    got, _ = results
+    kinds = [c[0] for c in CARD_TAKES]
+    assert json.loads(str(got["cardlaunch/counts"])) == {
+        "flash_decode_sp": kinds.count("sp"),
+        "flash_attention": kinds.count("attn")}
+
+
+@pytest.mark.parametrize("case", list(SP_PLAN_CASES))
+def test_sp_plan_follows_m_dh_g_and_dtype_alone(results, case):
+    """K3 by head (a cluster of g blocks, one a query head, every key and
+    value multicast to all) where g > 1 and a block holds the KV head's
+    keys and values; else over spans of the keys. No argument is B or t."""
+    got, _ = results
+    i = list(SP_PLAN_CASES).index(case)
+    assert tuple(int(x) for x in got["spplan/got"][i]) == SP_PLAN_CASES[case]

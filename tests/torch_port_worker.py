@@ -189,6 +189,77 @@ def _scalar_t_launches(decode_attention, shapes) -> dict:
     return got
 
 
+def _card_launches(cases) -> dict:
+    """What K3 (flash_decode_sp) and K1 (flash_attention) hand the library
+    on CUDA inputs, recorded in place of a launch: meta tensors stand for
+    the card's (a wrapper that read one on the host would raise), each
+    tensor's pointer is a distinct multiple of 16, and the device check
+    is passed. For each case a JSON list of [library, symbol, arguments]
+    (the occupancy query answered with the case's resident clusters of
+    16), the pointers of the case's tensors by name, or what the wrapper
+    raised; and the launch counts after all."""
+    from unittest import mock
+
+    from eamg_tpu_torch.ops import _build, attention, decode_attention
+
+    calls = []
+    active16 = [0]
+
+    def bind(lib, fn, argtypes):
+        def call(*args):
+            if fn == "eamg_decode_cluster_occupancy":
+                args[-1][0] = active16[0]
+            else:
+                calls.append([lib, fn, list(args)])
+            return 0
+        return call
+
+    def fresh():
+        for f in (decode_attention._launch, decode_attention._launch_occupancy,
+                  decode_attention.cluster_occupancy, attention._launch):
+            f.cache_clear()
+
+    def ptr(t):
+        return 16 * (id(t) % (1 << 40))
+
+    got = {}
+    fresh()
+    _build.reset_launch_counts()
+    try:
+        with mock.patch.object(_build, "bind", bind), \
+                mock.patch.object(_build, "stream_ptr", lambda t: 0), \
+                mock.patch.object(_build, "require_cuda", lambda *a: None), \
+                mock.patch.object(torch.Tensor, "data_ptr", ptr):
+            for i, case in enumerate(cases):
+                fresh()
+                calls.clear()
+                kind, B, H, Hkv, L, Dh, dt, act = case
+                active16[0] = act
+                dt = getattr(torch, dt)
+                q = torch.empty((B, H, 1 if kind == "sp" else L, Dh),
+                                dtype=dt, device="meta")
+                k = torch.empty((B, Hkv, L, Dh), dtype=dt, device="meta")
+                v = torch.empty((B, Hkv, L, Dh), dtype=dt, device="meta")
+                lens = torch.empty((B,), dtype=torch.int32, device="meta")
+                if kind == "sp":
+                    said = _raised(lambda: decode_attention.flash_decode_sp(
+                        q, k, v, lens))
+                else:
+                    said = _raised(lambda: attention.flash_attention(
+                        q, k, v, lens, causal=True))
+                got[f"cardlaunch/{i}"] = np.asarray(json.dumps(calls))
+                got[f"cardlaunch/{i}/raised"] = said
+                got[f"cardlaunch/{i}/ptrs"] = np.asarray(json.dumps(
+                    {n: ptr(x) for n, x in (("q", q), ("k", k), ("v", v),
+                                            ("lens", lens))}))
+        got["cardlaunch/counts"] = np.asarray(
+            json.dumps(_build.launch_counts()))
+    finally:
+        fresh()
+        _build.reset_launch_counts()
+    return got
+
+
 def task_kernels(inp, out):
     from eamg_tpu_torch.ops import (attention, decode_attention, decode_fold,
                                     ffn, topk)
@@ -280,11 +351,39 @@ def task_kernels(inp, out):
             spans = decode_attention.key_spans(t, M, C)
             out[f"spans/{i}"] = np.asarray(spans, np.int64).reshape(-1, 2)
             out[f"spans/{i}/blocks"] = np.asarray(json.dumps(
-                [list(decode_attention.span_blocks(a, b)) for a, b in spans]))
+                [list(decode_attention.span_blocks(
+                    a, b, decode_attention.BLOCK_K["flash_decode"]))
+                 for a, b in spans]))
     if "scalartsize/cases" in inp.files:
         out["scalartsize/got"] = np.asarray([
-            decode_attention.scalar_t_cluster_size(int(M), lambda n=n: int(n))
+            decode_attention.cluster_size(int(M), 1, lambda n=n: int(n))
             for M, n in inp["scalartsize/cases"]])
+    # K3: each row's spans from a t [B] (as the kernel reads it), the
+    # 128-key blocks they touch, the cluster size picked from (M, g), and
+    # K1's and K3's launch arguments
+    if "rowspans/cases" in inp.files:
+        for i, (ts, M, C) in enumerate(json.loads(str(inp["rowspans/cases"]))):
+            t = torch.tensor(ts, dtype=torch.int32)
+            for b in range(t.shape[0]):
+                spans = decode_attention.key_spans(int(t[b]), M, C)
+                out[f"rowspans/{i}/{b}"] = np.asarray(spans,
+                                                      np.int64).reshape(-1, 2)
+                out[f"rowspans/{i}/{b}/blocks"] = np.asarray(json.dumps(
+                    [list(decode_attention.span_blocks(
+                        a, z, decode_attention.BLOCK_K["flash_decode_sp"]))
+                     for a, z in spans]))
+    if "spsize/cases" in inp.files:
+        out["spsize/got"] = np.asarray([
+            decode_attention.cluster_size(int(M), int(g),
+                                             lambda n=n: int(n))
+            for M, g, n in inp["spsize/cases"]])
+    if "spplan/cases" in inp.files:
+        out["spplan/got"] = np.asarray([
+            decode_attention.sp_plan(int(M), int(Dh), int(g), int(es),
+                                     lambda n=n: int(n))
+            for M, Dh, g, es, n in inp["spplan/cases"]])
+    if "cardlaunch/cases" in inp.files:
+        out.update(_card_launches(json.loads(str(inp["cardlaunch/cases"]))))
     if "scalartlaunch/shapes" in inp.files:
         out.update(_scalar_t_launches(
             decode_attention, json.loads(str(inp["scalartlaunch/shapes"]))))
