@@ -18,9 +18,14 @@ Phases:
     511 with valid_len < T, Dh 48); K3 at every K3_T over the flagship's
     cache, with its plan (by head at the solo shape) and over spans with
     every cluster size, at a t a row at B 8 and at K3_SHAPES (M 50, 16384,
-    Dh 48, g 2 and 8), timed cold (and warm) beside SDPA; their bf16 error
-    against the f32 plain version no larger than the plain bf16 version's
-    own; the FFN
+    Dh 48, g 2 and 8), timed cold (and warm) beside SDPA; rows 8 and 11
+    (flash_decode_fold_sp and _fold3_sp, one kernel: K3's over the fused
+    cache) at the engine's step (8 rows, ragged t, a free slot) with their
+    plan and over spans with every cluster size, at FOLD_SP_SHAPES (Dh 48,
+    M 16384, t past the cache, t 0 over a zeroed row) and at the batched
+    decode's MHA shape, timed cold (and warm) beside the masked SDPA; the
+    bf16 error of K1, K3 and rows 8 and 11 against the f32 plain version
+    no larger than the plain bf16 version's own; the FFN
     kernel at rows 1, 8, 16 and 128, cold, in the served kernels="xla"
     rounding order and in the Pallas one, and at one gelu shape; the
     scalar-t cluster kernel of flash_decode and flash_decode_vmem at every
@@ -36,7 +41,8 @@ Phases:
     bit-identity of a row alone and inside a batch of 8, for K1, K3, the
     fold kernels, the scalar-t kernel, the FFN kernel in both orders and
     the library's matrix product; then the phases of the cluster fold
-    kernel, of the FFN kernel, of the scalar-t kernel, of K3 and of K1,
+    kernel, of the FFN kernel, of the scalar-t kernel, of K3, of rows 8
+    and 11 and of K1,
     from builds of their sources that stamp the time at each phase
     boundary, beside empty launches of their grids;
  4. teacher: teacher-forced f32 logits of the flagship demo_ckpt_a on the
@@ -57,7 +63,9 @@ Phases:
     fold variant run once over the engine's live cache (no served path
     launches these two, so their "launches" are 0 and these launches are
     reported as "probe_launches"); then one more burst under
-    torch.profiler; last, four requests at once through `serve --coalesce
+    torch.profiler, in whose trace the engine's fold shows one kernel
+    launch a call and a layer and decode step, and no kernel of its old
+    split design; last, four requests at once through `serve --coalesce
     window`, with launch counts of their own;
  7. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
     on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
@@ -136,7 +144,8 @@ BATCH_KERNELS = ("flash_decode", "flash_decode_vmem", "flash_decode_fold",
                  "flash_decode_fold2", "flash_decode_fold3")
 # The path whose launch count is a kernel's "launches". K3 is counted on
 # the solo path (the batch path runs it too); the five kernels above and
-# the second split fold variant run on the batch path only, each in the
+# flash_decode_fold3_sp (the engine calls flash_decode_fold_sp, which
+# launches the same kernel) run on the batch path only, each in the
 # generation that names it; the stream-reduce probe runs on no path, so
 # its count is 0.
 MAIN_PHASE = {"flash_attention": "coalesce", "fused_ffn": "coalesce",
@@ -187,6 +196,14 @@ K3_SHAPES = ((2, 8, 2, 50, 64, (0, 49)),
              (2, 4, 4, 511, 48, (300, 17)),
              (2, 8, 4, 200, 32, (199, 127)),
              (1, 8, 1, 511, 128, (510,)))
+# rows 8 and 11 beyond the engine's step: (B, H, Hkv, M, Dh, t per row, a
+# row zeroed or None): Dh 48 MHA at M 256 (demo_ckpt_b3's cache) and GQA-2,
+# a GQA cache too long to go by head (M 16384: over spans, clusters of 16),
+# t past the cache beside t 0 over a zeroed row
+FOLD_SP_SHAPES = ((2, 4, 4, 256, 48, (255, 17), None),
+                  (2, 4, 2, 256, 48, (100, 255), None),
+                  (2, 8, 2, 16384, 64, (16383, 700), None),
+                  (2, 8, 2, 511, 64, (700, 0), 1))
 # the cluster kernel of rows 7, 9 and 10: a row's bits must not depend on
 # `rows` or on the batch, and they are held to what the kernels they
 # replaced read (one bf16 step at |o| < 2 and 5e-3 of max|want| of the f32
@@ -224,12 +241,17 @@ TOL = {("flash_attention", "float32"): 1e-4,
        ("kth_value", "bfloat16"): 0.0,
        ("kth_value_b8", "float32"): 0.0,
        ("kth_value_b8", "bfloat16"): 0.0,
-       # the fold kernels as K3: f32 scores and probabilities against the
-       # plain version's, rounded to bf16 in the bf16 run
+       # rows 8 and 11, K3's kernel over the fused cache, as K3: f32 scores
+       # and p rounded against 128-key blocks, against the plain version's
+       # scores and normalised p rounded to bf16 in the bf16 run
        ("flash_decode_fold_sp", "float32"): 1e-4,
        ("flash_decode_fold_sp", "bfloat16"): 1e-2,
        ("flash_decode_fold3_sp", "float32"): 1e-4,
        ("flash_decode_fold3_sp", "bfloat16"): 1e-2,
+       # and at FOLD_SP_SHAPES and over spans with every cluster size: as at
+       # the engine's step
+       ("flash_decode_fold_sp_shapes", "float32"): 1e-4,
+       ("flash_decode_fold_sp_shapes", "bfloat16"): 1e-2,
        # the one-launch kernels of the batched decode, at 8 x 8 heads and
        # six positions: f32 as the others. bf16: the two scalar-t kernels
        # against the head-major plain version (scores rounded to bf16
@@ -761,8 +783,11 @@ def kernel_checks(torch, ckpt_params) -> dict:
              topk.kth_value_plain(logits, 50),
              extra=f"logits {tuple(logits.shape)}, k 50, bit-equal")
 
-        # the fold kernels: one engine step, 8 rows over the flagship's
-        # fused position-major cache, ragged lengths
+        # rows 8 and 11 (one kernel, K3's built for the fused layout): one
+        # engine step, 8 rows over the flagship's fused position-major
+        # cache, ragged lengths, with the plan the wrappers pick, over spans
+        # with every cluster size, and at FOLD_SP_SHAPES; timed cold (and
+        # warm) beside the plain version and the masked SDPA
         B, D, KVD = ENGINE_SLOTS, H * Dh, Hkv * Dh
         kvc = randn(B, M, 2 * KVD, dt=dt)
         kvc[0] = 0                                  # a free slot: zeros
@@ -788,6 +813,8 @@ def kernel_checks(torch, ckpt_params) -> dict:
 
         lib = sdpa_ragged().reshape(B, 1, D)
         lib_err = (lib.float() - want32).abs().max().item()
+        sp_by_head, sp_C = decode_fold.sp_plan(M, Dh, H // Hkv, dt)
+        sp_split = [c for c in (1, 2, 4, 8, 16) if sp_by_head or c != sp_C]
         fold_ms = time_cold_ms(torch, {
             "flash_decode_fold_sp": lambda: decode_fold.flash_decode_fold_sp(
                 qf, kvc, tf, H),
@@ -795,8 +822,16 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 qf, kvc, tf, H),
             "plain": lambda: decode_fold.decode_attention_pm_plain(
                 qf, kvc, tf, H),
-            "library": sdpa_ragged})
+            "library": sdpa_ragged,
+            **{c: (lambda c=c: decode_fold._fold_sp(
+                "flash_decode_fold_sp", qf, kvc, tf, H, C=c))
+               for c in sp_split}})
+        fold_warm = {n: time_ms(torch, fn) for n, fn in (
+            ("kernel", lambda: decode_fold.flash_decode_fold_sp(qf, kvc, tf,
+                                                                H)),
+            ("library", sdpa_ragged))}
         p_ms, lib_ms = fold_ms["plain"], fold_ms["library"]
+        sp_others = {c: fold_ms[c] for c in sp_split}
         for name in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
             fn = getattr(decode_fold, name)
             got = fn(qf, kvc, tf, H)
@@ -809,16 +844,64 @@ def kernel_checks(torch, ckpt_params) -> dict:
             if dt is torch.bfloat16:
                 for b, t in enumerate(FOLD_T):
                     if b:   # row 0 is all zeros
-                        rel_f32(name, got[b], want32[b], where=f" at t {t}")
+                        rel_f32(name, got[b], want32[b], where=f" at t {t}",
+                                plain=want[b])
             # a strided q: the head of a fused QKV projection
             qkv = torch.cat([qf, randn(B, 1, 2 * KVD, dt=dt)], dim=-1)
             if not torch.equal(fn(qkv[..., :D], kvc, tf, H), got):
                 raise AssertionError(f"{name}: strided q differs")
+            for c in sp_split:
+                alt = decode_fold._fold_sp(name, qf, kvc, tf, H, C=c)
+                torch.cuda.synchronize()
+                hold("flash_decode_fold_sp_shapes", dt_name, alt, want,
+                     extra=f"{name} over spans of the keys, C {c}")
+                if dt is torch.bfloat16:
+                    for b, t in enumerate(FOLD_T):
+                        if b:
+                            rel_f32(name, alt[b], want32[b], plain=want[b],
+                                    where=f" over spans, C {c}, at t {t}")
             record(name, dt_name, err, fold_ms[name],
                    p_ms, lib_ms, nbytes(qf, qf, tf) + kv_live,
                    4 * H * live * Dh,
-                   extra=f"B {B}, M {M}, t {FOLD_T}; library max|err| vs f32 "
-                         f"plain {lib_err:.1e}")
+                   extra=f"B {B}, M {M}, t {FOLD_T}, "
+                         f"{'by head' if sp_by_head else 'over spans'}, C "
+                         f"{sp_C}; over spans: " + ", ".join(
+                             f"C {c} {v_:.4f}" for c, v_ in sp_others.items())
+                         + f"; warm: kernel {fold_warm['kernel']:.4f} ms, "
+                           f"library {fold_warm['library']:.4f}; library "
+                           f"max|err| vs f32 plain {lib_err:.1e}",
+                   more={"by_head": sp_by_head, "C": sp_C,
+                         "split_C_ms": sp_others,
+                         "ms_warm": fold_warm["kernel"],
+                         "library_ms_warm": fold_warm["library"]})
+        # rows 8 and 11 beyond the engine's step, from a generator of their
+        # own: FOLD_SP_SHAPES (Dh 48, a cache too long to go by head, t past
+        # the cache beside t 0 over a zeroed row)
+        gf = torch.Generator().manual_seed(48)
+        for (Bs, Hs, Hkvs, Ms, Dhs, ts, zero) in FOLD_SP_SHAPES:
+            qs_ = torch.randn(Bs, 1, Hs * Dhs, generator=gf).to(dt).to(dev)
+            kvs_ = torch.randn(Bs, Ms, 2 * Hkvs * Dhs, generator=gf).to(dt)\
+                .to(dev)
+            if zero is not None:
+                kvs_[zero] = 0
+            tt = torch.tensor(ts, dtype=torch.int32, device=dev)
+            want_ = decode_fold.decode_attention_pm_plain(qs_, kvs_, tt, Hs)
+            where = (f"B {Bs} H {Hs} Hkv {Hkvs} M {Ms} Dh {Dhs} t {ts} ("
+                     + ("by head" if decode_fold.sp_plan(
+                         Ms, Dhs, Hs // Hkvs, dt)[0] else "over spans") + ")")
+            for name in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
+                got = getattr(decode_fold, name)(qs_, kvs_, tt, Hs)
+                torch.cuda.synchronize()
+                hold("flash_decode_fold_sp_shapes", dt_name, got, want_,
+                     extra=f"{name} at {where}")
+                if zero is not None and got[zero].abs().max().item() != 0.0:
+                    raise AssertionError(f"{name}: t 0 over a zeroed row must "
+                                         "give zeros")
+                if dt is torch.bfloat16:
+                    rel_f32(name, got, decode_fold.decode_attention_pm_plain(
+                        qs_.float(), kvs_.float(), tt, Hs), where=" at " + where,
+                        plain=want_)
+            del qs_, kvs_
 
         # stream reduce: the read-rate probe over one layer's engine cache
         rows = 4
@@ -1044,7 +1127,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
                                    f"{tuple(kv_.shape)} MHA, t {t_.tolist()}")
                         if dt is torch.bfloat16:
                             rel_f32(name, got, want32, where=" at the batch "
-                                    f"shape, t {t_.tolist()}")
+                                    f"shape, t {t_.tolist()}", plain=want)
                 for name, (norm, fn) in whole.items():
                     got = fn(q_, kv_, t_, H)
                     want = decode_fold.decode_attention_pm_plain(
@@ -1127,6 +1210,20 @@ def kernel_checks(torch, ckpt_params) -> dict:
                         lambda k=kh_, v=vh_, n=label + 1: sdpa(
                             qh_, k[:, :, :n], v[:, :, :n], False)
             ms = time_cold_ms(torch, fns)
+            if not tag:
+                # rows 8 and 11 at the batched decode's MHA shape, beside
+                # the sliced SDPA (rows 5 and 6's records hold theirs)
+                for name in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
+                    results[name][dt_name].update({
+                        f"mha_ms_t{t_l}": ms[(name, t_l)]
+                        for t_l in (BENCH_TIMED_T, BENCH_LAST_T)})
+                    results[name][dt_name].update({
+                        f"mha_library_ms_t{t_l}": ms[("sliced", t_l)]
+                        for t_l in (BENCH_TIMED_T, BENCH_LAST_T)})
+                    log(f"[check] {name} {dt_name} at the batch shape (MHA): "
+                        + ", ".join(f"t {t_l} {ms[(name, t_l)]:.4f} ms "
+                                    f"(sliced SDPA {ms[('sliced', t_l)]:.4f})"
+                                    for t_l in (BENCH_TIMED_T, BENCH_LAST_T)))
             # the library yardstick: the sliced call where there is one
             lib = "masked" if tag else "sliced"
             main, t_ = timed[0]
@@ -1164,7 +1261,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
                        *prefix(q_, kv_, t_),
                        extra=f"q {tuple(q_.shape)}, kv {tuple(kv_.shape)}, "
                              f"err over t in {[x.tolist() for x in ts]}, "
-                             f"timed at t {t_.tolist()}; the split kernels "
+                             f"timed at t {t_.tolist()}; rows 8 and 11 "
                              f"here: fold_sp "
                              f"{ms[('flash_decode_fold_sp', main)]:.4f} ms, "
                              f"fold3_sp "
@@ -1172,13 +1269,14 @@ def kernel_checks(torch, ckpt_params) -> dict:
                              + also, more=more)
 
     # the kernels' largest bf16 error against the f32 plain version beside
-    # the plain bf16 version's own on the same draws; K1's and K3's may not
-    # exceed it
+    # the plain bf16 version's own on the same draws; K1's, K3's and rows
+    # 8 and 11's may not exceed it
     summary = {name: {"kernel_max": max(k for k, _ in v),
                       "plain_bf16_max": max(p for _, p in v), "draws": len(v)}
                for name, v in margins.items()}
     log(json.dumps({"bf16_margins": summary}))
-    for name in ("flash_attention", "flash_decode_sp"):
+    for name in ("flash_attention", "flash_decode_sp", "flash_decode_fold_sp",
+                 "flash_decode_fold3_sp"):
         m = summary[name]
         if not m["kernel_max"] <= m["plain_bf16_max"]:
             raise AssertionError(f"{name} bf16: {m['kernel_max']} of "
@@ -1370,8 +1468,8 @@ def _log_phases(tag: str, r: dict, khz) -> None:
 
 def kernel_phases(torch, ckpt_params) -> dict:
     """Phase 3, last part: where the time of the cluster fold kernel (rows
-    7, 9, 10), of K2, of the scalar-t cluster kernel (rows 5, 6), of K3
-    and of K1 goes. The timed builds of their sources stamp
+    7, 9, 10), of K2, of the scalar-t cluster kernel (rows 5, 6), of K3,
+    of rows 8 and 11 and of K1 goes. The timed builds of their sources stamp
     %globaltimer and clock64 at each phase boundary in thread 0 of every
     block (:func:`_phase_table` reads them, over cold replays). In one cold
     loop beside them: the wrappers' kernels, the stamped kernels, and the
@@ -1381,9 +1479,10 @@ def kernel_phases(torch, ckpt_params) -> dict:
     H 8, M 511, Dh 64, t 300) with the cluster size the card picks; K2 on
     the flagship's layer-0 FFN at rows 1 and 8, bf16, in the served order;
     the scalar-t kernel at the same shape, head-major; K3 at the solo
-    decode (B 1, H 8, Hkv 2, M 511, t 300 read on the card) and K1 at the
-    solo prefill (B 1, H 8, Hkv 2, T 16), each beside empty launches of
-    its own grid."""
+    decode (B 1, H 8, Hkv 2, M 511, t 300 read on the card), rows 8 and 11
+    at the engine's step (8 rows, H 8, Hkv 2, M 511, FOLD_T on the card)
+    and K1 at the solo prefill (B 1, H 8, Hkv 2, T 16), each beside empty
+    launches of its own grid."""
     import ctypes
     import math
 
@@ -1583,6 +1682,46 @@ def kernel_phases(torch, ckpt_params) -> dict:
         fns[f"empty_cluster{C_sp}_sp_b{nb}"] = (
             lambda nb=nb: _build.check(fold_lib.eamg_empty_launch(
                 C_sp, Hkvs, sp_smem, nb, stream()), "empty launch"))
+    # rows 8 and 11 (one kernel) at the engine's step: bf16, 8 rows over the
+    # fused cache, H 8, Hkv 2, M 511, t FOLD_T on the card, with the plan
+    # the wrappers pick, beside the empty launch of its grid
+    fold_lib.eamg_fold_decode_sp.argtypes = [P, P, P, P, I, I, I, I, I, I,
+                                             _build.F, I, I, I, I, P]
+    fold_lib.eamg_fold_decode_sp.restype = ctypes.c_int
+    Be = ENGINE_SLOTS
+    qe = torch.randn(Be, 1, Hs * Dh, generator=g).to(dt).to(dev)
+    kve = torch.randn(Be, M, 2 * Hkvs * Dh, generator=g).to(dt).to(dev)
+    te = torch.tensor(FOLD_T, dtype=torch.int32, device=dev)
+    by_head_e, C_e = decode_fold.sp_plan(M, Dh, Hs // Hkvs, dt)
+    e_smem = (decode_attention.heads_smem(M, Dh, 2, decode_fold.SP_BOX)
+              if by_head_e else cluster_smem(Hs // Hkvs, 128, C_e))
+    o_e = torch.empty_like(qe)
+
+    def run_fold_sp():
+        _build.check(fold_lib.eamg_fold_decode_sp(
+            qe.data_ptr(), kve.data_ptr(), te.data_ptr(), o_e.data_ptr(), Be,
+            Hs, Hkvs, M, Dh, qe.stride(0), 1.0 / math.sqrt(Dh),
+            decode_fold.SP_BLOCK_K, int(by_head_e), C_e, 1, stream()),
+            "stamped rows 8 and 11")
+
+    run_fold_sp()
+    torch.cuda.synchronize()
+    if not torch.equal(o_e, decode_fold.flash_decode_fold_sp(qe, kve, te, Hs)):
+        raise AssertionError("flash_decode_fold_sp: the stamped build differs")
+    fns["flash_decode_fold_sp"] = lambda: decode_fold.flash_decode_fold_sp(
+        qe, kve, te, Hs)
+    fns["flash_decode_fold_sp_stamped"] = run_fold_sp
+    stamped["flash_decode_fold_sp"] = (
+        fold_lib, run_fold_sp, Be * Hkvs * C_e,
+        HEADS_STAMPS if by_head_e else DECODE_STAMPS)
+    out["flash_decode_fold_sp"] = {
+        "C": C_e, "by_head": by_head_e, "smem_bytes": e_smem,
+        "shape": f"bf16 B {Be} H {Hs} Hkv {Hkvs} M {M} Dh {Dh} t {FOLD_T} "
+                 "(fused cache, t [B] on the card)"}
+    for nb in (0, 2):
+        fns[f"empty_cluster{C_e}_fold_sp_b{nb}"] = (
+            lambda nb=nb: _build.check(fold_lib.eamg_empty_launch(
+                C_e, Be * Hkvs, e_smem, nb, stream()), "empty launch"))
     # K1 at the solo prefill (bf16, B 1, H 8, Hkv 2, T 16, Dh 64, causal),
     # beside an empty launch of its grid
     at_lib = _bind_timed("attention_timed", "eamg_attention_fwd",
@@ -1632,7 +1771,8 @@ def kernel_phases(torch, ckpt_params) -> dict:
         if k.startswith("empty")) + f" (cluster blocks of {smem.value} "
         "bytes of shared memory, the fold kernel's; the scalar_t ones of "
         f"{st_smem} bytes, rows 5 and 6's; the sp ones of {sp_smem} bytes, "
-        "K3's; 256 threads a block; the attention grid K1's)")
+        f"K3's; the fold_sp ones of {e_smem} bytes, rows 8 and 11's; 256 "
+        "threads a block; the attention grid K1's)")
     log(json.dumps({"kernel_phases": out}))
     return out
 
@@ -1833,7 +1973,7 @@ def _port_kernel_names() -> tuple:
                      r"\s+)?(\w+)\s*\(")
     csrc = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "eamg_tpu_torch", "csrc")
-    names = {n for f in sorted(os.listdir(csrc)) if f.endswith(".cu")
+    names = {n for f in sorted(os.listdir(csrc)) if f.endswith((".cu", ".cuh"))
              for n in pat.findall(open(os.path.join(csrc, f)).read())}
     if not names:
         raise AssertionError(f"no __global__ kernel found under {csrc}")
@@ -1877,7 +2017,8 @@ def _trace(torch, tag: str, work) -> dict:
            "device_ms_by_group": by_group,
            "top": [{"kernel": k[:90], "ms": ms, "count": c}
                    for k, ms, c in rows[:12]],
-           "count_by_kernel": {k[:90]: c for k, _, c in rows}}
+           "count_by_kernel": {k[:90]: c for k, _, c in rows},
+           "ms_by_kernel": {k[:90]: ms for k, ms, _ in rows}}
     if not busy > 0:
         raise AssertionError("the trace shows no device time")
     log(json.dumps({"profile": out}))
@@ -2047,10 +2188,34 @@ def serve_coalesced(torch):
         if not rel <= REL_TOL_F32:
             raise AssertionError(f"fold variants on the engine cache: {rel}")
 
-        # one more burst under torch.profiler
+        # one more burst under torch.profiler: the engine's fold (rows 8
+        # and 11's kernel over the fused cache, the only kernel of
+        # csrc/decode_kernels.cuh this path runs) one kernel launch a call,
+        # a call a layer and step, and no kernel of the split design
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
         prof = _trace(torch, "coalesce",
                       lambda: _burst(port, "coalesce traced",
                                      lone_again=False)[0])
+        calls = _build.launch_counts().get(engine_fold, 0)
+        kernels = sum(c for k, c in prof["count_by_kernel"].items()
+                      if "decode_heads_kernel" in k
+                      or "decode_cluster_kernel" in k)
+        stale = [k for k in prof["count_by_kernel"]
+                 if "fold_partial" in k or "fold_combine" in k]
+        n_layer = pipe.generator.cfg.n_layer
+        fold_ms = sum(ms for k, ms in prof["ms_by_kernel"].items()
+                      if "decode_heads_kernel" in k
+                      or "decode_cluster_kernel" in k)
+        log(f"[coalesce] traced burst: {engine_fold} {calls} calls, its "
+            f"kernel {kernels} launches ({kernels / n_layer:.1f} a layer), "
+            f"{fold_ms:.1f} ms of device time, "
+            f"{1000 * fold_ms / max(kernels, 1):.2f} us a launch; kernels of "
+            f"the split design: {stale or 'none'}")
+        if stale or calls == 0 or kernels != calls or calls % n_layer:
+            raise AssertionError(f"coalesce trace: {engine_fold} {calls} "
+                                 f"calls, {kernels} kernel launches, stale "
+                                 f"kernels {stale}")
     finally:
         server.shutdown()
         shutdown_gracefully(server, pipe)

@@ -23,9 +23,9 @@ between them), in bf16, beside one library call:
  - attention: K1 with 1, 2, 4 and 8 warps a block against SDPA: the solo
    prefill (B 1, H 8, Hkv 2, T 16, causal), the batch's (B 8, MHA, T 16,
    valid_len 3), and T 64 and 511 (B 1, GQA-2, causal), each also warm;
- - parent=DIR: K1, K3 and rows 5 and 6 as the kernels of a parent tree
-   unpacked in DIR (its eamg_tpu_torch/csrc, built here) and as this
-   tree's, in turns in one loop (chip_sweep.py::parent_vs_change).
+ - parent=DIR: K1, K3, rows 5 and 6 and rows 8 and 11 as the kernels of
+   a parent tree unpacked in DIR (its eamg_tpu_torch/csrc, built here) and
+   as this tree's, in turns in one loop (chip_sweep.py::parent_vs_change).
 The size each wrapper picks is marked with *. A cluster size whose blocks
 would need more shared memory than the card allows (C 1 at M 60000) is
 reported as refused. Prints the card line and one line per measurement;
@@ -64,7 +64,7 @@ def main(argv=None) -> int:
 
     print(cs.card_line(), flush=True)
     _build.build_all(["decode_attention", "decode_attention_timed",
-                      "attention"])
+                      "attention", "decode_fold"])
     g = torch.Generator().manual_seed(511)
     dt, Dh = torch.bfloat16, 64
     khz = torch.cuda.get_device_properties(0).clock_rate
@@ -236,12 +236,15 @@ def main(argv=None) -> int:
 
 
 def parent_vs_change(torch, cs, _build, at, da, parent: str) -> None:
-    """K1 at the solo prefill, K3 at the solo decode and rows 5 and 6 at
-    the bench shape, cold and warm, each timed in
-    turns in one loop as the parent tree's kernels (csrc/attention.cu and
-    csrc/decode_attention.cu under ``parent``, built here with the same
-    flags; K3 there: the split kernel and its merge, two launches) and as
-    this tree's, beside SDPA."""
+    """K1 at the solo prefill, K3 at the solo decode, rows 5 and 6 at the
+    bench shape and rows 8 and 11 at the engine's step, cold and warm, each
+    timed in turns in one loop as the parent tree's kernels
+    (csrc/attention.cu, csrc/decode_attention.cu and csrc/decode_fold.cu
+    under ``parent``, built here with the same flags, their entry points
+    those of PR 7's tree; rows 8 and 11 there: a split kernel and its
+    merge, two launches and a partials buffer) and as this tree's, beside
+    SDPA; then the stamped phases of K3 and row 5, the parent's build and
+    this tree's."""
     import subprocess
 
     import torch.nn.functional as F
@@ -255,18 +258,22 @@ def parent_vs_change(torch, cs, _build, at, da, parent: str) -> None:
                                             f"{n}.cu")])
              for n, tag, flags in (
                  ("attention", "", ()), ("decode_attention", "", ()),
-                 ("decode_attention", "_timed", ("-DEAMG_PHASE_TIMING",)))]
+                 ("decode_attention", "_timed", ("-DEAMG_PHASE_TIMING",)),
+                 ("decode_fold", "", ()))]
     if any(p.wait() for p in procs):
         raise RuntimeError("nvcc failed on the parent's sources")
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     old_at = ctypes.CDLL(os.path.join(out, "libattention.so"))
     old_da = ctypes.CDLL(os.path.join(out, "libdecode_attention.so"))
+    old_df = ctypes.CDLL(os.path.join(out, "libdecode_fold.so"))
     for fn, args in ((old_at.eamg_attention_fwd,
-                      [P, P, P, P, P, I, I, I, I, I, I, Fl, I, P]),
+                      [P, P, P, P, P, I, I, I, I, I, I, Fl, I, I, P]),
                      (old_da.eamg_flash_decode_sp,
-                      [P, P, P, P, P, P, I, I, I, I, I, Fl, I, P]),
+                      [P, P, P, P, P, I, I, I, I, I, Fl, I, I, I, P]),
                      (old_da.eamg_flash_decode_scalar_t,
-                      [P, P, P, P, I, I, I, I, Fl, I, I, I, P])):
+                      [P, P, P, P, I, I, I, I, Fl, I, I, I, P]),
+                     (old_df.eamg_fold_decode,
+                      [P, P, P, P, P, I, I, I, I, I, I, Fl, I, I, P])):
         fn.argtypes, fn.restype = args, ctypes.c_int
     g = torch.Generator().manual_seed(7)
     dt, Dh = torch.bfloat16, 64
@@ -279,7 +286,8 @@ def parent_vs_change(torch, cs, _build, at, da, parent: str) -> None:
 
     def report(tag, ms):
         print(f"[parent] {tag}: parent {ms['parent']:.4f} ms, change "
-              f"{ms['change']:.4f} ms, sdpa {ms['sdpa']:.4f} ms", flush=True)
+              f"{ms['change']:.4f} ms ({ms['change'] / ms['parent']:.3f} of "
+              f"the parent's), sdpa {ms['sdpa']:.4f} ms", flush=True)
 
     # K1: B 1, H 8, Hkv 2, T 16, causal
     q, k, v = draw(1, 8, 16, Dh), draw(1, 2, 16, Dh), draw(1, 2, 16, Dh)
@@ -287,8 +295,8 @@ def parent_vs_change(torch, cs, _build, at, da, parent: str) -> None:
     o = torch.empty_like(q)
     fns = {"parent": lambda: _build.check(old_at.eamg_attention_fwd(
                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               vl.data_ptr(), 1, 8, 2, 16, Dh, 1, 1.0 / math.sqrt(Dh), 1,
-               stream()), "parent K1"),
+               vl.data_ptr(), 1, 8, 2, 16, Dh, 1, 1.0 / math.sqrt(Dh),
+               at.WARPS, 1, stream()), "parent K1"),
            "change": lambda: at.flash_attention(q, k, v, vl, causal=True),
            "sdpa": lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True)}
@@ -305,18 +313,18 @@ def parent_vs_change(torch, cs, _build, at, da, parent: str) -> None:
     q, k, v = draw(1, 8, 1, Dh), draw(1, 2, M, Dh), draw(1, 2, M, Dh)
     tt = torch.full((1,), t, dtype=torch.int32, device="cuda")
     o = torch.empty_like(q)
-    part = torch.empty(8 * -(-M // 64) * (Dh + 2), dtype=torch.float32,
-                       device="cuda")
+    by_head, C = da.sp_plan(M, Dh, 4, 2, lambda: 0)
+    sp_args = (1, 8, 2, M, Dh, 1.0 / math.sqrt(Dh), int(by_head), C, 1)
     fns = {"parent": lambda: _build.check(old_da.eamg_flash_decode_sp(
                q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(),
-               o.data_ptr(), part.data_ptr(), 1, 8, 2, M, Dh,
-               1.0 / math.sqrt(Dh), 1, stream()), "parent K3"),
+               o.data_ptr(), *sp_args, stream()), "parent K3"),
            "change": lambda: da.flash_decode_sp(q, k, v, tt),
            "sdpa": lambda: F.scaled_dot_product_attention(
                q, k[:, :, :t + 1], v[:, :, :t + 1], enable_gqa=True)}
     report("K3 B 1 H 8 Hkv 2 M 511 t 300 cold", cs.time_cold_ms(torch, fns))
     report("K3 B 1 H 8 Hkv 2 M 511 t 300 warm",
            {n: cs.time_ms(torch, fn) for n, fn in fns.items()})
+    k3 = (q, k, v, tt, o)
     # rows 5 and 6: B 8, MHA H 8, M 511, t 300, C 2
     q, k, v = draw(8, 8, 1, Dh), draw(8, 8, M, Dh), draw(8, 8, M, Dh)
     o = torch.empty_like(q)
@@ -333,34 +341,82 @@ def parent_vs_change(torch, cs, _build, at, da, parent: str) -> None:
                cs.time_cold_ms(torch, fns))
         report(f"{name} B 8 H 8 M 511 t 300 warm",
                {n: cs.time_ms(torch, fn) for n, fn in fns.items()})
-    # rows 5's phases, the parent's stamped build and this tree's
+    # rows 8 and 11 at the engine's step: B 8, H 8, Hkv 2, M 511, t
+    # FOLD_T on the card, a fused cache with a free slot; the parent's
+    # variant 0 (row 8) and 1 (row 11), each a split kernel and its merge
+    from eamg_tpu_torch.ops import decode_fold as df
+
+    B, H, Hkv = 8, 8, 2
+    qf = draw(B, 1, H * Dh)
+    kvf = draw(B, M, 2 * Hkv * Dh)
+    kvf[0] = 0
+    tf = torch.tensor(cs.FOLD_T, dtype=torch.int32, device="cuda")
+    of = torch.empty_like(qf)
+    part = torch.empty(B * H * -(-M // 64) * (Dh + 2), dtype=torch.float32,
+                       device="cuda")
+    keep = (torch.arange(M, device="cuda")[None, :]
+            <= tf[:, None])[:, None, None, :]
+    kh = kvf[..., :Hkv * Dh].reshape(B, M, Hkv, Dh).transpose(1, 2)\
+        .contiguous()
+    vh = kvf[..., Hkv * Dh:].reshape(B, M, Hkv, Dh).transpose(1, 2)\
+        .contiguous()
+    qh = qf.reshape(B, H, 1, Dh)
+    for name, variant in (("flash_decode_fold_sp", 0),
+                          ("flash_decode_fold3_sp", 1)):
+        fns = {"parent": lambda var=variant: _build.check(
+                   old_df.eamg_fold_decode(
+                       qf.data_ptr(), kvf.data_ptr(), tf.data_ptr(),
+                       of.data_ptr(), part.data_ptr(), B, H, Hkv, M, Dh,
+                       qf.stride(0), 1.0 / math.sqrt(Dh), var, 1, stream()),
+                   "parent fold"),
+               "change": lambda n=name: getattr(df, n)(qf, kvf, tf, H),
+               "sdpa": lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=keep, enable_gqa=True)}
+        fns["parent"]()
+        torch.cuda.synchronize()
+        print(f"[parent] {name} parent against change, max|diff| "
+              f"{(of.float() - fns['change']().float()).abs().max().item():.3e}"
+              " (p rounded against 128-key blocks in the change only)",
+              flush=True)
+        tag = f"{name} B 8 H 8 Hkv 2 M 511 t {cs.FOLD_T}"
+        report(tag + " cold", cs.time_cold_ms(torch, fns))
+        report(tag + " warm", {n: cs.time_ms(torch, fn)
+                               for n, fn in fns.items()})
+    # K3's and row 5's phases, the parent's stamped build and this tree's
     khz = torch.cuda.get_device_properties(0).clock_rate
+    sp_stamps = cs.HEADS_STAMPS if by_head else cs.DECODE_STAMPS
     for tag, path in (("parent", os.path.join(out,
                                               "libdecode_attention_timed.so")),
                       ("change", None)):
         if path is None:
-            lib = cs._bind_timed("decode_attention_timed",
-                                 "eamg_flash_decode_scalar_t",
-                                 [P, P, P, P, I, I, I, I, Fl, I, I, I, P])
+            lib = _build.library("decode_attention_timed")
         else:
             lib = ctypes.CDLL(path)
-            for fn, args in ((lib.eamg_set_stamps, [P]),
-                             (lib.eamg_flash_decode_scalar_t,
-                              [P, P, P, P, I, I, I, I, Fl, I, I, I, P])):
-                fn.argtypes, fn.restype = args, ctypes.c_int
+        for fn, args in ((lib.eamg_set_stamps, [P]),
+                         (lib.eamg_flash_decode_scalar_t,
+                          [P, P, P, P, I, I, I, I, Fl, I, I, I, P]),
+                         (lib.eamg_flash_decode_sp,
+                          [P, P, P, P, P, I, I, I, I, I, Fl, I, I, I, P])):
+            fn.argtypes, fn.restype = args, ctypes.c_int
 
-        def run(lib=lib):
+        def run_st(lib=lib):
             _build.check(lib.eamg_flash_decode_scalar_t(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 64,
                 M, Dh, t, 1.0 / math.sqrt(Dh), 1, 2, 1, stream()),
                 "stamped scalar-t")
-        names = ("entry", "barriers", "copies_issued", "joined", "landed",
-                 "scores", "max_exchange", "pv", "pushed", "stored") \
-            if path else cs.DECODE_STAMPS
-        cs._log_phases(f"{tag} flash_decode C 2, B 8 H 8 M 511 t 300",
-                       cs._stamped_runs(torch, lib, run, 128, names, khz),
-                       khz)
 
+        def run_sp(lib=lib):
+            qs, ks, vs, ts, os_ = k3
+            _build.check(lib.eamg_flash_decode_sp(
+                qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), ts.data_ptr(),
+                os_.data_ptr(), *sp_args, stream()), "stamped K3")
+        cs._log_phases(f"{tag} flash_decode C 2, B 8 H 8 M 511 t 300",
+                       cs._stamped_runs(torch, lib, run_st, 128,
+                                        cs.DECODE_STAMPS, khz), khz)
+        cs._log_phases(f"{tag} flash_decode_sp {'by head' if by_head else ''}"
+                       f" C {C}, B 1 H 8 Hkv 2 M 511 t 300",
+                       cs._stamped_runs(torch, lib, run_sp, 2 * C, sp_stamps,
+                                        khz), khz)
 
 if __name__ == "__main__":
     sys.exit(main())

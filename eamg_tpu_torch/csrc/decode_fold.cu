@@ -1,9 +1,5 @@
-// Fold decode: one new query per row against a position-major fused KV
+// Fold decode: one new query per row against the fused, position-major KV
 // cache, all heads, per-row lengths, GQA-native.
-//
-// Replaces eamg_tpu/ops/decode_fold.py::flash_decode_fold_sp
-// (_fold_sp_kernel) and ::flash_decode_fold3_sp (_fold3_sp_kernel), the
-// decode attention of the ragged decode and the continuous-batching engine.
 //
 // Computes, for q [B, 1, D] in concat-heads order, kv [B, M, 2 * KVD] with
 // K at [..., :KVD] and V at [..., KVD:], and the newest valid position
@@ -12,35 +8,52 @@
 //                         V[b, 0..t[b], h / g]
 // into o [B, 1, D], concat-heads order again: no head split or merge
 // outside the kernel. Any M is taken (the flagship's is 511); t is clamped
-// to M - 1, and t = 0 over a zero cache row gives zeros.
+// to M - 1, and t = 0 over a zero cache row gives zeros. Statistics and
+// accumulators are f32. Every call is one launch that allocates nothing.
 //
-// On the TPU both kernels phrase the per-head dots as 2-D matrix products
-// against a block-diagonal expansion of q, and differ in the axis their
-// softmax reduces along ([keys, H] against [H, keys]). Here the KV head is
-// indexed directly, and the counterpart of that distinction is which way
-// the threads lie:
-//   variant 0 (flash_decode_fold_sp): keys across the threads of a block.
-//     The split's keys and values are staged in shared memory, one thread
-//     per (head, key) computes a score, a warp per head reduces max and
-//     sum, one thread per (head, d) accumulates the values.
-//   variant 1 (flash_decode_fold3_sp): keys walked serially by a warp whose
-//     lanes span Dh. A key's row is read straight from device memory (one
-//     coalesced segment per warp), the dot is a lane reduction, the softmax
-//     runs online in registers; the block's four warps interleave the keys
-//     of the split and are merged in warp order.
-//
-// What bounds it: the bytes of the valid prefix, 2 * (t + 1) * KVD elements
-// per row, against 4 * H * (t + 1) * Dh flops: bound by bytes. A
-// position-major row keeps one KV head's Dh elements contiguous (128 B in
-// bf16 at Dh 64), so lanes along the feature axis load whole segments.
-// Design: split-K. One block per (split of CH keys, KV head, row) reads its
-// keys and values once for all g = H / Hkv query heads of the group. Splits
-// past t[b] exit at once, so the bytes read scale with t[b], not with M. A
-// second launch merges each (row, head)'s splits in a fixed order with
-// max-rescaling. Split boundaries and every summation order depend on the
-// key position alone, never on B, on the row's slot or on another row's t,
-// so a row's output has the same bits alone and inside any batch.
-// Statistics and accumulators are f32; only the output is rounded.
+// Rows 8 and 11: eamg_tpu/ops/decode_fold.py::flash_decode_fold_sp
+// (_fold_sp_kernel) and ::flash_decode_fold3_sp (_fold3_sp_kernel), the
+// decode attention of the ragged decode and the continuous-batching engine
+// (ops/decode_fold.py::fold_decode). Both TPU kernels run an online softmax
+// over 128-key blocks and round p = exp(s - m_cur) to the cache dtype
+// unnormalised before p.v, then divide by the f32 sum; they differ only in
+// the axis their softmax reduces along ([keys, H] against [H, keys]). So
+// both are one function, and one kernel here: K3's (decode_kernels.cuh,
+// decode_heads_kernel and decode_cluster_kernel) built for the fused
+// layout, with K3's 128-key rounding (csrc/decode_attention.cu's note) and
+// K3's plan (ops/decode_attention.py::sp_plan: from M, Dh, g and the dtype
+// alone, never from B or t). t [B] is read on the card.
+// What bounds it: the bytes of the prefix 0..t[b] of each row, 2 (t[b] +
+// 1) KVD elements, with q and o: 0.68 MB at the engine step of PERF.md's
+// table (B 8, H 8, Hkv 2, Dh 64, M 511, bf16, ragged t), 0.2 us at 3.35
+// TB/s, against about one flop a byte of MHA: bound by bytes, and at that
+// size by the launch (~5 us of a cold call) and by the latency of the first
+// bytes. So every byte goes in flight at entry, on several SMs a (row, KV
+// head):
+//   - by head, where g > 1 and a block holds the KV head's keys and values
+//     (the engine's GQA shape): a cluster of g blocks, one a query head;
+//     block rank r copies its share of the prefix, multicast to all g
+//     blocks, so each key and value is read once for the group, and no
+//     block exchanges anything with another;
+//   - else (MHA, f32 at M 511, long caches) a cluster of C blocks over
+//     spans of the keys, through a ring of two slots, the 128-key blocks'
+//     maxima and the partials exchanged through distributed shared memory.
+// In the fused layout one KV head's key is a row of Dh contiguous elements
+// (128 B in bf16 at Dh 64), 2 KVD elements from the next key's. A first
+// design copied each row by a 1D bulk copy, the lanes of a warp issuing
+// every 32nd: at the batched decode's MHA shape (~500 rows a block) the
+// copies alone took ~12 us (PERF.md, PR 8). So the kernel reads the cache
+// through a 3-D TMA tensor map over {2 KVD, M, B} with a box of {Dh, 32,
+// 1}: one tensor copy brings 32 key rows of one head (by head: 16 copies of
+// keys and 16 of values at t 510, spread over the g ranks), rows past M as
+// zeros; a block's key rows are padded to a multiple of 32, where the rows
+// past t[b] land unread. The map is encoded on the host once per (pointer,
+// shape, dtype) and kept (a layer's cache keeps its pointer from step to
+// step), passed by value as a __grid_constant__ argument. Dh (16, 32, 48,
+// 64, 128) times 2 or 4 bytes, 2 KVD and q's row stride are multiples of
+// 16 bytes, as the copies need (the wrapper checks the pointers). A row's
+// result depends on its own (row, KV head), t[b] and the plan alone, so
+// its bits are the same alone and inside any batch.
 //
 // One more kernel, one launch, for the uniform batched decode, which
 // selects it by name. What bounds it: the bytes of the prefix 0..t of each
@@ -98,291 +111,117 @@
 //
 // Built a second time with -DEAMG_PHASE_TIMING (ops/_build.py, library
 // decode_fold_timed) for chip_smoke.py's kernel phase alone, which no path
-// of the port loads: thread 0 of every block of fold_cluster_kernel then
-// records %globaltimer and clock64 at each phase boundary (common.cuh,
-// PHASE_STAMP), and two empty kernels (one block; B clusters of C blocks
-// with a given number of cluster barriers) give the floor of that way of
-// timing.
+// of the port loads: thread 0 of every block of fold_cluster_kernel, and of
+// the kernels of rows 8 and 11, then records %globaltimer and clock64 at
+// each phase boundary (common.cuh, PHASE_STAMP), and two empty kernels (one
+// block; B clusters of C blocks with a given number of cluster barriers)
+// give the floor of that way of timing.
 #include <cooperative_groups.h>
+#include <cuda.h>
 
 #include <algorithm>
+#include <mutex>
 
 #include "common.cuh"
+#include "decode_kernels.cuh"
 
 namespace {
 
-constexpr int CH = 64;    // keys per split
-constexpr int NT = 256;   // threads per block, variant 0
-constexpr int NW = 4;     // warps per block, variant 1
+// -- flash_decode_fold_sp and _fold3_sp: the tensor map of a fused cache
 
-// ------------------------------------------------- variant 0: block-wide
+// cuTensorMapEncodeTiled, from the driver through the runtime (so the
+// library needs no link to the driver), null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT)
-fold_partial_block_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                          const int* __restrict__ t,
-                          float* __restrict__ part_m,
-                          float* __restrict__ part_l,
-                          float* __restrict__ part_acc, int H, int Hkv, int M,
-                          int q_stride, float scale, int n_split) {
-  extern __shared__ float sm[];
-  constexpr int KS = DH + 1;  // padded key row: conflict-free score reads
-  const int g = H / Hkv;
-  const int KVD = Hkv * DH;
-  float* qs = sm;               // [g][DH]
-  float* ks = qs + g * DH;      // [CH][KS]
-  float* vs = ks + CH * KS;     // [CH][DH]
-  float* sc = vs + CH * DH;     // [g][CH]
-  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tb = min(t[b], M - 1);
-  const int j0 = s * CH;
-  if (j0 > tb) return;  // this split lies past the newest key
-  const int n = min(CH, tb + 1 - j0);
-
-  const T* qp = q + (size_t)b * q_stride + hk * g * DH;
-  for (int e = tid; e < g * DH; e += NT) qs[e] = to_f32(qp[e]);
-  const T* kp = kv + ((size_t)b * M + j0) * 2 * KVD + hk * DH;
-  for (int e = tid; e < n * DH; e += NT) {
-    const int j = e / DH, d = e % DH;
-    ks[j * KS + d] = to_f32(kp[(size_t)j * 2 * KVD + d]);
-    vs[e] = to_f32(kp[(size_t)j * 2 * KVD + KVD + d]);
-  }
-  __syncthreads();
-
-  for (int e = tid; e < g * CH; e += NT) {
-    const int hi = e / CH, j = e % CH;
-    float sv = -INFINITY;
-    if (j < n) {
-      float a = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < DH; ++d) a += qs[hi * DH + d] * ks[j * KS + d];
-      sv = a * scale;
-    }
-    sc[e] = sv;
-  }
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32;
-  for (int hi = warp; hi < g; hi += NT / 32) {
-    float mx = -INFINITY;
-    for (int j = lane; j < CH; j += 32) mx = fmaxf(mx, sc[hi * CH + j]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < CH; j += 32) {
-      const float p = (j < n) ? expf(sc[hi * CH + j] - mx) : 0.f;
-      sc[hi * CH + j] = p;
-      sum += p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const size_t pi = ((size_t)b * H + hk * g + hi) * n_split + s;
-      part_m[pi] = mx;
-      part_l[pi] = sum;
-    }
-  }
-  __syncthreads();
-
-  for (int e = tid; e < g * DH; e += NT) {
-    const int hi = e / DH, d = e % DH;
-    float a = 0.f;
-    for (int j = 0; j < n; ++j) a += sc[hi * CH + j] * vs[j * DH + d];
-    part_acc[(((size_t)b * H + hk * g + hi) * n_split + s) * DH + d] = a;
-  }
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  });
+  return fn;
 }
 
-// -------------------------------------------- variant 1: a warp per key
+// The 3-D tensor map over kv [B, M, W] (W = 2 KVD, elements of es bytes)
+// with a box of {DH, KV_BOX, 1}: a key row of one head at a time, rows past
+// M read as zeros. Encoded once per (pointer, shape, dtype) and kept: a
+// layer's cache keeps its pointer from step to step, so a steady decode
+// encodes nothing. The map is a launch argument, copied into the launch
+// (a captured graph holds its own copy). Returns cudaErrorNotSupported
+// where the driver has no tensor maps, cudaErrorUnknown where it refused
+// to encode this one.
+struct MapKey {
+  const void* kv;
+  int B, M, W, DH, dtype;
+  bool operator==(const MapKey& o) const {
+    return kv == o.kv && B == o.B && M == o.M && W == o.W && DH == o.DH &&
+           dtype == o.dtype;
+  }
+};
 
-template <typename T, int DH, int G>
-__global__ void __launch_bounds__(NW * 32)
-fold_partial_warp_kernel(const T* __restrict__ q, const T* __restrict__ kv,
-                         const int* __restrict__ t,
-                         float* __restrict__ part_m,
-                         float* __restrict__ part_l,
-                         float* __restrict__ part_acc, int H, int Hkv, int M,
-                         int q_stride, float scale, int n_split) {
-  constexpr int EPL = DH / 32;  // elements of Dh per lane
-  __shared__ float wm[NW][G];
-  __shared__ float wl[NW][G];
-  __shared__ float wacc[NW][G][DH];
-  const int KVD = Hkv * DH;
-  const int s = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tb = min(t[b], M - 1);
-  const int j0 = s * CH;
-  if (j0 > tb) return;
-  const int n = min(CH, tb + 1 - j0);
-
-  float qr[G][EPL], acc[G][EPL], m[G], l[G];
-  const T* qp = q + (size_t)b * q_stride + hk * G * DH + lane * EPL;
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    m[gi] = -INFINITY;
-    l[gi] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      qr[gi][e] = to_f32(qp[gi * DH + e]) * scale;
-      acc[gi][e] = 0.f;
+cudaError_t kv_map(const MapKey& key, CUtensorMap* out) {
+  constexpr int KEPT = 64;   // maps kept, replaced in turn past that
+  static std::mutex mu;
+  static MapKey keys[KEPT];
+  static CUtensorMap maps[KEPT];
+  static int n = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < std::min(n, KEPT); ++i)
+    if (keys[i] == key) {
+      *out = maps[i];
+      return cudaSuccess;
     }
-  }
-  const T* kp = kv + ((size_t)b * M + j0) * 2 * KVD + hk * DH + lane * EPL;
-  for (int j = warp; j < n; j += NW) {
-    float kf[EPL], vf[EPL];
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) {
-      kf[e] = to_f32(kp[(size_t)j * 2 * KVD + e]);
-      vf[e] = to_f32(kp[(size_t)j * 2 * KVD + KVD + e]);
-    }
-#pragma unroll
-    for (int gi = 0; gi < G; ++gi) {
-      float a = 0.f;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) a += qr[gi][e] * kf[e];
-      const float sv = warp_sum(a);
-      const float mn = fmaxf(m[gi], sv);
-      const float alpha = expf(m[gi] - mn);   // 0 on the first key
-      const float p = expf(sv - mn);
-      l[gi] = l[gi] * alpha + p;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e)
-        acc[gi][e] = acc[gi][e] * alpha + p * vf[e];
-      m[gi] = mn;
-    }
-  }
-#pragma unroll
-  for (int gi = 0; gi < G; ++gi) {
-    if (lane == 0) {
-      wm[warp][gi] = m[gi];
-      wl[warp][gi] = l[gi];
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) wacc[warp][gi][lane * EPL + e] = acc[gi][e];
-  }
-  __syncthreads();
-
-  // merge the warps in warp order; warp 0 always holds a key
-  for (int e = threadIdx.x; e < G * DH; e += NW * 32) {
-    const int gi = e / DH, d = e % DH;
-    float mx = wm[0][gi];
-#pragma unroll
-    for (int w = 1; w < NW; ++w) mx = fmaxf(mx, wm[w][gi]);
-    float L = 0.f, A = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(wm[w][gi] - mx);   // 0 for a warp with no key
-      L += wl[w][gi] * c;
-      A += wacc[w][gi][d] * c;
-    }
-    const size_t pi = ((size_t)b * H + hk * G + gi) * n_split + s;
-    part_acc[pi * DH + d] = A;
-    if (d == 0) {
-      part_m[pi] = mx;
-      part_l[pi] = L;
-    }
-  }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t es = key.dtype == EAMG_F32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)key.W, (cuuint64_t)key.M,
+                              (cuuint64_t)key.B};
+  const cuuint64_t strides[2] = {key.W * es, (cuuint64_t)key.M * key.W * es};
+  const cuuint32_t box[3] = {(cuuint32_t)key.DH, (cuuint32_t)dk::KV_BOX, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  CUtensorMap m;
+  const CUresult r = encode(
+      &m,
+      key.dtype == EAMG_F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(key.kv), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorUnknown;
+  keys[n % KEPT] = key;
+  maps[n % KEPT] = m;
+  ++n;
+  *out = m;
+  return cudaSuccess;
 }
 
-// ------------------------------------------------------- merge the splits
-
-template <typename T>
-__global__ void fold_combine_kernel(const float* __restrict__ part_m,
-                                    const float* __restrict__ part_l,
-                                    const float* __restrict__ part_acc,
-                                    const int* __restrict__ t,
-                                    T* __restrict__ o, int H, int M, int Dh,
-                                    int n_split) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int tb = min(t[b], M - 1);
-  const int ns = tb < 0 ? 0 : tb / CH + 1;
-  const size_t base = ((size_t)b * H + h) * n_split;
-  float mx = -INFINITY;
-  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, part_m[base + s]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const float c = expf(part_m[base + s] - mx);
-    L += part_l[base + s] * c;
-    A += part_acc[(base + s) * Dh + d] * c;
-  }
-  o[((size_t)b * H + h) * Dh + d] = from_f32<T>(A / fmaxf(L, 1e-30f));
-}
+// -- flash_decode_fold, _fold2 and _fold3: a cluster of blocks per row
 
 struct Args {
   const void* q;
   const void* kv;
   const int* t;
   void* o;
-  float* part;
   int B, H, Hkv, M, q_stride;
   float scale;
   cudaStream_t stream;
 };
 
-template <typename T, int DH>
-int launch_block(const Args& a, float* pm, float* pl, float* pa, int n_split) {
-  const int g = a.H / a.Hkv;
-  const size_t smem =
-      sizeof(float) * (g * DH + CH * (DH + 1) + CH * DH + g * CH);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fold_partial_block_kernel<T, DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fold_partial_block_kernel<T, DH>
-      <<<dim3(n_split, a.Hkv, a.B), NT, smem, a.stream>>>(
-          (const T*)a.q, (const T*)a.kv, a.t, pm, pl, pa, a.H, a.Hkv, a.M,
-          a.q_stride, a.scale, n_split);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int DH, int G>
-int launch_warp_g(const Args& a, float* pm, float* pl, float* pa,
-                  int n_split) {
-  fold_partial_warp_kernel<T, DH, G>
-      <<<dim3(n_split, a.Hkv, a.B), NW * 32, 0, a.stream>>>(
-          (const T*)a.q, (const T*)a.kv, a.t, pm, pl, pa, a.H, a.Hkv, a.M,
-          a.q_stride, a.scale, n_split);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int DH>
-int launch_warp(const Args& a, float* pm, float* pl, float* pa, int n_split) {
-  switch (a.H / a.Hkv) {
-    case 1: return launch_warp_g<T, DH, 1>(a, pm, pl, pa, n_split);
-    case 2: return launch_warp_g<T, DH, 2>(a, pm, pl, pa, n_split);
-    case 4: return launch_warp_g<T, DH, 4>(a, pm, pl, pa, n_split);
-    case 8: return launch_warp_g<T, DH, 8>(a, pm, pl, pa, n_split);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, int DH>
-int launch_dh(const Args& a, int variant) {
-  const int n_split = (a.M + CH - 1) / CH;
-  const size_t np = (size_t)a.B * a.H * n_split;
-  float* pm = a.part;
-  float* pl = a.part + np;
-  float* pa = a.part + 2 * np;
-  // variant 1 folds the scale into q; variant 0 scales the scores
-  const int err = variant == 0 ? launch_block<T, DH>(a, pm, pl, pa, n_split)
-                               : launch_warp<T, DH>(a, pm, pl, pa, n_split);
-  if (err) return err;
-  fold_combine_kernel<T><<<dim3(a.H, a.B), DH, 0, a.stream>>>(
-      pm, pl, pa, a.t, (T*)a.o, a.H, a.M, DH, n_split);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const Args& a, int Dh, int variant) {
-  switch (Dh) {
-    case 32: return launch_dh<T, 32>(a, variant);
-    case 64: return launch_dh<T, 64>(a, variant);
-    case 128: return launch_dh<T, 128>(a, variant);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// -- flash_decode_fold, _fold2 and _fold3: a cluster of blocks per row
 
 constexpr int NT_CL = 256;             // threads of a cluster's block
 constexpr int NW_CL = NT_CL / 32;
@@ -735,28 +574,13 @@ int by_instance(int dtype, int Dh, bool before, F&& f) {
 
 }  // namespace
 
-// q_stride: elements between the rows of q (a row's D elements are
-// contiguous), so q may be the head of a fused QKV projection. part: f32
-// scratch of B * H * ceil(M / 64) * (Dh + 2) elements, from the caller.
-// variant 0: keys across a block's threads; 1: a warp per key.
-extern "C" int eamg_fold_decode(const void* q, const void* kv, const int* t,
-                                void* o, float* part, int B, int H, int Hkv,
-                                int M, int Dh, int q_stride, float scale,
-                                int variant, int dtype, void* stream) {
-  if (H % Hkv != 0 || M <= 0 || B <= 0 || (variant != 0 && variant != 1))
-    return (int)cudaErrorInvalidValue;
-  const Args a = {q, kv, t, o, part, B, H, Hkv, M, q_stride, scale,
-                  (cudaStream_t)stream};
-  if (dtype == EAMG_F32) return launch<float>(a, Dh, variant);
-  if (dtype == EAMG_BF16) return launch<__nv_bfloat16>(a, Dh, variant);
-  return (int)cudaErrorInvalidValue;
-}
-
 // flash_decode_fold and _fold2 (before 0) and flash_decode_fold3 (before
 // 1): a cluster of C blocks per batch row (C 1, 2, 4, 8 or 16); block rank
 // r of row b takes the keys [r * Rt, (r + 1) * Rt) of the row's valid
-// t[b] + 1, Rt = ceil((t[b] + 1) / C), cut at t[b] + 1, staged by every thread's 16-byte copies. q_stride as above; kv 16-byte
-// aligned. Returns cudaErrorInvalidValue when a block's shared memory (the
+// t[b] + 1, Rt = ceil((t[b] + 1) / C), cut at t[b] + 1, staged by every
+// thread's 16-byte copies. q_stride: elements between the rows of q (a
+// row's D elements are contiguous), so q may be the head of a fused QKV
+// projection; kv 16-byte aligned. Returns cudaErrorInvalidValue when a block's shared memory (the
 // staging slots, 4 * H * ceil(M / C) bytes of scores and a little more)
 // would exceed what the card allows; a cluster the card cannot place comes
 // back as CUDA's own error.
@@ -768,11 +592,52 @@ extern "C" int eamg_fold_decode_cluster(const void* q, const void* kv,
   if (H % Hkv != 0 || M <= 0 || B <= 0 || C < 1 || C > CL_MAX ||
       (C & (C - 1)))
     return (int)cudaErrorInvalidValue;
-  const Args a = {q, kv, t, o, nullptr, B, H, Hkv, M, q_stride, scale,
+  const Args a = {q, kv, t, o, B, H, Hkv, M, q_stride, scale,
                   (cudaStream_t)stream};
   return by_instance(dtype, Dh, before != 0, [&](auto t_, auto dh, auto bf) {
     return launch_cluster_k<decltype(t_), decltype(dh)::value,
                             decltype(bf)::value>(a, C, (M + C - 1) / C);
+  });
+}
+
+// flash_decode_fold_sp and flash_decode_fold3_sp: q [B, 1, D] with rows
+// q_stride elements apart, kv [B, M, 2 KVD], t [B] int32 on the device
+// (read by the kernel, never by the host), o [B, 1, D]; g = H / Hkv of 1,
+// 2, 4 or 8, Dh 16, 32, 48, 64 or 128; bk the key blocks of the rounding
+// reference (128, the TPU kernels' block_k). One launch: by_head 1, a
+// cluster of g blocks per (row, KV head), one a query head (g > 1, and 2 M
+// Dh elements must fit a block's shared memory); by_head 0, a cluster of C
+// blocks (1, 2, 4, 8 or 16) per (row, KV head) over spans of the keys. q
+// and kv start on 16-byte boundaries, and q's rows are a multiple of 16
+// bytes apart. Returns cudaErrorInvalidValue for what it does not take,
+// and where a block's shared memory would exceed what the card allows; a
+// cluster the card cannot place comes back as CUDA's own error.
+extern "C" int eamg_fold_decode_sp(const void* q, const void* kv,
+                                   const int* t, void* o, int B, int H,
+                                   int Hkv, int M, int Dh, int q_stride,
+                                   float scale, int bk, int by_head, int C,
+                                   int dtype, void* stream) {
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || M <= 0 || t == nullptr ||
+      bk != 128 || (by_head != 0 && by_head != 1) ||
+      (!by_head && !dk::valid_cluster(C)) || !dk::aligned16(q, kv, kv))
+    return (int)cudaErrorInvalidValue;
+  return dk::by_instance(dtype, Dh, H / Hkv, [&](auto t_, auto dh, auto g) {
+    using T = decltype(t_);
+    constexpr int DH = decltype(dh)::value, G = decltype(g)::value;
+    if (q_stride < H * DH || (q_stride * (int)sizeof(T)) % 16)
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap map;
+    const cudaError_t e = kv_map({kv, B, M, 2 * Hkv * DH, DH, dtype}, &map);
+    if (e != cudaSuccess) return (int)e;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if constexpr (G > 1)
+      if (by_head)
+        return dk::launch_heads<T, DH, G, true>(q, kv, kv, o, t, B * Hkv, Hkv,
+                                                M, scale, q_stride, map, s);
+    if (by_head) return (int)cudaErrorInvalidValue;
+    return dk::launch_cluster<T, DH, G, true>(q, kv, kv, o, t, 0, B * Hkv,
+                                              Hkv, M, bk, scale, C, q_stride,
+                                              map, s);
   });
 }
 

@@ -28,10 +28,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "eamg_tpu_torch"
 SOURCES = ("attention", "ffn", "decode_attention", "topk", "decode_fold",
            "stream_reduce")
-# library name -> (source, extra nvcc flags): the cluster fold kernel, K2,
-# the decode cluster kernel (K3, rows 5 and 6) and K1 with their phase
-# stamps, and the empty launches that time their floor, loaded by
-# chip_smoke.py alone
+# library name -> (source, extra nvcc flags): the cluster fold kernel and
+# rows 8 and 11's, K2, the decode cluster kernel (K3, rows 5 and 6) and K1
+# with their phase stamps, and the empty launches that time their floor,
+# loaded by chip_smoke.py alone
 VARIANTS = {"decode_fold_timed": ("decode_fold", ("-DEAMG_PHASE_TIMING",)),
             "ffn_timed": ("ffn", ("-DEAMG_PHASE_TIMING",)),
             "decode_attention_timed": ("decode_attention",

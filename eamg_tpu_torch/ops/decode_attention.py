@@ -74,23 +74,26 @@ def _launch():
                        [P, P, P, P, P, I, I, I, I, I, F, I, I, I, P])
 
 
-def heads_smem(M: int, Dh: int, itemsize: int) -> int:
+def heads_smem(M: int, Dh: int, itemsize: int, box: int = 1) -> int:
     """Bytes of shared memory a block of K3's kernel by head takes: every
-    key and value of a KV head, q, the scores, the 128-key blocks' maxima
-    and factors, each warp's p.v and l (``HeadsSmem`` in
-    csrc/decode_attention.cu, which chip_smoke.py holds this to)."""
-    return (128 + 2 * M * Dh * itemsize + Dh * itemsize + 4 * M
-            + 8 * -(-M // 128) + 4 * 8 * Dh + 4 * 8)
+    key and value of a KV head (their rows padded to a multiple of
+    ``box``, the key rows a copy brings: 1 head-major, ``decode_fold.
+    SP_BOX`` over the fused cache), q, the scores, the 128-key blocks'
+    maxima and factors, each warp's p.v and l (``HeadsSmem`` in
+    csrc/decode_kernels.cuh, which chip_smoke.py holds this to)."""
+    return (128 + 2 * -(-M // box) * box * Dh * itemsize + Dh * itemsize
+            + 4 * M + 8 * -(-M // 128) + 4 * 8 * Dh + 4 * 8)
 
 
-def sp_plan(M: int, Dh: int, g: int, itemsize: int,
-            active16) -> tuple[bool, int]:
+def sp_plan(M: int, Dh: int, g: int, itemsize: int, active16,
+            box: int = 1) -> tuple[bool, int]:
     """(by head, blocks a cluster) of K3's launch, from M, Dh, g and the
     dtype's size alone, never from B or t (so a row gets the same bits at
     any B): by head, a cluster of g blocks, one a query head, where g > 1
-    and a block holds every key and value of the KV head; else a cluster
-    of :func:`cluster_size` blocks over spans of the keys."""
-    if g > 1 and heads_smem(M, Dh, itemsize) <= SMEM_MAX:
+    and a block holds every key and value of the KV head (rows padded to
+    ``box``, see :func:`heads_smem`); else a cluster of
+    :func:`cluster_size` blocks over spans of the keys."""
+    if g > 1 and heads_smem(M, Dh, itemsize, box) <= SMEM_MAX:
         return True, g
     return False, cluster_size(M, g, active16)
 

@@ -4,9 +4,10 @@ stream-reduce probe: the kernels of ``csrc/decode_fold.cu`` and
 
 Replaces every function of ``eamg_tpu/ops/decode_fold.py`` that reaches a
 Pallas kernel, each under its JAX name: ``flash_decode_fold_sp`` and
-``flash_decode_fold3_sp`` (two launches, reads scale with ``t``),
-``flash_decode_fold``, ``flash_decode_fold2`` and ``flash_decode_fold3``
-(one launch, the whole cache), and ``stream_reduce``.
+``flash_decode_fold3_sp`` (the engine's), ``flash_decode_fold``,
+``flash_decode_fold2`` and ``flash_decode_fold3`` (the batched decode's),
+each one launch that reads the prefix 0..t[b] of each row only, and
+``stream_reduce``.
 
 The cache keeps K and V fused and position-major, ``kv [B, M, 2 * KVD]``
 with K at ``[..., :KVD]``: the tail of the fused QKV projection, so a
@@ -15,13 +16,20 @@ never splits heads. q is ``[B, 1, D]`` and the result ``[B, 1, D]``, both
 in concat-heads order, and ``t`` (a scalar or ``[B]``) is each row's
 newest valid position, so the same function serves a uniform batch, the
 ragged decode and the continuous-batching engine. q may be a view of the
-fused QKV projection (rows ``D`` contiguous elements, any row stride).
+fused QKV projection (rows ``D`` contiguous elements, any row stride; for
+``flash_decode_fold_sp`` and ``_fold3_sp`` a multiple of 16 bytes, as the
+projection's ``D + 2 * KVD`` is).
 
 All five decode entry points compute one function; they differ in their
-thread layouts and launches (see the CUDA source) and, in bf16, in where
-the probabilities are rounded: ``flash_decode_fold`` and
-``flash_decode_fold2`` round them unnormalised and divide by their sum
-after the product with the values, as their TPU kernels do;
+kernels (see the CUDA source) and, in bf16, in where the probabilities are
+rounded. ``flash_decode_fold_sp`` and ``flash_decode_fold3_sp`` are one
+function with one rounding, as their TPU kernels are: p = exp(s - m) is
+rounded to the cache dtype unnormalised against the running max m of
+128-key blocks (:data:`SP_BLOCK_K`) and the f32 sum divides after the
+product with the values. Both launch K3's kernel (``ops/decode_attention``)
+built for the fused layout, with K3's plan (``sp_plan``: by head, or over
+spans of the keys), t read on the card. ``flash_decode_fold`` and
+``flash_decode_fold2`` round p unnormalised against the global max;
 ``flash_decode_fold3`` divides first. Those three launch one cluster
 kernel, one cluster of C blocks per batch row (C as :func:`cluster_size`
 picks for the card), block rank r on the keys [r * R, (r + 1) * R) of the
@@ -29,6 +37,7 @@ row's t[b] + 1 valid ones, R = ceil((t[b] + 1) / C), with the rounding
 that :data:`ROUNDING` names (so ``flash_decode_fold`` and
 ``flash_decode_fold2`` launch the same kernel, under their own names).
 :data:`fold_decode` names the one the ragged decode and the engine call.
+On the CPU every wrapper takes :func:`decode_attention_pm_plain`.
 """
 
 from __future__ import annotations
@@ -39,14 +48,25 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, decode_attention
 
-SPLIT = 64     # keys per split: CH in csrc/decode_fold.cu
 RS = 16        # lines per block: RS in csrc/stream_reduce.cu
+# The key blocks whose running max p = exp(s - max) is rounded against on
+# the card before p.v, as the TPU kernels of flash_decode_fold_sp and
+# flash_decode_fold3_sp round it (their block_k = min(128, M)): one entry
+# for both wrappers, which compute one function (K3's, csrc/
+# decode_attention.cu)
+SP_BLOCK_K = decode_attention.BLOCK_K["flash_decode_sp"]
+# key rows one tensor copy of that kernel brings from the fused cache (the
+# box of its tensor map: KV_BOX in csrc/decode_kernels.cuh)
+SP_BOX = 32
 
 
 def _row_positions(t, B: int, device) -> torch.Tensor:
-    return torch.as_tensor(t, dtype=torch.int32, device=device).expand(B)
+    """t (a scalar or [B]) as [B] int32 on ``device``; a [B] int32 tensor
+    there is returned as it is (no copy: the kernel reads it in place)."""
+    t = torch.as_tensor(t, dtype=torch.int32, device=device)
+    return t if t.shape == (B,) else t.expand(B)
 
 
 def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
@@ -91,18 +111,15 @@ def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
     return o.to(q.dtype).reshape(B, 1, D)
 
 
-@functools.cache
-def _launch_fold():
-    P, I, F = _build.P, _build.I, _build.F
-    return _build.bind("decode_fold", "eamg_fold_decode",
-                       [P, P, P, P, P, I, I, I, I, I, I, F, I, I, P])
+# Dh that the cluster kernel of flash_decode_fold, _fold2 and _fold3 takes
+CLUSTER_DH = (32, 64, 128)
 
 
-def _check_fold(name: str, q: torch.Tensor, kv: torch.Tensor,
-                n_head: int) -> None:
-    """What every fold kernel asks of CUDA inputs."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
+def _check_fold(name: str, q: torch.Tensor, kv: torch.Tensor, n_head: int,
+                dh_taken=CLUSTER_DH) -> None:
+    """What every fold kernel asks of CUDA inputs, with Dh in
+    ``dh_taken``."""
+    _build.require_cuda(name, q)
     if q.dim() != 3 or kv.dim() != 3 or q.shape[1] != 1 \
             or kv.shape[0] != q.shape[0] or kv.shape[2] % 2 \
             or q.shape[2] % n_head:
@@ -110,10 +127,10 @@ def _check_fold(name: str, q: torch.Tensor, kv: torch.Tensor,
                          f"{tuple(kv.shape)} n_head {n_head}")
     D, KVD = q.shape[2], kv.shape[2] // 2
     Dh = D // n_head
-    if KVD % Dh or n_head % (KVD // Dh) or Dh not in (32, 64, 128) \
+    if KVD % Dh or n_head % (KVD // Dh) or Dh not in dh_taken \
             or n_head // (KVD // Dh) not in (1, 2, 4, 8):
         raise ValueError(f"{name}: D {D}, KVD {KVD}, n_head {n_head}: want "
-                         "Dh in (32, 64, 128) and 1, 2, 4 or 8 query heads "
+                         f"Dh in {dh_taken} and 1, 2, 4 or 8 query heads "
                          "per KV head")
     if q.dtype not in _build.DTYPE_CODE or kv.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{kv.dtype}; want one of "
@@ -123,24 +140,52 @@ def _check_fold(name: str, q: torch.Tensor, kv: torch.Tensor,
                          "one device")
 
 
-def _fold(name: str, variant: int, q: torch.Tensor, kv: torch.Tensor, t,
-          n_head: int) -> torch.Tensor:
+@functools.cache
+def _launch_sp():
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.bind("decode_fold", "eamg_fold_decode_sp",
+                       [P, P, P, P, I, I, I, I, I, I, F, I, I, I, I, P])
+
+
+def sp_plan(M: int, Dh: int, g: int, dtype: torch.dtype) -> tuple[bool, int]:
+    """(by head, blocks a cluster) of the kernel of flash_decode_fold_sp and
+    flash_decode_fold3_sp: K3's plan (``decode_attention.sp_plan``), from
+    M, Dh, g and the dtype alone, never from B or t, so a row gets the same
+    bits alone and inside any batch (the engine's same-seed contract)."""
+    return decode_attention.sp_plan(
+        M, Dh, g, dtype.itemsize,
+        lambda: decode_attention.cluster_occupancy(M, Dh, g, SP_BLOCK_K,
+                                                   dtype)[1], box=SP_BOX)
+
+
+def _fold_sp(name: str, q: torch.Tensor, kv: torch.Tensor, t, n_head: int,
+             C: int | None = None) -> torch.Tensor:
+    """Rows 8 and 11 as wrapper ``name`` launches them: the plain version on
+    CPU tensors; on CUDA tensors one launch of the kernel as
+    :func:`sp_plan` says, or over spans of the keys with C blocks a (row,
+    KV head) (chip_smoke.py checks the other sizes), t [B] passed as a
+    device pointer."""
     if q.device.type == "cpu":
         return decode_attention_pm_plain(q, kv, t, n_head)
-    _check_fold(name, q, kv, n_head)
+    _check_fold(name, q, kv, n_head, decode_attention.DH_TAKEN)
     B, _, D = q.shape
     M, KVD = kv.shape[1], kv.shape[2] // 2
     Dh = D // n_head
+    Hkv = KVD // Dh
+    if (q.data_ptr() | kv.data_ptr() | q.stride(0) * q.element_size()) % 16:
+        raise ValueError(f"{name}: q and kv must start on 16-byte boundaries "
+                         "and q's rows lie a multiple of 16 bytes apart (the "
+                         "kernel stages them by bulk copy)")
+    by_head = False
+    if C is None:
+        by_head, C = sp_plan(M, Dh, n_head // Hkv, q.dtype)
     tb = _row_positions(t, B, q.device).contiguous()
-    n_split = -(-M // SPLIT)
-    part = torch.empty(B * n_head * n_split * (Dh + 2), dtype=torch.float32,
-                       device=q.device)
     o = torch.empty((B, 1, D), dtype=q.dtype, device=q.device)
-    err = _launch_fold()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
-                         o.data_ptr(), part.data_ptr(), B, n_head, KVD // Dh,
-                         M, Dh, q.stride(0), 1.0 / math.sqrt(Dh), variant,
-                         _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
-    _build.check(err, name)
+    err = _launch_sp()(q.data_ptr(), kv.data_ptr(), tb.data_ptr(),
+                       o.data_ptr(), B, n_head, Hkv, M, Dh, q.stride(0),
+                       1.0 / math.sqrt(Dh), SP_BLOCK_K, int(by_head), C,
+                       _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+    _build.check(err, name, smem=f"Dh {Dh}, M {M}, g {n_head // Hkv}")
     _build.count_launch(name)
     return o
 
@@ -149,17 +194,17 @@ def flash_decode_fold_sp(q: torch.Tensor, kv: torch.Tensor, t,
                          n_head: int) -> torch.Tensor:
     """Attention of q [B, 1, D] over positions 0..t[b] of the fused cache
     kv [B, M, 2 * KVD] -> [B, 1, D]; t a scalar or [B] int. CPU tensors
-    take :func:`decode_attention_pm_plain`; CUDA tensors launch the kernel
-    with a split's keys across the threads of a block."""
-    return _fold("flash_decode_fold_sp", 0, q, kv, t, n_head)
+    take :func:`decode_attention_pm_plain`; CUDA tensors launch K3's kernel
+    over the fused cache once, p rounded against 128-key blocks."""
+    return _fold_sp("flash_decode_fold_sp", q, kv, t, n_head)
 
 
 def flash_decode_fold3_sp(q: torch.Tensor, kv: torch.Tensor, t,
                           n_head: int) -> torch.Tensor:
-    """The same function as :func:`flash_decode_fold_sp`; CUDA tensors
-    launch the kernel whose warps walk the keys with their lanes along
-    Dh."""
-    return _fold("flash_decode_fold3_sp", 1, q, kv, t, n_head)
+    """The same function as :func:`flash_decode_fold_sp`, with its
+    rounding (the TPU kernels differ only in the axis their softmax
+    reduces along): the same launch, under its own name."""
+    return _fold_sp("flash_decode_fold3_sp", q, kv, t, n_head)
 
 
 @functools.cache
@@ -274,10 +319,10 @@ def flash_decode_fold3(q: torch.Tensor, kv: torch.Tensor, t,
     return _fold_cluster("flash_decode_fold3", q, kv, t, n_head)
 
 
-# The decode attention of the ragged decode and the engine: the faster of
-# the two on an H100 at the engine's shapes (PERF.md has both times). Every
-# route of the coalesced path goes through this one entry point, which is
-# what makes a row's stream the same on each of them.
+# The decode attention of the ragged decode and the engine (the two
+# wrappers launch one kernel). Every route of the coalesced path goes
+# through this one entry point, which is what makes a row's stream the same
+# on each of them.
 fold_decode = flash_decode_fold_sp
 
 

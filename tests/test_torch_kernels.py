@@ -73,6 +73,8 @@ FOLD_TS = {"t0": 0, "t17": 17, "tlast": FOLD_M - 1,
 FOLD_RAGGED_M = 50                 # no multiple of a key block
 FOLD_ENTRIES = {"flash_decode_fold_sp": flash_decode_fold_sp,
                 "flash_decode_fold3_sp": flash_decode_fold3_sp}
+# the same at Dh 48 (demo_ckpt_b3's head): B 3, D 192, 4 heads
+FOLD48_TS = {"t17": 17, "rows": np.asarray([0, 17, FOLD_M - 1], np.int32)}
 STREAM_ROWS = (2, 4)               # kv [4, 16, 32]
 # the two scalar-t kernels: MHA B 2, H 4, Dh 16; M 64 = 4 blocks of 16 for
 # flash_decode, and M 50, which only flash_decode_vmem takes in JAX
@@ -155,6 +157,20 @@ SP_PLAN_CASES = {(511, 64, 4, 2, 0): (1, 4), (511, 64, 4, 4, 0): (0, 8),
                  (50, 48, 4, 4, 0): (1, 4), (800, 64, 8, 2, 0): (1, 8)}
 CARD_TAKES = CARD_CASES[:7]
 CARD_REFUSES = CARD_CASES[7:]
+# flash_decode_fold_sp and flash_decode_fold3_sp on CUDA inputs through the
+# mocked binder: (B, H, Hkv, M, Dh, dtype, resident clusters of 16): the
+# engine's step, the batched decode's MHA, demo_ckpt_b3's (Dh 48, MHA, M
+# 256), a GQA cache too long to go by head, the engine's in f32 (a block
+# cannot hold the KV head in f32); refused: Dh 40
+FOLD_SP_CASES = ((8, 8, 2, 511, 64, "bfloat16", 0),
+                 (8, 8, 8, 511, 64, "bfloat16", 0),
+                 (8, 4, 4, 256, 48, "bfloat16", 0),
+                 (2, 8, 2, 16384, 64, "bfloat16", 3),
+                 (8, 8, 2, 511, 64, "float32", 0),
+                 (8, 8, 2, 511, 40, "bfloat16", 0))
+# K3's plan at the cases they take: (by head, blocks a cluster)
+FOLD_SP_PLANS = {0: (1, 4), 1: (0, 2), 2: (0, 2), 3: (0, 16), 4: (0, 8)}
+FOLD_SP_TAKES = FOLD_SP_CASES[:5]
 # K2's plan (ops/ffn.py::ffn_plan): (D, FF), multiples of 64 as today's
 # kernel takes them: the flagship's, one panel of the smallest, FF with a
 # slice count no multiple of 8, D past one panel, a wide D
@@ -298,6 +314,25 @@ def _inputs():
                         ref[("fold", name, entry)] = np.asarray(fn(
                             jnp.asarray(q), jnp.asarray(kv), tj, H,
                             block_k=16, interpret=True))
+    # the fold entries at Dh 48: a generator of their own, so the draws
+    # after it stay those of earlier versions
+    r48 = np.random.default_rng(4848)
+    B, D, H = 3, 192, 4
+    for hname, kvh in FOLD_HEADS.items():
+        KVD = kvh * (D // H)
+        q = r48.standard_normal((B, 1, D), np.float32)
+        kv = r48.standard_normal((B, FOLD_M, 2 * KVD), np.float32)
+        for tname, t in FOLD48_TS.items():
+            name = f"{hname}_M{FOLD_M}_{tname}_dh48"
+            inp.update(flatten({"q": q, "kv": kv, "t": np.asarray(t),
+                                "n_head": np.asarray(H)}, f"fold/{name}"))
+            tj = jnp.asarray(t)
+            ref[("fold", name, "xla")] = np.asarray(xla_decode_attention_pm(
+                jnp.asarray(q), jnp.asarray(kv), tj, H))
+            for entry, fn in FOLD_ENTRIES.items():
+                ref[("fold", name, entry)] = np.asarray(fn(
+                    jnp.asarray(q), jnp.asarray(kv), tj, H, block_k=16,
+                    interpret=True))
     B, H, Dh = 2, 4, 16
     for M, ts in ((64, DEC_TS), (DEC_RAGGED_M, (DEC_RAGGED_T,))):
         kc = rng.standard_normal((B, H, M, Dh), np.float32)
@@ -360,6 +395,7 @@ def _inputs():
     inp["rowspans/cases"] = np.asarray(json.dumps(ROW_SPAN_CASES))
     inp["spsize/cases"] = np.asarray(list(SP_SIZES))
     inp["cardlaunch/cases"] = np.asarray(json.dumps(CARD_CASES))
+    inp["foldsp/cases"] = np.asarray(json.dumps(FOLD_SP_CASES))
     inp["spplan/cases"] = np.asarray(list(SP_PLAN_CASES))
     kv = rng.standard_normal((4, 16, 32), np.float32)
     for rows in STREAM_ROWS:
@@ -457,6 +493,23 @@ def test_fold_decode_plain_matches_jax(results, entry, heads, tname, against):
     name = f"{heads}_M{FOLD_M}_{tname}"
     want = ref[("fold", name, entry if against == "pallas" else "xla")]
     assert got[f"fold/{name}/{entry}"].shape == want.shape == (3, 1, 64)
+    np.testing.assert_allclose(got[f"fold/{name}/{entry}"], want, rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("entry", list(FOLD_ENTRIES))
+@pytest.mark.parametrize("heads", list(FOLD_HEADS))
+@pytest.mark.parametrize("tname", list(FOLD48_TS))
+@pytest.mark.parametrize("against", ["pallas", "xla"])
+def test_fold_decode_plain_dh48_matches_jax(results, entry, heads, tname,
+                                            against):
+    """The two fold entries at Dh 48 (demo_ckpt_b3's head, which their
+    kernel takes) against the Pallas kernels they replace (interpret mode)
+    and against xla_decode_attention_pm; scalar and per-row t."""
+    got, ref = results
+    name = f"{heads}_M{FOLD_M}_{tname}_dh48"
+    want = ref[("fold", name, entry if against == "pallas" else "xla")]
+    assert got[f"fold/{name}/{entry}"].shape == want.shape == (3, 1, 192)
     np.testing.assert_allclose(got[f"fold/{name}/{entry}"], want, rtol=TOL,
                                atol=TOL)
 
@@ -817,3 +870,69 @@ def test_sp_plan_follows_m_dh_g_and_dtype_alone(results, case):
     got, _ = results
     i = list(SP_PLAN_CASES).index(case)
     assert tuple(int(x) for x in got["spplan/got"][i]) == SP_PLAN_CASES[case]
+
+
+def _fold_sp_calls(got, case):
+    i = FOLD_SP_CASES.index(case)
+    return (json.loads(str(got[f"foldsp/{i}"])),
+            json.loads(str(got[f"foldsp/{i}/ptrs"])), i)
+
+
+@pytest.mark.parametrize("case", FOLD_SP_TAKES)
+def test_fold_sp_wrappers_hand_the_library_the_same_arguments(results, case):
+    """flash_decode_fold_sp and flash_decode_fold3_sp are one function with
+    one rounding: on CUDA inputs each call is one launch of the fused-layout
+    kernel (no scratch, no second launch), and the two hand it the same
+    arguments: q's and kv's pointers, q's row stride (the head of the fused
+    QKV projection), key blocks of 128 (the TPU kernels' rounding), the
+    plan; a [B] int32 t goes by its own pointer (read on the card)."""
+    got, _ = results
+    calls, ptrs, i = _fold_sp_calls(got, case)
+    assert str(got[f"foldsp/{i}/raised"]) == "none"
+    B, H, Hkv, M, Dh, dt, _ = case
+    by_label = {}
+    for label, lib, fn, args in calls:
+        assert [lib, fn] == ["decode_fold", "eamg_fold_decode_sp"]
+        assert label not in by_label, f"two launches for {label}"
+        by_label[label] = args
+    assert len(by_label) == 2 * 2 * 4
+    for label, args in by_label.items():
+        b = int(label.split("/")[0][1:])
+        assert args[:2] == [ptrs[label]["q"], ptrs[label]["kv"]]
+        if "/rows/" in label:
+            assert args[2] == ptrs[label]["t"]
+        assert args[4:10] == [b, H, Hkv, M, Dh, H * Dh + 2 * Hkv * Dh]
+        assert args[10] == pytest.approx(1 / math.sqrt(Dh), rel=1e-12)
+        assert args[11] == 128
+        assert args[14] == (0 if dt == "float32" else 1)
+        other = by_label[label.replace("fold_sp", "fold3_sp")
+                         if "fold_sp" in label
+                         else label.replace("fold3_sp", "fold_sp")]
+        assert args[:2] + args[4:] == other[:2] + other[4:]
+
+
+@pytest.mark.parametrize("case", FOLD_SP_TAKES)
+def test_fold_sp_plan_follows_m_dh_g_and_dtype_alone(results, case):
+    """K3's plan (by head, or over spans with C blocks), the same at B and
+    at B 1 and for every t, so a row gets the same bits alone and inside
+    any batch: the engine's same-seed contract rests on it."""
+    got, _ = results
+    calls, _, i = _fold_sp_calls(got, case)
+    plans = {tuple(args[12:14]) for _, _, _, args in calls}
+    assert plans == {FOLD_SP_PLANS[i]}
+
+
+def test_fold_sp_check_refuses_dh40(results):
+    """Dh outside (16, 32, 48, 64, 128): a ValueError before any launch."""
+    got, _ = results
+    calls, _, i = _fold_sp_calls(got, FOLD_SP_CASES[5])
+    said = str(got[f"foldsp/{i}/raised"])
+    assert said.startswith("ValueError") and "Dh in" in said, said
+    assert calls == []
+
+
+def test_fold_sp_wrappers_count_under_their_own_names(results):
+    got, _ = results
+    n = len(FOLD_SP_TAKES) * 2 * 4
+    assert json.loads(str(got["foldsp/counts"])) == {
+        "flash_decode_fold_sp": n, "flash_decode_fold3_sp": n}

@@ -260,6 +260,85 @@ def _card_launches(cases) -> dict:
     return got
 
 
+def _fold_sp_launches(cases) -> dict:
+    """What flash_decode_fold_sp and flash_decode_fold3_sp hand the
+    library on CUDA inputs, recorded in place of a launch, as
+    :func:`_card_launches` records K3's: meta tensors stand for the card's,
+    each tensor's pointer a distinct multiple of 16, the device check
+    passed (the rest of the argument check runs). For each case (B, H, Hkv,
+    M, Dh, dtype, resident clusters of 16), q is the head of a fused QKV
+    projection (rows D + 2 KVD apart), and each wrapper is called at B and
+    at B 1, with t a [B] int32 tensor and with the scalars 0, M - 1 and
+    M + 100: a JSON list of [label, library, symbol, arguments] a call and
+    the pointers of q, kv and t by label, or what the first call raised;
+    and the launch counts after all."""
+    from unittest import mock
+
+    from eamg_tpu_torch.ops import _build, decode_attention, decode_fold
+
+    calls = []
+    active16 = [0]
+
+    def bind(lib, fn, argtypes):
+        def call(*args):
+            if fn == "eamg_decode_cluster_occupancy":
+                args[-1][0] = active16[0]
+            else:
+                calls.append([label[0], lib, fn, list(args)])
+            return 0
+        return call
+
+    def fresh():
+        for f in (decode_fold._launch_sp, decode_attention._launch_occupancy,
+                  decode_attention.cluster_occupancy):
+            f.cache_clear()
+
+    def ptr(t):
+        return 16 * (id(t) % (1 << 40))
+
+    label = [""]
+    got = {}
+    fresh()
+    _build.reset_launch_counts()
+    try:
+        with mock.patch.object(_build, "bind", bind), \
+                mock.patch.object(_build, "stream_ptr", lambda t: 0), \
+                mock.patch.object(_build, "require_cuda", lambda *a: None), \
+                mock.patch.object(torch.Tensor, "data_ptr", ptr):
+            for i, (B, H, Hkv, M, Dh, dt, act) in enumerate(cases):
+                fresh()
+                calls.clear()
+                active16[0] = act
+                dt = getattr(torch, dt)
+                D, KVD = H * Dh, Hkv * Dh
+                ptrs, said = {}, np.asarray("none")
+                for b in (B, 1):
+                    qkv = torch.empty((b, 1, D + 2 * KVD), dtype=dt,
+                                      device="meta")
+                    q = qkv[..., :D]
+                    kv = torch.empty((b, M, 2 * KVD), dtype=dt, device="meta")
+                    tb = torch.empty((b,), dtype=torch.int32, device="meta")
+                    for t in (tb, 0, M - 1, M + 100):
+                        tl = "rows" if t is tb else f"t{t}"
+                        for name in ("flash_decode_fold_sp",
+                                     "flash_decode_fold3_sp"):
+                            label[0] = f"B{b}/{tl}/{name}"
+                            ptrs[label[0]] = {"q": ptr(q), "kv": ptr(kv),
+                                              "t": ptr(tb)}
+                            r = _raised(lambda: getattr(decode_fold, name)(
+                                q, kv, t, H))
+                            if str(said) == "none":
+                                said = r
+                got[f"foldsp/{i}"] = np.asarray(json.dumps(calls))
+                got[f"foldsp/{i}/raised"] = said
+                got[f"foldsp/{i}/ptrs"] = np.asarray(json.dumps(ptrs))
+        got["foldsp/counts"] = np.asarray(json.dumps(_build.launch_counts()))
+    finally:
+        fresh()
+        _build.reset_launch_counts()
+    return got
+
+
 def task_kernels(inp, out):
     from eamg_tpu_torch.ops import (attention, decode_attention, decode_fold,
                                     ffn, topk)
@@ -384,6 +463,8 @@ def task_kernels(inp, out):
             for M, Dh, g, es, n in inp["spplan/cases"]])
     if "cardlaunch/cases" in inp.files:
         out.update(_card_launches(json.loads(str(inp["cardlaunch/cases"]))))
+    if "foldsp/cases" in inp.files:
+        out.update(_fold_sp_launches(json.loads(str(inp["foldsp/cases"]))))
     if "scalartlaunch/shapes" in inp.files:
         out.update(_scalar_t_launches(
             decode_attention, json.loads(str(inp["scalartlaunch/shapes"]))))
