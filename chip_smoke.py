@@ -27,7 +27,16 @@ Phases:
     bf16 error of K1, K3 and rows 8 and 11 against the f32 plain version
     no larger than the plain bf16 version's own; the FFN
     kernel at rows 1, 8, 16 and 128, cold, in the served kernels="xla"
-    rounding order and in the Pallas one, and at one gelu shape; the
+    rounding order and in the Pallas one, and at one gelu shape; K4's two
+    entry points (the threshold, and the sampler's top-k mask in the same
+    launch) bit-equal to their plain versions at every K4_V (rows longer
+    than a block keeps in registers among them), B 1 and 8, k 1, 50 and V,
+    on rows with ties, +-inf, NaN, signed zeros, constant and all-but-k
+    -inf rows, and on 256 seeded rows, timed cold and warm beside the
+    library's topk (and topk and the three ops), and the sampler's top-k
+    on f32 logits traced as one launch; the stream-reduce probe one launch
+    a call, two calls bit-equal, at STREAM_SHAPES, its read rate with the
+    L2 left dirty and clean, past the L2 at 67 MB; the
     scalar-t cluster kernel of flash_decode and flash_decode_vmem at every
     BENCH_T with the cluster size it picks and the others, at a ragged and
     a long cache (M 60000), timed at t 300 and 510 beside SDPA on keys
@@ -54,7 +63,8 @@ Phases:
     equal) and one MIDI request, with the launch counts taken over exactly
     this phase; then one more request under torch.profiler, in whose
     trace K3 shows one kernel launch a call and a layer and decode step,
-    and no kernel of its old split design;
+    and no kernel of its old split design, and K4 one kernel launch a
+    call (its device time a launch and the launches a token logged);
  6. coalesce: the same server started as `serve --coalesce --slots 8`: one
     lone request (decoded detached, on the engine's own shape), then a
     burst of ten concurrent requests on eight slots, one of them the lone
@@ -65,7 +75,8 @@ Phases:
     reported as "probe_launches"); then one more burst under
     torch.profiler, in whose trace the engine's fold shows one kernel
     launch a call and a layer and decode step, and no kernel of its old
-    split design; last, four requests at once through `serve --coalesce
+    split design, and K4 one kernel launch a call, as in the solo trace;
+    last, four requests at once through `serve --coalesce
     window`, with launch counts of their own;
  7. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
     on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
@@ -87,6 +98,7 @@ line. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import functools
 import json
@@ -154,15 +166,30 @@ MAIN_PHASE = {"flash_attention": "coalesce", "fused_ffn": "coalesce",
               "flash_decode_fold3_sp": "batch",
               "stream_reduce": "coalesce",
               **{name: "batch" for name in BATCH_KERNELS}}
-# what each served path must have launched; "fold_decode" stands for the
-# fold kernel that the ragged decode and the engine call
+# K4's two entry points: the threshold and the sampler's fused top-k mask
+# (one kernel); a kernel's launches are those of all its wrappers
+KERNEL_WRAPPERS = {"kth_value": ("kth_value", "top_k_mask")}
+# what each served path must have launched (its f32 sampling takes K4 as
+# the fused mask); "fold_decode" stands for the fold kernel that the ragged
+# decode and the engine call
 PATH_KERNELS = {"solo": ("flash_attention", "fused_ffn", "flash_decode_sp",
-                         "kth_value"),
-                "coalesce": ("flash_attention", "fused_ffn", "kth_value",
+                         "top_k_mask"),
+                "coalesce": ("flash_attention", "fused_ffn", "top_k_mask",
                              "fold_decode"),
-                "window": ("flash_attention", "fused_ffn", "kth_value",
+                "window": ("flash_attention", "fused_ffn", "top_k_mask",
                            "fold_decode")}
 ENGINE_SLOTS = 8
+# K4 on the card: the flagship's vocabulary, B3's (no multiple of 4: no
+# 16-byte loads), the Scheme-B2 one, and rows longer than a block keeps in
+# registers (16384 keys), with and without 16-byte loads
+K4_V = (8892, 8579, 8324, 60000, 65537)
+K4_RANDOM_ROWS = 256
+# the stream-reduce probe beyond the engine's cache: (kv shape, rows): W no
+# multiple of the 16-byte vector in bf16 (36) or in either dtype (37), a
+# trailing batch row left unread, and 67 MB in bf16, past the 50 MB L2 (the
+# read rate the fold kernels are held to)
+STREAM_SHAPES = (((5, 37, 36), 2), ((3, 7, 37), 1), ((5, 16, 36), 2),
+                 ((64, 511, 1024), 4))
 # newest valid position per engine row in the kernel checks: a free slot,
 # a fresh prompt, both sides of a split boundary, mid-song, the last slot
 FOLD_T = (0, 15, 63, 64, 300, 510, 200, 127)
@@ -281,6 +308,9 @@ TOL = {("flash_attention", "float32"): 1e-4,
        ("fused_ffn_rows128", "bfloat16"): 3e-2,
        ("kth_value_batch", "float32"): 0.0,
        ("kth_value_batch", "bfloat16"): 0.0,
+       # K4's fused top-k mask against the sampler's three ops: exact
+       ("top_k_mask", "float32"): 0.0,
+       ("top_k_mask", "bfloat16"): 0.0,
        ("flash_decode_sp_batch", "float32"): 1e-4,
        ("flash_decode_sp_batch", "bfloat16"): 1e-2,
        ("flash_decode_fold_sp_batch", "float32"): 1e-4,
@@ -317,6 +347,30 @@ FOLD_RATED = ("fold", "fold2")
 
 def log(*a):
     print(*a, flush=True)
+
+
+def k4_rows(torch, g, V: int, k: int):
+    """[8, V] f32 rows from ``g`` that a k-th-largest search can get wrong:
+    ties at the k-th largest; +inf, -inf and NaN; a constant row; all but k
+    values at -inf; signed zeros among a few values; tiny values rounded
+    to few distinct ones; a wide spread; small integers (ties everywhere)."""
+    x = torch.randn(8, V, generator=g) * 3
+    kth = x[0].topk(k).values[-1]
+    x[0, torch.randperm(V, generator=g)[:10]] = kth
+    pos = torch.randperm(V, generator=g)[:7]
+    x[1, pos[:3]], x[1, pos[3:6]], x[1, pos[6]] = (float("inf"),
+                                                   float("-inf"),
+                                                   float("nan"))
+    x[2] = 0.5
+    keep = torch.randperm(V, generator=g)[:k]
+    x[3] = float("-inf")
+    x[3, keep] = torch.randn(k, generator=g)
+    x[4] = torch.where(torch.rand(V, generator=g) < 0.5, 0.0, -0.0)
+    x[4, torch.randperm(V, generator=g)[:20]] = torch.randn(20, generator=g)
+    x[5] = (x[5] * 1e-3).to(torch.bfloat16).float()
+    x[6] = x[6] * 30
+    x[7] = torch.randint(-5, 6, (V,), generator=g).float()
+    return x
 
 
 def card_line() -> str:
@@ -379,21 +433,23 @@ def time_ms(torch, fn, iters: int = 50, cold: bool = False,
 
 
 def time_cold_ms(torch, fns: dict, iters: int = 50,
-                 hold_us: float = 1000.0) -> dict:
+                 hold_us: float = 1000.0, read_flush: bool = False) -> dict:
     """Median device time of each of ``fns`` (as graphs, see
     :func:`_graphed`) with the L2 flushed before every replay; the device
     is held meanwhile so that the replay is enqueued before it is due.
     The functions take turns, in an order that alternates from round to
     round, so that a drift of the card's clocks or of its neighbours falls
     on all of them alike: two kernels are compared only within one such
-    call."""
+    call. The flush writes 384 MB, so the L2 is left full of lines to write
+    back, as after a step that wrote; with ``read_flush`` it reads them
+    instead and leaves it clean (the read rate of a kernel alone)."""
     flush = torch.empty(96 << 18, dtype=torch.float32, device="cuda")
     names = list(fns)
     replays = {name: _graphed(torch, fns[name]) for name in names}
     evs = {name: [] for name in names}
     for i in range(iters):
         for name in names if i % 2 == 0 else reversed(names):
-            flush.zero_()
+            flush.sum() if read_flush else flush.zero_()
             _hold_device(torch, hold_us)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -751,28 +807,111 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 raise AssertionError(f"heads_smem({Mx}, {Dhx}) {mine}, the "
                                      f"kernel's {n.value}")
 
-        # K4: the top-50 threshold over the flagship vocab, one row (solo)
-        # and one per engine slot
+        # K4, its two entry points (the threshold, and the sampler's top-k
+        # mask in the same launch) bit-equal to their plain versions at
+        # every K4_V (the flagship's, B3's and the Scheme-B2 vocabulary, and
+        # rows longer than a block keeps in registers), at B 1 and 8 and k
+        # 1, 50 and V, on the rows of k4_rows; then on K4_RANDOM_ROWS seeded
+        # rows at once
+        gt = torch.Generator().manual_seed(4)
+        checked = 0
+        for V in K4_V:
+            for k in (1, 50, V):
+                rows8 = k4_rows(torch, gt, V, k).to(dt).to(dev)
+                for part in (rows8, *rows8.split(1)):
+                    for entry in ("kth_value", "top_k_mask"):
+                        got = getattr(topk, entry)(part, k)
+                        want = getattr(topk, entry + "_plain")(part, k)
+                        if not torch.equal(got.float().view(torch.int32),
+                                           want.float().view(torch.int32)) \
+                                or got.dtype != want.dtype:
+                            raise AssertionError(
+                                f"{entry} {dt_name} V {V} k {k} rows "
+                                f"{tuple(part.shape)}: not bit-equal")
+                        checked += 1
+        xr = (torch.randn(K4_RANDOM_ROWS, 8892, generator=gt)
+              * torch.rand(K4_RANDOM_ROWS, 1, generator=gt) * 10).to(dt).to(dev)
+        for entry in ("kth_value", "top_k_mask"):
+            hold(entry if entry == "top_k_mask" else "kth_value_batch",
+                 dt_name, getattr(topk, entry)(xr, 50),
+                 getattr(topk, entry + "_plain")(xr, 50),
+                 extra=f"{entry}: {K4_RANDOM_ROWS} seeded rows of 8892, k 50,"
+                       " bit-equal")
+        log(f"[check] kth_value / top_k_mask {dt_name}: bit-equal to their "
+            f"plain versions in {checked} calls (V {K4_V}, k 1, 50, V, B 8 "
+            "and each row alone: ties at the threshold, +-inf and NaN, a "
+            "constant row, all but k at -inf, signed zeros, integers)")
+        # timed: one row (solo) and one per engine slot, over the flagship
+        # vocabulary, k 50, cold (the record) and warm, beside the plain
+        # versions and the library's topk (and topk and the three ops for
+        # the mask)
         V = 8892
         for nb in (1, ENGINE_SLOTS):
             logits = randn(nb, V, dt=dt, scale=3.0)
             logits[0, 100:110] = logits[0, 5]          # ties
-            got = topk.kth_value(logits, 50)
-            want = topk.kth_value_plain(logits, 50)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            same = torch.equal(got.float().view(torch.int32),
-                               want.float().view(torch.int32))
-            if not same:
-                err = float("inf")
+            # both entry points against their plain versions on the timed
+            # logits: max|err|, inf where the bits or the dtypes differ
+            err = {}
+            for entry in ("kth_value", "top_k_mask"):
+                got = getattr(topk, entry)(logits, 50)
+                want = getattr(topk, entry + "_plain")(logits, 50)
+                err[entry] = (got.float() - want.float()).abs().max().item()
+                if got.dtype != want.dtype or not torch.equal(
+                        got.float().view(torch.int32),
+                        want.float().view(torch.int32)):
+                    err[entry] = float("inf")
+            if err["top_k_mask"] > TOL[("top_k_mask", dt_name)]:
+                raise AssertionError(f"top_k_mask {dt_name} [{nb}, {V}]: "
+                                     f"max|err| {err['top_k_mask']}")
+            fns = {"kernel": lambda x=logits: topk.kth_value(x, 50),
+                   "plain": lambda x=logits: topk.kth_value_plain(x, 50),
+                   "library": lambda x=logits: torch.topk(
+                       x, 50).values[..., -1:],
+                   "mask": lambda x=logits: topk.top_k_mask(x, 50),
+                   "mask_plain": lambda x=logits: topk.top_k_mask_plain(x, 50),
+                   "mask_library": lambda x=logits: topk._masked(
+                       x, torch.topk(x, 50).values[..., -1:], -1e10)}
+            cold = time_cold_ms(torch, fns)
+            warm = {n: time_ms(torch, fns[n]) for n in
+                    ("kernel", "library", "mask", "mask_library")}
+            m_b, _ = bound_ms(2 * nbytes(logits), 8 * V * nb, dt_name)
             record("kth_value" if nb == 1 else f"kth_value_b{nb}", dt_name,
-                   err,
-                   time_ms(torch, lambda: topk.kth_value(logits, 50)),
-                   time_ms(torch, lambda: topk.kth_value_plain(logits, 50)),
-                   time_ms(torch, lambda: torch.topk(
-                       logits, 50).values[..., -1:]),
-                   nbytes(logits) + 4 * nb, 2 * 32 * V * nb,
-                   extra=f"B {nb}, k 50, bit-equal")
+                   err["kth_value"], cold["kernel"], cold["plain"],
+                   cold["library"], nbytes(logits) + 4 * nb, 8 * V * nb,
+                   extra=f"B {nb}, k 50, cold; warm: kernel "
+                         f"{warm['kernel']:.4f} ms, library "
+                         f"{warm['library']:.4f}; the fused mask cold "
+                         f"{cold['mask']:.4f} ms (max|err| "
+                         f"{err['top_k_mask']:.3e}; warm {warm['mask']:.4f}, "
+                         f"bound {m_b:.5f}), plain {cold['mask_plain']:.4f},"
+                         f" topk and the three ops {cold['mask_library']:.4f}"
+                         f" (warm {warm['mask_library']:.4f})",
+                   more={"mask_max_abs_err": err["top_k_mask"],
+                         "ms_warm": warm["kernel"],
+                         "library_ms_warm": warm["library"],
+                         "mask_ms": cold["mask"], "mask_ms_warm": warm["mask"],
+                         "mask_plain_ms": cold["mask_plain"],
+                         "mask_library_ms": cold["mask_library"],
+                         "mask_library_ms_warm": warm["mask_library"],
+                         "mask_bound_ms": m_b})
+        if dt is torch.float32:
+            # the sampler's top-k on f32 logits is one launch of K4: no
+            # compare, where or add after it. In the same session, the
+            # three ops on a threshold, whose kernels the served traces
+            # must not show right after K4 (SAMPLER_OPS names them)
+            from eamg_tpu_torch.decode import sampling
+
+            thr = topk.kth_value_plain(logits, 50)
+            ran = _device_kernels(torch, lambda: (
+                sampling.apply_top_k(logits, 50),
+                topk._masked(logits, thr, -1e10)))
+            log(f"[check] apply_top_k on f32 [{ENGINE_SLOTS}, {V}], then the "
+                f"three ops on its threshold: device kernels in order {ran}")
+            if "topk_reg_kernel" not in ran[0] \
+                    or not _is_sampler_ops(ran[1:]):
+                raise AssertionError(f"apply_top_k and the three ops ran "
+                                     f"{ran}, not one K4 launch and "
+                                     f"{SAMPLER_OPS}")
 
         # K4 in the batched decode: 8 rows over the Scheme-B2 vocabulary
         logits = randn(BENCH_B, 8324, dt=dt, scale=3.0)
@@ -903,24 +1042,74 @@ def kernel_checks(torch, ckpt_params) -> dict:
                         plain=want_)
             del qs_, kvs_
 
-        # stream reduce: the read-rate probe over one layer's engine cache
+        # stream reduce, the read-rate probe over one layer's engine cache:
+        # one launch a call (the wrapper's count), two calls
+        # bit-equal, the error against the plain version; then at shapes
+        # whose lines do not start on 16 bytes or leave a trailing batch row
+        # unread, and past the L2 (kv [64, 511, 1024], 67 MB in bf16), each
+        # timed cold with the L2 left dirty (as every record) and clean
         rows = 4
         kvs = randn(B, M, 2 * KVD, dt=dt)
         got = decode_fold.stream_reduce(kvs, rows)
+        before = _build.launch_counts().get("stream_reduce", 0)
+        again = decode_fold.stream_reduce(kvs, rows)
+        calls = _build.launch_counts().get("stream_reduce", 0) - before
         want = decode_fold.stream_reduce_plain(kvs, rows)
         torch.cuda.synchronize()
+        if calls != 1:
+            raise AssertionError(f"stream_reduce: {calls} launches a call")
+        if not torch.equal(got, again):
+            raise AssertionError("stream_reduce: two calls differ")
         err = (got.float() - want.float()).abs().max().item()
-        k_ms = time_ms(torch, lambda: decode_fold.stream_reduce(kvs, rows),
-                       cold=True)
-        record("stream_reduce", dt_name, err, k_ms,
-               time_ms(torch, lambda: decode_fold.stream_reduce_plain(
-                   kvs, rows), cold=True),
-               time_ms(torch, lambda: kvs[B - rows:].sum(
-                   dim=(0, 1), dtype=torch.float32), cold=True),
-               nbytes(kvs) + 2 * KVD * kvs.element_size(), kvs.numel(),
-               extra=f"kv {tuple(kvs.shape)}, rows {rows}: reads "
-                     f"{nbytes(kvs) / k_ms / 1e6:.1f} GB/s (the plain and "
-                     "library versions read the last group only)")
+        fns = {"kernel": lambda: decode_fold.stream_reduce(kvs, rows),
+               "plain": lambda: decode_fold.stream_reduce_plain(kvs, rows),
+               "library": lambda: kvs[B - rows:].sum(dim=(0, 1),
+                                                     dtype=torch.float32)}
+        cold = time_cold_ms(torch, fns)
+        clean = time_cold_ms(torch, {"kernel": fns["kernel"]},
+                             read_flush=True)["kernel"]
+        warm = time_ms(torch, fns["kernel"])
+        nb_ = nbytes(kvs)
+        record("stream_reduce", dt_name, err, cold["kernel"], cold["plain"],
+               cold["library"], nb_ + 2 * KVD * kvs.element_size(),
+               kvs.numel(),
+               extra=f"kv {tuple(kvs.shape)}, rows {rows}: one launch a "
+                     f"call, two calls bit-equal; reads "
+                     f"{nb_ / cold['kernel'] / 1e6:.1f} GB/s cold, "
+                     f"{nb_ / clean / 1e6:.1f} with a clean L2 ({clean:.4f} "
+                     f"ms), warm {warm:.4f} ms (the plain and library "
+                     "versions read the last group only)",
+               more={"gb_per_s": nb_ / cold["kernel"] / 1e6,
+                     "ms_clean_l2": clean, "gb_per_s_clean_l2":
+                     nb_ / clean / 1e6, "ms_warm": warm})
+        gs = torch.Generator().manual_seed(12)
+        for shape, r in STREAM_SHAPES:
+            kx = torch.randn(*shape, generator=gs).to(dt).to(dev)
+            got = decode_fold.stream_reduce(kx, r)
+            again = decode_fold.stream_reduce(kx, r)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"stream_reduce {shape}: two calls "
+                                     "differ")
+            extra = f"kv {shape}, rows {r}, two calls bit-equal"
+            if nbytes(kx) > 50 << 20:
+                t_d = time_cold_ms(torch, {"k": lambda: decode_fold
+                                           .stream_reduce(kx, r)})["k"]
+                t_c = time_cold_ms(torch, {"k": lambda: decode_fold
+                                           .stream_reduce(kx, r)},
+                                   read_flush=True)["k"]
+                b_ms, _ = bound_ms(nbytes(kx), kx.numel(), dt_name)
+                extra += (f"; cold {t_d:.4f} ms, {nbytes(kx) / t_d / 1e6:.1f}"
+                          f" GB/s; with a clean L2 {t_c:.4f} ms, "
+                          f"{nbytes(kx) / t_c / 1e6:.1f} GB/s; bound "
+                          f"{b_ms:.4f} ms")
+                results.setdefault("stream_reduce_large", {})[dt_name] = {
+                    "shape": list(shape), "ms": t_d, "ms_clean_l2": t_c,
+                    "bound_ms": b_ms, "gb_per_s": nbytes(kx) / t_d / 1e6,
+                    "gb_per_s_clean_l2": nbytes(kx) / t_c / 1e6}
+            hold("stream_reduce", dt_name, got,
+                 decode_fold.stream_reduce_plain(kx, r), extra=extra)
+            del kx
 
         # the batched offline decode's two scalar-t kernels, one cluster
         # kernel with a rounding flag: B 8, MHA H 8, over a head-major cache
@@ -1384,6 +1573,11 @@ HEADS_STAMPS = ("entry", "barriers", "t_read", "joined", "copies_issued",
                 "landed", "scores", "maxima", "pv", "stored")
 # csrc/attention.cu (K1 in bf16)
 ATTN_STAMPS = ("entry", "issued", "landed", "keys", "stored")
+# K4: where a handful of keys is left under 16 bits of prefix, "pass3" and
+# "pass4" mark them gathered and one warp's select of the last 16 bits
+TOPK_STAMPS = ("entry", "loaded", "pass1", "pass2", "pass3", "pass4",
+               "stored")
+STREAM_STAMPS = ("entry", "read", "arrived", "combined")
 
 
 def _bind_timed(name: str, entry: str, argtypes: list):
@@ -1759,6 +1953,69 @@ def kernel_phases(torch, ckpt_params) -> dict:
     out["flash_attention"] = {"warps": Wa, "blocks": n_attn,
                               "shape": f"bf16 B 1 H {Hs} Hkv {Hkvs} T {Ta} "
                                        f"Dh {Dh} causal"}
+    # K4's fused mask as the sampler launches it, at the solo step and the
+    # engine's (f32 [1 or 8, 8892], k 50), beside empty launches of its
+    # grid; the stream-reduce probe over the engine's cache (bf16 [8, 511,
+    # 256]) and past the L2 ([64, 511, 1024]), with the grid it plans
+    from eamg_tpu_torch.ops import topk
+
+    tk_lib = _bind_timed("topk_timed", "eamg_top_k_mask",
+                         [P, P, I, I, I, _build.F, P])
+    tk_lib.eamg_topk_empty.argtypes = [I, I, P]
+    for nb in (1, ENGINE_SLOTS):
+        x = (torch.randn(nb, 8892, generator=g) * 3).to(dev)
+        o = torch.empty_like(x)
+
+        def run(x=x, o=o, nb=nb):
+            _build.check(tk_lib.eamg_top_k_mask(
+                x.data_ptr(), o.data_ptr(), nb, x.shape[1], 50, -1e10,
+                stream()), "stamped K4")
+
+        run()
+        torch.cuda.synchronize()
+        name = f"top_k_mask_b{nb}"
+        if not torch.equal(o, topk.top_k_mask(x, 50)):
+            raise AssertionError(f"{name}: the stamped build differs")
+        fns[name] = lambda x=x: topk.top_k_mask(x, 50)
+        fns[name + "_stamped"] = run
+        fns[f"empty_topk_b{nb}"] = lambda nb=nb: _build.check(
+            tk_lib.eamg_topk_empty(nb, 8892, stream()),
+            "empty launch")
+        stamped[name] = (tk_lib, run, nb, TOPK_STAMPS)
+        out[name] = {"shape": f"f32 [{nb}, 8892] k 50"}
+    sr_lib = _bind_timed("stream_reduce_timed", "eamg_stream_reduce",
+                         [P, P, P, P, I, I, I, I, P])
+    sr_lib.eamg_stream_reduce_plan.argtypes = [P, I, I, I, I,
+                                               ctypes.POINTER(I),
+                                               ctypes.POINTER(I)]
+    for shape in ((ENGINE_SLOTS, M, 2 * 2 * Dh), (64, M, 2 * H * Dh)):
+        kvx = torch.randn(*shape, generator=g).to(dt).to(dev)
+        ox = torch.empty((1, shape[2]), dtype=dt, device=dev)
+        groups, lines, W = shape[0] // 4, 4 * shape[1], shape[2]
+        part, arrived = decode_fold._stream_scratch(kvx.device, groups,
+                                                    lines, W)
+        grid, rs = I(0), I(0)
+        _build.check(sr_lib.eamg_stream_reduce_plan(
+            kvx.data_ptr(), groups, lines, W, _build.DTYPE_CODE[dt],
+            ctypes.byref(grid), ctypes.byref(rs)), "stream plan")
+
+        def run(kvx=kvx, ox=ox, part=part, arrived=arrived, groups=groups,
+                lines=lines, W=W):
+            _build.check(sr_lib.eamg_stream_reduce(
+                kvx.data_ptr(), ox.data_ptr(), part.data_ptr(),
+                arrived.data_ptr(), groups, lines, W, _build.DTYPE_CODE[dt],
+                stream()), "stamped stream_reduce")
+
+        run()
+        torch.cuda.synchronize()
+        name = f"stream_reduce_{'x'.join(map(str, shape))}"
+        if not torch.equal(ox, decode_fold.stream_reduce(kvx, 4)):
+            raise AssertionError(f"{name}: the stamped build differs")
+        fns[name] = lambda kvx=kvx: decode_fold.stream_reduce(kvx, 4)
+        fns[name + "_stamped"] = run
+        stamped[name] = (sr_lib, run, grid.value, STREAM_STAMPS)
+        out[name] = {"shape": f"bf16 {list(shape)} rows 4",
+                     "blocks": grid.value, "lines_a_unit": rs.value}
     out["event_ms"] = time_cold_ms(torch, fns)
     for name, (lib, run, n_blocks, names) in stamped.items():
         out[name].update(_stamped_runs(torch, lib, run, n_blocks, names, khz))
@@ -1772,7 +2029,7 @@ def kernel_phases(torch, ckpt_params) -> dict:
         "bytes of shared memory, the fold kernel's; the scalar_t ones of "
         f"{st_smem} bytes, rows 5 and 6's; the sp ones of {sp_smem} bytes, "
         f"K3's; the fold_sp ones of {e_smem} bytes, rows 8 and 11's; 256 "
-        "threads a block; the attention grid K1's)")
+        "threads a block; the attention grid K1's; the topk ones K4's)")
     log(json.dumps({"kernel_phases": out}))
     return out
 
@@ -1918,6 +2175,51 @@ def _require_xla_order(path: str, pipe) -> None:
                              f"{cfg.kernels!r}")
 
 
+def launched(name: str, counts: dict) -> int:
+    """Launches of kernel ``name`` in ``counts`` (by wrapper): those of all
+    its wrappers (:data:`KERNEL_WRAPPERS`)."""
+    return sum(counts.get(w, 0) for w in KERNEL_WRAPPERS.get(name, (name,)))
+
+
+def _device_kernels(torch, fn) -> list:
+    """fn() once under torch.profiler -> the names of the device kernels it
+    ran, in the order the card started them."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _kernel_order(prof)
+
+
+def _kernel_order(prof) -> list:
+    """The device kernels of a torch.profiler session, in the order the
+    card started them (one stream)."""
+    return [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type.name == "CUDA"),
+        key=lambda e: e.time_range.start)]
+
+
+# the sampler's three ops after a top-k threshold, by the names of
+# PyTorch's kernels for them: logits >= t (a compare), the where of two
+# scalars (the scalars filled, then the where), the add
+SAMPLER_OPS = ("CompareFunctor<float>", "FillFunctor<float>", "where_kernel",
+               "CUDAFunctor_add<float>")
+
+
+def _is_sampler_ops(names) -> bool:
+    """Whether ``names`` (kernels in start order) are one run of the three
+    ops: a compare first, the add last, a where and fills between."""
+    return (len(names) >= 3 and SAMPLER_OPS[0] in names[0]
+            and SAMPLER_OPS[3] in names[-1]
+            and any(SAMPLER_OPS[2] in n for n in names[1:-1])
+            and all(SAMPLER_OPS[1] in n or SAMPLER_OPS[2] in n
+                    for n in names[1:-1]))
+
+
 def _require_launched(path: str, counts: dict) -> None:
     from eamg_tpu_torch.ops import decode_fold
 
@@ -2010,6 +2312,12 @@ def _trace(torch, tag: str, work) -> dict:
                   if any(p in key.lower() for p in pats)), "other")
         by_group[g] += ms
     launches = sum(r[2] for r in rows)
+    # the five kernels the card ran after each K4 launch (one run of the
+    # sampler's three ops is five), and how often each of those ops ran
+    order = _kernel_order(prof)
+    after_k4 = collections.Counter(
+        tuple(order[i + 1:i + 6]) for i, name in enumerate(order)
+        if any(n in name for n in K4_KERNELS))
     out = {"path": tag, "wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall_ms, "n_tokens": n_tokens,
            "launches": launches,
@@ -2018,11 +2326,55 @@ def _trace(torch, tag: str, work) -> dict:
            "top": [{"kernel": k[:90], "ms": ms, "count": c}
                    for k, ms, c in rows[:12]],
            "count_by_kernel": {k[:90]: c for k, _, c in rows},
-           "ms_by_kernel": {k[:90]: ms for k, ms, _ in rows}}
+           "ms_by_kernel": {k[:90]: ms for k, ms, _ in rows},
+           "after_k4": [[[n[:90] for n in names], c]
+                        for names, c in after_k4.most_common(3)],
+           "k4_then_sampler_ops": sum(c for names, c in after_k4.items()
+                                      if _is_sampler_ops(names)),
+           "sampler_op_kernels": {p: sum(c for k, _, c in rows if p in k)
+                                  for p in SAMPLER_OPS}}
     if not busy > 0:
         raise AssertionError("the trace shows no device time")
     log(json.dumps({"profile": out}))
     return out
+
+
+K4_KERNELS = ("topk_reg_kernel", "topk_stream_kernel")
+# launches a token in the traces when the sampler ran K4's threshold and the
+# three ops after it (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5)
+LAUNCHES_A_TOKEN_UNFUSED = {"solo": 150.65, "coalesce": 59.16}
+
+
+def _k4_in_trace(tag: str, prof: dict, counts: dict) -> None:
+    """K4 in a path's trace: one kernel launch per wrapper call, the
+    sampler's fused mask among them, and fewer f32 fills in the whole
+    trace than K4 launches (the sampler's three ops after K4 would launch
+    two a call; the engine's threads share the stream, so the card's
+    order may put another thread's kernels right after a K4 launch); its
+    device time a launch and the path's launches a token."""
+    calls = launched("kth_value", counts)
+    kernels = sum(c for k, c in prof["count_by_kernel"].items()
+                  if any(n in k for n in K4_KERNELS))
+    ms = sum(v for k, v in prof["ms_by_kernel"].items()
+             if any(n in k for n in K4_KERNELS))
+    fills = prof["sampler_op_kernels"][SAMPLER_OPS[1]]
+    log(f"[{tag}] traced: K4 {calls} calls (top_k_mask "
+        f"{counts.get('top_k_mask', 0)}, kth_value "
+        f"{counts.get('kth_value', 0)}), its kernel {kernels} launches, "
+        f"{ms:.1f} ms of device time, {1000 * ms / max(kernels, 1):.2f} us "
+        f"a launch; {prof['launches_per_token']:.2f} launches a token over "
+        f"{prof['n_tokens']} tokens (with the three ops: "
+        f"{LAUNCHES_A_TOKEN_UNFUSED[tag]}); the sampler's three ops' "
+        f"kernels in the whole trace {prof['sampler_op_kernels']} (the "
+        f"three ops would add two f32 fills, a compare, a where and an add "
+        f"a K4 launch); K4 launches followed by one run of them on the card "
+        f"{prof['k4_then_sampler_ops']}; the kernels after K4, most common: "
+        f"{prof['after_k4']}")
+    if kernels != calls or counts.get("top_k_mask", 0) == 0 \
+            or fills >= kernels:
+        raise AssertionError(f"{tag} trace: K4 {calls} calls, {kernels} "
+                             f"kernel launches, {fills} f32 fills (the "
+                             f"three ops launch two a K4 launch)")
 
 
 def profile_solo(torch, pipe) -> dict:
@@ -2053,6 +2405,7 @@ def profile_solo(torch, pipe) -> dict:
     if stale or calls == 0 or kernels != calls or calls % n_layer:
         raise AssertionError(f"solo trace: K3 {calls} calls, {kernels} "
                              f"cluster launches, stale kernels {stale}")
+    _k4_in_trace("solo", out, _build.launch_counts())
     return out
 
 
@@ -2197,6 +2550,7 @@ def serve_coalesced(torch):
         prof = _trace(torch, "coalesce",
                       lambda: _burst(port, "coalesce traced",
                                      lone_again=False)[0])
+        _k4_in_trace("coalesce", prof, _build.launch_counts())
         calls = _build.launch_counts().get(engine_fold, 0)
         kernels = sum(c for k, c in prof["count_by_kernel"].items()
                       if "decode_heads_kernel" in k
@@ -2356,7 +2710,7 @@ def batch_decode(torch) -> dict:
             raise AssertionError(f"batch {impl}: all rows drew one stream")
         want = {"flash_attention": cfg.n_layer,
                 "fused_ffn": cfg.n_layer * (steps + 1),
-                "kth_value": steps + 1,
+                "top_k_mask": steps + 1, "kth_value": 0,
                 **{w: 0 for w in wrappers.values()},
                 wrappers[impl]: cfg.n_layer * steps}
         got = {name: counts.get(name, 0) for name in want}
@@ -2502,8 +2856,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": counts[MAIN_PHASE[name]].get(name, 0),
-            "launches_by_path": {p: c.get(name, 0)
+            "launches": launched(name, counts[MAIN_PHASE[name]]),
+            "launches_by_path": {p: launched(name, c)
                                  for p, c in counts.items()},
             "probe_launches": probes.get(name, 0),
             "dtype": MAIN_DTYPE[name], **rec})

@@ -1,8 +1,8 @@
-"""The decode cluster kernel (K3, flash_decode, flash_decode_vmem) and K1 on
-one CUDA card, across their launch choices.
+"""The decode cluster kernel (K3, flash_decode, flash_decode_vmem), K1 and
+K4 on one CUDA card, across their launch choices.
 
     python3 chip_sweep.py                    # scalar_t, sp, attention
-    python3 chip_sweep.py sp attention       # some parts
+    python3 chip_sweep.py sp topk            # some parts
     python3 chip_sweep.py parent=DIR         # against a parent tree in DIR
 
 Parts, each timed cold (chip_smoke.py's graph replays with the L2 flushed
@@ -23,9 +23,17 @@ between them), in bf16, beside one library call:
  - attention: K1 with 1, 2, 4 and 8 warps a block against SDPA: the solo
    prefill (B 1, H 8, Hkv 2, T 16, causal), the batch's (B 8, MHA, T 16,
    valid_len 3), and T 64 and 511 (B 1, GQA-2, causal), each also warm;
- - parent=DIR: K1, K3, rows 5 and 6 and rows 8 and 11 as the kernels of
-   a parent tree unpacked in DIR (its eamg_tpu_torch/csrc, built here) and
-   as this tree's, in turns in one loop (chip_sweep.py::parent_vs_change).
+ - topk: K4's fused mask (f32, k 50) at the path shapes, B3's vocabulary,
+   V 8579 and V 60000, beside torch.topk and the three ops;
+ - parent=DIR: K4 (its threshold, and the sampler's top-k) and the
+   stream-reduce probe (at the engine's cache and at 67 MB, with the L2
+   dirty and clean) as the kernels of a parent tree unpacked in DIR (its
+   eamg_tpu_torch/csrc, built here) and as this tree's, in turns in one
+   loop (chip_sweep.py::parent_vs_change); then the parent tree and this
+   one each serve the solo WAV of seed 7 and the engine's seed-21 request
+   alone and in a burst, in processes of their own: the bytes must be
+   equal (chip_sweep.py::same_seed_bytes; DIR holds the parent's package
+   and chip_smoke.py, and its eamg_tpu/ the checkpoints).
 The size each wrapper picks is marked with *. A cluster size whose blocks
 would need more shared memory than the card allows (C 1 at M 60000) is
 reported as refused. Prints the card line and one line per measurement;
@@ -35,11 +43,12 @@ exits non-zero without a card.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import math
 import os
 import sys
 
-PARTS = ("scalar_t", "sp", "attention", "parent")
+PARTS = ("scalar_t", "sp", "attention", "topk", "parent")
 SIZES = (1, 2, 4, 8, 16)
 
 
@@ -63,8 +72,10 @@ def main(argv=None) -> int:
         decode_attention as da
 
     print(cs.card_line(), flush=True)
-    _build.build_all(["decode_attention", "decode_attention_timed",
-                      "attention", "decode_fold"])
+    kernel_parts = {"topk", "parent"}
+    _build.build_all(["topk", "stream_reduce"] if set(parts) <= kernel_parts
+                     else ["decode_attention", "decode_attention_timed",
+                           "attention", "decode_fold"])
     g = torch.Generator().manual_seed(511)
     dt, Dh = torch.bfloat16, 64
     khz = torch.cuda.get_device_properties(0).clock_rate
@@ -102,20 +113,8 @@ def main(argv=None) -> int:
                                                               t, C=C))
                     if runnable(fn):
                         fns[(name, C)] = fn
-            if not flush_reads:
-                return cs.time_cold_ms(torch, fns, iters=30)
-            zero = torch.Tensor.zero_
-            flush_numel = 96 << 18   # time_cold_ms's flush buffer
-
-            def read_flush(x):
-                return (x.sum(), x)[1] if x.numel() == flush_numel \
-                    else zero(x)
-
-            torch.Tensor.zero_ = read_flush
-            try:
-                return cs.time_cold_ms(torch, fns, iters=30)
-            finally:
-                torch.Tensor.zero_ = zero
+            return cs.time_cold_ms(torch, fns, iters=30,
+                                   read_flush=flush_reads)
 
         def report(tag, M, ms):
             picked = da.cluster_size(
@@ -230,193 +229,212 @@ def main(argv=None) -> int:
             line(tag + " warm", picked,
                  {n: cs.time_ms(torch, fn) for n, fn in fns.items()}, keys)
             del q, k, v
+    if "topk" in parts:
+        topk_sweep(torch, cs)
     if "parent" in parts:
-        parent_vs_change(torch, cs, _build, at, da, parent[0])
+        parent_vs_change(torch, cs, _build, parent[0])
+        same_seed_bytes(parent[0])
     return 0
 
 
-def parent_vs_change(torch, cs, _build, at, da, parent: str) -> None:
-    """K1 at the solo prefill, K3 at the solo decode, rows 5 and 6 at the
-    bench shape and rows 8 and 11 at the engine's step, cold and warm, each
-    timed in turns in one loop as the parent tree's kernels
-    (csrc/attention.cu, csrc/decode_attention.cu and csrc/decode_fold.cu
-    under ``parent``, built here with the same flags, their entry points
-    those of PR 7's tree; rows 8 and 11 there: a split kernel and its
-    merge, two launches and a partials buffer) and as this tree's, beside
-    SDPA; then the stamped phases of K3 and row 5, the parent's build and
-    this tree's."""
+TOPK_SHAPES = ((1, 8892), (8, 8892), (8, 8324), (8, 8579), (1, 60000))
+
+
+def topk_sweep(torch, cs) -> None:
+    """K4's fused mask (f32, k 50) at TOPK_SHAPES (the solo and engine
+    steps, B3's vocabulary, a V no multiple of 4 that loads element by
+    element, and a row past the registers), cold and warm in one loop,
+    beside torch.topk and the three ops."""
+    from eamg_tpu_torch.ops import topk
+
+    g = torch.Generator().manual_seed(4)
+    for B, V in TOPK_SHAPES:
+        x = (torch.randn(B, V, generator=g) * 3).cuda()
+        if not torch.equal(topk.top_k_mask(x, 50).view(torch.int32),
+                           topk.top_k_mask_plain(x, 50).view(torch.int32)):
+            raise AssertionError(f"K4 [{B}, {V}]: not bit-equal")
+        fns = {"kernel": lambda x=x: topk.top_k_mask(x, 50),
+               "topk and the three ops": lambda x=x: topk._masked(
+                   x, torch.topk(x, 50).values[..., -1:], -1e10)}
+        cold = cs.time_cold_ms(torch, fns, iters=40)
+        warm = {n: cs.time_ms(torch, fn) for n, fn in fns.items()}
+        print(f"[topk] fused mask f32 [{B}, {V}] k 50, bit-equal; cold / "
+              "warm ms: " + ", ".join(f"{n} {cold[n]:.4f} / {warm[n]:.4f}"
+                                      for n in fns), flush=True)
+
+
+def parent_vs_change(torch, cs, _build, parent: str) -> None:
+    """K4 and the stream-reduce probe as a parent tree's kernels
+    (csrc/topk.cu and csrc/stream_reduce.cu under ``parent``, built here
+    with the same flags; their entry points those of the tree before K4's
+    digit select: eamg_kth_value without a thread count, a stream reduce
+    of two launches over a partials buffer of ceil(lines / 16) slabs) and
+    as this tree's, cold and warm, in turns in one loop: K4's threshold at
+    f32 [1, 8892] and [8, 8892], k 50, and the sampler's top-k (the parent's
+    threshold and three ops against the fused mask) beside torch.topk; the
+    probe at bf16 [8, 511, 256] and [64, 511, 1024], rows 4, with the L2
+    left dirty and clean, beside torch's sum of the whole array."""
     import subprocess
 
-    import torch.nn.functional as F
+    from eamg_tpu_torch.ops import decode_fold as df, topk
 
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                       "sweep_parent")
-    os.makedirs(out, exist_ok=True)
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, *flags,
-                               "-o", os.path.join(out, f"lib{n}{tag}.so"),
+    out = _build.BUILD_ROOT.parent / "sweep_parent"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(out / f"lib{n}.so"),
                                os.path.join(parent, "eamg_tpu_torch", "csrc",
                                             f"{n}.cu")])
-             for n, tag, flags in (
-                 ("attention", "", ()), ("decode_attention", "", ()),
-                 ("decode_attention", "_timed", ("-DEAMG_PHASE_TIMING",)),
-                 ("decode_fold", "", ()))]
+             for n in ("topk", "stream_reduce")]
     if any(p.wait() for p in procs):
         raise RuntimeError("nvcc failed on the parent's sources")
-    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    old_at = ctypes.CDLL(os.path.join(out, "libattention.so"))
-    old_da = ctypes.CDLL(os.path.join(out, "libdecode_attention.so"))
-    old_df = ctypes.CDLL(os.path.join(out, "libdecode_fold.so"))
-    for fn, args in ((old_at.eamg_attention_fwd,
-                      [P, P, P, P, P, I, I, I, I, I, I, Fl, I, I, P]),
-                     (old_da.eamg_flash_decode_sp,
-                      [P, P, P, P, P, I, I, I, I, I, Fl, I, I, I, P]),
-                     (old_da.eamg_flash_decode_scalar_t,
-                      [P, P, P, P, I, I, I, I, Fl, I, I, I, P]),
-                     (old_df.eamg_fold_decode,
-                      [P, P, P, P, P, I, I, I, I, I, I, Fl, I, I, P])):
+    P, I = ctypes.c_void_p, ctypes.c_int
+    old_tk = ctypes.CDLL(str(out / "libtopk.so"))
+    old_sr = ctypes.CDLL(str(out / "libstream_reduce.so"))
+    for fn, args in ((old_tk.eamg_kth_value, [P, P, I, I, I, P]),
+                     (old_sr.eamg_stream_reduce, [P, P, P, I, I, I, I, P])):
         fn.argtypes, fn.restype = args, ctypes.c_int
-    g = torch.Generator().manual_seed(7)
-    dt, Dh = torch.bfloat16, 64
-
-    def draw(*shape):
-        return torch.randn(*shape, generator=g).to(dt).cuda()
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    def report(tag, ms):
+    def report(tag, ms, lib="library"):
         print(f"[parent] {tag}: parent {ms['parent']:.4f} ms, change "
               f"{ms['change']:.4f} ms ({ms['change'] / ms['parent']:.3f} of "
-              f"the parent's), sdpa {ms['sdpa']:.4f} ms", flush=True)
+              f"the parent's), {lib} {ms['library']:.4f} ms", flush=True)
 
-    # K1: B 1, H 8, Hkv 2, T 16, causal
-    q, k, v = draw(1, 8, 16, Dh), draw(1, 2, 16, Dh), draw(1, 2, 16, Dh)
-    vl = torch.full((1,), 16, dtype=torch.int32, device="cuda")
-    o = torch.empty_like(q)
-    fns = {"parent": lambda: _build.check(old_at.eamg_attention_fwd(
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-               vl.data_ptr(), 1, 8, 2, 16, Dh, 1, 1.0 / math.sqrt(Dh),
-               at.WARPS, 1, stream()), "parent K1"),
-           "change": lambda: at.flash_attention(q, k, v, vl, causal=True),
-           "sdpa": lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True)}
-    fns["parent"]()
-    torch.cuda.synchronize()
-    print(f"[parent] K1 parent against change, max|diff| "
-          f"{(o.float() - fns['change']().float()).abs().max().item():.3e}",
-          flush=True)
-    report("K1 B 1 H 8 Hkv 2 T 16 cold", cs.time_cold_ms(torch, fns))
-    report("K1 B 1 H 8 Hkv 2 T 16 warm",
-           {n: cs.time_ms(torch, fn) for n, fn in fns.items()})
-    # K3: B 1, H 8, Hkv 2, M 511, t 300 on the card
-    M, t = 511, 300
-    q, k, v = draw(1, 8, 1, Dh), draw(1, 2, M, Dh), draw(1, 2, M, Dh)
-    tt = torch.full((1,), t, dtype=torch.int32, device="cuda")
-    o = torch.empty_like(q)
-    by_head, C = da.sp_plan(M, Dh, 4, 2, lambda: 0)
-    sp_args = (1, 8, 2, M, Dh, 1.0 / math.sqrt(Dh), int(by_head), C, 1)
-    fns = {"parent": lambda: _build.check(old_da.eamg_flash_decode_sp(
-               q.data_ptr(), k.data_ptr(), v.data_ptr(), tt.data_ptr(),
-               o.data_ptr(), *sp_args, stream()), "parent K3"),
-           "change": lambda: da.flash_decode_sp(q, k, v, tt),
-           "sdpa": lambda: F.scaled_dot_product_attention(
-               q, k[:, :, :t + 1], v[:, :, :t + 1], enable_gqa=True)}
-    report("K3 B 1 H 8 Hkv 2 M 511 t 300 cold", cs.time_cold_ms(torch, fns))
-    report("K3 B 1 H 8 Hkv 2 M 511 t 300 warm",
-           {n: cs.time_ms(torch, fn) for n, fn in fns.items()})
-    k3 = (q, k, v, tt, o)
-    # rows 5 and 6: B 8, MHA H 8, M 511, t 300, C 2
-    q, k, v = draw(8, 8, 1, Dh), draw(8, 8, M, Dh), draw(8, 8, M, Dh)
-    o = torch.empty_like(q)
-    for name, blocked in (("flash_decode", 1), ("flash_decode_vmem", 0)):
-        fns = {"parent": lambda b=blocked: _build.check(
-                   old_da.eamg_flash_decode_scalar_t(
-                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                       o.data_ptr(), 64, M, Dh, t, 1.0 / math.sqrt(Dh), b, 2,
-                       1, stream()), "parent scalar-t"),
-               "change": lambda n=name: da._scalar_t(n, q, k, v, t),
-               "sdpa": lambda: F.scaled_dot_product_attention(
-                   q, k[:, :, :t + 1], v[:, :, :t + 1])}
-        report(f"{name} B 8 H 8 M 511 t 300 cold",
-               cs.time_cold_ms(torch, fns))
-        report(f"{name} B 8 H 8 M 511 t 300 warm",
-               {n: cs.time_ms(torch, fn) for n, fn in fns.items()})
-    # rows 8 and 11 at the engine's step: B 8, H 8, Hkv 2, M 511, t
-    # FOLD_T on the card, a fused cache with a free slot; the parent's
-    # variant 0 (row 8) and 1 (row 11), each a split kernel and its merge
-    from eamg_tpu_torch.ops import decode_fold as df
+    g = torch.Generator().manual_seed(7)
+    for B in (1, 8):
+        x = (torch.randn(B, 8892, generator=g) * 3).cuda()
+        thr = torch.empty((B, 1), dtype=torch.float32, device="cuda")
 
-    B, H, Hkv = 8, 8, 2
-    qf = draw(B, 1, H * Dh)
-    kvf = draw(B, M, 2 * Hkv * Dh)
-    kvf[0] = 0
-    tf = torch.tensor(cs.FOLD_T, dtype=torch.int32, device="cuda")
-    of = torch.empty_like(qf)
-    part = torch.empty(B * H * -(-M // 64) * (Dh + 2), dtype=torch.float32,
-                       device="cuda")
-    keep = (torch.arange(M, device="cuda")[None, :]
-            <= tf[:, None])[:, None, None, :]
-    kh = kvf[..., :Hkv * Dh].reshape(B, M, Hkv, Dh).transpose(1, 2)\
-        .contiguous()
-    vh = kvf[..., Hkv * Dh:].reshape(B, M, Hkv, Dh).transpose(1, 2)\
-        .contiguous()
-    qh = qf.reshape(B, H, 1, Dh)
-    for name, variant in (("flash_decode_fold_sp", 0),
-                          ("flash_decode_fold3_sp", 1)):
-        fns = {"parent": lambda var=variant: _build.check(
-                   old_df.eamg_fold_decode(
-                       qf.data_ptr(), kvf.data_ptr(), tf.data_ptr(),
-                       of.data_ptr(), part.data_ptr(), B, H, Hkv, M, Dh,
-                       qf.stride(0), 1.0 / math.sqrt(Dh), var, 1, stream()),
-                   "parent fold"),
-               "change": lambda n=name: getattr(df, n)(qf, kvf, tf, H),
-               "sdpa": lambda: F.scaled_dot_product_attention(
-                   qh, kh, vh, attn_mask=keep, enable_gqa=True)}
-        fns["parent"]()
-        torch.cuda.synchronize()
-        print(f"[parent] {name} parent against change, max|diff| "
-              f"{(of.float() - fns['change']().float()).abs().max().item():.3e}"
-              " (p rounded against 128-key blocks in the change only)",
+        def old_kth(x=x, thr=thr, B=B):
+            _build.check(old_tk.eamg_kth_value(
+                x.data_ptr(), thr.data_ptr(), B, x.shape[1], 50, stream()),
+                "parent K4")
+            return thr
+
+        if not torch.equal(old_kth(), topk.kth_value(x, 50)):
+            raise AssertionError("K4: the parent's threshold differs")
+        fns = {"parent": old_kth,
+               "change": lambda x=x: topk.kth_value(x, 50),
+               "library": lambda x=x: torch.topk(x, 50).values[..., -1:]}
+        tag = f"K4 threshold f32 [{B}, 8892] k 50"
+        report(tag + " cold", cs.time_cold_ms(torch, fns), "topk")
+        report(tag + " warm", {n: cs.time_ms(torch, f)
+                               for n, f in fns.items()}, "topk")
+        fns = {"parent": lambda x=x, f=old_kth: topk._masked(x, f(), -1e10),
+               "change": lambda x=x: topk.top_k_mask(x, 50),
+               "library": lambda x=x: topk._masked(
+                   x, torch.topk(x, 50).values[..., -1:], -1e10)}
+        if not torch.equal(fns["parent"](), fns["change"]()):
+            raise AssertionError("K4: the parent's top-k mask differs")
+        tag = f"sampler top-k f32 [{B}, 8892] k 50 (parent: K4 + 3 ops)"
+        report(tag + " cold", cs.time_cold_ms(torch, fns), "topk + 3 ops")
+        report(tag + " warm", {n: cs.time_ms(torch, f)
+                               for n, f in fns.items()}, "topk + 3 ops")
+    for shape in ((8, 511, 256), (64, 511, 1024)):
+        kv = torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
+        groups, lines, W = shape[0] // 4, 4 * shape[1], shape[2]
+        part = torch.empty(groups * -(-lines // 16) * W, dtype=torch.float32,
+                           device="cuda")
+        o = torch.empty((1, W), dtype=kv.dtype, device="cuda")
+
+        def old_sum(kv=kv, part=part, o=o, groups=groups, lines=lines, W=W):
+            _build.check(old_sr.eamg_stream_reduce(
+                kv.data_ptr(), o.data_ptr(), part.data_ptr(), groups, lines,
+                W, 1, stream()), "parent stream_reduce")
+            return o
+
+        diff = (old_sum().float() - df.stream_reduce(kv, 4).float()).abs()
+        print(f"[parent] stream_reduce {list(shape)} parent against change, "
+              f"max|diff| {diff.max().item():.3e} (sums in other orders)",
               flush=True)
-        tag = f"{name} B 8 H 8 Hkv 2 M 511 t {cs.FOLD_T}"
-        report(tag + " cold", cs.time_cold_ms(torch, fns))
-        report(tag + " warm", {n: cs.time_ms(torch, fn)
-                               for n, fn in fns.items()})
-    # K3's and row 5's phases, the parent's stamped build and this tree's
-    khz = torch.cuda.get_device_properties(0).clock_rate
-    sp_stamps = cs.HEADS_STAMPS if by_head else cs.DECODE_STAMPS
-    for tag, path in (("parent", os.path.join(out,
-                                              "libdecode_attention_timed.so")),
-                      ("change", None)):
-        if path is None:
-            lib = _build.library("decode_attention_timed")
-        else:
-            lib = ctypes.CDLL(path)
-        for fn, args in ((lib.eamg_set_stamps, [P]),
-                         (lib.eamg_flash_decode_scalar_t,
-                          [P, P, P, P, I, I, I, I, Fl, I, I, I, P]),
-                         (lib.eamg_flash_decode_sp,
-                          [P, P, P, P, P, I, I, I, I, I, Fl, I, I, I, P])):
-            fn.argtypes, fn.restype = args, ctypes.c_int
+        fns = {"parent": old_sum,
+               "change": lambda kv=kv: df.stream_reduce(kv, 4),
+               "library": lambda kv=kv: kv.sum(dtype=torch.float32)}
+        nb = kv.numel() * kv.element_size()
+        for how, clean in (("cold", False), ("cold, clean L2", True)):
+            ms = cs.time_cold_ms(torch, fns, read_flush=clean)
+            report(f"stream_reduce bf16 {list(shape)} rows 4 {how} (GB/s: "
+                   + ", ".join(f"{n} {nb / v / 1e6:.1f}"
+                               for n, v in ms.items()) + ")", ms,
+                   "sum of the whole array")
+        report(f"stream_reduce bf16 {list(shape)} rows 4 warm",
+               {n: cs.time_ms(torch, f) for n, f in fns.items()},
+               "sum of the whole array")
 
-        def run_st(lib=lib):
-            _build.check(lib.eamg_flash_decode_scalar_t(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 64,
-                M, Dh, t, 1.0 / math.sqrt(Dh), 1, 2, 1, stream()),
-                "stamped scalar-t")
 
-        def run_sp(lib=lib):
-            qs, ks, vs, ts, os_ = k3
-            _build.check(lib.eamg_flash_decode_sp(
-                qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), ts.data_ptr(),
-                os_.data_ptr(), *sp_args, stream()), "stamped K3")
-        cs._log_phases(f"{tag} flash_decode C 2, B 8 H 8 M 511 t 300",
-                       cs._stamped_runs(torch, lib, run_st, 128,
-                                        cs.DECODE_STAMPS, khz), khz)
-        cs._log_phases(f"{tag} flash_decode_sp {'by head' if by_head else ''}"
-                       f" C {C}, B 1 H 8 Hkv 2 M 511 t 300",
-                       cs._stamped_runs(torch, lib, run_sp, 2 * C, sp_stamps,
-                                        khz), khz)
+# Run in a tree's root (its package, its chip_smoke.py): the same-seed
+# replies whose bytes a kernel change must not move, as sha256 digests
+SAME_SEED_CHILD = r"""
+import hashlib, json, os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from eamg_tpu_torch import cli
+from eamg_tpu_torch.ops import _build
+from eamg_tpu_torch.serve import shutdown_gracefully
+
+_build.build_all(_build.SOURCES)
+
+
+def served(args, work):
+    pipe = cli.pipeline_from_args(cli.parse_args(args))
+    if "--coalesce" in args:
+        pipe.warmup()
+    server, thread, port = cs._serving(pipe)
+    try:
+        return work(port)
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+
+
+def digest(b):
+    return hashlib.sha256(b).hexdigest()
+
+
+def engine(port):
+    lone = cs._post(port, cs.LONE, "")[1]
+    again = cs._burst(port, "same seed", lone_again=True)[2]
+    return digest(lone), digest(again)
+
+
+out = {"solo wav seed 7": served(["serve"], lambda port: digest(cs._post(
+    port, {"prompt": "I finally got the job, I am so happy!", "seed": "7"},
+    "")[1]))}
+out["engine lone seed 21"], out["engine seed 21 in the burst"] = served(
+    ["serve", "--coalesce", "--slots", "8"], engine)
+print("SAME_SEED " + json.dumps(out), flush=True)
+"""
+
+
+def same_seed_bytes(parent: str) -> None:
+    """The solo WAV of seed 7 and the engine's seed-21 request, alone and
+    inside the burst of ten, served by the parent tree and by this one, each
+    in a process of its own on this card: their bytes must be equal."""
+    import json
+    import subprocess
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    got = {}
+    for tag, root in (("parent", os.path.abspath(parent)), ("change", here)):
+        env = dict(os.environ, PYTHONPATH=root)
+        proc = subprocess.run([sys.executable, "-c", SAME_SEED_CHILD],
+                              cwd=root, env=env, capture_output=True,
+                              text=True, timeout=900)
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("SAME_SEED ")]
+        if proc.returncode != 0 or not line:
+            raise RuntimeError(f"same-seed run of the {tag} tree failed:\n"
+                               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        got[tag] = json.loads(line[0].split(" ", 1)[1])
+        print(f"[same seed] {tag}: {got[tag]}", flush=True)
+    if got["parent"] != got["change"]:
+        raise AssertionError("same-seed bytes differ from the parent's")
+    print("[same seed] the parent's and this tree's bytes are equal",
+          flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

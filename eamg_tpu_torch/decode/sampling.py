@@ -25,18 +25,18 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.topk import kth_value, top_p_threshold
+from ..ops.topk import top_k_mask, top_p_threshold
 from ..utils import prng
 
 
 def apply_top_k(logits: torch.Tensor, top_k: int,
                 mask_value: float = -1e10) -> torch.Tensor:
     """logits + (0 where logit >= the k-th largest, mask_value elsewhere);
-    ties at the threshold are kept."""
+    ties at the threshold are kept. On the card, f32 logits take one
+    launch of K4 (``ops/topk.py::top_k_mask``)."""
     if top_k is None or top_k <= 0 or top_k >= logits.shape[-1]:
         return logits
-    thresh = kth_value(logits, top_k)
-    return logits + torch.where(logits >= thresh, 0.0, mask_value)
+    return top_k_mask(logits, top_k, mask_value)
 
 
 def apply_top_p(logits: torch.Tensor, top_p: float,

@@ -29,14 +29,17 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "eamg_tpu_torch"
 SOURCES = ("attention", "ffn", "decode_attention", "topk", "decode_fold",
            "stream_reduce")
 # library name -> (source, extra nvcc flags): the cluster fold kernel and
-# rows 8 and 11's, K2, the decode cluster kernel (K3, rows 5 and 6) and K1
-# with their phase stamps, and the empty launches that time their floor,
-# loaded by chip_smoke.py alone
+# rows 8 and 11's, K2, the decode cluster kernel (K3, rows 5 and 6), K1, K4
+# and the stream-reduce probe with their phase stamps, and the empty
+# launches that time their floor, loaded by chip_smoke.py alone
 VARIANTS = {"decode_fold_timed": ("decode_fold", ("-DEAMG_PHASE_TIMING",)),
             "ffn_timed": ("ffn", ("-DEAMG_PHASE_TIMING",)),
             "decode_attention_timed": ("decode_attention",
                                        ("-DEAMG_PHASE_TIMING",)),
-            "attention_timed": ("attention", ("-DEAMG_PHASE_TIMING",))}
+            "attention_timed": ("attention", ("-DEAMG_PHASE_TIMING",)),
+            "topk_timed": ("topk", ("-DEAMG_PHASE_TIMING",)),
+            "stream_reduce_timed": ("stream_reduce",
+                                    ("-DEAMG_PHASE_TIMING",))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -50,7 +50,9 @@ import torch
 
 from . import _build, decode_attention
 
-RS = 16        # lines per block: RS in csrc/stream_reduce.cu
+# the fewest lines a block of the stream-reduce probe takes (MIN_SLAB in
+# csrc/stream_reduce.cu), which sizes its partials
+STREAM_MIN_SLAB = 64
 # The key blocks whose running max p = exp(s - max) is rounded against on
 # the card before p.v, as the TPU kernels of flash_decode_fold_sp and
 # flash_decode_fold3_sp round it (their block_k = min(128, M)): one entry
@@ -342,31 +344,40 @@ def stream_reduce_plain(kv: torch.Tensor, rows: int = 4) -> torch.Tensor:
 def _launch_stream():
     P, I = _build.P, _build.I
     return _build.bind("stream_reduce", "eamg_stream_reduce",
-                       [P, P, P, I, I, I, I, P])
+                       [P, P, P, P, I, I, I, I, P])
+
+
+@functools.cache
+def _stream_scratch(device: torch.device, groups: int, lines: int,
+                    W: int) -> tuple:
+    """The probe's f32 partials and its arrival counter (at 0, and left at
+    0 by every launch), one pair a device and shape: calls of one shape
+    share them, so they must not run on two streams at once."""
+    part = torch.empty(groups * -(-lines // STREAM_MIN_SLAB) * W,
+                       dtype=torch.float32, device=device)
+    return part, torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def stream_reduce(kv: torch.Tensor, rows: int = 4) -> torch.Tensor:
     """kv [B, M, W] -> [1, W]: reads all ``B // rows`` groups of ``rows``
     batch rows and returns the last group's sum over its lines (see
     :func:`stream_reduce_plain`). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors one launch of the kernel."""
     if kv.device.type == "cpu":
         return stream_reduce_plain(kv, rows)
-    if kv.device.type != "cuda":
-        raise ValueError(f"stream_reduce: unsupported device {kv.device}")
-    if kv.dim() != 3 or rows <= 0 or kv.shape[0] < rows:
+    _build.require_cuda("stream_reduce", kv)
+    if kv.dim() != 3 or rows <= 0 or kv.shape[0] < rows or kv.numel() == 0:
         raise ValueError(f"stream_reduce: kv {tuple(kv.shape)}, rows {rows}")
     if kv.dtype not in _build.DTYPE_CODE or not kv.is_contiguous():
         raise ValueError("stream_reduce: kv must be contiguous float32 or "
                          "bfloat16")
     B, M, W = kv.shape
     groups, lines = B // rows, rows * M
-    part = torch.empty(groups * -(-lines // RS) * W, dtype=torch.float32,
-                       device=kv.device)
+    part, arrived = _stream_scratch(kv.device, groups, lines, W)
     o = torch.empty((1, W), dtype=kv.dtype, device=kv.device)
     err = _launch_stream()(kv.data_ptr(), o.data_ptr(), part.data_ptr(),
-                           groups, lines, W, _build.DTYPE_CODE[kv.dtype],
-                           _build.stream_ptr(kv))
+                           arrived.data_ptr(), groups, lines, W,
+                           _build.DTYPE_CODE[kv.dtype], _build.stream_ptr(kv))
     _build.check(err, "stream_reduce")
     _build.count_launch("stream_reduce")
     return o

@@ -501,6 +501,89 @@ def task_kernels(inp, out):
             _t(a["kv"]), int(a["rows"])).numpy()
 
 
+# -------------------------------------------------------------------- topk
+def _wrapper_launches(cases) -> dict:
+    """K4's two entry points, the sampler's top-k and the stream-reduce
+    probe on CUDA inputs, recorded in place of a launch: meta tensors stand
+    for the card's (each tensor's pointer a distinct multiple of 16), the
+    device check passed, the rest of each wrapper's argument check run.
+    Each case is [label, wrapper, shape, dtype, k or rows]: a JSON list of
+    [library, symbol, arguments] a call, the pointers of the input and of
+    what came back, and what the call raised; then the launch counts."""
+    from unittest import mock
+
+    from eamg_tpu_torch.decode import sampling
+    from eamg_tpu_torch.ops import _build, decode_fold, topk
+
+    calls = []
+
+    def bind(lib, fn, argtypes):
+        def call(*args):
+            calls.append([lib, fn, list(args)])
+            return 0
+        return call
+
+    def ptr(t):
+        return 16 * (id(t) % (1 << 40))
+
+    wrappers = {"kth_value": topk.kth_value, "top_k_mask": topk.top_k_mask,
+                "apply_top_k": sampling.apply_top_k,
+                "stream_reduce": decode_fold.stream_reduce}
+    fresh = (topk._launch, decode_fold._launch_stream,
+             decode_fold._stream_scratch)
+    got = {}
+    for f in fresh:
+        f.cache_clear()
+    _build.reset_launch_counts()
+    try:
+        with mock.patch.object(_build, "bind", bind), \
+                mock.patch.object(_build, "stream_ptr", lambda t: 0), \
+                mock.patch.object(_build, "require_cuda", lambda *a: None), \
+                mock.patch.object(torch.Tensor, "data_ptr", ptr):
+            for label, name, shape, dt, arg in cases:
+                calls.clear()
+                x = torch.empty(shape, dtype=getattr(torch, dt),
+                                device="meta")
+                if label.endswith("strided"):
+                    x = x.transpose(-1, -2)
+                res = []
+
+                def run():
+                    res.append(wrappers[name](x, arg))
+
+                got[f"wrap/{label}/raised"] = _raised(run)
+                got[f"wrap/{label}"] = np.asarray(json.dumps(calls))
+                got[f"wrap/{label}/ptrs"] = np.asarray(json.dumps(
+                    [ptr(x), ptr(res[0]) if res else 0]))
+                got[f"wrap/{label}/out"] = np.asarray(json.dumps(
+                    [list(res[0].shape), str(res[0].dtype)] if res else []))
+        got["wrap/counts"] = np.asarray(json.dumps(_build.launch_counts()))
+    finally:
+        for f in fresh:
+            f.cache_clear()
+        _build.reset_launch_counts()
+    return got
+
+
+def task_topk(inp, out):
+    from eamg_tpu_torch.decode import sampling
+    from eamg_tpu_torch.ops import decode_fold, topk
+
+    logits = _t(inp["mask/logits"])
+    for k in inp["mask/ks"]:
+        for i, m in enumerate(inp["mask/values"]):
+            out[f"mask/plain/k{int(k)}/m{i}"] = topk.top_k_mask_plain(
+                logits, int(k), float(m)).numpy()
+            out[f"mask/sampler/k{int(k)}/m{i}"] = sampling.apply_top_k(
+                logits, int(k), float(m)).numpy()
+    for name in sorted({k.split("/")[1] for k in inp.files
+                        if k.startswith("stream/")}):
+        a = unflatten(inp, f"stream/{name}")
+        out[f"stream/{name}"] = decode_fold.stream_reduce(
+            _t(a["kv"]), int(a["rows"])).numpy()
+    out.update(_wrapper_launches(json.loads(str(inp["wrap/cases"]))))
+
+
 # -------------------------------------------------------------------- slice
 
 def _model_checks(inp, out, tag):
@@ -1441,7 +1524,7 @@ def task_bf16(inp, out):
     out["tf"] = torch.cat(steps).float().numpy()
 
 
-TASKS = {"kernels": task_kernels, "slice": task_slice,
+TASKS = {"kernels": task_kernels, "topk": task_topk, "slice": task_slice,
          "ragged": task_ragged, "engine": task_engine, "batch": task_batch,
          "bf16": task_bf16}
 
