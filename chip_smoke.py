@@ -58,14 +58,23 @@ Phases:
     card (kernels) against the same run on the host (plain versions), for
     the solo decode and for the ragged decode; then its bf16 logits as
     served (kernels="xla"), card against host, through the solo decode;
- 5. solo: serve POST /generate on demo_ckpt_a in bf16 over HTTP, one
+ 5. solo: capture the solo decode's CUDA graph in "global" mode (any
+    host sync in a step, from any thread, fails it) at the served key,
+    then serve POST /generate on demo_ckpt_a in bf16 over HTTP, one
     request at a time: two WAV requests with one seed (their bytes must be
     equal) and one MIDI request, with the launch counts taken over exactly
-    this phase; then one more request under torch.profiler, in whose
+    this phase (the decode must have replayed graphs and issued no decode
+    attention launch from Python); the WAV of seed 7 again from a server
+    whose decode issues every step from the host (eager=True): the same
+    bytes; then one more request under torch.profiler, in whose
     trace K3 shows one kernel launch a call and a layer and decode step,
     and no kernel of its old split design, and K4 one kernel launch a
-    call (its device time a launch and the launches a token logged);
- 6. coalesce: the same server started as `serve --coalesce --slots 8`: one
+    call (its device time a launch and the launches a token logged); each
+    trace logs the device kernels and the host's launch calls
+    (HOST_LAUNCH_APIS, graph launches among them) a token;
+ 6. coalesce: the same server started as `serve --coalesce --slots 8`
+    after its warm-up (which captures the engine's and the detached
+    decode's graphs): one
     lone request (decoded detached, on the engine's own shape), then a
     burst of ten concurrent requests on eight slots, one of them the lone
     request's seed again (its bytes must be equal), with the launch counts
@@ -76,14 +85,19 @@ Phases:
     torch.profiler, in whose trace the engine's fold shows one kernel
     launch a call and a layer and decode step, and no kernel of its old
     split design, and K4 one kernel launch a call, as in the solo trace;
-    last, four requests at once through `serve --coalesce
-    window`, with launch counts of their own;
+    then the lone request and the burst once more on an eager server: the
+    seed-21 bytes must be the graphs'; last, four requests at once through
+    `serve --coalesce window`, with launch counts of their own (each path
+    replaying graphs, none issuing decode attention from Python) and
+    replies of hundreds of tokens;
  7. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
     on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
     seed) at full width and depth, batch 8, 511 positions, once per
-    attn_impl with the launch counts zeroed before each: the kernel the
-    attn_impl names must have launched once per layer and step and no
-    other attention kernel at all; fold's and fold2's rates at least 0.8
+    attn_impl with the launch counts zeroed before each, the eager loop's
+    tokens beside it (equal): the kernel the attn_impl names must have
+    launched once per layer and step (the graphs run whole blocks of
+    decode/graphs.py::BLOCK steps) and no other attention kernel at all, the
+    next generation by replays only; fold's and fold2's rates at least 0.8
     of sp's (best of three generations each); teacher-forced f32 logits of
     each attn_impl on the card against the plain versions on the host; one
     generation of the default attn_impl under torch.profiler; then
@@ -1140,7 +1154,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 rel_f32("flash_decode_sp", got, want32,
                         where=f" at the batch shape, t {t}", plain=want)
             for name, fn in scalar_t.items():
-                got = fn(qb, kb, vb, t)
+                got = fn(qb, kb, vb, tt[:1])
                 torch.cuda.synchronize()
                 if not torch.isfinite(got.float()).all():
                     raise AssertionError(f"{name}: not finite at t {t}")
@@ -1149,7 +1163,8 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 if dt is torch.bfloat16:
                     rel_f32(name, got, want32, where=f" at t {t}", plain=want)
                 for c in other_st:
-                    alt = decode_attention._scalar_t(name, qb, kb, vb, t, C=c)
+                    alt = decode_attention._scalar_t(name, qb, kb, vb,
+                                                     tt[:1], C=c)
                     torch.cuda.synchronize()
                     hold(name, dt_name, alt, want,
                          extra=f"with C {c} at t {t}")
@@ -1167,7 +1182,7 @@ def kernel_checks(torch, ckpt_params) -> dict:
                 want32 = decode_attention.decode_attention_plain(
                     qr.float(), kr.float(), vr.float(), tt)
                 for name, fn in scalar_t.items():
-                    got = fn(qr, kr, vr, t)
+                    got = fn(qr, kr, vr, tt[:1])
                     torch.cuda.synchronize()
                     where = f" at M {Mr}, t {t}"
                     hold(name, dt_name, got, want, extra=where.strip())
@@ -1180,10 +1195,11 @@ def kernel_checks(torch, ckpt_params) -> dict:
         for t in (BENCH_TIMED_T, BENCH_LAST_T):
             tt = torch.full((Bb,), t, dtype=torch.int32, device=dev)
             fns.update({
-                **{(name, t): (lambda fn=fn, t=t: fn(qb, kb, vb, t))
+                **{(name, t): (lambda fn=fn, tt=tt: fn(qb, kb, vb, tt[:1]))
                    for name, fn in scalar_t.items()},
-                **{(name, t, c): (lambda name=name, t=t, c=c: decode_attention
-                                  ._scalar_t(name, qb, kb, vb, t, C=c))
+                **{(name, t, c): (lambda name=name, tt=tt, c=c:
+                                  decode_attention._scalar_t(
+                                      name, qb, kb, vb, tt[:1], C=c))
                    for name in scalar_t for c in other_st},
                 ("flash_decode_sp", t): lambda tt=tt: decode_attention
                 .flash_decode_sp(qb, kb, vb, tt),
@@ -1509,11 +1525,12 @@ def bit_identity(torch, ckpt_params) -> dict:
     qh, kh, vh = (torch.randn(BENCH_B, BENCH_H, m, Dh, generator=gs).to(dt)
                   .to(dev) for m in (1, M, M))
     scalar_t = SCALAR_T_KERNELS
+    t300 = torch.full((1,), BENCH_TIMED_T, dtype=torch.int32, device=dev)
     for name in scalar_t:
         fn = getattr(decode_attention, name)
-        full = fn(qh, kh, vh, BENCH_TIMED_T)
+        full = fn(qh, kh, vh, t300)
         out[name] = all(torch.equal(fn(
-            qh[b:b + 1], kh[b:b + 1], vh[b:b + 1], BENCH_TIMED_T)[0], full[b])
+            qh[b:b + 1], kh[b:b + 1], vh[b:b + 1], t300)[0], full[b])
             for b in range(BENCH_B))
     # K1 at the flagship's prefill (GQA-2, T 16, causal) with a valid
     # length a row, and K3 over its cache with a t a row, from a generator
@@ -1783,7 +1800,8 @@ def kernel_phases(torch, ckpt_params) -> dict:
 
     st_lib = _bind_timed("decode_attention_timed",
                          "eamg_flash_decode_scalar_t",
-                         [P, P, P, P, I, I, I, I, _build.F, I, I, I, P])
+                         [P, P, P, P, I, I, I, P, _build.F, I, I, I, P])
+    t_dev = torch.full((1,), t, dtype=torch.int32, device=dev)
     for fn, args in (("eamg_decode_cluster_smem",
                       [I, I, I, I, I, I, ctypes.POINTER(L)]),
                      ("eamg_decode_heads_smem",
@@ -1816,16 +1834,16 @@ def kernel_phases(torch, ckpt_params) -> dict:
         def run(blocked=blocked, o=o):
             _build.check(st_lib.eamg_flash_decode_scalar_t(
                 qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), o.data_ptr(),
-                B * H, M, Dh, t, 1.0 / math.sqrt(Dh), blocked, C_st, 1,
-                stream()), "stamped scalar-t kernel")
+                B * H, M, Dh, t_dev.data_ptr(), 1.0 / math.sqrt(Dh), blocked,
+                C_st, 1, stream()), "stamped scalar-t kernel")
 
         run()
         torch.cuda.synchronize()
         if not torch.equal(o, getattr(decode_attention, name)(qh, kh, vh,
-                                                              t)):
+                                                              t_dev)):
             raise AssertionError(f"{name}: the stamped build differs")
         fns[name] = lambda name=name: getattr(decode_attention, name)(
-            qh, kh, vh, t)
+            qh, kh, vh, t_dev)
         fns[name + "_stamped"] = run
         stamped[name] = (st_lib, run, B * H * C_st, DECODE_STAMPS)
         out[name] = {"C": C_st}
@@ -2237,11 +2255,15 @@ def serve_solo(torch):
     from eamg_tpu_torch.ops import _build
     from eamg_tpu_torch.serve import shutdown_gracefully
 
+    from eamg_tpu_torch.decode import graphs
+
     pipe = cli.pipeline_from_args(cli.parse_args(["serve"]))
     _require_xla_order("solo", pipe)
+    capture_solo_global(torch, pipe)
     server, thread, port = _serving(pipe)
     try:
         _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
         reqs = [({"prompt": "I finally got the job, I am so happy!",
                   "seed": "7"}, ""),
                 ({"prompt": "I finally got the job, I am so happy!",
@@ -2255,6 +2277,8 @@ def serve_solo(torch):
             bodies.append(reply[1])
         torch.cuda.synchronize()
         counts = _build.launch_counts()
+        replayed = _build.replayed_counts()
+        replays = graphs.tally()["replays"] - replays0
     finally:
         server.shutdown()
         shutdown_gracefully(server, pipe)
@@ -2264,7 +2288,40 @@ def serve_solo(torch):
     log("[solo] same-seed WAV bytes identical; launches over the three "
         f"requests: {counts}")
     _require_launched("solo", counts)
+    _require_graphs("solo", "flash_decode_sp", counts, replayed, replays)
+    eager = _eager_replies(["serve"], lambda port: _post(
+        port, reqs[0][0], reqs[0][1])[1])
+    if eager != bodies[0]:
+        raise AssertionError("solo: the WAV of seed 7 from the eager loop "
+                             "differs from the graphs'")
+    log("[solo] the WAV of seed 7 decoded by the eager loop (every step "
+        "issued from the host) has the graphs' bytes")
     return counts, pipe
+
+
+def _eager_replies(args: list, work):
+    """work(port) against the server of ``serve`` with ``args`` whose
+    decode issues every step from the host (``eager=True``, which no
+    served path passes), in place of replaying graphs."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.serve import shutdown_gracefully
+    from eamg_tpu_torch.serve.pipeline import (DEMO_CKPT_A,
+                                               pipeline_from_checkpoint)
+
+    a = cli.parse_args(args)
+    pipe = pipeline_from_checkpoint(
+        a.checkpoint or DEMO_CKPT_A, full_gm=a.full_gm, device=a.device,
+        coalesce=a.coalesce, coalesce_opts=cli.coalesce_opts_from_args(a),
+        fast_routing=a.fast_routing, eager=True)
+    if a.coalesce:
+        pipe.warmup()
+    server, thread, port = _serving(pipe)
+    try:
+        return work(port)
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
 
 
 def _port_kernel_names() -> tuple:
@@ -2289,12 +2346,20 @@ def _trace(torch, tag: str, work) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    from eamg_tpu_torch.decode import graphs
+
+    tally0 = graphs.tally()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         n_tokens = work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000
+    replays = graphs.tally()["replays"] - tally0["replays"]
+    # the host's launch calls: kernels issued one by one, and graphs
+    host = collections.Counter(
+        e.name for e in prof.events() if e.device_type.name == "CPU"
+        and e.name.startswith(HOST_LAUNCH_APIS))
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
@@ -2320,8 +2385,12 @@ def _trace(torch, tag: str, work) -> dict:
         if any(n in name for n in K4_KERNELS))
     out = {"path": tag, "wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall_ms, "n_tokens": n_tokens,
+           "tokens_per_s": n_tokens / wall_ms * 1000,
            "launches": launches,
            "launches_per_token": launches / max(n_tokens, 1),
+           "host_launches": sum(host.values()),
+           "host_launches_per_token": sum(host.values()) / max(n_tokens, 1),
+           "host_launches_by_api": dict(host), "graph_replays": replays,
            "device_ms_by_group": by_group,
            "top": [{"kernel": k[:90], "ms": ms, "count": c}
                    for k, ms, c in rows[:12]],
@@ -2336,7 +2405,69 @@ def _trace(torch, tag: str, work) -> dict:
     if not busy > 0:
         raise AssertionError("the trace shows no device time")
     log(json.dumps({"profile": out}))
+    log(f"[{tag}] traced: {n_tokens} tokens in {wall_ms:.1f} ms, device "
+        f"busy {busy:.1f} ms, idle {100 * out['idle_share']:.2f}%; device "
+        f"kernels a token {out['launches_per_token']:.2f}, host launch "
+        f"calls a token {out['host_launches_per_token']:.3f} "
+        f"({dict(host)}), graph replays {replays}")
     return out
+
+
+# the runtime calls a launch from the host makes: a kernel's (three
+# forms) or a graph's
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelEx",
+                    "cudaLaunchCooperativeKernel", "cudaGraphLaunch")
+
+
+def _require_graphs(path: str, decode_kernel: str, counts: dict,
+                    replayed: dict, replays: int) -> None:
+    """A served path decoded by replaying graphs: at least one replay, and
+    its decode attention kernel launched by replays only (none issued a
+    step at a time from Python)."""
+    python = {k: n - replayed.get(k, 0) for k, n in counts.items()}
+    log(f"[{path}] graph replays {replays}; launches from replays "
+        f"{replayed}; issued from Python {python}")
+    if replays <= 0 or replayed.get(decode_kernel, 0) <= 0 \
+            or python.get(decode_kernel, 0) != 0:
+        raise AssertionError(f"{path}: {replays} replays, {decode_kernel} "
+                             f"{replayed.get(decode_kernel, 0)} from "
+                             f"replays, {python.get(decode_kernel, 0)} from "
+                             "Python")
+
+
+def capture_solo_global(torch, pipe) -> None:
+    """Capture the solo path's graph in "global" mode before the server
+    starts, at the key a served request uses (B 1, the served max_len,
+    attn_impl sp, top-k 50, the checkpoint's EOS, no filter), so that the
+    requests replay it: a host sync left in a step, from any thread, would
+    fail the capture."""
+    import numpy as np
+
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.decode.api import _bucket
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.utils import prng
+
+    gen = pipe.generator
+    ids = gen.vocab.encode(["[START_SEQUENCE]"])
+    max_len = min(gen.cfg.seq_len, gen.max_supported_len())
+    prompt = np.full((1, min(_bucket(len(ids)), max_len)), gen.pad_id,
+                     np.int64)
+    prompt[0, :len(ids)] = ids
+    before = graphs.tally()
+    t0 = time.perf_counter()
+    generate_kv(gen.params, torch.from_numpy(prompt).to(gen.device),
+                len(ids), prng.PRNGKey(0), gen.cfg, max_len,
+                eos_id=gen.eos_id, pad_id=gen.pad_id,
+                capture_error_mode="global")
+    torch.cuda.synchronize()
+    after = graphs.tally()
+    log(f"[solo] graph captured in global mode before serving, with its "
+        f"warm-up block and a generation, in "
+        f"{1000 * (time.perf_counter() - t0):.1f} ms; {after}")
+    if after["global_captures"] != before["global_captures"] + 1:
+        raise AssertionError("the solo graph was not captured in global "
+                             f"mode: {before} -> {after}")
 
 
 K4_KERNELS = ("topk_reg_kernel", "topk_stream_kernel")
@@ -2458,6 +2589,7 @@ def serve_coalesced(torch):
     bf16, full width: a lone request, then the burst; the probes on the
     engine's cache; one more burst under torch.profiler."""
     from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
     from eamg_tpu_torch.ops import _build, decode_fold
     from eamg_tpu_torch.serve import shutdown_gracefully
 
@@ -2468,21 +2600,29 @@ def serve_coalesced(torch):
     engine_fold = decode_fold.fold_decode.__name__
     log(f"[coalesce] engine: slots {eng.slots}, chunk {eng.chunk}, max_len "
         f"{eng.max_len}, decode attention {engine_fold}")
+    t0 = time.perf_counter()
     pipe.warmup()
+    log(f"[coalesce] warm-up (the detached decode's and the engine's "
+        f"graphs captured) {time.perf_counter() - t0:.2f} s; "
+        f"{graphs.tally()}")
     server, thread, port = _serving(pipe)
     try:
         torch.cuda.synchronize()
         _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
         # (a) a lone request: the idle engine is bypassed, run_detached
+        admitted0 = eng.stats["admitted"]      # the warm-up's engine row
         lone = _post(port, LONE, "")
         _check_reply("coalesce lone", LONE, "", lone)
-        if eng.stats["admitted"] != 0:
+        if eng.stats["admitted"] != admitted0:
             raise AssertionError("the lone request did not take the "
                                  "detached route")
         # (b) + (c) ten requests on eight slots, the lone seed among them
         n_tok, secs, again = _burst(port, "coalesce burst", lone_again=True)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
+        replayed = _build.replayed_counts()
+        replays = graphs.tally()["replays"] - replays0
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
                                     timeout=60) as r:
             stats = json.loads(r.read())["engine"]
@@ -2499,6 +2639,7 @@ def serve_coalesced(torch):
         log(f"[coalesce] launches over the lone request and the burst: "
             f"{counts}")
         _require_launched("coalesce", counts)
+        _require_graphs("coalesce", engine_fold, counts, replayed, replays)
 
         # The probes, once each on the engine's live cache (layer 0): the
         # read rate that bounds the fold kernels, and the fold variant the
@@ -2574,6 +2715,19 @@ def serve_coalesced(torch):
         server.shutdown()
         shutdown_gracefully(server, pipe)
         thread.join(timeout=30)
+
+    def eager_engine(port):
+        lone_ = _post(port, LONE, "")[1]
+        return lone_, _burst(port, "coalesce eager", lone_again=True)[2]
+
+    lone_e, again_e = _eager_replies(
+        ["serve", "--coalesce", "--slots", str(ENGINE_SLOTS)], eager_engine)
+    if lone_e != lone[1] or again_e != again:
+        raise AssertionError("coalesce: the engine's seed-21 request (alone "
+                             "or in the burst) from the eager loop differs "
+                             "from the graphs'")
+    log("[coalesce] the engine's seed-21 request, alone and in the burst, "
+        "decoded by the eager loop has the graphs' bytes")
     return counts, probes, prof
 
 
@@ -2583,38 +2737,45 @@ def serve_window(torch) -> dict:
     batcher (grouped by their sampling params). -> launches per kernel
     over the four requests."""
     from eamg_tpu_torch import cli
-    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build, decode_fold
     from eamg_tpu_torch.serve import shutdown_gracefully
 
     pipe = cli.pipeline_from_args(cli.parse_args(
         ["serve", "--coalesce", "window", "--slots", "4"]))
     pipe.warmup()
+    replays0 = graphs.tally()["replays"]
     server, thread, port = _serving(pipe)
     replies, errors = {}, []
 
-    def hit(i):
-        fields = {"prompt": BURST_TEXTS[i], "seed": str(51 + i)}
-        try:
-            replies[i] = (fields, _post(port, fields, "?format=midi"))
-        except Exception as exc:  # noqa: BLE001 - reported below
-            errors.append(f"request {i}: {type(exc).__name__}: {exc}")
+    def four_at_once(port, replies, errors):
+        def hit(i):
+            fields = {"prompt": BURST_TEXTS[i], "seed": str(51 + i)}
+            try:
+                replies[i] = (fields, _post(port, fields, "?format=midi"))
+            except Exception as exc:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {type(exc).__name__}: {exc}")
 
-    try:
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        t0 = time.perf_counter()
         threads = [threading.Thread(target=hit, args=(i,), daemon=True)
                    for i in range(4)]
         for t in threads:
             t.start()
         for t in threads:
             t.join(timeout=600)
-        secs = time.perf_counter() - t0
         if errors or len(replies) != 4:
             raise AssertionError(f"window batch failed: "
                                  f"{errors or 'a request hung'}")
+        return replies
+
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        four_at_once(port, replies, errors)
+        secs = time.perf_counter() - t0
         torch.cuda.synchronize()
         counts = _build.launch_counts()
+        replayed = _build.replayed_counts()
         n_tok = sum(_check_reply("window", f, "?format=midi", r)
                     for _, (f, r) in sorted(replies.items()))
         stats = dict(pipe.batcher.stats)
@@ -2627,7 +2788,26 @@ def serve_window(torch) -> dict:
         f"launches over the four requests: {counts}")
     if stats["requests"] < 5 or stats["max_group"] < 2:
         raise AssertionError(f"the window batcher did not group: {stats}")
+    # each of the four seeds gives a song of hundreds of tokens (450 to
+    # 511 on this checkpoint); a reply of a handful means the rows were
+    # read before the decode wrote them
+    short = {f["seed"]: r[2].get("X-EAMG-Tokens") for f, r in
+             replies.values() if int(r[2].get("X-EAMG-Tokens", "0")) < 100}
+    if short:
+        raise AssertionError(f"window: replies of a few tokens {short}")
+    # the same four on a window batcher whose ragged decode issues every
+    # step from the host: a row's stream does not depend on its group
+    eager = _eager_replies(["serve", "--coalesce", "window", "--slots", "4"],
+                           lambda port: four_at_once(port, {}, []))
+    if {i: r[1][1] for i, r in eager.items()} \
+            != {i: r[1][1] for i, r in replies.items()}:
+        raise AssertionError("window: the eager ragged decode's bytes differ "
+                             "from the graphs'")
+    log("[window] the four requests decoded by the eager ragged loop have "
+        "the graphs' bytes")
     _require_launched("window", counts)
+    _require_graphs("window", decode_fold.fold_decode.__name__, counts,
+                    replayed, graphs.tally()["replays"] - replays0)
     return counts
 
 
@@ -2687,21 +2867,48 @@ def batch_decode(torch) -> dict:
     log(f"[batch] large2: d{cfg.d_model} h{cfg.n_head} kv{cfg.kv_heads} "
         f"L{cfg.n_layer} ff{cfg.ff} V{cfg.vocab_size} {cfg.dtype}, batch "
         f"{prompt.shape[0]}, max_len {max_len}, {steps} decode steps")
+    from eamg_tpu_torch.decode import graphs, loop
+    from eamg_tpu_torch.utils import prng
+
     bench.run_once(params, cfg, prompt, 0, 32, "sp")      # warm the library
     torch.cuda.synchronize()
     total: dict = {}
     n_tok = (max_len - len(bench.PROMPT)) * prompt.shape[0]
+    # the graphs run whole blocks: the steps past max_len in the last one
+    # are launched too (inert, their tokens dropped)
+    run_steps = -(-steps // graphs.BLOCK) * graphs.BLOCK
     rates = {}
     for impl in gpt.ATTN_IMPLS:
+        t0 = time.perf_counter()
+        eager, _ = loop.generate_kv(
+            params, prompt, len(bench.PROMPT), prng.PRNGKey(1), cfg, max_len,
+            temperature=1.0, top_k=50, eos_id=-1, pad_id=0,
+            refeed_last_prompt=False, attn_impl=impl, eager=True)
+        eager = eager.cpu()
+        eager_s = time.perf_counter() - t0
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         buf, pos = bench.run_once(params, cfg, prompt, 1, max_len, impl)
-        secs = time.perf_counter() - t0
+        first_s = time.perf_counter() - t0
         counts = _build.launch_counts()
+        _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
+        t0 = time.perf_counter()
+        bench.run_once(params, cfg, prompt, 1, max_len, impl)
+        secs = time.perf_counter() - t0
+        # the captured graph's run: no decode step issued from Python
+        _require_graphs(f"batch {impl}", wrappers[impl],
+                        _build.launch_counts(), _build.replayed_counts(),
+                        graphs.tally()["replays"] - replays0)
         rates[impl] = [n_tok / secs]
-        log(f"[batch] attn_impl {impl}: {n_tok} tokens in {secs:.2f} s, "
+        log(f"[batch] attn_impl {impl}: {n_tok} tokens in {secs:.3f} s, "
             f"{n_tok / secs:.1f} tokens/s, {secs / steps * 1e3:.3f} ms per "
-            f"step; launches {counts}")
+            f"step (the first run, which captured the graph: {first_s:.3f} "
+            f"s; the eager loop: {eager_s:.3f} s, {n_tok / eager_s:.1f} "
+            f"tokens/s); launches {counts}")
+        if not torch.equal(buf, eager):
+            raise AssertionError(f"batch {impl}: the graphs' tokens differ "
+                                 "from the eager loop's")
         if pos != max_len or tuple(buf.shape) != (prompt.shape[0], max_len) \
                 or int(buf.min()) < 0 or int(buf.max()) >= cfg.vocab_size \
                 or not torch.equal(buf[:, :3], prompt[:, :3].cpu()):
@@ -2709,19 +2916,20 @@ def batch_decode(torch) -> dict:
         if len({tuple(r) for r in buf.tolist()}) < 2:
             raise AssertionError(f"batch {impl}: all rows drew one stream")
         want = {"flash_attention": cfg.n_layer,
-                "fused_ffn": cfg.n_layer * (steps + 1),
-                "top_k_mask": steps + 1, "kth_value": 0,
+                "fused_ffn": cfg.n_layer * (run_steps + 1),
+                "top_k_mask": run_steps + 1, "kth_value": 0,
                 **{w: 0 for w in wrappers.values()},
-                wrappers[impl]: cfg.n_layer * steps}
+                wrappers[impl]: cfg.n_layer * run_steps}
         got = {name: counts.get(name, 0) for name in want}
         if got != want:
             raise AssertionError(f"batch {impl}: launches {got}, want "
                                  f"{want}")
         for name, n in counts.items():
             total[name] = total.get(name, 0) + n
-    # fold and fold2 step at the host's pace, as sp does: the best of three
-    # generations each, the two more taken in turns (sp, fold2, fold, fold,
-    # fold2, sp)
+    log(f"[batch] every attn_impl: the graphs' tokens equal the eager "
+        f"loop's; {graphs.tally()}")
+    # fold and fold2 against sp: the best of three generations each, the
+    # two more taken in turns (sp, fold2, fold, fold, fold2, sp)
     turn = ("sp", *reversed(FOLD_RATED))
     for impl in (*turn, *reversed(turn)):
         t0 = time.perf_counter()

@@ -1,8 +1,10 @@
 """The decode cluster kernel (K3, flash_decode, flash_decode_vmem), K1 and
-K4 on one CUDA card, across their launch choices.
+K4 on one CUDA card, across their launch choices; the decode graphs' block
+size; a parent tree against this one.
 
     python3 chip_sweep.py                    # scalar_t, sp, attention
     python3 chip_sweep.py sp topk            # some parts
+    python3 chip_sweep.py blocks             # the solo decode's block size
     python3 chip_sweep.py parent=DIR         # against a parent tree in DIR
 
 Parts, each timed cold (chip_smoke.py's graph replays with the L2 flushed
@@ -25,15 +27,20 @@ between them), in bf16, beside one library call:
    valid_len 3), and T 64 and 511 (B 1, GQA-2, causal), each also warm;
  - topk: K4's fused mask (f32, k 50) at the path shapes, B3's vocabulary,
    V 8579 and V 60000, beside torch.topk and the three ops;
- - parent=DIR: K4 (its threshold, and the sampler's top-k) and the
-   stream-reduce probe (at the engine's cache and at 67 MB, with the L2
-   dirty and clean) as the kernels of a parent tree unpacked in DIR (its
-   eamg_tpu_torch/csrc, built here) and as this tree's, in turns in one
-   loop (chip_sweep.py::parent_vs_change); then the parent tree and this
-   one each serve the solo WAV of seed 7 and the engine's seed-21 request
-   alone and in a burst, in processes of their own: the bytes must be
-   equal (chip_sweep.py::same_seed_bytes; DIR holds the parent's package
-   and chip_smoke.py, and its eamg_tpu/ the checkpoints).
+ - blocks: the solo path's decode (demo_ckpt_a) with graphs of 16, 32
+   and 64 steps, ten requests each, sizes in turns (block_sweep);
+ - parent=DIR: rows 5 and 6 as the kernel of a parent tree unpacked in
+   DIR (its csrc/decode_attention.cu, built here; t by value) and as this
+   tree's (t read on the card), bit-equal, cold and warm in turns in one
+   loop (parent_vs_change); then each path served by the parent tree and
+   by this one in processes of their own, parent, change, change, parent:
+   solo decode tokens/s, the engine's burst (aggregate tokens/s, p50 and
+   p95 join), batch tokens/s per attn_impl, and a traced request, burst
+   and batch generation each (rate, device idle share, device kernels and
+   host launch calls a token); the same-seed bytes (solo WAV seed 7, the
+   engine's seed 21 alone and in the burst) must be equal
+   (paths_parent_vs_change; DIR holds the parent's package and
+   chip_smoke.py, and its eamg_tpu/ the checkpoints).
 The size each wrapper picks is marked with *. A cluster size whose blocks
 would need more shared memory than the card allows (C 1 at M 60000) is
 reported as refused. Prints the card line and one line per measurement;
@@ -48,7 +55,7 @@ import math
 import os
 import sys
 
-PARTS = ("scalar_t", "sp", "attention", "topk", "parent")
+PARTS = ("scalar_t", "sp", "attention", "topk", "blocks", "parent")
 SIZES = (1, 2, 4, 8, 16)
 
 
@@ -72,8 +79,8 @@ def main(argv=None) -> int:
         decode_attention as da
 
     print(cs.card_line(), flush=True)
-    kernel_parts = {"topk", "parent"}
-    _build.build_all(["topk", "stream_reduce"] if set(parts) <= kernel_parts
+    _build.build_all(_build.SOURCES if {"blocks", "parent"} & set(parts)
+                     else ["topk"] if parts == ["topk"]
                      else ["decode_attention", "decode_attention_timed",
                            "attention", "decode_fold"])
     g = torch.Generator().manual_seed(511)
@@ -107,10 +114,11 @@ def main(argv=None) -> int:
     if "scalar_t" in parts:
         def timed(q, k, v, t, flush_reads=False):
             fns = {"sdpa": sdpa(q, k, v, t)}
+            td = torch.full((1,), t, dtype=torch.int32, device="cuda")
             for name in cs.SCALAR_T_KERNELS:
                 for C in SIZES:
                     fn = (lambda name=name, C=C: da._scalar_t(name, q, k, v,
-                                                              t, C=C))
+                                                              td, C=C))
                     if runnable(fn):
                         fns[(name, C)] = fn
             return cs.time_cold_ms(torch, fns, iters=30,
@@ -141,13 +149,15 @@ def main(argv=None) -> int:
         q, k, v = bench
         lib = cs._bind_timed("decode_attention_timed",
                              "eamg_flash_decode_scalar_t",
-                             [P, P, P, P, I, I, I, I, _build.F, I, I, I, P])
+                             [P, P, P, P, I, I, I, P, _build.F, I, I, I, P])
         o = torch.empty_like(q)
+        t300 = torch.full((1,), 300, dtype=torch.int32, device="cuda")
         for C in (2, 16):
             def run(C=C):
                 _build.check(lib.eamg_flash_decode_scalar_t(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    64, 511, Dh, 300, 1.0 / math.sqrt(Dh), 1, C, 1,
+                    64, 511, Dh, t300.data_ptr(), 1.0 / math.sqrt(Dh), 1, C,
+                    1,
                     torch.cuda.current_stream().cuda_stream),
                     "stamped kernel")
             r = cs._stamped_runs(torch, lib, run, 64 * C, cs.DECODE_STAMPS,
@@ -231,9 +241,11 @@ def main(argv=None) -> int:
             del q, k, v
     if "topk" in parts:
         topk_sweep(torch, cs)
+    if "blocks" in parts:
+        block_sweep(torch, cs)
     if "parent" in parts:
         parent_vs_change(torch, cs, _build, parent[0])
-        same_seed_bytes(parent[0])
+        paths_parent_vs_change(parent[0])
     return 0
 
 
@@ -264,126 +276,123 @@ def topk_sweep(torch, cs) -> None:
 
 
 def parent_vs_change(torch, cs, _build, parent: str) -> None:
-    """K4 and the stream-reduce probe as a parent tree's kernels
-    (csrc/topk.cu and csrc/stream_reduce.cu under ``parent``, built here
-    with the same flags; their entry points those of the tree before K4's
-    digit select: eamg_kth_value without a thread count, a stream reduce
-    of two launches over a partials buffer of ceil(lines / 16) slabs) and
-    as this tree's, cold and warm, in turns in one loop: K4's threshold at
-    f32 [1, 8892] and [8, 8892], k 50, and the sampler's top-k (the parent's
-    threshold and three ops against the fused mask) beside torch.topk; the
-    probe at bf16 [8, 511, 256] and [64, 511, 1024], rows 4, with the L2
-    left dirty and clean, beside torch's sum of the whole array."""
+    """Rows 5 and 6 (flash_decode and flash_decode_vmem: the scalar-t
+    cluster kernel) as a parent tree's kernel (csrc/decode_attention.cu
+    under ``parent``, built here with the same flags; its entry takes t by
+    value) and as this tree's (t read on the card through a pointer),
+    cold and warm, in turns in one loop, at the batched decode's shape
+    (bf16, B 8, MHA H 8, M 511, Dh 64) at t 300 and 510, with the cluster
+    size the wrapper picks, beside SDPA on the keys 0..t; their outputs
+    must be bit-equal."""
     import subprocess
 
-    from eamg_tpu_torch.ops import decode_fold as df, topk
+    import torch.nn.functional as F
+
+    from eamg_tpu_torch.ops import decode_attention as da
 
     out = _build.BUILD_ROOT.parent / "sweep_parent"
     out.mkdir(parents=True, exist_ok=True)
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                               str(out / f"lib{n}.so"),
-                               os.path.join(parent, "eamg_tpu_torch", "csrc",
-                                            f"{n}.cu")])
-             for n in ("topk", "stream_reduce")]
-    if any(p.wait() for p in procs):
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(out / "libdecode_attention.so"),
+                           os.path.join(parent, "eamg_tpu_torch", "csrc",
+                                        "decode_attention.cu")])
+    if proc.returncode:
         raise RuntimeError("nvcc failed on the parent's sources")
     P, I = ctypes.c_void_p, ctypes.c_int
-    old_tk = ctypes.CDLL(str(out / "libtopk.so"))
-    old_sr = ctypes.CDLL(str(out / "libstream_reduce.so"))
-    for fn, args in ((old_tk.eamg_kth_value, [P, P, I, I, I, P]),
-                     (old_sr.eamg_stream_reduce, [P, P, P, I, I, I, I, P])):
-        fn.argtypes, fn.restype = args, ctypes.c_int
+    old = ctypes.CDLL(str(out / "libdecode_attention.so"))
+    fn = old.eamg_flash_decode_scalar_t
+    fn.argtypes = [P, P, P, P, I, I, I, I, ctypes.c_float, I, I, I, P]
+    fn.restype = ctypes.c_int
+    g = torch.Generator().manual_seed(300)
+    B, H, M, Dh = 8, 8, 511, 64
+    q, k, v = (torch.randn(B, H, m, Dh, generator=g).to(torch.bfloat16)
+               .cuda() for m in (1, M, M))
+    C = da.cluster_size(M, 1, lambda: 0)
+    for t in (300, 510):
+        td = torch.full((1,), t, dtype=torch.int32, device="cuda")
+        for name in cs.SCALAR_T_KERNELS:
+            o = torch.empty_like(q)
+            blocked = int(da.BLOCK_K[name] > 0)
 
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
+            def parent_fn(o=o, blocked=blocked, t=t):
+                _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), B * H, M, Dh, t,
+                                1.0 / math.sqrt(Dh), blocked, C, 1,
+                                torch.cuda.current_stream().cuda_stream),
+                             "parent scalar-t kernel")
+                return o
 
-    def report(tag, ms, lib="library"):
-        print(f"[parent] {tag}: parent {ms['parent']:.4f} ms, change "
-              f"{ms['change']:.4f} ms ({ms['change'] / ms['parent']:.3f} of "
-              f"the parent's), {lib} {ms['library']:.4f} ms", flush=True)
-
-    g = torch.Generator().manual_seed(7)
-    for B in (1, 8):
-        x = (torch.randn(B, 8892, generator=g) * 3).cuda()
-        thr = torch.empty((B, 1), dtype=torch.float32, device="cuda")
-
-        def old_kth(x=x, thr=thr, B=B):
-            _build.check(old_tk.eamg_kth_value(
-                x.data_ptr(), thr.data_ptr(), B, x.shape[1], 50, stream()),
-                "parent K4")
-            return thr
-
-        if not torch.equal(old_kth(), topk.kth_value(x, 50)):
-            raise AssertionError("K4: the parent's threshold differs")
-        fns = {"parent": old_kth,
-               "change": lambda x=x: topk.kth_value(x, 50),
-               "library": lambda x=x: torch.topk(x, 50).values[..., -1:]}
-        tag = f"K4 threshold f32 [{B}, 8892] k 50"
-        report(tag + " cold", cs.time_cold_ms(torch, fns), "topk")
-        report(tag + " warm", {n: cs.time_ms(torch, f)
-                               for n, f in fns.items()}, "topk")
-        fns = {"parent": lambda x=x, f=old_kth: topk._masked(x, f(), -1e10),
-               "change": lambda x=x: topk.top_k_mask(x, 50),
-               "library": lambda x=x: topk._masked(
-                   x, torch.topk(x, 50).values[..., -1:], -1e10)}
-        if not torch.equal(fns["parent"](), fns["change"]()):
-            raise AssertionError("K4: the parent's top-k mask differs")
-        tag = f"sampler top-k f32 [{B}, 8892] k 50 (parent: K4 + 3 ops)"
-        report(tag + " cold", cs.time_cold_ms(torch, fns), "topk + 3 ops")
-        report(tag + " warm", {n: cs.time_ms(torch, f)
-                               for n, f in fns.items()}, "topk + 3 ops")
-    for shape in ((8, 511, 256), (64, 511, 1024)):
-        kv = torch.randn(*shape, generator=g).to(torch.bfloat16).cuda()
-        groups, lines, W = shape[0] // 4, 4 * shape[1], shape[2]
-        part = torch.empty(groups * -(-lines // 16) * W, dtype=torch.float32,
-                           device="cuda")
-        o = torch.empty((1, W), dtype=kv.dtype, device="cuda")
-
-        def old_sum(kv=kv, part=part, o=o, groups=groups, lines=lines, W=W):
-            _build.check(old_sr.eamg_stream_reduce(
-                kv.data_ptr(), o.data_ptr(), part.data_ptr(), groups, lines,
-                W, 1, stream()), "parent stream_reduce")
-            return o
-
-        diff = (old_sum().float() - df.stream_reduce(kv, 4).float()).abs()
-        print(f"[parent] stream_reduce {list(shape)} parent against change, "
-              f"max|diff| {diff.max().item():.3e} (sums in other orders)",
-              flush=True)
-        fns = {"parent": old_sum,
-               "change": lambda kv=kv: df.stream_reduce(kv, 4),
-               "library": lambda kv=kv: kv.sum(dtype=torch.float32)}
-        nb = kv.numel() * kv.element_size()
-        for how, clean in (("cold", False), ("cold, clean L2", True)):
-            ms = cs.time_cold_ms(torch, fns, read_flush=clean)
-            report(f"stream_reduce bf16 {list(shape)} rows 4 {how} (GB/s: "
-                   + ", ".join(f"{n} {nb / v / 1e6:.1f}"
-                               for n, v in ms.items()) + ")", ms,
-                   "sum of the whole array")
-        report(f"stream_reduce bf16 {list(shape)} rows 4 warm",
-               {n: cs.time_ms(torch, f) for n, f in fns.items()},
-               "sum of the whole array")
+            fns = {"parent": parent_fn,
+                   "change": lambda name=name, td=td: getattr(da, name)(
+                       q, k, v, td),
+                   "library": lambda t=t: F.scaled_dot_product_attention(
+                       q, k[:, :, :t + 1], v[:, :, :t + 1])}
+            if not torch.equal(fns["parent"](), fns["change"]()):
+                raise AssertionError(f"{name} t {t}: the change's output "
+                                     "differs from the parent's")
+            cold = cs.time_cold_ms(torch, fns)
+            warm = {n: cs.time_ms(torch, f) for n, f in fns.items()}
+            print(f"[parent] {name} bf16 B {B} H {H} M {M} t {t} C {C}, "
+                  f"bit-equal; cold: parent {cold['parent']:.4f} ms, change "
+                  f"{cold['change']:.4f} ms (t read on the card), SDPA "
+                  f"{cold['library']:.4f}; warm: parent "
+                  f"{warm['parent']:.4f}, change {warm['change']:.4f}, SDPA "
+                  f"{warm['library']:.4f}", flush=True)
 
 
-# Run in a tree's root (its package, its chip_smoke.py): the same-seed
-# replies whose bytes a kernel change must not move, as sha256 digests
-SAME_SEED_CHILD = r"""
-import hashlib, json, os, sys
+# Run in a tree's root (its package, its chip_smoke.py): each path's rate,
+# launches and idle share, and the same-seed replies as sha256 digests
+PATHS_CHILD = r"""
+import collections, hashlib, json, os, sys, time
 sys.path.insert(0, os.getcwd())
+import torch
+from torch.profiler import ProfilerActivity, profile
 import chip_smoke as cs
-from eamg_tpu_torch import cli
+from eamg_tpu_torch import bench, cli
 from eamg_tpu_torch.ops import _build
 from eamg_tpu_torch.serve import shutdown_gracefully
 
 _build.build_all(_build.SOURCES)
+APIS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+        "cudaGraphLaunch")
+TEXT = "I finally got the job, I am so happy!"
+
+
+def traced(work):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = work()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000
+    busy = kernels = 0
+    by_name = collections.Counter()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and e.device_type.name == "CUDA":
+            busy += us / 1000
+            kernels += e.count
+            by_name[e.key[:70]] += e.count
+    host = collections.Counter(e.name for e in prof.events()
+                               if e.device_type.name == "CPU"
+                               and e.name.startswith(APIS))
+    return {"tokens": n, "wall_ms": wall, "tokens_per_s": n / wall * 1000,
+            "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "device_kernels_per_token": kernels / n,
+            "host_launches_per_token": sum(host.values()) / n,
+            "host_launches_by_api": dict(host),
+            "kernels_by_name": dict(by_name.most_common(30))}
 
 
 def served(args, work):
     pipe = cli.pipeline_from_args(cli.parse_args(args))
-    if "--coalesce" in args:
-        pipe.warmup()
+    pipe.warmup()
     server, thread, port = cs._serving(pipe)
     try:
-        return work(port)
+        return work(pipe, port)
     finally:
         server.shutdown()
         shutdown_gracefully(server, pipe)
@@ -394,46 +403,132 @@ def digest(b):
     return hashlib.sha256(b).hexdigest()
 
 
-def engine(port):
-    lone = cs._post(port, cs.LONE, "")[1]
-    again = cs._burst(port, "same seed", lone_again=True)[2]
-    return digest(lone), digest(again)
+def decode_rate(reply):
+    t = json.loads(reply[2].get("X-EAMG-Timings", "{}"))
+    return int(reply[2].get("X-EAMG-Tokens", "0")) / t["decode"] * 1000
 
 
-out = {"solo wav seed 7": served(["serve"], lambda port: digest(cs._post(
-    port, {"prompt": "I finally got the job, I am so happy!", "seed": "7"},
-    "")[1]))}
-out["engine lone seed 21"], out["engine seed 21 in the burst"] = served(
-    ["serve", "--coalesce", "--slots", "8"], engine)
-print("SAME_SEED " + json.dumps(out), flush=True)
+def solo(pipe, port):
+    fields = {"prompt": TEXT, "seed": "7"}
+    replies = [cs._post(port, fields) for _ in range(3)]
+    pipe.generate(TEXT, seed=7)
+    return {"wav seed 7": digest(replies[0][1]),
+            "decode_tokens_per_s": [decode_rate(r) for r in replies],
+            "trace": traced(lambda: len(pipe.generate(TEXT, seed=7).tokens))}
+
+
+def engine(pipe, port):
+    lone = cs._post(port, cs.LONE, "")
+    joins = pipe.batcher.stats["join_delay_ms"]
+    n0 = len(joins)
+    tokens, secs, again = cs._burst(port, "paths", lone_again=True)
+    burst_joins = sorted(list(joins)[n0:])
+    p = lambda q: burst_joins[min(len(burst_joins) - 1,
+                                  int(q * len(burst_joins)))]
+    trace = traced(lambda: cs._burst(port, "paths traced", False)[0])
+    return {"lone seed 21": digest(lone[1]), "seed 21 in the burst":
+            digest(again), "burst_tokens_per_s": tokens / secs,
+            "burst_join_p50_ms": p(0.5), "burst_join_p95_ms": p(0.95),
+            "burst_joins": len(burst_joins), "trace": trace}
+
+
+def batch():
+    cfg = bench.large2_config()
+    params = bench.make_params(cfg, 0, "cuda")
+    prompt = bench.bench_prompt("cuda")
+    n_tok = (cfg.n_pos - len(bench.PROMPT)) * prompt.shape[0]
+    out = {}
+    for impl in ("sp", "dma", "vmem", "fold", "fold2", "fold3", "fold_sp",
+                 "fold3_sp"):
+        bench.run_once(params, cfg, prompt, 0, cfg.n_pos, impl)
+        best = float("inf")
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bench.run_once(params, cfg, prompt, 1 + i, cfg.n_pos, impl)
+            best = min(best, time.perf_counter() - t0)
+        out[impl] = n_tok / best
+    trace = traced(lambda: (bench.run_once(params, cfg, prompt, 3,
+                                           cfg.n_pos, "sp"), n_tok)[1])
+    return {"tokens_per_s": out, "trace": trace}
+
+
+out = {"solo": served(["serve"], solo),
+       "coalesce": served(["serve", "--coalesce", "--slots", "8"], engine),
+       "batch": batch()}
+print("PATHS " + json.dumps(out), flush=True)
 """
 
 
-def same_seed_bytes(parent: str) -> None:
-    """The solo WAV of seed 7 and the engine's seed-21 request, alone and
-    inside the burst of ten, served by the parent tree and by this one, each
-    in a process of its own on this card: their bytes must be equal."""
+def paths_parent_vs_change(parent: str) -> None:
+    """The three paths served by the parent tree and by this one, each in
+    a process of its own, in the order parent, change, change, parent
+    (host speed drifts within a call): the solo decode rate of the WAV of
+    seed 7, the burst of ten on the engine (aggregate tokens/s, p50 and
+    p95 join over the burst's admissions), batch tokens/s per attn_impl
+    (best of two after a warm-up), and for one traced request, burst and
+    batch generation each: the rate, device idle share, device kernels a
+    token and host launch calls a token. The same-seed bytes (solo seed 7,
+    the engine's seed 21 alone and in the burst) must be equal."""
     import json
     import subprocess
 
     here = os.path.dirname(os.path.abspath(__file__))
-    got = {}
-    for tag, root in (("parent", os.path.abspath(parent)), ("change", here)):
+    runs = []
+    for tag in ("parent", "change", "change", "parent"):
+        root = os.path.abspath(parent) if tag == "parent" else here
         env = dict(os.environ, PYTHONPATH=root)
-        proc = subprocess.run([sys.executable, "-c", SAME_SEED_CHILD],
+        proc = subprocess.run([sys.executable, "-c", PATHS_CHILD],
                               cwd=root, env=env, capture_output=True,
-                              text=True, timeout=900)
+                              text=True, timeout=1500)
         line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("SAME_SEED ")]
+                if ln.startswith("PATHS ")]
         if proc.returncode != 0 or not line:
-            raise RuntimeError(f"same-seed run of the {tag} tree failed:\n"
+            raise RuntimeError(f"paths run of the {tag} tree failed:\n"
                                f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        got[tag] = json.loads(line[0].split(" ", 1)[1])
-        print(f"[same seed] {tag}: {got[tag]}", flush=True)
-    if got["parent"] != got["change"]:
-        raise AssertionError("same-seed bytes differ from the parent's")
-    print("[same seed] the parent's and this tree's bytes are equal",
-          flush=True)
+        runs.append((tag, json.loads(line[0].split(" ", 1)[1])))
+        print(f"[paths] {tag}: {line[0][6:]}", flush=True)
+    digests = {(tag, path, k): v for tag, r in runs for path in r
+               for k, v in r[path].items() if k.startswith(("wav", "lone",
+                                                            "seed"))}
+    for (tag, path, k), v in digests.items():
+        if v != digests[("parent", path, k)]:
+            raise AssertionError(f"same-seed bytes differ: {path} {k}")
+    print("[same seed] the parent's and this tree's bytes are equal: "
+          + json.dumps({f"{p} {k}": v for (t, p, k), v in digests.items()
+                        if t == "parent"}), flush=True)
+
+
+BLOCKS = (16, 32, 64)
+
+
+def block_sweep(torch, cs) -> None:
+    """The solo path's decode (demo_ckpt_a, the served key) with graphs of
+    BLOCKS steps: for each, five same-seed requests after a warm-up, the
+    decode ms (the stage timing, median) and the steps run past the EOS;
+    the sizes in turns (16, 32, 64, 64, 32, 16)."""
+    import statistics
+
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+
+    pipe = cli.pipeline_from_args(cli.parse_args(["serve"]))
+    text = "I finally got the job, I am so happy!"
+    ms = {b: [] for b in BLOCKS}
+    tokens = {}
+    for b in (*BLOCKS, *reversed(BLOCKS)):
+        graphs.BLOCK = b
+        pipe.generate(text, seed=7, render_audio=False)       # capture
+        for seed in (7, 8, 9, 10, 11):
+            r = pipe.generate(text, seed=seed, render_audio=False)
+            ms[b].append(r.timings_ms["decode"])
+            tokens[seed] = len(r.tokens)
+    graphs.BLOCK = 32
+    for b in BLOCKS:
+        print(f"[blocks] solo decode, blocks of {b} steps: median "
+              f"{statistics.median(ms[b]):.1f} ms over {len(ms[b])} "
+              f"requests ({[round(v, 1) for v in ms[b]]}); tokens by seed "
+              f"{tokens}", flush=True)
 
 
 if __name__ == "__main__":

@@ -10,10 +10,12 @@ vocabulary (8,324 tokens), causal, bf16, random weights from a seed; batch
 positional table (``max_len`` = ``n_pos`` = 511) with temperature 1, top-k
 50, no EOS (``eos_id=-1``) and ``refeed_last_prompt=False``, through
 ``generate_kv``. For each ``attn_impl`` (``models.gpt.ATTN_IMPLS``) it
-runs one warm-up generation and a few timed ones, each timed to the fetch
-of the tokens to the host, and prints one JSON line: tokens/s from the
-fastest run, ms per decode step, and the kernel launches per step by
-wrapper. The card's name and power limit are printed first. The module
+runs one warm-up generation (which captures its CUDA graph,
+``decode/graphs.py``) and a few timed ones, each timed to the fetch of the
+tokens to the host, and prints one JSON line: tokens/s from the fastest
+run, ms per decode step, and the kernel launches per step by wrapper (the
+graphs run whole blocks of ``decode/graphs.py::BLOCK`` steps, so the steps
+past the end of the last block are launched, and counted, too). The card's name and power limit are printed first. The module
 takes no option that cuts the size: every line it prints is the full
 configuration's (a cut size, as the CPU tests run, goes through
 :func:`large2_config` and :func:`bench_impl`).

@@ -127,7 +127,7 @@ extern "C" int eamg_flash_decode_sp(const void* q, const void* k,
         return launch_heads<T, DH, G, false>(q, k, v, o, t, B * Hkv, Hkv, M,
                                              scale, 0, 0, s);
     if (by_head) return (int)cudaErrorInvalidValue;
-    return launch_cluster<T, DH, G, false>(q, k, v, o, t, 0, B * Hkv, Hkv, M,
+    return launch_cluster<T, DH, G, false>(q, k, v, o, t, 1, B * Hkv, Hkv, M,
                                            128, scale, C, 0, 0, s);
   });
 }
@@ -147,20 +147,21 @@ extern "C" int eamg_decode_heads_smem(int M, int Dh, int dtype,
 
 // flash_decode (blocked 1: the running max of 256-key blocks) and
 // flash_decode_vmem (blocked 0: the global max): MHA caches [B * H, M,
-// Dh], one scalar t by value, a cluster of C blocks (1, 2, 4, 8 or 16) per
-// (row, head); otherwise as K3.
+// Dh], one t for the whole batch, read on the card from *t (as the TPU
+// kernel reads it from its scalar memory), a cluster of C blocks (1, 2, 4,
+// 8 or 16) per (row, head); otherwise as K3.
 extern "C" int eamg_flash_decode_scalar_t(const void* q, const void* k,
                                           const void* v, void* o, int BH,
-                                          int M, int Dh, int t, float scale,
-                                          int blocked, int C, int dtype,
-                                          void* stream) {
-  if (BH <= 0 || M <= 0 || (blocked != 0 && blocked != 1) ||
+                                          int M, int Dh, const int* t,
+                                          float scale, int blocked, int C,
+                                          int dtype, void* stream) {
+  if (BH <= 0 || M <= 0 || t == nullptr || (blocked != 0 && blocked != 1) ||
       !valid_cluster(C) || !aligned16(q, k, v))
     return (int)cudaErrorInvalidValue;
   return by_instance(dtype, Dh, 1, [&](auto t_, auto dh, auto g) {
     return launch_cluster<decltype(t_), decltype(dh)::value,
                           decltype(g)::value, false>(
-        q, k, v, o, nullptr, t, BH, 1, M, blocked ? 256 : 0, scale, C, 0, 0,
+        q, k, v, o, t, 0, BH, 1, M, blocked ? 256 : 0, scale, C, 0, 0,
         (cudaStream_t)stream);
   });
 }

@@ -635,7 +635,7 @@ extern "C" int eamg_fold_decode_sp(const void* q, const void* kv,
         return dk::launch_heads<T, DH, G, true>(q, kv, kv, o, t, B * Hkv, Hkv,
                                                 M, scale, q_stride, map, s);
     if (by_head) return (int)cudaErrorInvalidValue;
-    return dk::launch_cluster<T, DH, G, true>(q, kv, kv, o, t, 0, B * Hkv,
+    return dk::launch_cluster<T, DH, G, true>(q, kv, kv, o, t, 1, B * Hkv,
                                               Hkv, M, bk, scale, C, q_stride,
                                               map, s);
   });

@@ -241,7 +241,8 @@ __host__ __device__ constexpr int lanes_for(int nv) {
 // bh * G .. bh * G + G - 1 of q [B * H, Dh]. Block rank r takes the keys
 // [s0, s0 + n) of the nv = min(t, M - 1) + 1 valid ones, spread evenly
 // (ops/decode_attention.py::key_spans): n = nv / C, one more for the first
-// nv % C ranks. t is t_rows[b] (t_rows not null) or t_scalar. bks: log2
+// nv % C ranks. t is t_rows[b * t_stride], read on the card: t_stride 1
+// for a t a batch row, 0 for one t of the whole batch. bks: log2
 // of the length of the rounding reference's key blocks (7 or 8), 0 for
 // the global max. FUSED: the fused layout (q_base), k and v unused, the
 // keys and values read through kvmap, q_stride its q's.
@@ -249,7 +250,7 @@ template <typename T, int DH, int G, bool FUSED>
 __global__ void __launch_bounds__(NT_CL)
 decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
-                      const int* __restrict__ t_rows, int t_scalar, int Hkv,
+                      const int* __restrict__ t_rows, int t_stride, int Hkv,
                       int M, int bks, float scale, int q_stride,
                       const __grid_constant__ typename KVMap<FUSED>::type
                           kvmap) {
@@ -280,9 +281,9 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* inbox = reinterpret_cast<float*>(smem + L.inbox);
 
   DEC_STAMP(0);
-  // this row's t: by value, or a load from device memory that is in
-  // flight while the barriers are set
-  const int t = t_rows != nullptr ? t_rows[bh / Hkv] : t_scalar;
+  // this row's t: a load from device memory that is in flight while the
+  // barriers are set
+  const int t = t_rows[(bh / Hkv) * t_stride];
   if (tid == 0) {
     if constexpr (FUSED) prefetch_map(&kvmap);
     mbar_init(bar, 1);
@@ -795,7 +796,7 @@ cudaError_t prepare_cluster(size_t bytes) {
 // q_stride: the elements between q's rows (fused layout only)
 template <typename T, int DH, int G, bool FUSED>
 int launch_cluster(const void* q, const void* k, const void* v, void* o,
-                   const int* t_rows, int t_scalar, int rows, int Hkv, int M,
+                   const int* t_rows, int t_stride, int rows, int Hkv, int M,
                    int bk, float scale, int C, int q_stride,
                    const typename KVMap<FUSED>::type& kvmap,
                    cudaStream_t stream) {
@@ -809,7 +810,7 @@ int launch_cluster(const void* q, const void* k, const void* v, void* o,
   const int bks = bk == 0 ? 0 : bk == 128 ? 7 : 8;
   e = cudaLaunchKernelEx(&cfg, decode_cluster_kernel<T, DH, G, FUSED>,
                          (const T*)q, (const T*)k, (const T*)v, (T*)o,
-                         t_rows, t_scalar, Hkv, M, bks, scale, q_stride,
+                         t_rows, t_stride, Hkv, M, bks, scale, q_stride,
                          kvmap);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

@@ -43,8 +43,12 @@ class Generator:
 
     def __init__(self, params: dict, cfg: GPTConfig, vocab: Vocab,
                  eos_token: str = END_TOKEN, pad_token: str = "[PAD]",
-                 device=None):
+                 device=None, eager: bool = False):
         self.device = resolve_device(device)
+        # the cached decode replays CUDA graphs on the card; eager=True
+        # issues its steps from the host, to compare the two (no served
+        # path passes it)
+        self.eager = bool(eager)
         self.params = _to_device(params, self.device)
         self.cfg = cfg
         self.vocab = vocab
@@ -98,7 +102,8 @@ class Generator:
         if use_cache:
             buf, pos = generate_kv(*args, **common,
                                    refeed_last_prompt=refeed_last_prompt,
-                                   presplit_keys=presplit_keys)
+                                   presplit_keys=presplit_keys,
+                                   eager=self.eager)
         else:
             buf, pos = generate_full(*args, **common)
         return buf[:, :pos].cpu().numpy().astype(np.int32)

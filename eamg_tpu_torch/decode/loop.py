@@ -1,10 +1,19 @@
 """Generation loops: ``generate_kv`` (prefill, then one ``decode_step``
 per token) and ``generate_full`` (the uncached loop over ``forward``).
 
-Port of ``eamg_tpu/decode/loop.py``. The JAX package runs each loop as one
-compiled ``while_loop``; here it is a host loop over device work, for any
-batch of rows of one prompt length, with at most one host sync per step
-(the EOS check, when an EOS id is tracked). ``attn_impl`` names the decode
+Port of ``eamg_tpu/decode/loop.py``. The JAX package runs ``generate_kv``
+as one compiled ``while_loop``; here the decode lives in a state on the
+device (``decode/graphs.py``), for any batch of rows of one prompt length:
+prefill writes its cache in place, and then blocks of ``graphs.BLOCK``
+steps run, each replayed on the card from one CUDA graph (eagerly on the CPU).
+A step reads no host value: its position, its count of inert steps and
+the rows' flags are device tensors, its noise is drawn inside the graph
+from the block's keys. As JAX's loop does, the decode stops at the first
+step where every row is done: the steps of the block after it are inert
+(they write pad_id, and are counted, so that the result is JAX's ``(buf,
+pos)``), and the host looks once a block, where the JAX loop's predicate
+looks every step. ``generate_full`` (the uncached ablation) issues its steps from the
+host and looks at the flags every step. ``attn_impl`` names the decode
 attention kernel and with it the cache layout (``models/gpt.py``); every
 one gives the same stream in f32. The same quirks hold:
 
@@ -18,33 +27,35 @@ one gives the same stream in f32. The same quirks hold:
 - ``penalties`` count the prompt's tokens too, and a finished row's counts
   stop; ``no_repeat_ngram`` bans on the raw logits, on the warm-up logits
   too when ``refeed_last_prompt=False``. Both act in greedy mode as well.
-
-Random draws need no device data, so the Gumbel noise of many steps is
-drawn in one batch ahead of the steps that use it.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from ..models.gpt import (GPTConfig, cache_layout, decode_step,
                           forward_masked, init_kv_cache, prefill)
 from ..utils import prng
-from .sampling import (apply_no_repeat_ngram, penalties_on, sample_token,
-                       token_counts)
+from . import graphs
+from .sampling import (apply_no_repeat_ngram, log_min_p, penalties_on,
+                       penalty_tensor, sample_token, token_counts)
 
-NOISE_CHUNK = 64   # steps of Gumbel noise drawn per batch
-
-
-def _step_keys(rng, pos0: int, max_len: int, presplit: bool) -> list:
-    """The sampling key of every step from pos0 to max_len - 1."""
-    if presplit:
-        return prng.split(rng, max_len)[pos0:]
-    keys = []
-    for _ in range(pos0, max_len):
-        rng, sub = prng.split(rng)
-        keys.append(sub)
-    return keys
+def _key_blocks(rng, pos0: int, max_len: int, presplit: bool, block: int):
+    """The sampling keys of the steps pos0..max_len - 1, ``block`` at a
+    time, each a list of (uint32, uint32) pairs: from ``split`` of the
+    running key, or with ``presplit`` ``split(rng, max_len)[pos]``."""
+    for start in range(pos0, max_len, block):
+        stop = min(start + block, max_len)
+        if presplit:
+            yield prng.split_range(rng, start, stop)
+            continue
+        keys = []
+        for _ in range(start, stop):
+            rng, sub = prng.split(rng)
+            keys.append(sub)
+        yield keys
 
 
 def _penalty_args(penalties) -> dict:
@@ -78,6 +89,87 @@ def _count(counts, nxt: torch.Tensor, active: torch.Tensor):
     return counts
 
 
+class SoloLoop:
+    """``generate_kv``'s state on the device for one graph key, and the
+    graph of a block of its steps. Every tensor keeps its address across
+    requests; a request refills the values (:func:`generate_kv`).
+
+    ``buf`` [B, max_len + 1] int64: the token buffer and a last column
+    that the steps after ``max_len`` write into (the block's overrun,
+    dropped); ``pos`` [1] int64: the next write position; ``inert`` [1]
+    int64: the steps run after every row was done, which JAX's loop would
+    not have run (its predicate, the stop position, is then ``pos0`` plus
+    the steps run less these); ``done`` [B], ``last`` [B]; ``counts``
+    [B, V] with penalties on; the sampling values ``temp`` [1], ``top_p``
+    [1], ``log_mp`` [1], ``pen`` [3] (None, or 1.0 for top_p, when off: a
+    filter that is off is not in the graph); ``keys`` [block, 2] int64, the
+    block's step keys."""
+
+    def __init__(self, params: dict, cfg: GPTConfig, batch: int,
+                 max_len: int, device, attn_impl: str, top_k: int,
+                 greedy: bool, mask_value: float, eos_id: int, pad_id: int,
+                 top_p_on: bool, min_p_on: bool, pen_on: bool, ngram: int,
+                 block: int = graphs.BLOCK, eager: bool = False,
+                 capture_error_mode: str = "thread_local"):
+        dev = torch.device(device)
+        self.params, self.cfg, self.max_len = params, cfg, max_len
+        self.attn_impl, self.top_k, self.greedy = attn_impl, top_k, greedy
+        self.mask_value, self.eos_id, self.pad_id = mask_value, eos_id, pad_id
+        self.ngram, self.block = ngram, block
+        self.lock = threading.Lock()
+        self.stream = graphs.side_stream(dev)
+        B, V = batch, cfg.vocab_size
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self.cache = init_kv_cache(cfg, B, max_len, device=dev,
+                                   layout=cache_layout(attn_impl, cfg))
+        self.buf = zeros((B, max_len + 1), torch.int64)
+        self.tokens = self.buf[:, :max_len]
+        self.pos = zeros((1,), torch.int64)
+        self.inert = zeros((1,), torch.int64)
+        self.done = zeros((B,), torch.bool)
+        self.last = zeros((B,), torch.int64)
+        self.counts = zeros((B, V), torch.float32) if pen_on else None
+        self.temp = zeros((1,), torch.float32)
+        self.top_p = zeros((1,), torch.float32) if top_p_on else 1.0
+        self.log_mp = zeros((1,), torch.float32) if min_p_on else None
+        self.pen = zeros((3,), torch.float32) if pen_on else None
+        self.keys = None if greedy else zeros((block, 2), torch.int64)
+        self.graph = graphs.BlockGraph(self._block, dev, eager,
+                                       capture_error_mode)
+
+    def _block(self) -> None:
+        """``block`` decode steps over the state, in place."""
+        B, L = self.buf.shape[0], self.max_len
+        track_eos = self.eos_id >= 0
+        noise = None if self.greedy else prng.gumbel(
+            self.keys, (B, self.cfg.vocab_size))          # [block, B, V]
+        for i in range(self.block):
+            if track_eos:
+                self.inert.add_(self.done.all())
+            logits, _ = decode_step(self.params, self.last[:, None],
+                                    self.cache, self.cfg, self.attn_impl)
+            logits = apply_no_repeat_ngram(logits, self.tokens, self.pos,
+                                           self.ngram, self.mask_value)
+            nxt = sample_token(None, logits, self.temp, self.top_k,
+                               self.mask_value, self.greedy, self.top_p,
+                               gumbel=None if self.greedy else noise[i],
+                               counts=self.counts, penalties=self.pen,
+                               log_mp=self.log_mp)
+            if self.counts is not None:
+                _count(self.counts, nxt, ~self.done)
+            write = nxt
+            if track_eos:
+                write = torch.where(self.done, self.pad_id, nxt)
+                torch.logical_or(self.done, nxt == self.eos_id,
+                                 out=self.done)
+            self.buf.index_copy_(1, self.pos.clamp(max=L), write[:, None])
+            self.last.copy_(nxt)
+            self.pos.add_(1)
+
+
 @torch.no_grad()
 def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                 cfg: GPTConfig, max_len: int, temperature: float = 1.0,
@@ -86,13 +178,19 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                 mask_value: float = -1e10, presplit_keys: bool = False,
                 top_p: float = 1.0, min_p: float = 0.0,
                 penalties: tuple | None = None, no_repeat_ngram: int = 0,
-                attn_impl: str = "sp"):
+                attn_impl: str = "sp", eager: bool = False,
+                capture_error_mode: str = "thread_local"):
     """prompt [B, P] (padded to a bucket P, on the params' device),
     prompt_len real tokens in every row, rng a ``prng.PRNGKey``.
     ``penalties``: (repetition, frequency, presence) or None;
     ``no_repeat_ngram``: the banned n-gram size, 0 for none; ``attn_impl``:
     one of ``models.gpt.ATTN_IMPLS``. Returns (tokens [B, max_len] int64
-    on the device, n_tokens int); slots at or past n_tokens hold pad_id."""
+    on the device, n_tokens int), JAX's ``(buf, pos)``; slots at or past
+    n_tokens hold pad_id. On the card the steps replay CUDA graphs
+    (:class:`SoloLoop`); ``eager=True`` issues them from the host instead,
+    to compare the two (no served path passes it). A key's first call
+    captures its graph in ``capture_error_mode`` (``torch.cuda.graph``'s;
+    ``"global"`` fails on any host sync in a step, from any thread)."""
     B, P = prompt.shape
     assert cfg.pos_broadcast_bug or max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
@@ -100,60 +198,83 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
     dev = prompt.device
     pen = _penalty_args(penalties)
     ngram = int(no_repeat_ngram or 0)
-    cache = init_kv_cache(cfg, B, max_len, device=dev,
-                          layout=cache_layout(attn_impl, cfg))
-    logits0, cache = prefill(params, prompt, cfg, cache,
-                             prompt_len=prompt_len)
+    top_p_on = top_p is not None and float(top_p) < 1.0
+    min_p_on = min_p is not None and float(min_p) > 0.0
+    cache_layout(attn_impl, cfg)                 # refuse a bad name first
+    key = ("solo", id(params), cfg, B, max_len, str(dev), attn_impl,
+           int(top_k), bool(greedy), float(mask_value), int(eos_id),
+           int(pad_id), top_p_on, min_p_on, bool(pen), ngram, graphs.BLOCK,
+           bool(eager))
+    st = graphs.state_for(key, lambda: SoloLoop(
+        params, cfg, B, max_len, dev, attn_impl, int(top_k), bool(greedy),
+        float(mask_value), int(eos_id), int(pad_id), top_p_on, min_p_on,
+        bool(pen), ngram, block=graphs.BLOCK, eager=eager,
+        capture_error_mode=capture_error_mode))
+    with st.lock, graphs.on_stream(st.stream):
+        return _run(st, prompt, prompt_len, rng, temperature, top_p, min_p,
+                    penalties, refeed_last_prompt, presplit_keys)
 
-    buf, counts = _start(prompt, prompt_len, max_len, pad_id, cfg.vocab_size,
-                         pen)
-    done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    if refeed_last_prompt:
-        last = prompt[:, prompt_len - 1].to(torch.int64)
-        pos0 = prompt_len
-        rng0 = rng
+
+def _run(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
+         min_p, penalties, refeed: bool, presplit: bool):
+    """One request on ``st``: prefill into its cache, the start of the
+    loop written into its state, then its blocks; -> (tokens, n)."""
+    cfg, max_len = st.cfg, st.max_len
+    B, P = prompt.shape
+    logits0, _ = prefill(st.params, prompt, cfg, st.cache,
+                         prompt_len=prompt_len)
+    real = torch.arange(P, device=prompt.device)[None, :] < prompt_len
+    st.buf.fill_(st.pad_id)
+    st.buf[:, :P] = torch.where(real, prompt, st.pad_id)
+    if st.counts is not None:
+        st.counts.copy_(token_counts(prompt, real.expand(B, P),
+                                     cfg.vocab_size))
+        st.pen.copy_(penalty_tensor(penalties, st.pen.device))
+    st.temp.fill_(float(temperature))
+    if isinstance(st.top_p, torch.Tensor):
+        st.top_p.fill_(float(top_p))
+    if st.log_mp is not None:
+        st.log_mp.copy_(log_min_p(min_p, st.log_mp.device))
+    st.done.zero_()
+    if refeed:
+        st.last.copy_(prompt[:, prompt_len - 1])
+        pos0, rng0 = prompt_len, rng
     else:
         rng0, sub = prng.split(rng)
         last_logits = apply_no_repeat_ngram(
-            logits0[:, prompt_len - 1], buf, prompt_len, ngram, mask_value)
-        first = sample_token(sub, last_logits, temperature, top_k,
-                             mask_value, greedy, top_p, min_p, counts=counts,
-                             **pen)
-        buf[:, prompt_len] = first
-        done = first == eos_id
-        last = first
+            logits0[:, prompt_len - 1], st.tokens, prompt_len, st.ngram,
+            st.mask_value)
+        first = sample_token(sub, last_logits, st.temp, st.top_k,
+                             st.mask_value, st.greedy, st.top_p,
+                             counts=st.counts, penalties=st.pen,
+                             log_mp=st.log_mp)
+        st.buf[:, prompt_len] = first
+        st.done.copy_(first == st.eos_id)
+        st.last.copy_(first)
         pos0 = prompt_len + 1
-        if pen:
-            counts = _count(counts, first, torch.ones_like(done))
+        if st.counts is not None:
+            _count(st.counts, first, torch.ones_like(st.done))
+    st.pos.fill_(pos0)
+    st.inert.zero_()
 
-    track_eos = eos_id >= 0
-    keys = [] if greedy else _step_keys(rng0, pos0, max_len, presplit_keys)
-    noise = None
-    pos = pos0
-    while pos < max_len:
-        if track_eos and bool(done.all()):
+    n_blocks = max(-(-(max_len - pos0) // st.block), 0)
+    keys = None if st.greedy else _key_blocks(rng0, pos0, max_len, presplit,
+                                             st.block)
+    block_keys = next(keys) if keys is not None and n_blocks else None
+    run = 0
+    for run in range(1, n_blocks + 1):
+        if keys is not None:
+            graphs.load_keys(st.keys, block_keys)
+        st.graph.run()
+        if run == n_blocks:
             break
-        i = pos - pos0
-        if not greedy and i % NOISE_CHUNK == 0:
-            ks = keys[i:i + NOISE_CHUNK]
-            noise = prng.gumbel(ks, (B, cfg.vocab_size), dev)
-        logits, cache = decode_step(params, last[:, None], cache, cfg,
-                                    attn_impl)
-        logits = apply_no_repeat_ngram(logits, buf, pos, ngram, mask_value)
-        nxt = sample_token(None, logits, temperature, top_k, mask_value,
-                           greedy, top_p, min_p,
-                           gumbel=None if greedy else noise[i % NOISE_CHUNK],
-                           counts=counts, **pen)
-        if pen:
-            counts = _count(counts, nxt, ~done)
-        if track_eos:
-            buf[:, pos] = torch.where(done, pad_id, nxt)
-            done = done | (nxt == eos_id)
-        else:
-            buf[:, pos] = nxt
-        last = nxt
-        pos += 1
-    return buf, pos
+        if keys is not None:
+            block_keys = next(keys)        # on the host, while it runs
+        if st.eos_id >= 0 and int(st.inert.item()) > 0:
+            break                          # every row is done
+    tokens = st.tokens.clone()
+    return tokens, min(pos0 + run * st.block - int(st.inert.item()),
+                       max_len)
 
 
 @torch.no_grad()

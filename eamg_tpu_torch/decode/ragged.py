@@ -13,17 +13,24 @@ writes the prompt's rows straight into it and a decode step writes one
 ``[B, 2 * KVD]`` slice per layer with one indexed write, then attends
 through the fold kernel (``ops/decode_fold.py``) with q and the result in
 concat-heads order. Only prefill makes a ``[B, H, T, Dh]`` view, for K1.
-The cache tensors are updated in place.
 
-Each row's stream is a function of the parameters, its prompt and its key
-alone. Per-row keys are advanced on the host (``utils/prng.py``), and the
-Gumbel noise of up to ``NOISE_CHUNK`` steps is drawn in one batch; a step
-itself never waits for the device. Penalties, n-gram bans and grammar
+The decode state (cache, token buffer, positions, flags, the rows'
+sampling values) lives on the device and every step updates it in place,
+so its tensors keep their addresses: ``admit_row``, the harvest and a CUDA
+graph all see the same ones. :class:`RaggedGraph` replays a block of
+steps from one graph on the card (eagerly on the CPU), the block's Gumbel
+noise drawn inside it from a buffer of the rows' step keys; as JAX's
+``while_loop`` does, ``generate_kv_ragged`` runs until every row is done,
+and looks at the done flags once a block. Each row's stream is a function
+of the parameters, its prompt and its key alone: per-row keys are advanced
+on the host (``utils/prng.py``). Penalties, n-gram bans and grammar
 constraints are not in the port yet (``NotInPort``), nor is
 ``decode_block_ragged``.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -33,10 +40,8 @@ from ..models.gpt import (GPTConfig, _embed, _head, decode_layers_fused,
 from ..ops.decode_fold import fold_decode
 from ..utils import prng
 from ..utils.errors import NotInPort
-from .sampling import sample_rows
-
-NOISE_CHUNK = 64   # steps between two looks at the rows' done flags
-
+from . import graphs
+from .sampling import log_min_p, sample_rows
 
 def init_ragged_cache(cfg: GPTConfig, batch: int, max_len: int,
                       device=None) -> dict:
@@ -52,20 +57,23 @@ def prefill_ragged(params: dict, ids: torch.Tensor,
                    prompt_lens: torch.Tensor, cfg: GPTConfig, cache: dict):
     """[B, T] padded prompts with per-row lengths -> ([B, T, V] logits,
     cache). K/V of all T slots, pads included, go to the cache; keys at or
-    past a row's length are masked."""
+    past a row's length are masked. The cache is written in place, its
+    ``lengths`` too where it has them."""
     assert cfg.causal and not cfg.pos_broadcast_bug
     valid = prompt_lens.to(device=ids.device, dtype=torch.int32)
     logits = prefill_fused(params, ids, valid, cfg, cache["kv"])
-    return logits, {"kv": cache["kv"], "lengths": valid.clone()}
+    if "lengths" in cache:
+        cache["lengths"].copy_(valid)
+    return logits, cache
 
 
-@torch.no_grad()
-def decode_step_ragged(params: dict, last: torch.Tensor, cache: dict,
-                       cfg: GPTConfig):
-    """[B] last tokens at per-row positions t = lengths -> ([B, V] f32
-    logits, cache with lengths + 1). The row's new K/V go to slot t[b]
+def _step_logits(params: dict, last: torch.Tensor, cache: dict,
+                 cfg: GPTConfig) -> torch.Tensor:
+    """The layers of one ragged step: [B] last tokens at per-row positions
+    t = lengths -> [B, V] f32 logits; the rows' new K/V go to slot t[b]
     (positions past the end clamp to the last slot and the last position
-    row, as XLA's dynamic slices do; such a row is finished)."""
+    row, as XLA's dynamic slices do; such a row is finished). The lengths
+    are not advanced."""
     B = last.shape[0]
     t = cache["lengths"]
     M = cache["kv"][0].shape[1]
@@ -75,11 +83,22 @@ def decode_step_ragged(params: dict, last: torch.Tensor, cache: dict,
     rows = torch.arange(B, device=last.device)
     x = decode_layers_fused(params, x, cache["kv"], (rows, slot), t, cfg,
                             fold_decode)
-    return _head(params, x)[:, 0], {"kv": cache["kv"], "lengths": t + 1}
+    return _head(params, x)[:, 0]
 
 
-def draw_noise(sub_keys: np.ndarray, vocab_size: int, device) -> torch.Tensor:
-    """Gumbel noise for sampling keys [..., 2] -> [..., V]: row by row what
+@torch.no_grad()
+def decode_step_ragged(params: dict, last: torch.Tensor, cache: dict,
+                       cfg: GPTConfig):
+    """[B] last tokens at per-row positions t = lengths -> ([B, V] f32
+    logits, cache with lengths + 1, advanced in place)."""
+    logits = _step_logits(params, last, cache, cfg)
+    cache["lengths"].add_(1)
+    return logits, cache
+
+
+def draw_noise(sub_keys, vocab_size: int, device=None) -> torch.Tensor:
+    """Gumbel noise for sampling keys [..., 2] (uint32 numpy, or an int64
+    tensor on the device) -> [..., V]: row by row what
     ``jax.random.categorical(key, logits[None])`` adds to its logits."""
     lead = sub_keys.shape[:-1]
     return prng.gumbel(sub_keys.reshape(-1, 2), (vocab_size,),
@@ -89,38 +108,80 @@ def draw_noise(sub_keys: np.ndarray, vocab_size: int, device) -> torch.Tensor:
 @torch.no_grad()
 def ragged_steps(params: dict, st: dict, cfg: GPTConfig, noise, *,
                  steps: int, top_k: int, greedy: bool, mask_value: float,
-                 eos_id: int, pad_id: int, top_p: float = 1.0,
-                 min_p: float = 0.0, per_row: bool = False) -> dict:
-    """Advance every live row of ``st`` by ``steps`` decode steps, in place;
-    done rows and rows at their budget are inert. ``noise`` is
-    [steps, B, V] (None when greedy). Nothing here reads a value back from
-    the device.
+                 eos_id: int, pad_id: int, top_p=1.0,
+                 min_p: float = 0.0, per_row: bool = False,
+                 log_mp: torch.Tensor | None = None) -> dict:
+    """Advance every live row of ``st`` by ``steps`` decode steps, in place
+    (every tensor of ``st`` keeps its address); done rows and rows at
+    their budget are inert. ``noise`` is [steps, B, V] (None when greedy).
+    Nothing here reads a value back from the device or copies one to it.
 
     ``st``: buf [B, M] int32, pos/row_max [B] int32, last [B] int64,
-    done [B] bool, temps/top_ps/min_ps [B] f32, cache."""
-    cols = torch.arange(st["buf"].shape[1], device=st["buf"].device)[None]
+    done [B] bool, temps/top_ps/min_ps [B] f32, cache. ``top_p`` and
+    ``log_mp`` as :func:`sample_rows` takes them."""
+    buf, pos, done, last = st["buf"], st["pos"], st["done"], st["last"]
+    lengths = st["cache"]["lengths"]
+    cols = torch.arange(buf.shape[1], device=buf.device)[None]
     for i in range(steps):
-        cache = st["cache"]
-        logits, new_cache = decode_step_ragged(params, st["last"], cache, cfg)
+        logits = _step_logits(params, last, st["cache"], cfg)
         nxt = sample_rows(logits, st["temps"], top_k, mask_value, greedy,
                           top_p, min_p,
                           st["top_ps"] if per_row else None,
                           st["min_ps"] if per_row else None,
-                          None if greedy else noise[i])
-        pos, done = st["pos"], st["done"]
+                          None if greedy else noise[i], log_mp)
         active = ~(done | (pos >= st["row_max"]))
         write = torch.where(active, nxt, pad_id).to(torch.int32)
         hit = (cols == pos[:, None]) & active[:, None]
-        st["buf"] = torch.where(hit, write[:, None], st["buf"])
-        # inactive rows must not advance their cache length
-        st["cache"] = {"kv": new_cache["kv"],
-                       "lengths": torch.where(active, new_cache["lengths"],
-                                              cache["lengths"])}
-        pos = torch.where(active, pos + 1, pos)
-        st["pos"] = pos
-        st["done"] = done | (active & (nxt == eos_id)) | (pos >= st["row_max"])
-        st["last"] = torch.where(active, nxt, st["last"])
+        torch.where(hit, write[:, None], buf, out=buf)
+        # inactive rows do not advance their cache length
+        step = active.to(torch.int32)
+        lengths.add_(step)
+        pos.add_(step)
+        torch.logical_or(done, (active & (nxt == eos_id))
+                         | (pos >= st["row_max"]), out=done)
+        torch.where(active, nxt, last, out=last)
     return st
+
+
+class RaggedGraph:
+    """``block`` steps of :func:`ragged_steps` over the state ``st`` (a
+    dict of device tensors that keep their addresses) as one block graph
+    (``decode/graphs.py``), the block's noise drawn inside it from
+    :attr:`keys` [block, B, 2], the rows' step keys. ``top_p``: 1.0 (off)
+    or a [1] tensor the owner fills; ``log_mp``: None or such a tensor
+    (:func:`sampling.log_min_p`); with ``per_row`` the rows' own
+    ``top_ps``/``min_ps``. The engine's chunks, its detached decode and
+    ``generate_kv_ragged`` run on it."""
+
+    def __init__(self, params: dict, cfg: GPTConfig, st: dict, block: int,
+                 *, top_k: int, greedy: bool, mask_value: float,
+                 eos_id: int, pad_id: int, top_p=1.0, log_mp=None,
+                 per_row: bool = False, eager: bool = False,
+                 capture_error_mode: str = "thread_local"):
+        dev = st["buf"].device
+        self.params, self.cfg, self.st, self.block = params, cfg, st, block
+        self.opts = dict(top_k=top_k, greedy=greedy, mask_value=mask_value,
+                         eos_id=eos_id, pad_id=pad_id, top_p=top_p,
+                         per_row=per_row, log_mp=log_mp)
+        B = st["buf"].shape[0]
+        self.keys = None if greedy else torch.zeros(
+            (block, B, 2), dtype=torch.int64, device=dev)
+        self.graph = graphs.BlockGraph(self._block, dev, eager,
+                                       capture_error_mode)
+
+    def _block(self) -> None:
+        noise = None if self.keys is None else draw_noise(
+            self.keys, self.cfg.vocab_size)
+        ragged_steps(self.params, self.st, self.cfg, noise, steps=self.block,
+                     **self.opts)
+
+    def run(self, subs: np.ndarray | None) -> None:
+        """One block: ``subs`` [n, B, 2] uint32 are the step keys of its
+        first n <= block steps (None when greedy), copied in before the
+        replay; the steps past n must be inert."""
+        if self.keys is not None:
+            graphs.load_keys(self.keys, subs)
+        self.graph.run()
 
 
 def _row_keys(rngs, batch: int) -> np.ndarray:
@@ -134,6 +195,37 @@ def _row_keys(rngs, batch: int) -> np.ndarray:
     return arr
 
 
+class _RaggedLoop:
+    """``generate_kv_ragged``'s state on the device for one graph key."""
+
+    def __init__(self, params, cfg, batch: int, max_len: int, device,
+                 top_k: int, greedy: bool, mask_value: float, eos_id: int,
+                 pad_id: int, top_p_on: bool, min_p_on: bool, block: int,
+                 eager: bool):
+        dev = torch.device(device)
+        self.block = block
+        self.lock = threading.Lock()
+        self.stream = graphs.side_stream(dev)
+
+        def full(value, dtype):
+            return torch.full((batch,), value, dtype=dtype, device=dev)
+
+        self.st = {"cache": init_ragged_cache(cfg, batch, max_len, dev),
+                   "buf": torch.zeros((batch, max_len), dtype=torch.int32,
+                                      device=dev),
+                   "pos": full(0, torch.int32), "last": full(0, torch.int64),
+                   "done": full(True, torch.bool),
+                   "row_max": full(max_len, torch.int32),
+                   "temps": full(1.0, torch.float32)}
+        self.top_p = torch.ones((1,), device=dev) if top_p_on else 1.0
+        self.log_mp = torch.zeros((1,), device=dev) if min_p_on else None
+        self.graph = RaggedGraph(params, cfg, self.st, block, top_k=top_k,
+                                 greedy=greedy, mask_value=mask_value,
+                                 eos_id=eos_id, pad_id=pad_id,
+                                 top_p=self.top_p, log_mp=self.log_mp,
+                                 eager=eager)
+
+
 @torch.no_grad()
 def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
                        rngs, cfg: GPTConfig, max_len: int,
@@ -142,12 +234,16 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
                        greedy: bool = False, mask_value: float = -1e10,
                        top_p: float = 1.0, min_p: float = 0.0,
                        penalties: tuple | None = None,
-                       no_repeat_ngram: int = 0, grammar=None):
+                       no_repeat_ngram: int = 0, grammar=None,
+                       eager: bool = False):
     """Heterogeneous batch: prompt [B, P] padded (on the params' device),
     prompt_lens [B] (host ints), one key per row (rngs [B, 2] uint32, what
     ``prng.key_rows(seeds)`` gives) or a single key, fanned out per row.
     Returns (tokens [B, max_len] int32, lengths [B] int32) on the device;
-    row b holds its prompt then its generation, pad_id elsewhere."""
+    row b holds its prompt then its generation, pad_id elsewhere. On the
+    card the steps replay a CUDA graph of ``graphs.BLOCK`` steps keyed by B
+    (and the sampling options); ``eager=True`` issues them from the host
+    instead, to compare the two (no served path passes it)."""
     for name, on in (("penalties", penalties is not None
                       and tuple(float(v) for v in penalties)
                       != (1.0, 0.0, 0.0)),
@@ -160,50 +256,63 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
         f"max_len={max_len} exceeds the positional table "
         f"(n_pos={cfg.n_pos}); cap decode length at cfg.n_pos")
     dev = prompt.device
-    V = cfg.vocab_size
     top_p = 1.0 if top_p is None else float(top_p)
     min_p = 0.0 if min_p is None else float(min_p)
-    keys = _row_keys(rngs, B)
+    key = ("ragged", id(params), cfg, B, max_len, str(dev), int(top_k),
+           bool(greedy), float(mask_value), int(eos_id), int(pad_id),
+           top_p < 1.0, min_p > 0.0, graphs.BLOCK, bool(eager))
+    loop = graphs.state_for(key, lambda: _RaggedLoop(
+        params, cfg, B, max_len, dev, int(top_k), bool(greedy),
+        float(mask_value), int(eos_id), int(pad_id), top_p < 1.0,
+        min_p > 0.0, graphs.BLOCK, eager))
     plens_host = [int(v) for v in np.asarray(
         prompt_lens.cpu() if isinstance(prompt_lens, torch.Tensor)
         else prompt_lens)]
-    plens = torch.tensor(plens_host, dtype=torch.int32, device=dev)
-    cache = init_ragged_cache(cfg, B, max_len, device=dev)
-    logits0, cache = prefill_ragged(params, prompt, plens, cfg, cache)
+    with loop.lock, graphs.on_stream(loop.stream):
+        st = loop.st
+        if isinstance(loop.top_p, torch.Tensor):
+            loop.top_p.fill_(top_p)
+        if loop.log_mp is not None:
+            loop.log_mp.copy_(log_min_p(min_p, dev))
+        keys = _row_keys(rngs, B)
+        plens = torch.tensor(plens_host, dtype=torch.int32).to(dev)
+        logits0, _ = prefill_ragged(params, prompt, plens, cfg, st["cache"])
 
-    cols = torch.arange(max_len, device=dev)[None]
-    buf = torch.full((B, max_len), pad_id, dtype=torch.int32, device=dev)
-    buf[:, :P] = torch.where(cols[:, :P] < plens[:, None], prompt, pad_id)
-    temps = torch.full((B,), float(temperature), dtype=torch.float32,
-                       device=dev)
-    keys, subs = prng.split_rows(keys)
-    last_logits = logits0[torch.arange(B, device=dev), (plens - 1).long()]
-    first = sample_rows(last_logits, temps, top_k, mask_value, greedy, top_p,
-                        min_p, gumbel=None if greedy
-                        else draw_noise(subs, V, dev))
-    # a row whose prompt fills the buffer starts done and keeps its last
-    # prompt token
-    active0 = plens < max_len
-    hit0 = (cols == plens[:, None]) & active0[:, None]
-    st = {"cache": cache,
-          "buf": torch.where(hit0, first[:, None].to(torch.int32), buf),
-          "pos": torch.where(active0, plens + 1, plens),
-          "last": first,
-          "done": (first == eos_id) | ~active0,
-          "row_max": torch.full((B,), max_len, dtype=torch.int32,
-                                device=dev),
-          "temps": temps}
-    left = max_len - 1 - min(plens_host)   # steps the shortest row can take
-    while left > 0:
-        if bool(st["done"].all()):         # one look per NOISE_CHUNK steps
-            break
-        n = min(NOISE_CHUNK, left)
-        noise = None
-        if not greedy:
-            keys, subs = prng.split_rows_chain(keys, n)
-            noise = draw_noise(subs, V, dev)
-        ragged_steps(params, st, cfg, noise, steps=n, top_k=top_k,
-                     greedy=greedy, mask_value=mask_value, eos_id=eos_id,
-                     pad_id=pad_id, top_p=top_p, min_p=min_p)
-        left -= n
-    return st["buf"], torch.clamp(st["pos"], max=max_len)
+        cols = torch.arange(max_len, device=dev)[None]
+        buf = torch.full((B, max_len), pad_id, dtype=torch.int32, device=dev)
+        buf[:, :P] = torch.where(cols[:, :P] < plens[:, None], prompt, pad_id)
+        st["temps"].fill_(float(temperature))
+        keys, subs = prng.split_rows(keys)
+        last_logits = logits0[torch.arange(B, device=dev), (plens - 1).long()]
+        first = sample_rows(last_logits, st["temps"], top_k, mask_value,
+                            greedy, loop.top_p, min_p,
+                            gumbel=None if greedy
+                            else draw_noise(subs, cfg.vocab_size, dev),
+                            log_mp=loop.log_mp)
+        # a row whose prompt fills the buffer starts done and keeps its
+        # last prompt token
+        active0 = plens < max_len
+        hit0 = (cols == plens[:, None]) & active0[:, None]
+        st["buf"].copy_(torch.where(hit0, first[:, None].to(torch.int32),
+                                    buf))
+        st["pos"].copy_(torch.where(active0, plens + 1, plens))
+        st["last"].copy_(first)
+        st["done"].copy_((first == eos_id) | ~active0)
+        # steps the shortest row can take
+        left = max(max_len - 1 - min(plens_host), 0)
+        block = loop.block
+        n_blocks = -(-left // block)
+        block_keys = None
+        for b in range(n_blocks):
+            n = min(block, left - b * block)
+            if not greedy and block_keys is None:
+                keys, block_keys = prng.split_rows_chain(keys, n)
+            if b > 0 and bool(st["done"].all()):
+                break                          # one look a block
+            loop.graph.run(block_keys)
+            block_keys = None
+            if not greedy and b + 1 < n_blocks:
+                # the next block's keys, on the host while this one runs
+                n = min(block, left - (b + 1) * block)
+                keys, block_keys = prng.split_rows_chain(keys, n)
+        return st["buf"].clone(), torch.clamp(st["pos"], max=max_len)

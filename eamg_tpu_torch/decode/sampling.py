@@ -39,35 +39,54 @@ def apply_top_k(logits: torch.Tensor, top_k: int,
     return top_k_mask(logits, top_k, mask_value)
 
 
-def apply_top_p(logits: torch.Tensor, top_p: float,
+def apply_top_p(logits: torch.Tensor, top_p,
                 mask_value: float = -1e10) -> torch.Tensor:
-    """Nucleus filter; ``top_p`` >= 1 (or None) is an exact no-op."""
-    if top_p is None or float(top_p) >= 1.0:
-        return logits
-    thresh = top_p_threshold(logits, float(top_p))
+    """Nucleus filter; ``top_p`` >= 1 (or None) is an exact no-op. A tensor
+    ``top_p`` (one value on the logits' device, or [B, 1]) is always
+    applied: the decode loops pass the request's value so, filled once per
+    request, which a CUDA graph can read."""
+    if not isinstance(top_p, torch.Tensor):
+        if top_p is None or float(top_p) >= 1.0:
+            return logits
+        top_p = float(top_p)
+    thresh = top_p_threshold(logits, top_p)
     return logits + torch.where(logits >= thresh, 0.0, mask_value)
+
+
+def log_min_p(min_p: float, device) -> torch.Tensor:
+    """ln(min_p), min_p clamped to [1e-38, 1], as a [1] f32 tensor on
+    ``device``: the min-p threshold's offset, computed on the host as
+    :func:`apply_min_p` computes it, so a decode loop that makes it once per
+    request keeps the same bits."""
+    mp = torch.clamp(torch.tensor([float(min_p)], dtype=torch.float32),
+                     1e-38, 1.0)
+    return torch.log(mp).to(device)
 
 
 def apply_min_p(logits: torch.Tensor, min_p: float,
-                mask_value: float = -1e10) -> torch.Tensor:
+                mask_value: float = -1e10,
+                log_mp: torch.Tensor | None = None) -> torch.Tensor:
     """Keep tokens with logit >= max + ln(min_p); ``min_p`` <= 0 is an exact
-    no-op and values above 1 are clamped to 1 (keeps the argmax)."""
-    if min_p is None or float(min_p) <= 0.0:
-        return logits
-    mp = torch.clamp(torch.tensor(float(min_p), dtype=torch.float32),
-                     1e-38, 1.0)
-    thresh = logits.max(dim=-1, keepdim=True).values + torch.log(mp).to(
-        logits.device)
+    no-op and values above 1 are clamped to 1 (keeps the argmax). With
+    ``log_mp`` (:func:`log_min_p`, on the logits' device) the filter is on
+    and ``min_p`` is not read."""
+    if log_mp is None:
+        if min_p is None or float(min_p) <= 0.0:
+            return logits
+        log_mp = log_min_p(min_p, logits.device)
+    thresh = logits.max(dim=-1, keepdim=True).values + log_mp
     return logits + torch.where(logits >= thresh, 0.0, mask_value)
 
 
-def filter_logits(logits: torch.Tensor, temperature: float, top_k: int,
-                  mask_value: float = -1e10, top_p: float = 1.0,
-                  min_p: float = 0.0) -> torch.Tensor:
+def filter_logits(logits: torch.Tensor, temperature, top_k: int,
+                  mask_value: float = -1e10, top_p=1.0, min_p: float = 0.0,
+                  log_mp: torch.Tensor | None = None) -> torch.Tensor:
+    """Temperature (a float, or a tensor on the logits' device), top-k,
+    top-p and min-p, in the JAX sampler's order."""
     logits = logits / temperature
     logits = apply_top_k(logits, top_k, mask_value)
     logits = apply_top_p(logits, top_p, mask_value)
-    return apply_min_p(logits, min_p, mask_value)
+    return apply_min_p(logits, min_p, mask_value, log_mp)
 
 
 def token_counts(ids: torch.Tensor, valid: torch.Tensor,
@@ -126,46 +145,73 @@ def penalties_on(repetition_penalty, frequency_penalty,
                 and neutral(presence_penalty, 0.0))
 
 
+def penalty_tensor(penalties, device) -> torch.Tensor | None:
+    """(repetition, frequency, presence) -> a [3] f32 tensor on ``device``
+    (the repetition penalty clamped to >= 1e-6, as :func:`apply_penalties`
+    clamps it), or None when all three are neutral: what a decode loop
+    makes once per request and passes as ``penalties``."""
+    if penalties is None or not penalties_on(*penalties):
+        return None
+    rep, freq, pres = penalties
+    return torch.tensor(
+        [max(1.0 if rep is None else float(rep), 1e-6),
+         0.0 if freq is None else float(freq),
+         0.0 if pres is None else float(pres)],
+        dtype=torch.float32).to(device)
+
+
 def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
                     repetition_penalty=1.0, frequency_penalty=0.0,
-                    presence_penalty=0.0) -> torch.Tensor:
+                    presence_penalty=0.0,
+                    penalties: torch.Tensor | None = None) -> torch.Tensor:
     """Anti-repetition transforms of the raw logits over the occurrence
     ``counts`` ([B, V] f32, prompt + generated so far). Repetition penalty
     (CTRL / HF): a seen token's logit becomes ``logit / p`` if positive,
     else ``logit * p``, with p clamped to >= 1e-6. Frequency and presence
     penalties (OpenAI): ``logit -= freq * count + pres * (count > 0)``. The
-    neutral values (1, 0, 0) change nothing, bit for bit."""
-    if not penalties_on(repetition_penalty, frequency_penalty,
-                        presence_penalty):
+    neutral values (1, 0, 0) change nothing, bit for bit. ``penalties``
+    (:func:`penalty_tensor`) gives the three on the device instead, and is
+    always applied."""
+    if penalties is not None:
+        rp, fp, pp = penalties[0:1], penalties[1:2], penalties[2:3]
+    elif not penalties_on(repetition_penalty, frequency_penalty,
+                          presence_penalty):
         return logits
-    rp = max(1.0 if repetition_penalty is None else float(repetition_penalty),
-             1e-6)
-    fp = 0.0 if frequency_penalty is None else float(frequency_penalty)
-    pp = 0.0 if presence_penalty is None else float(presence_penalty)
+    else:
+        rp = max(1.0 if repetition_penalty is None
+                 else float(repetition_penalty), 1e-6)
+        fp = 0.0 if frequency_penalty is None else float(frequency_penalty)
+        pp = 0.0 if presence_penalty is None else float(presence_penalty)
     present = counts > 0.0
     penalized = torch.where(logits < 0.0, logits * rp, logits / rp)
     out = torch.where(present, penalized, logits)
     return out - fp * counts - pp * present.to(torch.float32)
 
 
-def sample_token(key, logits: torch.Tensor, temperature: float, top_k: int,
+def sample_token(key, logits: torch.Tensor, temperature, top_k: int,
                  mask_value: float = -1e10, greedy: bool = False,
-                 top_p: float = 1.0, min_p: float = 0.0,
+                 top_p=1.0, min_p: float = 0.0,
                  gumbel: torch.Tensor | None = None,
                  counts: torch.Tensor | None = None,
                  repetition_penalty=1.0, frequency_penalty=0.0,
-                 presence_penalty=0.0) -> torch.Tensor:
+                 presence_penalty=0.0,
+                 penalties: torch.Tensor | None = None,
+                 log_mp: torch.Tensor | None = None) -> torch.Tensor:
     """[B, V] f32 logits -> [B] int64 token ids. With ``counts`` the three
     penalties apply to the raw logits first, in greedy mode too. ``gumbel``
     ([B, V]) may carry noise drawn ahead for ``key`` (the decode loop draws
-    many steps at once); otherwise it is drawn here."""
+    many steps at once); otherwise it is drawn here. ``temperature``,
+    ``top_p``, ``penalties`` and ``log_mp`` may be tensors on the logits'
+    device (the decode loops fill them once per request, so a CUDA graph
+    of the step reads them there)."""
     if counts is not None:
         logits = apply_penalties(logits, counts, repetition_penalty,
-                                 frequency_penalty, presence_penalty)
+                                 frequency_penalty, presence_penalty,
+                                 penalties)
     if greedy:
         return torch.argmax(logits, dim=-1)
     logits = filter_logits(logits, temperature, top_k, mask_value, top_p,
-                           min_p)
+                           min_p, log_mp)
     if gumbel is None:
         gumbel = prng.gumbel(key, logits.shape, logits.device)
     return torch.argmax(gumbel + logits, dim=-1)
@@ -173,24 +219,27 @@ def sample_token(key, logits: torch.Tensor, temperature: float, top_k: int,
 
 def sample_rows(logits: torch.Tensor, temps: torch.Tensor, top_k: int,
                 mask_value: float = -1e10, greedy: bool = False,
-                top_p: float = 1.0, min_p: float = 0.0,
+                top_p=1.0, min_p: float = 0.0,
                 top_ps: torch.Tensor | None = None,
                 min_ps: torch.Tensor | None = None,
-                gumbel: torch.Tensor | None = None) -> torch.Tensor:
+                gumbel: torch.Tensor | None = None,
+                log_mp: torch.Tensor | None = None) -> torch.Tensor:
     """[B, V] f32 logits, temps [B] -> [B] int64 token ids, row b drawn
     with its own noise ``gumbel[b]`` ([B, V], from the rows' keys).
 
-    ``top_p``/``min_p`` are batch-wide floats. ``top_ps``/``min_ps`` ([B])
-    switch to per-row filtering instead: a row at 1.0 / 0.0 keeps its
-    logits bit for bit (the filtered values are selected per row), so an
-    unfiltered request samples what it would sample alone."""
+    ``top_p``/``min_p`` are batch-wide (``top_p`` a float, or a tensor on
+    the device as :func:`apply_top_p` takes it; ``log_mp`` as
+    :func:`apply_min_p` takes it). ``top_ps``/``min_ps`` ([B]) switch to
+    per-row filtering instead: a row at 1.0 / 0.0 keeps its logits bit for
+    bit (the filtered values are selected per row), so an unfiltered
+    request samples what it would sample alone."""
     if greedy:
         return torch.argmax(logits, dim=-1)
     logits = logits / temps[:, None]
     logits = apply_top_k(logits, top_k, mask_value)
     if top_ps is None:
         logits = apply_top_p(logits, top_p, mask_value)
-        logits = apply_min_p(logits, min_p, mask_value)
+        logits = apply_min_p(logits, min_p, mask_value, log_mp)
     else:
         pp = top_ps[:, None]
         thresh = top_p_threshold(logits, pp)

@@ -331,15 +331,17 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
                   device=None, layout: str = "head") -> dict:
     """``layout="head"``: per-layer [B, Hkv, max_len, Dh] key and value
     caches ``k``, ``v``. ``layout="fused"``: per-layer position-major
-    ``kv`` [B, max_len, 2 * KVD]. ``length`` is a host int (the decode loop
-    runs on the host)."""
+    ``kv`` [B, max_len, 2 * KVD]. ``length`` is a [1] int32 tensor on the
+    cache's device, read and advanced there: a decode step reads no host
+    value, so a CUDA graph can hold it (``decode/graphs.py``)."""
     max_len = max_len or cfg.seq_len
     dt = cfg.torch_dtype
+    length = torch.zeros((1,), dtype=torch.int32, device=device)
     if layout == "fused":
         shape = (batch, max_len, 2 * cfg.kv_dim)
         return {"kv": [torch.zeros(shape, dtype=dt, device=device)
                        for _ in range(cfg.n_layer)],
-                "length": 0}
+                "length": length}
     if layout != "head":
         raise ValueError(f"layout {layout!r}: 'head' or 'fused'")
     shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
@@ -347,7 +349,7 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
                   for _ in range(cfg.n_layer)],
             "v": [torch.zeros(shape, dtype=dt, device=device)
                   for _ in range(cfg.n_layer)],
-            "length": 0}
+            "length": length}
 
 
 @torch.no_grad()
@@ -357,21 +359,21 @@ def prefill(params: dict, ids: torch.Tensor, cfg: GPTConfig, cache: dict,
     cache). Keys past ``prompt_len`` are masked, but K/V of all P slots,
     pads included, are written to the cache (as the JAX model does); decode
     then overwrites slot t. Updates the cache in place, in the layout it
-    was made with."""
+    was made with; ``length`` is set in place."""
     _check_supported(cfg)
     B, T = ids.shape
     plen = prompt_len if prompt_len is not None else T
     valid = torch.full((B,), plen, dtype=torch.int32, device=ids.device)
     if "kv" in cache:
         logits = prefill_fused(params, ids, valid, cfg, cache["kv"])
-        cache["length"] = int(plen)
+        cache["length"].fill_(int(plen))
         return logits, cache
     x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     for li, p in enumerate(params["layers"]):
         x, k, v = block(p, x, cfg, causal=cfg.causal, valid_len=valid)
         cache["k"][li][:, :, :T] = k
         cache["v"][li][:, :, :T] = v
-    cache["length"] = int(plen)
+    cache["length"].fill_(int(plen))
     return _head(params, x), cache
 
 
@@ -403,10 +405,11 @@ def decode_layers_fused(params: dict, x: torch.Tensor, kv: list, slot,
                         t_rows: torch.Tensor, cfg: GPTConfig,
                         fold) -> torch.Tensor:
     """The layers of one decode step over the fused cache: each layer
-    writes the tail of its QKV projection to ``kv[li][slot]`` (``slot``: a
-    position for all rows, or an index pair (rows, positions)) and attends
-    through ``fold(q, kv, t_rows, n_head)`` with q the projection's head,
-    uncopied. x [B, 1, D] -> [B, 1, D]."""
+    writes the tail of its QKV projection to position ``slot`` of its
+    cache rows and attends through ``fold(q, kv, t_rows, n_head)`` with q
+    the projection's head, uncopied. ``slot`` is tensors only: a [1] int64
+    position for all rows, or a pair ([B] rows, [B] positions). x
+    [B, 1, D] -> [B, 1, D]."""
     D = cfg.d_model
     for li, p in enumerate(params["layers"]):
         qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
@@ -414,7 +417,7 @@ def decode_layers_fused(params: dict, x: torch.Tensor, kv: list, slot,
         if isinstance(slot, tuple):
             kv[li][slot] = qkv[:, 0, D:]
         else:
-            kv[li][:, slot] = qkv[:, 0, D:]
+            kv[li].index_copy_(1, slot, qkv[:, :, D:])
         attn_out = _linear(fold(qkv[..., :D], kv[li], t_rows, cfg.n_head),
                            p["attn"]["out_w"], p["attn"]["out_b"])
         x = _finish_block(p, x, attn_out, cfg)
@@ -428,23 +431,34 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
     The new token's K/V go to slot t = cache["length"] and its query
     attends to slots 0..t through the kernel ``attn_impl`` names
     (:data:`ATTN_IMPLS`; the cache must have that kernel's layout).
-    Updates the cache in place."""
+    Updates the cache in place, ``length`` included. t is read on the
+    device only (the position row by ``index_select``, the cache writes by
+    ``index_copy_``, the kernels through a pointer), so a CUDA graph can
+    hold the step. A step past the cache or the positional table clamps
+    to its last slot and row, as XLA's dynamic slices do; the decode loops
+    run such steps only after a request has ended, and drop them."""
     layout = cache_layout(attn_impl, cfg)
     if ("kv" in cache) != (layout == "fused"):
         raise ValueError(f"attn_impl {attn_impl!r} reads a {layout!r} cache; "
                          "make it with init_kv_cache(..., layout=...)")
     B = last_ids.shape[0]
     dt = cfg.torch_dtype
-    t = cache["length"]
-    pos_idx = 0 if cfg.pos_broadcast_bug else t
-    x = _embed(params, last_ids, params["pos"][pos_idx:pos_idx + 1], dt)
+    t = cache["length"]                                      # [1] int32
+    M = (cache["kv"] if layout == "fused" else cache["k"])[0].shape[
+        1 if layout == "fused" else 2]
+    n_pos = params["pos"].shape[0]
+    slot = t.clamp(max=M - 1).long()
+    pos_row = params["pos"][:1] if cfg.pos_broadcast_bug else \
+        params["pos"].index_select(0, slot if M <= n_pos
+                                   else t.clamp(max=n_pos - 1))
+    x = _embed(params, last_ids, pos_row, dt)
     D, KVD = cfg.d_model, cfg.kv_dim
     # one [B] tensor of positions per step, not per layer
-    t_rows = torch.full((B,), t, dtype=torch.int32, device=last_ids.device)
+    t_rows = t.expand(B).contiguous()
     if layout == "fused":
-        x = decode_layers_fused(params, x, cache["kv"], t, t_rows, cfg,
+        x = decode_layers_fused(params, x, cache["kv"], slot, t_rows, cfg,
                                 FOLD_IMPLS[attn_impl])
-        cache["length"] = t + 1
+        cache["length"].add_(1)
         return _head(params, x)[:, 0], cache
     attend = HEAD_IMPLS[attn_impl]
     t_arg = t_rows if attn_impl == "sp" else t
@@ -452,12 +466,12 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
         attn_in = _attn_input(p, x, cfg)
         qkv = _linear(attn_in, p["attn"]["in_w"], p["attn"]["in_b"])
         q = _heads(qkv[..., :D], cfg.n_head)                 # [B,H,1,Dh]
-        cache["k"][li][:, :, t] = qkv[:, 0, D:D + KVD].reshape(
-            B, cfg.kv_heads, cfg.head_dim)
-        cache["v"][li][:, :, t] = qkv[:, 0, D + KVD:].reshape(
-            B, cfg.kv_heads, cfg.head_dim)
+        cache["k"][li].index_copy_(2, slot, qkv[:, :, D:D + KVD].reshape(
+            B, cfg.kv_heads, 1, cfg.head_dim))
+        cache["v"][li].index_copy_(2, slot, qkv[:, :, D + KVD:].reshape(
+            B, cfg.kv_heads, 1, cfg.head_dim))
         attn_out = _unheads(attend(q, cache["k"][li], cache["v"][li], t_arg))
         attn_out = _linear(attn_out, p["attn"]["out_w"], p["attn"]["out_b"])
         x = _finish_block(p, x, attn_out, cfg)
-    cache["length"] = t + 1
+    cache["length"].add_(1)
     return _head(params, x)[:, 0], cache

@@ -13,6 +13,7 @@ a library of its own name.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -54,23 +55,64 @@ _libs: dict[str, ctypes.CDLL] = {}
 # the same time
 _count_lock = threading.Lock()
 _launch_counts: dict[str, int] = {}
+# the part of the counts that graph replays launched
+_replayed_counts: dict[str, int] = {}
+# a thread that captures a CUDA graph records its wrappers' calls here
+# instead: a captured call launches nothing until the graph is replayed
+_recording = threading.local()
 
 
 def count_launch(name: str) -> None:
     """One more launch of wrapper ``name``: called where a wrapper has
-    launched its kernel, and nowhere else."""
+    launched its kernel (or, while the calling thread captures a graph,
+    recorded the launch into it), and nowhere else."""
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
     with _count_lock:
         _launch_counts[name] = _launch_counts.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, the calling thread's wrapper calls go into the
+    dict it yields and not into the launch counts: what a graph captured
+    there launches at each replay (:func:`add_launches`)."""
+    prev = getattr(_recording, "counts", None)
+    _recording.counts = {}
+    try:
+        yield _recording.counts
+    finally:
+        _recording.counts = prev
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """``times`` more launches of each wrapper in ``counts``: a captured
+    graph's launches, once for each replay."""
+    with _count_lock:
+        for name, n in counts.items():
+            _launch_counts[name] = _launch_counts.get(name, 0) + n * times
+            _replayed_counts[name] = _replayed_counts.get(name, 0) + n * times
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
         _launch_counts.clear()
+        _replayed_counts.clear()
 
 
 def launch_counts() -> dict[str, int]:
+    """Launches by wrapper since the last reset, issued from Python and
+    replayed from graphs together."""
     with _count_lock:
         return dict(_launch_counts)
+
+
+def replayed_counts() -> dict[str, int]:
+    """The part of :func:`launch_counts` that graph replays launched."""
+    with _count_lock:
+        return dict(_replayed_counts)
 
 
 def _nvcc() -> str:

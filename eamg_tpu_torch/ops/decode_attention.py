@@ -12,8 +12,10 @@ its kernel reads from device memory; where a block holds every key and
 value of a KV head it goes by head (a block per query head of the group,
 each key and value copied once to all of them), else over spans of the
 keys as the other two do. Those take what their JAX namesakes take: MHA
-caches and one scalar ``t`` for the whole batch, by value. All take any
-cache length M (the flagship's is 511).
+caches and one scalar ``t`` for the whole batch, which their kernel also
+reads from device memory (a one-element int32 tensor on the card, as the
+TPU kernel reads it from scalar memory). All take any cache length M (the
+flagship's is 511).
 """
 
 from __future__ import annotations
@@ -197,7 +199,7 @@ def span_blocks(start: int, stop: int, bk: int) -> range:
 def _launch_scalar_t():
     P, I, F = _build.P, _build.I, _build.F
     return _build.bind("decode_attention", "eamg_flash_decode_scalar_t",
-                       [P, P, P, P, I, I, I, I, F, I, I, I, P])
+                       [P, P, P, P, I, I, I, P, F, I, I, I, P])
 
 
 @functools.cache
@@ -252,11 +254,41 @@ def _check_card(name: str, q: torch.Tensor, k_cache: torch.Tensor,
     _check_layout(name, q, k_cache, v_cache)
 
 
+def scalar_t(name: str, t, device: torch.device) -> torch.Tensor:
+    """t of the scalar-t wrappers as the one-element int32 tensor the
+    kernel reads on the card (the TPU kernel reads it from scalar memory):
+    a tensor on ``device`` is taken as it is, never read by the host. On
+    the CPU a Python int is taken too; on the card a host value is
+    refused, since fetching or copying it would cost a sync or a copy a
+    call and a CUDA graph cannot hold either."""
+    if isinstance(t, torch.Tensor):
+        if t.numel() != 1:
+            raise ValueError(f"{name}: t is one scalar for the whole batch, "
+                             f"got shape {tuple(t.shape)}")
+        if device.type == "cpu" and t.device.type == "cpu" \
+                and not t.dtype.is_floating_point:
+            return t.reshape(1).to(torch.int32)
+        if t.dtype != torch.int32 or t.device != device:
+            raise ValueError(f"{name}: t must be int32 on {device}, got "
+                             f"{t.dtype} on {t.device}")
+        return t if t.dim() == 1 else t.reshape(1)
+    if device.type != "cpu":
+        raise ValueError(f"{name}: t must be a one-element int32 tensor on "
+                         f"{device} (the kernel reads it there), got "
+                         f"{type(t).__name__}")
+    try:
+        return torch.tensor([operator.index(t)], dtype=torch.int32)
+    except TypeError:
+        raise ValueError(f"{name}: t must be an integer, got "
+                         f"{type(t).__name__}") from None
+
+
 def _scalar_t(name: str, q: torch.Tensor, k_cache: torch.Tensor,
               v_cache: torch.Tensor, t, C: int | None = None
               ) -> torch.Tensor:
     """The cluster kernel as wrapper ``name`` launches it, C blocks a
-    (row, head) (None: :func:`cluster_size` at this shape)."""
+    (row, head) (None: :func:`cluster_size` at this shape), t passed as a
+    device pointer (:func:`scalar_t`)."""
     if q.dim() != 4 or q.shape[2] != 1 or k_cache.dim() != 4 \
             or v_cache.shape != k_cache.shape \
             or k_cache.shape[0] != q.shape[0] \
@@ -266,19 +298,11 @@ def _scalar_t(name: str, q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[1] != q.shape[1]:
         raise ValueError(f"{name}: takes MHA caches only (q has "
                          f"{q.shape[1]} heads, the cache {k_cache.shape[1]})")
-    if isinstance(t, torch.Tensor) and t.numel() != 1:
-        raise ValueError(f"{name}: t is one scalar for the whole batch, got "
-                         f"shape {tuple(t.shape)}")
-    try:
-        t = operator.index(t)     # a 0-d tensor on the card is fetched here
-    except TypeError:
-        raise ValueError(f"{name}: t must be an integer, got "
-                         f"{type(t).__name__}") from None
+    t = scalar_t(name, t, q.device)
     B, H, _, Dh = q.shape
     M = k_cache.shape[2]
     if q.device.type == "cpu":
-        return decode_attention_plain(
-            q, k_cache, v_cache, torch.full((B,), t, dtype=torch.int32))
+        return decode_attention_plain(q, k_cache, v_cache, t.expand(B))
     _check_card(name, q, k_cache, v_cache)
     bk = BLOCK_K[name]
     if C is None:
@@ -287,8 +311,9 @@ def _scalar_t(name: str, q: torch.Tensor, k_cache: torch.Tensor,
     o = torch.empty_like(q)
     err = _launch_scalar_t()(q.data_ptr(), k_cache.data_ptr(),
                              v_cache.data_ptr(), o.data_ptr(), B * H, M, Dh,
-                             t, 1.0 / math.sqrt(Dh), int(bk > 0), C,
-                             _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q))
+                             t.data_ptr(), 1.0 / math.sqrt(Dh), int(bk > 0),
+                             C, _build.DTYPE_CODE[q.dtype],
+                             _build.stream_ptr(q))
     _build.check(err, name, smem=f"Dh {Dh}, M {M}")
     _build.count_launch(name)
     return o
@@ -297,10 +322,11 @@ def _scalar_t(name: str, q: torch.Tensor, k_cache: torch.Tensor,
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, t) -> torch.Tensor:
     """Attention of q [B, H, 1, Dh] over cache positions 0..t of MHA caches
-    k/v [B, H, M, Dh]; t one integer for the whole batch. CPU tensors take
+    k/v [B, H, M, Dh]; t one position for the whole batch, a one-element
+    int32 tensor on the inputs' device (:func:`scalar_t`). CPU tensors take
     :func:`decode_attention_plain`; CUDA tensors launch the cluster kernel
     with the rounding of the TPU kernel's loop over 256-key blocks (one
-    launch)."""
+    launch), which reads t on the card."""
     return _scalar_t("flash_decode", q, k_cache, v_cache, t)
 
 

@@ -65,10 +65,26 @@ SP_BOX = 32
 
 
 def _row_positions(t, B: int, device) -> torch.Tensor:
-    """t (a scalar or [B]) as [B] int32 on ``device``; a [B] int32 tensor
-    there is returned as it is (no copy: the kernel reads it in place)."""
-    t = torch.as_tensor(t, dtype=torch.int32, device=device)
-    return t if t.shape == (B,) else t.expand(B)
+    """t, a [B] or [1] int32 tensor on ``device``, as [B] (a [B] tensor is
+    returned as it is: the kernel reads it in place, the host never does).
+    A host value is refused on the card, where converting it would cost a
+    copy a call that no CUDA graph can hold; on the CPU (the plain
+    versions) an int or an integer tensor is taken too."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        t = torch.as_tensor(t, dtype=torch.int32)
+    elif not isinstance(t, torch.Tensor) or t.device != device \
+            or t.dtype != torch.int32:
+        raise ValueError(
+            f"t must be a [B] or [1] int32 tensor on {device} (the kernel "
+            f"reads it there), got "
+            + (f"{t.dtype} on {t.device}" if isinstance(t, torch.Tensor)
+               else type(t).__name__))
+    if t.shape == (B,):
+        return t
+    if t.numel() != 1:
+        raise ValueError(f"t of shape {tuple(t.shape)} for {B} rows")
+    return t.reshape(1).expand(B)
 
 
 def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
@@ -98,7 +114,8 @@ def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
     v = kv[..., KVD:].reshape(B, M, kv_heads, Dh)
     qg = q.reshape(B, kv_heads, g, Dh)
     s = torch.einsum("bkgd,bmkd->bkgm", qg, k) / math.sqrt(Dh)
-    tb = _row_positions(t, B, q.device)
+    tb = torch.as_tensor(t, dtype=torch.int32, device=q.device).reshape(-1)
+    tb = tb.expand(B) if tb.numel() == 1 else tb
     mask = (torch.arange(M, device=q.device)[None, None, None, :]
             <= tb[:, None, None, None])
     s = torch.where(mask, s, torch.finfo(s.dtype).min)

@@ -73,8 +73,7 @@ def top_p_threshold(logits: torch.Tensor, p) -> torch.Tensor:
     t = _radix_search(
         keys, lambda m: torch.where(m, probs, 0.0).sum(-1, keepdim=True)
         >= p)
-    out = torch.where(t == 0, torch.tensor(float("-inf"), device=x.device),
-                      _key_to_float(t))
+    out = torch.where(t == 0, float("-inf"), _key_to_float(t))
     return out.to(logits.dtype)
 
 

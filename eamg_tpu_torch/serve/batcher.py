@@ -46,10 +46,14 @@ class _Pending:
 class RequestBatcher:
     def __init__(self, generator: Generator, max_batch: int = 8,
                  window_ms: float = 10.0, max_len: int | None = None,
-                 max_queue: int = 256, grammar=None):
+                 max_queue: int = 256, grammar=None, eager: bool = False):
         if grammar is not None:
             raise NotInPort("a grammar in the batcher")
         self.gen = generator
+        # the ragged decode replays CUDA graphs on the card; eager=True
+        # issues its steps from the host, to compare the two (no served
+        # path passes it)
+        self.eager = bool(eager)
         # where the parameters really are (with its index), for the worker
         self.device = generator.params["tok_emb"].device
         self.max_batch = max_batch
@@ -112,6 +116,25 @@ class RequestBatcher:
         if req.error is not None:
             raise req.error
         return req.result
+
+    def warmup(self, prompt_ids: list[int]) -> None:
+        """Capture the graphs of the ragged decode that served requests
+        replay: one generation of ``prompt_ids`` for each batch the worker
+        pads a group to (1, 2, 4, ... up to ``max_batch``) at the budget
+        of a request that names none, with the default sampling."""
+        bs = 1
+        while True:
+            prompt = np.full((bs, _bucket(len(prompt_ids))), self.gen.pad_id,
+                             np.int64)
+            prompt[:, :len(prompt_ids)] = prompt_ids
+            generate_kv_ragged(
+                self.gen.params, torch.from_numpy(prompt).to(self.device),
+                [len(prompt_ids)] * bs, prng.key_rows(range(bs)),
+                self.gen.cfg, self.max_len, eos_id=self.gen.eos_id,
+                pad_id=self.gen.pad_id, eager=self.eager)
+            if bs >= self.max_batch:
+                return
+            bs *= 2
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Wait for queued and in-flight groups to finish (graceful
@@ -194,7 +217,8 @@ class RequestBatcher:
             self.gen.params, torch.from_numpy(prompt).to(self.device), lens,
             prng.key_rows(seeds), self.gen.cfg, max_len,
             temperature=temperature, top_k=top_k, eos_id=self.gen.eos_id,
-            pad_id=self.gen.pad_id, greedy=greedy, top_p=top_p, min_p=min_p)
+            pad_id=self.gen.pad_id, greedy=greedy, top_p=top_p, min_p=min_p,
+            eager=self.eager)
         buf = buf.cpu().numpy()
         pos = pos.cpu().numpy()
         self.stats["calls"] += 1

@@ -17,11 +17,15 @@ the step give a row the same bits in any batch (``ops/decode_fold.py``).
 ``run_detached`` runs a lone request through the same functions on a
 private state of the same shape.
 
-No step waits for the device. The worker issues chunk k+1 before it reads
-chunk k's flags (depth-1 lookahead, so harvest lags completion by at most
-one chunk), and each harvest is one packed fetch (``_pack_snapshot``:
-buffer, positions and done flags in one tensor), copied without blocking
-into pinned host memory and awaited through an event.
+No step waits for the device. A chunk is one replay of a CUDA graph of
+its steps on the card (JAX's ``lax.scan`` of the chunk,
+``decode/ragged.py::RaggedGraph``), over a state whose tensors keep their
+addresses for its life. The worker issues chunk k+1 before it reads chunk
+k's flags (depth-1 lookahead, so harvest lags completion by at most one
+chunk), and each harvest is one packed fetch (``_pack_snapshot``: buffer,
+positions and done flags in one tensor), copied without blocking into
+pinned host memory and awaited through an event. The worker and the
+detached decode issue on streams of their own.
 
 Not in the port yet: medusa rows (``medusa_chunk``), grammar, n-gram bans,
 penalties and ``submit_stream``; ``accepts`` turns such requests away, and
@@ -39,9 +43,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..decode import graphs
 from ..decode.api import Generator, _bucket
-from ..decode.ragged import (draw_noise, init_ragged_cache, prefill_ragged,
-                             ragged_steps)
+from ..decode.ragged import (RaggedGraph, draw_noise, init_ragged_cache,
+                             prefill_ragged)
 from ..decode.sampling import sample_rows
 from ..utils import prng
 from ..utils.device import bind_thread_to
@@ -72,7 +77,10 @@ def wait_for_worker(event: threading.Event, worker: threading.Thread,
 def init_state(cfg, slots: int, max_len: int, device=None) -> dict:
     """The engine's state; free slots start done with no budget. All of it
     lives on ``device`` but ``rngs``, the per-slot running keys ([slots, 2]
-    uint32), which the host advances (``utils/prng.py``)."""
+    uint32), which the host advances (``utils/prng.py``). Every tensor
+    keeps its address for the state's life (admissions, chunks and
+    :func:`reset_state` write into it), so the graph of its chunks stays
+    valid."""
     def full(value, dtype):
         return torch.full((slots,), value, dtype=dtype, device=device)
 
@@ -89,6 +97,23 @@ def init_state(cfg, slots: int, max_len: int, device=None) -> dict:
         "top_ps": full(1.0, torch.float32),
         "min_ps": full(0.0, torch.float32),
     }
+
+
+def reset_state(state: dict) -> dict:
+    """Every slot free again, as :func:`init_state` leaves them, in place
+    (the cache keeps its contents: an admission's prefill overwrites what
+    its row reads)."""
+    state["buf"].zero_()
+    state["pos"].zero_()
+    state["last"].zero_()
+    state["done"].fill_(True)
+    state["rngs"][:] = 0
+    state["row_max"].zero_()
+    state["temps"].fill_(1.0)
+    state["top_ps"].fill_(1.0)
+    state["min_ps"].zero_()
+    state["cache"]["lengths"].zero_()
+    return state
 
 
 @torch.no_grad()
@@ -147,19 +172,32 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
 @torch.no_grad()
 def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
                  mask_value=-1e10, eos_id=-1, pad_id=0, top_p=1.0,
-                 per_row_sampling=False) -> dict:
+                 per_row_sampling=False, eager=False) -> dict:
     """Advance every live row ``chunk`` steps, in place (done and free rows
-    are inert). Every slot's key is split once per step, live or not, so a
-    row's key at step n of its life depends on its seed and n alone; the
-    noise of the whole chunk is drawn in one batch. Nothing is read back
-    from the device."""
-    noise = None
+    are inert): one replay of the chunk's graph on the card (the first
+    chunk of a state captures it; eagerly on the CPU, and with ``eager``),
+    JAX's ``lax.scan`` of the chunk. Every slot's key is split once per
+    step, live or not, so a row's key at step n of its life depends on its
+    seed and n alone; the chunk's keys go to the card in one copy and its
+    noise is drawn inside the graph. Nothing is read back from the
+    device."""
+    top_p = float(top_p)
+    key = (id(params), cfg, int(chunk), int(top_k), bool(greedy),
+           float(mask_value), int(eos_id), int(pad_id), top_p,
+           bool(per_row_sampling), bool(eager))
+    runner = state.get("graph")
+    if runner is None or runner.key != key:
+        dev = state["buf"].device
+        runner = RaggedGraph(
+            params, cfg, state, int(chunk), top_k=top_k, greedy=greedy,
+            mask_value=mask_value, eos_id=eos_id, pad_id=pad_id,
+            top_p=torch.full((1,), top_p, device=dev) if top_p < 1.0
+            else 1.0, per_row=per_row_sampling, eager=eager)
+        runner.key = key
+        state["graph"] = runner
     state["rngs"], subs = prng.split_rows_chain(state["rngs"], chunk)
-    if not greedy:
-        noise = draw_noise(subs, cfg.vocab_size, state["buf"].device)
-    return ragged_steps(params, state, cfg, noise, steps=chunk, top_k=top_k,
-                        greedy=greedy, mask_value=mask_value, eos_id=eos_id,
-                        pad_id=pad_id, top_p=top_p, per_row=per_row_sampling)
+    runner.run(None if greedy else subs)
+    return state
 
 
 def _pack_snapshot(state) -> torch.Tensor:
@@ -224,7 +262,7 @@ class ContinuousBatcher:
                  mask_value: float = -1e10, max_queue: int = 256,
                  top_p: float = 1.0, per_row_sampling: bool = False,
                  no_repeat_ngram: int = 0, grammar=None,
-                 medusa_heads: dict | None = None):
+                 medusa_heads: dict | None = None, eager: bool = False):
         for name, on in (("an engine-wide n-gram ban", no_repeat_ngram),
                          ("a grammar in the engine", grammar is not None),
                          ("medusa rows in the engine",
@@ -246,8 +284,16 @@ class ContinuousBatcher:
         # admission control: requests queued beyond the live slots; 0 =
         # unbounded
         self.max_queue = max_queue
+        # the chunks replay CUDA graphs on the card; eager=True issues
+        # them from the host instead, to compare the two (no served path
+        # passes it)
+        self.eager = bool(eager)
         self.state = self._init_state()
         self._detached_state = None
+        # the worker's stream and the detached decode's: a host wait of
+        # one waits for nothing of the other
+        self._stream = graphs.side_stream(self.device)
+        self._detached_stream = graphs.side_stream(self.device)
         self._q: queue.Queue = queue.Queue()
         self._cancels: queue.Queue = queue.Queue()
         self._live: dict[int, _Pending] = {}
@@ -433,6 +479,13 @@ class ContinuousBatcher:
         p = len(prompt_ids)
         if p >= ml:
             return list(prompt_ids)   # zero generation steps (reference)
+        with graphs.on_stream(self._detached_stream):
+            return self._run_detached(prompt_ids, temperature, seed, ml,
+                                      top_p, min_p)
+
+    def _run_detached(self, prompt_ids, temperature, seed, ml, top_p,
+                      min_p) -> list:
+        p = len(prompt_ids)
         if self._detached_state is None:
             # admission into slot 0 replaces the slot's entire state, so
             # the private state is reusable; rows 1+ stay free and inert
@@ -453,7 +506,7 @@ class ContinuousBatcher:
         n_chunks = max(-(-(ml - p - 1) // self.chunk), 0)
         for ci in range(n_chunks):
             state = ragged_chunk(self.gen.params, state, self.gen.cfg,
-                                 chunk=self.chunk, **opts)
+                                 chunk=self.chunk, eager=self.eager, **opts)
             if n_chunks >= 6 and ci == n_chunks // 2 - 1:
                 if bool(_finish_fetch(_start_fetch(
                         _pack_snapshot(state)))[0, -1]):
@@ -537,10 +590,14 @@ class ContinuousBatcher:
                 break
             req.error = exc
             req.event.set()
-        self.state = self._init_state()
+        reset_state(self.state)
 
     def _worker(self):
         bind_thread_to(self.device)
+        with graphs.on_stream(self._stream):
+            self._work()
+
+    def _work(self):
         pending_fetch = None
         while not self._stop:
             try:
@@ -572,7 +629,8 @@ class ContinuousBatcher:
                 if self._live:
                     self.state = ragged_chunk(
                         self.gen.params, self.state, self.gen.cfg,
-                        chunk=self.chunk, **self._sampling())
+                        chunk=self.chunk, eager=self.eager,
+                        **self._sampling())
                     self.stats["chunks"] += 1
                     # depth-1 lookahead: the PREVIOUS chunk's flags are
                     # read while this one computes

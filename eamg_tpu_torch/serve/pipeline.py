@@ -94,9 +94,6 @@ class Pipeline:
         # may fall the other way and same-seed bytes may then depend on
         # the load a request ran under. Default False: run_detached.
         self.fast_routing = bool(fast_routing)
-        # True once the engine's path has run in this process (by an engine
-        # submit or by the detached bypass, which runs the same functions)
-        self._engine_warm = False
         if coalesce == "continuous":
             from .continuous import ContinuousBatcher
 
@@ -108,21 +105,27 @@ class Pipeline:
             self.batcher = RequestBatcher(generator, **(coalesce_opts or {}))
 
     def warmup(self) -> None:
-        """Build the kernels and run one request before serving; with a
-        continuous engine that the request did not reach, one engine row
-        too."""
+        """Build the kernels and capture the decode's graphs before
+        serving: one request through the route this pipeline serves; with a
+        continuous engine, one engine row and one detached decode too; with
+        the window batcher, one ragged decode at each batch size it pads a
+        group to."""
         self.generate("warm up the kernels", seed=0,
                       render_audio=self.render_audio)
+        from .batcher import RequestBatcher
         from .continuous import ContinuousBatcher
 
-        if isinstance(self.batcher, ContinuousBatcher) \
-                and not self._engine_warm:
-            start = [t for t in ("[START_SEQUENCE]",)
-                     if t in self.generator.vocab]
-            ids = self.generator.vocab.encode(start) if start else [1]
+        start = [t for t in ("[START_SEQUENCE]",)
+                 if t in self.generator.vocab]
+        ids = self.generator.vocab.encode(start) if start else [1]
+        if isinstance(self.batcher, ContinuousBatcher):
+            # both of its graphs: the engine's chunk and the detached
+            # decode's (the request above took one route)
             self.batcher.submit(ids, temperature=1.0, seed=0,
                                 top_p=self.batcher.top_p)
-            self._engine_warm = True
+            self.batcher.run_detached(ids, seed=0, top_p=self.batcher.top_p)
+        if isinstance(self.batcher, RequestBatcher):
+            self.batcher.warmup(ids)
 
     def _solo_ragged(self, prompt_ids: list, temperature: float, seed: int,
                      top_p: float, min_p: float) -> list:
@@ -131,10 +134,8 @@ class Pipeline:
         batch-1 ragged decode (see ``__init__``)."""
         b = self.batcher
         if not self.fast_routing:
-            out = b.run_detached(prompt_ids, temperature=temperature,
-                                 seed=seed, top_p=top_p, min_p=min_p)
-            self._engine_warm = True
-            return out
+            return b.run_detached(prompt_ids, temperature=temperature,
+                                  seed=seed, top_p=top_p, min_p=min_p)
         import numpy as np
 
         from ..decode.api import _bucket
@@ -186,7 +187,6 @@ class Pipeline:
                 tokens = gen.trim_at_eos(self.batcher.submit(
                     gen.vocab.encode(known), temperature=temperature,
                     top_k=top_k, seed=run_seed, top_p=top_p, min_p=min_p))
-                self._engine_warm = True
             else:
                 with self._lock:
                     tokens = gen.sample_kvcache(
@@ -251,17 +251,23 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
                              classifier: EmotionClassifier | None = None,
                              device=None, coalesce=False,
                              coalesce_opts: dict | None = None,
-                             fast_routing: bool = False) -> Pipeline:
+                             fast_routing: bool = False,
+                             eager: bool = False) -> Pipeline:
     """A serving pipeline from a checkpoint directory of the JAX package's
     pickle format; Scheme-A vocabularies only so far. ``device`` None
     means CUDA (raises without a card). ``coalesce``: False, "window" (or
-    True) or "continuous"; ``coalesce_opts`` go to the batcher."""
+    True) or "continuous"; ``coalesce_opts`` go to the batcher. The decode
+    replays CUDA graphs on the card; ``eager=True`` issues every step from
+    the host instead, on every route, to compare the two (the CLI never
+    passes it)."""
     device = resolve_device(device)
     if coalesce == "continuous":
         # production default of the JAX package: 128-step chunks (half the
         # harvests per song of the engine class's own default of 64, for a
         # longer worst-case join wait of about one chunk)
         coalesce_opts = {"chunk": 128, **(coalesce_opts or {})}
+    if coalesce and eager:
+        coalesce_opts = {**(coalesce_opts or {}), "eager": True}
     ckpt = load_checkpoint(path)
     vocab = Vocab(ckpt["vocab"])
     scheme = detect_scheme(vocab)
@@ -270,6 +276,7 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
     if os.path.isfile(os.path.join(path, "medusa_heads.pkl")):
         print("[serve] medusa heads found; medusa decoding is not yet in "
               "the PyTorch port, plain decode only")
-    gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device)
+    gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device,
+                    eager=eager)
     return Pipeline(gen, classifier, full_gm=full_gm, coalesce=coalesce,
                     coalesce_opts=coalesce_opts, fast_routing=fast_routing)

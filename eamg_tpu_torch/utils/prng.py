@@ -18,7 +18,8 @@ continuous engine, are ``[N, 2]`` uint32 numpy arrays on the host
 ``jax.vmap(jax.random.split)`` gives). A row's key chain depends on its
 seed and its step count alone, so it is advanced on the host, vectorised
 over the rows, and only the sampling keys of a whole chunk of steps go to
-the device, where :func:`bits` draws all their noise in one batch.
+the device, where :func:`bits_keys` draws all their noise in one batch
+(inside the decode block's CUDA graph, from a static key buffer).
 
 Partitionable mode, as in ``jax/_src/prng.py``:
 - ``split(key, n)[i] = threefry(key, (hi(i), lo(i)))``, both output words;
@@ -70,6 +71,15 @@ def split(key: tuple[int, int], num: int = 2) -> list[tuple[int, int]]:
             for i in range(num)]
 
 
+def split_range(key: tuple[int, int], start: int,
+                stop: int) -> list[tuple[int, int]]:
+    """``split(key, n)[start:stop]`` for any n >= stop: in partitionable
+    mode a key of ``split`` depends on its index alone, so a block of them
+    is drawn without the others."""
+    return [_threefry2x32(key[0], key[1], i >> 32, i & _M)
+            for i in range(start, stop)]
+
+
 def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     """``jax.random.fold_in``: the threefry of the 32-bit ``data`` (high
     count word 0) under ``key``."""
@@ -106,19 +116,31 @@ def split_rows_chain(keys: np.ndarray, steps: int):
 def bits(key, shape, device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of uint32
     values. ``key`` may also be S keys, as a list of pairs or an [S, 2]
-    array: the result is then ``[S, *shape]``, row s drawn with key s."""
-    shape = tuple(shape)
-    n = math.prod(shape)
-    count = torch.arange(n, dtype=torch.int64, device=device)
+    array (or an [S, 2] int64 tensor, :func:`bits_keys`): the result is
+    then ``[S, *shape]``, row s drawn with key s."""
+    if isinstance(key, torch.Tensor):
+        return bits_keys(key, shape)
     if isinstance(key, (list, np.ndarray)):
         kt = torch.as_tensor(np.asarray(key).astype(np.int64)).to(device)
-        k0, k1 = kt[:, 0:1], kt[:, 1:2]
-        out_shape = (len(key), *shape)
-    else:
-        k0, k1 = key
-        out_shape = shape
-    x0, x1 = _threefry2x32(k0, k1, count >> 32, count & _M)
-    return (x0 ^ x1).reshape(out_shape)
+        return bits_keys(kt, shape)
+    shape = tuple(shape)
+    count = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    x0, x1 = _threefry2x32(key[0], key[1], count >> 32, count & _M)
+    return (x0 ^ x1).reshape(shape)
+
+
+def bits_keys(keys: torch.Tensor, shape) -> torch.Tensor:
+    """:func:`bits` of S keys that are already an [S, 2] int64 tensor of
+    uint32 words, on their device -> [S, *shape]. It reads no host value
+    and copies nothing to the device, so a CUDA graph can hold it: the
+    decode loops draw a block's noise inside its graph from a static key
+    buffer (``decode/graphs.py``)."""
+    shape = tuple(shape)
+    count = torch.arange(math.prod(shape), dtype=torch.int64,
+                         device=keys.device)
+    x0, x1 = _threefry2x32(keys[:, 0:1], keys[:, 1:2], count >> 32,
+                           count & _M)
+    return (x0 ^ x1).reshape(keys.shape[0], *shape)
 
 
 def bits_rows(key, n_cols: int, rows: torch.Tensor) -> torch.Tensor:
@@ -143,12 +165,14 @@ def uniform_from_bits(b: torch.Tensor, minval: float = 0.0,
     """[0, 1) floats scaled to [minval, maxval). XLA fuses the scale and
     shift into one multiply-add with a single rounding; the product of two
     f32 values and the sum are exact in f64 here (the unit floats are
-    multiples of 2^-23), so f64 then one rounding to f32 gives its bits."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=b.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=b.device)
-    scaled = (_bits_to_unit_f32(b).double() * (hi - lo).double()
-              + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    multiples of 2^-23), so f64 then one rounding to f32 gives its bits.
+    The f32 bounds and their f32 difference are host scalars (numpy's
+    float32 rounds as the card's does), so nothing is copied to the
+    device."""
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    scaled = (_bits_to_unit_f32(b).double() * span + float(lo)).float()
+    return torch.clamp(scaled, min=float(lo))
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
@@ -159,7 +183,8 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
 
 def gumbel(key, shape, device=None) -> torch.Tensor:
     """``jax.random.gumbel`` in its default "low" mode, float32.
-    ``key`` may be a list of keys (see :func:`bits`)."""
+    ``key`` may be a list of keys or an [S, 2] int64 tensor of them (see
+    :func:`bits`)."""
     u = uniform_from_bits(bits(key, shape, device), F32_TINY, 1.0)
     return -torch.log(-torch.log(u))
 

@@ -753,8 +753,10 @@ def test_scalar_t_cluster_size_follows_m_alone(results, case):
 @pytest.mark.parametrize("shape", SCALAR_T_LAUNCH_SHAPES)
 def test_scalar_t_wrappers_launch_one_cluster_kernel(results, shape):
     """flash_decode and flash_decode_vmem hand the one cluster kernel the
-    same arguments, down to t and the cluster size, and differ in the
-    rounding flag alone (1: the running max of 256-key blocks)."""
+    same arguments, down to t's device pointer (the kernel reads t on the
+    card, as the TPU kernel reads it from scalar memory) and the cluster
+    size, and differ in the rounding flag alone (1: the running max of
+    256-key blocks)."""
     got, _ = results
     i = SCALAR_T_LAUNCH_SHAPES.index(shape)
     calls = {name: json.loads(str(got[f"scalartlaunch/{i}/{name}"]))
@@ -765,12 +767,28 @@ def test_scalar_t_wrappers_launch_one_cluster_kernel(results, shape):
                             "eamg_flash_decode_scalar_t"], name
     blocked, whole = (c[0][2] for c in calls.values())
     B, H, M, Dh, _, t, active16 = shape
-    assert blocked[4:8] == [B * H, M, Dh, t]
+    assert blocked[4:8] == [B * H, M, Dh,
+                            int(got[f"scalartlaunch/{i}/tptr"])]
     assert blocked[8] == pytest.approx(1 / math.sqrt(Dh), rel=1e-12)
     assert blocked[10] == (2 if M <= 1024 else 4 if M <= 4096
                            else 16 if active16 else 8)
     assert blocked[9] == 1 and whole[9] == 0
-    assert whole[:9] + whole[10:] == blocked[:9] + blocked[10:]
+    # all but the output (each call's own) and the rounding flag
+    assert whole[:3] + whole[4:9] + whole[10:] \
+        == blocked[:3] + blocked[4:9] + blocked[10:]
+
+
+@pytest.mark.parametrize("shape", SCALAR_T_LAUNCH_SHAPES)
+@pytest.mark.parametrize("name", ["flash_decode", "flash_decode_vmem"])
+def test_scalar_t_wrappers_refuse_a_host_t_on_the_card(results, shape,
+                                                       name):
+    """On the card t must already be a device tensor: a Python int would
+    cost a host copy a call, which no CUDA graph can hold. The wrapper says
+    so before any launch (the launch counts hold one launch a call)."""
+    got, _ = results
+    i = SCALAR_T_LAUNCH_SHAPES.index(shape)
+    said = str(got[f"scalartlaunch/{i}/{name}/host_t"])
+    assert said.startswith("ValueError") and "int32 tensor" in said, said
 
 
 def test_scalar_t_wrappers_count_under_their_own_names(results):
@@ -920,6 +938,17 @@ def test_fold_sp_plan_follows_m_dh_g_and_dtype_alone(results, case):
     calls, _, i = _fold_sp_calls(got, case)
     plans = {tuple(args[12:14]) for _, _, _, args in calls}
     assert plans == {FOLD_SP_PLANS[i]}
+
+
+@pytest.mark.parametrize("case", FOLD_SP_TAKES)
+def test_fold_sp_wrappers_refuse_a_host_t_on_the_card(results, case):
+    """A Python int t on CUDA inputs is refused before any launch: the
+    kernel reads t on the card, and a copy of a host value a call is what
+    a CUDA graph of the decode step cannot hold."""
+    got, _ = results
+    i = FOLD_SP_CASES.index(case)
+    said = str(got[f"foldsp/{i}/host_t"])
+    assert said.startswith("ValueError") and "int32 tensor" in said, said
 
 
 def test_fold_sp_check_refuses_dh40(results):

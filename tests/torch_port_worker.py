@@ -121,7 +121,7 @@ def _cluster_launches(decode_fold, shapes) -> dict:
                 q = torch.empty((B, 1, H * Dh), dtype=dt, device="meta")
                 kv = torch.empty((B, M, 2 * Hkv * Dh), dtype=dt,
                                  device="meta")
-                t = torch.arange(B, dtype=torch.int32) * 7 % M
+                t = (torch.arange(B, dtype=torch.int32) * 7 % M).to("meta")
                 for name in ("flash_decode_fold", "flash_decode_fold2",
                              "flash_decode_fold3"):
                     calls.clear()
@@ -140,13 +140,19 @@ def _scalar_t_launches(decode_attention, shapes) -> dict:
     """What flash_decode and flash_decode_vmem hand the library on CUDA
     inputs, recorded in place of a launch, as :func:`_cluster_launches`
     records the fold wrappers': for each shape (B, H, M, Dh, dtype, t,
-    resident clusters of 16) a JSON list of the library, the symbol and
-    the arguments, and the launch counts after all."""
+    resident clusters of 16), t a one-element int32 tensor on the inputs'
+    device (each tensor's pointer a distinct multiple of 16), a JSON list
+    of the library, the symbol and the arguments, and t's pointer; what
+    each wrapper says of a host int t on those inputs; and the launch
+    counts after all."""
     from unittest import mock
 
     from eamg_tpu_torch.ops import _build
 
     calls = []
+
+    def ptr(t):
+        return 16 * (id(t) % (1 << 40))
 
     def bind(lib, fn, argtypes):
         def call(*args):
@@ -170,17 +176,23 @@ def _scalar_t_launches(decode_attention, shapes) -> dict:
         with mock.patch.object(_build, "bind", bind), \
                 mock.patch.object(_build, "stream_ptr", lambda t: 0), \
                 mock.patch.object(decode_attention, "_check_card",
-                                  lambda *a: None):
+                                  lambda *a: None), \
+                mock.patch.object(torch.Tensor, "data_ptr", ptr):
             for i, (B, H, M, Dh, dt, t, active16) in enumerate(shapes):
                 fresh()
                 dt = getattr(torch, dt)
                 q = torch.empty((B, H, 1, Dh), dtype=dt, device="meta")
                 kv = torch.empty((B, H, M, Dh), dtype=dt, device="meta")
+                td = torch.empty((1,), dtype=torch.int32, device="meta")
+                got[f"scalartlaunch/{i}/tptr"] = np.asarray(ptr(td))
                 for name in ("flash_decode", "flash_decode_vmem"):
                     calls.clear()
-                    getattr(decode_attention, name)(q, kv, kv, t)
+                    getattr(decode_attention, name)(q, kv, kv, td)
                     got[f"scalartlaunch/{i}/{name}"] = np.asarray(
                         json.dumps(calls))
+                    got[f"scalartlaunch/{i}/{name}/host_t"] = _raised(
+                        lambda: getattr(decode_attention, name)(q, kv, kv,
+                                                                t))
         got["scalartlaunch/counts"] = np.asarray(
             json.dumps(_build.launch_counts()))
     finally:
@@ -268,10 +280,11 @@ def _fold_sp_launches(cases) -> dict:
     passed (the rest of the argument check runs). For each case (B, H, Hkv,
     M, Dh, dtype, resident clusters of 16), q is the head of a fused QKV
     projection (rows D + 2 KVD apart), and each wrapper is called at B and
-    at B 1, with t a [B] int32 tensor and with the scalars 0, M - 1 and
-    M + 100: a JSON list of [label, library, symbol, arguments] a call and
-    the pointers of q, kv and t by label, or what the first call raised;
-    and the launch counts after all."""
+    at B 1, with t a [B] int32 tensor and with one-element int32 tensors
+    labelled 0, M - 1 and M + 100 (meta tensors hold no value): a JSON list
+    of [label, library, symbol, arguments] a call and the pointers of q,
+    kv and t by label, or what the first call raised; what each wrapper
+    says of a host int t; and the launch counts after all."""
     from unittest import mock
 
     from eamg_tpu_torch.ops import _build, decode_attention, decode_fold
@@ -320,6 +333,9 @@ def _fold_sp_launches(cases) -> dict:
                     tb = torch.empty((b,), dtype=torch.int32, device="meta")
                     for t in (tb, 0, M - 1, M + 100):
                         tl = "rows" if t is tb else f"t{t}"
+                        if t is not tb:
+                            t = torch.empty((1,), dtype=torch.int32,
+                                            device="meta")
                         for name in ("flash_decode_fold_sp",
                                      "flash_decode_fold3_sp"):
                             label[0] = f"B{b}/{tl}/{name}"
@@ -331,6 +347,8 @@ def _fold_sp_launches(cases) -> dict:
                                 said = r
                 got[f"foldsp/{i}"] = np.asarray(json.dumps(calls))
                 got[f"foldsp/{i}/raised"] = said
+                got[f"foldsp/{i}/host_t"] = _raised(
+                    lambda: decode_fold.flash_decode_fold_sp(q, kv, 3, H))
                 got[f"foldsp/{i}/ptrs"] = np.asarray(json.dumps(ptrs))
         got["foldsp/counts"] = np.asarray(json.dumps(_build.launch_counts()))
     finally:
@@ -1488,6 +1506,159 @@ def task_engine(inp, out):
         bat.close()
 
 
+# ------------------------------------------------------------------- graphs
+
+def _graph_bookkeeping(out):
+    """BlockGraph's launch counts with CUDA's stream and graph calls stood
+    in for (tests/test_torch_graphs.py): a block that calls two fake
+    wrappers and, from another thread, a third."""
+    import threading
+    from unittest import mock
+
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build
+
+    seen = {}
+
+    class Stream:
+        def wait_stream(self, other):
+            pass
+
+    class Graph:
+        def replay(self):
+            pass
+
+    class Capture:
+        def __init__(self, graph, stream=None, capture_error_mode=None):
+            seen["mode"] = capture_error_mode
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    def block():
+        _build.count_launch("k_a")
+        _build.count_launch("k_a")
+        _build.count_launch("k_b")
+        other = threading.Thread(target=_build.count_launch, args=("other",))
+        other.start()
+        other.join()
+
+    _build.reset_launch_counts()
+    try:
+        with mock.patch.object(torch.cuda, "current_stream",
+                               lambda *a: Stream()), \
+                mock.patch.object(torch.cuda, "Stream", lambda *a: Stream()), \
+                mock.patch.object(torch.cuda, "stream",
+                                  lambda s: Capture(None)), \
+                mock.patch.object(torch.cuda, "CUDAGraph", Graph), \
+                mock.patch.object(torch.cuda, "graph", Capture):
+            g = graphs.BlockGraph(block, "cuda")
+            for _ in range(4):
+                g.run()
+        out["book/block_launches"] = np.asarray(json.dumps(g.launches))
+        out["book/counts"] = np.asarray(json.dumps(_build.launch_counts()))
+        out["book/replays"] = np.asarray(g.replays)
+        out["book/mode"] = np.asarray(seen["mode"])
+        _build.reset_launch_counts()
+        g = graphs.BlockGraph(block, "cpu")
+        for _ in range(3):
+            g.run()
+        out["book/cpu_counts"] = np.asarray(json.dumps(
+            _build.launch_counts()))
+        out["book/cpu_graph"] = np.asarray(str(g.graph))
+    finally:
+        _build.reset_launch_counts()
+
+
+def task_graphs(inp, out):
+    """tests/test_torch_graphs.py: generate_kv and generate_kv_ragged on
+    their block runners (eager on the CPU), requests again on the cached
+    states, the state keys, decode_step with the device length, and the
+    runner's launch bookkeeping."""
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.decode.ragged import generate_kv_ragged
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    cfg = _cfg(inp, "cfg")
+    params = params_from_jax(unflatten(inp, "p"))
+    plen, max_len = int(inp["plen"]), int(inp["max_len"])
+
+    def solo(spec, **extra):
+        kw = dict(spec["kw"], **extra)
+        if "penalties" in kw:
+            kw["penalties"] = tuple(kw["penalties"])
+        return generate_kv(params, _t(np.asarray(spec["prompt"])).long(),
+                           plen, prng.PRNGKey(spec["seed"]), cfg, max_len,
+                           attn_impl=spec["impl"], **kw)
+
+    cases = json.loads(str(inp["cases"]))
+    for name, spec in cases.items():
+        buf, n = solo(spec)
+        out[f"solo/{name}/n"] = np.asarray(n)
+        out[f"solo/{name}/buf"] = buf[:, :n].numpy()
+        out[f"solo/{name}/tail"] = buf[:, n:].numpy()
+
+    rg = json.loads(str(inp["ragged"]))
+
+    def ragged(spec):
+        return generate_kv_ragged(
+            params, _t(np.asarray(rg["prompt"])).long(), rg["lens"],
+            prng.key_rows(rg["seeds"]), cfg, rg["max_len"],
+            top_k=rg["top_k"], greedy=spec["greedy"],
+            eos_id=spec["eos_id"])
+
+    for name, spec in rg["cases"].items():
+        buf, n = ragged(spec)
+        out[f"ragged/{name}/buf"] = buf.numpy()
+        out[f"ragged/{name}/n"] = n.numpy()
+
+    # a second request on a cached state, after other requests used it
+    for name in ("sampled/block_first/sp", "greedy/B3"):
+        buf, n = solo(cases[name])
+        out[f"again/{name}/buf"] = buf[:, :n].numpy()
+    out["again/ragged/buf"] = ragged(rg["cases"]["sampled/block_last"])[
+        0].numpy()
+
+    # the states' keys: values a request fills in share one state
+    spec = cases["sampled/no_eos"]
+    before = len(graphs._states)
+    solo(spec, temperature=0.7)
+    generate_kv(params, _t(np.asarray(spec["prompt"])).long(), plen - 1,
+                prng.PRNGKey(99), cfg, max_len, attn_impl="sp",
+                **spec["kw"])
+    solo(cases["sampled/top_p"], top_p=0.6)
+    out["keys/same"] = np.asarray(len(graphs._states) - before)
+    solo(spec, top_p=0.6)
+    out["keys/top_p_on"] = np.asarray(len(graphs._states) - before)
+
+    # decode_step over a device length, both cache layouts
+    prompt = _t(inp["tf/prompt"]).long()
+    for impl in ("sp", "fold_sp"):
+        cache = gpt.init_kv_cache(cfg, 2, 40,
+                                  layout=gpt.cache_layout(impl, cfg))
+        length = cache["length"]
+        _, cache = gpt.prefill(params, prompt, cfg, cache, prompt_len=plen)
+        last, logits = prompt[:, plen - 1:plen], []
+        for row in inp["tf/forced"]:
+            lg, cache = gpt.decode_step(params, last, cache, cfg, impl)
+            logits.append(lg.numpy())
+            last = _t(row).long()[:, None]
+        out[f"tf/{impl}/logits"] = np.stack(logits)
+        same = cache["length"] is length
+        out[f"tf/{impl}/length"] = np.asarray(
+            f"{str(length.dtype).split('.')[-1]} {list(length.shape)} "
+            + ("in place" if same else "replaced"))
+        out[f"tf/{impl}/length_value"] = np.asarray(int(length[0]))
+
+    _graph_bookkeeping(out)
+
+
 # --------------------------------------------------------------------- bf16
 
 def task_bf16(inp, out):
@@ -1526,7 +1697,7 @@ def task_bf16(inp, out):
 
 TASKS = {"kernels": task_kernels, "topk": task_topk, "slice": task_slice,
          "ragged": task_ragged, "engine": task_engine, "batch": task_batch,
-         "bf16": task_bf16}
+         "bf16": task_bf16, "graphs": task_graphs}
 
 
 def main():
