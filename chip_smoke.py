@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py            # one card, no arguments
     python3 chip_smoke.py --phases build,kernels    # a part, while developing
+    python3 chip_smoke.py --phases build,stream,b3
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -58,6 +59,9 @@ Phases:
     card (kernels) against the same run on the host (plain versions), for
     the solo decode and for the ragged decode; then its bf16 logits as
     served (kernels="xla"), card against host, through the solo decode;
+    then the uncached loop (generate_full) at temperature 0.7 and
+    repetition penalty 1.3: its filtered logits bit-equal to those made
+    with tensor divisors (fault C2);
  5. solo: capture the solo decode's CUDA graph in "global" mode (any
     host sync in a step, from any thread, fails it) at the served key,
     then serve POST /generate on demo_ckpt_a in bf16 over HTTP, one
@@ -90,7 +94,24 @@ Phases:
     `serve --coalesce window`, with launch counts of their own (each path
     replaying graphs, none issuing decode attention from Python) and
     replies of hundreds of tokens;
- 7. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
+ 7. stream: the page's default request, POST /generate?stream=1 with WAV,
+    read as its events arrive (the time to the first tokens event logged
+    beside the request's total): to the solo server after its warm-up
+    (which captures the stream's chunk graph), twice with one seed (the
+    same events, the chunks from replayed graphs, no decode attention
+    issued from Python), meta then tokens then done, the done event's MIDI
+    the concatenated deltas'; a three-sentence sections=1 request
+    streamed and not; one stream traced; the eager loop's stream of the
+    seed equal; then to `serve --coalesce`: an engine row whose deltas
+    equal submit()'s for the seed, sections streamed through the engine,
+    a stream closed after its first delta (the library's and a dropped
+    HTTP connection) that leaves its slot free in /stats;
+ 8. b3: `serve --coalesce` on demo_ckpt_b3 (d192 h4, Dh 48, MHA, V 8579;
+    B3 serves solo): two WAV requests of one seed (equal bytes, and the
+    eager loop's), a MIDI request and a stream, decoded from replayed
+    graphs with K1, K2, K3 and K4 launched at its shapes; one request
+    traced; then `cli generate` on B3 twice (equal bytes);
+ 9. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
     on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
     seed) at full width and depth, batch 8, 511 positions, once per
     attn_impl with the launch counts zeroed before each, the eager loop's
@@ -253,6 +274,10 @@ CLUSTER_KERNELS = ("flash_decode_fold", "flash_decode_fold2",
                    "flash_decode_fold3")
 CLUSTER_TOL = {"float32": 2e-6, "bfloat16": 2.0 ** -7}
 CLUSTER_REL_TOL = 5e-3
+# the cluster kernel at demo_ckpt_b3's heads: (B, H, M, t per row), Dh 48,
+# MHA, M 256 (its cache), the last slot, an early one, t 0 and mid-song (B
+# a multiple of flash_decode_fold2's rows)
+FOLD48_SHAPE = (4, 4, 256, (255, 17, 0, 130))
 # max |kernel - plain| allowed. f32: both sides accumulate in f32, in other
 # orders. bf16: the plain attention rounds scores and probabilities to
 # bf16 (the JAX model's XLA path), the kernels keep them in f32, so they
@@ -306,7 +331,8 @@ TOL = {("flash_attention", "float32"): 1e-4,
        **{(name + tag, "bfloat16"): 1.6e-2 for name in BATCH_KERNELS
           for tag in ("", "_gqa")},
        **{(name + tag, dt): tol for name in CLUSTER_KERNELS
-          for tag in ("", "_gqa") for dt, tol in CLUSTER_TOL.items()},
+          for tag in ("", "_gqa", "_dh48")
+          for dt, tol in CLUSTER_TOL.items()},
        # the kernels the batched decode shares with the served paths, at
        # the shapes that path gives them (B 8, MHA; 128 prefill rows; the
        # Scheme-B2 vocabulary): each as at its served shape
@@ -1248,6 +1274,39 @@ def kernel_checks(torch, ckpt_params) -> dict:
         # masked call over the whole cache is timed beside it
         whole = {name: (decode_fold.ROUNDING[name], getattr(decode_fold, name))
                  for name in CLUSTER_KERNELS}
+        # demo_ckpt_b3's heads (FOLD48_SHAPE: Dh 48, MHA, M 256, a t a
+        # row), with the cluster size the card picks and the other one;
+        # from a generator of its own, so that the inputs of the checks
+        # after it stay those of earlier runs
+        B48, H48, M48, t48 = FOLD48_SHAPE
+        g48 = torch.Generator().manual_seed(48)
+        q48 = torch.randn(B48, 1, H48 * 48, generator=g48).to(dt).to(dev)
+        kv48 = torch.randn(B48, M48, 2 * H48 * 48, generator=g48).to(dt) \
+            .to(dev)
+        t48 = torch.tensor(t48, dtype=torch.int32, device=dev)
+        want32_48 = decode_fold.decode_attention_pm_plain(
+            q48.float(), kv48.float(), t48, H48)
+        for name, (norm, fn) in whole.items():
+            want = decode_fold.decode_attention_pm_plain(q48, kv48, t48, H48,
+                                                         normalize=norm)
+            picked = decode_fold.cluster_size(decode_fold.cluster_occupancy(
+                H48, H48, M48, 48, norm, dt)[1])
+            for C in (picked, 24 - picked):
+                got = decode_fold._fold_cluster(name, q48, kv48, t48, H48,
+                                                C=C)
+                torch.cuda.synchronize()
+                where = (f" at Dh 48 (MHA, H {H48}, M {M48}, t "
+                         f"{t48.tolist()}), C {C}"
+                         + (" (picked)" if C == picked else ""))
+                hold(name + "_dh48", dt_name, got, want, extra=where)
+                if dt is torch.bfloat16:
+                    rel_f32(name, got, want32_48, where=where,
+                            tol=CLUSTER_REL_TOL, plain=want)
+            if not torch.equal(fn(q48, kv48, t48, H48), decode_fold
+                               ._fold_cluster(name, q48, kv48, t48, H48,
+                                              C=picked)):
+                raise AssertionError(f"{name} at Dh 48: the wrapper's launch "
+                                     f"differs from C {picked}'s")
         kvb = randn(Bb, M, 2 * Hb * Dh, dt=dt)
         qfb = randn(Bb, 1, Hb * Dh, dt=dt)
         t_uni = torch.full((Bb,), BENCH_TIMED_T, dtype=torch.int32,
@@ -2135,15 +2194,21 @@ def teacher_forced(torch, ckpt) -> float:
     return worst
 
 
-def _post(port: int, fields: dict, query: str = ""):
+def _multipart(fields: dict) -> tuple:
+    """A form as the page posts it: -> (body, its Content-Type)."""
     boundary = "eamgsmokeboundary"
     body = b"".join(
         f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"'
         f"\r\n\r\n{v}\r\n".encode() for k, v in fields.items())
     body += f"--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def _post(port: int, fields: dict, query: str = ""):
+    body, ctype = _multipart(fields)
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate{query}", data=body,
-        headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+        headers={"Content-Type": ctype})
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=600) as r:
         data = r.read()
@@ -2476,16 +2541,70 @@ K4_KERNELS = ("topk_reg_kernel", "topk_stream_kernel")
 LAUNCHES_A_TOKEN_UNFUSED = {"solo": 150.65, "coalesce": 59.16}
 
 
+def _k4_kernels(prof: dict) -> int:
+    """K4's kernel launches in a trace."""
+    return sum(c for k, c in prof["count_by_kernel"].items()
+               if any(n in k for n in K4_KERNELS))
+
+
+def _k3_kernels(prof: dict) -> int:
+    """The launches in a trace of the kernel that K3's wrapper (solo) and
+    the engine's fold wrapper launch: by head at the served shape, else
+    over spans."""
+    return sum(c for k, c in prof["count_by_kernel"].items()
+               if "decode_heads_kernel" in k or "decode_cluster_kernel" in k)
+
+
+# runs of a traced workload that may be taken before its trace holds every
+# launch its wrappers counted (_trace_counted)
+TRACE_ATTEMPTS = 3
+
+
+def _trace_counted(torch, tag: str, work, pairs) -> tuple:
+    """_trace(work) and the launch counts of the same run, where
+    pairs(prof, counts) -> {kernel: (its wrappers' calls, its launches in
+    the trace)} must agree for every kernel. The counts are exact, and the
+    same in every run of work(). The trace is not always whole: the
+    profiler can lose device records (one run of the coalesce burst on an
+    NVIDIA H100 80GB HBM3, 700 W, held 2296 of the 2314 K4 launches that
+    every other run held). So a trace with fewer launches than calls is
+    taken again, up to TRACE_ATTEMPTS runs of work(); more launches than
+    calls fails at once, and fewer in every attempt fails at the end: a
+    wrapper that counts a launch it does not make is short every time.
+    -> (the whole trace, its counts)."""
+    from eamg_tpu_torch.ops import _build
+
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        prof = _trace(torch, tag, work)
+        counts = _build.launch_counts()
+        off = {k: v for k, v in pairs(prof, counts).items() if v[0] != v[1]}
+        if not off:
+            log(f"[{tag}] the trace holds every counted launch (attempt "
+                f"{attempt} of {TRACE_ATTEMPTS})")
+            return prof, counts
+        if any(kernels > calls for calls, kernels in off.values()):
+            raise AssertionError(f"{tag} trace: more kernel launches than "
+                                 f"wrapper calls (calls, launches): {off}")
+        log(f"[{tag}] trace attempt {attempt} of {TRACE_ATTEMPTS}: fewer "
+            f"kernel launches than wrapper calls (calls, launches) {off}, "
+            f"{prof['launches_per_token']:.2f} device kernels a token")
+    raise AssertionError(f"{tag} trace: fewer kernel launches than wrapper "
+                         f"calls in all {TRACE_ATTEMPTS} attempts (calls, "
+                         f"launches): {off}")
+
+
 def _k4_in_trace(tag: str, prof: dict, counts: dict) -> None:
-    """K4 in a path's trace: one kernel launch per wrapper call, the
-    sampler's fused mask among them, and fewer f32 fills in the whole
-    trace than K4 launches (the sampler's three ops after K4 would launch
-    two a call; the engine's threads share the stream, so the card's
-    order may put another thread's kernels right after a K4 launch); its
-    device time a launch and the path's launches a token."""
+    """K4 in a path's whole trace (_trace_counted has held its launches to
+    its wrapper calls, one a call): the sampler's fused mask among them,
+    and fewer f32 fills in the whole trace than K4 launches (the sampler's
+    three ops after K4 would launch two a call; the engine's threads share
+    the stream, so the card's order may put another thread's kernels right
+    after a K4 launch); its device time a launch and the path's launches a
+    token."""
     calls = launched("kth_value", counts)
-    kernels = sum(c for k, c in prof["count_by_kernel"].items()
-                  if any(n in k for n in K4_KERNELS))
+    kernels = _k4_kernels(prof)
     ms = sum(v for k, v in prof["ms_by_kernel"].items()
              if any(n in k for n in K4_KERNELS))
     fills = prof["sampler_op_kernels"][SAMPLER_OPS[1]]
@@ -2512,20 +2631,16 @@ def profile_solo(torch, pipe) -> dict:
     """Phase 5, second part: one warm WAV request under torch.profiler. K3
     must show as one kernel launch a wrapper call (its cluster kernel; no
     kernel of the old split design), one call a layer and decode step."""
-    from eamg_tpu_torch.ops import _build
-
     text = "I finally got the job, I am so happy!"
     pipe.generate(text, seed=7)
-    torch.cuda.synchronize()
-    _build.reset_launch_counts()
-    out = _trace(torch, "solo",
-                 lambda: len(pipe.generate(text, seed=7).tokens))
-    calls = _build.launch_counts().get("flash_decode_sp", 0)
-    # K3's kernels (by head at the served shape, else over spans); the
-    # solo path runs no other kernel of csrc/decode_attention.cu
-    kernels = sum(c for k, c in out["count_by_kernel"].items()
-                  if "decode_heads_kernel" in k
-                  or "decode_cluster_kernel" in k)
+    # K3's kernel: the solo path runs no other of csrc/decode_attention.cu
+    out, counts = _trace_counted(
+        torch, "solo", lambda: len(pipe.generate(text, seed=7).tokens),
+        lambda prof, c: {"K3": (c.get("flash_decode_sp", 0),
+                                _k3_kernels(prof)),
+                         "K4": (launched("kth_value", c), _k4_kernels(prof))})
+    calls = counts.get("flash_decode_sp", 0)
+    kernels = _k3_kernels(out)
     stale = [k for k in out["count_by_kernel"]
              if "decode_combine" in k or "decode_partial" in k]
     n_layer = pipe.generator.cfg.n_layer
@@ -2536,7 +2651,7 @@ def profile_solo(torch, pipe) -> dict:
     if stale or calls == 0 or kernels != calls or calls % n_layer:
         raise AssertionError(f"solo trace: K3 {calls} calls, {kernels} "
                              f"cluster launches, stale kernels {stale}")
-    _k4_in_trace("solo", out, _build.launch_counts())
+    _k4_in_trace("solo", out, counts)
     return out
 
 
@@ -2686,16 +2801,15 @@ def serve_coalesced(torch):
         # and 11's kernel over the fused cache, the only kernel of
         # csrc/decode_kernels.cuh this path runs) one kernel launch a call,
         # a call a layer and step, and no kernel of the split design
-        torch.cuda.synchronize()
-        _build.reset_launch_counts()
-        prof = _trace(torch, "coalesce",
-                      lambda: _burst(port, "coalesce traced",
-                                     lone_again=False)[0])
-        _k4_in_trace("coalesce", prof, _build.launch_counts())
-        calls = _build.launch_counts().get(engine_fold, 0)
-        kernels = sum(c for k, c in prof["count_by_kernel"].items()
-                      if "decode_heads_kernel" in k
-                      or "decode_cluster_kernel" in k)
+        prof, traced = _trace_counted(
+            torch, "coalesce",
+            lambda: _burst(port, "coalesce traced", lone_again=False)[0],
+            lambda p, c: {"K4": (launched("kth_value", c), _k4_kernels(p)),
+                          engine_fold: (c.get(engine_fold, 0),
+                                        _k3_kernels(p))})
+        _k4_in_trace("coalesce", prof, traced)
+        calls = traced.get(engine_fold, 0)
+        kernels = _k3_kernels(prof)
         stale = [k for k in prof["count_by_kernel"]
                  if "fold_partial" in k or "fold_combine" in k]
         n_layer = pipe.generator.cfg.n_layer
@@ -2809,6 +2923,454 @@ def serve_window(torch) -> dict:
     _require_graphs("window", decode_fold.fold_decode.__name__, counts,
                     replayed, graphs.tally()["replays"] - replays0)
     return counts
+
+
+# the page's default request: a stream of WAV, one sentence; and three
+# sentences for sections
+STREAM_FIELDS = {"prompt": BURST_TEXTS[0], "seed": "7"}
+SECTIONS_FIELDS = {"prompt": " ".join(BURST_TEXTS[:3]), "seed": "9",
+                   "sections": "1"}
+
+
+def _sse_post(port: int, fields: dict, query: str = "?stream=1",
+              drop: bool = False):
+    """POST /generate with ``query`` (a stream), the form as the page posts
+    it, its events read as they arrive. -> (status, content type, events,
+    seconds to the first tokens event, seconds in all). ``drop``: close
+    the connection at the first tokens event."""
+    import http.client
+
+    body, ctype = _multipart(fields)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    first, events = None, []
+    try:
+        conn.request("POST", f"/generate{query}", body=body,
+                     headers={"Content-Type": ctype})
+        resp = conn.getresponse()
+        rtype = resp.getheader("Content-Type", "")
+        if resp.status != 200:
+            return resp.status, rtype, [json.loads(resp.read())], None, \
+                time.perf_counter() - t0
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            if not line.startswith(b"data: "):
+                continue
+            events.append(json.loads(line[len(b"data: "):]))
+            if events[-1]["event"] == "tokens" and first is None:
+                first = time.perf_counter() - t0
+                if drop:
+                    break
+    finally:
+        conn.close()
+    return resp.status, rtype, events, first, time.perf_counter() - t0
+
+
+def _deltas_midi(pipe, events) -> bytes:
+    """The MIDI of a stream's sections as its events give them: each
+    meta event's prompt and the token deltas after it, laid end to end as
+    ``generate_stream`` lays them."""
+    import io
+
+    from eamg_tpu_torch.serve.pipeline import _Sections
+
+    vocab = pipe.scheme_b.vocab if pipe.scheme == "b3" \
+        else pipe.generator.vocab
+    merged, ids = _Sections(0.5), None
+    for ev in events + [{"event": "meta"}]:
+        if ev["event"] == "meta":
+            if ids is not None:
+                merged.add(pipe._song(ids)[1])
+            ids = vocab.encode(ev.get("prompt_tokens", []))
+        elif ev["event"] == "tokens":
+            ids += ev["ids"]
+    buf = io.BytesIO()
+    merged.song.write(buf)
+    return buf.getvalue()
+
+
+def _sans_timings(events) -> list:
+    """A stream's events without the done event's wall-clock timings."""
+    return [{k: v for k, v in e.items() if k != "timings_ms"}
+            for e in events]
+
+
+def _check_stream(tag: str, fields: dict, query: str, reply, pipe) -> dict:
+    """Hold one SSE reply to the contract: 200 text/event-stream; per
+    section a meta event, then tokens events; a last done event whose MIDI
+    is the deltas' (and whose WAV is RIFF....WAVE unless MIDI was asked
+    for). Logs the time to the first tokens event beside the request's
+    total; -> those and the decode rate."""
+    import base64
+
+    status, ctype, events, first, secs = reply
+    if status != 200 or not ctype.startswith("text/event-stream"):
+        raise AssertionError(f"{tag}: HTTP {status} {ctype}: {events}")
+    kinds = [e["event"] for e in events]
+    n_sec = events[0].get("n_sections", 0) if events else 0
+    if not events or kinds[-1] != "done" or "error" in kinds \
+            or kinds.count("meta") != n_sec or n_sec < 1 \
+            or any(kinds[i + 1] != "tokens" for i, k in enumerate(kinds)
+                   if k == "meta") \
+            or set(kinds[:-1]) != {"meta", "tokens"} or kinds[0] != "meta":
+        raise AssertionError(f"{tag}: events {kinds}")
+    done = events[-1]
+    midi = base64.b64decode(done["midi_b64"])
+    if midi[:4] != b"MThd" or midi != _deltas_midi(pipe, events):
+        raise AssertionError(f"{tag}: the done event's MIDI is not the "
+                             "deltas'")
+    if "format=midi" not in query:
+        wav = base64.b64decode(done["wav_b64"] or "")
+        if wav[:4] != b"RIFF" or wav[8:12] != b"WAVE":
+            raise AssertionError(f"{tag}: the done event's WAV is not "
+                                 "RIFF....WAVE")
+    n_gen = sum(len(e["ids"]) for e in events if e["event"] == "tokens")
+    dec_s = done["timings_ms"]["decode"] / 1000
+    out = {"first_tokens_ms": first * 1000, "total_ms": secs * 1000,
+           "tokens": n_gen, "events": len(events), "sections": n_sec,
+           "decode_tokens_per_s": n_gen / dec_s if dec_s else 0.0}
+    log(f"[{tag}] {query} seed {fields['seed']}: HTTP 200 {ctype}, "
+        f"{len(events)} events ({n_sec} sections), {n_gen} tokens made, "
+        f"first tokens event at {out['first_tokens_ms']:.1f} ms of "
+        f"{out['total_ms']:.1f} ms in all, "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s of decode, emotion "
+        f"{done['label']}, timings_ms {done['timings_ms']}")
+    return out
+
+
+def _stream_ids(events) -> tuple:
+    """(the first section's prompt ids' tokens, its deltas concatenated)."""
+    return (events[0]["prompt_tokens"],
+            [i for e in events if e["event"] == "tokens" for i in e["ids"]])
+
+
+def serve_stream(torch) -> dict:
+    """Phase 7: the page's default request, POST /generate?stream=1 with
+    WAV, on demo_ckpt_a: to the solo server (its chunks replayed from
+    graphs, the same bytes twice and from the eager loop, three sentences
+    with sections=1 streamed and not, one stream traced), then to `serve
+    --coalesce` (an engine row: its deltas equal submit() for the seed, a
+    stream closed mid-way frees its slot, through the library and over
+    HTTP). -> launch counts by path."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build, decode_fold
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    counts = {}
+    pipe = cli.pipeline_from_args(cli.parse_args(["serve"]))
+    t0 = time.perf_counter()
+    pipe.warmup()
+    log(f"[stream] solo warm-up (the decode's and the stream's graphs "
+        f"captured) {time.perf_counter() - t0:.2f} s; {graphs.tally()}")
+    server, thread, port = _serving(pipe)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
+        first = _sse_post(port, STREAM_FIELDS)
+        again = _sse_post(port, STREAM_FIELDS)
+        torch.cuda.synchronize()
+        counts["stream"] = _build.launch_counts()
+        replayed = _build.replayed_counts()
+        replays = graphs.tally()["replays"] - replays0
+        for tag, r in (("stream solo", first), ("stream solo again", again)):
+            _check_stream(tag, STREAM_FIELDS, "?stream=1", r, pipe)
+        if _sans_timings(first[2]) != _sans_timings(again[2]):
+            raise AssertionError("stream: same-seed events differ")
+        log(f"[stream] same-seed events identical; launches over the two "
+            f"streams: {counts['stream']}")
+        _require_launched("solo", counts["stream"])
+        _require_graphs("stream", "flash_decode_sp", counts["stream"],
+                        replayed, replays)
+        q = "?stream=1&format=midi"
+        _check_stream("stream solo sections", SECTIONS_FIELDS, q,
+                      _sse_post(port, SECTIONS_FIELDS, q), pipe)
+        _check_reply("stream solo sections, not streamed", SECTIONS_FIELDS,
+                     "?format=midi",
+                     _post(port, SECTIONS_FIELDS, "?format=midi"))
+        _build.reset_launch_counts()
+        _trace(torch, "stream", lambda: len(_stream_ids(list(
+            pipe.generate_stream(STREAM_FIELDS["prompt"], seed=7)))[1]))
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    eager = _eager_replies(["serve"], lambda port: _sse_post(
+        port, STREAM_FIELDS))
+    if _sans_timings(eager[2]) != _sans_timings(first[2]):
+        raise AssertionError("stream: the eager loop's events differ from "
+                             "the graphs'")
+    log("[stream] the stream of seed 7 from the eager loop (every step "
+        "issued from the host) has the graphs' events")
+
+    pipe = cli.pipeline_from_args(cli.parse_args(
+        ["serve", "--coalesce", "--slots", str(ENGINE_SLOTS)]))
+    eng = pipe.batcher
+    pipe.warmup()
+    server, thread, port = _serving(pipe)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
+        admitted0 = eng.stats["admitted"]
+        reply = _sse_post(port, STREAM_FIELDS)
+        torch.cuda.synchronize()
+        counts["stream_coalesce"] = _build.launch_counts()
+        replayed = _build.replayed_counts()
+        replays = graphs.tally()["replays"] - replays0
+        _check_stream("stream engine", STREAM_FIELDS, "?stream=1", reply,
+                      pipe)
+        if eng.stats["admitted"] != admitted0 + 1:
+            raise AssertionError("stream: the request did not join the "
+                                 "engine")
+        _require_launched("coalesce", counts["stream_coalesce"])
+        _require_graphs("stream coalesce", decode_fold.fold_decode.__name__,
+                        counts["stream_coalesce"], replayed, replays)
+        prompt, deltas = _stream_ids(reply[2])
+        ids = pipe.generator.vocab.encode(prompt)
+        row = eng.submit(ids, seed=7)
+        lib = [t for d in eng.submit_stream(ids, seed=7) for t in d]
+        if row[len(ids):] != deltas or lib != deltas:
+            raise AssertionError("stream: the engine row's deltas differ "
+                                 "from submit()'s tokens")
+        log(f"[stream] engine: the streamed deltas ({len(deltas)} tokens) "
+            "equal submit()'s row and submit_stream()'s for the seed")
+        q = "?stream=1&format=midi"
+        _check_stream("stream engine sections", SECTIONS_FIELDS, q,
+                      _sse_post(port, SECTIONS_FIELDS, q), pipe)
+        # a stream closed after its first delta, through the library and
+        # over HTTP: its row is cancelled (unless it ended first: a delta
+        # trails the decode by up to two chunks) and its slot freed
+        for how in ("library", "http"):
+            before = dict(eng.stats)
+            if how == "library":
+                s = eng.submit_stream(ids, seed=8)
+                next(s)
+                s.close()
+            else:
+                reply = _sse_post(port, {"prompt": BURST_TEXTS[1],
+                                         "seed": "12"}, drop=True)
+                if reply[3] is None:
+                    raise AssertionError("stream: the dropped request saw "
+                                         "no tokens")
+            stats = _wait_for(lambda: _stats_free(port, eng.slots),
+                              f"the slot of the stream closed ({how})")
+            ended = {k: eng.stats[k] - before[k]
+                     for k in ("cancelled", "served")}
+            log(f"[stream] a stream closed after its first delta ({how}): "
+                f"{ended}; /stats engine {stats}")
+            if sum(ended.values()) != 1:
+                raise AssertionError(f"stream: the closed stream's row "
+                                     f"({how}) ended as {ended}")
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    return counts
+
+
+def _wait_for(cond, what: str, secs: float = 120.0):
+    """cond()'s first true value, polled; fails after ``secs``."""
+    deadline = time.monotonic() + secs
+    while True:
+        v = cond()
+        if v:
+            return v
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def _stats_free(port: int, slots: int):
+    """/stats's engine counters when every slot is free, else None."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                timeout=30) as r:
+        eng = json.loads(r.read())["engine"]
+    return eng if eng["free_slots"] == slots and eng["queue_depth"] == 0 \
+        else None
+
+
+def serve_b3(torch) -> dict:
+    """Phase 8: `serve --coalesce` on demo_ckpt_b3 (B3 serves solo: the
+    flag is switched off for it): two WAV requests of one seed (the same
+    bytes, and the eager loop's), a MIDI request and a stream, decoded
+    from replayed graphs with K1, K2, K3 and K4 launched at B3's shapes;
+    one request traced; then `cli generate` on B3 twice. -> launch counts
+    by path."""
+    import tempfile
+
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_B3
+
+    counts = {}
+    args = ["serve", "--checkpoint", DEMO_CKPT_B3, "--coalesce"]
+    pipe = cli.pipeline_from_args(cli.parse_args(args))
+    cfg, gen = pipe.generator.cfg, pipe.generator
+    _require_xla_order("b3", pipe)
+    if pipe.scheme != "b3" or pipe.batcher is not None:
+        raise AssertionError(f"b3: scheme {pipe.scheme}, batcher "
+                             f"{pipe.batcher}")
+    log(f"[b3] {DEMO_CKPT_B3}: D {cfg.d_model}, H {cfg.n_head} (Hkv "
+        f"{cfg.kv_heads}, Dh {cfg.head_dim}), FF {cfg.ff}, L {cfg.n_layer}, "
+        f"V {cfg.vocab_size}, max_len {gen.max_supported_len()} (the "
+        f"stream's cache {gen.max_supported_len() + 32}), EOS "
+        f"{gen.vocab.id2tok[gen.eos_id]}; --coalesce switched off: solo")
+    t0 = time.perf_counter()
+    pipe.warmup()
+    log(f"[b3] warm-up {time.perf_counter() - t0:.2f} s; {graphs.tally()}")
+    server, thread, port = _serving(pipe)
+    wav = {"prompt": BURST_TEXTS[0], "seed": "7"}
+    midi = {"prompt": BURST_TEXTS[1], "seed": "11"}
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
+        bodies = []
+        for fields, query in ((wav, ""), (wav, ""), (midi, "?format=midi")):
+            reply = _post(port, fields, query)
+            _check_reply("b3", fields, query, reply)
+            bodies.append(reply[1])
+        _check_stream("b3 stream", wav, "?stream=1",
+                      _sse_post(port, wav), pipe)
+        torch.cuda.synchronize()
+        counts["b3"] = _build.launch_counts()
+        replayed = _build.replayed_counts()
+        replays = graphs.tally()["replays"] - replays0
+        if bodies[0] != bodies[1]:
+            raise AssertionError("b3: same-seed WAV bytes differ")
+        log(f"[b3] same-seed WAV bytes identical; launches over the four "
+            f"requests (K1 Dh {cfg.head_dim}, K2 D {cfg.d_model} FF "
+            f"{cfg.ff}, K3 H {cfg.n_head} MHA Dh {cfg.head_dim} M "
+            f"{gen.max_supported_len()} and the stream's "
+            f"{gen.max_supported_len() + 32}, K4 V {cfg.vocab_size}): "
+            f"{counts['b3']}")
+        _require_launched("solo", counts["b3"])
+        _require_graphs("b3", "flash_decode_sp", counts["b3"], replayed,
+                        replays)
+        _build.reset_launch_counts()
+        prof = _trace(torch, "b3", lambda: len(pipe.generate(
+            wav["prompt"], seed=7).tokens))
+        names = [k for k in prof["count_by_kernel"]
+                 if "decode_" in k and "kernel" in k]
+        log(f"[b3] traced: the decode attention kernels {names}")
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    eager = _eager_replies(args[:3], lambda port: _post(port, wav, "")[1])
+    if eager != bodies[0]:
+        raise AssertionError("b3: the WAV of seed 7 from the eager loop "
+                             "differs from the graphs'")
+    log("[b3] the WAV of seed 7 from the eager loop has the graphs' bytes")
+    _build.reset_launch_counts()
+    files = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(2):
+            mid, wv = (os.path.join(tmp, f"b3_{i}.{x}") for x in ("mid",
+                                                                 "wav"))
+            t0 = time.perf_counter()
+            code = cli.main(["generate", "--checkpoint", DEMO_CKPT_B3,
+                             "--seed", "5", "--bpm", "120", "--key",
+                             "C major", "--out", mid, "--wav", wv])
+            torch.cuda.synchronize()
+            if code != 0:
+                raise AssertionError(f"b3: cli generate exited {code}")
+            with open(mid, "rb") as f, open(wv, "rb") as g:
+                files.append((f.read(), g.read()))
+            m, w = files[-1]
+            log(f"[b3 cli generate] run {i}: {len(m)} MIDI bytes, {len(w)} "
+                f"WAV bytes in {time.perf_counter() - t0:.2f} s")
+            if m[:4] != b"MThd" or w[:4] != b"RIFF" or w[8:12] != b"WAVE":
+                raise AssertionError("b3: cli generate wrote no MThd / "
+                                     "RIFF....WAVE")
+    counts["b3_generate"] = _build.launch_counts()
+    if files[0] != files[1]:
+        raise AssertionError("b3: cli generate's same-seed bytes differ")
+    log(f"[b3 cli generate] same-seed bytes identical; launches "
+        f"{counts['b3_generate']}")
+    _require_launched("solo", counts["b3_generate"])
+    return counts
+
+
+# the uncached loop's sampling values (fault C2)
+C2_TEMPERATURE, C2_PENALTIES = 0.7, (1.3, 0.0, 0.0)
+
+
+def uncached_divisors(torch, ckpt) -> None:
+    """Phase 4, last part: generate_full (the uncached loop) on
+    demo_ckpt_a at temperature 0.7 and repetition penalty 1.3, the
+    sampler's inputs and the logits it filtered recorded at every step;
+    those filtered logits must equal, bit for bit, the ones made from the
+    same inputs with tensor divisors (a traced value in JAX, a true
+    division on the card); the ones made with host floats (a multiply by
+    the reciprocal on CUDA) are counted beside them."""
+    from eamg_tpu_torch.decode import Generator, loop, sampling
+    from eamg_tpu_torch.decode.sampling import (apply_penalties,
+                                                filter_logits,
+                                                penalty_tensor)
+    from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.utils import prng
+
+    gen = Generator(ckpt["params"], ckpt["cfg"], Vocab(ckpt["vocab"]))
+    ids = gen.vocab.encode(["[START_SEQUENCE]", "[BPM] 120.0",
+                            "[KEY_SIGNATURE] C major"])
+    prompt = torch.zeros((1, 16), dtype=torch.int64, device="cuda")
+    prompt[0, :len(ids)] = torch.tensor(ids)
+    seen, filtered = [], []
+    real, real_filter = loop.sample_token, sampling.filter_logits
+
+    def spy(key, logits, temperature, top_k, *a, counts=None,
+            penalties=None, **kw):
+        seen.append((logits.clone(), counts.clone(), temperature, penalties,
+                     top_k))
+        return real(key, logits, temperature, top_k, *a, counts=counts,
+                    penalties=penalties, **kw)
+
+    def filter_spy(*a, **kw):
+        filtered.append(real_filter(*a, **kw))
+        return filtered[-1]
+
+    loop.sample_token, sampling.filter_logits = spy, filter_spy
+    try:
+        buf, n = loop.generate_full(
+            gen.params, prompt, len(ids), prng.PRNGKey(3), gen.cfg, 24,
+            temperature=C2_TEMPERATURE, eos_id=gen.eos_id, pad_id=gen.pad_id,
+            penalties=C2_PENALTIES)
+    finally:
+        loop.sample_token, sampling.filter_logits = real, real_filter
+    torch.cuda.synchronize()
+    if len(filtered) != len(seen):
+        raise AssertionError(f"C2: {len(seen)} sampler calls filtered "
+                             f"{len(filtered)} times")
+    temp_t = torch.full((1,), C2_TEMPERATURE, device="cuda")
+    pen_t = penalty_tensor(C2_PENALTIES, "cuda")
+    host_differ = 0
+    for (logits, counts, temp, pen, top_k), got in zip(seen, filtered):
+        if not isinstance(temp, torch.Tensor) \
+                or not isinstance(pen, torch.Tensor):
+            raise AssertionError("C2: generate_full hands the sampler host "
+                                 f"values ({type(temp).__name__}, "
+                                 f"{type(pen).__name__})")
+        want = filter_logits(apply_penalties(logits, counts,
+                                             penalties=pen_t), temp_t, top_k)
+        host = filter_logits(apply_penalties(logits, counts, *C2_PENALTIES),
+                             C2_TEMPERATURE, top_k)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError("C2: generate_full's filtered logits differ "
+                                 "from those with tensor divisors")
+        host_differ += int((host.view(torch.int32)
+                            != want.view(torch.int32)).sum().item())
+    log(f"[c2] generate_full at temperature {C2_TEMPERATURE}, repetition "
+        f"penalty {C2_PENALTIES[0]}: {len(seen)} steps ({n} tokens), the "
+        "logits its sampler filtered bit-equal to those with tensor divisors; host-float "
+        f"divisors would change {host_differ} of "
+        f"{len(seen) * gen.cfg.vocab_size} of them")
 
 
 def batch_teacher_forced(torch, cfg32, params32) -> None:
@@ -2997,7 +3559,8 @@ def cli_generate(torch) -> dict:
     return counts
 
 
-PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "batch")
+PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
+          "batch")
 
 
 def main(argv=None) -> int:
@@ -3043,6 +3606,7 @@ def main(argv=None) -> int:
         kernel_phases(torch, ckpt["params"])
     if "teacher" in phases:
         teacher_forced(torch, ckpt)
+        uncached_divisors(torch, ckpt)
     if "solo" in phases:
         counts["solo"], pipe = serve_solo(torch)
         profile_solo(torch, pipe)
@@ -3050,6 +3614,10 @@ def main(argv=None) -> int:
     if "coalesce" in phases:
         counts["coalesce"], probes, _ = serve_coalesced(torch)
         counts["window"] = serve_window(torch)
+    if "stream" in phases:
+        counts.update(serve_stream(torch))
+    if "b3" in phases:
+        counts.update(serve_b3(torch))
     if "batch" in phases:
         counts["batch"] = batch_decode(torch)
         counts["generate"] = cli_generate(torch)

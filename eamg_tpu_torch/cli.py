@@ -3,14 +3,19 @@
 
 ``generate`` writes one MIDI file (and with ``--wav`` a WAV file) from
 fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
-``--interactive``, from a typed description, on a Scheme-A checkpoint
-(default: the shipped flagship), through ``Generator.sample_kvcache``. Its
-``--beams``, ``--grammar``, ``--draft``, ``--lookup`` and ``--medusa`` are
-not in the port yet and exit 2 naming the flag.
+``--interactive``, from a typed description. On a Scheme-A checkpoint
+(default: the shipped flagship) it decodes through
+``Generator.sample_kvcache``; on a Scheme-B3 one (``demo_ckpt_b3``) the
+prompt is the ``[START_SEQ] BPM_x KEY_y`` control prefix of ``--bpm`` and
+``--key`` (B3 has no instrument tokens), the decode ``generate_ids`` and
+the MIDI ``SchemeB3.decode_to_song``. Its ``--beams``, ``--grammar``,
+``--draft``, ``--lookup`` and ``--medusa`` are not in the port yet and
+exit 2 naming the flag.
 
-``serve`` serves ``POST /generate`` on a Scheme-A checkpoint of the JAX
-package's format (default: the shipped flagship
-``eamg_tpu/serve/demo_ckpt_a``) on the CUDA device, or on the host with ``--device cpu``. ``--coalesce``
+``serve`` serves ``POST /generate`` on a Scheme-A or Scheme-B3 checkpoint
+of the JAX package's format (default: the shipped flagship
+``eamg_tpu/serve/demo_ckpt_a``) on the CUDA device, or on the host with
+``--device cpu``. ``--coalesce``
 routes requests through the continuous-batching engine (or, with
 ``--coalesce window``, the 10 ms window batcher), with the JAX server's
 engine options ``--slots``, ``--chunk``, ``--max-queue``,
@@ -105,27 +110,37 @@ def _serve(args) -> int:
 
 def _generate(args) -> int:
     """Offline generation of one MIDI (and WAV) file, as the JAX CLI's
-    ``generate`` does it for Scheme-A checkpoints."""
+    ``generate`` does it for Scheme-A and Scheme-B3 checkpoints."""
     if _refuse(args, _GENERATE_NOT_YET):
         return 2
-    from .audio import render_to_wav
     from .decode import Generator
     from .serve.pipeline import DEMO_CKPT_A
-    from .tokenizer import (Vocab, assemble_prompt, closest_bpm_token,
-                            detect_scheme, normalize_key_signature,
-                            tokens_to_song)
+    from .tokenizer import (SchemeB3, Vocab, assemble_prompt,
+                            closest_bpm_token, detect_scheme,
+                            normalize_key_signature, tokens_to_song)
     from .utils.checkpoint import load_checkpoint
     from .utils.device import resolve_device
-    from .utils.errors import NotInPort
 
     device = resolve_device(args.device)
     ckpt = load_checkpoint(args.checkpoint or DEMO_CKPT_A)
     vocab = Vocab(ckpt["vocab"])
     scheme = detect_scheme(vocab)
-    if scheme != "a":
-        raise NotInPort(f"generating from Scheme-{scheme.upper()} "
-                        "checkpoints")
-    gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device)
+    if scheme in ("b1", "b2"):
+        print(f"Scheme-{scheme.upper()} checkpoints have no control tokens "
+              "to condition on; use a b3 or Scheme-A checkpoint",
+              file=sys.stderr)
+        return 2
+    b3 = scheme == "b3"
+    gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device,
+                    **({"eos_token": "[END_SEQ]"} if b3 else {}))
+    penalties = (args.repetition_penalty, args.frequency_penalty,
+                 args.presence_penalty)
+    sampling = dict(
+        max_len=args.max_len, temperature=args.temperature, top_k=args.top_k,
+        seed=args.seed, top_p=args.top_p, min_p=args.min_p,
+        penalties=None if penalties == (1.0, 0.0, 0.0) else penalties,
+        no_repeat_ngram=args.no_repeat_ngram)
+    bpm, key, mapping = args.bpm, args.key, None
     if args.interactive:
         # free text -> emotion -> mapping -> music
         from .emotion import EmotionClassifier, get_music_params
@@ -134,6 +149,20 @@ def _generate(args) -> int:
         label = EmotionClassifier(device=device).predict(text)
         mapping = get_music_params(label, seed=args.seed)
         print("Music Mapping:", mapping)
+        bpm, key = mapping["bpm"], mapping["key"]
+    if b3:
+        # control-token conditioning; B3 has no instrument tokens
+        if args.instruments != ["Violin", "Acoustic Grand Piano"] \
+                and not args.interactive:
+            print("note: --instruments ignored (B3 checkpoints have no "
+                  "instrument tokens)")
+        scheme_b = SchemeB3(seq_len=ckpt["cfg"].seq_len)
+        ids = gen.generate_ids(scheme_b.control_prefix(bpm, key),
+                               **sampling)[0]
+        tokens = scheme_b.vocab.decode(ids)
+        print("Generated token snippet:", tokens[:20], "...")
+        return _write_song(args, scheme_b.decode_to_song(ids), device)
+    if mapping is not None:
         prompt = assemble_prompt(gen.vocab, mapping, full_gm=args.full_gm)
     else:
         prompt = ["[START_SEQUENCE]", closest_bpm_token(gen.vocab, args.bpm),
@@ -146,15 +175,14 @@ def _generate(args) -> int:
         print("note: dropped prompt tokens not in this checkpoint's "
               f"vocabulary: {dropped}")
         prompt = [t for t in prompt if t in gen.vocab]
-    penalties = (args.repetition_penalty, args.frequency_penalty,
-                 args.presence_penalty)
-    tokens = gen.sample_kvcache(
-        prompt, max_len=args.max_len, temperature=args.temperature,
-        top_k=args.top_k, seed=args.seed, top_p=args.top_p, min_p=args.min_p,
-        penalties=None if penalties == (1.0, 0.0, 0.0) else penalties,
-        no_repeat_ngram=args.no_repeat_ngram)
+    tokens = gen.sample_kvcache(prompt, **sampling)
     print("Generated token snippet:", tokens[:20], "...")
-    song = tokens_to_song(tokens)
+    return _write_song(args, tokens_to_song(tokens), device)
+
+
+def _write_song(args, song, device) -> int:
+    from .audio import render_to_wav
+
     song.write(args.out)
     print("MIDI saved ->", args.out)
     if args.wav:
@@ -166,8 +194,8 @@ def _generate(args) -> int:
 def _add_generate(sub) -> None:
     g = sub.add_parser("generate", help="generate MIDI (batch/interactive)")
     g.add_argument("--checkpoint", default=None,
-                   help="checkpoint dir (default: eamg_tpu/serve/"
-                        "demo_ckpt_a)")
+                   help="checkpoint dir, Scheme A or B3 (default: "
+                        "eamg_tpu/serve/demo_ckpt_a)")
     g.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")
@@ -220,8 +248,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--checkpoint", default=None,
-                   help="checkpoint dir (default: eamg_tpu/serve/"
-                        "demo_ckpt_a)")
+                   help="checkpoint dir, Scheme A or B3 (default: "
+                        "eamg_tpu/serve/demo_ckpt_a)")
     s.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")

@@ -302,7 +302,10 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
                     int R, int NK, int nslot) {
   namespace cg = cooperative_groups;
   constexpr int VE = 16 / sizeof(T);  // elements in 16 bytes
-  constexpr int LPR = DH / VE;        // lanes on a (key, KV head) row
+  constexpr int NVR = DH / VE;        // 16-byte vectors of a (key, KV head)
+  // lanes on such a row, a power of two for the shuffle tree (Dh 48: 6
+  // vectors of bf16 on 8 lanes, 12 of f32 on 16, the rest idle)
+  constexpr int LPR = dk::lanes_for(NVR);
   constexpr int RPW = 32 / LPR;       // such rows a warp loads at once
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -370,18 +373,20 @@ fold_cluster_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     const T* ks = slot + (size_t)(c % nslot) * NK * RW;
     const int pairs = min(NK, n - c * NK) * Hkv;
     const int sub = lane % LPR;
+    const bool on = sub < NVR;   // a lane with a vector of the row
     for (int base = warp * RPW; base < pairs; base += NW_CL * RPW) {
       const int it = base + lane / LPR;
       const bool ok = it < pairs;
       const int jj = ok ? it / Hkv : 0, hk = ok ? it % Hkv : 0;
       float kf[VE];
-      load16(ks + (size_t)jj * RW + hk * DH + sub * VE, kf);
+      if (on) load16(ks + (size_t)jj * RW + hk * DH + sub * VE, kf);
       for (int gi = 0; gi < g; ++gi) {
         const int h = hk * g + gi;
         const float* qh = qs + h * DH + sub * VE;
         float a = 0.f;
+        if (on)
 #pragma unroll
-        for (int e = 0; e < VE; ++e) a += qh[e] * kf[e];
+          for (int e = 0; e < VE; ++e) a += qh[e] * kf[e];
 #pragma unroll
         for (int w = LPR / 2; w > 0; w >>= 1)
           a += __shfl_xor_sync(0xffffffffu, a, w);
@@ -562,6 +567,7 @@ int by_instance(int dtype, int Dh, bool before, F&& f) {
     };
     switch (Dh) {
       case 32: return with_dh(Int<32>{});
+      case 48: return with_dh(Int<48>{});
       case 64: return with_dh(Int<64>{});
       case 128: return with_dh(Int<128>{});
       default: return (int)cudaErrorInvalidValue;
@@ -575,7 +581,8 @@ int by_instance(int dtype, int Dh, bool before, F&& f) {
 }  // namespace
 
 // flash_decode_fold and _fold2 (before 0) and flash_decode_fold3 (before
-// 1): a cluster of C blocks per batch row (C 1, 2, 4, 8 or 16); block rank
+// 1): a cluster of C blocks per batch row (C 1, 2, 4, 8 or 16), Dh 32, 48,
+// 64 or 128; block rank
 // r of row b takes the keys [r * Rt, (r + 1) * Rt) of the row's valid
 // t[b] + 1, Rt = ceil((t[b] + 1) / C), cut at t[b] + 1, staged by every
 // thread's 16-byte copies. q_stride: elements between the rows of q (a

@@ -16,7 +16,12 @@ it issued every kernel of every step; it looks at the state once a block.
 A graph is keyed as JAX's ``jit`` is: by what fixes the shapes and the
 code of a step (batch, ``max_len``, ``attn_impl``, ``top_k``, greedy, which
 filters are on, the dtype), never by the values a request fills in
-(:func:`state_for`). On the CPU the same block function runs eagerly, so
+(:func:`state_for`). The streamed decode (``decode/stream.py``) keys a
+solo state of its own, as JAX's ``_decode_chunk`` is a program of its own:
+its graph is one chunk of steps over a cache of ``max_len + chunk`` slots,
+and a stream holds its state while its consumer reads, so streams take
+their states from a pool (:func:`pooled`). On the CPU the same block
+function runs eagerly, so
 the CPU tests run the code that the card captures. No environment variable
 and no fallback turns the graphs off: ``eager=True`` (a keyword the
 served paths never pass) runs a block eagerly on the card too, for a
@@ -41,8 +46,9 @@ from ..ops import _build
 # one chunk, of the engine's own length.
 BLOCK = 32
 # decode states (each with its graphs) kept at once, the least recently
-# used dropped first
+# used dropped first; the free states a pooled key keeps
 MAX_STATES = 32
+MAX_POOL = 4
 _states: OrderedDict = OrderedDict()
 _states_lock = threading.Lock()
 # graphs captured and replays run in this process, with the capture modes
@@ -132,6 +138,41 @@ def state_for(key: tuple, make):
                 _states.popitem(last=False)
         _states.move_to_end(key)
         return st
+
+
+@contextlib.contextmanager
+def pooled(key: tuple, make):
+    """A decode state of ``key`` for the caller alone while the block
+    runs: a free one of the key's, or a new one (``make()``, whose graph is
+    captured at its first run) when every one is held. A streamed decode
+    holds its state while its consumer reads the tokens, so two streams of
+    one key never wait for each other, however slowly either is read. At
+    most :data:`MAX_POOL` free states are kept a key, and the keys count
+    towards :data:`MAX_STATES` as :func:`state_for`'s do."""
+    with _states_lock:
+        free = _pool(key)
+        st = free.pop() if free else None
+    if st is None:
+        st = make()
+    try:
+        yield st
+    finally:
+        with _states_lock:
+            free = _pool(key)
+            if len(free) < MAX_POOL:
+                free.append(st)
+
+
+def _pool(key: tuple) -> list:
+    """The free states of a pooled key, most recently used; under
+    ``_states_lock``."""
+    free = _states.get(("pool", key))
+    if free is None:
+        free = _states[("pool", key)] = []
+        while len(_states) > MAX_STATES:
+            _states.popitem(last=False)
+    _states.move_to_end(("pool", key))
+    return free
 
 
 def side_stream(device):

@@ -90,11 +90,14 @@ def _count(counts, nxt: torch.Tensor, active: torch.Tensor):
 
 
 class SoloLoop:
-    """``generate_kv``'s state on the device for one graph key, and the
+    """The state on the device of a solo decode (``generate_kv`` and the
+    streamed decode of ``decode/stream.py``) for one graph key, and the
     graph of a block of its steps. Every tensor keeps its address across
-    requests; a request refills the values (:func:`generate_kv`).
+    requests; a request refills the values (:func:`_begin`).
 
-    ``buf`` [B, max_len + 1] int64: the token buffer and a last column
+    ``cache`` holds ``slots`` positions (``max_len`` unless given; the
+    stream's holds ``max_len + chunk``, as JAX's does); ``buf`` [B,
+    max_len + 1] int64: the token buffer and a last column
     that the steps after ``max_len`` write into (the block's overrun,
     dropped); ``pos`` [1] int64: the next write position; ``inert`` [1]
     int64: the steps run after every row was done, which JAX's loop would
@@ -109,7 +112,8 @@ class SoloLoop:
                  max_len: int, device, attn_impl: str, top_k: int,
                  greedy: bool, mask_value: float, eos_id: int, pad_id: int,
                  top_p_on: bool, min_p_on: bool, pen_on: bool, ngram: int,
-                 block: int = graphs.BLOCK, eager: bool = False,
+                 block: int = graphs.BLOCK, slots: int | None = None,
+                 eager: bool = False,
                  capture_error_mode: str = "thread_local"):
         dev = torch.device(device)
         self.params, self.cfg, self.max_len = params, cfg, max_len
@@ -123,7 +127,7 @@ class SoloLoop:
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        self.cache = init_kv_cache(cfg, B, max_len, device=dev,
+        self.cache = init_kv_cache(cfg, B, slots or max_len, device=dev,
                                    layout=cache_layout(attn_impl, cfg))
         self.buf = zeros((B, max_len + 1), torch.int64)
         self.tokens = self.buf[:, :max_len]
@@ -170,6 +174,28 @@ class SoloLoop:
             self.pos.add_(1)
 
 
+def solo_state(params: dict, cfg: GPTConfig, batch: int, max_len: int,
+               device, attn_impl: str, top_k: int, greedy: bool,
+               mask_value: float, eos_id: int, pad_id: int, top_p, min_p,
+               penalties, no_repeat_ngram: int, block: int,
+               slots: int | None = None, eager: bool = False,
+               capture_error_mode: str = "thread_local") -> tuple:
+    """-> (the graph key of a :class:`SoloLoop`, a function that makes
+    one). The key holds what fixes the shapes and the code of a step, as
+    JAX's ``static_argnames`` do, never a value that a request fills in."""
+    top_p_on = top_p is not None and float(top_p) < 1.0
+    min_p_on = min_p is not None and float(min_p) > 0.0
+    cache_layout(attn_impl, cfg)                 # refuse a bad name first
+    args = (cfg, int(batch), int(max_len), torch.device(device), attn_impl,
+            int(top_k), bool(greedy), float(mask_value), int(eos_id),
+            int(pad_id), top_p_on, min_p_on, bool(_penalty_args(penalties)),
+            int(no_repeat_ngram or 0))
+    key = ("solo", id(params), *args, int(block), slots, bool(eager))
+    return key, lambda: SoloLoop(params, *args, block=int(block),
+                                 slots=slots, eager=eager,
+                                 capture_error_mode=capture_error_mode)
+
+
 @torch.no_grad()
 def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                 cfg: GPTConfig, max_len: int, temperature: float = 1.0,
@@ -195,30 +221,31 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
     assert cfg.pos_broadcast_bug or max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
         f"(n_pos={cfg.n_pos}); cap decode length at cfg.n_pos")
-    dev = prompt.device
-    pen = _penalty_args(penalties)
-    ngram = int(no_repeat_ngram or 0)
-    top_p_on = top_p is not None and float(top_p) < 1.0
-    min_p_on = min_p is not None and float(min_p) > 0.0
-    cache_layout(attn_impl, cfg)                 # refuse a bad name first
-    key = ("solo", id(params), cfg, B, max_len, str(dev), attn_impl,
-           int(top_k), bool(greedy), float(mask_value), int(eos_id),
-           int(pad_id), top_p_on, min_p_on, bool(pen), ngram, graphs.BLOCK,
-           bool(eager))
-    st = graphs.state_for(key, lambda: SoloLoop(
-        params, cfg, B, max_len, dev, attn_impl, int(top_k), bool(greedy),
-        float(mask_value), int(eos_id), int(pad_id), top_p_on, min_p_on,
-        bool(pen), ngram, block=graphs.BLOCK, eager=eager,
-        capture_error_mode=capture_error_mode))
+    key, make = solo_state(params, cfg, B, max_len, prompt.device, attn_impl,
+                           top_k, greedy, mask_value, eos_id, pad_id, top_p,
+                           min_p, penalties, no_repeat_ngram, graphs.BLOCK,
+                           eager=eager, capture_error_mode=capture_error_mode)
+    st = graphs.state_for(key, make)
     with st.lock, graphs.on_stream(st.stream):
-        return _run(st, prompt, prompt_len, rng, temperature, top_p, min_p,
-                    penalties, refeed_last_prompt, presplit_keys)
+        pos0, keys = _begin(st, prompt, prompt_len, rng, temperature, top_p,
+                            min_p, penalties, refeed_last_prompt,
+                            presplit_keys)
+        run = 0
+        for run, _ in enumerate(_blocks(st, pos0, keys), 1):
+            pass
+        tokens = st.tokens.clone()
+        return tokens, min(pos0 + run * st.block - int(st.inert.item()),
+                           max_len)
 
 
-def _run(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
-         min_p, penalties, refeed: bool, presplit: bool):
-    """One request on ``st``: prefill into its cache, the start of the
-    loop written into its state, then its blocks; -> (tokens, n)."""
+def _begin(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
+           min_p, penalties, refeed: bool, presplit: bool) -> tuple:
+    """The start of one request on ``st``: prefill into its cache and the
+    start of the loop written into its state. Without ``refeed`` the first
+    token is sampled from the prefill logits with one split of ``rng``
+    (``refeed_last_prompt=False``, and JAX's stream). -> (the position the
+    first block writes, the blocks' step keys: :func:`_key_blocks`, None
+    when greedy)."""
     cfg, max_len = st.cfg, st.max_len
     B, P = prompt.shape
     logits0, _ = prefill(st.params, prompt, cfg, st.cache,
@@ -256,25 +283,37 @@ def _run(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
             _count(st.counts, first, torch.ones_like(st.done))
     st.pos.fill_(pos0)
     st.inert.zero_()
-
-    n_blocks = max(-(-(max_len - pos0) // st.block), 0)
     keys = None if st.greedy else _key_blocks(rng0, pos0, max_len, presplit,
                                              st.block)
+    return pos0, keys
+
+
+def _blocks(st: SoloLoop, pos0: int, keys, emit: bool = False):
+    """Replay one request's blocks on ``st``: a generator of one item a
+    block, after its replay. With ``emit`` the item is the block's tokens
+    before ``max_len`` and then the inert count, [B, n + 1] on the host in
+    one copy; else None. It looks at the state once a block (not after the
+    last one, nor when no row can end) and stops once every row is done."""
+    B, L = st.buf.shape[0], st.max_len
+    n_blocks = max(-(-(L - pos0) // st.block), 0)
     block_keys = next(keys) if keys is not None and n_blocks else None
-    run = 0
-    for run in range(1, n_blocks + 1):
+    for run in range(n_blocks):
         if keys is not None:
             graphs.load_keys(st.keys, block_keys)
         st.graph.run()
-        if run == n_blocks:
-            break
-        if keys is not None:
-            block_keys = next(keys)        # on the host, while it runs
-        if st.eos_id >= 0 and int(st.inert.item()) > 0:
-            break                          # every row is done
-    tokens = st.tokens.clone()
-    return tokens, min(pos0 + run * st.block - int(st.inert.item()),
-                       max_len)
+        last = run + 1 == n_blocks
+        if keys is not None and not last:
+            block_keys = next(keys)            # on the host, while it runs
+        host = None
+        if emit:
+            start = pos0 + run * st.block
+            host = torch.cat((st.buf[:, start:min(start + st.block, L)],
+                              st.inert.expand(B, 1)), 1).cpu().numpy()
+        yield host
+        if last or st.eos_id < 0:
+            continue
+        if (int(host[0, -1]) if emit else int(st.inert.item())) > 0:
+            return                             # every row is done
 
 
 @torch.no_grad()
@@ -288,22 +327,30 @@ def generate_full(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
     re-encodes the whole prefix through ``forward_masked`` at one shape,
     [B, max_len - 1] with the first ``pos`` positions valid. Arguments and
     result as :func:`generate_kv`; a key is split off every step, and the
-    loop looks at the rows' done flags every step."""
+    loop looks at the rows' done flags every step. The temperature and the
+    penalties go to the sampler as tensors on the device, filled once: JAX
+    traces them, so it divides by them, where a division by a host float
+    is a multiply by its reciprocal on CUDA."""
     B = prompt.shape[0]
+    dev = prompt.device
     T = max_len - 1   # the reference never re-encodes the final token
     pen = _penalty_args(penalties)
     ngram = int(no_repeat_ngram or 0)
     buf, counts = _start(prompt, prompt_len, max_len, pad_id, cfg.vocab_size,
                          pen)
-    done = torch.zeros((B,), dtype=torch.bool, device=prompt.device)
+    temp = torch.full((1,), float(temperature), dtype=torch.float32,
+                      device=dev)
+    pen_t = penalty_tensor(penalties, dev) if pen else None
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
     pos = prompt_len
     while pos < max_len and not bool(done.all()):
         rng, sub = prng.split(rng)
         logits = forward_masked(params, buf[:, :T], cfg, valid_len=pos)
         last_logits = apply_no_repeat_ngram(logits[:, pos - 1], buf, pos,
                                             ngram, mask_value)
-        nxt = sample_token(sub, last_logits, temperature, top_k, mask_value,
-                           greedy, top_p, min_p, counts=counts, **pen)
+        nxt = sample_token(sub, last_logits, temp, top_k, mask_value,
+                           greedy, top_p, min_p, counts=counts,
+                           penalties=pen_t)
         if pen:
             counts = _count(counts, nxt, ~done)
         buf[:, pos] = torch.where(done, pad_id, nxt)

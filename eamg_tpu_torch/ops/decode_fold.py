@@ -131,7 +131,8 @@ def decode_attention_pm_plain(q: torch.Tensor, kv: torch.Tensor, t,
 
 
 # Dh that the cluster kernel of flash_decode_fold, _fold2 and _fold3 takes
-CLUSTER_DH = (32, 64, 128)
+# (48: demo_ckpt_b3's heads)
+CLUSTER_DH = (32, 48, 64, 128)
 
 
 def _check_fold(name: str, q: torch.Tensor, kv: torch.Tensor, n_head: int,

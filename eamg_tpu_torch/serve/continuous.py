@@ -27,9 +27,14 @@ positions and done flags in one tensor), copied without blocking into
 pinned host memory and awaited through an event. The worker and the
 detached decode issue on streams of their own.
 
-Not in the port yet: medusa rows (``medusa_chunk``), grammar, n-gram bans,
-penalties and ``submit_stream``; ``accepts`` turns such requests away, and
-the pipeline then decodes them on the solo path.
+``submit_stream`` is the streaming twin of ``submit``: the worker pushes a
+row's new tokens at every harvest, and their concatenation is
+``submit()``'s result less the prompt. A stream closed mid-way cancels its
+row, which frees its slot at the next chunk boundary.
+
+Not in the port yet: medusa rows (``medusa_chunk``), grammar, n-gram bans
+and penalties; ``accepts`` turns such requests away, and the pipeline then
+decodes them on the solo path.
 """
 
 from __future__ import annotations
@@ -242,9 +247,13 @@ class _Pending:
     event: threading.Event = field(default_factory=threading.Event)
     result: list | None = None
     error: Exception | None = None
-    # set by the client thread (submit timed out); the worker frees the
-    # slot at the next chunk boundary
+    # set by the client thread (submit timed out, or its stream closed);
+    # the worker frees the slot at the next chunk boundary
     cancelled: bool = False
+    # streamed rows (submit_stream): ("tokens", ids) / ("done", result) /
+    # ("error", exc) items; emitted = buffer positions already delivered
+    stream_q: queue.Queue | None = None
+    emitted: int = 0
 
 
 class ContinuousBatcher:
@@ -374,6 +383,23 @@ class ContinuousBatcher:
             raise ValueError(
                 "engine needs per_row_sampling mode for min_p requests")
 
+    def _request(self, prompt_ids, temperature, seed, max_len, top_k,
+                 greedy, top_p, min_p, penalties, no_repeat_ngram, grammar,
+                 medusa) -> _Pending | None:
+        """A request checked against the engine, or None when its prompt
+        leaves no step to generate."""
+        self._validate_params(top_k, greedy, top_p, min_p, penalties,
+                              no_repeat_ngram, grammar, medusa)
+        ml = int(min(max_len or self.max_len, self.max_len))
+        if len(prompt_ids) >= ml:
+            return None
+        return _Pending(list(prompt_ids), float(temperature),
+                        int(seed) if seed is not None
+                        else int(time.time_ns() % 2**31), ml,
+                        submitted=time.monotonic(),
+                        top_p=float(top_p) if top_p is not None else 1.0,
+                        min_p=float(min_p) if min_p is not None else 0.0)
+
     def submit(self, prompt_ids: list[int], temperature: float = 1.0,
                seed: int | None = None, max_len: int | None = None,
                timeout: float = 600.0, top_k: int | None = None,
@@ -383,17 +409,11 @@ class ContinuousBatcher:
                penalties: tuple | None = None,
                no_repeat_ngram: int = 0, grammar: bool = False,
                medusa: bool = False) -> list:
-        self._validate_params(top_k, greedy, top_p, min_p, penalties,
-                              no_repeat_ngram, grammar, medusa)
-        ml = int(min(max_len or self.max_len, self.max_len))
-        if len(prompt_ids) >= ml:
+        req = self._request(prompt_ids, temperature, seed, max_len, top_k,
+                            greedy, top_p, min_p, penalties,
+                            no_repeat_ngram, grammar, medusa)
+        if req is None:
             return list(prompt_ids)  # zero generation steps (reference)
-        req = _Pending(list(prompt_ids), float(temperature),
-                       int(seed) if seed is not None
-                       else int(time.time_ns() % 2**31), ml,
-                       submitted=time.monotonic(),
-                       top_p=float(top_p) if top_p is not None else 1.0,
-                       min_p=float(min_p) if min_p is not None else 0.0)
         self._enqueue(req)
         if not wait_for_worker(req.event, self._thread, timeout):
             self._request_cancel(req)  # free the slot; nobody is waiting
@@ -402,8 +422,63 @@ class ContinuousBatcher:
             raise req.error
         return req.result
 
-    def submit_stream(self, *args, **kwargs):
-        raise NotInPort("streamed engine rows (submit_stream)")
+    def submit_stream(self, prompt_ids: list[int], temperature: float = 1.0,
+                      seed: int | None = None, max_len: int | None = None,
+                      timeout: float = 600.0, top_k: int | None = None,
+                      greedy: bool | None = None,
+                      top_p: float | None = None,
+                      min_p: float | None = None,
+                      penalties: tuple | None = None,
+                      no_repeat_ngram: int = 0, grammar: bool = False,
+                      medusa: bool = False):
+        """Generator of lists of newly generated token ids as the engine's
+        chunks complete: the streaming twin of :meth:`submit`. The deltas,
+        concatenated, equal ``submit()``'s result less the prompt, bit for
+        bit (the same per-row key chain; a token surfaces one harvest, at
+        most two chunks, after it is made). An over-length prompt streams
+        no delta. ``timeout`` bounds the wait for each delta.
+
+        Validation and enqueue happen at call time, as in :meth:`submit`:
+        the row joins the decode whether or not the returned generator is
+        ever pulled. Closing the generator cancels the row."""
+        req = self._request(prompt_ids, temperature, seed, max_len, top_k,
+                            greedy, top_p, min_p, penalties,
+                            no_repeat_ngram, grammar, medusa)
+        if req is None:
+            return iter(())  # zero generation steps
+        req.stream_q = queue.Queue()
+        req.emitted = len(prompt_ids)
+        self._enqueue(req)
+        return self._consume_stream(req, timeout)
+
+    def _consume_stream(self, req: _Pending, timeout: float):
+        try:
+            while True:
+                deadline = time.monotonic() + timeout
+                while True:
+                    try:
+                        kind, payload = req.stream_q.get(timeout=min(
+                            1.0, max(deadline - time.monotonic(), 0.0)))
+                        break
+                    except queue.Empty:
+                        if not self._thread.is_alive():
+                            raise RuntimeError("the batching worker thread "
+                                               "is not running") from None
+                        if time.monotonic() >= deadline:
+                            self._request_cancel(req)
+                            raise TimeoutError("generation timed out") \
+                                from None
+                if kind == "tokens":
+                    yield payload
+                elif kind == "done":
+                    return
+                else:
+                    raise payload
+        except GeneratorExit:
+            # the consumer closed the stream (an SSE client went away):
+            # free the row so queued requests get the slot
+            self._request_cancel(req)
+            raise
 
     def overloaded(self) -> bool:
         """Cheap admission pre-check."""
@@ -544,13 +619,27 @@ class ContinuousBatcher:
         describes the slot's previous life (free slots read done=True)."""
         arr = _finish_fetch(fetch)
         buf, pos, done = arr[:, :-2], arr[:, -2], arr[:, -1].astype(bool)
-        for slot, req in list(self._live.items()):
-            if req.admit_seq >= seq or not done[slot]:
+        eligible = [(s, r) for s, r in self._live.items() if r.admit_seq < seq]
+        # a streamed row's new tokens: the cells of a row below pos are
+        # written once and never again, so reading them from this snapshot
+        # is final while the row keeps decoding
+        for slot, req in eligible:
+            if req.stream_q is None:
+                continue
+            end = min(int(pos[slot]), req.max_len)
+            if end > req.emitted:
+                req.stream_q.put(("tokens",
+                                  buf[slot, req.emitted:end].tolist()))
+                req.emitted = end
+        for slot, req in eligible:
+            if not done[slot]:
                 continue
             del self._live[slot]
             req.result = buf[slot, :min(int(pos[slot]),
                                         req.max_len)].tolist()
             req.finished = time.monotonic()
+            if req.stream_q is not None:
+                req.stream_q.put(("done", req.result))
             req.event.set()
             self._free.append(slot)
             self.stats["served"] += 1
@@ -577,6 +666,8 @@ class ContinuousBatcher:
         transient error must not wedge the server."""
         for req in self._live.values():
             req.error = exc
+            if req.stream_q is not None:
+                req.stream_q.put(("error", exc))
             req.event.set()
         self._live.clear()
         self._free = list(range(self.slots))
@@ -589,6 +680,8 @@ class ContinuousBatcher:
                 self._q.put(None)  # preserve the shutdown signal
                 break
             req.error = exc
+            if req.stream_q is not None:
+                req.stream_q.put(("error", exc))
             req.event.set()
         reset_state(self.state)
 

@@ -1,8 +1,21 @@
 """End-to-end request pipeline: text -> emotion -> prompt -> MIDI -> WAV.
 
-Port of ``eamg_tpu/serve/pipeline.py`` for the Scheme-A path: classify,
-EATS-map, assemble control tokens, decode, detokenize, render. Per-phase
-wall-clock timings are returned as in the JAX package.
+Port of ``eamg_tpu/serve/pipeline.py``: classify, EATS-map, assemble
+control tokens, decode, detokenize, render. Per-phase wall-clock timings
+are returned as in the JAX package. Two token schemes are served, as
+there: Scheme A (text control tokens, ``demo_ckpt_a``) and Scheme B3 (a
+``[START_SEQ] BPM_x KEY_y`` prefix, an id-level decode and the id -> MIDI
+detokenizer, ``demo_ckpt_b3``). B3 serves solo: the batchers are wired
+for the Scheme-A flow, so ``coalesce`` is switched off for it, as in the
+JAX package.
+
+``generate_sections`` classifies each sentence of the prompt and decodes
+a section for it, the sections laid end to end. ``generate_stream`` is
+the incremental twin of both, a generator of the events the SSE server
+sends: a ``meta`` event per section, ``tokens`` deltas as the decode's
+chunks complete (the solo stream of ``decode/stream.py``, or an engine
+row's ``submit_stream``), and a ``done`` event with the MIDI (and WAV)
+as base64.
 
 The decode takes one of three routes, as in the JAX package. With
 ``coalesce="continuous"`` requests go through the persistent engine
@@ -22,13 +35,13 @@ per pipeline serialises the solo decode and the synth; it is not held
 while a request waits in the engine or the batcher, or requests would
 never coalesce.
 
-Not in the port yet (requests asking for them raise ``NotInPort``): B3
-checkpoints, multi-section and streamed generation, beams, the speculative
-modes (lookup, medusa) and grammar constraints.
+Not in the port yet (requests asking for them raise ``NotInPort``): beams,
+the speculative modes (lookup, medusa) and grammar constraints.
 """
 
 from __future__ import annotations
 
+import base64
 import io
 import os
 import threading
@@ -39,16 +52,49 @@ import torch
 
 from ..audio import render_to_wav_auto
 from ..decode import Generator
-from ..emotion import EmotionClassifier, get_music_params
-from ..tokenizer import Vocab, assemble_prompt, detect_scheme, tokens_to_song
+from ..emotion import EmotionClassifier, get_music_params, segment_text
+from ..midi.smf import MidiSong, Note
+from ..tokenizer import (SchemeB3, Vocab, assemble_prompt, detect_scheme,
+                         tokens_to_song)
 from ..utils.checkpoint import load_checkpoint
 from ..utils.device import resolve_device
 from ..utils.errors import NotInPort
 
 # the JAX package's shipped demo checkpoints, read as data
-DEMO_CKPT_A = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "eamg_tpu", "serve",
-    "demo_ckpt_a")
+_DEMOS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "eamg_tpu", "serve")
+DEMO_CKPT_A = os.path.join(_DEMOS, "demo_ckpt_a")
+DEMO_CKPT_B3 = os.path.join(_DEMOS, "demo_ckpt_b3")
+
+
+def _merge_song(merged: MidiSong, by_track: dict, song: MidiSong,
+                offset: float) -> None:
+    """Append ``song``'s notes into ``merged`` shifted by ``offset``
+    seconds, pooling instruments by (program, is_drum)."""
+    for inst in song.instruments:
+        key = (inst.program, inst.is_drum)
+        tgt = by_track.get(key)
+        if tgt is None:
+            tgt = type(inst)(program=inst.program, is_drum=inst.is_drum,
+                             name=inst.name)
+            by_track[key] = tgt
+            merged.instruments.append(tgt)
+        tgt.notes.extend(Note(n.velocity, n.pitch, n.start + offset,
+                              n.end + offset) for n in inst.notes)
+
+
+class _Sections:
+    """Sections' songs laid end to end on the time axis, ``gap_s`` apart,
+    instruments pooled by (program, is_drum): ``song`` so far."""
+
+    def __init__(self, gap_s: float):
+        self.song, self.gap_s = MidiSong(), gap_s
+        self._by_track: dict = {}
+        self._offset = 0.0
+
+    def add(self, song: MidiSong) -> None:
+        _merge_song(self.song, self._by_track, song, self._offset)
+        self._offset = self.song.get_end_time() + self.gap_s
 
 
 @dataclass
@@ -64,20 +110,28 @@ class GenerationResult:
 
 
 class Pipeline:
-    """Scheme-A serving: text control tokens; solo, window-coalesced or
-    continuous-engine decode."""
+    """scheme="a": text control tokens; solo, window-coalesced or
+    continuous-engine decode. scheme="b3": the BPM/KEY control prefix,
+    the id-level decode and the id -> MIDI detokenizer, solo."""
 
     def __init__(self, generator: Generator,
                  classifier: EmotionClassifier | None = None,
                  full_gm: bool = False, render_audio: bool = True,
                  coalesce=False, coalesce_opts: dict | None = None,
-                 fast_routing: bool = False):
+                 fast_routing: bool = False, scheme: str = "a",
+                 scheme_b: SchemeB3 | None = None):
         self.generator = generator
         self.device = generator.device
         self.classifier = classifier or EmotionClassifier(device=self.device)
         self.full_gm = full_gm
         self.render_audio = render_audio
-        self.scheme = "a"
+        self.scheme = scheme
+        if scheme == "b3" and scheme_b is None:
+            scheme_b = SchemeB3(seq_len=generator.cfg.seq_len)
+        self.scheme_b = scheme_b
+        if scheme != "a":
+            # the batchers are wired for the Scheme-A flow; B3 serves solo
+            coalesce = False
         self._lock = threading.Lock()
         # coalesce=True/"window" batches requests arriving within a window
         # into one ragged decode; "continuous" runs the persistent engine.
@@ -107,9 +161,11 @@ class Pipeline:
     def warmup(self) -> None:
         """Build the kernels and capture the decode's graphs before
         serving: one request through the route this pipeline serves; with a
-        continuous engine, one engine row and one detached decode too; with
-        the window batcher, one ragged decode at each batch size it pads a
-        group to."""
+        continuous engine, one engine row and one detached decode too (a
+        streamed request rides the engine's chunk); with the window batcher,
+        one ragged decode at each batch size it pads a group to; without
+        an engine, the first chunk of a solo stream, whose graph the
+        streamed requests replay."""
         self.generate("warm up the kernels", seed=0,
                       render_audio=self.render_audio)
         from .batcher import RequestBatcher
@@ -124,8 +180,12 @@ class Pipeline:
             self.batcher.submit(ids, temperature=1.0, seed=0,
                                 top_p=self.batcher.top_p)
             self.batcher.run_detached(ids, seed=0, top_p=self.batcher.top_p)
+            return
         if isinstance(self.batcher, RequestBatcher):
             self.batcher.warmup(ids)
+        deltas = self._stream_deltas(ids, 1.0, 50, 0)
+        next(deltas, None)
+        deltas.close()
 
     def _solo_ragged(self, prompt_ids: list, temperature: float, seed: int,
                      top_p: float, min_p: float) -> list:
@@ -156,16 +216,47 @@ class Pipeline:
             mask_value=b.mask_value, top_p=float(top_p), min_p=float(min_p))
         return buf[0, :int(pos[0])].tolist()
 
+    def _prompt_for(self, mapping: dict) -> tuple:
+        """mapping -> (prompt tokens, prompt ids, dropped tokens). B3: the
+        control prefix of the mapping's BPM and key. A: the assembled
+        control tokens; a data-dependent vocabulary may lack one, which
+        is dropped and reported (the reference crashed with a
+        KeyError)."""
+        if self.scheme == "b3":
+            ids = self.scheme_b.control_prefix(mapping["bpm"],
+                                               mapping["key"])
+            return self.scheme_b.vocab.decode(ids), ids, []
+        vocab = self.generator.vocab
+        gen_prompt = assemble_prompt(vocab, mapping, full_gm=self.full_gm)
+        known = [t for t in gen_prompt if t in vocab]
+        dropped = [t for t in gen_prompt if t not in vocab]
+        return known, vocab.encode(known), dropped
+
+    def _song(self, ids: list) -> tuple:
+        """Generated ids (prompt included) -> (token strings, MidiSong)."""
+        if self.scheme == "b3":
+            return (self.scheme_b.vocab.decode(ids),
+                    self.scheme_b.decode_to_song(ids))
+        tokens = self.generator.vocab.decode(ids)
+        return tokens, tokens_to_song(tokens)
+
     def _decode(self, mapping: dict, temperature: float, top_k: int,
                 run_seed: int, top_p: float, min_p: float,
                 penalties: tuple | None = None, no_repeat_ngram: int = 0):
+        """mapping -> (prompt tokens, tokens, song, dropped): prompt
+        assembly, decode and detokenization, shared by single-shot and
+        multi-section generation."""
         gen = self.generator
-        gen_prompt = assemble_prompt(gen.vocab, mapping,
-                                     full_gm=self.full_gm)
-        # a data-dependent vocabulary may lack a control token: drop it
-        # and report it (the reference crashed with a KeyError)
-        known = [t for t in gen_prompt if t in gen.vocab]
-        dropped = [t for t in gen_prompt if t not in gen.vocab]
+        known, prompt_ids, dropped = self._prompt_for(mapping)
+        if self.scheme == "b3":
+            with self._lock:
+                ids = gen.generate_ids(
+                    prompt_ids, temperature=temperature, top_k=top_k,
+                    seed=run_seed, top_p=top_p, min_p=min_p,
+                    penalties=penalties,
+                    no_repeat_ngram=no_repeat_ngram)[0].tolist()
+            tokens, song = self._song(ids)
+            return known, tokens, song, dropped
         use_batcher = self.batcher is not None and self.batcher.accepts(
             top_k=top_k, top_p=top_p, min_p=min_p, penalties=penalties,
             no_repeat_ngram=no_repeat_ngram)
@@ -223,28 +314,224 @@ class Pipeline:
             no_repeat_ngram)
         timings["decode"] = (time.perf_counter() - t0) * 1000
 
+        midi_bytes, wav_bytes = self._finish(song, seed, render, timings)
+        return GenerationResult(label=label, mapping=mapping,
+                                prompt_tokens=gen_prompt, tokens=tokens,
+                                midi_bytes=midi_bytes, wav_bytes=wav_bytes,
+                                timings_ms=timings, dropped_tokens=dropped)
+
+    def _section(self, i: int, text: str, seed: int | None,
+                 timings: dict) -> tuple:
+        """Section ``i`` of a prompt: its sentence classified (the time
+        added to ``timings["classify"]``) and EATS-mapped with seed + i, and
+        its decode seed. -> (label, mapping, run seed)."""
+        t0 = time.perf_counter()
+        label = self.classifier.predict(text)
+        timings["classify"] = (timings.get("classify", 0.0)
+                               + (time.perf_counter() - t0) * 1000)
+        mapping = get_music_params(label,
+                                   seed=None if seed is None else seed + i)
+        run_seed = (seed + i) if seed is not None else \
+            int(time.time_ns() % 2**31)
+        return label, mapping, run_seed
+
+    def _finish(self, song: MidiSong, seed: int | None, render: bool,
+                timings: dict) -> tuple:
+        """-> (the song's MIDI bytes, its WAV bytes when ``render`` else
+        None), each phase timed into ``timings``."""
         t0 = time.perf_counter()
         midi_io = io.BytesIO()
         song.write(midi_io)
         timings["detokenize_midi"] = (time.perf_counter() - t0) * 1000
-
         wav_bytes = None
         if render:
             t0 = time.perf_counter()
-            wav_io = io.BytesIO()
-            with self._lock:
-                render_to_wav_auto(song, wav_io, seed=seed or 0,
-                                   device=self.device)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-            wav_bytes = wav_io.getvalue()
+            wav_bytes = self._render(song, seed)
             timings["render_wav"] = (time.perf_counter() - t0) * 1000
+        return midi_io.getvalue(), wav_bytes
 
-        return GenerationResult(label=label, mapping=mapping,
-                                prompt_tokens=gen_prompt, tokens=tokens,
-                                midi_bytes=midi_io.getvalue(),
-                                wav_bytes=wav_bytes, timings_ms=timings,
-                                dropped_tokens=dropped)
+    def _render(self, song: MidiSong, seed: int | None) -> bytes:
+        """The song's WAV bytes (FluidSynth when the host has it, the
+        additive synth otherwise), under the pipeline's lock."""
+        wav_io = io.BytesIO()
+        with self._lock:
+            render_to_wav_auto(song, wav_io, seed=seed or 0,
+                               device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        return wav_io.getvalue()
+
+    def generate_sections(self, prompt_text: str, temperature: float = 1.0,
+                          top_k: int = 50, seed: int | None = None,
+                          render_audio: bool | None = None,
+                          gap_s: float = 0.5, top_p: float = 1.0,
+                          min_p: float = 0.0,
+                          penalties: tuple | None = None,
+                          no_repeat_ngram: int = 0) -> GenerationResult:
+        """Emotion-adaptive generation: each sentence of the prompt is
+        classified on its own and drives its own conditioned section
+        (seed + i for section i); the sections are laid end to end on the
+        time axis, ``gap_s`` apart. A prompt of one sentence is
+        :meth:`generate`."""
+        segments = segment_text(prompt_text)
+        if len(segments) <= 1:
+            return self.generate(prompt_text, temperature=temperature,
+                                 top_k=top_k, seed=seed,
+                                 render_audio=render_audio, top_p=top_p,
+                                 min_p=min_p, penalties=penalties,
+                                 no_repeat_ngram=no_repeat_ngram)
+        render = self.render_audio if render_audio is None else render_audio
+        timings = {}
+        t_all = time.perf_counter()
+        labels, mappings, all_tokens, all_prompts, dropped = \
+            [], [], [], [], []
+        merged = _Sections(gap_s)
+        for i, seg in enumerate(segments):
+            label, mapping, run_seed = self._section(i, seg, seed, timings)
+            gp, tokens, song, drop = self._decode(
+                mapping, temperature, top_k, run_seed, top_p, min_p,
+                penalties, no_repeat_ngram)
+            labels.append(label)
+            mappings.append(mapping)
+            all_tokens.extend(tokens)
+            all_prompts.extend(gp)
+            dropped.extend(drop)
+            merged.add(song)
+        timings["classify_map_decode_all"] = \
+            (time.perf_counter() - t_all) * 1000
+        midi_bytes, wav_bytes = self._finish(merged.song, seed, render,
+                                             timings)
+        return GenerationResult(
+            label=" / ".join(labels),
+            mapping={"sections": [
+                {"text": s, "label": lab, **m}
+                for s, lab, m in zip(segments, labels, mappings)]},
+            prompt_tokens=all_prompts, tokens=all_tokens,
+            midi_bytes=midi_bytes, wav_bytes=wav_bytes,
+            timings_ms=timings, dropped_tokens=dropped)
+
+    # ------------------------------------------------------------ streaming
+
+    def _stream_deltas(self, prompt_ids: list[int], temperature: float,
+                       top_k: int, run_seed: int, chunk: int = 32,
+                       top_p: float = 1.0, min_p: float = 0.0,
+                       penalties: tuple | None = None,
+                       no_repeat_ngram: int = 0, medusa: bool = False):
+        """Lists of newly generated token ids: an engine row's
+        (``submit_stream``) when a continuous engine runs and accepts the
+        request's sampling values, else the solo chunked stream
+        (``decode/stream.py``), ``chunk`` tokens a list."""
+        from ..decode.stream import stream_tokens
+        from .continuous import ContinuousBatcher
+
+        if medusa:
+            raise NotInPort("medusa")
+        gen = self.generator
+        if isinstance(self.batcher, ContinuousBatcher) \
+                and self.batcher.accepts(top_k=top_k, top_p=top_p,
+                                         min_p=min_p, penalties=penalties,
+                                         no_repeat_ngram=no_repeat_ngram):
+            yield from self.batcher.submit_stream(
+                prompt_ids, temperature=temperature, seed=run_seed,
+                top_k=top_k, top_p=top_p, min_p=min_p)
+            return
+        delta = []
+        for tok in stream_tokens(gen.params, gen.cfg, list(prompt_ids),
+                                 gen.max_supported_len(), chunk=chunk,
+                                 temperature=temperature, top_k=top_k,
+                                 eos_id=gen.eos_id, pad_id=gen.pad_id,
+                                 seed=run_seed, top_p=top_p, min_p=min_p,
+                                 penalties=penalties,
+                                 no_repeat_ngram=no_repeat_ngram,
+                                 eager=gen.eager):
+            delta.append(tok)
+            if len(delta) >= chunk:
+                yield delta
+                delta = []
+        if delta:
+            yield delta
+
+    def generate_stream(self, prompt_text: str, temperature: float = 1.0,
+                        top_k: int = 50, seed: int | None = None,
+                        render_audio: bool | None = None,
+                        sections: bool = False, chunk: int = 32,
+                        gap_s: float = 0.5, top_p: float = 1.0,
+                        min_p: float = 0.0,
+                        penalties: tuple | None = None,
+                        no_repeat_ngram: int = 0, medusa: bool = False):
+        """Incremental twin of :meth:`generate` / :meth:`generate_sections`:
+        a generator of JSON-able event dicts for SSE serving.
+
+        Events, in order: ``{"event": "meta"}`` once per section (the
+        emotion label and the EATS mapping, before any decode),
+        ``{"event": "tokens"}`` deltas as the decode's chunks complete,
+        and a last ``{"event": "done"}`` with the whole MIDI (and the WAV
+        when rendering) as base64."""
+        render = self.render_audio if render_audio is None else render_audio
+        segments = segment_text(prompt_text) if sections else [prompt_text]
+        if not segments:
+            segments = [prompt_text]
+        timings: dict = {}
+        t_all = time.perf_counter()
+        merged = _Sections(gap_s)
+        labels, all_tokens, all_prompts, dropped_all = [], [], [], []
+        eos = self.generator.eos_id
+        id2tok = (self.scheme_b.vocab if self.scheme == "b3"
+                  else self.generator.vocab).id2tok
+        for i, seg in enumerate(segments):
+            label, mapping, run_seed = self._section(i, seg, seed, timings)
+            gen_prompt, prompt_ids, dropped = self._prompt_for(mapping)
+            labels.append(label)
+            all_prompts.extend(gen_prompt)
+            dropped_all.extend(dropped)
+            yield {"event": "meta", "section": i,
+                   "n_sections": len(segments), "text": seg, "label": label,
+                   "mapping": mapping, "prompt_tokens": gen_prompt,
+                   "dropped_tokens": dropped}
+            ids = list(prompt_ids)
+            t0 = time.perf_counter()
+            hit_eos = False
+            deltas = self._stream_deltas(prompt_ids, temperature, top_k,
+                                         run_seed, chunk=chunk, top_p=top_p,
+                                         min_p=min_p, penalties=penalties,
+                                         no_repeat_ngram=no_repeat_ngram,
+                                         medusa=medusa)
+            try:
+                for delta in deltas:
+                    out = []
+                    for t in delta:
+                        out.append(int(t))
+                        if int(t) == eos:
+                            hit_eos = True
+                            break
+                    if not out:
+                        continue
+                    ids.extend(out)
+                    yield {"event": "tokens", "section": i, "ids": out,
+                           "texts": [id2tok[t] for t in out],
+                           "n_generated": len(ids) - len(prompt_ids)}
+                    if hit_eos:
+                        break
+            finally:
+                # a consumer that closes this generator (an SSE client gone)
+                # reaches the engine's stream now, which cancels its row
+                deltas.close()
+            timings["decode"] = (timings.get("decode", 0.0)
+                                 + (time.perf_counter() - t0) * 1000)
+            tokens, song = self._song(ids)
+            all_tokens.extend(tokens)
+            merged.add(song)
+
+        midi_bytes, wav_bytes = self._finish(merged.song, seed, render,
+                                             timings)
+        wav_b64 = None if wav_bytes is None else \
+            base64.b64encode(wav_bytes).decode()
+        timings["total"] = (time.perf_counter() - t_all) * 1000
+        yield {"event": "done", "label": " / ".join(labels),
+               "n_tokens": len(all_tokens),
+               "timings_ms": {k: round(v, 1) for k, v in timings.items()},
+               "midi_b64": base64.b64encode(midi_bytes).decode(),
+               "wav_b64": wav_b64, "dropped_tokens": dropped_all}
 
 
 def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
@@ -254,8 +541,10 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
                              fast_routing: bool = False,
                              eager: bool = False) -> Pipeline:
     """A serving pipeline from a checkpoint directory of the JAX package's
-    pickle format; Scheme-A vocabularies only so far. ``device`` None
-    means CUDA (raises without a card). ``coalesce``: False, "window" (or
+    pickle format; the token scheme is inferred from the vocabulary
+    (Scheme A, or B3 with its ``[END_SEQ]`` EOS; B1 and B2 have no control
+    tokens to condition on and are refused). ``device`` None means CUDA
+    (raises without a card). ``coalesce``: False, "window" (or
     True) or "continuous"; ``coalesce_opts`` go to the batcher. The decode
     replays CUDA graphs on the card; ``eager=True`` issues every step from
     the host instead, on every route, to compare the two (the CLI never
@@ -271,11 +560,21 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
     ckpt = load_checkpoint(path)
     vocab = Vocab(ckpt["vocab"])
     scheme = detect_scheme(vocab)
-    if scheme != "a":
-        raise NotInPort(f"serving Scheme-{scheme.upper()} checkpoints")
+    if scheme in ("b1", "b2"):
+        raise ValueError(
+            f"Scheme-{scheme.upper()} checkpoints have no control tokens "
+            "to condition on; serve a b3 (train_no_inst) or Scheme-A "
+            "checkpoint")
     if os.path.isfile(os.path.join(path, "medusa_heads.pkl")):
         print("[serve] medusa heads found; medusa decoding is not yet in "
               "the PyTorch port, plain decode only")
+    if scheme == "b3":
+        gen = Generator(ckpt["params"], ckpt["cfg"], vocab,
+                        eos_token="[END_SEQ]", device=device, eager=eager)
+        return Pipeline(gen, classifier, scheme="b3",
+                        scheme_b=SchemeB3(seq_len=ckpt["cfg"].seq_len),
+                        coalesce=coalesce, coalesce_opts=coalesce_opts,
+                        fast_routing=fast_routing)
     gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device,
                     eager=eager)
     return Pipeline(gen, classifier, full_gm=full_gm, coalesce=coalesce,

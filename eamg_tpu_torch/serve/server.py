@@ -4,15 +4,20 @@ Port of ``eamg_tpu/serve/server.py``: ``POST /generate`` with form field
 ``prompt`` (multipart or urlencoded), ``format=wav|midi`` (form field or
 query), and the sampling fields ``seed``, ``temperature``, ``top_k``,
 ``top_p``, ``min_p``, ``repetition_penalty``, ``frequency_penalty``,
-``presence_penalty`` and ``no_repeat_ngram`` (the last four decode solo);
-``GET /healthz``, ``GET /stats`` (with the engine's
-counters under ``engine`` when requests are coalesced) and the static page
-at ``GET /`` (the JAX package's ``serve/static/index.html``, read by
-path). Malformed input gets a 4xx, never a 500. A full admission queue
-(``EngineOverloaded``) gets a 503 with ``Retry-After``. A request that
-asks for an option the port does not have yet (sections, stream, lookup,
-medusa, beams, grammar) gets a 400 naming it;
-``/profile`` is a 404 until the port has its own trace capture.
+``presence_penalty`` and ``no_repeat_ngram`` (the last four decode solo),
+``sections`` (one conditioned section a sentence) and ``stream`` (form
+field or query: Server-Sent Events, a ``meta`` event a section, ``tokens``
+deltas as the decode's chunks complete, then ``done`` with the MIDI and
+WAV as base64, the page's default request); ``GET /healthz``, ``GET
+/stats`` (with the engine's counters under ``engine`` when requests are
+coalesced) and the static page at ``GET /`` (the JAX package's
+``serve/static/index.html``, read by path). Malformed input gets a 4xx,
+never a 500, and a stream's malformed number gets its 422 before the 200
+header is sent. A full admission queue (``EngineOverloaded``) gets a 503
+with ``Retry-After``, a stream's before its 200. A request that asks for
+an option the port does not have yet (lookup, medusa, beams, grammar)
+gets a 400 naming it, streamed or not; ``/profile`` is a 404 until the
+port has its own trace capture.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from pathlib import Path
 
 from ..utils.errors import NotInPort
 from ..utils.logging import JsonLogger, LatencyStats
-from .continuous import EngineOverloaded
+from .continuous import ContinuousBatcher, EngineOverloaded
 from .pipeline import Pipeline
 
 _STATIC_PAGE = (Path(__file__).resolve().parents[2] / "eamg_tpu" / "serve"
@@ -41,10 +46,10 @@ _CORS = {
 MAX_BODY_BYTES = 2 << 20
 MAX_PROMPT_CHARS = 20_000
 
-# request options the JAX server serves and the port does not yet: flags
-# (on as "1"/"true"/"yes", like the JAX server reads them) and numbers
-# with their neutral value
-_NOT_YET_FLAGS = ("sections", "stream", "lookup", "medusa", "grammar")
+# request options the JAX server serves and the port does not yet (the
+# speculative modes and grammar constraints): flags, on as "1"/"true"/"yes"
+# as the JAX server reads them, and numbers with their neutral value
+_NOT_YET_FLAGS = ("lookup", "medusa", "grammar")
 _NOT_YET_NUMBERS = {"beams": 0.0}
 
 
@@ -104,16 +109,19 @@ def _parse_ngram(fields) -> int:
     return n
 
 
+def _flag(fields: dict, qs: dict, name: str) -> bool:
+    """A flag from the query or the form, on as "1"/"true"/"yes"."""
+    return qs.get(name, [fields.get(name, "")])[0].strip().lower() in (
+        "1", "true", "yes")
+
+
 def _unsupported(fields: dict, qs: dict) -> str | None:
     """The first requested option the port does not serve yet."""
-    def value(name):
-        return qs.get(name, [fields.get(name, "")])[0].strip().lower()
-
     for name in _NOT_YET_FLAGS:
-        if value(name) in ("1", "true", "yes"):
+        if _flag(fields, qs, name):
             return name
     for name, neutral in _NOT_YET_NUMBERS.items():
-        raw = value(name)
+        raw = qs.get(name, [fields.get(name, "")])[0].strip().lower()
         try:
             if raw and float(raw) != neutral:
                 return name
@@ -181,6 +189,9 @@ class EAMGHandler(BaseHTTPRequestHandler):
     stats: LatencyStats = None
     logger: JsonLogger = None
     inflight: _InflightCounter = None
+    # seconds a socket read or write may block: a client that stops
+    # reading a stream fails its writes, which closes the stream
+    timeout = 120
 
     def log_message(self, fmt, *args):  # noqa: N802
         if not self.quiet:
@@ -295,8 +306,13 @@ class EAMGHandler(BaseHTTPRequestHandler):
             self._json(422, {"error": str(exc)})
             return
         t_start = time.perf_counter()
-        result = self.pipeline.generate(prompt, render_audio=fmt == "wav",
-                                        **sampling)
+        sections = _flag(fields, qs, "sections")
+        if _flag(fields, qs, "stream"):
+            self._stream_generate(prompt, sampling, fmt, sections, t_start)
+            return
+        gen_fn = (self.pipeline.generate_sections if sections
+                  else self.pipeline.generate)
+        result = gen_fn(prompt, render_audio=fmt == "wav", **sampling)
         self.stats.observe(time.perf_counter() - t_start,
                            tokens=len(result.tokens))
         timings = {k: round(v, 1) for k, v in result.timings_ms.items()}
@@ -313,6 +329,60 @@ class EAMGHandler(BaseHTTPRequestHandler):
             extra["Content-Disposition"] = \
                 'attachment; filename="generated.wav"'
             self._send(200, result.wav_bytes, "audio/wav", extra)
+
+    def _stream_generate(self, prompt, sampling, fmt, sections, t_start):
+        """``POST /generate?stream=1`` -> Server-Sent Events: one
+        ``data: {json}`` event a ``generate_stream`` event, flushed as it
+        comes. ``sampling`` arrives validated, so a malformed number has
+        had its 422 before the 200 header is sent here."""
+        # decide overload before committing to a 200 event stream; only a
+        # stream that would ride the engine is shed (a race with the row's
+        # enqueue becomes an SSE "error" event)
+        batcher = getattr(self.pipeline, "batcher", None)
+        if isinstance(batcher, ContinuousBatcher) \
+                and batcher.accepts(
+                    top_k=sampling["top_k"], top_p=sampling["top_p"],
+                    min_p=sampling["min_p"],
+                    penalties=sampling["penalties"],
+                    no_repeat_ngram=sampling["no_repeat_ngram"]) \
+                and batcher.overloaded():
+            batcher.stats["rejected"] += 1
+            self._send(503, json.dumps(
+                {"error": "engine admission queue full"}).encode(),
+                "application/json", {"Retry-After": "1"})
+            return
+        self.send_response(200)
+        for k, v in {**_CORS, "Content-Type": "text/event-stream",
+                     "Cache-Control": "no-cache"}.items():
+            self.send_header(k, v)
+        self.end_headers()
+        n_tokens, label = 0, ""
+        stream = self.pipeline.generate_stream(
+            prompt, render_audio=fmt == "wav", sections=sections, **sampling)
+        try:
+            for ev in stream:
+                if ev["event"] == "done":
+                    n_tokens, label = ev["n_tokens"], ev["label"]
+                self.wfile.write(b"data: " + json.dumps(ev).encode()
+                                 + b"\n\n")
+                self.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, TimeoutError):
+            # the client went away or stopped reading: close() below throws
+            # GeneratorExit down the generators, which cancels the engine
+            # row, so its slot frees instead of decoding to the end
+            return
+        except Exception as exc:  # pragma: no cover - defensive
+            err = {"event": "error", "error": f"{type(exc).__name__}: {exc}"}
+            try:
+                self.wfile.write(b"data: " + json.dumps(err).encode()
+                                 + b"\n\n")
+            except OSError:
+                pass
+            return
+        finally:
+            stream.close()
+        self.stats.observe(time.perf_counter() - t_start, tokens=n_tokens)
+        self.logger.log("generate_stream", emotion=label, n_tokens=n_tokens)
 
 
 def make_server(pipeline: Pipeline, host: str = "127.0.0.1",

@@ -94,11 +94,13 @@ WHOLE_ROWS = (2, 4)
 # shapes at which the wrappers of the cluster kernel are held to their
 # launch arguments: (B, n_head, kv_heads, M, Dh, dtype, resident clusters
 # of 16 the card reports): the batch bench's, GQA, MQA, a scalar-row batch,
-# a cache of one position, and a card that places no cluster of 16
+# a cache of one position, a card that places no cluster of 16, and
+# demo_ckpt_b3's heads (Dh 48, MHA, M 256) in both dtypes
 CLUSTER_LAUNCH_SHAPES = (
     (8, 8, 8, 511, 64, "bfloat16", 7), (4, 4, 2, 64, 32, "float32", 1),
     (4, 8, 1, 100, 128, "bfloat16", 3), (4, 16, 8, 4096, 64, "float32", 2),
-    (4, 2, 2, 1, 64, "bfloat16", 1), (8, 8, 8, 511, 64, "bfloat16", 0))
+    (4, 2, 2, 1, 64, "bfloat16", 1), (8, 8, 8, 511, 64, "bfloat16", 0),
+    (8, 4, 4, 256, 48, "bfloat16", 1), (4, 4, 4, 256, 48, "float32", 0))
 # the scalar-t cluster kernel of flash_decode and flash_decode_vmem: (t, M,
 # C) whose key spans are checked: t 0, fewer keys than blocks, a 256-key
 # boundary inside a span, the bench shape at t 300 and 510, t past the

@@ -99,7 +99,7 @@ CO_REQUESTS = [("I finally got the job, I am so happy!", 5, {}),
                ("my dog died and I cannot stop crying", 9, {"top_k": 7})]
 HTTP = {  # name: (status, what the body starts with or the error says)
     "wav": (200, b"RIFF"), "midi": (200, b"MThd"),
-    "stream": (400, "stream"), "beams": (400, "beams"),
+    "stream": (200, b"data: {"), "beams": (400, "beams"),
     # penalties and n-gram bans decode solo
     "penalty": (200, b"RIFF"), "ngram": (200, b"MThd"),
     "bad_ngram": (422, "no_repeat_ngram"), "bad_seed": (422, "seed"),

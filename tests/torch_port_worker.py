@@ -1694,10 +1694,311 @@ def task_bf16(inp, out):
         last = torch.full_like(last, int(tok))
     out["tf"] = torch.cat(steps).float().numpy()
 
+# ------------------------------------------------------------------- stream
+
+def _engine_stream_checks(inp, out, params, cfg):
+    """submit_stream's deltas beside submit() on one engine, three rows at
+    once; a stream closed after its first delta, on an engine whose rows
+    never end early (no EOS in its vocabulary)."""
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
+    from eamg_tpu_torch.tokenizer import Vocab
+
+    spec = json.loads(str(inp["engine"]))
+    reqs = json.loads(str(inp["engine_reqs"]))
+    max_len = int(inp["max_len"])
+    names = {i: f"t{i}" for i in range(cfg.vocab_size)}
+    names[0], names[int(inp["eos"])] = "[PAD]", "[END_SEQUENCE]"
+    gen = Generator(params, cfg, Vocab({t: i for i, t in names.items()}),
+                    device=CPU)
+    eng = ContinuousBatcher(gen, max_len=max_len, **spec)
+    deltas = {}
+    try:
+        def hit(i):
+            ids, seed, temp = reqs[i]
+            deltas[i] = list(eng.submit_stream(ids, temperature=temp,
+                                               seed=seed, timeout=WAIT))
+
+        _threads(hit, [(i,) for i in range(len(reqs))])
+        for i, (ids, seed, temp) in enumerate(reqs):
+            out[f"engine/{i}/deltas"] = np.asarray(
+                [t for d in deltas[i] for t in d], np.int64)
+            out[f"engine/{i}/n_deltas"] = np.asarray(len(deltas[i]))
+            out[f"engine/{i}/submit"] = np.asarray(eng.submit(
+                ids, temperature=temp, seed=seed, timeout=WAIT), np.int64)
+    finally:
+        eng.close()
+    gen = Generator(params, cfg, Vocab({f"t{i}": i
+                                        for i in range(cfg.vocab_size)}),
+                    device=CPU)
+    eng = ContinuousBatcher(gen, max_len=max_len, **spec)
+    try:
+        stream = eng.submit_stream(reqs[0][0], seed=1, timeout=WAIT)
+        out["cancel/first_delta"] = np.asarray(len(next(stream)))
+        stream.close()
+        _wait_until(lambda: eng.stats["cancelled"] == 1 and not eng._live,
+                    "the closed stream's slot")
+        out["cancel/cancelled"] = np.asarray(eng.stats["cancelled"])
+        out["cancel/served"] = np.asarray(eng.stats["served"])
+        out["cancel/free"] = np.asarray(len(eng._free))
+        out["cancel/after"] = np.asarray(len(eng.submit(
+            reqs[1][0], seed=2, timeout=WAIT)))
+    finally:
+        eng.close()
+
+
+def _stream_pipeline(inp, tag):
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.emotion import EmotionClassifier
+    from eamg_tpu_torch.serve import Pipeline
+    from eamg_tpu_torch.tokenizer import SchemeB3, Vocab
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    cfg = _cfg(inp, f"{tag}/cfg")
+    vocab = Vocab(json.loads(str(inp[f"{tag}/vocab"])))
+    params = params_from_jax(unflatten(inp, f"{tag}/p"))
+    clf = EmotionClassifier(device=CPU)
+    if tag == "b3":
+        gen = Generator(params, cfg, vocab, eos_token="[END_SEQ]",
+                        device=CPU)
+        return Pipeline(gen, clf, scheme="b3",
+                        scheme_b=SchemeB3(seq_len=cfg.seq_len))
+    gen = Generator(params, cfg, vocab, device=CPU)
+    if tag == "co":
+        return Pipeline(gen, clf, coalesce="continuous",
+                        coalesce_opts=json.loads(str(inp["co/engine"])))
+    return Pipeline(gen, clf)
+
+
+def _sse_checks(inp, out):
+    """The calls of test_torch_stream.py against an in-process server of
+    each pipeline; the contract's calls against the solo Scheme-A one."""
+    from eamg_tpu_torch.serve import (make_server, serve_forever_in_thread,
+                                      shutdown_gracefully)
+
+    calls = json.loads(str(inp["calls"]))
+    contract = json.loads(str(inp["contract"]))
+    for tag in ("a", "co", "b3"):
+        pipe = _stream_pipeline(inp, tag)
+        port = _free_port()
+        server = make_server(pipe, "127.0.0.1", port)
+        thread = serve_forever_in_thread(server)
+        todo = [(f"http/{tag}/{k}", v) for k, v in calls.items()]
+        if tag == "a":
+            todo += [(f"contract/{k}", v) for k, v in contract.items()]
+        try:
+            for key, (query, fields) in todo:
+                status, body, headers = _post_form(port, fields, query)
+                out[f"{key}/status"] = np.asarray(status)
+                out[f"{key}/type"] = np.asarray(
+                    headers.get("Content-Type", ""))
+                out[f"{key}/body"] = np.frombuffer(body, np.uint8)
+        finally:
+            server.shutdown()
+            shutdown_gracefully(server, pipe)
+            thread.join(timeout=30)
+
+
+def task_stream(inp, out):
+    """tests/test_torch_stream.py: the chunked stream, C2's uncached loop,
+    the engine's streams and the SSE server."""
+    import threading
+
+    from eamg_tpu_torch.decode.loop import generate_full, generate_kv
+    from eamg_tpu_torch.decode.stream import stream_tokens
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    cfg = _cfg(inp, "model/cfg")
+    params = params_from_jax(unflatten(inp, "model/p"))
+    max_len = int(inp["max_len"])
+    streams = json.loads(str(inp["streams"]))
+    for name, kw in streams.items():
+        kw = dict(kw)
+        prompt = kw.pop("prompt")
+        if "penalties" in kw:
+            kw["penalties"] = tuple(kw["penalties"])
+        out[f"stream/{name}"] = np.asarray(list(stream_tokens(
+            params, cfg, prompt, max_len, **kw)), np.int64)
+    # two streams of one graph key at once: the first held after its first
+    # token while the second runs to its end in another thread
+    held_name, other_name = json.loads(str(inp["stalled"]))
+
+    def start(name):
+        kw = dict(streams[name])
+        return stream_tokens(params, cfg, kw.pop("prompt"), max_len, **kw)
+
+    held = start(held_name)
+    first = [next(held)]
+    other = {}
+    thread = threading.Thread(
+        target=lambda: other.update(toks=list(start(other_name))),
+        daemon=True)
+    thread.start()
+    thread.join(timeout=WAIT)
+    out["stalled/other_ended"] = np.asarray(not thread.is_alive())
+    out["stalled/other"] = np.asarray(other.get("toks", []), np.int64)
+    out["stalled/held"] = np.asarray(first + list(held), np.int64)
+    ids = [int(i) for i in inp["prompt"]]
+    p = len(ids)
+    prompt = torch.zeros((1, 16), dtype=torch.int64)
+    prompt[0, :p] = torch.tensor(ids)
+    buf, n = generate_kv(params, prompt, p, prng.PRNGKey(0), cfg, max_len,
+                         greedy=True, refeed_last_prompt=False)
+    out["kv_greedy"] = buf[0, p:n].numpy()
+    full = json.loads(str(inp["full"]))
+    full["penalties"] = tuple(full["penalties"])
+    for seed in inp["full_seeds"]:
+        buf, n = generate_full(params, prompt, p, prng.PRNGKey(int(seed)),
+                               cfg, max_len, eos_id=int(inp["eos"]), **full)
+        out[f"full/{int(seed)}"] = buf[0, :n].numpy()
+    _engine_stream_checks(inp, out, params, cfg)
+    _sse_checks(inp, out)
+
+
+# ----------------------------------------------------------------------- b3
+
+def _b3_serve_checks(out):
+    """pipeline_from_checkpoint on demo_ckpt_b3 (bf16, as shipped) behind
+    the server: WAV and MIDI."""
+    from eamg_tpu_torch.emotion import EmotionClassifier
+    from eamg_tpu_torch.serve import (make_server, pipeline_from_checkpoint,
+                                      serve_forever_in_thread,
+                                      shutdown_gracefully)
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_B3
+
+    pipe = pipeline_from_checkpoint(
+        DEMO_CKPT_B3, device=CPU, coalesce="continuous",
+        classifier=EmotionClassifier(backend="lexicon", device=CPU))
+    gen = pipe.generator
+    out["serve/info"] = np.asarray(json.dumps({
+        "scheme": pipe.scheme, "eos": gen.vocab.id2tok[gen.eos_id],
+        "batcher": pipe.batcher, "max_len": gen.max_supported_len()}))
+    port = _free_port()
+    server = make_server(pipe, "127.0.0.1", port)
+    thread = serve_forever_in_thread(server)
+    try:
+        for fmt in ("wav", "midi"):
+            status, body, headers = _post_form(
+                port, {"prompt": "so happy", "seed": 3}, f"?format={fmt}")
+            out[f"serve/{fmt}/status"] = np.asarray(status)
+            out[f"serve/{fmt}/body"] = np.frombuffer(body, np.uint8)
+            out[f"serve/{fmt}/tokens"] = np.asarray(
+                int(headers.get("X-EAMG-Tokens", 0)))
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+
+
+def _b3_cli_checks(inp, out, tmp):
+    import contextlib
+    import os
+
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.serve import pipeline_from_checkpoint
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_B3
+
+    mid, wav = os.path.join(tmp, "b3.mid"), os.path.join(tmp, "b3.wav")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out["cli/code"] = np.asarray(cli.main([
+            "generate", "--device", "cpu", "--checkpoint", DEMO_CKPT_B3,
+            "--max-len", "40", "--seed", "3", "--bpm", "96", "--key",
+            "D minor", "--out", mid, "--wav", wav]))
+    out["cli/stdout"] = np.asarray(log.getvalue())
+    for key, path in (("cli/midi", mid), ("cli/wav", wav)):
+        with open(path, "rb") as f:
+            out[key] = np.frombuffer(f.read(), np.uint8)
+    b2 = str(inp["b2/ckpt"])
+    out["b2/pipeline"] = _raised(
+        lambda: pipeline_from_checkpoint(b2, device=CPU))
+    with contextlib.redirect_stderr(io.StringIO()):
+        out["b2/cli_code"] = np.asarray(cli.main([
+            "generate", "--device", "cpu", "--checkpoint", b2, "--out",
+            mid]))
+
+
+def task_b3(inp, out):
+    """tests/test_torch_b3.py: demo_ckpt_b3 against JAX, the B3 pipeline,
+    its server and CLI, and rows 7, 9 and 10's plain versions at Dh 48."""
+    import dataclasses
+    import tempfile
+
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.ops import decode_fold
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_B3
+    from eamg_tpu_torch.tokenizer import SchemeB3, Vocab
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(DEMO_CKPT_B3)
+    shapes, flat = [], [("", ck["params"])]
+    while flat:
+        path, node = flat.pop()
+        if isinstance(node, dict):
+            flat.extend((f"{path}/{k}", v) for k, v in node.items())
+        elif isinstance(node, list):
+            flat.extend((f"{path}/{i}", v) for i, v in enumerate(node))
+        else:
+            shapes.append(f"{path}:{tuple(node.shape)}:"
+                          f"{str(node.dtype).replace('torch.', '')}")
+    out["shapes"] = np.asarray(sorted(shapes))
+    cfg = ck["cfg"]
+    ids = _t(inp["tf/ids"]).long()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [f32(v) for v in node]
+        return node.float()
+
+    p32 = f32(ck["params"])
+    out["logits"] = gpt.forward(p32, ids, cfg32).numpy()
+    cache = gpt.init_kv_cache(cfg, 1, ids.shape[1] + len(inp["tf/forced"]))
+    logits, cache = gpt.prefill(ck["params"], ids, cfg, cache,
+                                prompt_len=ids.shape[1])
+    steps, last = [logits[0]], ids[:, -1:]
+    for tok in inp["tf/forced"]:
+        lg, cache = gpt.decode_step(ck["params"], last, cache, cfg)
+        steps.append(lg)
+        last = torch.full_like(last, int(tok))
+    out["tf"] = torch.cat(steps).float().numpy()
+    b3 = SchemeB3(seq_len=cfg.seq_len)
+    gen = Generator(p32, cfg32, Vocab(ck["vocab"]), eos_token="[END_SEQ]",
+                    device=CPU)
+    for i, (bpm, key, seed) in enumerate(json.loads(str(inp["gen/cases"]))):
+        out[f"gen/{i}"] = gen.generate_ids(
+            b3.control_prefix(bpm, key), max_len=int(inp["gen/max_len"]),
+            seed=seed)[0]
+    pipe = _stream_pipeline(inp, "b3")
+    for i, (text, seed) in enumerate(json.loads(str(inp["pipe/requests"]))):
+        r = pipe.generate(text, seed=seed, render_audio=False)
+        out[f"pipe/{i}/midi"] = np.frombuffer(r.midi_bytes, np.uint8)
+        out[f"pipe/{i}/tokens"] = np.asarray(r.tokens)
+    out["sections/midi"] = np.frombuffer(pipe.generate_sections(
+        str(inp["pipe/text3"]), seed=int(inp["pipe/sections_seed"]),
+        render_audio=False).midi_bytes, np.uint8)
+    _b3_serve_checks(out)
+    with tempfile.TemporaryDirectory() as tmp:
+        _b3_cli_checks(inp, out, tmp)
+    q, kv, H = _t(inp["fold/q"]), _t(inp["fold/kv"]), int(inp["fold/H"])
+    for key in inp.files:
+        if key.startswith("fold/t/"):
+            tname = key[len("fold/t/"):]
+            t = _t(inp[key]) if inp[key].ndim else int(inp[key])
+            for name in ("flash_decode_fold", "flash_decode_fold2",
+                         "flash_decode_fold3"):
+                out[f"fold/{name}/{tname}"] = getattr(decode_fold, name)(
+                    q, kv, t, H).numpy()
+
 
 TASKS = {"kernels": task_kernels, "topk": task_topk, "slice": task_slice,
          "ragged": task_ragged, "engine": task_engine, "batch": task_batch,
-         "bf16": task_bf16, "graphs": task_graphs}
+         "bf16": task_bf16, "graphs": task_graphs, "stream": task_stream,
+         "b3": task_b3}
 
 
 def main():
