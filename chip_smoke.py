@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # one card, no arguments
     python3 chip_smoke.py --phases build,kernels    # a part, while developing
     python3 chip_smoke.py --phases build,stream,b3
+    python3 chip_smoke.py --phases build,spec
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -54,7 +55,10 @@ Phases:
     kernel, of the FFN kernel, of the scalar-t kernel, of K3, of rows 8
     and 11 and of K1,
     from builds of their sources that stamp the time at each phase
-    boundary, beside empty launches of their grids;
+    boundary, beside empty launches of their grids; last, the kernels at
+    the spec phase's shapes on demo_ckpt_a's and demo_ckpt_b3's widths
+    (K2 at rows 4, 5 and 9, K3 at B 4, K4's top-k mask at rows 1, 4, 5
+    and 9), each against its plain version and timed cold beside it;
  4. teacher: teacher-forced f32 logits of the flagship demo_ckpt_a on the
     card (kernels) against the same run on the host (plain versions), for
     the solo decode and for the ragged decode; then its bf16 logits as
@@ -111,7 +115,28 @@ Phases:
     eager loop's), a MIDI request and a stream, decoded from replayed
     graphs with K1, K2, K3 and K4 launched at its shapes; one request
     traced; then `cli generate` on B3 twice (equal bytes);
- 9. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
+ 9. spec: the page's decode options, solo, on demo_ckpt_a and then on
+    demo_ckpt_b3 (`serve` loads each demo's medusa_heads.pkl; its warm-up
+    captures the Medusa verify chunk's graph, a first lookup and a first
+    beams request capture theirs): medusa=1 (a WAV of seed 7 twice, a MIDI
+    of seed 11, its stream twice: equal bytes and events, the stream's
+    tokens the one-shot's), lookup=1 and beams=4 (a WAV twice each), the
+    counts at 0 before each option and read after it: K1, K2 and K4
+    launched and the verify chunks replayed from graphs (no K3: the verify
+    step's attention is plain products), or for beams K3 launched from
+    replays only; each reply equal to an eager server's (every step issued
+    from the host); the kernels called at the spec shapes (K2 rows 4, 5
+    and 9, K4 rows 1, 4, 5 and 9, K3 at B 4); then `serve --coalesce` on A:
+    a medusa request beside six plain ones decodes solo and gives the solo
+    server's bytes; greedy medusa and greedy lookup on an f32 copy of A
+    (TF32 off) against the plain greedy decode, token for token (a
+    parting allowed only where the plain step's top-2 margin is under
+    GREEDY_MARGIN); then, on each served demo, tokens a verify step and
+    decode rates of medusa and lookup, sampled (SPEC_SEEDS) and greedy,
+    beside the plain solo decode of the same prompt, beams' ms a step at
+    K 4, and one traced decode of each (host launch calls and device
+    kernels a token, the device's idle share);
+ 10. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
     on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
     seed) at full width and depth, batch 8, 511 positions, once per
     attn_impl with the launch counts zeroed before each, the eager loop's
@@ -134,6 +159,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import functools
 import json
@@ -357,6 +383,14 @@ TOL = {("flash_attention", "float32"): 1e-4,
        ("flash_decode_fold_sp_batch", "bfloat16"): 1e-2,
        ("flash_decode_fold3_sp_batch", "float32"): 1e-4,
        ("flash_decode_fold3_sp_batch", "bfloat16"): 1e-2,
+       # the spec paths' shapes (spec_kernel_checks): K2 at the verify and
+       # beams rows, K3 at the beams' batch, K4's mask at their rows, each
+       # held as at its served shape
+       ("fused_ffn_spec", "float32"): 1e-4,
+       ("fused_ffn_spec", "bfloat16"): 3e-2,
+       ("flash_decode_sp_spec", "float32"): 1e-4,
+       ("flash_decode_sp_spec", "bfloat16"): 1e-2,
+       ("kth_value_spec", "float32"): 0.0,
        # sums of 4 * 511 values of size ~1 in another order; the bf16
        # output (|sum| up to ~150) is rounded to 2^-8 relative
        ("stream_reduce", "float32"): 1e-3,
@@ -3559,8 +3593,562 @@ def cli_generate(torch) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------- spec
+
+# the spec phase: the page's decode options (medusa, lookup, beams), each
+# decoded solo. Requests: a WAV and, for medusa, a MIDI and a stream.
+SPEC_WAV = {"prompt": BURST_TEXTS[0], "seed": "7"}
+SPEC_MIDI = {"prompt": BURST_TEXTS[1], "seed": "11"}
+SPEC_OPTIONS = {"medusa": {"medusa": "1"}, "lookup": {"lookup": "1"},
+                "beams": {"beams": "4"}}
+SPEC_BEAMS = 4
+# what each option's requests must have launched: K1 (prefill), K2 (the
+# verify step at G rows, the beams' step at K rows), K4 (the sampler's
+# top-k on the first token, the head proposals and the verify rows), K3
+# (the beams' decode step at B = K; the verify step's attention is XLA
+# math in JAX, plain products here)
+SPEC_KERNELS = {"medusa": ("flash_attention", "fused_ffn", "top_k_mask"),
+                "lookup": ("flash_attention", "fused_ffn", "top_k_mask"),
+                "beams": ("flash_attention", "fused_ffn", "flash_decode_sp")}
+# the shapes the spec paths must have called the kernels at, by model:
+# K2 rows (beams 4, medusa's verify 5, lookup's 9), K4 rows (the first
+# token 1, medusa's head proposals 4, the verify rows 5 and 9), K3 at the
+# beams' batch, K1 at batch 1
+SPEC_SHAPES = {"fused_ffn": (4, 5, 9), "top_k_mask": (1, 4, 5, 9),
+               "flash_decode_sp": (SPEC_BEAMS,), "flash_attention": (1,)}
+# the kernel checks at those shapes: (D, FF, H, Hkv, Dh, beams' cache M, V)
+SPEC_MODELS = {"a": (512, 2048, 8, 2, 64, 511, 8892),
+               "b3": (192, 768, 4, 4, 48, 255, 8579)}
+# a greedy speculative decode may part from the plain greedy decode only
+# where the plain step's top two logits lie this close (f32, TF32 off)
+GREEDY_MARGIN = 1e-4
+SPEC_SEEDS = (0, 1, 2, 3)
+
+
+def spec_kernel_checks(torch) -> None:
+    """Phase 3, last part: the kernels at the spec paths' new shapes, each
+    against its plain version, on A's and B3's widths: K2 at rows 4, 5 and
+    9 (in the served "xla" order, the checkpoints' layer-0 weights), K3 at
+    B 4 with a t a row, K4's top-k mask at rows 1, 4, 5 and 9 (k 50, f32,
+    bit-equal); each timed cold beside its plain version."""
+    from eamg_tpu_torch.ops import decode_attention, ffn, topk
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A, DEMO_CKPT_B3
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    dev = "cuda"
+    g = torch.Generator().manual_seed(12)
+
+    def randn(*shape, dt, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dt).to(dev)
+
+    def hold(name, dt_name, got, want, extra, fns):
+        tol = TOL[(name, dt_name)]
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if tol == 0.0 and not torch.equal(got.float().view(torch.int32),
+                                          want.float().view(torch.int32)):
+            err = float("inf")
+        ms = time_cold_ms(torch, fns, iters=20)
+        ok = torch.isfinite(got.float()).all().item() and err <= tol
+        log(f"[check] {name:16s} {dt_name:9s} max|err| {err:.3e} (tol "
+            f"{tol:.0e}) {extra}, cold: kernel {ms['kernel']:.4f} ms, plain "
+            f"{ms['plain']:.4f} ms{'' if ok else '  FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {dt_name} {extra}: max|err| {err} "
+                                 f"> {tol}")
+
+    for tag, path in (("a", DEMO_CKPT_A), ("b3", DEMO_CKPT_B3)):
+        D, FF, H, Hkv, Dh, M, V = SPEC_MODELS[tag]
+        mlp0 = load_checkpoint(path)["params"]["layers"][0]["mlp"]
+        if tuple(mlp0["w1"].shape) != (FF, D):
+            raise AssertionError(f"{tag}: FFN {tuple(mlp0['w1'].shape)}")
+        for dt_name, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            mlp = {n: w.to(dt).to(dev) for n, w in mlp0.items()}
+            for rows in SPEC_SHAPES["fused_ffn"]:
+                args = (randn(1, rows, D, dt=dt), mlp["w1"], mlp["b1"],
+                        mlp["w2"], mlp["b2"])
+                hold("fused_ffn_spec", dt_name,
+                     ffn.fused_ffn(*args, activation="relu", order="xla"),
+                     ffn.ffn_plain(*args, activation="relu", order="xla"),
+                     f"{tag}: rows {rows}, D {D}, FF {FF}",
+                     {"kernel": lambda a=args: ffn.fused_ffn(
+                         *a, activation="relu", order="xla"),
+                      "plain": lambda a=args: ffn.ffn_plain(
+                          *a, activation="relu", order="xla")})
+            B = SPEC_BEAMS
+            q = randn(B, H, 1, Dh, dt=dt)
+            kc, vc = randn(B, Hkv, M, Dh, dt=dt), randn(B, Hkv, M, Dh, dt=dt)
+            t = torch.tensor([M - 1, 17, 0, M // 2], dtype=torch.int32,
+                             device=dev)
+            hold("flash_decode_sp_spec", dt_name,
+                 decode_attention.flash_decode_sp(q, kc, vc, t),
+                 decode_attention.decode_attention_plain(q, kc, vc, t),
+                 f"{tag}: B {B} H {H} Hkv {Hkv} Dh {Dh} M {M}, t "
+                 f"{t.tolist()}",
+                 {"kernel": lambda: decode_attention.flash_decode_sp(
+                     q, kc, vc, t),
+                  "plain": lambda: decode_attention.decode_attention_plain(
+                      q, kc, vc, t)})
+        for rows in SPEC_SHAPES["top_k_mask"]:
+            x = randn(rows, V, dt=torch.float32, scale=3.0)
+            hold("kth_value_spec", "float32", topk.top_k_mask(x, 50),
+                 topk.top_k_mask_plain(x, 50), f"{tag}: top-k mask rows "
+                 f"{rows}, V {V}, k 50",
+                 {"kernel": lambda x=x: topk.top_k_mask(x, 50),
+                  "plain": lambda x=x: topk.top_k_mask_plain(x, 50)})
+
+
+@contextlib.contextmanager
+def _shapes_seen():
+    """Record the shapes each kernel wrapper of the spec paths is called
+    at, eagerly or while a graph is captured (a graph replays what it
+    captured): -> {wrapper: {(rows or batch, width)}}; K2 by its rows and
+    D, K4 by its rows and V, K3 and K1 by their batch and head dim."""
+    from eamg_tpu_torch.decode import sampling
+    from eamg_tpu_torch.models import gpt
+
+    seen = collections.defaultdict(set)
+    patched = []
+
+    def wrap(owner, attr, name, key):
+        get = owner.__getitem__ if isinstance(owner, dict) else \
+            functools.partial(getattr, owner)
+        fn = get(attr)
+
+        def counted(*a, **kw):
+            seen[name].add(key(a[0]))
+            return fn(*a, **kw)
+
+        if isinstance(owner, dict):
+            owner[attr] = counted
+        else:
+            setattr(owner, attr, counted)
+        patched.append((owner, attr, fn))
+
+    rows = (lambda x: (x.numel() // x.shape[-1], x.shape[-1]))
+    wrap(gpt, "fused_ffn", "fused_ffn", rows)
+    wrap(gpt, "flash_attention", "flash_attention",
+         lambda q: (q.shape[0], q.shape[-1]))
+    wrap(gpt.HEAD_IMPLS, "sp", "flash_decode_sp",
+         lambda q: (q.shape[0], q.shape[-1]))
+    wrap(sampling, "top_k_mask", "top_k_mask", rows)
+    try:
+        yield seen
+    finally:
+        for owner, attr, fn in reversed(patched):
+            if isinstance(owner, dict):
+                owner[attr] = fn
+            else:
+                setattr(owner, attr, fn)
+
+
+def _require_spec(tag: str, opt: str, counts: dict, replayed: dict,
+                  replays: int) -> None:
+    """An option's requests decoded from replayed graphs: its kernels
+    launched, K4 and K2 from replays (the verify chunks) or K3 from
+    replays only (the beams' blocks); the verify step launches no K3."""
+    for n in SPEC_KERNELS[opt]:
+        if counts.get(n, 0) <= 0:
+            raise AssertionError(f"{tag}: {n} was not launched")
+    if opt == "beams":
+        _require_graphs(tag, "flash_decode_sp", counts, replayed, replays)
+        return
+    log(f"[{tag}] verify chunks: graph replays {replays}; launches from "
+        f"replays {replayed}")
+    if replays <= 0 or replayed.get("top_k_mask", 0) <= 0 \
+            or replayed.get("fused_ffn", 0) <= 0 \
+            or counts.get("flash_decode_sp", 0):
+        raise AssertionError(f"{tag}: {replays} replays, launches from "
+                             f"replays {replayed}, all {counts}")
+
+
+def _spec_tokens(events) -> list:
+    """A stream's tokens as strings, its prompt first (one section)."""
+    return events[0]["prompt_tokens"] + [
+        t for e in events if e["event"] == "tokens" for t in e["texts"]]
+
+
+def _spec_server(torch, tag: str, args: list) -> dict:
+    """The spec phase on one solo server (``serve`` with ``args``): its
+    warm-up captures the Medusa verify chunk's graph, a first lookup and a
+    first beams request capture theirs; then, with the counts at 0 before
+    each option, medusa=1 (a WAV twice, a MIDI, the MIDI's stream twice),
+    lookup=1 and beams=4 (a WAV twice each): equal same-seed bytes, the
+    stream's tokens the one-shot's, each option's kernels launched from
+    replayed graphs; then the same requests on an eager server (every step
+    issued from the host): the same bytes and events. -> {"counts": by
+    option, "medusa_wav": bytes, "pipe": the pipeline}."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    pipe = cli.pipeline_from_args(cli.parse_args(args))
+    gen, cfg = pipe.generator, pipe.generator.cfg
+    if pipe.medusa_heads is None:
+        raise AssertionError(f"{tag}: no Medusa heads "
+                             f"({pipe.medusa_unavailable})")
+    log(f"[{tag}] D {cfg.d_model} H {cfg.n_head} Hkv {cfg.kv_heads} V "
+        f"{cfg.vocab_size}: {len(pipe.medusa_heads['blocks'])} Medusa heads, "
+        f"probe {json.dumps(pipe.medusa_probe)}")
+    _require_xla_order(tag, pipe)
+    t0 = time.perf_counter()
+    pipe.warmup()
+    for kw in ({"lookup": True}, {"beams": SPEC_BEAMS}):
+        pipe.generate(SPEC_WAV["prompt"], seed=0, render_audio=False, **kw)
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up with a lookup and a beams request "
+        f"{time.perf_counter() - t0:.2f} s; {graphs.tally()}")
+    server, thread, port = _serving(pipe)
+    counts, got = {}, {}
+    stream_q = "?stream=1&format=midi"
+    try:
+        for opt, extra in SPEC_OPTIONS.items():
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            replays0 = graphs.tally()["replays"]
+            reqs = [("wav", SPEC_WAV, ""), ("wav_again", SPEC_WAV, "")]
+            if opt == "medusa":
+                reqs.append(("midi", SPEC_MIDI, "?format=midi"))
+            for name, fields, query in reqs:
+                reply = _post(port, {**fields, **extra}, query)
+                _check_reply(f"{tag} {opt}", fields, query, reply)
+                got[(opt, name)] = reply[1]
+            if opt == "medusa":
+                for name in ("stream", "stream_again"):
+                    reply = _sse_post(port, {**SPEC_MIDI, **extra}, stream_q)
+                    _check_stream(f"{tag} medusa stream", SPEC_MIDI,
+                                  stream_q, reply, pipe)
+                    got[(opt, name)] = _sans_timings(reply[2])
+            torch.cuda.synchronize()
+            counts[opt] = _build.launch_counts()
+            _require_spec(f"{tag} {opt}", opt, counts[opt],
+                          _build.replayed_counts(),
+                          graphs.tally()["replays"] - replays0)
+            if got[(opt, "wav")] != got[(opt, "wav_again")]:
+                raise AssertionError(f"{tag} {opt}: same-seed WAV bytes "
+                                     "differ")
+            log(f"[{tag} {opt}] same-seed WAV bytes identical; launches "
+                f"{counts[opt]}")
+        if got[("medusa", "stream")] != got[("medusa", "stream_again")]:
+            raise AssertionError(f"{tag}: same-seed medusa streams differ")
+        one = pipe.generate(SPEC_MIDI["prompt"], seed=int(SPEC_MIDI["seed"]),
+                            render_audio=False, medusa=True)
+        if _spec_tokens(got[("medusa", "stream")]) != list(one.tokens):
+            raise AssertionError(f"{tag}: the medusa stream's tokens are not "
+                                 "the one-shot medusa decode's")
+        log(f"[{tag}] medusa: same-seed streams identical, and their "
+            f"{len(one.tokens)} tokens (prompt included) the one-shot's")
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+
+    def eager_work(port):
+        out = {opt: _post(port, {**SPEC_WAV, **extra}, "")[1]
+               for opt, extra in SPEC_OPTIONS.items()}
+        out["stream"] = _sans_timings(_sse_post(
+            port, {**SPEC_MIDI, "medusa": "1"}, stream_q)[2])
+        return out
+
+    eager = _eager_replies(args, eager_work)
+    for opt in SPEC_OPTIONS:
+        if eager[opt] != got[(opt, "wav")]:
+            raise AssertionError(f"{tag} {opt}: the eager loop's WAV differs "
+                                 "from the graphs'")
+    if eager["stream"] != got[("medusa", "stream")]:
+        raise AssertionError(f"{tag}: the eager loop's medusa stream differs "
+                             "from the graphs'")
+    log(f"[{tag}] the eager loop (every step issued from the host) gives "
+        "the graphs' bytes for medusa, lookup and beams, and their stream")
+    return {"counts": counts, "medusa_wav": got[("medusa", "wav")],
+            "pipe": pipe}
+
+
+def _require_spec_shapes(seen: dict, models: dict) -> None:
+    """Every kernel of the spec paths called at each of its SPEC_SHAPES on
+    each model ({tag: (D, V, Dh)})."""
+    for tag, (D, V, Dh) in models.items():
+        width = {"fused_ffn": D, "top_k_mask": V, "flash_decode_sp": Dh,
+                 "flash_attention": Dh}
+        for name, rows in SPEC_SHAPES.items():
+            miss = [r for r in rows if (r, width[name]) not in seen[name]]
+            log(f"[spec {tag}] {name} called at {sorted(seen[name])}")
+            if miss:
+                raise AssertionError(f"spec {tag}: {name} was not called at "
+                                     f"rows {miss} (width {width[name]})")
+
+
+def _spec_coalesce(torch, solo_wav: bytes) -> dict:
+    """`serve --coalesce` on demo_ckpt_a: a medusa request beside a burst of
+    six plain requests, all at once. The medusa request decodes solo (the
+    engine carries no Medusa rows, as under JAX's default): its bytes equal
+    the solo server's; the plain ones ride the engine. -> launch counts."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    pipe = cli.pipeline_from_args(cli.parse_args(
+        ["serve", "--coalesce", "--slots", str(ENGINE_SLOTS)]))
+    pipe.warmup()
+    server, thread, port = _serving(pipe)
+    replies, errors = {}, []
+    plan = [("medusa", {**SPEC_WAV, "medusa": "1"}, "")] + [
+        (f"plain{i}", {"prompt": BURST_TEXTS[i % len(BURST_TEXTS)],
+                       "seed": str(41 + i)}, "?format=midi")
+        for i in range(6)]
+
+    def hit(name, fields, query):
+        try:
+            replies[name] = (fields, query, _post(port, fields, query))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {type(exc).__name__}: {exc}")
+
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        admitted0 = pipe.batcher.stats["admitted"]
+        threads = [threading.Thread(target=hit, args=a, daemon=True)
+                   for a in plan]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        admitted = pipe.batcher.stats["admitted"] - admitted0
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    if errors or len(replies) != len(plan):
+        raise AssertionError(f"spec coalesce: {errors or 'a request hung'}")
+    for name, (fields, query, reply) in sorted(replies.items()):
+        _check_reply(f"spec coalesce {name}", fields, query, reply)
+    if replies["medusa"][2][1] != solo_wav:
+        raise AssertionError("spec coalesce: the medusa request's bytes "
+                             "differ from the solo server's")
+    log(f"[spec coalesce] the medusa request beside the burst has the solo "
+        f"server's bytes; {admitted} plain rows admitted to the engine; "
+        f"launches {counts}")
+    return counts
+
+
+def spec_greedy(torch) -> None:
+    """JAX's contract on an f32 copy of demo_ckpt_a (TF32 off): greedy
+    medusa and greedy lookup give the plain greedy decode's tokens
+    (generate_kv without refeed). Where one parts from it, the plain
+    step's top-2 margin must be under GREEDY_MARGIN (a near tie that the
+    block forward's other sums may break the other way)."""
+    from eamg_tpu_torch.decode.api import _bucket, _to_device
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.decode.medusa import generate_medusa
+    from eamg_tpu_torch.decode.speculative import generate_prompt_lookup
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A
+    from eamg_tpu_torch.tokenizer import (Vocab, closest_bpm_token,
+                                          normalize_key_signature)
+    from eamg_tpu_torch.tools.medusa import load_medusa_heads
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(DEMO_CKPT_A)
+    cfg = dataclasses.replace(ck["cfg"], dtype="float32")
+    params = _to_device(ck["params"], torch.device("cuda"))
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [f32(v) for v in node]
+        return node.float()
+
+    params = f32(params)
+    heads = load_medusa_heads(os.path.join(DEMO_CKPT_A, "medusa_heads.pkl"))
+    vocab = Vocab(ck["vocab"])
+    eos, pad = vocab.get("[END_SEQUENCE]", -1), vocab.get("[PAD]", 0)
+    toks = ["[START_SEQUENCE]", closest_bpm_token(vocab, 120),
+            normalize_key_signature("C major"), "[INSTRUMENT] Violin",
+            "[INSTRUMENT] Acoustic Grand Piano"]
+    ids = vocab.encode([t for t in toks if t in vocab])
+    p = len(ids)
+    prompt = torch.full((1, _bucket(p)), pad, dtype=torch.int64,
+                        device="cuda")
+    prompt[0, :p] = torch.tensor(ids)
+    common = dict(eos_id=eos, pad_id=pad, greedy=True)
+    runs = {"medusa": (4, lambda L: generate_medusa(
+                params, heads, prompt, p, prng.PRNGKey(0), cfg, L, gamma=4,
+                **common)),
+            "lookup": (8, lambda L: generate_prompt_lookup(
+                params, prompt, p, prng.PRNGKey(0), cfg, L, gamma=8,
+                ngram=3, **common))}
+    for name, (gamma, run) in runs.items():
+        L = min(cfg.seq_len, cfg.n_pos - gamma)
+        buf, n, steps = run(L)
+        plain, n_plain = generate_kv(params, prompt, p, prng.PRNGKey(0), cfg,
+                                     L, refeed_last_prompt=False, **common)
+        spec = buf[0, :n].tolist()
+        ref = plain[0, :n_plain].cpu().tolist()
+        at = next((i for i, (a, b) in enumerate(zip(spec, ref)) if a != b),
+                  None if len(spec) == len(ref) else min(len(spec),
+                                                         len(ref)))
+        log(f"[spec greedy] f32 demo_ckpt_a, {name} (gamma {gamma}, max_len "
+            f"{L}): {n - p} tokens in {steps} verify steps "
+            f"({(n - p - 1) / max(steps, 1):.3f} tokens a verify after the "
+            f"first); plain greedy {n_plain - p} tokens; first difference "
+            f"{'none' if at is None else at}")
+        if at is None:
+            continue
+        logits = gpt.forward(params, plain[:, :at], cfg)[0, -1]
+        top2 = logits.topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        log(f"[spec greedy] {name} parts from the plain greedy decode at "
+            f"position {at}: the plain step's top-2 margin {margin:.3e} "
+            f"(limit {GREEDY_MARGIN:.0e})")
+        if not margin < GREEDY_MARGIN:
+            raise AssertionError(f"spec greedy: {name} parts at {at} with a "
+                                 f"top-2 margin of {margin}")
+
+
+def spec_measure(torch, tag: str, pipe) -> dict:
+    """On the served (bf16) model: Medusa and lookup sampled (SPEC_SEEDS)
+    and greedy, with their tokens a verify step and decode rates, beside
+    the plain solo decode (generate_kv as served) of the same prompt and
+    seeds; beams (K 4) and its ms a step; one traced decode of each: host
+    launch calls and device kernels a token, the device's idle share."""
+    from eamg_tpu_torch.decode.api import _bucket
+    from eamg_tpu_torch.decode.beam import generate_beam
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.decode.medusa import generate_medusa
+    from eamg_tpu_torch.decode.speculative import generate_prompt_lookup
+    from eamg_tpu_torch.emotion import get_music_params
+    from eamg_tpu_torch.utils import prng
+
+    gen = pipe.generator
+    cfg = gen.cfg
+    label = pipe.classifier.predict(SPEC_WAV["prompt"])
+    _, ids, _ = pipe._prompt_for(get_music_params(label, seed=7))
+    p = len(ids)
+    prompt = torch.full((1, _bucket(p)), gen.pad_id, dtype=torch.int64,
+                        device="cuda")
+    prompt[0, :p] = torch.tensor(ids)
+    full = gen.max_supported_len()
+    common = dict(eos_id=gen.eos_id, pad_id=gen.pad_id)
+
+    def medusa(seed, greedy):
+        return generate_medusa(gen.params, pipe.medusa_heads, prompt, p,
+                               prng.PRNGKey(seed), cfg,
+                               min(full, cfg.n_pos - 4), greedy=greedy,
+                               **common)
+
+    def lookup(seed, greedy):
+        return generate_prompt_lookup(gen.params, prompt, p,
+                                      prng.PRNGKey(seed), cfg,
+                                      min(full, cfg.n_pos - 8), greedy=greedy,
+                                      **common)
+
+    def plain(seed, greedy):
+        buf, n = generate_kv(gen.params, prompt, p, prng.PRNGKey(seed), cfg,
+                             full, greedy=greedy, **common)
+        return buf, n, None
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    out = {"prompt_len": p}
+    for name, fn in (("plain", plain), ("medusa", medusa),
+                     ("lookup", lookup)):
+        for greedy in (False, True):
+            fn(0, greedy)                          # captures its graph
+            rows = []
+            for seed in (SPEC_SEEDS if not greedy else (0,)):
+                (buf, n, steps), secs = timed(fn, seed, greedy)
+                rows.append({"seed": seed, "tokens": n - p, "s": secs,
+                             "tokens_per_s": (n - p) / secs,
+                             "verify_steps": steps,
+                             "tokens_per_verify": None if steps is None
+                             else (n - p - 1) / max(steps, 1)})
+            mode = "greedy" if greedy else "sampled"
+            tok = sum(r["tokens"] for r in rows)
+            secs = sum(r["s"] for r in rows)
+            steps = None if rows[0]["verify_steps"] is None else \
+                sum(r["verify_steps"] for r in rows)
+            out[f"{name}_{mode}"] = {
+                "tokens": tok, "tokens_per_s": tok / secs,
+                "tokens_per_verify": None if steps is None
+                else (tok - len(rows)) / max(steps, 1), "runs": rows}
+            log(f"[spec {tag}] {name} {mode}: {tok} tokens in {secs:.3f} s, "
+                f"{tok / secs:.1f} tokens/s"
+                + ("" if steps is None else
+                   f", {steps} verify steps, "
+                   f"{(tok - len(rows)) / max(steps, 1):.3f} tokens a verify "
+                   "after the first token"))
+    (buf, gl, sc), secs = timed(lambda: generate_beam(
+        gen.params, prompt, p, cfg, full, n_beams=SPEC_BEAMS, **common))
+    (buf, gl, sc), secs = timed(lambda: generate_beam(
+        gen.params, prompt, p, cfg, full, n_beams=SPEC_BEAMS, **common))
+    steps = int(gl.max()) - 1
+    out["beams"] = {"K": SPEC_BEAMS, "steps": steps, "s": secs,
+                    "ms_per_step": 1000 * secs / max(steps, 1)}
+    log(f"[spec {tag}] beams K {SPEC_BEAMS}: {steps} steps in {secs:.3f} s, "
+        f"{out['beams']['ms_per_step']:.4f} ms a step (prefill included)")
+    traced = {"plain": lambda: plain(1, False)[1] - p,
+              "medusa": lambda: medusa(1, False)[1] - p,
+              "lookup": lambda: lookup(1, False)[1] - p,
+              "beams": lambda: int(generate_beam(
+                  gen.params, prompt, p, cfg, full, n_beams=SPEC_BEAMS,
+                  **common)[1].max()) * SPEC_BEAMS}
+    for name, work in traced.items():
+        prof = _trace(torch, f"spec {tag} {name}", work)
+        out[f"trace_{name}"] = {k: prof[k] for k in (
+            "n_tokens", "wall_ms", "device_busy_ms", "idle_share",
+            "launches_per_token", "host_launches_per_token",
+            "graph_replays")}
+    for name in ("medusa", "lookup"):
+        r, pl = out[f"{name}_sampled"], out["plain_sampled"]
+        log(f"[spec {tag}] {name} sampled: {r['tokens_per_s']:.1f} tokens/s "
+            f"beside the plain solo decode's {pl['tokens_per_s']:.1f} "
+            f"({r['tokens_per_s'] / pl['tokens_per_s']:.3f}x), "
+            f"{r['tokens_per_verify']:.3f} tokens a verify; host launch "
+            f"calls a token {out[f'trace_{name}']['host_launches_per_token']:.3f}"
+            f" (plain {out['trace_plain']['host_launches_per_token']:.3f})")
+    log(json.dumps({"spec_measure": {tag: out}}))
+    return out
+
+
+def serve_spec(torch) -> dict:
+    """Phase spec: the page's decode options on demo_ckpt_a and
+    demo_ckpt_b3, solo (_spec_server), the kernels at their shapes; medusa
+    beside an engine burst under `serve --coalesce`; the greedy check on
+    an f32 copy of A; the measurements. -> launch counts by path."""
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_B3
+
+    counts = {}
+    with _shapes_seen() as seen:
+        a = _spec_server(torch, "spec a", ["serve"])
+        b3 = _spec_server(torch, "spec b3",
+                          ["serve", "--checkpoint", DEMO_CKPT_B3])
+    models = {}
+    for tag, r in (("a", a), ("b3", b3)):
+        cfg = r["pipe"].generator.cfg
+        models[tag] = (cfg.d_model, cfg.vocab_size, cfg.head_dim)
+        counts.update({f"spec {tag} {opt}": c
+                       for opt, c in r["counts"].items()})
+    _require_spec_shapes(seen, models)
+    counts["spec coalesce"] = _spec_coalesce(torch, a["medusa_wav"])
+    spec_greedy(torch)
+    for tag, r in (("a", a), ("b3", b3)):
+        spec_measure(torch, tag, r["pipe"])
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
-          "batch")
+          "spec", "batch")
 
 
 def main(argv=None) -> int:
@@ -3604,6 +4192,7 @@ def main(argv=None) -> int:
         checks = kernel_checks(torch, ckpt["params"])
         bit_identity(torch, ckpt["params"])
         kernel_phases(torch, ckpt["params"])
+        spec_kernel_checks(torch)
     if "teacher" in phases:
         teacher_forced(torch, ckpt)
         uncached_divisors(torch, ckpt)
@@ -3618,6 +4207,8 @@ def main(argv=None) -> int:
         counts.update(serve_stream(torch))
     if "b3" in phases:
         counts.update(serve_b3(torch))
+    if "spec" in phases:
+        counts.update(serve_spec(torch))
     if "batch" in phases:
         counts["batch"] = batch_decode(torch)
         counts["generate"] = cli_generate(torch)

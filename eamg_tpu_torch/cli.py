@@ -8,9 +8,12 @@ fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
 ``Generator.sample_kvcache``; on a Scheme-B3 one (``demo_ckpt_b3``) the
 prompt is the ``[START_SEQ] BPM_x KEY_y`` control prefix of ``--bpm`` and
 ``--key`` (B3 has no instrument tokens), the decode ``generate_ids`` and
-the MIDI ``SchemeB3.decode_to_song``. Its ``--beams``, ``--grammar``,
-``--draft``, ``--lookup`` and ``--medusa`` are not in the port yet and
-exit 2 naming the flag.
+the MIDI ``SchemeB3.decode_to_song``. ``--beams`` (with
+``--length-penalty``) decodes by beam search, ``--lookup`` (with
+``--gamma`` and ``--lookup-ngram``) by prompt-lookup speculation and
+``--medusa PATH`` by the Medusa heads of that file, one of them at a time,
+as in the JAX CLI. ``--grammar`` and ``--draft`` are not in the port yet
+and exit 2 naming the flag.
 
 ``serve`` serves ``POST /generate`` on a Scheme-A or Scheme-B3 checkpoint
 of the JAX package's format (default: the shipped flagship
@@ -20,9 +23,10 @@ routes requests through the continuous-batching engine (or, with
 ``--coalesce window``, the 10 ms window batcher), with the JAX server's
 engine options ``--slots``, ``--chunk``, ``--max-queue``,
 ``--fast-routing`` and ``--engine-top-p``. The JAX CLI's other
-subcommands, and the engine modes for medusa, n-gram bans and grammar, are
-not in the port yet. Both subcommands run on the CUDA device unless
-``--device cpu`` is given.
+subcommands, and the engine modes for medusa, n-gram bans and grammar
+(``--engine-medusa`` and the others exit 2), are not in the port yet.
+Both subcommands run on the CUDA device unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import threading
 # engine modes of the JAX server that the port's engine does not carry yet
 _ENGINE_NOT_YET = ("engine_medusa", "engine_ngram", "engine_grammar")
 # decode modes of the JAX CLI's generate that the port does not carry yet
-_GENERATE_NOT_YET = ("beams", "grammar", "draft", "lookup", "medusa")
+_GENERATE_NOT_YET = ("grammar", "draft")
 
 
 def _refuse(args, names) -> bool:
@@ -140,6 +144,10 @@ def _generate(args) -> int:
         seed=args.seed, top_p=args.top_p, min_p=args.min_p,
         penalties=None if penalties == (1.0, 0.0, 0.0) else penalties,
         no_repeat_ngram=args.no_repeat_ngram)
+    if sum(map(bool, (args.beams, args.lookup, args.medusa))) > 1:
+        raise SystemExit("--beams, --draft, --lookup and --medusa are "
+                         "mutually exclusive")
+    option = _option_fn(args, gen, sampling)
     bpm, key, mapping = args.bpm, args.key, None
     if args.interactive:
         # free text -> emotion -> mapping -> music
@@ -157,8 +165,9 @@ def _generate(args) -> int:
             print("note: --instruments ignored (B3 checkpoints have no "
                   "instrument tokens)")
         scheme_b = SchemeB3(seq_len=ckpt["cfg"].seq_len)
-        ids = gen.generate_ids(scheme_b.control_prefix(bpm, key),
-                               **sampling)[0]
+        prefix = scheme_b.control_prefix(bpm, key)
+        ids = option(prefix) if option else \
+            gen.generate_ids(prefix, **sampling)[0]
         tokens = scheme_b.vocab.decode(ids)
         print("Generated token snippet:", tokens[:20], "...")
         return _write_song(args, scheme_b.decode_to_song(ids), device)
@@ -175,9 +184,45 @@ def _generate(args) -> int:
         print("note: dropped prompt tokens not in this checkpoint's "
               f"vocabulary: {dropped}")
         prompt = [t for t in prompt if t in gen.vocab]
-    tokens = gen.sample_kvcache(prompt, **sampling)
+    if option:
+        tokens = gen.trim_at_eos(option(gen.vocab.encode(prompt)))
+    else:
+        tokens = gen.sample_kvcache(prompt, **sampling)
     print("Generated token snippet:", tokens[:20], "...")
     return _write_song(args, tokens_to_song(tokens), device)
+
+
+def _option_fn(args, gen, sampling: dict):
+    """The decode of ``--beams``, ``--lookup`` or ``--medusa``, ids in and
+    ids out (prompt included), or None for the sampled decode. They refuse
+    penalties and n-gram bans, as the JAX CLI does."""
+    if not (args.beams or args.lookup or args.medusa):
+        return None
+    history = sampling["penalties"] is not None or args.no_repeat_ngram
+    if args.beams:
+        if history:
+            raise SystemExit("--beams is a deterministic argmax-tree "
+                             "search; penalties/n-gram transforms are "
+                             "sampling-path features (--grammar composes)")
+        return lambda ids: gen.generate_ids_beam(
+            ids, max_len=args.max_len, n_beams=args.beams,
+            length_penalty=args.length_penalty)
+    flag = "--lookup" if args.lookup else "--medusa"
+    if history:
+        raise SystemExit(f"{flag} does not support penalties, n-gram bans "
+                         "or grammar constraints yet (history-dependent "
+                         "distributions break the proposal/target "
+                         "acceptance math)")
+    spec = dict(max_len=args.max_len, gamma=args.gamma,
+                temperature=args.temperature, top_k=args.top_k,
+                seed=args.seed, top_p=args.top_p, min_p=args.min_p)
+    if args.medusa:
+        from .tools.medusa import load_medusa_heads
+
+        heads = load_medusa_heads(args.medusa)
+        return lambda ids: gen.generate_ids_medusa(heads, ids, **spec)[0]
+    return lambda ids: gen.generate_ids_lookup(
+        ids, ngram=args.lookup_ngram, **spec)[0]
 
 
 def _write_song(args, song, device) -> int:
@@ -230,13 +275,27 @@ def _add_generate(sub) -> None:
     g.add_argument("--out", default="generated.mid")
     g.add_argument("--wav", default=None)
     g.add_argument("--full-gm", action="store_true")
-    g.add_argument("--beams", type=int, default=0, help="not yet in the port")
+    g.add_argument("--beams", type=int, default=0,
+                   help="deterministic beam search with this many beams "
+                        "instead of sampling (decode/beam.py); 0 = off")
+    g.add_argument("--length-penalty", type=float, default=1.0,
+                   help="beam ranking: score / gen_len**alpha (GNMT); "
+                        "only with --beams")
     g.add_argument("--grammar", action="store_true",
                    help="not yet in the port")
     g.add_argument("--draft", default=None, help="not yet in the port")
+    g.add_argument("--gamma", type=int, default=4,
+                   help="speculative proposals per verify step")
     g.add_argument("--lookup", action="store_true",
-                   help="not yet in the port")
-    g.add_argument("--medusa", default=None, help="not yet in the port")
+                   help="draft-free speculative decoding: propose "
+                        "continuations from the stream's own history "
+                        "(exact output distribution)")
+    g.add_argument("--lookup-ngram", type=int, default=3,
+                   help="history n-gram length matched by --lookup")
+    g.add_argument("--medusa", default=None,
+                   help="medusa heads pickle: gamma head proposals "
+                        "verified in one block forward (exact output "
+                        "distribution)")
     g.set_defaults(fn=_generate)
 
 

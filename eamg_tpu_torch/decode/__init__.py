@@ -1,6 +1,8 @@
 """KV-cache decoding: sampling, the solo decode loop and ``Generator``, the
-ragged batched decode (``decode/ragged.py``) and the chunked stream
-(``decode/stream.py``)."""
+ragged batched decode (``decode/ragged.py``), the chunked stream
+(``decode/stream.py``), the speculative decoders (``decode/speculative.py``:
+prompt lookup and the verify loop; ``decode/medusa.py``) and beam search
+(``decode/beam.py``)."""
 
 from .api import Generator
 from .stream import stream_tokens

@@ -3,8 +3,11 @@
 Port of ``eamg_tpu/decode/api.py::Generator``: prompt buckets,
 ``max_supported_len``, over-length prompts returned unchanged,
 ``generate_ids`` (cached or uncached, any batch, with penalties and n-gram
-bans), ``sample_kvcache``, ``sample`` and ``trim_at_eos``. Grammar
-constraints, beams and the speculative modes are not in the port yet.
+bans), the batch-1 speculative decodes ``generate_ids_lookup`` and
+``generate_ids_medusa``, beam search (``generate_ids_beam``,
+``sample_beam``), ``sample_kvcache``, ``sample`` and ``trim_at_eos``.
+Grammar constraints and draft-model speculation are not in the port
+yet.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from ..utils import prng
 from ..utils.device import resolve_device
 from ..utils.errors import NotInPort
 from .loop import generate_full, generate_kv
+from .speculative import _padded_prompt
 
 END_TOKEN = "[END_SEQUENCE]"
 
@@ -107,6 +111,116 @@ class Generator:
         else:
             buf, pos = generate_full(*args, **common)
         return buf[:, :pos].cpu().numpy().astype(np.int32)
+
+    def _spec_prompt(self, what: str, prompt_ids: list[int], max_len,
+                     gamma: int):
+        """The speculative decodes' checks and cuts (JAX's): a corrected
+        causal checkpoint, ``max_len`` cut to n_pos - gamma. -> (max_len,
+        the prompt bucket on the device, or None when the prompt leaves no
+        room to generate)."""
+        if not self.cfg.causal or self.cfg.pos_broadcast_bug:
+            raise ValueError(
+                f"{what} requires a corrected causal checkpoint (train "
+                "--corrected); this config has the reference "
+                "bidirectional/pos quirks")
+        max_len = min(max_len or self.cfg.seq_len, self.cfg.n_pos - gamma)
+        p = len(prompt_ids)
+        if p >= max_len:
+            return max_len, None
+        return max_len, _padded_prompt(prompt_ids, min(_bucket(p), max_len),
+                                       self.pad_id, self.device)
+
+    def generate_ids_lookup(self, prompt_ids: list[int],
+                            max_len: int | None = None, gamma: int = 8,
+                            ngram: int = 3, temperature: float = 1.0,
+                            top_k: int = 50, seed: int = 0,
+                            greedy: bool = False, top_p: float = 1.0,
+                            min_p: float = 0.0) -> np.ndarray:
+        """Draft-free speculative decode (prompt lookup,
+        ``decode/speculative.py::generate_prompt_lookup``): the target's
+        output distribution, greedy output equal to the plain greedy
+        decode. Batch 1, corrected causal checkpoints. -> [1, n] ids."""
+        from .speculative import generate_prompt_lookup
+
+        max_len, prompt = self._spec_prompt(
+            "prompt-lookup speculation", prompt_ids, max_len, gamma)
+        if prompt is None:
+            # zero generation steps: the prompt unchanged
+            return np.asarray([list(prompt_ids)], np.int32)
+        buf, pos, _ = generate_prompt_lookup(
+            self.params, prompt, len(prompt_ids), prng.PRNGKey(seed),
+            self.cfg, max_len, gamma=gamma, ngram=ngram,
+            temperature=temperature, top_k=top_k, eos_id=self.eos_id,
+            pad_id=self.pad_id, greedy=greedy, top_p=top_p, min_p=min_p,
+            eager=self.eager)
+        return buf[:, :pos].numpy().astype(np.int32)
+
+    def generate_ids_medusa(self, heads: dict, prompt_ids: list[int],
+                            max_len: int | None = None, gamma: int = 4,
+                            temperature: float = 1.0, top_k: int = 50,
+                            seed: int = 0, greedy: bool = False,
+                            top_p: float = 1.0,
+                            min_p: float = 0.0) -> np.ndarray:
+        """Medusa decode (``decode/medusa.py``) with ``heads`` from
+        ``tools.medusa.load_medusa_heads``: gamma proposals a verify step,
+        the target's output distribution, greedy output equal to the plain
+        greedy decode. Batch 1, corrected causal checkpoints. -> [1, n]
+        ids."""
+        from .medusa import generate_medusa
+
+        gamma = min(gamma, len(heads["blocks"]))
+        max_len, prompt = self._spec_prompt("medusa decoding", prompt_ids,
+                                            max_len, gamma)
+        if prompt is None:
+            return np.asarray([list(prompt_ids)], np.int32)
+        buf, pos, _ = generate_medusa(
+            self.params, heads, prompt, len(prompt_ids), prng.PRNGKey(seed),
+            self.cfg, max_len, gamma=gamma, temperature=temperature,
+            top_k=top_k, eos_id=self.eos_id, pad_id=self.pad_id,
+            greedy=greedy, top_p=top_p, min_p=min_p, eager=self.eager)
+        return buf[:, :pos].numpy().astype(np.int32)
+
+    def generate_ids_beam(self, prompt_ids: list[int],
+                          max_len: int | None = None, n_beams: int = 4,
+                          length_penalty: float = 1.0,
+                          return_all: bool = False, grammar=None):
+        """Deterministic beam search (``decode/beam.py``): the best
+        hypothesis row (prompt included, cut to its length), or with
+        ``return_all`` (rows [K, max_len], gen_lens, raw scores, normalized
+        scores) ranked best first. Grammar constraints are not in the port
+        yet."""
+        from .beam import generate_beam, rank_beams
+
+        if grammar is not None:
+            raise NotInPort("grammar")
+        max_len = min(max_len or self.cfg.seq_len, self.max_supported_len())
+        p = len(prompt_ids)
+        if p >= max_len:
+            # zero generation steps (reference semantics)
+            return np.asarray([list(prompt_ids)], np.int32) if return_all \
+                else np.asarray(prompt_ids, np.int32)
+        prompt = _padded_prompt(prompt_ids, min(_bucket(p), max_len),
+                                self.pad_id, self.device)
+        buf, gen_lens, scores = generate_beam(
+            self.params, prompt, p, self.cfg, max_len, n_beams=n_beams,
+            eos_id=self.eos_id, pad_id=self.pad_id, eager=self.eager)
+        buf, gen_lens, scores, norm = rank_beams(
+            buf.astype(np.int32), gen_lens.astype(np.int32), scores,
+            length_penalty)
+        if return_all:
+            return buf, gen_lens, scores, norm
+        return buf[0, :p + int(gen_lens[0])]
+
+    def sample_beam(self, prompt: list[str], max_len: int | None = None,
+                    n_beams: int = 4, length_penalty: float = 1.0,
+                    grammar=None) -> list[str]:
+        """Token-string twin of :meth:`generate_ids_beam` (the best
+        hypothesis, trimmed at EOS)."""
+        ids = self.vocab.encode(prompt)
+        row = self.generate_ids_beam(ids, max_len=max_len, n_beams=n_beams,
+                                     length_penalty=length_penalty,
+                                     grammar=grammar)
+        return self.trim_at_eos(row)
 
     def sample_kvcache(self, prompt: list[str], max_len: int | None = None,
                        temperature: float = 1.0, top_k: int = 50,

@@ -1,5 +1,6 @@
 """The GPT decoder, in PyTorch: ``init_params``, ``forward``,
-``forward_masked``, ``prefill``, ``decode_step``.
+``forward_hidden``, ``forward_masked``, ``prefill``, ``decode_step``,
+``decode_block``.
 
 Port of ``eamg_tpu/models/gpt.py`` with the same parameter tree (torch
 layout, fused ``in_proj``) and the same quirk flags: post-/pre-LN,
@@ -27,8 +28,14 @@ and shares the layer code below. ``decode_step(..., attn_impl=...)`` names
 the decode attention kernel, each under the name of the JAX function it
 replaces (:data:`ATTN_IMPLS`); every one computes the same function.
 
-Not yet ported: ``decode_block``, ``decode_tree``, MoE layers, int8
-weights, ``attn_block`` and packed ``seg`` rows.
+``decode_block`` is the verify step of the speculative decoders: G tokens
+from the cache position t, each attending to the cached prefix and
+causally within the block. JAX computes its attention in XLA, outside any
+Pallas kernel, so it stays plain products here too, rounded as JAX rounds
+them; its FFN goes through K2 at G rows.
+
+Not yet ported: ``decode_tree``, MoE layers, int8 weights, ``attn_block``
+and packed ``seg`` rows.
 """
 
 from __future__ import annotations
@@ -292,6 +299,15 @@ def _head(params, x):
 @torch.no_grad()
 def forward(params: dict, ids: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
     """Full-sequence forward: [B, T] ids -> [B, T, V] f32 logits."""
+    return _head(params, forward_hidden(params, ids, cfg))
+
+
+@torch.no_grad()
+def forward_hidden(params: dict, ids: torch.Tensor,
+                   cfg: GPTConfig) -> torch.Tensor:
+    """The transformer stack without the head: [B, T] ids -> [B, T, D]
+    states in the activation dtype (the Medusa probe applies the heads to
+    them)."""
     _check_supported(cfg)
     T = ids.shape[1]
     x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
@@ -302,7 +318,7 @@ def forward(params: dict, ids: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
         x, _, _ = block(p, x, cfg, causal=cfg.causal)
     if cfg.batch_first_bug:
         x = x.transpose(0, 1)
-    return _head(params, x)
+    return x
 
 
 @torch.no_grad()
@@ -475,3 +491,73 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
         x = _finish_block(p, x, attn_out, cfg)
     cache["length"].add_(1)
     return _head(params, x)[:, 0], cache
+
+
+def _block_attention(q, k_cache, v_cache, q_pos):
+    """Cached attention of a block of queries at positions ``q_pos`` ([G],
+    on the device): each attends to the keys at or before its position.
+    JAX's XLA math (models/gpt.py ``_gqa_scores`` / ``_gqa_values``): grouped
+    scores in the cache dtype, scaled after the product, masked keys at
+    ``finfo(dt).min``, softmax in f32 cast back, grouped values.
+
+    q [B, H, G, Dh], caches [B, Hkv, M, Dh] -> [B, H, G, Dh]."""
+    B, H, G, Dh = q.shape
+    Hkv, M = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, G, Dh)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k_cache) * (1.0 / math.sqrt(Dh))
+    valid = torch.arange(M, device=q.device)[None, :] <= q_pos[:, None]
+    s = torch.where(valid, s, torch.finfo(s.dtype).min)
+    probs = torch.softmax(s.float(), dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkgqm,bkmd->bkgqd", probs, v_cache)
+    return out.reshape(B, H, G, Dh)
+
+
+@torch.no_grad()
+def decode_block(params: dict, ids: torch.Tensor, cache: dict,
+                 cfg: GPTConfig, return_hidden: bool = False):
+    """Multi-token cached decode: [B, G] ids from cache position t =
+    ``cache["length"]`` -> ([B, G, V] f32 logits, cache with length t + G),
+    or with ``return_hidden`` ([B, G, V] logits, [B, G, D] final hidden
+    states, cache). The verify step of the speculative decoders: each of
+    the G tokens attends to the cached prefix and to the block up to
+    itself. The block's K/V go to slots t..t+G-1 by ``index_copy_`` and
+    its position rows by ``index_select``, both at device positions, so a
+    CUDA graph can hold the step; the cache is updated in place.
+
+    The start of the position rows and of the cache write clamps as XLA's
+    dynamic slices clamp theirs (to n_pos - G and M - G). The speculative
+    decoders cut ``max_len`` to n_pos - gamma and size the cache max_len +
+    gamma + 1, so an iteration that runs (pos < max_len, t = pos - 1, G =
+    gamma + 1) reads rows up to t + G - 1 <= n_pos - 2 and writes slots up
+    to max_len + gamma - 1: neither clamps. Requires the corrected causal
+    configuration and the head-major cache."""
+    assert cfg.causal and not cfg.pos_broadcast_bug, \
+        "decode_block requires the corrected causal configuration"
+    B, G = ids.shape
+    dt = cfg.torch_dtype
+    t = cache["length"].long()                               # [1]
+    M = cache["k"][0].shape[2]
+    offs = torch.arange(G, device=ids.device)
+    n_pos = params["pos"].shape[0]
+    x = _embed(params, ids, params["pos"].index_select(
+        0, t.clamp(max=n_pos - G) + offs), dt)
+    slots = t.clamp(max=M - G) + offs
+    q_pos = t + offs
+    D, KVD = cfg.d_model, cfg.kv_dim
+    for li, p in enumerate(params["layers"]):
+        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
+                      p["attn"]["in_b"])
+        q = _heads(qkv[..., :D], cfg.n_head)                 # [B,H,G,Dh]
+        cache["k"][li].index_copy_(2, slots,
+                                   _heads(qkv[..., D:D + KVD], cfg.kv_heads))
+        cache["v"][li].index_copy_(2, slots,
+                                   _heads(qkv[..., D + KVD:], cfg.kv_heads))
+        attn_out = _unheads(_block_attention(q, cache["k"][li],
+                                             cache["v"][li], q_pos))
+        attn_out = _linear(attn_out, p["attn"]["out_w"], p["attn"]["out_b"])
+        x = _finish_block(p, x, attn_out, cfg)
+    cache["length"].add_(G)
+    logits = _head(params, x)
+    if return_hidden:
+        return logits, x, cache
+    return logits, cache

@@ -32,9 +32,10 @@ row's new tokens at every harvest, and their concatenation is
 ``submit()``'s result less the prompt. A stream closed mid-way cancels its
 row, which frees its slot at the next chunk boundary.
 
-Not in the port yet: medusa rows (``medusa_chunk``), grammar, n-gram bans
-and penalties; ``accepts`` turns such requests away, and the pipeline then
-decodes them on the solo path.
+Not in the port yet: Medusa rows (``medusa_chunk``: medusa requests decode
+solo, as under JAX's default ``engine_medusa=False``), grammar, n-gram
+bans and penalties; ``accepts`` turns the last two away, and the pipeline
+then decodes them on the solo path.
 """
 
 from __future__ import annotations

@@ -30,13 +30,22 @@ batcher does not accept, the solo cached decode
 (``Generator.sample_kvcache``) runs; penalties and n-gram bans are such
 requests, the batchers' ``accepts`` turns them away.
 
+The request options of the page decode solo, on either scheme and with
+any ``coalesce``, as JAX's default configuration does: ``medusa`` (the
+checkpoint's ``medusa_heads.pkl``, loaded and probed at start-up;
+one-shot or streamed a verify chunk at a time), ``lookup`` (prompt-lookup
+speculation) and ``beams`` (beam search, ranked with ``length_penalty``).
+They refuse what JAX refuses, with its ``ValueError``: speculation with
+penalties or n-gram bans, lookup with medusa, beams with the sampling
+features or with speculation, medusa without heads.
+
 The threaded HTTP server calls ``generate`` from several threads. One lock
 per pipeline serialises the solo decode and the synth; it is not held
 while a request waits in the engine or the batcher, or requests would
 never coalesce.
 
-Not in the port yet (requests asking for them raise ``NotInPort``): beams,
-the speculative modes (lookup, medusa) and grammar constraints.
+Not in the port yet: grammar constraints (the server answers 400), and
+Medusa rows in the continuous engine (``engine_medusa``).
 """
 
 from __future__ import annotations
@@ -58,7 +67,6 @@ from ..tokenizer import (SchemeB3, Vocab, assemble_prompt, detect_scheme,
                          tokens_to_song)
 from ..utils.checkpoint import load_checkpoint
 from ..utils.device import resolve_device
-from ..utils.errors import NotInPort
 
 # the JAX package's shipped demo checkpoints, read as data
 _DEMOS = os.path.join(os.path.dirname(os.path.dirname(
@@ -119,8 +127,17 @@ class Pipeline:
                  full_gm: bool = False, render_audio: bool = True,
                  coalesce=False, coalesce_opts: dict | None = None,
                  fast_routing: bool = False, scheme: str = "a",
-                 scheme_b: SchemeB3 | None = None):
+                 scheme_b: SchemeB3 | None = None,
+                 medusa_heads: dict | None = None):
         self.generator = generator
+        # Medusa heads (tools.medusa.load_medusa_heads) serve medusa=true
+        # requests; None refuses them. The acceptance probe rides /stats;
+        # pipeline_from_checkpoint fills both, and the reason when the
+        # checkpoint's heads cannot serve.
+        self.medusa_heads = medusa_heads
+        self.medusa_probe = medusa_heads.get("probe") if medusa_heads \
+            else None
+        self.medusa_unavailable = None
         self.device = generator.device
         self.classifier = classifier or EmotionClassifier(device=self.device)
         self.full_gm = full_gm
@@ -165,9 +182,14 @@ class Pipeline:
         streamed request rides the engine's chunk); with the window batcher,
         one ragged decode at each batch size it pads a group to; without
         an engine, the first chunk of a solo stream, whose graph the
-        streamed requests replay."""
+        streamed requests replay. With Medusa heads, one medusa request
+        too: it captures the verify chunk's graph, which the one-shot and
+        the streamed medusa requests replay alike."""
         self.generate("warm up the kernels", seed=0,
                       render_audio=self.render_audio)
+        if self.medusa_heads is not None:
+            self.generate("warm up the kernels", seed=0, render_audio=False,
+                          medusa=True)
         from .batcher import RequestBatcher
         from .continuous import ContinuousBatcher
 
@@ -240,14 +262,71 @@ class Pipeline:
         tokens = self.generator.vocab.decode(ids)
         return tokens, tokens_to_song(tokens)
 
+    def _check_options(self, penalties, no_repeat_ngram: int, lookup: bool,
+                       medusa: bool, beams: int) -> None:
+        """The compositions JAX's pipeline refuses, with its ValueErrors."""
+        if (lookup or medusa) and (penalties is not None or no_repeat_ngram):
+            raise ValueError(
+                "lookup/medusa do not compose with penalties, n-gram bans "
+                "or grammar constraints (history-dependent distributions "
+                "break the proposal/target acceptance math)")
+        if lookup and medusa:
+            raise ValueError("lookup and medusa are mutually exclusive "
+                             "speculation modes")
+        if beams:
+            if penalties is not None or no_repeat_ngram:
+                raise ValueError(
+                    "beams is a deterministic argmax-tree search; "
+                    "penalties/n-gram transforms are sampling-path "
+                    "features (grammar composes)")
+            if lookup or medusa:
+                raise ValueError("beams does not compose with the "
+                                 "speculation modes (lookup/medusa)")
+        if medusa and self.medusa_heads is None:
+            raise ValueError(self.medusa_unavailable or (
+                "this serving checkpoint ships no Medusa heads (train them "
+                "with `cli train-medusa` and place medusa_heads.pkl next to "
+                "the checkpoint)"))
+
+    def _solo_option(self, prompt_ids: list, temperature: float, top_k: int,
+                     run_seed: int, top_p: float, min_p: float, lookup: bool,
+                     medusa: bool, beams: int, length_penalty: float) -> list:
+        """The ids (prompt included) of a request for medusa, lookup or
+        beams: a solo decode under the pipeline's lock, as JAX decodes
+        them in its default configuration."""
+        gen = self.generator
+        with self._lock:
+            if beams:
+                return gen.generate_ids_beam(
+                    prompt_ids, n_beams=beams,
+                    length_penalty=length_penalty).tolist()
+            sampling = dict(temperature=temperature, top_k=top_k,
+                            seed=run_seed, top_p=top_p, min_p=min_p)
+            if medusa:
+                return gen.generate_ids_medusa(
+                    self.medusa_heads, prompt_ids, **sampling)[0].tolist()
+            return gen.generate_ids_lookup(prompt_ids, **sampling)[0].tolist()
+
     def _decode(self, mapping: dict, temperature: float, top_k: int,
                 run_seed: int, top_p: float, min_p: float,
-                penalties: tuple | None = None, no_repeat_ngram: int = 0):
+                penalties: tuple | None = None, no_repeat_ngram: int = 0,
+                lookup: bool = False, medusa: bool = False, beams: int = 0,
+                length_penalty: float = 1.0):
         """mapping -> (prompt tokens, tokens, song, dropped): prompt
         assembly, decode and detokenization, shared by single-shot and
         multi-section generation."""
+        self._check_options(penalties, no_repeat_ngram, lookup, medusa, beams)
         gen = self.generator
         known, prompt_ids, dropped = self._prompt_for(mapping)
+        if lookup or medusa or beams:
+            ids = self._solo_option(prompt_ids, temperature, top_k, run_seed,
+                                    top_p, min_p, lookup, medusa, beams,
+                                    length_penalty)
+            if self.scheme == "b3":
+                tokens, song = self._song(ids)
+                return known, tokens, song, dropped
+            tokens = gen.trim_at_eos(ids)
+            return known, tokens, tokens_to_song(tokens), dropped
         if self.scheme == "b3":
             with self._lock:
                 ids = gen.generate_ids(
@@ -295,7 +374,12 @@ class Pipeline:
                  render_audio: bool | None = None,
                  top_p: float = 1.0, min_p: float = 0.0,
                  penalties: tuple | None = None,
-                 no_repeat_ngram: int = 0) -> GenerationResult:
+                 no_repeat_ngram: int = 0, lookup: bool = False,
+                 medusa: bool = False, beams: int = 0,
+                 length_penalty: float = 1.0) -> GenerationResult:
+        """One song for the prompt: classify, map, decode, render.
+        ``lookup``, ``medusa`` and ``beams`` (with ``length_penalty``)
+        pick the page's decode options (solo)."""
         render = self.render_audio if render_audio is None else render_audio
         timings = {}
         t0 = time.perf_counter()
@@ -311,7 +395,7 @@ class Pipeline:
             int(time.time_ns() % 2**31)
         gen_prompt, tokens, song, dropped = self._decode(
             mapping, temperature, top_k, run_seed, top_p, min_p, penalties,
-            no_repeat_ngram)
+            no_repeat_ngram, lookup, medusa, beams, length_penalty)
         timings["decode"] = (time.perf_counter() - t0) * 1000
 
         midi_bytes, wav_bytes = self._finish(song, seed, render, timings)
@@ -367,19 +451,23 @@ class Pipeline:
                           gap_s: float = 0.5, top_p: float = 1.0,
                           min_p: float = 0.0,
                           penalties: tuple | None = None,
-                          no_repeat_ngram: int = 0) -> GenerationResult:
+                          no_repeat_ngram: int = 0, lookup: bool = False,
+                          medusa: bool = False, beams: int = 0,
+                          length_penalty: float = 1.0) -> GenerationResult:
         """Emotion-adaptive generation: each sentence of the prompt is
         classified on its own and drives its own conditioned section
         (seed + i for section i); the sections are laid end to end on the
         time axis, ``gap_s`` apart. A prompt of one sentence is
         :meth:`generate`."""
+        options = dict(penalties=penalties, no_repeat_ngram=no_repeat_ngram,
+                       lookup=lookup, medusa=medusa, beams=beams,
+                       length_penalty=length_penalty)
         segments = segment_text(prompt_text)
         if len(segments) <= 1:
             return self.generate(prompt_text, temperature=temperature,
                                  top_k=top_k, seed=seed,
                                  render_audio=render_audio, top_p=top_p,
-                                 min_p=min_p, penalties=penalties,
-                                 no_repeat_ngram=no_repeat_ngram)
+                                 min_p=min_p, **options)
         render = self.render_audio if render_audio is None else render_audio
         timings = {}
         t_all = time.perf_counter()
@@ -390,7 +478,7 @@ class Pipeline:
             label, mapping, run_seed = self._section(i, seg, seed, timings)
             gp, tokens, song, drop = self._decode(
                 mapping, temperature, top_k, run_seed, top_p, min_p,
-                penalties, no_repeat_ngram)
+                **options)
             labels.append(label)
             mappings.append(mapping)
             all_tokens.extend(tokens)
@@ -417,17 +505,26 @@ class Pipeline:
                        top_p: float = 1.0, min_p: float = 0.0,
                        penalties: tuple | None = None,
                        no_repeat_ngram: int = 0, medusa: bool = False):
-        """Lists of newly generated token ids: an engine row's
-        (``submit_stream``) when a continuous engine runs and accepts the
-        request's sampling values, else the solo chunked stream
-        (``decode/stream.py``), ``chunk`` tokens a list."""
+        """Lists of newly generated token ids: with ``medusa`` the solo
+        Medusa stream (``decode/medusa.py``: accepted tokens arrive a verify
+        chunk at a time, the one-shot medusa decode's tokens); else an
+        engine row's (``submit_stream``) when a continuous engine runs and
+        accepts the request's sampling values, else the solo chunked stream
+        (``decode/stream.py``); ``chunk`` tokens a list."""
         from ..decode.stream import stream_tokens
         from .continuous import ContinuousBatcher
 
-        if medusa:
-            raise NotInPort("medusa")
         gen = self.generator
-        if isinstance(self.batcher, ContinuousBatcher) \
+        if medusa:
+            from ..decode.medusa import stream_tokens_medusa
+
+            self._check_options(penalties, no_repeat_ngram, False, True, 0)
+            tokens = stream_tokens_medusa(
+                gen.params, self.medusa_heads, gen.cfg, list(prompt_ids),
+                gen.max_supported_len(), temperature=temperature,
+                top_k=top_k, eos_id=gen.eos_id, pad_id=gen.pad_id,
+                seed=run_seed, top_p=top_p, min_p=min_p, eager=gen.eager)
+        elif isinstance(self.batcher, ContinuousBatcher) \
                 and self.batcher.accepts(top_k=top_k, top_p=top_p,
                                          min_p=min_p, penalties=penalties,
                                          no_repeat_ngram=no_repeat_ngram):
@@ -435,15 +532,16 @@ class Pipeline:
                 prompt_ids, temperature=temperature, seed=run_seed,
                 top_k=top_k, top_p=top_p, min_p=min_p)
             return
+        else:
+            tokens = stream_tokens(
+                gen.params, gen.cfg, list(prompt_ids),
+                gen.max_supported_len(), chunk=chunk,
+                temperature=temperature, top_k=top_k, eos_id=gen.eos_id,
+                pad_id=gen.pad_id, seed=run_seed, top_p=top_p, min_p=min_p,
+                penalties=penalties, no_repeat_ngram=no_repeat_ngram,
+                eager=gen.eager)
         delta = []
-        for tok in stream_tokens(gen.params, gen.cfg, list(prompt_ids),
-                                 gen.max_supported_len(), chunk=chunk,
-                                 temperature=temperature, top_k=top_k,
-                                 eos_id=gen.eos_id, pad_id=gen.pad_id,
-                                 seed=run_seed, top_p=top_p, min_p=min_p,
-                                 penalties=penalties,
-                                 no_repeat_ngram=no_repeat_ngram,
-                                 eager=gen.eager):
+        for tok in tokens:
             delta.append(tok)
             if len(delta) >= chunk:
                 yield delta
@@ -565,17 +663,65 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
             f"Scheme-{scheme.upper()} checkpoints have no control tokens "
             "to condition on; serve a b3 (train_no_inst) or Scheme-A "
             "checkpoint")
-    if os.path.isfile(os.path.join(path, "medusa_heads.pkl")):
-        print("[serve] medusa heads found; medusa decoding is not yet in "
-              "the PyTorch port, plain decode only")
+    heads, medusa_probe, medusa_unavailable = _medusa_heads_for(
+        path, ckpt, device)
+    opts = dict(coalesce=coalesce, coalesce_opts=coalesce_opts,
+                fast_routing=fast_routing, medusa_heads=heads)
     if scheme == "b3":
         gen = Generator(ckpt["params"], ckpt["cfg"], vocab,
                         eos_token="[END_SEQ]", device=device, eager=eager)
-        return Pipeline(gen, classifier, scheme="b3",
+        pipe = Pipeline(gen, classifier, scheme="b3",
                         scheme_b=SchemeB3(seq_len=ckpt["cfg"].seq_len),
-                        coalesce=coalesce, coalesce_opts=coalesce_opts,
-                        fast_routing=fast_routing)
-    gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device,
-                    eager=eager)
-    return Pipeline(gen, classifier, full_gm=full_gm, coalesce=coalesce,
-                    coalesce_opts=coalesce_opts, fast_routing=fast_routing)
+                        **opts)
+    else:
+        gen = Generator(ckpt["params"], ckpt["cfg"], vocab, device=device,
+                        eager=eager)
+        pipe = Pipeline(gen, classifier, full_gm=full_gm, **opts)
+    pipe.medusa_probe = medusa_probe
+    pipe.medusa_unavailable = medusa_unavailable
+    return pipe
+
+
+def _medusa_heads_for(path: str, ckpt: dict, device) -> tuple:
+    """The checkpoint's ``medusa_heads.pkl``, as JAX's pipeline takes it
+    -> (heads or None, their acceptance probe or None, why medusa cannot
+    serve or None). Heads need a corrected causal checkpoint and its
+    d_model; a file without a probe is probed here (a forward over
+    held-out rows), and a probe that predicts a loss is printed."""
+    from ..tools.medusa import (PROBE_WIN_THRESHOLD, load_medusa_heads,
+                                probe_heads_for_checkpoint)
+
+    heads_path = os.path.join(path, "medusa_heads.pkl")
+    if not os.path.isfile(heads_path):
+        return None, None, None
+    heads, probe, unavailable = None, None, None
+    D = ckpt["cfg"].d_model
+    if not ckpt["cfg"].causal:
+        unavailable = (
+            "this checkpoint ships Medusa heads but has the reference "
+            "bidirectional/pos quirks; medusa requires a corrected causal "
+            "checkpoint (train --corrected)")
+    else:
+        heads = load_medusa_heads(heads_path)
+        w0 = heads["blocks"][0]["w"]
+        if tuple(w0.shape) != (D, D):
+            unavailable = (
+                f"the shipped medusa_heads.pkl was trained for "
+                f"d_model={w0.shape[0]}, this checkpoint is d_model={D}; "
+                "retrain with `cli train-medusa`")
+            heads = None
+        else:
+            probe = heads.get("probe")
+            if probe is None:
+                probe = probe_heads_for_checkpoint(ckpt, heads,
+                                                   device=device)
+            if not probe.get("likely_win", True):
+                print("[serve] medusa probe: predicted "
+                      f"{probe['tok_per_verify_est']} tok/verify < "
+                      f"{PROBE_WIN_THRESHOLD} admission threshold (base "
+                      f"top-1 {probe['base_top1']}) — medusa=true will "
+                      "likely LOSE throughput on this checkpoint; plain "
+                      "decode recommended")
+    if unavailable:
+        print(f"[serve] medusa disabled: {unavailable}")
+    return heads, probe, unavailable

@@ -5,19 +5,24 @@ Port of ``eamg_tpu/serve/server.py``: ``POST /generate`` with form field
 query), and the sampling fields ``seed``, ``temperature``, ``top_k``,
 ``top_p``, ``min_p``, ``repetition_penalty``, ``frequency_penalty``,
 ``presence_penalty`` and ``no_repeat_ngram`` (the last four decode solo),
-``sections`` (one conditioned section a sentence) and ``stream`` (form
+``sections`` (one conditioned section a sentence), ``stream`` (form
 field or query: Server-Sent Events, a ``meta`` event a section, ``tokens``
 deltas as the decode's chunks complete, then ``done`` with the MIDI and
-WAV as base64, the page's default request); ``GET /healthz``, ``GET
-/stats`` (with the engine's counters under ``engine`` when requests are
-coalesced) and the static page at ``GET /`` (the JAX package's
-``serve/static/index.html``, read by path). Malformed input gets a 4xx,
-never a 500, and a stream's malformed number gets its 422 before the 200
-header is sent. A full admission queue (``EngineOverloaded``) gets a 503
-with ``Retry-After``, a stream's before its 200. A request that asks for
-an option the port does not have yet (lookup, medusa, beams, grammar)
-gets a 400 naming it, streamed or not; ``/profile`` is a 404 until the
-port has its own trace capture.
+WAV as base64, the page's default request), and the page's decode
+options, each decoded solo: ``medusa`` (streamed a verify chunk at a
+time), ``lookup`` and ``beams`` (0 to 16, with ``length_penalty``);
+``GET /healthz``, ``GET /stats`` (with the engine's counters under
+``engine`` when requests are coalesced, and the Medusa heads' acceptance
+probe under ``medusa_probe``) and the static page at ``GET /`` (the JAX
+package's ``serve/static/index.html``, read by path). Malformed input
+gets a 4xx, never a 500, and a stream's malformed number gets its 422
+before the 200 header is sent. JAX's 422s hold: lookup or beams with
+``stream``, medusa streamed with penalties or n-gram bans or without
+heads, and every composition the pipeline refuses. A full admission queue
+(``EngineOverloaded``) gets a 503 with ``Retry-After``, a stream's before
+its 200. ``grammar`` is not in the port yet and gets a 400 naming it,
+streamed or not; ``/profile`` is a 404 until the port has its own trace
+capture.
 """
 
 from __future__ import annotations
@@ -46,11 +51,10 @@ _CORS = {
 MAX_BODY_BYTES = 2 << 20
 MAX_PROMPT_CHARS = 20_000
 
-# request options the JAX server serves and the port does not yet (the
-# speculative modes and grammar constraints): flags, on as "1"/"true"/"yes"
-# as the JAX server reads them, and numbers with their neutral value
-_NOT_YET_FLAGS = ("lookup", "medusa", "grammar")
-_NOT_YET_NUMBERS = {"beams": 0.0}
+# request options the JAX server serves and the port does not yet
+# (grammar constraints): flags, on as "1"/"true"/"yes" as the JAX server
+# reads them
+_NOT_YET_FLAGS = ("grammar",)
 
 
 def _parse_multipart(body: bytes, content_type: str) -> dict[str, str]:
@@ -119,13 +123,6 @@ def _unsupported(fields: dict, qs: dict) -> str | None:
     """The first requested option the port does not serve yet."""
     for name in _NOT_YET_FLAGS:
         if _flag(fields, qs, name):
-            return name
-    for name, neutral in _NOT_YET_NUMBERS.items():
-        raw = qs.get(name, [fields.get(name, "")])[0].strip().lower()
-        try:
-            if raw and float(raw) != neutral:
-                return name
-        except ValueError:
             return name
     return None
 
@@ -222,6 +219,11 @@ class EAMGHandler(BaseHTTPRequestHandler):
             self._json(200, {"status": "ok"})
         elif path == "/stats":
             out = self.stats.summary()
+            # the Medusa heads' acceptance probe: whether medusa=true is
+            # predicted to win on this checkpoint
+            probe = getattr(self.pipeline, "medusa_probe", None)
+            if probe is not None:
+                out["medusa_probe"] = probe
             batcher = getattr(self.pipeline, "batcher", None)
             if batcher is not None:
                 out["engine"] = _engine_stats(batcher)
@@ -302,17 +304,41 @@ class EAMGHandler(BaseHTTPRequestHandler):
                 seed=_num(fields, "seed", None, int))
             if not sampling["temperature"] > 0.0:
                 raise ValueError("temperature must be > 0")
+            # beam search: solo, 0 = off; length_penalty ranks the beams
+            beams = _num(fields, "beams", 0, int)
+            length_penalty = _num(fields, "length_penalty", 1.0, float)
+            if beams < 0 or beams > 16:
+                raise ValueError("beams must be in [0, 16]")
         except ValueError as exc:
             self._json(422, {"error": str(exc)})
             return
         t_start = time.perf_counter()
         sections = _flag(fields, qs, "sections")
-        if _flag(fields, qs, "stream"):
-            self._stream_generate(prompt, sampling, fmt, sections, t_start)
+        lookup, medusa = _flag(fields, qs, "lookup"), _flag(fields, qs,
+                                                            "medusa")
+        stream = _flag(fields, qs, "stream")
+        refusal = self._refusal(stream, lookup, medusa, beams, sampling)
+        if refusal is not None:
+            self._json(422, {"error": refusal})
+            return
+        if stream:
+            self._stream_generate(prompt, sampling, fmt, sections, t_start,
+                                  medusa)
             return
         gen_fn = (self.pipeline.generate_sections if sections
                   else self.pipeline.generate)
-        result = gen_fn(prompt, render_audio=fmt == "wav", **sampling)
+        try:
+            result = gen_fn(prompt, render_audio=fmt == "wav", lookup=lookup,
+                            medusa=medusa, beams=beams,
+                            length_penalty=length_penalty, **sampling)
+        except NotInPort as exc:
+            self._json(400, {"error": str(exc)})
+            return
+        except ValueError as exc:
+            # a composition the pipeline refuses (lookup with penalties,
+            # medusa without heads, speculation on a quirk checkpoint...)
+            self._json(422, {"error": str(exc)})
+            return
         self.stats.observe(time.perf_counter() - t_start,
                            tokens=len(result.tokens))
         timings = {k: round(v, 1) for k, v in result.timings_ms.items()}
@@ -330,16 +356,38 @@ class EAMGHandler(BaseHTTPRequestHandler):
                 'attachment; filename="generated.wav"'
             self._send(200, result.wav_bytes, "audio/wav", extra)
 
-    def _stream_generate(self, prompt, sampling, fmt, sections, t_start):
+    def _refusal(self, stream: bool, lookup: bool, medusa: bool,
+                 beams: int, sampling: dict) -> str | None:
+        """JAX's 422 for an option that does not stream or, streamed, does
+        not compose; None when the request may go on. A stream's is sent
+        before its 200 header."""
+        if lookup and stream:
+            return "lookup does not stream yet (whole-block speculation)"
+        if beams and stream:
+            return ("beams is a whole-block deterministic search; it does "
+                    "not stream")
+        if stream and medusa:
+            if sampling["penalties"] is not None \
+                    or sampling["no_repeat_ngram"]:
+                return ("medusa does not compose with penalties, n-gram "
+                        "bans or grammar")
+            if self.pipeline.medusa_heads is None:
+                return self.pipeline.medusa_unavailable or \
+                    "this serving checkpoint ships no Medusa heads"
+        return None
+
+    def _stream_generate(self, prompt, sampling, fmt, sections, t_start,
+                         medusa: bool = False):
         """``POST /generate?stream=1`` -> Server-Sent Events: one
         ``data: {json}`` event a ``generate_stream`` event, flushed as it
         comes. ``sampling`` arrives validated, so a malformed number has
         had its 422 before the 200 header is sent here."""
         # decide overload before committing to a 200 event stream; only a
         # stream that would ride the engine is shed (a race with the row's
-        # enqueue becomes an SSE "error" event)
+        # enqueue becomes an SSE "error" event); a medusa stream decodes
+        # solo
         batcher = getattr(self.pipeline, "batcher", None)
-        if isinstance(batcher, ContinuousBatcher) \
+        if not medusa and isinstance(batcher, ContinuousBatcher) \
                 and batcher.accepts(
                     top_k=sampling["top_k"], top_p=sampling["top_p"],
                     min_p=sampling["min_p"],
@@ -358,7 +406,8 @@ class EAMGHandler(BaseHTTPRequestHandler):
         self.end_headers()
         n_tokens, label = 0, ""
         stream = self.pipeline.generate_stream(
-            prompt, render_audio=fmt == "wav", sections=sections, **sampling)
+            prompt, render_audio=fmt == "wav", sections=sections,
+            medusa=medusa, **sampling)
         try:
             for ev in stream:
                 if ev["event"] == "done":

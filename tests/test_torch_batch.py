@@ -22,7 +22,10 @@ Checked, with the tolerance and its reason:
 - ``Generator.generate_ids`` (batch, ``use_cache``, penalties), ``sample``,
   ``sample_kvcache`` and ``max_supported_len`` equal to JAX's;
 - ``cli generate`` on a small saved checkpoint: the MIDI bytes of the JAX
-  CLI for the same seed and flags; the modes outside the port exit 2;
+  CLI for the same seed and flags; of its decode modes, ``--beams`` gives
+  the JAX CLI's bytes, ``--lookup`` and ``--medusa`` stop with JAX's
+  ValueError on this (non-causal) checkpoint, and ``--grammar`` and
+  ``--draft``, outside the port, exit 2 naming the flag;
 - the bench module's loop (``bench.bench_impl``) at a cut depth, length and
   batch gives a result line per ``attn_impl``; ``python -m
   eamg_tpu_torch.bench`` refuses to run without a card.
@@ -31,6 +34,7 @@ Checked, with the tolerance and its reason:
 from __future__ import annotations
 
 import json
+import pickle
 
 import numpy as np
 import pytest
@@ -103,7 +107,13 @@ CLI_RUNS = {
                   "--presence-penalty", "0.2", "--no-repeat-ngram", "3",
                   "--instruments", "Flute"],
 }
-CLI_REFUSED = ("--beams", "--grammar", "--draft", "--lookup", "--medusa")
+# cli generate's decode modes: flag -> (its values, exit code, what stderr
+# says); "{heads}" is a Medusa heads file
+CLI_MODES = {"--beams": (["4"], 0, ""),
+             "--grammar": ([], 2, "not yet in the PyTorch port"),
+             "--draft": (["x"], 2, "not yet in the PyTorch port"),
+             "--lookup": ([], 1, "corrected causal checkpoint"),
+             "--medusa": (["{heads}"], 1, "corrected causal checkpoint")}
 
 
 def _kw(spec):
@@ -227,6 +237,17 @@ def _cli_case(inp, ref, tmp):
         jax_cli.main(["generate", "--checkpoint", str(ckpt), "--out",
                       str(out), *extra])
         ref[f"cli/{name}/midi"] = np.frombuffer(out.read_bytes(), np.uint8)
+    heads = tmp / "heads.pkl"
+    with open(heads, "wb") as f:
+        pickle.dump({"blocks": [{"w": np.zeros((64, 64), np.float32),
+                                 "b": np.zeros(64, np.float32)}]}, f)
+    modes = {flag: [a.format(heads=heads) for a in values]
+             for flag, (values, _, _) in CLI_MODES.items()}
+    inp["cli/modes"] = np.asarray(json.dumps(modes))
+    out = tmp / "jax_beams.mid"
+    jax_cli.main(["generate", "--checkpoint", str(ckpt), "--out", str(out),
+                  "--beams", *modes["--beams"]])
+    ref["cli/--beams/midi"] = np.frombuffer(out.read_bytes(), np.uint8)
 
 
 @pytest.fixture(scope="module")
@@ -390,12 +411,24 @@ def test_cli_generate_midi_bytes_equal_jax_cli(results, name):
     assert head[:4] == b"RIFF" and head[8:12] == b"WAVE"
 
 
-@pytest.mark.parametrize("flag", CLI_REFUSED)
+@pytest.mark.parametrize("flag", list(CLI_MODES))
 def test_cli_generate_names_modes_outside_the_port(results, flag):
-    got, _ = results
-    assert int(got[f"cli/{flag}/code"]) == 2
-    assert flag in str(got[f"cli/{flag}/stderr"])
-    assert "not yet in the PyTorch port" in str(got[f"cli/{flag}/stderr"])
+    """The modes still outside the port exit 2 naming the flag; the others
+    run as the JAX CLI runs them on this checkpoint: ``--beams`` to its
+    MIDI bytes, ``--lookup`` and ``--medusa`` to JAX's ValueError (they
+    need a causal checkpoint)."""
+    got, ref = results
+    _, code, says = CLI_MODES[flag]
+    stderr = str(got[f"cli/{flag}/stderr"])
+    assert int(got[f"cli/{flag}/code"]) == code, stderr
+    assert says in stderr
+    if code == 2:
+        assert flag in stderr
+    else:
+        assert "not yet in the PyTorch port" not in stderr
+    if code == 0:
+        assert got[f"cli/{flag}/midi"].tobytes() == \
+            ref[f"cli/{flag}/midi"].tobytes()
 
 
 def test_bench_module_runs_on_the_cpu_at_a_cut_size(results):

@@ -24,8 +24,8 @@ Checked, with the tolerance and its reason:
 - the additive synth: the waveform of a song with drums to 1e-5;
 - the pipeline on the JAX demo_pipeline geometry: same-seed MIDI bytes
   equal;
-- the HTTP contract of the port's server (penalties and n-gram bans are
-  served, by the solo decode);
+- the HTTP contract of the port's server (penalties, n-gram bans and
+  ``beams`` are served, by the solo decode);
 - ``cli serve --coalesce`` (a subprocess of the worker, on the CPU) on a
   checkpoint of the causal demo_pipeline geometry: concurrent same-seed
   requests return the MIDI bytes of the JAX pipeline built with
@@ -99,7 +99,7 @@ CO_REQUESTS = [("I finally got the job, I am so happy!", 5, {}),
                ("my dog died and I cannot stop crying", 9, {"top_k": 7})]
 HTTP = {  # name: (status, what the body starts with or the error says)
     "wav": (200, b"RIFF"), "midi": (200, b"MThd"),
-    "stream": (200, b"data: {"), "beams": (400, "beams"),
+    "stream": (200, b"data: {"), "beams": (200, b"RIFF"),
     # penalties and n-gram bans decode solo
     "penalty": (200, b"RIFF"), "ngram": (200, b"MThd"),
     "bad_ngram": (422, "no_repeat_ngram"), "bad_seed": (422, "seed"),

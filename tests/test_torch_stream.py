@@ -28,9 +28,11 @@ Checked, with the tolerance and its reason:
   for the same seed and the MIDI made from the concatenated deltas; the
   same seed twice gives the same bytes; ``sections=1``, streamed and not,
   gives JAX's MIDI bytes for a three-sentence prompt;
-- the SSE contract: a malformed number answers 422 before any 200 header,
-  a stream that asks for medusa, lookup, grammar or beams answers the 400
-  that names it, a WAV stream's done event carries RIFF....WAVE.
+- the SSE contract: a malformed number answers 422 before any 200 header;
+  a medusa stream on the coalescing server, whose causal model has Medusa
+  heads attached, answers 200 and decodes solo; lookup and beams answer
+  JAX's 422 (they do not stream); grammar answers the 400 that names it; a
+  WAV stream's done event carries RIFF....WAVE.
 """
 
 from __future__ import annotations
@@ -108,14 +110,17 @@ CONTRACT = {
                  "seed"),
     "bad_top_p": ("?stream=1", {"prompt": TEXT1, "top_p": "x"}, 422,
                   "top_p"),
-    "medusa": ("?stream=1", {"prompt": TEXT1, "medusa": "1"}, 400,
-               "medusa"),
-    "lookup": ("", {"prompt": TEXT1, "stream": "1", "lookup": "true"}, 400,
+    "medusa": ("?stream=1", {"prompt": TEXT1, "medusa": "1"}, 200,
+               "RIFF"),
+    "lookup": ("", {"prompt": TEXT1, "stream": "1", "lookup": "true"}, 422,
                "lookup"),
     "grammar": ("?stream=1", {"prompt": TEXT1, "grammar": "1"}, 400,
                 "grammar"),
-    "beams": ("?stream=1", {"prompt": TEXT1, "beams": "2"}, 400, "beams"),
+    "beams": ("?stream=1", {"prompt": TEXT1, "beams": "2"}, 422, "beams"),
 }
+# the contract's calls go to the solo Scheme-A server but these: the
+# medusa stream needs a causal model with heads
+CONTRACT_SERVER = {"medusa": "co"}
 
 
 def _np_tree(tree):
@@ -184,6 +189,13 @@ def _pipeline_cases(inp, ref):
     inp["calls"] = np.asarray(json.dumps(CALLS))
     inp["contract"] = np.asarray(json.dumps(
         {k: v[:2] for k, v in CONTRACT.items()}))
+    inp["contract_server"] = np.asarray(json.dumps(CONTRACT_SERVER))
+    d = pipes["co"].generator.cfg.d_model
+    heads = np.random.default_rng(3).standard_normal((4, 2, d, d))
+    inp.update(flatten({"blocks": [
+        {"w": (0.03 * h[0]).astype(np.float32),
+         "b": (0.1 * h[1, 0]).astype(np.float32)} for h in heads]},
+        "co/heads"))
 
 
 @pytest.fixture(scope="module")

@@ -1095,16 +1095,17 @@ def _cli_generate_checks(inp, out, tmp_dir):
             out[f"cli/{name}/midi"] = np.frombuffer(f.read(), np.uint8)
         with open(wav, "rb") as f:
             out[f"cli/{name}/wav_head"] = np.frombuffer(f.read(12), np.uint8)
-    for flag, value in (("--beams", "4"), ("--grammar", None),
-                        ("--draft", "x"), ("--lookup", None),
-                        ("--medusa", "x")):
+    for flag, values in json.loads(str(inp["cli/modes"])).items():
+        mid = os.path.join(tmp_dir, f"mode{flag}.mid")
         r = subprocess.run(
             [sys.executable, "-m", "eamg_tpu_torch.cli", "generate",
-             "--device", "cpu", "--checkpoint", ckpt, flag]
-            + ([value] if value else []),
-            capture_output=True, text=True, timeout=120)
+             "--device", "cpu", "--checkpoint", ckpt, "--out", mid, flag,
+             *values], capture_output=True, text=True, timeout=120)
         out[f"cli/{flag}/code"] = np.asarray(r.returncode)
         out[f"cli/{flag}/stderr"] = np.asarray(r.stderr[-500:])
+        if os.path.isfile(mid):
+            with open(mid, "rb") as f:
+                out[f"cli/{flag}/midi"] = np.frombuffer(f.read(), np.uint8)
 
 
 def _bench_checks(out):
@@ -1766,7 +1767,8 @@ def _stream_pipeline(inp, tag):
     gen = Generator(params, cfg, vocab, device=CPU)
     if tag == "co":
         return Pipeline(gen, clf, coalesce="continuous",
-                        coalesce_opts=json.loads(str(inp["co/engine"])))
+                        coalesce_opts=json.loads(str(inp["co/engine"])),
+                        medusa_heads=_heads_from(inp, "co/heads"))
     return Pipeline(gen, clf)
 
 
@@ -1778,14 +1780,15 @@ def _sse_checks(inp, out):
 
     calls = json.loads(str(inp["calls"]))
     contract = json.loads(str(inp["contract"]))
+    server_of = json.loads(str(inp["contract_server"]))
     for tag in ("a", "co", "b3"):
         pipe = _stream_pipeline(inp, tag)
         port = _free_port()
         server = make_server(pipe, "127.0.0.1", port)
         thread = serve_forever_in_thread(server)
         todo = [(f"http/{tag}/{k}", v) for k, v in calls.items()]
-        if tag == "a":
-            todo += [(f"contract/{k}", v) for k, v in contract.items()]
+        todo += [(f"contract/{k}", v) for k, v in contract.items()
+                 if server_of.get(k, "a") == tag]
         try:
             for key, (query, fields) in todo:
                 status, body, headers = _post_form(port, fields, query)
@@ -1995,7 +1998,325 @@ def task_b3(inp, out):
                     q, kv, t, H).numpy()
 
 
-TASKS = {"kernels": task_kernels, "topk": task_topk, "slice": task_slice,
+# ------------------------------------------------------- medusa and spec
+
+
+def _heads_from(inp, prefix):
+    heads = unflatten(inp, prefix)
+    return {"blocks": [{k: _t(v) for k, v in b.items()}
+                       for b in heads["blocks"]]}
+
+
+def _spec_pipeline(inp, tag, heads=True):
+    """The demo pipeline ``tag`` ("a": Scheme A, causal; "b3") of the
+    test's weights, with its Medusa heads unless ``heads`` is False."""
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.emotion import EmotionClassifier
+    from eamg_tpu_torch.serve import Pipeline
+    from eamg_tpu_torch.tokenizer import SchemeB3, Vocab
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    cfg = _cfg(inp, f"{tag}/cfg")
+    vocab = Vocab(json.loads(str(inp[f"{tag}/vocab"])))
+    params = params_from_jax(unflatten(inp, f"{tag}/p"))
+    clf = EmotionClassifier(device=CPU)
+    hd = _heads_from(inp, f"{tag}/heads") if heads else None
+    if tag == "b3":
+        gen = Generator(params, cfg, vocab, eos_token="[END_SEQ]",
+                        device=CPU)
+        return Pipeline(gen, clf, scheme="b3", medusa_heads=hd,
+                        scheme_b=SchemeB3(seq_len=cfg.seq_len))
+    return Pipeline(Generator(params, cfg, vocab, device=CPU), clf,
+                    medusa_heads=hd)
+
+
+def _http_calls(pipe, calls: dict, out, prefix: str):
+    """POST each of ``calls`` (name -> (query, fields)) to an in-process
+    server of ``pipe``; GET /stats. Status, Content-Type and body under
+    ``prefix/name``."""
+    import urllib.request
+
+    from eamg_tpu_torch.serve import (make_server, serve_forever_in_thread,
+                                      shutdown_gracefully)
+
+    port = _free_port()
+    server = make_server(pipe, "127.0.0.1", port)
+    thread = serve_forever_in_thread(server)
+    try:
+        for name, (query, fields) in calls.items():
+            status, body, headers = _post_form(port, fields, query)
+            out[f"{prefix}/{name}/status"] = np.asarray(status)
+            out[f"{prefix}/{name}/type"] = np.asarray(
+                headers.get("Content-Type", ""))
+            out[f"{prefix}/{name}/body"] = np.frombuffer(body, np.uint8)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as r:
+            out[f"{prefix}/stats"] = np.frombuffer(r.read(), np.uint8)
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+
+
+def _medusa_http(inp, out):
+    text, seed = "I finally got the job, I am so happy!", 5
+    pipe = _spec_pipeline(inp, "b3")
+    pipe.medusa_probe = {"tok_per_verify_est": 1.5, "likely_win": True}
+    base = {"prompt": text, "seed": seed}
+    got = {}
+    _http_calls(pipe, {
+        "oneshot": ("?format=midi", {**base, "medusa": "1"}),
+        "stream": ("?stream=1&format=midi", {**base, "medusa": "1"}),
+        "stream_penalty": ("?stream=1", {**base, "medusa": "1",
+                                         "repetition_penalty": "1.3"}),
+        "lookup_stream": ("?stream=1", {**base, "lookup": "1"}),
+        "beams_stream": ("?stream=1", {**base, "beams": "2"}),
+        "lookup_and_medusa": ("", {**base, "lookup": "1", "medusa": "1"}),
+        "beams_too_many": ("", {**base, "beams": "17"}),
+        "beams_and_penalty": ("", {**base, "beams": "2",
+                                   "repetition_penalty": "1.3"}),
+        "grammar": ("", {**base, "grammar": "1"}),
+    }, got, "x")
+    for name in ("oneshot", "stream"):
+        out[f"http/{name}/status"] = got[f"x/{name}/status"]
+        out[f"http/{name}/body"] = got[f"x/{name}/body"]
+    out["http/stats"] = got["x/stats"]
+    for k, v in got.items():
+        name = k.split("/")[1]
+        if name not in ("oneshot", "stream", "stats"):
+            out[f"contract/{k[2:]}"] = v
+    bare = _spec_pipeline(inp, "a", heads=False)
+    _http_calls(bare, {
+        "no_heads": ("", {**base, "medusa": "1"}),
+        "no_heads_stream": ("?stream=1", {**base, "medusa": "1"})},
+        out, "contract")
+    out["http/stats_none"] = out.pop("contract/stats")
+
+
+def _heads_mismatch(inp, out, tmp):
+    """pipeline_from_checkpoint on demo_ckpt_b3's files beside a heads file
+    of another width: medusa unavailable, with the reason."""
+    import contextlib
+    import os
+    import pickle
+
+    from eamg_tpu_torch.emotion import EmotionClassifier
+    from eamg_tpu_torch.serve import pipeline_from_checkpoint
+
+    src = str(inp["demo/b3"])
+    for f in os.listdir(src):
+        if f != "medusa_heads.pkl":
+            os.symlink(os.path.join(src, f), os.path.join(tmp, f))
+    with open(os.path.join(tmp, "medusa_heads.pkl"), "wb") as f:
+        pickle.dump({"blocks": [{"w": np.zeros((16, 16), np.float32),
+                                 "b": np.zeros(16, np.float32)}]}, f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        pipe = pipeline_from_checkpoint(
+            tmp, device=CPU,
+            classifier=EmotionClassifier(backend="lexicon", device=CPU))
+    out["mismatch/unavailable"] = np.asarray(str(pipe.medusa_unavailable))
+    out["mismatch/heads"] = np.asarray(str(pipe.medusa_heads))
+
+
+def task_medusa(inp, out):
+    """tests/test_torch_medusa.py: decode_block, the heads, generate_medusa
+    and its stream, the heads files and probe, the pipeline and HTTP."""
+    import tempfile
+
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.decode.medusa import (generate_medusa, medusa_logits,
+                                              stream_tokens_medusa)
+    from eamg_tpu_torch.models import gpt
+    from eamg_tpu_torch.tools.medusa import (load_medusa_heads,
+                                             probe_acceptance)
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    cfg = _cfg(inp, "model/cfg")
+    params = params_from_jax(unflatten(inp, "model/p"))
+    heads = _heads_from(inp, "model/heads")
+    for i in range(int(inp["n_blocks"])):
+        c = unflatten(inp, f"block/{i}/cache")
+        cache = {"k": [_t(a) for a in c["k"]], "v": [_t(a) for a in c["v"]],
+                 "length": torch.tensor([int(inp[f"block/{i}/t"])],
+                                        dtype=torch.int32)}
+        logits, h, cache = gpt.decode_block(
+            params, _t(inp[f"block/{i}/ids"]).long(), cache, cfg,
+            return_hidden=True)
+        out[f"block/{i}/logits"] = logits.numpy()
+        out[f"block/{i}/hidden"] = h.numpy()
+        for j, a in enumerate(cache["k"] + cache["v"]):
+            out[f"block/{i}/cache/{j}"] = a.numpy()
+        out[f"block/{i}/length"] = cache["length"].numpy()
+    out["medusa_logits"] = medusa_logits(heads, params,
+                                         _t(inp["heads/h"])).numpy()
+    out["probe"] = np.asarray(json.dumps(probe_acceptance(
+        params, cfg, heads, inp["probe/ids"], 0)))
+    max_len, gamma = int(inp["max_len"]), int(inp["gamma"])
+    ids = [int(i) for i in inp["prompt"]]
+    prompt = torch.zeros((1, 16), dtype=torch.int64)
+    prompt[0, :len(ids)] = torch.tensor(ids)
+    runs = json.loads(str(inp["runs"]))
+    for name, kw in runs.items():
+        kw = dict(kw)
+        seed = kw.pop("seed", 0)
+        buf, n, steps = generate_medusa(params, heads, prompt, len(ids),
+                                        prng.PRNGKey(seed), cfg, max_len,
+                                        gamma=gamma, **kw)
+        out[f"run/{name}/tokens"] = buf[0, :n].numpy()
+        out[f"run/{name}/steps"] = np.asarray(steps)
+    for name in json.loads(str(inp["streams"])):
+        kw = dict(runs[name])
+        seed = kw.pop("seed", 0)
+        out[f"stream/{name}"] = np.asarray(list(stream_tokens_medusa(
+            params, heads, cfg, ids, max_len, gamma=gamma, seed=seed, **kw)),
+            np.int64)
+    buf, n = generate_kv(params, prompt, len(ids), prng.PRNGKey(0), cfg,
+                         max_len, greedy=True, refeed_last_prompt=False)
+    out["kv_greedy"] = buf[0, :n].numpy()
+    for tag in ("a", "b3"):
+        hd = load_medusa_heads(str(inp[f"demo/{tag}"]) + "/medusa_heads.pkl")
+        out[f"demo/{tag}/n"] = np.asarray(len(hd["blocks"]))
+        for i, blk in enumerate(hd["blocks"]):
+            for k, v in blk.items():
+                out[f"demo/{tag}/{i}/{k}"] = v.numpy()
+        out[f"demo/{tag}/probe"] = np.asarray(json.dumps(hd["probe"]))
+    text, seed = "I finally got the job, I am so happy!", 5
+    for tag in ("a", "b3"):
+        pipe = _spec_pipeline(inp, tag)
+        out[f"pipe/{tag}/oneshot"] = np.frombuffer(pipe.generate(
+            text, seed=seed, render_audio=False, medusa=True).midi_bytes,
+            np.uint8)
+        out[f"pipe/{tag}/stream"] = np.asarray(json.dumps(list(
+            pipe.generate_stream(text, seed=seed, render_audio=False,
+                                 medusa=True))))
+    _medusa_http(inp, out)
+    with tempfile.TemporaryDirectory() as tmp:
+        _heads_mismatch(inp, out, tmp)
+    _checkpoint_probe(inp, out)
+
+
+def _checkpoint_probe(inp, out):
+    """The synthetic corpora and the probe of a heads file without one, on
+    an f32 copy of demo_ckpt_b3."""
+    import dataclasses
+
+    from eamg_tpu_torch.tools.medusa import (load_medusa_heads,
+                                             probe_heads_for_checkpoint)
+    from eamg_tpu_torch.train.data import grid_corpus, synthetic_corpus
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    rows, seed = json.loads(str(inp["corpus"]))
+    out["corpus/synthetic"] = np.asarray(json.dumps(synthetic_corpus(
+        rows, seed=seed, tempo_locked=True)))
+    out["corpus/grid"] = np.asarray(json.dumps(grid_corpus(rows, seed=seed)))
+    path = str(inp["demo/b3"])
+    ck = load_checkpoint(path)
+    ck["params"] = _tree_f32(ck["params"])
+    ck["cfg"] = dataclasses.replace(ck["cfg"], dtype="float32")
+    heads = load_medusa_heads(path + "/medusa_heads.pkl")
+    heads.pop("probe")
+    out["ckpt_probe"] = np.asarray(json.dumps(probe_heads_for_checkpoint(
+        ck, heads, rows=int(inp["ckpt_probe_rows"]))))
+
+
+def _tree_f32(node):
+    if isinstance(node, dict):
+        return {k: _tree_f32(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_f32(v) for v in node]
+    return node.float()
+
+
+def _spec_cli(inp, out, tmp):
+    import contextlib
+    import os
+    import subprocess
+
+    from eamg_tpu_torch import cli
+
+    ckpt = str(inp["cli/ckpt"])
+    for name, extra in json.loads(str(inp["cli/runs"])).items():
+        mid = os.path.join(tmp, f"{name}.mid")
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[f"cli/{name}/code"] = np.asarray(cli.main(
+                ["generate", "--device", "cpu", "--checkpoint", ckpt,
+                 "--out", mid, *extra]))
+        with open(mid, "rb") as f:
+            out[f"cli/{name}/midi"] = np.frombuffer(f.read(), np.uint8)
+    r = subprocess.run(
+        [sys.executable, "-m", "eamg_tpu_torch.cli", "generate", "--device",
+         "cpu", "--checkpoint", ckpt, "--out", os.path.join(tmp, "x.mid"),
+         "--beams", "2", "--lookup"],
+        capture_output=True, text=True, timeout=120)
+    out["cli/both/code"] = np.asarray(r.returncode)
+    out["cli/both/stderr"] = np.asarray(r.stderr[-500:])
+
+
+def task_spec(inp, out):
+    """tests/test_torch_spec.py: prompt lookup, beam search, the pipeline's
+    lookup and beams, over HTTP, and cli generate's three options."""
+    import tempfile
+
+    from eamg_tpu_torch.decode.beam import generate_beam, rank_beams
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.decode.speculative import generate_prompt_lookup
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    cfg = _cfg(inp, "model/cfg")
+    params = params_from_jax(unflatten(inp, "model/p"))
+    eos = int(inp["eos"])
+    for name, (ids, kw) in json.loads(str(inp["lookups"])).items():
+        kw = dict(kw)
+        seed = kw.pop("seed", 0)
+        prompt = torch.zeros((1, 16), dtype=torch.int64)
+        prompt[0, :len(ids)] = torch.tensor(ids)
+        buf, n, steps = generate_prompt_lookup(
+            params, prompt, len(ids), prng.PRNGKey(seed), cfg,
+            int(inp["lookup_max"]), gamma=int(inp["gamma"]),
+            ngram=int(inp["ngram"]), **kw)
+        out[f"lookup/{name}/tokens"] = buf[0, :n].numpy()
+        out[f"lookup/{name}/steps"] = np.asarray(steps)
+    ids = json.loads(str(inp["lookups"]))["greedy"][0]
+    prompt = torch.zeros((1, 16), dtype=torch.int64)
+    prompt[0, :len(ids)] = torch.tensor(ids)
+    buf, n = generate_kv(params, prompt, len(ids), prng.PRNGKey(0), cfg,
+                         int(inp["lookup_max"]), greedy=True,
+                         refeed_last_prompt=False)
+    out["kv_greedy"] = buf[0, :n].numpy()
+    ids = [int(i) for i in inp["beam_prompt"]]
+    prompt = torch.zeros((1, 16), dtype=torch.int64)
+    prompt[0, :len(ids)] = torch.tensor(ids)
+    for name, (tag, K) in json.loads(str(inp["beams"])).items():
+        p = params_from_jax(unflatten(inp, f"models/{tag}"))
+        buf, gl, sc = generate_beam(p, prompt, len(ids), cfg,
+                                    int(inp["beam_max"]), n_beams=K,
+                                    eos_id=eos)
+        out[f"beam/{name}/buf"], out[f"beam/{name}/gen_lens"] = buf, gl
+        out[f"beam/{name}/scores"] = sc
+        for lp in (0.0, 1.0, 2.0):
+            rb, rg, _, norm = rank_beams(buf, gl, sc, lp)
+            out[f"rank/{name}/{lp}/buf"] = rb
+            out[f"rank/{name}/{lp}/gen_lens"] = rg
+            out[f"rank/{name}/{lp}/norm"] = norm
+    text, seed = "I finally got the job, I am so happy!", 5
+    options = {"lookup": {"lookup": True}, "beams": {"beams": 4}}
+    for tag in ("a", "b3"):
+        pipe = _spec_pipeline(inp, tag, heads=False)
+        for opt, kw in options.items():
+            out[f"pipe/{tag}/{opt}"] = np.frombuffer(pipe.generate(
+                text, seed=seed, render_audio=False, **kw).midi_bytes,
+                np.uint8)
+    base = {"prompt": text, "seed": seed}
+    _http_calls(_spec_pipeline(inp, "b3", heads=False), {
+        "lookup": ("?format=midi", {**base, "lookup": "1"}),
+        "beams": ("?format=midi", {**base, "beams": "4"})}, out, "http")
+    with tempfile.TemporaryDirectory() as tmp:
+        _spec_cli(inp, out, tmp)
+
+
+TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "topk": task_topk, "slice": task_slice,
          "ragged": task_ragged, "engine": task_engine, "batch": task_batch,
          "bf16": task_bf16, "graphs": task_graphs, "stream": task_stream,
          "b3": task_b3}
