@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,kernels    # a part, while developing
     python3 chip_smoke.py --phases build,stream,b3
     python3 chip_smoke.py --phases build,spec
+    python3 chip_smoke.py --phases build,kernels,options
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -34,7 +35,9 @@ Phases:
     launch) bit-equal to their plain versions at every K4_V (rows longer
     than a block keeps in registers among them), B 1 and 8, k 1, 50 and V,
     on rows with ties, +-inf, NaN, signed zeros, constant and all-but-k
-    -inf rows, and on 256 seeded rows, timed cold and warm beside the
+    -inf rows, on the rows the grammar leaves (1, 2, 49, 50, 51 and 128
+    finite values, the rest -1e30 or -1.3e30, V 8892 and 8579, two
+    temperatures), and on 256 seeded rows, timed cold and warm beside the
     library's topk (and topk and the three ops), and the sampler's top-k
     on f32 logits traced as one launch; the stream-reduce probe one launch
     a call, two calls bit-equal, at STREAM_SHAPES, its read rate with the
@@ -136,7 +139,27 @@ Phases:
     beside the plain solo decode of the same prompt, beams' ms a step at
     K 4, and one traced decode of each (host launch calls and device
     kernels a token, the device's idle share);
- 10. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
+ 10. options: grammar=1 and the history options of the page. Solo on
+    demo_ckpt_a and demo_ckpt_b3 (each option's graph captured by a
+    request before the counted ones): a grammar WAV of seed 7 twice, a
+    MIDI of seed 11, its stream, beams=4 with grammar, and repetition and
+    presence penalties with no_repeat_ngram=3 and grammar together; each
+    reply valid, its ids breaking no rule of the scheme's FSM and ending
+    with its END token within budget, the same seed the same bytes, K1,
+    K2, K3 and K4 launched and the decode replayed from graphs, and every
+    reply equal to an eager server's. Then `serve --coalesce --slots 8
+    --engine-top-p row --engine-ngram 3 --engine-grammar` on A: a burst of
+    ten (three plain, three grammar, two with penalties, two with the
+    n-gram ban, one of them streamed), every option row admitted to the
+    engine, each reply equal to the same request sent alone, the plain
+    ones (and ten plain requests at once) equal to a default engine's,
+    the plain burst's aggregate rate on both; four requests with
+    penalties and grammar at once through `serve --coalesce window
+    --engine-grammar`, grouped, each equal to the same request alone; the
+    solo decode of A plain, with grammar and with penalties and the n-gram
+    ban: rates over three seeds, one trace each (device kernels and host
+    launch calls a token, idle share, launches of K1, K2, K3, K4, row 8);
+ 11. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
     on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
     seed) at full width and depth, batch 8, 511 positions, once per
     attn_impl with the launch counts zeroed before each, the eager loop's
@@ -445,6 +468,34 @@ def k4_rows(torch, g, V: int, k: int):
     x[6] = x[6] * 30
     x[7] = torch.randint(-5, 6, (V,), generator=g).float()
     return x
+
+
+# rows as the grammar leaves them (decode/grammar.py: masked logits are
+# replaced by -1e30): n finite values, the rest at -1e30, or -1e30 times a
+# repetition penalty of 1.3 for tokens already seen; top-k 50 keeps every
+# -1e30 while fewer than 50 are finite (the 50th largest is -1e30)
+K4_GRAMMAR_FINITE = (1, 2, 49, 50, 51, 128)
+K4_GRAMMAR_V = (8892, 8579)
+K4_GRAMMAR_TEMPS = (1.0, 0.8)
+
+
+def k4_grammar_rows(torch, g, V: int, temp: float):
+    """[2 * len(K4_GRAMMAR_FINITE), V] f32 rows a sampler sees after the
+    grammar's mask and the temperature: for each count n of finite values,
+    one row with every other entry at -1e30 and one where a few of them are
+    -1.3e30 (penalized), each divided by ``temp``."""
+    rows = []
+    for n in K4_GRAMMAR_FINITE:
+        for penalized in (False, True):
+            x = torch.full((V,), -1e30)
+            keep = torch.randperm(V, generator=g)[:n]
+            x[keep] = torch.randn(n, generator=g) * 3
+            if penalized:
+                masked = torch.nonzero(x == -1e30)[:, 0]
+                x[masked[torch.randperm(masked.numel(),
+                                        generator=g)[:40]]] = -1e30 * 1.3
+            rows.append(x / temp)
+    return torch.stack(rows)
 
 
 def card_line() -> str:
@@ -915,6 +966,29 @@ def kernel_checks(torch, ckpt_params) -> dict:
             f"plain versions in {checked} calls (V {K4_V}, k 1, 50, V, B 8 "
             "and each row alone: ties at the threshold, +-inf and NaN, a "
             "constant row, all but k at -inf, signed zeros, integers)")
+        # the rows the grammar leaves (most of the row tied at -1e30): the
+        # whole batch and each row alone, k 50
+        grammar_checked = 0
+        for V in K4_GRAMMAR_V:
+            for temp in K4_GRAMMAR_TEMPS:
+                rows = k4_grammar_rows(torch, gt, V, temp).to(dt).to(dev)
+                for part in (rows, *rows.split(1)):
+                    for entry in ("kth_value", "top_k_mask"):
+                        got = getattr(topk, entry)(part, 50)
+                        want = getattr(topk, entry + "_plain")(part, 50)
+                        if not torch.equal(got.float().view(torch.int32),
+                                           want.float().view(torch.int32)) \
+                                or got.dtype != want.dtype:
+                            raise AssertionError(
+                                f"{entry} {dt_name} V {V} grammar rows, "
+                                f"temperature {temp}, rows "
+                                f"{tuple(part.shape)}: not bit-equal")
+                        grammar_checked += 1
+        log(f"[check] kth_value / top_k_mask {dt_name}: bit-equal to their "
+            f"plain versions on the grammar's rows in {grammar_checked} "
+            f"calls (V {K4_GRAMMAR_V}, finite values {K4_GRAMMAR_FINITE}, "
+            "the rest -1e30 or -1.3e30, temperatures "
+            f"{K4_GRAMMAR_TEMPS}, k 50, the batch and each row alone)")
         # timed: one row (solo) and one per engine slot, over the flagship
         # vocabulary, k 50, cold (the record) and warm, beside the plain
         # versions and the library's topk (and topk and the three ops for
@@ -4147,8 +4221,500 @@ def serve_spec(torch) -> dict:
     return counts
 
 
+# the options phase: the grammar and the history-dependent options of the
+# page, solo on both demos, then on an engine and a window batcher built
+# for them
+OPTION_WAV = {"prompt": BURST_TEXTS[0], "seed": "7", "grammar": "1"}
+OPTION_MIDI = {"prompt": BURST_TEXTS[1], "seed": "11", "grammar": "1"}
+OPTION_HISTORY = {"repetition_penalty": "1.3", "presence_penalty": "0.5",
+                  "no_repeat_ngram": "3"}
+# name -> (form, query): the solo requests of each demo; "wav" is sent
+# twice (same bytes)
+OPTION_SOLO = {"wav": (OPTION_WAV, ""),
+               "midi": (OPTION_MIDI, "?format=midi"),
+               "stream": (OPTION_MIDI, "?stream=1&format=midi"),
+               "beams": ({**OPTION_WAV, "beams": "4"}, ""),
+               "composed": ({**OPTION_WAV, **OPTION_HISTORY}, "")}
+OPTION_ENGINE_ARGS = ["serve", "--coalesce", "--slots", str(ENGINE_SLOTS),
+                      "--engine-top-p", "row", "--engine-ngram", "3",
+                      "--engine-grammar"]
+OPTION_WINDOW_ARGS = ["serve", "--coalesce", "window", "--slots", "4",
+                      "--engine-grammar"]
+# the engine's burst: name -> (form, query, streamed)
+OPTION_BURST = {
+    **{f"plain{i}": ({"prompt": BURST_TEXTS[i], "seed": str(61 + i)},
+                     "?format=midi" if i % 2 else "", False)
+       for i in range(3)},
+    **{f"grammar{i}": ({"prompt": BURST_TEXTS[i + 1], "seed": str(64 + i),
+                        "grammar": "1"}, "?format=midi", False)
+       for i in range(3)},
+    **{f"penalties{i}": ({"prompt": BURST_TEXTS[i], "seed": str(67 + i),
+                          "repetition_penalty": "1.3",
+                          "presence_penalty": "0.5"}, "", False)
+       for i in range(2)},
+    "ngram0": ({"prompt": BURST_TEXTS[3], "seed": "69",
+                "no_repeat_ngram": "3"}, "?format=midi", False),
+    "ngram_stream": ({"prompt": BURST_TEXTS[2], "seed": "70",
+                      "no_repeat_ngram": "3"}, "?stream=1&format=midi",
+                     True)}
+OPTION_WINDOW = {f"window{i}": {"prompt": BURST_TEXTS[i], "seed": str(71 + i),
+                                "grammar": "1", "repetition_penalty": "1.3",
+                                "presence_penalty": "0.5"}
+                 for i in range(4)}
+OPTION_TRACE_SEEDS = (0, 1, 2)
+# ten plain requests at once (five WAV, five MIDI), sent to the option
+# engine and to a default engine: their bytes and aggregate rates
+PLAIN_BURST = {f"plain_burst{i}": ({"prompt": BURST_TEXTS[i % 4],
+                                    "seed": str(81 + i)},
+                                   "?format=midi" if i % 2 else "", False)
+               for i in range(10)}
+
+
+@contextlib.contextmanager
+def _recorded_decodes(pipe):
+    """Record the tokens (prompt included) of every request ``pipe``
+    decodes, by its decode seed: -> {seed: [tokens]}."""
+    rec = {}
+    real = pipe._decode
+
+    def decode(mapping, temperature, top_k, run_seed, *a, **kw):
+        out = real(mapping, temperature, top_k, run_seed, *a, **kw)
+        rec[run_seed] = list(out[1])
+        return out
+
+    pipe._decode = decode
+    try:
+        yield rec
+    finally:
+        pipe._decode = real
+
+
+def _grammar_ids(pipe, tokens) -> list:
+    vocab = pipe.scheme_b.vocab if pipe.scheme == "b3" \
+        else pipe.generator.vocab
+    return vocab.encode(tokens)
+
+
+def _require_grammar(tag: str, pipe, ids: list) -> None:
+    """A grammar reply: no broken rule, and its END token within budget."""
+    g = pipe.grammar()
+    bad = g.violations(ids)
+    budget = pipe.generator.max_supported_len()
+    end = g.classes.index("END")
+    ends = bool(ids) and int(g.tclass[ids[-1]]) == end
+    log(f"[{tag}] {len(ids)} ids (prompt included): {bad} broken rules, "
+        f"ends with its END token: {ends}, budget {budget}")
+    if bad or not ends or len(ids) > budget:
+        raise AssertionError(f"{tag}: {bad} broken rules, END last {ends}, "
+                             f"{len(ids)} ids of {budget}")
+
+
+def _option_solo(torch, tag: str, args: list) -> dict:
+    """The solo requests of OPTION_SOLO on ``serve`` with ``args``, each
+    option's graph captured first (a request of its key); the counts at 0
+    before the requests, read after: K1, K2, K3 and K4 launched, the decode
+    replayed from graphs; same-seed bytes equal, every reply's ids within
+    the grammar and closed with END, the stream's tokens; then the same
+    requests on an eager server: the same bytes and stream."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    pipe = cli.pipeline_from_args(cli.parse_args(args))
+    _require_xla_order(tag, pipe)
+    t0 = time.perf_counter()
+    pipe.warmup()
+    for fields, query in OPTION_SOLO.values():
+        kw = {"grammar": True}
+        if "beams" in fields:
+            kw["beams"] = int(fields["beams"])
+        if "no_repeat_ngram" in fields:
+            kw.update(penalties=(1.3, 0.0, 0.5), no_repeat_ngram=3)
+        if "stream" in query:
+            for ev in pipe.generate_stream(fields["prompt"], seed=0,
+                                           render_audio=False, **kw):
+                pass
+        else:
+            pipe.generate(fields["prompt"], seed=0, render_audio=False, **kw)
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up with a request of each option "
+        f"{time.perf_counter() - t0:.2f} s; {graphs.tally()}")
+    server, thread, port = _serving(pipe)
+    got = {}
+    try:
+        with _recorded_decodes(pipe) as rec:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            replays0 = graphs.tally()["replays"]
+            for name, (fields, query) in [*OPTION_SOLO.items(),
+                                          ("wav_again", OPTION_SOLO["wav"])]:
+                if "stream" in query:
+                    reply = _sse_post(port, fields, query)
+                    _check_stream(f"{tag} {name}", fields, query, reply, pipe)
+                    events = reply[2]
+                    got[name] = _sans_timings(events)
+                    prompt, ids = _stream_ids(events)
+                    _require_grammar(f"{tag} {name}", pipe,
+                                     _grammar_ids(pipe, prompt) + ids)
+                    continue
+                reply = _post(port, fields, query)
+                _check_reply(f"{tag} {name}", fields, query, reply)
+                got[name] = reply[1]
+                _require_grammar(f"{tag} {name}", pipe, _grammar_ids(
+                    pipe, rec[int(fields["seed"])]))
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+            replayed = _build.replayed_counts()
+            replays = graphs.tally()["replays"] - replays0
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    if got["wav"] != got["wav_again"]:
+        raise AssertionError(f"{tag}: same-seed grammar WAV bytes differ")
+    log(f"[{tag}] same-seed grammar WAV bytes identical; launches {counts}")
+    _require_launched("solo", counts)
+    _require_graphs(tag, "flash_decode_sp", counts, replayed, replays)
+
+    def eager_work(port):
+        out = {}
+        for name, (fields, query) in OPTION_SOLO.items():
+            if "stream" in query:
+                out[name] = _sans_timings(_sse_post(port, fields, query)[2])
+            else:
+                out[name] = _post(port, fields, query)[1]
+        return out
+
+    eager = _eager_replies(args, eager_work)
+    differ = [n for n in OPTION_SOLO if eager[n] != got[n]]
+    if differ:
+        raise AssertionError(f"{tag}: the eager loop's replies differ from "
+                             f"the graphs' for {differ}")
+    log(f"[{tag}] the eager loop (every step issued from the host) gives the "
+        f"graphs' bytes for {list(OPTION_SOLO)}")
+    return {"counts": counts, "pipe": pipe}
+
+
+def _reply_bytes(port: int, fields: dict, query: str, streamed: bool):
+    """A request's bytes: the reply, or for a stream its ids and the done
+    event's MIDI (the deltas' split follows the harvests, not the
+    request)."""
+    import base64
+
+    if not streamed:
+        return _post(port, fields, query)
+    status, ctype, events, first, secs = _sse_post(port, fields, query)
+    if status != 200 or events[-1]["event"] != "done":
+        raise AssertionError(f"stream {fields}: HTTP {status} {events[-1:]}")
+    return (_stream_ids(events), base64.b64decode(events[-1]["midi_b64"]))
+
+
+def _option_engine(torch) -> dict:
+    """`serve` with OPTION_ENGINE_ARGS (per-row sampling, an n-gram ban of
+    3 and the grammar in the engine): the burst of OPTION_BURST at once,
+    the counts at 0 before it; every option row admitted to the engine
+    (only a plain request may take the idle engine's detached decode);
+    each reply equal to the same request sent alone afterwards; the
+    plain ones equal to a default engine's (`serve --coalesce`)."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build, decode_fold
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    pipe = cli.pipeline_from_args(cli.parse_args(OPTION_ENGINE_ARGS))
+    eng = pipe.batcher
+    if not (eng.per_row_sampling and eng.no_repeat_ngram == 3
+            and eng.use_grammar):
+        raise AssertionError("the option engine lacks an option")
+    pipe.warmup()
+    detached = {"n": 0}
+    real_detached = eng.run_detached
+
+    def counted_detached(*a, **kw):
+        detached["n"] += 1
+        return real_detached(*a, **kw)
+
+    eng.run_detached = counted_detached
+    server, thread, port = _serving(pipe)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
+        admitted0, detached["n"] = eng.stats["admitted"], 0
+        replies, secs = _all_at_once(port, OPTION_BURST)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        replayed = _build.replayed_counts()
+        replays = graphs.tally()["replays"] - replays0
+        admitted = eng.stats["admitted"] - admitted0
+        n_detached = detached["n"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as r:
+            stats = json.loads(r.read())["engine"]
+        n_tok = 0
+        for name, (fields, query, streamed) in OPTION_BURST.items():
+            if not streamed:
+                n_tok += _check_reply(f"options engine {name}", fields, query,
+                                      replies[name])
+        log(f"[options engine] burst of {len(OPTION_BURST)}: {n_tok} tokens "
+            f"(the stream's aside) in {secs:.2f} s; rows admitted to the "
+            f"engine {admitted}, detached {n_detached}; /stats engine "
+            f"{stats}; launches {counts}")
+        if admitted + n_detached != len(OPTION_BURST) or n_detached > 1:
+            raise AssertionError(f"option engine: {admitted} admitted, "
+                                 f"{n_detached} detached")
+        alone = {name: _reply_bytes(port, *a)
+                 for name, a in OPTION_BURST.items()}
+        default, bursts = _beside_default_engine(port)
+    finally:
+        eng.run_detached = real_detached
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+
+    def body(r):
+        return r[1] if len(r) == 4 else r
+
+    differ = [n for n in OPTION_BURST if body(replies[n]) != body(alone[n])]
+    if differ:
+        raise AssertionError(f"option engine: the burst's replies differ "
+                             f"from the same requests alone for {differ}")
+    _require_launched("coalesce", counts)
+    _require_graphs("options engine", decode_fold.fold_decode.__name__,
+                    counts, replayed, replays)
+    plain = [n for n in OPTION_BURST if n.startswith("plain")]
+    differ = [n for n in plain if body(default[n]) != body(replies[n])]
+    differ += [f"{tag} {n}" for tag, (got, _) in bursts for n in PLAIN_BURST
+               if body(got[n]) != body(bursts[0][1][0][n])]
+    if differ:
+        raise AssertionError(f"option engine: plain rows differ from the "
+                             f"default engine's for {differ}")
+    rates = collections.defaultdict(list)
+    for tag, (got, secs) in bursts:
+        tok = sum(int(r[2].get("X-EAMG-Tokens", "0")) for r in got.values())
+        rates[tag].append(tok / secs)
+        log(f"[options engine] {len(PLAIN_BURST)} plain requests at once on "
+            f"the {tag} engine: {tok} tokens in {secs:.3f} s, "
+            f"{tok / secs:.1f} tokens/s aggregate")
+    log("[options engine] every reply equals the same request alone; the "
+        "plain rows (the burst's three and ten at once) equal a default "
+        "engine's bytes; the plain bursts' aggregate rate on the option "
+        f"engine {sum(rates['option']) / sum(rates['default']):.3f}x the "
+        "default engine's (option, default, default, option)")
+    return counts
+
+
+def _beside_default_engine(port: int) -> tuple:
+    """A default engine (`serve --coalesce --slots 8`) beside the option
+    engine on ``port``: the plain requests of OPTION_BURST on it alone,
+    then PLAIN_BURST on the option engine, the default, the default and
+    the option engine. -> ({name: reply on the default engine},
+    [(engine, _all_at_once's result)])."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    pipe = cli.pipeline_from_args(cli.parse_args(
+        ["serve", "--coalesce", "--slots", str(ENGINE_SLOTS)]))
+    pipe.warmup()
+    server, thread, dport = _serving(pipe)
+    try:
+        default = {n: _reply_bytes(dport, *a)
+                   for n, a in OPTION_BURST.items() if n.startswith("plain")}
+        bursts = [(tag, _all_at_once(p, PLAIN_BURST)) for tag, p in (
+            ("option", port), ("default", dport), ("default", dport),
+            ("option", port))]
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    return default, bursts
+
+
+def _all_at_once(port: int, plan: dict) -> tuple:
+    """The requests of ``plan`` (name -> (form, query, streamed)) sent at
+    once -> ({name: _reply_bytes}, seconds for all)."""
+    replies, errors = {}, []
+
+    def hit(name, fields, query, streamed):
+        try:
+            replies[name] = _reply_bytes(port, fields, query, streamed)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {type(exc).__name__}: {exc}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=hit, args=(n, *a), daemon=True)
+               for n, a in plan.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    secs = time.perf_counter() - t0
+    if errors or len(replies) != len(plan):
+        raise AssertionError(f"{len(plan)} at once: "
+                             f"{errors or 'a request hung'}")
+    return replies, secs
+
+
+def _option_window(torch) -> dict:
+    """`serve` with OPTION_WINDOW_ARGS: the four requests of OPTION_WINDOW
+    (penalties and grammar) at once share a ragged decode of the window
+    batcher; each equals the same request alone."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build, decode_fold
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    pipe = cli.pipeline_from_args(cli.parse_args(OPTION_WINDOW_ARGS))
+    if pipe.batcher.grammar is None:
+        raise AssertionError("the window batcher has no grammar")
+    pipe.warmup()
+    # the option groups' graphs at every batch the worker pads a group to
+    ids = pipe.generator.vocab.encode(["[START_SEQUENCE]"])
+    pipe.batcher.warmup(ids, penalties=(1.3, 0.0, 0.5))
+    server, thread, port = _serving(pipe)
+    replies, errors = {}, []
+
+    def hit(name, fields):
+        try:
+            replies[name] = _post(port, fields, "?format=midi")
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{name}: {type(exc).__name__}: {exc}")
+
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        replays0 = graphs.tally()["replays"]
+        calls0 = pipe.batcher.stats["calls"]
+        threads = [threading.Thread(target=hit, args=a, daemon=True)
+                   for a in OPTION_WINDOW.items()]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        replayed = _build.replayed_counts()
+        replays = graphs.tally()["replays"] - replays0
+        stats = dict(pipe.batcher.stats)
+        if errors or len(replies) != len(OPTION_WINDOW):
+            raise AssertionError(
+                f"option window: {errors or 'a request hung'}")
+        for name, fields in OPTION_WINDOW.items():
+            _check_reply(f"options window {name}", fields, "?format=midi",
+                         replies[name])
+        alone = {name: _post(port, fields, "?format=midi")
+                 for name, fields in OPTION_WINDOW.items()}
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    log(f"[options window] {len(OPTION_WINDOW)} requests at once in "
+        f"{stats['calls'] - calls0} ragged decodes; batcher stats {stats}; "
+        f"launches {counts}")
+    if stats["calls"] - calls0 >= len(OPTION_WINDOW) \
+            or stats["max_group"] < 2:
+        raise AssertionError(f"option window: not grouped: {stats}")
+    differ = [n for n in OPTION_WINDOW if replies[n][1] != alone[n][1]]
+    if differ:
+        raise AssertionError(f"option window: the grouped replies differ "
+                             f"from the same requests alone for {differ}")
+    log("[options window] every grouped reply equals the same request alone")
+    _require_launched("window", counts)
+    _require_graphs("options window", decode_fold.fold_decode.__name__,
+                    counts, replayed, replays)
+    return counts
+
+
+OPTION_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                  "kth_value", "flash_decode_fold_sp")
+
+
+def option_measure(torch, pipe) -> dict:
+    """On demo_ckpt_a as served (bf16): the solo decode (generate_kv) plain,
+    with the grammar, and with penalties and the n-gram ban, the decode
+    rate of each over OPTION_TRACE_SEEDS, then one traced decode of each:
+    device kernels and host launch calls a token, the idle share, and the
+    launches of K1, K2, K3, K4 and row 8."""
+    from eamg_tpu_torch.decode.api import _bucket
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.emotion import get_music_params
+    from eamg_tpu_torch.utils import prng
+
+    gen = pipe.generator
+    label = pipe.classifier.predict(OPTION_WAV["prompt"])
+    _, ids, _ = pipe._prompt_for(get_music_params(label, seed=7))
+    p = len(ids)
+    prompt = torch.full((1, _bucket(p)), gen.pad_id, dtype=torch.int64,
+                        device=gen.device)
+    prompt[0, :p] = torch.tensor(ids)
+    full = gen.max_supported_len()
+    variants = {"plain": {}, "grammar": {"grammar": pipe.grammar()},
+                "history": {"penalties": (1.3, 0.0, 0.5),
+                            "no_repeat_ngram": 3}}
+
+    def run(seed, kw):
+        return generate_kv(gen.params, prompt, p, prng.PRNGKey(seed),
+                           gen.cfg, full, eos_id=gen.eos_id,
+                           pad_id=gen.pad_id, **kw)[1] - p
+
+    out = {"prompt_len": p}
+    for name, kw in variants.items():
+        run(0, kw)                                   # its graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok = sum(run(seed, kw) for seed in OPTION_TRACE_SEEDS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = {"tokens": tok, "s": secs, "tokens_per_s": tok / secs}
+    for name, kw in variants.items():
+        prof, counts = _trace_counted(
+            torch, f"options {name}", lambda kw=kw: run(1, kw),
+            lambda prof, counts: {"kth_value": (
+                launched("kth_value", counts), _k4_kernels(prof))})
+        out[name].update({k: prof[k] for k in (
+            "n_tokens", "wall_ms", "device_busy_ms", "idle_share",
+            "launches_per_token", "host_launches_per_token",
+            "graph_replays")})
+        out[name]["launches"] = {k: launched(k, counts)
+                                 for k in OPTION_KERNELS}
+    for name in ("grammar", "history"):
+        r, pl = out[name], out["plain"]
+        log(f"[options] solo {name}: {r['tokens_per_s']:.1f} tokens/s beside "
+            f"the plain decode's {pl['tokens_per_s']:.1f} "
+            f"({r['tokens_per_s'] / pl['tokens_per_s']:.3f}x); device "
+            f"kernels a token {r['launches_per_token']:.2f} (plain "
+            f"{pl['launches_per_token']:.2f}, "
+            f"{r['launches_per_token'] - pl['launches_per_token']:+.2f}); "
+            f"host launch calls a token {r['host_launches_per_token']:.3f}; "
+            f"idle {100 * r['idle_share']:.2f}% (plain "
+            f"{100 * pl['idle_share']:.2f}%); launches {r['launches']}")
+    log(json.dumps({"options_measure": out}))
+    return out
+
+
+def serve_options(torch) -> dict:
+    """Phase options: the grammar and the history options of the page,
+    solo on demo_ckpt_a and demo_ckpt_b3 (_option_solo), on an engine
+    built for them (_option_engine) and on a window batcher with the
+    grammar (_option_window); the solo decode's rates and traces with
+    each. -> launch counts by path."""
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_B3
+
+    t0 = time.perf_counter()
+    a = _option_solo(torch, "options solo a", ["serve"])
+    b3 = _option_solo(torch, "options solo b3",
+                      ["serve", "--checkpoint", DEMO_CKPT_B3])
+    counts = {"options solo a": a["counts"], "options solo b3": b3["counts"],
+              "options engine": _option_engine(torch),
+              "options window": _option_window(torch)}
+    option_measure(torch, a["pipe"])
+    log(f"[options] phase {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
-          "spec", "batch")
+          "spec", "options", "batch")
 
 
 def main(argv=None) -> int:
@@ -4209,6 +4775,8 @@ def main(argv=None) -> int:
         counts.update(serve_b3(torch))
     if "spec" in phases:
         counts.update(serve_spec(torch))
+    if "options" in phases:
+        counts.update(serve_options(torch))
     if "batch" in phases:
         counts["batch"] = batch_decode(torch)
         counts["generate"] = cli_generate(torch)

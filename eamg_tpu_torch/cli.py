@@ -12,8 +12,9 @@ the MIDI ``SchemeB3.decode_to_song``. ``--beams`` (with
 ``--length-penalty``) decodes by beam search, ``--lookup`` (with
 ``--gamma`` and ``--lookup-ngram``) by prompt-lookup speculation and
 ``--medusa PATH`` by the Medusa heads of that file, one of them at a time,
-as in the JAX CLI. ``--grammar`` and ``--draft`` are not in the port yet
-and exit 2 naming the flag.
+as in the JAX CLI. ``--grammar`` decodes under the scheme's FSM
+(``decode/grammar.py``), sampled or with ``--beams``. ``--draft`` is not in
+the port yet and exits 2 naming the flag.
 
 ``serve`` serves ``POST /generate`` on a Scheme-A or Scheme-B3 checkpoint
 of the JAX package's format (default: the shipped flagship
@@ -22,9 +23,10 @@ of the JAX package's format (default: the shipped flagship
 routes requests through the continuous-batching engine (or, with
 ``--coalesce window``, the 10 ms window batcher), with the JAX server's
 engine options ``--slots``, ``--chunk``, ``--max-queue``,
-``--fast-routing`` and ``--engine-top-p``. The JAX CLI's other
-subcommands, and the engine modes for medusa, n-gram bans and grammar
-(``--engine-medusa`` and the others exit 2), are not in the port yet.
+``--fast-routing``, ``--engine-top-p``, ``--engine-ngram N`` (the engine's
+n-gram ban size) and ``--engine-grammar`` (the scheme's FSM in the engine
+or the window batcher). The JAX CLI's other subcommands, and Medusa rows
+in the engine (``--engine-medusa`` exits 2), are not in the port yet.
 Both subcommands run on the CUDA device unless ``--device cpu`` is
 given.
 """
@@ -37,9 +39,10 @@ import sys
 import threading
 
 # engine modes of the JAX server that the port's engine does not carry yet
-_ENGINE_NOT_YET = ("engine_medusa", "engine_ngram", "engine_grammar")
+_ENGINE_NOT_YET = ("engine_medusa",)
 # decode modes of the JAX CLI's generate that the port does not carry yet
-_GENERATE_NOT_YET = ("grammar", "draft")
+# (draft speculation needs a second checkpoint of the same vocabulary)
+_GENERATE_NOT_YET = ("draft",)
 
 
 def _refuse(args, names) -> bool:
@@ -65,8 +68,12 @@ def coalesce_opts_from_args(args) -> dict:
             opts["per_row_sampling"] = True
         elif args.engine_top_p is not None:
             opts["top_p"] = float(args.engine_top_p)
+        if args.engine_ngram:
+            opts["no_repeat_ngram"] = int(args.engine_ngram)
     elif args.coalesce and args.slots is not None:
         opts["max_batch"] = args.slots
+    if args.coalesce and args.engine_grammar:
+        opts["grammar"] = True
     if args.coalesce and args.max_queue is not None:
         opts["max_queue"] = args.max_queue
     return opts
@@ -139,11 +146,17 @@ def _generate(args) -> int:
                     **({"eos_token": "[END_SEQ]"} if b3 else {}))
     penalties = (args.repetition_penalty, args.frequency_penalty,
                  args.presence_penalty)
+    gram = None
+    if args.grammar:
+        from .decode.grammar import grammar_a, grammar_for
+
+        gram = grammar_for(SchemeB3(seq_len=ckpt["cfg"].seq_len)) if b3 \
+            else grammar_a(gen.vocab)
     sampling = dict(
         max_len=args.max_len, temperature=args.temperature, top_k=args.top_k,
         seed=args.seed, top_p=args.top_p, min_p=args.min_p,
         penalties=None if penalties == (1.0, 0.0, 0.0) else penalties,
-        no_repeat_ngram=args.no_repeat_ngram)
+        no_repeat_ngram=args.no_repeat_ngram, grammar=gram)
     if sum(map(bool, (args.beams, args.lookup, args.medusa))) > 1:
         raise SystemExit("--beams, --draft, --lookup and --medusa are "
                          "mutually exclusive")
@@ -195,7 +208,8 @@ def _generate(args) -> int:
 def _option_fn(args, gen, sampling: dict):
     """The decode of ``--beams``, ``--lookup`` or ``--medusa``, ids in and
     ids out (prompt included), or None for the sampled decode. They refuse
-    penalties and n-gram bans, as the JAX CLI does."""
+    penalties and n-gram bans, and the speculative ones grammar, as the
+    JAX CLI does; beams take the grammar."""
     if not (args.beams or args.lookup or args.medusa):
         return None
     history = sampling["penalties"] is not None or args.no_repeat_ngram
@@ -206,9 +220,9 @@ def _option_fn(args, gen, sampling: dict):
                              "sampling-path features (--grammar composes)")
         return lambda ids: gen.generate_ids_beam(
             ids, max_len=args.max_len, n_beams=args.beams,
-            length_penalty=args.length_penalty)
+            length_penalty=args.length_penalty, grammar=sampling["grammar"])
     flag = "--lookup" if args.lookup else "--medusa"
-    if history:
+    if history or sampling["grammar"] is not None:
         raise SystemExit(f"{flag} does not support penalties, n-gram bans "
                          "or grammar constraints yet (history-dependent "
                          "distributions break the proposal/target "
@@ -282,7 +296,9 @@ def _add_generate(sub) -> None:
                    help="beam ranking: score / gen_len**alpha (GNMT); "
                         "only with --beams")
     g.add_argument("--grammar", action="store_true",
-                   help="not yet in the port")
+                   help="FSM-constrained decoding: every token follows the "
+                        "scheme's surface grammar and the stream closes "
+                        "within budget (decode/grammar.py)")
     g.add_argument("--draft", default=None, help="not yet in the port")
     g.add_argument("--gamma", type=int, default=4,
                    help="speculative proposals per verify step")
@@ -345,9 +361,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     s.add_argument("--engine-medusa", action="store_true",
                    help="not yet in the port")
     s.add_argument("--engine-ngram", type=int, default=0,
-                   help="not yet in the port")
+                   help="continuous engine: ban n-grams of this size in "
+                        "the shared decode; requests asking "
+                        "no_repeat_ngram=N ride the engine (a per-row "
+                        "on/off bit, plain rows keep their bytes); other "
+                        "sizes decode solo")
     s.add_argument("--engine-grammar", action="store_true",
-                   help="not yet in the port")
+                   help="put the served scheme's FSM (decode/grammar.py) "
+                        "into the engine or the window batcher, so "
+                        "grammar=true requests ride the shared decode "
+                        "(a per-row on/off bit, plain rows keep their "
+                        "bytes); without it they decode solo")
     s.set_defaults(fn=_serve)
     return parser.parse_args(argv)
 

@@ -2,9 +2,10 @@
 ragged batched decode (``decode/ragged.py``), the chunked stream
 (``decode/stream.py``), the speculative decoders (``decode/speculative.py``:
 prompt lookup and the verify loop; ``decode/medusa.py``) and beam search
-(``decode/beam.py``)."""
+(``decode/beam.py``), and the grammar's FSM (``decode/grammar.py``)."""
 
 from .api import Generator
+from .grammar import Grammar, grammar_for
 from .stream import stream_tokens
 
-__all__ = ["Generator", "stream_tokens"]
+__all__ = ["Generator", "Grammar", "grammar_for", "stream_tokens"]

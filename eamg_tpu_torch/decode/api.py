@@ -2,12 +2,12 @@
 
 Port of ``eamg_tpu/decode/api.py::Generator``: prompt buckets,
 ``max_supported_len``, over-length prompts returned unchanged,
-``generate_ids`` (cached or uncached, any batch, with penalties and n-gram
-bans), the batch-1 speculative decodes ``generate_ids_lookup`` and
-``generate_ids_medusa``, beam search (``generate_ids_beam``,
-``sample_beam``), ``sample_kvcache``, ``sample`` and ``trim_at_eos``.
-Grammar constraints and draft-model speculation are not in the port
-yet.
+``generate_ids`` (cached or uncached, any batch, with penalties, n-gram
+bans and grammar constraints), the batch-1 speculative decodes
+``generate_ids_lookup`` and ``generate_ids_medusa``, beam search
+(``generate_ids_beam``, ``sample_beam``, grammar-constrained too),
+``sample_kvcache``, ``sample`` and ``trim_at_eos``. Draft-model
+speculation is not in the port yet.
 """
 
 from __future__ import annotations
@@ -19,7 +19,6 @@ from ..models.gpt import GPTConfig
 from ..tokenizer.vocab import Vocab
 from ..utils import prng
 from ..utils.device import resolve_device
-from ..utils.errors import NotInPort
 from .loop import generate_full, generate_kv
 from .speculative import _padded_prompt
 
@@ -84,9 +83,8 @@ class Generator:
         rows of one batch share the prompt and the key and differ by their
         noise. ``use_cache=False`` runs the uncached loop. ``penalties``:
         (repetition, frequency, presence) or None; ``no_repeat_ngram``: the
-        banned n-gram size."""
-        if grammar is not None:
-            raise NotInPort("grammar")
+        banned n-gram size; ``grammar``: a ``decode.grammar.Grammar`` (the
+        scheme's FSM, with its budget rule) or None."""
         max_len = max_len or self.cfg.seq_len
         max_len = min(max_len, self.max_supported_len(use_cache))
         p = len(prompt_ids)
@@ -100,7 +98,8 @@ class Generator:
         common = dict(temperature=temperature, top_k=top_k,
                       eos_id=self.eos_id, pad_id=self.pad_id, greedy=greedy,
                       mask_value=mask_value, top_p=top_p, min_p=min_p,
-                      penalties=penalties, no_repeat_ngram=no_repeat_ngram)
+                      penalties=penalties, no_repeat_ngram=no_repeat_ngram,
+                      grammar=grammar)
         args = (self.params, torch.from_numpy(prompt).to(self.device), p,
                 prng.PRNGKey(seed), self.cfg, max_len)
         if use_cache:
@@ -187,12 +186,11 @@ class Generator:
         """Deterministic beam search (``decode/beam.py``): the best
         hypothesis row (prompt included, cut to its length), or with
         ``return_all`` (rows [K, max_len], gen_lens, raw scores, normalized
-        scores) ranked best first. Grammar constraints are not in the port
-        yet."""
+        scores) ranked best first. ``grammar``: a
+        ``decode.grammar.Grammar`` or None, each beam constrained by its
+        own FSM state."""
         from .beam import generate_beam, rank_beams
 
-        if grammar is not None:
-            raise NotInPort("grammar")
         max_len = min(max_len or self.cfg.seq_len, self.max_supported_len())
         p = len(prompt_ids)
         if p >= max_len:
@@ -203,7 +201,8 @@ class Generator:
                                 self.pad_id, self.device)
         buf, gen_lens, scores = generate_beam(
             self.params, prompt, p, self.cfg, max_len, n_beams=n_beams,
-            eos_id=self.eos_id, pad_id=self.pad_id, eager=self.eager)
+            eos_id=self.eos_id, pad_id=self.pad_id, grammar=grammar,
+            eager=self.eager)
         buf, gen_lens, scores, norm = rank_beams(
             buf.astype(np.int32), gen_lens.astype(np.int32), scores,
             length_penalty)

@@ -1,15 +1,20 @@
 """Beam search: K hypotheses as the batch rows of the cached decode.
 
-Port of ``eamg_tpu/decode/beam.py`` (without grammar constraints, which
-raise ``NotInPort``). The prompt is prefilled once at batch 1 and its
-cache repeated to the K rows; each step is ``decode_step`` at batch K (K3
-at B = K), a log-softmax in JAX's order, finished beams collapsed to one
-PAD continuation at log-probability 0, and the top K of the flattened
-[K * V] candidates, the lower index first among equal values as
-``lax.top_k`` orders them. Every per-beam state, the cache rows among
-them, is reordered by the parent index (``index_select`` into the same
-buffers). The ranking by ``score / gen_len ** length_penalty`` is on the
-host (:func:`rank_beams`).
+Port of ``eamg_tpu/decode/beam.py``. The prompt is prefilled once at
+batch 1 and its cache repeated to the K rows; each step is
+``decode_step`` at batch K (K3 at B = K), a log-softmax in JAX's order,
+finished beams collapsed to one PAD continuation at log-probability 0,
+and the top K of the flattened [K * V] candidates, the lower index first
+among equal values as ``lax.top_k`` orders them. Every per-beam state,
+the cache rows among them, is reordered by the parent index
+(``index_select`` into the same buffers). The ranking by ``score /
+gen_len ** length_penalty`` is on the host (:func:`rank_beams`).
+
+With a ``grammar`` (``decode/grammar.py``) each beam carries its own FSM
+state: the prompt's, stepped by each beam's first token, then gathered by
+parent and stepped by the chosen token every step. The mask goes on the
+logits before the log-softmax, so the scores renormalize over the
+continuations the grammar allows, as in JAX.
 
 JAX runs the search as one ``while_loop`` that stops at ``max_len`` or
 once every beam is done. Here blocks of steps replay one CUDA graph over a
@@ -24,8 +29,9 @@ import numpy as np
 import torch
 
 from ..models.gpt import GPTConfig, decode_step, init_kv_cache, prefill
-from ..utils.errors import NotInPort
 from . import graphs
+from .grammar import (grammar_mask, grammar_step, grammar_tables,
+                      scan_prompt_state)
 
 _NEG = -1e30     # candidate mask: must dominate any real log-prob sum
 _LOW = 0xFFFFFFFF
@@ -58,14 +64,16 @@ class BeamLoop:
     ``cache`` (head-major, K rows, ``max_len`` slots), ``buf`` [K,
     max_len + 1] (the last column is a step past the end's, dropped),
     ``pos`` [1], ``last``, ``done``, ``gen_len`` [K], ``scores`` [K] f32,
-    and the graph of a block of steps."""
+    with a grammar its tables ``gram`` and the beams' states ``gstate``
+    [K], and the graph of a block of steps."""
 
     def __init__(self, params: dict, cfg: GPTConfig, n_beams: int,
                  max_len: int, eos_id: int, pad_id: int, device,
-                 block: int = graphs.BLOCK, eager: bool = False):
+                 gram: dict | None = None, block: int = graphs.BLOCK,
+                 eager: bool = False):
         dev = torch.device(device)
         K = n_beams
-        self.params, self.cfg, self.K = params, cfg, K
+        self.params, self.cfg, self.K, self.gram = params, cfg, K, gram
         self.max_len, self.eos_id, self.pad_id = max_len, eos_id, pad_id
         self.block = block
         self.stream = graphs.side_stream(dev)
@@ -78,6 +86,8 @@ class BeamLoop:
         self.done = torch.zeros((K,), dtype=torch.bool, device=dev)
         self.gen_len = torch.zeros((K,), dtype=torch.int64, device=dev)
         self.scores = torch.zeros((K,), dtype=torch.float32, device=dev)
+        self.gstate = None if gram is None else torch.zeros(
+            (K,), dtype=torch.int64, device=dev)
         self._rows = torch.arange(K, device=dev)
         self._pad = torch.where(torch.arange(cfg.vocab_size, device=dev)
                                 == pad_id, 0.0, _NEG)
@@ -99,8 +109,14 @@ class BeamLoop:
             for dst, src in zip(st.cache[name], st.cache1[name]):
                 dst.copy_(src.expand_as(dst))
         st.cache["length"].copy_(st.cache1["length"])
-        scores, first = top_k_ordered(
-            log_softmax(logits0[0, prompt_len - 1]), K)
+        last_logits = logits0[:, prompt_len - 1]               # [1, V]
+        if st.gram is not None:
+            gstate1 = scan_prompt_state(st.gram, prompt, prompt_len)
+            last_logits = grammar_mask(last_logits, gstate1, st.gram,
+                                       budget_left=st.max_len - prompt_len)
+        scores, first = top_k_ordered(log_softmax(last_logits[0]), K)
+        if st.gram is not None:
+            st.gstate.copy_(grammar_step(gstate1.expand(K), first, st.gram))
         real = torch.arange(P, device=prompt.device) < prompt_len
         st.buf.fill_(st.pad_id)
         st.buf[:, :P] = torch.where(real, prompt[0], st.pad_id)
@@ -122,6 +138,11 @@ class BeamLoop:
         run = st.running()
         logits, _ = decode_step(st.params, st.last[:, None], st.cache,
                                 st.cfg)
+        if st.gram is not None:
+            # before the softmax: the scores renormalize over the
+            # continuations the grammar allows
+            logits = grammar_mask(logits, st.gstate, st.gram,
+                                  budget_left=st.max_len - st.pos)
         logp = log_softmax(logits)                           # [K, V]
         # a finished beam's one candidate: PAD at log-probability 0
         step = torch.where(st.done[:, None], st._pad, logp)
@@ -147,18 +168,26 @@ class BeamLoop:
         st.last.copy_(torch.where(run, torch.where(pdone, plast, tok),
                                   plast))
         st.scores.copy_(torch.where(run, new_scores, st.scores))
+        if st.gram is not None:
+            stepped = grammar_step(st.gstate.index_select(0, parent), tok,
+                                   st.gram, active=~pdone)
+            st.gstate.copy_(torch.where(run, stepped, st.gstate))
         st.pos.add_(run.long())
 
 
 def beam_state(params: dict, cfg: GPTConfig, n_beams: int, max_len: int,
-               eos_id: int, pad_id: int, device,
-               eager: bool = False) -> tuple:
+               eos_id: int, pad_id: int, device, eager: bool = False,
+               grammar=None) -> tuple:
     """-> (the graph key of a :class:`BeamLoop`, a function that makes
-    one), keyed as JAX's ``static_argnames``: cfg, max_len, K, eos, pad."""
+    one), keyed as JAX's ``static_argnames``: cfg, max_len, K, eos, pad,
+    and the grammar's tables (by identity: the graph reads them by
+    address)."""
     args = (cfg, int(n_beams), int(max_len), int(eos_id), int(pad_id),
             torch.device(device))
-    key = ("beam", id(params), *args, bool(eager))
-    return key, lambda: BeamLoop(params, *args, eager=eager)
+    gram = grammar_tables(grammar, device)
+    key = ("beam", id(params), *args, bool(eager),
+           None if gram is None else id(gram))
+    return key, lambda: BeamLoop(params, *args, gram=gram, eager=eager)
 
 
 @torch.no_grad()
@@ -172,17 +201,16 @@ def generate_beam(params: dict, prompt: torch.Tensor, prompt_len: int,
     prompt and its hypothesis (PAD-padded), the generated tokens (EOS
     included) and the summed log-probabilities. Rank with
     :func:`rank_beams` (``length_penalty`` is the ranking's, unused here,
-    as in JAX). ``eos_id < 0`` runs every beam to ``max_len``. Grammar
-    constraints are not in the port yet."""
-    if grammar is not None:
-        raise NotInPort("grammar")
+    as in JAX). ``eos_id < 0`` runs every beam to ``max_len``.
+    ``grammar``: a ``decode.grammar.Grammar`` (or its ``arrays``) or None:
+    each beam constrained by its own FSM state."""
     assert prompt.shape[0] == 1, \
         "beam search expands ONE prompt into K hypotheses"
     assert cfg.pos_broadcast_bug or max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
         f"(n_pos={cfg.n_pos})")
     key, make = beam_state(params, cfg, n_beams, max_len, eos_id, pad_id,
-                           prompt.device, eager)
+                           prompt.device, eager, grammar)
     with graphs.pooled(key, make) as st, graphs.on_stream(st.stream):
         st.start(prompt, prompt_len)
         n_blocks = -(-(max_len - prompt_len - 1) // st.block)

@@ -26,7 +26,10 @@ one gives the same stream in f32. The same quirks hold:
   ``presplit_keys`` from one ``split(key, max_len)``, indexed by position;
 - ``penalties`` count the prompt's tokens too, and a finished row's counts
   stop; ``no_repeat_ngram`` bans on the raw logits, on the warm-up logits
-  too when ``refeed_last_prompt=False``. Both act in greedy mode as well.
+  too when ``refeed_last_prompt=False``. Both act in greedy mode as well;
+- ``grammar`` (``decode/grammar.py``) masks after the n-gram ban and
+  before the sampler, with the tokens left, ``max_len - pos``, as its
+  budget; its state starts from the prompt and a finished row's holds.
 """
 
 from __future__ import annotations
@@ -39,8 +42,12 @@ from ..models.gpt import (GPTConfig, cache_layout, decode_step,
                           forward_masked, init_kv_cache, prefill)
 from ..utils import prng
 from . import graphs
-from .sampling import (apply_no_repeat_ngram, log_min_p, penalties_on,
-                       penalty_tensor, sample_token, token_counts)
+from .grammar import (grammar_mask, grammar_step, grammar_tables,
+                      scan_prompt_state)
+from .sampling import (apply_no_repeat_ngram, count_tokens, log_min_p,
+                       penalties_on, penalty_tensor, sample_token,
+                       token_counts)
+
 
 def _key_blocks(rng, pos0: int, max_len: int, presplit: bool, block: int):
     """The sampling keys of the steps pos0..max_len - 1, ``block`` at a
@@ -82,13 +89,6 @@ def _start(prompt: torch.Tensor, prompt_len: int, max_len: int, pad_id: int,
     return buf, counts
 
 
-def _count(counts, nxt: torch.Tensor, active: torch.Tensor):
-    """counts with one more occurrence of nxt[b] for every active row."""
-    counts[torch.arange(nxt.shape[0], device=nxt.device), nxt] += \
-        active.to(torch.float32)
-    return counts
-
-
 class SoloLoop:
     """The state on the device of a solo decode (``generate_kv`` and the
     streamed decode of ``decode/stream.py``) for one graph key, and the
@@ -105,21 +105,23 @@ class SoloLoop:
     the steps run less these); ``done`` [B], ``last`` [B]; ``counts``
     [B, V] with penalties on; the sampling values ``temp`` [1], ``top_p``
     [1], ``log_mp`` [1], ``pen`` [3] (None, or 1.0 for top_p, when off: a
-    filter that is off is not in the graph); ``keys`` [block, 2] int64, the
-    block's step keys."""
+    filter that is off is not in the graph); ``gram``: the grammar's tables
+    on the device (``Grammar.arrays``, captured by address) and ``gstate``
+    [B] its states, or None; ``keys`` [block, 2] int64, the block's step
+    keys."""
 
     def __init__(self, params: dict, cfg: GPTConfig, batch: int,
                  max_len: int, device, attn_impl: str, top_k: int,
                  greedy: bool, mask_value: float, eos_id: int, pad_id: int,
                  top_p_on: bool, min_p_on: bool, pen_on: bool, ngram: int,
-                 block: int = graphs.BLOCK, slots: int | None = None,
-                 eager: bool = False,
+                 gram: dict | None = None, block: int = graphs.BLOCK,
+                 slots: int | None = None, eager: bool = False,
                  capture_error_mode: str = "thread_local"):
         dev = torch.device(device)
         self.params, self.cfg, self.max_len = params, cfg, max_len
         self.attn_impl, self.top_k, self.greedy = attn_impl, top_k, greedy
         self.mask_value, self.eos_id, self.pad_id = mask_value, eos_id, pad_id
-        self.ngram, self.block = ngram, block
+        self.ngram, self.block, self.gram = ngram, block, gram
         self.lock = threading.Lock()
         self.stream = graphs.side_stream(dev)
         B, V = batch, cfg.vocab_size
@@ -140,6 +142,7 @@ class SoloLoop:
         self.top_p = zeros((1,), torch.float32) if top_p_on else 1.0
         self.log_mp = zeros((1,), torch.float32) if min_p_on else None
         self.pen = zeros((3,), torch.float32) if pen_on else None
+        self.gstate = None if gram is None else zeros((B,), torch.int64)
         self.keys = None if greedy else zeros((block, 2), torch.int64)
         self.graph = graphs.BlockGraph(self._block, dev, eager,
                                        capture_error_mode)
@@ -157,13 +160,19 @@ class SoloLoop:
                                     self.cache, self.cfg, self.attn_impl)
             logits = apply_no_repeat_ngram(logits, self.tokens, self.pos,
                                            self.ngram, self.mask_value)
+            if self.gram is not None:
+                logits = grammar_mask(logits, self.gstate, self.gram,
+                                      budget_left=L - self.pos)
             nxt = sample_token(None, logits, self.temp, self.top_k,
                                self.mask_value, self.greedy, self.top_p,
                                gumbel=None if self.greedy else noise[i],
                                counts=self.counts, penalties=self.pen,
                                log_mp=self.log_mp)
             if self.counts is not None:
-                _count(self.counts, nxt, ~self.done)
+                count_tokens(self.counts, nxt, ~self.done)
+            if self.gram is not None:
+                self.gstate.copy_(grammar_step(self.gstate, nxt, self.gram,
+                                               active=~self.done))
             write = nxt
             if track_eos:
                 write = torch.where(self.done, self.pad_id, nxt)
@@ -179,19 +188,24 @@ def solo_state(params: dict, cfg: GPTConfig, batch: int, max_len: int,
                mask_value: float, eos_id: int, pad_id: int, top_p, min_p,
                penalties, no_repeat_ngram: int, block: int,
                slots: int | None = None, eager: bool = False,
-               capture_error_mode: str = "thread_local") -> tuple:
+               capture_error_mode: str = "thread_local",
+               grammar=None) -> tuple:
     """-> (the graph key of a :class:`SoloLoop`, a function that makes
     one). The key holds what fixes the shapes and the code of a step, as
-    JAX's ``static_argnames`` do, never a value that a request fills in."""
+    JAX's ``static_argnames`` do, never a value that a request fills in;
+    with a grammar, its tables' identity (a graph reads them by address,
+    so one scheme's graph never replays another's tables)."""
     top_p_on = top_p is not None and float(top_p) < 1.0
     min_p_on = min_p is not None and float(min_p) > 0.0
     cache_layout(attn_impl, cfg)                 # refuse a bad name first
+    gram = grammar_tables(grammar, device)
     args = (cfg, int(batch), int(max_len), torch.device(device), attn_impl,
             int(top_k), bool(greedy), float(mask_value), int(eos_id),
             int(pad_id), top_p_on, min_p_on, bool(_penalty_args(penalties)),
             int(no_repeat_ngram or 0))
-    key = ("solo", id(params), *args, int(block), slots, bool(eager))
-    return key, lambda: SoloLoop(params, *args, block=int(block),
+    key = ("solo", id(params), *args, int(block), slots, bool(eager),
+           None if gram is None else id(gram))
+    return key, lambda: SoloLoop(params, *args, gram=gram, block=int(block),
                                  slots=slots, eager=eager,
                                  capture_error_mode=capture_error_mode)
 
@@ -204,12 +218,13 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                 mask_value: float = -1e10, presplit_keys: bool = False,
                 top_p: float = 1.0, min_p: float = 0.0,
                 penalties: tuple | None = None, no_repeat_ngram: int = 0,
-                attn_impl: str = "sp", eager: bool = False,
+                grammar=None, attn_impl: str = "sp", eager: bool = False,
                 capture_error_mode: str = "thread_local"):
     """prompt [B, P] (padded to a bucket P, on the params' device),
     prompt_len real tokens in every row, rng a ``prng.PRNGKey``.
     ``penalties``: (repetition, frequency, presence) or None;
-    ``no_repeat_ngram``: the banned n-gram size, 0 for none; ``attn_impl``:
+    ``no_repeat_ngram``: the banned n-gram size, 0 for none; ``grammar``: a
+    ``decode.grammar.Grammar`` (or its ``arrays``) or None; ``attn_impl``:
     one of ``models.gpt.ATTN_IMPLS``. Returns (tokens [B, max_len] int64
     on the device, n_tokens int), JAX's ``(buf, pos)``; slots at or past
     n_tokens hold pad_id. On the card the steps replay CUDA graphs
@@ -224,7 +239,8 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
     key, make = solo_state(params, cfg, B, max_len, prompt.device, attn_impl,
                            top_k, greedy, mask_value, eos_id, pad_id, top_p,
                            min_p, penalties, no_repeat_ngram, graphs.BLOCK,
-                           eager=eager, capture_error_mode=capture_error_mode)
+                           eager=eager, capture_error_mode=capture_error_mode,
+                           grammar=grammar)
     st = graphs.state_for(key, make)
     with st.lock, graphs.on_stream(st.stream):
         pos0, keys = _begin(st, prompt, prompt_len, rng, temperature, top_p,
@@ -243,9 +259,10 @@ def _begin(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
     """The start of one request on ``st``: prefill into its cache and the
     start of the loop written into its state. Without ``refeed`` the first
     token is sampled from the prefill logits with one split of ``rng``
-    (``refeed_last_prompt=False``, and JAX's stream). -> (the position the
-    first block writes, the blocks' step keys: :func:`_key_blocks`, None
-    when greedy)."""
+    (``refeed_last_prompt=False``, and JAX's stream), masked by the grammar
+    with ``max_len - prompt_len`` tokens left. -> (the position the first
+    block writes, the blocks' step keys: :func:`_key_blocks`, None when
+    greedy)."""
     cfg, max_len = st.cfg, st.max_len
     B, P = prompt.shape
     logits0, _ = prefill(st.params, prompt, cfg, st.cache,
@@ -263,6 +280,8 @@ def _begin(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
     if st.log_mp is not None:
         st.log_mp.copy_(log_min_p(min_p, st.log_mp.device))
     st.done.zero_()
+    if st.gram is not None:
+        st.gstate.copy_(scan_prompt_state(st.gram, prompt, prompt_len))
     if refeed:
         st.last.copy_(prompt[:, prompt_len - 1])
         pos0, rng0 = prompt_len, rng
@@ -271,6 +290,9 @@ def _begin(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
         last_logits = apply_no_repeat_ngram(
             logits0[:, prompt_len - 1], st.tokens, prompt_len, st.ngram,
             st.mask_value)
+        if st.gram is not None:
+            last_logits = grammar_mask(last_logits, st.gstate, st.gram,
+                                       budget_left=max_len - prompt_len)
         first = sample_token(sub, last_logits, st.temp, st.top_k,
                              st.mask_value, st.greedy, st.top_p,
                              counts=st.counts, penalties=st.pen,
@@ -280,7 +302,9 @@ def _begin(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
         st.last.copy_(first)
         pos0 = prompt_len + 1
         if st.counts is not None:
-            _count(st.counts, first, torch.ones_like(st.done))
+            count_tokens(st.counts, first, torch.ones_like(st.done))
+        if st.gram is not None:
+            st.gstate.copy_(grammar_step(st.gstate, first, st.gram))
     st.pos.fill_(pos0)
     st.inert.zero_()
     keys = None if st.greedy else _key_blocks(rng0, pos0, max_len, presplit,
@@ -322,7 +346,8 @@ def generate_full(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                   top_k: int = 50, eos_id: int = -1, pad_id: int = 0,
                   greedy: bool = False, mask_value: float = -1e10,
                   top_p: float = 1.0, min_p: float = 0.0,
-                  penalties: tuple | None = None, no_repeat_ngram: int = 0):
+                  penalties: tuple | None = None, no_repeat_ngram: int = 0,
+                  grammar=None):
     """Uncached generation (the reference's ``sample()``): every step
     re-encodes the whole prefix through ``forward_masked`` at one shape,
     [B, max_len - 1] with the first ``pos`` positions valid. Arguments and
@@ -342,17 +367,25 @@ def generate_full(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                       device=dev)
     pen_t = penalty_tensor(penalties, dev) if pen else None
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    gram = grammar_tables(grammar, dev)
+    gstate = None if gram is None else scan_prompt_state(gram, prompt,
+                                                         prompt_len)
     pos = prompt_len
     while pos < max_len and not bool(done.all()):
         rng, sub = prng.split(rng)
         logits = forward_masked(params, buf[:, :T], cfg, valid_len=pos)
         last_logits = apply_no_repeat_ngram(logits[:, pos - 1], buf, pos,
                                             ngram, mask_value)
+        if gram is not None:
+            last_logits = grammar_mask(last_logits, gstate, gram,
+                                       budget_left=max_len - pos)
         nxt = sample_token(sub, last_logits, temp, top_k, mask_value,
                            greedy, top_p, min_p, counts=counts,
                            penalties=pen_t)
         if pen:
-            counts = _count(counts, nxt, ~done)
+            counts = count_tokens(counts, nxt, ~done)
+        if gram is not None:
+            gstate = grammar_step(gstate, nxt, gram, active=~done)
         buf[:, pos] = torch.where(done, pad_id, nxt)
         done = done | (nxt == eos_id)
         pos += 1

@@ -23,9 +23,13 @@ noise drawn inside it from a buffer of the rows' step keys; as JAX's
 ``while_loop`` does, ``generate_kv_ragged`` runs until every row is done,
 and looks at the done flags once a block. Each row's stream is a function
 of the parameters, its prompt and its key alone: per-row keys are advanced
-on the host (``utils/prng.py``). Penalties, n-gram bans and grammar
-constraints are not in the port yet (``NotInPort``), nor is
-``decode_block_ragged``.
+on the host (``utils/prng.py``). The history-dependent transforms go in
+JAX's order in every step: the n-gram ban, the grammar's mask (budget
+``row_max - pos``), then the penalties inside the sampler; the counts and
+the grammar's states advance for active rows only. ``generate_kv_ragged``
+takes them batch-wide with a state per row, the engine a row at a time
+(``ngram_on``, ``gram_on`` and the per-row penalties in its state).
+``decode_block_ragged`` is not in the port yet.
 """
 
 from __future__ import annotations
@@ -39,9 +43,12 @@ from ..models.gpt import (GPTConfig, _embed, _head, decode_layers_fused,
                           prefill_fused)
 from ..ops.decode_fold import fold_decode
 from ..utils import prng
-from ..utils.errors import NotInPort
 from . import graphs
-from .sampling import log_min_p, sample_rows
+from .grammar import (grammar_mask, grammar_step, grammar_tables,
+                      scan_prompt_state)
+from .sampling import (apply_no_repeat_ngram, count_tokens, log_min_p,
+                       penalties_on, penalty_tensor, sample_rows,
+                       token_counts)
 
 def init_ragged_cache(cfg: GPTConfig, batch: int, max_len: int,
                       device=None) -> dict:
@@ -110,7 +117,8 @@ def ragged_steps(params: dict, st: dict, cfg: GPTConfig, noise, *,
                  steps: int, top_k: int, greedy: bool, mask_value: float,
                  eos_id: int, pad_id: int, top_p=1.0,
                  min_p: float = 0.0, per_row: bool = False,
-                 log_mp: torch.Tensor | None = None) -> dict:
+                 log_mp: torch.Tensor | None = None, ngram: int = 0,
+                 gram: dict | None = None) -> dict:
     """Advance every live row of ``st`` by ``steps`` decode steps, in place
     (every tensor of ``st`` keeps its address); done rows and rows at
     their budget are inert. ``noise`` is [steps, B, V] (None when greedy).
@@ -118,18 +126,39 @@ def ragged_steps(params: dict, st: dict, cfg: GPTConfig, noise, *,
 
     ``st``: buf [B, M] int32, pos/row_max [B] int32, last [B] int64,
     done [B] bool, temps/top_ps/min_ps [B] f32, cache. ``top_p`` and
-    ``log_mp`` as :func:`sample_rows` takes them."""
+    ``log_mp`` as :func:`sample_rows` takes them. With penalties ``st``
+    holds ``counts`` [B, V] and either ``pen`` [3] (batch-wide) or
+    ``rep_ps``/``freq_ps``/``pres_ps`` [B]; ``ngram`` bans n-grams, in the
+    rows ``ngram_on`` [B] marks when ``st`` has it; ``gram`` (the
+    grammar's tables) masks by ``gstate`` [B], in the rows ``gram_on``
+    marks when ``st`` has it."""
     buf, pos, done, last = st["buf"], st["pos"], st["done"], st["last"]
     lengths = st["cache"]["lengths"]
+    counts = st.get("counts")
+    per_row_pen = {k: st[k] for k in ("rep_ps", "freq_ps", "pres_ps")
+                   if k in st}
     cols = torch.arange(buf.shape[1], device=buf.device)[None]
     for i in range(steps):
         logits = _step_logits(params, last, st["cache"], cfg)
+        logits = apply_no_repeat_ngram(logits, buf, pos, ngram, mask_value,
+                                       row_on=st.get("ngram_on"))
+        if gram is not None:
+            logits = grammar_mask(logits, st["gstate"], gram,
+                                  budget_left=st["row_max"] - pos,
+                                  row_on=st.get("gram_on"))
         nxt = sample_rows(logits, st["temps"], top_k, mask_value, greedy,
                           top_p, min_p,
                           st["top_ps"] if per_row else None,
                           st["min_ps"] if per_row else None,
-                          None if greedy else noise[i], log_mp)
+                          None if greedy else noise[i], log_mp,
+                          counts=counts, penalties=st.get("pen"),
+                          **per_row_pen)
         active = ~(done | (pos >= st["row_max"]))
+        if counts is not None:
+            count_tokens(counts, nxt, active)
+        if gram is not None:
+            st["gstate"].copy_(grammar_step(st["gstate"], nxt, gram,
+                                            active=active))
         write = torch.where(active, nxt, pad_id).to(torch.int32)
         hit = (cols == pos[:, None]) & active[:, None]
         torch.where(hit, write[:, None], buf, out=buf)
@@ -150,19 +179,22 @@ class RaggedGraph:
     :attr:`keys` [block, B, 2], the rows' step keys. ``top_p``: 1.0 (off)
     or a [1] tensor the owner fills; ``log_mp``: None or such a tensor
     (:func:`sampling.log_min_p`); with ``per_row`` the rows' own
-    ``top_ps``/``min_ps``. The engine's chunks, its detached decode and
+    ``top_ps``/``min_ps``; ``ngram`` and ``gram`` as :func:`ragged_steps`
+    takes them. The engine's chunks, its detached decode and
     ``generate_kv_ragged`` run on it."""
 
     def __init__(self, params: dict, cfg: GPTConfig, st: dict, block: int,
                  *, top_k: int, greedy: bool, mask_value: float,
                  eos_id: int, pad_id: int, top_p=1.0, log_mp=None,
-                 per_row: bool = False, eager: bool = False,
+                 per_row: bool = False, ngram: int = 0,
+                 gram: dict | None = None, eager: bool = False,
                  capture_error_mode: str = "thread_local"):
         dev = st["buf"].device
         self.params, self.cfg, self.st, self.block = params, cfg, st, block
         self.opts = dict(top_k=top_k, greedy=greedy, mask_value=mask_value,
                          eos_id=eos_id, pad_id=pad_id, top_p=top_p,
-                         per_row=per_row, log_mp=log_mp)
+                         per_row=per_row, log_mp=log_mp, ngram=ngram,
+                         gram=gram)
         B = st["buf"].shape[0]
         self.keys = None if greedy else torch.zeros(
             (block, B, 2), dtype=torch.int64, device=dev)
@@ -200,8 +232,8 @@ class _RaggedLoop:
 
     def __init__(self, params, cfg, batch: int, max_len: int, device,
                  top_k: int, greedy: bool, mask_value: float, eos_id: int,
-                 pad_id: int, top_p_on: bool, min_p_on: bool, block: int,
-                 eager: bool):
+                 pad_id: int, top_p_on: bool, min_p_on: bool, pen_on: bool,
+                 ngram: int, gram: dict | None, block: int, eager: bool):
         dev = torch.device(device)
         self.block = block
         self.lock = threading.Lock()
@@ -217,13 +249,19 @@ class _RaggedLoop:
                    "done": full(True, torch.bool),
                    "row_max": full(max_len, torch.int32),
                    "temps": full(1.0, torch.float32)}
+        if pen_on:
+            self.st["counts"] = torch.zeros((batch, cfg.vocab_size),
+                                            device=dev)
+            self.st["pen"] = torch.zeros((3,), device=dev)
+        if gram is not None:
+            self.st["gstate"] = full(0, torch.int64)
         self.top_p = torch.ones((1,), device=dev) if top_p_on else 1.0
         self.log_mp = torch.zeros((1,), device=dev) if min_p_on else None
         self.graph = RaggedGraph(params, cfg, self.st, block, top_k=top_k,
                                  greedy=greedy, mask_value=mask_value,
                                  eos_id=eos_id, pad_id=pad_id,
                                  top_p=self.top_p, log_mp=self.log_mp,
-                                 eager=eager)
+                                 ngram=ngram, gram=gram, eager=eager)
 
 
 @torch.no_grad()
@@ -240,17 +278,13 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
     prompt_lens [B] (host ints), one key per row (rngs [B, 2] uint32, what
     ``prng.key_rows(seeds)`` gives) or a single key, fanned out per row.
     Returns (tokens [B, max_len] int32, lengths [B] int32) on the device;
-    row b holds its prompt then its generation, pad_id elsewhere. On the
-    card the steps replay a CUDA graph of ``graphs.BLOCK`` steps keyed by B
-    (and the sampling options); ``eager=True`` issues them from the host
-    instead, to compare the two (no served path passes it)."""
-    for name, on in (("penalties", penalties is not None
-                      and tuple(float(v) for v in penalties)
-                      != (1.0, 0.0, 0.0)),
-                     ("no_repeat_ngram", bool(no_repeat_ngram)),
-                     ("grammar", grammar is not None)):
-        if on:
-            raise NotInPort(name)
+    row b holds its prompt then its generation, pad_id elsewhere.
+    ``penalties`` (repetition, frequency, presence), ``no_repeat_ngram``
+    and ``grammar`` (a ``decode.grammar.Grammar`` or its ``arrays``) are
+    batch-wide, with the counts, the history and the FSM state per row.
+    On the card the steps replay a CUDA graph of ``graphs.BLOCK`` steps
+    keyed by B (and the sampling options); ``eager=True`` issues them from
+    the host instead, to compare the two (no served path passes it)."""
     B, P = prompt.shape
     assert max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
@@ -258,13 +292,17 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
     dev = prompt.device
     top_p = 1.0 if top_p is None else float(top_p)
     min_p = 0.0 if min_p is None else float(min_p)
+    pen_on = penalties is not None and penalties_on(*penalties)
+    ngram = int(no_repeat_ngram or 0)
+    gram = grammar_tables(grammar, dev)
     key = ("ragged", id(params), cfg, B, max_len, str(dev), int(top_k),
            bool(greedy), float(mask_value), int(eos_id), int(pad_id),
-           top_p < 1.0, min_p > 0.0, graphs.BLOCK, bool(eager))
+           top_p < 1.0, min_p > 0.0, pen_on, ngram,
+           None if gram is None else id(gram), graphs.BLOCK, bool(eager))
     loop = graphs.state_for(key, lambda: _RaggedLoop(
         params, cfg, B, max_len, dev, int(top_k), bool(greedy),
         float(mask_value), int(eos_id), int(pad_id), top_p < 1.0,
-        min_p > 0.0, graphs.BLOCK, eager))
+        min_p > 0.0, pen_on, ngram, gram, graphs.BLOCK, eager))
     plens_host = [int(v) for v in np.asarray(
         prompt_lens.cpu() if isinstance(prompt_lens, torch.Tensor)
         else prompt_lens)]
@@ -284,14 +322,31 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
         st["temps"].fill_(float(temperature))
         keys, subs = prng.split_rows(keys)
         last_logits = logits0[torch.arange(B, device=dev), (plens - 1).long()]
+        counts = st.get("counts")
+        if counts is not None:
+            counts.copy_(token_counts(prompt, cols[:, :P] < plens[:, None],
+                                      cfg.vocab_size))
+            st["pen"].copy_(penalty_tensor(penalties, dev))
+        last_logits = apply_no_repeat_ngram(last_logits, buf, plens, ngram,
+                                            mask_value)
+        if gram is not None:
+            st["gstate"].copy_(scan_prompt_state(gram, prompt, plens))
+            last_logits = grammar_mask(last_logits, st["gstate"], gram,
+                                       budget_left=max_len - plens)
         first = sample_rows(last_logits, st["temps"], top_k, mask_value,
                             greedy, loop.top_p, min_p,
                             gumbel=None if greedy
                             else draw_noise(subs, cfg.vocab_size, dev),
-                            log_mp=loop.log_mp)
+                            log_mp=loop.log_mp, counts=counts,
+                            penalties=st.get("pen"))
         # a row whose prompt fills the buffer starts done and keeps its
         # last prompt token
         active0 = plens < max_len
+        if counts is not None:
+            count_tokens(counts, first, active0)
+        if gram is not None:
+            st["gstate"].copy_(grammar_step(st["gstate"], first, gram,
+                                            active=active0))
         hit0 = (cols == plens[:, None]) & active0[:, None]
         st["buf"].copy_(torch.where(hit0, first[:, None].to(torch.int32),
                                     buf))

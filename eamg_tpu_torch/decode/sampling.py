@@ -16,9 +16,11 @@ continuous engine use (``decode/ragged.py::_sample_per_row`` and
 ``serve/continuous.py::_sample_rows`` in the JAX package, which vmap
 ``sample_token`` over the rows): one temperature per row and, in per-row
 mode, one top-p and one min-p per row, with all rows' thresholds found by
-one launch each.
-
-Grammar constraints are not in the port yet.
+one launch each, and the penalties first: batch-wide values (the window
+batcher groups requests by them) or, in the engine's per-row mode, one set
+a row over the rows' own counts. Grammar constraints are in
+``decode/grammar.py``; the loops apply them after the n-gram ban and
+before the sampler.
 """
 
 from __future__ import annotations
@@ -99,6 +101,15 @@ def token_counts(ids: torch.Tensor, valid: torch.Tensor,
     return counts.scatter_add_(1, ids.long(), valid.to(torch.float32))
 
 
+def count_tokens(counts: torch.Tensor, nxt: torch.Tensor,
+                 active: torch.Tensor) -> torch.Tensor:
+    """counts with one more occurrence of nxt[b] for every active row, in
+    place (one index a row, so no two writes meet)."""
+    counts[torch.arange(nxt.shape[0], device=nxt.device), nxt] += \
+        active.to(torch.float32)
+    return counts
+
+
 def no_repeat_ngram_ban(buf: torch.Tensor, pos, n: int,
                         vocab_size: int) -> torch.Tensor:
     """[B, L] token history + its length ``pos`` (an int or [B]) -> [B, V]
@@ -127,12 +138,17 @@ def no_repeat_ngram_ban(buf: torch.Tensor, pos, n: int,
 
 
 def apply_no_repeat_ngram(logits: torch.Tensor, buf: torch.Tensor, pos,
-                          n: int, mask_value: float = -1e10) -> torch.Tensor:
+                          n: int, mask_value: float = -1e10,
+                          row_on: torch.Tensor | None = None) -> torch.Tensor:
     """Additive n-gram ban on the raw logits (before temperature and the
-    filters; it moves the greedy argmax too). n = 0 is off."""
+    filters; it moves the greedy argmax too). n = 0 is off. ``row_on``
+    ([B] bool) gates per row: a row off keeps its logits bit for bit (the
+    engine's rows share one ban size)."""
     if not n:
         return logits
     ban = no_repeat_ngram_ban(buf, pos, n, logits.shape[-1])
+    if row_on is not None:
+        ban = ban & row_on[:, None]
     return logits + torch.where(ban, mask_value, 0.0)
 
 
@@ -182,6 +198,12 @@ def apply_penalties(logits: torch.Tensor, counts: torch.Tensor,
                  else float(repetition_penalty), 1e-6)
         fp = 0.0 if frequency_penalty is None else float(frequency_penalty)
         pp = 0.0 if presence_penalty is None else float(presence_penalty)
+    return _penalize(logits, counts, rp, fp, pp)
+
+
+def _penalize(logits, counts, rp, fp, pp) -> torch.Tensor:
+    """The penalties' arithmetic in JAX's order; rp, fp and pp are floats
+    or tensors that broadcast against the logits (rp clamped already)."""
     present = counts > 0.0
     penalized = torch.where(logits < 0.0, logits * rp, logits / rp)
     out = torch.where(present, penalized, logits)
@@ -223,9 +245,20 @@ def sample_rows(logits: torch.Tensor, temps: torch.Tensor, top_k: int,
                 top_ps: torch.Tensor | None = None,
                 min_ps: torch.Tensor | None = None,
                 gumbel: torch.Tensor | None = None,
-                log_mp: torch.Tensor | None = None) -> torch.Tensor:
+                log_mp: torch.Tensor | None = None,
+                counts: torch.Tensor | None = None,
+                penalties: torch.Tensor | None = None,
+                rep_ps: torch.Tensor | None = None,
+                freq_ps: torch.Tensor | None = None,
+                pres_ps: torch.Tensor | None = None) -> torch.Tensor:
     """[B, V] f32 logits, temps [B] -> [B] int64 token ids, row b drawn
     with its own noise ``gumbel[b]`` ([B, V], from the rows' keys).
+
+    With ``counts`` ([B, V]) the penalties apply to the raw logits first,
+    in greedy mode too: ``penalties`` ([3], :func:`penalty_tensor`) for
+    the whole batch, or ``rep_ps``/``freq_ps``/``pres_ps`` ([B]) a row
+    (JAX's engine in per-row mode; a row at 1, 0, 0 keeps its logits bit
+    for bit).
 
     ``top_p``/``min_p`` are batch-wide (``top_p`` a float, or a tensor on
     the device as :func:`apply_top_p` takes it; ``log_mp`` as
@@ -233,6 +266,13 @@ def sample_rows(logits: torch.Tensor, temps: torch.Tensor, top_k: int,
     per-row filtering instead: a row at 1.0 / 0.0 keeps its logits bit for
     bit (the filtered values are selected per row), so an unfiltered
     request samples what it would sample alone."""
+    if counts is not None:
+        if rep_ps is not None:
+            logits = _penalize(logits, counts,
+                               torch.clamp(rep_ps, min=1e-6)[:, None],
+                               freq_ps[:, None], pres_ps[:, None])
+        else:
+            logits = apply_penalties(logits, counts, penalties=penalties)
     if greedy:
         return torch.argmax(logits, dim=-1)
     logits = logits / temps[:, None]

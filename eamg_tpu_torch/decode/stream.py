@@ -25,13 +25,15 @@ JAX's semantics, kept here:
 - the first token is sampled from the prefill logits with one split of the
   seed's key (no refeed of the last prompt token), then every step of a
   chunk splits the running key once;
-- a finished row emits PAD; the penalties' counts and the n-gram history
-  (JAX's ``(buf, pos)``) are carried between chunks.
+- a finished row emits PAD; the penalties' counts, the n-gram history
+  (JAX's ``(buf, pos)``) and the grammar's state with its budget (JAX's
+  ``grammar_state``: ``max_len - prompt_len`` for the first token, one
+  less a step, which is ``max_len - pos`` on the loop's position) are
+  carried between chunks in the pooled state.
 
 A greedy stream equals ``generate_kv(..., refeed_last_prompt=False)``; a
 sampled one is reproducible by its seed but is not the one-shot loop's
-stream (another bucket, first-token rule and key chain). Grammar
-constraints are not in the port yet.
+stream (another bucket, first-token rule and key chain).
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ import torch
 
 from ..models.gpt import GPTConfig
 from ..utils import prng
-from ..utils.errors import NotInPort
 from . import graphs
 from .loop import _begin, _blocks, solo_state
 
@@ -59,9 +60,8 @@ def stream_tokens(params: dict, cfg: GPTConfig, prompt_ids: list[int],
     params' device. The first comes from the prefill logits; the rest
     arrive ``chunk`` at a time, each chunk one replay of its graph on the
     card (``eager=True`` issues its steps from the host instead, to
-    compare)."""
-    if grammar is not None:
-        raise NotInPort("grammar")
+    compare). ``grammar``: a ``decode.grammar.Grammar`` (or its
+    ``arrays``) or None."""
     p = len(prompt_ids)
     if p >= max_len:
         # no slot left to generate into (reference: zero loop iterations)
@@ -77,7 +77,8 @@ def stream_tokens(params: dict, cfg: GPTConfig, prompt_ids: list[int],
                            greedy, -1e10, eos_id, pad_id, top_p, min_p,
                            penalties, no_repeat_ngram, chunk,
                            slots=max_len + chunk, eager=eager,
-                           capture_error_mode=capture_error_mode)
+                           capture_error_mode=capture_error_mode,
+                           grammar=grammar)
     with graphs.pooled(key, make) as st:
         with graphs.on_stream(st.stream):
             pos0, keys = _begin(st, torch.from_numpy(prompt).to(dev), p,

@@ -5,9 +5,10 @@ Port of ``eamg_tpu/serve/batcher.py``. Requests that arrive within a small
 window are grouped by their sampling params, padded into a ragged batch
 (``decode/ragged.py``) and decoded together; each row carries its own
 PRNG key, so a coalesced request returns the stream it would have produced
-alone. Batch sizes bucket to {1, 2, 4, 8, ...} with dummy rows. Penalties,
-n-gram bans and grammar constraints are not in the port yet: ``accepts``
-turns them away and the pipeline decodes them on the solo path.
+alone. Batch sizes bucket to {1, 2, 4, 8, ...} with dummy rows. Groups
+are keyed by every option the ragged decode takes batch-wide: the
+sampling values, the budget's bucket, the penalties, the n-gram size and
+grammar on or off (with the batcher's grammar, when it was given one).
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from ..decode.api import Generator, _bucket
 from ..decode.ragged import generate_kv_ragged
 from ..utils import prng
 from ..utils.device import bind_thread_to
-from ..utils.errors import NotInPort
 from .continuous import _NEUTRAL_PEN, EngineOverloaded, wait_for_worker
 
 
@@ -38,6 +38,9 @@ class _Pending:
     greedy: bool
     seed: int
     max_len: int
+    penalties: tuple = _NEUTRAL_PEN
+    ngram: int = 0
+    grammar: bool = False
     event: threading.Event = field(default_factory=threading.Event)
     result: list | None = None
     error: Exception | None = None
@@ -47,9 +50,10 @@ class RequestBatcher:
     def __init__(self, generator: Generator, max_batch: int = 8,
                  window_ms: float = 10.0, max_len: int | None = None,
                  max_queue: int = 256, grammar=None, eager: bool = False):
-        if grammar is not None:
-            raise NotInPort("a grammar in the batcher")
         self.gen = generator
+        # the served scheme's FSM (decode.grammar.Grammar) for the requests
+        # that ask grammar=true; None turns them away (solo decode)
+        self.grammar = grammar
         # the ragged decode replays CUDA graphs on the card; eager=True
         # issues its steps from the host, to compare the two (no served
         # path passes it)
@@ -74,16 +78,13 @@ class RequestBatcher:
     def overloaded(self) -> bool:
         return bool(self.max_queue) and self._q.qsize() >= self.max_queue
 
-    def accepts(self, penalties: tuple | None = None,
-                no_repeat_ngram: int | None = None, grammar: bool = False,
-                medusa: bool = False, **_) -> bool:
+    def accepts(self, grammar: bool = False, medusa: bool = False,
+                **_) -> bool:
         """The window batcher groups by param combination, so it takes any
-        temperature, top-k, top-p and min-p; what the port's ragged decode
-        lacks (penalties, n-gram bans, grammar, medusa) is turned away, and
-        callers fall back to a solo decode."""
-        return ((penalties is None
-                 or tuple(float(v) for v in penalties) == _NEUTRAL_PEN)
-                and not no_repeat_ngram and not grammar and not medusa)
+        sampling values, penalties and n-gram size; a grammar request needs
+        the batcher's grammar, and a medusa request the solo decode.
+        Callers fall back to a solo decode otherwise."""
+        return (not grammar or self.grammar is not None) and not medusa
 
     def submit(self, prompt_ids: list[int], temperature: float = 1.0,
                top_k: int = 50, greedy: bool = False,
@@ -91,11 +92,10 @@ class RequestBatcher:
                max_len: int | None = None, top_p: float = 1.0,
                min_p: float = 0.0, penalties: tuple | None = None,
                no_repeat_ngram: int = 0, grammar: bool = False) -> list:
-        if not self.accepts(penalties=penalties,
-                            no_repeat_ngram=no_repeat_ngram,
-                            grammar=grammar):
-            raise NotInPort("penalties, n-gram bans and grammar in the "
-                            "batcher")
+        if grammar and self.grammar is None:
+            raise ValueError(
+                "batcher was built without a grammar table; construct "
+                "RequestBatcher(grammar=...) for constrained requests")
         ml = int(min(max_len or self.max_len, self.max_len))
         if len(prompt_ids) >= ml:
             # zero generation steps: prompt returned unchanged (reference
@@ -104,7 +104,10 @@ class RequestBatcher:
         req = _Pending(prompt_ids, float(temperature), int(top_k),
                        float(top_p), float(min_p), bool(greedy),
                        int(seed) if seed is not None
-                       else int(time.time_ns() % 2**31), ml)
+                       else int(time.time_ns() % 2**31), ml,
+                       tuple(float(v) for v in penalties)
+                       if penalties is not None else _NEUTRAL_PEN,
+                       int(no_repeat_ngram or 0), bool(grammar))
         if self.overloaded():
             self.stats["rejected"] += 1
             raise EngineOverloaded(
@@ -117,24 +120,31 @@ class RequestBatcher:
             raise req.error
         return req.result
 
-    def warmup(self, prompt_ids: list[int]) -> None:
+    def warmup(self, prompt_ids: list[int], penalties: tuple | None = None,
+                no_repeat_ngram: int = 0) -> None:
         """Capture the graphs of the ragged decode that served requests
         replay: one generation of ``prompt_ids`` for each batch the worker
         pads a group to (1, 2, 4, ... up to ``max_batch``) at the budget
-        of a request that names none, with the default sampling."""
-        bs = 1
-        while True:
-            prompt = np.full((bs, _bucket(len(prompt_ids))), self.gen.pad_id,
-                             np.int64)
-            prompt[:, :len(prompt_ids)] = prompt_ids
-            generate_kv_ragged(
-                self.gen.params, torch.from_numpy(prompt).to(self.device),
-                [len(prompt_ids)] * bs, prng.key_rows(range(bs)),
-                self.gen.cfg, self.max_len, eos_id=self.gen.eos_id,
-                pad_id=self.gen.pad_id, eager=self.eager)
-            if bs >= self.max_batch:
-                return
-            bs *= 2
+        of a request that names none, with the default sampling (and
+        ``penalties`` and ``no_repeat_ngram``), and with the grammar on too
+        when the batcher has one."""
+        for grammar in (None, self.grammar) if self.grammar is not None \
+                else (None,):
+            bs = 1
+            while True:
+                prompt = np.full((bs, _bucket(len(prompt_ids))),
+                                 self.gen.pad_id, np.int64)
+                prompt[:, :len(prompt_ids)] = prompt_ids
+                generate_kv_ragged(
+                    self.gen.params, torch.from_numpy(prompt).to(self.device),
+                    [len(prompt_ids)] * bs, prng.key_rows(range(bs)),
+                    self.gen.cfg, self.max_len, eos_id=self.gen.eos_id,
+                    pad_id=self.gen.pad_id, penalties=penalties,
+                    no_repeat_ngram=no_repeat_ngram, grammar=grammar,
+                    eager=self.eager)
+                if bs >= self.max_batch:
+                    break
+                bs *= 2
 
     def drain(self, timeout: float = 30.0) -> bool:
         """Wait for queued and in-flight groups to finish (graceful
@@ -186,8 +196,8 @@ class RequestBatcher:
             for r in group:
                 ml = min(1 << (r.max_len - 1).bit_length(), self.max_len)
                 by_params.setdefault(
-                    (r.temperature, r.top_k, r.top_p, r.min_p, r.greedy, ml),
-                    []).append(r)
+                    (r.temperature, r.top_k, r.top_p, r.min_p, r.greedy, ml,
+                     r.penalties, r.ngram, r.grammar), []).append(r)
             for params, reqs in by_params.items():
                 try:
                     self._run(reqs, *params)
@@ -197,7 +207,8 @@ class RequestBatcher:
                         r.event.set()
             self._busy = False
 
-    def _run(self, reqs, temperature, top_k, top_p, min_p, greedy, max_len):
+    def _run(self, reqs, temperature, top_k, top_p, min_p, greedy, max_len,
+             penalties=_NEUTRAL_PEN, no_repeat_ngram=0, grammar=False):
         n = len(reqs)
         bs = 1
         while bs < n:
@@ -218,7 +229,8 @@ class RequestBatcher:
             prng.key_rows(seeds), self.gen.cfg, max_len,
             temperature=temperature, top_k=top_k, eos_id=self.gen.eos_id,
             pad_id=self.gen.pad_id, greedy=greedy, top_p=top_p, min_p=min_p,
-            eager=self.eager)
+            penalties=penalties, no_repeat_ngram=no_repeat_ngram,
+            grammar=self.grammar if grammar else None, eager=self.eager)
         buf = buf.cpu().numpy()
         pos = pos.cpu().numpy()
         self.stats["calls"] += 1

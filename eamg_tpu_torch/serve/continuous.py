@@ -32,10 +32,14 @@ row's new tokens at every harvest, and their concatenation is
 ``submit()``'s result less the prompt. A stream closed mid-way cancels its
 row, which frees its slot at the next chunk boundary.
 
-Not in the port yet: Medusa rows (``medusa_chunk``: medusa requests decode
-solo, as under JAX's default ``engine_medusa=False``), grammar, n-gram
-bans and penalties; ``accepts`` turns the last two away, and the pipeline
-then decodes them on the solo path.
+Row options, as in JAX: with ``per_row_sampling`` every row carries its
+own top-p, min-p and penalties (with its counts); an engine built with
+``no_repeat_ngram`` bans n-grams of that size in the rows that ask
+(``ngram_on``), and one built with a ``grammar`` constrains the rows that
+ask (``gstate``, ``gram_on``). A row that asks for nothing keeps its
+logits bit for bit, so its stream is the default engine's. Not in the
+port yet: Medusa rows (``medusa_chunk``: medusa requests decode solo, as
+under JAX's default ``engine_medusa=False``).
 """
 
 from __future__ import annotations
@@ -51,9 +55,12 @@ import torch
 
 from ..decode import graphs
 from ..decode.api import Generator, _bucket
+from ..decode.grammar import (grammar_mask, grammar_step, grammar_tables,
+                              scan_prompt_state)
 from ..decode.ragged import (RaggedGraph, draw_noise, init_ragged_cache,
                              prefill_ragged)
-from ..decode.sampling import sample_rows
+from ..decode.sampling import (apply_no_repeat_ngram, count_tokens,
+                               sample_rows, token_counts)
 from ..utils import prng
 from ..utils.device import bind_thread_to
 from ..utils.errors import NotInPort
@@ -80,17 +87,22 @@ def wait_for_worker(event: threading.Event, worker: threading.Thread,
     return True
 
 
-def init_state(cfg, slots: int, max_len: int, device=None) -> dict:
+def init_state(cfg, slots: int, max_len: int, device=None,
+               per_row_sampling: bool = False, no_repeat_ngram: int = 0,
+               grammar: bool = False) -> dict:
     """The engine's state; free slots start done with no budget. All of it
     lives on ``device`` but ``rngs``, the per-slot running keys ([slots, 2]
     uint32), which the host advances (``utils/prng.py``). Every tensor
     keeps its address for the state's life (admissions, chunks and
     :func:`reset_state` write into it), so the graph of its chunks stays
-    valid."""
+    valid. Per-row sampling adds the penalties' state (``counts`` [slots,
+    V] and ``rep_ps``/``freq_ps``/``pres_ps``), an n-gram ban a row's
+    on/off bit ``ngram_on``, a grammar the rows' FSM states ``gstate`` and
+    their bit ``gram_on``."""
     def full(value, dtype):
         return torch.full((slots,), value, dtype=dtype, device=device)
 
-    return {
+    state = {
         "cache": init_ragged_cache(cfg, slots, max_len, device=device),
         "buf": torch.zeros((slots, max_len), dtype=torch.int32,
                            device=device),
@@ -103,6 +115,24 @@ def init_state(cfg, slots: int, max_len: int, device=None) -> dict:
         "top_ps": full(1.0, torch.float32),
         "min_ps": full(0.0, torch.float32),
     }
+    if per_row_sampling:
+        state["counts"] = torch.zeros((slots, cfg.vocab_size),
+                                      dtype=torch.float32, device=device)
+        state["rep_ps"] = full(1.0, torch.float32)
+        state["freq_ps"] = full(0.0, torch.float32)
+        state["pres_ps"] = full(0.0, torch.float32)
+    if no_repeat_ngram:
+        state["ngram_on"] = full(False, torch.bool)
+    if grammar:
+        state["gstate"] = full(0, torch.int64)
+        state["gram_on"] = full(False, torch.bool)
+    return state
+
+
+# the neutral value of each optional per-slot field, for reset_state
+_ROW_NEUTRAL = {"counts": 0.0, "rep_ps": 1.0, "freq_ps": 0.0,
+                "pres_ps": 0.0, "ngram_on": False, "gstate": 0,
+                "gram_on": False}
 
 
 def reset_state(state: dict) -> dict:
@@ -119,6 +149,9 @@ def reset_state(state: dict) -> dict:
     state["top_ps"].fill_(1.0)
     state["min_ps"].zero_()
     state["cache"]["lengths"].zero_()
+    for name, value in _ROW_NEUTRAL.items():
+        if name in state:
+            state[name].fill_(value)
     return state
 
 
@@ -126,14 +159,21 @@ def reset_state(state: dict) -> dict:
 def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
               temp: float, cfg, top_k=50, greedy=False, mask_value=-1e10,
               eos_id=-1, pad_id=0, top_p=1.0, row_top_p=1.0,
-              per_row_sampling=False, row_min_p=0.0) -> dict:
+              per_row_sampling=False, row_min_p=0.0,
+              row_penalties=_NEUTRAL_PEN, no_repeat_ngram=0,
+              row_ngram_on=False, grammar=None, row_gram_on=False) -> dict:
     """Prefill ONE request into slot ``slot`` of the running state, in
     place. prompt: [1, P] on the device (P a power-of-two bucket), ``key``
     a ``prng.PRNGKey``; ``plen``, ``slot`` and ``rmax`` are host ints.
     Reproduces ``generate_kv_ragged``'s start exactly: one key split, the
     first token sampled from the prefill logits and written at position
     plen. All P cache slots are written, pads included; decode overwrites
-    them from plen on."""
+    them from plen on. In JAX's order the first token's logits take the
+    row's n-gram ban over its prompt (``no_repeat_ngram``, when
+    ``row_ngram_on``), its grammar's mask with ``rmax - plen`` tokens left
+    (``grammar``: the engine's tables, when ``row_gram_on``) and, in
+    per-row mode, its penalties over the prompt's counts; every per-slot
+    field is written, so a reused slot keeps nothing of its last row."""
     dev = prompt.device
     P = prompt.shape[1]
     max_len = state["buf"].shape[1]
@@ -147,14 +187,30 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
 
     rng_next, sub = prng.split(key)
     temps = torch.full((1,), float(temp), dtype=torch.float32, device=dev)
+    last_logits = logits0[:, plen - 1]
+    grammar = grammar_tables(grammar, dev)
+    if no_repeat_ngram and row_ngram_on:
+        last_logits = apply_no_repeat_ngram(last_logits, prompt, plen,
+                                            no_repeat_ngram, mask_value)
+    if grammar is not None:
+        gs_row = scan_prompt_state(grammar, prompt, plen)        # [1]
+        if row_gram_on:
+            last_logits = grammar_mask(last_logits, gs_row, grammar,
+                                       budget_left=rmax - plen)
+    pen = {}
+    if per_row_sampling:
+        pen = dict(zip(("rep_ps", "freq_ps", "pres_ps"), (
+            torch.full_like(temps, float(v)) for v in row_penalties)))
+        pen["counts"] = token_counts(
+            prompt, torch.arange(P, device=dev)[None] < plen, cfg.vocab_size)
     first = sample_rows(
-        logits0[:, plen - 1], temps, top_k, mask_value, greedy, top_p, 0.0,
+        last_logits, temps, top_k, mask_value, greedy, top_p, 0.0,
         torch.full_like(temps, float(row_top_p)) if per_row_sampling
         else None,
         torch.full_like(temps, float(row_min_p)) if per_row_sampling
         else None,
         None if greedy else draw_noise(np.asarray([sub], np.uint32),
-                                       cfg.vocab_size, dev))[0]
+                                       cfg.vocab_size, dev), **pen)[0]
 
     # buffer row: the prompt, then (when a slot remains) the first token;
     # a row with plen == rmax starts done and keeps its last prompt token
@@ -172,13 +228,27 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
     state["temps"][slot] = float(temp)
     state["top_ps"][slot] = float(row_top_p)
     state["min_ps"][slot] = float(row_min_p)
+    live = torch.full((1,), active0, device=dev)
+    if per_row_sampling:
+        # the prompt's occurrences and the first token when it is written
+        count_tokens(pen["counts"], first[None], live)
+        state["counts"][slot] = pen["counts"][0]
+        for name in ("rep_ps", "freq_ps", "pres_ps"):
+            state[name][slot] = pen[name][0]
+    if no_repeat_ngram:
+        state["ngram_on"][slot] = bool(row_ngram_on)
+    if grammar is not None:
+        state["gstate"][slot] = grammar_step(gs_row, first[None], grammar,
+                                             active=live)[0]
+        state["gram_on"][slot] = bool(row_gram_on)
     return state
 
 
 @torch.no_grad()
 def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
                  mask_value=-1e10, eos_id=-1, pad_id=0, top_p=1.0,
-                 per_row_sampling=False, eager=False) -> dict:
+                 per_row_sampling=False, no_repeat_ngram=0, grammar=None,
+                 eager=False) -> dict:
     """Advance every live row ``chunk`` steps, in place (done and free rows
     are inert): one replay of the chunk's graph on the card (the first
     chunk of a state captures it; eagerly on the CPU, and with ``eager``),
@@ -186,11 +256,15 @@ def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
     step, live or not, so a row's key at step n of its life depends on its
     seed and n alone; the chunk's keys go to the card in one copy and its
     noise is drawn inside the graph. Nothing is read back from the
-    device."""
+    device. ``no_repeat_ngram`` and ``grammar`` (the engine's tables) are
+    the engine's; each row's bits in the state say whether they apply to
+    it."""
     top_p = float(top_p)
+    grammar = grammar_tables(grammar, state["buf"].device)
     key = (id(params), cfg, int(chunk), int(top_k), bool(greedy),
            float(mask_value), int(eos_id), int(pad_id), top_p,
-           bool(per_row_sampling), bool(eager))
+           bool(per_row_sampling), int(no_repeat_ngram or 0),
+           None if grammar is None else id(grammar), bool(eager))
     runner = state.get("graph")
     if runner is None or runner.key != key:
         dev = state["buf"].device
@@ -198,7 +272,8 @@ def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
             params, cfg, state, int(chunk), top_k=top_k, greedy=greedy,
             mask_value=mask_value, eos_id=eos_id, pad_id=pad_id,
             top_p=torch.full((1,), top_p, device=dev) if top_p < 1.0
-            else 1.0, per_row=per_row_sampling, eager=eager)
+            else 1.0, per_row=per_row_sampling,
+            ngram=int(no_repeat_ngram or 0), gram=grammar, eager=eager)
         runner.key = key
         state["graph"] = runner
     state["rngs"], subs = prng.split_rows_chain(state["rngs"], chunk)
@@ -242,6 +317,9 @@ class _Pending:
     submitted: float
     top_p: float = 1.0
     min_p: float = 0.0
+    penalties: tuple = _NEUTRAL_PEN   # (repetition, frequency, presence)
+    ngram: int = 0               # no_repeat_ngram size (0 = off)
+    grammar: bool = False        # FSM-constrained decoding for this row
     admit_seq: int = -1          # chunks dispatched when the row joined
     started: float | None = None
     finished: float | None = None
@@ -261,10 +339,12 @@ class ContinuousBatcher:
     """Persistent decode engine with slot admission.
 
     top_k/top_p/greedy are engine-wide; temperature and seed are
-    per-request, and with ``per_row_sampling`` so are top_p and min_p (rows
-    at 1.0 / 0.0 are exact no-ops, so unfiltered requests still match their
-    solo runs). Requests longer than the engine's max_len budget return the
-    prompt unchanged."""
+    per-request, and with ``per_row_sampling`` so are top_p, min_p and the
+    penalties (rows at 1.0 / 0.0 are exact no-ops, so unfiltered requests
+    still match their solo runs). ``no_repeat_ngram`` sets the engine's
+    n-gram ban size and ``grammar`` (a ``decode.grammar.Grammar``) its
+    FSM; a request turns either on for its row. Requests longer than the
+    engine's max_len budget return the prompt unchanged."""
 
     def __init__(self, generator: Generator, slots: int = 8,
                  chunk: int = 64, max_len: int | None = None,
@@ -273,12 +353,8 @@ class ContinuousBatcher:
                  top_p: float = 1.0, per_row_sampling: bool = False,
                  no_repeat_ngram: int = 0, grammar=None,
                  medusa_heads: dict | None = None, eager: bool = False):
-        for name, on in (("an engine-wide n-gram ban", no_repeat_ngram),
-                         ("a grammar in the engine", grammar is not None),
-                         ("medusa rows in the engine",
-                          medusa_heads is not None)):
-            if on:
-                raise NotInPort(name)
+        if medusa_heads is not None:
+            raise NotInPort("medusa rows in the engine")
         assert generator.cfg.causal and not generator.cfg.pos_broadcast_bug,\
             "continuous batching requires the corrected causal config"
         self.gen = generator
@@ -289,6 +365,13 @@ class ContinuousBatcher:
         self.top_k, self.greedy, self.mask_value = top_k, greedy, mask_value
         self.top_p = float(top_p)
         self.per_row_sampling = bool(per_row_sampling)
+        # the ban size n is the engine's; rows carry an on/off bit, so
+        # n-gram and plain requests share the decode
+        self.no_repeat_ngram = int(no_repeat_ngram or 0)
+        # the grammar's tables are the engine's (one scheme a served
+        # model); rows carry an on/off bit
+        self.use_grammar = grammar is not None
+        self._gram = grammar_tables(grammar, self.device)
         self.max_len = min(max_len or generator.cfg.seq_len,
                            generator.max_supported_len())
         # admission control: requests queued beyond the live slots; 0 =
@@ -319,13 +402,18 @@ class ContinuousBatcher:
 
     def _init_state(self) -> dict:
         return init_state(self.gen.cfg, self.slots, self.max_len,
-                          device=self.device)
+                          device=self.device,
+                          per_row_sampling=self.per_row_sampling,
+                          no_repeat_ngram=self.no_repeat_ngram,
+                          grammar=self.use_grammar)
 
     def _sampling(self) -> dict:
         return dict(top_k=self.top_k, greedy=self.greedy,
                     mask_value=self.mask_value, eos_id=self.gen.eos_id,
                     pad_id=self.gen.pad_id, top_p=self.top_p,
-                    per_row_sampling=self.per_row_sampling)
+                    per_row_sampling=self.per_row_sampling,
+                    no_repeat_ngram=self.no_repeat_ngram,
+                    grammar=self._gram)
 
     # ------------------------------------------------------------- client
 
@@ -337,19 +425,23 @@ class ContinuousBatcher:
                 no_repeat_ngram: int | None = None,
                 grammar: bool = False, medusa: bool = False) -> bool:
         """Whether a request's sampling params match the engine (top_k and
-        greedy are engine-wide; top_p/min_p are engine-wide unless the
-        engine runs per-row sampling). Penalties, n-gram bans, grammar and
-        medusa requests are never accepted: the engine of the port does not
-        carry them. Callers fall back to a solo decode on a mismatch."""
+        greedy are engine-wide; top_p/min_p/penalties are engine-wide
+        unless the engine runs per-row sampling; a nonzero no_repeat_ngram
+        must be the engine's ban size; a grammar request needs an engine
+        with the grammar). Medusa requests are never accepted: the engine
+        of the port does not carry Medusa rows. Callers fall back to a
+        solo decode on a mismatch."""
         return ((top_k is None or top_k == self.top_k)
                 and (greedy is None or greedy == self.greedy)
                 and (self.per_row_sampling or top_p is None
                      or float(top_p) == self.top_p)
                 and (self.per_row_sampling or min_p is None
                      or float(min_p) == 0.0)
-                and (penalties is None
+                and (self.per_row_sampling or penalties is None
                      or tuple(float(v) for v in penalties) == _NEUTRAL_PEN)
-                and not no_repeat_ngram and not grammar and not medusa)
+                and (not no_repeat_ngram
+                     or int(no_repeat_ngram) == self.no_repeat_ngram)
+                and (not grammar or self.use_grammar) and not medusa)
 
     def idle(self) -> bool:
         """True when the engine has no live or queued work. A lone request
@@ -360,16 +452,15 @@ class ContinuousBatcher:
         return not self._live and self._q.empty() and not self._busy
 
     def _validate_params(self, top_k, greedy, top_p, min_p, penalties,
-                         no_repeat_ngram=0, grammar=False, medusa=False):
-        for name, on in (("grammar in the engine", grammar),
-                         ("medusa rows in the engine", medusa),
-                         ("no_repeat_ngram in the engine", no_repeat_ngram)):
-            if on:
-                raise NotInPort(name)
-        pen = (tuple(float(v) for v in penalties)
-               if penalties is not None else _NEUTRAL_PEN)
-        if pen != _NEUTRAL_PEN:
-            raise NotInPort("penalties in the engine")
+                         no_repeat_ngram=0, grammar=False,
+                         medusa=False) -> tuple:
+        """JAX's checks, with its messages -> the request's penalties."""
+        if grammar and not self.use_grammar:
+            raise ValueError(
+                "engine was built without a grammar table; construct "
+                "ContinuousBatcher(grammar=...) for constrained requests")
+        if medusa:
+            raise NotInPort("medusa rows in the engine")
         if top_k is not None and top_k != self.top_k:
             raise ValueError(
                 f"engine built for top_k={self.top_k}, got {top_k}")
@@ -383,14 +474,24 @@ class ContinuousBatcher:
         if min_p and not self.per_row_sampling:
             raise ValueError(
                 "engine needs per_row_sampling mode for min_p requests")
+        pen = (tuple(float(v) for v in penalties)
+               if penalties is not None else _NEUTRAL_PEN)
+        if pen != _NEUTRAL_PEN and not self.per_row_sampling:
+            raise ValueError(
+                "engine needs per_row_sampling mode for penalty requests")
+        if no_repeat_ngram and int(no_repeat_ngram) != self.no_repeat_ngram:
+            raise ValueError(
+                f"engine built for no_repeat_ngram={self.no_repeat_ngram}, "
+                f"got {no_repeat_ngram}")
+        return pen
 
     def _request(self, prompt_ids, temperature, seed, max_len, top_k,
                  greedy, top_p, min_p, penalties, no_repeat_ngram, grammar,
                  medusa) -> _Pending | None:
         """A request checked against the engine, or None when its prompt
         leaves no step to generate."""
-        self._validate_params(top_k, greedy, top_p, min_p, penalties,
-                              no_repeat_ngram, grammar, medusa)
+        pen = self._validate_params(top_k, greedy, top_p, min_p, penalties,
+                                    no_repeat_ngram, grammar, medusa)
         ml = int(min(max_len or self.max_len, self.max_len))
         if len(prompt_ids) >= ml:
             return None
@@ -399,7 +500,9 @@ class ContinuousBatcher:
                         else int(time.time_ns() % 2**31), ml,
                         submitted=time.monotonic(),
                         top_p=float(top_p) if top_p is not None else 1.0,
-                        min_p=float(min_p) if min_p is not None else 0.0)
+                        min_p=float(min_p) if min_p is not None else 0.0,
+                        penalties=pen, ngram=int(no_repeat_ngram or 0),
+                        grammar=bool(grammar))
 
     def submit(self, prompt_ids: list[int], temperature: float = 1.0,
                seed: int | None = None, max_len: int | None = None,
@@ -547,7 +650,9 @@ class ContinuousBatcher:
 
         Used by the pipeline's idle-engine route. NOT thread-safe (the
         caller holds the pipeline's single-permit solo gate); does not
-        touch the worker's live state."""
+        touch the worker's live state. The row carries no penalties, no
+        n-gram ban and no grammar, as in JAX: the pipeline sends requests
+        with those to the engine itself."""
         # same admission contract as submit(): per-row sampling values on
         # a non-per-row engine must REJECT, not silently no-op
         self._validate_params(None, None, top_p, min_p, None)
@@ -603,7 +708,9 @@ class ContinuousBatcher:
             self.gen.params, self.state, self._prompt_row(req.prompt_ids),
             len(req.prompt_ids), slot, prng.PRNGKey(req.seed), req.max_len,
             req.temperature, self.gen.cfg, row_top_p=req.top_p,
-            row_min_p=req.min_p, **self._sampling())
+            row_min_p=req.min_p, row_penalties=req.penalties,
+            row_ngram_on=bool(req.ngram), row_gram_on=req.grammar,
+            **self._sampling())
         req.started = time.monotonic()
         req.admit_seq = self.stats["chunks"]
         self._live[slot] = req

@@ -27,25 +27,30 @@ single-permit gate, and concurrent followers join the engine. With
 ``coalesce="window"`` requests that arrive within 10 ms share one ragged
 decode (``serve/batcher.py``). Without either, or for a request the
 batcher does not accept, the solo cached decode
-(``Generator.sample_kvcache``) runs; penalties and n-gram bans are such
-requests, the batchers' ``accepts`` turns them away.
+(``Generator.sample_kvcache``) runs. Penalties, n-gram bans and
+``grammar`` (the served scheme's FSM, :meth:`Pipeline.grammar`) ride the
+window batcher, and the engine when it was built for them (per-row
+sampling, its n-gram size, ``coalesce_opts["grammar"]``); a request with
+any of them never takes the idle engine's detached decode, whose row
+carries none, but joins the engine even when it arrives alone.
 
 The request options of the page decode solo, on either scheme and with
 any ``coalesce``, as JAX's default configuration does: ``medusa`` (the
 checkpoint's ``medusa_heads.pkl``, loaded and probed at start-up;
 one-shot or streamed a verify chunk at a time), ``lookup`` (prompt-lookup
-speculation) and ``beams`` (beam search, ranked with ``length_penalty``).
-They refuse what JAX refuses, with its ``ValueError``: speculation with
-penalties or n-gram bans, lookup with medusa, beams with the sampling
-features or with speculation, medusa without heads.
+speculation) and ``beams`` (beam search, ranked with ``length_penalty``,
+grammar-constrained with ``grammar``). They refuse what JAX refuses, with
+its ``ValueError``: speculation with penalties, n-gram bans or grammar,
+lookup with medusa, beams with the sampling features or with speculation,
+medusa without heads.
 
 The threaded HTTP server calls ``generate`` from several threads. One lock
 per pipeline serialises the solo decode and the synth; it is not held
 while a request waits in the engine or the batcher, or requests would
 never coalesce.
 
-Not in the port yet: grammar constraints (the server answers 400), and
-Medusa rows in the continuous engine (``engine_medusa``).
+Not in the port yet: Medusa rows in the continuous engine
+(``engine_medusa``).
 """
 
 from __future__ import annotations
@@ -149,6 +154,12 @@ class Pipeline:
         if scheme != "a":
             # the batchers are wired for the Scheme-A flow; B3 serves solo
             coalesce = False
+        self._grammar_obj = None     # built at its first use
+        opts = dict(coalesce_opts or {})
+        # coalesce_opts {"grammar": True} puts the scheme's FSM into the
+        # batcher, so grammar requests ride the shared decode
+        if opts.pop("grammar", False) and coalesce:
+            opts["grammar"] = self.grammar()
         self._lock = threading.Lock()
         # coalesce=True/"window" batches requests arriving within a window
         # into one ragged decode; "continuous" runs the persistent engine.
@@ -168,20 +179,34 @@ class Pipeline:
         if coalesce == "continuous":
             from .continuous import ContinuousBatcher
 
-            self.batcher = ContinuousBatcher(generator,
-                                             **(coalesce_opts or {}))
+            self.batcher = ContinuousBatcher(generator, **opts)
         elif coalesce:
             from .batcher import RequestBatcher
 
-            self.batcher = RequestBatcher(generator, **(coalesce_opts or {}))
+            self.batcher = RequestBatcher(generator, **opts)
+
+    def grammar(self):
+        """The served scheme's decoding FSM (``decode/grammar.py``), built
+        once: the control-token grammar on B3, the instrument-section one
+        on Scheme A. Its device tables are made once too, so the graphs
+        that read them stay valid."""
+        if self._grammar_obj is None:
+            from ..decode.grammar import grammar_a, grammar_b3
+
+            self._grammar_obj = (grammar_b3(self.scheme_b)
+                                 if self.scheme == "b3"
+                                 else grammar_a(self.generator.vocab))
+        return self._grammar_obj
 
     def warmup(self) -> None:
         """Build the kernels and capture the decode's graphs before
         serving: one request through the route this pipeline serves; with a
         continuous engine, one engine row and one detached decode too (a
-        streamed request rides the engine's chunk); with the window batcher,
-        one ragged decode at each batch size it pads a group to; without
-        an engine, the first chunk of a solo stream, whose graph the
+        streamed request rides the engine's chunk, and so do the rows with
+        penalties, an n-gram ban or grammar: their options are the
+        engine's, one graph); with the window batcher, one ragged decode at
+        each batch size it pads a group to (with and without its grammar);
+        without an engine, the first chunk of a solo stream, whose graph the
         streamed requests replay. With Medusa heads, one medusa request
         too: it captures the verify chunk's graph, which the one-shot and
         the streamed medusa requests replay alike."""
@@ -262,10 +287,11 @@ class Pipeline:
         tokens = self.generator.vocab.decode(ids)
         return tokens, tokens_to_song(tokens)
 
-    def _check_options(self, penalties, no_repeat_ngram: int, lookup: bool,
-                       medusa: bool, beams: int) -> None:
+    def _check_options(self, penalties, no_repeat_ngram: int, grammar: bool,
+                       lookup: bool, medusa: bool, beams: int) -> None:
         """The compositions JAX's pipeline refuses, with its ValueErrors."""
-        if (lookup or medusa) and (penalties is not None or no_repeat_ngram):
+        if (lookup or medusa) and (penalties is not None or no_repeat_ngram
+                                   or grammar):
             raise ValueError(
                 "lookup/medusa do not compose with penalties, n-gram bans "
                 "or grammar constraints (history-dependent distributions "
@@ -290,16 +316,18 @@ class Pipeline:
 
     def _solo_option(self, prompt_ids: list, temperature: float, top_k: int,
                      run_seed: int, top_p: float, min_p: float, lookup: bool,
-                     medusa: bool, beams: int, length_penalty: float) -> list:
+                     medusa: bool, beams: int, length_penalty: float,
+                     grammar=None) -> list:
         """The ids (prompt included) of a request for medusa, lookup or
-        beams: a solo decode under the pipeline's lock, as JAX decodes
-        them in its default configuration."""
+        beams (with ``grammar``, the FSM or None): a solo decode under the
+        pipeline's lock, as JAX decodes them in its default
+        configuration."""
         gen = self.generator
         with self._lock:
             if beams:
                 return gen.generate_ids_beam(
-                    prompt_ids, n_beams=beams,
-                    length_penalty=length_penalty).tolist()
+                    prompt_ids, n_beams=beams, length_penalty=length_penalty,
+                    grammar=grammar).tolist()
             sampling = dict(temperature=temperature, top_k=top_k,
                             seed=run_seed, top_p=top_p, min_p=min_p)
             if medusa:
@@ -310,18 +338,21 @@ class Pipeline:
     def _decode(self, mapping: dict, temperature: float, top_k: int,
                 run_seed: int, top_p: float, min_p: float,
                 penalties: tuple | None = None, no_repeat_ngram: int = 0,
-                lookup: bool = False, medusa: bool = False, beams: int = 0,
+                grammar: bool = False, lookup: bool = False,
+                medusa: bool = False, beams: int = 0,
                 length_penalty: float = 1.0):
         """mapping -> (prompt tokens, tokens, song, dropped): prompt
         assembly, decode and detokenization, shared by single-shot and
         multi-section generation."""
-        self._check_options(penalties, no_repeat_ngram, lookup, medusa, beams)
+        self._check_options(penalties, no_repeat_ngram, grammar, lookup,
+                            medusa, beams)
         gen = self.generator
+        gram = self.grammar() if grammar else None
         known, prompt_ids, dropped = self._prompt_for(mapping)
         if lookup or medusa or beams:
             ids = self._solo_option(prompt_ids, temperature, top_k, run_seed,
                                     top_p, min_p, lookup, medusa, beams,
-                                    length_penalty)
+                                    length_penalty, gram)
             if self.scheme == "b3":
                 tokens, song = self._song(ids)
                 return known, tokens, song, dropped
@@ -332,17 +363,20 @@ class Pipeline:
                 ids = gen.generate_ids(
                     prompt_ids, temperature=temperature, top_k=top_k,
                     seed=run_seed, top_p=top_p, min_p=min_p,
-                    penalties=penalties,
-                    no_repeat_ngram=no_repeat_ngram)[0].tolist()
+                    penalties=penalties, no_repeat_ngram=no_repeat_ngram,
+                    grammar=gram)[0].tolist()
             tokens, song = self._song(ids)
             return known, tokens, song, dropped
         use_batcher = self.batcher is not None and self.batcher.accepts(
             top_k=top_k, top_p=top_p, min_p=min_p, penalties=penalties,
-            no_repeat_ngram=no_repeat_ngram)
+            no_repeat_ngram=no_repeat_ngram, grammar=grammar)
         # a lone request on an IDLE continuous engine would pay one harvest
         # wait per chunk alone: decode it detached; the gate sends
-        # concurrent followers to the engine
-        solo_bypass = (use_batcher
+        # concurrent followers to the engine. The detached row carries no
+        # penalties, n-gram ban or grammar, so a request with one joins the
+        # engine even alone, as in JAX.
+        solo_bypass = (use_batcher and penalties is None
+                       and not no_repeat_ngram and not grammar
                        and getattr(self.batcher, "idle", lambda: False)()
                        and self._solo_gate.acquire(blocking=False))
         try:
@@ -356,14 +390,16 @@ class Pipeline:
                 # request falls through to the solo decode below
                 tokens = gen.trim_at_eos(self.batcher.submit(
                     gen.vocab.encode(known), temperature=temperature,
-                    top_k=top_k, seed=run_seed, top_p=top_p, min_p=min_p))
+                    top_k=top_k, seed=run_seed, top_p=top_p, min_p=min_p,
+                    penalties=penalties, no_repeat_ngram=no_repeat_ngram,
+                    grammar=grammar))
             else:
                 with self._lock:
                     tokens = gen.sample_kvcache(
                         known, temperature=temperature, top_k=top_k,
                         seed=run_seed, top_p=top_p, min_p=min_p,
                         penalties=penalties,
-                        no_repeat_ngram=no_repeat_ngram)
+                        no_repeat_ngram=no_repeat_ngram, grammar=gram)
         finally:
             if solo_bypass:
                 self._solo_gate.release()
@@ -374,12 +410,13 @@ class Pipeline:
                  render_audio: bool | None = None,
                  top_p: float = 1.0, min_p: float = 0.0,
                  penalties: tuple | None = None,
-                 no_repeat_ngram: int = 0, lookup: bool = False,
-                 medusa: bool = False, beams: int = 0,
+                 no_repeat_ngram: int = 0, grammar: bool = False,
+                 lookup: bool = False, medusa: bool = False, beams: int = 0,
                  length_penalty: float = 1.0) -> GenerationResult:
         """One song for the prompt: classify, map, decode, render.
-        ``lookup``, ``medusa`` and ``beams`` (with ``length_penalty``)
-        pick the page's decode options (solo)."""
+        ``grammar`` constrains the decode to the scheme's FSM; ``lookup``,
+        ``medusa`` and ``beams`` (with ``length_penalty``) pick the page's
+        decode options (solo)."""
         render = self.render_audio if render_audio is None else render_audio
         timings = {}
         t0 = time.perf_counter()
@@ -395,7 +432,7 @@ class Pipeline:
             int(time.time_ns() % 2**31)
         gen_prompt, tokens, song, dropped = self._decode(
             mapping, temperature, top_k, run_seed, top_p, min_p, penalties,
-            no_repeat_ngram, lookup, medusa, beams, length_penalty)
+            no_repeat_ngram, grammar, lookup, medusa, beams, length_penalty)
         timings["decode"] = (time.perf_counter() - t0) * 1000
 
         midi_bytes, wav_bytes = self._finish(song, seed, render, timings)
@@ -451,8 +488,9 @@ class Pipeline:
                           gap_s: float = 0.5, top_p: float = 1.0,
                           min_p: float = 0.0,
                           penalties: tuple | None = None,
-                          no_repeat_ngram: int = 0, lookup: bool = False,
-                          medusa: bool = False, beams: int = 0,
+                          no_repeat_ngram: int = 0, grammar: bool = False,
+                          lookup: bool = False, medusa: bool = False,
+                          beams: int = 0,
                           length_penalty: float = 1.0) -> GenerationResult:
         """Emotion-adaptive generation: each sentence of the prompt is
         classified on its own and drives its own conditioned section
@@ -460,8 +498,8 @@ class Pipeline:
         time axis, ``gap_s`` apart. A prompt of one sentence is
         :meth:`generate`."""
         options = dict(penalties=penalties, no_repeat_ngram=no_repeat_ngram,
-                       lookup=lookup, medusa=medusa, beams=beams,
-                       length_penalty=length_penalty)
+                       grammar=grammar, lookup=lookup, medusa=medusa,
+                       beams=beams, length_penalty=length_penalty)
         segments = segment_text(prompt_text)
         if len(segments) <= 1:
             return self.generate(prompt_text, temperature=temperature,
@@ -504,13 +542,14 @@ class Pipeline:
                        top_k: int, run_seed: int, chunk: int = 32,
                        top_p: float = 1.0, min_p: float = 0.0,
                        penalties: tuple | None = None,
-                       no_repeat_ngram: int = 0, medusa: bool = False):
+                       no_repeat_ngram: int = 0, grammar: bool = False,
+                       medusa: bool = False):
         """Lists of newly generated token ids: with ``medusa`` the solo
         Medusa stream (``decode/medusa.py``: accepted tokens arrive a verify
         chunk at a time, the one-shot medusa decode's tokens); else an
         engine row's (``submit_stream``) when a continuous engine runs and
-        accepts the request's sampling values, else the solo chunked stream
-        (``decode/stream.py``); ``chunk`` tokens a list."""
+        accepts the request's sampling values and options, else the solo
+        chunked stream (``decode/stream.py``); ``chunk`` tokens a list."""
         from ..decode.stream import stream_tokens
         from .continuous import ContinuousBatcher
 
@@ -518,7 +557,8 @@ class Pipeline:
         if medusa:
             from ..decode.medusa import stream_tokens_medusa
 
-            self._check_options(penalties, no_repeat_ngram, False, True, 0)
+            self._check_options(penalties, no_repeat_ngram, grammar, False,
+                                True, 0)
             tokens = stream_tokens_medusa(
                 gen.params, self.medusa_heads, gen.cfg, list(prompt_ids),
                 gen.max_supported_len(), temperature=temperature,
@@ -527,10 +567,12 @@ class Pipeline:
         elif isinstance(self.batcher, ContinuousBatcher) \
                 and self.batcher.accepts(top_k=top_k, top_p=top_p,
                                          min_p=min_p, penalties=penalties,
-                                         no_repeat_ngram=no_repeat_ngram):
+                                         no_repeat_ngram=no_repeat_ngram,
+                                         grammar=grammar):
             yield from self.batcher.submit_stream(
                 prompt_ids, temperature=temperature, seed=run_seed,
-                top_k=top_k, top_p=top_p, min_p=min_p)
+                top_k=top_k, top_p=top_p, min_p=min_p, penalties=penalties,
+                no_repeat_ngram=no_repeat_ngram, grammar=grammar)
             return
         else:
             tokens = stream_tokens(
@@ -539,7 +581,7 @@ class Pipeline:
                 temperature=temperature, top_k=top_k, eos_id=gen.eos_id,
                 pad_id=gen.pad_id, seed=run_seed, top_p=top_p, min_p=min_p,
                 penalties=penalties, no_repeat_ngram=no_repeat_ngram,
-                eager=gen.eager)
+                grammar=self.grammar() if grammar else None, eager=gen.eager)
         delta = []
         for tok in tokens:
             delta.append(tok)
@@ -556,7 +598,8 @@ class Pipeline:
                         gap_s: float = 0.5, top_p: float = 1.0,
                         min_p: float = 0.0,
                         penalties: tuple | None = None,
-                        no_repeat_ngram: int = 0, medusa: bool = False):
+                        no_repeat_ngram: int = 0, grammar: bool = False,
+                        medusa: bool = False):
         """Incremental twin of :meth:`generate` / :meth:`generate_sections`:
         a generator of JSON-able event dicts for SSE serving.
 
@@ -593,7 +636,7 @@ class Pipeline:
                                          run_seed, chunk=chunk, top_p=top_p,
                                          min_p=min_p, penalties=penalties,
                                          no_repeat_ngram=no_repeat_ngram,
-                                         medusa=medusa)
+                                         grammar=grammar, medusa=medusa)
             try:
                 for delta in deltas:
                     out = []

@@ -4,25 +4,26 @@ Port of ``eamg_tpu/serve/server.py``: ``POST /generate`` with form field
 ``prompt`` (multipart or urlencoded), ``format=wav|midi`` (form field or
 query), and the sampling fields ``seed``, ``temperature``, ``top_k``,
 ``top_p``, ``min_p``, ``repetition_penalty``, ``frequency_penalty``,
-``presence_penalty`` and ``no_repeat_ngram`` (the last four decode solo),
-``sections`` (one conditioned section a sentence), ``stream`` (form
-field or query: Server-Sent Events, a ``meta`` event a section, ``tokens``
-deltas as the decode's chunks complete, then ``done`` with the MIDI and
-WAV as base64, the page's default request), and the page's decode
-options, each decoded solo: ``medusa`` (streamed a verify chunk at a
-time), ``lookup`` and ``beams`` (0 to 16, with ``length_penalty``);
-``GET /healthz``, ``GET /stats`` (with the engine's counters under
-``engine`` when requests are coalesced, and the Medusa heads' acceptance
-probe under ``medusa_probe``) and the static page at ``GET /`` (the JAX
-package's ``serve/static/index.html``, read by path). Malformed input
-gets a 4xx, never a 500, and a stream's malformed number gets its 422
-before the 200 header is sent. JAX's 422s hold: lookup or beams with
-``stream``, medusa streamed with penalties or n-gram bans or without
-heads, and every composition the pipeline refuses. A full admission queue
-(``EngineOverloaded``) gets a 503 with ``Retry-After``, a stream's before
-its 200. ``grammar`` is not in the port yet and gets a 400 naming it,
-streamed or not; ``/profile`` is a 404 until the port has its own trace
-capture.
+``presence_penalty``, ``no_repeat_ngram`` and ``grammar`` (the served
+scheme's FSM; these five ride the window batcher, and the engine when it
+was built for them, else decode solo), ``sections`` (one conditioned
+section a sentence), ``stream`` (form field or query: Server-Sent
+Events, a ``meta`` event a section, ``tokens`` deltas as the decode's
+chunks complete, then ``done`` with the MIDI and WAV as base64, the
+page's default request), and the page's decode options, each decoded
+solo: ``medusa`` (streamed a verify chunk at a time), ``lookup`` and
+``beams`` (0 to 16, with ``length_penalty``); ``GET /healthz``, ``GET
+/stats`` (with the engine's counters under ``engine`` when requests are
+coalesced, and the Medusa heads' acceptance probe under
+``medusa_probe``) and the static page at ``GET /`` (the JAX package's
+``serve/static/index.html``, read by path). Malformed input gets a 4xx,
+never a 500, and a stream's malformed number gets its 422 before the 200
+header is sent. JAX's 422s hold: lookup or beams with ``stream``, medusa
+streamed with penalties or n-gram bans or without heads, and every
+composition the pipeline refuses (lookup or medusa with grammar among
+them). A full admission queue (``EngineOverloaded``) gets a 503 with
+``Retry-After``, a stream's before its 200. ``/profile`` is a 404 until
+the port has its own trace capture.
 """
 
 from __future__ import annotations
@@ -50,11 +51,6 @@ _CORS = {
 
 MAX_BODY_BYTES = 2 << 20
 MAX_PROMPT_CHARS = 20_000
-
-# request options the JAX server serves and the port does not yet
-# (grammar constraints): flags, on as "1"/"true"/"yes" as the JAX server
-# reads them
-_NOT_YET_FLAGS = ("grammar",)
 
 
 def _parse_multipart(body: bytes, content_type: str) -> dict[str, str]:
@@ -113,18 +109,17 @@ def _parse_ngram(fields) -> int:
     return n
 
 
+def _parse_grammar(fields) -> bool:
+    """grammar form field -> bool: decode under the served scheme's FSM
+    (``decode/grammar.py``); off by default. A form field only, as the JAX
+    server reads it."""
+    return fields.get("grammar", "").lower() in ("1", "true", "yes")
+
+
 def _flag(fields: dict, qs: dict, name: str) -> bool:
     """A flag from the query or the form, on as "1"/"true"/"yes"."""
     return qs.get(name, [fields.get(name, "")])[0].strip().lower() in (
         "1", "true", "yes")
-
-
-def _unsupported(fields: dict, qs: dict) -> str | None:
-    """The first requested option the port does not serve yet."""
-    for name in _NOT_YET_FLAGS:
-        if _flag(fields, qs, name):
-            return name
-    return None
 
 
 class _InflightCounter:
@@ -285,10 +280,6 @@ class EAMGHandler(BaseHTTPRequestHandler):
                                       f"{MAX_PROMPT_CHARS} chars)"})
             return
         qs = urllib.parse.parse_qs(parsed.query)
-        missing = _unsupported(fields, qs)
-        if missing is not None:
-            self._json(400, {"error": str(NotInPort(missing))})
-            return
         fmt = qs.get("format", [fields.get("format", "wav")])[0]
         if fmt not in ("wav", "midi"):
             self._json(422, {"error": "format must be wav or midi"})
@@ -301,6 +292,7 @@ class EAMGHandler(BaseHTTPRequestHandler):
                 min_p=_num(fields, "min_p", 0.0, float),
                 penalties=_parse_penalties(fields),
                 no_repeat_ngram=_parse_ngram(fields),
+                grammar=_parse_grammar(fields),
                 seed=_num(fields, "seed", None, int))
             if not sampling["temperature"] > 0.0:
                 raise ValueError("temperature must be > 0")
@@ -368,7 +360,7 @@ class EAMGHandler(BaseHTTPRequestHandler):
                     "not stream")
         if stream and medusa:
             if sampling["penalties"] is not None \
-                    or sampling["no_repeat_ngram"]:
+                    or sampling["no_repeat_ngram"] or sampling["grammar"]:
                 return ("medusa does not compose with penalties, n-gram "
                         "bans or grammar")
             if self.pipeline.medusa_heads is None:
@@ -392,7 +384,8 @@ class EAMGHandler(BaseHTTPRequestHandler):
                     top_k=sampling["top_k"], top_p=sampling["top_p"],
                     min_p=sampling["min_p"],
                     penalties=sampling["penalties"],
-                    no_repeat_ngram=sampling["no_repeat_ngram"]) \
+                    no_repeat_ngram=sampling["no_repeat_ngram"],
+                    grammar=sampling["grammar"]) \
                 and batcher.overloaded():
             batcher.stats["rejected"] += 1
             self._send(503, json.dumps(

@@ -80,3 +80,17 @@ def perturbed_params(cfg, rng, key: int = 7):
             lp[ln]["b"] = (0.1 * rng.standard_normal(
                 lp[ln]["b"].shape)).astype(np.float32)
     return params
+
+
+def token_names(n: int) -> dict:
+    """A Scheme-A-shaped vocabulary of n tokens, every grammar class in it:
+    [PAD] 0, [START_SEQUENCE] 1, [END_SEQUENCE] 2, [BPM] 3-5,
+    [KEY_SIGNATURE] 6-8, [INSTRUMENT] 9-29, [NOTE] 30 to n - 11, and ten
+    tokens of no class."""
+    names = {0: "[PAD]", 1: "[START_SEQUENCE]", 2: "[END_SEQUENCE]"}
+    for i in range(3, n):
+        names[i] = (f"[BPM] {60 + 10 * i}" if i < 6
+                    else f"[KEY_SIGNATURE] K{i}" if i < 9
+                    else f"[INSTRUMENT] I{i}" if i < 30
+                    else f"[NOTE] N{i}" if i < n - 10 else f"x{i}")
+    return {t: i for i, t in names.items()}

@@ -24,8 +24,9 @@ Checked, with the tolerance and its reason:
 - ``cli generate`` on a small saved checkpoint: the MIDI bytes of the JAX
   CLI for the same seed and flags; of its decode modes, ``--beams`` gives
   the JAX CLI's bytes, ``--lookup`` and ``--medusa`` stop with JAX's
-  ValueError on this (non-causal) checkpoint, and ``--grammar`` and
-  ``--draft``, outside the port, exit 2 naming the flag;
+  ValueError on this (non-causal) checkpoint, ``--grammar`` gives the JAX
+  CLI's bytes, and ``--draft``, outside the port, exits 2 naming the flag;
+- ``Generator.generate_ids`` with a grammar token-equal to JAX's;
 - the bench module's loop (``bench.bench_impl``) at a cut depth, length and
   batch gives a result line per ``attn_impl``; ``python -m
   eamg_tpu_torch.bench`` refuses to run without a card.
@@ -54,7 +55,10 @@ from eamg_tpu.tokenizer import SchemeB2, Vocab
 from eamg_tpu.train.data import synthetic_corpus
 from eamg_tpu.utils.checkpoint import save_checkpoint
 
-from port_harness import cfg_json, flatten, perturbed_params, run_worker
+from eamg_tpu.decode.grammar import grammar_a
+
+from port_harness import (cfg_json, flatten, perturbed_params, run_worker,
+                          token_names)
 
 HEAD = ("sp", "dma", "vmem")
 FOLD = ("fold", "fold2", "fold3", "fold_sp", "fold3_sp")
@@ -110,7 +114,7 @@ CLI_RUNS = {
 # cli generate's decode modes: flag -> (its values, exit code, what stderr
 # says); "{heads}" is a Medusa heads file
 CLI_MODES = {"--beams": (["4"], 0, ""),
-             "--grammar": ([], 2, "not yet in the PyTorch port"),
+             "--grammar": ([], 0, ""),
              "--draft": (["x"], 2, "not yet in the PyTorch port"),
              "--lookup": ([], 1, "corrected causal checkpoint"),
              "--medusa": (["{heads}"], 1, "corrected causal checkpoint")}
@@ -216,6 +220,10 @@ def _generator_case(cfg, jp, inp, ref):
     ref["gen/sample_kvcache"] = np.asarray(vocab.encode(
         gen.sample_kvcache(toks, max_len=20, seed=2, top_k=15,
                            penalties=(1.2, 0.0, 0.1), no_repeat_ngram=2)))
+    names = token_names(cfg.vocab_size)
+    inp["gen/grammar_names"] = np.asarray(json.dumps(names))
+    ref["gen/grammar"] = gen.generate_ids(ids, max_len=24, seed=2, top_k=15,
+                                          grammar=grammar_a(Vocab(names)))
     p0 = jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(3), cfg))
     ref["init/shapes"] = np.asarray(sorted(
         f"{k}:{v.shape}:{v.dtype}" for k, v in flatten(p0, "").items()))
@@ -248,6 +256,10 @@ def _cli_case(inp, ref, tmp):
     jax_cli.main(["generate", "--checkpoint", str(ckpt), "--out", str(out),
                   "--beams", *modes["--beams"]])
     ref["cli/--beams/midi"] = np.frombuffer(out.read_bytes(), np.uint8)
+    out = tmp / "jax_grammar.mid"
+    jax_cli.main(["generate", "--checkpoint", str(ckpt), "--out", str(out),
+                  "--grammar"])
+    ref["cli/--grammar/midi"] = np.frombuffer(out.read_bytes(), np.uint8)
 
 
 @pytest.fixture(scope="module")
@@ -380,8 +392,10 @@ def test_generator_methods_equal(results, what):
 
 
 def test_generator_names_grammar_outside_the_port(results):
-    got, _ = results
-    assert "grammar is not yet in the PyTorch port" in str(got["gen/grammar"])
+    """Grammar is in the port now: generate_ids with a grammar gives JAX's
+    ids (tokens equal)."""
+    got, ref = results
+    np.testing.assert_array_equal(got["gen/grammar"], ref["gen/grammar"])
 
 
 def test_init_params_has_jax_tree_and_distributions(results):
@@ -414,9 +428,9 @@ def test_cli_generate_midi_bytes_equal_jax_cli(results, name):
 @pytest.mark.parametrize("flag", list(CLI_MODES))
 def test_cli_generate_names_modes_outside_the_port(results, flag):
     """The modes still outside the port exit 2 naming the flag; the others
-    run as the JAX CLI runs them on this checkpoint: ``--beams`` to its
-    MIDI bytes, ``--lookup`` and ``--medusa`` to JAX's ValueError (they
-    need a causal checkpoint)."""
+    run as the JAX CLI runs them on this checkpoint: ``--beams`` and
+    ``--grammar`` to its MIDI bytes, ``--lookup`` and ``--medusa`` to JAX's
+    ValueError (they need a causal checkpoint)."""
     got, ref = results
     _, code, says = CLI_MODES[flag]
     stderr = str(got[f"cli/{flag}/stderr"])

@@ -21,7 +21,15 @@ Checked:
   with an early EOS, where the midpoint check stops the decode;
 - ``EngineOverloaded`` at a full queue; a timed-out request is cancelled
   and its slot freed; ``_fail_all`` leaves a serving engine; window-batcher
-  rows equal their solo streams.
+  rows equal their solo streams;
+- the row options of an engine built with per-row sampling, an n-gram ban
+  of size 2 and a grammar: ``admit_row`` + ``ragged_chunk`` state after
+  each call (the keys above and counts, rep_ps/freq_ps/pres_ps, ngram_on,
+  gstate, gram_on; a reused slot keeps nothing of its last row), its rows
+  with penalties, an n-gram ban, a grammar and all of them token-equal to
+  the JAX engine's, a plain row equal to the default engine's (and its
+  detached decode too); the window batcher with penalties, n-gram bans
+  and its grammar groups equal requests and gives the JAX engine's rows.
 
 Streams are compared as tokens. A CPU matrix product need not give a row of
 a 3-row product the bits of the 1-row product, so a seeded stream could in
@@ -47,7 +55,10 @@ from eamg_tpu.serve.continuous import (ContinuousBatcher, admit_row,
                                        init_state, ragged_chunk)
 from eamg_tpu.tokenizer import Vocab
 
-from port_harness import cfg_json, flatten, perturbed_params, run_worker
+from eamg_tpu.decode.grammar import grammar_a
+
+from port_harness import (cfg_json, flatten, perturbed_params, run_worker,
+                          token_names)
 
 V = 300
 CFG = GPTConfig(vocab_size=V, seq_len=64, d_model=64, n_head=4, n_layer=2,
@@ -64,6 +75,29 @@ STATE_KEYS = ("buf", "pos", "last", "done", "lengths", "rngs", "row_max")
 # the state sequence: (call, request index, slot, row budget)
 SEQUENCE = [("admit", 0, 1, MAX_LEN), ("chunk",), ("admit", 2, 0, MAX_LEN),
             ("admit", 4, 2, 4), ("chunk",), ("chunk",)]
+# the option engine: per-row sampling, an n-gram ban of 2, a grammar over a
+# Scheme-A-shaped naming of the same ids (the generator keeps its vocab)
+NGRAM = 2
+OPT_ENGINE = {"per_row_sampling": True, "no_repeat_ngram": NGRAM}
+OPTS = {"plain": {}, "pen": {"penalties": [1.3, 0.1, 0.4]},
+        "ngram": {"no_repeat_ngram": NGRAM}, "gram": {"grammar": True},
+        "all": {"penalties": [1.2, 0.0, 0.2], "no_repeat_ngram": NGRAM,
+                "grammar": True, "top_p": 0.9},
+        "win_a": {"penalties": [1.25, 0.0, 0.3], "no_repeat_ngram": NGRAM,
+                  "grammar": True},
+        "win_b": {"penalties": [2.0, 0.5, 0.5], "no_repeat_ngram": NGRAM}}
+# (request index, options): the engine's rows; the last four go through
+# the window batcher too, two groups of two (temperature 1.0 each)
+OPT_ROWS = [(0, "plain"), (1, "pen"), (2, "ngram"), (3, "gram"), (4, "all"),
+            (0, "win_a"), (3, "win_a"), (0, "win_b"), (3, "win_b")]
+WINDOW_ROWS = list(range(5, 9))
+OPT_KEYS = STATE_KEYS + ("counts", "rep_ps", "freq_ps", "pres_ps",
+                         "ngram_on", "gstate", "gram_on")
+# (call, request index, slot, row budget, options); slot 2 is reused
+OPT_SEQUENCE = [("admit", 3, 1, MAX_LEN, "gram"), ("chunk",),
+                ("admit", 1, 0, MAX_LEN, "all"), ("admit", 2, 2, 6, "pen"),
+                ("chunk",), ("chunk",), ("admit", 4, 2, MAX_LEN, "ngram"),
+                ("chunk",)]
 
 
 def _prompt(ids):
@@ -111,6 +145,44 @@ def _state_sequence(gen, inp, ref):
         ref[f"seq/{i}"] = arrays
 
 
+def _opt_kw(name):
+    kw = dict(OPTS[name])
+    if "penalties" in kw:
+        kw["penalties"] = tuple(kw["penalties"])
+    return kw
+
+
+def _opt_state_sequence(gen, gram, ref):
+    state = init_state(CFG, SLOTS, MAX_LEN, per_row_sampling=True,
+                       no_repeat_ngram=NGRAM, grammar=True)
+    common = dict(top_k=TOP_K, greedy=False, mask_value=-1e10,
+                  eos_id=gen.eos_id, pad_id=gen.pad_id, top_p=1.0,
+                  per_row_sampling=True, no_repeat_ngram=NGRAM,
+                  grammar=gram.arrays(), use_grammar=True)
+    for i, call in enumerate(OPT_SEQUENCE):
+        if call[0] == "admit":
+            ids, seed, temp = REQUESTS[call[1]]
+            kw = _opt_kw(call[4])
+            state = admit_row(
+                gen.params, state, jnp.asarray(_prompt(ids)),
+                jnp.asarray(len(ids), jnp.int32),
+                jnp.asarray(call[2], jnp.int32), jax.random.PRNGKey(seed),
+                jnp.asarray(call[3], jnp.int32),
+                jnp.asarray(temp, jnp.float32), CFG,
+                row_top_p=kw.get("top_p", 1.0),
+                row_penalties=kw.get("penalties", (1.0, 0.0, 0.0)),
+                row_ngram_on=bool(kw.get("no_repeat_ngram")),
+                row_gram_on=bool(kw.get("grammar")), **common)
+        else:
+            state = ragged_chunk(gen.params, state, CFG, chunk=CHUNK,
+                                 **common)
+        arrays = _state_arrays(state)
+        arrays.pop("cache")
+        for key in OPT_KEYS[len(STATE_KEYS):]:
+            arrays[key] = np.asarray(state[key])
+        ref[f"opt_seq/{i}"] = arrays
+
+
 def _engine_rows(gen, requests, **engine_opts):
     eng = ContinuousBatcher(gen, slots=SLOTS, chunk=CHUNK, max_len=MAX_LEN,
                             top_k=TOP_K, **engine_opts)
@@ -150,6 +222,8 @@ def results(tmp_path_factory):
     gen = Generator(params, CFG, Vocab(vocab), eos_token=f"t{eos}",
                     pad_token="t0")
     assert gen.eos_id == eos and gen.pad_id == 0
+    names = token_names(V)
+    gram = grammar_a(Vocab(names))
 
     inp = {"cfg": cfg_json(CFG), "vocab": np.asarray(json.dumps(vocab)),
            "eos": np.asarray(eos),
@@ -157,7 +231,10 @@ def results(tmp_path_factory):
                {"slots": SLOTS, "chunk": CHUNK, "max_len": MAX_LEN,
                 "top_k": TOP_K, "requests": REQUESTS,
                 "row_requests": ROW_REQUESTS, "sequence": SEQUENCE,
-                "early": EARLY}))}
+                "early": EARLY, "ngram": NGRAM, "opts": OPTS,
+                "opt_rows": OPT_ROWS, "window_rows": WINDOW_ROWS,
+                "opt_sequence": OPT_SEQUENCE})),
+           "names": np.asarray(json.dumps(names))}
     inp.update(flatten(params, "p"))
     ref = {}
     _state_sequence(gen, inp, ref)
@@ -168,6 +245,10 @@ def results(tmp_path_factory):
               for i, tp, mp in ROW_REQUESTS], per_row_sampling=True)
     ref["row_solo"] = [_solo(gen, *REQUESTS[i], eos, top_p=tp, min_p=mp)
                        for i, tp, mp in ROW_REQUESTS]
+    _opt_state_sequence(gen, gram, ref)
+    ref["opt_engine"] = _engine_rows(
+        gen, [(REQUESTS[i], _opt_kw(name)) for i, name in OPT_ROWS],
+        grammar=gram, **OPT_ENGINE)
     got = run_worker("engine", inp, tmp_path_factory.mktemp("engine"),
                      timeout=900)
     return got, ref
@@ -273,3 +354,62 @@ def test_window_batcher_groups_requests(results):
     stats = json.loads(str(got["window_stats"]))
     assert stats["requests"] == len(REQUESTS)
     assert stats["max_group"] >= 2
+
+
+@pytest.mark.parametrize("i", range(len(OPT_SEQUENCE)),
+                         ids=[f"{i}_{c[0]}" for i, c in
+                              enumerate(OPT_SEQUENCE)])
+@pytest.mark.parametrize("key", OPT_KEYS)
+def test_option_engine_state_equals_jax_after_each_call(results, i, key):
+    """Tokens, positions, flags, keys, counts (f32, equal), per-row
+    penalties, the n-gram and grammar bits and the FSM states."""
+    got, ref = results
+    a, b = got[f"opt_seq/{i}/{key}"], ref[f"opt_seq/{i}"][key]
+    assert a.shape == b.shape
+    if a.dtype.kind == "f":
+        np.testing.assert_array_equal(a, b)
+    else:
+        np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64))
+
+
+@pytest.mark.parametrize("j", range(len(OPT_ROWS)),
+                         ids=[f"{j}_{n}" for j, (_, n) in enumerate(OPT_ROWS)])
+def test_option_engine_rows_equal_jax(results, j):
+    """Rows with penalties, an n-gram ban, the grammar and all of them, on
+    an engine with all three built in, token-equal to the JAX engine's."""
+    got, ref = results
+    assert got[f"opt_engine/{j}"].tolist() == ref["opt_engine"][j]
+
+
+def test_grammar_rows_differ_from_plain_ones(results):
+    """The grammar acts: each grammar row differs from the plain stream of
+    its request (penalties and bans may leave a short seeded stream as it
+    was: they move only tokens already seen)."""
+    _, ref = results
+    for j, (i, name) in enumerate(OPT_ROWS):
+        if OPTS[name].get("grammar"):
+            assert ref["opt_engine"][j] != ref["engine"][i], (j, name)
+
+
+@pytest.mark.parametrize("route", ["opt_engine/0", "opt_detached/0"])
+def test_plain_row_in_option_engine_equals_default_engine(results, route):
+    """A row that asks for nothing, in the engine with every option built
+    in (and decoded detached there), gives the default engine's stream."""
+    got, ref = results
+    assert OPT_ROWS[0] == (0, "plain")
+    assert got[route].tolist() == ref["engine"][0]
+
+
+@pytest.mark.parametrize("j", WINDOW_ROWS)
+def test_window_option_rows_equal_jax(results, j):
+    """The window batcher with penalties, n-gram bans and its grammar: the
+    JAX engine's rows (each is the request's solo stream)."""
+    got, ref = results
+    assert got[f"opt_window/{j}"].tolist() == ref["opt_engine"][j]
+
+
+def test_window_option_requests_grouped(results):
+    got, _ = results
+    stats = json.loads(str(got["opt_window_stats"]))
+    assert stats["requests"] == len(WINDOW_ROWS)
+    assert stats["calls"] == 2 and stats["max_group"] == 2

@@ -31,8 +31,8 @@ Checked, with the tolerance and its reason:
 - ``POST /generate`` with ``medusa=1``, one-shot and ``?stream=1``, on the
   B3 demo pipeline with heads: 200 and JAX's bytes; the 422 contract
   (medusa without heads, streamed with penalties, lookup or beams
-  streamed, lookup with medusa), ``/stats`` carries ``medusa_probe``, and
-  ``grammar`` keeps its 400.
+  streamed, lookup with medusa, medusa with grammar), and ``/stats``
+  carries ``medusa_probe``.
 """
 
 from __future__ import annotations
@@ -359,7 +359,7 @@ CONTRACT = {
     "lookup_and_medusa": (422, "mutually exclusive"),
     "beams_too_many": (422, "beams must be in [0, 16]"),
     "beams_and_penalty": (422, "beams is a deterministic"),
-    "grammar": (400, "grammar"),
+    "grammar": (422, "grammar"),
 }
 
 

@@ -406,10 +406,26 @@ def test_full_queue_answers_503_with_retry_after(results):
     assert int(got["overload/rejected"]) == statuses.count(503)
 
 
+# the engine options the JAX server builds from each flag (with --coalesce)
+ENGINE_FLAG_OPTS = {"--engine-grammar": {"grammar": True},
+                    "--engine-ngram": {"no_repeat_ngram": 3}}
+
+
 @pytest.mark.parametrize("flag", ["--engine-medusa", "--engine-grammar",
                                   "--engine-ngram"])
 def test_cli_names_engine_modes_outside_the_port(results, flag):
+    """--engine-medusa is still outside the port: it exits 2 naming the
+    flag. --engine-grammar and --engine-ngram 3 are in it: they build the
+    engine options the JAX server builds (``coalesce_opts``) and do not
+    exit 2."""
     got, _ = results
-    assert int(got[f"cli/{flag}/code"]) == 2
-    assert flag in str(got[f"cli/{flag}/stderr"])
-    assert "not yet in the PyTorch port" in str(got[f"cli/{flag}/stderr"])
+    stderr = str(got[f"cli/{flag}/stderr"])
+    if flag == "--engine-medusa":
+        assert int(got[f"cli/{flag}/code"]) == 2
+        assert flag in stderr
+        assert "not yet in the PyTorch port" in stderr
+    else:
+        assert json.loads(str(got[f"cli/{flag}/opts"])) == \
+            ENGINE_FLAG_OPTS[flag]
+        assert int(got[f"cli/{flag}/code"]) == 0
+        assert "not yet in the PyTorch port" not in stderr

@@ -31,8 +31,8 @@ Checked, with the tolerance and its reason:
 - the SSE contract: a malformed number answers 422 before any 200 header;
   a medusa stream on the coalescing server, whose causal model has Medusa
   heads attached, answers 200 and decodes solo; lookup and beams answer
-  JAX's 422 (they do not stream); grammar answers the 400 that names it; a
-  WAV stream's done event carries RIFF....WAVE.
+  JAX's 422 (they do not stream); a grammar stream answers 200; a WAV
+  stream's done event carries RIFF....WAVE.
 """
 
 from __future__ import annotations
@@ -114,8 +114,8 @@ CONTRACT = {
                "RIFF"),
     "lookup": ("", {"prompt": TEXT1, "stream": "1", "lookup": "true"}, 422,
                "lookup"),
-    "grammar": ("?stream=1", {"prompt": TEXT1, "grammar": "1"}, 400,
-                "grammar"),
+    "grammar": ("?stream=1", {"prompt": TEXT1, "grammar": "1"}, 200,
+                "RIFF"),
     "beams": ("?stream=1", {"prompt": TEXT1, "beams": "2"}, 422, "beams"),
 }
 # the contract's calls go to the solo Scheme-A server but these: the

@@ -17,6 +17,7 @@ Keys of the npz files are "/"-joined paths into nested dicts and lists
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import sys
@@ -833,14 +834,24 @@ def _cli_coalesce_checks(inp, out):
     ckpt = str(inp["co/ckpt"])
     eng = json.loads(str(inp["co/engine"]))
     reqs = json.loads(str(inp["co/requests"]))
-    for flag, value in (("--engine-medusa", None), ("--engine-grammar", None),
-                        ("--engine-ngram", "3")):
-        r = subprocess.run(
-            [sys.executable, "-m", "eamg_tpu_torch.cli", "serve", "--device",
-             "cpu", "--coalesce", flag] + ([value] if value else []),
-            capture_output=True, text=True, timeout=120)
-        out[f"cli/{flag}/code"] = np.asarray(r.returncode)
-        out[f"cli/{flag}/stderr"] = np.asarray(r.stderr[-500:])
+    from eamg_tpu_torch import cli
+
+    r = subprocess.run(
+        [sys.executable, "-m", "eamg_tpu_torch.cli", "serve", "--device",
+         "cpu", "--coalesce", "--engine-medusa"],
+        capture_output=True, text=True, timeout=120)
+    out["cli/--engine-medusa/code"] = np.asarray(r.returncode)
+    out["cli/--engine-medusa/stderr"] = np.asarray(r.stderr[-500:])
+    for flag, value in (("--engine-grammar", None), ("--engine-ngram", "3")):
+        args = cli.parse_args(["serve", "--coalesce", flag]
+                              + ([value] if value else []))
+        out[f"cli/{flag}/opts"] = np.asarray(json.dumps(
+            cli.coalesce_opts_from_args(args)))
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            refused = cli._refuse(args, cli._ENGINE_NOT_YET)
+        out[f"cli/{flag}/code"] = np.asarray(2 if refused else 0)
+        out[f"cli/{flag}/stderr"] = np.asarray(err.getvalue())
     port = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "eamg_tpu_torch.cli", "serve", "--device",
@@ -1058,7 +1069,11 @@ def _generator_checks(inp, out, params, cfg):
     out["gen/sample_kvcache"] = np.asarray(gen.vocab.encode(
         gen.sample_kvcache(toks, max_len=20, seed=2, top_k=15,
                            penalties=(1.2, 0.0, 0.1), no_repeat_ngram=2)))
-    out["gen/grammar"] = _raised(lambda: gen.generate_ids(ids, grammar=1))
+    from eamg_tpu_torch.decode.grammar import grammar_a
+
+    out["gen/grammar"] = gen.generate_ids(
+        ids, max_len=24, seed=2, top_k=15, grammar=grammar_a(
+            Vocab(json.loads(str(inp["gen/grammar_names"])))))
     b2 = SchemeB2()
     out["tok/b2_vocab"] = np.asarray(len(b2.vocab))
     out["tok/schemes"] = np.asarray([detect_scheme(b2.vocab.tok2id),
@@ -1503,6 +1518,94 @@ def task_engine(inp, out):
         for i, row in rows.items():
             out[f"window/{i}"] = np.asarray(row)
         out["window_stats"] = np.asarray(json.dumps(bat.stats))
+    finally:
+        bat.close()
+    _engine_option_checks(inp, out, gen, spec)
+
+
+def _opt_kw(spec, name):
+    kw = dict(spec["opts"][name])
+    if "penalties" in kw:
+        kw["penalties"] = tuple(kw["penalties"])
+    return kw
+
+
+def _engine_option_checks(inp, out, gen, spec):
+    """An engine with per-row sampling, an n-gram ban and a grammar: its
+    state after each call of a sequence, its rows, a plain row detached;
+    the window batcher with the same options."""
+    from eamg_tpu_torch.decode.grammar import grammar_a
+    from eamg_tpu_torch.serve.batcher import RequestBatcher
+    from eamg_tpu_torch.serve.continuous import (ContinuousBatcher,
+                                                 admit_row, init_state,
+                                                 ragged_chunk)
+    from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.utils import prng
+
+    gram = grammar_a(Vocab(json.loads(str(inp["names"]))))
+    reqs, ngram = spec["requests"], spec["ngram"]
+    state = init_state(gen.cfg, spec["slots"], spec["max_len"], device=CPU,
+                       per_row_sampling=True, no_repeat_ngram=ngram,
+                       grammar=True)
+    common = dict(top_k=spec["top_k"], greedy=False, mask_value=-1e10,
+                  eos_id=gen.eos_id, pad_id=gen.pad_id, top_p=1.0,
+                  per_row_sampling=True, no_repeat_ngram=ngram,
+                  grammar=gram.arrays(CPU))
+    for i, call in enumerate(spec["opt_sequence"]):
+        if call[0] == "admit":
+            ids, seed, temp = reqs[call[1]]
+            kw = _opt_kw(spec, call[4])
+            prompt = torch.zeros((1, 16), dtype=torch.int64)
+            prompt[0, :len(ids)] = torch.tensor(ids)
+            state = admit_row(
+                gen.params, state, prompt, len(ids), call[2],
+                prng.PRNGKey(seed), call[3], temp, gen.cfg,
+                row_top_p=kw.get("top_p", 1.0),
+                row_penalties=kw.get("penalties", (1.0, 0.0, 0.0)),
+                row_ngram_on=bool(kw.get("no_repeat_ngram")),
+                row_gram_on=bool(kw.get("grammar")), **common)
+        else:
+            state = ragged_chunk(gen.params, state, gen.cfg,
+                                 chunk=spec["chunk"], **common)
+        for key in ("buf", "pos", "last", "done", "row_max", "counts",
+                    "rep_ps", "freq_ps", "pres_ps", "ngram_on", "gstate",
+                    "gram_on"):
+            out[f"opt_seq/{i}/{key}"] = state[key].numpy().copy()
+        out[f"opt_seq/{i}/rngs"] = state["rngs"].copy()
+        out[f"opt_seq/{i}/lengths"] = \
+            state["cache"]["lengths"].numpy().copy()
+
+    rows = spec["opt_rows"]
+    eng = ContinuousBatcher(gen, slots=spec["slots"], chunk=spec["chunk"],
+                            max_len=spec["max_len"], top_k=spec["top_k"],
+                            per_row_sampling=True, no_repeat_ngram=ngram,
+                            grammar=gram)
+    try:
+        _submit_all(eng, [(reqs[i], _opt_kw(spec, name))
+                          for i, name in rows], {}, "opt_engine", out)
+        ids, seed, temp = reqs[rows[0][0]]
+        out["opt_detached/0"] = np.asarray(eng.run_detached(
+            ids, temperature=temp, seed=seed))
+    finally:
+        eng.close()
+
+    bat = RequestBatcher(gen, max_batch=len(spec["window_rows"]),
+                         window_ms=1000.0, max_len=spec["max_len"],
+                         grammar=gram)
+    try:
+        got = {}
+
+        def hit(j):
+            i, name = rows[j]
+            ids, seed, temp = reqs[i]
+            got[j] = bat.submit(ids, temperature=temp, top_k=spec["top_k"],
+                                seed=seed, timeout=WAIT,
+                                **_opt_kw(spec, name))
+
+        _threads(hit, [(j,) for j in spec["window_rows"]])
+        for j, row in got.items():
+            out[f"opt_window/{j}"] = np.asarray(row)
+        out["opt_window_stats"] = np.asarray(json.dumps(bat.stats))
     finally:
         bat.close()
 
@@ -2075,7 +2178,7 @@ def _medusa_http(inp, out):
         "beams_too_many": ("", {**base, "beams": "17"}),
         "beams_and_penalty": ("", {**base, "beams": "2",
                                    "repetition_penalty": "1.3"}),
-        "grammar": ("", {**base, "grammar": "1"}),
+        "grammar": ("", {**base, "medusa": "1", "grammar": "1"}),
     }, got, "x")
     for name in ("oneshot", "stream"):
         out[f"http/{name}/status"] = got[f"x/{name}/status"]
@@ -2316,10 +2419,150 @@ def task_spec(inp, out):
         _spec_cli(inp, out, tmp)
 
 
+# ------------------------------------------------------------------ grammar
+
+def _grammar_http(out):
+    """grammar=1 on the shipped B3 demo (bf16) behind the server: the
+    one-shot MIDI, the stream's events, and lookup with grammar."""
+    import base64
+
+    from eamg_tpu_torch.serve import pipeline_from_checkpoint
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_B3
+
+    pipe = pipeline_from_checkpoint(DEMO_CKPT_B3, device=CPU)
+    gram, vocab = pipe.grammar(), pipe.scheme_b.vocab
+    end = vocab.tok2id["[END_SEQ]"]
+    base = {"prompt": "I finally got the job, I am so happy!", "seed": 5,
+            "grammar": "1"}
+    got = {}
+    _http_calls(pipe, {
+        "oneshot": ("?format=midi", base),
+        "stream": ("?stream=1&format=midi", base),
+        "lookup_grammar": ("", {**base, "lookup": "1"})}, got, "x")
+    one = pipe.generate(base["prompt"], seed=base["seed"], grammar=True,
+                        render_audio=False)
+    events = [json.loads(line[6:]) for line in
+              got["x/stream/body"].tobytes().decode().split("\n\n")
+              if line.startswith("data: ")]
+    streams = {"oneshot": (vocab.encode(one.tokens),
+                           got["x/oneshot/body"].tobytes()
+                           if bytes(one.midi_bytes)
+                           == got["x/oneshot/body"].tobytes() else b""),
+               "stream": (vocab.encode(events[0]["prompt_tokens"])
+                          + [i for e in events if e["event"] == "tokens"
+                             for i in e["ids"]],
+                          base64.b64decode(events[-1].get("midi_b64", "")))}
+    for name, (ids, midi) in streams.items():
+        out[f"http/{name}/status"] = got[f"x/{name}/status"]
+        out[f"http/{name}/violations"] = np.asarray(gram.violations(ids))
+        out[f"http/{name}/ends_with_end"] = np.asarray(ids[-1] == end)
+        out[f"http/{name}/midi"] = np.frombuffer(midi, np.uint8)
+    out["http/lookup_grammar/status"] = got["x/lookup_grammar/status"]
+    out["http/lookup_grammar/error"] = np.asarray(json.loads(
+        got["x/lookup_grammar/body"].tobytes())["error"])
+
+
+def task_grammar(inp, out):
+    """tests/test_torch_grammar.py: the FSM tables, its device functions,
+    every decode loop with a grammar, and grammar=1 over HTTP."""
+    from eamg_tpu_torch.decode.beam import generate_beam
+    from eamg_tpu_torch.decode.grammar import (grammar_a, grammar_b2,
+                                               grammar_b3, grammar_mask,
+                                               grammar_step,
+                                               scan_prompt_state)
+    from eamg_tpu_torch.decode.loop import generate_full, generate_kv
+    from eamg_tpu_torch.decode.ragged import generate_kv_ragged
+    from eamg_tpu_torch.decode.stream import stream_tokens
+    from eamg_tpu_torch.tokenizer import SchemeB2, SchemeB3, Vocab
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    with open("eamg_tpu/serve/demo_ckpt_a/vocab.json") as f:
+        vocab_a = Vocab(json.load(f))
+    for tag, g in (("a", grammar_a(vocab_a)), ("b3", grammar_b3(SchemeB3())),
+                   ("b2", grammar_b2(SchemeB2()))):
+        for name in ("tclass", "allowed", "next_state", "closing",
+                     "steps_to_close"):
+            out[f"tables/{tag}/{name}"] = np.asarray(getattr(g, name))
+        out[f"tables/{tag}/init_state"] = np.asarray(g.init_state)
+        out[f"tables/{tag}/names"] = np.asarray(
+            json.dumps([g.classes, g.states]))
+        arr = g.arrays(CPU)
+        if g.arrays(CPU) is not arr:
+            raise AssertionError("arrays() made its tensors twice")
+        for name, t in arr.items():
+            out[f"arrays/{tag}/{name}"] = t.numpy()
+        out[f"arrays/{tag}/init"] = arr["init"].numpy()[0]
+
+    garr = grammar_b3(SchemeB3()).arrays(CPU)
+    logits, gstate = _t(inp["fn/logits"]), _t(inp["fn/gstate"]).long()
+    budget, row_on = _t(inp["fn/budget"]).long(), _t(inp["fn/row_on"])
+    out["fn/mask_plain"] = grammar_mask(logits, gstate, garr).numpy()
+    out["fn/mask_budget"] = grammar_mask(logits, gstate, garr,
+                                         budget_left=budget).numpy()
+    out["fn/mask_scalar"] = grammar_mask(logits, gstate, garr,
+                                         budget_left=3).numpy()
+    out["fn/mask_row_on"] = grammar_mask(logits, gstate, garr,
+                                         budget_left=budget,
+                                         row_on=row_on).numpy()
+    tokens = _t(inp["fn/tokens"]).long()
+    out["fn/step"] = grammar_step(gstate, tokens, garr).numpy()
+    out["fn/step_active"] = grammar_step(gstate, tokens, garr,
+                                         active=_t(inp["fn/active"])).numpy()
+    prompts = _t(inp["fn/prompts"]).long()
+    out["fn/scan"] = scan_prompt_state(garr, prompts,
+                                       _t(inp["fn/plen"]).long()).numpy()
+    out["fn/scan_scalar"] = scan_prompt_state(garr, prompts, 9).numpy()
+
+    spec = json.loads(str(inp["spec"]))
+    cfg = _cfg(inp, "cfg")
+    params = params_from_jax(unflatten(inp, "p"))
+    gram = grammar_a(Vocab(json.loads(str(inp["names"]))))
+    prompt_ids, eos, pad = spec["prompt"], spec["eos"], spec["pad"]
+    p, max_len = len(prompt_ids), spec["max_len"]
+
+    def bucket(ids, batch=1, width=16):
+        row = torch.full((batch, width), pad, dtype=torch.int64)
+        row[:, :len(ids)] = torch.tensor(ids)
+        return row
+
+    for name, kw in spec["solo"].items():
+        kw = dict(kw)
+        seed, batch = kw.pop("seed", 0), kw.pop("batch", 1)
+        ml = kw.pop("max_len", max_len)
+        buf, n = generate_kv(params, bucket(prompt_ids, batch, min(16, ml)),
+                             p, prng.PRNGKey(seed), cfg, ml, top_k=40,
+                             eos_id=eos, pad_id=pad, grammar=gram, **kw)
+        out[f"solo/{name}"] = buf[:, :n].numpy()
+    kw = dict(spec["stream"])
+    out["stream"] = np.asarray(list(stream_tokens(
+        params, cfg, prompt_ids, max_len, top_k=40, eos_id=eos, pad_id=pad,
+        grammar=gram, **kw)), np.int64)
+    out["beam/buf"], out["beam/gen_lens"], out["beam/scores"] = \
+        generate_beam(params, bucket(prompt_ids), p, cfg, max_len,
+                      n_beams=spec["beams"], eos_id=eos, pad_id=pad,
+                      grammar=gram)
+    buf, n = generate_full(params, bucket(prompt_ids), p,
+                           prng.PRNGKey(spec["full_seed"]), cfg, max_len,
+                           top_k=40, eos_id=eos, pad_id=pad, grammar=gram)
+    out["full"] = buf[:, :n].numpy()
+    prompts = _t(inp["ragged/prompts"]).long()
+    for name, kw in spec["ragged"].items():
+        kw = dict(kw)
+        kw["grammar"] = gram if kw.get("grammar") else None
+        buf, n = generate_kv_ragged(
+            params, prompts, inp["ragged/lens"],
+            prng.key_rows(spec["ragged_seeds"]), cfg, max_len, top_k=40,
+            eos_id=eos, pad_id=pad, **kw)
+        out[f"ragged/{name}/buf"] = buf.numpy()
+        out[f"ragged/{name}/lengths"] = n.numpy()
+    _grammar_http(out)
+
+
 TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "topk": task_topk, "slice": task_slice,
          "ragged": task_ragged, "engine": task_engine, "batch": task_batch,
          "bf16": task_bf16, "graphs": task_graphs, "stream": task_stream,
-         "b3": task_b3}
+         "b3": task_b3, "grammar": task_grammar}
 
 
 def main():
