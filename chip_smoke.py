@@ -172,6 +172,39 @@ Phases:
     generation of the default attn_impl under torch.profiler; then
     `cli generate --wav` on demo_ckpt_a twice with one seed (MThd,
     RIFF....WAVE, equal bytes).
+ 12. train: `cli train --preset large2 --corrected --synthetic 256
+    --epochs 1 --save-every 8 --log-every 4 --seed 0` (d512 h8 L6, Scheme
+    B2, V 8324, T 511, micro-batch 16, the chunked CE of 73, f32, 16 steps):
+    finite losses, the last logged below the first, `latest`, `ep1` and
+    `final` written; the same run rebuilt from its parts on the card, each
+    step between CUDA events, its params after 16 steps against `cli
+    train`'s (same seed: bit-equal or not, logged); its first 3 steps again
+    on the host from the card's initial weights and the same batches (the
+    host's own init_params of the key logged beside the card's, in ulps):
+    each loss within 1e-5 relative, step 1's gradient within 1e-5 x max|g|,
+    and after 3 steps all but 0.1% of the parameters within 1e-5 and every
+    one within 2 x the summed learning rate (Adam's step is ~g / |g| where
+    |g| nears its epsilon of 1e-8, so a gradient of rounding residue, such
+    as the K rows of in_b, zero in exact arithmetic, moves by up to the
+    rate; the count past 1e-5 is logged); resumed at step
+    8 from a checkpoint written by save_checkpoint (optimizer state and
+    step): each later loss within 1e-6 relative of the uninterrupted run's
+    (bit-equal or not, logged), and `cli train --resume .../latest`;
+    `--pack`, `--attn-block 128` and `--preset paper`, about 4 steps each,
+    finite, the paper recipe's clip firing at least once (its global norms
+    logged), the first loss with attn_block 128 within 1e-5 relative of the
+    dense one; then `train-demo-a --geometry flagship --kv-heads 2 --rows
+    768 --heldout-rows 64 --epochs 2` (the flagship's own recipe at full
+    width, bf16, 96 steps): held-out perplexity each epoch through the
+    port's forward (K1, K2), obedience through Generator (K1-K4 from
+    graphs), train_metrics.json, and `serve --checkpoint` of its output
+    answering two same-seed WAV requests with equal bytes; K1-K4 launched
+    over the phase (counted on the kernels line under "train"). Timings,
+    recorded only, for the large2 run and for the flagship recipe rebuilt
+    from its parts: ms a step (the median of steps 4-16, event-timed),
+    target tokens a second (non-PAD), torch.cuda.max_memory_allocated, and
+    the device's idle share over 4 steps under torch.profiler. TF32 stays
+    off (the script sets it so; the trainer leaves PyTorch's default).
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -186,6 +219,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import socket
@@ -4713,8 +4747,464 @@ def serve_options(torch) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ train
+
+# phase train: `cli train` on the reference large2 recipe (d512 h8 L6,
+# Scheme B2, V 8324, T 511, micro-batch 16, the chunked CE of 73, f32), 16
+# steps; the flagship's own recipe through `train-demo-a` (bf16, GQA-2),
+# 96 steps, then served
+TRAIN_ARGS = ["train", "--preset", "large2", "--corrected", "--synthetic",
+              "256", "--epochs", "1", "--save-every", "8", "--log-every",
+              "4", "--seed", "0"]
+TRAIN_STEPS = 16
+TRAIN_DEVICE = "cuda"
+RESUME_AT = 8
+HOST_STEPS = 3                  # steps rerun on the host, plain PyTorch
+HOST_LOSS_RTOL = 1e-5           # a step's loss, card against host
+HOST_GRAD_TOL = 1e-5            # step 1's gradient, x max|g| over leaves
+HOST_PARAM_ATOL = 1e-5          # |delta param| after HOST_STEPS ...
+HOST_PARAM_SHARE = 1e-3         # ... met by all but this share of elements
+RESUME_RTOL = 1e-6              # resumed losses against the uninterrupted
+ATTN_BLOCK = 128
+ATTN_BLOCK_RTOL = 1e-5          # first loss, --attn-block against dense
+# the short runs of (d), ~4 steps each: (preset, rows, extra flags)
+SHORT_RUNS = {"pack": ("large2", 192, ["--pack"]),
+              "attn_block": ("large2", 64, ["--attn-block", str(ATTN_BLOCK)]),
+              "paper": ("paper", 64, [])}
+DEMO_ARGS = ["train-demo-a", "--geometry", "flagship", "--kv-heads", "2",
+             "--rows", "768", "--heldout-rows", "64", "--epochs", "2"]
+DEMO_STEPS = 96
+TIMED_FROM = 4                  # ms a step: the median of steps 4..16
+PROFILED_STEPS = 4
+TRAIN_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                 "top_k_mask")
+SERVE_TRAINED = {"prompt": BURST_TEXTS[0], "seed": "7"}
+
+
+def _cli_run(tag: str, argv: list) -> list:
+    """`python -m eamg_tpu_torch.cli` with ``argv`` in this process (so its
+    launches count) -> its printed lines; fails on a nonzero exit."""
+    import io
+
+    from eamg_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines[:-1]:
+        log(f"[{tag}] {line}")
+    log(f"[{tag}] exit {code} in {time.perf_counter() - t0:.1f} s: "
+        f"{lines[-1] if lines else ''}")
+    if code != 0:
+        raise AssertionError(f"{tag}: cli {argv[0]} exited {code}")
+    return lines
+
+
+def _logged_losses(lines: list) -> dict:
+    """step -> loss (and grad_norm when logged) from run_training's lines."""
+    pat = re.compile(r"step (\d+): loss=(\S+?)(?: grad_norm=(\S+))?$")
+    out = {}
+    for line in lines:
+        m = pat.search(line)
+        if m:
+            out[int(m.group(1))] = (float(m.group(2)),
+                                    float(m.group(3)) if m.group(3)
+                                    else None)
+    return out
+
+
+def _large2_setup(torch, device):
+    """The run of TRAIN_ARGS rebuilt from its parts: (cfg, tcfg, its
+    batches, its initial params on ``device``)."""
+    from eamg_tpu_torch.models.gpt import init_params, preset
+    from eamg_tpu_torch.train.data import batches, synthetic_corpus
+    from eamg_tpu_torch.train.run import encode_corpus
+    from eamg_tpu_torch.train.trainer import reference_preset
+    from eamg_tpu_torch.utils import prng
+
+    seq_len = preset("large2", vocab_size=1).seq_len
+    encoded, vocab = encode_corpus(synthetic_corpus(256, seed=0), "b2",
+                                   seq_len)
+    cfg = dataclasses.replace(preset("large2", len(vocab)), causal=True)
+    tcfg = dataclasses.replace(reference_preset("large2"), epochs=1,
+                               pad_id=vocab.pad_id, loss_chunk=73)
+    steps = list(batches(encoded, cfg.seq_len, vocab.pad_id,
+                         tcfg.micro_batch, drop_last=False, shuffle_seed=0))
+    return cfg, tcfg, steps, init_params(prng.PRNGKey(0), cfg,
+                                         device=device), vocab
+
+
+def _param_gap(torch, cfg, a: dict, b: dict) -> dict:
+    """|a - b| over every parameter: its max, the elements past
+    HOST_PARAM_ATOL, and the max over the K rows of each in_b alone (a key
+    bias adds the same amount to every score of a query, so its gradient
+    is zero in exact arithmetic)."""
+    from eamg_tpu_torch.train.trainer import tree_leaves
+
+    D, KVD = cfg.d_model, cfg.kv_dim
+    kb = max(float((la["attn"]["in_b"].cpu()[D:D + KVD]
+                    - lb["attn"]["in_b"].cpu()[D:D + KVD]).abs().max())
+             for la, lb in zip(a["layers"], b["layers"]))
+    worst, past, total = 0.0, 0, 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = (x.cpu() - y.cpu()).abs()
+        worst = max(worst, float(d.max()))
+        past += int((d > HOST_PARAM_ATOL).sum())
+        total += d.numel()
+    return {"max": worst, "past_tol": past, "elements": total,
+            "k_bias_max": kb}
+
+
+def _step_grads(torch, cfg, tcfg, params, x, y) -> list:
+    """The gradient of the step's loss at ``params`` for one batch, as
+    CPU tensors."""
+    from eamg_tpu_torch.train.trainer import (loss_fn_chunked, tree_leaves,
+                                              tree_unflatten)
+
+    live = [p.detach().clone().requires_grad_() for p in tree_leaves(params)]
+    dev = live[0].device
+    loss, _ = loss_fn_chunked(
+        tree_unflatten(params, live), torch.from_numpy(x[0]).to(dev),
+        torch.from_numpy(y[0]).to(dev), cfg, tcfg.pad_id, tcfg.loss_chunk)
+    return [g.cpu() for g in torch.autograd.grad(loss, live)]
+
+
+def _timed_steps(torch, trainer, steps, tag: str, hooks=None) -> dict:
+    """Run ``steps`` through ``trainer`` on the card, each between two CUDA
+    events; ``hooks[i]`` runs after step i (1-based), outside the timing.
+    -> per-step losses and tokens (host floats), ms a step, target tokens
+    a second (non-PAD, steps TIMED_FROM..), peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, metrics = [], []
+    for i, (x, y) in enumerate(steps, start=1):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        metrics.append(trainer.train_step(x, y, sync=False))
+        e1.record()
+        marks.append((e0, e1))
+        if hooks and i in hooks:
+            hooks[i]()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in marks]
+    losses = [float(m["loss"]) for m in metrics]
+    tokens = [int(m["tokens"]) for m in metrics]
+    timed = ms[TIMED_FROM - 1:]
+    med = sorted(timed)[len(timed) // 2]
+    out = {"steps": len(ms), "ms_per_step_median": med,
+           "ms_per_step": ms,
+           "target_tokens_per_s": sum(tokens[TIMED_FROM - 1:])
+           / (sum(timed) / 1000),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "tokens": tokens}
+    log(f"[train {tag}] {len(ms)} steps: median {med:.3f} ms a step "
+        f"(steps {TIMED_FROM}..{len(ms)}), "
+        f"{out['target_tokens_per_s']:.0f} target tokens/s, peak memory "
+        f"{out['max_memory_allocated_bytes'] / 2**20:.1f} MiB; losses "
+        f"{[round(v, 6) for v in losses]}")
+    return out
+
+
+def _profiled_steps(torch, trainer, steps, tag: str) -> dict:
+    """PROFILED_STEPS steps under torch.profiler: the device's idle share."""
+    def work():
+        ms = [trainer.train_step(x, y, sync=False) for x, y in steps]
+        return int(sum(int(m["tokens"]) for m in ms))
+
+    prof = _trace(torch, f"train {tag}", work)
+    return {k: prof[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                 "launches", "host_launches",
+                                 "device_ms_by_group")}
+
+
+def _card_vs_host(torch, card_init, card_params, cfg, tcfg, steps,
+                  card_losses):
+    """The first HOST_STEPS steps again on the host (plain PyTorch), from
+    the card's initial weights and the same batches; the host's own
+    init_params of the same key logged beside the card's (ulps by leaf)."""
+    from eamg_tpu_torch.models.gpt import init_params
+    from eamg_tpu_torch.train.trainer import Trainer, tree_leaves, tree_map
+    from eamg_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    host_init = init_params(prng.PRNGKey(0), cfg, device="cpu")
+    init_ulps = []
+    for a, b in zip(tree_leaves(card_init), tree_leaves(host_init)):
+        d = (a.cpu().view(torch.int32).long() - b.view(torch.int32).long()
+             ).abs()
+        init_ulps.append((int(d.max()), int((d > 0).sum()), d.numel()))
+    init_equal = all(m == 0 for m, _, _ in init_ulps)
+    log(f"[train init] init_params of one key, card against host: "
+        f"bit-equal {init_equal}; (max ulps, elements differing, elements) "
+        f"by leaf: {[u for u in init_ulps if u[0]]}")
+    host = Trainer(cfg, tcfg, card_init, device="cpu")
+    losses = [host.train_step(x, y)["loss"] for x, y in steps[:HOST_STEPS]]
+    secs = time.perf_counter() - t0
+    rel = [abs(a - b) / abs(b) for a, b in zip(card_losses, losses)]
+    g_card = _step_grads(torch, cfg, tcfg, card_init, *steps[0])
+    g_host = _step_grads(torch, cfg, tcfg,
+                         tree_map(lambda p: p.cpu(), card_init), *steps[0])
+    g_scale = max(float(g.abs().max()) for g in g_host)
+    g_gap = max(float((a - b).abs().max()) for a, b in zip(g_card, g_host))
+    gap = _param_gap(torch, cfg, card_params, host.params)
+    lr_sum = sum(host.optimizer.schedule(c) for c in range(HOST_STEPS))
+    bound = 2 * lr_sum * (1 + tcfg.weight_decay)
+    log(f"[train host] {HOST_STEPS} steps on the host in {secs:.1f} s: "
+        f"losses {losses}, card {card_losses[:HOST_STEPS]}, rel |delta| "
+        f"{rel}; step 1's gradient max |delta| {g_gap:.3e} against max |g| "
+        f"{g_scale:.3e}; params after {HOST_STEPS} steps: max |delta| "
+        f"{gap['max']:.3e} (held to {bound:.3e}: Adam's step is ~g / |g| "
+        f"where |g| nears its 1e-8, so a gradient of rounding residue "
+        f"moves by up to the rate), {gap['past_tol']} of {gap['elements']} "
+        f"elements past {HOST_PARAM_ATOL} (K rows of in_b "
+        f"{gap['k_bias_max']:.3e})")
+    if max(rel) > HOST_LOSS_RTOL:
+        raise AssertionError(f"train: card and host losses differ {rel}")
+    if g_gap > HOST_GRAD_TOL * g_scale:
+        raise AssertionError(f"train: card and host gradients differ by "
+                             f"{g_gap} (max |g| {g_scale})")
+    if gap["max"] > bound or \
+            gap["past_tol"] > HOST_PARAM_SHARE * gap["elements"]:
+        raise AssertionError(f"train: card and host params differ: {gap}")
+    return {"losses_host": losses, "loss_rel_delta": rel,
+            "grad_max_abs_delta": g_gap, "grad_max_abs": g_scale,
+            "params": gap, "host_seconds": secs, "init_bit_equal": init_equal,
+            "init_ulps_by_leaf": init_ulps}
+
+
+def train_large2(torch, tmp: str) -> dict:
+    """(a) `cli train` on large2, 16 steps; (b) the same run rebuilt from
+    its parts on the card, timed, against the host over its first steps;
+    (c) resumed at step 8 from a checkpoint, against the uninterrupted
+    run, and `cli train --resume`; (d) --pack, --attn-block and the paper
+    preset, 4 steps each."""
+    from eamg_tpu_torch.models.gpt import init_params
+    from eamg_tpu_torch.train.trainer import Trainer, tree_leaves, tree_map
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+
+    out = {}
+    run_dir = os.path.join(tmp, "large2")
+    lines = _cli_run("train a", TRAIN_ARGS + ["--out", run_dir])
+    logged = _logged_losses(lines)
+    summary = json.loads(lines[-1])
+    first, last = logged[min(logged)][0], logged[max(logged)][0]
+    if summary["steps"] != TRAIN_STEPS or sorted(logged) != [4, 8, 12, 16]:
+        raise AssertionError(f"train: {summary}, logged {sorted(logged)}")
+    if not all(math.isfinite(v) for v, _ in logged.values()) \
+            or not last < first:
+        raise AssertionError(f"train: logged losses {logged}")
+    for tag in ("latest", "ep1", "final"):
+        if not os.path.exists(os.path.join(run_dir, tag, "params.pkl")):
+            raise AssertionError(f"train: no {tag} checkpoint")
+    out["cli"] = {"summary": summary, "logged": logged}
+
+    cfg, tcfg, steps, params, vocab = _large2_setup(torch, TRAIN_DEVICE)
+    trainer = Trainer(cfg, tcfg, params, device=TRAIN_DEVICE)
+    snap = {}
+    resume_dir = os.path.join(tmp, "resume8")
+
+    def at_host_steps():
+        snap["params"] = tree_map(lambda p: p.detach().cpu().clone(),
+                                  trainer.params)
+
+    def at_resume():
+        save_checkpoint(resume_dir, trainer.params, vocab.tok2id, cfg,
+                        opt_state=trainer.opt_state_tree(),
+                        step=trainer.step)
+
+    timed = _timed_steps(torch, trainer, steps, "large2",
+                         hooks={HOST_STEPS: at_host_steps,
+                                RESUME_AT: at_resume})
+    out["large2"] = timed
+    cli_final = load_checkpoint(os.path.join(run_dir, "final"))["params"]
+    gap = _param_gap(torch, cfg, trainer.params, cli_final)
+    same = all(bool(torch.equal(a.cpu(), b)) for a, b in
+               zip(tree_leaves(trainer.params), tree_leaves(cli_final)))
+    log(f"[train same-seed] the rebuilt run's params after {TRAIN_STEPS} "
+        f"steps against `cli train`'s final: bit-equal {same}; {gap}")
+    for step, (v, _) in logged.items():
+        if abs(round(timed["losses"][step - 1], 4) - v) > 1.5e-4:
+            raise AssertionError(f"train: step {step} logged {v}, rebuilt "
+                                 f"{timed['losses'][step - 1]}")
+    out["same_seed_bit_equal"] = same
+
+    out["host"] = _card_vs_host(torch, params, snap["params"], cfg, tcfg,
+                                steps, timed["losses"])
+
+    ck = load_checkpoint(resume_dir)
+    resumed = Trainer(cfg, tcfg, ck["params"], device=TRAIN_DEVICE)
+    resumed.load_opt_state(ck["opt_state"])
+    resumed.step = ck["step"]
+    if resumed.step != RESUME_AT:
+        raise AssertionError(f"resume: step {resumed.step}")
+    r_losses = [resumed.train_step(x, y)["loss"]
+                for x, y in steps[RESUME_AT:]]
+    ref = timed["losses"][RESUME_AT:]
+    rel = [abs(a - b) / abs(b) for a, b in zip(r_losses, ref)]
+    bit = r_losses == ref
+    log(f"[train resume] steps {RESUME_AT + 1}..{TRAIN_STEPS} from the step-"
+        f"{RESUME_AT} checkpoint: {r_losses}; uninterrupted {ref}; rel "
+        f"|delta| max {max(rel):.3e}; bit-equal {bit}")
+    if max(rel) > RESUME_RTOL:
+        raise AssertionError(f"resume: losses differ {rel}")
+    out["resume"] = {"losses": r_losses, "rel_delta": rel, "bit_equal": bit}
+    lines = _cli_run("train resume", TRAIN_ARGS + [
+        "--resume", os.path.join(run_dir, "latest"),
+        "--out", os.path.join(tmp, "resumed")])
+    summary = json.loads(lines[-1])
+    if summary["steps"] != 2 * TRAIN_STEPS or \
+            not math.isfinite(summary["final_loss"]):
+        raise AssertionError(f"train --resume: {summary}")
+
+    short = {}
+    for tag, (preset, rows, extra) in SHORT_RUNS.items():
+        argv = list(TRAIN_ARGS)
+        argv[argv.index("--preset") + 1] = preset
+        argv[argv.index("--synthetic") + 1] = str(rows)
+        lines = _cli_run(f"train {tag}", argv + extra + [
+            "--log-every", "1", "--out", os.path.join(tmp, tag)])
+        got = _logged_losses(lines)
+        if not got or not all(math.isfinite(v) for v, _ in got.values()):
+            raise AssertionError(f"train {tag}: losses {got}")
+        short[tag] = got
+    norms = [n for _, n in short["paper"].values()]
+    if not any(n is not None and n >= 1.0 for n in norms):
+        raise AssertionError(f"paper: the clip never fired: norms {norms}")
+    log(f"[train paper] global grad norms {norms}: clipped at 1.0 in "
+        f"{sum(n >= 1.0 for n in norms)} of {len(norms)} steps")
+    block_cfg = dataclasses.replace(cfg, attn_block=ATTN_BLOCK)
+    first = {}
+    for tag, c in (("dense", cfg), ("attn_block", block_cfg)):
+        t = Trainer(c, tcfg, init_params(prng.PRNGKey(0), c, device=TRAIN_DEVICE),
+                    device=TRAIN_DEVICE)
+        first[tag] = t.train_step(*steps[0])["loss"]
+    rel = abs(first["attn_block"] - first["dense"]) / abs(first["dense"])
+    log(f"[train attn_block] first loss {first['attn_block']} against dense "
+        f"{first['dense']}: rel |delta| {rel:.3e}")
+    if rel > ATTN_BLOCK_RTOL:
+        raise AssertionError(f"attn_block: first loss rel delta {rel}")
+    out["short"] = {k: {s: v for s, (v, _) in g.items()}
+                    for k, g in short.items()}
+    out["paper_grad_norms"] = norms
+    out["attn_block_first_rel_delta"] = rel
+
+    out["large2"]["profile"] = _profiled_steps(
+        torch, trainer, steps[:PROFILED_STEPS], "large2")
+    return out
+
+
+def _flagship_trainer(torch):
+    """train_demo_a's flagship trainer for DEMO_ARGS, rebuilt from its
+    parts (to time its steps): (trainer, its first epoch's batches)."""
+    from eamg_tpu_torch.models.gpt import GPTConfig, init_params
+    from eamg_tpu_torch.tokenizer.vocab import Vocab
+    from eamg_tpu_torch.tools.demo_a import flagship_spec
+    from eamg_tpu_torch.train.data import batches, grid_corpus
+    from eamg_tpu_torch.train.trainer import TrainConfig, Trainer
+    from eamg_tpu_torch.utils import prng
+
+    spec = dataclasses.replace(flagship_spec(), rows=768, heldout_rows=64,
+                               epochs=2, kv_heads=2)
+    rows = [json.loads(r) for r in grid_corpus(
+        spec.rows, seed=spec.seed, max_units=spec.max_units,
+        n_chains=spec.n_chains)]
+    vocab = Vocab.from_sequences(rows, pad_last=True)
+    encoded = [vocab.encode(s[:spec.seq_len]) for s in rows]
+    cfg = GPTConfig(vocab_size=len(vocab), seq_len=spec.seq_len,
+                    d_model=spec.d_model, n_head=spec.n_head,
+                    n_layer=spec.n_layer, causal=True, dtype="bfloat16",
+                    n_kv_heads=spec.kv_heads)
+    per_epoch = -(-len(encoded) // spec.micro_batch)
+    tcfg = TrainConfig(lr=spec.lr, micro_batch=spec.micro_batch,
+                       epochs=spec.epochs, pad_id=vocab.pad_id,
+                       schedule="warmup_cosine", warmup_steps=per_epoch // 2,
+                       total_steps=spec.epochs * per_epoch,
+                       loss_chunk=spec.loss_chunk)
+    steps = list(batches(encoded, cfg.seq_len, vocab.pad_id,
+                         tcfg.micro_batch, drop_last=False, shuffle_seed=0))
+    trainer = Trainer(cfg, tcfg, init_params(prng.PRNGKey(0), cfg,
+                                             device=TRAIN_DEVICE), device=TRAIN_DEVICE)
+    return trainer, steps
+
+
+def train_demo(torch, tmp: str) -> dict:
+    """(e) `train-demo-a` with the flagship's recipe, then `serve` of its
+    checkpoint: POST /generate twice with one seed."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    demo_dir = os.path.join(tmp, "demo_a")
+    lines = _cli_run("train-demo-a", DEMO_ARGS + ["--out", demo_dir])
+    metrics = json.loads(lines[-1])
+    with open(os.path.join(demo_dir, "train_metrics.json")) as f:
+        written = json.load(f)
+    if written != metrics or metrics["steps"] != DEMO_STEPS:
+        raise AssertionError(f"train-demo-a: {metrics}")
+    for k in ("final_loss", "train_ppl", "heldout_ppl",
+              "grid_onset_obedience", "in_key_obedience"):
+        if not math.isfinite(metrics[k]):
+            raise AssertionError(f"train-demo-a: {k} {metrics[k]}")
+    epochs = [ln for ln in lines if "held_out_ppl=" in ln]
+    if len(epochs) != 2:
+        raise AssertionError(f"train-demo-a: per-epoch lines {epochs}")
+    pipe = cli.pipeline_from_args(cli.parse_args(
+        ["serve", "--checkpoint", demo_dir]))
+    pipe.warmup()
+    server, thread, port = _serving(pipe)
+    try:
+        bodies = []
+        for _ in range(2):
+            reply = _post(port, SERVE_TRAINED)
+            _check_reply("train serve", SERVE_TRAINED, "", reply)
+            bodies.append(reply[1])
+    finally:
+        server.shutdown()
+        shutdown_gracefully(server, pipe)
+        thread.join(timeout=30)
+    if bodies[0] != bodies[1]:
+        raise AssertionError("train serve: same-seed WAV bytes differ")
+    log(f"[train serve] the trained flagship-recipe checkpoint served two "
+        f"same-seed WAVs of {len(bodies[0])} bytes, equal")
+    return {"metrics": metrics, "served_wav_bytes": len(bodies[0])}
+
+
+def serve_train(torch) -> dict:
+    """Phase train: training on the card, (a)-(f) of train_large2 and
+    train_demo, with the timings of both recipes. -> launch counts over
+    the phase."""
+    import tempfile
+
+    from eamg_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.reset_launch_counts()
+        large2 = train_large2(torch, tmp)
+        demo = train_demo(torch, tmp)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+    for name in TRAIN_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"train: {name} was not launched")
+    trainer, steps = _flagship_trainer(torch)
+    flagship = _timed_steps(torch, trainer, steps[:TRAIN_STEPS], "flagship")
+    flagship["profile"] = _profiled_steps(
+        torch, trainer, steps[TRAIN_STEPS:TRAIN_STEPS + PROFILED_STEPS],
+        "flagship")
+    log(json.dumps({"train": {"large2": large2, "demo": demo,
+                              "flagship_timing": flagship,
+                              "launches": counts}}))
+    log(f"[train] phase {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
-          "spec", "options", "batch")
+          "spec", "options", "batch", "train")
 
 
 def main(argv=None) -> int:
@@ -4780,6 +5270,8 @@ def main(argv=None) -> int:
     if "batch" in phases:
         counts["batch"] = batch_decode(torch)
         counts["generate"] = cli_generate(torch)
+    if "train" in phases:
+        counts["train"] = serve_train(torch)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
         log("chip_smoke: a partial run; no kernels line and no last line")

@@ -1,5 +1,5 @@
-"""Command line of the port: ``python -m eamg_tpu_torch.cli serve`` and
-``python -m eamg_tpu_torch.cli generate``.
+"""Command line of the port: ``python -m eamg_tpu_torch.cli serve``,
+``generate``, ``train`` and ``train-demo-a``.
 
 ``generate`` writes one MIDI file (and with ``--wav`` a WAV file) from
 fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
@@ -27,7 +27,19 @@ engine options ``--slots``, ``--chunk``, ``--max-queue``,
 n-gram ban size) and ``--engine-grammar`` (the scheme's FSM in the engine
 or the window batcher). The JAX CLI's other subcommands, and Medusa rows
 in the engine (``--engine-medusa`` exits 2), are not in the port yet.
-Both subcommands run on the CUDA device unless ``--device cpu`` is
+
+``train`` runs one of the reference trainers' presets (``--preset mini``,
+``large``, ``large2``, ``no_inst``, ``paper``) on a corpus CSV or
+``--synthetic N`` synthetic songs, with the JAX CLI's flags
+(``--corrected``, ``--pack``, ``--attn-block``, geometry overrides,
+``--save-every``, ``--save-hours``, ``--resume``), and prints its summary
+as JSON. ``train-demo-a`` trains the Scheme-A demo on the grid corpus
+(``--geometry flagship --kv-heads 2`` is the shipped flagship's own
+recipe) and writes a checkpoint ``serve`` reads, with
+``train_metrics.json``. The mesh modes (``--mesh-data``/``--mesh-model``
+above 1, ``--fsdp``) and MoE (``--experts``) are not in the port yet and
+exit 2 naming the flag.
+Every subcommand runs on the CUDA device unless ``--device cpu`` is
 given.
 """
 
@@ -43,6 +55,8 @@ _ENGINE_NOT_YET = ("engine_medusa",)
 # decode modes of the JAX CLI's generate that the port does not carry yet
 # (draft speculation needs a second checkpoint of the same vocabulary)
 _GENERATE_NOT_YET = ("draft",)
+# training modes of the JAX CLI's train that the port does not carry yet
+_TRAIN_NOT_YET = ("fsdp", "experts")
 
 
 def _refuse(args, names) -> bool:
@@ -250,6 +264,130 @@ def _write_song(args, song, device) -> int:
     return 0
 
 
+def _train(args) -> int:
+    import json
+
+    from .train.run import run_training
+
+    for flag in ("mesh_data", "mesh_model"):
+        if getattr(args, flag) > 1:
+            print(f"--{flag.replace('_', '-')} > 1 is not yet in the "
+                  "PyTorch port", file=sys.stderr)
+            return 2
+    if _refuse(args, _TRAIN_NOT_YET):
+        return 2
+    summary = run_training(
+        args.preset, csv_path=args.csv, synthetic_rows=args.synthetic,
+        max_rows=args.max_rows, out_dir=args.out, scheme=args.scheme,
+        epochs=args.epochs, save_every_steps=args.save_every,
+        save_hours=args.save_hours, seed=args.seed,
+        log_every=args.log_every, log_fn=lambda m: print(m, flush=True),
+        resume_from=args.resume, corrected=args.corrected, pack=args.pack,
+        geometry={"d_model": args.d_model, "n_head": args.n_head,
+                  "n_layer": args.n_layer, "seq_len": args.seq_len,
+                  "attn_block": args.attn_block},
+        device=args.device)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+def _train_demo_a(args) -> int:
+    import dataclasses
+    import json
+
+    from .tools.demo_a import DemoASpec, flagship_spec, train_demo_a
+
+    if args.geometry == "flagship":
+        spec = flagship_spec(seed=args.seed)
+        over = {k: v for k, v in
+                [("epochs", args.epochs), ("rows", args.rows),
+                 ("heldout_rows", args.heldout_rows),
+                 ("kv_heads", args.kv_heads)] if v is not None}
+        spec = dataclasses.replace(spec, **over)
+    else:
+        spec = DemoASpec(rows=args.rows or 12000,
+                         heldout_rows=args.heldout_rows or 400,
+                         epochs=args.epochs or 8, seed=args.seed,
+                         kv_heads=args.kv_heads)
+    metrics = train_demo_a(args.out, spec=spec,
+                           log_fn=lambda m: print(m, flush=True),
+                           device=args.device)
+    print(json.dumps(metrics), flush=True)
+    return 0
+
+
+def _add_train(sub) -> None:
+    t = sub.add_parser("train", help="train a music generator")
+    t.add_argument("--preset", default="large2",
+                   choices=["mini", "large", "large2", "no_inst", "paper"])
+    t.add_argument("--csv", default=None)
+    t.add_argument("--synthetic", type=int, default=None,
+                   help="rows of synthetic corpus instead of --csv")
+    t.add_argument("--max-rows", type=int, default=None)
+    t.add_argument("--out", default="ckpt_out")
+    t.add_argument("--scheme", default=None,
+                   choices=[None, "a", "b1", "b2", "b3"])
+    t.add_argument("--epochs", type=int, default=None)
+    t.add_argument("--save-every", type=int, default=500)
+    t.add_argument("--save-hours", type=float, default=None)
+    t.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' trains on the "
+                        "host)")
+    t.add_argument("--mesh-data", type=int, default=1,
+                   help="not yet in the port above 1")
+    t.add_argument("--mesh-model", type=int, default=1,
+                   help="not yet in the port above 1")
+    t.add_argument("--fsdp", action="store_true", help="not yet in the port")
+    t.add_argument("--pack", action="store_true",
+                   help="sequence packing: several whole songs per row "
+                        "with block-diagonal attention + per-segment "
+                        "positions (implies --corrected)")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--log-every", type=int, default=50)
+    t.add_argument("--resume", default=None,
+                   help="checkpoint dir to resume from (step + optimizer "
+                        "state restored)")
+    t.add_argument("--d-model", type=int, default=None,
+                   help="override the preset's model width")
+    t.add_argument("--n-head", type=int, default=None)
+    t.add_argument("--n-layer", type=int, default=None)
+    t.add_argument("--seq-len", type=int, default=None)
+    t.add_argument("--attn-block", type=int, default=None,
+                   help="blockwise online-softmax training attention "
+                        "with this KV block size")
+    t.add_argument("--experts", type=int, default=None,
+                   help="not yet in the port")
+    t.add_argument("--moe-every", type=int, default=1,
+                   help="with --experts (not yet in the port)")
+    t.add_argument("--corrected", action="store_true",
+                   help="train the corrected causal architecture (no "
+                        "reference quirks; enables speculative decoding "
+                        "and request coalescing)")
+    t.set_defaults(fn=_train)
+
+    da = sub.add_parser("train-demo-a",
+                        help="train the Scheme-A demo on the grid-quantized "
+                             "motif-reuse corpus (metrics in "
+                             "train_metrics.json)")
+    da.add_argument("--out", default="demo_a_out")
+    da.add_argument("--rows", type=int, default=None,
+                    help="default: 12000 compact / 24000 flagship")
+    da.add_argument("--heldout-rows", type=int, default=None)
+    da.add_argument("--epochs", type=int, default=None,
+                    help="default: 8 compact / 24 flagship")
+    da.add_argument("--seed", type=int, default=0)
+    da.add_argument("--geometry", choices=["compact", "flagship"],
+                    default="compact",
+                    help="flagship = the reference product geometry "
+                         "(d512 h8 L6 seq512) on ~480-token grid songs")
+    da.add_argument("--kv-heads", type=int, default=None,
+                    help="train GQA natively with this many K/V heads")
+    da.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' trains on the "
+                         "host)")
+    da.set_defaults(fn=_train_demo_a)
+
+
 def _add_generate(sub) -> None:
     g = sub.add_parser("generate", help="generate MIDI (batch/interactive)")
     g.add_argument("--checkpoint", default=None,
@@ -319,6 +457,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="eamg_tpu_torch.cli")
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_generate(sub)
+    _add_train(sub)
     s = sub.add_parser("serve", help="serve POST /generate")
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8000)

@@ -1,6 +1,6 @@
 """The GPT decoder, in PyTorch: ``init_params``, ``forward``,
 ``forward_hidden``, ``forward_masked``, ``prefill``, ``decode_step``,
-``decode_block``.
+``decode_block``, and the training forward ``forward_hidden_train``.
 
 Port of ``eamg_tpu/models/gpt.py`` with the same parameter tree (torch
 layout, fused ``in_proj``) and the same quirk flags: post-/pre-LN,
@@ -34,8 +34,19 @@ causally within the block. JAX computes its attention in XLA, outside any
 Pallas kernel, so it stays plain products here too, rounded as JAX rounds
 them; its FFN goes through K2 at G rows.
 
-Not yet ported: ``decode_tree``, MoE layers, int8 weights, ``attn_block``
-and packed ``seg`` rows.
+``forward_hidden_train`` is the differentiable forward of the trainer. It
+follows the JAX model's ``kernels="xla"`` branches, which JAX's training
+step runs (no Pallas kernel of the JAX package has a backward rule):
+per-segment positions and block-diagonal attention for packed ``seg``
+rows, the ``batch_first_bug`` swap, dense attention (grouped scores in the
+activation dtype, masks at ``finfo(dt).min``, softmax in f32, probabilities
+cast to the values' dtype) or, with ``attn_block``, the blockwise online
+softmax, and the FFN as ``_linear`` -> activation -> ``_linear``. It is
+plain PyTorch under autograd and never reaches a kernel wrapper (they
+refuse inputs that require grad). A checkpoint trained with
+``attn_block`` is served through K1, which computes the same function.
+
+Not yet ported: ``decode_tree``, MoE layers and int8 weights.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -162,33 +174,58 @@ def preset(name: str, vocab_size: int) -> GPTConfig:
 def _check_supported(cfg: GPTConfig) -> None:
     if cfg.n_experts:
         raise NotImplementedError("MoE layers are not in the port yet")
-    if cfg.attn_block is not None:
-        raise NotImplementedError("attn_block is not in the port yet")
 
 
 # ------------------------------------------------------------------- init
 
-def init_params(generator: torch.Generator, cfg: GPTConfig) -> dict:
+def init_params(rng, cfg: GPTConfig, device=None) -> dict:
     """Random parameters in the tree and with the distributions of the JAX
     package's ``init_params`` (torch's default initialisers: embedding
     N(0, 1), zero positions, Xavier-uniform ``in_proj``, Kaiming-uniform
-    linears with fan-in bias bounds), f32, on the generator's device. The
-    values are this generator's, not JAX's for the same seed."""
+    linears with fan-in bias bounds), f32, drawn in JAX's order.
+
+    ``rng`` is a threefry key (``utils.prng.PRNGKey(seed)``): every uniform
+    leaf then equals JAX's bit for bit and the N(0, 1) ``tok_emb`` is drawn
+    through XLA's f32 ``erf_inv`` (:func:`erf_inv_f32`), on ``device``
+    (default the CPU). ``rng`` may also be a ``torch.Generator``: the values
+    are then that generator's, on its device (``bench.py``'s weights)."""
     _check_supported(cfg)
-    dev = generator.device
+    if isinstance(rng, torch.Generator):
+        dev = rng.device
+
+        def uniform(shape, bound):
+            return (torch.rand(shape, generator=rng, device=dev) * 2 - 1) \
+                * bound
+
+        def normal(shape):
+            return torch.randn(shape, generator=rng, device=dev)
+    else:
+        from ..utils import prng
+
+        dev = torch.device(device or "cpu")
+        keys = iter(prng.split(rng, 6 + 12 * cfg.n_layer))
+
+        def uniform(shape, bound):
+            return prng.uniform(next(keys), shape, -bound, bound, device=dev)
+
+        def normal(shape):
+            # jax.random.normal: sqrt(2) erf_inv(u), u uniform on
+            # [nextafter(-1, 0), 1) in f32
+            lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+            return float(np.float32(math.sqrt(2.0))) * erf_inv_f32(
+                prng.uniform(next(keys), shape, lo, 1.0, device=dev))
+
     D, FF, V = cfg.d_model, cfg.ff, cfg.vocab_size
 
-    def uniform(shape, bound):
-        return (torch.rand(shape, generator=generator, device=dev) * 2 - 1) \
-            * bound
-
     def kaiming(fan_out, fan_in):
-        return (uniform((fan_out, fan_in), math.sqrt(1.0 / fan_in)),
-                uniform((fan_out,), 1.0 / math.sqrt(fan_in)))
+        w = uniform((fan_out, fan_in), math.sqrt(6.0 / ((1 + 5) * fan_in)))
+        return w, uniform((fan_out,), 1.0 / math.sqrt(fan_in))
 
     in_rows = D + 2 * cfg.kv_dim
     layers = []
     for _ in range(cfg.n_layer):
+        # attention first, then the MLP, whose kaiming draws of w1 and w2
+        # consume a bias draw each, unused (JAX's order)
         in_w = uniform((in_rows, D), math.sqrt(6.0 / (3 * D + D)))
         out_w, out_b = kaiming(D, D)
         w1, _ = kaiming(FF, D)
@@ -205,9 +242,42 @@ def init_params(generator: torch.Generator, cfg: GPTConfig) -> dict:
             "mlp": {"w1": w1, "b1": b1, "w2": w2, "b2": b2},
         })
     head_w, head_b = kaiming(V, D)
-    return {"tok_emb": torch.randn((V, D), generator=generator, device=dev),
+    return {"tok_emb": normal((V, D)),
             "pos": torch.zeros((cfg.n_pos, D), device=dev),
             "layers": layers, "head": {"w": head_w, "b": head_b}}
+
+
+# XLA's f32 erf_inv (Giles' single-precision polynomial in w = -log1p(-x^2),
+# one set of coefficients for w < 5 and one for the tails)
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                -4.39150654e-06, 0.00021858087, -0.00125372503,
+                -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """erf^-1 of f32 ``x`` as XLA computes it in f32: the polynomial's
+    multiply-adds fused (a product of two f32 values is exact in f64, so an
+    f64 sum rounded to f32 is the fused result), log1p in f64 rounded to
+    f32, and +-inf at +-1. Against XLA:CPU's ``lax.erf_inv`` it differs by
+    at most 2 ulps on ~1% of uniform inputs (XLA:CPU's log1p rounds
+    elsewhere); the card and the host differ on a few in a million (f64
+    log1p), by at most 2 ulps."""
+    w = (-torch.log1p(-(x * x).double())).float()
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):
+        return torch.where(lt, float(np.float32(_ERF_INV_LT5[i])),
+                           float(np.float32(_ERF_INV_GE5[i]))).double()
+
+    p = coef(0)
+    for i in range(1, len(_ERF_INV_LT5)):
+        p = (coef(i) + p * w).float().double()
+    r = p.float() * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, r)
 
 
 # ---------------------------------------------------------------- compute
@@ -265,15 +335,17 @@ def _attn_input(p: dict, x, cfg: GPTConfig):
     return _layer_norm(x, p["ln1"]["g"], p["ln1"]["b"], cfg.ln_eps)
 
 
-def _finish_block(p: dict, x, attn_out, cfg: GPTConfig):
+def _finish_block(p: dict, x, attn_out, cfg: GPTConfig, mlp=_mlp):
+    """Residual + FFN wiring after attention, for both LN placements;
+    ``mlp`` is K2's wrapper, or the training forward's plain FFN."""
     eps = cfg.ln_eps
     if cfg.ln_placement == "post":
         x = _layer_norm(x + attn_out, p["ln1"]["g"], p["ln1"]["b"], eps)
-        return _layer_norm(x + _mlp(p["mlp"], x, cfg),
+        return _layer_norm(x + mlp(p["mlp"], x, cfg),
                            p["ln2"]["g"], p["ln2"]["b"], eps)
     x = x + attn_out
-    return x + _mlp(p["mlp"],
-                    _layer_norm(x, p["ln2"]["g"], p["ln2"]["b"], eps), cfg)
+    return x + mlp(p["mlp"],
+                   _layer_norm(x, p["ln2"]["g"], p["ln2"]["b"], eps), cfg)
 
 
 def block(p: dict, x, cfg: GPTConfig, causal: bool = False, valid_len=None):
@@ -339,6 +411,168 @@ def forward_masked(params: dict, ids: torch.Tensor, cfg: GPTConfig,
     for p in params["layers"]:
         x, _, _ = block(p, x, cfg, causal=cfg.causal, valid_len=valid)
     return _head(params, x)
+
+
+# ------------------------------------------------------- training forward
+
+def _in_dtype(value: float, dt: torch.dtype) -> float:
+    """A Python scalar rounded to ``dt``, as XLA rounds a weakly typed
+    constant to the array it multiplies."""
+    return float(torch.tensor(value, dtype=dt))
+
+
+def _gqa_scores(q, k, sm_scale: float):
+    """q [B, H, T, Dh] x k [B, Hkv, M, Dh] -> [B, H, T, M] in the
+    activation dtype, the K/V heads shared by groups of H // Hkv queries."""
+    B, H, T, Dh = q.shape
+    Hkv = k.shape[1]
+    s = torch.einsum("bkgqd,bkmd->bkgqm", q.reshape(B, Hkv, H // Hkv, T, Dh),
+                     k)
+    return (s * _in_dtype(sm_scale, s.dtype)).reshape(B, H, T, k.shape[2])
+
+
+def _gqa_values(probs, v):
+    """probs [B, H, T, M] x v [B, Hkv, M, Dh] -> [B, H, T, Dh]."""
+    B, H, T, M = probs.shape
+    Hkv = v.shape[1]
+    out = torch.einsum("bkgqm,bkmd->bkgqd",
+                       probs.reshape(B, Hkv, H // Hkv, T, M), v)
+    return out.reshape(B, H, T, v.shape[3])
+
+
+def _blockwise_attention(q, k, v, sm_scale: float, causal: bool,
+                         block: int):
+    """JAX's ``_blockwise_attention``: the online softmax over key blocks
+    of ``block`` (a Python loop, as JAX unrolls it), a running f32 row
+    max, denominator and accumulator; masked scores at -inf, all-masked
+    rows shifted by 0; p rounded to the values' dtype before its product,
+    which accumulates in f32."""
+    B, H, T, Dh = q.shape
+    Hkv = v.shape[1]
+    T_k = k.shape[2]
+    nb = -(-T_k // block)
+    pad = nb * block - T_k
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    qg = q.reshape(B, Hkv, H // Hkv, T, Dh)
+    rows = torch.arange(T, device=q.device)[:, None]
+    m = torch.full((B, Hkv, H // Hkv, T), -math.inf, device=q.device)
+    l = torch.zeros((B, Hkv, H // Hkv, T), device=q.device)
+    acc = torch.zeros((B, Hkv, H // Hkv, T, Dh), device=q.device)
+    scale = _in_dtype(sm_scale, q.dtype)
+    for b in range(nb):
+        kblk = k[:, :, b * block:(b + 1) * block]
+        vblk = v[:, :, b * block:(b + 1) * block]
+        s = (torch.einsum("bkgqd,bkmd->bkgqm", qg, kblk) * scale).float()
+        cols = b * block + torch.arange(block, device=q.device)[None, :]
+        mask = cols < T_k
+        if causal:
+            mask = mask & (cols <= rows)
+        s = torch.where(mask, s, -math.inf)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        # all-masked rows keep m == -inf; shift by 0 there
+        shift = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - shift[..., None])
+        corr = torch.exp(torch.where(torch.isfinite(m), m - shift,
+                                     -math.inf))
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bkgqm,bkmd->bkgqd", p.to(vblk.dtype).float(),
+                          vblk.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, H, T, Dh).to(v.dtype)
+
+
+def _attention_train(p_attn: dict, x, cfg: GPTConfig, causal: bool,
+                     seg=None):
+    """Self-attention as JAX's XLA branch computes it (``attention`` with
+    ``kernels="xla"``): dense, or blockwise with ``attn_block`` (not with
+    ``seg``, as in JAX)."""
+    (wq, bq), (wk, bk), (wv, bv) = _split_qkv(p_attn)
+    q = _heads(_linear(x, wq, bq), cfg.n_head)
+    k = _heads(_linear(x, wk, bk), cfg.kv_heads)
+    v = _heads(_linear(x, wv, bv), cfg.kv_heads)
+    sm_scale = 1.0 / math.sqrt(cfg.head_dim)
+    if cfg.attn_block is not None and seg is None:
+        out = _blockwise_attention(q, k, v, sm_scale, causal, cfg.attn_block)
+        return _linear(_unheads(out), p_attn["out_w"], p_attn["out_b"])
+    scores = _gqa_scores(q, k, sm_scale)
+    T_q, T_k = scores.shape[-2], scores.shape[-1]
+    if causal or seg is not None:
+        mask = torch.ones((T_q, T_k), dtype=torch.bool, device=x.device)
+        if causal:
+            mask = torch.tril(mask)
+        mask = mask[None, None]
+        if seg is not None:
+            mask = mask & (seg[:, None, :, None] == seg[:, None, None, :])
+        scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    out = _unheads(_gqa_values(probs, v))
+    return _linear(out, p_attn["out_w"], p_attn["out_b"])
+
+
+def _gelu_exact(h):
+    """``jax.nn.gelu(h, approximate=False)`` in h's dtype:
+    ``0.5 h * erfc(-h sqrt(1/2))``, the constant rounded to that dtype."""
+    c = _in_dtype(math.sqrt(0.5), h.dtype)
+    e = torch.special.erfc(-h.float() * c).to(h.dtype).float()
+    return ((0.5 * h.float()) * e).to(h.dtype)
+
+
+def _mlp_train(p, x, cfg: GPTConfig):
+    """The FFN of JAX's XLA branch: ``_linear`` -> activation ->
+    ``_linear``, each product and bias add rounded to the activation
+    dtype."""
+    h = _linear(x, p["w1"], p["b1"])
+    h = _gelu_exact(h) if cfg.activation == "gelu" else torch.relu(h)
+    return _linear(h, p["w2"], p["b2"])
+
+
+def _pos_from_seg(seg: torch.Tensor) -> torch.Tensor:
+    """[B, T] segment ids -> [B, T] positions that restart at 0 at each
+    segment boundary (a running max of boundary-stamped indices)."""
+    B, T = seg.shape
+    ar = torch.arange(T, device=seg.device)[None, :].expand(B, T)
+    boundary = torch.cat([torch.ones((B, 1), dtype=torch.bool,
+                                     device=seg.device),
+                          seg[:, 1:] != seg[:, :-1]], dim=1)
+    starts = torch.cummax(torch.where(boundary, ar, 0), dim=1).values
+    return ar - starts
+
+
+def forward_hidden_train(params: dict, ids: torch.Tensor, cfg: GPTConfig,
+                         seg: torch.Tensor | None = None) -> torch.Tensor:
+    """The differentiable transformer stack of the trainer: [B, T] ids ->
+    [B, T, D] states in the activation dtype (JAX's
+    ``_forward_hidden_impl`` on its XLA branches). ``seg`` ([B, T] segment
+    ids, 0 = pad) runs packed rows: per-segment positions and
+    block-diagonal attention, on the corrected causal configuration only.
+    The gathers are ``F.embedding``, whose backward sums a row's
+    gradients in a fixed order on the card."""
+    _check_supported(cfg)
+    ids = ids.long()
+    T = ids.shape[1]
+    if seg is None:
+        pos = params["pos"][:T]
+    else:
+        if not cfg.causal or cfg.batch_first_bug:
+            raise ValueError("packed training requires causal=True without "
+                             "batch_first_bug")
+        pos = F.embedding(_pos_from_seg(seg), params["pos"])
+    x = (F.embedding(ids, params["tok_emb"]) + pos).to(cfg.torch_dtype)
+    if cfg.batch_first_bug:
+        # the reference encoder read [B, T, C] as [T, B, C]: attention
+        # runs across the batch at every time position
+        x = x.transpose(0, 1)
+    for p in params["layers"]:
+        attn_out = _attention_train(p["attn"], _attn_input(p, x, cfg), cfg,
+                                    cfg.causal, seg)
+        x = _finish_block(p, x, attn_out, cfg, mlp=_mlp_train)
+    if cfg.batch_first_bug:
+        x = x.transpose(0, 1)
+    return x
 
 
 # ------------------------------------------------------------ KV decoding

@@ -211,6 +211,21 @@ def check(err: int, what: str, smem: str | None = None) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise when autograd is recording and an input requires grad, on any
+    device: a kernel launched through raw pointers into a fresh output
+    leaves no ``grad_fn``, so every gradient upstream of it would be
+    dropped without an error. Training runs its own differentiable
+    forward (``models/gpt.py::forward_hidden_train``) and never reaches a
+    wrapper."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(f"{what}: an input requires grad, and the kernel "
+                           "has no backward; call it under torch.no_grad() "
+                           "or train through forward_hidden_train")
+
+
 def require_cuda(what: str, t: torch.Tensor) -> None:
     """Raise unless ``t`` lies on a CUDA device: a wrapper launches its
     kernel on CUDA tensors only (on CPU tensors it takes its plain

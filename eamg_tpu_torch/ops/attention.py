@@ -99,7 +99,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T / sqrt(Dh) + mask) v: q [B, H, T, Dh], k/v
     [B, Hkv, T, Dh], valid_len [B] int32 keys per row (None = all T).
     CPU tensors take :func:`attention_plain`; CUDA tensors launch K1 (one
-    launch)."""
+    launch). Refuses inputs that require grad while autograd records."""
+    _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, valid_len, causal)
     return _flash_attention(q, k, v, valid_len, causal, WARPS)

@@ -143,6 +143,7 @@ def flash_decode_sp(q: torch.Tensor, k_cache: torch.Tensor,
     tensors take :func:`decode_attention_plain`; CUDA tensors launch K3's
     kernel once, as :func:`sp_plan` says, with t passed as a device
     pointer (the host never reads it)."""
+    _build.refuse_grad("flash_decode_sp", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, t)
     return _flash_decode_sp(q, k_cache, v_cache, t)
@@ -289,6 +290,7 @@ def _scalar_t(name: str, q: torch.Tensor, k_cache: torch.Tensor,
     """The cluster kernel as wrapper ``name`` launches it, C blocks a
     (row, head) (None: :func:`cluster_size` at this shape), t passed as a
     device pointer (:func:`scalar_t`)."""
+    _build.refuse_grad(name, q, k_cache, v_cache)
     if q.dim() != 4 or q.shape[2] != 1 or k_cache.dim() != 4 \
             or v_cache.shape != k_cache.shape \
             or k_cache.shape[0] != q.shape[0] \

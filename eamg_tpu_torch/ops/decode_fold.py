@@ -185,6 +185,7 @@ def _fold_sp(name: str, q: torch.Tensor, kv: torch.Tensor, t, n_head: int,
     :func:`sp_plan` says, or over spans of the keys with C blocks a (row,
     KV head) (chip_smoke.py checks the other sizes), t [B] passed as a
     device pointer."""
+    _build.refuse_grad(name, q, kv)
     if q.device.type == "cpu":
         return decode_attention_pm_plain(q, kv, t, n_head)
     _check_fold(name, q, kv, n_head, decode_attention.DH_TAKEN)
@@ -284,6 +285,7 @@ def _fold_cluster(name: str, q: torch.Tensor, kv: torch.Tensor, t,
     """The cluster kernel as wrapper ``name`` launches it, C blocks a batch
     row (None: :func:`cluster_size` of the card at this shape)."""
     normalize = ROUNDING[name]
+    _build.refuse_grad(name, q, kv)
     if q.device.type == "cpu":
         return decode_attention_pm_plain(q, kv, t, n_head, normalize)
     _check_fold(name, q, kv, n_head)
@@ -381,6 +383,7 @@ def stream_reduce(kv: torch.Tensor, rows: int = 4) -> torch.Tensor:
     batch rows and returns the last group's sum over its lines (see
     :func:`stream_reduce_plain`). CPU tensors take the plain version; CUDA
     tensors one launch of the kernel."""
+    _build.refuse_grad("stream_reduce", kv)
     if kv.device.type == "cpu":
         return stream_reduce_plain(kv, rows)
     _build.require_cuda("stream_reduce", kv)

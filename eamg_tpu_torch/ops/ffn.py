@@ -133,7 +133,9 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """x [..., D], w1 [FF, D], b1 [FF], w2 [D, FF], b2 [D] -> [..., D],
     rounded where ``order`` says (:func:`ffn_plain`). CPU tensors take
     :func:`ffn_plain`; CUDA tensors launch K2, one cooperative launch
-    (:func:`check_args` says what it takes)."""
+    (:func:`check_args` says what it takes). Refuses inputs that require
+    grad while autograd records."""
+    _build.refuse_grad("fused_ffn", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return ffn_plain(x, w1, b1, w2, b2, activation, order)
     if x.device.type != "cuda":

@@ -117,6 +117,7 @@ def kth_value(logits: torch.Tensor, k: int) -> torch.Tensor:
     """[B, V] -> [B, 1] exact k-th largest value per row, 0 < k <= V.
     CPU tensors take :func:`kth_value_plain`; CUDA tensors launch K4 (on
     the logits as f32, the result cast back, like the Pallas wrapper)."""
+    _build.refuse_grad("kth_value", logits)
     if logits.device.type == "cpu":
         return kth_value_plain(logits, k)
     _check("kth_value", logits, k)
@@ -137,6 +138,7 @@ def top_k_mask(logits: torch.Tensor, k: int,
     one launch of K4 that selects the threshold and writes the masked
     logits, the 16-bit ones on their f32 copy: widening is exact, and the
     plain version's compare and add give the same f32 result."""
+    _build.refuse_grad("top_k_mask", logits)
     if logits.device.type == "cpu":
         return top_k_mask_plain(logits, k, mask_value)
     _check("top_k_mask", logits, k)

@@ -1,3 +1,6 @@
-"""Training-side helpers of the port. So far only the synthetic corpora
-and the row padding (``train/data.py``) that the Medusa probe reads;
-training itself is not in the port yet."""
+"""Training: the host data pipeline and synthetic corpora
+(``train/data.py``), the trainer (``train/trainer.py``: the losses,
+optax's AdamW arithmetic, gradient accumulation, ``Trainer``), the
+background prefetch (``train/prefetch.py``) and the reference runs
+(``train/run.py``). The mesh modes and MoE training are not in the port
+yet."""

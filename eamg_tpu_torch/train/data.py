@@ -1,29 +1,154 @@
-"""Synthetic corpora (fake Scheme-A songs) and the padding of id rows.
+"""Host data pipeline: corpus CSV streaming, padded/shifted id batches,
+packed rows, and the synthetic corpora.
 
-The port's copy of the corpus part of ``eamg_tpu/train/data.py``:
-``synthetic_song`` / ``synthetic_corpus`` (the tempo-locked songs the
-Scheme-B3 demo was trained on) and ``grid_song`` / ``grid_corpus`` (the
-quantized-grid songs of the Scheme-A flagship), with the same random
-streams, so a seed gives the same rows; and ``pad_rows``. The Medusa probe
-(``tools/medusa.py``) reads held-out rows of them.
+The port's copy of ``eamg_tpu/train/data.py`` (host numpy, no torch):
+- ``iter_csv_tokens`` streams the JSON ``tokens`` column of a corpus CSV;
+- ``pad_and_shift`` pads an id row to ``seq_len`` and shifts it by one
+  (x = full[:-1], y = full[1:]), and ``batches`` groups such rows into
+  [accum_steps, micro_batch, seq_len - 1] steps, shuffled per epoch with
+  ``random.Random(shuffle_seed)`` exactly as the JAX package shuffles, the
+  last step filled with all-PAD rows when ``drop_last`` is False;
+- ``pack_rows`` / ``packed_batches`` put several whole songs in one row,
+  with 1-based segment ids and the targets that cross a song boundary
+  masked to PAD;
+- ``synthetic_song`` / ``synthetic_corpus`` (the tempo-locked songs the
+  Scheme-B3 demo was trained on) and ``grid_song`` / ``grid_corpus`` (the
+  quantized-grid songs of the Scheme-A flagship), with the same random
+  streams, so a seed gives the same rows; ``write_synthetic_csv`` writes
+  them with the reference corpus schema; ``pad_rows`` pads evaluation rows.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import random
-from typing import Iterable
+from typing import Iterable, Iterator
 
 import numpy as np
+
+
+def iter_csv_tokens(path: str, max_rows: int | None = None,
+                    column: str = "tokens") -> Iterator[str]:
+    """Stream the JSON-encoded token column of a corpus CSV."""
+    with open(path, newline="", encoding="utf-8") as f:
+        reader = csv.DictReader(f)
+        for i, row in enumerate(reader):
+            if max_rows is not None and i >= max_rows:
+                return
+            yield row[column]
+
+
+def pad_and_shift(ids: list[int], seq_len: int, pad_id: int
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """ids -> (x [seq_len-1], y [seq_len-1]): pad to seq_len, shift by one."""
+    full = list(ids[:seq_len])
+    full.extend([pad_id] * (seq_len - len(full)))
+    arr = np.asarray(full, np.int32)
+    return arr[:-1], arr[1:]
 
 
 def pad_rows(encoded: Iterable[list[int]], seq_len: int,
              pad_id: int) -> np.ndarray:
     """Truncate/right-pad each id row to seq_len -> [N, seq_len] int32
-    (the teacher-forced rows of the Medusa probe)."""
+    (the teacher-forced evaluation rows)."""
     return np.stack([np.asarray(
         (list(ids[:seq_len]) + [pad_id] * (seq_len - len(ids)))[:seq_len],
         np.int32) for ids in encoded])
+
+
+def batches(encoded: Iterable[list[int]], seq_len: int, pad_id: int,
+            micro_batch: int, accum_steps: int = 1, drop_last: bool = True,
+            shuffle_seed: int | None = None
+            ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Yield (x, y) of shape [accum_steps, micro_batch, seq_len-1]."""
+    rows = list(encoded)
+    if shuffle_seed is not None:
+        random.Random(shuffle_seed).shuffle(rows)
+    per_step = micro_batch * accum_steps
+    xs, ys = [], []
+    for ids in rows:
+        x, y = pad_and_shift(ids, seq_len, pad_id)
+        xs.append(x)
+        ys.append(y)
+        if len(xs) == per_step:
+            yield (np.stack(xs).reshape(accum_steps, micro_batch, -1),
+                   np.stack(ys).reshape(accum_steps, micro_batch, -1))
+            xs, ys = [], []
+    if xs and not drop_last:
+        while len(xs) < per_step:  # pad out the final step with PAD rows
+            xs.append(np.full_like(xs[0], pad_id))
+            ys.append(np.full_like(ys[0], pad_id))
+        yield (np.stack(xs).reshape(accum_steps, micro_batch, -1),
+               np.stack(ys).reshape(accum_steps, micro_batch, -1))
+
+
+def pack_rows(encoded: Iterable[list[int]], seq_len: int, pad_id: int
+              ) -> tuple[np.ndarray, np.ndarray]:
+    """Greedy in-order packing of whole token streams into fixed rows:
+    consecutive songs are concatenated into [N, seq_len] rows with 1-based
+    segment ids per position (0 = trailing pad). Songs longer than seq_len
+    are truncated; a song that does not fit the current row starts the
+    next one, so rows never split a song.
+    Returns (rows [N, seq_len] int32, segs [N, seq_len] int32)."""
+    rows, segs = [], []
+    cur: list[int] = []
+    cseg: list[int] = []
+    k = 0
+
+    def flush():
+        pad = seq_len - len(cur)
+        rows.append(cur + [pad_id] * pad)
+        segs.append(cseg + [0] * pad)
+
+    for ids in encoded:
+        ids = list(ids[:seq_len])
+        if not ids:
+            continue
+        if len(cur) + len(ids) > seq_len:
+            flush()
+            cur, cseg, k = [], [], 0
+        k += 1
+        cur.extend(ids)
+        cseg.extend([k] * len(ids))
+    if cur:
+        flush()
+    return (np.asarray(rows, np.int32), np.asarray(segs, np.int32))
+
+
+def packed_batches(encoded: Iterable[list[int]], seq_len: int, pad_id: int,
+                   micro_batch: int, accum_steps: int = 1,
+                   drop_last: bool = True,
+                   shuffle_seed: int | None = None
+                   ) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Packed twin of :func:`batches`: yields (x, y, seg), each
+    [accum_steps, micro_batch, seq_len-1]. Targets whose source and
+    destination lie in different segments (a song's last token predicting
+    the next song's first, and pad tails) are masked to ``pad_id``;
+    ``shuffle_seed`` shuffles songs before packing."""
+    rows_in = list(encoded)
+    if shuffle_seed is not None:
+        random.Random(shuffle_seed).shuffle(rows_in)
+    rows, segs = pack_rows(rows_in, seq_len, pad_id)
+    x_all, y_all = rows[:, :-1], rows[:, 1:].copy()
+    seg_all = segs[:, :-1]
+    y_all[segs[:, 1:] != seg_all] = pad_id          # boundary + pad targets
+    per_step = micro_batch * accum_steps
+    T = seq_len - 1
+    for i in range(0, len(rows), per_step):
+        xs, ys, ss = (a[i:i + per_step] for a in (x_all, y_all, seg_all))
+        if len(xs) < per_step:
+            if drop_last:
+                return
+            fill = per_step - len(xs)
+            xs = np.concatenate(
+                [xs, np.full((fill, T), pad_id, np.int32)])
+            ys = np.concatenate(
+                [ys, np.full((fill, T), pad_id, np.int32)])
+            ss = np.concatenate([ss, np.zeros((fill, T), np.int32)])
+        yield (xs.reshape(accum_steps, micro_batch, T),
+               ys.reshape(accum_steps, micro_batch, T),
+               ss.reshape(accum_steps, micro_batch, T))
 
 
 # ------------------------------------------------------- synthetic corpus
@@ -221,3 +346,13 @@ def grid_corpus(n_rows: int, seed: int = 0, n_motifs: int = 40,
         rng, lib, key=_KEYS[i % len(_KEYS)] if i < len(_KEYS) else None,
         max_units=max_units, n_chains=n_chains))
         for i in range(n_rows)]
+
+
+def write_synthetic_csv(path: str, n_rows: int, seed: int = 0,
+                        n_notes: int = 24) -> None:
+    """Write a corpus CSV with the reference schema (file, key, tokens)."""
+    with open(path, "w", newline="", encoding="utf-8") as f:
+        w = csv.writer(f)
+        w.writerow(["file", "key_signature", "tokens"])
+        for i, js in enumerate(synthetic_corpus(n_rows, seed, n_notes)):
+            w.writerow([f"synthetic_{i}.mid", "C major", js])

@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import sys
 
 import numpy as np
@@ -2559,10 +2560,352 @@ def task_grammar(inp, out):
     _grammar_http(out)
 
 
+# -------------------------------------------------------------------- train
+
+def _ragged(rows) -> np.ndarray:
+    return np.asarray(json.dumps([[int(v) for v in r] for r in rows]))
+
+
+def _train_data_checks(inp, out):
+    """tests/test_torch_train.py: the host data functions on the test's
+    inputs."""
+    from eamg_tpu_torch.train import data
+    from eamg_tpu_torch.train.run import encode_corpus, encode_corpus_csv
+
+    spec = json.loads(str(inp["data/spec"]))
+    encoded = spec["encoded"]
+    T, pad = spec["seq_len"], spec["pad"]
+    for name, kw in spec["batches"].items():
+        got = list(data.batches(encoded, T, pad, **kw))
+        out[f"data/batches/{name}/x"] = np.stack([x for x, _ in got])
+        out[f"data/batches/{name}/y"] = np.stack([y for _, y in got])
+    for name, kw in spec["packed"].items():
+        got = list(data.packed_batches(encoded, T, pad, **kw))
+        for i, part in enumerate("xys"):
+            out[f"data/packed/{name}/{part}"] = np.stack(
+                [b[i] for b in got]) if got else np.zeros((0,), np.int32)
+    shifted = [data.pad_and_shift(r, T, pad) for r in encoded]
+    out["data/shift/x"] = np.stack([x for x, _ in shifted])
+    out["data/shift/y"] = np.stack([y for _, y in shifted])
+    out["data/pack/rows"], out["data/pack/segs"] = data.pack_rows(encoded, T,
+                                                                  pad)
+    csv_path = str(inp["data/csv"])
+    data.write_synthetic_csv(csv_path, spec["csv_rows"], seed=spec["csv_seed"])
+    with open(csv_path, "rb") as f:
+        out["data/csv_bytes"] = np.frombuffer(f.read(), np.uint8)
+    out["data/csv_tokens"] = np.asarray(json.dumps(list(
+        data.iter_csv_tokens(csv_path, max_rows=spec["csv_max_rows"]))))
+    rows = json.loads(str(inp["data/corpus"]))
+    for scheme in ("a", "b1", "b2", "b3"):
+        enc, vocab = encode_corpus(rows, scheme, spec["corpus_seq_len"])
+        out[f"data/corpus/{scheme}/ids"] = _ragged(enc)
+        out[f"data/corpus/{scheme}/vocab"] = np.asarray(
+            json.dumps(vocab.tok2id))
+        enc, vocab = encode_corpus_csv(csv_path, scheme,
+                                       spec["corpus_seq_len"], max_rows=5)
+        out[f"data/csv/{scheme}/ids"] = _ragged(enc)
+        out[f"data/csv/{scheme}/vocab"] = np.asarray(json.dumps(vocab.tok2id))
+
+
+def _named_leaves(tree, prefix: str) -> dict:
+    """A tree of tensors -> {"prefix/a/0/b": numpy} (bf16 as float32)."""
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        else:
+            out[path] = _np(node.detach())
+
+    walk(tree, prefix)
+    return out
+
+
+def _train_loss_checks(inp, out):
+    """loss_fn / loss_fn_packed / loss_fn_chunked and their gradients for
+    every case of the test."""
+    from eamg_tpu_torch.train import trainer as tr
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    for name in json.loads(str(inp["loss/cases"])):
+        p = f"loss/{name}"
+        cfg = _cfg(inp, f"{p}/cfg")
+        spec = json.loads(str(inp[f"{p}/spec"]))
+        params = tr.tree_map(lambda t: t.requires_grad_(),
+                             params_from_jax(unflatten(inp, f"{p}/p")))
+        x, y = _t(inp[f"{p}/x"]).long(), _t(inp[f"{p}/y"]).long()
+        seg = _t(inp[f"{p}/seg"]).long() if f"{p}/seg" in inp else None
+        if spec["chunk"]:
+            loss, count = tr.loss_fn_chunked(params, x, y, cfg, 0,
+                                             spec["chunk"], seg=seg)
+        elif seg is not None:
+            loss, count = tr.loss_fn_packed(params, x, y, seg, cfg, 0)
+        else:
+            loss, count = tr.loss_fn(params, x, y, cfg, 0)
+        leaves = tr.tree_leaves(params)
+        grads = torch.autograd.grad(loss, leaves)
+        out[f"{p}/loss"] = np.asarray(float(loss))
+        out[f"{p}/count"] = np.asarray(int(count))
+        out.update(_named_leaves(tr.tree_unflatten(params, grads),
+                                 f"{p}/grad"))
+
+
+def _tcfg(inp, key):
+    from eamg_tpu_torch.train.trainer import TrainConfig
+
+    return TrainConfig(**json.loads(str(inp[key])))
+
+
+def _train_trainer_checks(inp, out):
+    """3 Trainer steps per case from the test's params and batches."""
+    from eamg_tpu_torch.train.trainer import Trainer
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    for name in json.loads(str(inp["trainer/cases"])):
+        p = f"trainer/{name}"
+        t = Trainer(_cfg(inp, f"{p}/cfg"), _tcfg(inp, f"{p}/tcfg"),
+                    params_from_jax(unflatten(inp, f"{p}/p")), device=CPU)
+        xs, ys = inp[f"{p}/x"], inp[f"{p}/y"]
+        ms = [t.train_step(xs[i], ys[i]) for i in range(xs.shape[0])]
+        for k in ("loss", "tokens", "lr", "grad_norm"):
+            if k in ms[0]:
+                out[f"{p}/{k}"] = np.asarray([m[k] for m in ms], np.float64)
+        out.update(_named_leaves(t.params, f"{p}/params"))
+
+
+def _train_checkpoint_checks(inp, out):
+    """Port save -> (the test's JAX load); JAX save with opt_state -> port
+    load and 2 more steps; init_params from a threefry key; the served
+    forward of an attn_block model."""
+    from eamg_tpu_torch.models.gpt import forward, init_params
+    from eamg_tpu_torch.train.trainer import Trainer, tree_map
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                 params_from_jax,
+                                                 save_checkpoint)
+
+    for name in json.loads(str(inp["init/cases"])):
+        cfg = _cfg(inp, f"init/{name}/cfg")
+        out.update(_named_leaves(init_params(prng.PRNGKey(
+            int(inp[f"init/{name}/seed"])), cfg), f"init/{name}/p"))
+
+    cfg, tcfg = _cfg(inp, "ckpt/cfg"), _tcfg(inp, "ckpt/tcfg")
+    vocab = json.loads(str(inp["ckpt/vocab"]))
+    xs, ys = inp["ckpt/x"], inp["ckpt/y"]
+    t = Trainer(cfg, tcfg, init_params(prng.PRNGKey(3), cfg), device=CPU)
+    t.train_step(xs[0], ys[0])
+    save_checkpoint(str(inp["ckpt/port_dir"]), t.params, vocab, cfg,
+                    opt_state=t.opt_state_tree(), step=t.step,
+                    extra={"preset": "test"})
+    save_checkpoint(str(inp["ckpt/port_bf16_dir"]),
+                    tree_map(lambda a: a.to(torch.bfloat16), t.params),
+                    vocab, cfg, step=t.step)
+    out.update(_named_leaves(t.params, "ckpt/port_params"))
+    out.update(_named_leaves(t.opt_state_tree()["mu"], "ckpt/port_mu"))
+
+    ck = load_checkpoint(str(inp["ckpt/jax_dir"]))
+    r = Trainer(ck["cfg"], tcfg, ck["params"], device=CPU)
+    r.load_opt_state(ck["opt_state"])
+    r.step = ck["step"]
+    out["ckpt/resume/step0"] = np.asarray(r.step)
+    out["ckpt/resume/count0"] = np.asarray(r.opt_state["count"])
+    out["ckpt/resume/loss"] = np.asarray(
+        [r.train_step(xs[i], ys[i])["loss"] for i in (1, 2)])
+    out.update(_named_leaves(r.params, "ckpt/resume/params"))
+
+    bcfg = _cfg(inp, "block/cfg")
+    params = params_from_jax(unflatten(inp, "block/p"))
+    out["block/logits"] = forward(params, _t(inp["block/ids"]).long(),
+                                  bcfg).numpy()
+
+
+def task_train(inp, out):
+    """tests/test_torch_train.py: the data functions, init_params, the
+    losses and their gradients, three Trainer steps per case, the
+    checkpoint round trips and the served forward of an attn_block
+    model."""
+    _train_data_checks(inp, out)
+    _train_loss_checks(inp, out)
+    _train_trainer_checks(inp, out)
+    _train_checkpoint_checks(inp, out)
+
+
+def _replay_checks(inp, out):
+    """perplexity, teacher_forced_logits and verify_stream on the test's
+    params and ids."""
+    from eamg_tpu_torch.decode.replay import (perplexity,
+                                              teacher_forced_logits,
+                                              verify_stream)
+    from eamg_tpu_torch.utils.checkpoint import params_from_jax
+
+    cfg = _cfg(inp, "replay/cfg")
+    params = params_from_jax(unflatten(inp, "replay/p"))
+    spec = json.loads(str(inp["replay/spec"]))
+    out["replay/ppl"] = np.asarray(perplexity(
+        params, cfg, inp["replay/ppl_ids"], pad_id=0, batch=spec["batch"]))
+    ids = inp["replay/ids"]
+    for refeed in (True, False):
+        out[f"replay/tf/{int(refeed)}"] = teacher_forced_logits(
+            params, ids, spec["prompt_len"], cfg,
+            refeed_last_prompt=refeed).numpy()
+    v = verify_stream(params, cfg, inp["replay/stream"], spec["prompt_len"],
+                      **spec["verify"])
+    for k, val in v.items():
+        out[f"replay/verify/{k}"] = np.asarray(val)
+
+
+def _run_training_checks(inp, out, tmp):
+    """run_training on the test's runs; the final checkpoints' params."""
+    from eamg_tpu_torch.train.run import run_training
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    for name, kw in json.loads(str(inp["run/cases"])).items():
+        d = f"{tmp}/run_{name}"
+        lines = []
+        s = run_training(out_dir=d, log_fn=lines.append, device=CPU, **kw)
+        out[f"run/{name}/summary"] = np.asarray(json.dumps(
+            {k: v for k, v in s.items() if k != "out_dir"}))
+        out[f"run/{name}/log"] = np.asarray(json.dumps(lines))
+        out[f"run/{name}/dirs"] = np.asarray(json.dumps(sorted(
+            os.listdir(d))))
+        out.update(_named_leaves(load_checkpoint(f"{d}/final")["params"],
+                                 f"run/{name}/final"))
+
+
+def _demo_checks(inp, out):
+    from eamg_tpu_torch.tools.demo_a import DemoASpec, train_demo_a
+
+    spec = DemoASpec(**json.loads(str(inp["demo/spec"])))
+    out["demo/metrics"] = np.asarray(json.dumps(train_demo_a(
+        str(inp["demo/dir"]), spec=spec, log_fn=lambda m: None,
+        device=CPU)))
+
+
+def _train_cli_checks(inp, out, tmp):
+    """cli train on the CPU, cli generate from its final checkpoint, and
+    the refusals of what is not in the port yet."""
+    from eamg_tpu_torch import cli
+
+    ck = f"{tmp}/cli_ckpt"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(["train", "--device", "cpu", "--preset", "mini",
+                         "--synthetic", "16", "--epochs", "1", "--out", ck,
+                         "--log-every", "0", "--d-model", "64", "--seq-len",
+                         "64"])
+    out["cli/train_code"] = np.asarray(code)
+    out["cli/train_summary"] = np.asarray(buf.getvalue().splitlines()[-1])
+    mid, wav = f"{tmp}/g.mid", f"{tmp}/g.wav"
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["cli/generate_code"] = np.asarray(cli.main([
+            "generate", "--device", "cpu", "--checkpoint", f"{ck}/final",
+            "--bpm", "120", "--key", "C major", "--instruments", "Violin",
+            "--max-len", "48", "--out", mid, "--wav", wav, "--seed", "1"]))
+    with open(mid, "rb") as f:
+        out["cli/midi"] = np.frombuffer(f.read()[:4], np.uint8)
+    with open(wav, "rb") as f:
+        out["cli/wav"] = np.frombuffer(f.read()[:12], np.uint8)
+    refusals = json.loads(str(inp["cli/refusals"]))
+    for name, argv in refusals.items():
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            out[f"cli/refuse/{name}/code"] = np.asarray(cli.main(argv))
+        out[f"cli/refuse/{name}/stderr"] = np.asarray(err.getvalue())
+
+
+def _grad_refusal_checks(out):
+    """Every kernel wrapper refuses an input that requires grad while
+    autograd records, on the CPU too; under no_grad it runs, and so does
+    the serving forward with params that require grad."""
+    from eamg_tpu_torch.models.gpt import GPTConfig, forward, init_params
+    from eamg_tpu_torch.ops import attention, decode_attention, decode_fold
+    from eamg_tpu_torch.ops import ffn, topk
+    from eamg_tpu_torch.train.trainer import Trainer, TrainConfig, tree_map
+    from eamg_tpu_torch.train.run import run_training
+    from eamg_tpu_torch.tools.demo_a import train_demo_a
+    from eamg_tpu_torch.utils import prng
+
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g)
+
+    q4, kv4 = r(2, 4, 1, 16), r(2, 4, 8, 16)
+    q3, kv3 = r(2, 1, 64), r(2, 8, 128)
+    t = torch.tensor([5, 7], dtype=torch.int32)
+    x, w1, b1, w2, b2 = r(3, 64), r(128, 64), r(128), r(64, 128), r(64)
+    calls = {
+        "flash_attention": lambda q: attention.flash_attention(
+            q, r(2, 4, 6, 16), r(2, 4, 6, 16)),
+        "fused_ffn": lambda w: ffn.fused_ffn(x, w, b1, w2, b2),
+        "flash_decode_sp": lambda q: decode_attention.flash_decode_sp(
+            q, kv4, kv4, t),
+        "flash_decode": lambda q: decode_attention.flash_decode(
+            q, kv4, kv4, t[:1]),
+        "flash_decode_vmem": lambda q: decode_attention.flash_decode_vmem(
+            q, kv4, kv4, t[:1]),
+        **{name: (lambda fn: lambda q: fn(q, kv3, t, 4))(
+            getattr(decode_fold, name))
+           for name in ("flash_decode_fold", "flash_decode_fold3",
+                        "flash_decode_fold_sp", "flash_decode_fold3_sp")},
+        "flash_decode_fold2": lambda q: decode_fold.flash_decode_fold2(
+            q, kv3, t, 4, rows=2),
+        "kth_value": lambda lg: topk.kth_value(lg, 3),
+        "top_k_mask": lambda lg: topk.top_k_mask(lg, 3),
+        "stream_reduce": lambda kv: decode_fold.stream_reduce(kv, rows=2),
+    }
+    first = {"flash_attention": lambda: r(2, 4, 6, 16), "fused_ffn": lambda:
+             w1.clone(), "kth_value": lambda: r(2, 40),
+             "top_k_mask": lambda: r(2, 40), "stream_reduce": lambda:
+             r(4, 8, 128)}
+    for name, fn in calls.items():
+        make = first.get(name, (lambda: q3.clone()) if "fold" in name
+                         else (lambda: q4.clone()))
+        out[f"grad/{name}/raised"] = _raised(
+            lambda: fn(make().requires_grad_()))
+        with torch.no_grad():
+            out[f"grad/{name}/no_grad"] = _raised(
+                lambda: fn(make().requires_grad_()))
+        out[f"grad/{name}/plain"] = _raised(lambda: fn(make()))
+    cfg = GPTConfig(vocab_size=20, seq_len=9, d_model=32, n_head=4,
+                    n_layer=1, causal=True)
+    params = init_params(prng.PRNGKey(0), cfg)
+    live = tree_map(lambda p: p.clone().requires_grad_(), params)
+    ids = torch.arange(8)[None] % 20
+    out["grad/serving_forward_equal"] = np.asarray(bool(torch.equal(
+        forward(live, ids, cfg), forward(params, ids, cfg))))
+    defaults = {
+        "Trainer": lambda: Trainer(cfg, TrainConfig(), params),
+        "run_training": lambda: run_training("mini", synthetic_rows=4),
+        "train_demo_a": lambda: train_demo_a("/nonexistent"),
+    }
+    for name, fn in defaults.items():
+        out[f"default/{name}"] = _raised(fn)
+
+
+def task_train_run(inp, out):
+    """tests/test_torch_train_run.py: the replay functions, run_training,
+    train_demo_a, cli train and generate, the CLI's refusals and the
+    kernel wrappers' refusal of inputs that require grad."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _replay_checks(inp, out)
+        _run_training_checks(inp, out, tmp)
+        _demo_checks(inp, out)
+        _train_cli_checks(inp, out, tmp)
+    _grad_refusal_checks(out)
+
+
 TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "topk": task_topk, "slice": task_slice,
          "ragged": task_ragged, "engine": task_engine, "batch": task_batch,
          "bf16": task_bf16, "graphs": task_graphs, "stream": task_stream,
-         "b3": task_b3, "grammar": task_grammar}
+         "b3": task_b3, "grammar": task_grammar, "train": task_train,
+         "train_run": task_train_run}
 
 
 def main():
