@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,kernels    # a part, while developing
     python3 chip_smoke.py --phases build,stream,b3
     python3 chip_smoke.py --phases build,spec
+    python3 chip_smoke.py --phases build,spec2
     python3 chip_smoke.py --phases build,kernels,options
 
 Phases:
@@ -131,15 +132,42 @@ Phases:
     from the host); the kernels called at the spec shapes (K2 rows 4, 5
     and 9, K4 rows 1, 4, 5 and 9, K3 at B 4); then `serve --coalesce` on A:
     a medusa request beside six plain ones decodes solo and gives the solo
-    server's bytes; greedy medusa and greedy lookup on an f32 copy of A
-    (TF32 off) against the plain greedy decode, token for token (a
+    server's bytes; greedy medusa, lookup, draft (A drafting for itself)
+    and tree verification on an f32 copy of A (TF32 off) against the
+    plain greedy decode, token for token (a
     parting allowed only where the plain step's top-2 margin is under
     GREEDY_MARGIN); then, on each served demo, tokens a verify step and
     decode rates of medusa and lookup, sampled (SPEC_SEEDS) and greedy,
     beside the plain solo decode of the same prompt, beams' ms a step at
     K 4, and one traced decode of each (host launch calls and device
     kernels a token, the device's idle share);
- 10. options: grammar=1 and the history options of the page. Solo on
+ 10. spec2: the rest of speculation. Draft speculation at full width:
+    demo_ckpt_a drafting for itself (bf16, gamma 4, max_len 256), greedy
+    against the plain greedy decode (a parting only where the plain
+    step's top-2 margin is under BF16_GREEDY_MARGIN), sampled over two
+    seeds (the graphs' tokens the eager loop's), tokens a verify and the
+    rate beside the plain solo decode; then a pair trained here a few
+    steps each on the same synthetic rows and seed (`cli train --preset
+    large2 --corrected`, the target, and `--preset mini --corrected
+    --scheme b2`, the draft: one vocabulary), the same checks and rates.
+    Medusa rows in the engine: the solo server's replies to four
+    medusa=1 requests (one streamed), then `serve --coalesce --slots 8
+    --engine-medusa` (its warm-up captures the plain and the Medusa chunk
+    graphs) beside a default engine of its budget: six plain requests at
+    once with no live Medusa row give the default engine's bytes; in a
+    burst of ten (the four Medusa and the six plain) every Medusa reply
+    is the solo server's (the stream's tokens and MIDI too), the plain
+    rows' equality with the default engine is logged, the aggregate
+    rates of both engines are logged, and GET /profile answers 200 with a
+    trace file; an engine on an f32 copy of A (greedy, TF32 off): its
+    Medusa row equals the solo greedy Medusa decode and every row the
+    plain greedy decode, or parts at a near tie (GREEDY_MARGIN). Then
+    `medusa-measure --tree` on both demos; `train-medusa` on
+    demo_ckpt_b3 cut to 512 rows x 1 epoch, its first three head steps
+    on an f32 copy card against host (HEAD_LOSS_RTOL), the loss falling,
+    and the written heads serving a medusa=1 request. K1-K4 and row 8
+    launched over the phase;
+ 11. options: grammar=1 and the history options of the page. Solo on
     demo_ckpt_a and demo_ckpt_b3 (each option's graph captured by a
     request before the counted ones): a grammar WAV of seed 7 twice, a
     MIDI of seed 11, its stream, beams=4 with grammar, and repetition and
@@ -159,7 +187,7 @@ Phases:
     solo decode of A plain, with grammar and with penalties and the n-gram
     ban: rates over three seeds, one trace each (device kernels and host
     launch calls a token, idle share, launches of K1, K2, K3, K4, row 8);
- 11. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
+ 12. batch: the batched offline decode of `python -m eamg_tpu_torch.bench`
     on the large2 model (d512 h8 MHA L6 V8324, bf16, random weights from a
     seed) at full width and depth, batch 8, 511 positions, once per
     attn_impl with the launch counts zeroed before each, the eager loop's
@@ -172,7 +200,7 @@ Phases:
     generation of the default attn_impl under torch.profiler; then
     `cli generate --wav` on demo_ckpt_a twice with one seed (MThd,
     RIFF....WAVE, equal bytes).
- 12. train: `cli train --preset large2 --corrected --synthetic 256
+ 13. train: `cli train --preset large2 --corrected --synthetic 256
     --epochs 1 --save-every 8 --log-every 4 --seed 0` (d512 h8 L6, Scheme
     B2, V 8324, T 511, micro-batch 16, the chunked CE of 73, f32, 16 steps):
     finite losses, the last logged below the first, `latest`, `ep1` and
@@ -4045,13 +4073,15 @@ def _spec_coalesce(torch, solo_wav: bytes) -> dict:
 
 def spec_greedy(torch) -> None:
     """JAX's contract on an f32 copy of demo_ckpt_a (TF32 off): greedy
-    medusa and greedy lookup give the plain greedy decode's tokens
-    (generate_kv without refeed). Where one parts from it, the plain
+    medusa, lookup, draft (A drafting for itself) and tree verification
+    give the plain greedy decode's tokens (generate_kv without refeed).
+    Where one parts from it, the plain
     step's top-2 margin must be under GREEDY_MARGIN (a near tie that the
     block forward's other sums may break the other way)."""
     from eamg_tpu_torch.decode.api import _bucket, _to_device
     from eamg_tpu_torch.decode.loop import generate_kv
     from eamg_tpu_torch.decode.medusa import generate_medusa
+    from eamg_tpu_torch.decode.medusa_tree import generate_medusa_tree
     from eamg_tpu_torch.decode.speculative import generate_prompt_lookup
     from eamg_tpu_torch.models import gpt
     from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A
@@ -4090,7 +4120,13 @@ def spec_greedy(torch) -> None:
                 **common)),
             "lookup": (8, lambda L: generate_prompt_lookup(
                 params, prompt, p, prng.PRNGKey(0), cfg, L, gamma=8,
-                ngram=3, **common))}
+                ngram=3, **common)),
+            # A drafting for itself: the draft's steps are the plain
+            # decode's, the output the verify's argmax chain
+            "draft": (4, lambda L: _draft_run(
+                params, params, cfg, cfg, prompt, p, L, 4, 0, **common)),
+            "tree": (4, lambda L: generate_medusa_tree(
+                params, heads, prompt, p, cfg, L, eos_id=eos, pad_id=pad))}
     for name, (gamma, run) in runs.items():
         L = min(cfg.seq_len, cfg.n_pos - gamma)
         buf, n, steps = run(L)
@@ -4253,6 +4289,585 @@ def serve_spec(torch) -> dict:
     for tag, r in (("a", a), ("b3", b3)):
         spec_measure(torch, tag, r["pipe"])
     return counts
+
+
+# ------------------------------------------------------------------ spec2
+
+# the spec2 phase: draft speculation, Medusa rows in the engine, the tree
+# verify, head training and /profile
+SPEC2_LEN = 256                 # max_len of the draft runs and the timing
+SPEC2_SEEDS = (0, 1)
+# a bf16 greedy speculative decode may part from the plain greedy decode
+# only where the plain step's top-2 logits lie this close: the verify's
+# products round the bf16 hidden state elsewhere than the step's kernels,
+# by up to a bf16 ulp (2^-8 relative), which moves a logit of magnitude
+# ~10 by up to ~0.05
+BF16_GREEDY_MARGIN = 0.125
+# the trained pair: a target and a draft on the same synthetic rows and
+# seed, a few steps each. The presets pick different schemes (large2 B2's
+# fixed 8324 tokens, mini Scheme A's vocabulary of the rows), so the
+# draft takes the target's scheme to share its vocabulary
+PAIR_ARGS = {"target": ["--preset", "large2", "--corrected"],
+             "draft": ["--preset", "mini", "--corrected", "--scheme", "b2"]}
+PAIR_ROWS = "48"
+ENGINE_MED_ARGS = ["serve", "--coalesce", "--slots", str(ENGINE_SLOTS),
+                   "--engine-medusa"]
+# the burst of ten on the Medusa engine: four medusa=1 (the last one
+# streamed) and six plain, MIDI replies
+SPEC2_MEDUSA = [({"prompt": BURST_TEXTS[i % len(BURST_TEXTS)],
+                  "seed": str(61 + i), "medusa": "1"},
+                 "?stream=1&format=midi" if i == 3 else "?format=midi")
+                for i in range(4)]
+SPEC2_PLAIN = [({"prompt": BURST_TEXTS[i % len(BURST_TEXTS)],
+                 "seed": str(81 + i)}, "?format=midi") for i in range(6)]
+# train-medusa on demo_ckpt_b3, cut from JAX's 4000 rows x 4 epochs
+MEDUSA_TRAIN_ROWS, MEDUSA_TRAIN_EPOCHS = 512, 1
+HEAD_HOST_STEPS = 3
+HEAD_LOSS_RTOL = 1e-4           # a head step's loss, card against host
+SPEC2_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                 "top_k_mask", "flash_decode_fold_sp")
+
+
+def _draft_run(params_t, params_d, cfg_t, cfg_d, prompt, p: int, L: int,
+               gamma: int, seed: int, eager: bool = False, **common):
+    """generate_speculative's run on its own pooled state, with its verify
+    steps: -> (tokens [1, L], n_tokens, verify steps)."""
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.decode.speculative import (K_VERIFIES, run_to_end,
+                                                   spec_state)
+    from eamg_tpu_torch.utils import prng
+
+    common = {"greedy": False, "eos_id": -1, "pad_id": 0, **common}
+    key, make = spec_state(params_t, cfg_t, "draft", L, gamma, K_VERIFIES,
+                           50, common["greedy"], 1.0, 0.0, common["eos_id"],
+                           common["pad_id"], prompt.device, eager=eager,
+                           draft=(params_d, cfg_d))
+    with graphs.pooled(key, make) as st:
+        return run_to_end(st, prompt, p, prng.PRNGKey(seed), 1.0, 1.0, 0.0)
+
+
+def _a_prompt(torch, vocab):
+    """A Scheme-A control prompt (120 BPM, C major, violin and piano) as a
+    [1, bucket] tensor on the card, and its length."""
+    from eamg_tpu_torch.decode.api import _bucket
+    from eamg_tpu_torch.tokenizer import (closest_bpm_token,
+                                          normalize_key_signature)
+
+    toks = ["[START_SEQUENCE]", closest_bpm_token(vocab, 120),
+            normalize_key_signature("C major"), "[INSTRUMENT] Violin",
+            "[INSTRUMENT] Acoustic Grand Piano"]
+    ids = vocab.encode([t for t in toks if t in vocab])
+    prompt = torch.full((1, _bucket(len(ids))), vocab.get("[PAD]", 0),
+                        dtype=torch.int64, device="cuda")
+    prompt[0, :len(ids)] = torch.tensor(ids)
+    return prompt, len(ids)
+
+
+def _greedy_parting(torch, tag: str, params, cfg, got: list, ref: list,
+                    margin_limit: float) -> None:
+    """Hold a greedy token list to the plain greedy decode's: equal, or
+    parting where the plain step's top-2 logits lie within
+    ``margin_limit``."""
+    from eamg_tpu_torch.models import gpt
+
+    at = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b),
+              None if len(got) == len(ref) else min(len(got), len(ref)))
+    if at is None:
+        log(f"[{tag}] equal to the plain greedy decode ({len(got)} tokens)")
+        return
+    ids = torch.tensor([ref[:at]], device="cuda")
+    top2 = gpt.forward(params, ids, cfg)[0, -1].topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    log(f"[{tag}] parts from the plain greedy decode at position {at}: "
+        f"the plain step's top-2 margin {margin:.3e} (limit "
+        f"{margin_limit:.0e})")
+    if not margin < margin_limit:
+        raise AssertionError(f"{tag}: parts at {at} with a top-2 margin of "
+                             f"{margin}")
+
+
+def _timed_run(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def spec2_draft(torch, tmp: str) -> dict:
+    """Draft speculation at full width. demo_ckpt_a (bf16) drafting for
+    itself: greedy against the plain greedy decode (a parting only at a
+    near tie), sampled (SPEC2_SEEDS) with its tokens a verify and rate
+    beside the plain solo decode, the graphs' tokens equal to the eager
+    loop's. Then a trained pair: `cli train --preset large2 --corrected`
+    (target) and `--preset mini --corrected --scheme b2` (draft, d256 h4
+    L2: K3 at Dh 64) on the same synthetic rows and seed, a few steps each: one
+    vocabulary, sampled tokens from graphs equal to the eager loop's,
+    tokens a verify and rates beside the target's plain decode."""
+    from eamg_tpu_torch.decode.api import _to_device
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A
+    from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    ck = load_checkpoint(DEMO_CKPT_A)
+    cfg, vocab = ck["cfg"], Vocab(ck["vocab"])
+    params = _to_device(ck["params"], torch.device("cuda"))
+    L = min(SPEC2_LEN, cfg.n_pos - 4)
+
+    def rows(tag, pt, pd, cfg_t, cfg_d, greedy_check, prompt, p, pad):
+        common = dict(eos_id=-1, pad_id=pad)
+        res = {}
+        for greedy in (True, False):
+            seeds = (0,) if greedy else SPEC2_SEEDS
+            _draft_run(pt, pd, cfg_t, cfg_d, prompt, p, L, 4, 0,
+                       greedy=greedy, **common)        # captures its graph
+            generate_kv(pt, prompt, p, prng.PRNGKey(0), cfg_t, L,
+                        greedy=greedy, refeed_last_prompt=False, **common)
+            tok = ver = 0
+            t_draft = t_plain = 0.0
+            for seed in seeds:
+                (buf, n, steps), secs = _timed_run(torch, lambda: _draft_run(
+                    pt, pd, cfg_t, cfg_d, prompt, p, L, 4, seed,
+                    greedy=greedy, **common))
+                (pbuf, pn), psecs = _timed_run(torch, lambda: generate_kv(
+                    pt, prompt, p, prng.PRNGKey(seed), cfg_t, L,
+                    greedy=greedy, refeed_last_prompt=False, **common))
+                tok, ver = tok + n - p - 1, ver + steps
+                t_draft, t_plain = t_draft + secs, t_plain + psecs
+                if greedy and greedy_check is not None:
+                    _greedy_parting(torch, f"spec2 {tag} greedy", pt, cfg_t,
+                                    buf[0, :n].tolist(),
+                                    pbuf[0, :pn].cpu().tolist(),
+                                    greedy_check)
+                if not greedy and seed == seeds[0]:
+                    eb, en, _ = _draft_run(pt, pd, cfg_t, cfg_d, prompt, p,
+                                           L, 4, seed, eager=True, **common)
+                    if eb[0, :en].tolist() != buf[0, :n].tolist():
+                        raise AssertionError(f"spec2 {tag}: the eager loop's "
+                                             "tokens differ from the graphs'")
+                    log(f"[spec2 {tag}] sampled seed {seed}: the eager "
+                        "loop's tokens are the graphs'")
+            mode = "greedy" if greedy else "sampled"
+            res[mode] = {"tokens_per_verify": tok / max(ver, 1),
+                         "tokens_per_s": (tok + len(seeds)) / t_draft,
+                         "plain_tokens_per_s": (L - p) * len(seeds)
+                         / t_plain, "verify_steps": ver}
+            log(f"[spec2 {tag}] {mode}: {res[mode]['tokens_per_verify']:.3f}"
+                f" tokens a verify after the first token, "
+                f"{res[mode]['tokens_per_s']:.1f} tokens/s beside the plain "
+                f"solo decode's {res[mode]['plain_tokens_per_s']:.1f} "
+                f"(max_len {L}, gamma 4)")
+        return res
+
+    out["self_a"] = rows("self-draft a", params, params, cfg, cfg,
+                         BF16_GREEDY_MARGIN, *_a_prompt(torch, vocab),
+                         vocab.get("[PAD]", 0))
+    paths = {}
+    for tag, argv in PAIR_ARGS.items():
+        paths[tag] = os.path.join(tmp, f"pair_{tag}")
+        _cli_run(f"spec2 train {tag}", [
+            "train", *argv, "--synthetic", PAIR_ROWS, "--epochs", "1",
+            "--seed", "0", "--log-every", "0", "--device", "cuda",
+            "--out", paths[tag]])
+    ct = load_checkpoint(os.path.join(paths["target"], "final"))
+    cd = load_checkpoint(os.path.join(paths["draft"], "final"))
+    if ct["vocab"] != cd["vocab"]:
+        raise AssertionError("spec2: the trained pair's vocabularies differ")
+    log(f"[spec2 pair] target {ct['cfg']}; draft {cd['cfg']}; one "
+        f"vocabulary of {len(ct['vocab'])}")
+    # a one-token prompt of the pair's vocabulary (id 1)
+    out["pair"] = rows("pair", _to_device(ct["params"], torch.device("cuda")),
+                       _to_device(cd["params"], torch.device("cuda")),
+                       ct["cfg"], cd["cfg"], None,
+                       torch.tensor([[1]], device="cuda"), 1, 0)
+    return out
+
+
+def _replies(port: int, plan: list) -> dict:
+    """POST every (fields, query) of ``plan`` at once -> index -> reply;
+    a streamed request's reply is its SSE result."""
+    replies, errors = {}, []
+
+    def hit(i, fields, query):
+        try:
+            replies[i] = _sse_post(port, fields, query) \
+                if "stream=1" in query else _post(port, fields, query)
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{i}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=hit, args=(i, f, q), daemon=True)
+               for i, (f, q) in enumerate(plan)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or len(replies) != len(plan):
+        raise AssertionError(f"spec2 burst: {errors or 'a request hung'}")
+    return replies
+
+
+def _reply_tokens(reply) -> int:
+    if len(reply) == 5:                                  # a stream's
+        return sum(len(e["ids"]) for e in reply[2] if e["event"] == "tokens")
+    return int(reply[2].get("X-EAMG-Tokens", "0"))
+
+
+def _stream_key(reply):
+    """A stream's token ids and its done event's MIDI."""
+    events = reply[2]
+    if reply[0] != 200 or events[-1]["event"] != "done":
+        raise AssertionError(f"spec2 stream: {reply[0]} {events[-1:]}")
+    return ([t for e in events if e["event"] == "tokens" for t in e["ids"]],
+            events[-1]["midi_b64"])
+
+
+def spec2_engine(torch) -> dict:
+    """Medusa rows in the engine at full width (demo_ckpt_a, bf16): the
+    solo server's replies to SPEC2_MEDUSA; a default engine of the Medusa
+    engine's budget (max_len n_pos - gamma) serving SPEC2_PLAIN at once
+    and the burst of ten as plain requests; `serve --coalesce --slots 8
+    --engine-medusa` (its warm-up captures the plain and the Medusa chunk
+    graphs): SPEC2_PLAIN at once with no Medusa row live (the plain chunk
+    program: the default engine's bytes), then the burst of ten, each
+    Medusa reply equal to the solo server's (the stream's tokens and MIDI
+    too), the plain replies logged beside the default engine's; aggregate
+    rates of both engines; GET /profile on the Medusa engine's server: a
+    trace file in its trace_dir."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+    from eamg_tpu_torch.serve.pipeline import (DEMO_CKPT_A,
+                                               pipeline_from_checkpoint)
+
+    def serving(pipe, work):
+        server, thread, port = _serving(pipe)
+        try:
+            return work(port)
+        finally:
+            server.shutdown()
+            shutdown_gracefully(server, pipe)
+            thread.join(timeout=30)
+
+    out = {}
+    solo = cli.pipeline_from_args(cli.parse_args(["serve"]))
+    solo.warmup()
+    want = serving(solo, lambda port: {
+        i: (_sse_post(port, f, q) if "stream=1" in q else _post(port, f, q))
+        for i, (f, q) in enumerate(SPEC2_MEDUSA)})
+    del solo
+    med = cli.pipeline_from_args(cli.parse_args(ENGINE_MED_ARGS))
+    eng = med.batcher
+    if not eng.medusa:
+        raise AssertionError("spec2: --engine-medusa built no Medusa engine")
+    t0 = time.perf_counter()
+    med.warmup()
+    log(f"[spec2 engine] Medusa engine: gamma {eng.gamma}, max_len "
+        f"{eng.max_len}, chunk {eng.chunk}, Medusa chunk {eng.chunk_med}; "
+        f"warm-up {time.perf_counter() - t0:.1f} s; {graphs.tally()}")
+    default = pipeline_from_checkpoint(
+        DEMO_CKPT_A, device="cuda", coalesce="continuous",
+        coalesce_opts={"slots": ENGINE_SLOTS, "max_len": eng.max_len})
+    default.warmup()
+    burst = SPEC2_MEDUSA + SPEC2_PLAIN
+    as_plain = [({k: v for k, v in f.items() if k != "medusa"},
+                 "?format=midi") for f, _ in burst]
+
+    def timed_burst(port, plan):
+        t0 = time.perf_counter()
+        r = _replies(port, plan)
+        return r, time.perf_counter() - t0
+
+    base = serving(default, lambda port: {
+        "plain": timed_burst(port, SPEC2_PLAIN),
+        "ten": timed_burst(port, as_plain)})
+
+    def med_work(port):
+        res = {}
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        tally0 = graphs.tally()
+        res["plain"] = timed_burst(port, SPEC2_PLAIN)
+        res["plain_replays"] = graphs.tally()["replays"] - tally0["replays"]
+        admitted0 = eng.stats["admitted"]
+        res["ten"] = timed_burst(port, burst)
+        torch.cuda.synchronize()
+        res["admitted"] = eng.stats["admitted"] - admitted0
+        res["counts"] = _build.launch_counts()
+        res["replayed"] = _build.replayed_counts()
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            trace_dir = os.path.join(tmp, "profile")
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/profile?dir={trace_dir}",
+                    timeout=600) as r:
+                body = json.loads(r.read())
+                status = r.status
+            trace = os.path.join(body["trace_dir"], "trace.json")
+            size = os.path.getsize(trace) if os.path.isfile(trace) else 0
+        log(f"[spec2 profile] GET /profile: HTTP {status}, {body}, "
+            f"trace.json {size} bytes")
+        if status != 200 or body["trace_dir"] != trace_dir or size <= 0:
+            raise AssertionError(f"spec2: /profile {status} {body} {size}")
+        return res
+
+    got = serving(med, med_work)
+    for i, (fields, query) in enumerate(SPEC2_PLAIN):
+        if got["plain"][0][i][1] != base["plain"][0][i][1]:
+            raise AssertionError(f"spec2: plain request {i} with no live "
+                                 "Medusa row differs from the default "
+                                 "engine's bytes")
+    log(f"[spec2 engine] {len(SPEC2_PLAIN)} plain requests at once with no "
+        f"live Medusa row: the default engine's bytes "
+        f"({got['plain_replays']} graph replays)")
+    replies = got["ten"][0]
+    for i, (fields, query) in enumerate(SPEC2_MEDUSA):
+        if "stream=1" in query:
+            if _stream_key(replies[i]) != _stream_key(want[i]):
+                raise AssertionError(f"spec2: streamed Medusa row {i} "
+                                     "differs from the solo server's")
+        else:
+            _check_reply(f"spec2 engine medusa {i}", fields, query,
+                         replies[i])
+            if replies[i][1] != want[i][1]:
+                raise AssertionError(f"spec2: Medusa row {i} differs from "
+                                     "the solo server's bytes")
+    log(f"[spec2 engine] {len(SPEC2_MEDUSA)} Medusa rows in the burst of "
+        f"ten (one streamed): the solo server's bytes and tokens")
+    same = [replies[len(SPEC2_MEDUSA) + i][1] == base["ten"][0][
+        len(SPEC2_MEDUSA) + i][1] for i in range(len(SPEC2_PLAIN))]
+    log(f"[spec2 engine] plain rows inside Medusa chunks equal to the "
+        f"default engine's bytes: {same} (plain products of the verify "
+        "block, not row 8's kernel: bits may part on the card)")
+    if got["admitted"] < len(burst):
+        raise AssertionError(f"spec2: {got['admitted']} rows admitted to the "
+                             f"Medusa engine for a burst of {len(burst)}")
+    for name in ("flash_attention", "fused_ffn", "top_k_mask",
+                 "flash_decode_fold_sp"):
+        if got["counts"].get(name, 0) <= 0:
+            raise AssertionError(f"spec2 engine: {name} was not launched")
+    rates = {}
+    for tag, (r, secs) in (("default_plain", base["plain"]),
+                           ("medusa_engine_plain", got["plain"]),
+                           ("default_ten", base["ten"]),
+                           ("medusa_engine_ten", got["ten"])):
+        tok = sum(_reply_tokens(x) for x in r.values())
+        rates[tag] = {"tokens": tok, "s": secs, "tokens_per_s": tok / secs}
+    log(f"[spec2 engine] aggregate rates: " + ", ".join(
+        f"{k} {v['tokens_per_s']:.1f} tokens/s ({v['tokens']} tokens in "
+        f"{v['s']:.3f} s)" for k, v in rates.items()))
+    out.update(rates=rates, counts=got["counts"], replayed=got["replayed"],
+               plain_rows_equal=same)
+    return out
+
+
+def spec2_engine_greedy(torch) -> None:
+    """An engine on an f32 copy of demo_ckpt_a (TF32 off), greedy, with
+    Medusa heads: one Medusa row and two plain rows at once. The Medusa
+    row equals its solo greedy Medusa decode; every row equals the plain
+    greedy decode or parts from it only at a near tie (GREEDY_MARGIN): the
+    plain rows inside Medusa chunks are computed from the verify block's
+    first query."""
+    import dataclasses as dc
+
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.decode.medusa import generate_medusa
+    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A
+    from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.tools.medusa import load_medusa_heads
+    from eamg_tpu_torch.utils import prng
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(DEMO_CKPT_A)
+    cfg = dc.replace(ck["cfg"], dtype="float32")
+
+    def f32(node):
+        if isinstance(node, dict):
+            return {k: f32(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [f32(v) for v in node]
+        return node.float()
+
+    vocab = Vocab(ck["vocab"])
+    gen = Generator(f32(ck["params"]), cfg, vocab, device="cuda")
+    heads = load_medusa_heads(os.path.join(DEMO_CKPT_A, "medusa_heads.pkl"))
+    eng = ContinuousBatcher(gen, slots=4, chunk=32, greedy=True,
+                            medusa_heads=heads)
+    prompt, p = _a_prompt(torch, vocab)
+    ids = prompt[0, :p].tolist()
+    try:
+        results = {}
+
+        def hit(name, medusa, seed):
+            results[name] = eng.submit(ids, seed=seed, medusa=medusa)
+
+        threads = [threading.Thread(target=hit, args=a, daemon=True)
+                   for a in (("medusa", True, 1), ("plain0", False, 2),
+                             ("plain1", False, 3))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        eng.close()
+    L = eng.max_len
+    solo, n, _ = generate_medusa(gen.params, heads, prompt, p,
+                                 prng.PRNGKey(1), cfg, L,
+                                 gamma=len(heads["blocks"]), greedy=True,
+                                 eos_id=gen.eos_id, pad_id=gen.pad_id)
+    if results["medusa"] != solo[0, :n].tolist():
+        raise AssertionError("spec2 engine greedy f32: the Medusa row "
+                             "differs from its solo greedy decode")
+    plain, pn = generate_kv(gen.params, prompt, p, prng.PRNGKey(0), cfg, L,
+                            greedy=True, refeed_last_prompt=False,
+                            eos_id=gen.eos_id, pad_id=gen.pad_id)
+    ref = plain[0, :pn].cpu().tolist()
+    for name, toks in sorted(results.items()):
+        _greedy_parting(torch, f"spec2 engine greedy f32 {name}", gen.params,
+                        cfg, toks, ref, GREEDY_MARGIN)
+
+
+def spec2_tree(torch) -> dict:
+    """`medusa-measure --tree` on both demos (the shipped heads, reps 3,
+    max_len 256 or, on B3, the most its 255 positions leave the linear
+    verify's overshoot of 4: 251): plain, linear and tree tokens/s, tokens
+    a verify."""
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A, DEMO_CKPT_B3
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out = {}
+    for tag, path in (("a", DEMO_CKPT_A), ("b3", DEMO_CKPT_B3)):
+        L = min(SPEC2_LEN, load_checkpoint(path)["cfg"].n_pos - 4)
+        lines = _cli_run(f"spec2 tree {tag}", [
+            "medusa-measure", "--tree", "--ckpt", path, "--reps", "3",
+            "--max-len", str(L), "--device", "cuda"])
+        out[tag] = json.loads(lines[-1])["tree"]
+    return out
+
+
+def spec2_train_medusa(torch, tmp: str) -> dict:
+    """`cli train-medusa` on demo_ckpt_b3, cut from JAX's 4000 rows x 4
+    epochs to MEDUSA_TRAIN_ROWS x MEDUSA_TRAIN_EPOCHS; first its first
+    HEAD_HOST_STEPS steps on an f32 copy of B3, on the card (K1, K2 in the
+    frozen forward) and on the host (plain versions) from the same zero
+    heads and batches: each loss within HEAD_LOSS_RTOL; the run's final
+    loss below the first step's; its pickle beside B3's files serves a
+    medusa=1 request."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from eamg_tpu_torch.decode.api import _to_device
+    from eamg_tpu_torch.decode.medusa import init_medusa_heads
+    from eamg_tpu_torch.serve.pipeline import (DEMO_CKPT_B3,
+                                               pipeline_from_checkpoint)
+    from eamg_tpu_torch.tools.medusa import (MedusaSpec, _corpus_for,
+                                             head_optimizer, head_step,
+                                             heads_leaves)
+    from eamg_tpu_torch.train.data import pad_rows
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ck = load_checkpoint(DEMO_CKPT_B3)
+    cfg = dc.replace(ck["cfg"], dtype="float32")
+    spec = MedusaSpec(rows=MEDUSA_TRAIN_ROWS, epochs=MEDUSA_TRAIN_EPOCHS)
+    encoded, vocab = _corpus_for(ck, spec.rows, spec.seed)
+    ids = pad_rows(encoded, cfg.seq_len, vocab.pad_id)
+    order = np.random.default_rng(spec.seed).permutation(ids.shape[0])
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        base = _f32_tree(_to_device(ck["params"], torch.device(dev)))
+        blocks = [{k: v.to(dev) for k, v in b.items()} for b in
+                  init_medusa_heads(None, cfg, spec.n_heads)["blocks"]]
+        opt = head_optimizer(spec)
+        state = opt.init(heads_leaves(blocks))
+        losses[dev] = []
+        for s in range(HEAD_HOST_STEPS):
+            batch = torch.from_numpy(
+                ids[order[s * spec.batch:(s + 1) * spec.batch]]).to(dev)
+            losses[dev].append(float(head_step(base, blocks, opt, state,
+                                               batch, cfg, vocab.pad_id)))
+    log(f"[spec2 train-medusa] f32 B3, first {HEAD_HOST_STEPS} head steps: "
+        f"card {losses['cuda']}, host {losses['cpu']}")
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        if not abs(a - b) <= HEAD_LOSS_RTOL * abs(b):
+            raise AssertionError(f"spec2 train-medusa: card loss {a} against "
+                                 f"host {b}")
+    serve_dir = os.path.join(tmp, "b3_heads")
+    os.makedirs(serve_dir)
+    for f in os.listdir(DEMO_CKPT_B3):
+        if f != "medusa_heads.pkl":
+            os.symlink(os.path.join(DEMO_CKPT_B3, f),
+                       os.path.join(serve_dir, f))
+    pkl = os.path.join(serve_dir, "medusa_heads.pkl")
+    t0 = time.perf_counter()
+    lines = _cli_run("spec2 train-medusa", [
+        "train-medusa", "--ckpt", DEMO_CKPT_B3, "--out", pkl, "--rows",
+        str(MEDUSA_TRAIN_ROWS), "--epochs", str(MEDUSA_TRAIN_EPOCHS),
+        "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    res = json.loads(lines[-1])["train"]
+    first = losses["cuda"][0]
+    log(f"[spec2 train-medusa] bf16 B3, {MEDUSA_TRAIN_ROWS} rows x "
+        f"{MEDUSA_TRAIN_EPOCHS} epoch: final loss {res['final_loss']:.4f} "
+        f"(the f32 copy's first step {first:.4f}), {secs:.1f} s, probe "
+        f"{json.dumps(res['probe'])}")
+    if not res["final_loss"] < first:
+        raise AssertionError("spec2 train-medusa: the head loss did not fall")
+    pipe = pipeline_from_checkpoint(serve_dir, device="cuda")
+    if pipe.medusa_heads is None:
+        raise AssertionError(f"spec2: the trained heads do not serve "
+                             f"({pipe.medusa_unavailable})")
+    r = pipe.generate(BURST_TEXTS[0], seed=7, render_audio=False,
+                      medusa=True)
+    if r.midi_bytes[:4] != b"MThd" or len(r.tokens) <= 3:
+        raise AssertionError("spec2: the trained heads' medusa request gave "
+                             "no song")
+    log(f"[spec2 train-medusa] the written heads serve a medusa=1 request: "
+        f"{len(r.tokens)} tokens, {len(r.midi_bytes)} MIDI bytes")
+    return {"losses": losses, "final_loss": res["final_loss"],
+            "train_s": secs, "probe": res["probe"]}
+
+
+def _f32_tree(node):
+    if isinstance(node, dict):
+        return {k: _f32_tree(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_f32_tree(v) for v in node]
+    return node.float()
+
+
+def serve_spec2(torch) -> dict:
+    """Phase spec2: draft speculation, Medusa rows in the engine (bf16
+    burst and an f32 greedy engine), the tree verify's measure on both
+    demos, head training and /profile. -> launch counts over the phase."""
+    import tempfile
+
+    from eamg_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        draft = spec2_draft(torch, tmp)
+        engine = spec2_engine(torch)
+        spec2_engine_greedy(torch)
+        tree = spec2_tree(torch)
+        train = spec2_train_medusa(torch, tmp)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    for name in SPEC2_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"spec2: {name} was not launched")
+    log(json.dumps({"spec2": {"draft": draft, "engine": engine,
+                              "tree": tree, "train_medusa": train,
+                              "launches": counts}}, default=str))
+    log(f"[spec2] phase {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return {"spec2": counts}
 
 
 # the options phase: the grammar and the history-dependent options of the
@@ -5204,7 +5819,7 @@ def serve_train(torch) -> dict:
 
 
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
-          "spec", "options", "batch", "train")
+          "spec", "spec2", "options", "batch", "train")
 
 
 def main(argv=None) -> int:
@@ -5265,6 +5880,8 @@ def main(argv=None) -> int:
         counts.update(serve_b3(torch))
     if "spec" in phases:
         counts.update(serve_spec(torch))
+    if "spec2" in phases:
+        counts.update(serve_spec2(torch))
     if "options" in phases:
         counts.update(serve_options(torch))
     if "batch" in phases:

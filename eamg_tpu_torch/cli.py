@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m eamg_tpu_torch.cli serve``,
-``generate``, ``train`` and ``train-demo-a``.
+``generate``, ``train``, ``train-demo-a``, ``train-medusa`` and
+``medusa-measure``.
 
 ``generate`` writes one MIDI file (and with ``--wav`` a WAV file) from
 fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
@@ -13,8 +14,10 @@ the MIDI ``SchemeB3.decode_to_song``. ``--beams`` (with
 ``--gamma`` and ``--lookup-ngram``) by prompt-lookup speculation and
 ``--medusa PATH`` by the Medusa heads of that file, one of them at a time,
 as in the JAX CLI. ``--grammar`` decodes under the scheme's FSM
-(``decode/grammar.py``), sampled or with ``--beams``. ``--draft`` is not in
-the port yet and exits 2 naming the flag.
+(``decode/grammar.py``), sampled or with ``--beams``. ``--draft DIR``
+decodes by speculation with the checkpoint in DIR as the draft model (same
+vocabulary; both corrected causal checkpoints, else JAX's
+``AssertionError``).
 
 ``serve`` serves ``POST /generate`` on a Scheme-A or Scheme-B3 checkpoint
 of the JAX package's format (default: the shipped flagship
@@ -25,8 +28,9 @@ routes requests through the continuous-batching engine (or, with
 engine options ``--slots``, ``--chunk``, ``--max-queue``,
 ``--fast-routing``, ``--engine-top-p``, ``--engine-ngram N`` (the engine's
 n-gram ban size) and ``--engine-grammar`` (the scheme's FSM in the engine
-or the window batcher). The JAX CLI's other subcommands, and Medusa rows
-in the engine (``--engine-medusa`` exits 2), are not in the port yet.
+or the window batcher) and ``--engine-medusa`` (the checkpoint's Medusa
+heads in the engine, so medusa=1 requests join it; ignored, with JAX's
+message, when the checkpoint has none).
 
 ``train`` runs one of the reference trainers' presets (``--preset mini``,
 ``large``, ``large2``, ``no_inst``, ``paper``) on a corpus CSV or
@@ -38,7 +42,11 @@ as JSON. ``train-demo-a`` trains the Scheme-A demo on the grid corpus
 recipe) and writes a checkpoint ``serve`` reads, with
 ``train_metrics.json``. The mesh modes (``--mesh-data``/``--mesh-model``
 above 1, ``--fsdp``) and MoE (``--experts``) are not in the port yet and
-exit 2 naming the flag.
+exit 2 naming the flag. ``train-medusa`` trains Medusa heads on a frozen
+checkpoint (default: the shipped B3 demo) and writes JAX's heads pickle;
+``medusa-measure`` times plain, linear Medusa and (``--tree``) tree
+verification at batch 1 on a checkpoint's heads (default: the shipped
+demo A); both print JSON.
 Every subcommand runs on the CUDA device unless ``--device cpu`` is
 given.
 """
@@ -51,10 +59,9 @@ import sys
 import threading
 
 # engine modes of the JAX server that the port's engine does not carry yet
-_ENGINE_NOT_YET = ("engine_medusa",)
+_ENGINE_NOT_YET = ()
 # decode modes of the JAX CLI's generate that the port does not carry yet
-# (draft speculation needs a second checkpoint of the same vocabulary)
-_GENERATE_NOT_YET = ("draft",)
+_GENERATE_NOT_YET = ()
 # training modes of the JAX CLI's train that the port does not carry yet
 _TRAIN_NOT_YET = ("fsdp", "experts")
 
@@ -102,7 +109,7 @@ def pipeline_from_args(args):
         args.checkpoint or DEMO_CKPT_A, full_gm=args.full_gm,
         device=args.device, coalesce=args.coalesce,
         coalesce_opts=coalesce_opts_from_args(args),
-        fast_routing=args.fast_routing)
+        fast_routing=args.fast_routing, engine_medusa=args.engine_medusa)
 
 
 def _serve(args) -> int:
@@ -171,10 +178,11 @@ def _generate(args) -> int:
         seed=args.seed, top_p=args.top_p, min_p=args.min_p,
         penalties=None if penalties == (1.0, 0.0, 0.0) else penalties,
         no_repeat_ngram=args.no_repeat_ngram, grammar=gram)
-    if sum(map(bool, (args.beams, args.lookup, args.medusa))) > 1:
+    if sum(map(bool, (args.beams, args.draft, args.lookup,
+                      args.medusa))) > 1:
         raise SystemExit("--beams, --draft, --lookup and --medusa are "
                          "mutually exclusive")
-    option = _option_fn(args, gen, sampling)
+    option = _option_fn(args, gen, sampling, device)
     bpm, key, mapping = args.bpm, args.key, None
     if args.interactive:
         # free text -> emotion -> mapping -> music
@@ -219,12 +227,13 @@ def _generate(args) -> int:
     return _write_song(args, tokens_to_song(tokens), device)
 
 
-def _option_fn(args, gen, sampling: dict):
-    """The decode of ``--beams``, ``--lookup`` or ``--medusa``, ids in and
-    ids out (prompt included), or None for the sampled decode. They refuse
-    penalties and n-gram bans, and the speculative ones grammar, as the
-    JAX CLI does; beams take the grammar."""
-    if not (args.beams or args.lookup or args.medusa):
+def _option_fn(args, gen, sampling: dict, device):
+    """The decode of ``--beams``, ``--draft``, ``--lookup`` or
+    ``--medusa``, ids in and ids out (prompt included), or None for the
+    sampled decode. They refuse penalties and n-gram bans, and the
+    speculative ones grammar, as the JAX CLI does; beams take the
+    grammar."""
+    if not (args.beams or args.draft or args.lookup or args.medusa):
         return None
     history = sampling["penalties"] is not None or args.no_repeat_ngram
     if args.beams:
@@ -235,7 +244,8 @@ def _option_fn(args, gen, sampling: dict):
         return lambda ids: gen.generate_ids_beam(
             ids, max_len=args.max_len, n_beams=args.beams,
             length_penalty=args.length_penalty, grammar=sampling["grammar"])
-    flag = "--lookup" if args.lookup else "--medusa"
+    flag = ("--draft" if args.draft
+            else "--lookup" if args.lookup else "--medusa")
     if history or sampling["grammar"] is not None:
         raise SystemExit(f"{flag} does not support penalties, n-gram bans "
                          "or grammar constraints yet (history-dependent "
@@ -249,8 +259,26 @@ def _option_fn(args, gen, sampling: dict):
 
         heads = load_medusa_heads(args.medusa)
         return lambda ids: gen.generate_ids_medusa(heads, ids, **spec)[0]
+    if args.draft:
+        draft = _draft_generator(args.draft, device)
+        return lambda ids: gen.generate_ids_speculative(draft, ids,
+                                                        **spec)[0]
     return lambda ids: gen.generate_ids_lookup(
         ids, ngram=args.lookup_ngram, **spec)[0]
+
+
+def _draft_generator(path: str, device):
+    """The draft model of ``--draft``: a Generator of the checkpoint in
+    ``path`` on ``device`` (B3's EOS on a B3 vocabulary, as JAX loads it)."""
+    from .decode import Generator
+    from .tokenizer import Vocab, detect_scheme
+    from .utils.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(path)
+    vocab = Vocab(ckpt["vocab"])
+    b3 = detect_scheme(vocab) == "b3"
+    return Generator(ckpt["params"], ckpt["cfg"], vocab, device=device,
+                     **({"eos_token": "[END_SEQ]"} if b3 else {}))
 
 
 def _write_song(args, song, device) -> int:
@@ -314,6 +342,86 @@ def _train_demo_a(args) -> int:
                            device=args.device)
     print(json.dumps(metrics), flush=True)
     return 0
+
+
+def _train_medusa(args) -> int:
+    import json
+
+    from .serve.pipeline import DEMO_CKPT_B3
+    from .tools.medusa import MedusaSpec, measure, train_medusa_heads
+
+    ckpt = args.ckpt or DEMO_CKPT_B3
+    out = train_medusa_heads(ckpt, args.out, MedusaSpec(
+        n_heads=args.heads, rows=args.rows, epochs=args.epochs,
+        batch=args.batch, lr=args.lr, seed=args.seed), device=args.device)
+    res = {"train": {k: v for k, v in out.items() if k != "blocks"}}
+    if args.measure:
+        res["measure"] = measure(ckpt, args.out, max_len=args.max_len,
+                                 gamma=args.heads, greedy=not args.sample,
+                                 device=args.device)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def _medusa_measure(args) -> int:
+    import json
+
+    from .serve.pipeline import DEMO_CKPT_A
+    from .tools.medusa import measure, measure_tree
+
+    ckpt = args.ckpt or DEMO_CKPT_A
+    heads = args.heads or f"{ckpt}/medusa_heads.pkl"
+    res = {}
+    if args.tree:
+        res["tree"] = measure_tree(ckpt, heads, max_len=args.max_len,
+                                   reps=args.reps, device=args.device)
+    else:
+        res["linear"] = measure(ckpt, heads, max_len=args.max_len, gamma=4,
+                                greedy=not args.sample, device=args.device)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def _add_medusa(sub) -> None:
+    md = sub.add_parser("train-medusa",
+                        help="train Medusa heads on a frozen checkpoint "
+                             "(batch-1 multi-token decoding) and "
+                             "optionally measure the latency win")
+    md.add_argument("--ckpt", default=None,
+                    help="checkpoint dir (default: the shipped B3 demo)")
+    md.add_argument("--out", required=True, help="heads pickle path")
+    md.add_argument("--heads", type=int, default=4)
+    md.add_argument("--rows", type=int, default=4000)
+    md.add_argument("--epochs", type=int, default=4)
+    md.add_argument("--batch", type=int, default=32)
+    md.add_argument("--lr", type=float, default=1e-3)
+    md.add_argument("--seed", type=int, default=0)
+    md.add_argument("--measure", action="store_true",
+                    help="time batch-1 plain vs medusa after training")
+    md.add_argument("--max-len", dest="max_len", type=int, default=256)
+    md.add_argument("--sample", action="store_true",
+                    help="measure sampled (default greedy) decoding")
+    md.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs on the "
+                         "host)")
+    md.set_defaults(fn=_train_medusa)
+
+    mm = sub.add_parser("medusa-measure",
+                        help="interleaved A/B latency of plain vs medusa "
+                             "(linear or --tree) on a checkpoint's heads")
+    mm.add_argument("--ckpt", default=None,
+                    help="checkpoint dir (default: the shipped demo A)")
+    mm.add_argument("--heads", default=None,
+                    help="default: <ckpt>/medusa_heads.pkl")
+    mm.add_argument("--max-len", dest="max_len", type=int, default=256)
+    mm.add_argument("--reps", type=int, default=5)
+    mm.add_argument("--tree", action="store_true",
+                    help="measure Medusa-2 tree verification (greedy)")
+    mm.add_argument("--sample", action="store_true")
+    mm.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs on the "
+                         "host)")
+    mm.set_defaults(fn=_medusa_measure)
 
 
 def _add_train(sub) -> None:
@@ -437,7 +545,10 @@ def _add_generate(sub) -> None:
                    help="FSM-constrained decoding: every token follows the "
                         "scheme's surface grammar and the stream closes "
                         "within budget (decode/grammar.py)")
-    g.add_argument("--draft", default=None, help="not yet in the port")
+    g.add_argument("--draft", default=None,
+                   help="draft-model checkpoint dir: speculative decoding "
+                        "with it as the proposer (same vocabulary; exact "
+                        "output distribution)")
     g.add_argument("--gamma", type=int, default=4,
                    help="speculative proposals per verify step")
     g.add_argument("--lookup", action="store_true",
@@ -458,6 +569,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     sub = parser.add_subparsers(dest="cmd", required=True)
     _add_generate(sub)
     _add_train(sub)
+    _add_medusa(sub)
     s = sub.add_parser("serve", help="serve POST /generate")
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8000)
@@ -498,7 +610,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "decode solo); 'row' filters top-p AND min-p per "
                         "row, so every request's values ride the engine")
     s.add_argument("--engine-medusa", action="store_true",
-                   help="not yet in the port")
+                   help="put the checkpoint's Medusa heads into the "
+                        "continuous engine, so medusa=true requests join "
+                        "the shared decode (per-row speculation; every row "
+                        "of a chunk with a live Medusa row pays the block "
+                        "verify); default off: medusa requests decode solo")
     s.add_argument("--engine-ngram", type=int, default=0,
                    help="continuous engine: ban n-grams of this size in "
                         "the shared decode; requests asking "

@@ -4,10 +4,10 @@ Port of ``eamg_tpu/decode/api.py::Generator``: prompt buckets,
 ``max_supported_len``, over-length prompts returned unchanged,
 ``generate_ids`` (cached or uncached, any batch, with penalties, n-gram
 bans and grammar constraints), the batch-1 speculative decodes
-``generate_ids_lookup`` and ``generate_ids_medusa``, beam search
+``generate_ids_lookup``, ``generate_ids_medusa`` and (with a draft
+``Generator``) ``generate_ids_speculative``, beam search
 (``generate_ids_beam``, ``sample_beam``, grammar-constrained too),
-``sample_kvcache``, ``sample`` and ``trim_at_eos``. Draft-model
-speculation is not in the port yet.
+``sample_kvcache``, ``sample`` and ``trim_at_eos``.
 """
 
 from __future__ import annotations
@@ -128,6 +128,37 @@ class Generator:
             return max_len, None
         return max_len, _padded_prompt(prompt_ids, min(_bucket(p), max_len),
                                        self.pad_id, self.device)
+
+    def generate_ids_speculative(self, draft: "Generator",
+                                 prompt_ids: list[int],
+                                 max_len: int | None = None,
+                                 gamma: int = 4, temperature: float = 1.0,
+                                 top_k: int = 50, seed: int = 0,
+                                 greedy: bool = False, top_p: float = 1.0,
+                                 min_p: float = 0.0) -> np.ndarray:
+        """Speculative decode with ``draft`` (same vocabulary, same device)
+        as the proposer (``decode/speculative.py::generate_speculative``):
+        the target's output distribution, greedy output equal to its plain
+        greedy decode. Batch 1, corrected causal checkpoints, as JAX
+        asserts. -> [1, n] ids."""
+        from .speculative import generate_speculative
+
+        assert draft.vocab.tok2id == self.vocab.tok2id, \
+            "draft and target must share a vocabulary"
+        max_len = max_len or min(self.cfg.seq_len, draft.cfg.seq_len)
+        p = len(prompt_ids)
+        if p >= max_len:
+            # zero generation steps: the prompt unchanged
+            return np.asarray([list(prompt_ids)], np.int32)
+        prompt = _padded_prompt(prompt_ids, min(_bucket(p), max_len),
+                                self.pad_id, self.device)
+        buf, pos = generate_speculative(
+            self.params, draft.params, prompt, p, prng.PRNGKey(seed),
+            self.cfg, draft.cfg, max_len, gamma=gamma,
+            temperature=temperature, top_k=top_k, eos_id=self.eos_id,
+            pad_id=self.pad_id, greedy=greedy, top_p=top_p, min_p=min_p,
+            eager=self.eager)
+        return buf[:, :pos].numpy().astype(np.int32)
 
     def generate_ids_lookup(self, prompt_ids: list[int],
                             max_len: int | None = None, gamma: int = 8,

@@ -16,8 +16,10 @@ three (acceptance and residual).
 (``medusa_stream_start`` then ``medusa_stream_chunk`` a chunk of
 ``k_verifies`` iterations; ``stream_tokens_medusa``) run the same chunk
 graph over the same state, so a stream gives the one-shot's tokens for any
-sampling mode. The tree verify (``decode/medusa_tree.py``), Medusa rows in
-the continuous engine and training the heads are not in the port yet.
+sampling mode. ``init_medusa_heads`` makes zero heads (each starts as a
+copy of the base head), which ``tools/medusa.py`` trains; the tree verify
+is ``decode/medusa_tree.py`` and the engine's Medusa rows
+``serve/continuous.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,16 @@ from ..utils import prng
 from . import graphs
 from .speculative import (K_VERIFIES, SpecLoop, _padded_prompt, run_to_end,
                           spec_state)
+
+
+def init_medusa_heads(rng, cfg: GPTConfig, n_heads: int) -> dict:
+    """{"blocks": [{"w": [D, D], "b": [D]}, ...]} of f32 zeros on the CPU,
+    so head k starts as the base next-token head (``rng`` is unused, as in
+    JAX)."""
+    D = cfg.d_model
+    return {"blocks": [{"w": torch.zeros((D, D), dtype=torch.float32),
+                        "b": torch.zeros((D,), dtype=torch.float32)}
+                       for _ in range(n_heads)]}
 
 
 def _stack_heads(heads: dict, gamma: int | None = None, device=None):

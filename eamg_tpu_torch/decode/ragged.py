@@ -29,7 +29,11 @@ JAX's order in every step: the n-gram ban, the grammar's mask (budget
 the grammar's states advance for active rows only. ``generate_kv_ragged``
 takes them batch-wide with a state per row, the engine a row at a time
 (``ngram_on``, ``gram_on`` and the per-row penalties in its state).
-``decode_block_ragged`` is not in the port yet.
+``decode_block_ragged`` is the ragged verify step of the engine's Medusa
+rows: [B, W] blocks at per-row lengths, each row computed as the solo
+verify step computes it (``models/gpt.py::decode_block`` over a head-major
+copy of the row's cache with W more slots), so an engine Medusa row gives
+its solo Medusa run's bits.
 """
 
 from __future__ import annotations
@@ -39,8 +43,8 @@ import threading
 import numpy as np
 import torch
 
-from ..models.gpt import (GPTConfig, _embed, _head, decode_layers_fused,
-                          prefill_fused)
+from ..models.gpt import (GPTConfig, _embed, _head, decode_block,
+                          decode_layers_fused, init_kv_cache, prefill_fused)
 from ..ops.decode_fold import fold_decode
 from ..utils import prng
 from . import graphs
@@ -101,6 +105,78 @@ def decode_step_ragged(params: dict, last: torch.Tensor, cache: dict,
     logits = _step_logits(params, last, cache, cfg)
     cache["lengths"].add_(1)
     return logits, cache
+
+
+def verify_scratch(cfg: GPTConfig, max_len: int, width: int,
+                   device=None) -> dict:
+    """The head-major cache one row of a ragged verify runs on: the
+    ragged cache's ``max_len`` slots and ``width`` more (the solo verify's
+    ``max_len + gamma + 1`` for a block of gamma + 1)."""
+    return init_kv_cache(cfg, 1, max_len + width, device=device)
+
+
+def load_row(cache: dict, b: int, scratch: dict) -> None:
+    """Row ``b`` of the fused ragged cache into the head-major ``scratch``
+    (its first M slots; the rest keep what they held, which no query of a
+    verify at t + W <= M + W sees), and its length."""
+    for li, kv in enumerate(cache["kv"]):
+        M = kv.shape[1]
+        k, v = scratch["k"][li], scratch["v"][li]
+        Hkv, Dh = k.shape[1], k.shape[3]
+        row = kv[b].view(M, 2, Hkv, Dh)
+        k[0, :, :M].copy_(row[:, 0].transpose(0, 1))
+        v[0, :, :M].copy_(row[:, 1].transpose(0, 1))
+    scratch["length"].copy_(cache["lengths"][b:b + 1])
+
+
+def store_row(cache: dict, b: int, scratch: dict, width: int) -> None:
+    """The ``width`` K/V entries a verify wrote into ``scratch`` from row
+    ``b``'s length t on, back into the fused cache at slots t.. that it
+    has; the entries past its end are dropped (their writes go to slot t
+    with t's own values)."""
+    t = cache["lengths"][b:b + 1].long()
+    offs = torch.arange(width, device=t.device)
+    for li, kv in enumerate(cache["kv"]):
+        M = kv.shape[1]
+        k, v = scratch["k"][li][0], scratch["v"][li][0]   # [Hkv, Ms, Dh]
+        Hkv, Ms, Dh = k.shape
+        at = t.clamp(max=Ms - width) + offs               # decode_block's
+        vals = torch.stack([k.index_select(1, at), v.index_select(1, at)],
+                           dim=0)                         # [2, Hkv, W, Dh]
+        vals = vals.permute(2, 0, 1, 3).reshape(width, 2 * Hkv * Dh)
+        ok = (t + offs) < M
+        kv[b].index_copy_(0, torch.where(ok, t + offs, t.clamp(max=M - 1)),
+                          torch.where(ok[:, None], vals, vals[:1]))
+
+
+@torch.no_grad()
+def decode_block_ragged(params: dict, block: torch.Tensor, cache: dict,
+                        cfg: GPTConfig, scratch: dict | None = None):
+    """[B, W] token blocks from per-row positions t = lengths -> ([B, W, V]
+    f32 logits, [B, W, D] hidden states, the cache with the W entries
+    written where it has slots and ``lengths`` unchanged: the caller
+    commits the accepted prefix by setting them, JAX's Medusa rewind).
+
+    Each row is ``decode_block`` over ``scratch`` (made by
+    :func:`verify_scratch` when None), a head-major copy of the row's
+    cache with W more slots: the row's queries see its cached prefix and
+    the block up to themselves, the block's own keys past the ragged
+    cache's end included, and every product has the shape of the solo
+    verify step's."""
+    assert cfg.causal and not cfg.pos_broadcast_bug
+    B, W = block.shape
+    if scratch is None:
+        scratch = verify_scratch(cfg, cache["kv"][0].shape[1], W,
+                                 block.device)
+    logits, hidden = [], []
+    for b in range(B):
+        load_row(cache, b, scratch)
+        lg, h, _ = decode_block(params, block[b:b + 1], scratch, cfg,
+                                return_hidden=True)
+        store_row(cache, b, scratch, W)
+        logits.append(lg[0])
+        hidden.append(h[0])
+    return torch.stack(logits), torch.stack(hidden), cache
 
 
 def draw_noise(sub_keys, vocab_size: int, device=None) -> torch.Tensor:

@@ -30,9 +30,11 @@ replaces (:data:`ATTN_IMPLS`); every one computes the same function.
 
 ``decode_block`` is the verify step of the speculative decoders: G tokens
 from the cache position t, each attending to the cached prefix and
-causally within the block. JAX computes its attention in XLA, outside any
-Pallas kernel, so it stays plain products here too, rounded as JAX rounds
-them; its FFN goes through K2 at G rows.
+causally within the block; ``decode_tree`` is the Medusa-2 one, N nodes of
+a candidate tree, each seeing the prefix and its ancestors. JAX computes
+their attention in XLA, outside any Pallas kernel, so it stays plain
+products here too, rounded as JAX rounds them; their FFN goes through K2
+at G (N) rows.
 
 ``forward_hidden_train`` is the differentiable forward of the trainer. It
 follows the JAX model's ``kernels="xla"`` branches, which JAX's training
@@ -46,7 +48,7 @@ plain PyTorch under autograd and never reaches a kernel wrapper (they
 refuse inputs that require grad). A checkpoint trained with
 ``attn_block`` is served through K1, which computes the same function.
 
-Not yet ported: ``decode_tree``, MoE layers and int8 weights.
+Not yet ported: MoE layers and int8 weights.
 """
 
 from __future__ import annotations
@@ -730,16 +732,25 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
 def _block_attention(q, k_cache, v_cache, q_pos):
     """Cached attention of a block of queries at positions ``q_pos`` ([G],
     on the device): each attends to the keys at or before its position.
-    JAX's XLA math (models/gpt.py ``_gqa_scores`` / ``_gqa_values``): grouped
-    scores in the cache dtype, scaled after the product, masked keys at
-    ``finfo(dt).min``, softmax in f32 cast back, grouped values.
+
+    q [B, H, G, Dh], caches [B, Hkv, M, Dh] -> [B, H, G, Dh]."""
+    M = k_cache.shape[2]
+    valid = torch.arange(M, device=q.device)[None, :] <= q_pos[:, None]
+    return _masked_attention(q, k_cache, v_cache, valid)
+
+
+def _masked_attention(q, k_cache, v_cache, valid):
+    """Cached attention of G queries, query g seeing the keys where
+    ``valid`` [G, M] is true. JAX's XLA math (models/gpt.py ``_gqa_scores``
+    / ``_gqa_values``): grouped scores in the cache dtype, scaled after the
+    product, masked keys at ``finfo(dt).min``, softmax in f32 cast back,
+    grouped values.
 
     q [B, H, G, Dh], caches [B, Hkv, M, Dh] -> [B, H, G, Dh]."""
     B, H, G, Dh = q.shape
-    Hkv, M = k_cache.shape[1], k_cache.shape[2]
+    Hkv = k_cache.shape[1]
     qg = q.reshape(B, Hkv, H // Hkv, G, Dh)
     s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k_cache) * (1.0 / math.sqrt(Dh))
-    valid = torch.arange(M, device=q.device)[None, :] <= q_pos[:, None]
     s = torch.where(valid, s, torch.finfo(s.dtype).min)
     probs = torch.softmax(s.float(), dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgqm,bkmd->bkgqd", probs, v_cache)
@@ -795,3 +806,54 @@ def decode_block(params: dict, ids: torch.Tensor, cache: dict,
     if return_hidden:
         return logits, x, cache
     return logits, cache
+
+
+@torch.no_grad()
+def decode_tree(params: dict, ids: torch.Tensor, depths: torch.Tensor,
+                anc: torch.Tensor, cache: dict, cfg: GPTConfig):
+    """Tree-attention cached decode, the Medusa-2 verify step
+    (``decode/medusa_tree.py``): [1, N] candidate tokens arranged as a tree
+    over the cache position t = ``cache["length"]`` -> ([1, N, V] f32
+    logits, [1, N, D] final hidden states, the cache with the N staged
+    entries written at slots t..t+N-1 and ``length`` unchanged: the caller
+    commits the accepted path).
+
+    ``depths`` [N]: node depths (root 0), so a node sits at position t +
+    depth and siblings share a position (rows past the positional table
+    read its last row, as JAX's clamped gather does). ``anc`` [N, N] bool:
+    anc[q, j] is true when node j is q or an ancestor of q, the block's
+    visibility; every node sees the whole cached prefix. Both on the
+    cache's device. The writes go by ``index_copy_`` and the positions by
+    ``index_select`` at device positions, as in :func:`decode_block`, so a
+    CUDA graph can hold it; the write's start clamps to M - N as XLA's
+    dynamic slice does."""
+    assert cfg.causal and not cfg.pos_broadcast_bug
+    B, N = ids.shape
+    assert B == 1, "tree verify is a batch-1 latency optimization"
+    dt = cfg.torch_dtype
+    t = cache["length"].long()                               # [1]
+    M = cache["k"][0].shape[2]
+    n_pos = params["pos"].shape[0]
+    x = _embed(params, ids, params["pos"].index_select(
+        0, (t + depths).clamp(max=n_pos - 1)), dt)
+    offs = torch.arange(N, device=ids.device)
+    slots = t.clamp(max=M - N) + offs
+    key_pos = torch.arange(M, device=ids.device)
+    block_idx = key_pos - t                                  # [M]
+    in_block = (block_idx >= 0) & (block_idx < N)
+    valid = (key_pos[None, :] < t) | (
+        in_block[None, :] & anc.index_select(1, block_idx.clamp(0, N - 1)))
+    D, KVD = cfg.d_model, cfg.kv_dim
+    for li, p in enumerate(params["layers"]):
+        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
+                      p["attn"]["in_b"])
+        q = _heads(qkv[..., :D], cfg.n_head)                 # [1,H,N,Dh]
+        cache["k"][li].index_copy_(2, slots,
+                                   _heads(qkv[..., D:D + KVD], cfg.kv_heads))
+        cache["v"][li].index_copy_(2, slots,
+                                   _heads(qkv[..., D + KVD:], cfg.kv_heads))
+        attn_out = _unheads(_masked_attention(q, cache["k"][li],
+                                              cache["v"][li], valid))
+        attn_out = _linear(attn_out, p["attn"]["out_w"], p["attn"]["out_b"])
+        x = _finish_block(p, x, attn_out, cfg)
+    return _head(params, x), x, cache

@@ -37,9 +37,20 @@ own top-p, min-p and penalties (with its counts); an engine built with
 ``no_repeat_ngram`` bans n-grams of that size in the rows that ask
 (``ngram_on``), and one built with a ``grammar`` constrains the rows that
 ask (``gstate``, ``gram_on``). A row that asks for nothing keeps its
-logits bit for bit, so its stream is the default engine's. Not in the
-port yet: Medusa rows (``medusa_chunk``: medusa requests decode solo, as
-under JAX's default ``engine_medusa=False``).
+logits bit for bit, so its stream is the default engine's.
+
+An engine built with ``medusa_heads`` carries Medusa rows (``med_on``,
+``h_last``): while one is live the worker runs the Medusa chunk
+(:func:`medusa_chunk`, a second graph of ``chunk_med`` verify iterations)
+instead of the plain one. A Medusa row is its solo Medusa decode: admitted
+through the solo prefill, each iteration ``speculative.medusa_verify`` on
+a head-major copy of its cache of the solo cache's size
+(``decode/ragged.py::decode_block_ragged``'s rows), Leviathan's acceptance,
+a multi-token masked write and the length rewind; plain rows in that
+chunk sample from the block's first query with the plain chunk's keys and
+transforms (on the CPU their tokens are the plain chunk's; on the card
+another product may round a near tie the other way). The budget shrinks by
+gamma, as in JAX.
 """
 
 from __future__ import annotations
@@ -58,12 +69,16 @@ from ..decode.api import Generator, _bucket
 from ..decode.grammar import (grammar_mask, grammar_step, grammar_tables,
                               scan_prompt_state)
 from ..decode.ragged import (RaggedGraph, draw_noise, init_ragged_cache,
-                             prefill_ragged)
-from ..decode.sampling import (apply_no_repeat_ngram, count_tokens,
-                               sample_rows, token_counts)
+                             load_row, prefill_ragged, store_row,
+                             verify_scratch)
+from ..decode.sampling import (apply_min_p, apply_no_repeat_ngram,
+                               apply_top_k, apply_top_p, count_tokens,
+                               log_min_p, sample_rows, token_counts)
+from ..decode.speculative import (_categorical_log, _dist, _softmax,
+                                  medusa_verify)
+from ..models.gpt import init_kv_cache, prefill
 from ..utils import prng
 from ..utils.device import bind_thread_to
-from ..utils.errors import NotInPort
 
 _NEUTRAL_PEN = (1.0, 0.0, 0.0)   # (repetition, frequency, presence) = off
 
@@ -89,7 +104,7 @@ def wait_for_worker(event: threading.Event, worker: threading.Thread,
 
 def init_state(cfg, slots: int, max_len: int, device=None,
                per_row_sampling: bool = False, no_repeat_ngram: int = 0,
-               grammar: bool = False) -> dict:
+               grammar: bool = False, medusa: bool = False) -> dict:
     """The engine's state; free slots start done with no budget. All of it
     lives on ``device`` but ``rngs``, the per-slot running keys ([slots, 2]
     uint32), which the host advances (``utils/prng.py``). Every tensor
@@ -98,7 +113,11 @@ def init_state(cfg, slots: int, max_len: int, device=None,
     valid. Per-row sampling adds the penalties' state (``counts`` [slots,
     V] and ``rep_ps``/``freq_ps``/``pres_ps``), an n-gram ban a row's
     on/off bit ``ngram_on``, a grammar the rows' FSM states ``gstate`` and
-    their bit ``gram_on``."""
+    their bit ``gram_on``, Medusa rows the hidden state a row's heads
+    propose from ``h_last`` [slots, D] (zero at admission, as the solo
+    decode starts) and the rows' bit ``med_on`` (with per-row sampling also
+    ``log_mps``, a row's ln(min_p) made on the host as the solo decode
+    makes it)."""
     def full(value, dtype):
         return torch.full((slots,), value, dtype=dtype, device=device)
 
@@ -126,13 +145,20 @@ def init_state(cfg, slots: int, max_len: int, device=None,
     if grammar:
         state["gstate"] = full(0, torch.int64)
         state["gram_on"] = full(False, torch.bool)
+    if medusa:
+        state["h_last"] = torch.zeros((slots, cfg.d_model),
+                                      dtype=cfg.torch_dtype, device=device)
+        state["med_on"] = full(False, torch.bool)
+        if per_row_sampling:
+            state["log_mps"] = full(0.0, torch.float32)
     return state
 
 
 # the neutral value of each optional per-slot field, for reset_state
 _ROW_NEUTRAL = {"counts": 0.0, "rep_ps": 1.0, "freq_ps": 0.0,
                 "pres_ps": 0.0, "ngram_on": False, "gstate": 0,
-                "gram_on": False}
+                "gram_on": False, "h_last": 0.0, "med_on": False,
+                "log_mps": 0.0}
 
 
 def reset_state(state: dict) -> dict:
@@ -161,7 +187,8 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
               eos_id=-1, pad_id=0, top_p=1.0, row_top_p=1.0,
               per_row_sampling=False, row_min_p=0.0,
               row_penalties=_NEUTRAL_PEN, no_repeat_ngram=0,
-              row_ngram_on=False, grammar=None, row_gram_on=False) -> dict:
+              row_ngram_on=False, grammar=None, row_gram_on=False,
+              medusa_row=False) -> dict:
     """Prefill ONE request into slot ``slot`` of the running state, in
     place. prompt: [1, P] on the device (P a power-of-two bucket), ``key``
     a ``prng.PRNGKey``; ``plen``, ``slot`` and ``rmax`` are host ints.
@@ -173,16 +200,24 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
     ``row_ngram_on``), its grammar's mask with ``rmax - plen`` tokens left
     (``grammar``: the engine's tables, when ``row_gram_on``) and, in
     per-row mode, its penalties over the prompt's counts; every per-slot
-    field is written, so a reused slot keeps nothing of its last row."""
+    field is written, so a reused slot keeps nothing of its last row.
+
+    ``medusa_row`` starts the row as its solo Medusa decode starts
+    (``SpecLoop.start``): the head-major prefill, whose K/V are copied into
+    the shared cache, and the first token drawn as ``categorical(log(dist
+    + 1e-30))`` of the filtered softmax; its ``h_last`` is zero."""
     dev = prompt.device
     P = prompt.shape[1]
     max_len = state["buf"].shape[1]
     cache = state["cache"]
-    # the row's prefill writes straight into the shared cache
-    row_cache = {"kv": [kv[slot:slot + 1] for kv in cache["kv"]]}
-    logits0, _ = prefill_ragged(
-        params, prompt, torch.tensor([plen], dtype=torch.int32, device=dev),
-        cfg, row_cache)
+    if medusa_row:
+        logits0 = _medusa_prefill(params, prompt, plen, slot, cfg, cache)
+    else:
+        # the row's prefill writes straight into the shared cache
+        row_cache = {"kv": [kv[slot:slot + 1] for kv in cache["kv"]]}
+        logits0, _ = prefill_ragged(
+            params, prompt, torch.tensor([plen], dtype=torch.int32,
+                                         device=dev), cfg, row_cache)
     cache["lengths"][slot] = plen
 
     rng_next, sub = prng.split(key)
@@ -203,14 +238,24 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
             torch.full_like(temps, float(v)) for v in row_penalties)))
         pen["counts"] = token_counts(
             prompt, torch.arange(P, device=dev)[None] < plen, cfg.vocab_size)
-    first = sample_rows(
-        last_logits, temps, top_k, mask_value, greedy, top_p, 0.0,
-        torch.full_like(temps, float(row_top_p)) if per_row_sampling
-        else None,
-        torch.full_like(temps, float(row_min_p)) if per_row_sampling
-        else None,
-        None if greedy else draw_noise(np.asarray([sub], np.uint32),
-                                       cfg.vocab_size, dev), **pen)[0]
+    if medusa_row and greedy:
+        first = torch.argmax(last_logits[0])
+    elif medusa_row:
+        dist = _medusa_filter(
+            temps, top_k, top_p, per_row_sampling,
+            torch.full_like(temps, float(row_top_p)),
+            torch.full_like(temps, float(row_min_p)),
+            log_min_p(row_min_p, dev))(last_logits)[0]
+        first = _categorical_log(prng.gumbel(sub, dist.shape, dev), dist)
+    else:
+        first = sample_rows(
+            last_logits, temps, top_k, mask_value, greedy, top_p, 0.0,
+            torch.full_like(temps, float(row_top_p)) if per_row_sampling
+            else None,
+            torch.full_like(temps, float(row_min_p)) if per_row_sampling
+            else None,
+            None if greedy else draw_noise(np.asarray([sub], np.uint32),
+                                           cfg.vocab_size, dev), **pen)[0]
 
     # buffer row: the prompt, then (when a slot remains) the first token;
     # a row with plen == rmax starts done and keeps its last prompt token
@@ -241,7 +286,47 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
         state["gstate"][slot] = grammar_step(gs_row, first[None], grammar,
                                              active=live)[0]
         state["gram_on"][slot] = bool(row_gram_on)
+    if "med_on" in state:
+        state["h_last"][slot] = 0.0
+        state["med_on"][slot] = bool(medusa_row)
+        if "log_mps" in state:
+            state["log_mps"][slot] = log_min_p(row_min_p, dev)[0]
     return state
+
+
+def _medusa_prefill(params, prompt, plen: int, slot: int, cfg,
+                    cache: dict) -> torch.Tensor:
+    """The solo Medusa decode's prefill (``models/gpt.py::prefill`` on a
+    head-major cache of the bucket's width) of one row, its K/V copied
+    into slot ``slot`` of the fused shared cache -> its [1, P, V] logits."""
+    P = prompt.shape[1]
+    row = init_kv_cache(cfg, 1, P, device=prompt.device)
+    logits0, _ = prefill(params, prompt, cfg, row, prompt_len=plen)
+    for li, kv in enumerate(cache["kv"]):
+        kv[slot, :P] = torch.cat([row["k"][li][0].transpose(0, 1),
+                                  row["v"][li][0].transpose(0, 1)],
+                                 dim=1).reshape(P, -1)
+    return logits0
+
+
+def _medusa_filter(temp, top_k: int, top_p, per_row: bool,
+                   row_top_p=None, row_min_p=None, row_log_mp=None):
+    """[R, V] logits -> sampling distributions, a Medusa row's filter
+    (JAX's ``_medusa_dist``): temperature (``temp`` [1]), top-k and the
+    engine's top-p, or with ``per_row`` the row's top-p and min-p, each
+    applied only where it is on (1.0 and 0.0 are off, bit for bit), then
+    the softmax of ``speculative._dist``."""
+    if not per_row:
+        return lambda logits: _dist(logits, temp, top_k, False, top_p)
+
+    def filt(logits):
+        x = apply_top_k(logits / temp, top_k, -1e10)
+        x = torch.where(row_top_p < 1.0, apply_top_p(x, row_top_p, -1e10), x)
+        x = torch.where(row_min_p > 0.0,
+                        apply_min_p(x, 0.0, -1e10, row_log_mp), x)
+        return _softmax(x)
+
+    return filt
 
 
 @torch.no_grad()
@@ -278,6 +363,189 @@ def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
         state["graph"] = runner
     state["rngs"], subs = prng.split_rows_chain(state["rngs"], chunk)
     runner.run(None if greedy else subs)
+    return state
+
+
+class MedusaGraph:
+    """``chunk`` verify iterations of every row of the engine's state
+    (JAX's ``medusa_chunk``) as one block graph (``decode/graphs.py``).
+    The chunk's noise is drawn inside it from :attr:`keys` [chunk, B, 3,
+    2], each row's step keys: the first split (a Medusa row's proposal
+    key, a plain row's sampling key), then a Medusa row's acceptance and
+    residual keys. ``scratch`` is the head-major cache one row's verify
+    runs on (the ragged cache's slots and gamma + 1 more: the solo
+    cache's size)."""
+
+    def __init__(self, params: dict, cfg, st: dict, hw: torch.Tensor,
+                 hb: torch.Tensor, chunk: int, *, top_k: int, greedy: bool,
+                 mask_value: float, eos_id: int, pad_id: int, top_p=1.0,
+                 per_row: bool = False, ngram: int = 0,
+                 gram: dict | None = None, eager: bool = False):
+        dev = st["buf"].device
+        self.params, self.cfg, self.st, self.chunk = params, cfg, st, chunk
+        self.hw, self.hb = hw, hb
+        self.gamma = hw.shape[0]
+        self.top_k, self.greedy, self.mask_value = top_k, greedy, mask_value
+        self.eos_id, self.pad_id, self.top_p = eos_id, pad_id, top_p
+        self.per_row, self.ngram, self.gram = per_row, ngram, gram
+        B, M = st["buf"].shape
+        self.scratch = verify_scratch(cfg, M, self.gamma + 1, dev)
+        self.keys = None if greedy else torch.zeros(
+            (chunk, B, 3, 2), dtype=torch.int64, device=dev)
+        self._idx = torch.arange(self.gamma + 1, device=dev)[None]
+        self._cols = torch.arange(M, device=dev)[None]
+        self.graph = graphs.BlockGraph(self._block, dev, eager)
+
+    def run(self, keys: np.ndarray | None) -> None:
+        if self.keys is not None:
+            graphs.load_keys(self.keys, keys)
+        self.graph.run()
+
+    def _block(self) -> None:
+        self._noise = None
+        if self.keys is not None:
+            k, B = self.keys.shape[:2]
+            g, V = self.gamma, self.cfg.vocab_size
+            first = self.keys[:, :, 0].reshape(k * B, 2)
+            self._noise = (
+                prng.gumbel(first, (g, V)).reshape(k, B, g, V),
+                prng.uniform_from_bits(prng.bits_keys(
+                    self.keys[:, :, 1].reshape(k * B, 2), (g,))).reshape(
+                        k, B, g),
+                prng.gumbel(self.keys[:, :, 2].reshape(k * B, 2),
+                            (V,)).reshape(k, B, V),
+                draw_noise(self.keys[:, :, 0], V))
+        for i in range(self.chunk):
+            self._iteration(i)
+
+    def _row_filter(self, b: int):
+        st = self.st
+        sl = slice(b, b + 1)
+        if self.per_row:
+            return _medusa_filter(st["temps"][sl], self.top_k, 1.0, True,
+                                  st["top_ps"][sl], st["min_ps"][sl],
+                                  st["log_mps"][sl])
+        return _medusa_filter(st["temps"][sl], self.top_k, self.top_p, False)
+
+    def _iteration(self, i: int) -> None:
+        st, g, cache = self.st, self.gamma, self.st["cache"]
+        buf, pos, done, last = st["buf"], st["pos"], st["done"], st["last"]
+        row_max, med, h_last = st["row_max"], st["med_on"], st["h_last"]
+        lengths = cache["lengths"]
+        B = buf.shape[0]
+        active = ~(done | (pos >= row_max))
+        rows = []
+        for b in range(B):
+            noise = (None, None, None) if self._noise is None else \
+                tuple(n[i, b] for n in self._noise[:3])
+            load_row(cache, b, self.scratch)
+            rows.append(medusa_verify(
+                self.params, self.cfg, self.hw, self.hb, h_last[b],
+                last[b:b + 1], self.scratch, self._row_filter(b),
+                self.greedy, *noise))
+            store_row(cache, b, self.scratch, g + 1)
+        d = torch.stack([r[0] for r in rows])                  # [B, g]
+        n = torch.stack([r[1] for r in rows])                  # [B]
+        t_new = torch.stack([r[2] for r in rows])              # [B]
+        h_rows = torch.stack([r[3] for r in rows])             # [B, g+1, D]
+        # plain rows: the plain chunk's step on the block's first query
+        logits = torch.stack([r[4][0] for r in rows])          # [B, V]
+        logits = apply_no_repeat_ngram(logits, buf, pos, self.ngram,
+                                       self.mask_value,
+                                       row_on=st.get("ngram_on"))
+        if self.gram is not None:
+            logits = grammar_mask(logits, st["gstate"], self.gram,
+                                  budget_left=row_max - pos,
+                                  row_on=st.get("gram_on"))
+        counts = st.get("counts")
+        nxt = sample_rows(
+            logits, st["temps"], self.top_k, self.mask_value, self.greedy,
+            self.top_p, 0.0, st["top_ps"] if self.per_row else None,
+            st["min_ps"] if self.per_row else None,
+            None if self._noise is None else self._noise[3][i],
+            counts=counts,
+            **{k: st[k] for k in ("rep_ps", "freq_ps", "pres_ps")
+               if k in st})
+        # the rows' windows: a Medusa row's d_1..d_n, t_new, cut after an
+        # EOS; a plain row's one token
+        idx = self._idx
+        win = torch.where(idx < n[:, None], torch.cat([d, d[:, -1:]], 1),
+                          torch.where(idx == n[:, None], t_new[:, None],
+                                      self.pad_id))
+        e = torch.where((win == self.eos_id) & (idx <= n[:, None]), idx,
+                        g + 2).min(1).values
+        window = torch.where(med[:, None], win,
+                             torch.where(idx == 0, nxt[:, None], self.pad_id))
+        limit = torch.where(active, torch.where(med, torch.minimum(
+            n + 1, e + 1), 1), 0)
+        done_step = torch.where(med, e <= n, nxt == self.eos_id)
+        # budget-clamped writes (the solo decode clamps its buffer instead)
+        wlimit = torch.minimum(limit, (row_max - pos).long()).clamp(0, g + 1)
+        offs = self._cols - pos[:, None]                        # [B, M]
+        hit = (offs >= 0) & (offs < wlimit[:, None])
+        take = window.gather(1, offs.clamp(0, g)).to(buf.dtype)
+        torch.where(hit, take, buf, out=buf)
+        at = (limit - 1).clamp(min=0)[:, None]
+        last_new = window.gather(1, at)[:, 0]
+        h_new = h_rows.gather(1, at[:, :, None].expand(
+            B, 1, h_rows.shape[2]))[:, 0]
+        new_pos = pos + wlimit.to(pos.dtype)
+        torch.logical_or(done, (active & done_step) | (new_pos >= row_max),
+                         out=done)
+        torch.where(active, last_new, last, out=last)
+        h_last.copy_(torch.where((active & med)[:, None], h_new, h_last))
+        lengths.copy_(torch.where(active, new_pos - 1, lengths))
+        pos.copy_(new_pos)
+        plain = active & ~med
+        if counts is not None:
+            count_tokens(counts, nxt, plain)
+        if self.gram is not None:
+            st["gstate"].copy_(grammar_step(st["gstate"], nxt, self.gram,
+                                            active=plain))
+
+
+@torch.no_grad()
+def medusa_chunk(params, hw, hb, state, cfg, med_rows: np.ndarray,
+                 chunk=16, top_k=50, greedy=False, mask_value=-1e10,
+                 eos_id=-1, pad_id=0, top_p=1.0, per_row_sampling=False,
+                 no_repeat_ngram=0, grammar=None, eager=False) -> dict:
+    """Advance every live row ``chunk`` verify iterations, in place: one
+    replay of the Medusa chunk's graph (:class:`MedusaGraph`; eagerly on
+    the CPU and with ``eager``). Rows with ``med_on`` run their solo
+    Medusa iteration; the others the plain chunk's step on the block's
+    first query. The keys, on the host: every slot's running key splits
+    once a step (the proposal's or the plain sample's key), then a Medusa
+    row's (``med_rows`` [slots] bool, the host's copy of ``med_on``)
+    splits in three (next key, acceptance, residual) when sampling, as
+    JAX's chunk does."""
+    top_p = float(top_p)
+    grammar = grammar_tables(grammar, state["buf"].device)
+    key = (id(params), id(hw), cfg, int(chunk), int(top_k), bool(greedy),
+           float(mask_value), int(eos_id), int(pad_id), top_p,
+           bool(per_row_sampling), int(no_repeat_ngram or 0),
+           None if grammar is None else id(grammar), bool(eager))
+    runner = state.get("medusa_graph")
+    if runner is None or runner.key != key:
+        dev = state["buf"].device
+        runner = MedusaGraph(
+            params, cfg, state, hw, hb, int(chunk), top_k=top_k,
+            greedy=greedy, mask_value=mask_value, eos_id=eos_id,
+            pad_id=pad_id, top_p=torch.full((1,), top_p, device=dev)
+            if top_p < 1.0 else 1.0, per_row=per_row_sampling,
+            ngram=int(no_repeat_ngram or 0), gram=grammar, eager=eager)
+        runner.key = key
+        state["medusa_graph"] = runner
+    rngs = state["rngs"]
+    keys = None if greedy else np.zeros((chunk, len(rngs), 3, 2), np.uint32)
+    for i in range(chunk):
+        rngs, sub = prng.split_rows(rngs)
+        if keys is not None:
+            keys[i, :, 0] = sub
+            three = prng.split_rows_n(rngs, 3)
+            keys[i, :, 1:] = three[:, 1:]
+            rngs = np.where(med_rows[:, None], three[:, 0], rngs)
+    state["rngs"] = rngs
+    runner.run(keys)
     return state
 
 
@@ -320,6 +588,7 @@ class _Pending:
     penalties: tuple = _NEUTRAL_PEN   # (repetition, frequency, presence)
     ngram: int = 0               # no_repeat_ngram size (0 = off)
     grammar: bool = False        # FSM-constrained decoding for this row
+    medusa: bool = False         # per-row Medusa decoding
     admit_seq: int = -1          # chunks dispatched when the row joined
     started: float | None = None
     finished: float | None = None
@@ -343,8 +612,10 @@ class ContinuousBatcher:
     penalties (rows at 1.0 / 0.0 are exact no-ops, so unfiltered requests
     still match their solo runs). ``no_repeat_ngram`` sets the engine's
     n-gram ban size and ``grammar`` (a ``decode.grammar.Grammar``) its
-    FSM; a request turns either on for its row. Requests longer than the
-    engine's max_len budget return the prompt unchanged."""
+    FSM; a request turns either on for its row. ``medusa_heads``
+    (``tools.medusa.load_medusa_heads``) lets a request decode as a Medusa
+    row (``medusa=True``; its budget is cut to n_pos - gamma). Requests
+    longer than the engine's max_len budget return the prompt unchanged."""
 
     def __init__(self, generator: Generator, slots: int = 8,
                  chunk: int = 64, max_len: int | None = None,
@@ -353,8 +624,6 @@ class ContinuousBatcher:
                  top_p: float = 1.0, per_row_sampling: bool = False,
                  no_repeat_ngram: int = 0, grammar=None,
                  medusa_heads: dict | None = None, eager: bool = False):
-        if medusa_heads is not None:
-            raise NotInPort("medusa rows in the engine")
         assert generator.cfg.causal and not generator.cfg.pos_broadcast_bug,\
             "continuous batching requires the corrected causal config"
         self.gen = generator
@@ -374,6 +643,24 @@ class ContinuousBatcher:
         self._gram = grammar_tables(grammar, self.device)
         self.max_len = min(max_len or generator.cfg.seq_len,
                            generator.max_supported_len())
+        # Medusa rows: the heads stacked once; the worker runs the Medusa
+        # chunk only while a live Medusa row exists, so plain traffic never
+        # pays the block verify. The verify overshoots by gamma positions,
+        # so the budget shrinks by gamma (the solo decode's assert), and a
+        # chunk of verify steps emits up to gamma + 1 tokens a row, so it
+        # has fewer steps than a plain chunk
+        self.medusa = medusa_heads is not None
+        self._med_slots: set[int] = set()
+        self._med_rows = np.zeros(slots, bool)   # the host's med_on
+        if self.medusa:
+            from ..decode.medusa import _stack_heads
+
+            self._hw, self._hb = _stack_heads(medusa_heads,
+                                              device=self.device)
+            self.gamma = int(self._hw.shape[0])
+            self.max_len = min(self.max_len,
+                               generator.cfg.n_pos - self.gamma)
+            self.chunk_med = max(4, chunk // (1 + self.gamma // 2))
         # admission control: requests queued beyond the live slots; 0 =
         # unbounded
         self.max_queue = max_queue
@@ -405,7 +692,7 @@ class ContinuousBatcher:
                           device=self.device,
                           per_row_sampling=self.per_row_sampling,
                           no_repeat_ngram=self.no_repeat_ngram,
-                          grammar=self.use_grammar)
+                          grammar=self.use_grammar, medusa=self.medusa)
 
     def _sampling(self) -> dict:
         return dict(top_k=self.top_k, greedy=self.greedy,
@@ -428,9 +715,8 @@ class ContinuousBatcher:
         greedy are engine-wide; top_p/min_p/penalties are engine-wide
         unless the engine runs per-row sampling; a nonzero no_repeat_ngram
         must be the engine's ban size; a grammar request needs an engine
-        with the grammar). Medusa requests are never accepted: the engine
-        of the port does not carry Medusa rows. Callers fall back to a
-        solo decode on a mismatch."""
+        with the grammar; a medusa request an engine with Medusa heads).
+        Callers fall back to a solo decode on a mismatch."""
         return ((top_k is None or top_k == self.top_k)
                 and (greedy is None or greedy == self.greedy)
                 and (self.per_row_sampling or top_p is None
@@ -441,7 +727,8 @@ class ContinuousBatcher:
                      or tuple(float(v) for v in penalties) == _NEUTRAL_PEN)
                 and (not no_repeat_ngram
                      or int(no_repeat_ngram) == self.no_repeat_ngram)
-                and (not grammar or self.use_grammar) and not medusa)
+                and (not grammar or self.use_grammar)
+                and (not medusa or self.medusa))
 
     def idle(self) -> bool:
         """True when the engine has no live or queued work. A lone request
@@ -460,7 +747,19 @@ class ContinuousBatcher:
                 "engine was built without a grammar table; construct "
                 "ContinuousBatcher(grammar=...) for constrained requests")
         if medusa:
-            raise NotInPort("medusa rows in the engine")
+            if not self.medusa:
+                raise ValueError(
+                    "engine was built without medusa heads; construct "
+                    "ContinuousBatcher(medusa_heads=...) for medusa "
+                    "requests")
+            # the solo Medusa decode's exclusions (history-dependent
+            # transforms break the acceptance)
+            pen = (tuple(float(v) for v in penalties)
+                   if penalties is not None else _NEUTRAL_PEN)
+            if pen != _NEUTRAL_PEN or no_repeat_ngram or grammar:
+                raise ValueError(
+                    "medusa rows reject penalties / no_repeat_ngram / "
+                    "grammar (serve/pipeline.py contract)")
         if top_k is not None and top_k != self.top_k:
             raise ValueError(
                 f"engine built for top_k={self.top_k}, got {top_k}")
@@ -502,7 +801,7 @@ class ContinuousBatcher:
                         top_p=float(top_p) if top_p is not None else 1.0,
                         min_p=float(min_p) if min_p is not None else 0.0,
                         penalties=pen, ngram=int(no_repeat_ngram or 0),
-                        grammar=bool(grammar))
+                        grammar=bool(grammar), medusa=bool(medusa))
 
     def submit(self, prompt_ids: list[int], temperature: float = 1.0,
                seed: int | None = None, max_len: int | None = None,
@@ -710,7 +1009,12 @@ class ContinuousBatcher:
             req.temperature, self.gen.cfg, row_top_p=req.top_p,
             row_min_p=req.min_p, row_penalties=req.penalties,
             row_ngram_on=bool(req.ngram), row_gram_on=req.grammar,
-            **self._sampling())
+            medusa_row=req.medusa, **self._sampling())
+        if req.medusa:
+            self._med_slots.add(slot)
+        else:
+            self._med_slots.discard(slot)
+        self._med_rows[slot] = req.medusa
         req.started = time.monotonic()
         req.admit_seq = self.stats["chunks"]
         self._live[slot] = req
@@ -743,6 +1047,7 @@ class ContinuousBatcher:
             if not done[slot]:
                 continue
             del self._live[slot]
+            self._med_slots.discard(slot)
             req.result = buf[slot, :min(int(pos[slot]),
                                         req.max_len)].tolist()
             req.finished = time.monotonic()
@@ -765,6 +1070,7 @@ class ContinuousBatcher:
             for slot, r in list(self._live.items()):
                 if r is req:
                     del self._live[slot]
+                    self._med_slots.discard(slot)
                     self._free.append(slot)
                     self.stats["cancelled"] += 1
 
@@ -778,6 +1084,8 @@ class ContinuousBatcher:
                 req.stream_q.put(("error", exc))
             req.event.set()
         self._live.clear()
+        self._med_slots.clear()
+        self._med_rows[:] = False
         self._free = list(range(self.slots))
         while True:
             try:
@@ -828,10 +1136,19 @@ class ContinuousBatcher:
                     continue
 
                 if self._live:
-                    self.state = ragged_chunk(
-                        self.gen.params, self.state, self.gen.cfg,
-                        chunk=self.chunk, eager=self.eager,
-                        **self._sampling())
+                    # the Medusa chunk only while a live Medusa row exists
+                    # (every row pays the block verify in it)
+                    if any(s in self._live for s in self._med_slots):
+                        self.state = medusa_chunk(
+                            self.gen.params, self._hw, self._hb, self.state,
+                            self.gen.cfg, self._med_rows,
+                            chunk=self.chunk_med, eager=self.eager,
+                            **self._sampling())
+                    else:
+                        self.state = ragged_chunk(
+                            self.gen.params, self.state, self.gen.cfg,
+                            chunk=self.chunk, eager=self.eager,
+                            **self._sampling())
                     self.stats["chunks"] += 1
                     # depth-1 lookahead: the PREVIOUS chunk's flags are
                     # read while this one computes

@@ -39,7 +39,10 @@ any ``coalesce``, as JAX's default configuration does: ``medusa`` (the
 checkpoint's ``medusa_heads.pkl``, loaded and probed at start-up;
 one-shot or streamed a verify chunk at a time), ``lookup`` (prompt-lookup
 speculation) and ``beams`` (beam search, ranked with ``length_penalty``,
-grammar-constrained with ``grammar``). They refuse what JAX refuses, with
+grammar-constrained with ``grammar``). With ``engine_medusa`` the
+continuous engine carries the heads, and medusa requests it accepts join
+it, one-shot or streamed, even alone (no detached decode: the solo Medusa
+decode is another program). They refuse what JAX refuses, with
 its ``ValueError``: speculation with penalties, n-gram bans or grammar,
 lookup with medusa, beams with the sampling features or with speculation,
 medusa without heads.
@@ -48,9 +51,6 @@ The threaded HTTP server calls ``generate`` from several threads. One lock
 per pipeline serialises the solo decode and the synth; it is not held
 while a request waits in the engine or the batcher, or requests would
 never coalesce.
-
-Not in the port yet: Medusa rows in the continuous engine
-(``engine_medusa``).
 """
 
 from __future__ import annotations
@@ -133,7 +133,8 @@ class Pipeline:
                  coalesce=False, coalesce_opts: dict | None = None,
                  fast_routing: bool = False, scheme: str = "a",
                  scheme_b: SchemeB3 | None = None,
-                 medusa_heads: dict | None = None):
+                 medusa_heads: dict | None = None,
+                 engine_medusa: bool = False):
         self.generator = generator
         # Medusa heads (tools.medusa.load_medusa_heads) serve medusa=true
         # requests; None refuses them. The acceptance probe rides /stats;
@@ -179,6 +180,13 @@ class Pipeline:
         if coalesce == "continuous":
             from .continuous import ContinuousBatcher
 
+            # engine_medusa puts the heads into the engine, so medusa=true
+            # requests join the shared decode; off by default, as in JAX
+            # (whose engine Medusa measured 0.48-0.85x and taxed plain
+            # rows there): medusa requests then decode solo
+            if engine_medusa and medusa_heads is not None \
+                    and "medusa_heads" not in opts:
+                opts["medusa_heads"] = medusa_heads
             self.batcher = ContinuousBatcher(generator, **opts)
         elif coalesce:
             from .batcher import RequestBatcher
@@ -223,10 +231,14 @@ class Pipeline:
         ids = self.generator.vocab.encode(start) if start else [1]
         if isinstance(self.batcher, ContinuousBatcher):
             # both of its graphs: the engine's chunk and the detached
-            # decode's (the request above took one route)
+            # decode's (the request above took one route); an engine with
+            # Medusa rows captures its Medusa chunk too
             self.batcher.submit(ids, temperature=1.0, seed=0,
                                 top_p=self.batcher.top_p)
             self.batcher.run_detached(ids, seed=0, top_p=self.batcher.top_p)
+            if self.batcher.medusa:
+                self.batcher.submit(ids, temperature=1.0, seed=0,
+                                    top_p=self.batcher.top_p, medusa=True)
             return
         if isinstance(self.batcher, RequestBatcher):
             self.batcher.warmup(ids)
@@ -335,6 +347,14 @@ class Pipeline:
                     self.medusa_heads, prompt_ids, **sampling)[0].tolist()
             return gen.generate_ids_lookup(prompt_ids, **sampling)[0].tolist()
 
+    def _engine_medusa(self, top_k: int, top_p: float, min_p: float) -> bool:
+        """Whether a medusa request with these values joins the engine."""
+        from .continuous import ContinuousBatcher
+
+        return isinstance(self.batcher, ContinuousBatcher) \
+            and self.batcher.accepts(top_k=top_k, top_p=top_p, min_p=min_p,
+                                     medusa=True)
+
     def _decode(self, mapping: dict, temperature: float, top_k: int,
                 run_seed: int, top_p: float, min_p: float,
                 penalties: tuple | None = None, no_repeat_ngram: int = 0,
@@ -349,10 +369,17 @@ class Pipeline:
         gen = self.generator
         gram = self.grammar() if grammar else None
         known, prompt_ids, dropped = self._prompt_for(mapping)
-        if lookup or medusa or beams:
+        if medusa and self._engine_medusa(top_k, top_p, min_p):
+            # a Medusa-capable engine serves medusa rows with its own
+            # programs always, never detached
+            ids = self.batcher.submit(prompt_ids, temperature=temperature,
+                                      top_k=top_k, seed=run_seed,
+                                      top_p=top_p, min_p=min_p, medusa=True)
+        elif lookup or medusa or beams:
             ids = self._solo_option(prompt_ids, temperature, top_k, run_seed,
                                     top_p, min_p, lookup, medusa, beams,
                                     length_penalty, gram)
+        if lookup or medusa or beams:
             if self.scheme == "b3":
                 tokens, song = self._song(ids)
                 return known, tokens, song, dropped
@@ -544,16 +571,25 @@ class Pipeline:
                        penalties: tuple | None = None,
                        no_repeat_ngram: int = 0, grammar: bool = False,
                        medusa: bool = False):
-        """Lists of newly generated token ids: with ``medusa`` the solo
-        Medusa stream (``decode/medusa.py``: accepted tokens arrive a verify
-        chunk at a time, the one-shot medusa decode's tokens); else an
-        engine row's (``submit_stream``) when a continuous engine runs and
-        accepts the request's sampling values and options, else the solo
-        chunked stream (``decode/stream.py``); ``chunk`` tokens a list."""
+        """Lists of newly generated token ids: with ``medusa`` an engine
+        Medusa row's when the engine carries the heads and accepts the
+        request, else the solo Medusa stream (``decode/medusa.py``: accepted
+        tokens arrive a verify chunk at a time, the one-shot medusa
+        decode's tokens); else an engine row's (``submit_stream``) when a
+        continuous engine runs and accepts the request's sampling values
+        and options, else the solo chunked stream (``decode/stream.py``);
+        ``chunk`` tokens a list."""
         from ..decode.stream import stream_tokens
         from .continuous import ContinuousBatcher
 
         gen = self.generator
+        if medusa and self._engine_medusa(top_k, top_p, min_p):
+            self._check_options(penalties, no_repeat_ngram, grammar, False,
+                                True, 0)
+            yield from self.batcher.submit_stream(
+                prompt_ids, temperature=temperature, seed=run_seed,
+                top_k=top_k, top_p=top_p, min_p=min_p, medusa=True)
+            return
         if medusa:
             from ..decode.medusa import stream_tokens_medusa
 
@@ -680,7 +716,8 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
                              device=None, coalesce=False,
                              coalesce_opts: dict | None = None,
                              fast_routing: bool = False,
-                             eager: bool = False) -> Pipeline:
+                             eager: bool = False,
+                             engine_medusa: bool = False) -> Pipeline:
     """A serving pipeline from a checkpoint directory of the JAX package's
     pickle format; the token scheme is inferred from the vocabulary
     (Scheme A, or B3 with its ``[END_SEQ]`` EOS; B1 and B2 have no control
@@ -689,7 +726,8 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
     True) or "continuous"; ``coalesce_opts`` go to the batcher. The decode
     replays CUDA graphs on the card; ``eager=True`` issues every step from
     the host instead, on every route, to compare the two (the CLI never
-    passes it)."""
+    passes it). ``engine_medusa`` puts the checkpoint's Medusa heads into
+    the continuous engine."""
     device = resolve_device(device)
     if coalesce == "continuous":
         # production default of the JAX package: 128-step chunks (half the
@@ -708,8 +746,12 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
             "checkpoint")
     heads, medusa_probe, medusa_unavailable = _medusa_heads_for(
         path, ckpt, device)
+    if engine_medusa and heads is None:
+        print("[serve] --engine-medusa ignored: the checkpoint has no "
+              "medusa heads")
     opts = dict(coalesce=coalesce, coalesce_opts=coalesce_opts,
-                fast_routing=fast_routing, medusa_heads=heads)
+                fast_routing=fast_routing, medusa_heads=heads,
+                engine_medusa=engine_medusa)
     if scheme == "b3":
         gen = Generator(ckpt["params"], ckpt["cfg"], vocab,
                         eos_token="[END_SEQ]", device=device, eager=eager)

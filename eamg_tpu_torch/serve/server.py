@@ -11,31 +11,34 @@ section a sentence), ``stream`` (form field or query: Server-Sent
 Events, a ``meta`` event a section, ``tokens`` deltas as the decode's
 chunks complete, then ``done`` with the MIDI and WAV as base64, the
 page's default request), and the page's decode options, each decoded
-solo: ``medusa`` (streamed a verify chunk at a time), ``lookup`` and
-``beams`` (0 to 16, with ``length_penalty``); ``GET /healthz``, ``GET
-/stats`` (with the engine's counters under ``engine`` when requests are
-coalesced, and the Medusa heads' acceptance probe under
-``medusa_probe``) and the static page at ``GET /`` (the JAX package's
-``serve/static/index.html``, read by path). Malformed input gets a 4xx,
+solo: ``medusa`` (streamed a verify chunk at a time; with
+``--engine-medusa`` it joins the engine), ``lookup`` and ``beams`` (0 to
+16, with ``length_penalty``); ``GET /healthz``, ``GET /stats`` (with the
+engine's counters under ``engine`` when requests are coalesced, and the
+Medusa heads' acceptance probe under ``medusa_probe``), ``GET /profile``
+(one request, "profile trace request" with seed 0 and no audio, under
+``torch.profiler``: a Chrome trace written to ``?dir=`` or a new
+temporary directory, answered with ``{"trace_dir", "view"}``) and the
+static page at ``GET /`` (the JAX package's ``serve/static/index.html``,
+read by path). Malformed input gets a 4xx,
 never a 500, and a stream's malformed number gets its 422 before the 200
 header is sent. JAX's 422s hold: lookup or beams with ``stream``, medusa
 streamed with penalties or n-gram bans or without heads, and every
 composition the pipeline refuses (lookup or medusa with grammar among
 them). A full admission queue (``EngineOverloaded``) gets a 503 with
-``Retry-After``, a stream's before its 200. ``/profile`` is a 404 until
-the port has its own trace capture.
+``Retry-After``, a stream's before its 200.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
-from ..utils.errors import NotInPort
 from ..utils.logging import JsonLogger, LatencyStats
 from .continuous import ContinuousBatcher, EngineOverloaded
 from .pipeline import Pipeline
@@ -224,8 +227,22 @@ class EAMGHandler(BaseHTTPRequestHandler):
                 out["engine"] = _engine_stats(batcher)
             self._json(200, out)
         elif path == "/profile":
-            self._json(404, {"error": "/profile is not yet in the PyTorch "
-                                      "port"})
+            # a torch.profiler trace of one representative request
+            import tempfile
+
+            from ..utils.logging import profiler_trace
+
+            qs = urllib.parse.parse_qs(urllib.parse.urlparse(self.path)
+                                       .query)
+            out_dir = qs.get("dir", [tempfile.mkdtemp(
+                prefix="eamg_profile_")])[0]
+            with profiler_trace(out_dir):
+                self.pipeline.generate("profile trace request", seed=0,
+                                       render_audio=False)
+            self._json(200, {"trace_dir": out_dir,
+                             "view": "open " + os.path.join(
+                                 out_dir, "trace.json")
+                             + " in chrome://tracing or Perfetto"})
         else:
             self._json(404, {"error": "not found"})
 
@@ -323,9 +340,6 @@ class EAMGHandler(BaseHTTPRequestHandler):
             result = gen_fn(prompt, render_audio=fmt == "wav", lookup=lookup,
                             medusa=medusa, beams=beams,
                             length_penalty=length_penalty, **sampling)
-        except NotInPort as exc:
-            self._json(400, {"error": str(exc)})
-            return
         except ValueError as exc:
             # a composition the pipeline refuses (lookup with penalties,
             # medusa without heads, speculation on a quirk checkpoint...)
@@ -376,16 +390,16 @@ class EAMGHandler(BaseHTTPRequestHandler):
         had its 422 before the 200 header is sent here."""
         # decide overload before committing to a 200 event stream; only a
         # stream that would ride the engine is shed (a race with the row's
-        # enqueue becomes an SSE "error" event); a medusa stream decodes
-        # solo
+        # enqueue becomes an SSE "error" event); a medusa stream rides it
+        # only when the engine carries the heads
         batcher = getattr(self.pipeline, "batcher", None)
-        if not medusa and isinstance(batcher, ContinuousBatcher) \
+        if isinstance(batcher, ContinuousBatcher) \
                 and batcher.accepts(
                     top_k=sampling["top_k"], top_p=sampling["top_p"],
                     min_p=sampling["min_p"],
                     penalties=sampling["penalties"],
                     no_repeat_ngram=sampling["no_repeat_ngram"],
-                    grammar=sampling["grammar"]) \
+                    grammar=sampling["grammar"], medusa=medusa) \
                 and batcher.overloaded():
             batcher.stats["rejected"] += 1
             self._send(503, json.dumps(

@@ -1,25 +1,49 @@
-"""Medusa heads: the loader of a heads file and its acceptance probe.
+"""Medusa heads: training on a frozen checkpoint, the heads file, its
+acceptance probe and the batch-1 timing.
 
-Port of the serving half of ``eamg_tpu/tools/medusa.py``. A heads file is
-a plain pickle: ``{"blocks": [{"w": [D, D], "b": [D]}, ...], "n_heads",
-...}`` of numpy float32 arrays, and, when the heads were trained with one,
-``"probe"``: the acceptance estimate made at training time (a dict of
-floats). :func:`probe_heads_for_checkpoint` makes one for a heads file
-without it, as the serving pipeline does: a teacher-forced forward over
-held-out rows of the checkpoint's own synthetic distribution. Training the
-heads and the batch-1 timing (``train_medusa_heads``, ``measure``) are
-not in the port yet.
+Port of ``eamg_tpu/tools/medusa.py``. A heads file is a plain pickle:
+``{"blocks": [{"w": [D, D], "b": [D]}, ...], "n_heads", "ckpt",
+"final_loss", "train_seconds", "probe"}`` of numpy float32 arrays, the
+probe being the acceptance estimate made at training time (a dict of
+floats), so JAX's ``load_medusa_heads`` reads what the port writes and the
+other way round. :func:`probe_heads_for_checkpoint` makes a probe for a
+heads file without one, as the serving pipeline does: a teacher-forced
+forward over held-out rows of the checkpoint's own synthetic distribution.
+
+:func:`train_medusa_heads` trains the heads on the base's hidden states
+(``forward_hidden`` under ``no_grad``: the base never changes): per head
+the gathered NLL of the token 1 + k ahead, summed over the valid positions
+of every head and divided by their count, optax's AdamW with its defaults
+(``train/trainer.py::AdamW``), batches in numpy's permutation order of the
+seed. The hidden state is promoted to f32 before the heads' product, as
+JAX promotes bf16 against the f32 heads. :func:`measure` and
+:func:`measure_tree` time plain decoding against linear Medusa (and the
+tree verify) at batch 1, as JAX's do.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import pickle
+import time
 
 import numpy as np
 import torch
 
 from ..models.gpt import GPTConfig, _head, forward_hidden
+from ..utils.device import resolve_device
+
+@dataclasses.dataclass(frozen=True)
+class MedusaSpec:
+    n_heads: int = 4
+    rows: int = 4000
+    epochs: int = 4
+    batch: int = 32
+    lr: float = 1e-3
+    seed: int = 0
+
 
 # A gamma-4 linear verify step costs about 1.5 plain decode steps on the
 # TPU the JAX package measured (its DESIGN.md section 3.9): heads whose
@@ -145,16 +169,270 @@ def _corpus_for(ckpt: dict, rows: int, seed: int):
 
 
 def probe_heads_for_checkpoint(ckpt: dict, heads: dict, rows: int = 24,
-                               seed: int = 98765, device="cpu") -> dict:
+                               seed: int = 98765, device=None) -> dict:
     """:func:`probe_acceptance` on fresh rows of the checkpoint's scheme
     (held out from the heads' training by the seed), for a heads file
     without a ``probe``. ``ckpt`` is ``utils.checkpoint.load_checkpoint``'s
-    dict; the forward runs on ``device``."""
+    dict; the forward runs on ``device`` (None: the card, or an error on a
+    host without one)."""
     from ..decode.api import _to_device
     from ..train.data import pad_rows
 
+    dev = resolve_device(device)
     cfg: GPTConfig = ckpt["cfg"]
     encoded, vocab = _corpus_for(ckpt, rows, seed)
     ids = pad_rows(encoded, cfg.seq_len, vocab.pad_id)
-    return probe_acceptance(_to_device(ckpt["params"], torch.device(device)),
-                            cfg, heads, ids, vocab.pad_id)
+    return probe_acceptance(_to_device(ckpt["params"], dev), cfg, heads, ids,
+                            vocab.pad_id)
+
+
+def medusa_head_loss(base: dict, blocks: list, batch_ids: torch.Tensor,
+                     cfg: GPTConfig, pad_id: int) -> torch.Tensor:
+    """JAX's ``loss_fn`` of the heads on one [B, T] batch of ids: head k
+    at position t predicts ids[t + 1 + k]; the gathered NLL (logsumexp
+    less the target's logit) over the valid positions of every head,
+    divided by their count. Differentiable in ``blocks`` only: the base's
+    hidden states come from ``forward_hidden`` without a graph."""
+    x = batch_ids[:, :-1]
+    h = forward_hidden(base, x, cfg).float()              # [B, T, D] frozen
+    T = x.shape[1]
+    pos = torch.arange(T, device=x.device)[None]
+    total = count = 0.0
+    for k, blk in enumerate(blocks, start=1):
+        hk = h + torch.nn.functional.silu(h @ blk["w"].T + blk["b"])
+        logits = _head(base, hk)                          # [B, T, V] f32
+        y = torch.roll(batch_ids, -(1 + k), 1)[:, :-1].long()
+        valid = ((pos < T - k) & (y != pad_id)).to(torch.float32)
+        nll = torch.logsumexp(logits, -1) - logits.gather(
+            -1, y[..., None])[..., 0]
+        total = total + (nll * valid).sum()
+        count = count + valid.sum()
+    return total / torch.clamp(count, min=1.0)
+
+
+def head_optimizer(spec: MedusaSpec):
+    """optax.adamw(spec.lr) with its defaults (b1 0.9, b2 0.999, eps 1e-8,
+    weight decay 1e-4 on every leaf)."""
+    from ..train.trainer import AdamW, TrainConfig
+
+    return AdamW(TrainConfig(lr=spec.lr, b1=0.9, b2=0.999,
+                             weight_decay=1e-4))
+
+
+def heads_leaves(blocks: list) -> list:
+    return [t for blk in blocks for t in (blk["w"], blk["b"])]
+
+
+def head_step(base: dict, blocks: list, opt, opt_state: dict,
+              batch_ids: torch.Tensor, cfg: GPTConfig,
+              pad_id: int) -> torch.Tensor:
+    """One AdamW step of the heads on a batch, in place -> the batch's
+    loss before the step (a device scalar)."""
+    leaves = heads_leaves(blocks)
+    for t in leaves:
+        t.requires_grad_(True)
+    with torch.enable_grad():
+        loss = medusa_head_loss(base, blocks, batch_ids, cfg, pad_id)
+        grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    opt.update(list(grads), opt_state, leaves)
+    return loss.detach()
+
+
+def train_medusa_heads(ckpt_dir: str, out_path: str,
+                       spec: MedusaSpec = MedusaSpec(), log_fn=print,
+                       device=None) -> dict:
+    """Train heads for the checkpoint at ``ckpt_dir`` on ``device`` (None:
+    the card) and write JAX's pickle to ``out_path``; -> the pickle's
+    dict."""
+    from ..decode.api import _to_device
+    from ..decode.medusa import init_medusa_heads
+    from ..train.data import pad_rows
+    from ..utils.checkpoint import load_checkpoint
+
+    t0 = time.time()
+    dev = resolve_device(device)
+    ckpt = load_checkpoint(ckpt_dir)
+    cfg: GPTConfig = ckpt["cfg"]
+    assert cfg.causal, "medusa needs the corrected causal architecture"
+    base = _to_device(ckpt["params"], dev)
+    encoded, vocab = _corpus_for(ckpt, spec.rows, spec.seed)
+    ids = pad_rows(encoded, cfg.seq_len, vocab.pad_id)
+    blocks = [{k: v.to(dev) for k, v in blk.items()} for blk in
+              init_medusa_heads(None, cfg, spec.n_heads)["blocks"]]
+    opt = head_optimizer(spec)
+    opt_state = opt.init(heads_leaves(blocks))
+    rng = np.random.default_rng(spec.seed)
+    n = ids.shape[0]
+    loss = torch.tensor(float("nan"))
+    for epoch in range(spec.epochs):
+        order = rng.permutation(n)
+        for s in range(0, n - spec.batch + 1, spec.batch):
+            batch = torch.from_numpy(ids[order[s:s + spec.batch]]).to(dev)
+            loss = head_step(base, blocks, opt, opt_state, batch, cfg,
+                             vocab.pad_id)
+        log_fn(f"[medusa] epoch {epoch + 1}/{spec.epochs}: "
+               f"head_loss={float(loss):.4f}")
+    out = {"blocks": [{k: v.cpu().numpy() for k, v in blk.items()}
+                      for blk in blocks],
+           "n_heads": spec.n_heads, "ckpt": os.path.abspath(ckpt_dir),
+           "final_loss": float(loss),
+           "train_seconds": round(time.time() - t0, 1)}
+    # the acceptance probe on held-out rows (a fresh seed) travels with
+    # the heads, so serving can say at start-up whether medusa wins
+    probe_rows, _ = _corpus_for(ckpt, min(32, spec.rows), spec.seed + 1)
+    out["probe"] = probe_acceptance(
+        base, cfg, {"blocks": blocks},
+        pad_rows(probe_rows, cfg.seq_len, vocab.pad_id), vocab.pad_id)
+    log_fn(f"[medusa] probe: {json.dumps(out['probe'])}")
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    log_fn(f"[medusa] saved {spec.n_heads} heads -> {out_path}")
+    return out
+
+
+def _measure_setup(ckpt_dir: str, heads_path: str, device):
+    """(params on the device, cfg, heads, vocab, prompt ids, the [1, P]
+    prompt): the B3 control prefix of 120 BPM and key 0, or Scheme A's
+    start token, as JAX's measure takes them."""
+    from ..decode.api import _to_device
+    from ..tokenizer import SchemeB3, Vocab, detect_scheme
+    from ..utils.checkpoint import load_checkpoint
+
+    dev = resolve_device(device)
+    ckpt = load_checkpoint(ckpt_dir)
+    cfg: GPTConfig = ckpt["cfg"]
+    vocab = Vocab(ckpt["vocab"])
+    if detect_scheme(vocab) == "b3":
+        prompt_ids = SchemeB3(seq_len=cfg.seq_len).control_prefix(120, 0)
+    else:
+        prompt_ids = [vocab.tok2id[t] for t in ["[START_SEQUENCE]"]
+                      if t in vocab.tok2id]
+    prompt = torch.tensor([prompt_ids], dtype=torch.int64, device=dev)
+    return (_to_device(ckpt["params"], dev), cfg,
+            load_medusa_heads(heads_path), vocab, prompt_ids, prompt)
+
+
+def measure(ckpt_dir: str, heads_path: str, max_len: int = 256,
+            gamma: int = 4, greedy: bool = True, seed: int = 0,
+            reps: int = 3, log_fn=print, device=None) -> dict:
+    """Batch-1 latency A/B: the plain cached decode against Medusa on the
+    same checkpoint and prompt, EOS off on both (fixed-length generations,
+    a fair per-token comparison): best-of-``reps`` rates, the speedup and
+    tokens a verify step."""
+    from ..decode.loop import generate_kv
+    from ..decode.medusa import generate_medusa
+    from ..utils import prng
+
+    params, cfg, heads, vocab, prompt_ids, prompt = _measure_setup(
+        ckpt_dir, heads_path, device)
+    plen, rng = len(prompt_ids), prng.PRNGKey(seed)
+
+    def run_plain():
+        _, pos = generate_kv(params, prompt, plen, rng, cfg, max_len,
+                             greedy=greedy, eos_id=-1, pad_id=vocab.pad_id,
+                             refeed_last_prompt=False)
+        return int(pos)
+
+    def run_medusa():
+        _, pos, n_steps = generate_medusa(
+            params, heads, prompt, plen, rng, cfg, max_len, gamma=gamma,
+            greedy=greedy, eos_id=-1, pad_id=vocab.pad_id)
+        return int(pos), int(n_steps)
+
+    run_plain()
+    run_medusa()                                   # builds and captures
+    t_plain = min(_timed(run_plain) for _ in range(reps))
+    t_med = min(_timed(run_medusa) for _ in range(reps))
+    pos_p = run_plain()
+    pos_m, n_steps = run_medusa()
+    gen_m = pos_m - plen
+    out = {
+        "plain_tok_s": round((pos_p - plen) / t_plain, 1),
+        "medusa_tok_s": round(gen_m / t_med, 1),
+        "speedup": round(t_plain / t_med * gen_m / max(pos_p - plen, 1), 3),
+        "tokens_per_verify": round(gen_m / max(n_steps, 1), 3),
+        "gamma": gamma, "max_len": max_len, "greedy": greedy,
+    }
+    log_fn(f"[medusa] {json.dumps(out)}")
+    return out
+
+
+def measure_tree(ckpt_dir: str, heads_path: str, max_len: int = 256,
+                 tree=None, seed: int = 0, reps: int = 5, log_fn=print,
+                 device=None) -> dict:
+    """Greedy batch-1 three-way interleaved A/B: the plain cached decode,
+    linear Medusa (gamma = the tree's depth) and tree verification, each
+    replaying its graphs; reps alternate plain, linear, tree, best of reps
+    a side."""
+    from ..decode.loop import generate_kv
+    from ..decode.medusa import generate_medusa
+    from ..decode.medusa_tree import (DEFAULT_TREE, generate_medusa_tree,
+                                      tree_tables)
+    from ..utils import prng
+
+    tree = tuple(tree) if tree is not None else DEFAULT_TREE
+    tb = tree_tables(tree)
+    params, cfg, heads, vocab, prompt_ids, prompt = _measure_setup(
+        ckpt_dir, heads_path, device)
+    plen, rng, gamma = len(prompt_ids), prng.PRNGKey(seed), tb["gamma"]
+
+    def run_plain():
+        _, pos = generate_kv(params, prompt, plen, rng, cfg, max_len,
+                             greedy=True, eos_id=-1, pad_id=vocab.pad_id,
+                             refeed_last_prompt=False)
+        return int(pos), 0
+
+    def run_linear():
+        _, pos, n = generate_medusa(params, heads, prompt, plen, rng, cfg,
+                                    max_len, gamma=gamma, greedy=True,
+                                    eos_id=-1, pad_id=vocab.pad_id)
+        return int(pos), int(n)
+
+    def run_tree():
+        _, pos, n = generate_medusa_tree(params, heads, prompt, plen, cfg,
+                                         max_len, tree=tree, eos_id=-1,
+                                         pad_id=vocab.pad_id)
+        return int(pos), int(n)
+
+    sides = {"plain": run_plain, "linear": run_linear, "tree": run_tree}
+    for fn in sides.values():                      # builds and captures
+        fn()
+    times = {k: [] for k in sides}
+    for _ in range(reps):                          # interleaved A/B/C
+        for k, fn in sides.items():
+            times[k].append(_timed(fn))
+    best = {k: min(v) for k, v in times.items()}
+    pos_p, _ = run_plain()
+    pos_l, steps_l = run_linear()
+    pos_t, steps_t = run_tree()
+    gen = pos_p - plen
+    out = {
+        "plain_tok_s": round(gen / best["plain"], 1),
+        "linear_tok_s": round((pos_l - plen) / best["linear"], 1),
+        "tree_tok_s": round((pos_t - plen) / best["tree"], 1),
+        "linear_tokens_per_verify": round((pos_l - plen) / max(steps_l, 1),
+                                          3),
+        "tree_tokens_per_verify": round((pos_t - plen) / max(steps_t, 1), 3),
+        "linear_speedup": round(best["plain"] / best["linear"], 3),
+        "tree_speedup": round(best["plain"] / best["tree"], 3),
+        # verify-step premium: the tree step's time over the plain step's
+        "tree_step_premium": round((best["tree"] / max(steps_t, 1))
+                                   / (best["plain"] / max(gen, 1)), 3),
+        "tree_nodes": tb["N"], "gamma": gamma, "max_len": max_len,
+        "reps": reps,
+        "spread_ms": {k: [round(t * 1000, 1) for t in v]
+                      for k, v in times.items()},
+    }
+    log_fn(f"[medusa-tree] {json.dumps(out)}")
+    return out
+
+
+def _timed(fn) -> float:
+    """Seconds of ``fn()``, whose result is read on the host (the decodes
+    return host values, so the device is done when it returns)."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0

@@ -3,13 +3,14 @@
 The reference's observability was print() statements in the request path
 (api_cache.py:188-206) and tqdm postfixes (SURVEY.md §5.5). Here:
 JSON-line structured events, reservoir-based p50/p95 latency tracking
-(the BASELINE metrics). Copied from the JAX package without its
-jax.profiler hook.
+(the BASELINE metrics). Copied from the JAX package, with its profiler
+hook on ``torch.profiler``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import threading
 import time
@@ -83,3 +84,21 @@ def timed(stats: LatencyStats | None = None, logger: JsonLogger | None = None,
             stats.observe(dt, tokens=holder.get("tokens", 0))
         if logger is not None:
             logger.log(event, duration_ms=round(dt * 1000, 2), **fields)
+
+
+@contextmanager
+def profiler_trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the block (the host's
+    operators and, on a CUDA host, the card's kernels) and write it into
+    ``log_dir`` as a Chrome trace (``trace.json``: chrome://tracing or
+    Perfetto)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

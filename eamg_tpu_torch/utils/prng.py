@@ -104,6 +104,15 @@ def split_rows(keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return both[:, 0], both[:, 1]
 
 
+def split_rows_n(keys: np.ndarray, num: int) -> np.ndarray:
+    """``jax.vmap(lambda k: jax.random.split(k, num))(keys)`` for [N, 2]
+    uint32 keys -> [N, num, 2] uint32."""
+    k = np.asarray(keys).astype(np.int64)
+    count = np.broadcast_to(np.arange(num, dtype=np.int64), (len(k), num))
+    x0, x1 = _threefry2x32(k[:, 0:1], k[:, 1:2], np.zeros_like(count), count)
+    return np.stack([x0, x1], axis=-1).astype(np.uint32)
+
+
 def split_rows_chain(keys: np.ndarray, steps: int):
     """``steps`` successive :func:`split_rows`: -> (the running keys after
     the last step [N, 2], the sampling keys of every step [steps, N, 2])."""

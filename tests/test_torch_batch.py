@@ -25,7 +25,8 @@ Checked, with the tolerance and its reason:
   CLI for the same seed and flags; of its decode modes, ``--beams`` gives
   the JAX CLI's bytes, ``--lookup`` and ``--medusa`` stop with JAX's
   ValueError on this (non-causal) checkpoint, ``--grammar`` gives the JAX
-  CLI's bytes, and ``--draft``, outside the port, exits 2 naming the flag;
+  CLI's bytes, and ``--draft`` (the checkpoint drafting for itself) stops
+  with JAX's AssertionError, "speculative requires causal";
 - ``Generator.generate_ids`` with a grammar token-equal to JAX's;
 - the bench module's loop (``bench.bench_impl``) at a cut depth, length and
   batch gives a result line per ``attn_impl``; ``python -m
@@ -112,10 +113,10 @@ CLI_RUNS = {
                   "--instruments", "Flute"],
 }
 # cli generate's decode modes: flag -> (its values, exit code, what stderr
-# says); "{heads}" is a Medusa heads file
+# says); "{heads}" is a Medusa heads file, "{ckpt}" the saved checkpoint
 CLI_MODES = {"--beams": (["4"], 0, ""),
              "--grammar": ([], 0, ""),
-             "--draft": (["x"], 2, "not yet in the PyTorch port"),
+             "--draft": (["{ckpt}"], 1, "speculative requires causal"),
              "--lookup": ([], 1, "corrected causal checkpoint"),
              "--medusa": (["{heads}"], 1, "corrected causal checkpoint")}
 
@@ -249,7 +250,7 @@ def _cli_case(inp, ref, tmp):
     with open(heads, "wb") as f:
         pickle.dump({"blocks": [{"w": np.zeros((64, 64), np.float32),
                                  "b": np.zeros(64, np.float32)}]}, f)
-    modes = {flag: [a.format(heads=heads) for a in values]
+    modes = {flag: [a.format(heads=heads, ckpt=ckpt) for a in values]
              for flag, (values, _, _) in CLI_MODES.items()}
     inp["cli/modes"] = np.asarray(json.dumps(modes))
     out = tmp / "jax_beams.mid"
@@ -427,10 +428,10 @@ def test_cli_generate_midi_bytes_equal_jax_cli(results, name):
 
 @pytest.mark.parametrize("flag", list(CLI_MODES))
 def test_cli_generate_names_modes_outside_the_port(results, flag):
-    """The modes still outside the port exit 2 naming the flag; the others
-    run as the JAX CLI runs them on this checkpoint: ``--beams`` and
-    ``--grammar`` to its MIDI bytes, ``--lookup`` and ``--medusa`` to JAX's
-    ValueError (they need a causal checkpoint)."""
+    """Every mode runs as the JAX CLI runs it on this checkpoint (none is
+    outside the port now): ``--beams`` and ``--grammar`` to its MIDI bytes,
+    ``--lookup`` and ``--medusa`` to JAX's ValueError and ``--draft`` to
+    its AssertionError (they need a causal checkpoint)."""
     got, ref = results
     _, code, says = CLI_MODES[flag]
     stderr = str(got[f"cli/{flag}/stderr"])

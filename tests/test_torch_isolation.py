@@ -44,6 +44,7 @@ if not torch.cuda.is_available():
     from eamg_tpu_torch.models.gpt import GPTConfig
     from eamg_tpu_torch.serve import pipeline_from_checkpoint
     from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.tools.medusa import probe_heads_for_checkpoint
     cfg = GPTConfig(vocab_size=3, seq_len=8, d_model=16, n_head=2, n_layer=1)
     calls = {
         "Generator": lambda: Generator({}, cfg, Vocab({"a": 0})),
@@ -51,6 +52,8 @@ if not torch.cuda.is_available():
         "EmotionClassifier": lambda: EmotionClassifier(),
         "cli generate": lambda: cli.main(["generate"]),
         "bench": lambda: bench.main([]),
+        "probe_heads_for_checkpoint": lambda: probe_heads_for_checkpoint(
+            {"cfg": cfg}, {"blocks": []}),
     }
     for name, fn in calls.items():
         try:
@@ -76,7 +79,8 @@ def probe():
 
 def test_every_port_module_imports_without_jax(probe):
     assert len(probe["modules"]) >= 30, probe["modules"]
-    for new in ("eamg_tpu_torch.bench", "eamg_tpu_torch.tokenizer.scheme_b"):
+    for new in ("eamg_tpu_torch.bench", "eamg_tpu_torch.tokenizer.scheme_b",
+                "eamg_tpu_torch.decode.medusa_tree"):
         assert new in probe["modules"]
     assert probe["leaked"] == []
 
@@ -103,7 +107,7 @@ def test_source_imports_no_jax_and_no_jax_package(path):
 
 @pytest.mark.parametrize("entry", ["Generator", "pipeline_from_checkpoint",
                                    "EmotionClassifier", "cli generate",
-                                   "bench"])
+                                   "bench", "probe_heads_for_checkpoint"])
 def test_entry_points_want_cuda_by_default(probe, entry):
     """On this CUDA-less host, no device argument means an error."""
     assert not probe["cuda"], "this check is for hosts without CUDA"

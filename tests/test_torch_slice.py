@@ -104,7 +104,7 @@ HTTP = {  # name: (status, what the body starts with or the error says)
     "penalty": (200, b"RIFF"), "ngram": (200, b"MThd"),
     "bad_ngram": (422, "no_repeat_ngram"), "bad_seed": (422, "seed"),
     "no_prompt": (422, "prompt"), "healthz": (200, b"{"),
-    "stats": (200, b"{"), "profile": (404, "/profile"),
+    "stats": (200, b"{"), "profile": (200, b'{"trace_dir"'),
 }
 
 
@@ -406,26 +406,24 @@ def test_full_queue_answers_503_with_retry_after(results):
     assert int(got["overload/rejected"]) == statuses.count(503)
 
 
-# the engine options the JAX server builds from each flag (with --coalesce)
-ENGINE_FLAG_OPTS = {"--engine-grammar": {"grammar": True},
+# the engine options the JAX server builds from each flag (with --coalesce);
+# --engine-medusa goes to the pipeline (``engine_medusa``), as in JAX
+ENGINE_FLAG_OPTS = {"--engine-medusa": {},
+                    "--engine-grammar": {"grammar": True},
                     "--engine-ngram": {"no_repeat_ngram": 3}}
 
 
 @pytest.mark.parametrize("flag", ["--engine-medusa", "--engine-grammar",
                                   "--engine-ngram"])
 def test_cli_names_engine_modes_outside_the_port(results, flag):
-    """--engine-medusa is still outside the port: it exits 2 naming the
-    flag. --engine-grammar and --engine-ngram 3 are in it: they build the
-    engine options the JAX server builds (``coalesce_opts``) and do not
-    exit 2."""
+    """Every engine mode of the JAX server is in the port now: no flag
+    exits 2. --engine-grammar and --engine-ngram 3 build the engine
+    options the JAX server builds (``coalesce_opts``); --engine-medusa
+    reaches the pipeline as ``engine_medusa``."""
     got, _ = results
     stderr = str(got[f"cli/{flag}/stderr"])
-    if flag == "--engine-medusa":
-        assert int(got[f"cli/{flag}/code"]) == 2
-        assert flag in stderr
-        assert "not yet in the PyTorch port" in stderr
-    else:
-        assert json.loads(str(got[f"cli/{flag}/opts"])) == \
-            ENGINE_FLAG_OPTS[flag]
-        assert int(got[f"cli/{flag}/code"]) == 0
-        assert "not yet in the PyTorch port" not in stderr
+    assert json.loads(str(got[f"cli/{flag}/opts"])) == ENGINE_FLAG_OPTS[flag]
+    assert int(got[f"cli/{flag}/code"]) == 0
+    assert "not yet in the PyTorch port" not in stderr
+    assert bool(got[f"cli/{flag}/engine_medusa"]) == (
+        flag == "--engine-medusa")

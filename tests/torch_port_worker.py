@@ -837,13 +837,10 @@ def _cli_coalesce_checks(inp, out):
     reqs = json.loads(str(inp["co/requests"]))
     from eamg_tpu_torch import cli
 
-    r = subprocess.run(
-        [sys.executable, "-m", "eamg_tpu_torch.cli", "serve", "--device",
-         "cpu", "--coalesce", "--engine-medusa"],
-        capture_output=True, text=True, timeout=120)
-    out["cli/--engine-medusa/code"] = np.asarray(r.returncode)
-    out["cli/--engine-medusa/stderr"] = np.asarray(r.stderr[-500:])
-    for flag, value in (("--engine-grammar", None), ("--engine-ngram", "3")):
+    import eamg_tpu_torch.serve as serve_pkg
+
+    for flag, value in (("--engine-medusa", None), ("--engine-grammar", None),
+                        ("--engine-ngram", "3")):
         args = cli.parse_args(["serve", "--coalesce", flag]
                               + ([value] if value else []))
         out[f"cli/{flag}/opts"] = np.asarray(json.dumps(
@@ -853,6 +850,16 @@ def _cli_coalesce_checks(inp, out):
             refused = cli._refuse(args, cli._ENGINE_NOT_YET)
         out[f"cli/{flag}/code"] = np.asarray(2 if refused else 0)
         out[f"cli/{flag}/stderr"] = np.asarray(err.getvalue())
+        # what `serve` hands the pipeline for the flag
+        seen = {}
+        real = serve_pkg.pipeline_from_checkpoint
+        serve_pkg.pipeline_from_checkpoint = lambda *a, **k: seen.update(k)
+        try:
+            cli.pipeline_from_args(args)
+        finally:
+            serve_pkg.pipeline_from_checkpoint = real
+        out[f"cli/{flag}/engine_medusa"] = np.asarray(
+            bool(seen.get("engine_medusa")))
     port = _free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "eamg_tpu_torch.cli", "serve", "--device",
@@ -2321,7 +2328,7 @@ def _checkpoint_probe(inp, out):
     heads = load_medusa_heads(path + "/medusa_heads.pkl")
     heads.pop("probe")
     out["ckpt_probe"] = np.asarray(json.dumps(probe_heads_for_checkpoint(
-        ck, heads, rows=int(inp["ckpt_probe_rows"]))))
+        ck, heads, rows=int(inp["ckpt_probe_rows"]), device=CPU)))
 
 
 def _tree_f32(node):
@@ -2909,6 +2916,9 @@ TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "top
 
 
 def main():
+    from torch_port_spec2 import SPEC2_TASKS
+
+    TASKS.update(SPEC2_TASKS)
     task, src, dst = sys.argv[1:4]
     torch.manual_seed(0)
     out: dict = {}
