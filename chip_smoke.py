@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,spec
     python3 chip_smoke.py --phases build,spec2
     python3 chip_smoke.py --phases build,kernels,options
+    python3 chip_smoke.py --phases build,tools
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -233,6 +234,23 @@ Phases:
     target tokens a second (non-PAD), torch.cuda.max_memory_allocated, and
     the device's idle share over 4 steps under torch.profiler. TF32 stays
     off (the script sets it so; the trainer leaves PyTorch's default).
+
+ 14. tools: the SoundFont rung of the served render: `serve` on
+    demo_ckpt_a with EAMG_SOUNDFONT set to tests/sf2_fixture.py's font
+    and EAMG_NO_FLUIDSYNTH=1: two same-seed WAV requests give equal bytes,
+    the same request under EAMG_NO_SF2=1 (the additive synth) other
+    bytes, and the served bytes are Sf2Renderer's on the card for the
+    request's song (render_wav of both logged); the renderer on the card
+    against the host on the fixture song (within SF2_ATOL) and on the
+    served song (logged), its band-energy correlation with the committed
+    C++-twin golden above 0.7; `serve --random-demo` (solo: two same-seed
+    WAVs equal, a MIDI) and `serve --random-demo --coalesce` (a lone
+    request, then four at once with its seed again: equal bytes), the
+    path's kernels launched; then `ablate` at the CLI's defaults (the
+    "- KV cache" row's PPL the "full" row's), `section-eval --prompts 10`
+    on the flagship, `feed-bench --rows FEED_ROWS` and `emotion`, their
+    output logged with the card's name and power limit; K1-K4 and row 8
+    launched over the phase.
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -5818,8 +5836,344 @@ def serve_train(torch) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ tools
+
+TOOLS_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                 "top_k_mask", "flash_decode_fold_sp")
+# tests/sf2_fixture.py::fixture_song: one note a preset tier (plain sine,
+# slow-attack saw, filtered saw, vibrato sine), 0.1 s to 1.2 s
+FIXTURE_NOTES = ((0, 69), (40, 60), (41, 64), (42, 72))
+SF2_LONE = {"prompt": "I finally got the job, I am so happy!", "seed": "7"}
+SF2_ATOL = 1e-5
+GOLDEN_MIN_CORR = 0.7
+# feed-bench's corpus, cut from the CLI's 100 000 rows: the host writes the
+# synthetic CSV at ~500 rows/s, so 100 000 rows alone would take minutes
+FEED_ROWS = 4000
+RANDOM_BURST = ((5, ""), (6, "?format=midi"), (5, ""), (8, ""))
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Set (a str) or unset (None) environment variables for the block."""
+    saved = {k: os.environ.get(k) for k in kv}
+    try:
+        for k, v in kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _fixture_font(tmp: str) -> str:
+    """tests/sf2_fixture.py's font (built with numpy and struct) as a
+    file; -> its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "sf2_fixture.py")
+    spec = importlib.util.spec_from_file_location("sf2_fixture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    font = os.path.join(tmp, "fixture.sf2")
+    with open(font, "wb") as f:
+        f.write(mod.build_test_sf2())
+    return font
+
+
+def _fixture_song():
+    from eamg_tpu_torch.midi.smf import Instrument, MidiSong, Note
+
+    song = MidiSong(initial_tempo=120.0)
+    for prog, pitch in FIXTURE_NOTES:
+        inst = Instrument(prog)
+        inst.notes.append(Note(100, pitch, 0.1, 1.2))
+        song.instruments.append(inst)
+    return song
+
+
+def _band_corr(ours, golden_path: str) -> float:
+    """The band-energy correlation tests/test_sf2.py holds the sampler to
+    against the committed golden WAV."""
+    import wave as wavemod
+
+    import numpy as np
+
+    with wavemod.open(golden_path, "rb") as w:
+        raw = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        theirs = raw.reshape(-1, w.getnchannels()).mean(1) / 32768.0
+    n = min(len(ours), len(theirs))
+    bands = np.geomspace(60, 22050 / 2 - 1, 25)
+
+    def prof(x):
+        spec = np.abs(np.fft.rfft(x[:n])) ** 2
+        freqs = np.fft.rfftfreq(n, 1.0 / 22050)
+        return np.log10(np.asarray(
+            [spec[(freqs >= lo) & (freqs < hi)].sum()
+             for lo, hi in zip(bands[:-1], bands[1:])]) + 1e-12)
+
+    return float(np.corrcoef(prof(ours), prof(theirs))[0, 1])
+
+
+def _timed_render(torch, renderer, song, seed: int = 0):
+    t0 = time.perf_counter()
+    wave = renderer.render_song(song, seed=seed)
+    if renderer.device.type == "cuda":
+        torch.cuda.synchronize()
+    return wave, (time.perf_counter() - t0) * 1000
+
+
+def tools_sf2(torch, tmp: str) -> dict:
+    """The SoundFont rung on the served flagship: `serve` on demo_ckpt_a
+    with EAMG_SOUNDFONT (the fixture font) and EAMG_NO_FLUIDSYNTH=1; two
+    same-seed WAV requests (equal bytes), the same request with
+    EAMG_NO_SF2=1 (the additive synth: other bytes); the served bytes are
+    Sf2Renderer's on the card for the request's song; the renderer on the
+    card against the host (fixture song within SF2_ATOL) and against the
+    committed C++-twin golden."""
+    import io
+
+    import numpy as np
+
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.audio import fluidsynth as fs
+    from eamg_tpu_torch.audio.sampler import Sf2Renderer
+    from eamg_tpu_torch.serve import shutdown_gracefully
+    from eamg_tpu_torch.tokenizer import tokens_to_song
+
+    font = _fixture_font(tmp)
+    out = {}
+    with _env(EAMG_SOUNDFONT=font, EAMG_NO_FLUIDSYNTH="1", EAMG_NO_SF2=None):
+        fs._sf2_renderers.clear()
+        pipe = cli.pipeline_from_args(cli.parse_args(["serve"]))
+        pipe.warmup()
+        server, thread, port = _serving(pipe)
+        try:
+            replies = []
+            for _ in range(2):
+                replies.append(_post(port, SF2_LONE))
+                _check_reply("tools/sf2", SF2_LONE, "", replies[-1])
+            with _env(EAMG_NO_SF2="1"):
+                additive = _post(port, SF2_LONE)
+                _check_reply("tools/sf2 additive", SF2_LONE, "", additive)
+            r = pipe.generate(SF2_LONE["prompt"], seed=7, render_audio=False)
+        finally:
+            server.shutdown()
+            shutdown_gracefully(server, pipe)
+            thread.join(timeout=30)
+        keys = sorted(fs._sf2_renderers)
+    if replies[0][1] != replies[1][1]:
+        raise AssertionError("tools/sf2: same-seed WAV bytes differ")
+    if replies[0][1] == additive[1]:
+        raise AssertionError("tools/sf2: the SoundFont WAV equals the "
+                             "additive synth's: rung 2 did not run")
+    if keys != [(font, "cuda")]:
+        raise AssertionError(f"tools/sf2: renderers {keys}, not one on the "
+                             "card")
+    song = tokens_to_song(r.tokens)
+    card = Sf2Renderer(font, device="cuda")
+    buf = io.BytesIO()
+    card.render_to_wav(song, buf, seed=7)
+    if buf.getvalue() != replies[0][1]:
+        raise AssertionError("tools/sf2: the served WAV is not "
+                             "Sf2Renderer's on the card for its song")
+    host = Sf2Renderer(font, device="cpu")
+    rows, left = card._voices_for(song)
+    w_card, ms_card = _timed_render(torch, card, song, seed=7)
+    w_host, ms_host = _timed_render(torch, host, song, seed=7)
+    served_err = float(np.abs(w_card - w_host).max())
+    fx_card, fx_ms_card = _timed_render(torch, card, _fixture_song())
+    fx_host, fx_ms_host = _timed_render(torch, host, _fixture_song())
+    fx_err = float(np.abs(fx_card - fx_host).max())
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden", "cpp_twin_fixture.wav")
+    corr = _band_corr(fx_card, golden)
+    timing = {k: json.loads(v[2].get("X-EAMG-Timings", "{}")).get(
+        "render_wav") for k, v in (("sf2", replies[0]), ("sf2_again",
+                                                          replies[1]),
+                                   ("additive", additive))}
+    out = {"served_same_bytes": True, "differs_from_additive": True,
+           "render_wav_ms": timing, "served_song_voices": len(rows),
+           "served_song_leftover_notes": sum(len(i.notes) for i in left),
+           "served_song_ms": {"card": ms_card, "host": ms_host},
+           "served_song_card_vs_host_max_abs": served_err,
+           "fixture_ms": {"card": fx_ms_card, "host": fx_ms_host},
+           "fixture_card_vs_host_max_abs": fx_err,
+           "golden_band_corr": corr}
+    log(f"[tools/sf2] {json.dumps(out)}")
+    if fx_err > SF2_ATOL:
+        raise AssertionError(f"tools/sf2: the fixture song's card render "
+                             f"differs from the host's by {fx_err}")
+    if not corr > GOLDEN_MIN_CORR:
+        raise AssertionError(f"tools/sf2: band-energy correlation {corr}")
+    return out
+
+
+def _random_burst(port: int) -> dict:
+    """RANDOM_BURST at once -> {i: reply}."""
+    replies, errors = {}, []
+
+    def hit(i, seed, query):
+        try:
+            fields = {"prompt": BURST_TEXTS[i % len(BURST_TEXTS)],
+                      "seed": str(seed)}
+            if seed == 5:
+                fields["prompt"] = BURST_TEXTS[0]
+            replies[i] = (fields, query, _post(port, fields, query))
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=hit, args=(i, s, q), daemon=True)
+               for i, (s, q) in enumerate(RANDOM_BURST)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or len(replies) != len(RANDOM_BURST):
+        raise AssertionError(f"random burst failed: {errors or 'a hang'}")
+    return replies
+
+
+def tools_random_demo(torch) -> dict:
+    """`serve --random-demo` (the non-causal random model, solo): two
+    same-seed WAV requests and a MIDI one; `serve --random-demo --coalesce`
+    (causal, the engine): a lone request, then RANDOM_BURST at once, the
+    lone request's seed again among them; same seed, same bytes."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    out = {}
+    for tag, argv in (("solo", ["serve", "--random-demo"]),
+                      ("coalesce", ["serve", "--random-demo",
+                                    "--coalesce"])):
+        pipe = cli.pipeline_from_args(cli.parse_args(argv))
+        cfg = pipe.generator.cfg
+        log(f"[tools/random {tag}] d{cfg.d_model} h{cfg.n_head} "
+            f"L{cfg.n_layer} V{cfg.vocab_size} causal {cfg.causal} "
+            f"{cfg.dtype}")
+        pipe.warmup()
+        server, thread, port = _serving(pipe)
+        try:
+            _build.reset_launch_counts()
+            fields = {"prompt": BURST_TEXTS[0], "seed": "5"}
+            lone = _post(port, fields)
+            _check_reply(f"tools/random {tag}", fields, "", lone)
+            if tag == "solo":
+                again = _post(port, fields)
+                _check_reply(f"tools/random {tag}", fields, "", again)
+                other = {**fields, "seed": "6"}
+                _check_reply(f"tools/random {tag}", other, "?format=midi",
+                             _post(port, other, "?format=midi"))
+                same = [again[1]]
+            else:
+                burst = _random_burst(port)
+                for f, q, rep in burst.values():
+                    _check_reply(f"tools/random {tag}", f, q, rep)
+                same = [burst[0][2][1], burst[2][2][1]]
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+        finally:
+            server.shutdown()
+            shutdown_gracefully(server, pipe)
+            thread.join(timeout=30)
+        if any(b != lone[1] for b in same):
+            raise AssertionError(f"tools/random {tag}: same-seed bytes "
+                                 "differ")
+        _require_launched(tag, counts)
+        log(f"[tools/random {tag}] same-seed bytes identical; launches "
+            f"{counts}")
+        out[tag] = counts
+    return out
+
+
+def _table_ppl(lines: list) -> dict:
+    """ablate's markdown table -> {row name: PPL as printed}."""
+    rows = {}
+    for line in lines:
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if len(cells) == 5 and cells[1] not in ("PPL ↓", "---"):
+            rows[cells[0]] = cells[1]
+    return rows
+
+
+def tools_cli(torch) -> dict:
+    """ablate at the CLI's defaults, section-eval --prompts 10 on the
+    flagship, feed-bench on FEED_ROWS rows, emotion on one text."""
+    out = {}
+    t0 = time.perf_counter()
+    lines = _cli_run("tools/ablate", ["ablate"])
+    out["ablate_s"] = time.perf_counter() - t0
+    ppl = _table_ppl(lines)
+    log("[tools/ablate] " + " / ".join(lines[-6:]))
+    if ppl.get("- KV cache") is None or ppl["- KV cache"] != ppl["full"]:
+        raise AssertionError(f"tools/ablate: PPL rows {ppl}")
+    out["ablate_ppl"] = ppl
+    t0 = time.perf_counter()
+    sec = json.loads(_cli_run("tools/section-eval",
+                              ["section-eval", "--prompts", "10"])[-1])
+    out["section_eval_s"] = time.perf_counter() - t0
+    out["section_eval"] = sec
+    if sec["n_prompts"] != 10 or sec["n_sections"] < 10:
+        raise AssertionError(f"tools/section-eval: {sec}")
+    t0 = time.perf_counter()
+    feed = json.loads(_cli_run("tools/feed-bench",
+                               ["feed-bench", "--rows", str(FEED_ROWS)])[-1])
+    out["feed_bench_s"] = time.perf_counter() - t0
+    out["feed_bench"] = feed
+    if feed["rows"] != FEED_ROWS or not feed["device_step_ms"] > 0:
+        raise AssertionError(f"tools/feed-bench: {feed}")
+    emo = json.loads(_cli_run("tools/emotion", [
+        "emotion", "--text", "I finally got the job, I am so happy!",
+        "--seed", "3"])[-1])
+    if emo["label"] != emo["mapping"]["emotion"]:
+        raise AssertionError(f"tools/emotion: {emo}")
+    out["emotion"] = emo
+    return out
+
+
+def serve_tools(torch, card: str) -> dict:
+    """Phase tools: the SoundFont rung on the served flagship, the random
+    demos served, and the CLI's tools on the card. -> launch counts over
+    the phase."""
+    import tempfile
+
+    from eamg_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        _build.reset_launch_counts()
+        out["sf2"] = tools_sf2(torch, tmp)
+        sf2_counts = _build.launch_counts()
+    random_counts = tools_random_demo(torch)
+    _build.reset_launch_counts()
+    out["cli"] = tools_cli(torch)
+    torch.cuda.synchronize()
+    cli_counts = _build.launch_counts()
+    counts = collections.Counter(sf2_counts)
+    for c in (*random_counts.values(), cli_counts):
+        counts.update(c)
+    counts = dict(counts)
+    for name in TOOLS_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"tools: {name} was not launched")
+    out["launches"] = {"sf2_serve": sf2_counts, "random": random_counts,
+                       "cli": cli_counts}
+    out["phase_s"] = time.perf_counter() - t0
+    log(json.dumps({"tools": out}))
+    log(f"[tools] phase {out['phase_s']:.1f} s; launches {counts}")
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
-          "spec", "spec2", "options", "batch", "train")
+          "spec", "spec2", "options", "batch", "train", "tools")
 
 
 def main(argv=None) -> int:
@@ -5889,6 +6243,8 @@ def main(argv=None) -> int:
         counts["generate"] = cli_generate(torch)
     if "train" in phases:
         counts["train"] = serve_train(torch)
+    if "tools" in phases:
+        counts["tools"] = serve_tools(torch, card)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
         log("chip_smoke: a partial run; no kernels line and no last line")

@@ -1,10 +1,13 @@
 """WAV rendering in fidelity order: the host's fluidsynth CLI with a
-soundfont when both exist, else the additive synthesizer on the device.
+soundfont when both exist; a soundfont without the binary through the
+SoundFont sampler on the device (``audio/sampler.py``); else the additive
+synthesizer on the device.
 
-Port of ``eamg_tpu/audio/fluidsynth.py``. The JAX package has a middle
-rung, its SoundFont sample renderer (audio/sampler.py) for hosts with a
-soundfont but no binary; that renderer is not in the port yet, and the
-port says so once when it skips the rung.
+Port of ``eamg_tpu/audio/fluidsynth.py``. The soundfont is
+``EAMG_SOUNDFONT``, else the first ``.sf2`` of the reference's
+``generate_music`` directory or of the system soundfont directories.
+``EAMG_NO_FLUIDSYNTH=1`` skips the binary and ``EAMG_NO_SF2=1`` the
+sampler, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import subprocess
 import tempfile
 
 from ..midi.smf import MidiSong
+from ..utils.device import resolve_device
 from .synth import SAMPLE_RATE, render_to_wav as _render_additive
 
 _SF2_CANDIDATE_DIRS = (
@@ -23,9 +27,6 @@ _SF2_CANDIDATE_DIRS = (
     "/usr/share/soundfonts",
     "/usr/local/share/soundfonts",
 )
-
-_said_sf2_skip = False
-
 
 def find_soundfont() -> str | None:
     """Path to a .sf2 on this host: ``EAMG_SOUNDFONT``, the reference's
@@ -73,12 +74,17 @@ def render_to_wav_fluidsynth(song: MidiSong, path_or_file,
         path_or_file.write(data)
 
 
+_sf2_renderers: dict = {}  # (path, device) -> Sf2Renderer (bank on it)
+
+
 def render_to_wav_auto(song: MidiSong, path_or_file, seed: int = 0,
                        device=None) -> None:
-    """1. the fluidsynth CLI + a soundfont; 2. (the SoundFont sampler, not
-    in the port yet); 3. the additive synthesizer on ``device``.
-    ``EAMG_NO_FLUIDSYNTH=1`` skips 1."""
-    global _said_sf2_skip
+    """1. the fluidsynth CLI + a soundfont; 2. a soundfont without the
+    binary: the SoundFont sampler on ``device``; 3. neither: the additive
+    synthesizer on ``device``. ``EAMG_NO_FLUIDSYNTH=1`` skips 1,
+    ``EAMG_NO_SF2=1`` skips 2. A font the parser refuses (``ValueError``,
+    ``OSError``) falls through to 3, as in JAX; any other error, a device's
+    included, propagates."""
     if not os.environ.get("EAMG_NO_FLUIDSYNTH"):
         found = find_fluidsynth()
         if found is not None:
@@ -87,8 +93,19 @@ def render_to_wav_auto(song: MidiSong, path_or_file, seed: int = 0,
                 return
             except (subprocess.SubprocessError, OSError):
                 pass  # broken host install: fall back
-    if not _said_sf2_skip and find_soundfont() is not None:
-        _said_sf2_skip = True
-        print("[audio] a soundfont was found but the SoundFont sampler is "
-              "not in the port yet; rendering with the additive synth")
+    if not os.environ.get("EAMG_NO_SF2"):
+        sf2 = find_soundfont()
+        if sf2 is not None:
+            dev = resolve_device(device)
+            try:
+                key = (sf2, str(dev))
+                if key not in _sf2_renderers:
+                    from .sampler import Sf2Renderer
+
+                    _sf2_renderers[key] = Sf2Renderer(sf2, device=dev)
+                _sf2_renderers[key].render_to_wav(song, path_or_file,
+                                                  seed=seed)
+                return
+            except (ValueError, OSError):
+                pass  # unparseable soundfont: fall back
     _render_additive(song, path_or_file, seed=seed, device=device)

@@ -1,6 +1,7 @@
 """Command line of the port: ``python -m eamg_tpu_torch.cli serve``,
-``generate``, ``train``, ``train-demo-a``, ``train-medusa`` and
-``medusa-measure``.
+``generate``, ``train``, ``train-demo-a``, ``train-medusa``,
+``medusa-measure``, ``emotion``, ``section-eval``, ``ablate``,
+``feed-bench``, ``analyze`` and ``tokenize``.
 
 ``generate`` writes one MIDI file (and with ``--wav`` a WAV file) from
 fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
@@ -21,8 +22,9 @@ vocabulary; both corrected causal checkpoints, else JAX's
 
 ``serve`` serves ``POST /generate`` on a Scheme-A or Scheme-B3 checkpoint
 of the JAX package's format (default: the shipped flagship
-``eamg_tpu/serve/demo_ckpt_a``) on the CUDA device, or on the host with
-``--device cpu``. ``--coalesce``
+``eamg_tpu/serve/demo_ckpt_a``, else ``demo_ckpt_b3``; ``--random-demo``
+serves the randomly initialised demo model, causal only with
+``--coalesce``) on the CUDA device, or on the host with ``--device cpu``. ``--coalesce``
 routes requests through the continuous-batching engine (or, with
 ``--coalesce window``, the 10 ms window batcher), with the JAX server's
 engine options ``--slots``, ``--chunk``, ``--max-queue``,
@@ -47,8 +49,13 @@ checkpoint (default: the shipped B3 demo) and writes JAX's heads pickle;
 ``medusa-measure`` times plain, linear Medusa and (``--tree``) tree
 verification at batch 1 on a checkpoint's heads (default: the shipped
 demo A); both print JSON.
-Every subcommand runs on the CUDA device unless ``--device cpu`` is
-given.
+``emotion`` classifies ``--text`` and prints its EATS mapping;
+``section-eval`` scores each section of multi-emotion prompts against its
+own controls; ``ablate`` prints the paper's §10.4 table; ``feed-bench``
+measures the host's feed rate against the trainer's demand; ``analyze``
+and ``tokenize`` are the corpus tools (host only). All print what the JAX
+CLI prints. Every subcommand with device work runs on the CUDA device
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -101,15 +108,28 @@ def coalesce_opts_from_args(args) -> dict:
 
 
 def pipeline_from_args(args):
-    """The serving pipeline that ``serve`` with these flags runs."""
-    from .serve import pipeline_from_checkpoint
-    from .serve.pipeline import DEMO_CKPT_A
+    """The serving pipeline that ``serve`` with these flags runs: the
+    checkpoint's, else the packaged demo's (A, else B3), else (or with
+    ``--random-demo``) the randomly initialised demo model, causal only
+    with ``--coalesce``, as the JAX server picks."""
+    from .serve import (demo_pipeline, packaged_demo_checkpoint,
+                        pipeline_from_checkpoint)
 
-    return pipeline_from_checkpoint(
-        args.checkpoint or DEMO_CKPT_A, full_gm=args.full_gm,
-        device=args.device, coalesce=args.coalesce,
-        coalesce_opts=coalesce_opts_from_args(args),
-        fast_routing=args.fast_routing, engine_medusa=args.engine_medusa)
+    opts = coalesce_opts_from_args(args)
+    ckpt_dir = args.checkpoint or (not args.random_demo
+                                   and packaged_demo_checkpoint())
+    if ckpt_dir:
+        return pipeline_from_checkpoint(
+            ckpt_dir, full_gm=args.full_gm, device=args.device,
+            coalesce=args.coalesce, coalesce_opts=opts,
+            fast_routing=args.fast_routing,
+            engine_medusa=args.engine_medusa)
+    if args.engine_medusa:
+        print("[serve] --engine-medusa ignored: the random demo pipeline "
+              "has no medusa heads")
+    return demo_pipeline(corrected=bool(args.coalesce),
+                         coalesce=args.coalesce, coalesce_opts=opts,
+                         fast_routing=args.fast_routing, device=args.device)
 
 
 def _serve(args) -> int:
@@ -382,6 +402,146 @@ def _medusa_measure(args) -> int:
     return 0
 
 
+def _emotion(args) -> int:
+    """Classify a text and map it to music (emotion_analysis/main.py)."""
+    import json
+
+    from .emotion import EmotionClassifier, get_music_params
+
+    clf = EmotionClassifier(device=args.device)
+    label = clf.predict(args.text)
+    mapping = get_music_params(label, seed=args.seed)
+    print(json.dumps({"label": label, "mapping": mapping,
+                      "top_k": clf.predict_top_k_labels(args.text, k=3)}))
+    return 0
+
+
+def _section_eval(args) -> int:
+    import json
+
+    from .serve import packaged_demo_checkpoint, pipeline_from_checkpoint
+    from .tools.section_metrics import measure_section_obedience
+
+    pipe = pipeline_from_checkpoint(args.ckpt or packaged_demo_checkpoint(),
+                                    device=args.device)
+    print(json.dumps(measure_section_obedience(pipe, n_prompts=args.prompts,
+                                               seed=args.seed)))
+    return 0
+
+
+def _feed_bench(args) -> int:
+    import json
+
+    from .tools.feed_bench import run_feed_bench
+
+    print(json.dumps(run_feed_bench(rows=args.rows, notes=args.notes,
+                                    steps=args.steps, shards=args.shards,
+                                    device=args.device)))
+    return 0
+
+
+def _ablate(args) -> int:
+    """The paper's §10.4 table: full / - KV / - emotion / - fine bins."""
+    from .tools.ablation import AblationConfig, markdown_table, run_ablation
+
+    acfg = AblationConfig(
+        csv_path=args.csv, n_rows=args.synthetic, max_rows=args.max_rows,
+        seq_len=args.seq_len, d_model=args.d_model, n_head=args.n_head,
+        n_layer=args.n_layer, epochs=args.epochs, seed=args.seed,
+        dtype=args.dtype, jitter_ms=args.jitter_ms)
+    table = markdown_table(run_ablation(acfg, device=args.device))
+    print(table)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write("# §10.4 ablation table\n\n" + table + "\n")
+        print("written ->", args.out)
+    return 0
+
+
+def _analyze(args) -> int:
+    from .tools.analysis import analyze_corpus, write_report
+
+    stats = analyze_corpus(args.csv, max_rows=args.max_rows)
+    write_report(stats, args.out)
+    print(f"analyzed {stats['rows']} rows -> {args.out}")
+    return 0
+
+
+def _tokenize(args) -> int:
+    import json
+
+    from .tools.corpus import build_corpus_csv
+
+    print(json.dumps(build_corpus_csv(args.midi_dir, args.out,
+                                      max_files=args.max_files,
+                                      log_fn=print)))
+    return 0
+
+
+def _add_tools(sub) -> None:
+    dev_help = "torch device (default cuda; 'cpu' runs on the host)"
+    se = sub.add_parser("section-eval",
+                        help="per-section emotion-adaptivity obedience over "
+                             "multi-emotion prompts "
+                             "(tools/section_metrics.py)")
+    se.add_argument("--ckpt", default=None,
+                    help="checkpoint dir (default: packaged demo)")
+    se.add_argument("--prompts", type=int, default=50)
+    se.add_argument("--seed", type=int, default=0)
+    se.add_argument("--device", default=None, help=dev_help)
+    se.set_defaults(fn=_section_eval)
+
+    fb = sub.add_parser("feed-bench",
+                        help="host data-pipeline feed rate at corpus scale "
+                             "(tools/feed_bench.py)")
+    fb.add_argument("--rows", type=int, default=100_000)
+    fb.add_argument("--notes", type=int, default=126)
+    fb.add_argument("--steps", type=int, default=200)
+    fb.add_argument("--shards", type=int, default=16)
+    fb.add_argument("--device", default=None, help=dev_help)
+    fb.set_defaults(fn=_feed_bench)
+
+    ab = sub.add_parser("ablate",
+                        help="paper §10.4 ablation table (PPL / MSE-Tune)")
+    ab.add_argument("--csv", default=None,
+                    help="real Lakh corpus CSV (paper scale); default: "
+                         "synthetic tempo-locked corpus")
+    ab.add_argument("--synthetic", type=int, default=384)
+    ab.add_argument("--max-rows", type=int, default=None)
+    ab.add_argument("--seq-len", type=int, default=96)
+    ab.add_argument("--d-model", type=int, default=128)
+    ab.add_argument("--n-head", type=int, default=4)
+    ab.add_argument("--n-layer", type=int, default=2)
+    ab.add_argument("--epochs", type=int, default=4)
+    ab.add_argument("--seed", type=int, default=0)
+    ab.add_argument("--jitter-ms", type=float, default=0.0,
+                    help="Gaussian micro-timing on synthetic onsets "
+                         "(performance-MIDI realism; see tools/ablation)")
+    ab.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ab.add_argument("--out", default=None, help="write markdown table here")
+    ab.add_argument("--device", default=None, help=dev_help)
+    ab.set_defaults(fn=_ablate)
+
+    a = sub.add_parser("analyze", help="corpus key/instrument histograms")
+    a.add_argument("--csv", required=True)
+    a.add_argument("--max-rows", type=int, default=20_000)
+    a.add_argument("--out", default="analysis_output.txt")
+    a.set_defaults(fn=_analyze)
+
+    k = sub.add_parser("tokenize", help="MIDI dir -> corpus CSV")
+    k.add_argument("--midi-dir", required=True)
+    k.add_argument("--out", required=True)
+    k.add_argument("--max-files", type=int, default=None)
+    k.set_defaults(fn=_tokenize)
+
+    e = sub.add_parser("emotion", help="classify text + EATS mapping demo")
+    e.add_argument("--text", required=True)
+    e.add_argument("--seed", type=int, default=None)
+    e.add_argument("--device", default=None, help=dev_help)
+    e.set_defaults(fn=_emotion)
+
+
 def _add_medusa(sub) -> None:
     md = sub.add_parser("train-medusa",
                         help="train Medusa heads on a frozen checkpoint "
@@ -570,12 +730,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     _add_generate(sub)
     _add_train(sub)
     _add_medusa(sub)
+    _add_tools(sub)
     s = sub.add_parser("serve", help="serve POST /generate")
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--checkpoint", default=None,
-                   help="checkpoint dir, Scheme A or B3 (default: "
-                        "eamg_tpu/serve/demo_ckpt_a)")
+                   help="checkpoint dir, Scheme A or B3 (default: the "
+                        "packaged demo, eamg_tpu/serve/demo_ckpt_a)")
+    s.add_argument("--random-demo", action="store_true",
+                   help="serve the randomly initialised demo model even "
+                        "when the packaged trained demo is present")
     s.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "versions of the kernels)")

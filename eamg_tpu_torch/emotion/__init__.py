@@ -2,8 +2,9 @@
 
 from .config import ID2LABEL, LABEL2ID, NUM_LABELS
 from .eats import EATS, get_music_params, load_table
-from .infer import EmotionClassifier
+from .infer import EmotionClassifier, default_classifier, predict
 from .segment import segment_text
 
 __all__ = ["EATS", "EmotionClassifier", "ID2LABEL", "LABEL2ID", "NUM_LABELS",
-           "get_music_params", "load_table", "segment_text"]
+           "default_classifier", "get_music_params", "load_table", "predict",
+           "segment_text"]

@@ -3,8 +3,10 @@ segment-wise transition analysis, backed by the DistilBERT checkpoint the
 JAX package ships (read by path) or, when none is found, the deterministic
 lexicon.
 
-Port of ``eamg_tpu/emotion/infer.py::EmotionClassifier``, with its
-per-text memo of probabilities.
+Port of ``eamg_tpu/emotion/infer.py``: ``EmotionClassifier``, with its
+per-text memo of probabilities, and the module-level ``default_classifier``
+and ``predict`` (the reference's ``inference.predict``), one classifier a
+device.
 """
 
 from __future__ import annotations
@@ -130,3 +132,22 @@ class EmotionClassifier:
     def analyze_emotion_transitions(self, text: str) -> list:
         """[(segment, label)] per sentence (inference.py:83-94)."""
         return [(seg, self.predict(seg)) for seg in segment_text(text)]
+
+
+_defaults: dict = {}
+_defaults_lock = threading.Lock()
+
+
+def default_classifier(device=None) -> EmotionClassifier:
+    """The process's classifier on ``device`` (None means CUDA), made at
+    its first use."""
+    dev = resolve_device(device)
+    with _defaults_lock:
+        if dev not in _defaults:
+            _defaults[dev] = EmotionClassifier(device=dev)
+        return _defaults[dev]
+
+
+def predict(text: str, device=None) -> str:
+    """Module-level convenience mirroring ``inference.predict``."""
+    return default_classifier(device).predict(text)

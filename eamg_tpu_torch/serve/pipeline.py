@@ -47,6 +47,11 @@ its ``ValueError``: speculation with penalties, n-gram bans or grammar,
 lookup with medusa, beams with the sampling features or with speculation,
 medusa without heads.
 
+``demo_pipeline`` and ``demo_pipeline_b3`` build pipelines on randomly
+initialised models (JAX's weights for the seed) for ``serve
+--random-demo``; ``packaged_demo_checkpoint`` names the shipped demo that
+``serve`` takes without ``--checkpoint``.
+
 The threaded HTTP server calls ``generate`` from several threads. One lock
 per pipeline serialises the solo decode and the synth; it is not held
 while a request waits in the engine or the batcher, or requests would
@@ -810,3 +815,68 @@ def _medusa_heads_for(path: str, ckpt: dict, device) -> tuple:
     if unavailable:
         print(f"[serve] medusa disabled: {unavailable}")
     return heads, probe, unavailable
+
+
+def packaged_demo_checkpoints() -> dict:
+    """{scheme: path} of the JAX package's shipped demo checkpoints
+    (``demo_ckpt_a``, ``demo_ckpt_b3``) that are present and not empty."""
+    out = {}
+    for scheme, d in (("a", DEMO_CKPT_A), ("b3", DEMO_CKPT_B3)):
+        if os.path.isdir(d) and os.listdir(d):
+            out[scheme] = d
+    return out
+
+
+def packaged_demo_checkpoint() -> str:
+    """The default demo: the Scheme-A flagship when shipped, else the B3
+    model, else ''."""
+    demos = packaged_demo_checkpoints()
+    return demos.get("a") or demos.get("b3") or ""
+
+
+def demo_pipeline(seq_len: int = 128, d_model: int = 128, n_head: int = 4,
+                  n_layer: int = 2, seed: int = 0, corrected: bool = False,
+                  coalesce=False, coalesce_opts: dict | None = None,
+                  fast_routing: bool = False, device=None) -> Pipeline:
+    """A pipeline with a randomly initialised Scheme-A model over the
+    synthetic corpus's vocabulary, as the JAX package's ``demo_pipeline``
+    builds it: the same threefry key gives JAX's weights bit for bit
+    (``models/gpt.py::init_params``). ``corrected=True`` builds the causal
+    architecture (coalescing needs it); otherwise the reference's
+    quirks."""
+    import json
+
+    from ..models.gpt import GPTConfig, init_params
+    from ..train.data import synthetic_corpus
+    from ..utils import prng
+
+    device = resolve_device(device)
+    corpus = [json.loads(js) for js in synthetic_corpus(64, seed=seed)]
+    vocab = Vocab.from_sequences(corpus, pad_last=False)
+    cfg = GPTConfig(vocab_size=len(vocab), seq_len=seq_len, d_model=d_model,
+                    n_head=n_head, n_layer=n_layer, pos_rows=seq_len,
+                    causal=bool(corrected))
+    params = init_params(prng.PRNGKey(seed), cfg, device=device)
+    gen = Generator(params, cfg, vocab, device=device)
+    return Pipeline(gen, EmotionClassifier(device=device), coalesce=coalesce,
+                    coalesce_opts=coalesce_opts, fast_routing=fast_routing)
+
+
+def demo_pipeline_b3(seq_len: int = 96, d_model: int = 64, n_head: int = 4,
+                     n_layer: int = 2, seed: int = 0,
+                     device=None) -> Pipeline:
+    """The Scheme-B3 demo pipeline: a random causal model over the fixed
+    8,579-token control vocabulary, solo."""
+    from ..models.gpt import GPTConfig, init_params
+    from ..utils import prng
+
+    device = resolve_device(device)
+    b3 = SchemeB3(seq_len=seq_len)
+    cfg = GPTConfig(vocab_size=len(b3.vocab), seq_len=seq_len,
+                    d_model=d_model, n_head=n_head, n_layer=n_layer,
+                    pos_rows=seq_len, causal=True)
+    params = init_params(prng.PRNGKey(seed), cfg, device=device)
+    gen = Generator(params, cfg, b3.vocab, eos_token="[END_SEQ]",
+                    device=device)
+    return Pipeline(gen, EmotionClassifier(device=device), scheme="b3",
+                    scheme_b=b3)

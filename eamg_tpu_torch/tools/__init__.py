@@ -1,2 +1,5 @@
-"""Offline tools of the port. So far only ``tools/medusa.py``: the Medusa
-heads' loader and their acceptance probe."""
+"""Offline tools of the port: the Medusa heads (``medusa.py``), the demo
+trainer (``demo_a.py``), the §10.4 ablation (``ablation.py``,
+``metrics.py``), the per-section metric (``section_metrics.py``), the
+corpus tools (``corpus.py``, ``analysis.py``, ``native_loader.py``) and
+the feed-rate measure (``feed_bench.py``)."""

@@ -164,7 +164,7 @@ def run_training(preset: str, csv_path: str | None = None,
     def save(tag):
         save_checkpoint(os.path.join(out_dir, tag), trainer.params,
                         vocab.tok2id, cfg, opt_state=trainer.opt_state_tree(),
-                        step=trainer.step,
+                        step=trainer.step, tcfg=tcfg,
                         extra={"preset": preset, "scheme": scheme})
 
     last_m = None

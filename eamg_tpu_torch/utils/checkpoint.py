@@ -11,15 +11,22 @@ bytes, so each bf16 leaf arrives as its bit pattern and becomes a
 reverse: a bf16 tensor's bits go out under the ``ml_dtypes.bfloat16``
 dtype, so the JAX package's ``load_checkpoint`` reads JAX's own arrays.
 
-A JAX-written ``opt_state.pkl`` is a tree of optax state namedtuples; the
-unpickler stands in for optax's classes and the loader takes the count
-and the moments of its ``ScaleByAdamState``. The port writes its own
-optimizer state as a plain dict (``{"count", "mu", "nu"}`` of numpy
-arrays), which the JAX package does not resume from.
+``opt_state.pkl`` is the tree of optax state namedtuples that the JAX
+package's ``make_optimizer`` builds for the run's ``TrainConfig``: a
+leading ``EmptyState()`` when ``clip_norm`` is set, then adamw's
+``(ScaleByAdamState(count, mu, nu), EmptyState(), ScaleByScheduleState(
+count) or EmptyState())``. The writer pickles stand-ins under optax's
+module and class names (NEWOBJ with the fields, as a namedtuple pickles),
+so the JAX package resumes from a checkpoint the port trained, and the
+port never imports optax. The unpickler stands in for optax's classes and
+the loader takes the count and the moments of the ``ScaleByAdamState``;
+it also reads the plain dict (``{"count", "mu", "nu"}``) that earlier
+versions of the port wrote.
 """
 
 from __future__ import annotations
 
+import copyreg
 import dataclasses
 import json
 import os
@@ -72,7 +79,11 @@ def _leaf_to_torch(a) -> torch.Tensor:
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, _OptaxState):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v) for v in tree)
+    if isinstance(tree, list):
         return [_tree_map(fn, v) for v in tree]
     return fn(tree)
 
@@ -144,13 +155,51 @@ _BF16_DTYPE = object()   # stands for np.dtype(ml_dtypes.bfloat16)
 _RECONSTRUCT = np.zeros(0).__reduce__()[0]
 
 
+class _OptaxState(tuple):
+    """An optax state namedtuple on its way out: pickled as its class (by
+    optax's module and name) and its fields, as a namedtuple is."""
+
+    module = name = ""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+class _EmptyState(_OptaxState):
+    module, name = "optax._src.base", "EmptyState"
+
+
+class _ScaleByAdamState(_OptaxState):
+    module, name = "optax._src.transform", "ScaleByAdamState"
+
+
+class _ScaleByScheduleState(_OptaxState):
+    module, name = "optax._src.transform", "ScaleByScheduleState"
+
+
+def optax_state(opt_state: dict, tcfg=None) -> tuple:
+    """``{"count", "mu", "nu"}`` -> the state tree of the JAX package's
+    ``make_optimizer(tcfg)`` (``tcfg`` None: the default ``TrainConfig``,
+    constant rate and no clip), with an int32 count."""
+    count = np.asarray(opt_state["count"], np.int32)
+    schedule = (_ScaleByScheduleState(count)
+                if getattr(tcfg, "schedule", "constant") == "warmup_cosine"
+                else _EmptyState())
+    adamw = (_ScaleByAdamState(count, opt_state["mu"], opt_state["nu"]),
+             _EmptyState(), schedule)
+    return (_EmptyState(), adamw) if getattr(tcfg, "clip_norm", None) \
+        else (adamw,)
+
+
 class _CheckpointPickler(pickle._Pickler):
     """Writes a bf16 leaf as numpy pickles an ``ml_dtypes.bfloat16`` array
     (the reconstructor, the dtype ``np.dtype(ml_dtypes.bfloat16, False,
     True)`` with its state, the raw bytes), without importing
-    ``ml_dtypes``."""
+    ``ml_dtypes``; and an optax state as optax's namedtuple."""
 
     def reducer_override(self, obj):
+        if isinstance(obj, _OptaxState):
+            return (copyreg.__newobj__, (type(obj), *obj))
         if isinstance(obj, _Bf16Bits):
             return (_RECONSTRUCT, (np.ndarray, (0,), b"b"),
                     (1, obj.bits.shape, _BF16_DTYPE, False,
@@ -162,12 +211,18 @@ class _CheckpointPickler(pickle._Pickler):
 
     def save_global(self, obj, name=None):
         if obj is _MlDtypesBfloat16:
-            self.save("ml_dtypes")
-            self.save("bfloat16")
-            self.write(pickle.STACK_GLOBAL)
-            self.memoize(obj)
+            self._stack_global(obj, "ml_dtypes", "bfloat16")
+            return
+        if isinstance(obj, type) and issubclass(obj, _OptaxState):
+            self._stack_global(obj, obj.module, obj.name)
             return
         super().save_global(obj, name)
+
+    def _stack_global(self, obj, module: str, name: str) -> None:
+        self.save(module)
+        self.save(name)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
 
 
 def _leaf_to_numpy(t):
@@ -188,18 +243,19 @@ def _dump(path: str, tree) -> None:
 def save_checkpoint(path: str, params: dict, vocab_tok2id: dict,
                     cfg: GPTConfig, opt_state: dict | None = None,
                     step: int = 0, rng_key=None,
-                    extra: dict | None = None) -> None:
+                    extra: dict | None = None, tcfg=None) -> None:
     """Write a self-contained checkpoint directory in the JAX package's
     format: ``params.pkl`` (numpy leaves; bf16 ones as
     ``ml_dtypes.bfloat16`` arrays), ``meta.json`` with exactly JAX's
     ``GPTConfig`` fields, ``vocab.json``, and ``opt_state.pkl`` when
-    ``opt_state`` ({"count", "mu", "nu"}, moments as trees) is given."""
+    ``opt_state`` ({"count", "mu", "nu"}, moments as trees) is given, as
+    the optax state tree of the run's ``TrainConfig`` ``tcfg``
+    (:func:`optax_state`)."""
     os.makedirs(path, exist_ok=True)
     _dump(os.path.join(path, "params.pkl"), params)
     if opt_state is not None:
         _dump(os.path.join(path, "opt_state.pkl"),
-              {"count": np.asarray(opt_state["count"], np.int32),
-               "mu": opt_state["mu"], "nu": opt_state["nu"]})
+              optax_state(opt_state, tcfg))
     meta = {
         "cfg": dataclasses.asdict(cfg),
         "step": int(step),

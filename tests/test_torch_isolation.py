@@ -2,9 +2,10 @@
 the card by default.
 
 - importing every module of eamg_tpu_torch (in a subprocess: torch stays
-  out of this process) loads neither ``jax`` nor any ``eamg_tpu`` module;
+  out of this process) loads neither ``jax``, ``optax`` nor any
+  ``eamg_tpu`` module;
 - no source of the port, nor chip_smoke.py or chip_sweep.py, imports
-  ``jax`` or ``eamg_tpu``;
+  ``jax``, ``optax`` or ``eamg_tpu``;
 - the entry points (the library's, ``cli generate`` and the bench module
   among them) raise on a host without CUDA when no device is given,
   instead of carrying on on the CPU.
@@ -33,8 +34,8 @@ mods = [m.name for m in pkgutil.walk_packages(eamg_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules
-                if m == "jax" or m.startswith(("jax.", "jaxlib"))
-                or m == "eamg_tpu" or m.startswith("eamg_tpu."))
+                if m in ("jax", "optax", "eamg_tpu")
+                or m.startswith(("jax.", "jaxlib", "optax.", "eamg_tpu.")))
 import torch
 raised = {}
 if not torch.cuda.is_available():
@@ -45,6 +46,11 @@ if not torch.cuda.is_available():
     from eamg_tpu_torch.serve import pipeline_from_checkpoint
     from eamg_tpu_torch.tokenizer import Vocab
     from eamg_tpu_torch.tools.medusa import probe_heads_for_checkpoint
+    from eamg_tpu_torch.audio import Sf2Renderer
+    from eamg_tpu_torch.emotion import default_classifier
+    from eamg_tpu_torch.serve import demo_pipeline
+    from eamg_tpu_torch.tools.ablation import run_ablation
+    from eamg_tpu_torch.tools.feed_bench import run_feed_bench
     cfg = GPTConfig(vocab_size=3, seq_len=8, d_model=16, n_head=2, n_layer=1)
     calls = {
         "Generator": lambda: Generator({}, cfg, Vocab({"a": 0})),
@@ -54,6 +60,12 @@ if not torch.cuda.is_available():
         "bench": lambda: bench.main([]),
         "probe_heads_for_checkpoint": lambda: probe_heads_for_checkpoint(
             {"cfg": cfg}, {"blocks": []}),
+        "demo_pipeline": lambda: demo_pipeline(),
+        "Sf2Renderer": lambda: Sf2Renderer("/nonexistent.sf2"),
+        "run_ablation": lambda: run_ablation(),
+        "run_feed_bench": lambda: run_feed_bench(),
+        "default_classifier": lambda: default_classifier(),
+        "cli emotion": lambda: cli.main(["emotion", "--text", "so happy"]),
     }
     for name, fn in calls.items():
         try:
@@ -100,14 +112,17 @@ def _imports(path: Path) -> list[str]:
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_and_no_jax_package(path):
     bad = [n for n in _imports(path)
-           if n == "jax" or n.startswith(("jax.", "jaxlib"))
-           or n == "eamg_tpu" or n.startswith("eamg_tpu.")]
+           if n in ("jax", "optax", "eamg_tpu")
+           or n.startswith(("jax.", "jaxlib", "optax.", "eamg_tpu."))]
     assert bad == [], f"{path}: {bad}"
 
 
 @pytest.mark.parametrize("entry", ["Generator", "pipeline_from_checkpoint",
                                    "EmotionClassifier", "cli generate",
-                                   "bench", "probe_heads_for_checkpoint"])
+                                   "bench", "probe_heads_for_checkpoint",
+                                   "demo_pipeline", "Sf2Renderer",
+                                   "run_ablation", "run_feed_bench",
+                                   "default_classifier", "cli emotion"])
 def test_entry_points_want_cuda_by_default(probe, entry):
     """On this CUDA-less host, no device argument means an error."""
     assert not probe["cuda"], "this check is for hosts without CUDA"

@@ -53,7 +53,7 @@ from eamg_tpu.train import data
 from eamg_tpu.train.run import encode_corpus, encode_corpus_csv
 from eamg_tpu.train.trainer import (TrainConfig, Trainer, loss_fn,
                                     loss_fn_chunked, loss_fn_packed,
-                                    reference_preset)
+                                    make_optimizer, reference_preset)
 from eamg_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
 
 from port_harness import cfg_json, flatten, perturbed_params, run_worker
@@ -432,10 +432,15 @@ def test_port_checkpoint_loads_in_jax(results):
     want = _leaf_paths(ck["params"], "ckpt/port_params")
     for k, w in want.items():
         np.testing.assert_array_equal(got[k], w, err_msg=k)
-    mu = _leaf_paths(ck["opt_state"]["mu"], "ckpt/port_mu")
+    # the optimizer state is the tree JAX's make_optimizer builds
+    opt = ck["opt_state"]
+    like = make_optimizer(TrainConfig(micro_batch=4)).init(ck["params"])
+    assert jax.tree.structure(opt) == jax.tree.structure(like)
+    adam = opt[0][0]
+    mu = _leaf_paths(adam.mu, "ckpt/port_mu")
     for k, w in mu.items():
         np.testing.assert_array_equal(got[k], w, err_msg=k)
-    assert int(ck["opt_state"]["count"]) == 1
+    assert int(adam.count) == 1 and adam.count.dtype == np.int32
 
 
 def test_port_bf16_checkpoint_loads_in_jax_as_bf16(results):

@@ -2707,7 +2707,7 @@ def _train_checkpoint_checks(inp, out):
     t.train_step(xs[0], ys[0])
     save_checkpoint(str(inp["ckpt/port_dir"]), t.params, vocab, cfg,
                     opt_state=t.opt_state_tree(), step=t.step,
-                    extra={"preset": "test"})
+                    extra={"preset": "test"}, tcfg=tcfg)
     save_checkpoint(str(inp["ckpt/port_bf16_dir"]),
                     tree_map(lambda a: a.to(torch.bfloat16), t.params),
                     vocab, cfg, step=t.step)
@@ -2917,8 +2917,10 @@ TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "top
 
 def main():
     from torch_port_spec2 import SPEC2_TASKS
+    from torch_port_tools import TOOLS_TASKS
 
     TASKS.update(SPEC2_TASKS)
+    TASKS.update(TOOLS_TASKS)
     task, src, dst = sys.argv[1:4]
     torch.manual_seed(0)
     out: dict = {}
