@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,spec2
     python3 chip_smoke.py --phases build,kernels,options
     python3 chip_smoke.py --phases build,tools
+    python3 chip_smoke.py --phases build,variants
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -251,6 +252,38 @@ Phases:
     on the flagship, `feed-bench --rows FEED_ROWS` and `emotion`, their
     output logged with the card's name and power limit; K1-K4 and row 8
     launched over the phase.
+ 15. variants: the model variants and converters. (a) JAX's
+    benchmarks.py scenario 8 through the port's library: the large2
+    geometry (d512 h8 L6, V 8324, causal, bf16, random weights from key
+    0) as bf16, int8 weights, GQA-2 and int8 + GQA-2, each a batch-8
+    decode to 511 (temperature 1, top-k 50, no EOS) timed over three
+    seeds after a capturing run; q and s made on the card equal to the
+    host's; same-seed tokens from graphs equal to the eager loop's; K1, K3
+    and K4 launched, K2 on the float FFNs only (an int8 FFN is JAX's
+    `_linear` route). (b) `cli train --preset large2 --corrected --scheme
+    a --experts 8 --moe-every 2 --synthetic 256 --epochs 1` (16 f32
+    steps, checkpoints every 8; Scheme A, since B2 has no control tokens
+    to serve and B3 serves solo only): finite logged losses, MoE in
+    layers 1, 3 and 5; the run rebuilt from its parts, each step between
+    CUDA events, its logged losses the CLI's; the first step's loss card
+    against host (1e-5 relative) and its gradient (1e-5 x max|g|) with the
+    host taking the card's relu kinks (a pre-activation within rounding
+    of 0 falls on either side: the kinks that differ, at most 1e-6 of all,
+    and the gradient without them, logged); its checkpoint served solo (a
+    WAV twice with one seed, equal bytes, a MIDI, three more seeds) and by
+    `serve --coalesce --slots 8` (the four seeds alone, then at once: each
+    row its lone request's bytes; beside the solo server's, logged: the
+    16-step model's logits are near uniform, and the top-k boundary's
+    margin, logged, is within the rounding by which two programs
+    differ); the batch-1 decode rate to 511 of the MoE model beside a
+    dense one of its config.
+    (c) `convert-gqa` of demo_ckpt_b3 to 2 and 1 KV heads, each served
+    solo, and K1 and K3 against their plain versions at H 4, Hkv 2 and 1,
+    Dh 48 in f32 and bf16. (d) `export-pt` then `convert-pt` of
+    demo_ckpt_b3: every parameter B3's cast to f32; `export-pt` refusing
+    demo_ckpt_a (GQA); `cli generate` on the converted checkpoint. (e)
+    `gqa-recover` at the CLI's defaults on demo_ckpt_b3 (2000 rows, 200
+    steps), its JSON logged. K1-K4 and row 8 launched over the phase.
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -6172,8 +6205,594 @@ def serve_tools(torch, card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- variants
+
+# (a) JAX's benchmarks.py::scenario_8_optimized_serving on the port: the
+# large2 geometry, random weights from key 0, batch 8 to position 511
+VARIANT_BASE = dict(vocab_size=8324, seq_len=512, d_model=512, n_head=8,
+                    n_layer=6, causal=True, dtype="bfloat16")
+VARIANT_CONFIGS = (("bf16", None, False), ("int8", None, True),
+                   ("gqa2", 2, False), ("int8+gqa2", 2, True))
+VARIANT_MAX_LEN = 511
+VARIANT_TIMED = 3
+# (b) an MoE large2 trained and served: Scheme A (B2, the preset's own,
+# has no control tokens to serve, and B3 serves solo only), 8 experts in
+# every second layer
+MOE_TRAIN_ARGS = ["train", "--preset", "large2", "--corrected", "--scheme",
+                  "a", "--experts", "8", "--moe-every", "2", "--synthetic",
+                  "256", "--epochs", "1", "--save-every", "8",
+                  "--log-every", "4", "--seed", "0"]
+MOE_BURST_SEEDS = (41, 42, 43, 44)
+MOE_SOLO = {"prompt": BURST_TEXTS[0], "seed": "7"}
+VARIANT_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                   "top_k_mask", "flash_decode_fold_sp")
+# (c) K1 and K3 at demo_ckpt_b3's heads after convert-gqa: H 4, Dh 48
+GQA_B3_SHAPES = ((4, 2, 48), (4, 1, 48))
+
+
+def _variant_params(torch, name, kv_heads, quant):
+    """scenario 8's weights for one configuration on the card, and for the
+    int8 ones q and s made on the card against the host's."""
+    from eamg_tpu_torch.models.gpt import GPTConfig, init_params
+    from eamg_tpu_torch.models.quant import quantize_params
+    from eamg_tpu_torch.train.trainer import tree_leaves, tree_map
+    from eamg_tpu_torch.utils import prng
+
+    cfg = GPTConfig(**VARIANT_BASE, n_kv_heads=kv_heads)
+    params = init_params(prng.PRNGKey(0), cfg, device="cuda")
+    if not quant:
+        return cfg, tree_map(lambda p: p.to(torch.bfloat16), params)
+    card = quantize_params(params)
+    host = quantize_params(tree_map(lambda p: p.cpu(), params))
+    pairs = list(zip(tree_leaves(card), tree_leaves(host)))
+    differ = [i for i, (a, b) in enumerate(pairs)
+              if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+    n_q = sum(a.dtype == torch.int8 for a, _ in pairs)
+    log(f"[variants {name}] quantize_params on the card against the host: "
+        f"{len(pairs)} leaves ({n_q} int8 q), {len(differ)} differ")
+    if differ or n_q != 4 * cfg.n_layer + 1:
+        raise AssertionError(f"variants {name}: q/s card against host: "
+                             f"leaves {differ} differ, {n_q} int8 leaves")
+    return cfg, card
+
+
+def variants_decode(torch) -> dict:
+    """(a) int8 and GQA decode: each configuration's batch-8 decode to 511
+    (temperature 1, top-k 50, no EOS) once to capture its graphs, then
+    VARIANT_TIMED times (tokens/s of the fastest, as scenario 8 reports);
+    same-seed tokens from graphs equal the eager loop's; K1, K3, K4
+    launched, and K2 on the float FFNs only. -> per config launches."""
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.utils import prng
+
+    prompt = torch.zeros((8, 16), dtype=torch.int64)
+    prompt[:, :3] = torch.tensor([1, 2, 3])
+    prompt = prompt.cuda()
+    n_gen = VARIANT_MAX_LEN - 3
+    out, counts_by = {}, {}
+    for name, kv_heads, quant in VARIANT_CONFIGS:
+        cfg, params = _variant_params(torch, name, kv_heads, quant)
+
+        def run(seed, eager=False):
+            buf, n = generate_kv(params, prompt, 3, prng.PRNGKey(seed), cfg,
+                                 VARIANT_MAX_LEN, temperature=1.0, top_k=50,
+                                 eos_id=-1, pad_id=0,
+                                 refeed_last_prompt=False, eager=eager)
+            return buf.cpu(), n
+
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        run(0)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        ts, toks = [], None
+        for seed in range(1, VARIANT_TIMED + 1):
+            t0 = time.perf_counter()
+            buf, n = run(seed)
+            ts.append(time.perf_counter() - t0)
+            toks = toks if toks is not None else buf
+        eager, _ = run(1, eager=True)
+        rate = 8 * n_gen / min(ts)
+        same = bool(torch.equal(eager, toks))
+        log(f"[variants {name}] batch 8 to {VARIANT_MAX_LEN}: "
+            f"{rate:.1f} tokens/s (best of {[round(t * 1000, 1) for t in ts]}"
+            f" ms); graphs == eager loop (seed 1): {same}; launches of the "
+            f"capturing run {counts}")
+        if not same:
+            raise AssertionError(f"variants {name}: the graphs' tokens "
+                                 "differ from the eager loop's")
+        for k in ("flash_attention", "flash_decode_sp", "top_k_mask"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"variants {name}: {k} not launched")
+        if bool(counts.get("fused_ffn", 0)) == quant:
+            raise AssertionError(f"variants {name}: fused_ffn launched "
+                                 f"{counts.get('fused_ffn', 0)} times")
+        out[name] = {"tokens_per_s": rate, "seconds": ts,
+                     "graphs_equal_eager": same}
+        counts_by[name] = counts
+        del params
+    base = out["bf16"]["tokens_per_s"]
+    log("[variants] scenario 8 tokens/s: " + ", ".join(
+        f"{k} {v['tokens_per_s']:.1f} ({v['tokens_per_s'] / base:.3f}x)"
+        for k, v in out.items()))
+    return out, counts_by
+
+
+def _moe_setup(torch, cfg_like):
+    """MOE_TRAIN_ARGS rebuilt from its parts: (cfg, tcfg, batches, initial
+    params on the card)."""
+    from eamg_tpu_torch.models.gpt import init_params
+    from eamg_tpu_torch.train.data import batches, synthetic_corpus
+    from eamg_tpu_torch.train.run import encode_corpus
+    from eamg_tpu_torch.train.trainer import reference_preset
+    from eamg_tpu_torch.utils import prng
+
+    encoded, vocab = encode_corpus(synthetic_corpus(256, seed=0), "a",
+                                   cfg_like.seq_len)
+    tcfg = dataclasses.replace(reference_preset("large2"), epochs=1,
+                               pad_id=vocab.pad_id)
+    steps = list(batches(encoded, cfg_like.seq_len, vocab.pad_id,
+                         tcfg.micro_batch, drop_last=False, shuffle_seed=0))
+    return tcfg, steps, init_params(prng.PRNGKey(0), cfg_like,
+                                    device="cuda")
+
+
+def _moe_grads(torch, cfg, tcfg, params, x, y):
+    """loss_fn_moe and its gradient at ``params`` for one batch -> (loss,
+    CPU gradients)."""
+    from eamg_tpu_torch.train.trainer import (loss_fn_moe, tree_leaves,
+                                              tree_unflatten)
+
+    live = [p.detach().clone().requires_grad_() for p in tree_leaves(params)]
+    dev = live[0].device
+    loss, _ = loss_fn_moe(tree_unflatten(params, live),
+                          torch.from_numpy(x[0]).to(dev),
+                          torch.from_numpy(y[0]).to(dev), cfg, tcfg.pad_id,
+                          tcfg.moe_aux_weight)
+    return float(loss.detach()), [g.cpu() for g in
+                                  torch.autograd.grad(loss, live)]
+
+
+@contextlib.contextmanager
+def _relu_kinks(torch, masks: list, replay: bool):
+    """Every ``torch.relu`` of the training forward (a dense FFN's, or an
+    MoE layer's experts'), in call order: record its mask ``h > 0`` into
+    ``masks`` (replay False), or apply the recorded masks instead (replay
+    True: h * mask, whose gradient is the mask), so that a second device
+    takes the first one's kinks; yields the count of elements whose own
+    sign disagreed with the replayed mask."""
+    real = torch.relu
+    calls, flipped = [0], [0]
+
+    def record(h):
+        masks.append((h.detach() > 0).cpu())
+        return real(h)
+
+    def apply(h):
+        m = masks[calls[0]].to(h.device)
+        calls[0] += 1
+        flipped[0] += int(((h.detach() > 0) != m).sum())
+        return h * m.to(h.dtype)
+
+    torch.relu = apply if replay else record
+    try:
+        yield flipped
+    finally:
+        torch.relu = real
+
+
+def _leaf_names(tree, prefix: str = "") -> list:
+    """The paths of a tree's leaves in ``tree_leaves`` order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _moe_serve(torch, ckpt_dir: str) -> dict:
+    """`serve --checkpoint` of the MoE model: a WAV twice with one seed
+    (equal bytes), a MIDI, the other seeds of MOE_BURST_SEEDS; then `serve
+    --coalesce --slots 8`: each seed alone (the detached route), then the
+    four at once, each row's bytes its lone request's (the solo server's
+    beside them, logged). -> launches by route."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+
+    plan = [{"prompt": BURST_TEXTS[i % len(BURST_TEXTS)], "seed": str(s)}
+            for i, s in enumerate(MOE_BURST_SEEDS)]
+    plan[0] = dict(MOE_SOLO)
+    out, solo = {}, []
+    for tag, extra in (("solo", []), ("coalesce", ["--coalesce", "--slots",
+                                                   str(ENGINE_SLOTS)])):
+        pipe = cli.pipeline_from_args(cli.parse_args(
+            ["serve", "--checkpoint", ckpt_dir] + extra))
+        pipe.warmup()
+        server, thread, port = _serving(pipe)
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            if tag == "solo":
+                a = _post(port, MOE_SOLO)
+                b = _post(port, MOE_SOLO)
+                for r in (a, b):
+                    _check_reply("variants moe solo", MOE_SOLO, "", r)
+                midi = {**MOE_SOLO, "seed": "11"}
+                _check_reply("variants moe solo", midi, "?format=midi",
+                             _post(port, midi, "?format=midi"))
+                if a[1] != b[1]:
+                    raise AssertionError("variants moe solo: same-seed WAV "
+                                         "bytes differ")
+                solo.append(a[1])
+                for f in plan[1:]:
+                    r = _post(port, f)
+                    _check_reply("variants moe solo", f, "", r)
+                    solo.append(r[1])
+            else:
+                lone = []
+                for f in plan:
+                    r = _post(port, f)
+                    _check_reply("variants moe lone", f, "", r)
+                    lone.append(r[1])
+                replies, errors = {}, []
+
+                def hit(i, f):
+                    try:
+                        replies[i] = _post(port, f)
+                    except Exception as exc:  # noqa: BLE001 - below
+                        errors.append(f"{i}: {type(exc).__name__}: {exc}")
+
+                threads = [threading.Thread(target=hit, args=(i, f),
+                                            daemon=True)
+                           for i, f in enumerate(plan)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                if errors or len(replies) != len(plan):
+                    raise AssertionError(f"variants moe burst: {errors}")
+                for i, f in enumerate(plan):
+                    _check_reply("variants moe burst", f, "", replies[i])
+                same = [replies[i][1] == lone[i] for i in range(len(plan))]
+                as_solo = [lone[i] == solo[i] for i in range(len(plan))]
+                stats = dict(pipe.batcher.stats)
+                log(f"[variants moe coalesce] burst of {len(plan)}: each "
+                    f"row's bytes its lone request's: {same}; the solo "
+                    f"server's (another program: K3 at batch 1, not row 8 "
+                    f"at 8 rows): {as_solo}; engine admitted "
+                    f"{stats.get('admitted')}, served {stats.get('served')}")
+                if not all(same):
+                    raise AssertionError("variants moe: a burst row's bytes "
+                                         "differ from its lone request's")
+                out["engine_equals_solo_server"] = as_solo
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+        finally:
+            server.shutdown()
+            shutdown_gracefully(server, pipe)
+            thread.join(timeout=30)
+        _require_launched(tag, counts)
+        log(f"[variants moe {tag}] launches {counts}")
+        out[tag] = counts
+    return out
+
+
+def variants_moe(torch, tmp: str) -> dict:
+    """(b) `cli train` of an MoE large2 (16 steps, a checkpoint every 8),
+    the same run rebuilt from its parts and timed on the card, the first
+    step's loss and gradient card against host, then its checkpoint
+    served solo and through the engine."""
+    from eamg_tpu_torch.train.trainer import Trainer, tree_map
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    run_dir = os.path.join(tmp, "moe")
+    t0 = time.perf_counter()
+    lines = _cli_run("variants moe train", MOE_TRAIN_ARGS + ["--out",
+                                                             run_dir])
+    cli_s = time.perf_counter() - t0
+    logged = _logged_losses(lines)
+    summary = json.loads(lines[-1])
+    ck = load_checkpoint(os.path.join(run_dir, "final"))
+    cfg = ck["cfg"]
+    moe_layers = [i for i, p in enumerate(ck["params"]["layers"])
+                  if "router" in p["mlp"]]
+    if summary["steps"] != TRAIN_STEPS or sorted(logged) != [4, 8, 12, 16] \
+            or not all(math.isfinite(v) for v, _ in logged.values()):
+        raise AssertionError(f"variants moe: {summary}, logged {logged}")
+    if (cfg.n_experts, cfg.moe_every, moe_layers) != (8, 2, [1, 3, 5]):
+        raise AssertionError(f"variants moe: config {cfg}, MoE layers "
+                             f"{moe_layers}")
+    if not os.path.exists(os.path.join(run_dir, "latest", "params.pkl")):
+        raise AssertionError("variants moe: no latest checkpoint")
+
+    tcfg, steps, params = _moe_setup(torch, cfg)
+    init = tree_map(lambda p: p.detach().clone(), params)
+    timed = _timed_steps(torch, Trainer(cfg, tcfg, params, device="cuda"),
+                         steps, "moe")
+    host_init = tree_map(lambda p: p.cpu(), init)
+    masks = []
+    with _relu_kinks(torch, masks, replay=False):
+        loss_c, g_card = _moe_grads(torch, cfg, tcfg, init, *steps[0])
+    t1 = time.perf_counter()
+    loss_h, g_host = _moe_grads(torch, cfg, tcfg, host_init, *steps[0])
+    host_s = time.perf_counter() - t1
+    with _relu_kinks(torch, masks, replay=True) as flipped:
+        _, g_kinked = _moe_grads(torch, cfg, tcfg, host_init, *steps[0])
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    g_scale = max(float(g.abs().max()) for g in g_host)
+
+    def worst(gs):
+        return max(((float((a - b).abs().max()), n) for a, b, n in
+                    zip(g_card, gs, _leaf_names(init))))
+
+    g_gap, at = worst(g_host)
+    k_gap, k_at = worst(g_kinked)
+    n_relu = sum(m.numel() for m in masks)
+    log(f"[variants moe] `cli train` {cli_s:.1f} s, logged {logged}; "
+        f"rebuilt: step 1 loss card {loss_c} host {loss_h} (rel |delta| "
+        f"{rel:.3e}); gradient max |delta| {g_gap:.3e} ({at}) against max "
+        f"|g| {g_scale:.3e}; the host's relu took {flipped[0]} of {n_relu} "
+        f"kinks the other way (a pre-activation within rounding of 0); with "
+        f"the card's kinks the host's gradient max |delta| {k_gap:.3e} "
+        f"({k_at}); host step {host_s:.1f} s")
+    if rel > HOST_LOSS_RTOL or k_gap > HOST_GRAD_TOL * g_scale:
+        raise AssertionError(f"variants moe: card against host: loss rel "
+                             f"{rel}, gradient {k_gap} of {g_scale} with "
+                             "the card's kinks")
+    if flipped[0] > 1e-6 * n_relu:
+        raise AssertionError(f"variants moe: {flipped[0]} relu kinks of "
+                             f"{n_relu} differ card against host")
+    for step, (v, _) in logged.items():
+        if abs(round(timed["losses"][step - 1], 4) - v) > 1.5e-4:
+            raise AssertionError(f"variants moe: step {step} logged {v}, "
+                                 f"rebuilt {timed['losses'][step - 1]}")
+    served = _moe_serve(torch, os.path.join(run_dir, "final"))
+    served["top_k_margin"] = _top_k_margin(torch, cfg, ck["params"],
+                                           steps[0][0][0])
+    rates = _moe_decode_rates(torch, cfg, ck["params"])
+    return {"cli": {"summary": summary, "logged": logged,
+                    "seconds": cli_s},
+            "timed": {k: timed[k] for k in ("ms_per_step_median",
+                                            "ms_per_step",
+                                            "target_tokens_per_s",
+                                            "max_memory_allocated_bytes",
+                                            "losses")},
+            "host": {"loss_rel_delta": rel, "grad_max_abs_delta": g_gap,
+                     "grad_max_abs_delta_card_kinks": k_gap,
+                     "relu_kinks_flipped": flipped[0], "relu_elements": n_relu,
+                     "grad_max_abs": g_scale, "host_seconds": host_s},
+            "served": served, "decode_rates": rates}
+
+
+def _top_k_margin(torch, cfg, params, x) -> dict:
+    """The trained model's next-token logits over a batch of corpus rows
+    on the card: the median and smallest gap between the 50th and 51st
+    largest logit (top-k 50's boundary), and the median top probability."""
+    from eamg_tpu_torch.models.gpt import forward
+    from eamg_tpu_torch.train.trainer import tree_map
+
+    logits = forward(tree_map(lambda t: t.cuda(), params),
+                     torch.from_numpy(x[:, :64]).long().cuda(), cfg)
+    logits = logits.reshape(-1, logits.shape[-1])
+    top = logits.topk(51, dim=-1).values
+    gap = (top[:, 49] - top[:, 50]).float()
+    out = {"gap_median": float(gap.median()), "gap_min": float(gap.min()),
+           "top_prob_median": float(torch.softmax(logits, -1).amax(-1)
+                                    .median())}
+    log(f"[variants moe] the trained model's next-token logits on "
+        f"{logits.shape[0]} corpus positions: 50th - 51st largest, median "
+        f"{out['gap_median']:.3e}, min {out['gap_min']:.3e}; top "
+        f"probability median {out['top_prob_median']:.4f} (V "
+        f"{cfg.vocab_size})")
+    return out
+
+
+def _moe_decode_rates(torch, cfg, moe_params) -> dict:
+    """Batch-1 decode to 511 (no EOS, top-k 50) of the trained MoE model and
+    of a dense model of its config (random weights of key 0): tokens/s,
+    the best of VARIANT_TIMED runs after a capturing one."""
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.models.gpt import init_params
+    from eamg_tpu_torch.train.trainer import tree_map
+    from eamg_tpu_torch.utils import prng
+
+    prompt = torch.zeros((1, 16), dtype=torch.int64)
+    prompt[0, :3] = torch.tensor([1, 2, 3])
+    prompt = prompt.cuda()
+    dense_cfg = dataclasses.replace(cfg, n_experts=None)
+    out = {}
+    for tag, c, p in (("moe", cfg, tree_map(lambda t: t.cuda(), moe_params)),
+                      ("dense", dense_cfg, init_params(
+                          prng.PRNGKey(0), dense_cfg, device="cuda"))):
+        ts = []
+        for seed in range(VARIANT_TIMED + 1):
+            t0 = time.perf_counter()
+            buf, n = generate_kv(p, prompt, 3, prng.PRNGKey(seed), c,
+                                 VARIANT_MAX_LEN, temperature=1.0, top_k=50,
+                                 eos_id=-1, pad_id=0,
+                                 refeed_last_prompt=False)
+            buf.cpu()
+            ts.append(time.perf_counter() - t0)
+        out[tag] = (VARIANT_MAX_LEN - 3) / min(ts[1:])
+    log(f"[variants moe] batch-1 decode to {VARIANT_MAX_LEN} (f32, "
+        f"{cfg.n_layer} layers, V {cfg.vocab_size}): MoE {out['moe']:.1f} "
+        f"tokens/s, dense {out['dense']:.1f} "
+        f"({out['moe'] / out['dense']:.3f}x)")
+    return out
+
+
+def _gqa_kernel_checks(torch) -> dict:
+    """K1 and K3 against their plain versions at the converted B3 heads
+    (H 4, Hkv 2 and 1, Dh 48), f32 and bf16, at the served shapes: a
+    16-slot prompt bucket of 5 tokens, causal; a 256-slot cache, t at a
+    fresh prompt, mid-song and the last slot."""
+    from eamg_tpu_torch.ops import attention, decode_attention
+
+    g = torch.Generator().manual_seed(48)
+    out = {}
+    for H, Hkv, Dh in GQA_B3_SHAPES:
+        for dt, dt_name in ((torch.float32, "float32"),
+                            (torch.bfloat16, "bfloat16")):
+            q, k, v = (torch.randn(1, h, 16, Dh, generator=g).to(dt).cuda()
+                       for h in (H, Hkv, Hkv))
+            vl = torch.tensor([5], dtype=torch.int32, device="cuda")
+            err1 = float((attention.flash_attention(q, k, v, vl, causal=True)
+                          .float() - attention.attention_plain(
+                              q, k, v, vl, causal=True).float())
+                         .abs().max())
+            qd, kc, vc = (torch.randn(1, h, m, Dh, generator=g).to(dt).cuda()
+                          for h, m in ((H, 1), (Hkv, 256), (Hkv, 256)))
+            err3 = 0.0
+            for t in (4, 130, 255):
+                tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+                err3 = max(err3, float((decode_attention.flash_decode_sp(
+                    qd, kc, vc, tt).float()
+                    - decode_attention.decode_attention_plain(
+                        qd, kc, vc, tt).float()).abs().max()))
+            tol1 = TOL[("flash_attention", dt_name)]
+            tol3 = TOL[("flash_decode_sp", dt_name)]
+            log(f"[variants gqa kernels] H {H} Hkv {Hkv} Dh {Dh} {dt_name}: "
+                f"K1 max|kernel - plain| {err1:.3e} (tol {tol1}), K3 "
+                f"{err3:.3e} (tol {tol3})")
+            if not (err1 <= tol1 and err3 <= tol3):
+                raise AssertionError(f"variants: K1 {err1} / K3 {err3} at H "
+                                     f"{H} Hkv {Hkv} Dh {Dh} {dt_name}")
+            out[f"h{H}_kv{Hkv}_{dt_name}"] = {"k1": err1, "k3": err3}
+    return out
+
+
+def variants_convert(torch, tmp: str) -> dict:
+    """(c) convert-gqa on demo_ckpt_b3 to 2 and 1 KV heads, each served
+    solo; (d) export-pt then convert-pt of demo_ckpt_b3 (the round trip
+    is B3's params cast to f32), export-pt refusing demo_ckpt_a (GQA), and
+    `cli generate` on the converted checkpoint. -> launches by route."""
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve import shutdown_gracefully
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A, DEMO_CKPT_B3
+    from eamg_tpu_torch.train.trainer import tree_leaves
+    from eamg_tpu_torch.utils.checkpoint import load_checkpoint
+
+    out, counts_by = {}, {}
+    for kv in (2, 1):
+        dst = os.path.join(tmp, f"b3_gqa{kv}")
+        _cli_run(f"variants convert-gqa {kv}", [
+            "convert-gqa", "--ckpt", DEMO_CKPT_B3, "--out", dst,
+            "--kv-heads", str(kv)])
+        pipe = cli.pipeline_from_args(cli.parse_args(
+            ["serve", "--checkpoint", dst]))
+        if pipe.generator.cfg.kv_heads != kv:
+            raise AssertionError(f"convert-gqa: {pipe.generator.cfg}")
+        pipe.warmup()
+        server, thread, port = _serving(pipe)
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            _check_reply(f"variants b3 gqa{kv}", MOE_SOLO, "",
+                         _post(port, MOE_SOLO))
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+        finally:
+            server.shutdown()
+            shutdown_gracefully(server, pipe)
+            thread.join(timeout=30)
+        _require_launched("solo", counts)
+        counts_by[f"gqa{kv}"] = counts
+    out["kernels"] = _gqa_kernel_checks(torch)
+
+    pt = os.path.join(tmp, "b3.pt")
+    conv = os.path.join(tmp, "b3_from_pt")
+    _cli_run("variants export-pt", ["export-pt", "--ckpt", DEMO_CKPT_B3,
+                                    "--pt", pt])
+    _cli_run("variants convert-pt", ["convert-pt", "--pt", pt, "--out",
+                                     conv])
+    src, back = load_checkpoint(DEMO_CKPT_B3), load_checkpoint(conv)
+    pairs = list(zip(tree_leaves(src["params"]), tree_leaves(back["params"])))
+    equal = all(b.dtype == torch.float32 and torch.equal(a.float(), b)
+                for a, b in pairs)
+    log(f"[variants pt] demo_ckpt_b3 -> export-pt -> convert-pt: {len(pairs)}"
+        f" leaves, every one B3's cast to f32: {equal}; config {back['cfg']}")
+    if not equal or back["vocab"] != src["vocab"]:
+        raise AssertionError("variants: the .pt round trip changed B3")
+    try:
+        _cli_run("variants export-pt A", ["export-pt", "--ckpt", DEMO_CKPT_A,
+                                          "--pt", os.path.join(tmp, "a.pt")])
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    log(f"[variants pt] export-pt on demo_ckpt_a (GQA-2): {refused}")
+    if not refused or "GQA" not in refused:
+        raise AssertionError("variants: export-pt did not refuse GQA")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    mid = os.path.join(tmp, "b3_from_pt.mid")
+    _cli_run("variants generate", ["generate", "--checkpoint", conv,
+                                   "--max-len", "128", "--seed", "3",
+                                   "--out", mid])
+    with open(mid, "rb") as f:
+        if f.read(4) != b"MThd":
+            raise AssertionError("variants generate: not a MIDI file")
+    torch.cuda.synchronize()
+    counts_by["generate"] = _build.launch_counts()
+    out["pt_round_trip_equal"] = equal
+    return out, counts_by
+
+
+def serve_variants(torch, card: str) -> dict:
+    """Phase variants: (a) int8 and GQA decode, (b) an MoE model trained and
+    served, (c) convert-gqa served, (d) export-pt / convert-pt, (e)
+    gqa-recover at the CLI's defaults. -> launch counts over the phase."""
+    import tempfile
+
+    from eamg_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    counts = collections.Counter()
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        out["decode"], by = variants_decode(torch)
+        secs["a_decode"] = time.perf_counter() - t
+        for c in by.values():
+            counts.update(c)
+        t = time.perf_counter()
+        _build.reset_launch_counts()
+        out["moe"] = variants_moe(torch, tmp)
+        torch.cuda.synchronize()
+        counts.update(_build.launch_counts())
+        secs["b_moe"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["convert"], by = variants_convert(torch, tmp)
+        for c in by.values():
+            counts.update(c)
+        secs["cd_convert"] = time.perf_counter() - t
+        t = time.perf_counter()
+        _build.reset_launch_counts()
+        lines = _cli_run("variants gqa-recover", ["gqa-recover"])
+        torch.cuda.synchronize()
+        counts.update(_build.launch_counts())
+        out["gqa_recover"] = json.loads(lines[-1])
+        secs["e_gqa_recover"] = time.perf_counter() - t
+    counts = dict(counts)
+    for name in VARIANT_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"variants: {name} was not launched")
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t0
+    log(json.dumps({"variants": out}))
+    log(f"[variants] phase {out['phase_s']:.1f} s ({secs}); launches "
+        f"{counts}")
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
-          "spec", "spec2", "options", "batch", "train", "tools")
+          "spec", "spec2", "options", "batch", "train", "tools", "variants")
 
 
 def main(argv=None) -> int:
@@ -6245,6 +6864,8 @@ def main(argv=None) -> int:
         counts["train"] = serve_train(torch)
     if "tools" in phases:
         counts["tools"] = serve_tools(torch, card)
+    if "variants" in phases:
+        counts["variants"] = serve_variants(torch, card)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
         log("chip_smoke: a partial run; no kernels line and no last line")

@@ -1,7 +1,8 @@
 """Command line of the port: ``python -m eamg_tpu_torch.cli serve``,
 ``generate``, ``train``, ``train-demo-a``, ``train-medusa``,
 ``medusa-measure``, ``emotion``, ``section-eval``, ``ablate``,
-``feed-bench``, ``analyze`` and ``tokenize``.
+``feed-bench``, ``analyze``, ``tokenize``, ``convert-pt``, ``export-pt``,
+``convert-gqa`` and ``gqa-recover``.
 
 ``generate`` writes one MIDI file (and with ``--wav`` a WAV file) from
 fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
@@ -39,12 +40,14 @@ message, when the checkpoint has none).
 ``--synthetic N`` synthetic songs, with the JAX CLI's flags
 (``--corrected``, ``--pack``, ``--attn-block``, geometry overrides,
 ``--save-every``, ``--save-hours``, ``--resume``), and prints its summary
-as JSON. ``train-demo-a`` trains the Scheme-A demo on the grid corpus
+as JSON. ``--experts E`` (with ``--moe-every k``) trains an MoE FFN of E
+routed experts in every k-th layer, with the load-balance loss.
+``train-demo-a`` trains the Scheme-A demo on the grid corpus
 (``--geometry flagship --kv-heads 2`` is the shipped flagship's own
 recipe) and writes a checkpoint ``serve`` reads, with
-``train_metrics.json``. The mesh modes (``--mesh-data``/``--mesh-model``
-above 1, ``--fsdp``) and MoE (``--experts``) are not in the port yet and
-exit 2 naming the flag. ``train-medusa`` trains Medusa heads on a frozen
+``train_metrics.json``. The mesh modes (``--mesh-data``/
+``--mesh-model`` above 1, ``--fsdp``) are not in the port yet and exit 2
+naming the flag. ``train-medusa`` trains Medusa heads on a frozen
 checkpoint (default: the shipped B3 demo) and writes JAX's heads pickle;
 ``medusa-measure`` times plain, linear Medusa and (``--tree``) tree
 verification at batch 1 on a checkpoint's heads (default: the shipped
@@ -53,9 +56,13 @@ demo A); both print JSON.
 ``section-eval`` scores each section of multi-emotion prompts against its
 own controls; ``ablate`` prints the paper's §10.4 table; ``feed-bench``
 measures the host's feed rate against the trainer's demand; ``analyze``
-and ``tokenize`` are the corpus tools (host only). All print what the JAX
-CLI prints. Every subcommand with device work runs on the CUDA device
-unless ``--device cpu`` is given.
+and ``tokenize`` are the corpus tools (host only). ``convert-pt`` and
+``export-pt`` turn a reference ``.pt`` into a checkpoint directory and
+back, ``convert-gqa`` mean-pools an MHA checkpoint's K/V heads (all three
+host only), and ``gqa-recover`` measures that conversion's perplexity cost
+and uptrains it back. All print what the JAX CLI prints. Every
+subcommand with device work runs on the CUDA device unless ``--device
+cpu`` is given.
 """
 
 from __future__ import annotations
@@ -70,7 +77,7 @@ _ENGINE_NOT_YET = ()
 # decode modes of the JAX CLI's generate that the port does not carry yet
 _GENERATE_NOT_YET = ()
 # training modes of the JAX CLI's train that the port does not carry yet
-_TRAIN_NOT_YET = ("fsdp", "experts")
+_TRAIN_NOT_YET = ("fsdp",)
 
 
 def _refuse(args, names) -> bool:
@@ -333,7 +340,9 @@ def _train(args) -> int:
         resume_from=args.resume, corrected=args.corrected, pack=args.pack,
         geometry={"d_model": args.d_model, "n_head": args.n_head,
                   "n_layer": args.n_layer, "seq_len": args.seq_len,
-                  "attn_block": args.attn_block},
+                  "n_experts": args.experts,
+                  "attn_block": args.attn_block,
+                  "moe_every": args.moe_every if args.experts else None},
         device=args.device)
     print(json.dumps(summary), flush=True)
     return 0
@@ -584,6 +593,118 @@ def _add_medusa(sub) -> None:
     mm.set_defaults(fn=_medusa_measure)
 
 
+def _convert_pt(args) -> int:
+    from .tools.convert import convert_reference_pt
+
+    convert_reference_pt(args.pt, args.out, serving_arch=args.serving_arch)
+    print("converted ->", args.out)
+    return 0
+
+
+def _export_pt(args) -> int:
+    from .models.import_torch import export_reference_checkpoint
+    from .utils.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(args.ckpt)
+    cfg = ckpt["cfg"]
+    # the .pt carries the geometry only: the key dialect follows the LN
+    # placement (post-LN: the trainer scripts, pre-LN/GELU: api_cache.py)
+    dialect = args.dialect or (
+        "kv" if cfg.ln_placement == "pre" else "trainer")
+    canon_loader = "kv" if cfg.ln_placement == "pre" else "trainer"
+    if dialect != canon_loader:
+        print(f"warning: checkpoint is {cfg.ln_placement}-LN but the "
+              f"{dialect} dialect targets the "
+              f"{'pre' if dialect == 'kv' else 'post'}-LN reference "
+              f"loader — outputs will differ from this checkpoint's "
+              f"native forward")
+    dropped = [f"{k}={getattr(cfg, k)}" for k, default in (
+        ("causal", False), ("batch_first_bug", False),
+        ("pos_broadcast_bug", False), ("n_experts", None),
+        ("n_kv_heads", None)) if getattr(cfg, k) != default]
+    if dropped:
+        print("warning: the reference .pt payload cannot represent these "
+              "arch flags (they are dropped; reference scripts will run "
+              "their own defaults): " + ", ".join(dropped))
+    export_reference_checkpoint(args.pt, ckpt["params"], ckpt["vocab"],
+                                cfg, dialect=dialect)
+    print(f"exported -> {args.pt} ({dialect} dialect; loadable by "
+          f"the reference's torch scripts via torch.load + strict "
+          f"load_state_dict)")
+    return 0
+
+
+def _convert_gqa(args) -> int:
+    from .models.gqa_convert import convert_checkpoint_dir
+
+    convert_checkpoint_dir(args.ckpt, args.out, args.kv_heads)
+    print(f"converted -> {args.out} (n_kv_heads={args.kv_heads}; run a "
+          f"short finetune to recover quality: cli train --resume)")
+    return 0
+
+
+def _gqa_recover(args) -> int:
+    import json
+
+    from .serve.pipeline import DEMO_CKPT_B3
+    from .tools.gqa_recover import RecoveryConfig, run_gqa_recovery
+
+    res = run_gqa_recovery(RecoveryConfig(
+        ckpt_dir=args.ckpt or DEMO_CKPT_B3, kv_heads=args.kv_heads,
+        out_dir=args.out, rows=args.rows, steps=args.steps, lr=args.lr,
+        seed=args.seed, log_fn=lambda m: print(m, flush=True)),
+        device=args.device)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def _add_convert(sub) -> None:
+    c = sub.add_parser("convert-pt", help="reference .pt -> checkpoint dir")
+    c.add_argument("--pt", required=True)
+    c.add_argument("--out", required=True)
+    c.add_argument("--serving-arch", action="store_true",
+                   help="build the api_cache pre-LN serving arch")
+    c.set_defaults(fn=_convert_pt)
+
+    ep = sub.add_parser("export-pt",
+                        help="checkpoint dir -> reference .pt (torch "
+                             "format; the reverse of convert-pt)")
+    ep.add_argument("--ckpt", required=True)
+    ep.add_argument("--pt", required=True)
+    ep.add_argument("--dialect", choices=("trainer", "kv"), default=None,
+                    help="state-dict key naming: trainer (train_*.py / "
+                         "api.py) or kv (api_cache.py remap output); "
+                         "default follows the checkpoint's ln_placement "
+                         "(post -> trainer, pre -> kv)")
+    ep.set_defaults(fn=_export_pt)
+
+    q = sub.add_parser("convert-gqa",
+                       help="MHA checkpoint dir -> GQA (mean-pooled K/V "
+                            "heads)")
+    q.add_argument("--ckpt", required=True)
+    q.add_argument("--out", required=True)
+    q.add_argument("--kv-heads", type=int, required=True)
+    q.set_defaults(fn=_convert_gqa)
+
+    gr = sub.add_parser("gqa-recover",
+                        help="convert an MHA checkpoint to GQA, measure "
+                             "the PPL cost, uptrain to recover it, and "
+                             "time decode for both architectures")
+    gr.add_argument("--ckpt", default=None,
+                    help="checkpoint dir (default: the packaged B3 demo)")
+    gr.add_argument("--out", default=None,
+                    help="save the recovered GQA checkpoint here")
+    gr.add_argument("--kv-heads", type=int, default=2)
+    gr.add_argument("--rows", type=int, default=2000)
+    gr.add_argument("--steps", type=int, default=200)
+    gr.add_argument("--lr", type=float, default=1e-4)
+    gr.add_argument("--seed", type=int, default=0)
+    gr.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs on the "
+                         "host)")
+    gr.set_defaults(fn=_gqa_recover)
+
+
 def _add_train(sub) -> None:
     t = sub.add_parser("train", help="train a music generator")
     t.add_argument("--preset", default="large2",
@@ -624,9 +745,10 @@ def _add_train(sub) -> None:
                    help="blockwise online-softmax training attention "
                         "with this KV block size")
     t.add_argument("--experts", type=int, default=None,
-                   help="not yet in the port")
+                   help="mixture-of-experts FFN: number of routed experts "
+                        "(beyond-reference; dense when omitted)")
     t.add_argument("--moe-every", type=int, default=1,
-                   help="with --experts (not yet in the port)")
+                   help="replace every k-th layer's MLP with experts")
     t.add_argument("--corrected", action="store_true",
                    help="train the corrected causal architecture (no "
                         "reference quirks; enables speculative decoding "
@@ -731,6 +853,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     _add_train(sub)
     _add_medusa(sub)
     _add_tools(sub)
+    _add_convert(sub)
     s = sub.add_parser("serve", help="serve POST /generate")
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8000)

@@ -48,7 +48,20 @@ plain PyTorch under autograd and never reaches a kernel wrapper (they
 refuse inputs that require grad). A checkpoint trained with
 ``attn_block`` is served through K1, which computes the same function.
 
-Not yet ported: MoE layers and int8 weights.
+int8 weights (``models/quant.py``): a ``{"q", "s"}`` leaf takes the place
+of any product weight. ``_linear`` computes JAX's ``x @ q.T`` in the
+activation dtype, then ``y * s + b``, a plain ``torch.matmul`` on every
+route (JAX computes it outside any Pallas kernel); an int8 FFN therefore
+runs ``_linear`` -> activation -> ``_linear`` and not K2, as JAX's XLA
+route does. Float layers keep K2.
+
+MoE layers (``n_experts``): every ``moe_every``-th layer, counting from
+the ``moe_every - 1``-th, holds a router and E experts in place of its MLP
+(``parallel/moe.py``). Inference and every decode route use the pointwise
+no-drop path, so a decode step, a full forward and an engine row agree;
+the training forward with a loss sink (``forward_hidden_with_aux``) uses
+the capacity-bounded dispatch and collects each MoE layer's load-balance
+loss, as JAX's trainer does. Dense layers of such a model stay on K2.
 """
 
 from __future__ import annotations
@@ -67,6 +80,8 @@ from ..ops.decode_fold import (flash_decode_fold, flash_decode_fold2,
                                flash_decode_fold3, flash_decode_fold3_sp,
                                flash_decode_fold_sp)
 from ..ops.ffn import fused_ffn
+from ..parallel.moe import (MoEConfig, init_moe_params, load_balance_loss,
+                            moe_mlp_dense, moe_mlp_pointwise)
 
 # decode_step's attention kernels by cache layout: name -> wrapper.
 # "dma" and "vmem" are the JAX package's flash_decode (manual copies of
@@ -173,9 +188,15 @@ def preset(name: str, vocab_size: int) -> GPTConfig:
     return GPTConfig(vocab_size=vocab_size, **presets[name])
 
 
-def _check_supported(cfg: GPTConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError("MoE layers are not in the port yet")
+def is_moe_layer(cfg: GPTConfig, li: int) -> bool:
+    return bool(cfg.n_experts) and li % cfg.moe_every == cfg.moe_every - 1
+
+
+def _moe_cfg(cfg: GPTConfig) -> MoEConfig:
+    return MoEConfig(d_model=cfg.d_model, d_ff=cfg.ff,
+                     n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                     capacity_factor=cfg.moe_capacity_factor,
+                     activation=cfg.activation)
 
 
 # ------------------------------------------------------------------- init
@@ -189,10 +210,14 @@ def init_params(rng, cfg: GPTConfig, device=None) -> dict:
     ``rng`` is a threefry key (``utils.prng.PRNGKey(seed)``): every uniform
     leaf then equals JAX's bit for bit and the N(0, 1) ``tok_emb`` is drawn
     through XLA's f32 ``erf_inv`` (:func:`erf_inv_f32`), on ``device``
-    (default the CPU). ``rng`` may also be a ``torch.Generator``: the values
-    are then that generator's, on its device (``bench.py``'s weights)."""
-    _check_supported(cfg)
+    (default the CPU); an MoE layer's router and experts take one key, as
+    in JAX. ``rng`` may also be a ``torch.Generator`` for a dense model:
+    the values are then that generator's, on its device (``bench.py``'s
+    weights)."""
     if isinstance(rng, torch.Generator):
+        if cfg.n_experts:
+            raise ValueError("MoE weights are drawn from a threefry key "
+                             "(utils.prng.PRNGKey), as JAX draws them")
         dev = rng.device
 
         def uniform(shape, bound):
@@ -225,15 +250,20 @@ def init_params(rng, cfg: GPTConfig, device=None) -> dict:
 
     in_rows = D + 2 * cfg.kv_dim
     layers = []
-    for _ in range(cfg.n_layer):
+    for li in range(cfg.n_layer):
         # attention first, then the MLP, whose kaiming draws of w1 and w2
         # consume a bias draw each, unused (JAX's order)
         in_w = uniform((in_rows, D), math.sqrt(6.0 / (3 * D + D)))
         out_w, out_b = kaiming(D, D)
-        w1, _ = kaiming(FF, D)
-        b1 = uniform((FF,), 1.0 / math.sqrt(D))
-        w2, _ = kaiming(D, FF)
-        b2 = uniform((D,), 1.0 / math.sqrt(FF))
+        if is_moe_layer(cfg, li):
+            # one key, split five ways (JAX's init_moe_params)
+            mlp = init_moe_params(next(keys), _moe_cfg(cfg), device=dev)
+        else:
+            w1, _ = kaiming(FF, D)
+            b1 = uniform((FF,), 1.0 / math.sqrt(D))
+            w2, _ = kaiming(D, FF)
+            b2 = uniform((D,), 1.0 / math.sqrt(FF))
+            mlp = {"w1": w1, "b1": b1, "w2": w2, "b2": b2}
         layers.append({
             "attn": {"in_w": in_w, "in_b": torch.zeros(in_rows, device=dev),
                      "out_w": out_w, "out_b": out_b},
@@ -241,7 +271,7 @@ def init_params(rng, cfg: GPTConfig, device=None) -> dict:
                     "b": torch.zeros(D, device=dev)},
             "ln2": {"g": torch.ones(D, device=dev),
                     "b": torch.zeros(D, device=dev)},
-            "mlp": {"w1": w1, "b1": b1, "w2": w2, "b2": b2},
+            "mlp": mlp,
         })
     head_w, head_b = kaiming(V, D)
     return {"tok_emb": normal((V, D)),
@@ -291,17 +321,31 @@ def _layer_norm(x, g, b, eps):
 
 
 def _linear(x, w, b):
-    """torch layout (w [out, in]); weights cast to the activation dtype."""
+    """torch layout (w [out, in]); weights cast to the activation dtype. An
+    int8 ``{"q", "s"}`` weight: ``x @ q.T`` in the activation dtype, then
+    the scale and the bias (JAX's order)."""
+    if isinstance(w, dict):
+        y = torch.matmul(x, w["q"].to(x.dtype).T)
+        return y * w["s"].to(x.dtype) + b.to(x.dtype)
     return torch.matmul(x, w.to(x.dtype).T) + b.to(x.dtype)
 
 
 def _split_qkv(p):
+    """The fused in_proj's Q, K and V rows (K and V kv_dim rows each), a
+    float or an int8 weight."""
     w = p["in_w"]
-    D = w.shape[1]
-    kvd = (w.shape[0] - D) // 2
-    return ((w[:D], p["in_b"][:D]),
-            (w[D:D + kvd], p["in_b"][D:D + kvd]),
-            (w[D + kvd:], p["in_b"][D + kvd:]))
+    q = w["q"] if isinstance(w, dict) else w
+    D = q.shape[1]
+    kvd = (q.shape[0] - D) // 2
+
+    def rows(a, b):
+        if isinstance(w, dict):
+            return {"q": w["q"][a:b], "s": w["s"][a:b]}
+        return w[a:b]
+
+    return ((rows(0, D), p["in_b"][:D]),
+            (rows(D, D + kvd), p["in_b"][D:D + kvd]),
+            (rows(D + kvd, D + 2 * kvd), p["in_b"][D + kvd:]))
 
 
 def _heads(x, n_head):
@@ -327,6 +371,12 @@ def attention(p_attn: dict, x, cfg: GPTConfig, causal: bool = False,
 
 
 def _mlp(p, x, cfg: GPTConfig):
+    """The FFN of inference and decoding: an MoE layer's pointwise experts,
+    an int8 layer's ``_linear`` route, else K2."""
+    if "router" in p:
+        return moe_mlp_pointwise(p, x, _moe_cfg(cfg))
+    if isinstance(p["w1"], dict):
+        return _mlp_train(p, x, cfg)
     return fused_ffn(x, p["w1"], p["b1"], p["w2"], p["b2"],
                      activation=cfg.activation, order=cfg.kernels)
 
@@ -382,7 +432,6 @@ def forward_hidden(params: dict, ids: torch.Tensor,
     """The transformer stack without the head: [B, T] ids -> [B, T, D]
     states in the activation dtype (the Medusa probe applies the heads to
     them)."""
-    _check_supported(cfg)
     T = ids.shape[1]
     x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     if cfg.batch_first_bug:
@@ -403,7 +452,6 @@ def forward_masked(params: dict, ids: torch.Tensor, cfg: GPTConfig,
     had been given. The uncached loop calls it at one shape for every
     prefix length. With ``batch_first_bug`` it is plain :func:`forward`, as
     in the JAX package."""
-    _check_supported(cfg)
     if cfg.batch_first_bug:
         return forward(params, ids, cfg)
     B, T = ids.shape
@@ -523,10 +571,18 @@ def _gelu_exact(h):
     return ((0.5 * h.float()) * e).to(h.dtype)
 
 
-def _mlp_train(p, x, cfg: GPTConfig):
+def _mlp_train(p, x, cfg: GPTConfig, sink=None):
     """The FFN of JAX's XLA branch: ``_linear`` -> activation ->
     ``_linear``, each product and bias add rounded to the activation
-    dtype."""
+    dtype. An MoE layer takes the capacity-bounded dispatch and appends its
+    load-balance loss when ``sink`` (a list) is given, the pointwise path
+    when not (JAX's ``_mlp``)."""
+    if "router" in p:
+        if sink is None:
+            return moe_mlp_pointwise(p, x, _moe_cfg(cfg))
+        sink.append(load_balance_loss(p, x.reshape(-1, cfg.d_model),
+                                      _moe_cfg(cfg)))
+        return moe_mlp_dense(p, x, _moe_cfg(cfg))
     h = _linear(x, p["w1"], p["b1"])
     h = _gelu_exact(h) if cfg.activation == "gelu" else torch.relu(h)
     return _linear(h, p["w2"], p["b2"])
@@ -545,15 +601,16 @@ def _pos_from_seg(seg: torch.Tensor) -> torch.Tensor:
 
 
 def forward_hidden_train(params: dict, ids: torch.Tensor, cfg: GPTConfig,
-                         seg: torch.Tensor | None = None) -> torch.Tensor:
+                         seg: torch.Tensor | None = None,
+                         sink: list | None = None) -> torch.Tensor:
     """The differentiable transformer stack of the trainer: [B, T] ids ->
     [B, T, D] states in the activation dtype (JAX's
     ``_forward_hidden_impl`` on its XLA branches). ``seg`` ([B, T] segment
     ids, 0 = pad) runs packed rows: per-segment positions and
     block-diagonal attention, on the corrected causal configuration only.
     The gathers are ``F.embedding``, whose backward sums a row's
-    gradients in a fixed order on the card."""
-    _check_supported(cfg)
+    gradients in a fixed order on the card. ``sink``: a list that collects
+    the MoE layers' load-balance losses (their capacity-bounded path)."""
     ids = ids.long()
     T = ids.shape[1]
     if seg is None:
@@ -571,10 +628,20 @@ def forward_hidden_train(params: dict, ids: torch.Tensor, cfg: GPTConfig,
     for p in params["layers"]:
         attn_out = _attention_train(p["attn"], _attn_input(p, x, cfg), cfg,
                                     cfg.causal, seg)
-        x = _finish_block(p, x, attn_out, cfg, mlp=_mlp_train)
+        x = _finish_block(p, x, attn_out, cfg,
+                          mlp=lambda q, h, c: _mlp_train(q, h, c, sink))
     if cfg.batch_first_bug:
         x = x.transpose(0, 1)
     return x
+
+
+def forward_hidden_with_aux(params: dict, ids: torch.Tensor, cfg: GPTConfig):
+    """:func:`forward_hidden_train` -> (states, the mean load-balance loss
+    over the MoE layers, 0 for a dense model)."""
+    sink: list = []
+    x = forward_hidden_train(params, ids, cfg, sink=sink)
+    aux = sum(sink) / len(sink) if sink else torch.zeros((), device=x.device)
+    return x, aux
 
 
 # ------------------------------------------------------------ KV decoding
@@ -612,7 +679,6 @@ def prefill(params: dict, ids: torch.Tensor, cfg: GPTConfig, cache: dict,
     pads included, are written to the cache (as the JAX model does); decode
     then overwrites slot t. Updates the cache in place, in the layout it
     was made with; ``length`` is set in place."""
-    _check_supported(cfg)
     B, T = ids.shape
     plen = prompt_len if prompt_len is not None else T
     valid = torch.full((B,), plen, dtype=torch.int32, device=ids.device)

@@ -108,7 +108,8 @@ def run_training(preset: str, csv_path: str | None = None,
     """Train ``preset`` on a corpus CSV or ``synthetic_rows`` synthetic
     songs -> {"steps", "final_loss", "vocab_size", "out_dir"}.
     ``geometry``: overrides of the preset's model shape (d_model, n_head,
-    n_layer, seq_len, attn_block). ``pack``: several whole songs a row
+    n_layer, seq_len, attn_block, and an MoE FFN's n_experts and
+    moe_every; the MoE aux loss keeps the monolithic head, as in JAX). ``pack``: several whole songs a row
     (implies the corrected causal architecture). ``device`` None means the
     card; JAX's mesh modes (``mesh``, ``tp``, ``fsdp``) are not in the
     port yet."""

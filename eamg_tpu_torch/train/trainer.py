@@ -6,7 +6,8 @@ for the parallel port):
 - ``TrainConfig`` and ``reference_preset``: the four reference trainers'
   recipes and the paper's (AdamW beta2 0.95, clip 1.0, warmup + cosine);
 - the losses: ``masked_ce_sums`` (sums, so micro-batches accumulate before
-  the division), ``loss_fn``, ``loss_fn_packed`` and ``loss_fn_chunked``
+  the division), ``loss_fn``, ``loss_fn_packed``, ``loss_fn_moe`` (CE plus
+  the MoE load-balance loss) and ``loss_fn_chunked``
   (the head and the CE a time chunk at a time under
   ``torch.utils.checkpoint``, so the [B, T, V] logits never exist at once;
   T is padded to a multiple of the chunk with PAD targets);
@@ -32,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..models.gpt import GPTConfig, _linear, forward_hidden_train
+from ..models.gpt import (GPTConfig, _linear, forward_hidden_train,
+                          forward_hidden_with_aux)
 from ..utils.device import resolve_device
 from .prefetch import to_device
 
@@ -55,7 +57,7 @@ class TrainConfig:
     fsdp: bool = False            # ZeRO/FSDP: not in the port yet
     # head + CE per ``loss_chunk`` positions (None = all positions at once)
     loss_chunk: int | None = None
-    # weight of the MoE load-balance loss (MoE is not in the port yet)
+    # weight of the MoE load-balance loss
     moe_aux_weight: float = 0.01
     # packed rows (data.packed_batches) with their segment ids
     pack: bool = False
@@ -271,10 +273,30 @@ def loss_fn_chunked(params: dict, x, y, cfg: GPTConfig, pad_id: int,
     return total / count, count
 
 
+def loss_fn_moe(params: dict, x, y, cfg: GPTConfig, pad_id: int,
+                aux_weight: float):
+    """CE plus ``aux_weight`` x the MoE layers' mean load-balance loss
+    (their capacity-bounded dispatch) -> (loss, count)."""
+    h, aux = forward_hidden_with_aux(params, x, cfg)
+    total, count = masked_ce_sums(_head(params, h), y, pad_id)
+    count = count.clamp(min=1)
+    return total / count + aux_weight * aux, count
+
+
 def _loss_for(cfg: GPTConfig, tcfg: TrainConfig):
-    if cfg.n_experts:
-        raise NotImplementedError("MoE training (the load-balance loss) is "
-                                  "not in the port yet")
+    """The loss of JAX's step: with MoE layers and a positive aux weight
+    ``loss_fn_moe`` (neither the chunked head nor packed rows with it, as
+    in JAX); an MoE model with weight 0 trains through the pointwise path
+    of the plain losses."""
+    moe = bool(cfg.n_experts) and tcfg.moe_aux_weight > 0
+    if moe and tcfg.loss_chunk:
+        raise ValueError("loss_chunk with the MoE aux loss is unsupported: "
+                         "set moe_aux_weight=0 or chunk off")
+    if moe and tcfg.pack:
+        raise ValueError("packed rows with the MoE aux loss are unsupported")
+    if moe:
+        return lambda p, x, y, s: loss_fn_moe(p, x, y, cfg, tcfg.pad_id,
+                                              tcfg.moe_aux_weight)
     if tcfg.loss_chunk:
         return lambda p, x, y, s: loss_fn_chunked(
             p, x, y, cfg, tcfg.pad_id, tcfg.loss_chunk, seg=s)

@@ -66,6 +66,10 @@ if not torch.cuda.is_available():
         "run_feed_bench": lambda: run_feed_bench(),
         "default_classifier": lambda: default_classifier(),
         "cli emotion": lambda: cli.main(["emotion", "--text", "so happy"]),
+        "cli train --experts": lambda: cli.main(
+            ["train", "--experts", "4", "--moe-every", "2",
+             "--synthetic", "8"]),
+        "cli gqa-recover": lambda: cli.main(["gqa-recover", "--rows", "8"]),
     }
     for name, fn in calls.items():
         try:
@@ -92,7 +96,9 @@ def probe():
 def test_every_port_module_imports_without_jax(probe):
     assert len(probe["modules"]) >= 30, probe["modules"]
     for new in ("eamg_tpu_torch.bench", "eamg_tpu_torch.tokenizer.scheme_b",
-                "eamg_tpu_torch.decode.medusa_tree"):
+                "eamg_tpu_torch.decode.medusa_tree",
+                "eamg_tpu_torch.parallel.moe", "eamg_tpu_torch.models.quant",
+                "eamg_tpu_torch.tools.gqa_recover"):
         assert new in probe["modules"]
     assert probe["leaked"] == []
 
@@ -122,7 +128,9 @@ def test_source_imports_no_jax_and_no_jax_package(path):
                                    "bench", "probe_heads_for_checkpoint",
                                    "demo_pipeline", "Sf2Renderer",
                                    "run_ablation", "run_feed_bench",
-                                   "default_classifier", "cli emotion"])
+                                   "default_classifier", "cli emotion",
+                                   "cli train --experts",
+                                   "cli gqa-recover"])
 def test_entry_points_want_cuda_by_default(probe, entry):
     """On this CUDA-less host, no device argument means an error."""
     assert not probe["cuda"], "this check is for hosts without CUDA"

@@ -31,7 +31,8 @@ Checked, with the tolerance and its reason:
 - ``cli train --device cpu`` then the port's ``cli generate --checkpoint
   .../final`` writes MThd and RIFF....WAVE, as JAX's
   tests/test_cli_tools.py does with its own CLI; ``--mesh-data 2``,
-  ``--mesh-model 2``, ``--fsdp`` and ``--experts`` exit 2 naming the flag;
+  ``--mesh-model 2`` and ``--fsdp`` exit 2 naming the flag (``--experts``
+  trains: tests/test_torch_variants.py holds it to JAX);
 - every kernel wrapper raises when an input requires grad while autograd
   records (on the CPU branch too), runs under ``torch.no_grad()``, and the
   serving forward with params that require grad gives the same logits;
@@ -81,8 +82,7 @@ DEMO_EXACT = ("heldout_token_coverage", "heldout_songs_in_vocab",
 DEMO_LOSS_RTOL, DEMO_PPL_RTOL = 5e-3, 2e-2
 REFUSALS = {"mesh_data": ["train", "--device", "cpu", "--mesh-data", "2"],
             "mesh_model": ["train", "--device", "cpu", "--mesh-model", "2"],
-            "fsdp": ["train", "--device", "cpu", "--fsdp"],
-            "experts": ["train", "--device", "cpu", "--experts", "4"]}
+            "fsdp": ["train", "--device", "cpu", "--fsdp"]}
 WRAPPERS = ("flash_attention", "fused_ffn", "flash_decode_sp",
             "flash_decode", "flash_decode_vmem", "flash_decode_fold",
             "flash_decode_fold2", "flash_decode_fold3",

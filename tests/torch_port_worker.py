@@ -2918,9 +2918,11 @@ TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "top
 def main():
     from torch_port_spec2 import SPEC2_TASKS
     from torch_port_tools import TOOLS_TASKS
+    from torch_port_variants import VARIANTS_TASKS
 
     TASKS.update(SPEC2_TASKS)
     TASKS.update(TOOLS_TASKS)
+    TASKS.update(VARIANTS_TASKS)
     task, src, dst = sys.argv[1:4]
     torch.manual_seed(0)
     out: dict = {}
