@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernels,options
     python3 chip_smoke.py --phases build,tools
     python3 chip_smoke.py --phases build,variants
+    python3 chip_smoke.py --phases build,emotion
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -284,6 +285,33 @@ Phases:
     demo_ckpt_a (GQA); `cli generate` on the converted checkpoint. (e)
     `gqa-recover` at the CLI's defaults on demo_ckpt_b3 (2000 rows, 200
     steps), its JSON logged. K1-K4 and row 8 launched over the phase.
+ 16. emotion: the emotion classifier's training, on XLA in the JAX package
+    and plain PyTorch here (no kernel of its own). (a) `distill-emotion`,
+    the shipped recipe (d256 L4 h4, hidden 768, max_length 64, 1200 rows a
+    label, pool max, cue suppression 0.3, seed 2026) cut from 12 epochs to
+    2: steps, ms a step (the median from step 20, CUDA events), rows/s,
+    the host's encode seconds an epoch, peak memory (beside what earlier
+    phases left allocated) and metrics.json (every
+    accuracy in [0, 1]; the neural eval accuracy beside the lexicon's,
+    logged); step 1 at this width on the
+    card against the host (TF32 off): the loss within 1e-5 relative and
+    the gradient within 1e-5 x max|g|, the host taking the card's relu
+    kinks and max-pool positions. (b) `distill-emotion --pool cls
+    --pretrain-epochs 1 --epochs 2 --n-per-label 200` (cut; one epoch is
+    refused, as JAX refuses it): the masked NLL below log V and ms a step
+    of MLM and of the classifier. (c) `finetune-emotion` on the shipped
+    f16 classifier at JAX's defaults, one epoch over FINETUNE_ROWS eval
+    rows written to a TSV: ms a step, the step-1 loss card against host
+    (1e-5 relative), the final loss (JAX's f16 Adam sends the f16 heads to inf and NaN in
+    the first step, and the port follows it), params.pkl f32 exactly in
+    the merged q and v; the same through the library on an f32 copy of
+    the base, its losses finite. (d) `export-emotion-hf` then
+    `convert-distilbert` of the shipped classifier: every leaf back; `--push`
+    without huggingface_hub fails with JAX's RuntimeError (the module is
+    kept from importing: no upload is tried). (e) (a)'s checkpoint served:
+    its classifier card against host within 1e-5 on EMOTION_TEXTS, then one
+    request through pipeline_from_checkpoint on demo_ckpt_a (seed 7): a WAV,
+    the label and classify ms; K1-K4 launched over the request.
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -6791,8 +6819,543 @@ def serve_variants(torch, card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------- emotion
+
+# (a) the shipped classifier's own recipe (the CLI's defaults: d256 L4 h4,
+# hidden 768, max_length 64, 1200 rows a label, pool max, cue suppression
+# 0.3, seed 2026), cut from 12 epochs to 2
+EMOTION_ARGS = ["distill-emotion", "--epochs", "2"]
+# (b) MLM pretraining and pool cls, cut to 200 rows a label and 2 epochs
+# (one classifier epoch is refused, as JAX refuses it: optax's cosine
+# decay then has no steps)
+EMOTION_MLM_ARGS = ["distill-emotion", "--pool", "cls", "--pretrain-epochs",
+                    "1", "--epochs", "2", "--n-per-label", "200"]
+EMOTION_DEVICE = "cuda"
+EMOTION_TIMED_FROM = 20         # ms a step: the median of steps 20..
+EMOTION_LOSS_RTOL = 1e-5        # step 1's loss, card against host (f16
+                                # base included: one program, one rounding)
+EMOTION_GRAD_TOL = 1e-5         # step 1's gradient, x max|g| over leaves
+EMOTION_PROFILED_STEPS = 8
+EMOTION_PROBS_ATOL = 1e-5       # the trained classifier, card against host
+FINETUNE_ROWS = 1600            # (c) rows of the TSV: 100 steps of 16
+EMOTION_TEXTS = BURST_TEXTS + ("the contractor took our deposit and never "
+                               "showed, i am fuming", "meh")
+EMOTION_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                   "top_k_mask")
+
+
+@contextlib.contextmanager
+def _timed_steps_of(torch, module, factory: str, marks: list,
+                    first: dict | None = None):
+    """Each step that ``module.factory`` makes runs between two CUDA events
+    appended to ``marks``; with ``first``, the first call's arguments (CPU
+    copies, taken before the step updates them) and its result are kept
+    there under "args" and "out"."""
+    real = getattr(module, factory)
+
+    def copy(x):
+        if isinstance(x, dict):
+            return {k: copy(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [copy(v) for v in x]
+        return x.detach().cpu().clone() if hasattr(x, "detach") else x
+
+    def make(*a, **kw):
+        made = real(*a, **kw)
+        step = made[0] if isinstance(made, tuple) else made
+
+        def timed(*sa):
+            keep = first is not None and "args" not in first
+            if keep:
+                first["args"] = copy(sa)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(*sa)
+            e1.record()
+            marks.append((e0, e1))
+            if keep:
+                first["out"] = out
+            return out
+
+        return (timed,) + made[1:] if isinstance(made, tuple) else timed
+
+    setattr(module, factory, make)
+    try:
+        yield
+    finally:
+        setattr(module, factory, real)
+
+
+@contextlib.contextmanager
+def _timed_encodes(module, seconds: list):
+    """The host's training encodes (those with piece dropout) of
+    ``module._encode_all``, each one's seconds appended to ``seconds``."""
+    real = module._encode_all
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        if kw.get("piece_dropout"):
+            seconds.append(time.perf_counter() - t0)
+        return out
+
+    module._encode_all = timed
+    try:
+        yield
+    finally:
+        module._encode_all = real
+
+
+def _median_ms(marks: list, start: int) -> tuple:
+    ms = [a.elapsed_time(b) for a, b in marks]
+    timed = ms[start - 1:] or ms
+    return sorted(timed)[len(timed) // 2], ms
+
+
+@contextlib.contextmanager
+def _max_choices(db, picks: list, replay: bool):
+    """Every masked max over positions of the classifier (``masked_max``):
+    record the position each (row, label) takes (replay False), or take
+    the recorded ones instead (replay True), so that the host follows the
+    card's choice; yields the count of choices the host would have made
+    otherwise."""
+    real = db.masked_max
+    calls, differ = [0], [0]
+
+    def record(tok, mask):
+        out = real(tok, mask)
+        picks.append((tok.detach() == out.detach()[:, None]).float()
+                     .argmax(1).cpu())
+        return out
+
+    def apply(tok, mask):
+        idx = picks[calls[0]].to(tok.device)
+        calls[0] += 1
+        own = (tok.detach() == real(tok, mask).detach()[:, None]).float() \
+            .argmax(1)
+        differ[0] += int((own != idx).sum())
+        return tok.gather(1, idx[:, None, :])[:, 0]
+
+    db.masked_max = apply if replay else record
+    try:
+        yield differ
+    finally:
+        db.masked_max = real
+
+
+def _emotion_step1(torch, tag: str, cfg, params, batch: dict) -> dict:
+    """The distill step's loss and gradient at ``params`` on ``batch``, on
+    the card and on the host (TF32 off; the host replays the card's relu
+    kinks and max-pool choices) -> the gaps, checked."""
+    from eamg_tpu_torch.emotion import train_scratch as ts
+    from eamg_tpu_torch.models import distilbert as db
+    from eamg_tpu_torch.train.trainer import tree_leaves, tree_unflatten
+
+    def run(device, replay, masks, picks):
+        live = [p.detach().to(device).clone().requires_grad_()
+                for p in tree_leaves(params)]
+        b = {k: v.to(device) for k, v in batch.items()}
+        with _relu_kinks(torch, masks, replay) as flipped, \
+                _max_choices(db, picks, replay) as moved:
+            loss, _ = ts.classifier_loss(
+                tree_unflatten(params, live), b["ids"], b["mask"],
+                b["labels"], b["cue"], cfg, 0.05, 0.3)
+            grads = torch.autograd.grad(loss, live, materialize_grads=True)
+        return float(loss.detach()), [g.cpu() for g in grads], flipped[0], \
+            moved[0]
+
+    masks, picks = [], []
+    card_loss, card_g, _, _ = run(EMOTION_DEVICE, False, masks, picks)
+    host_loss, host_g, flips, moves = run("cpu", True, masks, picks)
+    scale = max(float(g.abs().max()) for g in host_g)
+    gap = max(float((a - b).abs().max()) for a, b in zip(card_g, host_g))
+    rel = abs(card_loss - host_loss) / abs(host_loss)
+    out = {"card_loss": card_loss, "host_loss": host_loss, "loss_rel": rel,
+           "grad_gap": gap, "grad_scale": scale, "relu_flips": flips,
+           "max_pool_moves": moves}
+    log(f"[emotion {tag}] step 1 card against host (TF32 off): loss "
+        f"{card_loss:.8f} / {host_loss:.8f} (rel {rel:.2e}), gradient gap "
+        f"{gap:.3e} of max|g| {scale:.3e}; relu kinks the host took from "
+        f"the card {flips}, max-pool positions {moves}")
+    if rel > EMOTION_LOSS_RTOL or gap > EMOTION_GRAD_TOL * scale:
+        raise AssertionError(f"emotion {tag}: step 1 card against host: "
+                             f"{out}")
+    return out
+
+
+def emotion_distill(torch, tmp: str) -> dict:
+    """(a) `distill-emotion --epochs 2` (the shipped recipe otherwise):
+    steps, ms a step, rows/s, host encode seconds an epoch, peak memory,
+    metrics.json; step 1 at this width card against host."""
+    import pickle
+
+    from eamg_tpu_torch import cli
+    from eamg_tpu_torch.emotion import train_scratch as ts
+    from eamg_tpu_torch.emotion.distill_data import (build_wordpiece_vocab,
+                                                     make_corpus,
+                                                     tokenizer_corpus)
+    from eamg_tpu_torch.models import distilbert as db
+    from eamg_tpu_torch.utils import prng
+
+    out_dir = os.path.join(tmp, "distill")
+    argv = EMOTION_ARGS + ["--out", out_dir, "--device", EMOTION_DEVICE]
+    a = cli.parse_args(argv)
+    marks, encodes = [], []
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()   # what earlier phases hold
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _timed_steps_of(torch, ts, "make_classifier_step", marks), \
+            _timed_encodes(ts, encodes):
+        lines = _cli_run("emotion distill", argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    metrics = json.loads(lines[-1])
+    med, ms = _median_ms(marks, EMOTION_TIMED_FROM)
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        on_disk = json.load(f)
+    res = {"seconds": secs, "steps": len(ms), "ms_per_step_median": med,
+           "rows_per_s": 64 / (med / 1000),
+           "encode_s_per_epoch": encodes,
+           "max_memory_allocated_bytes": peak,
+           "allocated_before_bytes": before, "metrics": metrics}
+    log(f"[emotion distill] {len(ms)} steps in {secs:.1f} s: median "
+        f"{med:.3f} ms a step (steps {EMOTION_TIMED_FROM}..), "
+        f"{res['rows_per_s']:.0f} rows/s, host encode "
+        f"{[round(s, 2) for s in encodes]} s an epoch, peak memory "
+        f"{peak / 2**20:.1f} MiB, {(peak - before) / 2**20:.1f} MiB above "
+        f"the {before / 2**20:.1f} MiB allocated before the run; "
+        f"metrics.json {json.dumps(on_disk)}")
+    accs = [v for k, v in on_disk.items()
+            if k.endswith(("_acc", "_top3", "_distilbert")) and v is not None]
+    res["beats_lexicon_on_eval"] = \
+        on_disk["eval_acc_distilbert"] > on_disk["eval_acc_lexicon"]
+    log(f"[emotion distill] eval accuracy {on_disk['eval_acc_distilbert']}"
+        f" against the lexicon's {on_disk['eval_acc_lexicon']} (logged: two "
+        f"epochs, the first all warmup, are a cut of the recipe's twelve)")
+    if len(ms) != a.epochs * (metrics["n_train"] // 64) or not accs or \
+            not all(0.0 <= v <= 1.0 for v in accs):
+        raise AssertionError(f"emotion distill: {len(ms)} steps, metrics "
+                             f"{on_disk}")
+    # step 1 at this width: the run's initial weights, its first 64 train
+    # rows with their cue spans
+    data = make_corpus(n_per_label=a.n_per_label, seed=a.seed,
+                       gen_per_label=a.gen_per_label)
+    tok = db.WordPieceTokenizer(build_wordpiece_vocab(
+        tokenizer_corpus(data["train"][0])))
+    with open(os.path.join(out_dir, "config.pkl"), "rb") as f:
+        cfg = db.DistilBertConfig(**pickle.load(f))
+    ids, mask, cue = ts._encode_all(tok, data["train"][0][:64],
+                                    cfg.max_position_embeddings,
+                                    cues=data["train_cues"][:64])
+    batch = {"ids": torch.from_numpy(ids), "mask": torch.from_numpy(mask),
+             "cue": torch.from_numpy(cue),
+             "labels": torch.tensor(data["train"][1][:64])}
+    params = db.init_params(prng.PRNGKey(a.seed), cfg,
+                            device=EMOTION_DEVICE)
+    res["step1"] = _emotion_step1(torch, "distill", cfg, params, batch)
+    res["profile"] = _emotion_profile(torch, cfg, params, batch, med)
+    res["out_dir"] = out_dir
+    return res
+
+
+def _emotion_profile(torch, cfg, params, batch: dict, step_ms: float):
+    """EMOTION_PROFILED_STEPS classifier steps of the recipe on ``batch``
+    under torch.profiler, after two untraced ones: device busy a step,
+    the traced and the untraced idle share (1 - busy / the run's median
+    step), kernels and host launch calls a step."""
+    from eamg_tpu_torch.emotion import train_scratch as ts
+    from eamg_tpu_torch.train.trainer import tree_leaves
+
+    spec = ts.ScratchSpec(pool="max", cue_suppress=0.3)
+    opt = ts.scratch_optimizer(spec, 796, 1592)
+    state = opt.init(tree_leaves(params))
+    step = ts.make_classifier_step(cfg, spec, opt)
+    b = [batch[k].to(EMOTION_DEVICE) for k in ("ids", "mask", "labels",
+                                               "cue")]
+    for _ in range(2):
+        step(params, state, *b)
+
+    def work():
+        for _ in range(EMOTION_PROFILED_STEPS):
+            step(params, state, *b)
+        return 64 * EMOTION_PROFILED_STEPS
+
+    prof = _trace(torch, "emotion distill", work)
+    n = EMOTION_PROFILED_STEPS
+    busy = prof["device_busy_ms"] / n
+    out = {"wall_ms_per_step": prof["wall_ms"] / n,
+           "device_busy_ms_per_step": busy,
+           "idle_share_traced": prof["idle_share"],
+           "idle_share_untraced": 1 - busy / step_ms,
+           "kernels_per_step": prof["launches"] / n,
+           "host_launches_per_step": prof["host_launches"] / n,
+           "device_ms_by_group": {k: v / n for k, v in
+                                  prof["device_ms_by_group"].items()}}
+    log(f"[emotion distill] {n} steps traced: {json.dumps(out)}")
+    return out
+
+
+def emotion_mlm(torch, tmp: str) -> dict:
+    """(b) MLM pretraining, then pool cls: the masked NLL and ms a step of
+    each trainer."""
+    from eamg_tpu_torch.emotion import train_scratch as ts
+
+    mlm_marks, cls_marks = [], []
+    t0 = time.perf_counter()
+    with _timed_steps_of(torch, ts, "make_mlm_step", mlm_marks), \
+            _timed_steps_of(torch, ts, "make_classifier_step", cls_marks):
+        lines = _cli_run("emotion mlm", EMOTION_MLM_ARGS + [
+            "--out", os.path.join(tmp, "mlm"), "--device", EMOTION_DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    nll = [float(m.group(1)) for m in
+           (re.search(r"\[mlm\] epoch \d+/\d+: masked_nll=(\S+)", line)
+            for line in lines) if m]
+    mlm_med, mlm_ms = _median_ms(mlm_marks, EMOTION_TIMED_FROM)
+    cls_med, cls_ms = _median_ms(cls_marks, EMOTION_TIMED_FROM)
+    metrics = json.loads(lines[-1])
+    res = {"seconds": secs, "masked_nll": nll, "mlm_steps": len(mlm_ms),
+           "mlm_ms_per_step_median": mlm_med, "cls_steps": len(cls_ms),
+           "cls_ms_per_step_median": cls_med,
+           "eval_acc_distilbert": metrics["eval_acc_distilbert"],
+           "vocab_size": metrics["vocab_size"]}
+    log(f"[emotion mlm] {json.dumps(res)}")
+    if len(nll) != 1 or not math.isfinite(nll[0]) or \
+            nll[0] >= math.log(metrics["vocab_size"]) or not cls_ms:
+        raise AssertionError(f"emotion mlm: {res}")
+    return res
+
+
+def _np_leaves(tree, path: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for name, sub in tree.items()
+                for k, v in _np_leaves(sub, f"{path}/{name}").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in _np_leaves(sub, f"{path}/{i}").items()}
+    return {path: tree}
+
+
+def emotion_finetune(torch, tmp: str) -> dict:
+    """(c) `finetune-emotion` on the shipped f16 classifier at JAX's
+    defaults (r 8, alpha 16, lr 5e-4, batch 16) for one epoch over
+    FINETUNE_ROWS eval rows of (a)'s corpus: ms a step, the step-1 loss card
+    against host, the final loss and params.pkl's dtype per leaf (JAX's:
+    the merged q and v f32, the rest f16); then the library's finetune on
+    an f32 copy of the same base, whose loss must fall."""
+    import pickle
+
+    import numpy as np
+
+    from eamg_tpu_torch.emotion import finetune as ft
+    from eamg_tpu_torch.emotion.distill_data import make_corpus
+    from eamg_tpu_torch.emotion.infer import PACKAGED_CKPT
+    from eamg_tpu_torch.models.distilbert import (DistilBertConfig,
+                                                  WordPieceTokenizer)
+    from eamg_tpu_torch.train.trainer import tree_leaves, tree_map
+
+    base = str(PACKAGED_CKPT)
+    with open(os.path.join(base, "config.pkl"), "rb") as f:
+        cfg = DistilBertConfig(**pickle.load(f))
+    with open(os.path.join(base, "params.pkl"), "rb") as f:
+        raw = pickle.load(f)
+    texts, labels = make_corpus(n_per_label=1200, seed=2026,
+                                gen_per_label=0)["eval"]
+    texts, labels = texts[:FINETUNE_ROWS], labels[:FINETUNE_ROWS]
+    tsv = os.path.join(tmp, "finetune.tsv")
+    with open(tsv, "w", encoding="utf-8") as f:
+        f.writelines(f"{t}\t{l}\n" for t, l in zip(texts, labels))
+    out_dir = os.path.join(tmp, "finetuned")
+    marks, first = [], {}
+    t0 = time.perf_counter()
+    with _timed_steps_of(torch, ft, "make_finetune_step", marks, first):
+        lines = _cli_run("emotion finetune", [
+            "finetune-emotion", "--base", base, "--tsv", tsv, "--out",
+            out_dir, "--epochs", "1", "--device", EMOTION_DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    med, ms = _median_ms(marks, EMOTION_TIMED_FROM)
+    card_loss = float(first["out"][2]["loss"])
+    trainable, frozen, _, ids, mask, lab = first["args"]
+    step, opt = ft.make_finetune_step(cfg, ft.LoraSpec())
+    _, _, m = step(trainable, frozen, opt.init(tree_leaves(trainable)),
+                   ids, mask, lab)
+    host_loss = float(m["loss"])
+    rel = abs(card_loss - host_loss) / abs(host_loss)
+    with open(os.path.join(out_dir, "params.pkl"), "rb") as f:
+        written = _np_leaves(pickle.load(f))
+    f32 = sorted(k for k, a in written.items() if a.dtype == np.float32)
+    want_f32 = sorted(f"/layers/{i}/{n}/w" for i in range(cfg.n_layers)
+                      for n in ("q", "v"))
+    heads = [a for k, a in written.items() if "classifier" in k]
+    nonfinite = sum(int((~np.isfinite(a)).sum()) for a in heads) / sum(
+        a.size for a in heads)
+    final = json.loads(lines[-1])["final_loss"]
+    res = {"seconds": secs, "steps": len(ms), "ms_per_step_median": med,
+           "card_step1_loss": card_loss, "host_step1_loss": host_loss,
+           "step1_rel": rel, "final_loss": final,
+           "f32_leaves": f32 == want_f32,
+           "heads_nonfinite_share": nonfinite}
+    log(f"[emotion finetune] f16 base, {len(ms)} steps in {secs:.1f} s: "
+        f"median {med:.3f} ms a step; step 1 loss card {card_loss:.8f} "
+        f"host {host_loss:.8f} (rel {rel:.2e}); final loss {final}; "
+        f"params.pkl f32 leaves exactly the merged q and v: {f32 == want_f32}"
+        f"; heads non-finite {nonfinite:.4f} (JAX's f16 Adam: epsilon 0, "
+        f"g^2 underflows)")
+    if not math.isfinite(card_loss) or rel > EMOTION_LOSS_RTOL or \
+            f32 != want_f32 or len(ms) != FINETUNE_ROWS // 16:
+        raise AssertionError(f"emotion finetune: {res}")
+    # the same run from an f32 copy of the base, through the library
+    marks = []
+    t0 = time.perf_counter()
+    with _timed_steps_of(torch, ft, "make_finetune_step", marks):
+        _, _, history = ft.finetune(
+            tree_map(lambda a: np.asarray(a, np.float32), raw), cfg,
+            WordPieceTokenizer(os.path.join(base, "vocab.txt")), texts,
+            labels, spec=ft.LoraSpec(epochs=1), log_fn=lambda *_: None,
+            device=EMOTION_DEVICE)
+    torch.cuda.synchronize()
+    losses = [h["loss"] for h in history]
+    f32_med, _ = _median_ms(marks, EMOTION_TIMED_FROM)
+    head, tail = sum(losses[:10]) / 10, sum(losses[-10:]) / 10
+    res["f32_base"] = {"seconds": time.perf_counter() - t0,
+                       "ms_per_step_median": f32_med,
+                       "first_losses_mean": head, "last_losses_mean": tail,
+                       "final_loss": losses[-1]}
+    log(f"[emotion finetune] f32 copy of the base: "
+        f"{json.dumps(res['f32_base'])}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"emotion finetune f32 base: losses {losses}")
+    return res
+
+
+def emotion_convert(torch, tmp: str) -> dict:
+    """(d) `export-emotion-hf` of the shipped classifier, then
+    `convert-distilbert`: every leaf back exactly (as f32); then `--push`
+    without huggingface_hub (kept from importing, so no upload is tried)
+    fails with JAX's RuntimeError."""
+    import io
+    import pickle
+    from unittest import mock
+
+    import numpy as np
+
+    from eamg_tpu_torch.emotion.infer import PACKAGED_CKPT
+
+    hf, back = os.path.join(tmp, "hf"), os.path.join(tmp, "hf_back")
+    _cli_run("emotion export", ["export-emotion-hf", "--ckpt",
+                                str(PACKAGED_CKPT), "--out", hf])
+    _cli_run("emotion convert", ["convert-distilbert", "--hf-dir", hf,
+                                 "--out", back])
+    with open(PACKAGED_CKPT / "params.pkl", "rb") as f:
+        shipped = _np_leaves(pickle.load(f))
+    with open(os.path.join(back, "params.pkl"), "rb") as f:
+        conv = _np_leaves(pickle.load(f))
+    differ = [k for k in shipped
+              if k not in conv or conv[k].dtype != np.float32
+              or not np.array_equal(conv[k], shipped[k].astype(np.float32))]
+    from eamg_tpu_torch import cli
+
+    with mock.patch.dict(sys.modules, {"huggingface_hub": None}):
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["export-emotion-hf", "--ckpt", str(PACKAGED_CKPT),
+                          "--out", os.path.join(tmp, "hf_push"), "--push",
+                          "a/b"])
+            pushed = "none"
+        except RuntimeError as e:
+            pushed = f"RuntimeError: {e}"
+    res = {"leaves": len(shipped), "differ": differ, "push": pushed}
+    log(f"[emotion convert] export then convert: {len(shipped)} leaves, "
+        f"{len(differ)} differ; --push without huggingface_hub: {pushed}")
+    if differ or len(conv) != len(shipped) or \
+            pushed != "RuntimeError: huggingface_hub is not installed":
+        raise AssertionError(f"emotion convert: {res}")
+    return res
+
+
+def emotion_serve(torch, ckpt_dir: str) -> dict:
+    """(e) (a)'s checkpoint serves: its EmotionClassifier on the card
+    against the host on EMOTION_TEXTS (probabilities within
+    EMOTION_PROBS_ATOL), then one request through pipeline_from_checkpoint
+    on demo_ckpt_a with it (seed 7): a WAV, the label and classify ms;
+    the counts over the request."""
+    import numpy as np
+
+    from eamg_tpu_torch.emotion import EmotionClassifier
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve.pipeline import (DEMO_CKPT_A,
+                                               pipeline_from_checkpoint)
+
+    card = EmotionClassifier(checkpoint_dir=ckpt_dir, device=EMOTION_DEVICE)
+    host = EmotionClassifier(checkpoint_dir=ckpt_dir, device="cpu")
+    gap = max(float(np.abs(card._probs(t) - host._probs(t)).max())
+              for t in EMOTION_TEXTS)
+    labels = [card.predict(t) for t in EMOTION_TEXTS]
+    pipe = pipeline_from_checkpoint(DEMO_CKPT_A, classifier=card,
+                                    device=EMOTION_DEVICE)
+    card._probs_cache.clear()      # the request classifies afresh
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    r = pipe.generate(EMOTION_TEXTS[0], seed=7)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    wav = r.wav_bytes or b""
+    res = {"probs_gap": gap, "labels": labels, "label": r.label,
+           "classify_ms": r.timings_ms["classify"], "wav_bytes": len(wav),
+           "tokens": len(r.tokens)}
+    log(f"[emotion serve] the trained classifier card against host: max "
+        f"|probs gap| {gap:.2e} on {len(EMOTION_TEXTS)} texts, labels "
+        f"{labels}; one request on demo_ckpt_a (seed 7): label {r.label}, "
+        f"classify {r.timings_ms['classify']:.2f} ms, {len(r.tokens)} "
+        f"tokens, {len(wav)} WAV bytes; launches {counts}")
+    if gap > EMOTION_PROBS_ATOL or wav[:4] != b"RIFF" or \
+            wav[8:12] != b"WAVE" or r.label != labels[0]:
+        raise AssertionError(f"emotion serve: {res}")
+    return res, counts
+
+
+def serve_emotion(torch, card: str) -> dict:
+    """Phase emotion: (a) distill-emotion, (b) MLM and pool cls, (c)
+    finetune-emotion, (d) export then convert, (e) the trained classifier
+    served. -> launch counts over the phase."""
+    import tempfile
+
+    from eamg_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    secs = {}
+    _build.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, fn in (("a_distill", emotion_distill),
+                        ("b_mlm", emotion_mlm),
+                        ("c_finetune", emotion_finetune),
+                        ("d_convert", emotion_convert)):
+            t = time.perf_counter()
+            out[key] = fn(torch, tmp)
+            secs[key] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["e_serve"], counts = emotion_serve(
+            torch, out["a_distill"]["out_dir"])
+        secs["e_serve"] = time.perf_counter() - t
+    for name in EMOTION_KERNELS:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"emotion: {name} was not launched")
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t0
+    log(json.dumps({"emotion": out}))
+    log(f"[emotion] phase {out['phase_s']:.1f} s ({secs}); launches "
+        f"{counts}")
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
-          "spec", "spec2", "options", "batch", "train", "tools", "variants")
+          "spec", "spec2", "options", "batch", "train", "tools", "variants",
+          "emotion")
 
 
 def main(argv=None) -> int:
@@ -6866,6 +7429,8 @@ def main(argv=None) -> int:
         counts["tools"] = serve_tools(torch, card)
     if "variants" in phases:
         counts["variants"] = serve_variants(torch, card)
+    if "emotion" in phases:
+        counts["emotion"] = serve_emotion(torch, card)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
         log("chip_smoke: a partial run; no kernels line and no last line")

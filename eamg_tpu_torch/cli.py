@@ -2,7 +2,8 @@
 ``generate``, ``train``, ``train-demo-a``, ``train-medusa``,
 ``medusa-measure``, ``emotion``, ``section-eval``, ``ablate``,
 ``feed-bench``, ``analyze``, ``tokenize``, ``convert-pt``, ``export-pt``,
-``convert-gqa`` and ``gqa-recover``.
+``convert-gqa``, ``gqa-recover``, ``distill-emotion``,
+``finetune-emotion``, ``convert-distilbert`` and ``export-emotion-hf``.
 
 ``generate`` writes one MIDI file (and with ``--wav`` a WAV file) from
 fixed controls (``--bpm``, ``--key``, ``--instruments``) or, with
@@ -60,7 +61,13 @@ and ``tokenize`` are the corpus tools (host only). ``convert-pt`` and
 ``export-pt`` turn a reference ``.pt`` into a checkpoint directory and
 back, ``convert-gqa`` mean-pools an MHA checkpoint's K/V heads (all three
 host only), and ``gqa-recover`` measures that conversion's perplexity cost
-and uptrains it back. All print what the JAX CLI prints. Every
+and uptrains it back. ``distill-emotion`` trains the emotion classifier
+from scratch on the template corpus (the shipped recipe by default: d256
+L4, pool max, cue suppression 0.3), ``finetune-emotion`` LoRA-finetunes a
+classifier on a "text<TAB>label" file, ``convert-distilbert`` turns an HF
+DistilBERT (+PEFT) snapshot into a classifier directory and
+``export-emotion-hf`` the reverse (``--push`` uploads it, and needs
+``huggingface_hub``). All print what the JAX CLI prints. Every
 subcommand with device work runs on the CUDA device unless ``--device
 cpu`` is given.
 """
@@ -658,6 +665,142 @@ def _gqa_recover(args) -> int:
     return 0
 
 
+def _convert_distilbert(args) -> int:
+    from .tools.convert import convert_hf_distilbert
+
+    convert_hf_distilbert(args.hf_dir, args.out, lora_alpha=args.alpha)
+    print("converted ->", args.out)
+    return 0
+
+
+def _export_emotion_hf(args) -> int:
+    from .tools.publish import export_emotion_hf, push_to_hub
+
+    export_emotion_hf(args.ckpt, args.out)
+    print("exported HF snapshot ->", args.out)
+    if args.push:
+        push_to_hub(args.out, args.push)
+        print("pushed ->", args.push)
+    return 0
+
+
+def _distill_emotion(args) -> int:
+    import json
+    import math
+
+    from .emotion.train_scratch import ScratchSpec, distill_classifier
+
+    spec = ScratchSpec(dim=args.dim, n_layers=args.n_layers,
+                       hidden_dim=3 * args.dim, epochs=args.epochs,
+                       seed=args.seed, n_per_label=args.n_per_label,
+                       pool=args.pool, cue_suppress=args.cue_suppress,
+                       pretrain_epochs=args.pretrain_epochs,
+                       gen_per_label=args.gen_per_label)
+    metrics = distill_classifier(args.out, spec=spec, device=args.device)
+    # empty splits report nan; stdout stays strict JSON (RFC 8259)
+    print(json.dumps({k: (None if isinstance(v, float)
+                          and not math.isfinite(v) else v)
+                      for k, v in metrics.items()}), flush=True)
+    return 0
+
+
+def _finetune_emotion(args) -> int:
+    import json
+    import os
+    import pickle
+    import shutil
+
+    from .emotion.finetune import LoraSpec, finetune, load_label_tsv
+    from .emotion.train_scratch import numpy_tree
+    from .models.distilbert import DistilBertConfig, WordPieceTokenizer
+    from .utils.device import resolve_device
+
+    device = resolve_device(args.device)   # before any file is read
+    with open(f"{args.base}/config.pkl", "rb") as f:
+        cfg = DistilBertConfig(**pickle.load(f))
+    with open(f"{args.base}/params.pkl", "rb") as f:
+        params = pickle.load(f)
+    tok = WordPieceTokenizer(f"{args.base}/vocab.txt")
+    texts, labels = load_label_tsv(args.tsv)
+    spec = LoraSpec(r=args.r, alpha=args.alpha, lr=args.lr,
+                    batch=args.batch, epochs=args.epochs, seed=args.seed)
+    merged, _, history = finetune(params, cfg, tok, texts, labels,
+                                  spec=spec, log_every=args.log_every,
+                                  device=device)
+    os.makedirs(args.out, exist_ok=True)
+    with open(f"{args.out}/params.pkl", "wb") as f:
+        pickle.dump(numpy_tree(merged), f)   # each leaf's dtype kept
+    shutil.copy(f"{args.base}/config.pkl", f"{args.out}/config.pkl")
+    shutil.copy(f"{args.base}/vocab.txt", f"{args.out}/vocab.txt")
+    print(json.dumps({"final_loss": history[-1]["loss"],
+                      "out": args.out}), flush=True)
+    return 0
+
+
+def _add_emotion_training(sub) -> None:
+    dev_help = "torch device (default cuda; 'cpu' runs on the host)"
+    d = sub.add_parser("convert-distilbert",
+                       help="HF snapshot dir -> emotion checkpoint dir")
+    d.add_argument("--hf-dir", required=True)
+    d.add_argument("--out", required=True)
+    d.add_argument("--alpha", type=float, default=16.0)
+    d.set_defaults(fn=_convert_distilbert)
+
+    x = sub.add_parser("export-emotion-hf",
+                       help="emotion ckpt dir -> HF snapshot (+ optional "
+                            "Hub push)")
+    x.add_argument("--ckpt", required=True)
+    x.add_argument("--out", required=True)
+    x.add_argument("--push", default=None, help="HF repo id to upload to")
+    x.set_defaults(fn=_export_emotion_hf)
+
+    di = sub.add_parser("distill-emotion",
+                        help="train the in-repo neural emotion classifier "
+                             "from scratch (template distillation)")
+    di.add_argument("--out", default="eamg_tpu/emotion/ckpt_distilbert",
+                    help="checkpoint dir (default: the shipped classifier "
+                         "the port serves)")
+    di.add_argument("--dim", type=int, default=256)
+    di.add_argument("--n-layers", type=int, default=4)
+    di.add_argument("--epochs", type=int, default=12)
+    di.add_argument("--seed", type=int, default=2026)
+    di.add_argument("--n-per-label", type=int, default=1200,
+                    help="template rows per label (the shipped recipe)")
+    di.add_argument("--pool", default="max",
+                    choices=["max", "cls", "mean"],
+                    help="max = per-token cue-detector head (the shipped "
+                         "recipe)")
+    di.add_argument("--cue-suppress", type=float, default=0.3,
+                    help="span-supervision weight on non-cue tokens' "
+                         "non-neutral logits (pool=max only)")
+    di.add_argument("--gen-per-label", type=int, default=0,
+                    help="compositional situation-generator TRAINING "
+                         "rows per label (situation_gen); the frozen exam "
+                         "is built regardless, and eval_gen_schemas is "
+                         "empty (metrics null) at 0")
+    di.add_argument("--pretrain-epochs", type=int, default=0,
+                    help="MLM-pretrain the trunk on the train split for "
+                         "N epochs before classification (0 = off)")
+    di.add_argument("--device", default=None, help=dev_help)
+    di.set_defaults(fn=_distill_emotion)
+
+    f = sub.add_parser("finetune-emotion",
+                       help="LoRA-finetune the emotion classifier")
+    f.add_argument("--base", required=True,
+                   help="base emotion checkpoint dir")
+    f.add_argument("--tsv", required=True)
+    f.add_argument("--out", required=True)
+    f.add_argument("--r", type=int, default=8)
+    f.add_argument("--alpha", type=float, default=16.0)
+    f.add_argument("--lr", type=float, default=5e-4)
+    f.add_argument("--batch", type=int, default=16)
+    f.add_argument("--epochs", type=int, default=3)
+    f.add_argument("--seed", type=int, default=42)
+    f.add_argument("--log-every", type=int, default=10)
+    f.add_argument("--device", default=None, help=dev_help)
+    f.set_defaults(fn=_finetune_emotion)
+
+
 def _add_convert(sub) -> None:
     c = sub.add_parser("convert-pt", help="reference .pt -> checkpoint dir")
     c.add_argument("--pt", required=True)
@@ -854,6 +997,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     _add_medusa(sub)
     _add_tools(sub)
     _add_convert(sub)
+    _add_emotion_training(sub)
     s = sub.add_parser("serve", help="serve POST /generate")
     s.add_argument("--host", default="0.0.0.0")
     s.add_argument("--port", type=int, default=8000)

@@ -236,11 +236,7 @@ def init_params(rng, cfg: GPTConfig, device=None) -> dict:
             return prng.uniform(next(keys), shape, -bound, bound, device=dev)
 
         def normal(shape):
-            # jax.random.normal: sqrt(2) erf_inv(u), u uniform on
-            # [nextafter(-1, 0), 1) in f32
-            lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-            return float(np.float32(math.sqrt(2.0))) * erf_inv_f32(
-                prng.uniform(next(keys), shape, lo, 1.0, device=dev))
+            return normal_f32(next(keys), shape, device=dev)
 
     D, FF, V = cfg.d_model, cfg.ff, cfg.vocab_size
 
@@ -287,6 +283,16 @@ _ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
 _ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
                 -0.00367342844, 0.00573950773, -0.0076224613,
                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def normal_f32(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32: sqrt(2) erf_inv(u), u
+    uniform on [nextafter(-1, 0), 1), through :func:`erf_inv_f32`."""
+    from ..utils import prng
+
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return float(np.float32(math.sqrt(2.0))) * erf_inv_f32(
+        prng.uniform(key, shape, lo, 1.0, device=device))
 
 
 def erf_inv_f32(x: torch.Tensor) -> torch.Tensor:

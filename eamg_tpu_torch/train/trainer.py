@@ -147,7 +147,7 @@ def lr_schedule(tcfg: TrainConfig):
 
 class AdamW:
     """optax's ``chain(clip_by_global_norm(clip), adamw(lr, b1, b2,
-    weight_decay=wd))`` on lists of f32 leaves, updated in place:
+    weight_decay=wd))`` on lists of float leaves, updated in place:
 
     1. clip (when set): g = g / norm * clip where the global norm is at
        least ``clip`` (no epsilon, unlike ``clip_grad_norm_``);
@@ -157,6 +157,13 @@ class AdamW:
     3. ``add_decayed_weights``: u + wd p, on every leaf (optax's default
        mask is none);
     4. p = p + (-lr(count before the increment)) u.
+
+    A leaf keeps its dtype, moments included, and its arithmetic rounds
+    as optax's does under XLA: each constant (the betas, the bias
+    corrections, the epsilon, the decay and the rate) is rounded to the
+    leaf's dtype first, then each operation, a multiply-add once. In f16
+    the epsilon is 0 and (1 - b2) g^2 underflows for |g| < ~2.4e-4, so
+    such a leaf's step is inf or NaN, as it is in JAX.
 
     The state is ``{"count": int, "mu": [...], "nu": [...]}``; the count
     is the host's, so a step reads nothing back from the device."""
@@ -184,27 +191,46 @@ class AdamW:
             grads = [torch.where(keep, g, g / norm * t.clip_norm)
                      for g in grads]
             metrics["grad_norm"] = norm
-        b1, b2 = t.b1, t.b2
-        mu, nu = state["mu"], state["nu"]
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - b2))
         lr = self.schedule(state["count"])
         state["count"] += 1
         c = state["count"]
-        bc1 = _f32(np.float32(1) - np.float32(b1) ** np.float32(c))
-        bc2 = _f32(np.float32(1) - np.float32(b2) ** np.float32(c))
-        den = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
-        torch._foreach_add_(den, self.EPS)
-        u = torch._foreach_div(torch._foreach_div(mu, bc1), den)
-        if t.weight_decay:
-            torch._foreach_add_(u, torch._foreach_mul(params,
-                                                      t.weight_decay))
-        torch._foreach_add_(params, torch._foreach_mul(u, -lr))
+        bc1 = _f32(np.float32(1) - np.float32(t.b1) ** np.float32(c))
+        bc2 = _f32(np.float32(1) - np.float32(t.b2) ** np.float32(c))
+        by_dtype: dict = {}
+        for i, p in enumerate(params):
+            by_dtype.setdefault(p.dtype, []).append(i)
+        for dt, idx in by_dtype.items():
+            self._step([grads[i] for i in idx],
+                       [state["mu"][i] for i in idx],
+                       [state["nu"][i] for i in idx],
+                       [params[i] for i in idx], dt, lr, bc1, bc2)
         metrics["lr"] = lr
         return metrics
+
+    def _step(self, grads, mu, nu, params, dtype, lr, bc1, bc2) -> None:
+        t = self.tcfg
+
+        def r(v: float) -> float:
+            return float(torch.tensor(v, dtype=dtype))
+
+        # a * x + y is one multiply-add (one rounding), as XLA fuses it
+        torch._foreach_mul_(mu, r(t.b1))
+        torch._foreach_add_(mu, grads, alpha=r(1 - t.b1))
+        torch._foreach_mul_(nu, r(t.b2))
+        torch._foreach_add_(nu, torch._foreach_mul(grads, grads),
+                            alpha=r(1 - t.b2))
+        den = torch._foreach_sqrt(torch._foreach_div(nu, r(bc2)))
+        mu_hat = torch._foreach_div(mu, r(bc1))
+        if r(self.EPS):
+            torch._foreach_add_(den, r(self.EPS))
+            u = torch._foreach_div(mu_hat, den)
+        else:
+            # the epsilon is 0 in f16: XLA drops it and takes m / sqrt(v)
+            # as m * rsqrt(v), the reciprocal of the rounded square root
+            u = torch._foreach_mul(mu_hat, torch._foreach_reciprocal(den))
+        if t.weight_decay:
+            torch._foreach_add_(u, params, alpha=r(t.weight_decay))
+        torch._foreach_add_(params, u, alpha=r(-lr))
 
 
 def make_optimizer(tcfg: TrainConfig) -> AdamW:

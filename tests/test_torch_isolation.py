@@ -6,8 +6,8 @@ the card by default.
   ``eamg_tpu`` module;
 - no source of the port, nor chip_smoke.py or chip_sweep.py, imports
   ``jax``, ``optax`` or ``eamg_tpu``;
-- the entry points (the library's, ``cli generate`` and the bench module
-  among them) raise on a host without CUDA when no device is given,
+- the entry points (the library's, ``cli generate``, the bench module
+  and the emotion trainers and their subcommands among them) raise on a host without CUDA when no device is given,
   instead of carrying on on the CPU.
 """
 
@@ -51,6 +51,9 @@ if not torch.cuda.is_available():
     from eamg_tpu_torch.serve import demo_pipeline
     from eamg_tpu_torch.tools.ablation import run_ablation
     from eamg_tpu_torch.tools.feed_bench import run_feed_bench
+    from eamg_tpu_torch.emotion.finetune import finetune
+    from eamg_tpu_torch.emotion.train_scratch import distill_classifier
+    from eamg_tpu_torch.models.distilbert import DistilBertConfig
     cfg = GPTConfig(vocab_size=3, seq_len=8, d_model=16, n_head=2, n_layer=1)
     calls = {
         "Generator": lambda: Generator({}, cfg, Vocab({"a": 0})),
@@ -70,6 +73,13 @@ if not torch.cuda.is_available():
             ["train", "--experts", "4", "--moe-every", "2",
              "--synthetic", "8"]),
         "cli gqa-recover": lambda: cli.main(["gqa-recover", "--rows", "8"]),
+        "distill_classifier": lambda: distill_classifier("/nonexistent"),
+        "finetune": lambda: finetune({}, DistilBertConfig(), None, [], []),
+        "cli distill-emotion": lambda: cli.main(
+            ["distill-emotion", "--out", "/nonexistent"]),
+        "cli finetune-emotion": lambda: cli.main(
+            ["finetune-emotion", "--base", "/nonexistent", "--tsv",
+             "/nonexistent", "--out", "/nonexistent"]),
     }
     for name, fn in calls.items():
         try:
@@ -98,7 +108,12 @@ def test_every_port_module_imports_without_jax(probe):
     for new in ("eamg_tpu_torch.bench", "eamg_tpu_torch.tokenizer.scheme_b",
                 "eamg_tpu_torch.decode.medusa_tree",
                 "eamg_tpu_torch.parallel.moe", "eamg_tpu_torch.models.quant",
-                "eamg_tpu_torch.tools.gqa_recover"):
+                "eamg_tpu_torch.tools.gqa_recover",
+                "eamg_tpu_torch.emotion.distill_data",
+                "eamg_tpu_torch.emotion.situation_gen",
+                "eamg_tpu_torch.emotion.train_scratch",
+                "eamg_tpu_torch.emotion.finetune",
+                "eamg_tpu_torch.tools.publish"):
         assert new in probe["modules"]
     assert probe["leaked"] == []
 
@@ -130,7 +145,9 @@ def test_source_imports_no_jax_and_no_jax_package(path):
                                    "run_ablation", "run_feed_bench",
                                    "default_classifier", "cli emotion",
                                    "cli train --experts",
-                                   "cli gqa-recover"])
+                                   "cli gqa-recover", "distill_classifier",
+                                   "finetune", "cli distill-emotion",
+                                   "cli finetune-emotion"])
 def test_entry_points_want_cuda_by_default(probe, entry):
     """On this CUDA-less host, no device argument means an error."""
     assert not probe["cuda"], "this check is for hosts without CUDA"

@@ -2916,10 +2916,12 @@ TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "top
 
 
 def main():
+    from torch_port_emotion import EMOTION_TASKS
     from torch_port_spec2 import SPEC2_TASKS
     from torch_port_tools import TOOLS_TASKS
     from torch_port_variants import VARIANTS_TASKS
 
+    TASKS.update(EMOTION_TASKS)
     TASKS.update(SPEC2_TASKS)
     TASKS.update(TOOLS_TASKS)
     TASKS.update(VARIANTS_TASKS)
