@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,tools
     python3 chip_smoke.py --phases build,variants
     python3 chip_smoke.py --phases build,emotion
+    python3 chip_smoke.py --phases build,parallel
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -312,6 +313,29 @@ Phases:
     its classifier card against host within 1e-5 on EMOTION_TEXTS, then one
     request through pipeline_from_checkpoint on demo_ckpt_a (seed 7): a WAV,
     the label and classify ms; K1-K4 launched over the request.
+
+ 17. parallel: the parallel modes on torch.distributed at world size 1 (the
+    card host has one card; larger worlds are held to JAX on the CPU by
+    tests/test_torch_mesh.py and its siblings), inside a world-1 NCCL group
+    made and left within the phase. (a) the mesh trainer (a 1 x 1 mesh, tp
+    and fsdp on) beside the plain trainer, PARALLEL_STEPS steps each, in
+    turns (plain, mesh, mesh, plain), on the flagship recipe (bf16, GQA-2)
+    and on large2 f32 (TF32 off): losses, every param and both moments
+    bit-equal, ms a step of each between CUDA events in this call; (b)
+    PipelineTrainer with 1 stage and 2 micro-batches on large2: its loss
+    within PP_LOSS_TOL of the plain trainer's; (c) forward_seq_parallel at n
+    1, T 511, f32, against forward (its kernels): SEQ_PAR_TOL; (d)
+    moe_mlp_ep at n 1 against moe_mlp_dense at flagship width (d512, FF
+    2048, 8 experts), drop-free: EP_TOL; (e) generate_kv on demo_ckpt_a's
+    params sharded for a model group of 1 (tp=) against the unsharded
+    decode, sampled, same seed: the same tokens; its launches are the
+    phase's (K1-K4); then K1, K2 and K3 at the tp-2 shard shapes of
+    demo_ckpt_a (H 4, Hkv 1, FF 1024, bf16 and f32) against their plain
+    versions; (f) `cli train --mesh-data 2` on one card exits 2 with JAX's
+    "mesh 2x1 > 1 devices", and `--mesh-data 1 --fsdp` trains; (g) `python
+    -m eamg_tpu_torch.parallel.dryrun --world 1` (its main, in this process:
+    a world of 1 runs where it is called) prints its line and leaves its
+    group.
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -7353,9 +7377,318 @@ def serve_emotion(torch, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- parallel
+
+PARALLEL_STEPS = 16
+PP_LOSS_TOL = 1e-4              # PipelineTrainer's loss, against the plain
+SEQ_PAR_TOL = 1e-4              # forward_seq_parallel (plain products)
+EP_TOL = 1e-4                   # moe_mlp_ep against moe_mlp_dense, f32
+# demo_ckpt_a's blocks on a model group of 2: H 4, Hkv 1, Dh 64, FF 1024
+TP2_SHAPES = {"H": 4, "Hkv": 1, "Dh": 64, "D": 512, "FF": 1024, "M": 511}
+PARALLEL_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                    "top_k_mask")
+
+
+@contextlib.contextmanager
+def _world_of_one(torch):
+    """A world-1 NCCL process group for the phase, left at its end."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from eamg_tpu_torch.parallel.multihost import init_distributed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(init_method=f"file://{tmp}/rdv", num_processes=1,
+                         process_id=0, device="cuda:0")
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_vs_plain(torch, tag: str, cfg, tcfg, params, steps) -> dict:
+    """(a) for one recipe: the plain trainer and the mesh trainer (1 x 1, tp
+    and fsdp on) over ``steps``, in turns (plain, mesh, mesh, plain), each
+    timed; the first mesh run bit-equal to the first plain run or it
+    fails."""
+    from eamg_tpu_torch.parallel.mesh import make_mesh
+    from eamg_tpu_torch.train.trainer import Trainer, tree_leaves
+
+    mtcfg = dataclasses.replace(tcfg, tp=True, fsdp=True)
+
+    def run(kind: str, i: int):
+        t = Trainer(cfg, tcfg, params, device="cuda") if kind == "plain" \
+            else Trainer(cfg, mtcfg, params, device="cuda",
+                         mesh=make_mesh(1, 1))
+        return t, _timed_steps(torch, t, steps, f"{tag} {kind} {i}")
+
+    plain, a = run("plain", 1)
+    mesh, b = run("mesh", 1)
+    same = (a["losses"] == b["losses"] and a["tokens"] == b["tokens"]
+            and all(torch.equal(u, v) for u, v in zip(
+                tree_leaves(plain.params), tree_leaves(mesh.params)))
+            and all(torch.equal(u, v) for u, v in zip(
+                plain.opt_state["mu"] + plain.opt_state["nu"],
+                mesh.opt_state["mu"] + mesh.opt_state["nu"])))
+    del plain, mesh
+    c = run("mesh", 2)[1]
+    d = run("plain", 2)[1]
+    med = {k: r["ms_per_step_median"] for k, r in
+           (("plain1", a), ("mesh1", b), ("mesh2", c), ("plain2", d))}
+    log(f"[parallel {tag}] mesh step bit-equal to the plain step: {same}; "
+        f"ms a step (median of steps {TIMED_FROM}..{len(steps)}) in turns "
+        f"{med}")
+    if not same:
+        raise AssertionError(f"parallel: the 1x1 mesh step of {tag} is not "
+                             "the plain step")
+    return {"ms_per_step": med, "losses": b["losses"],
+            "peak_bytes_mesh": b["max_memory_allocated_bytes"],
+            "peak_bytes_plain": a["max_memory_allocated_bytes"]}
+
+
+def _tp2_kernel_checks(torch) -> dict:
+    """K1, K2 and K3 at demo_ckpt_a's tp-2 shard shapes against their plain
+    versions (comparisons: their launches are not the phase's)."""
+    from eamg_tpu_torch.ops import attention, decode_attention, ffn
+
+    s = TP2_SHAPES
+    g = torch.Generator().manual_seed(19)
+    out = {}
+    for dt, name in ((torch.float32, "float32"),
+                     (torch.bfloat16, "bfloat16")):
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g) * scale).to(dt).cuda()
+
+        q, k, v = rnd(1, s["H"], 16, s["Dh"]), rnd(1, s["Hkv"], 16, s["Dh"]),\
+            rnd(1, s["Hkv"], 16, s["Dh"])
+        vl = torch.tensor([5], dtype=torch.int32, device="cuda")
+        e1 = float((attention.flash_attention(q, k, v, vl, causal=True)
+                    .float() - attention.attention_plain(
+                        q, k, v, vl, causal=True).float()).abs().max())
+        x = rnd(1, 16, s["D"])
+        w1, w2 = rnd(s["FF"], s["D"], scale=0.05), rnd(s["D"], s["FF"],
+                                                       scale=0.05)
+        b1, b2 = rnd(s["FF"], scale=0.05), torch.zeros(s["D"], dtype=dt,
+                                                       device="cuda")
+        e2 = max(float((ffn.fused_ffn(x[:, :rows], w1, b1, w2, b2,
+                                      order="xla").float()
+                        - ffn.ffn_plain(x[:, :rows], w1, b1, w2, b2,
+                                        order="xla").float()).abs().max())
+                 for rows in (1, 16))
+        qd = rnd(1, s["H"], 1, s["Dh"])
+        kc, vc = rnd(1, s["Hkv"], s["M"], s["Dh"]), \
+            rnd(1, s["Hkv"], s["M"], s["Dh"])
+        e3 = 0.0
+        for t in (4, 300, 510):
+            tt = torch.tensor([t], dtype=torch.int32, device="cuda")
+            e3 = max(e3, float((decode_attention.flash_decode_sp(
+                qd, kc, vc, tt).float() - decode_attention
+                .decode_attention_plain(qd, kc, vc, tt).float()).abs().max()))
+        tols = (TOL[("flash_attention", name)], TOL[("fused_ffn", name)],
+                TOL[("flash_decode_sp", name)])
+        log(f"[parallel tp2 kernels] {name}: K1 {e1:.3e} (tol {tols[0]}), "
+            f"K2 {e2:.3e} (tol {tols[1]}), K3 {e3:.3e} (tol {tols[2]}) "
+            f"at H {s['H']} Hkv {s['Hkv']} FF {s['FF']}")
+        if not (e1 <= tols[0] and e2 <= tols[1] and e3 <= tols[2]):
+            raise AssertionError(f"parallel: a kernel disagrees at the tp-2 "
+                                 f"shapes ({name}: {e1}, {e2}, {e3})")
+        out[name] = {"k1": e1, "k2": e2, "k3": e3}
+    return out
+
+
+def _tp_decode(torch, ckpt) -> tuple:
+    """(e): generate_kv on demo_ckpt_a's params sharded for a model group
+    of one against the unsharded decode, sampled, one seed. -> (record,
+    the TP decode's launch counts)."""
+    from eamg_tpu_torch.decode.loop import generate_kv
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.parallel.collectives import tensor_parallel
+    from eamg_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from eamg_tpu_torch.utils import prng
+
+    cfg = ckpt["cfg"]
+    params = {k: v for k, v in ckpt["params"].items()}
+    params = _to_cuda(torch, params)
+    mesh = make_mesh(1, 1)
+    tp = tensor_parallel(cfg, mesh.get_group("model"))
+    blocks = shard_params(params, mesh, tp=True, cfg=cfg)
+    prompt = torch.zeros((1, 16), dtype=torch.int64, device="cuda")
+    prompt[0, :5] = torch.tensor([1, 5, 9, 40, 41])
+    kw = dict(greedy=False, eos_id=-1, pad_id=0, top_k=50)
+    ref, n_ref = generate_kv(params, prompt, 5, prng.PRNGKey(7), cfg, 96,
+                             **kw)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, n = generate_kv(blocks, prompt, 5, prng.PRNGKey(7), cfg, 96, tp=tp,
+                         **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    same = torch.equal(got, ref) and n == n_ref
+    log(f"[parallel tp decode] world 1, {n} tokens in {secs:.3f} s: the "
+        f"unsharded stream {same}; launches {counts}")
+    if not same:
+        raise AssertionError("parallel: the TP decode's tokens differ from "
+                             "the unsharded decode's")
+    return {"tokens": n, "seconds": secs,
+            "kernels": _tp2_kernel_checks(torch)}, counts
+
+
+def _to_cuda(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _to_cuda(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cuda(torch, v) for v in tree]
+    return tree.cuda()
+
+
+def _parallel_cli(torch, tmp: str) -> dict:
+    """(f): `--mesh-data 2` on one card exits 2 with the device-count
+    message; `--mesh-data 1 --fsdp` trains (as one device)."""
+    import io
+
+    from eamg_tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        code = cli.main(["train", "--preset", "large2", "--corrected",
+                         "--synthetic", "16", "--epochs", "1",
+                         "--mesh-data", "2", "--out",
+                         os.path.join(tmp, "mesh2")])
+    want = f"mesh 2x1 > {torch.cuda.device_count()} devices"
+    log(f"[parallel cli] --mesh-data 2: exit {code}, {err.getvalue()!r}")
+    if code != 2 or want not in err.getvalue():
+        raise AssertionError(f"parallel: --mesh-data 2 on one card: exit "
+                             f"{code}, {err.getvalue()!r}")
+    lines = _cli_run("parallel cli fsdp", [
+        "train", "--preset", "large2", "--corrected", "--synthetic", "16",
+        "--epochs", "1", "--mesh-data", "1", "--fsdp", "--log-every", "1",
+        "--out", os.path.join(tmp, "fsdp1")])
+    summary = json.loads(lines[-1])
+    if summary["steps"] < 1 or not math.isfinite(summary["final_loss"]):
+        raise AssertionError(f"parallel: --mesh-data 1 --fsdp: {summary}")
+    return {"refused_exit": code, "fsdp1": summary}
+
+
+def serve_parallel(torch, card: str, ckpt) -> dict:
+    """Phase parallel: (a)-(g) of the module's docstring. -> the launch
+    counts of (e)'s TP decode."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from eamg_tpu_torch.models.gpt import forward, init_params
+    from eamg_tpu_torch.parallel.moe import (MoEConfig, init_moe_params,
+                                             moe_mlp_dense, moe_mlp_ep)
+    from eamg_tpu_torch.parallel.pipeline import (PipelineTrainer,
+                                                  make_pp_mesh)
+    from eamg_tpu_torch.parallel.ring_attention import forward_seq_parallel
+    from eamg_tpu_torch.train.trainer import Trainer
+    from eamg_tpu_torch.utils import prng
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    secs = {}
+    with _world_of_one(torch):
+        t = time.perf_counter()
+        trainer, fsteps = _flagship_trainer(torch)
+        fparams = trainer.export_params()
+        out["a_flagship"] = _mesh_vs_plain(
+            torch, "flagship", trainer.cfg, trainer.tcfg, fparams,
+            fsteps[:PARALLEL_STEPS])
+        del trainer
+        cfg, tcfg, lsteps, lparams, _ = _large2_setup(torch, "cuda")
+        out["a_large2"] = _mesh_vs_plain(torch, "large2", cfg, tcfg, lparams,
+                                         lsteps[:PARALLEL_STEPS])
+        secs["a_mesh"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        x, y = (torch.from_numpy(a[0]).cuda() for a in lsteps[0])
+        pp = PipelineTrainer(cfg, tcfg, lparams, make_pp_mesh(1),
+                             n_micro=2, device="cuda")
+        m_pp = pp.train_step(x, y)
+        m_ref = Trainer(cfg, tcfg, lparams, device="cuda").train_step(
+            x[None], y[None])
+        gap = abs(m_pp["loss"] - m_ref["loss"])
+        log(f"[parallel pipeline] 1 stage, 2 micro-batches: loss "
+            f"{m_pp['loss']:.6f} (plain {m_ref['loss']:.6f}, gap {gap:.2e})")
+        if gap > PP_LOSS_TOL:
+            raise AssertionError(f"parallel: pipeline loss gap {gap}")
+        out["b_pipeline"] = {"loss": m_pp["loss"], "plain": m_ref["loss"]}
+        del pp
+        secs["b_pipeline"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        g = torch.Generator().manual_seed(3)
+        ids = torch.randint(1, cfg.vocab_size, (2, 511), generator=g).cuda()
+        with torch.no_grad():
+            sp = forward_seq_parallel(lparams, ids, cfg, dist.group.WORLD)
+        ref = forward(lparams, ids, cfg)
+        err = float((sp - ref).abs().max())
+        log(f"[parallel seq] forward_seq_parallel n 1 T 511 f32 against "
+            f"forward: max|diff| {err:.3e} (tol {SEQ_PAR_TOL})")
+        if err > SEQ_PAR_TOL:
+            raise AssertionError(f"parallel: forward_seq_parallel {err}")
+        out["c_seq_parallel"] = err
+        secs["c_seq"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        mcfg = MoEConfig(d_model=512, d_ff=2048, n_experts=8, top_k=2)
+        mp = init_moe_params(prng.PRNGKey(4), mcfg, device="cuda")
+        xe = torch.randn((2, 256, 512), generator=g).cuda()
+        with torch.no_grad():
+            ep = moe_mlp_ep(mp, xe, mcfg, dist.group.WORLD, capacity=2 * 512)
+            dense = moe_mlp_dense(mp, xe, mcfg, capacity=2 * 512)
+        err = float((ep - dense).abs().max())
+        log(f"[parallel ep] moe_mlp_ep n 1 against moe_mlp_dense, d512 FF "
+            f"2048 8 experts: max|diff| {err:.3e} (tol {EP_TOL})")
+        if err > EP_TOL:
+            raise AssertionError(f"parallel: moe_mlp_ep {err}")
+        out["d_ep"] = err
+        secs["d_ep"] = time.perf_counter() - t
+        del lparams, lsteps
+
+        t = time.perf_counter()
+        out["e_tp_decode"], counts = _tp_decode(torch, ckpt)
+        secs["e_tp_decode"] = time.perf_counter() - t
+    if dist.is_initialized():
+        raise AssertionError("parallel: the phase's group was not left")
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        out["f_cli"] = _parallel_cli(torch, tmp)
+        secs["f_cli"] = time.perf_counter() - t
+    t = time.perf_counter()
+    import io
+
+    from eamg_tpu_torch.parallel import dryrun
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = dryrun.main(["--world", "1"])
+    line = buf.getvalue().strip().splitlines()[-1] if buf.getvalue().strip() \
+        else ""
+    log(f"[parallel dryrun] exit {code}: {line}")
+    if code != 0 or not line.startswith("dryrun(1)") or dist.is_initialized():
+        raise AssertionError(f"parallel: dryrun --world 1: exit {code}, "
+                             f"{line!r}")
+    out["g_dryrun"] = line
+    secs["g_dryrun"] = time.perf_counter() - t
+    for name in PARALLEL_KERNELS:
+        if launched(name, counts) <= 0:
+            raise AssertionError(f"parallel: {name} was not launched")
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t0
+    log(json.dumps({"parallel": out}))
+    log(f"[parallel] phase {out['phase_s']:.1f} s ({secs}); launches "
+        f"{counts}")
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
           "spec", "spec2", "options", "batch", "train", "tools", "variants",
-          "emotion")
+          "emotion", "parallel")
 
 
 def main(argv=None) -> int:
@@ -7431,6 +7764,8 @@ def main(argv=None) -> int:
         counts["variants"] = serve_variants(torch, card)
     if "emotion" in phases:
         counts["emotion"] = serve_emotion(torch, card)
+    if "parallel" in phases:
+        counts["parallel"] = serve_parallel(torch, card, ckpt)
     log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
     if list(phases) != list(PHASES):
         log("chip_smoke: a partial run; no kernels line and no last line")

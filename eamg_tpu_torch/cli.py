@@ -43,12 +43,19 @@ message, when the checkpoint has none).
 ``--save-every``, ``--save-hours``, ``--resume``), and prints its summary
 as JSON. ``--experts E`` (with ``--moe-every k``) trains an MoE FFN of E
 routed experts in every k-th layer, with the load-balance loss.
+``--mesh-data D --mesh-model M [--fsdp]`` trains on a (data, model) mesh
+of D x M ranks, one process a rank (Megatron tensor parallelism when M >
+1, params and moments split over the data axis with ``--fsdp``): outside
+a process group the command spawns the ranks itself (gloo ranks with
+``--device cpu``, else one NCCL rank a card, ``cuda:rank``; more ranks
+than cards exits 2 with JAX's ``mesh DxM > n devices``), and under
+torchrun it joins the group it is given. Rank 0 alone logs, saves and
+prints the summary; ``--fsdp`` with a mesh of one trains as one device,
+as JAX's CLI does.
 ``train-demo-a`` trains the Scheme-A demo on the grid corpus
 (``--geometry flagship --kv-heads 2`` is the shipped flagship's own
 recipe) and writes a checkpoint ``serve`` reads, with
-``train_metrics.json``. The mesh modes (``--mesh-data``/
-``--mesh-model`` above 1, ``--fsdp``) are not in the port yet and exit 2
-naming the flag. ``train-medusa`` trains Medusa heads on a frozen
+``train_metrics.json``. ``train-medusa`` trains Medusa heads on a frozen
 checkpoint (default: the shipped B3 demo) and writes JAX's heads pickle;
 ``medusa-measure`` times plain, linear Medusa and (``--tree``) tree
 verification at batch 1 on a checkpoint's heads (default: the shipped
@@ -84,7 +91,7 @@ _ENGINE_NOT_YET = ()
 # decode modes of the JAX CLI's generate that the port does not carry yet
 _GENERATE_NOT_YET = ()
 # training modes of the JAX CLI's train that the port does not carry yet
-_TRAIN_NOT_YET = ("fsdp",)
+_TRAIN_NOT_YET = ()
 
 
 def _refuse(args, names) -> bool:
@@ -327,17 +334,79 @@ def _write_song(args, song, device) -> int:
 
 
 def _train(args) -> int:
-    import json
-
-    from .train.run import run_training
-
-    for flag in ("mesh_data", "mesh_model"):
-        if getattr(args, flag) > 1:
-            print(f"--{flag.replace('_', '-')} > 1 is not yet in the "
-                  "PyTorch port", file=sys.stderr)
-            return 2
     if _refuse(args, _TRAIN_NOT_YET):
         return 2
+    if args.mesh_data * args.mesh_model > 1:
+        return _train_mesh(args)
+    return _train_run(args, args.device)
+
+
+def _train_mesh(args) -> int:
+    """``train`` on a D x M mesh: join torchrun's group, or spawn the ranks
+    (one process each) and wait for them."""
+    import os
+    import tempfile
+
+    import torch
+
+    world = args.mesh_data * args.mesh_model
+    if os.environ.get("WORLD_SIZE") and os.environ.get("MASTER_ADDR"):
+        if int(os.environ["WORLD_SIZE"]) != world:
+            print(f"mesh {args.mesh_data}x{args.mesh_model} in a world of "
+                  f"{os.environ['WORLD_SIZE']} ranks", file=sys.stderr)
+            return 2
+        dev = args.device or f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        return _train_rank_run(args, dev, None, None, None)
+    dev = torch.device(args.device or "cuda")
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        if world > n:
+            print(f"mesh {args.mesh_data}x{args.mesh_model} > {n} devices",
+                  file=sys.stderr)
+            return 2
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.start_processes(_train_rank, args=(args, world,
+                                              f"file://{tmp}/rendezvous"),
+                           nprocs=world, start_method="spawn")
+    return 0
+
+
+def _train_rank(rank: int, args, world: int, init_method: str) -> None:
+    """One spawned rank of ``train`` on a mesh."""
+    import os
+
+    import torch
+
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = "cpu" if args.device == "cpu" else f"cuda:{rank}"
+    if _train_rank_run(args, dev, init_method, world, rank):
+        raise SystemExit(1)
+
+
+def _train_rank_run(args, dev, init_method, world, rank) -> int:
+    import torch.distributed as dist
+
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import init_distributed
+
+    init_distributed(num_processes=world, process_id=rank, device=dev,
+                     init_method=init_method)
+    try:
+        mesh = make_mesh(args.mesh_data, args.mesh_model, device=dev)
+        return _train_run(args, dev, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_run(args, device, mesh=None) -> int:
+    import json
+
+    from .parallel.multihost import is_main_process
+    from .train.run import run_training
+
     summary = run_training(
         args.preset, csv_path=args.csv, synthetic_rows=args.synthetic,
         max_rows=args.max_rows, out_dir=args.out, scheme=args.scheme,
@@ -350,8 +419,9 @@ def _train(args) -> int:
                   "n_experts": args.experts,
                   "attn_block": args.attn_block,
                   "moe_every": args.moe_every if args.experts else None},
-        device=args.device)
-    print(json.dumps(summary), flush=True)
+        device=device, mesh=mesh, tp=args.mesh_model > 1, fsdp=args.fsdp)
+    if is_main_process():
+        print(json.dumps(summary), flush=True)
     return 0
 
 
@@ -866,10 +936,12 @@ def _add_train(sub) -> None:
                    help="torch device (default cuda; 'cpu' trains on the "
                         "host)")
     t.add_argument("--mesh-data", type=int, default=1,
-                   help="not yet in the port above 1")
+                   help="data-parallel axis size (ranks a process each)")
     t.add_argument("--mesh-model", type=int, default=1,
-                   help="not yet in the port above 1")
-    t.add_argument("--fsdp", action="store_true", help="not yet in the port")
+                   help="tensor-parallel axis size (enables Megatron TP)")
+    t.add_argument("--fsdp", action="store_true",
+                   help="ZeRO/FSDP: shard params + optimizer state over "
+                        "the data axis (needs --mesh-data > 1)")
     t.add_argument("--pack", action="store_true",
                    help="sequence packing: several whole songs per row "
                         "with block-diagonal attention + per-segment "

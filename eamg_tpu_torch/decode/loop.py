@@ -30,6 +30,16 @@ one gives the same stream in f32. The same quirks hold:
 - ``grammar`` (``decode/grammar.py``) masks after the n-gram ban and
   before the sampler, with the tokens left, ``max_len - pos``, as its
   budget; its state starts from the prompt and a finished row's holds.
+
+``generate_kv(..., tp=)`` decodes on tensor-parallel params (every rank of
+the model group runs it with its blocks, ``parallel/mesh.py::
+shard_params(tp=True)``): each rank's prefill and steps run K1, K2 and K3
+on its heads and FF columns, the out-projection and K2's partial sums are
+summed over the group (K2's ``b2`` added once, after the sum), and the
+logits are gathered whole before the sampler (K4 sees every row whole),
+so every rank samples the same stream, the unsharded one. A group of more
+than one rank issues its steps from the host (no collective inside a
+captured graph).
 """
 
 from __future__ import annotations
@@ -116,9 +126,10 @@ class SoloLoop:
                  top_p_on: bool, min_p_on: bool, pen_on: bool, ngram: int,
                  gram: dict | None = None, block: int = graphs.BLOCK,
                  slots: int | None = None, eager: bool = False,
-                 capture_error_mode: str = "thread_local"):
+                 capture_error_mode: str = "thread_local", tp=None):
         dev = torch.device(device)
         self.params, self.cfg, self.max_len = params, cfg, max_len
+        self.tp = tp
         self.attn_impl, self.top_k, self.greedy = attn_impl, top_k, greedy
         self.mask_value, self.eos_id, self.pad_id = mask_value, eos_id, pad_id
         self.ngram, self.block, self.gram = ngram, block, gram
@@ -130,7 +141,8 @@ class SoloLoop:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         self.cache = init_kv_cache(cfg, B, slots or max_len, device=dev,
-                                   layout=cache_layout(attn_impl, cfg))
+                                   layout=cache_layout(attn_impl, cfg),
+                                   tp=tp)
         self.buf = zeros((B, max_len + 1), torch.int64)
         self.tokens = self.buf[:, :max_len]
         self.pos = zeros((1,), torch.int64)
@@ -157,7 +169,8 @@ class SoloLoop:
             if track_eos:
                 self.inert.add_(self.done.all())
             logits, _ = decode_step(self.params, self.last[:, None],
-                                    self.cache, self.cfg, self.attn_impl)
+                                    self.cache, self.cfg, self.attn_impl,
+                                    tp=self.tp)
             logits = apply_no_repeat_ngram(logits, self.tokens, self.pos,
                                            self.ngram, self.mask_value)
             if self.gram is not None:
@@ -189,7 +202,7 @@ def solo_state(params: dict, cfg: GPTConfig, batch: int, max_len: int,
                penalties, no_repeat_ngram: int, block: int,
                slots: int | None = None, eager: bool = False,
                capture_error_mode: str = "thread_local",
-               grammar=None) -> tuple:
+               grammar=None, tp=None) -> tuple:
     """-> (the graph key of a :class:`SoloLoop`, a function that makes
     one). The key holds what fixes the shapes and the code of a step, as
     JAX's ``static_argnames`` do, never a value that a request fills in;
@@ -204,10 +217,11 @@ def solo_state(params: dict, cfg: GPTConfig, batch: int, max_len: int,
             int(pad_id), top_p_on, min_p_on, bool(_penalty_args(penalties)),
             int(no_repeat_ngram or 0))
     key = ("solo", id(params), *args, int(block), slots, bool(eager),
-           None if gram is None else id(gram))
+           None if gram is None else id(gram), id(tp))
     return key, lambda: SoloLoop(params, *args, gram=gram, block=int(block),
                                  slots=slots, eager=eager,
-                                 capture_error_mode=capture_error_mode)
+                                 capture_error_mode=capture_error_mode,
+                                 tp=tp)
 
 
 @torch.no_grad()
@@ -219,7 +233,7 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                 top_p: float = 1.0, min_p: float = 0.0,
                 penalties: tuple | None = None, no_repeat_ngram: int = 0,
                 grammar=None, attn_impl: str = "sp", eager: bool = False,
-                capture_error_mode: str = "thread_local"):
+                capture_error_mode: str = "thread_local", tp=None):
     """prompt [B, P] (padded to a bucket P, on the params' device),
     prompt_len real tokens in every row, rng a ``prng.PRNGKey``.
     ``penalties``: (repetition, frequency, presence) or None;
@@ -231,8 +245,12 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
     (:class:`SoloLoop`); ``eager=True`` issues them from the host instead,
     to compare the two (no served path passes it). A key's first call
     captures its graph in ``capture_error_mode`` (``torch.cuda.graph``'s;
-    ``"global"`` fails on any host sync in a step, from any thread)."""
+    ``"global"`` fails on any host sync in a step, from any thread).
+    ``tp``: a ``parallel.collectives.TensorParallel`` and ``params`` this
+    rank's blocks (the module's docstring)."""
     B, P = prompt.shape
+    if tp is not None and tp.size > 1:
+        eager = True
     assert cfg.pos_broadcast_bug or max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
         f"(n_pos={cfg.n_pos}); cap decode length at cfg.n_pos")
@@ -240,7 +258,7 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                            top_k, greedy, mask_value, eos_id, pad_id, top_p,
                            min_p, penalties, no_repeat_ngram, graphs.BLOCK,
                            eager=eager, capture_error_mode=capture_error_mode,
-                           grammar=grammar)
+                           grammar=grammar, tp=tp)
     st = graphs.state_for(key, make)
     with st.lock, graphs.on_stream(st.stream):
         pos0, keys = _begin(st, prompt, prompt_len, rng, temperature, top_p,
@@ -266,7 +284,7 @@ def _begin(st: SoloLoop, prompt, prompt_len: int, rng, temperature, top_p,
     cfg, max_len = st.cfg, st.max_len
     B, P = prompt.shape
     logits0, _ = prefill(st.params, prompt, cfg, st.cache,
-                         prompt_len=prompt_len)
+                         prompt_len=prompt_len, tp=st.tp)
     real = torch.arange(P, device=prompt.device)[None, :] < prompt_len
     st.buf.fill_(st.pad_id)
     st.buf[:, :P] = torch.where(real, prompt, st.pad_id)

@@ -336,12 +336,13 @@ def _linear(x, w, b):
     return torch.matmul(x, w.to(x.dtype).T) + b.to(x.dtype)
 
 
-def _split_qkv(p):
+def _split_qkv(p, qd: int | None = None):
     """The fused in_proj's Q, K and V rows (K and V kv_dim rows each), a
-    float or an int8 weight."""
+    float or an int8 weight. ``qd``: the Q rows (a tensor-parallel block
+    holds its heads' rows: :func:`_qkv_dims`), else d_model."""
     w = p["in_w"]
     q = w["q"] if isinstance(w, dict) else w
-    D = q.shape[1]
+    D = qd or q.shape[1]
     kvd = (q.shape[0] - D) // 2
 
     def rows(a, b):
@@ -352,6 +353,23 @@ def _split_qkv(p):
     return ((rows(0, D), p["in_b"][:D]),
             (rows(D, D + kvd), p["in_b"][D:D + kvd]),
             (rows(D + kvd, D + 2 * kvd), p["in_b"][D + kvd:]))
+
+
+def _qkv_dims(cfg: GPTConfig, tp=None) -> tuple:
+    """(query heads, K/V heads) of this rank: the model's, or the share of
+    a ``parallel.collectives.TensorParallel``."""
+    return (tp.n_head, tp.kv_heads) if tp is not None else \
+        (cfg.n_head, cfg.kv_heads)
+
+
+def _row_linear(x, w, b, tp=None):
+    """``_linear`` of a row-parallel product under ``tp``: this rank's
+    partial product, summed over the model group, then the bias once."""
+    if tp is None:
+        return _linear(x, w, b)
+    if isinstance(w, dict):
+        raise ValueError("tensor parallelism takes float weights")
+    return tp.reduce(torch.matmul(x, w.to(x.dtype).T)) + b.to(x.dtype)
 
 
 def _heads(x, n_head):
@@ -365,26 +383,35 @@ def _unheads(x):
 
 
 def attention(p_attn: dict, x, cfg: GPTConfig, causal: bool = False,
-              valid_len=None):
-    """Self-attention with the fused in_proj (q = k = v input)."""
-    (wq, bq), (wk, bk), (wv, bv) = _split_qkv(p_attn)
-    q = _heads(_linear(x, wq, bq), cfg.n_head)
-    k = _heads(_linear(x, wk, bk), cfg.kv_heads)
-    v = _heads(_linear(x, wv, bv), cfg.kv_heads)
+              valid_len=None, tp=None):
+    """Self-attention with the fused in_proj (q = k = v input); under
+    ``tp`` on this rank's heads, the out-projection summed over the model
+    group."""
+    H, Hkv = _qkv_dims(cfg, tp)
+    (wq, bq), (wk, bk), (wv, bv) = _split_qkv(p_attn, H * cfg.head_dim)
+    q = _heads(_linear(x, wq, bq), H)
+    k = _heads(_linear(x, wk, bk), Hkv)
+    v = _heads(_linear(x, wv, bv), Hkv)
     out = _unheads(flash_attention(q, k, v, valid_len=valid_len,
                                    causal=causal))
-    return _linear(out, p_attn["out_w"], p_attn["out_b"]), k, v
+    return _row_linear(out, p_attn["out_w"], p_attn["out_b"], tp), k, v
 
 
-def _mlp(p, x, cfg: GPTConfig):
+def _mlp(p, x, cfg: GPTConfig, tp=None):
     """The FFN of inference and decoding: an MoE layer's pointwise experts,
-    an int8 layer's ``_linear`` route, else K2."""
+    an int8 layer's ``_linear`` route, else K2. Under ``tp``, K2 runs this
+    rank's FF columns with a zero ``b2``, and ``b2`` is added once, after
+    the sum over the model group."""
     if "router" in p:
-        return moe_mlp_pointwise(p, x, _moe_cfg(cfg))
+        return moe_mlp_pointwise(p, x, _moe_cfg(cfg), tp=tp)
     if isinstance(p["w1"], dict):
-        return _mlp_train(p, x, cfg)
-    return fused_ffn(x, p["w1"], p["b1"], p["w2"], p["b2"],
+        return _mlp_train(p, x, cfg, tp=tp)
+    if tp is None:
+        return fused_ffn(x, p["w1"], p["b1"], p["w2"], p["b2"],
+                         activation=cfg.activation, order=cfg.kernels)
+    part = fused_ffn(x, p["w1"], p["b1"], p["w2"], torch.zeros_like(p["b2"]),
                      activation=cfg.activation, order=cfg.kernels)
+    return tp.reduce(part) + p["b2"].to(x.dtype)
 
 
 def _attn_input(p: dict, x, cfg: GPTConfig):
@@ -406,12 +433,15 @@ def _finish_block(p: dict, x, attn_out, cfg: GPTConfig, mlp=_mlp):
                    _layer_norm(x, p["ln2"]["g"], p["ln2"]["b"], eps), cfg)
 
 
-def block(p: dict, x, cfg: GPTConfig, causal: bool = False, valid_len=None):
+def block(p: dict, x, cfg: GPTConfig, causal: bool = False, valid_len=None,
+          tp=None):
     """One transformer block -> (x, k, v); k/v are the block's projected
     keys and values [B, Hkv, T, Dh] (prefill stores them in the cache)."""
     attn_out, k, v = attention(p["attn"], _attn_input(p, x, cfg), cfg,
-                               causal, valid_len)
-    return _finish_block(p, x, attn_out, cfg), k, v
+                               causal, valid_len, tp)
+    mlp = _mlp if tp is None else \
+        (lambda q, h, c: _mlp(q, h, c, tp=tp))
+    return _finish_block(p, x, attn_out, cfg, mlp=mlp), k, v
 
 
 def _embed(params, ids, pos_rows, dt):
@@ -422,8 +452,13 @@ def _embed(params, ids, pos_rows, dt):
     return (params["tok_emb"][ids].float() + pos_rows.float()).to(dt)
 
 
-def _head(params, x):
-    return _linear(x.float(), params["head"]["w"], params["head"]["b"])
+def _head(params, x, tp=None):
+    """f32 logits; under ``tp`` this rank's rows of the vocabulary,
+    gathered over the model group (the whole row on every rank)."""
+    if tp is None:
+        return _linear(x.float(), params["head"]["w"], params["head"]["b"])
+    return tp.gather(_linear(tp.copy(x.float()), params["head"]["w"],
+                             params["head"]["b"]), -1)
 
 
 @torch.no_grad()
@@ -542,18 +577,24 @@ def _blockwise_attention(q, k, v, sm_scale: float, causal: bool,
 
 
 def _attention_train(p_attn: dict, x, cfg: GPTConfig, causal: bool,
-                     seg=None):
+                     seg=None, tp=None):
     """Self-attention as JAX's XLA branch computes it (``attention`` with
     ``kernels="xla"``): dense, or blockwise with ``attn_block`` (not with
-    ``seg``, as in JAX)."""
-    (wq, bq), (wk, bk), (wv, bv) = _split_qkv(p_attn)
-    q = _heads(_linear(x, wq, bq), cfg.n_head)
-    k = _heads(_linear(x, wk, bk), cfg.kv_heads)
-    v = _heads(_linear(x, wv, bv), cfg.kv_heads)
+    ``seg``, as in JAX). Under ``tp`` (Megatron): x enters the model group's
+    region, this rank's heads attend, and the out-projection's partial
+    products are summed over the group before ``out_b``."""
+    if tp is not None:
+        x = tp.copy(x)
+    H, Hkv = _qkv_dims(cfg, tp)
+    (wq, bq), (wk, bk), (wv, bv) = _split_qkv(p_attn, H * cfg.head_dim)
+    q = _heads(_linear(x, wq, bq), H)
+    k = _heads(_linear(x, wk, bk), Hkv)
+    v = _heads(_linear(x, wv, bv), Hkv)
     sm_scale = 1.0 / math.sqrt(cfg.head_dim)
     if cfg.attn_block is not None and seg is None:
         out = _blockwise_attention(q, k, v, sm_scale, causal, cfg.attn_block)
-        return _linear(_unheads(out), p_attn["out_w"], p_attn["out_b"])
+        return _row_linear(_unheads(out), p_attn["out_w"], p_attn["out_b"],
+                           tp)
     scores = _gqa_scores(q, k, sm_scale)
     T_q, T_k = scores.shape[-2], scores.shape[-1]
     if causal or seg is not None:
@@ -566,7 +607,7 @@ def _attention_train(p_attn: dict, x, cfg: GPTConfig, causal: bool,
         scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
     probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
     out = _unheads(_gqa_values(probs, v))
-    return _linear(out, p_attn["out_w"], p_attn["out_b"])
+    return _row_linear(out, p_attn["out_w"], p_attn["out_b"], tp)
 
 
 def _gelu_exact(h):
@@ -577,21 +618,34 @@ def _gelu_exact(h):
     return ((0.5 * h.float()) * e).to(h.dtype)
 
 
-def _mlp_train(p, x, cfg: GPTConfig, sink=None):
+def _mlp_train(p, x, cfg: GPTConfig, sink=None, tp=None):
     """The FFN of JAX's XLA branch: ``_linear`` -> activation ->
     ``_linear``, each product and bias add rounded to the activation
     dtype. An MoE layer takes the capacity-bounded dispatch and appends its
     load-balance loss when ``sink`` (a list) is given, the pointwise path
-    when not (JAX's ``_mlp``)."""
+    when not (JAX's ``_mlp``). Under ``tp``: this rank's FF rows of ``w1``
+    and columns of ``w2`` (an MoE layer: its experts), the partial sums
+    summed over the model group before ``b2``."""
     if "router" in p:
         if sink is None:
-            return moe_mlp_pointwise(p, x, _moe_cfg(cfg))
+            return moe_mlp_pointwise(p, x, _moe_cfg(cfg), tp=tp)
         sink.append(load_balance_loss(p, x.reshape(-1, cfg.d_model),
-                                      _moe_cfg(cfg)))
-        return moe_mlp_dense(p, x, _moe_cfg(cfg))
+                                      _moe_cfg(cfg),
+                                      getattr(sink, "group", None)))
+        return moe_mlp_dense(p, x, _moe_cfg(cfg), tp=tp)
+    if tp is not None:
+        x = tp.copy(x)
     h = _linear(x, p["w1"], p["b1"])
     h = _gelu_exact(h) if cfg.activation == "gelu" else torch.relu(h)
-    return _linear(h, p["w2"], p["b2"])
+    return _row_linear(h, p["w2"], p["b2"], tp)
+
+
+class _GroupSink(list):
+    """A loss sink whose load-balance losses span a data group's tokens."""
+
+    def __init__(self, group):
+        super().__init__()
+        self.group = group
 
 
 def _pos_from_seg(seg: torch.Tensor) -> torch.Tensor:
@@ -608,7 +662,7 @@ def _pos_from_seg(seg: torch.Tensor) -> torch.Tensor:
 
 def forward_hidden_train(params: dict, ids: torch.Tensor, cfg: GPTConfig,
                          seg: torch.Tensor | None = None,
-                         sink: list | None = None) -> torch.Tensor:
+                         sink: list | None = None, tp=None) -> torch.Tensor:
     """The differentiable transformer stack of the trainer: [B, T] ids ->
     [B, T, D] states in the activation dtype (JAX's
     ``_forward_hidden_impl`` on its XLA branches). ``seg`` ([B, T] segment
@@ -616,7 +670,10 @@ def forward_hidden_train(params: dict, ids: torch.Tensor, cfg: GPTConfig,
     block-diagonal attention, on the corrected causal configuration only.
     The gathers are ``F.embedding``, whose backward sums a row's
     gradients in a fixed order on the card. ``sink``: a list that collects
-    the MoE layers' load-balance losses (their capacity-bounded path)."""
+    the MoE layers' load-balance losses (their capacity-bounded path).
+    ``tp``: a ``parallel.collectives.TensorParallel``, and ``params`` this
+    rank's blocks (``parallel/mesh.py``): the Megatron forward, the states
+    whole on every rank of the model group."""
     ids = ids.long()
     T = ids.shape[1]
     if seg is None:
@@ -632,20 +689,29 @@ def forward_hidden_train(params: dict, ids: torch.Tensor, cfg: GPTConfig,
         # runs across the batch at every time position
         x = x.transpose(0, 1)
     for p in params["layers"]:
-        attn_out = _attention_train(p["attn"], _attn_input(p, x, cfg), cfg,
-                                    cfg.causal, seg)
-        x = _finish_block(p, x, attn_out, cfg,
-                          mlp=lambda q, h, c: _mlp_train(q, h, c, sink))
+        x = train_block(p, x, cfg, seg, sink, tp)
     if cfg.batch_first_bug:
         x = x.transpose(0, 1)
     return x
 
 
-def forward_hidden_with_aux(params: dict, ids: torch.Tensor, cfg: GPTConfig):
+def train_block(p: dict, x, cfg: GPTConfig, seg=None, sink=None, tp=None):
+    """One layer of :func:`forward_hidden_train` (the pipeline's stages
+    apply their layers with it)."""
+    attn_out = _attention_train(p["attn"], _attn_input(p, x, cfg), cfg,
+                                cfg.causal, seg, tp)
+    return _finish_block(p, x, attn_out, cfg,
+                         mlp=lambda q, h, c: _mlp_train(q, h, c, sink, tp))
+
+
+def forward_hidden_with_aux(params: dict, ids: torch.Tensor, cfg: GPTConfig,
+                            tp=None, dp=None):
     """:func:`forward_hidden_train` -> (states, the mean load-balance loss
-    over the MoE layers, 0 for a dense model)."""
-    sink: list = []
-    x = forward_hidden_train(params, ids, cfg, sink=sink)
+    over the MoE layers, 0 for a dense model). ``dp``: a data group whose
+    ranks hold the other rows of the batch; the load-balance loss is then
+    taken over all of their tokens (``load_balance_loss(group=)``)."""
+    sink: list = [] if dp is None else _GroupSink(dp)
+    x = forward_hidden_train(params, ids, cfg, sink=sink, tp=tp)
     aux = sum(sink) / len(sink) if sink else torch.zeros((), device=x.device)
     return x, aux
 
@@ -653,23 +719,27 @@ def forward_hidden_with_aux(params: dict, ids: torch.Tensor, cfg: GPTConfig):
 # ------------------------------------------------------------ KV decoding
 
 def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
-                  device=None, layout: str = "head") -> dict:
+                  device=None, layout: str = "head", tp=None) -> dict:
     """``layout="head"``: per-layer [B, Hkv, max_len, Dh] key and value
     caches ``k``, ``v``. ``layout="fused"``: per-layer position-major
     ``kv`` [B, max_len, 2 * KVD]. ``length`` is a [1] int32 tensor on the
     cache's device, read and advanced there: a decode step reads no host
-    value, so a CUDA graph can hold it (``decode/graphs.py``)."""
+    value, so a CUDA graph can hold it (``decode/graphs.py``). Under
+    ``tp`` the cache holds this rank's K/V heads (the "head" layout)."""
     max_len = max_len or cfg.seq_len
     dt = cfg.torch_dtype
     length = torch.zeros((1,), dtype=torch.int32, device=device)
     if layout == "fused":
+        if tp is not None:
+            raise ValueError("tensor-parallel decoding keeps the 'head' "
+                             "layout")
         shape = (batch, max_len, 2 * cfg.kv_dim)
         return {"kv": [torch.zeros(shape, dtype=dt, device=device)
                        for _ in range(cfg.n_layer)],
                 "length": length}
     if layout != "head":
         raise ValueError(f"layout {layout!r}: 'head' or 'fused'")
-    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+    shape = (batch, _qkv_dims(cfg, tp)[1], max_len, cfg.head_dim)
     return {"k": [torch.zeros(shape, dtype=dt, device=device)
                   for _ in range(cfg.n_layer)],
             "v": [torch.zeros(shape, dtype=dt, device=device)
@@ -679,26 +749,30 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
 
 @torch.no_grad()
 def prefill(params: dict, ids: torch.Tensor, cfg: GPTConfig, cache: dict,
-            prompt_len: int | None = None):
+            prompt_len: int | None = None, tp=None):
     """Warm-up pass over the [B, P] prompt bucket -> ([B, P, V] logits,
     cache). Keys past ``prompt_len`` are masked, but K/V of all P slots,
     pads included, are written to the cache (as the JAX model does); decode
     then overwrites slot t. Updates the cache in place, in the layout it
-    was made with; ``length`` is set in place."""
+    was made with; ``length`` is set in place. ``tp``: this rank's heads
+    and FF columns (:func:`block`), the logits gathered whole."""
     B, T = ids.shape
     plen = prompt_len if prompt_len is not None else T
     valid = torch.full((B,), plen, dtype=torch.int32, device=ids.device)
     if "kv" in cache:
+        if tp is not None:
+            raise ValueError("tensor-parallel decoding keeps the 'head' "
+                             "layout")
         logits = prefill_fused(params, ids, valid, cfg, cache["kv"])
         cache["length"].fill_(int(plen))
         return logits, cache
     x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     for li, p in enumerate(params["layers"]):
-        x, k, v = block(p, x, cfg, causal=cfg.causal, valid_len=valid)
+        x, k, v = block(p, x, cfg, causal=cfg.causal, valid_len=valid, tp=tp)
         cache["k"][li][:, :, :T] = k
         cache["v"][li][:, :, :T] = v
     cache["length"].fill_(int(plen))
-    return _head(params, x), cache
+    return _head(params, x, tp), cache
 
 
 def prefill_fused(params: dict, ids: torch.Tensor, valid: torch.Tensor,
@@ -750,7 +824,7 @@ def decode_layers_fused(params: dict, x: torch.Tensor, kv: list, slot,
 
 @torch.no_grad()
 def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
-                cfg: GPTConfig, attn_impl: str = "sp"):
+                cfg: GPTConfig, attn_impl: str = "sp", tp=None):
     """One cached step: [B, 1] ids + cache -> ([B, V] f32 logits, cache).
     The new token's K/V go to slot t = cache["length"] and its query
     attends to slots 0..t through the kernel ``attn_impl`` names
@@ -760,7 +834,10 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
     ``index_copy_``, the kernels through a pointer), so a CUDA graph can
     hold the step. A step past the cache or the positional table clamps
     to its last slot and row, as XLA's dynamic slices do; the decode loops
-    run such steps only after a request has ended, and drop them."""
+    run such steps only after a request has ended, and drop them. ``tp``:
+    this rank's heads (a "head" cache of them) and FF columns, the
+    out-projection and the FFN summed over the model group, the logits
+    gathered whole."""
     layout = cache_layout(attn_impl, cfg)
     if ("kv" in cache) != (layout == "fused"):
         raise ValueError(f"attn_impl {attn_impl!r} reads a {layout!r} cache; "
@@ -776,29 +853,35 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
         params["pos"].index_select(0, slot if M <= n_pos
                                    else t.clamp(max=n_pos - 1))
     x = _embed(params, last_ids, pos_row, dt)
-    D, KVD = cfg.d_model, cfg.kv_dim
+    H, Hkv = _qkv_dims(cfg, tp)
+    D, KVD = H * cfg.head_dim, Hkv * cfg.head_dim
     # one [B] tensor of positions per step, not per layer
     t_rows = t.expand(B).contiguous()
     if layout == "fused":
+        if tp is not None:
+            raise ValueError("tensor-parallel decoding keeps the 'head' "
+                             "layout")
         x = decode_layers_fused(params, x, cache["kv"], slot, t_rows, cfg,
                                 FOLD_IMPLS[attn_impl])
         cache["length"].add_(1)
         return _head(params, x)[:, 0], cache
     attend = HEAD_IMPLS[attn_impl]
     t_arg = t_rows if attn_impl == "sp" else t
+    mlp = _mlp if tp is None else (lambda q, h, c: _mlp(q, h, c, tp=tp))
     for li, p in enumerate(params["layers"]):
         attn_in = _attn_input(p, x, cfg)
         qkv = _linear(attn_in, p["attn"]["in_w"], p["attn"]["in_b"])
-        q = _heads(qkv[..., :D], cfg.n_head)                 # [B,H,1,Dh]
+        q = _heads(qkv[..., :D], H)                          # [B,H,1,Dh]
         cache["k"][li].index_copy_(2, slot, qkv[:, :, D:D + KVD].reshape(
-            B, cfg.kv_heads, 1, cfg.head_dim))
+            B, Hkv, 1, cfg.head_dim))
         cache["v"][li].index_copy_(2, slot, qkv[:, :, D + KVD:].reshape(
-            B, cfg.kv_heads, 1, cfg.head_dim))
+            B, Hkv, 1, cfg.head_dim))
         attn_out = _unheads(attend(q, cache["k"][li], cache["v"][li], t_arg))
-        attn_out = _linear(attn_out, p["attn"]["out_w"], p["attn"]["out_b"])
-        x = _finish_block(p, x, attn_out, cfg)
+        attn_out = _row_linear(attn_out, p["attn"]["out_w"],
+                               p["attn"]["out_b"], tp)
+        x = _finish_block(p, x, attn_out, cfg, mlp=mlp)
     cache["length"].add_(1)
-    return _head(params, x)[:, 0], cache
+    return _head(params, x, tp)[:, 0], cache
 
 
 def _block_attention(q, k_cache, v_cache, q_pos):

@@ -2,5 +2,5 @@
 (``train/data.py``), the trainer (``train/trainer.py``: the losses,
 optax's AdamW arithmetic, gradient accumulation, ``Trainer``), the
 background prefetch (``train/prefetch.py``) and the reference runs
-(``train/run.py``). The mesh modes and MoE training are not in the port
-yet."""
+(``train/run.py``), on one device or on a mesh of ranks
+(``parallel/mesh.py``)."""

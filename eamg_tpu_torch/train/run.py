@@ -10,7 +10,11 @@ hyperparams):
 
 Checkpoints: every-N-steps ``latest`` overwrite, wall-clock hours,
 per-epoch ``epN`` and ``final``; ``resume_from`` restores the params, the
-optimizer state and the step. The initial params are JAX's for the same
+optimizer state and the step. On a mesh (``mesh``, ``tp``, ``fsdp``: one
+process a rank, see ``parallel/mesh.py``) every rank runs this function on
+the same data; rank 0 alone logs and writes the checkpoints, which hold
+the whole trees (assembled from the ranks' blocks), and a resume
+re-shards a checkpoint onto any mesh. The initial params are JAX's for the same
 seed (``models/gpt.py::init_params`` from a threefry key); vocabularies of
 V >= 4096 train with the time-chunked CE of 73 positions, as in JAX.
 Scheme B2/B3 CSVs are encoded by the Python encoder, which the JAX package
@@ -104,15 +108,20 @@ def run_training(preset: str, csv_path: str | None = None,
                  resume_from: str | None = None,
                  corrected: bool = False,
                  geometry: dict | None = None,
-                 pack: bool = False, device=None) -> dict:
+                 pack: bool = False, device=None, mesh=None,
+                 tp: bool = False, fsdp: bool = False) -> dict:
     """Train ``preset`` on a corpus CSV or ``synthetic_rows`` synthetic
     songs -> {"steps", "final_loss", "vocab_size", "out_dir"}.
     ``geometry``: overrides of the preset's model shape (d_model, n_head,
     n_layer, seq_len, attn_block, and an MoE FFN's n_experts and
     moe_every; the MoE aux loss keeps the monolithic head, as in JAX). ``pack``: several whole songs a row
     (implies the corrected causal architecture). ``device`` None means the
-    card; JAX's mesh modes (``mesh``, ``tp``, ``fsdp``) are not in the
-    port yet."""
+    card. ``mesh``: a (data, model) ``DeviceMesh``, with ``tp`` (Megatron
+    over the model axis) and ``fsdp`` (params and moments split over the
+    data axis), as JAX's ``run_training`` takes them."""
+    from ..parallel.multihost import is_main_process
+
+    main = is_main_process()
     device = resolve_device(device)
     scheme = scheme or PRESET_SCHEME[preset]
     tcfg = reference_preset(preset)
@@ -143,7 +152,7 @@ def run_training(preset: str, csv_path: str | None = None,
     loss_chunk = 73 if cfg.vocab_size >= 4096 and not cfg.n_experts \
         else None
     tcfg = dataclasses.replace(tcfg, pad_id=vocab.pad_id, pack=pack,
-                               loss_chunk=loss_chunk)
+                               loss_chunk=loss_chunk, tp=tp, fsdp=fsdp)
 
     if resume_from:
         # optimizer state and step count restored with the params
@@ -151,22 +160,36 @@ def run_training(preset: str, csv_path: str | None = None,
         if ckpt["cfg"] != cfg:
             raise ValueError(f"checkpoint config {ckpt['cfg']} != run "
                              f"config {cfg}")
-        trainer = Trainer(cfg, tcfg, ckpt["params"], device=device)
+        trainer = Trainer(cfg, tcfg, ckpt["params"], device=device,
+                          mesh=mesh)
         if ckpt["opt_state"] is not None:
             trainer.load_opt_state(ckpt["opt_state"])
         trainer.step = ckpt["step"]
     else:
         params = init_params(prng.PRNGKey(seed), cfg, device=device)
-        trainer = Trainer(cfg, tcfg, params, device=device)
+        trainer = Trainer(cfg, tcfg, params, device=device, mesh=mesh)
     cadence = CheckpointCadence(every_steps=save_every_steps,
                                 every_hours=save_hours)
-    os.makedirs(out_dir, exist_ok=True)
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
 
     def save(tag):
-        save_checkpoint(os.path.join(out_dir, tag), trainer.params,
-                        vocab.tok2id, cfg, opt_state=trainer.opt_state_tree(),
-                        step=trainer.step, tcfg=tcfg,
-                        extra={"preset": preset, "scheme": scheme})
+        # on a mesh every rank takes part in assembling the trees
+        params, opt_state = trainer.checkpoint_trees()
+        if main:
+            save_checkpoint(os.path.join(out_dir, tag), params,
+                            vocab.tok2id, cfg, opt_state=opt_state,
+                            step=trainer.step, tcfg=tcfg,
+                            extra={"preset": preset, "scheme": scheme})
+
+    def due(step) -> bool:
+        hit = cadence.should_save(step)
+        if mesh is not None and save_hours:
+            # rank 0's clock decides for every rank
+            from ..parallel.multihost import broadcast_bytes
+
+            hit = broadcast_bytes(b"1" if hit else b"0", 1) == b"1"
+        return hit
 
     last_m = None
     for epoch in range(tcfg.epochs):
@@ -185,13 +208,13 @@ def run_training(preset: str, csv_path: str | None = None,
                                           device=device):
             # metrics stay on the device except where a number is logged
             last_m = trainer.train_step(x, y, seg=seg, sync=False)
-            if log_every and trainer.step % log_every == 0:
+            if main and log_every and trainer.step % log_every == 0:
                 norm = (f" grad_norm={float(last_m['grad_norm']):.4f}"
                         if "grad_norm" in last_m else "")
                 log_fn(f"[{preset}] epoch {epoch + 1}/{tcfg.epochs} "
                        f"step {trainer.step}: "
                        f"loss={float(last_m['loss']):.4f}{norm}")
-            if cadence.should_save(trainer.step):
+            if due(trainer.step):
                 save("latest")
         save(f"ep{epoch + 1}")
     save("final")

@@ -1,8 +1,8 @@
 """The trainer: next-token CE with PAD masked, gradient accumulation and
 AdamW with optax's arithmetic.
 
-Port of ``eamg_tpu/train/trainer.py`` for one device (the mesh modes wait
-for the parallel port):
+Port of ``eamg_tpu/train/trainer.py``, on one device or on a
+(data, model) mesh of ranks (``parallel/mesh.py``):
 - ``TrainConfig`` and ``reference_preset``: the four reference trainers'
   recipes and the paper's (AdamW beta2 0.95, clip 1.0, warmup + cosine);
 - the losses: ``masked_ce_sums`` (sums, so micro-batches accumulate before
@@ -18,7 +18,21 @@ for the parallel port):
   becomes a loop that adds ``grad * count`` and divides by the total
   count, so the step equals one batch of all the rows; the update is in
   place (JAX donates the buffers) and ``train_step(sync=False)`` returns
-  device tensors without waiting for the device.
+  device tensors without waiting for the device;
+- the mesh modes (``Trainer(..., mesh=)``, JAX's ``TrainConfig.tp`` and
+  ``fsdp``): every rank reads the same global batch and takes its rows of
+  each micro-batch (DP); its loss is its CE sum over the micro-batch's
+  GLOBAL count of non-PAD targets, and the step's gradient is summed over
+  the data group with one all_reduce before the division by the global
+  count, as JAX's single fused all-reduce. ``tp``: the Megatron forward on
+  this rank's heads, FF columns, experts and vocabulary rows
+  (``models/gpt.py``, ``tp=``). ``fsdp``: params and both moments stay
+  split over the data group as ``param_pspecs(fsdp_data=)`` says; the
+  weights are gathered for the step (one all_gather), the gradients
+  reduce-scattered, and Adam runs on the block. The clip's norm counts
+  each block once (``ShardPlan.global_norm``). At world size 1 the mesh
+  step runs the plain step's arithmetic: its losses and params are
+  bit-equal to ``Trainer(mesh=None)``'s.
 
 The forward is ``models/gpt.py::forward_hidden_train`` (JAX's XLA
 branches, plain PyTorch under autograd); it never reaches a kernel.
@@ -33,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..models.gpt import (GPTConfig, _linear, forward_hidden_train,
+from ..models.gpt import (GPTConfig, _head, forward_hidden_train,
                           forward_hidden_with_aux)
 from ..utils.device import resolve_device
 from .prefetch import to_device
@@ -53,8 +67,9 @@ class TrainConfig:
     warmup_steps: int = 0
     total_steps: int | None = None  # for cosine decay
     schedule: str = "constant"    # "constant" | "warmup_cosine"
-    tp: bool = False              # tensor parallel: not in the port yet
-    fsdp: bool = False            # ZeRO/FSDP: not in the port yet
+    tp: bool = False              # tensor-parallel params over 'model'
+    # ZeRO/FSDP: params and Adam moments split over 'data' too
+    fsdp: bool = False
     # head + CE per ``loss_chunk`` positions (None = all positions at once)
     loss_chunk: int | None = None
     # weight of the MoE load-balance loss
@@ -115,6 +130,12 @@ def tree_map(fn, tree):
 
 
 # ------------------------------------------------------------ optimizer
+
+def global_norm(grads: list) -> torch.Tensor:
+    """The L2 norm of all the leaves together, as optax's
+    ``clip_by_global_norm`` takes it (a device scalar)."""
+    return torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+
 
 def _f32(x) -> float:
     return float(np.float32(x))
@@ -179,14 +200,15 @@ class AdamW:
                 "nu": [torch.zeros_like(p) for p in leaves]}
 
     @torch.no_grad()
-    def update(self, grads: list, state: dict, params: list) -> dict:
+    def update(self, grads: list, state: dict, params: list,
+               norm_fn=global_norm) -> dict:
         """One step on ``params`` and ``state`` in place -> metrics (the
-        global norm as a device scalar when clipping)."""
+        global norm as a device scalar when clipping; ``norm_fn`` takes the
+        gradient's blocks to it on a mesh)."""
         t = self.tcfg
         metrics = {}
         if t.clip_norm:
-            norm = torch.stack(torch._foreach_norm(grads)).square().sum() \
-                .sqrt()
+            norm = norm_fn(grads)
             keep = norm < t.clip_norm
             grads = [torch.where(keep, g, g / norm * t.clip_norm)
                      for g in grads]
@@ -248,41 +270,48 @@ def masked_ce_sums(logits: torch.Tensor, y: torch.Tensor, pad_id: int):
     return total, (y != pad_id).sum()
 
 
-def _head(params, h):
-    return _linear(h.float(), params["head"]["w"], params["head"]["b"])
-
-
-def loss_fn(params: dict, x, y, cfg: GPTConfig, pad_id: int):
-    """Next-token CE, PAD-masked -> (mean loss, count). The count is at
-    least 1, as JAX returns it: an all-PAD micro-batch weighs 1 in the
-    step's accumulation, with a loss and a gradient of 0."""
-    total, count = masked_ce_sums(
-        _head(params, forward_hidden_train(params, x, cfg)), y, pad_id)
-    count = count.clamp(min=1)
+def _mean(total, count, y, pad_id, global_count=None):
+    """-> (total / count, count): the count of non-PAD targets (the
+    micro-batch's global one on a mesh), at least 1, as JAX returns it:
+    an all-PAD micro-batch weighs 1 in the step's accumulation, with a
+    loss and a gradient of 0."""
+    count = (count if global_count is None else global_count).clamp(min=1)
     return total / count, count
 
 
-def loss_fn_packed(params: dict, x, y, seg, cfg: GPTConfig, pad_id: int):
+def loss_fn(params: dict, x, y, cfg: GPTConfig, pad_id: int, tp=None,
+            count=None):
+    """Next-token CE, PAD-masked -> (mean loss, count). On a mesh ``tp``
+    is the model group's share and ``count`` the micro-batch's global
+    count (this rank's rows' CE sum over it)."""
+    total, local = masked_ce_sums(
+        _head(params, forward_hidden_train(params, x, cfg, tp=tp), tp), y,
+        pad_id)
+    return _mean(total, local, y, pad_id, count)
+
+
+def loss_fn_packed(params: dict, x, y, seg, cfg: GPTConfig, pad_id: int,
+                   tp=None, count=None):
     """CE over packed rows: block-diagonal attention and per-segment
     positions from ``seg``; boundary targets arrive masked to PAD."""
-    h = forward_hidden_train(params, x, cfg, seg=seg)
-    total, count = masked_ce_sums(_head(params, h), y, pad_id)
-    count = count.clamp(min=1)
-    return total / count, count
+    h = forward_hidden_train(params, x, cfg, seg=seg, tp=tp)
+    total, local = masked_ce_sums(_head(params, h, tp), y, pad_id)
+    return _mean(total, local, y, pad_id, count)
 
 
-def _ce_chunk(w, b, hc, yc, pad_id):
-    return masked_ce_sums(_linear(hc.float(), w, b), yc, pad_id)[0]
+def _ce_chunk(w, b, hc, yc, pad_id, tp=None):
+    return masked_ce_sums(_head({"head": {"w": w, "b": b}}, hc, tp), yc,
+                          pad_id)[0]
 
 
 def loss_fn_chunked(params: dict, x, y, cfg: GPTConfig, pad_id: int,
-                    chunk: int, seg=None):
+                    chunk: int, seg=None, tp=None, count=None):
     """The same CE with the head and log-softmax run ``chunk`` positions at
     a time, each chunk recomputed in the backward pass
     (``torch.utils.checkpoint``, as ``jax.checkpoint`` over JAX's scan):
     the logits of one chunk exist at a time. T is padded to a multiple of
     the chunk with PAD targets."""
-    h = forward_hidden_train(params, x, cfg, seg=seg)    # [B, T, D]
+    h = forward_hidden_train(params, x, cfg, seg=seg, tp=tp)  # [B, T, D]
     T = h.shape[1]
     pad = (-T) % chunk
     y = y.long()
@@ -293,23 +322,23 @@ def loss_fn_chunked(params: dict, x, y, cfg: GPTConfig, pad_id: int,
     total = torch.zeros((), device=h.device)
     for s in range(0, T + pad, chunk):
         total = total + checkpoint(_ce_chunk, w, b, h[:, s:s + chunk],
-                                   y[:, s:s + chunk], pad_id,
+                                   y[:, s:s + chunk], pad_id, tp,
                                    use_reentrant=False)
-    count = (y != pad_id).sum().clamp(min=1)
-    return total / count, count
+    return _mean(total, (y != pad_id).sum(), y, pad_id, count)
 
 
 def loss_fn_moe(params: dict, x, y, cfg: GPTConfig, pad_id: int,
-                aux_weight: float):
+                aux_weight: float, tp=None, count=None, dp=None):
     """CE plus ``aux_weight`` x the MoE layers' mean load-balance loss
-    (their capacity-bounded dispatch) -> (loss, count)."""
-    h, aux = forward_hidden_with_aux(params, x, cfg)
-    total, count = masked_ce_sums(_head(params, h), y, pad_id)
-    count = count.clamp(min=1)
-    return total / count + aux_weight * aux, count
+    (their capacity-bounded dispatch) -> (loss, count). ``dp``: the data
+    group of a mesh, over whose tokens the load-balance loss is taken."""
+    h, aux = forward_hidden_with_aux(params, x, cfg, tp=tp, dp=dp)
+    total, local = masked_ce_sums(_head(params, h, tp), y, pad_id)
+    loss, count = _mean(total, local, y, pad_id, count)
+    return loss + aux_weight * aux, count
 
 
-def _loss_for(cfg: GPTConfig, tcfg: TrainConfig):
+def _loss_for(cfg: GPTConfig, tcfg: TrainConfig, tp=None, dp=None):
     """The loss of JAX's step: with MoE layers and a positive aux weight
     ``loss_fn_moe`` (neither the chunked head nor packed rows with it, as
     in JAX); an MoE model with weight 0 trains through the pointwise path
@@ -321,18 +350,20 @@ def _loss_for(cfg: GPTConfig, tcfg: TrainConfig):
     if moe and tcfg.pack:
         raise ValueError("packed rows with the MoE aux loss are unsupported")
     if moe:
-        return lambda p, x, y, s: loss_fn_moe(p, x, y, cfg, tcfg.pad_id,
-                                              tcfg.moe_aux_weight)
+        return lambda p, x, y, s, c: loss_fn_moe(
+            p, x, y, cfg, tcfg.pad_id, tcfg.moe_aux_weight, tp, c, dp)
     if tcfg.loss_chunk:
-        return lambda p, x, y, s: loss_fn_chunked(
-            p, x, y, cfg, tcfg.pad_id, tcfg.loss_chunk, seg=s)
+        return lambda p, x, y, s, c: loss_fn_chunked(
+            p, x, y, cfg, tcfg.pad_id, tcfg.loss_chunk, seg=s, tp=tp,
+            count=c)
     if tcfg.pack:
-        return lambda p, x, y, s: loss_fn_packed(p, x, y, s, cfg,
-                                                 tcfg.pad_id)
-    return lambda p, x, y, s: loss_fn(p, x, y, cfg, tcfg.pad_id)
+        return lambda p, x, y, s, c: loss_fn_packed(p, x, y, s, cfg,
+                                                    tcfg.pad_id, tp, c)
+    return lambda p, x, y, s, c: loss_fn(p, x, y, cfg, tcfg.pad_id, tp, c)
 
 
-def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None):
+def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None,
+                    plan=None, tp=None):
     """-> step(params, opt_state, x, y, seg=None) -> metrics, updating
     ``params`` (a tree of tensors) and ``opt_state`` in place.
 
@@ -341,20 +372,33 @@ def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None):
     non-PAD targets (at least 1, as JAX counts them) and the sum divided
     by the total count, so the step equals one batch of accum * micro
     rows; metrics are device tensors: {"loss", "tokens"} (and "grad_norm"
-    when clipping)."""
+    when clipping).
+
+    On a mesh (``plan``, a ``parallel.mesh.ShardPlan``; ``tp`` the model
+    group's ``TensorParallel`` under ``tcfg.tp``) ``params`` are this
+    rank's blocks and x, y the GLOBAL batch: the same loop runs on this
+    rank's rows with the global counts, then ``plan`` sums the gradient
+    and the loss over the data group before the division."""
     optimizer = optimizer or make_optimizer(tcfg)
-    lfn = _loss_for(cfg, tcfg)
+    dp = plan.data_group if plan is not None and plan.d > 1 else None
+    lfn = _loss_for(cfg, tcfg, tp, dp)
 
     def step(params, opt_state, x, y, seg=None):
         leaves = tree_leaves(params)
-        live = [p.detach().requires_grad_() for p in leaves]
+        work = leaves if plan is None else plan.gather_step(leaves)
+        live = [p.detach().requires_grad_() for p in work]
         tree = tree_unflatten(params, live)
+        counts = None
+        if plan is not None:
+            counts = (y != tcfg.pad_id).sum(dim=(1, 2))
+            x, y, seg = plan.rows(x), plan.rows(y), plan.rows(seg)
         acc = None
         loss_sum = torch.zeros((), device=x.device)
         count_sum = torch.zeros((), dtype=torch.int64, device=x.device)
         for i in range(x.shape[0]):
             loss, count = lfn(tree, x[i], y[i],
-                              None if seg is None else seg[i])
+                              None if seg is None else seg[i],
+                              None if counts is None else counts[i])
             grads = torch.autograd.grad(loss, live)
             with torch.no_grad():
                 weighted = torch._foreach_mul(list(grads), count.float())
@@ -365,8 +409,12 @@ def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None):
                 loss_sum = loss_sum + loss.detach() * count
                 count_sum = count_sum + count
         with torch.no_grad():
+            norm_fn = global_norm
+            if plan is not None:
+                acc, loss_sum = plan.reduce_grads(acc, loss_sum[None])
+                loss_sum, norm_fn = loss_sum[0], plan.global_norm
             grads = torch._foreach_div(acc, count_sum.float())
-        metrics = optimizer.update(grads, opt_state, leaves)
+        metrics = optimizer.update(grads, opt_state, leaves, norm_fn)
         metrics.update(loss=loss_sum / count_sum, tokens=count_sum)
         return metrics
 
@@ -374,43 +422,78 @@ def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None):
 
 
 class Trainer:
-    """Owns params (f32 leaves, updated in place) and the optimizer state
-    on one device; feeds [accum, micro, T] batches to the step. ``device``
-    None means the card (raises without one). The mesh modes (JAX's
-    ``mesh``, ``tp``, ``fsdp``) are not in the port yet."""
+    """Owns params (f32 leaves, updated in place) and the optimizer state;
+    feeds [accum, micro, T] batches to the step. ``device`` None means the
+    card (raises without one). ``mesh``: a (data, model) ``DeviceMesh``
+    (``parallel.mesh.make_mesh``); the params are then this rank's blocks
+    (``tcfg.tp``, ``tcfg.fsdp``), every rank feeds the same global batch,
+    and :meth:`export_params` / :meth:`opt_state_tree` assemble the whole
+    trees (collectives: every rank calls them). Without a mesh ``tp`` and
+    ``fsdp`` change nothing, as in JAX."""
 
     def __init__(self, cfg: GPTConfig, tcfg: TrainConfig, params: dict,
-                 device=None):
-        if tcfg.tp or tcfg.fsdp:
-            raise NotImplementedError("tensor-parallel and FSDP training "
-                                      "are not in the port yet")
+                 device=None, mesh=None):
         self.cfg, self.tcfg = cfg, tcfg
         self.device = resolve_device(device)
         self.optimizer = make_optimizer(tcfg)
+        self.mesh, self.plan, self.tp = mesh, None, None
         # a copy of the caller's tree: the step updates it in place
         self.params = tree_map(
             lambda p: torch.as_tensor(p).detach().to(self.device).clone(),
             params)
+        if mesh is not None:
+            from ..parallel.collectives import tensor_parallel
+            from ..parallel.mesh import ShardPlan
+
+            self.plan = ShardPlan(self.params, mesh, tp=tcfg.tp,
+                                  fsdp=tcfg.fsdp,
+                                  heads=(cfg.n_head, cfg.kv_heads))
+            self.params = self.plan.shard(self.params)
+            if tcfg.tp:
+                self.tp = tensor_parallel(cfg, self.plan.model_group)
         self.opt_state = self.optimizer.init(tree_leaves(self.params))
-        self.step_fn = make_train_step(cfg, tcfg, self.optimizer)
+        self.step_fn = make_train_step(cfg, tcfg, self.optimizer, self.plan,
+                                       self.tp)
         self.step = 0
+
+    def _blocks(self, tree) -> list:
+        """This rank's blocks of the leaves of a whole tree, on the device."""
+        tree = tree_map(lambda a: torch.as_tensor(a).to(self.device), tree)
+        if self.plan is not None:
+            tree = self.plan.shard(tree)
+        return [t.clone() for t in tree_leaves(tree)]
 
     def load_opt_state(self, state: dict) -> None:
         """Take an optimizer state ``{"count", "mu", "nu"}`` whose moments
-        are trees shaped like the params (``utils/checkpoint.py``)."""
-        self.opt_state = {
-            "count": int(state["count"]),
-            "mu": [torch.as_tensor(m).to(self.device).clone()
-                   for m in tree_leaves(state["mu"])],
-            "nu": [torch.as_tensor(v).to(self.device).clone()
-                   for v in tree_leaves(state["nu"])]}
+        are whole trees shaped like the params (``utils/checkpoint.py``);
+        on a mesh each rank keeps its blocks."""
+        self.opt_state = {"count": int(state["count"]),
+                          "mu": self._blocks(state["mu"]),
+                          "nu": self._blocks(state["nu"])}
+
+    def _whole(self, trees: list) -> list:
+        if self.plan is None:
+            return trees
+        return self.plan.assemble(trees)
+
+    def export_params(self) -> dict:
+        """The whole params tree (JAX's layout; on a mesh assembled from
+        every rank's blocks, on the CPU)."""
+        return self._whole([self.params])[0]
 
     def opt_state_tree(self) -> dict:
-        """The optimizer state with its moments as trees shaped like the
-        params (what a checkpoint stores)."""
-        return {"count": self.opt_state["count"],
-                "mu": tree_unflatten(self.params, self.opt_state["mu"]),
-                "nu": tree_unflatten(self.params, self.opt_state["nu"])}
+        """The optimizer state with its moments as whole trees shaped like
+        the params (what a checkpoint stores)."""
+        return self.checkpoint_trees()[1]
+
+    def checkpoint_trees(self) -> tuple:
+        """(whole params, whole optimizer state tree), on a mesh in one
+        gather: what a checkpoint of this trainer stores."""
+        mu = tree_unflatten(self.params, self.opt_state["mu"])
+        nu = tree_unflatten(self.params, self.opt_state["nu"])
+        params, mu, nu = self._whole([self.params, mu, nu])
+        return params, {"count": self.opt_state["count"], "mu": mu,
+                        "nu": nu}
 
     def train_step(self, x, y, seg=None, sync: bool = True):
         """x, y (and seg with TrainConfig.pack): [accum, micro, T] int

@@ -45,20 +45,38 @@ def cfg_json(cfg) -> np.ndarray:
 def run_worker(task: str, inputs: dict, tmp_dir: Path,
                timeout: int = 600) -> dict:
     """Run the torch side of ``task`` in a subprocess; returns its arrays."""
+    return start_worker(task, inputs, tmp_dir, timeout)()
+
+
+def start_worker(task: str, inputs: dict, tmp_dir: Path,
+                 timeout: int = 600):
+    """Start the torch side of ``task`` in a subprocess -> a function that
+    waits for it and returns its arrays (the caller computes JAX's side
+    meanwhile)."""
     src, dst = tmp_dir / f"{task}_in.npz", tmp_dir / f"{task}_out.npz"
     np.savez(src, **inputs)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("XLA_", "JAX_"))}
     env["PYTHONPATH"] = str(REPO)
     env["OMP_NUM_THREADS"] = "2"
-    proc = subprocess.run([sys.executable, str(WORKER), task, str(src),
-                           str(dst)], cwd=REPO, env=env, capture_output=True,
-                          text=True, timeout=timeout)
-    assert proc.returncode == 0, (
-        f"torch worker {task} failed:\n{proc.stdout[-3000:]}\n"
-        f"{proc.stderr[-6000:]}")
-    with np.load(dst, allow_pickle=False) as z:
-        return {k: z[k] for k in z.files}
+    proc = subprocess.Popen([sys.executable, str(WORKER), task, str(src),
+                             str(dst)], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    def result() -> dict:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        assert proc.returncode == 0, (
+            f"torch worker {task} failed:\n{out[-3000:]}\n{err[-6000:]}")
+        with np.load(dst, allow_pickle=False) as z:
+            return {k: z[k] for k in z.files}
+
+    return result
 
 
 def perturbed_params(cfg, rng, key: int = 7):

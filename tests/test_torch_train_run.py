@@ -30,9 +30,12 @@ Checked, with the tolerance and its reason:
   perplexity exponentiates the loss); the obedience fractions in [0, 1];
 - ``cli train --device cpu`` then the port's ``cli generate --checkpoint
   .../final`` writes MThd and RIFF....WAVE, as JAX's
-  tests/test_cli_tools.py does with its own CLI; ``--mesh-data 2``,
-  ``--mesh-model 2`` and ``--fsdp`` exit 2 naming the flag (``--experts``
-  trains: tests/test_torch_variants.py holds it to JAX);
+  tests/test_cli_tools.py does with its own CLI; ``--mesh-data 2`` and
+  ``--mesh-model 2`` on the card (the default device) of a host with no
+  card exit 2 with JAX's "mesh DxM > n devices", and ``--fsdp`` with a
+  mesh of one trains as one device (the mesh modes themselves:
+  tests/test_torch_mesh.py; ``--experts`` trains:
+  tests/test_torch_variants.py holds it to JAX);
 - every kernel wrapper raises when an input requires grad while autograd
   records (on the CPU branch too), runs under ``torch.no_grad()``, and the
   serving forward with params that require grad gives the same logits;
@@ -80,9 +83,15 @@ DEMO_EXACT = ("heldout_token_coverage", "heldout_songs_in_vocab",
               "heldout_rows", "train_rows", "epochs", "steps", "corpus",
               "geometry", "note")
 DEMO_LOSS_RTOL, DEMO_PPL_RTOL = 5e-3, 2e-2
-REFUSALS = {"mesh_data": ["train", "--device", "cpu", "--mesh-data", "2"],
-            "mesh_model": ["train", "--device", "cpu", "--mesh-model", "2"],
-            "fsdp": ["train", "--device", "cpu", "--fsdp"]}
+_TINY = ["--preset", "mini", "--synthetic", "16", "--epochs", "1",
+         "--log-every", "0", "--d-model", "64", "--seq-len", "64"]
+# argv -> (exit code, what stderr says)
+REFUSALS = {"mesh_data": (["train", "--mesh-data", "2", *_TINY], 2,
+                          "mesh 2x1 > 0 devices"),
+            "mesh_model": (["train", "--mesh-model", "2", *_TINY], 2,
+                           "mesh 1x2 > 0 devices"),
+            "fsdp": (["train", "--device", "cpu", "--fsdp", *_TINY], 0,
+                     "")}
 WRAPPERS = ("flash_attention", "fused_ffn", "flash_decode_sp",
             "flash_decode", "flash_decode_vmem", "flash_decode_fold",
             "flash_decode_fold2", "flash_decode_fold3",
@@ -138,7 +147,8 @@ def results(tmp_path_factory):
                                log_fn=lambda m: None)
     inp["demo/spec"] = np.asarray(json.dumps(DEMO))
     inp["demo/dir"] = np.asarray(str(tmp / "port_demo"))
-    inp["cli/refusals"] = np.asarray(json.dumps(REFUSALS))
+    inp["cli/refusals"] = np.asarray(json.dumps(
+        {name: argv for name, (argv, _, _) in REFUSALS.items()}))
     got = run_worker("train_run", inp, tmp, timeout=600)
     return got, ref, tmp
 
@@ -245,9 +255,10 @@ def test_cli_train_then_generate(results):
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_cli_train_refuses_what_is_not_in_the_port(results, name):
     got, _, _ = results
-    assert int(got[f"cli/refuse/{name}/code"]) == 2
-    flag = "--" + name.replace("_", "-")
-    assert flag in str(got[f"cli/refuse/{name}/stderr"])
+    _, code, says = REFUSALS[name]
+    assert int(got[f"cli/refuse/{name}/code"]) == code
+    stderr = str(got[f"cli/refuse/{name}/stderr"])
+    assert says in stderr and "not yet in the PyTorch port" not in stderr
 
 
 # ----------------------------------------------------------- grad refusal

@@ -2794,7 +2794,8 @@ def _demo_checks(inp, out):
 
 def _train_cli_checks(inp, out, tmp):
     """cli train on the CPU, cli generate from its final checkpoint, and
-    the refusals of what is not in the port yet."""
+    the mesh flags: a mesh larger than the host's cards (none) refused,
+    ``--fsdp`` with a mesh of one trained."""
     from eamg_tpu_torch import cli
 
     ck = f"{tmp}/cli_ckpt"
@@ -2819,8 +2820,10 @@ def _train_cli_checks(inp, out, tmp):
     refusals = json.loads(str(inp["cli/refusals"]))
     for name, argv in refusals.items():
         err = io.StringIO()
-        with contextlib.redirect_stderr(err):
-            out[f"cli/refuse/{name}/code"] = np.asarray(cli.main(argv))
+        with contextlib.redirect_stderr(err), \
+                contextlib.redirect_stdout(io.StringIO()):
+            out[f"cli/refuse/{name}/code"] = np.asarray(cli.main(
+                argv + ["--out", f"{tmp}/refuse_{name}"]))
         out[f"cli/refuse/{name}/stderr"] = np.asarray(err.getvalue())
 
 
@@ -2917,6 +2920,7 @@ TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "top
 
 def main():
     from torch_port_emotion import EMOTION_TASKS
+    from torch_port_parallel import PARALLEL_TASKS
     from torch_port_spec2 import SPEC2_TASKS
     from torch_port_tools import TOOLS_TASKS
     from torch_port_variants import VARIANTS_TASKS
@@ -2925,6 +2929,7 @@ def main():
     TASKS.update(SPEC2_TASKS)
     TASKS.update(TOOLS_TASKS)
     TASKS.update(VARIANTS_TASKS)
+    TASKS.update(PARALLEL_TASKS)
     task, src, dst = sys.argv[1:4]
     torch.manual_seed(0)
     out: dict = {}
