@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,variants
     python3 chip_smoke.py --phases build,emotion
     python3 chip_smoke.py --phases build,parallel
+    python3 chip_smoke.py --phases build,tp_serve
 
 Phases:
  1. the card's name and power limit (nvidia-smi);
@@ -336,6 +337,25 @@ Phases:
     -m eamg_tpu_torch.parallel.dryrun --world 1` (its main, in this process:
     a world of 1 runs where it is called) prints its line and leaves its
     group.
+ 18. tp_serve: serving on tensor-parallel params and Orbax checkpoints,
+    inside a world-1 NCCL group made and left within the phase (larger
+    groups are held to JAX on the CPU by tests/test_torch_sharded_engine.py).
+    (a) the continuous engine (8 slots, chunk 128) on demo_ckpt_a's params
+    sharded for a model group of 1 (Generator(tp=)), its graphs captured by
+    a warm-up request and replayed, against the default engine on the
+    unsharded params: a burst of TP_BURST staggered requests with fixed
+    seeds gives the same token streams on both; the launches of K1, K2,
+    row 8 and K4 over the TP burst (counted on the kernels line under
+    "tp_serve"), row 8 from replays only; (b) generate_kv_ragged(tp=) on
+    the same blocks against the unsharded ragged decode, 8 rows: the same
+    tokens; (c) rows 8 and 11 at the engine step's shape (q [8, 1, .], M
+    511, t FOLD_T) at the rank shapes of demo_ckpt_a on groups of 2 and 4
+    (TP_RANK_SHAPES: H 4 Hkv 1, H 2 Hkv 1), bf16 and f32, against their
+    plain versions; (d) demo_ckpt_a written as an Orbax directory by the
+    port (utils/orbax_io.py) into a temporary directory and read back
+    bit-equal (the seconds to write and to restore logged), then
+    pipeline_from_checkpoint on it answering one request (seed 7) with the
+    WAV bytes demo_ckpt_a's pickle directory gives.
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -2551,12 +2571,28 @@ def _device_kernels(torch, fn) -> list:
     return _kernel_order(prof)
 
 
+def _records(prof) -> tuple:
+    """A torch.profiler session's raw records, read in one pass: (the
+    host's calls, a count by name; the device's activities as (name,
+    start ns, duration ns) in the order the card started them, user
+    annotations left out). ``prof.events()`` and ``key_averages()`` would
+    build a tree of Python objects over the same records first, which
+    took most of the script's trace seconds."""
+    host, device = collections.Counter(), []
+    for e in prof.profiler.kineto_results.events():
+        kind = e.device_type().name
+        if kind == "CPU":
+            host[e.name()] += 1
+        elif kind == "CUDA" and not e.is_user_annotation():
+            device.append((e.name(), e.start_ns(), e.duration_ns()))
+    device.sort(key=lambda r: r[1])
+    return host, device
+
+
 def _kernel_order(prof) -> list:
     """The device kernels of a torch.profiler session, in the order the
     card started them (one stream)."""
-    return [e.name for e in sorted(
-        (e for e in prof.events() if e.device_type.name == "CUDA"),
-        key=lambda e: e.time_range.start)]
+    return [name for name, _, _ in _records(prof)[1]]
 
 
 # the sampler's three ops after a top-k threshold, by the names of
@@ -2694,18 +2730,17 @@ def _trace(torch, tag: str, work) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000
     replays = graphs.tally()["replays"] - tally0["replays"]
+    calls, device = _records(prof)
     # the host's launch calls: kernels issued one by one, and graphs
-    host = collections.Counter(
-        e.name for e in prof.events() if e.device_type.name == "CPU"
-        and e.name.startswith(HOST_LAUNCH_APIS))
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0 and e.device_type.name == "CUDA":
-            rows.append((e.key, us / 1000, e.count))
-    rows.sort(key=lambda r: -r[1])
+    host = collections.Counter({k: n for k, n in calls.items()
+                                if k.startswith(HOST_LAUNCH_APIS)})
+    # by kernel: device ms and launches
+    by_name = collections.defaultdict(lambda: [0, 0])
+    for name, _, ns in device:
+        by_name[name][0] += ns
+        by_name[name][1] += 1
+    rows = sorted(((k, ns / 1e6, n) for k, (ns, n) in by_name.items()
+                   if ns > 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     groups = {"port kernels": _port_kernel_names(),
               "gemm": ("gemm", "xmma", "cutlass", "cublas", "nvjet")}
@@ -2717,7 +2752,7 @@ def _trace(torch, tag: str, work) -> dict:
     launches = sum(r[2] for r in rows)
     # the five kernels the card ran after each K4 launch (one run of the
     # sampler's three ops is five), and how often each of those ops ran
-    order = _kernel_order(prof)
+    order = [name for name, _, _ in device]
     after_k4 = collections.Counter(
         tuple(order[i + 1:i + 6]) for i, name in enumerate(order)
         if any(n in name for n in K4_KERNELS))
@@ -7686,9 +7721,251 @@ def serve_parallel(torch, card: str, ckpt) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- tp_serve
+
+TP_BURST = 8
+TP_BURST_SEEDS = tuple(range(300, 300 + TP_BURST))
+TP_SERVE_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_fold_sp",
+                    "kth_value")
+# a rank's heads of demo_ckpt_a (H 8, Hkv 2) on model groups of 2 and 4: a
+# K/V head each, shared by 2 ranks at 4
+TP_RANK_SHAPES = {2: (4, 1), 4: (2, 1)}
+
+
+def _tp_prompts(vocab) -> list:
+    """TP_BURST prompt rows of demo_ckpt_a's vocabulary, of lengths 3-10."""
+    ids = sorted(vocab.values())
+    return [[ids[(17 * i + 5 * j) % len(ids)] for j in range(3 + i)]
+            for i in range(TP_BURST)]
+
+
+def _engine_burst(eng, prompts: list) -> tuple:
+    """The burst on ``eng``, staggered (a request every 20 ms) -> (the
+    rows, the burst's seconds)."""
+    rows = {}
+
+    def hit(i):
+        time.sleep(0.02 * i)
+        rows[i] = eng.submit(prompts[i], seed=TP_BURST_SEEDS[i], timeout=600)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=hit, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    secs = time.perf_counter() - t0
+    if len(rows) != len(prompts):
+        raise AssertionError("tp_serve: an engine request did not return")
+    return [rows[i] for i in range(len(prompts))], secs
+
+
+def _tp_engine(torch, ckpt, params, blocks, tp) -> tuple:
+    """(a) and (b). -> (record, the TP burst's launch counts)."""
+    from eamg_tpu_torch.decode import Generator, graphs
+    from eamg_tpu_torch.decode.ragged import generate_kv_ragged
+    from eamg_tpu_torch.ops import _build
+    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
+    from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.utils import prng
+
+    cfg, vocab = ckpt["cfg"], Vocab(ckpt["vocab"])
+    prompts = _tp_prompts(ckpt["vocab"])
+    rows, secs, out = {}, {}, {}
+    counts = replayed = None
+    for name, p, t in (("tp", blocks, tp), ("plain", params, None)):
+        eng = ContinuousBatcher(Generator(p, cfg, vocab, device="cuda",
+                                          tp=t), slots=ENGINE_SLOTS,
+                                chunk=128)
+        try:
+            eng.submit(prompts[0], seed=1, timeout=600)    # captures
+            torch.cuda.synchronize()
+            if name == "tp":
+                _build.reset_launch_counts()
+                replays0 = graphs.tally()["replays"]
+            rows[name], secs[name] = _engine_burst(eng, prompts)
+            torch.cuda.synchronize()
+            if name == "tp":
+                counts = _build.launch_counts()
+                replayed = _build.replayed_counts()
+                _require_graphs("tp_serve engine", "flash_decode_fold_sp",
+                                counts, replayed,
+                                graphs.tally()["replays"] - replays0)
+        finally:
+            eng.close()
+    same = rows["tp"] == rows["plain"]
+    n_tok = sum(len(r) - len(q) for r, q in zip(rows["tp"], prompts))
+    log(f"[tp_serve engine] world 1, {TP_BURST} staggered requests, "
+        f"{n_tok} tokens: the unsharded engine's streams {same}; seconds "
+        f"tp {secs['tp']:.3f}, plain {secs['plain']:.3f}; launches "
+        f"{ {k: launched(k, counts) for k in TP_SERVE_KERNELS} }")
+    if not same:
+        raise AssertionError("tp_serve: the TP engine's rows differ from "
+                             "the unsharded engine's")
+    out["a_engine"] = {"tokens": n_tok, "seconds": secs, "same": same}
+
+    P = 16
+    prompt = torch.zeros((TP_BURST, P), dtype=torch.int64, device="cuda")
+    for i, q in enumerate(prompts):
+        prompt[i, :len(q)] = torch.tensor(q)
+    lens = [len(q) for q in prompts]
+    keys = prng.key_rows(TP_BURST_SEEDS)
+    got = {}
+    for name, p, t in (("tp", blocks, tp), ("plain", params, None)):
+        buf, pos = generate_kv_ragged(p, prompt, lens, keys, cfg, 256,
+                                      eos_id=vocab.get("[END_SEQUENCE]", -1),
+                                      tp=t)
+        got[name] = (buf.cpu(), pos.cpu())
+    same = all(torch.equal(a, b) for a, b in zip(got["tp"], got["plain"]))
+    log(f"[tp_serve ragged] generate_kv_ragged(tp=) {TP_BURST} rows to 256: "
+        f"the unsharded tokens {same}")
+    if not same:
+        raise AssertionError("tp_serve: generate_kv_ragged(tp=) differs")
+    out["b_ragged"] = {"rows": TP_BURST, "same": same}
+    return out, counts
+
+
+def _tp_fold_checks(torch) -> dict:
+    """(c): rows 8 and 11 at the rank shapes, the engine step's q, M and t,
+    against their plain versions (comparisons: not the phase's
+    launches)."""
+    from eamg_tpu_torch.ops import decode_fold
+
+    g = torch.Generator().manual_seed(23)
+    Dh, M, B = 64, 511, len(FOLD_T)
+    tf = torch.tensor(FOLD_T, dtype=torch.int32, device="cuda")
+    out = {}
+    for group, (H, Hkv) in TP_RANK_SHAPES.items():
+        for dt, dname in ((torch.float32, "float32"),
+                          (torch.bfloat16, "bfloat16")):
+            qkv = torch.randn((B, 1, (H + 2 * Hkv) * Dh), generator=g) \
+                .to(dt).cuda()
+            q = qkv[..., :H * Dh]                 # a view, as the engine's
+            kv = torch.randn((B, M, 2 * Hkv * Dh), generator=g).to(dt).cuda()
+            kv[0] = 0                             # a free slot
+            want = decode_fold.decode_attention_pm_plain(q, kv, tf, H)
+            want32 = decode_fold.decode_attention_pm_plain(
+                q.float(), kv.float(), tf, H)
+            for name in ("flash_decode_fold_sp", "flash_decode_fold3_sp"):
+                got = getattr(decode_fold, name)(q, kv, tf, H)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                rel = float((got.float() - want32).abs().max()
+                            / want32.abs().max())
+                tol = TOL[(name, dname)]
+                plan = decode_fold.sp_plan(M, Dh, H // Hkv, dt)
+                log(f"[tp_serve fold] group {group}: H {H} Hkv {Hkv} "
+                    f"{name} {dname}: max|err| {err:.3e} (tol {tol}), vs "
+                    f"f32 plain {rel:.3e} (tol {REL_TOL_F32}); plan "
+                    f"(by head, C) {plan}")
+                if not (err <= tol and rel <= REL_TOL_F32
+                        and got[0].abs().max().item() == 0.0):
+                    raise AssertionError(f"tp_serve: {name} at H {H} Hkv "
+                                         f"{Hkv} {dname}: {err}, {rel}")
+                out[f"g{group}/{name}/{dname}"] = err
+    return out
+
+
+def _tp_orbax(torch, ckpt) -> dict:
+    """(d): demo_ckpt_a through the port's Orbax writer and reader, then
+    served from the Orbax directory."""
+    import tempfile
+
+    from eamg_tpu_torch.serve.pipeline import (DEMO_CKPT_A,
+                                               pipeline_from_checkpoint)
+    from eamg_tpu_torch.utils import zstd
+    from eamg_tpu_torch.utils.orbax_io import (_walk, load_checkpoint_orbax,
+                                               save_checkpoint_orbax)
+
+    t0 = time.perf_counter()
+    zstd._lib()                   # g++ at first use; raises where it fails
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "a_orbax")
+        t0 = time.perf_counter()
+        save_checkpoint_orbax(path, ckpt["params"], ckpt["vocab"],
+                              ckpt["cfg"], step=ckpt["step"],
+                              extra=ckpt["extra"])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_checkpoint_orbax(path)
+        read_s = time.perf_counter() - t0
+        a, b = list(_walk(ckpt["params"])), list(_walk(back["params"]))
+        same = [k for k, _ in a] == [k for k, _ in b] and all(
+            u.dtype == v.dtype and torch.equal(u, v)
+            for (_, u), (_, v) in zip(a, b)) and back["cfg"] == ckpt["cfg"] \
+            and back["vocab"] == ckpt["vocab"]
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+        log(f"[tp_serve orbax] demo_ckpt_a as Orbax ({size} bytes, "
+            f"{len(a)} leaves): written in {write_s:.3f} s, restored in "
+            f"{read_s:.3f} s (the C++ decoder built in {build_s:.3f} s "
+            f"before), bit-equal {same}")
+        if not same:
+            raise AssertionError("tp_serve: the Orbax round trip of "
+                                 "demo_ckpt_a is not bit-equal")
+        ref = pipeline_from_checkpoint(DEMO_CKPT_A, device="cuda")
+        pipe = pipeline_from_checkpoint(path, device="cuda",
+                                        classifier=ref.classifier)
+        wav = {}
+        for name, pp in (("pickle", ref), ("orbax", pipe)):
+            res = pp.generate(BURST_TEXTS[0], seed=7, render_audio=True)
+            wav[name] = res.wav_bytes
+        same_wav = wav["pickle"] == wav["orbax"] and \
+            wav["orbax"][:4] == b"RIFF"
+        log(f"[tp_serve orbax] pipeline_from_checkpoint on the Orbax "
+            f"directory, seed 7: {len(wav['orbax'])} WAV bytes, the pickle "
+            f"directory's {same_wav}")
+        if not same_wav:
+            raise AssertionError("tp_serve: the Orbax directory's WAV "
+                                 "differs")
+    return {"bytes": size, "write_s": write_s, "restore_s": read_s,
+            "decoder_build_s": build_s, "wav_bytes": len(wav["orbax"])}
+
+
+def serve_tp(torch, card: str, ckpt) -> dict:
+    """Phase tp_serve: (a)-(d) of the module's docstring. -> the launch
+    counts of (a)'s TP burst."""
+    import torch.distributed as dist
+
+    from eamg_tpu_torch.parallel.collectives import tensor_parallel
+    from eamg_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    t0 = time.perf_counter()
+    out, secs = {"card": card}, {}
+    with _world_of_one(torch):
+        t = time.perf_counter()
+        params = _to_cuda(torch, ckpt["params"])
+        mesh = make_mesh(1, 1)
+        tp = tensor_parallel(ckpt["cfg"], mesh.get_group("model"))
+        blocks = shard_params(params, mesh, tp=True, cfg=ckpt["cfg"])
+        rec, counts = _tp_engine(torch, ckpt, params, blocks, tp)
+        out.update(rec)
+        del params, blocks
+        secs["ab_engine_ragged"] = time.perf_counter() - t
+    if dist.is_initialized():
+        raise AssertionError("tp_serve: the phase's group was not left")
+    t = time.perf_counter()
+    out["c_fold"] = _tp_fold_checks(torch)
+    secs["c_fold"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["d_orbax"] = _tp_orbax(torch, ckpt)
+    secs["d_orbax"] = time.perf_counter() - t
+    for name in TP_SERVE_KERNELS:
+        if launched(name, counts) <= 0:
+            raise AssertionError(f"tp_serve: {name} was not launched")
+    out["seconds"] = secs
+    out["phase_s"] = time.perf_counter() - t0
+    log(json.dumps({"tp_serve": out}))
+    log(f"[tp_serve] phase {out['phase_s']:.1f} s ({secs}); launches "
+        f"{counts}")
+    return counts
+
+
 PHASES = ("build", "kernels", "teacher", "solo", "coalesce", "stream", "b3",
           "spec", "spec2", "options", "batch", "train", "tools", "variants",
-          "emotion", "parallel")
+          "emotion", "parallel", "tp_serve")
 
 
 def main(argv=None) -> int:
@@ -7718,55 +7995,82 @@ def main(argv=None) -> int:
     from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A
     from eamg_tpu_torch.utils.checkpoint import load_checkpoint
 
+    phase_s = {}
+
+    @contextlib.contextmanager
+    def timed(name):
+        t0 = time.perf_counter()
+        yield
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+
     t_start = time.perf_counter()
     if "build" in phases:
-        t0 = time.perf_counter()
-        built = _build.build_all()
+        with timed("build"):
+            built = _build.build_all()
         log(f"[build] {len(built)} libraries built in "
-            f"{time.perf_counter() - t0:.1f} s: "
+            f"{phase_s['build']:.1f} s: "
             + ", ".join(f"{n} {s:.1f} s" for n, s in built.items()))
 
     ckpt = load_checkpoint(DEMO_CKPT_A)
     checks, counts, probes = {}, {}, {}
     if "kernels" in phases:
-        checks = kernel_checks(torch, ckpt["params"])
-        bit_identity(torch, ckpt["params"])
-        kernel_phases(torch, ckpt["params"])
-        spec_kernel_checks(torch)
+        with timed("kernels"):
+            checks = kernel_checks(torch, ckpt["params"])
+            bit_identity(torch, ckpt["params"])
+            kernel_phases(torch, ckpt["params"])
+            spec_kernel_checks(torch)
     if "teacher" in phases:
-        teacher_forced(torch, ckpt)
-        uncached_divisors(torch, ckpt)
+        with timed("teacher"):
+            teacher_forced(torch, ckpt)
+            uncached_divisors(torch, ckpt)
     if "solo" in phases:
-        counts["solo"], pipe = serve_solo(torch)
-        profile_solo(torch, pipe)
-        del pipe
+        with timed("solo"):
+            counts["solo"], pipe = serve_solo(torch)
+            profile_solo(torch, pipe)
+            del pipe
     if "coalesce" in phases:
-        counts["coalesce"], probes, _ = serve_coalesced(torch)
-        counts["window"] = serve_window(torch)
+        with timed("coalesce"):
+            counts["coalesce"], probes, _ = serve_coalesced(torch)
+            counts["window"] = serve_window(torch)
     if "stream" in phases:
-        counts.update(serve_stream(torch))
+        with timed("stream"):
+            counts.update(serve_stream(torch))
     if "b3" in phases:
-        counts.update(serve_b3(torch))
+        with timed("b3"):
+            counts.update(serve_b3(torch))
     if "spec" in phases:
-        counts.update(serve_spec(torch))
+        with timed("spec"):
+            counts.update(serve_spec(torch))
     if "spec2" in phases:
-        counts.update(serve_spec2(torch))
+        with timed("spec2"):
+            counts.update(serve_spec2(torch))
     if "options" in phases:
-        counts.update(serve_options(torch))
+        with timed("options"):
+            counts.update(serve_options(torch))
     if "batch" in phases:
-        counts["batch"] = batch_decode(torch)
-        counts["generate"] = cli_generate(torch)
+        with timed("batch"):
+            counts["batch"] = batch_decode(torch)
+            counts["generate"] = cli_generate(torch)
     if "train" in phases:
-        counts["train"] = serve_train(torch)
+        with timed("train"):
+            counts["train"] = serve_train(torch)
     if "tools" in phases:
-        counts["tools"] = serve_tools(torch, card)
+        with timed("tools"):
+            counts["tools"] = serve_tools(torch, card)
     if "variants" in phases:
-        counts["variants"] = serve_variants(torch, card)
+        with timed("variants"):
+            counts["variants"] = serve_variants(torch, card)
     if "emotion" in phases:
-        counts["emotion"] = serve_emotion(torch, card)
+        with timed("emotion"):
+            counts["emotion"] = serve_emotion(torch, card)
     if "parallel" in phases:
-        counts["parallel"] = serve_parallel(torch, card, ckpt)
-    log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s")
+        with timed("parallel"):
+            counts["parallel"] = serve_parallel(torch, card, ckpt)
+    if "tp_serve" in phases:
+        with timed("tp_serve"):
+            counts["tp_serve"] = serve_tp(torch, card, ckpt)
+    log(f"[done] phases {phases} in {time.perf_counter() - t_start:.1f} s; "
+        f"seconds a phase {phase_s}")
     if list(phases) != list(PHASES):
         log("chip_smoke: a partial run; no kernels line and no last line")
         return 0

@@ -8,6 +8,13 @@ bans and grammar constraints), the batch-1 speculative decodes
 ``Generator``) ``generate_ids_speculative``, beam search
 (``generate_ids_beam``, ``sample_beam``, grammar-constrained too),
 ``sample_kvcache``, ``sample`` and ``trim_at_eos``.
+
+``Generator(..., tp=)`` holds a rank's blocks of tensor-parallel params
+(``parallel/mesh.py::shard_params(tp=True)``) and its
+``parallel.collectives.TensorParallel``: ``generate_ids`` (the cached
+decode), the window batcher and the continuous engine read it from here.
+On a group of more than one rank the routes that take no ``tp`` yet (the
+uncached loop, speculation, Medusa, lookup and beams) raise.
 """
 
 from __future__ import annotations
@@ -32,6 +39,16 @@ def _bucket(n: int, sizes=(16, 32, 64, 128, 256, 512, 1024, 2048)) -> int:
     return n
 
 
+def _has_int8(tree) -> bool:
+    """Whether a param tree holds int8 ``{"q", "s"}`` weights."""
+    if isinstance(tree, dict):
+        return "q" in tree and "s" in tree or \
+            any(_has_int8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_int8(v) for v in tree)
+    return False
+
+
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -42,11 +59,18 @@ def _to_device(tree, device):
 
 class Generator:
     """Owns (params, cfg, vocab) on one device; reference-shaped sampling
-    calls. ``device`` None means CUDA (raises without a card)."""
+    calls. ``device`` None means CUDA (raises without a card). ``tp``: a
+    ``parallel.collectives.TensorParallel``, and ``params`` this rank's
+    blocks (the module's docstring); every rank of the group makes the
+    same calls."""
 
     def __init__(self, params: dict, cfg: GPTConfig, vocab: Vocab,
                  eos_token: str = END_TOKEN, pad_token: str = "[PAD]",
-                 device=None, eager: bool = False):
+                 device=None, eager: bool = False, tp=None):
+        if tp is not None and _has_int8(params):
+            raise ValueError("int8 weights on tensor-parallel params: the "
+                             "row-parallel products take float weights")
+        self.tp = tp
         self.device = resolve_device(device)
         # the cached decode replays CUDA graphs on the card; eager=True
         # issues its steps from the host, to compare the two (no served
@@ -57,6 +81,13 @@ class Generator:
         self.vocab = vocab
         self.eos_id = vocab.get(eos_token, -1)
         self.pad_id = vocab.get(pad_token, 0)
+
+    def _alone(self, what: str) -> None:
+        """Raise for a route with no tensor-parallel path on a group of
+        more than one rank."""
+        if self.tp is not None and self.tp.size > 1:
+            raise ValueError(f"{what} takes no tensor-parallel params yet "
+                             f"(a model group of {self.tp.size} ranks)")
 
     def max_supported_len(self, use_cache: bool = True) -> int:
         """Longest prompt + generation the positional table supports: the
@@ -106,8 +137,9 @@ class Generator:
             buf, pos = generate_kv(*args, **common,
                                    refeed_last_prompt=refeed_last_prompt,
                                    presplit_keys=presplit_keys,
-                                   eager=self.eager)
+                                   eager=self.eager, tp=self.tp)
         else:
+            self._alone("the uncached loop")
             buf, pos = generate_full(*args, **common)
         return buf[:, :pos].cpu().numpy().astype(np.int32)
 
@@ -143,6 +175,7 @@ class Generator:
         asserts. -> [1, n] ids."""
         from .speculative import generate_speculative
 
+        self._alone("draft speculation")
         assert draft.vocab.tok2id == self.vocab.tok2id, \
             "draft and target must share a vocabulary"
         max_len = max_len or min(self.cfg.seq_len, draft.cfg.seq_len)
@@ -172,6 +205,7 @@ class Generator:
         decode. Batch 1, corrected causal checkpoints. -> [1, n] ids."""
         from .speculative import generate_prompt_lookup
 
+        self._alone("prompt-lookup speculation")
         max_len, prompt = self._spec_prompt(
             "prompt-lookup speculation", prompt_ids, max_len, gamma)
         if prompt is None:
@@ -198,6 +232,7 @@ class Generator:
         ids."""
         from .medusa import generate_medusa
 
+        self._alone("medusa decoding")
         gamma = min(gamma, len(heads["blocks"]))
         max_len, prompt = self._spec_prompt("medusa decoding", prompt_ids,
                                             max_len, gamma)
@@ -222,6 +257,7 @@ class Generator:
         own FSM state."""
         from .beam import generate_beam, rank_beams
 
+        self._alone("beam search")
         max_len = min(max_len or self.cfg.seq_len, self.max_supported_len())
         p = len(prompt_ids)
         if p >= max_len:

@@ -29,6 +29,16 @@ JAX's order in every step: the n-gram ban, the grammar's mask (budget
 the grammar's states advance for active rows only. ``generate_kv_ragged``
 takes them batch-wide with a state per row, the engine a row at a time
 (``ngram_on``, ``gram_on`` and the per-row penalties in its state).
+On tensor-parallel params (``tp=``, a ``parallel.collectives.
+TensorParallel``; every rank of the model group runs the same calls with
+its blocks, ``parallel/mesh.py::shard_params(tp=True)``) the cache holds
+the rank's K/V heads, [B, M, 2 * Hkv_r * Dh] a layer; K1 and the fold
+kernel run on its heads and K2 on its FF columns, the out-projection and
+the FFN are summed over the group and the logits gathered whole before
+the sampler, so every rank writes the same tokens, the unsharded ones. A
+group of more than one rank issues its steps from the host (no
+collective inside a captured graph); a group of one keeps its graphs
+(``TensorParallel`` takes no collective at size 1).
 ``decode_block_ragged`` is the ragged verify step of the engine's Medusa
 rows: [B, W] blocks at per-row lengths, each row computed as the solo
 verify step computes it (``models/gpt.py::decode_block`` over a head-major
@@ -43,7 +53,7 @@ import threading
 import numpy as np
 import torch
 
-from ..models.gpt import (GPTConfig, _embed, _head, decode_block,
+from ..models.gpt import (GPTConfig, _embed, _head, _qkv_dims, decode_block,
                           decode_layers_fused, init_kv_cache, prefill_fused)
 from ..ops.decode_fold import fold_decode
 from ..utils import prng
@@ -54,9 +64,12 @@ from .sampling import (apply_no_repeat_ngram, count_tokens, log_min_p,
                        penalties_on, penalty_tensor, sample_rows,
                        token_counts)
 
+
 def init_ragged_cache(cfg: GPTConfig, batch: int, max_len: int,
-                      device=None) -> dict:
-    shape = (batch, max_len, 2 * cfg.kv_dim)
+                      device=None, tp=None) -> dict:
+    """Per layer [B, max_len, 2 * KVD] (under ``tp`` this rank's K/V
+    heads) and per-row ``lengths`` [B] int32."""
+    shape = (batch, max_len, 2 * _qkv_dims(cfg, tp)[1] * cfg.head_dim)
     return {"kv": [torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
                    for _ in range(cfg.n_layer)],
             "lengths": torch.zeros((batch,), dtype=torch.int32,
@@ -65,21 +78,22 @@ def init_ragged_cache(cfg: GPTConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def prefill_ragged(params: dict, ids: torch.Tensor,
-                   prompt_lens: torch.Tensor, cfg: GPTConfig, cache: dict):
+                   prompt_lens: torch.Tensor, cfg: GPTConfig, cache: dict,
+                   tp=None):
     """[B, T] padded prompts with per-row lengths -> ([B, T, V] logits,
     cache). K/V of all T slots, pads included, go to the cache; keys at or
     past a row's length are masked. The cache is written in place, its
     ``lengths`` too where it has them."""
     assert cfg.causal and not cfg.pos_broadcast_bug
     valid = prompt_lens.to(device=ids.device, dtype=torch.int32)
-    logits = prefill_fused(params, ids, valid, cfg, cache["kv"])
+    logits = prefill_fused(params, ids, valid, cfg, cache["kv"], tp)
     if "lengths" in cache:
         cache["lengths"].copy_(valid)
     return logits, cache
 
 
 def _step_logits(params: dict, last: torch.Tensor, cache: dict,
-                 cfg: GPTConfig) -> torch.Tensor:
+                 cfg: GPTConfig, tp=None) -> torch.Tensor:
     """The layers of one ragged step: [B] last tokens at per-row positions
     t = lengths -> [B, V] f32 logits; the rows' new K/V go to slot t[b]
     (positions past the end clamp to the last slot and the last position
@@ -93,16 +107,16 @@ def _step_logits(params: dict, last: torch.Tensor, cache: dict,
     x = _embed(params, last[:, None], pos_rows[:, None], cfg.torch_dtype)
     rows = torch.arange(B, device=last.device)
     x = decode_layers_fused(params, x, cache["kv"], (rows, slot), t, cfg,
-                            fold_decode)
-    return _head(params, x)[:, 0]
+                            fold_decode, tp)
+    return _head(params, x, tp)[:, 0]
 
 
 @torch.no_grad()
 def decode_step_ragged(params: dict, last: torch.Tensor, cache: dict,
-                       cfg: GPTConfig):
+                       cfg: GPTConfig, tp=None):
     """[B] last tokens at per-row positions t = lengths -> ([B, V] f32
     logits, cache with lengths + 1, advanced in place)."""
-    logits = _step_logits(params, last, cache, cfg)
+    logits = _step_logits(params, last, cache, cfg, tp)
     cache["lengths"].add_(1)
     return logits, cache
 
@@ -194,7 +208,7 @@ def ragged_steps(params: dict, st: dict, cfg: GPTConfig, noise, *,
                  eos_id: int, pad_id: int, top_p=1.0,
                  min_p: float = 0.0, per_row: bool = False,
                  log_mp: torch.Tensor | None = None, ngram: int = 0,
-                 gram: dict | None = None) -> dict:
+                 gram: dict | None = None, tp=None) -> dict:
     """Advance every live row of ``st`` by ``steps`` decode steps, in place
     (every tensor of ``st`` keeps its address); done rows and rows at
     their budget are inert. ``noise`` is [steps, B, V] (None when greedy).
@@ -207,7 +221,8 @@ def ragged_steps(params: dict, st: dict, cfg: GPTConfig, noise, *,
     ``rep_ps``/``freq_ps``/``pres_ps`` [B]; ``ngram`` bans n-grams, in the
     rows ``ngram_on`` [B] marks when ``st`` has it; ``gram`` (the
     grammar's tables) masks by ``gstate`` [B], in the rows ``gram_on``
-    marks when ``st`` has it."""
+    marks when ``st`` has it. ``tp``: the model group, ``params`` this
+    rank's blocks (the module's docstring)."""
     buf, pos, done, last = st["buf"], st["pos"], st["done"], st["last"]
     lengths = st["cache"]["lengths"]
     counts = st.get("counts")
@@ -215,7 +230,7 @@ def ragged_steps(params: dict, st: dict, cfg: GPTConfig, noise, *,
                    if k in st}
     cols = torch.arange(buf.shape[1], device=buf.device)[None]
     for i in range(steps):
-        logits = _step_logits(params, last, st["cache"], cfg)
+        logits = _step_logits(params, last, st["cache"], cfg, tp)
         logits = apply_no_repeat_ngram(logits, buf, pos, ngram, mask_value,
                                        row_on=st.get("ngram_on"))
         if gram is not None:
@@ -257,20 +272,22 @@ class RaggedGraph:
     (:func:`sampling.log_min_p`); with ``per_row`` the rows' own
     ``top_ps``/``min_ps``; ``ngram`` and ``gram`` as :func:`ragged_steps`
     takes them. The engine's chunks, its detached decode and
-    ``generate_kv_ragged`` run on it."""
+    ``generate_kv_ragged`` run on it. Under a ``tp`` group of more than
+    one rank it issues its steps from the host."""
 
     def __init__(self, params: dict, cfg: GPTConfig, st: dict, block: int,
                  *, top_k: int, greedy: bool, mask_value: float,
                  eos_id: int, pad_id: int, top_p=1.0, log_mp=None,
                  per_row: bool = False, ngram: int = 0,
                  gram: dict | None = None, eager: bool = False,
-                 capture_error_mode: str = "thread_local"):
+                 capture_error_mode: str = "thread_local", tp=None):
         dev = st["buf"].device
         self.params, self.cfg, self.st, self.block = params, cfg, st, block
         self.opts = dict(top_k=top_k, greedy=greedy, mask_value=mask_value,
                          eos_id=eos_id, pad_id=pad_id, top_p=top_p,
                          per_row=per_row, log_mp=log_mp, ngram=ngram,
-                         gram=gram)
+                         gram=gram, tp=tp)
+        eager = eager or (tp is not None and tp.size > 1)
         B = st["buf"].shape[0]
         self.keys = None if greedy else torch.zeros(
             (block, B, 2), dtype=torch.int64, device=dev)
@@ -309,7 +326,8 @@ class _RaggedLoop:
     def __init__(self, params, cfg, batch: int, max_len: int, device,
                  top_k: int, greedy: bool, mask_value: float, eos_id: int,
                  pad_id: int, top_p_on: bool, min_p_on: bool, pen_on: bool,
-                 ngram: int, gram: dict | None, block: int, eager: bool):
+                 ngram: int, gram: dict | None, block: int, eager: bool,
+                 tp=None):
         dev = torch.device(device)
         self.block = block
         self.lock = threading.Lock()
@@ -318,7 +336,7 @@ class _RaggedLoop:
         def full(value, dtype):
             return torch.full((batch,), value, dtype=dtype, device=dev)
 
-        self.st = {"cache": init_ragged_cache(cfg, batch, max_len, dev),
+        self.st = {"cache": init_ragged_cache(cfg, batch, max_len, dev, tp),
                    "buf": torch.zeros((batch, max_len), dtype=torch.int32,
                                       device=dev),
                    "pos": full(0, torch.int32), "last": full(0, torch.int64),
@@ -337,7 +355,7 @@ class _RaggedLoop:
                                  greedy=greedy, mask_value=mask_value,
                                  eos_id=eos_id, pad_id=pad_id,
                                  top_p=self.top_p, log_mp=self.log_mp,
-                                 ngram=ngram, gram=gram, eager=eager)
+                                 ngram=ngram, gram=gram, eager=eager, tp=tp)
 
 
 @torch.no_grad()
@@ -349,7 +367,7 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
                        top_p: float = 1.0, min_p: float = 0.0,
                        penalties: tuple | None = None,
                        no_repeat_ngram: int = 0, grammar=None,
-                       eager: bool = False):
+                       eager: bool = False, tp=None):
     """Heterogeneous batch: prompt [B, P] padded (on the params' device),
     prompt_lens [B] (host ints), one key per row (rngs [B, 2] uint32, what
     ``prng.key_rows(seeds)`` gives) or a single key, fanned out per row.
@@ -360,7 +378,10 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
     batch-wide, with the counts, the history and the FSM state per row.
     On the card the steps replay a CUDA graph of ``graphs.BLOCK`` steps
     keyed by B (and the sampling options); ``eager=True`` issues them from
-    the host instead, to compare the two (no served path passes it)."""
+    the host instead, to compare the two (no served path passes it).
+    ``tp``: a ``parallel.collectives.TensorParallel`` and ``params`` this
+    rank's blocks; every rank of the group makes the same call (the
+    module's docstring)."""
     B, P = prompt.shape
     assert max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
@@ -374,11 +395,12 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
     key = ("ragged", id(params), cfg, B, max_len, str(dev), int(top_k),
            bool(greedy), float(mask_value), int(eos_id), int(pad_id),
            top_p < 1.0, min_p > 0.0, pen_on, ngram,
-           None if gram is None else id(gram), graphs.BLOCK, bool(eager))
+           None if gram is None else id(gram), graphs.BLOCK, bool(eager),
+           id(tp))
     loop = graphs.state_for(key, lambda: _RaggedLoop(
         params, cfg, B, max_len, dev, int(top_k), bool(greedy),
         float(mask_value), int(eos_id), int(pad_id), top_p < 1.0,
-        min_p > 0.0, pen_on, ngram, gram, graphs.BLOCK, eager))
+        min_p > 0.0, pen_on, ngram, gram, graphs.BLOCK, eager, tp))
     plens_host = [int(v) for v in np.asarray(
         prompt_lens.cpu() if isinstance(prompt_lens, torch.Tensor)
         else prompt_lens)]
@@ -390,7 +412,8 @@ def generate_kv_ragged(params: dict, prompt: torch.Tensor, prompt_lens,
             loop.log_mp.copy_(log_min_p(min_p, dev))
         keys = _row_keys(rngs, B)
         plens = torch.tensor(plens_host, dtype=torch.int32).to(dev)
-        logits0, _ = prefill_ragged(params, prompt, plens, cfg, st["cache"])
+        logits0, _ = prefill_ragged(params, prompt, plens, cfg, st["cache"],
+                                    tp)
 
         cols = torch.arange(max_len, device=dev)[None]
         buf = torch.full((B, max_len), pad_id, dtype=torch.int32, device=dev)

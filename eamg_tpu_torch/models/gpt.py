@@ -414,6 +414,12 @@ def _mlp(p, x, cfg: GPTConfig, tp=None):
     return tp.reduce(part) + p["b2"].to(x.dtype)
 
 
+def _mlp_for(tp):
+    """K2's wrapper as :func:`_finish_block` takes it, on this rank's FF
+    columns under ``tp``."""
+    return _mlp if tp is None else (lambda q, h, c: _mlp(q, h, c, tp=tp))
+
+
 def _attn_input(p: dict, x, cfg: GPTConfig):
     if cfg.ln_placement == "post":
         return x
@@ -439,9 +445,7 @@ def block(p: dict, x, cfg: GPTConfig, causal: bool = False, valid_len=None,
     keys and values [B, Hkv, T, Dh] (prefill stores them in the cache)."""
     attn_out, k, v = attention(p["attn"], _attn_input(p, x, cfg), cfg,
                                causal, valid_len, tp)
-    mlp = _mlp if tp is None else \
-        (lambda q, h, c: _mlp(q, h, c, tp=tp))
-    return _finish_block(p, x, attn_out, cfg, mlp=mlp), k, v
+    return _finish_block(p, x, attn_out, cfg, mlp=_mlp_for(tp)), k, v
 
 
 def _embed(params, ids, pos_rows, dt):
@@ -725,21 +729,21 @@ def init_kv_cache(cfg: GPTConfig, batch: int, max_len: int | None = None,
     ``kv`` [B, max_len, 2 * KVD]. ``length`` is a [1] int32 tensor on the
     cache's device, read and advanced there: a decode step reads no host
     value, so a CUDA graph can hold it (``decode/graphs.py``). Under
-    ``tp`` the cache holds this rank's K/V heads (the "head" layout)."""
+    ``tp`` either layout holds this rank's K/V heads (Hkv of
+    :func:`_qkv_dims`; a fused row is then [2 * Hkv_r * Dh], the tail of
+    the rank's QKV projection)."""
     max_len = max_len or cfg.seq_len
     dt = cfg.torch_dtype
     length = torch.zeros((1,), dtype=torch.int32, device=device)
+    Hkv = _qkv_dims(cfg, tp)[1]
     if layout == "fused":
-        if tp is not None:
-            raise ValueError("tensor-parallel decoding keeps the 'head' "
-                             "layout")
-        shape = (batch, max_len, 2 * cfg.kv_dim)
+        shape = (batch, max_len, 2 * Hkv * cfg.head_dim)
         return {"kv": [torch.zeros(shape, dtype=dt, device=device)
                        for _ in range(cfg.n_layer)],
                 "length": length}
     if layout != "head":
         raise ValueError(f"layout {layout!r}: 'head' or 'fused'")
-    shape = (batch, _qkv_dims(cfg, tp)[1], max_len, cfg.head_dim)
+    shape = (batch, Hkv, max_len, cfg.head_dim)
     return {"k": [torch.zeros(shape, dtype=dt, device=device)
                   for _ in range(cfg.n_layer)],
             "v": [torch.zeros(shape, dtype=dt, device=device)
@@ -760,10 +764,7 @@ def prefill(params: dict, ids: torch.Tensor, cfg: GPTConfig, cache: dict,
     plen = prompt_len if prompt_len is not None else T
     valid = torch.full((B,), plen, dtype=torch.int32, device=ids.device)
     if "kv" in cache:
-        if tp is not None:
-            raise ValueError("tensor-parallel decoding keeps the 'head' "
-                             "layout")
-        logits = prefill_fused(params, ids, valid, cfg, cache["kv"])
+        logits = prefill_fused(params, ids, valid, cfg, cache["kv"], tp)
         cache["length"].fill_(int(plen))
         return logits, cache
     x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
@@ -776,39 +777,48 @@ def prefill(params: dict, ids: torch.Tensor, cfg: GPTConfig, cache: dict,
 
 
 def prefill_fused(params: dict, ids: torch.Tensor, valid: torch.Tensor,
-                  cfg: GPTConfig, kv: list) -> torch.Tensor:
+                  cfg: GPTConfig, kv: list, tp=None) -> torch.Tensor:
     """Prefill over the fused position-major cache ``kv`` (per layer
     [B, M, 2 * KVD], written in place): the rows of the [B, T] prompt
     bucket are the tail of the fused QKV projection and go straight into
     it, pads included; keys at or past ``valid[b]`` are masked. The uniform
-    and the ragged decode share it. -> [B, T, V] f32 logits."""
+    and the ragged decode share it. ``tp``: this rank's heads (its cache
+    rows are the tail of its own projection), FF columns and vocabulary
+    rows, the out-projection and the FFN summed over the model group.
+    -> [B, T, V] f32 logits, whole on every rank."""
     T = ids.shape[1]
-    D, KVD = cfg.d_model, cfg.kv_dim
+    H, Hkv = _qkv_dims(cfg, tp)
+    D, KVD = H * cfg.head_dim, Hkv * cfg.head_dim
+    mlp = _mlp_for(tp)
     x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     for li, p in enumerate(params["layers"]):
         qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
                       p["attn"]["in_b"])
         kv[li][:, :T] = qkv[..., D:]
-        out = flash_attention(_heads(qkv[..., :D], cfg.n_head),
-                              _heads(qkv[..., D:D + KVD], cfg.kv_heads),
-                              _heads(qkv[..., D + KVD:], cfg.kv_heads),
+        out = flash_attention(_heads(qkv[..., :D], H),
+                              _heads(qkv[..., D:D + KVD], Hkv),
+                              _heads(qkv[..., D + KVD:], Hkv),
                               valid_len=valid, causal=cfg.causal)
-        attn_out = _linear(_unheads(out), p["attn"]["out_w"],
-                           p["attn"]["out_b"])
-        x = _finish_block(p, x, attn_out, cfg)
-    return _head(params, x)
+        attn_out = _row_linear(_unheads(out), p["attn"]["out_w"],
+                               p["attn"]["out_b"], tp)
+        x = _finish_block(p, x, attn_out, cfg, mlp=mlp)
+    return _head(params, x, tp)
 
 
 def decode_layers_fused(params: dict, x: torch.Tensor, kv: list, slot,
                         t_rows: torch.Tensor, cfg: GPTConfig,
-                        fold) -> torch.Tensor:
+                        fold, tp=None) -> torch.Tensor:
     """The layers of one decode step over the fused cache: each layer
     writes the tail of its QKV projection to position ``slot`` of its
     cache rows and attends through ``fold(q, kv, t_rows, n_head)`` with q
     the projection's head, uncopied. ``slot`` is tensors only: a [1] int64
-    position for all rows, or a pair ([B] rows, [B] positions). x
-    [B, 1, D] -> [B, 1, D]."""
-    D = cfg.d_model
+    position for all rows, or a pair ([B] rows, [B] positions). ``tp``:
+    this rank's heads (``n_head`` = its query heads) and FF columns, the
+    out-projection and the FFN summed over the model group. x [B, 1, D]
+    -> [B, 1, D]."""
+    H = _qkv_dims(cfg, tp)[0]
+    D = H * cfg.head_dim
+    mlp = _mlp_for(tp)
     for li, p in enumerate(params["layers"]):
         qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
                       p["attn"]["in_b"])                     # [B, 1, D+2KVD]
@@ -816,9 +826,9 @@ def decode_layers_fused(params: dict, x: torch.Tensor, kv: list, slot,
             kv[li][slot] = qkv[:, 0, D:]
         else:
             kv[li].index_copy_(1, slot, qkv[:, :, D:])
-        attn_out = _linear(fold(qkv[..., :D], kv[li], t_rows, cfg.n_head),
-                           p["attn"]["out_w"], p["attn"]["out_b"])
-        x = _finish_block(p, x, attn_out, cfg)
+        attn_out = _row_linear(fold(qkv[..., :D], kv[li], t_rows, H),
+                               p["attn"]["out_w"], p["attn"]["out_b"], tp)
+        x = _finish_block(p, x, attn_out, cfg, mlp=mlp)
     return x
 
 
@@ -835,8 +845,8 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
     hold the step. A step past the cache or the positional table clamps
     to its last slot and row, as XLA's dynamic slices do; the decode loops
     run such steps only after a request has ended, and drop them. ``tp``:
-    this rank's heads (a "head" cache of them) and FF columns, the
-    out-projection and the FFN summed over the model group, the logits
+    this rank's heads (a cache of them, in either layout) and FF columns,
+    the out-projection and the FFN summed over the model group, the logits
     gathered whole."""
     layout = cache_layout(attn_impl, cfg)
     if ("kv" in cache) != (layout == "fused"):
@@ -858,16 +868,13 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
     # one [B] tensor of positions per step, not per layer
     t_rows = t.expand(B).contiguous()
     if layout == "fused":
-        if tp is not None:
-            raise ValueError("tensor-parallel decoding keeps the 'head' "
-                             "layout")
         x = decode_layers_fused(params, x, cache["kv"], slot, t_rows, cfg,
-                                FOLD_IMPLS[attn_impl])
+                                FOLD_IMPLS[attn_impl], tp)
         cache["length"].add_(1)
-        return _head(params, x)[:, 0], cache
+        return _head(params, x, tp)[:, 0], cache
     attend = HEAD_IMPLS[attn_impl]
     t_arg = t_rows if attn_impl == "sp" else t
-    mlp = _mlp if tp is None else (lambda q, h, c: _mlp(q, h, c, tp=tp))
+    mlp = _mlp_for(tp)
     for li, p in enumerate(params["layers"]):
         attn_in = _attn_input(p, x, cfg)
         qkv = _linear(attn_in, p["attn"]["in_w"], p["attn"]["in_b"])

@@ -5,7 +5,9 @@ Port of ``eamg_tpu/serve/batcher.py``. Requests that arrive within a small
 window are grouped by their sampling params, padded into a ragged batch
 (``decode/ragged.py``) and decoded together; each row carries its own
 PRNG key, so a coalesced request returns the stream it would have produced
-alone. Batch sizes bucket to {1, 2, 4, 8, ...} with dummy rows. Groups
+alone. Batch sizes bucket to {1, 2, 4, 8, ...} with dummy rows. On
+tensor-parallel params of a model group of one (``Generator(tp=)``) the
+ragged decode runs on the rank's blocks; a larger group is refused. Groups
 are keyed by every option the ragged decode takes batch-wide: the
 sampling values, the budget's bucket, the penalties, the n-gram size and
 grammar on or off (with the batcher's grammar, when it was given one).
@@ -50,6 +52,12 @@ class RequestBatcher:
     def __init__(self, generator: Generator, max_batch: int = 8,
                  window_ms: float = 10.0, max_len: int | None = None,
                  max_queue: int = 256, grammar=None, eager: bool = False):
+        tp = generator.tp
+        if tp is not None and tp.size > 1:
+            raise ValueError(
+                "the window batcher on a model group of more than one rank: "
+                "its groups have no plan for the followers yet; serve the "
+                "group through ContinuousBatcher")
         self.gen = generator
         # the served scheme's FSM (decode.grammar.Grammar) for the requests
         # that ask grammar=true; None turns them away (solo decode)
@@ -141,7 +149,7 @@ class RequestBatcher:
                     self.gen.cfg, self.max_len, eos_id=self.gen.eos_id,
                     pad_id=self.gen.pad_id, penalties=penalties,
                     no_repeat_ngram=no_repeat_ngram, grammar=grammar,
-                    eager=self.eager)
+                    eager=self.eager, tp=self.gen.tp)
                 if bs >= self.max_batch:
                     break
                 bs *= 2
@@ -230,7 +238,8 @@ class RequestBatcher:
             temperature=temperature, top_k=top_k, eos_id=self.gen.eos_id,
             pad_id=self.gen.pad_id, greedy=greedy, top_p=top_p, min_p=min_p,
             penalties=penalties, no_repeat_ngram=no_repeat_ngram,
-            grammar=self.grammar if grammar else None, eager=self.eager)
+            grammar=self.grammar if grammar else None, eager=self.eager,
+            tp=self.gen.tp)
         buf = buf.cpu().numpy()
         pos = pos.cpu().numpy()
         self.stats["calls"] += 1

@@ -51,10 +51,52 @@ chunk sample from the block's first query with the plain chunk's keys and
 transforms (on the CPU their tokens are the plain chunk's; on the card
 another product may round a near tie the other way). The budget shrinks by
 gamma, as in JAX.
+
+On a model group (a ``Generator`` built with ``tp=``, one process a rank,
+each holding its blocks, ``parallel/mesh.py::shard_params(tp=True)``),
+the engine's state, admissions and chunks run on every rank with that
+rank's heads, FF columns and cache (``decode/ragged.py``), and every
+rank must make the same ``admit_row`` and ``ragged_chunk`` calls in the
+same order, or their collectives would not pair. JAX has one controller
+and GSPMD; the port has a plan. Rank 0 of the group leads: it owns the
+queue, ``submit``, the harvest, cancellation and ``close``, and before
+each iteration that admits a row or runs a chunk it broadcasts that
+iteration's plan to the group as one int64 tensor (:class:`_PlanChannel`):
+the admissions (slot, the prompt's ids, the key, the budget, the row's
+temperature and its per-row sampling values), after which a chunk runs,
+or "stop". The other ranks build the same engine and call
+:meth:`ContinuousBatcher.serve_follower`, which applies each plan as it
+comes and returns at "stop"; no request goes to them.
+
+A fault on a group is met where it can be without waiting out
+``parallel.multihost.TIMEOUT``:
+
+- one in the leader's own work (the queue, the harvest, the plan) finds
+  the followers waiting for a plan: the leader sends them "stop" (they
+  return), fails its live, admitted and queued requests, and closes;
+- one that a plan brings (a poisoned admission) raises at the same point
+  on every rank, since every rank runs the same code on the same data:
+  the followers' loops raise it, and the leader fails its requests and
+  closes;
+- one on a single rank inside an admission or a chunk leaves its peers
+  inside a collective that no message can complete (neither gloo's nor
+  NCCL's abort wakes a peer). A follower's ``serve_follower`` raises it,
+  and its process is to exit: its connections close, the leader's
+  collective raises at once, and the leader fails its requests and
+  closes. A leader's own such fault leaves the followers to the
+  collective's timeout.
+
+Timing
+never changes a row's stream: a row's tokens depend on the params, its
+prompt and its key alone, and the plan exists only so that the
+collectives match. On a group of more than one rank every step is issued
+from the host (no collective inside a captured graph); the detached
+decode goes through the engine, and Medusa rows are refused.
 """
 
 from __future__ import annotations
 
+import datetime
 import queue
 import threading
 import time
@@ -104,7 +146,8 @@ def wait_for_worker(event: threading.Event, worker: threading.Thread,
 
 def init_state(cfg, slots: int, max_len: int, device=None,
                per_row_sampling: bool = False, no_repeat_ngram: int = 0,
-               grammar: bool = False, medusa: bool = False) -> dict:
+               grammar: bool = False, medusa: bool = False,
+               tp=None) -> dict:
     """The engine's state; free slots start done with no budget. All of it
     lives on ``device`` but ``rngs``, the per-slot running keys ([slots, 2]
     uint32), which the host advances (``utils/prng.py``). Every tensor
@@ -117,12 +160,13 @@ def init_state(cfg, slots: int, max_len: int, device=None,
     propose from ``h_last`` [slots, D] (zero at admission, as the solo
     decode starts) and the rows' bit ``med_on`` (with per-row sampling also
     ``log_mps``, a row's ln(min_p) made on the host as the solo decode
-    makes it)."""
+    makes it). Under ``tp`` the cache holds this rank's K/V heads."""
     def full(value, dtype):
         return torch.full((slots,), value, dtype=dtype, device=device)
 
     state = {
-        "cache": init_ragged_cache(cfg, slots, max_len, device=device),
+        "cache": init_ragged_cache(cfg, slots, max_len, device=device,
+                                   tp=tp),
         "buf": torch.zeros((slots, max_len), dtype=torch.int32,
                            device=device),
         "pos": full(0, torch.int32),
@@ -188,7 +232,7 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
               per_row_sampling=False, row_min_p=0.0,
               row_penalties=_NEUTRAL_PEN, no_repeat_ngram=0,
               row_ngram_on=False, grammar=None, row_gram_on=False,
-              medusa_row=False) -> dict:
+              medusa_row=False, tp=None) -> dict:
     """Prefill ONE request into slot ``slot`` of the running state, in
     place. prompt: [1, P] on the device (P a power-of-two bucket), ``key``
     a ``prng.PRNGKey``; ``plen``, ``slot`` and ``rmax`` are host ints.
@@ -205,19 +249,20 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
     ``medusa_row`` starts the row as its solo Medusa decode starts
     (``SpecLoop.start``): the head-major prefill, whose K/V are copied into
     the shared cache, and the first token drawn as ``categorical(log(dist
-    + 1e-30))`` of the filtered softmax; its ``h_last`` is zero."""
+    + 1e-30))`` of the filtered softmax; its ``h_last`` is zero.
+    ``tp``: the model group, ``params`` this rank's blocks."""
     dev = prompt.device
     P = prompt.shape[1]
     max_len = state["buf"].shape[1]
     cache = state["cache"]
     if medusa_row:
-        logits0 = _medusa_prefill(params, prompt, plen, slot, cfg, cache)
+        logits0 = _medusa_prefill(params, prompt, plen, slot, cfg, cache, tp)
     else:
         # the row's prefill writes straight into the shared cache
         row_cache = {"kv": [kv[slot:slot + 1] for kv in cache["kv"]]}
         logits0, _ = prefill_ragged(
             params, prompt, torch.tensor([plen], dtype=torch.int32,
-                                         device=dev), cfg, row_cache)
+                                         device=dev), cfg, row_cache, tp)
     cache["lengths"][slot] = plen
 
     rng_next, sub = prng.split(key)
@@ -295,13 +340,13 @@ def admit_row(params, state, prompt, plen: int, slot: int, key, rmax: int,
 
 
 def _medusa_prefill(params, prompt, plen: int, slot: int, cfg,
-                    cache: dict) -> torch.Tensor:
+                    cache: dict, tp=None) -> torch.Tensor:
     """The solo Medusa decode's prefill (``models/gpt.py::prefill`` on a
     head-major cache of the bucket's width) of one row, its K/V copied
     into slot ``slot`` of the fused shared cache -> its [1, P, V] logits."""
     P = prompt.shape[1]
-    row = init_kv_cache(cfg, 1, P, device=prompt.device)
-    logits0, _ = prefill(params, prompt, cfg, row, prompt_len=plen)
+    row = init_kv_cache(cfg, 1, P, device=prompt.device, tp=tp)
+    logits0, _ = prefill(params, prompt, cfg, row, prompt_len=plen, tp=tp)
     for li, kv in enumerate(cache["kv"]):
         kv[slot, :P] = torch.cat([row["k"][li][0].transpose(0, 1),
                                   row["v"][li][0].transpose(0, 1)],
@@ -333,7 +378,7 @@ def _medusa_filter(temp, top_k: int, top_p, per_row: bool,
 def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
                  mask_value=-1e10, eos_id=-1, pad_id=0, top_p=1.0,
                  per_row_sampling=False, no_repeat_ngram=0, grammar=None,
-                 eager=False) -> dict:
+                 eager=False, tp=None) -> dict:
     """Advance every live row ``chunk`` steps, in place (done and free rows
     are inert): one replay of the chunk's graph on the card (the first
     chunk of a state captures it; eagerly on the CPU, and with ``eager``),
@@ -343,13 +388,14 @@ def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
     noise is drawn inside the graph. Nothing is read back from the
     device. ``no_repeat_ngram`` and ``grammar`` (the engine's tables) are
     the engine's; each row's bits in the state say whether they apply to
-    it."""
+    it. ``tp``: the model group (a group of more than one rank issues the
+    chunk's steps from the host)."""
     top_p = float(top_p)
     grammar = grammar_tables(grammar, state["buf"].device)
     key = (id(params), cfg, int(chunk), int(top_k), bool(greedy),
            float(mask_value), int(eos_id), int(pad_id), top_p,
            bool(per_row_sampling), int(no_repeat_ngram or 0),
-           None if grammar is None else id(grammar), bool(eager))
+           None if grammar is None else id(grammar), bool(eager), id(tp))
     runner = state.get("graph")
     if runner is None or runner.key != key:
         dev = state["buf"].device
@@ -358,7 +404,8 @@ def ragged_chunk(params, state, cfg, chunk=64, top_k=50, greedy=False,
             mask_value=mask_value, eos_id=eos_id, pad_id=pad_id,
             top_p=torch.full((1,), top_p, device=dev) if top_p < 1.0
             else 1.0, per_row=per_row_sampling,
-            ngram=int(no_repeat_ngram or 0), gram=grammar, eager=eager)
+            ngram=int(no_repeat_ngram or 0), gram=grammar, eager=eager,
+            tp=tp)
         runner.key = key
         state["graph"] = runner
     state["rngs"], subs = prng.split_rows_chain(state["rngs"], chunk)
@@ -576,6 +623,85 @@ def _finish_fetch(fetch) -> np.ndarray:
     return host.numpy()
 
 
+@dataclass(frozen=True)
+class _Admission:
+    """What ``admit_row`` takes of one request, in a slot: the same on
+    every rank of a model group."""
+    slot: int
+    prompt_ids: tuple
+    key: tuple                   # the row's PRNG key, two uint32
+    rmax: int
+    temp: float
+    top_p: float = 1.0
+    min_p: float = 0.0
+    penalties: tuple = _NEUTRAL_PEN
+    ngram_on: bool = False
+    gram_on: bool = False
+
+
+class _PlanChannel:
+    """One iteration's plan, broadcast from rank 0 of a model group as one
+    int64 tensor of a fixed size: [op, admissions], then ``slots`` records
+    of [slot, plen, key (2), rmax, temp, top_p, min_p, penalties (3) as
+    float64 bits, n-gram on, grammar on, the prompt's ids padded to
+    max_len]. op 1: admit these rows, then run a chunk; op 0: "stop". On
+    the group's device (the card under NCCL)."""
+
+    HEAD, FIELDS = 2, 13
+
+    def __init__(self, tp, slots: int, max_len: int):
+        import torch.distributed as dist
+
+        self.dist, self.group = dist, tp.group
+        self.src = dist.get_global_rank(tp.group, 0)
+        self.width = self.FIELDS + max_len
+        self.size = self.HEAD + slots * self.width
+        self.device = torch.device("cuda", torch.cuda.current_device()) \
+            if dist.get_backend(tp.group) == "nccl" else torch.device("cpu")
+
+    def send(self, admissions: list) -> None:
+        plan = np.zeros(self.size, np.int64)
+        plan[:self.HEAD] = (1, len(admissions))
+        for i, a in enumerate(admissions):
+            rec = plan[self.HEAD + i * self.width:
+                       self.HEAD + (i + 1) * self.width]
+            rec[:5] = (a.slot, len(a.prompt_ids), *a.key, a.rmax)
+            rec[5:11] = np.asarray((a.temp, a.top_p, a.min_p,
+                                    *a.penalties), np.float64).view(np.int64)
+            rec[11:13] = (a.ngram_on, a.gram_on)
+            rec[13:13 + len(a.prompt_ids)] = a.prompt_ids
+        self._broadcast(torch.from_numpy(plan).to(self.device))
+
+    def stop(self, wait_s: float = 10.0) -> None:
+        """Broadcast "stop", waiting at most ``wait_s`` for the group."""
+        plan = torch.zeros(self.size, dtype=torch.int64, device=self.device)
+        work = self.dist.broadcast(plan, self.src, group=self.group,
+                                   async_op=True)
+        work.wait(datetime.timedelta(seconds=wait_s))
+
+    def recv(self):
+        """-> the admissions before the next chunk, or None at "stop"."""
+        plan = torch.empty(self.size, dtype=torch.int64, device=self.device)
+        self._broadcast(plan)
+        plan = plan.cpu().numpy()
+        if plan[0] == 0:
+            return None
+        out = []
+        for i in range(int(plan[1])):
+            rec = plan[self.HEAD + i * self.width:
+                       self.HEAD + (i + 1) * self.width]
+            f = rec[5:11].view(np.float64)
+            out.append(_Admission(
+                int(rec[0]), tuple(int(v) for v in rec[13:13 + rec[1]]),
+                (int(rec[2]), int(rec[3])), int(rec[4]), float(f[0]),
+                float(f[1]), float(f[2]), tuple(float(v) for v in f[3:6]),
+                bool(rec[11]), bool(rec[12])))
+        return out
+
+    def _broadcast(self, plan: torch.Tensor) -> None:
+        self.dist.broadcast(plan, self.src, group=self.group)
+
+
 @dataclass
 class _Pending:
     prompt_ids: list
@@ -615,7 +741,12 @@ class ContinuousBatcher:
     FSM; a request turns either on for its row. ``medusa_heads``
     (``tools.medusa.load_medusa_heads``) lets a request decode as a Medusa
     row (``medusa=True``; its budget is cut to n_pos - gamma). Requests
-    longer than the engine's max_len budget return the prompt unchanged."""
+    longer than the engine's max_len budget return the prompt unchanged.
+
+    On a model group (``generator.tp`` of more than one rank) every rank
+    builds the engine with the same arguments; rank 0 takes the requests
+    and the others call :meth:`serve_follower` (the module's docstring).
+    ``medusa_heads`` is refused there."""
 
     def __init__(self, generator: Generator, slots: int = 8,
                  chunk: int = 64, max_len: int | None = None,
@@ -627,6 +758,16 @@ class ContinuousBatcher:
         assert generator.cfg.causal and not generator.cfg.pos_broadcast_bug,\
             "continuous batching requires the corrected causal config"
         self.gen = generator
+        self.tp = generator.tp
+        # a model group of more than one rank: rank 0 leads, the others
+        # follow its plans
+        self._group = self.tp is not None and self.tp.size > 1
+        if self._group and medusa_heads is not None:
+            raise ValueError(
+                "medusa_heads on a model group of more than one rank: the "
+                "engine's Medusa rows verify through decode_block, which "
+                "takes no tensor-parallel params yet")
+        self.leader = not self._group or self.tp.rank == 0
         # where the parameters really are (with its index), for the worker
         self.device = generator.params["tok_emb"].device
         self.slots = slots
@@ -684,15 +825,20 @@ class ContinuousBatcher:
                       "cancelled": 0, "rejected": 0,
                       "join_delay_ms": deque(maxlen=4096)}
         self._stop = False
+        self._plan = _PlanChannel(self.tp, slots, self.max_len) \
+            if self._group else None
+        self._plan_open = self._group
         self._thread = threading.Thread(target=self._worker, daemon=True)
-        self._thread.start()
+        if self.leader:
+            self._thread.start()
 
     def _init_state(self) -> dict:
         return init_state(self.gen.cfg, self.slots, self.max_len,
                           device=self.device,
                           per_row_sampling=self.per_row_sampling,
                           no_repeat_ngram=self.no_repeat_ngram,
-                          grammar=self.use_grammar, medusa=self.medusa)
+                          grammar=self.use_grammar, medusa=self.medusa,
+                          tp=self.tp)
 
     def _sampling(self) -> dict:
         return dict(top_k=self.top_k, greedy=self.greedy,
@@ -735,8 +881,10 @@ class ContinuousBatcher:
         that joins an empty engine pays one harvest wait per chunk alone,
         so the pipeline decodes it detached (:meth:`run_detached`) and
         routes requests here only when there is concurrency; the streams
-        are the same either way."""
-        return not self._live and self._q.empty() and not self._busy
+        are the same either way. A model group's engine is never idle in
+        this sense: its leader decodes every request in the engine."""
+        return not self._group and not self._live and self._q.empty() \
+            and not self._busy
 
     def _validate_params(self, top_k, greedy, top_p, min_p, penalties,
                          no_repeat_ngram=0, grammar=False,
@@ -789,6 +937,10 @@ class ContinuousBatcher:
                  medusa) -> _Pending | None:
         """A request checked against the engine, or None when its prompt
         leaves no step to generate."""
+        if not self.leader:
+            raise RuntimeError(
+                f"rank {self.tp.rank} of the model group follows rank 0's "
+                "plans (serve_follower); send requests to rank 0")
         pen = self._validate_params(top_k, greedy, top_p, min_p, penalties,
                                     no_repeat_ngram, grammar, medusa)
         ml = int(min(max_len or self.max_len, self.max_len))
@@ -951,7 +1103,13 @@ class ContinuousBatcher:
         caller holds the pipeline's single-permit solo gate); does not
         touch the worker's live state. The row carries no penalties, no
         n-gram ban and no grammar, as in JAX: the pipeline sends requests
-        with those to the engine itself."""
+        with those to the engine itself. On a model group the request goes
+        through the engine (:meth:`submit`): a decode of its own would
+        issue collectives that no follower pairs."""
+        if self._group:
+            return self.submit(prompt_ids, temperature=temperature,
+                               seed=seed, max_len=max_len, top_p=top_p,
+                               min_p=min_p)
         # same admission contract as submit(): per-row sampling values on
         # a non-per-row engine must REJECT, not silently no-op
         self._validate_params(None, None, top_p, min_p, None)
@@ -996,20 +1154,59 @@ class ContinuousBatcher:
         return snap[0, :min(pos, ml)].tolist()
 
     def close(self, timeout: float = 30.0):
+        """Stop the worker (the leader's: its followers' loops return)."""
         self._stop = True
         self._q.put(None)
-        self._thread.join(timeout)
+        if self._thread.is_alive():
+            self._thread.join(timeout)
+
+    def serve_follower(self) -> None:
+        """A follower rank's loop (ranks 1.. of a model group): apply each
+        plan rank 0 broadcasts, the same admissions and chunks in the same
+        order, until "stop". Blocks; raises what an admission or a chunk
+        raises, and the caller's process is then to exit, so that the
+        leader's pending collective raises at once (the module's
+        docstring)."""
+        if self.leader:
+            raise RuntimeError("serve_follower runs on ranks 1.. of a "
+                               "model group; rank 0 serves requests")
+        bind_thread_to(self.device)
+        with torch.no_grad(), graphs.on_stream(self._stream):
+            while True:
+                admissions = self._plan.recv()
+                if admissions is None:
+                    return
+                for a in admissions:
+                    self._admit_row(a)
+                self._chunk()
 
     # ------------------------------------------------------------- engine
 
-    def _admit(self, req: _Pending, slot: int):
+    def _admit_row(self, a: _Admission, medusa_row: bool = False) -> None:
+        """``admit_row`` of one admission into the engine's state."""
         self.state = admit_row(
-            self.gen.params, self.state, self._prompt_row(req.prompt_ids),
-            len(req.prompt_ids), slot, prng.PRNGKey(req.seed), req.max_len,
-            req.temperature, self.gen.cfg, row_top_p=req.top_p,
-            row_min_p=req.min_p, row_penalties=req.penalties,
-            row_ngram_on=bool(req.ngram), row_gram_on=req.grammar,
-            medusa_row=req.medusa, **self._sampling())
+            self.gen.params, self.state, self._prompt_row(a.prompt_ids),
+            len(a.prompt_ids), a.slot, a.key, a.rmax,
+            a.temp, self.gen.cfg, row_top_p=a.top_p, row_min_p=a.min_p,
+            row_penalties=a.penalties, row_ngram_on=a.ngram_on,
+            row_gram_on=a.gram_on, medusa_row=medusa_row, tp=self.tp,
+            **self._sampling())
+
+    def _chunk(self) -> None:
+        self.state = ragged_chunk(self.gen.params, self.state, self.gen.cfg,
+                                  chunk=self.chunk, eager=self.eager,
+                                  tp=self.tp, **self._sampling())
+
+    @staticmethod
+    def _admission(req: _Pending, slot: int) -> _Admission:
+        return _Admission(slot, tuple(req.prompt_ids),
+                          prng.PRNGKey(req.seed), req.max_len,
+                          req.temperature, req.top_p, req.min_p,
+                          req.penalties, bool(req.ngram), req.grammar)
+
+    def _admit(self, req: _Pending, a: _Admission):
+        slot = a.slot
+        self._admit_row(a, medusa_row=req.medusa)
         if req.medusa:
             self._med_slots.add(slot)
         else:
@@ -1074,11 +1271,13 @@ class ContinuousBatcher:
                     self._free.append(slot)
                     self.stats["cancelled"] += 1
 
-    def _fail_all(self, exc: Exception):
-        """Deliver ``exc`` to every live and queued request, reset the
+    def _fail_all(self, exc: Exception, taken: list = ()):
+        """Deliver ``exc`` to every live and queued request, and to those
+        of ``taken`` (dequeued for admission) not yet told, reset the
         engine to empty, and keep serving: one poisoned request or a
         transient error must not wedge the server."""
-        for req in self._live.values():
+        for req in [*self._live.values(),
+                    *(r for r in taken if not r.event.is_set())]:
             req.error = exc
             if req.stream_q is not None:
                 req.stream_q.put(("error", exc))
@@ -1103,18 +1302,32 @@ class ContinuousBatcher:
 
     def _worker(self):
         bind_thread_to(self.device)
-        with graphs.on_stream(self._stream):
-            self._work()
+        try:
+            with graphs.on_stream(self._stream):
+                self._work()
+        finally:
+            self._stop_followers()
+
+    def _stop_followers(self) -> None:
+        """Send the followers "stop", once (a leader's worker on its way
+        out)."""
+        if self._plan_open:
+            self._plan_open = False
+            self._plan.stop()
 
     def _work(self):
         pending_fetch = None
         while not self._stop:
+            # a model group's followers are inside this iteration's
+            # admissions and chunk from its plan until the chunk returns
+            admits, in_step = [], False
             try:
                 self._drain_cancels()
-                # admit as many queued requests as there are free slots
+                # take as many queued requests as there are free slots
                 try:
-                    while self._free:
-                        block = not self._live and pending_fetch is None
+                    while len(admits) < len(self._free):
+                        block = not self._live and not admits \
+                            and pending_fetch is None
                         req = self._q.get(block=block, timeout=None)
                         # _busy covers the dequeued-but-not-yet-in-_live
                         # window so drain() can't report idle while a
@@ -1125,13 +1338,19 @@ class ContinuousBatcher:
                         if req.cancelled:
                             self.stats["cancelled"] += 1
                             # not busy while blocked in the next get()
-                            self._busy = False
+                            self._busy = bool(admits)
                             continue
-                        self._admit(req, self._free.pop())
+                        admits.append(req)
                 except queue.Empty:
                     pass
-                finally:
-                    self._busy = False
+                plan = [self._admission(r, self._free.pop()) for r in admits]
+                if plan or self._live:
+                    if self._plan is not None:
+                        in_step = True
+                        self._plan.send(plan)
+                    for req, a in zip(admits, plan):
+                        self._admit(req, a)
+                self._busy = False
                 if not self._live and pending_fetch is None:
                     continue
 
@@ -1145,10 +1364,8 @@ class ContinuousBatcher:
                             chunk=self.chunk_med, eager=self.eager,
                             **self._sampling())
                     else:
-                        self.state = ragged_chunk(
-                            self.gen.params, self.state, self.gen.cfg,
-                            chunk=self.chunk, eager=self.eager,
-                            **self._sampling())
+                        self._chunk()
+                    in_step = False
                     self.stats["chunks"] += 1
                     # depth-1 lookahead: the PREVIOUS chunk's flags are
                     # read while this one computes
@@ -1164,4 +1381,17 @@ class ContinuousBatcher:
                     self._harvest(*prev)
             except Exception as exc:  # noqa: BLE001 - worker must survive
                 pending_fetch = None
-                self._fail_all(exc)
+                self._busy = False
+                if self._group:
+                    # followers that wait for a plan stop before the
+                    # requests fail; those inside the step cannot take a
+                    # "stop" (the module's docstring). The engine closes
+                    try:
+                        if in_step:
+                            self._plan_open = False
+                        self._stop_followers()
+                    finally:
+                        self._fail_all(exc, admits)
+                        self._stop = True
+                    return
+                self._fail_all(exc, admits)

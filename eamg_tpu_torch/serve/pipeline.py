@@ -724,7 +724,8 @@ def pipeline_from_checkpoint(path: str = DEMO_CKPT_A, full_gm: bool = False,
                              eager: bool = False,
                              engine_medusa: bool = False) -> Pipeline:
     """A serving pipeline from a checkpoint directory of the JAX package's
-    pickle format; the token scheme is inferred from the vocabulary
+    pickle or Orbax format (``utils/checkpoint.py::load_checkpoint``);
+    the token scheme is inferred from the vocabulary
     (Scheme A, or B3 with its ``[END_SEQ]`` EOS; B1 and B2 have no control
     tokens to condition on and are refused). ``device`` None means CUDA
     (raises without a card). ``coalesce``: False, "window" (or

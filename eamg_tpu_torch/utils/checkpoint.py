@@ -117,14 +117,17 @@ def _load_opt_state(path: str):
 
 def load_checkpoint(path: str) -> dict:
     """-> {"params" (CPU tensors), "vocab" (tok2id), "cfg", "opt_state"
-    (:func:`_load_opt_state`, or None), "step", "rng_key", "extra"}."""
-    with open(os.path.join(path, "params.pkl"), "rb") as f:
-        raw = _NoMlDtypesUnpickler(f).load()
+    (:func:`_load_opt_state`, or None), "step", "rng_key", "extra"}. A
+    directory whose ``meta.json`` says ``"format": "orbax"`` is read by
+    ``utils/orbax_io.py``, into the same dict."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if meta.get("format") == "orbax":
-        raise NotImplementedError(
-            "orbax checkpoints are not read by the port yet")
+        from .orbax_io import load_checkpoint_orbax
+
+        return load_checkpoint_orbax(path)
+    with open(os.path.join(path, "params.pkl"), "rb") as f:
+        raw = _NoMlDtypesUnpickler(f).load()
     with open(os.path.join(path, "vocab.json")) as f:
         vocab = json.load(f)
     rng = meta.get("rng_key")

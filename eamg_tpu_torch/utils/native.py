@@ -1,5 +1,7 @@
-"""Build and load the repository's C++ host libraries (``native/``) with
-g++, as the JAX package's ctypes bindings do, into ``native/build/``.
+"""Build and load C++ host libraries with g++: the repository's
+(``native/``, as the JAX package's ctypes bindings do, into
+``native/build/``) and the port's own (``eamg_tpu_torch/csrc/*.cpp``,
+into the build directory their caller names).
 
 The port's builds carry names of their own (``lib<name>_torch.so``) and
 land by an atomic rename, so a build never overwrites a library another
@@ -23,11 +25,14 @@ class NativeUnavailable(RuntimeError):
     """No C++ toolchain, or the source is missing."""
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """``native/<name>.cpp`` -> the loaded library, built when missing or
-    older than its source."""
-    src = os.path.join(NATIVE_DIR, f"{name}.cpp")
-    so = os.path.join(NATIVE_DIR, "build", f"lib{name}_torch.so")
+def load_library(name: str, src: str | None = None,
+                 build_dir: str | None = None) -> ctypes.CDLL:
+    """``src`` (by default ``native/<name>.cpp``) -> the loaded library
+    ``<build_dir>/lib<name>_torch.so`` (by default in ``native/build/``),
+    built when missing or older than its source."""
+    src = src or os.path.join(NATIVE_DIR, f"{name}.cpp")
+    so = os.path.join(build_dir or os.path.join(NATIVE_DIR, "build"),
+                      f"lib{name}_torch.so")
     with _lock:
         if not os.path.exists(src):
             raise NativeUnavailable(f"missing {src}")

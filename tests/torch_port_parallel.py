@@ -1,6 +1,7 @@
 """The PyTorch side of the parallel modes' tests (tests/test_torch_mesh.py,
 test_torch_pipeline.py, test_torch_ring.py, test_torch_ep.py,
-test_torch_sharded_decode.py): one task a file, run by
+test_torch_sharded_decode.py, test_torch_sharded_engine.py): one task a
+file, run by
 tests/torch_port_worker.py in its subprocess (torch never enters the
 pytest process). Each task spawns its worlds of gloo ranks on the CPU (at
 most 4 ranks, one thread each, a rendezvous file of their own and a
@@ -41,10 +42,15 @@ def _rank_entry(rank: int, world: int, path: str, tmp: str, fn: str,
     try:
         with np.load(path, allow_pickle=False) as inp:
             res = globals()[fn](rank, world, inp, tmp)
-        with open(os.path.join(tmp, f"{tag}.{rank}.pkl"), "wb") as f:
-            pickle.dump(res, f)
+        _keep(res, tmp, fn, world, rank)
     finally:
         dist.destroy_process_group()
+
+
+def _keep(res: dict, tmp: str, fn: str, world: int, rank: int) -> None:
+    """Write a rank's results where :func:`spawn` reads them."""
+    with open(os.path.join(tmp, f"{fn}{world}.{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
 
 
 def spawn(fn: str, world: int, inp, tmp: str) -> list:
@@ -527,6 +533,241 @@ def task_sharded_decode(inp, out) -> None:
             _merge(out, f"w{world}/r{r}", res)
 
 
+# ---------------------------------------------------------- sharded engine
+
+def _engine_run(gen, spec, engine: str, gram) -> tuple:
+    """One engine of ``spec["engines"]`` on ``gen``: on a leader (or
+    alone) the requests' rows, request 1 submitted once the first chunk
+    ran; on a follower its loop. -> (rows or None, [chunks when request 1
+    was submitted, chunks in all] or None, the engine's final state)."""
+    import threading
+    import time
+
+    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
+
+    eng_opts, row_opts = spec["engines"][engine]
+    eng_opts = dict(eng_opts)
+    if eng_opts.pop("grammar", False):
+        eng_opts["grammar"] = gram
+    eng = ContinuousBatcher(gen, slots=spec["slots"], chunk=spec["chunk"],
+                            max_len=spec["max_len"], top_k=spec["top_k"],
+                            **eng_opts)
+    if not eng.leader:
+        eng.serve_follower()
+        return None, None, eng.state
+    rows, joined = {}, []
+
+    def hit(i):
+        ids, seed, temp = spec["requests"][i]
+        kw = dict(spec["opts"][row_opts[i]])
+        if "penalties" in kw:
+            kw["penalties"] = tuple(kw["penalties"])
+        rows[i] = eng.submit(ids, temperature=temp, seed=seed, timeout=600,
+                             **kw)
+
+    try:
+        threads = [threading.Thread(target=hit, args=(i,), daemon=True)
+                   for i in range(len(spec["requests"]))]
+        threads[0].start()
+        deadline = time.monotonic() + 600
+        while eng.stats["chunks"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.001)
+        joined.append(eng.stats["chunks"])
+        for t in threads[1:]:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert len(rows) == len(spec["requests"]), "a request timed out"
+        joined.append(eng.stats["chunks"])
+    finally:
+        eng.close()
+    return [rows[i] for i in range(len(rows))], joined, eng.state
+
+
+def _engine_results(gen, spec, case: str, gram, res: dict) -> None:
+    for c, engine in spec["engine_cases"]:
+        if c != case:
+            continue
+        rows, joined, state = _engine_run(gen, spec, engine, gram)
+        pre = f"{case}/{engine}"
+        for key in ("buf", "pos", "done", "last"):
+            res[f"{pre}/state/{key}"] = state[key].numpy().copy()
+        res[f"{pre}/state/rngs"] = np.asarray(state["rngs"]).copy()
+        if rows is not None:
+            for i, row in enumerate(rows):
+                res[f"{pre}/{i}"] = np.asarray(row)
+            res[f"{pre}/joined_at"] = np.asarray(joined)
+
+
+def _ragged_rows(gen, spec, tp=None) -> np.ndarray:
+    from eamg_tpu_torch.decode.ragged import generate_kv_ragged
+    from eamg_tpu_torch.utils import prng
+
+    reqs = spec["requests"]
+    prompt = torch.zeros((len(reqs), 8), dtype=torch.int64)
+    for i, (ids, _, _) in enumerate(reqs):
+        prompt[i, :len(ids)] = torch.tensor(ids)
+    buf, _ = generate_kv_ragged(
+        gen.params, prompt, [len(r[0]) for r in reqs],
+        prng.key_rows([s for _, s, _ in reqs]), gen.cfg, spec["max_len"],
+        top_k=spec["top_k"], eos_id=-1, pad_id=0, tp=tp)
+    return buf.numpy()
+
+
+def _engine_generator(inp, case: str, params, tp=None):
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.tokenizer import Vocab
+
+    return Generator(params, _cfg(inp, f"eng/{case}/cfg"),
+                     Vocab(json.loads(str(inp["eng/vocab"]))),
+                     eos_token="none", pad_token="t0", device=CPU, tp=tp)
+
+
+def _engine_failures(rank: int, world: int, inp, spec, res: dict,
+                     tmp: str) -> None:
+    """Faults on a model group of ``world``, each on a group of its own
+    whose collectives time out after ``spec["fail_timeout"]`` s. The
+    leader submits a request, then the poisoned prompt once the first
+    chunk ran. The faults: "leader", the leader's harvest raises (its own
+    work); "plan", every rank's admission of the poisoned prompt raises
+    (a fault the plan brings); "follower", rank 1's admission of it raises
+    (a fault of one rank inside the shared work), and rank 1's process
+    exits, as ``serve_follower``'s caller is to. Into ``res``, per fault:
+    what the leader's requests (in order) and the follower's loop raised,
+    whether the leader's worker ended, and each rank's seconds. Rank 1
+    writes its results and exits at "follower", so that fault comes
+    last."""
+    import datetime
+    import threading
+    import time
+
+    import torch.distributed as dist
+
+    from eamg_tpu_torch.parallel.collectives import tensor_parallel
+    from eamg_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
+
+    cfg = _cfg(inp, "eng/mha/cfg")
+    blocks = shard_params(_params(inp, "eng/mha/p"), make_mesh(1, world),
+                          tp=True, cfg=cfg)
+    poison, limit = tuple(spec["poison"]), spec["fail_timeout"]
+    for fault in ("leader", "plan", "follower"):
+        group = dist.new_group(list(range(world)),
+                               timeout=datetime.timedelta(seconds=limit))
+        gen = _engine_generator(inp, "mha", blocks,
+                                tensor_parallel(cfg, group))
+        eng = ContinuousBatcher(gen, slots=spec["slots"],
+                                chunk=spec["chunk"], max_len=spec["max_len"],
+                                top_k=spec["top_k"])
+        if fault == "leader" and rank == 0:
+            def harvest(*args):
+                raise RuntimeError("poisoned harvest")
+
+            eng._harvest = harvest
+        if fault == "plan" or (fault == "follower" and rank == 1):
+            def admit(a, medusa_row=False, admit_row=eng._admit_row):
+                if tuple(a.prompt_ids) == poison:
+                    raise RuntimeError("poisoned admission")
+                return admit_row(a, medusa_row)
+
+            eng._admit_row = admit
+        t0 = time.monotonic()
+        pre = f"fail/{fault}"
+        if eng.leader:
+            errors = {}
+
+            def hit(i, ids):
+                errors[i] = str(_raised(
+                    lambda: eng.submit(ids, seed=1, timeout=2 * limit)))
+
+            threads = [threading.Thread(target=hit, args=(i, ids),
+                                        daemon=True)
+                       for i, ids in enumerate((spec["requests"][0][0],
+                                                poison))]
+            threads[0].start()
+            while eng.stats["chunks"] < 1 and time.monotonic() - t0 < limit:
+                time.sleep(0.001)
+            threads[1].start()
+            for t in threads:
+                t.join(timeout=2 * limit)
+            eng._thread.join(timeout=limit)
+            res[f"{pre}/errors"] = np.asarray(
+                [errors.get(i, "no answer") for i in range(2)])
+            res[f"{pre}/closed"] = np.asarray(not eng._thread.is_alive())
+            res[f"{pre}/seconds"] = np.asarray(time.monotonic() - t0)
+        else:
+            res[f"{pre}/follower"] = _raised(eng.serve_follower)
+            res[f"{pre}/seconds"] = np.asarray(time.monotonic() - t0)
+            if fault == "follower":
+                _keep(res, tmp, "engine_world", world, rank)
+                os._exit(0)
+
+
+def engine_world(rank: int, world: int, inp, tmp: str) -> dict:
+    from eamg_tpu_torch.decode.grammar import grammar_a
+    from eamg_tpu_torch.parallel.collectives import tensor_parallel
+    from eamg_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
+    from eamg_tpu_torch.tokenizer import Vocab
+
+    spec = json.loads(str(inp["eng/spec"]))
+    gram = grammar_a(Vocab(json.loads(str(inp["eng/names"]))))
+    res = {}
+    for case in spec["cases"]:
+        cfg = _cfg(inp, f"eng/{case}/cfg")
+        mesh = make_mesh(1, world)
+        tp = tensor_parallel(cfg, mesh.get_group("model"))
+        blocks = shard_params(_params(inp, f"eng/{case}/p"), mesh, tp=True,
+                              cfg=cfg)
+        gen = _engine_generator(inp, case, blocks, tp)
+        _engine_results(gen, spec, case, gram, res)
+        res[f"{case}/ragged"] = _ragged_rows(gen, spec, tp)
+        res[f"{case}/kv_heads"] = tp.kv_heads
+        res[f"{case}/n_head"] = tp.n_head
+        if world == 2 and case == "mha":
+            heads = {"blocks": [{"w": torch.zeros(cfg.d_model, cfg.d_model),
+                                 "b": torch.zeros(cfg.d_model)}]}
+            res["medusa_error"] = _raised(lambda: ContinuousBatcher(
+                gen, slots=2, chunk=4, max_len=16, medusa_heads=heads))
+            from eamg_tpu_torch.serve.batcher import RequestBatcher
+
+            ids = spec["requests"][0][0]
+            for route, fn in (
+                    ("window", lambda: RequestBatcher(gen)),
+                    ("uncached", lambda: gen.generate_ids(
+                        ids, max_len=16, use_cache=False)),
+                    ("beams", lambda: gen.generate_ids_beam(ids, 16)),
+                    ("lookup", lambda: gen.generate_ids_lookup(ids, 16)),
+                    ("medusa", lambda: gen.generate_ids_medusa(heads, ids,
+                                                               16))):
+                res[f"refused/{route}"] = _raised(fn)
+    if world == 2:
+        _engine_failures(rank, world, inp, spec, res, tmp)
+    return res
+
+
+def task_sharded_engine(inp, out) -> None:
+    """tests/test_torch_sharded_engine.py."""
+    from eamg_tpu_torch.decode.grammar import grammar_a
+    from eamg_tpu_torch.tokenizer import Vocab
+
+    spec = json.loads(str(inp["eng/spec"]))
+    gram = grammar_a(Vocab(json.loads(str(inp["eng/names"]))))
+    for case in spec["cases"]:
+        res = {}
+        gen = _engine_generator(inp, case, _params(inp, f"eng/{case}/p"))
+        _engine_results(gen, spec, case, gram, res)
+        _merge(out, "one", {k: v for k, v in res.items()
+                            if "/state/" not in k and "joined" not in k})
+    tmp = tempfile.mkdtemp()
+    with _one_rank_world(tmp, "eng1"):
+        _merge(out, "w1/r0", engine_world(0, 1, inp, tmp))
+    for world in (2, 4):
+        for r, res in enumerate(spawn("engine_world", world, inp, tmp)):
+            _merge(out, f"w{world}/r{r}", res)
+
+
 PARALLEL_TASKS = {"mesh": task_mesh, "pipeline": task_pipeline,
                   "ring": task_ring, "ep": task_ep,
-                  "sharded_decode": task_sharded_decode}
+                  "sharded_decode": task_sharded_decode,
+                  "sharded_engine": task_sharded_engine}

@@ -2920,6 +2920,7 @@ TASKS = {"medusa": task_medusa, "spec": task_spec, "kernels": task_kernels, "top
 
 def main():
     from torch_port_emotion import EMOTION_TASKS
+    from torch_port_orbax import ORBAX_TASKS
     from torch_port_parallel import PARALLEL_TASKS
     from torch_port_spec2 import SPEC2_TASKS
     from torch_port_tools import TOOLS_TASKS
@@ -2930,6 +2931,7 @@ def main():
     TASKS.update(TOOLS_TASKS)
     TASKS.update(VARIANTS_TASKS)
     TASKS.update(PARALLEL_TASKS)
+    TASKS.update(ORBAX_TASKS)
     task, src, dst = sys.argv[1:4]
     torch.manual_seed(0)
     out: dict = {}
