@@ -355,7 +355,21 @@ Phases:
     port (utils/orbax_io.py) into a temporary directory and read back
     bit-equal (the seconds to write and to restore logged), then
     pipeline_from_checkpoint on it answering one request (seed 7) with the
-    WAV bytes demo_ckpt_a's pickle directory gives.
+    WAV bytes demo_ckpt_a's pickle directory gives; (e) every other decode
+    route on the same blocks against the same route on the unsharded
+    params, each run twice (the first captures its graphs, the second is
+    counted): greedy Medusa with the demo's medusa_heads.pkl, sampled
+    lookup, A drafting for itself (the draft on the group), beams (4), the
+    uncached loop for TP_UNCACHED_STEPS tokens, the engine built with the
+    heads (chunk 16, four requests, two of them Medusa rows) and the window
+    batcher (three requests, its graphs captured by its warm-up): the same
+    tokens; the solo routes the same launches from as many graph replays
+    (K3 from replays only for beams and the draft), the engine and the
+    window batcher replaying their graphs (row 8 from replays only); the
+    launches of K1, K2, K3, K4 and row 8 over (e)'s group runs counted on
+    the kernels line under "tp_serve" with (a)'s, and (e)'s seconds logged
+    (larger groups of every route are held to JAX on the CPU by
+    tests/test_torch_sharded_routes.py).
 
 Prints a JSON "kernels" line, the card line, and as the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero without that
@@ -4479,7 +4493,7 @@ def _draft_run(params_t, params_d, cfg_t, cfg_d, prompt, p: int, L: int,
     key, make = spec_state(params_t, cfg_t, "draft", L, gamma, K_VERIFIES,
                            50, common["greedy"], 1.0, 0.0, common["eos_id"],
                            common["pad_id"], prompt.device, eager=eager,
-                           draft=(params_d, cfg_d))
+                           draft=(params_d, cfg_d, None))
     with graphs.pooled(key, make) as st:
         return run_to_end(st, prompt, p, prng.PRNGKey(seed), 1.0, 1.0, 0.0)
 
@@ -7924,9 +7938,157 @@ def _tp_orbax(torch, ckpt) -> dict:
             "decoder_build_s": build_s, "wav_bytes": len(wav["orbax"])}
 
 
+# (e): the max_len of the solo routes, the uncached loop's tokens, and the
+# budget of the engine's and the window batcher's requests
+TP_ROUTE_LEN, TP_UNCACHED_STEPS, TP_ROW_LEN = 96, 8, 64
+TP_ROUTE_SEED = 5
+TP_ROUTE_KERNELS = ("flash_attention", "fused_ffn", "flash_decode_sp",
+                    "kth_value", "flash_decode_fold_sp")
+
+
+def _counted_twice(torch, fn) -> tuple:
+    """fn() twice, the first capturing the route's graphs, the second
+    counted -> (its result, its launches, the part of them replayed from
+    graphs, its graph replays)."""
+    from eamg_tpu_torch.decode import graphs
+    from eamg_tpu_torch.ops import _build
+
+    fn()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    replays0 = graphs.tally()["replays"]
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, _build.launch_counts(), _build.replayed_counts(),
+            graphs.tally()["replays"] - replays0)
+
+
+def _concurrent(submit, n: int) -> list:
+    """``submit(i)`` for i < n from n threads at once -> their results."""
+    rows = {}
+
+    def hit(i):
+        rows[i] = submit(i)
+
+    threads = [threading.Thread(target=hit, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if len(rows) != n:
+        raise AssertionError("tp_serve: a request did not return")
+    return [rows[i] for i in range(n)]
+
+
+def _as_lists(v):
+    """A route's result (arrays, lists of rows, tuples of them) as nested
+    lists, to compare two of them exactly."""
+    import numpy as np
+
+    if isinstance(v, (tuple, list)):
+        return [_as_lists(x) for x in v]
+    return np.asarray(v).tolist()
+
+
+def _tp_routes(torch, ckpt, params, blocks, tp) -> tuple:
+    """(e): every other decode route on the group of one against the same
+    route unsharded. -> (record, the launches of the group's counted
+    runs)."""
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.ops import decode_fold
+    from eamg_tpu_torch.serve.batcher import RequestBatcher
+    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
+    from eamg_tpu_torch.serve.pipeline import DEMO_CKPT_A
+    from eamg_tpu_torch.tokenizer import Vocab
+    from eamg_tpu_torch.tools.medusa import load_medusa_heads
+
+    cfg, vocab = ckpt["cfg"], Vocab(ckpt["vocab"])
+    heads = load_medusa_heads(os.path.join(DEMO_CKPT_A, "medusa_heads.pkl"))
+    prompt, p = _a_prompt(torch, vocab)
+    ids = prompt[0, :p].tolist()
+    rows = _tp_prompts(ckpt["vocab"])[:4]
+    gens = {"tp": Generator(blocks, cfg, vocab, device="cuda", tp=tp),
+            "plain": Generator(params, cfg, vocab, device="cuda")}
+    engines = {n: ContinuousBatcher(g, slots=ENGINE_SLOTS, chunk=16,
+                                    medusa_heads=heads)
+               for n, g in gens.items()}
+    batchers = {n: RequestBatcher(g, max_batch=4, max_len=TP_ROW_LEN)
+                for n, g in gens.items()}
+    L, seed = TP_ROUTE_LEN, TP_ROUTE_SEED
+    # the solo routes: the same launches as the unsharded route's, from
+    # as many replays; with the kernel only their graphs launch, or None
+    solo = {
+        "medusa": (lambda n: gens[n].generate_ids_medusa(
+            heads, ids, max_len=L, greedy=True), None),
+        "lookup": (lambda n: gens[n].generate_ids_lookup(
+            ids, max_len=L, seed=seed), None),
+        "draft": (lambda n: gens[n].generate_ids_speculative(
+            gens[n], ids, max_len=L, seed=seed), "flash_decode_sp"),
+        "beams": (lambda n: gens[n].generate_ids_beam(
+            ids, max_len=L, n_beams=4, return_all=True), "flash_decode_sp"),
+        "uncached": (lambda n: gens[n].generate_ids(
+            ids, max_len=p + TP_UNCACHED_STEPS, seed=seed,
+            use_cache=False), None)}
+    # the served routes: their chunks and groups follow the requests'
+    # timing, so their launches do; both replay graphs
+    served = {
+        "engine": lambda n: _concurrent(lambda i: engines[n].submit(
+            rows[i], seed=TP_BURST_SEEDS[i], max_len=TP_ROW_LEN,
+            medusa=i % 2 == 0, timeout=600), len(rows)),
+        "window": lambda n: _concurrent(lambda i: batchers[n].submit(
+            rows[i], seed=TP_BURST_SEEDS[i], timeout=600), 3)}
+    fold = decode_fold.fold_decode.__name__
+    out, total = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for bat in batchers.values():
+            bat.warmup(ids)
+        for name, route in [*((k, r) for k, (r, _) in solo.items()),
+                            *served.items()]:
+            t = time.perf_counter()
+            got = {n: _counted_twice(torch, lambda: route(n)) for n in gens}
+            (a, ca, ra, na), (b, cb, rb, nb) = got["tp"], got["plain"]
+            same = _as_lists(a) == _as_lists(b)
+            log(f"[tp_serve routes] {name}: the unsharded route's tokens "
+                f"{same}; graph replays {na} (unsharded {nb}); launches "
+                f"{ca}, replayed {ra}; {time.perf_counter() - t:.2f} s")
+            if not same:
+                raise AssertionError(f"tp_serve: {name} on the group of one "
+                                     "differs from the unsharded route")
+            if name in solo and (ca, ra, na) != (cb, rb, nb):
+                raise AssertionError(
+                    f"tp_serve: {name} on the group of one launches "
+                    f"{ca} ({ra} replayed, {na} replays), the unsharded "
+                    f"route {cb} ({rb}, {nb})")
+            kernel = solo[name][1] if name in solo else fold
+            if name == "engine":
+                # a Medusa chunk launches no fold kernel: none from Python
+                if na <= 0 or nb <= 0 or ca.get(fold, 0) != ra.get(fold, 0):
+                    raise AssertionError(f"tp_serve engine: {na} replays, "
+                                         f"{ca} launched, {ra} replayed")
+            elif kernel is not None:
+                _require_graphs(f"tp_serve {name}", kernel, ca, ra, na)
+            out[name] = {"same": same, "replays": na, "launches": ca}
+            for k, v in ca.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        for obj in (*engines.values(), *batchers.values()):
+            obj.close()
+    secs = time.perf_counter() - t0
+    log(f"[tp_serve routes] (e) in {secs:.1f} s: every route on the group "
+        f"of one gives the unsharded route's tokens; launches "
+        f"{ {k: launched(k, total) for k in TP_ROUTE_KERNELS} }")
+    for k in TP_ROUTE_KERNELS:
+        if launched(k, total) <= 0:
+            raise AssertionError(f"tp_serve (e): {k} was not launched")
+    out["seconds"] = secs
+    return out, total
+
+
 def serve_tp(torch, card: str, ckpt) -> dict:
-    """Phase tp_serve: (a)-(d) of the module's docstring. -> the launch
-    counts of (a)'s TP burst."""
+    """Phase tp_serve: (a)-(e) of the module's docstring. -> the launch
+    counts of (a)'s TP burst and (e)'s routes on the group."""
     import torch.distributed as dist
 
     from eamg_tpu_torch.parallel.collectives import tensor_parallel
@@ -7942,8 +8104,13 @@ def serve_tp(torch, card: str, ckpt) -> dict:
         blocks = shard_params(params, mesh, tp=True, cfg=ckpt["cfg"])
         rec, counts = _tp_engine(torch, ckpt, params, blocks, tp)
         out.update(rec)
-        del params, blocks
         secs["ab_engine_ragged"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["e_routes"], routes = _tp_routes(torch, ckpt, params, blocks, tp)
+        for k, v in routes.items():
+            counts[k] = counts.get(k, 0) + v
+        del params, blocks
+        secs["e_routes"] = time.perf_counter() - t
     if dist.is_initialized():
         raise AssertionError("tp_serve: the phase's group was not left")
     t = time.perf_counter()
@@ -7952,7 +8119,7 @@ def serve_tp(torch, card: str, ckpt) -> dict:
     t = time.perf_counter()
     out["d_orbax"] = _tp_orbax(torch, ckpt)
     secs["d_orbax"] = time.perf_counter() - t
-    for name in TP_SERVE_KERNELS:
+    for name in TP_SERVE_KERNELS + TP_ROUTE_KERNELS:
         if launched(name, counts) <= 0:
             raise AssertionError(f"tp_serve: {name} was not launched")
     out["seconds"] = secs

@@ -11,10 +11,15 @@ bans and grammar constraints), the batch-1 speculative decodes
 
 ``Generator(..., tp=)`` holds a rank's blocks of tensor-parallel params
 (``parallel/mesh.py::shard_params(tp=True)``) and its
-``parallel.collectives.TensorParallel``: ``generate_ids`` (the cached
-decode), the window batcher and the continuous engine read it from here.
-On a group of more than one rank the routes that take no ``tp`` yet (the
-uncached loop, speculation, Medusa, lookup and beams) raise.
+``parallel.collectives.TensorParallel``. Every route takes it: the cached
+and the uncached decode, draft speculation (the draft a ``Generator`` on
+the same group, or whole on every rank), prompt lookup, Medusa and beams
+here, the window batcher and the continuous engine through it. Every rank
+of the group makes the same calls with the same arguments (JAX's single
+controller, SPMD), and each gets the whole, unsharded stream. On a group
+of more than one rank a route issues its steps from the host (no
+collective goes inside a captured graph); on a group of one it keeps its
+CUDA graphs. Int8 weights under ``tp`` are refused.
 """
 
 from __future__ import annotations
@@ -82,13 +87,6 @@ class Generator:
         self.eos_id = vocab.get(eos_token, -1)
         self.pad_id = vocab.get(pad_token, 0)
 
-    def _alone(self, what: str) -> None:
-        """Raise for a route with no tensor-parallel path on a group of
-        more than one rank."""
-        if self.tp is not None and self.tp.size > 1:
-            raise ValueError(f"{what} takes no tensor-parallel params yet "
-                             f"(a model group of {self.tp.size} ranks)")
-
     def max_supported_len(self, use_cache: bool = True) -> int:
         """Longest prompt + generation the positional table supports: the
         cached path reads positions up to max_len - 1, so min(seq_len,
@@ -139,8 +137,7 @@ class Generator:
                                    presplit_keys=presplit_keys,
                                    eager=self.eager, tp=self.tp)
         else:
-            self._alone("the uncached loop")
-            buf, pos = generate_full(*args, **common)
+            buf, pos = generate_full(*args, **common, tp=self.tp)
         return buf[:, :pos].cpu().numpy().astype(np.int32)
 
     def _spec_prompt(self, what: str, prompt_ids: list[int], max_len,
@@ -172,10 +169,16 @@ class Generator:
         as the proposer (``decode/speculative.py::generate_speculative``):
         the target's output distribution, greedy output equal to its plain
         greedy decode. Batch 1, corrected causal checkpoints, as JAX
-        asserts. -> [1, n] ids."""
+        asserts. -> [1, n] ids. Under ``tp`` the draft holds its blocks on
+        the target's group, or is whole on every rank (``tp=None``)."""
         from .speculative import generate_speculative
 
-        self._alone("draft speculation")
+        if draft.tp is not None and (
+                self.tp is None or draft.tp.group is not self.tp.group):
+            raise ValueError(
+                "the draft's tensor-parallel params are on another model "
+                "group than the target's: give the draft the target's "
+                "group, or its whole params (tp=None)")
         assert draft.vocab.tok2id == self.vocab.tok2id, \
             "draft and target must share a vocabulary"
         max_len = max_len or min(self.cfg.seq_len, draft.cfg.seq_len)
@@ -190,7 +193,7 @@ class Generator:
             self.cfg, draft.cfg, max_len, gamma=gamma,
             temperature=temperature, top_k=top_k, eos_id=self.eos_id,
             pad_id=self.pad_id, greedy=greedy, top_p=top_p, min_p=min_p,
-            eager=self.eager)
+            eager=self.eager, tp=self.tp, tp_d=draft.tp)
         return buf[:, :pos].numpy().astype(np.int32)
 
     def generate_ids_lookup(self, prompt_ids: list[int],
@@ -205,7 +208,6 @@ class Generator:
         decode. Batch 1, corrected causal checkpoints. -> [1, n] ids."""
         from .speculative import generate_prompt_lookup
 
-        self._alone("prompt-lookup speculation")
         max_len, prompt = self._spec_prompt(
             "prompt-lookup speculation", prompt_ids, max_len, gamma)
         if prompt is None:
@@ -216,7 +218,7 @@ class Generator:
             self.cfg, max_len, gamma=gamma, ngram=ngram,
             temperature=temperature, top_k=top_k, eos_id=self.eos_id,
             pad_id=self.pad_id, greedy=greedy, top_p=top_p, min_p=min_p,
-            eager=self.eager)
+            eager=self.eager, tp=self.tp)
         return buf[:, :pos].numpy().astype(np.int32)
 
     def generate_ids_medusa(self, heads: dict, prompt_ids: list[int],
@@ -232,7 +234,6 @@ class Generator:
         ids."""
         from .medusa import generate_medusa
 
-        self._alone("medusa decoding")
         gamma = min(gamma, len(heads["blocks"]))
         max_len, prompt = self._spec_prompt("medusa decoding", prompt_ids,
                                             max_len, gamma)
@@ -242,7 +243,8 @@ class Generator:
             self.params, heads, prompt, len(prompt_ids), prng.PRNGKey(seed),
             self.cfg, max_len, gamma=gamma, temperature=temperature,
             top_k=top_k, eos_id=self.eos_id, pad_id=self.pad_id,
-            greedy=greedy, top_p=top_p, min_p=min_p, eager=self.eager)
+            greedy=greedy, top_p=top_p, min_p=min_p, eager=self.eager,
+            tp=self.tp)
         return buf[:, :pos].numpy().astype(np.int32)
 
     def generate_ids_beam(self, prompt_ids: list[int],
@@ -257,7 +259,6 @@ class Generator:
         own FSM state."""
         from .beam import generate_beam, rank_beams
 
-        self._alone("beam search")
         max_len = min(max_len or self.cfg.seq_len, self.max_supported_len())
         p = len(prompt_ids)
         if p >= max_len:
@@ -269,7 +270,7 @@ class Generator:
         buf, gen_lens, scores = generate_beam(
             self.params, prompt, p, self.cfg, max_len, n_beams=n_beams,
             eos_id=self.eos_id, pad_id=self.pad_id, grammar=grammar,
-            eager=self.eager)
+            eager=self.eager, tp=self.tp)
         buf, gen_lens, scores, norm = rank_beams(
             buf.astype(np.int32), gen_lens.astype(np.int32), scores,
             length_penalty)

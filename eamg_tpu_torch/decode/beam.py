@@ -21,6 +21,13 @@ once every beam is done. Here blocks of steps replay one CUDA graph over a
 state on the device, and a step past that stop changes nothing: it would
 reorder the finished beams by score, so its writes are all masked. No
 randomness is involved.
+
+On tensor-parallel params (``tp=``: every rank of the model group runs
+the same search with its blocks, ``parallel/mesh.py::shard_params(
+tp=True)``) the caches hold the rank's K/V heads and the logits are
+gathered whole before the log-softmax, so every rank keeps the same
+beams. A group of more than one rank issues its steps from the host and
+stops at JAX's stop; a group of one keeps its graphs.
 """
 
 from __future__ import annotations
@@ -65,20 +72,22 @@ class BeamLoop:
     max_len + 1] (the last column is a step past the end's, dropped),
     ``pos`` [1], ``last``, ``done``, ``gen_len`` [K], ``scores`` [K] f32,
     with a grammar its tables ``gram`` and the beams' states ``gstate``
-    [K], and the graph of a block of steps."""
+    [K], and the graph of a block of steps. ``tp``: the model group (the
+    module's docstring)."""
 
     def __init__(self, params: dict, cfg: GPTConfig, n_beams: int,
                  max_len: int, eos_id: int, pad_id: int, device,
                  gram: dict | None = None, block: int = graphs.BLOCK,
-                 eager: bool = False):
+                 eager: bool = False, tp=None):
         dev = torch.device(device)
         K = n_beams
         self.params, self.cfg, self.K, self.gram = params, cfg, K, gram
+        self.tp = tp
         self.max_len, self.eos_id, self.pad_id = max_len, eos_id, pad_id
         self.block = block
         self.stream = graphs.side_stream(dev)
-        self.cache = init_kv_cache(cfg, K, max_len, device=dev)
-        self.cache1 = init_kv_cache(cfg, 1, max_len, device=dev)
+        self.cache = init_kv_cache(cfg, K, max_len, device=dev, tp=tp)
+        self.cache1 = init_kv_cache(cfg, 1, max_len, device=dev, tp=tp)
         self.buf = torch.zeros((K, max_len + 1), dtype=torch.int64,
                                device=dev)
         self.pos = torch.zeros((1,), dtype=torch.int64, device=dev)
@@ -91,7 +100,12 @@ class BeamLoop:
         self._rows = torch.arange(K, device=dev)
         self._pad = torch.where(torch.arange(cfg.vocab_size, device=dev)
                                 == pad_id, 0.0, _NEG)
-        self.graph = graphs.BlockGraph(self._block, dev, eager)
+        # a search issued from the host on a group stops where JAX's
+        # loop stops: a step after it changes nothing and would cost the
+        # group its collectives
+        self.on_group = graphs.on_group(tp)
+        self.graph = graphs.BlockGraph(self._block, dev,
+                                       eager or self.on_group)
 
     def running(self) -> torch.Tensor:
         """[1] bool: JAX's loop predicate."""
@@ -104,7 +118,7 @@ class BeamLoop:
         st, K = self, self.K
         P = prompt.shape[1]
         logits0, _ = prefill(st.params, prompt, st.cfg, st.cache1,
-                             prompt_len=prompt_len)
+                             prompt_len=prompt_len, tp=st.tp)
         for name in ("k", "v"):
             for dst, src in zip(st.cache[name], st.cache1[name]):
                 dst.copy_(src.expand_as(dst))
@@ -130,6 +144,8 @@ class BeamLoop:
 
     def _block(self) -> None:
         for _ in range(self.block):
+            if self.on_group and not bool(self.running().item()):
+                break
             self._step()
 
     def _step(self) -> None:
@@ -137,7 +153,7 @@ class BeamLoop:
         V = st.cfg.vocab_size
         run = st.running()
         logits, _ = decode_step(st.params, st.last[:, None], st.cache,
-                                st.cfg)
+                                st.cfg, tp=st.tp)
         if st.gram is not None:
             # before the softmax: the scores renormalize over the
             # continuations the grammar allows
@@ -177,17 +193,19 @@ class BeamLoop:
 
 def beam_state(params: dict, cfg: GPTConfig, n_beams: int, max_len: int,
                eos_id: int, pad_id: int, device, eager: bool = False,
-               grammar=None) -> tuple:
+               grammar=None, tp=None) -> tuple:
     """-> (the graph key of a :class:`BeamLoop`, a function that makes
     one), keyed as JAX's ``static_argnames``: cfg, max_len, K, eos, pad,
     and the grammar's tables (by identity: the graph reads them by
-    address)."""
+    address); and the model group, so that a sharded search and an
+    unsharded one never share a graph."""
     args = (cfg, int(n_beams), int(max_len), int(eos_id), int(pad_id),
             torch.device(device))
     gram = grammar_tables(grammar, device)
     key = ("beam", id(params), *args, bool(eager),
-           None if gram is None else id(gram))
-    return key, lambda: BeamLoop(params, *args, gram=gram, eager=eager)
+           None if gram is None else id(gram), id(tp))
+    return key, lambda: BeamLoop(params, *args, gram=gram, eager=eager,
+                                 tp=tp)
 
 
 @torch.no_grad()
@@ -195,7 +213,7 @@ def generate_beam(params: dict, prompt: torch.Tensor, prompt_len: int,
                   cfg: GPTConfig, max_len: int, n_beams: int = 4,
                   eos_id: int = -1, pad_id: int = 0,
                   length_penalty: float = 1.0, grammar=None,
-                  eager: bool = False):
+                  eager: bool = False, tp=None):
     """prompt [1, P] (a bucket, on the params' device) -> (buf [K,
     max_len], gen_lens [K], scores [K]) as numpy, unsorted: each row the
     prompt and its hypothesis (PAD-padded), the generated tokens (EOS
@@ -203,14 +221,15 @@ def generate_beam(params: dict, prompt: torch.Tensor, prompt_len: int,
     :func:`rank_beams` (``length_penalty`` is the ranking's, unused here,
     as in JAX). ``eos_id < 0`` runs every beam to ``max_len``.
     ``grammar``: a ``decode.grammar.Grammar`` (or its ``arrays``) or None:
-    each beam constrained by its own FSM state."""
+    each beam constrained by its own FSM state. ``tp``: the model group,
+    ``params`` this rank's blocks (the module's docstring)."""
     assert prompt.shape[0] == 1, \
         "beam search expands ONE prompt into K hypotheses"
     assert cfg.pos_broadcast_bug or max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
         f"(n_pos={cfg.n_pos})")
     key, make = beam_state(params, cfg, n_beams, max_len, eos_id, pad_id,
-                           prompt.device, eager, grammar)
+                           prompt.device, eager, grammar, tp)
     with graphs.pooled(key, make) as st, graphs.on_stream(st.stream):
         st.start(prompt, prompt_len)
         n_blocks = -(-(max_len - prompt_len - 1) // st.block)

@@ -125,6 +125,14 @@ class BlockGraph:
              global_captures=int(self.capture_error_mode == "global"))
 
 
+def on_group(*groups) -> bool:
+    """Whether one of ``groups`` (``parallel.collectives.TensorParallel``
+    or None) has more than one rank. A decode on it issues its steps from
+    the host, since no collective goes inside a captured graph; a group of
+    one takes no collective and keeps its graphs."""
+    return any(tp is not None and tp.size > 1 for tp in groups)
+
+
 def state_for(key: tuple, make):
     """The decode state cached under ``key`` (made by ``make()`` the first
     time), moved to the most recently used end; at most

@@ -39,7 +39,9 @@ summed over the group (K2's ``b2`` added once, after the sum), and the
 logits are gathered whole before the sampler (K4 sees every row whole),
 so every rank samples the same stream, the unsharded one. A group of more
 than one rank issues its steps from the host (no collective inside a
-captured graph).
+captured graph); a group of one keeps its graphs. ``generate_full(...,
+tp=)`` re-encodes the prefix through ``forward_masked(..., tp=)``, the
+same way.
 """
 
 from __future__ import annotations
@@ -249,8 +251,7 @@ def generate_kv(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
     ``tp``: a ``parallel.collectives.TensorParallel`` and ``params`` this
     rank's blocks (the module's docstring)."""
     B, P = prompt.shape
-    if tp is not None and tp.size > 1:
-        eager = True
+    eager = eager or graphs.on_group(tp)
     assert cfg.pos_broadcast_bug or max_len <= cfg.n_pos, (
         f"max_len={max_len} exceeds the positional table "
         f"(n_pos={cfg.n_pos}); cap decode length at cfg.n_pos")
@@ -365,15 +366,15 @@ def generate_full(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
                   greedy: bool = False, mask_value: float = -1e10,
                   top_p: float = 1.0, min_p: float = 0.0,
                   penalties: tuple | None = None, no_repeat_ngram: int = 0,
-                  grammar=None):
+                  grammar=None, tp=None):
     """Uncached generation (the reference's ``sample()``): every step
     re-encodes the whole prefix through ``forward_masked`` at one shape,
     [B, max_len - 1] with the first ``pos`` positions valid. Arguments and
-    result as :func:`generate_kv`; a key is split off every step, and the
-    loop looks at the rows' done flags every step. The temperature and the
-    penalties go to the sampler as tensors on the device, filled once: JAX
-    traces them, so it divides by them, where a division by a host float
-    is a multiply by its reciprocal on CUDA."""
+    result as :func:`generate_kv` (``tp`` too); a key is split off every
+    step, and the loop looks at the rows' done flags every step. The
+    temperature and the penalties go to the sampler as tensors on the
+    device, filled once: JAX traces them, so it divides by them, where a
+    division by a host float is a multiply by its reciprocal on CUDA."""
     B = prompt.shape[0]
     dev = prompt.device
     T = max_len - 1   # the reference never re-encodes the final token
@@ -391,7 +392,8 @@ def generate_full(params: dict, prompt: torch.Tensor, prompt_len: int, rng,
     pos = prompt_len
     while pos < max_len and not bool(done.all()):
         rng, sub = prng.split(rng)
-        logits = forward_masked(params, buf[:, :T], cfg, valid_len=pos)
+        logits = forward_masked(params, buf[:, :T], cfg, valid_len=pos,
+                                tp=tp)
         last_logits = apply_no_repeat_ngram(logits[:, pos - 1], buf, pos,
                                             ngram, mask_value)
         if gram is not None:

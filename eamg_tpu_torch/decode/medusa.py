@@ -54,12 +54,14 @@ def _stack_heads(heads: dict, gamma: int | None = None, device=None):
 
 
 def _head_logits(w: torch.Tensor, b: torch.Tensor, params: dict,
-                 h: torch.Tensor) -> torch.Tensor:
+                 h: torch.Tensor, tp=None) -> torch.Tensor:
     """Stacked heads on one hidden state: h [D] -> [g, V] f32 (the f32
-    heads promote the hidden state to f32, as JAX's einsum does)."""
+    heads promote the hidden state to f32, as JAX's einsum does). Under
+    ``tp`` the heads are whole on every rank and act on the whole hidden
+    state; the base head's vocabulary rows are gathered."""
     h32 = h.float()
     return _head(params, h32[None] + torch.nn.functional.silu(
-        torch.einsum("gde,e->gd", w, h32) + b))
+        torch.einsum("gde,e->gd", w, h32) + b), tp)
 
 
 def medusa_logits(heads: dict, params: dict, h: torch.Tensor) -> torch.Tensor:
@@ -78,19 +80,22 @@ def generate_medusa(params: dict, heads: dict, prompt: torch.Tensor,
                     gamma: int = 4, temperature: float = 1.0,
                     top_k: int = 50, eos_id: int = -1, pad_id: int = 0,
                     greedy: bool = False, top_p: float = 1.0,
-                    min_p: float = 0.0, eager: bool = False):
+                    min_p: float = 0.0, eager: bool = False, tp=None):
     """prompt [1, P] (a bucket, on the params' device), ``rng`` a
     ``prng.PRNGKey`` -> (tokens [1, max_len] int64 on the host, n_tokens,
     n_verify_steps). ``gamma`` heads (at most as many as ``heads`` has)
     propose a verify step's tokens; (n_tokens - prompt_len) /
     n_verify_steps is the speculation's gain. ``eager=True`` issues every
-    iteration from the host instead of replaying graphs, to compare."""
+    iteration from the host instead of replaying graphs, to compare.
+    ``tp``: the model group, ``params`` this rank's blocks
+    (``speculative.SpecLoop``); the heads stay whole on every rank."""
     assert len(heads["blocks"]) >= gamma >= 1
     assert prompt.shape[0] == 1, \
         "medusa decoding is a batch-1 latency optimization"
     key, make = spec_state(params, cfg, "medusa", max_len, gamma,
                            K_VERIFIES, top_k, greedy, top_p, min_p, eos_id,
-                           pad_id, prompt.device, heads=heads, eager=eager)
+                           pad_id, prompt.device, heads=heads, eager=eager,
+                           tp=tp)
     with graphs.pooled(key, make) as st:
         return run_to_end(st, prompt, prompt_len, rng, temperature, top_p,
                           min_p)

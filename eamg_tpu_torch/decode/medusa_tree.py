@@ -89,12 +89,14 @@ def _top_b(logits: torch.Tensor, b: int) -> torch.Tensor:
 def generate_medusa_tree(params: dict, heads: dict, prompt: torch.Tensor,
                          prompt_len: int, cfg: GPTConfig, max_len: int,
                          tree: tuple = DEFAULT_TREE, eos_id: int = -1,
-                         pad_id: int = 0, eager: bool = False):
+                         pad_id: int = 0, eager: bool = False, tp=None):
     """Greedy tree-verified decode: prompt [1, P] (a bucket, on the
     params' device) -> (tokens [1, max_len] int64 on the host, n_tokens,
     n_verify_steps). The output is the plain greedy decode's; tokens a
     verify step is the gain. ``eager=True`` issues every iteration from
-    the host instead of replaying graphs, to compare the two."""
+    the host instead of replaying graphs, to compare the two. ``tp``: the
+    model group, ``params`` this rank's blocks (``speculative.SpecLoop``);
+    the heads stay whole on every rank."""
     assert cfg.causal and not cfg.pos_broadcast_bug
     tb = tree_tables(tree)
     assert len(heads["blocks"]) >= tb["n_heads"]
@@ -103,6 +105,6 @@ def generate_medusa_tree(params: dict, heads: dict, prompt: torch.Tensor,
     key, make = spec_state(params, cfg, "tree", max_len, tb["gamma"],
                            K_VERIFIES, 0, True, 1.0, 0.0, eos_id, pad_id,
                            prompt.device, heads=heads, eager=eager,
-                           tree=tuple(tree))
+                           tree=tuple(tree), tp=tp)
     with graphs.pooled(key, make) as st:
         return run_to_end(st, prompt, prompt_len, (0, 0), 1.0, 1.0, 0.0)

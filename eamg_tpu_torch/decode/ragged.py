@@ -42,8 +42,9 @@ collective inside a captured graph); a group of one keeps its graphs
 ``decode_block_ragged`` is the ragged verify step of the engine's Medusa
 rows: [B, W] blocks at per-row lengths, each row computed as the solo
 verify step computes it (``models/gpt.py::decode_block`` over a head-major
-copy of the row's cache with W more slots), so an engine Medusa row gives
-its solo Medusa run's bits.
+copy of the row's cache with W more slots; under ``tp`` a copy of the
+rank's K/V heads), so an engine Medusa row gives its solo Medusa run's
+bits.
 """
 
 from __future__ import annotations
@@ -122,11 +123,12 @@ def decode_step_ragged(params: dict, last: torch.Tensor, cache: dict,
 
 
 def verify_scratch(cfg: GPTConfig, max_len: int, width: int,
-                   device=None) -> dict:
+                   device=None, tp=None) -> dict:
     """The head-major cache one row of a ragged verify runs on: the
     ragged cache's ``max_len`` slots and ``width`` more (the solo verify's
-    ``max_len + gamma + 1`` for a block of gamma + 1)."""
-    return init_kv_cache(cfg, 1, max_len + width, device=device)
+    ``max_len + gamma + 1`` for a block of gamma + 1); under ``tp`` this
+    rank's K/V heads, as its ragged cache holds."""
+    return init_kv_cache(cfg, 1, max_len + width, device=device, tp=tp)
 
 
 def load_row(cache: dict, b: int, scratch: dict) -> None:
@@ -165,7 +167,8 @@ def store_row(cache: dict, b: int, scratch: dict, width: int) -> None:
 
 @torch.no_grad()
 def decode_block_ragged(params: dict, block: torch.Tensor, cache: dict,
-                        cfg: GPTConfig, scratch: dict | None = None):
+                        cfg: GPTConfig, scratch: dict | None = None,
+                        tp=None):
     """[B, W] token blocks from per-row positions t = lengths -> ([B, W, V]
     f32 logits, [B, W, D] hidden states, the cache with the W entries
     written where it has slots and ``lengths`` unchanged: the caller
@@ -176,17 +179,18 @@ def decode_block_ragged(params: dict, block: torch.Tensor, cache: dict,
     cache with W more slots: the row's queries see its cached prefix and
     the block up to themselves, the block's own keys past the ragged
     cache's end included, and every product has the shape of the solo
-    verify step's."""
+    verify step's. ``tp``: the model group, ``params`` this rank's blocks
+    and the caches its K/V heads; the logits and states are whole."""
     assert cfg.causal and not cfg.pos_broadcast_bug
     B, W = block.shape
     if scratch is None:
         scratch = verify_scratch(cfg, cache["kv"][0].shape[1], W,
-                                 block.device)
+                                 block.device, tp)
     logits, hidden = [], []
     for b in range(B):
         load_row(cache, b, scratch)
         lg, h, _ = decode_block(params, block[b:b + 1], scratch, cfg,
-                                return_hidden=True)
+                                return_hidden=True, tp=tp)
         store_row(cache, b, scratch, W)
         logits.append(lg[0])
         hidden.append(h[0])
@@ -287,7 +291,7 @@ class RaggedGraph:
                          eos_id=eos_id, pad_id=pad_id, top_p=top_p,
                          per_row=per_row, log_mp=log_mp, ngram=ngram,
                          gram=gram, tp=tp)
-        eager = eager or (tp is not None and tp.size > 1)
+        eager = eager or graphs.on_group(tp)
         B = st["buf"].shape[0]
         self.keys = None if greedy else torch.zeros(
             (block, B, 2), dtype=torch.int64, device=dev)

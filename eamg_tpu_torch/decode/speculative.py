@@ -95,7 +95,7 @@ def _padded_prompt(prompt_ids, width: int, pad_id: int, device):
 def medusa_verify(params: dict, cfg: GPTConfig, hw: torch.Tensor,
                   hb: torch.Tensor, h_last: torch.Tensor, last: torch.Tensor,
                   cache: dict, filt, greedy: bool, gumbel_d=None,
-                  uniform=None, gumbel_r=None):
+                  uniform=None, gumbel_r=None, tp=None):
     """One Medusa verify of one request (JAX's ``_make_medusa_body`` up to
     the window): the stacked heads ``hw``/``hb`` propose g tokens from
     ``h_last`` [D], the block [last, d_1..d_g] is verified by one
@@ -106,11 +106,14 @@ def medusa_verify(params: dict, cfg: GPTConfig, hw: torch.Tensor,
     ``gumbel_d`` [g, V], ``uniform`` [g], ``gumbel_r`` [V]. -> (d [g], n,
     t_new, h_rows [g + 1, D], logits [g + 1, V]): the block's hidden
     state h_rows[j] is the one whose base head predicts window token j.
-    The solo loop and the engine's Medusa rows both verify through it."""
+    The solo loop and the engine's Medusa rows both verify through it.
+    ``tp``: the model group, ``params`` this rank's blocks and ``cache``
+    its K/V heads; the heads, hidden states and logits are whole on every
+    rank, so every rank draws the same tokens."""
     from .medusa import _head_logits
 
     g = hw.shape[0]
-    head_lg = _head_logits(hw, hb, params, h_last)          # [g, V]
+    head_lg = _head_logits(hw, hb, params, h_last, tp)      # [g, V]
     q = None
     if greedy:
         d = torch.argmax(head_lg, -1)
@@ -118,7 +121,7 @@ def medusa_verify(params: dict, cfg: GPTConfig, hw: torch.Tensor,
         q = filt(head_lg)                                   # [g, V]
         d = _categorical_log(gumbel_d, q)
     logits, h, _ = decode_block(params, torch.cat([last, d])[None], cache,
-                                cfg, return_hidden=True)
+                                cfg, return_hidden=True, tp=tp)
     logits = logits[0]                                      # [g + 1, V]
     if greedy:
         # acceptance is d_k == the target's argmax, the residual its
@@ -154,8 +157,8 @@ class SpecLoop:
     of the buffer matched in its history), ``"medusa"`` (the stacked
     heads ``hw`` [g, D, D], ``hb`` [g, D], f32, on the hidden state of the
     last accepted token), ``"draft"`` (a draft model's ``gamma`` sampled
-    steps: ``draft`` is its (params, cfg), with a head-major cache of its
-    own) or ``"tree"`` (greedy only: the heads' top-b candidates arranged
+    steps: ``draft`` is its (params, cfg, tp), with a head-major cache of
+    its own) or ``"tree"`` (greedy only: the heads' top-b candidates arranged
     as the tree ``tree``, verified by one tree-attention forward,
     ``decode/medusa_tree.py``). The state: ``cache`` (head-major, ``slack
     = max_len + gamma + 1`` slots, ``max_len + N + 1`` for a tree of N
@@ -167,18 +170,29 @@ class SpecLoop:
     values ``temp``, ``top_p``, ``log_mp`` as in ``loop.SoloLoop``;
     ``keys`` [k_verifies, n_keys, 2], a chunk's keys (the proposals', then
     the acceptance's and the residual's); ``packed`` [slack + 2], the
-    buffer, pos and done as one copy for the host."""
+    buffer, pos and done as one copy for the host.
+
+    ``tp``: a ``parallel.collectives.TensorParallel`` and ``params`` this
+    rank's blocks; the caches hold its K/V heads, and every rank of the
+    group runs the same loop (the hidden states, the logits and so the
+    tokens and the host's reads are whole and the same on every rank). A
+    draft is on the same group (its own ``tp``) or whole on every rank
+    (``tp`` None: every rank runs the same draft steps on the same keys).
+    On a group of more than one rank the iterations are issued from the
+    host (``graphs.on_group``), and a chunk stops at the first iteration
+    after the request ended; a group of one keeps its graphs."""
 
     def __init__(self, params: dict, cfg: GPTConfig, propose: str,
                  max_len: int, gamma: int, k_verifies: int, top_k: int,
                  greedy: bool, top_p_on: bool, min_p_on: bool, eos_id: int,
                  pad_id: int, device, heads=None, ngram: int = 3,
                  eager: bool = False, draft: tuple | None = None,
-                 tree: tuple | None = None):
+                 tree: tuple | None = None, tp=None):
         assert cfg.causal and not cfg.pos_broadcast_bug, \
             "speculative decoding requires the corrected causal config"
         dev = torch.device(device)
         self.params, self.cfg, self.propose = params, cfg, propose
+        self.tp = tp
         self.max_len, self.k_verifies = max_len, k_verifies
         self.top_k, self.greedy, self.ngram = top_k, greedy, ngram
         self.eos_id, self.pad_id = eos_id, pad_id
@@ -208,7 +222,7 @@ class SpecLoop:
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        self.cache = init_kv_cache(cfg, 1, slack, device=dev)
+        self.cache = init_kv_cache(cfg, 1, slack, device=dev, tp=tp)
         self.buf = zeros((1, slack + gamma + 1), torch.int64)
         self.pos = zeros((1,), torch.int64)
         self.last = zeros((1,), torch.int64)
@@ -230,18 +244,25 @@ class SpecLoop:
                 heads, gamma if propose == "medusa" else n_heads, dev)
             self.h_last = zeros((cfg.d_model,), cfg.torch_dtype)
         elif propose == "draft":
-            params_d, cfg_d = draft
+            params_d, cfg_d, tp_d = draft
             assert cfg_d.causal and not cfg_d.pos_broadcast_bug
             assert cfg_d.n_pos >= max_len + gamma
-            self.draft = (params_d, cfg_d)
-            self.draft_cache = init_kv_cache(cfg_d, 1, slack, device=dev)
+            self.draft = draft
+            self.draft_cache = init_kv_cache(cfg_d, 1, slack, device=dev,
+                                             tp=tp_d)
         elif propose != "lookup":
             raise ValueError(f"propose {propose!r}: 'lookup', 'medusa', "
                              "'draft' or 'tree'")
         self._idx = torch.arange(gamma + 1, device=dev)
         self._vocab = torch.arange(cfg.vocab_size, device=dev)
         self._hist = torch.arange(slack, device=dev)
-        self.graph = graphs.BlockGraph(self._chunk, dev, eager)
+        # a loop issued from the host on a group stops where JAX's loop
+        # stops: an iteration after it changes nothing and would cost the
+        # group its collectives
+        self.on_group = graphs.on_group(tp, None if draft is None
+                                        else draft[2])
+        self.graph = graphs.BlockGraph(self._chunk, dev,
+                                       eager or self.on_group)
 
     # ---------------------------------------------------------------- start
 
@@ -254,10 +275,10 @@ class SpecLoop:
         st, cfg = self, self.cfg
         P = prompt.shape[1]
         logits0, _ = prefill(st.params, prompt, cfg, st.cache,
-                             prompt_len=prompt_len)
+                             prompt_len=prompt_len, tp=st.tp)
         if st.draft is not None:
             prefill(st.draft[0], prompt, st.draft[1], st.draft_cache,
-                    prompt_len=prompt_len)
+                    prompt_len=prompt_len, tp=st.draft[2])
         st.temp.fill_(float(temperature))
         if isinstance(st.top_p, torch.Tensor):
             st.top_p.fill_(float(top_p))
@@ -337,6 +358,9 @@ class SpecLoop:
                 prng.bits_keys(self.keys[:, -2], (g,)))
             self._gumbel_r = prng.gumbel(self.keys[:, -1], (V,))
         for i in range(self.k_verifies):
+            if self.on_group and not bool(
+                    ((self.pos < self.max_len) & ~self.done).item()):
+                break
             self._iteration(i)
         s = self.slack
         self.packed[:s].copy_(self.buf[0, :s])
@@ -374,14 +398,15 @@ class SpecLoop:
     def _medusa(self, i: int):
         d, n, t_new, h_rows, _ = medusa_verify(
             self.params, self.cfg, self.hw, self.hb, self.h_last, self.last,
-            self.cache, self._filtered, self.greedy, *self._noise(i))
+            self.cache, self._filtered, self.greedy, *self._noise(i),
+            tp=self.tp)
         return d, n, t_new, h_rows
 
     def _lookup(self, i: int):
         st, g = self, self.gamma
         d = st._lookup_proposal()
         logits, _ = decode_block(st.params, torch.cat([st.last, d * (d >= 0)])
-                                 [None], st.cache, st.cfg)
+                                 [None], st.cache, st.cfg, tp=st.tp)
         p = st._filtered(logits[0])                          # [g + 1, V]
         p_d = torch.where(d >= 0, p[:g].gather(1, d.clamp(min=0)[:, None])
                           [:, 0], 0.0)
@@ -398,12 +423,12 @@ class SpecLoop:
         """gamma + 1 draft steps (the last only writes d_gamma's K/V into
         the draft's cache), then one target verify of [last, d_1..d_g]."""
         st, g = self, self.gamma
-        params_d, cfg_d = st.draft
+        params_d, cfg_d, tp_d = st.draft
         gumbel_d = st._gumbel_d[i] if st.keys is not None else None
         cur, toks, qs = st.last, [], []
         for j in range(g + 1):
             logits_d, _ = decode_step(params_d, cur[None], st.draft_cache,
-                                      cfg_d)
+                                      cfg_d, tp=tp_d)
             if j < g:
                 if st.greedy:
                     cur = torch.argmax(logits_d, -1)
@@ -414,7 +439,7 @@ class SpecLoop:
                 toks.append(cur)
         d = torch.cat(toks)                                  # [g]
         logits, _ = decode_block(st.params, torch.cat([st.last, d])[None],
-                                 st.cache, st.cfg)
+                                 st.cache, st.cfg, tp=st.tp)
         logits = logits[0]                                   # [g + 1, V]
         if st.greedy:
             # one-hot p and q: accepted while d is the target's argmax, the
@@ -443,12 +468,13 @@ class SpecLoop:
         from .medusa_tree import _top_b
 
         st, g, tb = self, self.gamma, self.tables
-        cand = _top_b(_head_logits(st.hw, st.hb, st.params, st.h_last),
-                      st.b_max)                              # [heads, b]
+        cand = _top_b(_head_logits(st.hw, st.hb, st.params, st.h_last,
+                                   st.tp), st.b_max)         # [heads, b]
         tok = torch.cat([st.last, cand[tb["head"][1:], tb["rank"][1:]]])
         N = tok.shape[0]
         logits, h_block, _ = decode_tree(st.params, tok[None], tb["depth"],
-                                         tb["anc"], st.cache, st.cfg)
+                                         tb["anc"], st.cache, st.cfg,
+                                         tp=st.tp)
         t_pred = torch.argmax(logits[0], -1)                 # [N]
         matched = tok == t_pred.index_select(0, tb["parent"])
         # a node is on an accepted path when it and each of its ancestors
@@ -519,21 +545,23 @@ def spec_state(params: dict, cfg: GPTConfig, propose: str, max_len: int,
                gamma: int, k_verifies: int, top_k: int, greedy: bool,
                top_p, min_p, eos_id: int, pad_id: int, device, heads=None,
                ngram: int = 3, eager: bool = False, draft: tuple | None = None,
-               tree: tuple | None = None) -> tuple:
+               tree: tuple | None = None, tp=None) -> tuple:
     """-> (the graph key of a :class:`SpecLoop`, a function that makes
     one): what JAX's ``static_argnames`` key its jits by (cfg, max_len and
     the cache's slack, k_verifies, gamma, ngram, top_k, greedy, whether
     top-p and min-p are on, the draft's config, the tree), never a value a
-    request fills in."""
+    request fills in; and the model groups of the target and the draft,
+    so that a sharded loop and an unsharded one never share a graph."""
     top_p_on = top_p is not None and float(top_p) < 1.0
     min_p_on = min_p is not None and float(min_p) > 0.0
     args = (cfg, propose, int(max_len), int(gamma), int(k_verifies),
             int(top_k), bool(greedy), top_p_on, min_p_on, int(eos_id),
             int(pad_id), torch.device(device))
     key = ("spec", id(params), id(heads), *args, int(ngram), bool(eager),
-           None if draft is None else (id(draft[0]), draft[1]), tree)
+           None if draft is None else (id(draft[0]), draft[1],
+                                       id(draft[2])), tree, id(tp))
     return key, lambda: SpecLoop(params, *args, heads=heads, ngram=ngram,
-                                 eager=eager, draft=draft, tree=tree)
+                                 eager=eager, draft=draft, tree=tree, tp=tp)
 
 
 def spec_chunks(st: SpecLoop, emitted: int):
@@ -580,7 +608,8 @@ def generate_prompt_lookup(params: dict, prompt: torch.Tensor,
                            temperature: float = 1.0, top_k: int = 50,
                            eos_id: int = -1, pad_id: int = 0,
                            greedy: bool = False, top_p: float = 1.0,
-                           min_p: float = 0.0, eager: bool = False):
+                           min_p: float = 0.0, eager: bool = False,
+                           tp=None):
     """Draft-free speculative decoding (prompt-lookup / n-gram
     speculation): each iteration proposes the ``gamma`` tokens that
     followed the most recent earlier occurrence of the trailing ``ngram``
@@ -592,13 +621,14 @@ def generate_prompt_lookup(params: dict, prompt: torch.Tensor,
     prompt [1, P] (a bucket, on the params' device), ``rng`` a
     ``prng.PRNGKey``. -> (tokens [1, max_len] int64 on the host, n_tokens,
     n_verify_steps). ``eager=True`` issues every iteration from the host
-    instead of replaying graphs, to compare the two."""
+    instead of replaying graphs, to compare the two. ``tp``: the model
+    group, ``params`` this rank's blocks (:class:`SpecLoop`)."""
     assert ngram >= 1 and gamma >= 1
     assert prompt.shape[0] == 1, \
         "prompt-lookup decoding is a batch-1 latency optimization"
     key, make = spec_state(params, cfg, "lookup", max_len, gamma, K_VERIFIES,
                            top_k, greedy, top_p, min_p, eos_id, pad_id,
-                           prompt.device, ngram=ngram, eager=eager)
+                           prompt.device, ngram=ngram, eager=eager, tp=tp)
     with graphs.pooled(key, make) as st:
         return run_to_end(st, prompt, prompt_len, rng, temperature, top_p,
                           min_p)
@@ -612,7 +642,8 @@ def generate_speculative(params_t: dict, params_d: dict, prompt: torch.Tensor,
                          temperature: float = 1.0, top_k: int = 50,
                          eos_id: int = -1, pad_id: int = 0,
                          greedy: bool = False, top_p: float = 1.0,
-                         min_p: float = 0.0, eager: bool = False):
+                         min_p: float = 0.0, eager: bool = False,
+                         tp=None, tp_d=None):
     """Draft-model speculative decoding: the draft proposes ``gamma``
     tokens with its own sampled steps, the target verifies them in one
     block forward, proposals are accepted with probability min(1, p/q),
@@ -625,7 +656,10 @@ def generate_speculative(params_t: dict, params_d: dict, prompt: torch.Tensor,
     prompt [1, P] (a bucket, on the params' device), ``rng`` a
     ``prng.PRNGKey`` -> (tokens [1, max_len] int64 on the host, n_tokens),
     JAX's result. ``eager=True`` issues every iteration from the host
-    instead of replaying graphs, to compare the two."""
+    instead of replaying graphs, to compare the two. ``tp``: the target's
+    model group, ``params_t`` this rank's blocks; ``tp_d``: the draft's,
+    the same group or None (the draft whole on every rank)
+    (:class:`SpecLoop`)."""
     assert cfg_t.causal and cfg_d.causal, "speculative requires causal"
     assert not (cfg_t.pos_broadcast_bug or cfg_d.pos_broadcast_bug)
     assert prompt.shape[0] == 1, \
@@ -636,7 +670,7 @@ def generate_speculative(params_t: dict, params_d: dict, prompt: torch.Tensor,
     key, make = spec_state(params_t, cfg_t, "draft", max_len, gamma,
                            K_VERIFIES, top_k, greedy, top_p, min_p, eos_id,
                            pad_id, prompt.device, eager=eager,
-                           draft=(params_d, cfg_d))
+                           draft=(params_d, cfg_d, tp_d), tp=tp)
     with graphs.pooled(key, make) as st:
         buf, pos, _ = run_to_end(st, prompt, prompt_len, rng, temperature,
                                  top_p, min_p)

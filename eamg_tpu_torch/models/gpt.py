@@ -62,6 +62,14 @@ no-drop path, so a decode step, a full forward and an engine row agree;
 the training forward with a loss sink (``forward_hidden_with_aux``) uses
 the capacity-bounded dispatch and collects each MoE layer's load-balance
 loss, as JAX's trainer does. Dense layers of such a model stay on K2.
+
+Every inference function takes ``tp=``: a ``parallel.collectives.
+TensorParallel`` and ``params`` this rank's blocks
+(``parallel/mesh.py::shard_params(tp=True)``). A layer then runs this
+rank's query and K/V heads (a cache of its K/V heads), its FF columns
+and its vocabulary rows; the out-projection and K2's partial sums are
+summed over the model group and the logits gathered, so the hidden states
+and the logits are whole on every rank. ``tp=None`` issues no collective.
 """
 
 from __future__ import annotations
@@ -466,24 +474,29 @@ def _head(params, x, tp=None):
 
 
 @torch.no_grad()
-def forward(params: dict, ids: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """Full-sequence forward: [B, T] ids -> [B, T, V] f32 logits."""
-    return _head(params, forward_hidden(params, ids, cfg))
+def forward(params: dict, ids: torch.Tensor, cfg: GPTConfig,
+            tp=None) -> torch.Tensor:
+    """Full-sequence forward: [B, T] ids -> [B, T, V] f32 logits. ``tp``:
+    this rank's heads, FF columns and vocabulary rows (:func:`block`,
+    :func:`_head`), the logits whole on every rank."""
+    return _head(params, forward_hidden(params, ids, cfg, tp=tp), tp)
 
 
 @torch.no_grad()
-def forward_hidden(params: dict, ids: torch.Tensor,
-                   cfg: GPTConfig) -> torch.Tensor:
+def forward_hidden(params: dict, ids: torch.Tensor, cfg: GPTConfig,
+                   valid_len=None, tp=None) -> torch.Tensor:
     """The transformer stack without the head: [B, T] ids -> [B, T, D]
     states in the activation dtype (the Medusa probe applies the heads to
-    them)."""
+    them), whole on every rank under ``tp``. ``valid_len`` ([B] int32):
+    keys at or past it are masked for every query."""
     T = ids.shape[1]
     x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
     if cfg.batch_first_bug:
         # the reference encoder read [B, T, C] as [T, B, C]
         x = x.transpose(0, 1).contiguous()
     for p in params["layers"]:
-        x, _, _ = block(p, x, cfg, causal=cfg.causal)
+        x, _, _ = block(p, x, cfg, causal=cfg.causal, valid_len=valid_len,
+                        tp=tp)
     if cfg.batch_first_bug:
         x = x.transpose(0, 1)
     return x
@@ -491,21 +504,17 @@ def forward_hidden(params: dict, ids: torch.Tensor,
 
 @torch.no_grad()
 def forward_masked(params: dict, ids: torch.Tensor, cfg: GPTConfig,
-                   valid_len: int) -> torch.Tensor:
+                   valid_len: int, tp=None) -> torch.Tensor:
     """:func:`forward` with only the first ``valid_len`` positions present:
     keys past them are masked for every query, as if ``ids[:, :valid_len]``
     had been given. The uncached loop calls it at one shape for every
     prefix length. With ``batch_first_bug`` it is plain :func:`forward`, as
     in the JAX package."""
     if cfg.batch_first_bug:
-        return forward(params, ids, cfg)
-    B, T = ids.shape
-    x = _embed(params, ids, params["pos"][:T], cfg.torch_dtype)
-    valid = torch.full((B,), int(valid_len), dtype=torch.int32,
+        return forward(params, ids, cfg, tp=tp)
+    valid = torch.full((ids.shape[0],), int(valid_len), dtype=torch.int32,
                        device=ids.device)
-    for p in params["layers"]:
-        x, _, _ = block(p, x, cfg, causal=cfg.causal, valid_len=valid)
-    return _head(params, x)
+    return _head(params, forward_hidden(params, ids, cfg, valid, tp), tp)
 
 
 # ------------------------------------------------------- training forward
@@ -891,16 +900,6 @@ def decode_step(params: dict, last_ids: torch.Tensor, cache: dict,
     return _head(params, x, tp)[:, 0], cache
 
 
-def _block_attention(q, k_cache, v_cache, q_pos):
-    """Cached attention of a block of queries at positions ``q_pos`` ([G],
-    on the device): each attends to the keys at or before its position.
-
-    q [B, H, G, Dh], caches [B, Hkv, M, Dh] -> [B, H, G, Dh]."""
-    M = k_cache.shape[2]
-    valid = torch.arange(M, device=q.device)[None, :] <= q_pos[:, None]
-    return _masked_attention(q, k_cache, v_cache, valid)
-
-
 def _masked_attention(q, k_cache, v_cache, valid):
     """Cached attention of G queries, query g seeing the keys where
     ``valid`` [G, M] is true. JAX's XLA math (models/gpt.py ``_gqa_scores``
@@ -919,9 +918,34 @@ def _masked_attention(q, k_cache, v_cache, valid):
     return out.reshape(B, H, G, Dh)
 
 
+def _block_layers(params: dict, x: torch.Tensor, cache: dict, slots, valid,
+                  cfg: GPTConfig, tp=None) -> torch.Tensor:
+    """The layers of a cached block of G queries (:func:`decode_block`,
+    :func:`decode_tree`): each writes the block's K/V to ``slots`` ([G], on
+    the device) of its head-major cache and attends where ``valid`` [G, M]
+    is true. ``tp``: this rank's heads (a cache of them) and FF columns,
+    the out-projection and K2's partial sums summed over the model group,
+    so x stays whole on every rank. x [B, G, D] -> [B, G, D]."""
+    H, Hkv = _qkv_dims(cfg, tp)
+    D, KVD = H * cfg.head_dim, Hkv * cfg.head_dim
+    mlp = _mlp_for(tp)
+    for li, p in enumerate(params["layers"]):
+        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
+                      p["attn"]["in_b"])
+        q = _heads(qkv[..., :D], H)                          # [B,H,G,Dh]
+        cache["k"][li].index_copy_(2, slots, _heads(qkv[..., D:D + KVD], Hkv))
+        cache["v"][li].index_copy_(2, slots, _heads(qkv[..., D + KVD:], Hkv))
+        attn_out = _unheads(_masked_attention(q, cache["k"][li],
+                                              cache["v"][li], valid))
+        attn_out = _row_linear(attn_out, p["attn"]["out_w"],
+                               p["attn"]["out_b"], tp)
+        x = _finish_block(p, x, attn_out, cfg, mlp=mlp)
+    return x
+
+
 @torch.no_grad()
 def decode_block(params: dict, ids: torch.Tensor, cache: dict,
-                 cfg: GPTConfig, return_hidden: bool = False):
+                 cfg: GPTConfig, return_hidden: bool = False, tp=None):
     """Multi-token cached decode: [B, G] ids from cache position t =
     ``cache["length"]`` -> ([B, G, V] f32 logits, cache with length t + G),
     or with ``return_hidden`` ([B, G, V] logits, [B, G, D] final hidden
@@ -929,7 +953,10 @@ def decode_block(params: dict, ids: torch.Tensor, cache: dict,
     the G tokens attends to the cached prefix and to the block up to
     itself. The block's K/V go to slots t..t+G-1 by ``index_copy_`` and
     its position rows by ``index_select``, both at device positions, so a
-    CUDA graph can hold the step; the cache is updated in place.
+    CUDA graph can hold the step; the cache is updated in place. ``tp``:
+    this rank's heads (a cache of its K/V heads), FF columns and
+    vocabulary rows (:func:`_block_layers`); the hidden states are taken
+    after the sums and the logits gathered, both whole on every rank.
 
     The start of the position rows and of the cache write clamps as XLA's
     dynamic slices clamp theirs (to n_pos - G and M - G). The speculative
@@ -941,30 +968,18 @@ def decode_block(params: dict, ids: torch.Tensor, cache: dict,
     assert cfg.causal and not cfg.pos_broadcast_bug, \
         "decode_block requires the corrected causal configuration"
     B, G = ids.shape
-    dt = cfg.torch_dtype
     t = cache["length"].long()                               # [1]
     M = cache["k"][0].shape[2]
     offs = torch.arange(G, device=ids.device)
     n_pos = params["pos"].shape[0]
     x = _embed(params, ids, params["pos"].index_select(
-        0, t.clamp(max=n_pos - G) + offs), dt)
-    slots = t.clamp(max=M - G) + offs
-    q_pos = t + offs
-    D, KVD = cfg.d_model, cfg.kv_dim
-    for li, p in enumerate(params["layers"]):
-        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
-                      p["attn"]["in_b"])
-        q = _heads(qkv[..., :D], cfg.n_head)                 # [B,H,G,Dh]
-        cache["k"][li].index_copy_(2, slots,
-                                   _heads(qkv[..., D:D + KVD], cfg.kv_heads))
-        cache["v"][li].index_copy_(2, slots,
-                                   _heads(qkv[..., D + KVD:], cfg.kv_heads))
-        attn_out = _unheads(_block_attention(q, cache["k"][li],
-                                             cache["v"][li], q_pos))
-        attn_out = _linear(attn_out, p["attn"]["out_w"], p["attn"]["out_b"])
-        x = _finish_block(p, x, attn_out, cfg)
+        0, t.clamp(max=n_pos - G) + offs), cfg.torch_dtype)
+    # query g sees the keys at or before its position t + g
+    valid = torch.arange(M, device=ids.device)[None, :] <= (t + offs)[:, None]
+    x = _block_layers(params, x, cache, t.clamp(max=M - G) + offs, valid,
+                      cfg, tp)
     cache["length"].add_(G)
-    logits = _head(params, x)
+    logits = _head(params, x, tp)
     if return_hidden:
         return logits, x, cache
     return logits, cache
@@ -972,13 +987,13 @@ def decode_block(params: dict, ids: torch.Tensor, cache: dict,
 
 @torch.no_grad()
 def decode_tree(params: dict, ids: torch.Tensor, depths: torch.Tensor,
-                anc: torch.Tensor, cache: dict, cfg: GPTConfig):
+                anc: torch.Tensor, cache: dict, cfg: GPTConfig, tp=None):
     """Tree-attention cached decode, the Medusa-2 verify step
     (``decode/medusa_tree.py``): [1, N] candidate tokens arranged as a tree
     over the cache position t = ``cache["length"]`` -> ([1, N, V] f32
     logits, [1, N, D] final hidden states, the cache with the N staged
     entries written at slots t..t+N-1 and ``length`` unchanged: the caller
-    commits the accepted path).
+    commits the accepted path). ``tp`` as in :func:`decode_block`.
 
     ``depths`` [N]: node depths (root 0), so a node sits at position t +
     depth and siblings share a position (rows past the positional table
@@ -992,30 +1007,17 @@ def decode_tree(params: dict, ids: torch.Tensor, depths: torch.Tensor,
     assert cfg.causal and not cfg.pos_broadcast_bug
     B, N = ids.shape
     assert B == 1, "tree verify is a batch-1 latency optimization"
-    dt = cfg.torch_dtype
     t = cache["length"].long()                               # [1]
     M = cache["k"][0].shape[2]
     n_pos = params["pos"].shape[0]
     x = _embed(params, ids, params["pos"].index_select(
-        0, (t + depths).clamp(max=n_pos - 1)), dt)
+        0, (t + depths).clamp(max=n_pos - 1)), cfg.torch_dtype)
     offs = torch.arange(N, device=ids.device)
-    slots = t.clamp(max=M - N) + offs
     key_pos = torch.arange(M, device=ids.device)
     block_idx = key_pos - t                                  # [M]
     in_block = (block_idx >= 0) & (block_idx < N)
     valid = (key_pos[None, :] < t) | (
         in_block[None, :] & anc.index_select(1, block_idx.clamp(0, N - 1)))
-    D, KVD = cfg.d_model, cfg.kv_dim
-    for li, p in enumerate(params["layers"]):
-        qkv = _linear(_attn_input(p, x, cfg), p["attn"]["in_w"],
-                      p["attn"]["in_b"])
-        q = _heads(qkv[..., :D], cfg.n_head)                 # [1,H,N,Dh]
-        cache["k"][li].index_copy_(2, slots,
-                                   _heads(qkv[..., D:D + KVD], cfg.kv_heads))
-        cache["v"][li].index_copy_(2, slots,
-                                   _heads(qkv[..., D + KVD:], cfg.kv_heads))
-        attn_out = _unheads(_masked_attention(q, cache["k"][li],
-                                              cache["v"][li], valid))
-        attn_out = _linear(attn_out, p["attn"]["out_w"], p["attn"]["out_b"])
-        x = _finish_block(p, x, attn_out, cfg)
-    return _head(params, x), x, cache
+    x = _block_layers(params, x, cache, t.clamp(max=M - N) + offs, valid,
+                      cfg, tp)
+    return _head(params, x, tp), x, cache

@@ -63,10 +63,11 @@ queue, ``submit``, the harvest, cancellation and ``close``, and before
 each iteration that admits a row or runs a chunk it broadcasts that
 iteration's plan to the group as one int64 tensor (:class:`_PlanChannel`):
 the admissions (slot, the prompt's ids, the key, the budget, the row's
-temperature and its per-row sampling values), after which a chunk runs,
-or "stop". The other ranks build the same engine and call
-:meth:`ContinuousBatcher.serve_follower`, which applies each plan as it
-comes and returns at "stop"; no request goes to them.
+temperature, its per-row sampling values and whether it is a Medusa
+row), after which a chunk runs, and whether that chunk is the Medusa
+chunk or the plain one; or "stop". The other ranks build the same engine
+and call :meth:`ContinuousBatcher.serve_follower`, which applies each
+plan as it comes and returns at "stop"; no request goes to them.
 
 A fault on a group is met where it can be without waiting out
 ``parallel.multihost.TIMEOUT``:
@@ -90,8 +91,12 @@ Timing
 never changes a row's stream: a row's tokens depend on the params, its
 prompt and its key alone, and the plan exists only so that the
 collectives match. On a group of more than one rank every step is issued
-from the host (no collective inside a captured graph); the detached
-decode goes through the engine, and Medusa rows are refused.
+from the host (no collective inside a captured graph), the Medusa
+chunk's too; a group of one keeps its graphs. The detached decode goes
+through the engine there. Medusa rows verify on a scratch of the rank's
+K/V heads, and their heads are whole on every rank: they act on the
+hidden states after the sums, and their logits are gathered whole
+(``decode/medusa.py``), so every rank draws the same tokens.
 """
 
 from __future__ import annotations
@@ -421,27 +426,31 @@ class MedusaGraph:
     key, a plain row's sampling key), then a Medusa row's acceptance and
     residual keys. ``scratch`` is the head-major cache one row's verify
     runs on (the ragged cache's slots and gamma + 1 more: the solo
-    cache's size)."""
+    cache's size). ``tp``: the model group (its K/V heads in the scratch;
+    a group of more than one rank issues the chunk's iterations from the
+    host)."""
 
     def __init__(self, params: dict, cfg, st: dict, hw: torch.Tensor,
                  hb: torch.Tensor, chunk: int, *, top_k: int, greedy: bool,
                  mask_value: float, eos_id: int, pad_id: int, top_p=1.0,
                  per_row: bool = False, ngram: int = 0,
-                 gram: dict | None = None, eager: bool = False):
+                 gram: dict | None = None, eager: bool = False, tp=None):
         dev = st["buf"].device
         self.params, self.cfg, self.st, self.chunk = params, cfg, st, chunk
+        self.tp = tp
         self.hw, self.hb = hw, hb
         self.gamma = hw.shape[0]
         self.top_k, self.greedy, self.mask_value = top_k, greedy, mask_value
         self.eos_id, self.pad_id, self.top_p = eos_id, pad_id, top_p
         self.per_row, self.ngram, self.gram = per_row, ngram, gram
         B, M = st["buf"].shape
-        self.scratch = verify_scratch(cfg, M, self.gamma + 1, dev)
+        self.scratch = verify_scratch(cfg, M, self.gamma + 1, dev, tp)
         self.keys = None if greedy else torch.zeros(
             (chunk, B, 3, 2), dtype=torch.int64, device=dev)
         self._idx = torch.arange(self.gamma + 1, device=dev)[None]
         self._cols = torch.arange(M, device=dev)[None]
-        self.graph = graphs.BlockGraph(self._block, dev, eager)
+        self.graph = graphs.BlockGraph(self._block, dev,
+                                       eager or graphs.on_group(tp))
 
     def run(self, keys: np.ndarray | None) -> None:
         if self.keys is not None:
@@ -489,7 +498,7 @@ class MedusaGraph:
             rows.append(medusa_verify(
                 self.params, self.cfg, self.hw, self.hb, h_last[b],
                 last[b:b + 1], self.scratch, self._row_filter(b),
-                self.greedy, *noise))
+                self.greedy, *noise, tp=self.tp))
             store_row(cache, b, self.scratch, g + 1)
         d = torch.stack([r[0] for r in rows])                  # [B, g]
         n = torch.stack([r[1] for r in rows])                  # [B]
@@ -555,7 +564,8 @@ class MedusaGraph:
 def medusa_chunk(params, hw, hb, state, cfg, med_rows: np.ndarray,
                  chunk=16, top_k=50, greedy=False, mask_value=-1e10,
                  eos_id=-1, pad_id=0, top_p=1.0, per_row_sampling=False,
-                 no_repeat_ngram=0, grammar=None, eager=False) -> dict:
+                 no_repeat_ngram=0, grammar=None, eager=False,
+                 tp=None) -> dict:
     """Advance every live row ``chunk`` verify iterations, in place: one
     replay of the Medusa chunk's graph (:class:`MedusaGraph`; eagerly on
     the CPU and with ``eager``). Rows with ``med_on`` run their solo
@@ -564,13 +574,14 @@ def medusa_chunk(params, hw, hb, state, cfg, med_rows: np.ndarray,
     once a step (the proposal's or the plain sample's key), then a Medusa
     row's (``med_rows`` [slots] bool, the host's copy of ``med_on``)
     splits in three (next key, acceptance, residual) when sampling, as
-    JAX's chunk does."""
+    JAX's chunk does. ``tp``: the model group, as :func:`ragged_chunk`
+    takes it."""
     top_p = float(top_p)
     grammar = grammar_tables(grammar, state["buf"].device)
     key = (id(params), id(hw), cfg, int(chunk), int(top_k), bool(greedy),
            float(mask_value), int(eos_id), int(pad_id), top_p,
            bool(per_row_sampling), int(no_repeat_ngram or 0),
-           None if grammar is None else id(grammar), bool(eager))
+           None if grammar is None else id(grammar), bool(eager), id(tp))
     runner = state.get("medusa_graph")
     if runner is None or runner.key != key:
         dev = state["buf"].device
@@ -579,7 +590,8 @@ def medusa_chunk(params, hw, hb, state, cfg, med_rows: np.ndarray,
             greedy=greedy, mask_value=mask_value, eos_id=eos_id,
             pad_id=pad_id, top_p=torch.full((1,), top_p, device=dev)
             if top_p < 1.0 else 1.0, per_row=per_row_sampling,
-            ngram=int(no_repeat_ngram or 0), gram=grammar, eager=eager)
+            ngram=int(no_repeat_ngram or 0), gram=grammar, eager=eager,
+            tp=tp)
         runner.key = key
         state["medusa_graph"] = runner
     rngs = state["rngs"]
@@ -626,7 +638,8 @@ def _finish_fetch(fetch) -> np.ndarray:
 @dataclass(frozen=True)
 class _Admission:
     """What ``admit_row`` takes of one request, in a slot: the same on
-    every rank of a model group."""
+    every rank of a model group. The window batcher's plan sends its
+    group's rows as such records too (``serve/batcher.py``)."""
     slot: int
     prompt_ids: tuple
     key: tuple                   # the row's PRNG key, two uint32
@@ -637,39 +650,49 @@ class _Admission:
     penalties: tuple = _NEUTRAL_PEN
     ngram_on: bool = False
     gram_on: bool = False
+    medusa: bool = False         # a Medusa row
 
 
 class _PlanChannel:
-    """One iteration's plan, broadcast from rank 0 of a model group as one
-    int64 tensor of a fixed size: [op, admissions], then ``slots`` records
-    of [slot, plen, key (2), rmax, temp, top_p, min_p, penalties (3) as
-    float64 bits, n-gram on, grammar on, the prompt's ids padded to
-    max_len]. op 1: admit these rows, then run a chunk; op 0: "stop". On
-    the group's device (the card under NCCL)."""
+    """One step's plan, broadcast from rank 0 of a model group as one
+    int64 tensor of a fixed size: [op, records, the step's ``words``],
+    then ``slots`` records (:class:`_Admission`) of [slot, plen, key (2),
+    rmax, temp, top_p, min_p, penalties (3) as float64 bits, n-gram on,
+    grammar on, Medusa row, the prompt's ids padded to max_len]. op 1: run
+    the step; op 0: "stop". The engine's step admits the records' rows and
+    runs a chunk, its one word saying whether that is the Medusa chunk;
+    the window batcher's decodes one group, a record a row, its words the
+    group's batch-wide options. On the group's device (the card under
+    NCCL)."""
 
-    HEAD, FIELDS = 2, 13
+    HEAD, FIELDS = 2, 14
 
-    def __init__(self, tp, slots: int, max_len: int):
+    def __init__(self, tp, slots: int, max_len: int, words: int = 1):
         import torch.distributed as dist
 
         self.dist, self.group = dist, tp.group
         self.src = dist.get_global_rank(tp.group, 0)
+        self.words = words
         self.width = self.FIELDS + max_len
-        self.size = self.HEAD + slots * self.width
+        self.size = self.HEAD + words + slots * self.width
         self.device = torch.device("cuda", torch.cuda.current_device()) \
             if dist.get_backend(tp.group) == "nccl" else torch.device("cpu")
 
-    def send(self, admissions: list) -> None:
+    def _record(self, plan: np.ndarray, i: int) -> np.ndarray:
+        at = self.HEAD + self.words + i * self.width
+        return plan[at:at + self.width]
+
+    def send(self, records: list, words: tuple) -> None:
         plan = np.zeros(self.size, np.int64)
-        plan[:self.HEAD] = (1, len(admissions))
-        for i, a in enumerate(admissions):
-            rec = plan[self.HEAD + i * self.width:
-                       self.HEAD + (i + 1) * self.width]
+        plan[:self.HEAD] = (1, len(records))
+        plan[self.HEAD:self.HEAD + self.words] = words
+        for i, a in enumerate(records):
+            rec = self._record(plan, i)
             rec[:5] = (a.slot, len(a.prompt_ids), *a.key, a.rmax)
             rec[5:11] = np.asarray((a.temp, a.top_p, a.min_p,
                                     *a.penalties), np.float64).view(np.int64)
-            rec[11:13] = (a.ngram_on, a.gram_on)
-            rec[13:13 + len(a.prompt_ids)] = a.prompt_ids
+            rec[11:14] = (a.ngram_on, a.gram_on, a.medusa)
+            rec[14:14 + len(a.prompt_ids)] = a.prompt_ids
         self._broadcast(torch.from_numpy(plan).to(self.device))
 
     def stop(self, wait_s: float = 10.0) -> None:
@@ -680,7 +703,7 @@ class _PlanChannel:
         work.wait(datetime.timedelta(seconds=wait_s))
 
     def recv(self):
-        """-> the admissions before the next chunk, or None at "stop"."""
+        """-> (the next step's records, its words), or None at "stop"."""
         plan = torch.empty(self.size, dtype=torch.int64, device=self.device)
         self._broadcast(plan)
         plan = plan.cpu().numpy()
@@ -688,15 +711,15 @@ class _PlanChannel:
             return None
         out = []
         for i in range(int(plan[1])):
-            rec = plan[self.HEAD + i * self.width:
-                       self.HEAD + (i + 1) * self.width]
+            rec = self._record(plan, i)
             f = rec[5:11].view(np.float64)
             out.append(_Admission(
-                int(rec[0]), tuple(int(v) for v in rec[13:13 + rec[1]]),
+                int(rec[0]), tuple(int(v) for v in rec[14:14 + rec[1]]),
                 (int(rec[2]), int(rec[3])), int(rec[4]), float(f[0]),
                 float(f[1]), float(f[2]), tuple(float(v) for v in f[3:6]),
-                bool(rec[11]), bool(rec[12])))
-        return out
+                bool(rec[11]), bool(rec[12]), bool(rec[13])))
+        return out, tuple(int(v) for v in
+                          plan[self.HEAD:self.HEAD + self.words])
 
     def _broadcast(self, plan: torch.Tensor) -> None:
         self.dist.broadcast(plan, self.src, group=self.group)
@@ -744,9 +767,11 @@ class ContinuousBatcher:
     longer than the engine's max_len budget return the prompt unchanged.
 
     On a model group (``generator.tp`` of more than one rank) every rank
-    builds the engine with the same arguments; rank 0 takes the requests
-    and the others call :meth:`serve_follower` (the module's docstring).
-    ``medusa_heads`` is refused there."""
+    builds the engine with the same arguments, ``medusa_heads`` included
+    (whole on every rank); rank 0 takes the requests and the others call
+    :meth:`serve_follower` (the module's docstring). There every chunk,
+    the Medusa chunk too, is issued from the host; a group of one keeps
+    its graphs."""
 
     def __init__(self, generator: Generator, slots: int = 8,
                  chunk: int = 64, max_len: int | None = None,
@@ -762,11 +787,6 @@ class ContinuousBatcher:
         # a model group of more than one rank: rank 0 leads, the others
         # follow its plans
         self._group = self.tp is not None and self.tp.size > 1
-        if self._group and medusa_heads is not None:
-            raise ValueError(
-                "medusa_heads on a model group of more than one rank: the "
-                "engine's Medusa rows verify through decode_block, which "
-                "takes no tensor-parallel params yet")
         self.leader = not self._group or self.tp.rank == 0
         # where the parameters really are (with its index), for the worker
         self.device = generator.params["tok_emb"].device
@@ -1173,45 +1193,56 @@ class ContinuousBatcher:
         bind_thread_to(self.device)
         with torch.no_grad(), graphs.on_stream(self._stream):
             while True:
-                admissions = self._plan.recv()
-                if admissions is None:
+                plan = self._plan.recv()
+                if plan is None:
                     return
+                admissions, (medusa,) = plan
                 for a in admissions:
                     self._admit_row(a)
-                self._chunk()
+                self._chunk(bool(medusa))
 
     # ------------------------------------------------------------- engine
 
-    def _admit_row(self, a: _Admission, medusa_row: bool = False) -> None:
-        """``admit_row`` of one admission into the engine's state."""
+    def _admit_row(self, a: _Admission) -> None:
+        """``admit_row`` of one admission into the engine's state, and the
+        host's copy of its Medusa bit."""
         self.state = admit_row(
             self.gen.params, self.state, self._prompt_row(a.prompt_ids),
             len(a.prompt_ids), a.slot, a.key, a.rmax,
             a.temp, self.gen.cfg, row_top_p=a.top_p, row_min_p=a.min_p,
             row_penalties=a.penalties, row_ngram_on=a.ngram_on,
-            row_gram_on=a.gram_on, medusa_row=medusa_row, tp=self.tp,
+            row_gram_on=a.gram_on, medusa_row=a.medusa, tp=self.tp,
             **self._sampling())
+        self._med_rows[a.slot] = a.medusa
 
-    def _chunk(self) -> None:
-        self.state = ragged_chunk(self.gen.params, self.state, self.gen.cfg,
-                                  chunk=self.chunk, eager=self.eager,
-                                  tp=self.tp, **self._sampling())
+    def _chunk(self, medusa: bool = False) -> None:
+        """One chunk: the Medusa chunk while a live Medusa row exists
+        (every row pays the block verify in it), else the plain one."""
+        if medusa:
+            self.state = medusa_chunk(
+                self.gen.params, self._hw, self._hb, self.state,
+                self.gen.cfg, self._med_rows, chunk=self.chunk_med,
+                eager=self.eager, tp=self.tp, **self._sampling())
+        else:
+            self.state = ragged_chunk(
+                self.gen.params, self.state, self.gen.cfg, chunk=self.chunk,
+                eager=self.eager, tp=self.tp, **self._sampling())
 
     @staticmethod
     def _admission(req: _Pending, slot: int) -> _Admission:
         return _Admission(slot, tuple(req.prompt_ids),
                           prng.PRNGKey(req.seed), req.max_len,
                           req.temperature, req.top_p, req.min_p,
-                          req.penalties, bool(req.ngram), req.grammar)
+                          req.penalties, bool(req.ngram), req.grammar,
+                          req.medusa)
 
     def _admit(self, req: _Pending, a: _Admission):
         slot = a.slot
-        self._admit_row(a, medusa_row=req.medusa)
-        if req.medusa:
+        self._admit_row(a)
+        if a.medusa:
             self._med_slots.add(slot)
         else:
             self._med_slots.discard(slot)
-        self._med_rows[slot] = req.medusa
         req.started = time.monotonic()
         req.admit_seq = self.stats["chunks"]
         self._live[slot] = req
@@ -1344,10 +1375,13 @@ class ContinuousBatcher:
                 except queue.Empty:
                     pass
                 plan = [self._admission(r, self._free.pop()) for r in admits]
+                # the Medusa chunk only while a live Medusa row exists
+                medusa = any(s in self._live for s in self._med_slots) \
+                    or any(a.medusa for a in plan)
                 if plan or self._live:
                     if self._plan is not None:
                         in_step = True
-                        self._plan.send(plan)
+                        self._plan.send(plan, (medusa,))
                     for req, a in zip(admits, plan):
                         self._admit(req, a)
                 self._busy = False
@@ -1355,16 +1389,7 @@ class ContinuousBatcher:
                     continue
 
                 if self._live:
-                    # the Medusa chunk only while a live Medusa row exists
-                    # (every row pays the block verify in it)
-                    if any(s in self._live for s in self._med_slots):
-                        self.state = medusa_chunk(
-                            self.gen.params, self._hw, self._hb, self.state,
-                            self.gen.cfg, self._med_rows,
-                            chunk=self.chunk_med, eager=self.eager,
-                            **self._sampling())
-                    else:
-                        self._chunk()
+                    self._chunk(medusa)
                     in_step = False
                     self.stats["chunks"] += 1
                     # depth-1 lookahead: the PREVIOUS chunk's flags are

@@ -24,10 +24,7 @@ Checked, exactly (f32):
   group's collective timeout, and fails both of the leader's requests:
   one in the leader's harvest (the follower returns at "stop"), a
   poisoned admission on every rank (the follower's loop raises it), and
-  one on the follower alone, whose process then exits;
-- ``medusa_heads`` on a group of 2 raises ``ValueError``, and so do the
-  window batcher and the Generator's routes with no ``tp`` yet (the
-  uncached loop, beams, lookup, Medusa).
+  one on the follower alone, whose process then exits.
 
 The file takes about 60 s (JAX's engines compile for each case; the
 port's groups of 2 and 4 spawn their ranks).
@@ -203,25 +200,6 @@ def test_ragged_decode_on_tp_params_equals_jax(results, case, world):
     for r in range(world):
         np.testing.assert_array_equal(got[f"w{world}/r{r}/{case}/ragged"],
                                       ref[f"{case}/ragged"])
-
-
-def test_medusa_heads_on_a_group_raise(results):
-    got, _ = results
-    for r in range(2):
-        msg = str(got[f"w2/r{r}/medusa_error"])
-        assert msg.startswith("ValueError") and "medusa_heads" in msg
-
-
-@pytest.mark.parametrize("route", ["window", "uncached", "beams", "lookup",
-                                   "medusa"])
-def test_routes_without_tp_raise_on_a_group(results, route):
-    """The window batcher and the Generator's routes that take no
-    tensor-parallel params yet refuse a group of 2, on every rank."""
-    got, _ = results
-    for r in range(2):
-        msg = str(got[f"w2/r{r}/refused/{route}"])
-        assert msg.startswith("ValueError") and (
-            "2 ranks" in msg or "more than one rank" in msg), msg
 
 
 def test_a_kv_head_is_shared_at_four_ranks(results):

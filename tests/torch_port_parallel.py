@@ -1,7 +1,7 @@
 """The PyTorch side of the parallel modes' tests (tests/test_torch_mesh.py,
 test_torch_pipeline.py, test_torch_ring.py, test_torch_ep.py,
-test_torch_sharded_decode.py, test_torch_sharded_engine.py): one task a
-file, run by
+test_torch_sharded_decode.py, test_torch_sharded_engine.py,
+test_torch_sharded_routes.py): one task a file, run by
 tests/torch_port_worker.py in its subprocess (torch never enters the
 pytest process). Each task spawns its worlds of gloo ranks on the CPU (at
 most 4 ranks, one thread each, a rendezvous file of their own and a
@@ -31,7 +31,7 @@ os.environ.setdefault("EAMG_DIST_TIMEOUT", "180")
 # ------------------------------------------------------------ the worlds
 
 def _rank_entry(rank: int, world: int, path: str, tmp: str, fn: str,
-                tag: str) -> None:
+                tag: str, args: tuple = ()) -> None:
     import torch.distributed as dist
 
     from eamg_tpu_torch.parallel.multihost import init_distributed
@@ -41,29 +41,46 @@ def _rank_entry(rank: int, world: int, path: str, tmp: str, fn: str,
                      num_processes=world, process_id=rank, device=CPU)
     try:
         with np.load(path, allow_pickle=False) as inp:
-            res = globals()[fn](rank, world, inp, tmp)
-        _keep(res, tmp, fn, world, rank)
+            res = globals()[fn](rank, world, inp, tmp, *args)
+        _keep(res, tmp, tag, rank)
     finally:
         dist.destroy_process_group()
 
 
-def _keep(res: dict, tmp: str, fn: str, world: int, rank: int) -> None:
-    """Write a rank's results where :func:`spawn` reads them."""
-    with open(os.path.join(tmp, f"{fn}{world}.{rank}.pkl"), "wb") as f:
+def _keep(res: dict, tmp: str, tag: str, rank: int) -> None:
+    """Write a rank's results where :func:`collect` reads them."""
+    with open(os.path.join(tmp, f"{tag}.{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
 
 
 def spawn(fn: str, world: int, inp, tmp: str) -> list:
     """Run ``fn(rank, world, inp, tmp)`` on ``world`` gloo ranks -> the
     ranks' results in rank order."""
+    return collect(start(fn, world, inp, tmp))
+
+
+def start(fn: str, world: int, inp, tmp: str, *args):
+    """Start ``fn(rank, world, inp, tmp, *args)`` on ``world`` gloo ranks
+    and return at once -> what :func:`collect` waits for (worlds started
+    so run at the same time: their time is the ranks' waits on their
+    collectives, not the host's cores)."""
     import torch.multiprocessing as mp
 
     path = os.path.join(tmp, "inputs.npz")
     if not os.path.exists(path):
         np.savez(path, **{k: inp[k] for k in inp.files})
-    tag = f"{fn}{world}"
-    mp.start_processes(_rank_entry, args=(world, path, tmp, fn, tag),
-                       nprocs=world, start_method="spawn")
+    tag = "_".join((f"{fn}{world}", *args))
+    ctx = mp.start_processes(_rank_entry,
+                             args=(world, path, tmp, fn, tag, args),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, tmp, tag, world
+
+
+def collect(started) -> list:
+    """Wait for a :func:`start`'s ranks -> their results in rank order."""
+    ctx, tmp, tag, world = started
+    while not ctx.join():
+        pass
     out = []
     for r in range(world):
         with open(os.path.join(tmp, f"{tag}.{r}.pkl"), "rb") as f:
@@ -535,11 +552,12 @@ def task_sharded_decode(inp, out) -> None:
 
 # ---------------------------------------------------------- sharded engine
 
-def _engine_run(gen, spec, engine: str, gram) -> tuple:
-    """One engine of ``spec["engines"]`` on ``gen``: on a leader (or
-    alone) the requests' rows, request 1 submitted once the first chunk
-    ran; on a follower its loop. -> (rows or None, [chunks when request 1
-    was submitted, chunks in all] or None, the engine's final state)."""
+def _engine_run(gen, spec, engine: str, gram, **extra) -> tuple:
+    """One engine of ``spec["engines"]`` on ``gen`` (``extra``: more
+    engine options): on a leader (or alone) the requests' rows, request 1
+    submitted once the first chunk ran; on a follower its loop. -> (rows
+    or None, [chunks when request 1 was submitted, chunks in all] or None,
+    the engine's final state)."""
     import threading
     import time
 
@@ -551,7 +569,7 @@ def _engine_run(gen, spec, engine: str, gram) -> tuple:
         eng_opts["grammar"] = gram
     eng = ContinuousBatcher(gen, slots=spec["slots"], chunk=spec["chunk"],
                             max_len=spec["max_len"], top_k=spec["top_k"],
-                            **eng_opts)
+                            **eng_opts, **extra)
     if not eng.leader:
         eng.serve_follower()
         return None, None, eng.state
@@ -584,14 +602,16 @@ def _engine_run(gen, spec, engine: str, gram) -> tuple:
     return [rows[i] for i in range(len(rows))], joined, eng.state
 
 
-def _engine_results(gen, spec, case: str, gram, res: dict) -> None:
+def _engine_results(gen, spec, case: str, gram, res: dict,
+                    **extra) -> None:
     for c, engine in spec["engine_cases"]:
         if c != case:
             continue
-        rows, joined, state = _engine_run(gen, spec, engine, gram)
+        rows, joined, state = _engine_run(gen, spec, engine, gram, **extra)
         pre = f"{case}/{engine}"
-        for key in ("buf", "pos", "done", "last"):
-            res[f"{pre}/state/{key}"] = state[key].numpy().copy()
+        for key in ("buf", "pos", "done", "last", "h_last", "med_on"):
+            if key in state:
+                res[f"{pre}/state/{key}"] = state[key].numpy().copy()
         res[f"{pre}/state/rngs"] = np.asarray(state["rngs"]).copy()
         if rows is not None:
             for i, row in enumerate(rows):
@@ -665,10 +685,10 @@ def _engine_failures(rank: int, world: int, inp, spec, res: dict,
 
             eng._harvest = harvest
         if fault == "plan" or (fault == "follower" and rank == 1):
-            def admit(a, medusa_row=False, admit_row=eng._admit_row):
+            def admit(a, admit_row=eng._admit_row):
                 if tuple(a.prompt_ids) == poison:
                     raise RuntimeError("poisoned admission")
-                return admit_row(a, medusa_row)
+                return admit_row(a)
 
             eng._admit_row = admit
         t0 = time.monotonic()
@@ -699,7 +719,7 @@ def _engine_failures(rank: int, world: int, inp, spec, res: dict,
             res[f"{pre}/follower"] = _raised(eng.serve_follower)
             res[f"{pre}/seconds"] = np.asarray(time.monotonic() - t0)
             if fault == "follower":
-                _keep(res, tmp, "engine_world", world, rank)
+                _keep(res, tmp, f"engine_world{world}", rank)
                 os._exit(0)
 
 
@@ -707,7 +727,6 @@ def engine_world(rank: int, world: int, inp, tmp: str) -> dict:
     from eamg_tpu_torch.decode.grammar import grammar_a
     from eamg_tpu_torch.parallel.collectives import tensor_parallel
     from eamg_tpu_torch.parallel.mesh import make_mesh, shard_params
-    from eamg_tpu_torch.serve.continuous import ContinuousBatcher
     from eamg_tpu_torch.tokenizer import Vocab
 
     spec = json.loads(str(inp["eng/spec"]))
@@ -724,23 +743,6 @@ def engine_world(rank: int, world: int, inp, tmp: str) -> dict:
         res[f"{case}/ragged"] = _ragged_rows(gen, spec, tp)
         res[f"{case}/kv_heads"] = tp.kv_heads
         res[f"{case}/n_head"] = tp.n_head
-        if world == 2 and case == "mha":
-            heads = {"blocks": [{"w": torch.zeros(cfg.d_model, cfg.d_model),
-                                 "b": torch.zeros(cfg.d_model)}]}
-            res["medusa_error"] = _raised(lambda: ContinuousBatcher(
-                gen, slots=2, chunk=4, max_len=16, medusa_heads=heads))
-            from eamg_tpu_torch.serve.batcher import RequestBatcher
-
-            ids = spec["requests"][0][0]
-            for route, fn in (
-                    ("window", lambda: RequestBatcher(gen)),
-                    ("uncached", lambda: gen.generate_ids(
-                        ids, max_len=16, use_cache=False)),
-                    ("beams", lambda: gen.generate_ids_beam(ids, 16)),
-                    ("lookup", lambda: gen.generate_ids_lookup(ids, 16)),
-                    ("medusa", lambda: gen.generate_ids_medusa(heads, ids,
-                                                               16))):
-                res[f"refused/{route}"] = _raised(fn)
     if world == 2:
         _engine_failures(rank, world, inp, spec, res, tmp)
     return res
@@ -767,7 +769,298 @@ def task_sharded_engine(inp, out) -> None:
             _merge(out, f"w{world}/r{r}", res)
 
 
+# ---------------------------------------------------------- sharded routes
+
+def _heads(inp):
+    return {"blocks": [{k: torch.from_numpy(inp[f"rt/heads/{i}/{k}"])
+                        for k in ("w", "b")}
+                       for i in range(int(inp["rt/n_heads"]))]}
+
+
+def _route_generators(inp, case: str, world: int | None):
+    """The target's Generator and the drafts' ({"whole": the draft's
+    params on every rank, "group": its blocks on the target's group}) of
+    ``case``: on a model group of ``world`` (a mesh of the process group),
+    or unsharded when ``world`` is None (then one draft, "whole")."""
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.parallel.collectives import tensor_parallel
+    from eamg_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from eamg_tpu_torch.tokenizer import Vocab
+
+    vocab = Vocab(json.loads(str(inp["rt/vocab"])))
+    cfg, cfg_d = _cfg(inp, f"rt/{case}/cfg"), _cfg(inp, f"rt/{case}/dcfg")
+    params, params_d = _params(inp, f"rt/{case}/p"), _params(inp,
+                                                             f"rt/{case}/d")
+
+    def gen(p, c, tp=None):
+        return Generator(p, c, vocab, eos_token="none", pad_token="t0",
+                         device=CPU, tp=tp)
+
+    whole = gen(params_d, cfg_d)
+    if world is None:
+        return gen(params, cfg), {"whole": whole}
+    mesh = make_mesh(1, world)
+    group = mesh.get_group("model")
+    target = gen(shard_params(params, mesh, tp=True, cfg=cfg), cfg,
+                 tensor_parallel(cfg, group))
+    on_group = gen(shard_params(params_d, mesh, tp=True, cfg=cfg_d), cfg_d,
+                   tensor_parallel(cfg_d, group))
+    return target, {"whole": whole, "group": on_group}
+
+
+def _solo_routes(gen, drafts: dict, heads: dict, spec: dict) -> dict:
+    """Every solo route of ``gen`` on the spec's prompt: lookup and Medusa
+    greedy and sampled, the tree, the draft at each placement (greedy),
+    the uncached loop and beams; and the solo Medusa run of the engine's
+    first request."""
+    from eamg_tpu_torch.decode.medusa_tree import generate_medusa_tree
+    from eamg_tpu_torch.decode.speculative import _padded_prompt
+
+    ids, L, k, seed = spec["prompt"], spec["max_len"], spec["top_k"], \
+        spec["seed"]
+    kw = dict(max_len=L, gamma=spec["gamma"], top_k=k, seed=seed)
+    res = {}
+    for mode in ("greedy", "sampled"):
+        greedy = mode == "greedy"
+        res[f"lookup/{mode}"] = gen.generate_ids_lookup(
+            ids, ngram=spec["ngram"], greedy=greedy, **kw)
+        res[f"medusa/{mode}"] = gen.generate_ids_medusa(heads, ids,
+                                                        greedy=greedy, **kw)
+    ids0, seed0, temp0 = spec["requests"][0]
+    res["medusa/row0"] = gen.generate_ids_medusa(
+        heads, ids0, max_len=L, gamma=spec["gamma"], top_k=k, seed=seed0,
+        temperature=temp0)
+    for place, draft in drafts.items():
+        res[f"draft_{place}"] = gen.generate_ids_speculative(
+            draft, ids, greedy=True, **kw)
+    buf, n, steps = generate_medusa_tree(
+        gen.params, heads, _padded_prompt(ids, 16, gen.pad_id, gen.device),
+        len(ids), gen.cfg, L, eos_id=gen.eos_id, pad_id=gen.pad_id,
+        tp=gen.tp)
+    res["tree"] = buf[0, :n].numpy()
+    res["tree/steps"] = np.asarray(steps)
+    res["uncached"] = gen.generate_ids(ids, max_len=spec["uncached_len"],
+                                       top_k=k, seed=seed, use_cache=False)
+    for name, v in zip(("rows", "gen_lens", "scores", "norm"),
+                       gen.generate_ids_beam(ids, max_len=L,
+                                             n_beams=spec["beams"],
+                                             return_all=True)):
+        res[f"beams/{name}"] = np.asarray(v)
+    return res
+
+
+def _window_run(gen, spec) -> tuple:
+    """The window batcher on ``gen``: on a leader (or alone) the spec's
+    requests submitted at once -> (their rows, the decodes' results,
+    the largest group); on a follower its loop -> (None, the decodes'
+    results, None)."""
+    import threading
+
+    from eamg_tpu_torch.serve.batcher import RequestBatcher
+
+    w = spec["window"]
+    bat = RequestBatcher(gen, max_batch=w["max_batch"],
+                         window_ms=w["window_ms"], max_len=spec["max_len"])
+    decodes, decode = [], bat._decode
+
+    def kept(rows, words):
+        out = decode(rows, words)
+        decodes.append(out)
+        return out
+
+    bat._decode = kept
+    if not bat.leader:
+        bat.serve_follower()
+        return None, decodes, None
+    rows = {}
+
+    def hit(i, ids, seed):
+        rows[i] = bat.submit(ids, temperature=w["temperature"],
+                             top_k=spec["top_k"], seed=seed, timeout=600)
+
+    try:
+        threads = [threading.Thread(target=hit, args=(i, ids, seed),
+                                    daemon=True)
+                   for i, (ids, seed) in enumerate(w["requests"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert len(rows) == len(threads), "a window request timed out"
+    finally:
+        bat.close()
+    return [rows[i] for i in range(len(rows))], decodes, \
+        bat.stats["max_group"]
+
+
+def _window_results(gen, spec, res: dict) -> None:
+    rows, decodes, largest = _window_run(gen, spec)
+    for i, (buf, pos) in enumerate(decodes):
+        res[f"window/decode/{i}/buf"] = buf
+        res[f"window/decode/{i}/pos"] = pos
+    res["window/decodes"] = np.asarray(len(decodes))
+    if rows is not None:
+        for i, row in enumerate(rows):
+            res[f"window/{i}"] = np.asarray(row)
+        res["window/largest"] = np.asarray(largest)
+
+
+def _routes(gen, drafts, heads, spec, case: str, res: dict) -> None:
+    """Every route of ``case`` on ``gen`` into ``res``: the solo routes,
+    the engine with Medusa rows and the window batcher."""
+    for k, v in _solo_routes(gen, drafts, heads, spec).items():
+        res[f"{case}/{k}"] = np.asarray(v)
+    _engine_results(gen, spec, case, None, res, medusa_heads=heads)
+    win = {}
+    _window_results(gen, spec, win)
+    _merge(res, case, win)
+
+
+def _window_failures(rank: int, world: int, inp, spec, res: dict) -> None:
+    """The window batcher's faults on a model group of ``world``, each on
+    a group of its own whose collectives time out after
+    ``spec["fail_timeout"]`` s: "leader", the leader's plan raises before
+    it is sent (its own work: the followers wait for it); "plan", every
+    rank's decode of the poisoned prompt raises (a fault the plan brings),
+    after a first request that succeeds. Into ``res``, per fault: what
+    the leader's requests (in order) and the follower's loop raised,
+    whether the leader's worker ended, and each rank's seconds."""
+    import datetime
+    import threading
+    import time
+
+    import torch.distributed as dist
+
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.parallel.collectives import tensor_parallel
+    from eamg_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from eamg_tpu_torch.serve.batcher import RequestBatcher
+    from eamg_tpu_torch.tokenizer import Vocab
+
+    cfg = _cfg(inp, "rt/mha/cfg")
+    blocks = shard_params(_params(inp, "rt/mha/p"), make_mesh(1, world),
+                          tp=True, cfg=cfg)
+    vocab = Vocab(json.loads(str(inp["rt/vocab"])))
+    poison, limit = tuple(spec["poison"]), spec["fail_timeout"]
+    for fault in ("leader", "plan"):
+        group = dist.new_group(list(range(world)),
+                               timeout=datetime.timedelta(seconds=limit))
+        gen = Generator(blocks, cfg, vocab, eos_token="none", pad_token="t0",
+                        device=CPU, tp=tensor_parallel(cfg, group))
+        bat = RequestBatcher(gen, max_batch=2, window_ms=1.0,
+                             max_len=spec["max_len"])
+        if fault == "leader" and bat.leader:
+            def send(rows, words):
+                raise RuntimeError("poisoned plan")
+
+            bat._plan.send = send
+        if fault == "plan":
+            def decode(rows, words, decode=bat._decode):
+                if any(r.prompt_ids == poison for r in rows):
+                    raise RuntimeError("poisoned decode")
+                return decode(rows, words)
+
+            bat._decode = decode
+        t0 = time.monotonic()
+        pre = f"fail/{fault}"
+        if bat.leader:
+            errors = []
+            for ids in (spec["prompt"], poison):
+                errors.append(str(_raised(lambda: bat.submit(
+                    ids, seed=1, timeout=2 * limit))))
+            bat._thread.join(timeout=limit)
+            res[f"{pre}/errors"] = np.asarray(errors)
+            res[f"{pre}/closed"] = np.asarray(not bat._thread.is_alive())
+        else:
+            res[f"{pre}/follower"] = _raised(bat.serve_follower)
+        res[f"{pre}/seconds"] = np.asarray(time.monotonic() - t0)
+
+
+def _checks_alone(inp, spec, res: dict) -> None:
+    """On a model group of one: int8 weights under ``tp`` raise, a draft
+    on another group raises, and a graph key holds the model group."""
+    import torch.distributed as dist
+
+    from eamg_tpu_torch.decode import Generator
+    from eamg_tpu_torch.decode.beam import beam_state
+    from eamg_tpu_torch.decode.speculative import spec_state
+    from eamg_tpu_torch.models.quant import quantize_params
+
+    target, drafts = _route_generators(inp, "mha", 1)
+    res["int8_under_tp"] = _raised(lambda: Generator(
+        quantize_params(target.params), target.cfg, target.vocab,
+        device=CPU, tp=target.tp))
+    other = dataclasses.replace(drafts["group"].tp, group=dist.new_group([0]))
+    drafts["group"].tp = other
+    ids = spec["prompt"]
+    res["draft_other_group"] = _raised(
+        lambda: target.generate_ids_speculative(drafts["group"], ids, 16))
+    alone, _ = _route_generators(inp, "mha", None)
+    res["draft_on_group_target_whole"] = _raised(
+        lambda: alone.generate_ids_speculative(drafts["group"], ids, 16))
+    cfg, tp = target.cfg, target.tp
+    keys = [spec_state(target.params, cfg, "lookup", 24, 4, 16, 40, True,
+                       1.0, 0.0, -1, 0, CPU, tp=t)[0] for t in (tp, None)]
+    keys += [beam_state(target.params, cfg, 4, 24, -1, 0, CPU, tp=t)[0]
+             for t in (tp, None)]
+    res["graph_keys_differ"] = np.asarray([keys[0] != keys[1],
+                                           keys[2] != keys[3]])
+
+
+def routes_world(rank: int, world: int, inp, tmp: str, *cases) -> dict:
+    """Every route of ``cases`` (all by default) on a model group of
+    ``world``; the checks of a group of one, and the window batcher's
+    faults on a group of 2 with the first case."""
+    spec = json.loads(str(inp["rt/spec"]))
+    heads = _heads(inp)
+    res = {}
+    for case in cases or spec["cases"]:
+        gen, drafts = _route_generators(inp, case, world)
+        _routes(gen, drafts, heads, spec, case, res)
+    if world == 1:
+        _checks_alone(inp, spec, res)
+    if world == 2 and (not cases or cases[0] == spec["cases"][0]):
+        _window_failures(rank, world, inp, spec, res)
+    return res
+
+
+def task_sharded_routes(inp, out) -> None:
+    """tests/test_torch_sharded_routes.py."""
+    from eamg_tpu_torch.decode.medusa import generate_medusa
+    from eamg_tpu_torch.utils import prng
+
+    spec = json.loads(str(inp["rt/spec"]))
+    heads = _heads(inp)
+    tmp = tempfile.mkdtemp()
+    # a world a case, all at once
+    groups = [(world, start("routes_world", world, inp, tmp, case))
+              for world in (2, 4) for case in spec["cases"]]
+    for case in spec["cases"]:
+        res = {}
+        gen, drafts = _route_generators(inp, case, None)
+        _routes(gen, drafts, heads, spec, case, res)
+        _merge(out, "one", {k: v for k, v in res.items()
+                            if "/state/" not in k and "/decode/" not in k})
+        # the tokens the sampled Medusa run's verify steps made, and the
+        # steps: its heads' proposals are accepted and rejected
+        ids = spec["prompt"]
+        prompt = torch.zeros((1, 16), dtype=torch.int64)
+        prompt[0, :len(ids)] = torch.tensor(ids)
+        _, n, steps = generate_medusa(
+            gen.params, heads, prompt, len(ids), prng.PRNGKey(spec["seed"]),
+            gen.cfg, spec["max_len"], gamma=spec["gamma"],
+            top_k=spec["top_k"], eos_id=-1, pad_id=0)
+        out[f"one/{case}/medusa/steps"] = np.asarray([n - len(ids) - 1,
+                                                      steps])
+    with _one_rank_world(tmp, "rt1"):
+        _merge(out, "w1/r0", routes_world(0, 1, inp, tmp))
+    for world, started in groups:
+        for r, res in enumerate(collect(started)):
+            _merge(out, f"w{world}/r{r}", res)
+
+
 PARALLEL_TASKS = {"mesh": task_mesh, "pipeline": task_pipeline,
                   "ring": task_ring, "ep": task_ep,
                   "sharded_decode": task_sharded_decode,
-                  "sharded_engine": task_sharded_engine}
+                  "sharded_engine": task_sharded_engine,
+                  "sharded_routes": task_sharded_routes}
