@@ -53,6 +53,7 @@ import torch
 from ..models.gpt import (GPTConfig, cache_layout, decode_step,
                           forward_masked, init_kv_cache, prefill)
 from ..utils import prng
+from ..utils.logging import span
 from . import graphs
 from .grammar import (grammar_mask, grammar_step, grammar_tables,
                       scan_prompt_state)
@@ -336,26 +337,37 @@ def _blocks(st: SoloLoop, pos0: int, keys, emit: bool = False):
     block, after its replay. With ``emit`` the item is the block's tokens
     before ``max_len`` and then the inert count, [B, n + 1] on the host in
     one copy; else None. It looks at the state once a block (not after the
-    last one, nor when no row can end) and stops once every row is done."""
+    last one, nor when no row can end) and stops once every row is done.
+    Spans: ``decode.block`` (the replay's issue), ``decode.block_flags``
+    (the host's wait for the block's flags)."""
     B, L = st.buf.shape[0], st.max_len
     n_blocks = max(-(-(L - pos0) // st.block), 0)
     block_keys = next(keys) if keys is not None and n_blocks else None
     for run in range(n_blocks):
-        if keys is not None:
-            graphs.load_keys(st.keys, block_keys)
-        st.graph.run()
         last = run + 1 == n_blocks
-        if keys is not None and not last:
-            block_keys = next(keys)            # on the host, while it runs
+        with span("decode.block", rows=B, steps=st.block):
+            if keys is not None:
+                graphs.load_keys(st.keys, block_keys)
+            st.graph.run()
+            if keys is not None and not last:
+                block_keys = next(keys)        # on the host, while it runs
         host = None
         if emit:
             start = pos0 + run * st.block
-            host = torch.cat((st.buf[:, start:min(start + st.block, L)],
-                              st.inert.expand(B, 1)), 1).cpu().numpy()
+            with span("decode.block_flags") as sp:
+                host = torch.cat((st.buf[:, start:min(start + st.block, L)],
+                                  st.inert.expand(B, 1)), 1).cpu().numpy()
+                sp.count(inert=int(host[0, -1]))
         yield host
         if last or st.eos_id < 0:
             continue
-        if (int(host[0, -1]) if emit else int(st.inert.item())) > 0:
+        if emit:
+            inert = int(host[0, -1])
+        else:
+            with span("decode.block_flags") as sp:
+                inert = int(st.inert.item())
+                sp.count(inert=inert)
+        if inert > 0:
             return                             # every row is done
 
 

@@ -27,6 +27,14 @@ positions and done flags in one tensor), copied without blocking into
 pinned host memory and awaited through an event. The worker and the
 detached decode issue on streams of their own.
 
+Under a profiler session (``utils/logging.py``) every iteration of the
+worker lies under one span: ``engine.wait_requests`` (blocked for want of
+requests), ``engine.admit``, ``engine.chunk``, ``engine.harvest_wait``,
+``engine.harvest``, or the ``engine.loop`` around them; a request's
+``engine.queue`` runs from ``submit`` to its dequeue, its
+``engine.join`` to when the card reaches its prefill. ``stats`` counts
+``row_steps``, ``live_row_steps`` and ``row_tokens`` always.
+
 ``submit_stream`` is the streaming twin of ``submit``: the worker pushes a
 row's new tokens at every harvest, and their concatenation is
 ``submit()``'s result less the prompt. A stream closed mid-way cancels its
@@ -102,6 +110,7 @@ hidden states after the sums, and their logits are gathered whole
 from __future__ import annotations
 
 import datetime
+import itertools
 import queue
 import threading
 import time
@@ -126,6 +135,7 @@ from ..decode.speculative import (_categorical_log, _dist, _softmax,
 from ..models.gpt import init_kv_cache, prefill
 from ..utils import prng
 from ..utils.device import bind_thread_to
+from ..utils.logging import add_span, clock_ns, span
 
 _NEUTRAL_PEN = (1.0, 0.0, 0.0)   # (repetition, frequency, presence) = off
 
@@ -739,6 +749,9 @@ class _Pending:
     grammar: bool = False        # FSM-constrained decoding for this row
     medusa: bool = False         # per-row Medusa decoding
     admit_seq: int = -1          # chunks dispatched when the row joined
+    rid: int = 0                 # the engine's request number (spans)
+    submitted_ns: int = 0        # submit on the spans' clock
+    submit_tid: int = 0          # the submitting thread's OS id
     started: float | None = None
     finished: float | None = None
     event: threading.Event = field(default_factory=threading.Event)
@@ -841,9 +854,19 @@ class ContinuousBatcher:
         self._free = list(range(slots))
         self._busy = False   # worker between dequeue and _live insertion
         # bounded: a long-running server must not grow per-request state
+        # row_steps: slots x steps of every chunk; live_row_steps: the
+        # rows live at its dispatch (finished rows not yet harvested
+        # among them) x steps; row_tokens: the tokens the harvests found
         self.stats = {"chunks": 0, "admitted": 0, "served": 0,
-                      "cancelled": 0, "rejected": 0,
+                      "cancelled": 0, "rejected": 0, "row_steps": 0,
+                      "live_row_steps": 0, "row_tokens": 0,
                       "join_delay_ms": deque(maxlen=4096)}
+        self._rids = itertools.count()
+        # each slot's row's position at its last harvest (row_tokens)
+        self._seen_pos = np.zeros(slots, np.int64)
+        # rows admitted behind a chunk in flight: the card reaches their
+        # prefill when the worker's wait on that chunk's snapshot ends
+        self._joining: list[_Pending] = []
         self._stop = False
         self._plan = _PlanChannel(self.tp, slots, self.max_len) \
             if self._group else None
@@ -969,7 +992,9 @@ class ContinuousBatcher:
         return _Pending(list(prompt_ids), float(temperature),
                         int(seed) if seed is not None
                         else int(time.time_ns() % 2**31), ml,
-                        submitted=time.monotonic(),
+                        submitted=time.monotonic(), rid=next(self._rids),
+                        submitted_ns=clock_ns(),
+                        submit_tid=threading.get_native_id(),
                         top_p=float(top_p) if top_p is not None else 1.0,
                         min_p=float(min_p) if min_p is not None else 0.0,
                         penalties=pen, ngram=int(no_repeat_ngram or 0),
@@ -1238,7 +1263,9 @@ class ContinuousBatcher:
 
     def _admit(self, req: _Pending, a: _Admission):
         slot = a.slot
-        self._admit_row(a)
+        with span("engine.admit", rid=req.rid,
+                  prompt_len=len(a.prompt_ids)):
+            self._admit_row(a)
         if a.medusa:
             self._med_slots.add(slot)
         else:
@@ -1246,6 +1273,7 @@ class ContinuousBatcher:
         req.started = time.monotonic()
         req.admit_seq = self.stats["chunks"]
         self._live[slot] = req
+        self._seen_pos[slot] = len(a.prompt_ids)
         self.stats["admitted"] += 1
         self.stats["join_delay_ms"].append(
             (req.started - req.submitted) * 1000)
@@ -1257,17 +1285,34 @@ class ContinuousBatcher:
         occupant was admitted at or after this snapshot's dispatch
         (admit_seq >= seq) is skipped: the snapshot's done flag still
         describes the slot's previous life (free slots read done=True)."""
-        arr = _finish_fetch(fetch)
+        with span("engine.harvest_wait"):
+            arr = _finish_fetch(fetch)
+        if self._joining:
+            end = clock_ns()
+            for req in self._joining:
+                add_span("engine.join", req.submitted_ns, end, rid=req.rid,
+                         tid=req.submit_tid)
+            self._joining.clear()
+        with span("engine.harvest") as sp:
+            served = self.stats["served"]
+            tokens = self._fulfil(arr, seq)
+            self.stats["row_tokens"] += tokens
+            sp.count(tokens=tokens, served=self.stats["served"] - served)
+
+    def _fulfil(self, arr: np.ndarray, seq: int) -> int:
+        """:meth:`_harvest`'s work on a fetched snapshot -> the tokens its
+        rows made since their last harvest."""
         buf, pos, done = arr[:, :-2], arr[:, -2], arr[:, -1].astype(bool)
         eligible = [(s, r) for s, r in self._live.items() if r.admit_seq < seq]
-        # a streamed row's new tokens: the cells of a row below pos are
-        # written once and never again, so reading them from this snapshot
-        # is final while the row keeps decoding
+        tokens = 0
         for slot, req in eligible:
-            if req.stream_q is None:
-                continue
             end = min(int(pos[slot]), req.max_len)
-            if end > req.emitted:
+            tokens += end - int(self._seen_pos[slot])
+            self._seen_pos[slot] = end
+            # a streamed row's new tokens: the cells of a row below pos are
+            # written once and never again, so reading them from this
+            # snapshot is final while the row keeps decoding
+            if req.stream_q is not None and end > req.emitted:
                 req.stream_q.put(("tokens",
                                   buf[slot, req.emitted:end].tolist()))
                 req.emitted = end
@@ -1284,6 +1329,7 @@ class ContinuousBatcher:
             req.event.set()
             self._free.append(slot)
             self.stats["served"] += 1
+        return tokens
 
     def _drain_cancels(self):
         """Free the slots of cancelled live rows (worker thread only).
@@ -1314,6 +1360,7 @@ class ContinuousBatcher:
                 req.stream_q.put(("error", exc))
             req.event.set()
         self._live.clear()
+        self._joining.clear()
         self._med_slots.clear()
         self._med_rows[:] = False
         self._free = list(range(self.slots))
@@ -1353,57 +1400,79 @@ class ContinuousBatcher:
             # admissions and chunk from its plan until the chunk returns
             admits, in_step = [], False
             try:
-                self._drain_cancels()
-                # take as many queued requests as there are free slots
-                try:
-                    while len(admits) < len(self._free):
-                        block = not self._live and not admits \
-                            and pending_fetch is None
-                        req = self._q.get(block=block, timeout=None)
-                        # _busy covers the dequeued-but-not-yet-in-_live
-                        # window so drain() can't report idle while a
-                        # request is mid-admission
-                        self._busy = True
-                        if req is None:
-                            return
-                        if req.cancelled:
-                            self.stats["cancelled"] += 1
-                            # not busy while blocked in the next get()
-                            self._busy = bool(admits)
-                            continue
-                        admits.append(req)
-                except queue.Empty:
-                    pass
-                plan = [self._admission(r, self._free.pop()) for r in admits]
-                # the Medusa chunk only while a live Medusa row exists
-                medusa = any(s in self._live for s in self._med_slots) \
-                    or any(a.medusa for a in plan)
-                if plan or self._live:
-                    if self._plan is not None:
-                        in_step = True
-                        self._plan.send(plan, (medusa,))
-                    for req, a in zip(admits, plan):
-                        self._admit(req, a)
-                self._busy = False
-                if not self._live and pending_fetch is None:
-                    continue
+                # one iteration: engine.loop holds the bookkeeping between
+                # its other spans, so the worker's spans tile its time
+                with span("engine.loop"):
+                    self._drain_cancels()
+                    # take as many queued requests as there are free slots
+                    try:
+                        while len(admits) < len(self._free):
+                            if not self._live and not admits \
+                                    and pending_fetch is None:
+                                with span("engine.wait_requests"):
+                                    req = self._q.get()
+                            else:
+                                req = self._q.get(block=False)
+                            # _busy covers the dequeued-but-not-yet-in-_live
+                            # window so drain() can't report idle while a
+                            # request is mid-admission
+                            self._busy = True
+                            if req is None:
+                                return
+                            if req.cancelled:
+                                self.stats["cancelled"] += 1
+                                # not busy while blocked in the next get()
+                                self._busy = bool(admits)
+                                continue
+                            add_span("engine.queue", req.submitted_ns,
+                                     rid=req.rid, tid=req.submit_tid)
+                            admits.append(req)
+                    except queue.Empty:
+                        pass
+                    plan = [self._admission(r, self._free.pop())
+                            for r in admits]
+                    # the Medusa chunk only while a live Medusa row exists
+                    medusa = any(s in self._live for s in self._med_slots) \
+                        or any(a.medusa for a in plan)
+                    if plan or self._live:
+                        if self._plan is not None:
+                            in_step = True
+                            self._plan.send(plan, (medusa,))
+                        for req, a in zip(admits, plan):
+                            self._admit(req, a)
+                            # the prefill queues behind the chunk in flight,
+                            # if any (engine.join ends in _harvest)
+                            if pending_fetch is None:
+                                add_span("engine.join", req.submitted_ns,
+                                         rid=req.rid, tid=req.submit_tid)
+                            else:
+                                self._joining.append(req)
+                    self._busy = False
+                    if not self._live and pending_fetch is None:
+                        continue
 
-                if self._live:
-                    self._chunk(medusa)
-                    in_step = False
-                    self.stats["chunks"] += 1
-                    # depth-1 lookahead: the PREVIOUS chunk's flags are
-                    # read while this one computes
-                    prev, pending_fetch = (
-                        pending_fetch,
-                        (_start_fetch(_pack_snapshot(self.state)),
-                         self.stats["chunks"]))
-                    if prev is not None:
+                    if self._live:
+                        steps = self.chunk_med if medusa else self.chunk
+                        live = len(self._live)
+                        with span("engine.chunk", rows=live, slots=self.slots,
+                                  steps=steps):
+                            self._chunk(medusa)
+                        in_step = False
+                        self.stats["chunks"] += 1
+                        self.stats["row_steps"] += self.slots * steps
+                        self.stats["live_row_steps"] += live * steps
+                        # depth-1 lookahead: the PREVIOUS chunk's flags are
+                        # read while this one computes
+                        prev, pending_fetch = (
+                            pending_fetch,
+                            (_start_fetch(_pack_snapshot(self.state)),
+                             self.stats["chunks"]))
+                        if prev is not None:
+                            self._harvest(*prev)
+                    else:
+                        # nothing live: drain the outstanding fetch
+                        prev, pending_fetch = pending_fetch, None
                         self._harvest(*prev)
-                else:
-                    # nothing live: drain the outstanding fetch
-                    prev, pending_fetch = pending_fetch, None
-                    self._harvest(*prev)
             except Exception as exc:  # noqa: BLE001 - worker must survive
                 pending_fetch = None
                 self._busy = False

@@ -65,6 +65,7 @@ import io
 import os
 import threading
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import torch
@@ -77,6 +78,7 @@ from ..tokenizer import (SchemeB3, Vocab, assemble_prompt, detect_scheme,
                          tokens_to_song)
 from ..utils.checkpoint import load_checkpoint
 from ..utils.device import resolve_device
+from ..utils.logging import span
 
 # the JAX package's shipped demo checkpoints, read as data
 _DEMOS = os.path.join(os.path.dirname(os.path.dirname(
@@ -340,7 +342,7 @@ class Pipeline:
         pipeline's lock, as JAX decodes them in its default
         configuration."""
         gen = self.generator
-        with self._lock:
+        with self._locked():
             if beams:
                 return gen.generate_ids_beam(
                     prompt_ids, n_beams=beams, length_penalty=length_penalty,
@@ -391,7 +393,7 @@ class Pipeline:
             tokens = gen.trim_at_eos(ids)
             return known, tokens, tokens_to_song(tokens), dropped
         if self.scheme == "b3":
-            with self._lock:
+            with self._locked():
                 ids = gen.generate_ids(
                     prompt_ids, temperature=temperature, top_k=top_k,
                     seed=run_seed, top_p=top_p, min_p=min_p,
@@ -426,7 +428,7 @@ class Pipeline:
                     penalties=penalties, no_repeat_ngram=no_repeat_ngram,
                     grammar=grammar))
             else:
-                with self._lock:
+                with self._locked():
                     tokens = gen.sample_kvcache(
                         known, temperature=temperature, top_k=top_k,
                         seed=run_seed, top_p=top_p, min_p=min_p,
@@ -451,21 +453,17 @@ class Pipeline:
         decode options (solo)."""
         render = self.render_audio if render_audio is None else render_audio
         timings = {}
-        t0 = time.perf_counter()
-        label = self.classifier.predict(prompt_text)
-        timings["classify"] = (time.perf_counter() - t0) * 1000
-
-        t0 = time.perf_counter()
-        mapping = get_music_params(label, seed=seed)
-        timings["map_and_prompt"] = (time.perf_counter() - t0) * 1000
-
-        t0 = time.perf_counter()
-        run_seed = seed if seed is not None else \
-            int(time.time_ns() % 2**31)
-        gen_prompt, tokens, song, dropped = self._decode(
-            mapping, temperature, top_k, run_seed, top_p, min_p, penalties,
-            no_repeat_ngram, grammar, lookup, medusa, beams, length_penalty)
-        timings["decode"] = (time.perf_counter() - t0) * 1000
+        with span("pipeline.classify", ms=timings):
+            label = self.classifier.predict(prompt_text)
+        with span("pipeline.map_and_prompt", ms=timings):
+            mapping = get_music_params(label, seed=seed)
+        with span("pipeline.decode", ms=timings):
+            run_seed = seed if seed is not None else \
+                int(time.time_ns() % 2**31)
+            gen_prompt, tokens, song, dropped = self._decode(
+                mapping, temperature, top_k, run_seed, top_p, min_p,
+                penalties, no_repeat_ngram, grammar, lookup, medusa, beams,
+                length_penalty)
 
         midi_bytes, wav_bytes = self._finish(song, seed, render, timings)
         return GenerationResult(label=label, mapping=mapping,
@@ -473,15 +471,24 @@ class Pipeline:
                                 midi_bytes=midi_bytes, wav_bytes=wav_bytes,
                                 timings_ms=timings, dropped_tokens=dropped)
 
+    @contextmanager
+    def _locked(self):
+        """The pipeline's lock, the wait for it under the span
+        ``pipeline.lock_wait``."""
+        with span("pipeline.lock_wait"):
+            self._lock.acquire()
+        try:
+            yield
+        finally:
+            self._lock.release()
+
     def _section(self, i: int, text: str, seed: int | None,
                  timings: dict) -> tuple:
         """Section ``i`` of a prompt: its sentence classified (the time
         added to ``timings["classify"]``) and EATS-mapped with seed + i, and
         its decode seed. -> (label, mapping, run seed)."""
-        t0 = time.perf_counter()
-        label = self.classifier.predict(text)
-        timings["classify"] = (timings.get("classify", 0.0)
-                               + (time.perf_counter() - t0) * 1000)
+        with span("pipeline.classify", ms=timings):
+            label = self.classifier.predict(text)
         mapping = get_music_params(label,
                                    seed=None if seed is None else seed + i)
         run_seed = (seed + i) if seed is not None else \
@@ -492,22 +499,20 @@ class Pipeline:
                 timings: dict) -> tuple:
         """-> (the song's MIDI bytes, its WAV bytes when ``render`` else
         None), each phase timed into ``timings``."""
-        t0 = time.perf_counter()
-        midi_io = io.BytesIO()
-        song.write(midi_io)
-        timings["detokenize_midi"] = (time.perf_counter() - t0) * 1000
+        with span("pipeline.detokenize_midi", ms=timings):
+            midi_io = io.BytesIO()
+            song.write(midi_io)
         wav_bytes = None
         if render:
-            t0 = time.perf_counter()
-            wav_bytes = self._render(song, seed)
-            timings["render_wav"] = (time.perf_counter() - t0) * 1000
+            with span("pipeline.render_wav", ms=timings):
+                wav_bytes = self._render(song, seed)
         return midi_io.getvalue(), wav_bytes
 
     def _render(self, song: MidiSong, seed: int | None) -> bytes:
         """The song's WAV bytes (FluidSynth when the host has it, the
         additive synth otherwise), under the pipeline's lock."""
         wav_io = io.BytesIO()
-        with self._lock:
+        with self._locked():
             render_to_wav_auto(song, wav_io, seed=seed or 0,
                                device=self.device)
             if self.device.type == "cuda":
@@ -540,23 +545,22 @@ class Pipeline:
                                  min_p=min_p, **options)
         render = self.render_audio if render_audio is None else render_audio
         timings = {}
-        t_all = time.perf_counter()
         labels, mappings, all_tokens, all_prompts, dropped = \
             [], [], [], [], []
         merged = _Sections(gap_s)
-        for i, seg in enumerate(segments):
-            label, mapping, run_seed = self._section(i, seg, seed, timings)
-            gp, tokens, song, drop = self._decode(
-                mapping, temperature, top_k, run_seed, top_p, min_p,
-                **options)
-            labels.append(label)
-            mappings.append(mapping)
-            all_tokens.extend(tokens)
-            all_prompts.extend(gp)
-            dropped.extend(drop)
-            merged.add(song)
-        timings["classify_map_decode_all"] = \
-            (time.perf_counter() - t_all) * 1000
+        with span("pipeline.classify_map_decode_all", ms=timings):
+            for i, seg in enumerate(segments):
+                label, mapping, run_seed = self._section(i, seg, seed,
+                                                         timings)
+                gp, tokens, song, drop = self._decode(
+                    mapping, temperature, top_k, run_seed, top_p, min_p,
+                    **options)
+                labels.append(label)
+                mappings.append(mapping)
+                all_tokens.extend(tokens)
+                all_prompts.extend(gp)
+                dropped.extend(drop)
+                merged.add(song)
         midi_bytes, wav_bytes = self._finish(merged.song, seed, render,
                                              timings)
         return GenerationResult(
@@ -654,61 +658,60 @@ class Pipeline:
         if not segments:
             segments = [prompt_text]
         timings: dict = {}
-        t_all = time.perf_counter()
-        merged = _Sections(gap_s)
-        labels, all_tokens, all_prompts, dropped_all = [], [], [], []
-        eos = self.generator.eos_id
-        id2tok = (self.scheme_b.vocab if self.scheme == "b3"
-                  else self.generator.vocab).id2tok
-        for i, seg in enumerate(segments):
-            label, mapping, run_seed = self._section(i, seg, seed, timings)
-            gen_prompt, prompt_ids, dropped = self._prompt_for(mapping)
-            labels.append(label)
-            all_prompts.extend(gen_prompt)
-            dropped_all.extend(dropped)
-            yield {"event": "meta", "section": i,
-                   "n_sections": len(segments), "text": seg, "label": label,
-                   "mapping": mapping, "prompt_tokens": gen_prompt,
-                   "dropped_tokens": dropped}
-            ids = list(prompt_ids)
-            t0 = time.perf_counter()
-            hit_eos = False
-            deltas = self._stream_deltas(prompt_ids, temperature, top_k,
-                                         run_seed, chunk=chunk, top_p=top_p,
-                                         min_p=min_p, penalties=penalties,
-                                         no_repeat_ngram=no_repeat_ngram,
-                                         grammar=grammar, medusa=medusa)
-            try:
-                for delta in deltas:
-                    out = []
-                    for t in delta:
-                        out.append(int(t))
-                        if int(t) == eos:
-                            hit_eos = True
-                            break
-                    if not out:
-                        continue
-                    ids.extend(out)
-                    yield {"event": "tokens", "section": i, "ids": out,
-                           "texts": [id2tok[t] for t in out],
-                           "n_generated": len(ids) - len(prompt_ids)}
-                    if hit_eos:
-                        break
-            finally:
-                # a consumer that closes this generator (an SSE client gone)
-                # reaches the engine's stream now, which cancels its row
-                deltas.close()
-            timings["decode"] = (timings.get("decode", 0.0)
-                                 + (time.perf_counter() - t0) * 1000)
-            tokens, song = self._song(ids)
-            all_tokens.extend(tokens)
-            merged.add(song)
+        with span("pipeline.total", ms=timings):
+            merged = _Sections(gap_s)
+            labels, all_tokens, all_prompts, dropped_all = [], [], [], []
+            eos = self.generator.eos_id
+            id2tok = (self.scheme_b.vocab if self.scheme == "b3"
+                      else self.generator.vocab).id2tok
+            for i, seg in enumerate(segments):
+                label, mapping, run_seed = self._section(i, seg, seed,
+                                                         timings)
+                gen_prompt, prompt_ids, dropped = self._prompt_for(mapping)
+                labels.append(label)
+                all_prompts.extend(gen_prompt)
+                dropped_all.extend(dropped)
+                yield {"event": "meta", "section": i,
+                       "n_sections": len(segments), "text": seg,
+                       "label": label, "mapping": mapping,
+                       "prompt_tokens": gen_prompt, "dropped_tokens": dropped}
+                ids = list(prompt_ids)
+                hit_eos = False
+                with span("pipeline.decode", ms=timings):
+                    deltas = self._stream_deltas(
+                        prompt_ids, temperature, top_k, run_seed, chunk=chunk,
+                        top_p=top_p, min_p=min_p, penalties=penalties,
+                        no_repeat_ngram=no_repeat_ngram, grammar=grammar,
+                        medusa=medusa)
+                    try:
+                        for delta in deltas:
+                            out = []
+                            for t in delta:
+                                out.append(int(t))
+                                if int(t) == eos:
+                                    hit_eos = True
+                                    break
+                            if not out:
+                                continue
+                            ids.extend(out)
+                            yield {"event": "tokens", "section": i, "ids": out,
+                                   "texts": [id2tok[t] for t in out],
+                                   "n_generated": len(ids) - len(prompt_ids)}
+                            if hit_eos:
+                                break
+                    finally:
+                        # a consumer that closes this generator (an SSE client
+                        # gone) reaches the engine's stream now, which cancels
+                        # its row
+                        deltas.close()
+                tokens, song = self._song(ids)
+                all_tokens.extend(tokens)
+                merged.add(song)
 
-        midi_bytes, wav_bytes = self._finish(merged.song, seed, render,
-                                             timings)
-        wav_b64 = None if wav_bytes is None else \
-            base64.b64encode(wav_bytes).decode()
-        timings["total"] = (time.perf_counter() - t_all) * 1000
+            midi_bytes, wav_bytes = self._finish(merged.song, seed, render,
+                                                 timings)
+            wav_b64 = None if wav_bytes is None else \
+                base64.b64encode(wav_bytes).decode()
         yield {"event": "done", "label": " / ".join(labels),
                "n_tokens": len(all_tokens),
                "timings_ms": {k: round(v, 1) for k, v in timings.items()},

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..utils.device import bind_thread_to
+from ..utils.logging import span
 
 
 def to_device(a, device: torch.device) -> torch.Tensor:
@@ -67,7 +68,8 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        item = self._q.get()
+        with span("train.data_wait"):
+            item = self._q.get()
         if item is self._DONE:
             if self._err is not None:
                 raise self._err

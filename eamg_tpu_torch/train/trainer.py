@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 from ..models.gpt import (GPTConfig, _head, forward_hidden_train,
                           forward_hidden_with_aux)
 from ..utils.device import resolve_device
+from ..utils.logging import span
 from .prefetch import to_device
 
 
@@ -378,7 +379,9 @@ def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None,
     group's ``TensorParallel`` under ``tcfg.tp``) ``params`` are this
     rank's blocks and x, y the GLOBAL batch: the same loop runs on this
     rank's rows with the global counts, then ``plan`` sums the gradient
-    and the loss over the data group before the division."""
+    and the loss over the data group before the division. Spans (under a
+    profiler session): ``train.forward`` (the loss), ``train.backward``
+    (``autograd.grad``) and ``train.optimizer`` (the update)."""
     optimizer = optimizer or make_optimizer(tcfg)
     dp = plan.data_group if plan is not None and plan.d > 1 else None
     lfn = _loss_for(cfg, tcfg, tp, dp)
@@ -396,10 +399,12 @@ def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None,
         loss_sum = torch.zeros((), device=x.device)
         count_sum = torch.zeros((), dtype=torch.int64, device=x.device)
         for i in range(x.shape[0]):
-            loss, count = lfn(tree, x[i], y[i],
-                              None if seg is None else seg[i],
-                              None if counts is None else counts[i])
-            grads = torch.autograd.grad(loss, live)
+            with span("train.forward"):
+                loss, count = lfn(tree, x[i], y[i],
+                                  None if seg is None else seg[i],
+                                  None if counts is None else counts[i])
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, live)
             with torch.no_grad():
                 weighted = torch._foreach_mul(list(grads), count.float())
                 if acc is None:
@@ -414,7 +419,8 @@ def make_train_step(cfg: GPTConfig, tcfg: TrainConfig, optimizer=None,
                 acc, loss_sum = plan.reduce_grads(acc, loss_sum[None])
                 loss_sum, norm_fn = loss_sum[0], plan.global_norm
             grads = torch._foreach_div(acc, count_sum.float())
-        metrics = optimizer.update(grads, opt_state, leaves, norm_fn)
+        with span("train.optimizer"):
+            metrics = optimizer.update(grads, opt_state, leaves, norm_fn)
         metrics.update(loss=loss_sum / count_sum, tokens=count_sum)
         return metrics
 
@@ -498,15 +504,17 @@ class Trainer:
     def train_step(self, x, y, seg=None, sync: bool = True):
         """x, y (and seg with TrainConfig.pack): [accum, micro, T] int
         arrays (host or device). ``sync=False`` returns the metrics as
-        device tensors without waiting for the step."""
+        device tensors without waiting for the step. Its span,
+        ``train.step``, counts the batch's target positions (``tokens``)."""
         if (seg is not None) != bool(self.tcfg.pack):
             raise ValueError("TrainConfig.pack and the seg operand must "
                              "agree (use data.packed_batches for packed "
                              "training)")
-        x, y = to_device(x, self.device), to_device(y, self.device)
-        if seg is not None:
-            seg = to_device(seg, self.device)
-        metrics = self.step_fn(self.params, self.opt_state, x, y, seg)
+        with span("train.step", tokens=int(np.prod(y.shape))):
+            x, y = to_device(x, self.device), to_device(y, self.device)
+            if seg is not None:
+                seg = to_device(seg, self.device)
+            metrics = self.step_fn(self.params, self.opt_state, x, y, seg)
         self.step += 1
         if sync:
             return {k: float(v) for k, v in metrics.items()}
